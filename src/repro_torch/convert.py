@@ -1,0 +1,37 @@
+"""Weight carry-over from the JAX package's flat pools to the port's.
+
+Both packages lay out a model as the same flat pools (``{"embed",
+"layers", "head"}``, each ``[stack, tp, flat_len]`` fp32, same segment
+offsets), so carrying weights over is a checked copy.  With it, the two
+packages compute the same function on the same weights.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.lm import ModelDef
+
+
+def params_from_jax(model: ModelDef, params: Mapping[str, np.ndarray], *,
+                    device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """``params``: ``np.asarray`` of each pool of the JAX package's
+    ``init_state(...)["params"]``.  Raises on a missing, extra or misshapen
+    pool."""
+    dev = resolve_device(device)
+    want = model.global_flat_shapes()
+    if set(params) != set(want):
+        raise ValueError(f"pools {sorted(params)} != the model's {sorted(want)}")
+    out = {}
+    for name, shape in want.items():
+        arr = np.asarray(params[name])
+        if arr.shape != shape:
+            raise ValueError(f"pool {name!r}: shape {arr.shape} != {shape}")
+        if arr.dtype != np.float32:
+            raise ValueError(f"pool {name!r}: dtype {arr.dtype} != float32")
+        out[name] = torch.from_numpy(np.array(arr, copy=True)).to(dev)
+    return out

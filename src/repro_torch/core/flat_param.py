@@ -1,0 +1,153 @@
+"""Flat parameter pools: ZeRO-3 / MiCS uniform model-state partitioning
+(the port of ``repro/core/flat_param.py``).
+
+Every block's TP-local tensors are flattened and concatenated into one fp32
+vector, padded so any partition-group size divides it.  Gathering a layer
+is then one collective over one contiguous buffer (the paper's coalesced
+communication, §4).  Segment metadata records how to rebuild the tensors.
+The offsets, padding and per-segment init recipe are the JAX package's, so
+the two packages agree on every pool's shape; the random draws differ.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Iterable, Mapping
+
+import torch
+
+# Any partition-group size we ever use (<= 32 data-parallel participants in
+# ZeRO-3 multi-pod mode) times the 128-lane alignment of the reference.
+PAD_MULTIPLE = 32 * 128
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """One logical tensor inside a flat pool (shapes are TP-local)."""
+
+    name: str
+    shape: tuple[int, ...]
+    offset: int            # element offset into the flat vector
+    decay: bool            # weight decay applies to this segment
+    init: str              # 'normal' | 'zeros' | 'ones'
+    std: float             # stddev for 'normal'
+    model_gather: int = 1  # all-gather group size over the model axis at use
+    model_gather_dim: int = 0
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def end(self) -> int:
+        return self.offset + self.size
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """Static description of a flat pool; shared by every layer in a stack."""
+
+    segments: tuple[Segment, ...]
+    raw_len: int
+    flat_len: int
+
+    @staticmethod
+    def build(segments: Iterable[Segment]) -> "FlatLayout":
+        segs = tuple(segments)
+        raw = segs[-1].end if segs else 0
+        flat = ((raw + PAD_MULTIPLE - 1) // PAD_MULTIPLE) * PAD_MULTIPLE
+        flat = max(flat, PAD_MULTIPLE)
+        return FlatLayout(segs, raw, flat)
+
+    def seg(self, name: str) -> Segment:
+        for s in self.segments:
+            if s.name == name:
+                return s
+        raise KeyError(name)
+
+    @property
+    def param_count(self) -> int:
+        return self.raw_len
+
+    def unflatten(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Rebuild tensors from a gathered flat vector, as views of it (no
+        copy).  Model-axis-sharded segments need no reassembly at tp = 1,
+        the only width this slice runs."""
+        return {s.name: flat[s.offset:s.end].view(s.shape) for s in self.segments}
+
+    def flatten(self, tensors: Mapping[str, torch.Tensor],
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        parts = []
+        cursor = 0
+        for s in self.segments:
+            if s.offset != cursor:
+                raise ValueError("segments are not contiguous")
+            parts.append(tensors[s.name].reshape(-1).to(dtype))
+            cursor = s.end
+        device = parts[0].device if parts else None
+        pad = self.flat_len - self.raw_len
+        if pad:
+            parts.append(torch.zeros(pad, dtype=dtype, device=device))
+        return torch.cat(parts) if parts else torch.zeros(
+            self.flat_len, dtype=dtype)
+
+    def init_flat(self, gen: torch.Generator, *, device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Full flat vector init: per-segment normal(0, std), zeros or ones,
+        written straight into one buffer.  ``gen`` must live on ``device``."""
+        out = torch.zeros(self.flat_len, dtype=dtype, device=device)
+        for s in self.segments:
+            view = out[s.offset:s.end]
+            if s.init == "normal":
+                view.normal_(0.0, s.std, generator=gen)
+            elif s.init == "ones":
+                view.fill_(1.0)
+            elif s.init != "zeros":
+                raise ValueError(f"unknown init {s.init!r}")
+        return out
+
+
+class LayoutBuilder:
+    """Accumulates segments with automatic offsets."""
+
+    def __init__(self, prefix: str = ""):
+        self.prefix = prefix
+        self._segments: list[Segment] = []
+        self._cursor = 0
+
+    def add(
+        self,
+        name: str,
+        shape: tuple[int, ...],
+        *,
+        decay: bool = True,
+        init: str = "normal",
+        std: float | None = None,
+        model_gather: int = 1,
+        model_gather_dim: int = 0,
+    ) -> None:
+        if std is None:
+            fan_in = shape[0] if len(shape) > 1 else max(shape[-1], 1)
+            std = 1.0 / math.sqrt(max(fan_in, 1))
+        seg = Segment(
+            name=self.prefix + name,
+            shape=tuple(int(d) for d in shape),
+            offset=self._cursor,
+            decay=decay,
+            init=init,
+            std=float(std),
+            model_gather=int(model_gather),
+            model_gather_dim=int(model_gather_dim),
+        )
+        self._segments.append(seg)
+        self._cursor += seg.size
+
+    def extend(self, other: "LayoutBuilder") -> None:
+        """Inline another builder's segments (namespaced) after ours."""
+        for s in other._segments:
+            self._segments.append(dataclasses.replace(s, offset=self._cursor))
+            self._cursor += s.size
+
+    def build(self) -> FlatLayout:
+        return FlatLayout.build(self._segments)

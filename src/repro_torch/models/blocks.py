@@ -1,0 +1,194 @@
+"""Dense transformer layer (the port of the dense part of
+``repro/models/blocks.py``).
+
+Each sub-block provides ``*_layout(cfg, tp, b)`` (appends its segments to a
+LayoutBuilder) and ``*_apply`` (a plain function over unflattened tensors).
+This slice runs self-attention in prefill mode and in contiguous decode
+with a scalar position; the paged / vector-position decode waits for the
+continuous-batching slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.flat_param import LayoutBuilder
+from repro_torch.models import layers as L
+from repro_torch.models.dims import AttnDims, attn_dims, shard_dim
+
+
+def attn_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = "attn.",
+                *, bias: bool = False) -> AttnDims:
+    ad = attn_dims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, tp)
+    d = cfg.d_model
+    std = 1.0 / math.sqrt(d)
+    out_std = 1.0 / math.sqrt(ad.hq_pad * ad.head_dim) / math.sqrt(2 * cfg.n_layers)
+    b.add(prefix + "wq", (d, ad.q_cols_local), std=std)
+    b.add(prefix + "wk", (d, ad.kv_cols_stored), std=std,
+          model_gather=ad.kv_gather, model_gather_dim=1)
+    b.add(prefix + "wv", (d, ad.kv_cols_stored), std=std,
+          model_gather=ad.kv_gather, model_gather_dim=1)
+    b.add(prefix + "wo", (ad.q_cols_local, d), std=out_std)
+    if bias:
+        b.add(prefix + "bq", (ad.q_cols_local,), init="zeros", decay=False)
+        b.add(prefix + "bk", (ad.kv_cols_stored,), init="zeros", decay=False,
+              model_gather=ad.kv_gather, model_gather_dim=0)
+        b.add(prefix + "bv", (ad.kv_cols_stored,), init="zeros", decay=False,
+              model_gather=ad.kv_gather, model_gather_dim=0)
+        b.add(prefix + "bo", (shard_dim(d, tp),), init="zeros", decay=False,
+              model_gather=tp, model_gather_dim=0)
+    return ad
+
+
+def attn_qkv(t, x, kv_x, ad: AttnDims, ctx: L.Ctx, prefix: str, *, bias: bool):
+    """Project to q [b,t,hkv_local,g,dh], k/v [b,t,hkv_local,dh]."""
+    bsz, tq, _ = x.shape
+    tk = kv_x.shape[1]
+    q = x @ t[prefix + "wq"]
+    k = kv_x @ t[prefix + "wk"]
+    v = kv_x @ t[prefix + "wv"]
+    if bias:
+        q = q + t[prefix + "bq"].to(q.dtype)
+        k = k + t[prefix + "bk"].to(k.dtype)
+        v = v + t[prefix + "bv"].to(v.dtype)
+    q = q.reshape(bsz, tq, ad.hkv_local, ad.q_per_kv_local, ad.head_dim)
+    k = k.reshape(bsz, tk, ad.hkv_local, ad.head_dim)
+    v = v.reshape(bsz, tk, ad.hkv_local, ad.head_dim)
+    return q, k, v
+
+
+def attn_out(t, attn: torch.Tensor, ad: AttnDims, ctx: L.Ctx, prefix: str, *, bias: bool):
+    """attn [b,t,hkv_local,g,dh] -> [b,t,d]."""
+    bsz, tq = attn.shape[:2]
+    if ad.hq != ad.hq_pad:  # multiplying by a mask of ones is the identity
+        hmask = L.local_head_mask(ad.hq, ad.hq_pad, ad.hq_local, ctx).to(attn.device)
+        attn = attn * hmask.reshape(1, 1, ad.hkv_local, ad.q_per_kv_local, 1).to(attn.dtype)
+    out = attn.reshape(bsz, tq, ad.q_cols_local) @ t[prefix + "wo"]
+    if ctx.tp != 1:
+        raise NotImplementedError("tensor parallelism comes with the multi-chip slice")
+    if bias:
+        out = out + t[prefix + "bo"].to(out.dtype)
+    return out
+
+
+def _rope5(q: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary over [b, t, hkv, g, dh] (fold grouped head dims)."""
+    b, tq, hkv, g, dh = q.shape
+    out = L.rotary(q.reshape(b, tq, hkv * g, dh), positions, theta)
+    return out.reshape(b, tq, hkv, g, dh)
+
+
+def self_attention(t, x, ctx: L.Ctx, ad: AttnDims, cfg: ArchConfig, *,
+                   prefix: str = "attn.", causal: bool = True, window: int = 0,
+                   use_rope: bool = True, bias: bool = False, cache=None):
+    """Self attention in prefill, contiguous decode or cache-less mode.
+
+    cache: None, or dict(k, v) of [b, cap, hkv, dh] for decode.  Returns
+    (out, new_cache).  Decode writes the new token's k/v into ``cache``
+    IN PLACE (JAX returns an updated copy via ``dynamic_update_slice``) and
+    returns the same dict.
+    """
+    bsz, tq, _ = x.shape
+    q, k, v = attn_qkv(t, x, x, ad, ctx, prefix, bias=bias)
+
+    if ctx.mode == "decode":
+        pos = ctx.pos
+        if not isinstance(pos, int):
+            raise NotImplementedError(
+                "per-request (vector) decode positions come with the "
+                "continuous-batching slice")
+        positions = torch.full((bsz, tq), pos, dtype=torch.int64, device=x.device)
+        if use_rope:
+            q = _rope5(q, positions, cfg.rope_theta)
+            k = L.rotary(k, positions, cfg.rope_theta)
+        cap = cache["k"].shape[1]
+        slot = pos % cap if window else pos
+        if slot + tq > cap:
+            raise ValueError(f"decode position {pos} + {tq} exceeds the cache "
+                             f"capacity {cap}")
+        cache["k"][:, slot:slot + tq] = k.to(cache["k"].dtype)  # in place
+        cache["v"][:, slot:slot + tq] = v.to(cache["v"].dtype)  # in place
+        valid = min(pos + 1, cap)
+        out = L.attention(q, cache["k"], cache["v"], causal=False, window=0,
+                          kv_valid_len=valid)
+        return attn_out(t, out, ad, ctx, prefix, bias=bias), cache
+
+    positions = torch.arange(tq, device=x.device).expand(bsz, tq)
+    if use_rope:
+        q = _rope5(q, positions, cfg.rope_theta)
+        k = L.rotary(k, positions, cfg.rope_theta)
+    out = L.attention(q, k, v, causal=causal, window=window)
+    new_cache = None
+    if ctx.mode == "prefill":
+        cap = ctx.cache_len if not window else min(window, ctx.cache_len)
+        if tq >= cap:
+            # slot of absolute position a is a % cap (matches decode writes)
+            k_keep = torch.roll(k[:, tq - cap:], tq % cap, dims=1)
+            v_keep = torch.roll(v[:, tq - cap:], tq % cap, dims=1)
+        else:
+            pad = (0, 0, 0, 0, 0, cap - tq)
+            k_keep = torch.nn.functional.pad(k, pad)
+            v_keep = torch.nn.functional.pad(v, pad)
+        new_cache = {"k": k_keep.to(ctx.compute_dtype).contiguous(),
+                     "v": v_keep.to(ctx.compute_dtype).contiguous()}
+    return attn_out(t, out, ad, ctx, prefix, bias=bias), new_cache
+
+
+def make_kv_cache(cfg: ArchConfig, tp: int, batch: int, cache_len: int, *,
+                  window: int = 0, dtype: torch.dtype = torch.bfloat16,
+                  device: torch.device | str = "cpu"):
+    ad = attn_dims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, tp)
+    cap = min(window, cache_len) if window else cache_len
+    shape = (batch, cap, ad.hkv_local, ad.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def norm_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, name: str):
+    b.add(name + ".scale", (shard_dim(cfg.d_model, tp),), init="zeros", decay=False,
+          model_gather=tp, model_gather_dim=0)
+
+
+def apply_norm(cfg: ArchConfig, t, x, name: str):
+    return L.rms_norm(x, t[name + ".scale"])
+
+
+def mlp_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = "mlp."):
+    d = cfg.d_model
+    f_local = shard_dim(cfg.d_ff, tp, "d_ff")
+    b.add(prefix + "wg", (d, f_local), std=1.0 / math.sqrt(d))
+    b.add(prefix + "wu", (d, f_local), std=1.0 / math.sqrt(d))
+    b.add(prefix + "wd", (f_local, d),
+          std=1.0 / math.sqrt(cfg.d_ff) / math.sqrt(2 * cfg.n_layers))
+
+
+def mlp_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, prefix: str = "mlp."):
+    if ctx.tp != 1:
+        raise NotImplementedError("tensor parallelism comes with the multi-chip slice")
+    return L.mlp_swiglu(x, t[prefix + "wg"], t[prefix + "wu"], t[prefix + "wd"])
+
+
+def dense_layer_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = ""):
+    pb = LayoutBuilder(prefix)
+    norm_layout(cfg, tp, pb, "ln1")
+    attn_layout(cfg, tp, pb, "attn.", bias=cfg.qkv_bias)
+    norm_layout(cfg, tp, pb, "ln2")
+    mlp_layout(cfg, tp, pb, "mlp.")
+    b.extend(pb)
+
+
+def dense_layer_apply(cfg: ArchConfig, ad: AttnDims, t, x, ctx: L.Ctx,
+                      cache=None, prefix: str = "", *, window: int = 0,
+                      causal: bool = True):
+    tt = {name[len(prefix):]: v for name, v in t.items()} if prefix else t
+    h = apply_norm(cfg, tt, x, "ln1")
+    a, new_cache = self_attention(
+        tt, h, ctx, ad, cfg, prefix="attn.", causal=causal, window=window,
+        use_rope=cfg.use_rope, bias=cfg.qkv_bias, cache=cache)
+    x = x + a
+    h = apply_norm(cfg, tt, x, "ln2")
+    x = x + mlp_apply(cfg, tt, h, ctx, "mlp.")
+    return x, new_cache

@@ -1,0 +1,72 @@
+"""Model registry: ArchConfig -> ModelDef (the port of the dense part of
+``repro/models/build.py``).  Other families raise ``NotImplementedError``."""
+
+from __future__ import annotations
+
+import functools
+import math
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.flat_param import LayoutBuilder
+from repro_torch.models import blocks as B
+from repro_torch.models.dims import attn_dims, pad_to_tp, shard_dim
+from repro_torch.models.lm import ModelDef, Pool
+
+
+def _embed_pool(cfg: ArchConfig, tp: int) -> Pool:
+    b = LayoutBuilder()
+    b.add("emb.table", (cfg.vocab, shard_dim(cfg.d_model, tp)), std=0.02)
+    return Pool("embed", b.build(), 1, apply=None)
+
+
+def _head_pool(cfg: ArchConfig, tp: int, vocab_padded: int) -> Pool:
+    b = LayoutBuilder()
+    d_local = shard_dim(cfg.d_model, tp)
+    b.add("final.scale", (d_local,), init="zeros", decay=False,
+          model_gather=tp, model_gather_dim=0)
+    b.add("head.w", (cfg.d_model, vocab_padded // tp), std=1.0 / math.sqrt(cfg.d_model))
+    return Pool("head", b.build(), 1, apply=None)
+
+
+def _wrap(apply):
+    """Normalize sub-layer applies to ((x, aux), cache)."""
+
+    def f(t, x, ctx, cache):
+        out, nc = apply(t, x, ctx, cache)
+        if isinstance(out, tuple):
+            return out, nc
+        return (out, 0.0), nc
+
+    return f
+
+
+def build_model(cfg: ArchConfig, tp: int) -> ModelDef:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: the port builds only the dense family so "
+            "far (griffin comes next, with the RG-LRU kernel)")
+    if cfg.norm != "rms" or cfg.mlp != "swiglu":
+        raise NotImplementedError(
+            f"norm {cfg.norm!r} / mlp {cfg.mlp!r}: the port builds RMSNorm + SwiGLU "
+            "layers so far")
+    ad = attn_dims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, tp)
+    vocab_padded = pad_to_tp(cfg.vocab, tp)
+    b = LayoutBuilder()
+    B.dense_layer_layout(cfg, tp, b)
+    apply = _wrap(lambda t, x, ctx, cache: B.dense_layer_apply(
+        cfg, ad, t, x, ctx, cache, window=cfg.window))
+    layers = Pool(
+        "layers", b.build(), cfg.n_layers, apply,
+        make_cache=lambda bsz, clen, dtype, device: B.make_kv_cache(
+            cfg, tp, bsz, clen, window=cfg.window, dtype=dtype, device=device))
+    return ModelDef(cfg=cfg, tp=tp, pools=(layers,),
+                    embed=_embed_pool(cfg, tp),
+                    head=_head_pool(cfg, tp, vocab_padded),
+                    vocab_padded=vocab_padded)
+
+
+@functools.lru_cache(maxsize=None)
+def exact_param_count(cfg: ArchConfig) -> int:
+    model = build_model(cfg, tp=1)
+    return sum(seg.size * pool.stack
+               for pool in model.all_pools() for seg in pool.layout.segments)

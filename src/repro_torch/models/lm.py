@@ -1,0 +1,182 @@
+"""Model assembly: pools of stacked layers + embedding / head, with every
+parameter gather routed through the ``CommEngine`` (the port of the serving
+part of ``repro/models/lm.py``).
+
+A ``Pool`` is a stack of identical layers whose parameters live in one flat
+buffer per layer (``[stack, tp, flat_len]``).  The forward pass loops over
+the stack; each layer's flat row is gathered (one call per layer, the
+paper's coalesced gather), unflattened into views, and applied.
+
+Two schedules (``CommEngine.prefetch`` selects):
+
+* **serial** — gather layer i, compute layer i;
+* **prefetch** — layer i+1's ``gather_flat`` is issued before layer i's
+  compute, in plain program order on the current stream.  A side stream
+  that overlaps it with the compute comes with the multi-chip collectives
+  slice.  The same gathers run on the same rows and the same compute in
+  the same order, so the two schedules give bitwise-equal results.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.flat_param import FlatLayout
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class Pool:
+    name: str
+    layout: FlatLayout
+    stack: int
+    # apply(tensors, x, ctx, cache) -> ((x, aux), new_cache)
+    apply: Callable | None
+    # make_cache(batch, cache_len, dtype, device) -> cache dict for ONE layer
+    make_cache: Callable | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelDef:
+    cfg: ArchConfig
+    tp: int
+    pools: tuple[Pool, ...]
+    embed: Pool
+    head: Pool
+    vocab_padded: int
+
+    def pool(self, name: str) -> Pool:
+        for p in (*self.pools, self.embed, self.head):
+            if p.name == name:
+                return p
+        raise KeyError(name)
+
+    def all_pools(self) -> tuple[Pool, ...]:
+        return (self.embed, *self.pools, self.head)
+
+    def global_flat_shapes(self) -> dict[str, tuple[int, int, int]]:
+        return {p.name: (p.stack, self.tp, p.layout.flat_len) for p in self.all_pools()}
+
+
+def _layer_cache(caches, i: int):
+    return None if caches is None else {k: v[i] for k, v in caches.items()}
+
+
+def _pool_caches(caches, new: list):
+    """Decode updated ``caches`` in place; prefill returns fresh per-layer
+    caches, stacked here along the pool's stack dim."""
+    if caches is not None:
+        return caches
+    if new[0] is None:
+        return None
+    return {k: torch.stack([c[k] for c in new]) for k in new[0]}
+
+
+def _apply_pool(pool: Pool, flat_rows, x, ctx: L.Ctx, comm, caches=None):
+    """Run a pool over its stack.  flat_rows: [stack, tp, S_local]."""
+    if comm.prefetch and pool.stack > 1:
+        return _apply_pool_prefetch(pool, flat_rows, x, ctx, comm, caches)
+    return _apply_pool_serial(pool, flat_rows, x, ctx, comm, caches)
+
+
+def _apply_pool_serial(pool, flat_rows, x, ctx, comm, caches):
+    """Reference schedule: gather layer i, then compute layer i."""
+    aux_tot, new = 0.0, []
+    for i in range(pool.stack):
+        tensors = comm.gather(pool, flat_rows[i, 0])
+        (x, aux), nc = pool.apply(tensors, x, ctx, _layer_cache(caches, i))
+        aux_tot += aux
+        new.append(nc)
+    return x, aux_tot, _pool_caches(caches, new)
+
+
+def _apply_pool_prefetch(pool, flat_rows, x, ctx, comm, caches):
+    """Lookahead schedule: layer i+1's gather is issued before layer i's
+    compute.  The reference's wrap-around gather of row 0 on the last layer
+    (its result is discarded) is not issued."""
+    aux_tot, new = 0.0, []
+    cur = comm.gather_flat(flat_rows[0, 0])
+    for i in range(pool.stack):
+        nxt = comm.gather_flat(flat_rows[i + 1, 0]) if i + 1 < pool.stack else None
+        tensors = comm.unflatten(pool, cur)
+        (x, aux), nc = pool.apply(tensors, x, ctx, _layer_cache(caches, i))
+        aux_tot += aux
+        new.append(nc)
+        cur = nxt
+    return x, aux_tot, _pool_caches(caches, new)
+
+
+def embed_tokens(model: ModelDef, t_embed, tokens, ctx: L.Ctx):
+    x = L.embed_lookup(t_embed["emb.table"], tokens, ctx)
+    return x.to(ctx.compute_dtype)
+
+
+def lm_logits(model: ModelDef, t_head, x, ctx: L.Ctx):
+    x = L.rms_norm(x, t_head["final.scale"])
+    return x @ t_head["head.w"]
+
+
+def forward(model: ModelDef, flat: dict[str, torch.Tensor], comm, ctx: L.Ctx,
+            batch: dict[str, torch.Tensor], caches: dict | None = None):
+    """Embedding -> pools -> final hidden states.
+
+    Returns (hidden, aux_loss, new_caches, t_head).
+    """
+    t_embed = comm.gather(model.embed, flat["embed"][0, 0])
+    aux_total = 0.0
+    new_caches: dict[str, Any] = {}
+    x = embed_tokens(model, t_embed, batch["tokens"], ctx)
+    for pool in model.pools:
+        pool_cache = caches.get(pool.name) if caches is not None else None
+        x, aux, nc = _apply_pool(pool, flat[pool.name], x, ctx, comm, pool_cache)
+        aux_total += aux
+        if nc is not None:
+            new_caches[pool.name] = nc
+    t_head = comm.gather(model.head, flat["head"][0, 0])
+    return x, aux_total, new_caches, t_head
+
+
+def prefill(model: ModelDef, flat, comm, ctx: L.Ctx, batch):
+    """Forward over the prompt, returning per-pool caches + last logits."""
+    ctx = dataclasses.replace(ctx, mode="prefill")
+    hidden, _, new_caches, t_head = forward(model, flat, comm, ctx, batch)
+    logits = lm_logits(model, t_head, hidden[:, -1:].contiguous(), ctx)
+    return logits, new_caches
+
+
+def decode_step(model: ModelDef, flat, comm, ctx: L.Ctx, tokens: torch.Tensor,
+                pos: int, caches: dict):
+    """One token per row at absolute position ``pos``; caches update in place."""
+    ctx = dataclasses.replace(ctx, mode="decode", pos=pos)
+    hidden, _, new_caches, t_head = forward(
+        model, flat, comm, ctx, {"tokens": tokens}, caches)
+    logits = lm_logits(model, t_head, hidden, ctx)
+    return logits, new_caches
+
+
+def init_caches(model: ModelDef, batch: int, cache_len: int, *,
+                dtype: torch.dtype = torch.bfloat16, device="cpu"):
+    """Zero caches for every pool, stacked along the pool's stack dim."""
+    caches = {}
+    for pool in model.pools:
+        if pool.make_cache is None:
+            continue
+        one = pool.make_cache(batch, cache_len, dtype, device)
+        caches[pool.name] = {k: torch.zeros((pool.stack, *a.shape), dtype=a.dtype,
+                                            device=a.device) for k, a in one.items()}
+    return caches
+
+
+def greedy_sample(logits_local: torch.Tensor, ctx: L.Ctx, vocab_real: int) -> torch.Tensor:
+    """Argmax over the logits' last dim, padded vocab columns masked."""
+    if ctx.tp != 1:
+        raise NotImplementedError("tensor parallelism comes with the multi-chip slice")
+    vl = logits_local.shape[-1]
+    lg = logits_local.float()
+    col = torch.arange(vl, device=lg.device)
+    lg = torch.where(col < vocab_real, lg, torch.full_like(lg, L.NEG_INF))
+    return torch.argmax(lg, dim=-1)

@@ -1,0 +1,112 @@
+"""The port's configs, dims and flat-pool layouts against the JAX package's:
+field for field, no arrays needed."""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import smoke_variant as jax_smoke  # noqa: E402
+from repro.models.build import build_model as jax_build_model  # noqa: E402
+from repro.models.build import exact_param_count as jax_param_count  # noqa: E402
+from repro.models.dims import attn_dims as jax_attn_dims  # noqa: E402
+from repro_torch.configs import get_config, smoke_variant  # noqa: E402
+from repro_torch.core.mics import init_params  # noqa: E402
+from repro_torch.models.build import build_model  # noqa: E402
+from repro_torch.models.dims import attn_dims  # noqa: E402
+
+ARCH = "llama3.2-1b"
+
+
+def _cfgs(smoke: bool):
+    j, t = jax_get_config(ARCH), get_config(ARCH)
+    return (jax_smoke(j), smoke_variant(t)) if smoke else (j, t)
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+def test_config_fields_match(smoke):
+    j, t = _cfgs(smoke)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert j.param_count() == t.param_count()
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4])
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+def test_model_def_matches(smoke, tp):
+    cj, ct = _cfgs(smoke)
+    mj, mt = jax_build_model(cj, tp), build_model(ct, tp)
+    assert mt.tp == mj.tp and mt.vocab_padded == mj.vocab_padded
+    assert mt.global_flat_shapes() == mj.global_flat_shapes()
+    for pj, pt in zip(mj.all_pools(), mt.all_pools(), strict=True):
+        assert (pt.name, pt.stack) == (pj.name, pj.stack)
+        assert (pt.layout.raw_len, pt.layout.flat_len) == (pj.layout.raw_len,
+                                                           pj.layout.flat_len)
+        assert len(pt.layout.segments) == len(pj.layout.segments)
+        for sj, st in zip(pj.layout.segments, pt.layout.segments):
+            assert dataclasses.asdict(st) == dataclasses.asdict(sj), st.name
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4, 16])
+@pytest.mark.parametrize("heads", [(32, 8, 64), (4, 2, 16), (10, 1, 256), (20, 20, 64)])
+def test_attn_dims_match(heads, tp):
+    hq, hkv, dh = heads
+    args = (hq * dh, hq, hkv, dh, tp)
+    try:
+        want = jax_attn_dims(*args)
+    except ValueError:
+        with pytest.raises(ValueError):
+            attn_dims(*args)
+        return
+    assert dataclasses.asdict(attn_dims(*args)) == dataclasses.asdict(want)
+
+
+def test_full_width_pool_sizes():
+    """llama3.2-1b's flat pools: 1,498,484,736 fp32 values (6.0 GB)."""
+    m = build_model(get_config(ARCH), tp=1)
+    shapes = m.global_flat_shapes()
+    assert shapes["embed"] == (1, 1, 262_668_288)
+    assert shapes["layers"] == (16, 1, 60_821_504)
+    assert shapes["head"] == (1, 1, 262_672_384)
+    assert m.head.layout.raw_len == 262_670_336
+    total = sum(s * t * n for s, t, n in shapes.values())
+    assert total == 1_498_484_736
+    assert get_config(ARCH).param_count() == jax_param_count(jax_get_config(ARCH))
+
+
+def test_init_params_follows_layout():
+    """Per segment: zeros where the layout says zeros, normal(0, std)
+    elsewhere, zero padding; deterministic in the seed, distinct pools."""
+    m = build_model(smoke_variant(get_config(ARCH)), tp=1)
+    a = init_params(m, seed=3, device="cpu")
+    b = init_params(m, seed=3, device="cpu")
+    c = init_params(m, seed=4, device="cpu")
+    for name, shape in m.global_flat_shapes().items():
+        assert a[name].shape == shape and a[name].dtype == torch.float32
+        assert torch.equal(a[name], b[name])
+        assert not torch.equal(a[name], c[name])
+    layers = m.pool("layers").layout
+    row = a["layers"][0, 0]
+    for seg in layers.segments:
+        vals = row[seg.offset:seg.end]
+        if seg.init == "zeros":
+            assert int(vals.abs().sum()) == 0, seg.name
+        else:
+            assert abs(float(vals.std()) - seg.std) < 0.25 * seg.std, seg.name
+    assert int(row[layers.raw_len:].abs().sum()) == 0
+    assert not torch.equal(a["layers"][0, 0], a["layers"][1, 0])
+
+
+def test_flatten_unflatten_round_trip():
+    """unflatten returns views of the flat buffer; flatten inverts it and
+    zero-pads to flat_len."""
+    layout = build_model(smoke_variant(get_config(ARCH)), tp=1).pool("layers").layout
+    flat = torch.arange(layout.flat_len, dtype=torch.float32)
+    flat[layout.raw_len:] = 0
+    tensors = layout.unflatten(flat)
+    for seg in layout.segments:
+        t = tensors[seg.name]
+        assert tuple(t.shape) == seg.shape
+        assert t.data_ptr() == flat.data_ptr() + 4 * seg.offset  # a view, no copy
+    assert torch.equal(layout.flatten(tensors), flat)
