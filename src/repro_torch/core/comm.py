@@ -18,7 +18,6 @@ import torch
 
 from repro_torch.core.topology import MiCSTopology
 
-GATHER_TOPOLOGIES = ("flat", "inner_first", "outer_first")
 WIRE_DTYPES = ("fp32", "bf16", "int8")
 
 _WIRE_TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -26,16 +25,14 @@ _WIRE_TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class GatherPolicy:
-    """How a flat-param pool is gathered across its partition group."""
+    """How a flat-param pool is gathered.  The staged order of the gather
+    (the reference's ``topology`` and ``inner``) only shapes a gather across
+    a partition group of p > 1 and joins this policy with that slice."""
 
-    topology: str = "inner_first"  # 'flat' | 'inner_first' | 'outer_first'
     wire_dtype: str = "bf16"       # 'fp32' | 'bf16' | 'int8' (ZeRO++ qwZ)
-    inner: int | None = None       # intra-"node" factor for staged gathers
     prefetch: bool = True          # one-layer lookahead gather
 
     def __post_init__(self):
-        if self.topology not in GATHER_TOPOLOGIES:
-            raise ValueError(f"unknown gather topology {self.topology!r}")
         if self.wire_dtype not in WIRE_DTYPES:
             raise ValueError(f"unknown wire dtype {self.wire_dtype!r}")
 
@@ -43,21 +40,25 @@ class GatherPolicy:
 def policies_from_config(mcfg) -> GatherPolicy:
     """Interpret a ``MiCSConfig``'s flags as a GatherPolicy (the reference
     also returns a SyncPolicy; gradient sync comes with the training
-    slice)."""
-    topology = mcfg.gather_order if mcfg.hierarchical else "flat"
+    slice).  A staged-gather setting other than the default raises rather
+    than run the default program under another name."""
+    if (not mcfg.hierarchical or mcfg.gather_order != "inner_first"
+            or mcfg.hierarchy_inner is not None):
+        raise NotImplementedError(
+            f"hierarchical={mcfg.hierarchical}, gather_order={mcfg.gather_order!r}, "
+            f"hierarchy_inner={mcfg.hierarchy_inner}: the staged gather order over "
+            "p > 1 comes with the multi-chip collectives slice")
     if mcfg.quant_gather:
         wire = "int8"
     else:
         wire = "bf16" if mcfg.gather_dtype == torch.bfloat16 else "fp32"
-    return GatherPolicy(topology=topology, wire_dtype=wire,
-                        inner=mcfg.hierarchy_inner, prefetch=mcfg.prefetch)
+    return GatherPolicy(wire_dtype=wire, prefetch=mcfg.prefetch)
 
 
 class CommEngine:
     """Owns every parameter gather of one run."""
 
-    def __init__(self, topo: MiCSTopology, gather_policy: GatherPolicy = GatherPolicy(),
-                 *, compute_dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, topo: MiCSTopology, gather_policy: GatherPolicy = GatherPolicy()):
         if topo.model_size != 1:
             raise NotImplementedError(
                 "tensor parallelism (tp > 1) comes with the multi-chip collectives slice")
@@ -69,11 +70,10 @@ class CommEngine:
             raise NotImplementedError("the int8 gather wire comes with the int8-wire slice")
         self.topo = topo
         self.gather_policy = gather_policy
-        self.compute_dtype = compute_dtype
 
     @classmethod
     def from_config(cls, topo: MiCSTopology, mcfg) -> "CommEngine":
-        return cls(topo, policies_from_config(mcfg), compute_dtype=mcfg.gather_dtype)
+        return cls(topo, policies_from_config(mcfg))
 
     @property
     def prefetch(self) -> bool:

@@ -16,14 +16,16 @@ from repro_torch.models.lm import ModelDef
 
 @dataclasses.dataclass(frozen=True)
 class MiCSConfig:
-    """The knobs the serve path reads (names and defaults as the reference)."""
+    """The knobs the serve path reads (names and defaults as the reference).
+    Those marked "default only" raise ``NotImplementedError`` when set to
+    anything else, in ``CommEngine.from_config`` or ``build_serve_steps``."""
 
-    hierarchical: bool = True
-    gather_order: str = "inner_first"   # 'outer_first' = paper-faithful 3-stage
+    hierarchical: bool = True           # staged gather (default only: p > 1)
+    gather_order: str = "inner_first"   # (default only: p > 1)
     gather_dtype: torch.dtype = torch.bfloat16
-    hierarchy_inner: int | None = None  # intra-"node" factor for staged gather
-    scores_bf16: bool = False           # bf16 attention scores (not in this slice)
-    quant_gather: bool = False          # int8 wire (not in this slice)
+    hierarchy_inner: int | None = None  # (default only: p > 1)
+    scores_bf16: bool = False           # bf16 attention scores (default only)
+    quant_gather: bool = False          # int8 wire (default only)
     prefetch: bool = True               # lookahead gathers
 
     def __post_init__(self):

@@ -19,6 +19,9 @@ DP2_AXIS = "dp2"
 MODEL_AXIS = "model"
 
 MICS_AXES = (POD_AXIS, REPL_AXIS, SHARD_AXIS, DP2_AXIS, MODEL_AXIS)
+PARTITION_AXES = (SHARD_AXIS,)
+REPLICATION_AXES = (POD_AXIS, REPL_AXIS, DP2_AXIS)
+DATA_AXES = PARTITION_AXES + REPLICATION_AXES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,29 +33,22 @@ class MiCSTopology:
     shard: int = 1
     dp2: int = 1
     model: int = 1
-    partition_axes: tuple[str, ...] = (SHARD_AXIS,)
-    replication_axes: tuple[str, ...] = (POD_AXIS, REPL_AXIS, DP2_AXIS)
 
     def __post_init__(self):
         for ax in MICS_AXES:
-            if self.axis_size(ax) < 1:
+            if getattr(self, ax) < 1:
                 raise ValueError(f"axis {ax!r} must be >= 1")
-        overlap = set(self.partition_axes) & set(self.replication_axes)
-        if overlap:
-            raise ValueError(f"axes {overlap} both partition and replication")
 
-    def axis_size(self, name: str) -> int:
-        if name not in MICS_AXES:
-            raise ValueError(f"unknown axis {name!r}")
-        return getattr(self, name)
+    def _size(self, axes) -> int:
+        return math.prod(getattr(self, a) for a in axes)
 
     @property
     def partition_size(self) -> int:  # p
-        return math.prod(self.axis_size(a) for a in self.partition_axes)
+        return self._size(PARTITION_AXES)
 
     @property
     def replication_degree(self) -> int:  # n / p
-        return math.prod(self.axis_size(a) for a in self.replication_axes)
+        return self._size(REPLICATION_AXES)
 
     @property
     def model_size(self) -> int:
@@ -60,8 +56,4 @@ class MiCSTopology:
 
     @property
     def data_parallel_size(self) -> int:
-        return math.prod(self.axis_size(a) for a in MICS_AXES if a != MODEL_AXIS)
-
-    @property
-    def world_size(self) -> int:
-        return math.prod(self.axis_size(a) for a in MICS_AXES)
+        return self._size(DATA_AXES)

@@ -21,7 +21,8 @@ import subprocess
 import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+CHECKOUT = pathlib.Path(__file__).resolve().parents[3]
+BUILD_DIR = CHECKOUT / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -69,6 +70,11 @@ def build_library(build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
     The compiler's output, ``-Xptxas -v`` register and shared-memory
     counts included, is kept beside the library as ``<name>.log``.
     """
+    if build_dir == BUILD_DIR and not (CHECKOUT / "src" / "repro_torch").is_dir():
+        raise RuntimeError(
+            f"repro_torch is not running from src/ of a checkout ({CHECKOUT} has no "
+            "src/repro_torch): run it with PYTHONPATH=src from the checkout, so the "
+            "kernels build inside it and not beside an installed copy")
     build_dir.mkdir(parents=True, exist_ok=True)
     lib = build_dir / f"libreprotorch_{source_hash()}.so"
     if lib.exists():

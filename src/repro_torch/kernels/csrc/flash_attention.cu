@@ -34,8 +34,8 @@
 //    block serves all g query heads of the group against the shared cache.
 // Numerics follow layers.attention: q is pre-scaled by 1/sqrt(dh) and
 // rounded to its own type before the fp32 dot products; the softmax max
-// and normaliser are fp32; the output is cast to q's type.  A row with no
-// valid key is written as 0.
+// and normaliser are fp32; the output is cast to q's type.  The wrapper
+// refuses inputs where a query row has no valid key.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

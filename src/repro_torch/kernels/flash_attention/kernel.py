@@ -83,6 +83,17 @@ def _check(q, k, v, window, q_offset, kv_valid_len) -> None:
     if kv_valid_len is not None and (not isinstance(kv_valid_len, int) or kv_valid_len < 0):
         raise ValueError(f"flash_attention: kv_valid_len must be None or an int >= 0, "
                          f"got {kv_valid_len!r}")
+    # A query row that sees no key has no defined softmax (the kernel would
+    # write 0, the masked-softmax form the mean of v), so such inputs are
+    # refused.  With every row's keys in [pos - window + 1, min(pos, kv_len - 1)],
+    # the last row is the first to lose its keys.
+    tq, tk = q.shape[1], k.shape[1]
+    kv_len = tk if kv_valid_len is None else min(tk, kv_valid_len)
+    last = q_offset + tq - 1
+    if tq and b and (kv_len == 0 or (window and last - window + 1 > kv_len - 1)):
+        raise ValueError(
+            f"flash_attention: query position {last} sees no key (tk {tk}, "
+            f"kv_valid_len {kv_valid_len}, window {window})")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -107,8 +118,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if b == 0 or tq == 0 or hkv == 0 or g == 0:
         return o
-    if kv_len == 0:
-        raise ValueError("flash_attention: no valid key (tk or kv_valid_len is 0)")
     err = K.library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         b, tq, tk, hkv, g, dh, int(causal), window, q_offset, kv_len,

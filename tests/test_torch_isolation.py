@@ -75,6 +75,7 @@ def test_later_slices_raise():
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ArchConfig
     from repro_torch.core.comm import CommEngine, GatherPolicy
+    from repro_torch.core.mics import MiCSConfig
     from repro_torch.core.topology import MiCSTopology
     from repro_torch.models.build import build_model
 
@@ -82,6 +83,13 @@ def test_later_slices_raise():
         CommEngine(MiCSTopology(shard=4))
     with pytest.raises(NotImplementedError):
         CommEngine(MiCSTopology(), GatherPolicy(wire_dtype="int8"))
+    # The staged gather order only shapes a p > 1 gather: a setting other than
+    # the default raises instead of running the default program.
+    for staged in (dict(hierarchical=False), dict(gather_order="outer_first"),
+                   dict(hierarchy_inner=2)):
+        with pytest.raises(NotImplementedError, match="staged gather"):
+            CommEngine.from_config(MiCSTopology(), MiCSConfig(**staged))
+    assert CommEngine.from_config(MiCSTopology(), MiCSConfig()).gather_policy == GatherPolicy()
     griffin = ArchConfig(name="g", family="griffin", n_layers=2, d_model=64, n_heads=4,
                          n_kv_heads=1, d_ff=128, vocab=256)
     with pytest.raises(NotImplementedError):

@@ -14,6 +14,7 @@ import numpy as np  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_gqa  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm_nd  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
+from repro_torch.kernels import build as KB  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_plain, flash_attention  # noqa: E402
 from repro_torch.kernels.rmsnorm import rms_norm_plain, rmsnorm  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
@@ -149,6 +150,26 @@ def test_flash_attention_rejects_bad_lengths():
         flash_attention(q, k, k, window=-2)
 
 
+@pytest.mark.parametrize("tq,kw", [
+    (1, dict(causal=False, kv_valid_len=0)),                       # empty cache
+    (1, dict(causal=False, window=2, q_offset=5, kv_valid_len=4)),  # window past the cache
+    (3, dict(causal=True, window=4, q_offset=5, kv_valid_len=3)),   # last row's window
+])
+def test_flash_attention_rejects_rows_without_keys(tq, kw):
+    """A row where every key is masked has no defined softmax: the wrapper
+    refuses it on every device instead of returning whatever its route gives."""
+    q, k = _t(1, tq, 1, 1, 16), _t(1, 8, 1, 16)
+    with pytest.raises(ValueError, match="sees no key"):
+        flash_attention(q, k, k, **kw)
+
+
+def test_flash_attention_accepts_row_with_one_key():
+    """The edge of the check above: the last row keeps exactly one key."""
+    q, k = _t(1, 1, 1, 1, 16), torch.ones(1, 8, 1, 16)
+    out = flash_attention(q, k, k, causal=False, window=2, q_offset=4, kv_valid_len=4)
+    assert torch.equal(out, torch.ones_like(q))
+
+
 @pytest.mark.parametrize("x,s,err", [
     (_t(4, 8), _t(7), ValueError),
     (_t(4, 8), _t(4, 8), ValueError),
@@ -158,6 +179,15 @@ def test_flash_attention_rejects_bad_lengths():
 def test_rmsnorm_rejects(x, s, err):
     with pytest.raises(err):
         rmsnorm(x, s)
+
+
+def test_build_refuses_outside_a_checkout(monkeypatch, tmp_path):
+    """An installed copy (no src/repro_torch beside it) must not build its
+    kernels into a directory shared by every checkout."""
+    monkeypatch.setattr(KB, "CHECKOUT", tmp_path)
+    with pytest.raises(RuntimeError, match="checkout"):
+        KB.build_library()
+    assert not (tmp_path / "build").exists()
 
 
 # ---------------------------------------------------------------------------
