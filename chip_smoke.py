@@ -1,26 +1,38 @@
-"""Drive the PyTorch port's serve path on one NVIDIA card and hold its CUDA
-kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's serve path on one NVIDIA card, for both model
+families it builds, and hold its CUDA kernels against their plain PyTorch
+versions.
 
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line (any failed check raises and the
 script exits non-zero; no phase swallows an error):
 
-1. ``build``: nvcc builds every kernel of the path from
+1. ``build``: nvcc builds every kernel of the paths from
    ``src/repro_torch/kernels/csrc`` (seconds, card name and power limit).
-2. ``serve``: full-width llama3.2-1b (16 layers, d_model 2048, vocab
-   128,256), random weights from ``init_params(seed=0)``, bf16 gather,
-   batch 4, prompt 512, 32 greedy decode steps, prefetch schedule, through
-   ``build_serve_steps``.  Every kernel's launch counter is set to 0 just
-   before and read just after; RMSNorm must have run 33 x 33 times and
-   attention 16 x 33 times.
-3. ``consistency``: (a) a prefill over the prompt plus the first 8
-   generated tokens agrees with decode step 8; (b) the same weights at depth
-   2 give the same prefill logits on the card (kernels) as on the CPU (plain
-   versions).
-4. ``kernels``: each kernel at the path's shapes against its plain version
+2. For each of two paths, through ``build_serve_steps`` with random weights
+   from ``init_params(seed=0)``, bf16 gather and the prefetch schedule:
+
+   * llama3.2-1b at full width and depth (16 layers, d_model 2048, vocab
+     128,256): batch 4, prompt 512, 32 greedy decode steps;
+   * recurrentgemma-2b at full width and depth (26 layers: pools ``g`` x8 of
+     (rec, rec, attn) and ``gtail`` (rec, rec); d_model 2560, head_dim 256,
+     MQA g = 10, window 2048, vocab 256,000): batch 4, prompt 2560, 32
+     greedy decode steps, cache_len 2592 (the attention cache holds 2048
+     keys, is rolled at prefill, and the decode writes wrap around it).
+
+   ``serve``: every kernel's launch counter is set to 0 just before the
+   path's prefill + decode and read just after; each must equal the path's
+   count (llama: RMSNorm 33 x 33, attention 16 x 33; recurrentgemma: RMSNorm
+   53 x 33, attention 8 x 33, RG-LRU 18 x 33).
+   ``consistency``: (a) a prefill over the prompt plus the first 8
+   generated tokens agrees with decode step 8; (b) the same weights at a cut
+   depth (llama 2 layers; recurrentgemma 5: ``g`` x1 + ``gtail``) give the
+   same prefill logits on the card (kernels) as on the CPU (plain versions).
+   ``profile``: device time of one prefill and one decode step by kernel.
+3. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
-   library call's, and the card's bound for the same work.
+   library call's where there is one, and the card's bound for the same
+   work; ``launches`` sums both paths' serve runs.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits non-zero and prints no result.
@@ -28,8 +40,8 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
-import math
 import pathlib
 import statistics
 import subprocess
@@ -45,14 +57,32 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # tests/test_kernels.py's
+RGLRU_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}  # its test_rglru's
 # Card-vs-card and card-vs-CPU agreement of the whole bf16 model, as a
 # fraction of the largest |logit|: both sides round every activation to
 # bf16, in different orders (the kernels' fp32 sums versus cuBLAS's or the
-# CPU's), over 16 or 2 layers.
+# CPU's), over 16, 26, 2 or 5 layers.
 REL_TOL_DECODE_VS_PREFILL = 5e-2
 REL_TOL_CARD_VS_CPU = 5e-2
 
-BATCH, PROMPT, STEPS = 4, 512, 32
+
+@dataclasses.dataclass(frozen=True)
+class Path:
+    arch: str
+    batch: int
+    prompt: int
+    steps: int
+    cache_len: int
+    cut_layers: int          # depth of the card-vs-CPU check
+    launches: dict           # kernel -> launches per forward
+
+
+PATHS = (
+    Path("llama3.2-1b", 4, 512, 32, 512 + 32, 2,
+         {"rmsnorm": 33, "flash_attention": 16, "rglru": 0}),
+    Path("recurrentgemma-2b", 4, 2560, 32, 2560 + 32, 5,
+         {"rmsnorm": 53, "flash_attention": 8, "rglru": 18}),
+)
 
 
 def emit(obj) -> None:
@@ -89,52 +119,47 @@ def bound(nbytes: int, ops: int, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "runs only on a CUDA card", file=sys.stderr)
-        return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def cut_params(model, params, n_layers: int):
+    """The flat pools of the same weights at ``n_layers`` depth: the first
+    rows of the first pool, the tail pool kept whole."""
+    from repro_torch.models.build import build_model
 
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    small = build_model(cfg, tp=1)
+    out = {}
+    for name, (stack, _, _) in small.global_flat_shapes().items():
+        out[name] = params[name][:stack].contiguous()
+    return small, out
+
+
+def serve_path(path: Path, card: str, counters: dict, dev):
+    """Serve, consistency and profile phases of one path; returns the
+    launches of its serve run."""
     from repro_torch.configs import get_config
     from repro_torch.core.mics import MiCSConfig, init_params
     from repro_torch.core.topology import MiCSTopology
-    from repro_torch.kernels import build as KB
-    from repro_torch.kernels.flash_attention import kernel as FA
-    from repro_torch.kernels.rmsnorm import kernel as RN
     from repro_torch.models.build import build_model
     from repro_torch.runtime.serving import build_serve_steps
 
-    dev = torch.device("cuda")
-    card = smi()
-
-    # -- 1. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = KB.build_library()
-    KB.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib.name,
-          "gpu": card})
-
-    # -- 2. the serve path -------------------------------------------------------
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(path.arch)
     model = build_model(cfg, tp=1)
     topo = MiCSTopology()
     params = init_params(model, seed=0, device=dev)
     mcfg = MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True)
-    prefill_fn, decode_fn = build_serve_steps(model, topo, mcfg, PROMPT + STEPS, device=dev)
+    prefill_fn, decode_fn = build_serve_steps(model, topo, mcfg, path.cache_len, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    prompt = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (path.batch, path.prompt), generator=gen, device=dev)
 
     # warm-up (cuBLAS handles, allocator), not counted
     logits, caches = prefill_fn(params, {"tokens": prompt})
-    decode_fn(params, caches, torch.argmax(logits[:, -1:].float(), dim=-1), PROMPT)
+    decode_fn(params, caches, torch.argmax(logits[:, -1:].float(), dim=-1), path.prompt)
     del logits, caches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    RN.launches = 0
-    FA.launches = 0
+    # -- serve ---------------------------------------------------------------------
+    for mod in counters.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     logits, caches = prefill_fn(params, {"tokens": prompt})
     torch.cuda.synchronize()
@@ -142,32 +167,35 @@ def main() -> int:
     tok = torch.argmax(logits[:, -1:].float(), dim=-1)
     generated, step_logits = [tok], []
     t0 = time.perf_counter()
-    for i in range(STEPS):
-        logits, tok, caches = decode_fn(params, caches, tok, PROMPT + i)
+    for i in range(path.steps):
+        logits, tok, caches = decode_fn(params, caches, tok, path.prompt + i)
         step_logits.append(logits)
         generated.append(tok)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    launches = {"rmsnorm": RN.launches, "flash_attention": FA.launches}
+    launches = {name: mod.launches for name, mod in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    ids = torch.cat(generated, dim=1)  # [b, 1 + STEPS]: prefill's token, then each step's
-    want = {"rmsnorm": 33 * (1 + STEPS), "flash_attention": 16 * (1 + STEPS)}
+    ids = torch.cat(generated, dim=1)  # [b, 1 + steps]: prefill's token, then each step's
+    want = {name: n * (1 + path.steps) for name, n in path.launches.items()}
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+        raise AssertionError(f"{path.arch}: launch counts {launches} != {want}")
     for lg in step_logits:
-        if lg.shape != (BATCH, 1, model.vocab_padded) or not torch.isfinite(lg).all():
+        if lg.shape != (path.batch, 1, model.vocab_padded) or not torch.isfinite(lg).all():
             raise AssertionError("decode logits not finite or of the wrong shape")
     if int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab:
         raise AssertionError("sampled ids out of the vocabulary")
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-          "vocab": cfg.vocab, "batch": BATCH, "prompt": PROMPT, "decode_steps": STEPS,
+    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
+          "pools": {p.name: p.stack for p in model.pools}, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "batch": path.batch, "prompt": path.prompt,
+          "decode_steps": path.steps, "cache_len": path.cache_len, "window": cfg.window,
           "gather_dtype": "bf16", "schedule": "prefetch", "prefill_ms": prefill_ms,
-          "decode_ms_per_step": decode_s * 1e3 / STEPS,
-          "tokens_per_s": BATCH * STEPS / decode_s, "peak_gb": peak_gb,
+          "decode_ms_per_step": decode_s * 1e3 / path.steps,
+          "tokens_per_s": path.batch * path.steps / decode_s, "peak_gb": peak_gb,
           "launches": launches, "ids_row0": ids[0].tolist(), "gpu": card})
+    del caches
 
-    # -- 3. consistency ------------------------------------------------------------
+    # -- consistency -------------------------------------------------------------
     # (a) decode step 8 (which fed the 8th generated token) against a prefill
     # over the prompt plus those 8 tokens
     ext = torch.cat([prompt, ids[:, :8]], dim=1)
@@ -177,15 +205,11 @@ def main() -> int:
     scale_a = ref.abs().max().item()
     argmax_a = (lg_pre.float().argmax(-1) == ref.argmax(-1)).float().mean().item()
     if not err_a <= REL_TOL_DECODE_VS_PREFILL * scale_a:
-        raise AssertionError(f"decode vs prefill recompute: {err_a} > "
+        raise AssertionError(f"{path.arch}: decode vs prefill recompute: {err_a} > "
                              f"{REL_TOL_DECODE_VS_PREFILL} x {scale_a}")
-    # (b) depth 2, same width: card (kernels) against CPU (plain versions)
-    import dataclasses
-
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
-    model2 = build_model(cfg2, tp=1)
-    params2 = {"embed": params["embed"], "layers": params["layers"][:2].contiguous(),
-               "head": params["head"]}
+    del lg_pre, step_logits
+    # (b) cut depth, same width: card (kernels) against CPU (plain versions)
+    model2, params2 = cut_params(model, params, path.cut_layers)
     p_card, _ = build_serve_steps(model2, topo, mcfg, 128, device=dev)
     p_cpu, _ = build_serve_steps(model2, topo, mcfg, 128, device="cpu")
     tokens2 = prompt[:1, :128]
@@ -195,23 +219,24 @@ def main() -> int:
     err_b = (lg_card.float().cpu() - ref_b).abs().max().item()
     scale_b = ref_b.abs().max().item()
     if not err_b <= REL_TOL_CARD_VS_CPU * scale_b:
-        raise AssertionError(f"card vs CPU at depth 2: {err_b} > "
-                             f"{REL_TOL_CARD_VS_CPU} x {scale_b}")
-    emit({"phase": "consistency",
+        raise AssertionError(f"{path.arch}: card vs CPU at depth {path.cut_layers}: "
+                             f"{err_b} > {REL_TOL_CARD_VS_CPU} x {scale_b}")
+    emit({"phase": "consistency", "arch": cfg.name,
           "decode_vs_prefill": {"max_abs_err": err_a, "max_abs_logit": scale_a,
                                 "rel_tol": REL_TOL_DECODE_VS_PREFILL,
                                 "argmax_agree": argmax_a},
-          "card_vs_cpu_depth2": {"max_abs_err": err_b, "max_abs_logit": scale_b,
-                                 "rel_tol": REL_TOL_CARD_VS_CPU}})
-    del params2, lg_pre, lg_card
+          "card_vs_cpu": {"layers": path.cut_layers, "pools": model2.global_flat_shapes(),
+                          "max_abs_err": err_b, "max_abs_logit": scale_b,
+                          "rel_tol": REL_TOL_CARD_VS_CPU}})
+    del params2, lg_card, lg_cpu
 
     # -- profile: where one prefill and one decode step spend the card's time --
+    _, pcache = prefill_fn(params, {"tokens": prompt})
     for kind in ("prefill", "decode"):
         if kind == "prefill":
             run = lambda: prefill_fn(params, {"tokens": prompt})  # noqa: E731
         else:
-            _, pcache = prefill_fn(params, {"tokens": prompt})
-            run = lambda: decode_fn(params, pcache, ids[:, :1], PROMPT)  # noqa: E731
+            run = lambda: decode_fn(params, pcache, ids[:, :1], path.prompt)  # noqa: E731
         run()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -227,47 +252,60 @@ def main() -> int:
                 and e.key != "Activity Buffer Request"]
         rows.sort(key=lambda e: -e.self_device_time_total)
         busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-        emit({"phase": "profile", "step": kind, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-              "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        emit({"phase": "profile", "arch": cfg.name, "step": kind, "wall_ms": wall_ms,
+              "device_busy_ms": busy_ms, "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
               "top": [{"name": e.key[:80], "calls": e.count,
                        "device_ms": e.self_device_time_total / 1e3} for e in rows[:12]]})
-    del pcache
+    del pcache, params
+    torch.cuda.empty_cache()
+    return launches
 
-    # -- 4. kernels against their plain versions, timed ---------------------------
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
+
+def kernel_checks(gen, dev, flush):
+    """Each kernel at the paths' shapes against its plain version, timed."""
     import torch.nn.functional as F
 
-    def check(name, out, ref, dtype):
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rglru import kernel as RG
+    from repro_torch.kernels.rmsnorm import kernel as RN
+
+    def check(name, out, ref, tol):
         err = (out.float() - ref.float()).abs().max().item()
-        tol = TOL[dtype]
         if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
             raise AssertionError(f"{name}: kernel disagrees with its plain version "
                                  f"(max |err| {err}, tol {tol})")
-        return err, tol
+        return err
 
     rms_checks = []
-    for n, d in ((BATCH * PROMPT, cfg.d_model), (BATCH, cfg.d_model)):
+    for path, n, d in (("llama prefill", 4 * 512, 2048), ("llama decode", 4, 2048),
+                       ("recurrentgemma prefill", 4 * 2560, 2560),
+                       ("recurrentgemma decode", 4, 2560)):
         x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
         s = (0.2 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
         w = 1.0 + s.float()
-        err, tol = check("rmsnorm", RN.rmsnorm(x, s), RN.rms_norm_plain(x, s), x.dtype)
+        tol = TOL[x.dtype]
+        err = check("rmsnorm", RN.rmsnorm(x, s), RN.rms_norm_plain(x, s), tol)
         b_ms, b_by = bound(2 * x.numel() * x.element_size() + s.numel() * s.element_size(),
                            4 * x.numel(), torch.float32)
         rms_checks.append({
-            "shape": [n, d], "dtype": "bf16", "scale_dtype": "bf16", "max_abs_err": err,
-            "tol": tol, "ms": time_ms(lambda: RN.rmsnorm(x, s), flush),
+            "case": path, "shape": [n, d], "dtype": "bf16", "scale_dtype": "bf16",
+            "max_abs_err": err, "tol": tol, "ms": time_ms(lambda: RN.rmsnorm(x, s), flush),
             "plain_ms": time_ms(lambda: RN.rms_norm_plain(x, s), flush),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: F.rms_norm(x, (d,), weight=w.to(x.dtype),
                                                      eps=1e-6), flush)})
 
+    bf, f32 = torch.bfloat16, torch.float32
     attn_cases = [
-        ("prefill", 4, 512, 512, 8, 4, 64, True, 0, 0, None, torch.bfloat16),
-        ("decode", 4, 1, 544, 8, 4, 64, False, 0, 519, 520, torch.bfloat16),
-        ("ragged", 4, 200, 200, 8, 4, 64, True, 0, 0, None, torch.bfloat16),
-        ("ragged", 4, 200, 200, 8, 4, 64, True, 0, 0, None, torch.float32),
-        ("window", 4, 512, 512, 8, 4, 64, True, 64, 0, None, torch.bfloat16),
-        ("window", 4, 512, 512, 8, 4, 64, True, 64, 0, None, torch.float32),
+        ("llama prefill", 4, 512, 512, 8, 4, 64, True, 0, 0, None, bf),
+        ("llama decode", 4, 1, 544, 8, 4, 64, False, 0, 519, 520, bf),
+        ("ragged", 4, 200, 200, 8, 4, 64, True, 0, 0, None, bf),
+        ("ragged", 4, 200, 200, 8, 4, 64, True, 0, 0, None, f32),
+        ("window", 4, 512, 512, 8, 4, 64, True, 64, 0, None, bf),
+        ("window", 4, 512, 512, 8, 4, 64, True, 64, 0, None, f32),
+        ("recurrentgemma prefill", 4, 2560, 2560, 1, 10, 256, True, 2048, 0, None, bf),
+        ("recurrentgemma decode", 4, 1, 2048, 1, 10, 256, False, 0, 0, 2048, bf),
+        ("dh256 window", 2, 512, 512, 1, 10, 256, True, 128, 0, None, f32),
     ]
     attn_checks = []
     for (kind, b, tq, tk, hkv, g, dh, causal, window, q_offset, kvl, dt) in attn_cases:
@@ -275,8 +313,9 @@ def main() -> int:
         k = torch.randn(b, tk, hkv, dh, generator=gen, device=dev).to(dt)
         v = torch.randn(b, tk, hkv, dh, generator=gen, device=dev).to(dt)
         kw = dict(causal=causal, window=window, q_offset=q_offset, kv_valid_len=kvl)
-        err, tol = check(f"flash_attention {kind}", FA.flash_attention(q, k, v, **kw),
-                         FA.attention_plain(q, k, v, **kw), dt)
+        tol = TOL[dt]
+        err = check(f"flash_attention {kind}", FA.flash_attention(q, k, v, **kw),
+                    FA.attention_plain(q, k, v, **kw), tol)
         kv_len = tk if kvl is None else min(tk, kvl)
         allowed = FA.mask_bias(tq, kv_len, causal=causal, window=window, q_offset=q_offset,
                                kv_valid_len=kvl, device=dev) == 0
@@ -292,28 +331,94 @@ def main() -> int:
         attn_checks.append({
             "case": kind, "shape": {"b": b, "tq": tq, "tk": tk, "hkv": hkv, "g": g, "dh": dh},
             "causal": causal, "window": window, "q_offset": q_offset, "kv_valid_len": kvl,
-            "dtype": "bf16" if dt == torch.bfloat16 else "fp32", "max_abs_err": err,
+            "dtype": "bf16" if dt == bf else "fp32", "max_abs_err": err,
             "tol": tol, "ms": time_ms(lambda: FA.flash_attention(q, k, v, **kw), flush),
             "plain_ms": time_ms(lambda: FA.attention_plain(q, k, v, **kw), flush),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask, is_causal=lib_causal, enable_gqa=True), flush)})
+        del q, k, v, qs, ks, vs
 
-    def entry(name, source, replaces, n_launch, checks):
+    # RG-LRU: a in (0.7, 1), b small, as tests/test_kernels.py draws them.  No
+    # single PyTorch call computes a linear recurrence (a cumprod / cumsum
+    # form divides by vanishing products), so library_ms is null.
+    rglru_cases = [
+        ("recurrentgemma prefill", (4, 2560, 2560), f32, False),
+        ("recurrentgemma decode", (4, 1, 2560), f32, True),
+        ("bf16", (4, 2560, 2560), bf, False),
+        ("ragged", (3, 1001, 2500), f32, True),
+    ]
+    rglru_checks = []
+    for kind, shape, dt, with_h0 in rglru_cases:
+        a = (0.7 + 0.299 * torch.rand(shape, generator=gen, device=dev)).to(dt)
+        bb = (0.1 * torch.randn(shape, generator=gen, device=dev)).to(dt)
+        h0 = (torch.randn(shape[0], shape[2], generator=gen, device=dev)
+              if with_h0 else None)
+        tol = RGLRU_TOL[dt]
+        err = check(f"rglru {kind}", RG.rglru(a, bb, h0), RG.rglru_plain(a, bb, h0), tol)
+        # a, b read and h written once (+ h0 read); one FMA (2 operations) each
+        nbytes = 3 * a.numel() * a.element_size() + (0 if h0 is None else h0.numel() * 4)
+        b_ms, b_by = bound(nbytes, 2 * a.numel(), torch.float32)
+        rglru_checks.append({
+            "case": kind, "shape": list(shape), "dtype": "bf16" if dt == bf else "fp32",
+            "h0": with_h0, "max_abs_err": err, "tol": tol,
+            "ms": time_ms(lambda: RG.rglru(a, bb, h0), flush),
+            "plain_ms": time_ms(lambda: RG.rglru_plain(a, bb, h0), flush, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return rms_checks, attn_checks, rglru_checks
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs only on a CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rglru import kernel as RG
+    from repro_torch.kernels.rmsnorm import kernel as RN
+
+    dev = torch.device("cuda")
+    card = smi()
+    t_start = time.perf_counter()
+
+    # -- 1. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    lib = KB.build_library()
+    KB.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib.name,
+          "gpu": card})
+
+    # -- 2. the serve paths ----------------------------------------------------
+    counters = {"rmsnorm": RN, "flash_attention": FA, "rglru": RG}
+    by_path = {p.arch: serve_path(p, card, counters, dev) for p in PATHS}
+
+    # -- 3. kernels against their plain versions, timed ---------------------------
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
+    rms_checks, attn_checks, rglru_checks = kernel_checks(gen, dev, flush)
+
+    def entry(name, source, replaces, checks):
         main = checks[0]  # the path's main shape
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": n_launch, "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+                "launches": sum(n[name] for n in by_path.values()),
+                "launches_by_path": {arch: n[name] for arch, n in by_path.items()},
+                "max_abs_err": main["max_abs_err"], "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": main["library_ms"],
                 "checks": checks}
 
     emit({"kernels": [
         entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
-              "src/repro/kernels/rmsnorm/kernel.py:28", launches["rmsnorm"], rms_checks),
+              "src/repro/kernels/rmsnorm/kernel.py:28", rms_checks),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention/kernel.py:86", launches["flash_attention"],
-              attn_checks),
-    ]})
+              "src/repro/kernels/flash_attention/kernel.py:86", attn_checks),
+        entry("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
+              "src/repro/kernels/rglru/kernel.py:47", rglru_checks),
+    ], "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,10 +1,11 @@
 """Config registry of the port: only the configs whose family the port
-builds (today the dense family: ``llama3.2-1b``)."""
+builds (the dense family: ``llama3.2-1b``; griffin: ``recurrentgemma-2b``)."""
 
 from repro_torch.configs.base import ArchConfig, smoke_variant
 from repro_torch.configs.llama3_2_1b import CONFIG as LLAMA3_2_1B
+from repro_torch.configs.recurrentgemma_2b import CONFIG as RECURRENTGEMMA_2B
 
-ASSIGNED = (LLAMA3_2_1B,)
+ASSIGNED = (LLAMA3_2_1B, RECURRENTGEMMA_2B)
 
 REGISTRY: dict[str, ArchConfig] = {c.name: c for c in ASSIGNED}
 

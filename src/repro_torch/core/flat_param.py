@@ -30,7 +30,7 @@ class Segment:
     shape: tuple[int, ...]
     offset: int            # element offset into the flat vector
     decay: bool            # weight decay applies to this segment
-    init: str              # 'normal' | 'zeros' | 'ones'
+    init: str              # 'normal' | 'zeros' | 'ones' | 'lru'
     std: float             # stddev for 'normal'
     model_gather: int = 1  # all-gather group size over the model axis at use
     model_gather_dim: int = 0
@@ -94,8 +94,9 @@ class FlatLayout:
 
     def init_flat(self, gen: torch.Generator, *, device: torch.device,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """Full flat vector init: per-segment normal(0, std), zeros or ones,
-        written straight into one buffer.  ``gen`` must live on ``device``."""
+        """Full flat vector init: per-segment normal(0, std), zeros, ones or
+        the RG-LRU ``lru`` init, written straight into one buffer.  ``gen``
+        must live on ``device``."""
         out = torch.zeros(self.flat_len, dtype=dtype, device=device)
         for s in self.segments:
             view = out[s.offset:s.end]
@@ -103,6 +104,11 @@ class FlatLayout:
                 view.normal_(0.0, s.std, generator=gen)
             elif s.init == "ones":
                 view.fill_(1.0)
+            elif s.init == "lru":
+                # RG-LRU Λ such that the per-channel decay a = sigmoid(Λ) is
+                # uniform in [0.9, 0.999] (Griffin appendix initialization).
+                view.uniform_(0.9, 0.999, generator=gen)
+                view.copy_(torch.log(view) - torch.log1p(-view))
             elif s.init != "zeros":
                 raise ValueError(f"unknown init {s.init!r}")
         return out

@@ -37,6 +37,8 @@ SIGNATURES = {
     # scale, is_bf16, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _I, _P),
+    # a, b, h0 (or NULL), h, B, T, C, is_bf16, stream
+    "rglru_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -32,6 +32,15 @@
 //    block) the spare slots split the keys of each tile among themselves and
 //    their (m, l, acc) are merged through shared memory at the end, so one
 //    block serves all g query heads of the group against the shared cache.
+//  * head dims 16 to 256.  At dh = 256 (recurrentgemma) a row is split over
+//    TPR = 8 threads of 32 dims each (32 fp32 q and 32 accumulator registers
+//    a thread), 16 row slots a block, K/V tiles of 8 keys (2 * 8 * 257 * 4 B
+//    ~ 16 KB of static shared memory).
+//  * a decode group that fills more than half the row slots (g = 10 of 16
+//    at dh = 256) gets no key split: 6 slots idle, and one block per
+//    (batch, KV head) walks the whole cache, 4 blocks at batch 4 under MQA.
+//    A later PR splits the cache across blocks (flash-decoding: per-split
+//    m, l, acc, then a merge pass) so such a decode fills the card.
 // Numerics follow layers.attention: q is pre-scaled by 1/sqrt(dh) and
 // rounded to its own type before the fp32 dot products; the softmax max
 // and normaliser are fp32; the output is cast to q's type.  The wrapper
@@ -232,6 +241,7 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, int b, int t
     case 32: return launch<T, 32>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
     case 64: return launch<T, 64>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 256: return launch<T, 256>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import build as K
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # Launches of the CUDA kernel since the last reset (plain integer).

@@ -2,6 +2,8 @@
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --batch 4 \
       --prompt-len 512 --decode-tokens 32            # on the card
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b --batch 4 \
+      --prompt-len 2560 --decode-tokens 32           # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --decode-tokens 4         # plain path, CPU
 

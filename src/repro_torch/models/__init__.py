@@ -1,1 +1,1 @@
-"""Model assembly of the port (dense family)."""
+"""Model assembly of the port (dense and griffin families)."""

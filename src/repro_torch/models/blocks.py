@@ -168,7 +168,22 @@ def mlp_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = "mlp.")
 def mlp_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, prefix: str = "mlp."):
     if ctx.tp != 1:
         raise NotImplementedError("tensor parallelism comes with the multi-chip slice")
-    return L.mlp_swiglu(x, t[prefix + "wg"], t[prefix + "wu"], t[prefix + "wd"])
+    if cfg.mlp == "swiglu":
+        return L.mlp_swiglu(x, t[prefix + "wg"], t[prefix + "wu"], t[prefix + "wd"])
+    if cfg.mlp == "geglu":
+        return L.mlp_geglu(x, t[prefix + "wg"], t[prefix + "wu"], t[prefix + "wd"])
+    raise NotImplementedError(f"mlp {cfg.mlp!r}: the port runs swiglu and geglu so far")
+
+
+def strip_prefix(t: dict, prefix: str) -> dict:
+    """The tensors named ``prefix...``, without the prefix.  Names under
+    other prefixes are left out: the JAX package strips ``len(prefix)``
+    characters from every name, so in its griffin super-layers ``rec1.x``
+    shadows ``rec0.x`` and both recurrent sub-layers run ``rec1``'s
+    weights; here each sub-layer runs its own."""
+    if not prefix:
+        return t
+    return {name[len(prefix):]: v for name, v in t.items() if name.startswith(prefix)}
 
 
 def dense_layer_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = ""):
@@ -183,7 +198,7 @@ def dense_layer_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str =
 def dense_layer_apply(cfg: ArchConfig, ad: AttnDims, t, x, ctx: L.Ctx,
                       cache=None, prefix: str = "", *, window: int = 0,
                       causal: bool = True):
-    tt = {name[len(prefix):]: v for name, v in t.items()} if prefix else t
+    tt = strip_prefix(t, prefix)
     h = apply_norm(cfg, tt, x, "ln1")
     a, new_cache = self_attention(
         tt, h, ctx, ad, cfg, prefix="attn.", causal=causal, window=window,

@@ -1,5 +1,6 @@
-"""Model registry: ArchConfig -> ModelDef (the port of the dense part of
-``repro/models/build.py``).  Other families raise ``NotImplementedError``."""
+"""Model registry: ArchConfig -> ModelDef (the port of the dense and griffin
+parts of ``repro/models/build.py``).  Other families raise
+``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ import math
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.flat_param import LayoutBuilder
 from repro_torch.models import blocks as B
-from repro_torch.models.dims import attn_dims, pad_to_tp, shard_dim
+from repro_torch.models import recurrent as R
+from repro_torch.models.dims import AttnDims, attn_dims, pad_to_tp, shard_dim
 from repro_torch.models.lm import ModelDef, Pool
 
 
@@ -41,28 +43,76 @@ def _wrap(apply):
 
 
 def build_model(cfg: ArchConfig, tp: int) -> ModelDef:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "griffin"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port builds only the dense family so "
-            "far (griffin comes next, with the RG-LRU kernel)")
-    if cfg.norm != "rms" or cfg.mlp != "swiglu":
+            f"family {cfg.family!r}: the port builds the dense and griffin "
+            "families so far")
+    if cfg.norm != "rms" or cfg.mlp not in ("swiglu", "geglu"):
         raise NotImplementedError(
-            f"norm {cfg.norm!r} / mlp {cfg.mlp!r}: the port builds RMSNorm + SwiGLU "
-            "layers so far")
+            f"norm {cfg.norm!r} / mlp {cfg.mlp!r}: the port builds RMSNorm + "
+            "SwiGLU / GeGLU layers so far")
     ad = attn_dims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, tp)
     vocab_padded = pad_to_tp(cfg.vocab, tp)
-    b = LayoutBuilder()
-    B.dense_layer_layout(cfg, tp, b)
-    apply = _wrap(lambda t, x, ctx, cache: B.dense_layer_apply(
-        cfg, ad, t, x, ctx, cache, window=cfg.window))
-    layers = Pool(
-        "layers", b.build(), cfg.n_layers, apply,
-        make_cache=lambda bsz, clen, dtype, device: B.make_kv_cache(
-            cfg, tp, bsz, clen, window=cfg.window, dtype=dtype, device=device))
-    return ModelDef(cfg=cfg, tp=tp, pools=(layers,),
+    if cfg.family == "dense":
+        b = LayoutBuilder()
+        B.dense_layer_layout(cfg, tp, b)
+        apply = _wrap(lambda t, x, ctx, cache: B.dense_layer_apply(
+            cfg, ad, t, x, ctx, cache, window=cfg.window))
+        pools = (Pool(
+            "layers", b.build(), cfg.n_layers, apply,
+            make_cache=lambda bsz, clen, dtype, device: B.make_kv_cache(
+                cfg, tp, bsz, clen, window=cfg.window, dtype=dtype, device=device)),)
+    else:
+        pattern = cfg.pattern or ("rec", "rec", "attn")
+        n_super, rem = divmod(cfg.n_layers, len(pattern))
+        pools = (_griffin_pool(cfg, tp, ad, pattern, n_super, "g"),)
+        if rem:
+            pools += (_griffin_pool(cfg, tp, ad, pattern[:rem], 1, "gtail"),)
+    return ModelDef(cfg=cfg, tp=tp, pools=pools,
                     embed=_embed_pool(cfg, tp),
                     head=_head_pool(cfg, tp, vocab_padded),
                     vocab_padded=vocab_padded)
+
+
+def _griffin_pool(cfg: ArchConfig, tp: int, ad: AttnDims, pattern, stack: int,
+                  name: str) -> Pool:
+    """One pool of ``stack`` super-layers, each the sub-layers of ``pattern``
+    under the prefixes ``rec0.``, ``rec1.``, ``attn0.``, ...; its cache is
+    ``{prefix: rec cache | KV cache}``."""
+    b = LayoutBuilder()
+    kinds = []
+    counts = {"rec": 0, "attn": 0}
+    for kind in pattern:
+        prefix = f"{kind}{counts[kind]}."
+        counts[kind] += 1
+        kinds.append((kind, prefix))
+        if kind == "rec":
+            R.griffin_rec_layout(cfg, tp, b, prefix=prefix)
+        else:
+            B.dense_layer_layout(cfg, tp, b, prefix=prefix)
+
+    def apply(t, x, ctx, cache):
+        nc = {}
+        for kind, prefix in kinds:
+            sub = cache.get(prefix) if cache else None
+            if kind == "rec":
+                x, c = R.griffin_rec_apply(cfg, t, x, ctx, sub, prefix=prefix)
+            else:
+                x, c = B.dense_layer_apply(
+                    cfg, ad, t, x, ctx, sub, prefix=prefix, window=cfg.window)
+            nc[prefix] = c
+        if all(v is None for v in nc.values()):
+            nc = None
+        return (x, 0.0), nc
+
+    def make_cache(bsz, clen, dtype, device):
+        """The rec caches keep bf16 conv and fp32 h whatever ``dtype`` is."""
+        return {prefix: (R.make_rec_cache(cfg, tp, bsz, device=device) if kind == "rec"
+                         else B.make_kv_cache(cfg, tp, bsz, clen, window=cfg.window,
+                                              dtype=dtype, device=device))
+                for kind, prefix in kinds}
+
+    return Pool(name, b.build(), stack, apply, make_cache)
 
 
 @functools.lru_cache(maxsize=None)

@@ -70,6 +70,11 @@ def mlp_swiglu(x, wg, wu, wd):
     return h @ wd
 
 
+def mlp_geglu(x, wg, wu, wd):
+    h = F.gelu(x @ wg, approximate="tanh") * (x @ wu)
+    return h @ wd
+
+
 def embed_lookup(table_local: torch.Tensor, ids: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     """table_local: [vocab, d/tp] -> [b, t, d] (tp = 1 only in this slice)."""
     if ctx.tp != 1:

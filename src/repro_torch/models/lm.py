@@ -36,7 +36,8 @@ class Pool:
     stack: int
     # apply(tensors, x, ctx, cache) -> ((x, aux), new_cache)
     apply: Callable | None
-    # make_cache(batch, cache_len, dtype, device) -> cache dict for ONE layer
+    # make_cache(batch, cache_len, dtype, device) -> cache (nested dict of
+    # tensors) for ONE layer
     make_cache: Callable | None = None
 
 
@@ -62,8 +63,25 @@ class ModelDef:
         return {p.name: (p.stack, self.tp, p.layout.flat_len) for p in self.all_pools()}
 
 
+def _tree_map(fn, tree):
+    """Apply ``fn`` to every tensor of a nested dict of tensors (a pool's
+    cache: ``{k, v}`` for the dense family, ``{prefix: {...}}`` for griffin)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(trees: list):
+    """Stack same-structured nested dicts leaf by leaf along a new dim 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
 def _layer_cache(caches, i: int):
-    return None if caches is None else {k: v[i] for k, v in caches.items()}
+    """Layer i's cache as views of the stacked pool cache, so decode's
+    in-place writes land in ``caches``."""
+    return None if caches is None else _tree_map(lambda a: a[i], caches)
 
 
 def _pool_caches(caches, new: list):
@@ -73,7 +91,7 @@ def _pool_caches(caches, new: list):
         return caches
     if new[0] is None:
         return None
-    return {k: torch.stack([c[k] for c in new]) for k in new[0]}
+    return _stack(new)
 
 
 def _apply_pool(pool: Pool, flat_rows, x, ctx: L.Ctx, comm, caches=None):
@@ -166,8 +184,8 @@ def init_caches(model: ModelDef, batch: int, cache_len: int, *,
         if pool.make_cache is None:
             continue
         one = pool.make_cache(batch, cache_len, dtype, device)
-        caches[pool.name] = {k: torch.zeros((pool.stack, *a.shape), dtype=a.dtype,
-                                            device=a.device) for k, a in one.items()}
+        caches[pool.name] = _tree_map(lambda a: torch.zeros(
+            (pool.stack, *a.shape), dtype=a.dtype, device=a.device), one)
     return caches
 
 

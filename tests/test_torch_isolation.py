@@ -52,10 +52,14 @@ def test_import_all_modules_leaves_no_jax():
                                                        "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert res["n"] >= 15 and res["bad"] == []
+    assert res["n"] >= 19 and res["bad"] == []
+    for m in ("repro_torch.models.recurrent", "repro_torch.kernels.rglru",
+              "repro_torch.kernels.rglru.kernel", "repro_torch.configs.recurrentgemma_2b"):
+        assert m in mods
 
 
-def test_entry_points_refuse_cpu_fallback():
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b"])
+def test_entry_points_refuse_cpu_fallback(arch):
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.core.mics import MiCSConfig, init_params
     from repro_torch.core.topology import MiCSTopology
@@ -64,7 +68,7 @@ def test_entry_points_refuse_cpu_fallback():
 
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the refusal is for hosts without one")
-    model = build_model(smoke_variant(get_config("llama3.2-1b")), tp=1)
+    model = build_model(smoke_variant(get_config(arch)), tp=1)
     with pytest.raises(RuntimeError, match="cuda"):
         init_params(model, seed=0)
     with pytest.raises(RuntimeError, match="cuda"):
@@ -90,9 +94,18 @@ def test_later_slices_raise():
         with pytest.raises(NotImplementedError, match="staged gather"):
             CommEngine.from_config(MiCSTopology(), MiCSConfig(**staged))
     assert CommEngine.from_config(MiCSTopology(), MiCSConfig()).gather_policy == GatherPolicy()
-    griffin = ArchConfig(name="g", family="griffin", n_layers=2, d_model=64, n_heads=4,
-                         n_kv_heads=1, d_ff=128, vocab=256)
+    xlstm = ArchConfig(name="x", family="xlstm", n_layers=2, d_model=64, n_heads=4,
+                       n_kv_heads=4, d_ff=128, vocab=256)
     with pytest.raises(NotImplementedError):
-        build_model(griffin, tp=1)
+        build_model(xlstm, tp=1)
+    gelu = ArchConfig(name="w", family="dense", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=4, d_ff=128, vocab=256, mlp="gelu")
+    with pytest.raises(NotImplementedError):
+        build_model(gelu, tp=1)
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import Ctx
+
+    with pytest.raises(NotImplementedError, match="gelu"):  # never a quiet SwiGLU
+        blocks.mlp_apply(gelu, {}, torch.zeros(1, 1, 64), Ctx())
     with pytest.raises(KeyError):
-        get_config("recurrentgemma-2b")
+        get_config("xlstm-125m")

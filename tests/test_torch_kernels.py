@@ -12,10 +12,12 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels.flash_attention import flash_attention_gqa  # noqa: E402
+from repro.kernels.rglru import rglru_ref, rglru_scan  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm_nd  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.kernels import build as KB  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_plain, flash_attention  # noqa: E402
+from repro_torch.kernels.rglru import rglru, rglru_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rms_norm_plain, rmsnorm  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 
@@ -119,6 +121,78 @@ def test_attention_plain_offset_chunk_matches_layer(dt):
                                _np(JL.attention(qj, kj, vj, **kw)), **_tol(dt))
 
 
+# attention at recurrentgemma's shape: head_dim 256, MQA (1 KV head, g = 10)
+
+def test_attention_plain_dh256_mqa_matches_pallas():
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(2, 128, 128, 1, 10, 256, "fp32", seed=4)
+    got = attention_plain(qt, kt, vt, causal=True, window=64)
+    want = flash_attention_gqa(qj, kj, vj, causal=True, window=64,
+                               block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol("fp32"))
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_attention_plain_dh256_window_matches_layer(dt):
+    """T = 160 past a window of 64, as griffin's local attention."""
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(2, 160, 160, 1, 10, 256, dt, seed=5)
+    got = attention_plain(qt, kt, vt, causal=True, window=64)
+    np.testing.assert_allclose(_np(got), _np(JL.attention(qj, kj, vj, causal=True, window=64)),
+                               **_tol(dt))
+    assert torch.equal(TL.attention(qt, kt, vt, causal=True, window=64), got)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan
+# ---------------------------------------------------------------------------
+
+def _rglru_tol(name):  # tests/test_kernels.py's test_rglru tolerances
+    return dict(rtol=5e-2, atol=5e-2) if name == "bf16" else dict(rtol=1e-5, atol=1e-5)
+
+
+def _ab(shape, dt, seed=0):
+    """a in (0.7, 0.999) and b ~ 0.1 N(0, 1), as tests/test_kernels.py draws them."""
+    rng = np.random.default_rng(seed)
+    return _pair(rng.uniform(0.7, 0.999, size=shape), dt), _pair(rng.normal(size=shape) * 0.1, dt)
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 128), (1, 512, 256), (3, 96, 64)])
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_rglru_plain_matches_pallas(shape, dt):
+    (aj, at), (bj, bt) = _ab(shape, dt)
+    got = rglru_plain(at, bt)
+    assert got.dtype == at.dtype and got.shape == at.shape
+    np.testing.assert_allclose(_np(got), _np(rglru_scan(aj, bj, interpret=True)),
+                               **_rglru_tol(dt))
+    # the associative-scan oracle reorders the products (fp32 rounding)
+    ref_tol = dict(rtol=1e-4, atol=1e-6) if dt == "fp32" else _rglru_tol(dt)
+    np.testing.assert_allclose(_np(got), _np(rglru_ref(aj, bj)), **ref_tol)
+    assert torch.equal(rglru(at, bt), got)  # CPU tensor -> plain version
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_rglru_h0_ragged_matches_loop(dt):
+    """A start state h0 (fp32) at a T and C no Pallas block divides."""
+    (_, at), (_, bt) = _ab((3, 100, 72), dt, seed=1)
+    h0 = np.random.default_rng(2).normal(size=(3, 72)).astype(np.float32)
+    a, b = _np(at), _np(bt)
+    h, want = h0.copy(), np.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        want[:, t] = h
+    got = rglru(at, bt, torch.from_numpy(h0))
+    assert got.dtype == at.dtype
+    np.testing.assert_allclose(_np(got), want, **_rglru_tol(dt))
+
+
+def test_rglru_decode_form_is_rglru_step():
+    """T = 1 from the cached state is recurrent.py's rglru_step, a * h + b."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.uniform(0.7, 0.999, size=(4, 1, 40)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(4, 1, 40)).astype(np.float32))
+    h0 = torch.from_numpy(rng.normal(size=(4, 40)).astype(np.float32))
+    assert torch.equal(rglru(a, b, h0)[:, 0], a[:, 0] * h0 + b[:, 0])
+
+
 # ---------------------------------------------------------------------------
 # wrapper input checks (they run before any dispatch, on any device)
 # ---------------------------------------------------------------------------
@@ -181,6 +255,29 @@ def test_rmsnorm_rejects(x, s, err):
         rmsnorm(x, s)
 
 
+@pytest.mark.parametrize("shapes,h0,err", [
+    (((2, 8, 4), (2, 8, 5)), None, ValueError),                  # b's shape
+    (((2, 8), (2, 8)), None, ValueError),                        # rank
+    (((2, 8, 4), (2, 8, 4)), (2, 8), ValueError),                # h0 shape
+    (((2, 8, 4), (2, 8, 4)), (4,), ValueError),                  # h0 rank
+])
+def test_rglru_rejects_shapes(shapes, h0, err):
+    a, b = (_t(*s) for s in shapes)
+    with pytest.raises(err):
+        rglru(a, b, None if h0 is None else _t(*h0))
+
+
+@pytest.mark.parametrize("da,db,dh", [
+    (torch.float16, torch.float16, None),     # fp16
+    (torch.float32, torch.bfloat16, None),    # mixed
+    (torch.float32, torch.float32, torch.bfloat16),  # h0 not fp32
+])
+def test_rglru_rejects_dtypes(da, db, dh):
+    with pytest.raises(TypeError):
+        rglru(_t(2, 8, 4, dtype=da), _t(2, 8, 4, dtype=db),
+              None if dh is None else _t(2, 4, dtype=dh))
+
+
 def test_build_refuses_outside_a_checkout(monkeypatch, tmp_path):
     """An installed copy (no src/repro_torch beside it) must not build its
     kernels into a directory shared by every checkout."""
@@ -217,3 +314,24 @@ def test_cuda_kernels_match_plain(cuda_device, dt):
         kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kvl)
         np.testing.assert_allclose(_np(flash_attention(q, k, v, **kw).cpu()),
                                    _np(attention_plain(q, k, v, **kw).cpu()), **_tol(dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_cuda_griffin_kernels_match_plain(cuda_device, dt):
+    """RG-LRU (ragged T and C, with and without h0) and dh-256 MQA attention."""
+    tdt = DTYPES[dt][1]
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    a = (0.7 + 0.29 * torch.rand(3, 100, 72, generator=gen, device=cuda_device)).to(tdt)
+    b = (0.1 * torch.randn(3, 100, 72, generator=gen, device=cuda_device)).to(tdt)
+    h0 = torch.randn(3, 72, generator=gen, device=cuda_device)
+    for h in (None, h0):
+        np.testing.assert_allclose(_np(rglru(a, b, h).cpu()), _np(rglru_plain(a, b, h).cpu()),
+                                   **_rglru_tol(dt))
+    q = torch.randn(2, 160, 1, 10, 256, generator=gen, device=cuda_device).to(tdt)
+    k = torch.randn(2, 160, 1, 256, generator=gen, device=cuda_device).to(tdt)
+    v = torch.randn(2, 160, 1, 256, generator=gen, device=cuda_device).to(tdt)
+    for kw in (dict(causal=True, window=64), dict(causal=False, q_offset=200, kv_valid_len=64)):
+        qq = q if kw["causal"] else q[:, :1].contiguous()
+        np.testing.assert_allclose(_np(flash_attention(qq, k, v, **kw).cpu()),
+                                   _np(attention_plain(qq, k, v, **kw).cpu()), **_tol(dt))

@@ -17,25 +17,28 @@ from repro_torch.core.mics import init_params  # noqa: E402
 from repro_torch.models.build import build_model  # noqa: E402
 from repro_torch.models.dims import attn_dims  # noqa: E402
 
-ARCH = "llama3.2-1b"
+ARCHS = ("llama3.2-1b", "recurrentgemma-2b")
+ARCH = ARCHS[0]
 
 
-def _cfgs(smoke: bool):
-    j, t = jax_get_config(ARCH), get_config(ARCH)
+def _cfgs(smoke: bool, arch: str = ARCH):
+    j, t = jax_get_config(arch), get_config(arch)
     return (jax_smoke(j), smoke_variant(t)) if smoke else (j, t)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
-def test_config_fields_match(smoke):
-    j, t = _cfgs(smoke)
+def test_config_fields_match(smoke, arch):
+    j, t = _cfgs(smoke, arch)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
     assert j.param_count() == t.param_count()
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("tp", [1, 2, 4])
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
-def test_model_def_matches(smoke, tp):
-    cj, ct = _cfgs(smoke)
+def test_model_def_matches(smoke, tp, arch):
+    cj, ct = _cfgs(smoke, arch)
     mj, mt = jax_build_model(cj, tp), build_model(ct, tp)
     assert mt.tp == mj.tp and mt.vocab_padded == mj.vocab_padded
     assert mt.global_flat_shapes() == mj.global_flat_shapes()
@@ -75,10 +78,41 @@ def test_full_width_pool_sizes():
     assert get_config(ARCH).param_count() == jax_param_count(jax_get_config(ARCH))
 
 
-def test_init_params_follows_layout():
-    """Per segment: zeros where the layout says zeros, normal(0, std)
-    elsewhere, zero padding; deterministic in the seed, distinct pools."""
-    m = build_model(smoke_variant(get_config(ARCH)), tp=1)
+def test_full_width_pool_sizes_recurrentgemma():
+    """recurrentgemma-2b's flat pools: 3,314,122,752 fp32 values (13.26 GB):
+    8 super-layers (rec, rec, attn) in ``g`` and a (rec, rec) tail."""
+    m = build_model(get_config("recurrentgemma-2b"), tp=1)
+    shapes = m.global_flat_shapes()
+    assert [p.name for p in m.pools] == ["g", "gtail"]
+    assert shapes["embed"] == (1, 1, 655_360_000)
+    assert shapes["g"] == (8, 1, 230_756_352)
+    assert shapes["gtail"] == (1, 1, 157_347_840)
+    assert shapes["head"] == (1, 1, 655_364_096)
+    total = sum(s * t * n for s, t, n in shapes.values())
+    assert total == 3_314_122_752
+    assert get_config("recurrentgemma-2b").param_count() == \
+        jax_param_count(jax_get_config("recurrentgemma-2b"))
+
+
+def test_init_params_lru_decay_range():
+    """``rec.lam`` gets the RG-LRU init: sigmoid(Λ) uniform in [0.9, 0.999]."""
+    m = build_model(smoke_variant(get_config("recurrentgemma-2b")), tp=1)
+    params = init_params(m, seed=0, device="cpu")
+    pool = m.pool("g")
+    lams = [seg for seg in pool.layout.segments if seg.name.endswith("rec.lam")]
+    assert [s.name for s in lams] == ["rec0.rec.lam", "rec1.rec.lam"]
+    for i in range(pool.stack):
+        for seg in lams:
+            a = torch.sigmoid(params["g"][i, 0, seg.offset:seg.end].double())
+            assert float(a.min()) >= 0.9 - 1e-6 and float(a.max()) <= 0.999 + 1e-6
+            assert float(a.max() - a.min()) > 0.05  # spread, not a constant
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_follows_layout(arch):
+    """Per segment: zeros where the layout says zeros, normal(0, std) where
+    it says normal, zero padding; deterministic in the seed, distinct pools."""
+    m = build_model(smoke_variant(get_config(arch)), tp=1)
     a = init_params(m, seed=3, device="cpu")
     b = init_params(m, seed=3, device="cpu")
     c = init_params(m, seed=4, device="cpu")
@@ -86,22 +120,24 @@ def test_init_params_follows_layout():
         assert a[name].shape == shape and a[name].dtype == torch.float32
         assert torch.equal(a[name], b[name])
         assert not torch.equal(a[name], c[name])
-    layers = m.pool("layers").layout
-    row = a["layers"][0, 0]
+    pool = m.pools[0]
+    layers = pool.layout
+    row = a[pool.name][0, 0]
     for seg in layers.segments:
         vals = row[seg.offset:seg.end]
         if seg.init == "zeros":
             assert int(vals.abs().sum()) == 0, seg.name
-        else:
+        elif seg.init == "normal":
             assert abs(float(vals.std()) - seg.std) < 0.25 * seg.std, seg.name
     assert int(row[layers.raw_len:].abs().sum()) == 0
-    assert not torch.equal(a["layers"][0, 0], a["layers"][1, 0])
+    assert not torch.equal(a[pool.name][0, 0], a[pool.name][1, 0])
 
 
-def test_flatten_unflatten_round_trip():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_flatten_unflatten_round_trip(arch):
     """unflatten returns views of the flat buffer; flatten inverts it and
     zero-pads to flat_len."""
-    layout = build_model(smoke_variant(get_config(ARCH)), tp=1).pool("layers").layout
+    layout = build_model(smoke_variant(get_config(arch)), tp=1).pools[0].layout
     flat = torch.arange(layout.flat_len, dtype=torch.float32)
     flat[layout.raw_len:] = 0
     tensors = layout.unflatten(flat)
