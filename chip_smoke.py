@@ -8,7 +8,8 @@ Phases, each printed as one JSON line (any failed check raises and the
 script exits non-zero; no phase swallows an error):
 
 1. ``build``: nvcc builds every kernel of the paths from
-   ``src/repro_torch/kernels/csrc`` (seconds, card name and power limit).
+   ``src/repro_torch/kernels/csrc`` (seconds, card name and power limit,
+   and each flash-attention kernel's registers and spills).
 2. For each of two paths, through ``build_serve_steps`` with random weights
    from ``init_params(seed=0)``, bf16 gather and the prefetch schedule:
 
@@ -23,7 +24,10 @@ script exits non-zero; no phase swallows an error):
    ``serve``: every kernel's launch counter is set to 0 just before the
    path's prefill + decode and read just after; each must equal the path's
    count (llama: RMSNorm 33 x 33, attention 16 x 33; recurrentgemma: RMSNorm
-   53 x 33, attention 8 x 33, RG-LRU 18 x 33).
+   53 x 33, attention 8 x 33, RG-LRU 18 x 33), and attention's count by
+   route must show the prefill on the tensor-core ``mma`` route and every
+   decode step on the split-K ``split`` route, never the fp32 ``fma`` one
+   (llama: mma 16, split 16 x 32; recurrentgemma: mma 8, split 8 x 32).
    ``consistency``: (a) a prefill over the prompt plus the first 8
    generated tokens agrees with decode step 8; (b) the same weights at a cut
    depth (llama 2 layers; recurrentgemma 5: ``g`` x1 + ``gtail``) give the
@@ -32,7 +36,11 @@ script exits non-zero; no phase swallows an error):
 3. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
    library call's where there is one, and the card's bound for the same
-   work; ``launches`` sums both paths' serve runs.
+   work; ``launches`` sums both paths' serve runs.  Attention also runs at
+   the tile edges of each route (fp32 cases take the ``fma`` route), each
+   check records its route and is called twice for a bitwise-equal
+   output, prefill checks give their achieved TFLOP/s, and the split
+   route's partials kernel is held alone against its plain version.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits non-zero and prints no result.
@@ -43,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -96,13 +105,41 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(log: str) -> list[dict]:
+    """Registers, spills and static shared memory of each flash-attention
+    kernel instantiation, from the ``-Xptxas -v`` lines of the build log:
+    the lines from one "Compiling entry function" to the next describe that
+    function.  A count the log does not give is None."""
+    def num(pattern: str, text: str) -> int | None:
+        m = re.search(pattern, text)
+        return int(m.group(1)) if m else None
+
+    out = []
+    for block in log.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        name = re.search(r"\d+(flash_\w+?_kernel)(\w*)", mangled)
+        if name is None:
+            continue
+        dh = re.search(r"Li(\d+)E", name.group(2))
+        out.append({"kernel": name.group(1), "dh": int(dh.group(1)) if dh else None,
+                    "registers": num(r"Used (\d+) registers", block),
+                    "spill_stores": num(r"(\d+) bytes spill stores", block),
+                    "spill_loads": num(r"(\d+) bytes spill loads", block),
+                    "static_smem": num(r"(\d+) bytes smem", block) or 0})
+    return out
+
+
 def time_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
-    """Median CUDA-event time of one call, with L2 flushed before each."""
+    """Median CUDA-event time of one call, with L2 flushed before each.
+    A spin of about half a millisecond on the card after the flush lets the
+    host enqueue the whole call before the card reaches the start event, so
+    the time is the card's and not the Python wrapper's (see host_us)."""
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -111,6 +148,20 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time to enqueue one call (Python, checks, launches), taken
+    while a spin keeps the card busy so no call waits for the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return dt
 
 
 def bound(nbytes: int, ops: int, dtype) -> tuple[float, str]:
@@ -134,10 +185,11 @@ def cut_params(model, params, n_layers: int):
 
 def serve_path(path: Path, card: str, counters: dict, dev):
     """Serve, consistency and profile phases of one path; returns the
-    launches of its serve run."""
+    launches of its serve run, by kernel and attention's by route."""
     from repro_torch.configs import get_config
     from repro_torch.core.mics import MiCSConfig, init_params
     from repro_torch.core.topology import MiCSTopology
+    from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.models.build import build_model
     from repro_torch.runtime.serving import build_serve_steps
 
@@ -160,6 +212,7 @@ def serve_path(path: Path, card: str, counters: dict, dev):
     # -- serve ---------------------------------------------------------------------
     for mod in counters.values():
         mod.launches = 0
+    FA.launches_by_route.update(dict.fromkeys(FA.launches_by_route, 0))
     t0 = time.perf_counter()
     logits, caches = prefill_fn(params, {"tokens": prompt})
     torch.cuda.synchronize()
@@ -174,12 +227,17 @@ def serve_path(path: Path, card: str, counters: dict, dev):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in counters.items()}
+    by_route = dict(FA.launches_by_route)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     ids = torch.cat(generated, dim=1)  # [b, 1 + steps]: prefill's token, then each step's
     want = {name: n * (1 + path.steps) for name, n in path.launches.items()}
     if launches != want:
         raise AssertionError(f"{path.arch}: launch counts {launches} != {want}")
+    n_attn = path.launches["flash_attention"]
+    want_route = {"mma": n_attn, "split": n_attn * path.steps, "fma": 0}
+    if by_route != want_route:
+        raise AssertionError(f"{path.arch}: attention routes {by_route} != {want_route}")
     for lg in step_logits:
         if lg.shape != (path.batch, 1, model.vocab_padded) or not torch.isfinite(lg).all():
             raise AssertionError("decode logits not finite or of the wrong shape")
@@ -192,7 +250,8 @@ def serve_path(path: Path, card: str, counters: dict, dev):
           "gather_dtype": "bf16", "schedule": "prefetch", "prefill_ms": prefill_ms,
           "decode_ms_per_step": decode_s * 1e3 / path.steps,
           "tokens_per_s": path.batch * path.steps / decode_s, "peak_gb": peak_gb,
-          "launches": launches, "ids_row0": ids[0].tolist(), "gpu": card})
+          "launches": launches, "attention_launches_by_route": by_route,
+          "ids_row0": ids[0].tolist(), "gpu": card})
     del caches
 
     # -- consistency -------------------------------------------------------------
@@ -258,7 +317,7 @@ def serve_path(path: Path, card: str, counters: dict, dev):
                        "device_ms": e.self_device_time_total / 1e3} for e in rows[:12]]})
     del pcache, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, by_route
 
 
 def kernel_checks(gen, dev, flush):
@@ -297,15 +356,29 @@ def kernel_checks(gen, dev, flush):
 
     bf, f32 = torch.bfloat16, torch.float32
     attn_cases = [
+        # kind, b, tq, tk, hkv, g, dh, causal, window, q_offset, kv_valid_len, dtype
         ("llama prefill", 4, 512, 512, 8, 4, 64, True, 0, 0, None, bf),
         ("llama decode", 4, 1, 544, 8, 4, 64, False, 0, 519, 520, bf),
+        ("recurrentgemma prefill", 4, 2560, 2560, 1, 10, 256, True, 2048, 0, None, bf),
+        ("recurrentgemma decode", 4, 1, 2048, 1, 10, 256, False, 0, 0, 2048, bf),
         ("ragged", 4, 200, 200, 8, 4, 64, True, 0, 0, None, bf),
         ("ragged", 4, 200, 200, 8, 4, 64, True, 0, 0, None, f32),
         ("window", 4, 512, 512, 8, 4, 64, True, 64, 0, None, bf),
         ("window", 4, 512, 512, 8, 4, 64, True, 64, 0, None, f32),
-        ("recurrentgemma prefill", 4, 2560, 2560, 1, 10, 256, True, 2048, 0, None, bf),
-        ("recurrentgemma decode", 4, 1, 2048, 1, 10, 256, False, 0, 0, 2048, bf),
         ("dh256 window", 2, 512, 512, 1, 10, 256, True, 128, 0, None, f32),
+        # mma route edges
+        ("T 103, g 10: M-tiles cut a position's heads", 2, 103, 103, 1, 10, 256, True, 0, 0,
+         None, bf),
+        ("dh 256, window 100 cuts a key tile", 2, 300, 300, 1, 10, 256, True, 100, 0, None, bf),
+        ("q_offset 64, tq 128, kv_valid_len 150 inside a key tile", 2, 128, 256, 2, 4, 64,
+         True, 0, 64, 150, bf),
+        ("dh 16", 2, 200, 200, 2, 4, 16, True, 0, 0, None, bf),
+        ("dh 128", 2, 200, 200, 2, 4, 128, True, 0, 0, None, bf),
+        # split route edges
+        ("kv_len 1", 4, 1, 544, 8, 4, 64, False, 0, 0, 1, bf),
+        ("g 1", 4, 1, 544, 8, 1, 64, False, 0, 299, 300, bf),
+        ("chunk of 2 positions, causal, window 64: empty splits", 2, 2, 544, 1, 8, 128, True,
+         64, 300, 302, bf),
     ]
     attn_checks = []
     for (kind, b, tq, tk, hkv, g, dh, causal, window, q_offset, kvl, dt) in attn_cases:
@@ -314,29 +387,47 @@ def kernel_checks(gen, dev, flush):
         v = torch.randn(b, tk, hkv, dh, generator=gen, device=dev).to(dt)
         kw = dict(causal=causal, window=window, q_offset=q_offset, kv_valid_len=kvl)
         tol = TOL[dt]
-        err = check(f"flash_attention {kind}", FA.flash_attention(q, k, v, **kw),
-                    FA.attention_plain(q, k, v, **kw), tol)
+        route = FA.route(dt, tq * g)
+        out = FA.flash_attention(q, k, v, **kw)
+        err = check(f"flash_attention {kind}", out, FA.attention_plain(q, k, v, **kw), tol)
+        if not torch.equal(out, FA.flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"flash_attention {kind}: route {route} is not bitwise "
+                                 "repeatable")
         kv_len = tk if kvl is None else min(tk, kvl)
+        extra = {}
+        if kind == "recurrentgemma decode":  # the partials kernel alone
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            nsplit, chunk = FA.plan_decode_splits(b, hkv, kv_len, sms=sms)
+            extra["partials"] = {"nsplit": nsplit, "chunk": chunk, "max_abs_err": check(
+                "flash_attention split partials",
+                FA.decode_partials(q, k, v, nsplit=nsplit, chunk=chunk, **kw),
+                FA.decode_partials_plain(q, k, v, nsplit=nsplit, chunk=chunk, **kw), tol)}
         allowed = FA.mask_bias(tq, kv_len, causal=causal, window=window, q_offset=q_offset,
                                kv_valid_len=kvl, device=dev) == 0
         pairs = int(allowed.sum().item()) * b * hkv * g
+        ops = 4 * dh * pairs
         nbytes = (2 * q.numel() + 2 * b * kv_len * hkv * dh) * q.element_size()
-        b_ms, b_by = bound(nbytes, 4 * dh * pairs, dt)
+        b_ms, b_by = bound(nbytes, ops, dt)
         # the same function as one PyTorch call: [b, heads, t, dh] layout
         qs = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, tq, dh).contiguous()
         ks = k[:, :kv_len].permute(0, 2, 1, 3).contiguous()
         vs = v[:, :kv_len].permute(0, 2, 1, 3).contiguous()
-        mask = allowed if window else None     # the window needs an explicit mask
-        lib_causal = causal and not window     # these cases have q_offset 0, tq == tk
+        lib_causal = causal and not window and q_offset == 0 and tq == kv_len
+        mask = None if lib_causal or not (causal or window) else allowed
+        ms = time_ms(lambda: FA.flash_attention(q, k, v, **kw), flush)
+        if route != "split":
+            extra["tflops"] = ops / ms / 1e9
         attn_checks.append({
             "case": kind, "shape": {"b": b, "tq": tq, "tk": tk, "hkv": hkv, "g": g, "dh": dh},
             "causal": causal, "window": window, "q_offset": q_offset, "kv_valid_len": kvl,
-            "dtype": "bf16" if dt == bf else "fp32", "max_abs_err": err,
-            "tol": tol, "ms": time_ms(lambda: FA.flash_attention(q, k, v, **kw), flush),
+            "dtype": "bf16" if dt == bf else "fp32", "route": route, "bitwise_repeat": True,
+            "max_abs_err": err, "tol": tol, "ms": ms,
+            "host_us": host_us(lambda: FA.flash_attention(q, k, v, **kw)),
             "plain_ms": time_ms(lambda: FA.attention_plain(q, k, v, **kw), flush),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask, is_causal=lib_causal, enable_gqa=True), flush)})
+                qs, ks, vs, attn_mask=mask, is_causal=lib_causal, enable_gqa=True), flush),
+            **extra})
         del q, k, v, qs, ks, vs
 
     # RG-LRU: a in (0.7, 1), b small, as tests/test_kernels.py draws them.  No
@@ -390,18 +481,22 @@ def main() -> int:
     lib = KB.build_library()
     KB.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib.name,
-          "gpu": card})
+          "ptxas": ptxas_summary(lib.with_suffix(".log").read_text()), "gpu": card})
 
     # -- 2. the serve paths ----------------------------------------------------
     counters = {"rmsnorm": RN, "flash_attention": FA, "rglru": RG}
-    by_path = {p.arch: serve_path(p, card, counters, dev) for p in PATHS}
+    by_path, launches_by_route = {}, dict.fromkeys(FA.ROUTES, 0)
+    for p in PATHS:
+        by_path[p.arch], by_route = serve_path(p, card, counters, dev)
+        for r, n in by_route.items():
+            launches_by_route[r] += n
 
     # -- 3. kernels against their plain versions, timed ---------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
     rms_checks, attn_checks, rglru_checks = kernel_checks(gen, dev, flush)
 
-    def entry(name, source, replaces, checks):
+    def entry(name, source, replaces, checks, **more):
         main = checks[0]  # the path's main shape
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(n[name] for n in by_path.values()),
@@ -409,13 +504,17 @@ def main() -> int:
                 "max_abs_err": main["max_abs_err"], "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-                "checks": checks}
+                **more, "checks": checks}
 
     emit({"kernels": [
         entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
               "src/repro/kernels/rmsnorm/kernel.py:28", rms_checks),
-        entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention/kernel.py:86", attn_checks),
+        entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
+              "src/repro/kernels/flash_attention/kernel.py:86", attn_checks,
+              sources={"mma": "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
+                       "split": "src/repro_torch/kernels/csrc/flash_attention_split.cu",
+                       "fma": "src/repro_torch/kernels/csrc/flash_attention.cu"},
+              launches_by_route=launches_by_route),
         entry("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru/kernel.py:47", rglru_checks),
     ], "seconds": time.perf_counter() - t_start})

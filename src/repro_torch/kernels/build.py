@@ -34,9 +34,17 @@ SIGNATURES = {
     # x, scale, y, n, d, eps, x_bf16, scale_bf16, stream
     "rmsnorm_launch": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
     # q, k, v, o, b, tq, tk, hkv, g, dh, causal, window, q_offset, kv_len,
-    # scale, is_bf16, stream
-    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _I, _P),
+    # scale, stream (fma: fp32; mma: bf16)
+    "flash_fma_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _P),
+    "flash_mma_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _P),
+    # q, k, v, part, b, tq, tk, hkv, g, dh, causal, window, q_offset, kv_len,
+    # nsplit, chunk, scale, stream
+    "flash_split_partials_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _F, _P),
+    # part, o, b, tq, hkv, g, dh, nsplit, stream
+    "flash_split_merge_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # a, b, h0 (or NULL), h, B, T, C, is_bf16, stream
     "rglru_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -1,4 +1,8 @@
-// Flash attention (GQA, causal / local window / kv_valid_len) for Hopper.
+// Flash attention (GQA, causal / local window / kv_valid_len) in fp32 on
+// CUDA cores: the "fma" route of kernels/flash_attention/kernel.py.  The
+// bf16 routes are flash_attention_mma.cu (prefill, tensor cores) and
+// flash_attention_split.cu (decode, split-K); this kernel serves fp32
+// inputs only, whose 2e-5 tolerance rules out TF32 tensor cores.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (`flash_attention`, body `_attn_kernel`, GQA wrapper
@@ -11,14 +15,12 @@
 //
 // Bounds on this card:
 //  * prefill (tq = tk = T, causal) does about 2 * b * hq * T^2 * dh flops
-//    against 989 TFLOP/s bf16, and reads q, k, v and writes o once against
-//    3.35 TB/s; it is bound by operations for long prompts, while at the
-//    serve path's T = 512, dh = 64 the two floors are within 1.5x of each
-//    other (chip_smoke.py computes both for every shape it checks);
+//    against 67 TFLOP/s fp32 on CUDA cores, and reads q, k, v and writes o
+//    once against 3.35 TB/s;
 //  * decode (tq = 1 over a cache) is bound by the bytes of the KV cache it
 //    reads against 3.35 TB/s.
-// This first kernel is simple and right, not fast: fp32 FMA on CUDA cores,
-// no tensor cores (wgmma / TMA come in a later PR).  What the design does:
+// The kernel is simple and right, not fast: fp32 FMA on CUDA cores.  What
+// the design does:
 //  * one block per (q-tile, kv head, batch).  A q-tile is R consecutive
 //    (position, group head) rows of one KV head, so the g query heads of a
 //    group share every K/V tile the block stages through shared memory;
@@ -32,15 +34,9 @@
 //    block) the spare slots split the keys of each tile among themselves and
 //    their (m, l, acc) are merged through shared memory at the end, so one
 //    block serves all g query heads of the group against the shared cache.
-//  * head dims 16 to 256.  At dh = 256 (recurrentgemma) a row is split over
-//    TPR = 8 threads of 32 dims each (32 fp32 q and 32 accumulator registers
-//    a thread), 16 row slots a block, K/V tiles of 8 keys (2 * 8 * 257 * 4 B
-//    ~ 16 KB of static shared memory).
-//  * a decode group that fills more than half the row slots (g = 10 of 16
-//    at dh = 256) gets no key split: 6 slots idle, and one block per
-//    (batch, KV head) walks the whole cache, 4 blocks at batch 4 under MQA.
-//    A later PR splits the cache across blocks (flash-decoding: per-split
-//    m, l, acc, then a merge pass) so such a decode fills the card.
+//  * head dims 16 to 256.  At dh = 256 a row is split over TPR = 8 threads
+//    of 32 dims each, 16 row slots a block, K/V tiles of 8 keys
+//    (2 * 8 * 257 * 4 B ~ 16 KB of static shared memory).
 // Numerics follow layers.attention: q is pre-scaled by 1/sqrt(dh) and
 // rounded to its own type before the fp32 dot products; the softmax max
 // and normaliser are fp32; the output is cast to q's type.  The wrapper
@@ -232,34 +228,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int tq,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* o, int b, int tq,
-              int tk, int hkv, int g, int dh, int causal, int window,
-              int q_offset, int kv_len, float scale, cudaStream_t s) {
+int launch_dh(const void* q, const void* k, const void* v, void* o, int b, int tq, int tk,
+              int hkv, int g, int dh, int causal, int window, int q_offset, int kv_len,
+              float scale, cudaStream_t s) {
   switch (dh) {
-    case 16: return launch<T, 16>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
-    case 256: return launch<T, 256>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 16: return launch<float, 16>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 32: return launch<float, 32>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 64: return launch<float, 64>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 128: return launch<float, 128>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 256: return launch<float, 256>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q [b, tq, hkv, g, dh], k/v [b, tk, hkv, dh], o like q; all contiguous, one
-// type (fp32 or bf16), 16-byte aligned.  kv_len = min(tk, kv_valid_len).
-// The caller checks shapes, types and tq, tk, kv_len > 0.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, int b, int tq, int tk, int hkv, int g,
-                                      int dh, int causal, int window, int q_offset,
-                                      int kv_len, float scale, int is_bf16,
-                                      void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dh<__nv_bfloat16>(q, k, v, o, b, tq, tk, hkv, g, dh, causal, window,
-                                    q_offset, kv_len, scale, s);
-  return launch_dh<float>(q, k, v, o, b, tq, tk, hkv, g, dh, causal, window, q_offset,
-                          kv_len, scale, s);
+// q [b, tq, hkv, g, dh], k/v [b, tk, hkv, dh], o like q; all contiguous
+// fp32, 16-byte aligned.  kv_len = min(tk, kv_valid_len).  The caller
+// checks shapes, types and that every query row sees a key.
+extern "C" int flash_fma_launch(const void* q, const void* k, const void* v, void* o, int b,
+                                int tq, int tk, int hkv, int g, int dh, int causal,
+                                int window, int q_offset, int kv_len, float scale,
+                                void* stream) {
+  return launch_dh(q, k, v, o, b, tq, tk, hkv, g, dh, causal, window, q_offset, kv_len, scale,
+                   reinterpret_cast<cudaStream_t>(stream));
 }

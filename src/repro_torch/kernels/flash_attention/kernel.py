@@ -1,15 +1,26 @@
-"""Flash attention: the Hopper kernel's wrapper and its plain PyTorch
-version, in the model layer's GQA layout.
+"""Flash attention: the Hopper kernels' wrapper and their plain PyTorch
+versions, in the model layer's GQA layout.
 
-The CUDA kernel is ``kernels/csrc/flash_attention.cu`` (see the note there:
-which TPU kernel it replaces, what bounds it, what the design does about
-it).  :func:`flash_attention` launches it for CUDA tensors and uses
-:func:`attention_plain` for CPU tensors; there is no other route and no
-fall-back when a build or launch fails.
+For a CUDA tensor :func:`flash_attention` takes one of three routes, chosen
+by :func:`route` from the dtype and the number of packed query rows
+``tq * g`` before any launch (the note at the top of each source says which
+TPU kernel it replaces, what bounds it and what the design does about it):
+
+* ``"mma"`` -- bf16 with more than 16 rows (prefill):
+  ``kernels/csrc/flash_attention_mma.cu``, tensor cores;
+* ``"split"`` -- bf16 with at most 16 rows (decode): split-K partials
+  (``kernels/csrc/flash_attention_split.cu``) over the chunks of
+  :func:`plan_decode_splits`, then a merge kernel;
+* ``"fma"`` -- fp32: ``kernels/csrc/flash_attention.cu`` on CUDA cores
+  (fp32's tolerance rules out TF32 tensor cores).
+
+A CPU tensor takes :func:`attention_plain`.  Nothing is caught and
+retried: a build or launch error raises.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -19,9 +30,36 @@ from repro_torch.kernels import build as K
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
+ROUTES = ("mma", "split", "fma")
+SPLIT_MAX_ROWS = 16      # one mma tile of packed query rows
+SPLIT_MIN_CHUNK = 32     # keys; a chunk is a multiple of 16
+SPLIT_BLOCKS_PER_SM = 2  # the split plan's target
 
-# Launches of the CUDA kernel since the last reset (plain integer).
+# Calls that took the CUDA route since the last reset (plain integers), in
+# all and by route.
 launches = 0
+launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def route(dtype: torch.dtype, rows: int) -> str:
+    """The CUDA route for ``rows = tq * g`` packed query rows of ``dtype``."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype == torch.bfloat16:
+        return "mma" if rows > SPLIT_MAX_ROWS else "split"
+    raise TypeError(f"flash_attention has no route for {dtype}")
+
+
+def plan_decode_splits(b: int, hkv: int, kv_len: int, *, sms: int = 132) -> tuple[int, int]:
+    """``(nsplit, chunk)``: keys ``[0, kv_len)`` cut into ``nsplit`` chunks
+    of ``chunk`` keys (the last one cut short), so that ``b * hkv * nsplit``
+    blocks reach about ``SPLIT_BLOCKS_PER_SM`` on each of ``sms`` SMs.
+    ``chunk`` is a multiple of 16 and no smaller than ``SPLIT_MIN_CHUNK``,
+    which stops the split first on short caches."""
+    want = max(1, -(-sms * SPLIT_BLOCKS_PER_SM // (b * hkv)))
+    chunk = -(-max(kv_len, 1) // want)
+    chunk = max(SPLIT_MIN_CHUNK, -(-chunk // 16) * 16)
+    return -(-max(kv_len, 1) // chunk), chunk
 
 
 def mask_bias(tq: int, tk: int, *, causal: bool, window: int, q_offset: int,
@@ -62,6 +100,58 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
 
 
+def _kv_len(tk: int, kv_valid_len: int | None) -> int:
+    return tk if kv_valid_len is None else min(tk, kv_valid_len)
+
+
+def decode_partials_plain(q, k, v, *, nsplit: int, chunk: int, causal: bool = True,
+                          window: int = 0, q_offset: int = 0,
+                          kv_valid_len: int | None = None) -> torch.Tensor:
+    """The split route's first kernel: for each packed row r = (position,
+    group head) and each chunk s of ``chunk`` keys of ``[0, kv_len)``, fp32
+    ``(m, l, acc)`` with m the chunk's max allowed score, p = exp(s - m) (0
+    where masked), l = sum p and acc = p @ v with p rounded to v's type.  A
+    chunk with no allowed key gives m = NEG_INF, l = 0, acc = 0.
+    -> fp32 [b, hkv, nsplit, tq * g, dh + 2] holding (m, l, acc[dh])."""
+    b, tq, hkv, g, dh = q.shape
+    kv_len = _kv_len(k.shape[1], kv_valid_len)
+    span = nsplit * chunk
+    if span < kv_len:
+        raise ValueError(f"{nsplit} chunks of {chunk} keys do not cover {kv_len}")
+    qs = (q.float() * (1.0 / math.sqrt(dh))).to(q.dtype).float()
+    qs = qs.permute(0, 2, 1, 3, 4).reshape(b, hkv, tq * g, dh)
+    kk = torch.nn.functional.pad(k[:, :kv_len].float(), (0, 0, 0, 0, 0, span - kv_len))
+    vv = torch.nn.functional.pad(v[:, :kv_len], (0, 0, 0, 0, 0, span - kv_len))
+    s = torch.einsum("bhrd,bkhd->bhrk", qs, kk)                       # [b, hkv, rows, span]
+    allowed = mask_bias(tq, span, causal=causal, window=window, q_offset=q_offset,
+                        kv_valid_len=kv_len, device=q.device) == 0
+    allowed = allowed.repeat_interleave(g, dim=0)                     # [rows, span]
+    s = s.reshape(b, hkv, tq * g, nsplit, chunk)
+    allowed = allowed.reshape(tq * g, nsplit, chunk)
+    s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1)                                         # [b, hkv, rows, nsplit]
+    p = torch.where(allowed, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(-1)
+    vv = vv.reshape(b, nsplit, chunk, hkv, dh)
+    acc = torch.einsum("bhrsk,bskhd->bhrsd", p.to(v.dtype).float(), vv.float())
+    part = torch.cat([m[..., None], l[..., None], acc], dim=-1)      # [b, hkv, rows, nsplit, dh+2]
+    return part.permute(0, 1, 3, 2, 4).contiguous()
+
+
+def merge_partials_plain(part: torch.Tensor, tq: int, g: int, dtype: torch.dtype) -> torch.Tensor:
+    """The split route's merge: o = sum_s w_s acc_s / max(sum_s w_s l_s,
+    1e-30) with w_s = exp(m_s - max_s m_s), and w_s = 0 for an empty chunk
+    (m_s = NEG_INF).  part [b, hkv, nsplit, tq * g, dh + 2] -> o
+    [b, tq, hkv, g, dh] in ``dtype``."""
+    b, hkv, _, rows, dh2 = part.shape
+    m, l, acc = part[..., 0], part[..., 1], part[..., 2:]
+    mx = torch.amax(m, dim=2, keepdim=True)
+    w = torch.where(m == NEG_INF, torch.zeros_like(m), torch.exp(m - mx))
+    den = torch.clamp_min((w * l).sum(2), 1e-30)                      # [b, hkv, rows]
+    o = (w[..., None] * acc).sum(2) / den[..., None]                  # [b, hkv, rows, dh]
+    return o.reshape(b, hkv, tq, g, dh2 - 2).permute(0, 2, 1, 3, 4).to(dtype)
+
+
 def _check(q, k, v, window, q_offset, kv_valid_len) -> None:
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: want q [b,tq,hkv,g,dh], k/v [b,tk,hkv,dh]; "
@@ -88,12 +178,71 @@ def _check(q, k, v, window, q_offset, kv_valid_len) -> None:
     # refused.  With every row's keys in [pos - window + 1, min(pos, kv_len - 1)],
     # the last row is the first to lose its keys.
     tq, tk = q.shape[1], k.shape[1]
-    kv_len = tk if kv_valid_len is None else min(tk, kv_valid_len)
+    kv_len = _kv_len(tk, kv_valid_len)
     last = q_offset + tq - 1
     if tq and b and (kv_len == 0 or (window and last - window + 1 > kv_len - 1)):
         raise ValueError(
             f"flash_attention: query position {last} sees no key (tk {tk}, "
             f"kv_valid_len {kv_valid_len}, window {window})")
+
+
+def _cuda_ready(*ts) -> None:
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_partials(q, k, v, kv_len: int, nsplit: int, chunk: int, causal: bool,
+                     window: int, q_offset: int, stream: int) -> torch.Tensor:
+    b, tq, hkv, g, dh = q.shape
+    part = torch.empty((b, hkv, nsplit, tq * g, dh + 2), dtype=torch.float32, device=q.device)
+    err = K.library().flash_split_partials_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), part.data_ptr(), b, tq, k.shape[1], hkv,
+        g, dh, int(causal), window, q_offset, kv_len, nsplit, chunk, 1.0 / math.sqrt(dh),
+        stream)
+    K.check(err, "flash_attention (split partials)")
+    return part
+
+
+def _launch_merge(part: torch.Tensor, tq: int, g: int, stream: int) -> torch.Tensor:
+    b, hkv, nsplit, _, dh2 = part.shape
+    o = torch.empty((b, tq, hkv, g, dh2 - 2), dtype=torch.bfloat16, device=part.device)
+    err = K.library().flash_split_merge_launch(
+        part.data_ptr(), o.data_ptr(), b, tq, hkv, g, dh2 - 2, nsplit, stream)
+    K.check(err, "flash_attention (split merge)")
+    return o
+
+
+def decode_partials(q, k, v, *, nsplit: int, chunk: int, causal: bool = True,
+                    window: int = 0, q_offset: int = 0,
+                    kv_valid_len: int | None = None) -> torch.Tensor:
+    """The split route's first kernel alone (bf16, ``tq * g <= 16``) ->
+    fp32 [b, hkv, nsplit, tq * g, dh + 2]; :func:`decode_partials_plain`
+    for CPU tensors.  Not counted: :func:`flash_attention` counts its route."""
+    _check(q, k, v, window, q_offset, kv_valid_len)
+    kv_len = _kv_len(k.shape[1], kv_valid_len)
+    if chunk <= 0 or chunk % 16 or nsplit * chunk < kv_len:
+        raise ValueError(f"decode_partials: {nsplit} chunks of {chunk} keys for {kv_len}")
+    if q.device.type == "cpu":
+        return decode_partials_plain(q, k, v, nsplit=nsplit, chunk=chunk, causal=causal,
+                                     window=window, q_offset=q_offset,
+                                     kv_valid_len=kv_valid_len)
+    if route(q.dtype, q.shape[1] * q.shape[3]) != "split":
+        raise ValueError(f"decode_partials takes bf16 with tq * g <= {SPLIT_MAX_ROWS}; got "
+                         f"{q.dtype}, {q.shape[1] * q.shape[3]} rows")
+    _cuda_ready(q, k, v)
+    return _launch_partials(q, k, v, kv_len, nsplit, chunk, causal, window, q_offset,
+                            _stream(q))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -108,21 +257,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                q_offset=q_offset, kv_valid_len=kv_valid_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k and v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
+    _cuda_ready(q, k, v)
     b, tq, hkv, g, dh = q.shape
     tk = k.shape[1]
-    kv_len = tk if kv_valid_len is None else min(tk, kv_valid_len)
-    o = torch.empty_like(q)
+    kv_len = _kv_len(tk, kv_valid_len)
     if b == 0 or tq == 0 or hkv == 0 or g == 0:
-        return o
-    err = K.library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b, tq, tk, hkv, g, dh, int(causal), window, q_offset, kv_len,
-        1.0 / math.sqrt(dh), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    K.check(err, "flash_attention")
+        return torch.empty_like(q)
+    r = route(q.dtype, tq * g)
+    stream = _stream(q)
+    if r == "split":
+        nsplit, chunk = plan_decode_splits(b, hkv, kv_len, sms=_sm_count(q.get_device()))
+        o = _launch_merge(_launch_partials(q, k, v, kv_len, nsplit, chunk, causal, window,
+                                           q_offset, stream), tq, g, stream)
+    else:
+        o = torch.empty_like(q)
+        fn = K.library().flash_mma_launch if r == "mma" else K.library().flash_fma_launch
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 b, tq, tk, hkv, g, dh, int(causal), window, q_offset, kv_len,
+                 1.0 / math.sqrt(dh), stream)
+        K.check(err, f"flash_attention ({r})")
     launches += 1
+    launches_by_route[r] += 1
     return o

@@ -139,7 +139,7 @@ def self_attention(t, x, ctx: L.Ctx, ad: AttnDims, cfg: ArchConfig, *,
 
 def make_kv_cache(cfg: ArchConfig, tp: int, batch: int, cache_len: int, *,
                   window: int = 0, dtype: torch.dtype = torch.bfloat16,
-                  device: torch.device | str = "cpu"):
+                  device: torch.device | str):
     ad = attn_dims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, tp)
     cap = min(window, cache_len) if window else cache_len
     shape = (batch, cap, ad.hkv_local, ad.head_dim)

@@ -177,7 +177,7 @@ def decode_step(model: ModelDef, flat, comm, ctx: L.Ctx, tokens: torch.Tensor,
 
 
 def init_caches(model: ModelDef, batch: int, cache_len: int, *,
-                dtype: torch.dtype = torch.bfloat16, device="cpu"):
+                dtype: torch.dtype = torch.bfloat16, device: torch.device | str):
     """Zero caches for every pool, stacked along the pool's stack dim."""
     caches = {}
     for pool in model.pools:

@@ -135,7 +135,7 @@ def griffin_rec_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, cache=None, prefix: str
 
 
 def make_rec_cache(cfg: ArchConfig, tp: int, batch: int, *,
-                   device: torch.device | str = "cpu"):
+                   device: torch.device | str):
     rl = shard_dim(cfg.lru_width or cfg.d_model, tp)
     return {
         "conv": torch.zeros((batch, cfg.conv_width - 1, rl), dtype=torch.bfloat16,

@@ -335,3 +335,44 @@ def test_cuda_griffin_kernels_match_plain(cuda_device, dt):
         qq = q if kw["causal"] else q[:, :1].contiguous()
         np.testing.assert_allclose(_np(flash_attention(qq, k, v, **kw).cpu()),
                                    _np(attention_plain(qq, k, v, **kw).cpu()), **_tol(dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("want,shape,kw", [
+    # mma: M-tiles that cut a position's heads; a window cutting a key tile;
+    # q_offset with kv_valid_len inside a key tile
+    ("mma", (2, 103, 103, 1, 10, 256), dict(causal=True)),
+    ("mma", (2, 300, 300, 1, 10, 256), dict(causal=True, window=100)),
+    ("mma", (2, 128, 256, 2, 4, 64), dict(causal=True, q_offset=64, kv_valid_len=150)),
+    # split: kv_valid_len inside a chunk; one key; a causal window that empties chunks
+    ("split", (2, 1, 544, 8, 4, 64), dict(causal=False, kv_valid_len=520)),
+    ("split", (2, 1, 100, 1, 10, 256), dict(causal=False, kv_valid_len=1)),
+    ("split", (2, 2, 544, 1, 8, 128), dict(causal=True, window=64, q_offset=300,
+                                           kv_valid_len=302)),
+    ("fma", (2, 100, 100, 2, 4, 64), dict(causal=True, window=32)),
+])
+def test_cuda_flash_routes_at_tile_edges(cuda_device, want, shape, kw):
+    """Each route against the plain version at its tile edges, bitwise
+    repeatable from call to call, and counted under its route."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    b, tq, tk, hkv, g, dh = shape
+    dt = "fp32" if want == "fma" else "bf16"
+    tdt = DTYPES[dt][1]
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q = torch.randn(b, tq, hkv, g, dh, generator=gen, device=cuda_device).to(tdt)
+    k = torch.randn(b, tk, hkv, dh, generator=gen, device=cuda_device).to(tdt)
+    v = torch.randn(b, tk, hkv, dh, generator=gen, device=cuda_device).to(tdt)
+    assert FA.route(tdt, tq * g) == want
+    before = FA.launches_by_route[want]
+    out = flash_attention(q, k, v, **kw)
+    assert FA.launches_by_route[want] == before + 1
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+    np.testing.assert_allclose(_np(out.cpu()), _np(attention_plain(q, k, v, **kw).cpu()),
+                               **_tol(dt))
+    if want == "split":
+        kv_len = min(tk, kw.get("kv_valid_len") or tk)
+        nsplit, chunk = FA.plan_decode_splits(b, hkv, kv_len)
+        got = FA.decode_partials(q, k, v, nsplit=nsplit, chunk=chunk, **kw)
+        ref = FA.decode_partials_plain(q, k, v, nsplit=nsplit, chunk=chunk, **kw)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **_tol(dt))
