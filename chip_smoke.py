@@ -24,15 +24,18 @@ script exits non-zero; no phase swallows an error):
    ``serve``: every kernel's launch counter is set to 0 just before the
    path's prefill + decode and read just after; each must equal the path's
    count (llama: RMSNorm 33 x 33, attention 16 x 33; recurrentgemma: RMSNorm
-   53 x 33, attention 8 x 33, RG-LRU 18 x 33), and attention's count by
+   53 x 33, attention 8 x 33, RG-LRU 18 x 33), attention's count by
    route must show the prefill on the tensor-core ``mma`` route and every
    decode step on the split-K ``split`` route, never the fp32 ``fma`` one
-   (llama: mma 16, split 16 x 32; recurrentgemma: mma 8, split 8 x 32).
+   (llama: mma 16, split 16 x 32; recurrentgemma: mma 8, split 8 x 32), and
+   RG-LRU's count by entry point every call on the gated form (gate math
+   fused in), never the ``(a, b)`` one (recurrentgemma: gated 18 x 33).
    ``consistency``: (a) a prefill over the prompt plus the first 8
    generated tokens agrees with decode step 8; (b) the same weights at a cut
    depth (llama 2 layers; recurrentgemma 5: ``g`` x1 + ``gtail``) give the
    same prefill logits on the card (kernels) as on the CPU (plain versions).
-   ``profile``: device time of one prefill and one decode step by kernel.
+   ``profile``: device time of one prefill and one decode step by kernel,
+   and the number of device kernels each runs.
 3. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
    library call's where there is one, and the card's bound for the same
@@ -41,6 +44,15 @@ script exits non-zero; no phase swallows an error):
    check records its route and is called twice for a bitwise-equal
    output, prefill checks give their achieved TFLOP/s, and the split
    route's partials kernel is held alone against its plain version.
+   RMSNorm gives its plan per shape.  RG-LRU runs both entry points, each
+   with its chunk plan: gated at the path's shapes, beside the eager
+   sequence it replaced (``eager_ms``), and the TPU kernel's ``(a, b)``
+   form; every RMSNorm and RG-LRU check is called twice for a bitwise-equal
+   output.
+
+``python3 chip_smoke.py --profile-only`` runs the ``profile`` phase of both
+paths alone (no checks, no result line): it uses only the serve API, so the
+same file also profiles an earlier checkout for comparison.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits non-zero and prints no result.
@@ -48,6 +60,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import pathlib
@@ -67,6 +80,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # tests/test_kernels.py's
 RGLRU_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-5}  # its test_rglru's
+# The gated RG-LRU at fp32, as a fraction of max |h|: the card's expf,
+# division and sqrt against the CPU-style math of the plain version, whose
+# ulps the recurrence amplifies by up to 1 / (1 - a)
+# (tests/test_torch_rglru_gated.py holds the plain version to JAX so too).
+RGLRU_GATED_FP32_REL = 1e-4
+# fp32 operations of the gate math and the recurrence an element (two
+# sigmoids' products, sums and divisions, log_a, b's clamp, sqrt and
+# products, one FMA), for the operations side of the gated form's bound.
+GATED_OPS_PER_ELEMENT = 25
 # Card-vs-card and card-vs-CPU agreement of the whole bf16 model, as a
 # fraction of the largest |logit|: both sides round every activation to
 # bf16, in different orders (the kernels' fp32 sums versus cuBLAS's or the
@@ -105,11 +127,21 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _types(mangled_args: str) -> list[str]:
+    """The template's types in a mangled argument list: bf16 is the only
+    type named twice in these kernels, so a back-reference (``S1_``) is bf16."""
+    return ["fp32" if t == "f" else "bf16"
+            for t in re.findall(r"13__nv_bfloat16|S\d*_|f", mangled_args)]
+
+
 def ptxas_summary(log: str) -> list[dict]:
-    """Registers, spills and static shared memory of each flash-attention
-    kernel instantiation, from the ``-Xptxas -v`` lines of the build log:
-    the lines from one "Compiling entry function" to the next describe that
-    function.  A count the log does not give is None."""
+    """Registers, spills and static shared memory of each kernel
+    instantiation, from the ``-Xptxas -v`` lines of the build log: the lines
+    from one "Compiling entry function" to the next describe that function.
+    Flash attention gives its head dim; RMSNorm its x and scale types,
+    vectors a lane and whether it is the vector or the scalar path; RG-LRU
+    its form (``ab`` or ``gated``) and types.  A count the log does not give
+    is None."""
     def num(pattern: str, text: str) -> int | None:
         m = re.search(pattern, text)
         return int(m.group(1)) if m else None
@@ -117,12 +149,24 @@ def ptxas_summary(log: str) -> list[dict]:
     out = []
     for block in log.split("Compiling entry function '")[1:]:
         mangled = block.split("'", 1)[0]
-        name = re.search(r"\d+(flash_\w+?_kernel)(\w*)", mangled)
+        name = re.search(r"\d+((?:flash|rglru|rmsnorm)_\w*?kernel)(\w*)", mangled)
         if name is None:
             continue
-        dh = re.search(r"Li(\d+)E", name.group(2))
-        out.append({"kernel": name.group(1), "dh": int(dh.group(1)) if dh else None,
-                    "registers": num(r"Used (\d+) registers", block),
+        kernel, args = name.group(1), name.group(2)
+        row = {"kernel": kernel}
+        if kernel.startswith("flash"):
+            dh = re.search(r"Li(\d+)E", args)
+            row["dh"] = int(dh.group(1)) if dh else None
+        elif kernel.startswith("rmsnorm"):
+            m = re.match(r"I(\w+?)Li(\d+)ELb(\d)E", args)
+            row["types"] = _types(m.group(1)) if m else None
+            row["vecs_per_lane"] = int(m.group(2)) if m else None
+            row["vector_path"] = bool(int(m.group(3))) if m else None
+        else:
+            m = re.search(r"(Gated|Ab)SourceI(\w+?)EE", args)
+            row["form"] = None if m is None else {"Gated": "gated", "Ab": "ab"}[m.group(1)]
+            row["types"] = _types(m.group(2)) if m else None
+        out.append({**row, "registers": num(r"Used (\d+) registers", block),
                     "spill_stores": num(r"(\d+) bytes spill stores", block),
                     "spill_loads": num(r"(\d+) bytes spill loads", block),
                     "static_smem": num(r"(\d+) bytes smem", block) or 0})
@@ -183,36 +227,83 @@ def cut_params(model, params, n_layers: int):
     return small, out
 
 
-def serve_path(path: Path, card: str, counters: dict, dev):
-    """Serve, consistency and profile phases of one path; returns the
-    launches of its serve run, by kernel and attention's by route."""
+def setup_path(path: Path, dev):
+    """The path's model, weights, serve steps and prompt, warmed up once
+    (cuBLAS handles, allocator; not counted)."""
     from repro_torch.configs import get_config
     from repro_torch.core.mics import MiCSConfig, init_params
     from repro_torch.core.topology import MiCSTopology
-    from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.models.build import build_model
     from repro_torch.runtime.serving import build_serve_steps
 
     cfg = get_config(path.arch)
     model = build_model(cfg, tp=1)
-    topo = MiCSTopology()
     params = init_params(model, seed=0, device=dev)
     mcfg = MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True)
-    prefill_fn, decode_fn = build_serve_steps(model, topo, mcfg, path.cache_len, device=dev)
+    prefill_fn, decode_fn = build_serve_steps(model, MiCSTopology(), mcfg, path.cache_len,
+                                              device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     prompt = torch.randint(0, cfg.vocab, (path.batch, path.prompt), generator=gen, device=dev)
-
-    # warm-up (cuBLAS handles, allocator), not counted
     logits, caches = prefill_fn(params, {"tokens": prompt})
     decode_fn(params, caches, torch.argmax(logits[:, -1:].float(), dim=-1), path.prompt)
     del logits, caches
     torch.cuda.synchronize()
+    return cfg, model, mcfg, params, prefill_fn, decode_fn, prompt
+
+
+def profile_path(path: Path, cfg, params, prefill_fn, decode_fn, prompt):
+    """``profile``: device time of one prefill and one decode step by kernel
+    (decode from the prompt's cache with its greedy token), and the number
+    of device kernels each runs."""
+    logits, pcache = prefill_fn(params, {"tokens": prompt})
+    first_ids = torch.argmax(logits[:, -1:].float(), dim=-1)
+    del logits
+    for kind in ("prefill", "decode"):
+        if kind == "prefill":
+            run = lambda: prefill_fn(params, {"tokens": prompt})  # noqa: E731
+        else:
+            run = lambda: decode_fn(params, pcache, first_ids, path.prompt)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side kernel and memcpy events only (the CPU-side aten ops
+        # carry the same time again as their children's)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key != "Activity Buffer Request"]
+        rows.sort(key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        emit({"phase": "profile", "arch": cfg.name, "step": kind, "wall_ms": wall_ms,
+              "device_busy_ms": busy_ms, "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+              "device_kernels": sum(e.count for e in rows),
+              "top": [{"name": e.key[:80], "calls": e.count,
+                       "device_ms": e.self_device_time_total / 1e3} for e in rows[:12]]})
+    del pcache
+
+
+def serve_path(path: Path, card: str, counters: dict, dev):
+    """Serve, consistency and profile phases of one path; returns the
+    launches of its serve run, by kernel, attention's by route and
+    RG-LRU's by form."""
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rglru import kernel as RG
+    from repro_torch.runtime.serving import build_serve_steps
+
+    cfg, model, mcfg, params, prefill_fn, decode_fn, prompt = setup_path(path, dev)
+    topo = MiCSTopology()
     torch.cuda.reset_peak_memory_stats()
 
     # -- serve ---------------------------------------------------------------------
     for mod in counters.values():
         mod.launches = 0
     FA.launches_by_route.update(dict.fromkeys(FA.launches_by_route, 0))
+    RG.launches_by_form.update(dict.fromkeys(RG.launches_by_form, 0))
     t0 = time.perf_counter()
     logits, caches = prefill_fn(params, {"tokens": prompt})
     torch.cuda.synchronize()
@@ -228,6 +319,7 @@ def serve_path(path: Path, card: str, counters: dict, dev):
     decode_s = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in counters.items()}
     by_route = dict(FA.launches_by_route)
+    by_form = dict(RG.launches_by_form)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     ids = torch.cat(generated, dim=1)  # [b, 1 + steps]: prefill's token, then each step's
@@ -238,6 +330,9 @@ def serve_path(path: Path, card: str, counters: dict, dev):
     want_route = {"mma": n_attn, "split": n_attn * path.steps, "fma": 0}
     if by_route != want_route:
         raise AssertionError(f"{path.arch}: attention routes {by_route} != {want_route}")
+    want_form = {"ab": 0, "gated": want["rglru"]}
+    if by_form != want_form:
+        raise AssertionError(f"{path.arch}: RG-LRU entry points {by_form} != {want_form}")
     for lg in step_logits:
         if lg.shape != (path.batch, 1, model.vocab_padded) or not torch.isfinite(lg).all():
             raise AssertionError("decode logits not finite or of the wrong shape")
@@ -251,6 +346,7 @@ def serve_path(path: Path, card: str, counters: dict, dev):
           "decode_ms_per_step": decode_s * 1e3 / path.steps,
           "tokens_per_s": path.batch * path.steps / decode_s, "peak_gb": peak_gb,
           "launches": launches, "attention_launches_by_route": by_route,
+          "rglru_launches_by_form": by_form,
           "ids_row0": ids[0].tolist(), "gpu": card})
     del caches
 
@@ -290,34 +386,10 @@ def serve_path(path: Path, card: str, counters: dict, dev):
     del params2, lg_card, lg_cpu
 
     # -- profile: where one prefill and one decode step spend the card's time --
-    _, pcache = prefill_fn(params, {"tokens": prompt})
-    for kind in ("prefill", "decode"):
-        if kind == "prefill":
-            run = lambda: prefill_fn(params, {"tokens": prompt})  # noqa: E731
-        else:
-            run = lambda: decode_fn(params, pcache, ids[:, :1], path.prompt)  # noqa: E731
-        run()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side kernel and memcpy events only (the CPU-side aten ops
-        # carry the same time again as their children's)
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.key != "Activity Buffer Request"]
-        rows.sort(key=lambda e: -e.self_device_time_total)
-        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-        emit({"phase": "profile", "arch": cfg.name, "step": kind, "wall_ms": wall_ms,
-              "device_busy_ms": busy_ms, "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-              "top": [{"name": e.key[:80], "calls": e.count,
-                       "device_ms": e.self_device_time_total / 1e3} for e in rows[:12]]})
-    del pcache, params
+    profile_path(path, cfg, params, prefill_fn, decode_fn, prompt)
+    del params
     torch.cuda.empty_cache()
-    return launches, by_route
+    return launches, by_route, by_form
 
 
 def kernel_checks(gen, dev, flush):
@@ -328,9 +400,10 @@ def kernel_checks(gen, dev, flush):
     from repro_torch.kernels.rglru import kernel as RG
     from repro_torch.kernels.rmsnorm import kernel as RN
 
-    def check(name, out, ref, tol):
+    def check(name, out, ref, tol, rtol=None):
         err = (out.float() - ref.float()).abs().max().item()
-        if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+        if not torch.allclose(out.float(), ref.float(), rtol=tol if rtol is None else rtol,
+                              atol=tol):
             raise AssertionError(f"{name}: kernel disagrees with its plain version "
                                  f"(max |err| {err}, tol {tol})")
         return err
@@ -343,11 +416,15 @@ def kernel_checks(gen, dev, flush):
         s = (0.2 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
         w = 1.0 + s.float()
         tol = TOL[x.dtype]
-        err = check("rmsnorm", RN.rmsnorm(x, s), RN.rms_norm_plain(x, s), tol)
+        y = RN.rmsnorm(x, s)
+        err = check("rmsnorm", y, RN.rms_norm_plain(x, s), tol)
+        if not torch.equal(y, RN.rmsnorm(x, s)):
+            raise AssertionError(f"rmsnorm {path}: not bitwise repeatable")
         b_ms, b_by = bound(2 * x.numel() * x.element_size() + s.numel() * s.element_size(),
                            4 * x.numel(), torch.float32)
         rms_checks.append({
             "case": path, "shape": [n, d], "dtype": "bf16", "scale_dtype": "bf16",
+            "plan": RN.plan_rmsnorm(n, d, x.dtype)._asdict(), "bitwise_repeat": True,
             "max_abs_err": err, "tol": tol, "ms": time_ms(lambda: RN.rmsnorm(x, s), flush),
             "plain_ms": time_ms(lambda: RN.rms_norm_plain(x, s), flush),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -430,36 +507,112 @@ def kernel_checks(gen, dev, flush):
             **extra})
         del q, k, v, qs, ks, vs
 
-    # RG-LRU: a in (0.7, 1), b small, as tests/test_kernels.py draws them.  No
-    # single PyTorch call computes a linear recurrence (a cumprod / cumsum
-    # form divides by vanishing products), so library_ms is null.
-    rglru_cases = [
+    # RG-LRU.  No single PyTorch call computes a linear recurrence (a
+    # cumprod / cumsum form divides by vanishing products), so library_ms is
+    # null.  Gated form first (the path's): x ~ N(0, 1) and the gate weights
+    # at the model's init scale (gates std 0.02, biases 0.1, sigmoid(lam) in
+    # (0.9, 0.999)); "aliased" updates the fp32 state in place, as decode does.
+    def plan_of(shape):
+        nchunks, chunk_len = RG.plan_scan_chunks(*shape, sms=sms)
+        return {"nchunks": nchunks, "chunk_len": chunk_len}
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gated_cases = [
+        ("recurrentgemma prefill", (4, 2560, 2560), bf, None),
+        ("recurrentgemma decode", (4, 1, 2560), bf, "aliased"),
+        ("fp32", (4, 2560, 2560), f32, None),
+        ("ragged", (3, 1001, 2500), bf, "h0"),
+    ]
+    rglru_checks = []
+    for kind, shape, dt, state in gated_cases:
+        c = shape[2]
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        u = 0.9 + 0.099 * torch.rand(c, generator=gen, device=dev)
+        ws = tuple(w.to(dt) for w in (
+            0.02 * torch.randn(c, generator=gen, device=dev),
+            0.1 * torch.randn(c, generator=gen, device=dev),
+            0.02 * torch.randn(c, generator=gen, device=dev),
+            0.1 * torch.randn(c, generator=gen, device=dev), torch.log(u) - torch.log1p(-u)))
+        h0 = None if state is None else torch.randn(shape[0], c, generator=gen, device=dev)
+
+        def gated(st=None):
+            st = None if h0 is None else (h0.clone() if st is None else st)
+            return RG.rglru_gated(x, *ws, st, state_out=st if state == "aliased" else None)
+
+        def eager(st=None):  # the unfused path: gate math, the (a, b) kernel, cast, state
+            st = None if h0 is None else (h0.clone() if st is None else st)
+            a_, b_ = RG.rglru_coeffs_plain(x, *ws)
+            hs = RG.rglru(a_, b_, st)
+            if state == "aliased":
+                return hs.to(x.dtype), st.copy_(hs[:, -1])
+            return hs.to(x.dtype), hs[:, -1].clone()
+
+        (h, h_last), (h2, h_last2) = gated(), gated()
+        if not (torch.equal(h, h2) and torch.equal(h_last, h_last2)):
+            raise AssertionError(f"rglru_gated {kind}: not bitwise repeatable")
+        want, want_last = RG.rglru_gated_plain(x, *ws, h0)
+        if dt == bf:
+            tol = RGLRU_TOL[dt]
+            err = check(f"rglru_gated {kind}", h, want, tol)
+        else:
+            tol = RGLRU_GATED_FP32_REL * want.abs().max().item()
+            err = check(f"rglru_gated {kind}", h, want, tol, rtol=0.0)
+        err_last = check(f"rglru_gated {kind} h_last", h_last, want_last,
+                         RGLRU_GATED_FP32_REL * want_last.abs().max().item(), rtol=0.0)
+        plan = plan_of(shape)
+        # x read, h written, the weights read once; h0 read and h_last written
+        nbytes = (2 * x.numel() * x.element_size() + 5 * c * ws[0].element_size()
+                  + (0 if h0 is None else 4 * h0.numel()) + 4 * shape[0] * c)
+        b_ms, b_by = bound(nbytes, GATED_OPS_PER_ELEMENT * x.numel(), torch.float32)
+        st = None if h0 is None else h0.clone()
+        rglru_checks.append({
+            "case": kind, "form": "gated", "shape": list(shape),
+            "dtype": "bf16" if dt == bf else "fp32", "state": state, "plan": plan,
+            "bitwise_repeat": True, "max_abs_err": err, "tol": tol,
+            "h_last_max_abs_err": err_last,
+            "ms": time_ms(lambda: gated(st), flush),
+            "eager_ms": time_ms(lambda: eager(st), flush),
+            "plain_ms": time_ms(lambda: RG.rglru_gated_plain(x, *ws, h0), flush, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        del x, h, h2, want
+
+    # The TPU kernel's own function, (a, b) form: a in (0.7, 1), b small, as
+    # tests/test_kernels.py draws them.
+    ab_cases = [
         ("recurrentgemma prefill", (4, 2560, 2560), f32, False),
         ("recurrentgemma decode", (4, 1, 2560), f32, True),
         ("bf16", (4, 2560, 2560), bf, False),
         ("ragged", (3, 1001, 2500), f32, True),
     ]
-    rglru_checks = []
-    for kind, shape, dt, with_h0 in rglru_cases:
+    for kind, shape, dt, with_h0 in ab_cases:
         a = (0.7 + 0.299 * torch.rand(shape, generator=gen, device=dev)).to(dt)
         bb = (0.1 * torch.randn(shape, generator=gen, device=dev)).to(dt)
         h0 = (torch.randn(shape[0], shape[2], generator=gen, device=dev)
               if with_h0 else None)
         tol = RGLRU_TOL[dt]
-        err = check(f"rglru {kind}", RG.rglru(a, bb, h0), RG.rglru_plain(a, bb, h0), tol)
+        h = RG.rglru(a, bb, h0)
+        err = check(f"rglru {kind}", h, RG.rglru_plain(a, bb, h0), tol)
+        if not torch.equal(h, RG.rglru(a, bb, h0)):
+            raise AssertionError(f"rglru {kind}: not bitwise repeatable")
         # a, b read and h written once (+ h0 read); one FMA (2 operations) each
         nbytes = 3 * a.numel() * a.element_size() + (0 if h0 is None else h0.numel() * 4)
         b_ms, b_by = bound(nbytes, 2 * a.numel(), torch.float32)
         rglru_checks.append({
-            "case": kind, "shape": list(shape), "dtype": "bf16" if dt == bf else "fp32",
-            "h0": with_h0, "max_abs_err": err, "tol": tol,
+            "case": kind, "form": "ab", "shape": list(shape),
+            "dtype": "bf16" if dt == bf else "fp32", "h0": with_h0, "plan": plan_of(shape),
+            "bitwise_repeat": True, "max_abs_err": err, "tol": tol,
             "ms": time_ms(lambda: RG.rglru(a, bb, h0), flush),
             "plain_ms": time_ms(lambda: RG.rglru_plain(a, bb, h0), flush, reps=5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        del a, bb, h
     return rms_checks, attn_checks, rglru_checks
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile-only", action="store_true",
+                    help="run only the profile phase of both paths (no checks, no result)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA card", file=sys.stderr)
@@ -482,14 +635,24 @@ def main() -> int:
     KB.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib.name,
           "ptxas": ptxas_summary(lib.with_suffix(".log").read_text()), "gpu": card})
+    if args.profile_only:
+        for p in PATHS:
+            cfg, _, _, params, prefill_fn, decode_fn, prompt = setup_path(p, dev)
+            profile_path(p, cfg, params, prefill_fn, decode_fn, prompt)
+            del params
+            torch.cuda.empty_cache()
+        return 0
 
     # -- 2. the serve paths ----------------------------------------------------
     counters = {"rmsnorm": RN, "flash_attention": FA, "rglru": RG}
     by_path, launches_by_route = {}, dict.fromkeys(FA.ROUTES, 0)
+    launches_by_form = dict.fromkeys(RG.FORMS, 0)
     for p in PATHS:
-        by_path[p.arch], by_route = serve_path(p, card, counters, dev)
+        by_path[p.arch], by_route, by_form = serve_path(p, card, counters, dev)
         for r, n in by_route.items():
             launches_by_route[r] += n
+        for f, n in by_form.items():
+            launches_by_form[f] += n
 
     # -- 3. kernels against their plain versions, timed ---------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -516,7 +679,8 @@ def main() -> int:
                        "fma": "src/repro_torch/kernels/csrc/flash_attention.cu"},
               launches_by_route=launches_by_route),
         entry("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
-              "src/repro/kernels/rglru/kernel.py:47", rglru_checks),
+              "src/repro/kernels/rglru/kernel.py:47", rglru_checks,
+              launches_by_form=launches_by_form),
     ], "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

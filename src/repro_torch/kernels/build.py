@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 CHECKOUT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = CHECKOUT / "build" / "torch_kernels"
@@ -31,8 +33,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes.  Each returns cudaGetLastError() as int.
 SIGNATURES = {
-    # x, scale, y, n, d, eps, x_bf16, scale_bf16, stream
-    "rmsnorm_launch": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
+    # x, scale, y, n, d, eps, x_bf16, scale_bf16, lanes_log2, vecs_per_lane,
+    # sms, stream
+    "rmsnorm_launch": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P),
     # q, k, v, o, b, tq, tk, hkv, g, dh, causal, window, q_offset, kv_len,
     # scale, stream (fma: fp32; mma: bf16)
     "flash_fma_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -45,8 +48,13 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _F, _P),
     # part, o, b, tq, hkv, g, dh, nsplit, stream
     "flash_split_merge_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # a, b, h0 (or NULL), h, B, T, C, is_bf16, stream
-    "rglru_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # a, b, h0 (or NULL), h, h_last (or NULL), summary (or NULL), B, T, C,
+    # nchunks, chunk_len, is_bf16, stream
+    "rglru_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, wr, br, wi, bi, lam, h0 (or NULL), h, h_last, summary (or NULL), B, T,
+    # C, nchunks, chunk_len, x_bf16, w_bf16, stream
+    "rglru_gated_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _P),
 }
 
 
@@ -128,6 +136,12 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """The SM count of a CUDA device, which the kernels' plans size their grids by."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

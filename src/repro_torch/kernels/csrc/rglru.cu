@@ -1,40 +1,66 @@
-// RG-LRU scan for Hopper (sm_90a): h_t = a_t * h_{t-1} + b_t per channel.
+// RG-LRU scan for Hopper (sm_90a): h_t = a_t * h_{t-1} + b_t per channel,
+// with (a, b) either read from device memory or computed in the kernel from
+// x and the per-channel gate weights.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/rglru/kernel.py
 // (`rglru`, body `_rglru_kernel`, wrapper ops.py `rglru_scan`), and on the
-// model path the two functions of src/repro/models/recurrent.py that run
-// the recurrence in its place: the `lax.associative_scan` of
-// `griffin_rec_apply` (prefill, h_{-1} = 0) and `rglru_step` (decode,
-// T = 1 from the cached fp32 state, passed here as h0).
+// model path the functions of src/repro/models/recurrent.py that run the
+// recurrence in its place: `_rglru_coeffs` followed by the
+// `lax.associative_scan` of `rglru_scan` (prefill, h_{-1} = 0), and
+// `rglru_step` (decode, T = 1 from the cached fp32 state, passed as h0).
 //
-// Layout: a, b, h [B, T, C] contiguous, fp32 or bf16 (one type); h0 [B, C]
-// fp32 or null.  The carry is fp32; h is written in a's type.
+// Two coefficient sources share one scan (template parameter Src):
+//  * AbSource: a, b [B, T, C] fp32 or bf16 (one type), h in that type;
+//    the TPU kernel's own function.
+//  * GatedSource: x [B, T, C] fp32 or bf16 and wr, br, wi, bi, lam [C]
+//    fp32 or bf16 (one type; loaded as scalars, their alignment is not
+//    guaranteed); per element, in fp32, exactly `_rglru_coeffs`:
+//      r = sigmoid(x*wr + br), i = sigmoid(x*wi + bi),
+//      log_a = 8 * r * (-softplus(-lam)), softplus exact (logaddexp form,
+//      no threshold) and hoisted per channel,
+//      a = exp(log_a), b = sqrt(clamp(1 - exp(2*log_a), 1e-6, 1)) * (i*x).
+//    exp(2*log_a) is computed as a*a: one precise expf fewer an element,
+//    in a scan whose time the gate math bounds, at about twice the
+//    relative rounding error in 1 - a^2, well inside the fp32 check of
+//    1e-4 of max |h| (chip_smoke.py, tests/test_torch_kernels.py).  The
+//    products and sums that the reference rounds one by one are not
+//    contracted to FMAs.  Precise expf / log1pf / sqrtf and IEEE division
+//    (the sigmoid's reciprocal as __frcp_rn, which rounds 1/x as division
+//    does); no fast math.  a and b never reach device memory; h is written
+//    in x's type and the fp32 last state h[:, T-1] into h_last.
 //
-// Bound: bytes.  The work is one FMA per element against reading a and b
-// and writing h once, 12 * B * T * C bytes at fp32: at the serve path's
-// prefill shape [4, 2560, 2560] that is 314.6 MB, about 0.094 ms at
-// 3.35 TB/s.  Design for that, kept simple:
-//  * parallel over (batch, channel): one thread per channel, consecutive
-//    threads on consecutive channels, so every time step's loads and stores
-//    are coalesced 128-byte (fp32) transactions per warp;
-//  * sequential over T with the carry in a register;
-//  * the time loop is unrolled by kUnroll steps, and those steps' a / b
-//    loads are all issued before the dependent FMA chain: they do not
-//    depend on h, so their latency hides behind each other instead of
-//    adding up step by step;
-//  * any T (a scalar tail after the unrolled part) and any C (threads past
-//    C return), so the Pallas kernel's divisibility rule is not carried
-//    over.
-// With only B * C = 10,240 channels on the path, this fills about 80 blocks
-// of 128 threads on the card's 132 SMs and relies on the unrolled loads for
-// memory parallelism.  A chunked two-pass scan over time (per-chunk
-// (prod a, partial h), then a carry fix-up) that puts T across blocks too,
-// and fusing `_rglru_coeffs`' gate math into the kernel so a and b never
-// reach device memory, are later PRs' work.
+// Bound: bytes.  Gated at the serve path's prefill shape, x bf16
+// [4, 2560, 2560]: 52.4 MB read + 52.4 MB written, 0.031 ms at 3.35 TB/s.
+// The gate math costs ~6 special-function operations an element (two
+// sigmoids' exp and reciprocal, exp(log_a), a sqrt), ~0.038 ms a pass on
+// 132 SMs x 16 a clock, and ~70 instructions an element in all, so each
+// pass is bound by instruction issue, not by bytes.  (a, b) form at
+// [4, 2560, 2560] fp32: 314.6 MB, 0.094 ms.
 //
-// Triton would suit a scan like this as well; it is CUDA C++ so that the
-// port keeps one build path (nvcc -> one .so with a plain C interface,
-// loaded with ctypes).
+// Design: a chunked two-pass scan over T, planned by the wrapper
+// (`plan_scan_chunks`: nchunks chunks of chunk_len steps, the last cut
+// short).  With only B * C = 10,240 channels on the path, one thread per
+// channel left most of the card idle and the loop latency-bound; chunks put
+// T across threads too (36 chunks of 72 steps at [4, 2560, 2560]: two waves
+// of 12 blocks of 128 threads on each of 132 SMs).
+//  * pass 1 (rglru_summary_kernel), one thread per (batch, chunk, channel):
+//    the chunk's (prod a, h from 0) into fp32 scratch [B, nchunks, C, 2];
+//  * pass 2 (rglru_scan_kernel), one thread per (batch, chunk, channel):
+//    fold h0 and the earlier chunks' summaries into the chunk's carry, in
+//    chunk order, then rescan the chunk sequentially from it, recomputing
+//    the coefficients, and write h; the last chunk writes h_last.
+// The scan inside a chunk is sequential, so the only reassociation is the
+// carry fold; there are no atomics and the output is bitwise the same from
+// call to call.  nchunks = 1 runs pass 2 alone, without scratch (decode,
+// short T).  Consecutive threads take consecutive channels, so every step's
+// loads and stores are coalesced; the time loop is unrolled by kUnroll and
+// those steps' loads are issued before the dependent FMA chain (they do not
+// depend on h).  Any T and C (threads past C return).
+//
+// h0 may be the same tensor as h_last (the decode step's state, updated in
+// place): each thread reads its own channel of h0 before it writes that
+// channel of h_last, which is safe with one chunk only; the wrapper refuses
+// the alias when the plan has more.  Neither pointer is __restrict__.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,7 +68,9 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 12;  // resident blocks a SM; the wrapper's plan fills one wave
 constexpr int kUnroll = 8;
+constexpr float kLruC = 8.f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -53,55 +81,194 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rglru_kernel(const T* __restrict__ a, const T* __restrict__ b,
-             const float* __restrict__ h0, T* __restrict__ h, int steps, int C) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const int64_t bi = blockIdx.y;
-  const int64_t base = bi * steps * C + c;  // element (bi, 0, c)
-  float carry = h0 ? h0[bi * C + c] : 0.f;
+// 1 / (1 + e^-z), the reciprocal correctly rounded as IEEE division rounds it.
+__device__ __forceinline__ float sigmoid_f(float z) { return __frcp_rn(1.f + expf(-z)); }
 
-  int t = 0;
-  for (; t + kUnroll <= steps; t += kUnroll) {
-    float av[kUnroll], bv[kUnroll];
+// (a, b) read from device memory.
+template <typename T>
+struct AbSource {
+  using Out = T;
+  struct Chan {};
+  struct Raw { T a, b; };
+  const T* __restrict__ a;
+  const T* __restrict__ b;
+  __device__ __forceinline__ Chan channel(int) const { return {}; }
+  __device__ __forceinline__ Raw load(int64_t off) const { return {a[off], b[off]}; }
+  __device__ __forceinline__ void coeffs(const Chan&, const Raw& r, float& av,
+                                         float& bv) const {
+    av = to_f(r.a);
+    bv = to_f(r.b);
+  }
+};
+
+// (a, b) computed from x and the channel's gate weights.
+template <typename X, typename W>
+struct GatedSource {
+  using Out = X;
+  struct Chan { float wr, br, wi, bi, log_a_base; };
+  using Raw = X;
+  const X* __restrict__ x;
+  const W* wr;
+  const W* br;
+  const W* wi;
+  const W* bi;
+  const W* lam;
+  __device__ __forceinline__ Chan channel(int c) const {
+    // log a_base = -softplus(-lam), softplus(y) = max(y, 0) + log1p(exp(-|y|))
+    const float y = -to_f(lam[c]);
+    return {to_f(wr[c]), to_f(br[c]), to_f(wi[c]), to_f(bi[c]),
+            -(fmaxf(y, 0.f) + log1pf(expf(-fabsf(y))))};
+  }
+  __device__ __forceinline__ Raw load(int64_t off) const { return x[off]; }
+  __device__ __forceinline__ void coeffs(const Chan& p, Raw raw, float& av,
+                                         float& bv) const {
+    const float xf = to_f(raw);
+    const float r = sigmoid_f(__fadd_rn(__fmul_rn(xf, p.wr), p.br));
+    const float i = sigmoid_f(__fadd_rn(__fmul_rn(xf, p.wi), p.bi));
+    const float log_a = __fmul_rn(__fmul_rn(kLruC, r), p.log_a_base);
+    av = expf(log_a);
+    const float e2 = __fmul_rn(av, av);  // exp(2 * log_a), see the note above
+    bv = __fmul_rn(sqrtf(fminf(fmaxf(__fsub_rn(1.f, e2), 1e-6f), 1.f)), __fmul_rn(i, xf));
+  }
+};
+
+// Steps [t0, t1) of one channel: step(a_t, b_t, offset of element t).
+template <class Src, class Step>
+__device__ __forceinline__ void walk(const Src& src, const typename Src::Chan& ch,
+                                     int64_t base, int t0, int t1, int C, Step&& step) {
+  int t = t0;
+  for (; t + kUnroll <= t1; t += kUnroll) {
+    typename Src::Raw raw[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) raw[u] = src.load(base + static_cast<int64_t>(t + u) * C);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int64_t off = base + static_cast<int64_t>(t + u) * C;
-      av[u] = to_f(a[off]);
-      bv[u] = to_f(b[off]);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      carry = fmaf(av[u], carry, bv[u]);
-      h[base + static_cast<int64_t>(t + u) * C] = from_f<T>(carry);
+      float a, b;
+      src.coeffs(ch, raw[u], a, b);
+      step(a, b, base + static_cast<int64_t>(t + u) * C);
     }
   }
-  for (; t < steps; ++t) {
+  for (; t < t1; ++t) {
     const int64_t off = base + static_cast<int64_t>(t) * C;
-    carry = fmaf(to_f(a[off]), carry, to_f(b[off]));
-    h[off] = from_f<T>(carry);
+    float a, b;
+    src.coeffs(ch, src.load(off), a, b);
+    step(a, b, off);
   }
 }
 
-template <typename T>
-int launch(const void* a, const void* b, const float* h0, void* h, int B, int steps,
-           int C, cudaStream_t stream) {
-  const dim3 grid((C + kThreads - 1) / kThreads, B);
-  rglru_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), h0, static_cast<T*>(h), steps, C);
+// Pass 1: summary[bi, k, c] = (prod of the chunk's a, h over the chunk from 0).
+template <class Src>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rglru_summary_kernel(Src src, float2* __restrict__ summary, int steps, int C,
+                     int chunk_len) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= C) return;
+  const int k = blockIdx.y;
+  const int64_t bi = blockIdx.z;
+  const int t0 = k * chunk_len;
+  const int t1 = min(steps, t0 + chunk_len);
+  const typename Src::Chan ch = src.channel(c);
+  float prod = 1.f, hl = 0.f;
+  walk(src, ch, bi * steps * C + c, t0, t1, C, [&](float a, float b, int64_t) {
+    prod *= a;
+    hl = fmaf(a, hl, b);
+  });
+  summary[(bi * gridDim.y + k) * C + c] = make_float2(prod, hl);
+}
+
+// Pass 2: fold h0 and chunks 0..k-1 into the carry, rescan chunk k, write h.
+// Its blocks run in the reverse of pass 1's order, so the first ones find
+// in L2 what pass 1 read last.
+template <class Src>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rglru_scan_kernel(Src src, const float2* __restrict__ summary, const float* h0,
+                  typename Src::Out* __restrict__ h, float* h_last, int steps, int C,
+                  int chunk_len) {
+  const int c = (gridDim.x - 1 - blockIdx.x) * kThreads + threadIdx.x;
+  if (c >= C) return;
+  const int k = gridDim.y - 1 - blockIdx.y;
+  const int64_t bi = gridDim.z - 1 - blockIdx.z;
+  const int t0 = k * chunk_len;
+  const int t1 = min(steps, t0 + chunk_len);
+  const typename Src::Chan ch = src.channel(c);
+  float carry = h0 ? h0[bi * C + c] : 0.f;
+  const float2* s = summary + bi * gridDim.y * C + c;
+#pragma unroll 4
+  for (int j = 0; j < k; ++j) {
+    const float2 aj = s[static_cast<int64_t>(j) * C];
+    carry = fmaf(aj.x, carry, aj.y);
+  }
+  walk(src, ch, bi * steps * C + c, t0, t1, C, [&](float a, float b, int64_t off) {
+    carry = fmaf(a, carry, b);
+    h[off] = from_f<typename Src::Out>(carry);
+  });
+  if (h_last != nullptr && k == static_cast<int>(gridDim.y) - 1) h_last[bi * C + c] = carry;
+}
+
+template <class Src>
+int run(const Src& src, const void* h0, void* h, void* h_last, void* summary, int B,
+        int steps, int C, int nchunks, int chunk_len, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const dim3 grid((C + kThreads - 1) / kThreads, nchunks, B);
+  float2* sum = static_cast<float2*>(summary);
+  if (nchunks > 1) {
+    rglru_summary_kernel<Src><<<grid, kThreads, 0, s>>>(src, sum, steps, C, chunk_len);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  rglru_scan_kernel<Src><<<grid, kThreads, 0, s>>>(
+      src, sum, static_cast<const float*>(h0), static_cast<typename Src::Out*>(h),
+      static_cast<float*>(h_last), steps, C, chunk_len);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename X, typename W>
+int run_gated(const void* x, const void* wr, const void* br, const void* wi,
+              const void* bi, const void* lam, const void* h0, void* h, void* h_last,
+              void* summary, int B, int steps, int C, int nchunks, int chunk_len,
+              void* stream) {
+  const GatedSource<X, W> src{static_cast<const X*>(x), static_cast<const W*>(wr),
+                              static_cast<const W*>(br), static_cast<const W*>(wi),
+                              static_cast<const W*>(bi), static_cast<const W*>(lam)};
+  return run(src, h0, h, h_last, summary, B, steps, C, nchunks, chunk_len, stream);
 }
 
 }  // namespace
 
-// a, b, h [B, T, C] contiguous, one type (fp32 or bf16); h0 [B, C] fp32 or
-// null (start from 0).  The caller checks shapes, types and B, T, C > 0.
+// The caller checks shapes, types, contiguity and B, T, C > 0, and gives
+// summary as fp32 [B, nchunks, C, 2] when nchunks > 1 (else null), with
+// (nchunks - 1) * chunk_len < T <= nchunks * chunk_len.
+
+// a, b, h [B, T, C] one type (fp32 or bf16); h0 [B, C] fp32 or null (0);
+// h_last [B, C] fp32 or null.
 extern "C" int rglru_launch(const void* a, const void* b, const void* h0, void* h,
-                            int B, int steps, int C, int is_bf16, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const float* h0f = static_cast<const float*>(h0);
-  if (is_bf16) return launch<__nv_bfloat16>(a, b, h0f, h, B, steps, C, s);
-  return launch<float>(a, b, h0f, h, B, steps, C, s);
+                            void* h_last, void* summary, int B, int steps, int C,
+                            int nchunks, int chunk_len, int is_bf16, void* stream) {
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    const AbSource<T> src{static_cast<const T*>(a), static_cast<const T*>(b)};
+    return run(src, h0, h, h_last, summary, B, steps, C, nchunks, chunk_len, stream);
+  }
+  const AbSource<float> src{static_cast<const float*>(a), static_cast<const float*>(b)};
+  return run(src, h0, h, h_last, summary, B, steps, C, nchunks, chunk_len, stream);
+}
+
+// x, h [B, T, C] one type (fp32 or bf16); wr, br, wi, bi, lam [C] one type
+// (fp32 or bf16); h0 [B, C] fp32 or null (0); h_last [B, C] fp32, may be h0.
+extern "C" int rglru_gated_launch(const void* x, const void* wr, const void* br,
+                                  const void* wi, const void* bi, const void* lam,
+                                  const void* h0, void* h, void* h_last, void* summary,
+                                  int B, int steps, int C, int nchunks, int chunk_len,
+                                  int x_bf16, int w_bf16, void* stream) {
+  using bf = __nv_bfloat16;
+  if (x_bf16) {
+    return w_bf16 ? run_gated<bf, bf>(x, wr, br, wi, bi, lam, h0, h, h_last, summary, B,
+                                      steps, C, nchunks, chunk_len, stream)
+                  : run_gated<bf, float>(x, wr, br, wi, bi, lam, h0, h, h_last, summary, B,
+                                         steps, C, nchunks, chunk_len, stream);
+  }
+  return w_bf16 ? run_gated<float, bf>(x, wr, br, wi, bi, lam, h0, h, h_last, summary, B,
+                                       steps, C, nchunks, chunk_len, stream)
+                : run_gated<float, float>(x, wr, br, wi, bi, lam, h0, h, h_last, summary,
+                                          B, steps, C, nchunks, chunk_len, stream);
 }

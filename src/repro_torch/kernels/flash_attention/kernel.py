@@ -20,7 +20,6 @@ retried: a build or launch error raises.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -193,11 +192,6 @@ def _cuda_ready(*ts) -> None:
         raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -266,7 +260,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     r = route(q.dtype, tq * g)
     stream = _stream(q)
     if r == "split":
-        nsplit, chunk = plan_decode_splits(b, hkv, kv_len, sms=_sm_count(q.get_device()))
+        nsplit, chunk = plan_decode_splits(b, hkv, kv_len, sms=K.sm_count(q.get_device()))
         o = _launch_merge(_launch_partials(q, k, v, kv_len, nsplit, chunk, causal, window,
                                            q_offset, stream), tq, g, stream)
     else:

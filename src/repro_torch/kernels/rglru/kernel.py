@@ -1,10 +1,18 @@
-"""RG-LRU scan: the Hopper kernel's wrapper and its plain PyTorch version.
+"""RG-LRU scan: the Hopper kernel's wrappers and their plain PyTorch versions.
 
 The CUDA kernel is ``kernels/csrc/rglru.cu`` (see the note there: which
-TPU kernel it replaces, what bounds it, what the design does about it).
-:func:`rglru` launches it for CUDA tensors and uses :func:`rglru_plain` for
-CPU tensors; there is no other route and no fall-back when a build or
-launch fails.
+TPU kernel it replaces, what bounds it, what the design does about it).  It
+has two entry points over one chunked scan (:func:`plan_scan_chunks`):
+
+* :func:`rglru` -- the TPU kernel's function, ``h_t = a_t * h_{t-1} + b_t``
+  from precomputed ``(a, b)``;
+* :func:`rglru_gated` -- the model's: the gate math of
+  ``repro/models/recurrent.py::_rglru_coeffs`` computed in the kernel from
+  ``x`` and the per-channel weights, so a and b never reach device memory.
+
+Each launches the kernel for CUDA tensors and uses its plain version
+(:func:`rglru_plain`, :func:`rglru_gated_plain`) for CPU tensors; there is
+no other route and no fall-back when a build or launch fails.
 """
 
 from __future__ import annotations
@@ -14,9 +22,57 @@ import torch
 from repro_torch.kernels import build as K
 
 _DTYPES = (torch.float32, torch.bfloat16)
+LRU_C = 8.0
+FORMS = ("ab", "gated")
+CHUNK_MIN = 64            # steps; shorter T runs as one chunk
+CHUNK_ALIGN = 8           # the kernel's unroll
+THREADS = 128             # a block: 128 channels of one (batch, chunk)
+BLOCKS_PER_SM = 12        # resident blocks a SM (the kernel's __launch_bounds__)
+WAVES = 2                 # the plan's chunks fill this many waves of blocks
 
-# Launches of the CUDA kernel since the last reset (plain integer).
+# Calls that launched the CUDA kernel since the last reset (plain integers),
+# in all and by entry point: "ab" for rglru, "gated" for rglru_gated.
 launches = 0
+launches_by_form = dict.fromkeys(FORMS, 0)
+
+
+def plan_scan_chunks(B: int, T: int, C: int, *, sms: int = 132) -> tuple[int, int]:
+    """``(nchunks, chunk_len)``: steps ``[0, T)`` cut into ``nchunks`` chunks
+    of ``chunk_len`` (the last one cut short), as many as fill ``WAVES``
+    waves of ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs and no more
+    (the gated form is bound by instruction issue, and more, shorter chains
+    keep more of it busy than one exactly full wave).  ``chunk_len`` is a
+    multiple of ``CHUNK_ALIGN`` and no shorter than ``CHUNK_MIN``, so T = 1
+    (decode) and short T run as one chunk, as does any T when the channels
+    alone fill the waves."""
+    chunk_blocks = max(B * -(-C // THREADS), 1)
+    want = max(1, WAVES * sms * BLOCKS_PER_SM // chunk_blocks)
+    chunk = -(-max(T, 1) // want)
+    chunk = max(CHUNK_MIN, -(-chunk // CHUNK_ALIGN) * CHUNK_ALIGN)
+    if chunk >= T:
+        return 1, max(T, 1)
+    return -(-T // chunk), chunk
+
+
+def softplus_exact(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + e^x)`` with no threshold: ``F.softplus`` switches to the
+    identity above 20, ``jax.nn.softplus`` does not."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def rglru_coeffs_plain(x, wr, br, wi, bi, lam) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gates of ``repro/models/recurrent.py::_rglru_coeffs`` -> fp32
+    ``(a, b)`` of the recurrence ``h = a * h_prev + b``.  x [..., C], the
+    weights [C]."""
+    xf = x.float()
+    r_gate = torch.sigmoid(xf * wr.float() + br.float())
+    i_gate = torch.sigmoid(xf * wi.float() + bi.float())
+    # log a_base = -softplus(-lam)  (= log sigmoid(lam), stable)
+    log_a_base = -softplus_exact(-lam.float())
+    log_a = LRU_C * r_gate * log_a_base
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-6, 1.0)) * (i_gate * xf)
+    return a, b
 
 
 def rglru_plain(a: torch.Tensor, b: torch.Tensor,
@@ -33,20 +89,121 @@ def rglru_plain(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def rglru_chunked_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None,
+                        *, nchunks: int, chunk_len: int) -> torch.Tensor:
+    """The kernel's two passes over ``nchunks`` chunks of ``chunk_len``
+    steps, in its order: pass 1 gives each chunk ``(prod a, h from 0)``;
+    pass 2 folds ``h0`` and the earlier chunks' summaries into each chunk's
+    carry, in chunk order, and rescans the chunk from it.  Same result as
+    :func:`rglru_plain` up to the fold's rounding."""
+    bsz, t, c = a.shape
+    if nchunks < 1 or chunk_len < 1 or not (nchunks - 1) * chunk_len < t <= nchunks * chunk_len:
+        raise ValueError(f"rglru: {nchunks} chunks of {chunk_len} steps do not cut T = {t}")
+    pad = nchunks * chunk_len - t   # a = 1, b = 0 past T leave the carry as it is
+    af = torch.nn.functional.pad(a.float(), (0, 0, 0, pad), value=1.0)
+    bf = torch.nn.functional.pad(b.float(), (0, 0, 0, pad))
+    af = af.reshape(bsz, nchunks, chunk_len, c)
+    bf = bf.reshape(bsz, nchunks, chunk_len, c)
+    prod = torch.ones(bsz, nchunks, c, dtype=torch.float32, device=a.device)
+    hl = torch.zeros_like(prod)
+    for s in range(chunk_len):            # pass 1, all chunks at once
+        prod = prod * af[:, :, s]
+        hl = af[:, :, s] * hl + bf[:, :, s]
+    carry = (torch.zeros(bsz, c, dtype=torch.float32, device=a.device)
+             if h0 is None else h0.float())
+    carries = []
+    for k in range(nchunks):              # the fold: chunk k starts from carries[k]
+        carries.append(carry)
+        carry = prod[:, k] * carry + hl[:, k]
+    h = torch.stack(carries, dim=1)
+    out = torch.empty_like(af)
+    for s in range(chunk_len):            # pass 2
+        h = af[:, :, s] * h + bf[:, :, s]
+        out[:, :, s] = h
+    return out.reshape(bsz, nchunks * chunk_len, c)[:, :t].to(a.dtype)
+
+
+def rglru_gated_plain(x, wr, br, wi, bi, lam, h0=None, *, state_out=None):
+    """:func:`rglru_coeffs_plain`, then :func:`rglru_plain` from ``h0`` (or
+    0), then h cast to ``x.dtype``.  Returns ``(h, h_last)`` with the fp32
+    last state ``h[:, -1]`` written into ``state_out`` when given (which may
+    be ``h0``: it is read first), else into a new tensor."""
+    a, b = rglru_coeffs_plain(x, wr, br, wi, bi, lam)
+    hs = rglru_plain(a, b, h0)
+    if state_out is None:
+        state_out = torch.empty(hs.shape[0], hs.shape[2], dtype=torch.float32,
+                                device=hs.device)
+    state_out.copy_(hs[:, -1])
+    return hs.to(x.dtype), state_out
+
+
 def _check(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None) -> None:
     if a.dim() != 3 or b.shape != a.shape:
         raise ValueError(f"rglru: want a, b [B, T, C] of one shape; got "
                          f"{tuple(a.shape)}, {tuple(b.shape)}")
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise TypeError(f"rglru takes one of {_DTYPES} for a and b; got {a.dtype}, {b.dtype}")
-    if h0 is not None:
-        if h0.shape != (a.shape[0], a.shape[2]):
-            raise ValueError(f"rglru: h0 {tuple(h0.shape)} is not [B, C] = "
-                             f"{(a.shape[0], a.shape[2])}")
-        if h0.dtype != torch.float32:
-            raise TypeError(f"rglru: h0 must be float32, got {h0.dtype}")
+    _check_state("h0", h0, a)
     if not (a.device == b.device and (h0 is None or h0.device == a.device)):
         raise ValueError("rglru: a, b and h0 on different devices")
+
+
+def _check_state(name: str, s: torch.Tensor | None, x: torch.Tensor) -> None:
+    if s is None:
+        return
+    if s.shape != (x.shape[0], x.shape[2]):
+        raise ValueError(f"rglru: {name} {tuple(s.shape)} is not [B, C] = "
+                         f"{(x.shape[0], x.shape[2])}")
+    if s.dtype != torch.float32:
+        raise TypeError(f"rglru: {name} must be float32, got {s.dtype}")
+
+
+def _check_gated(x, ws, h0, state_out) -> None:
+    if x.dim() != 3 or x.shape[1] < 1:
+        raise ValueError(f"rglru_gated: want x [B, T >= 1, C]; got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"rglru_gated takes one of {_DTYPES} for x; got {x.dtype}")
+    if any(w.shape != (x.shape[2],) for w in ws):
+        raise ValueError(f"rglru_gated: the gate weights must be [C] = [{x.shape[2]}]; got "
+                         f"{[tuple(w.shape) for w in ws]}")
+    if ws[0].dtype not in _DTYPES or any(w.dtype != ws[0].dtype for w in ws):
+        raise TypeError(f"rglru_gated: the gate weights take one of {_DTYPES}, all "
+                        f"alike; got {[w.dtype for w in ws]}")
+    _check_state("h0", h0, x)
+    _check_state("state_out", state_out, x)
+    if any(t.device != x.device for t in (*ws, h0, state_out) if t is not None):
+        raise ValueError("rglru_gated: x, the weights, h0 and state_out on different devices")
+
+
+def _plan(x: torch.Tensor) -> tuple[int, int]:
+    """The chunk plan for ``x``'s card (for a CPU tensor, as for 132 SMs)."""
+    sms = K.sm_count(x.get_device()) if x.device.type == "cuda" else 132
+    return plan_scan_chunks(*x.shape, sms=sms)
+
+
+def _cuda_ready(x: torch.Tensor, *ts) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"rglru: unsupported device {x.device}")
+    if not all(t.is_contiguous() for t in (x, *ts) if t is not None):
+        raise ValueError("rglru: every tensor must be contiguous")
+
+
+def _summary(x: torch.Tensor, nchunks: int) -> torch.Tensor | None:
+    """Pass 1's fp32 scratch [B, nchunks, C, 2], or None for one chunk."""
+    if nchunks == 1:
+        return None
+    return torch.empty((x.shape[0], nchunks, x.shape[2], 2), dtype=torch.float32,
+                       device=x.device)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _count(form: str) -> None:
+    global launches
+    launches += 1
+    launches_by_form[form] += 1
 
 
 def rglru(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None) -> torch.Tensor:
@@ -54,23 +211,56 @@ def rglru(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None) -> t
     it is the Pallas kernel's function; with T = 1 and the cached state as
     ``h0`` it is the decode step ``a * h_prev + b``.  The final state is
     ``h[:, -1]``."""
-    global launches
     _check(a, b, h0)
     if a.device.type == "cpu":
         return rglru_plain(a, b, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru: unsupported device {a.device}")
-    if not (a.is_contiguous() and b.is_contiguous()
-            and (h0 is None or h0.is_contiguous())):
-        raise ValueError("rglru: a, b and h0 must be contiguous")
+    _cuda_ready(a, b, h0)
     bsz, t, c = a.shape
+    nchunks, chunk_len = _plan(a)
+    summary = _summary(a, nchunks)
     h = torch.empty_like(a)
     if h.numel() == 0:
         return h
     err = K.library().rglru_launch(
-        a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(), h.data_ptr(),
-        bsz, t, c, int(a.dtype == torch.bfloat16),
+        a.data_ptr(), b.data_ptr(), _ptr(h0), h.data_ptr(), None, _ptr(summary),
+        bsz, t, c, nchunks, chunk_len, int(a.dtype == torch.bfloat16),
         torch.cuda.current_stream(a.device).cuda_stream)
     K.check(err, "rglru")
-    launches += 1
+    _count("ab")
     return h
+
+
+def rglru_gated(x, wr, br, wi, bi, lam, h0=None, *, state_out=None):
+    """The griffin block's RG-LRU from ``x`` [B, T, C] (T >= 1) and the
+    per-channel weights ``wr, br, wi, bi, lam`` [C]: the gates of
+    :func:`rglru_coeffs_plain`, then the recurrence from ``h0`` (fp32
+    [B, C], or 0).  Returns ``(h, h_last)``: h [B, T, C] in ``x.dtype``, and
+    the fp32 last state written into ``state_out`` when given, else into a
+    new tensor.  ``state_out`` may be ``h0`` (the decode step's in-place
+    update) only when the plan runs one chunk, as it does at T = 1."""
+    ws = (wr, br, wi, bi, lam)
+    _check_gated(x, ws, h0, state_out)
+    nchunks, chunk_len = _plan(x)
+    if (nchunks > 1 and h0 is not None and state_out is not None
+            and h0.untyped_storage().data_ptr() == state_out.untyped_storage().data_ptr()):
+        raise ValueError(f"rglru_gated: h0 and state_out share memory, which only a "
+                         f"one-chunk plan may update in place; T = {x.shape[1]} takes "
+                         f"{nchunks} chunks")
+    if x.device.type == "cpu":
+        return rglru_gated_plain(x, *ws, h0, state_out=state_out)
+    _cuda_ready(x, *ws, h0, state_out)
+    bsz, t, c = x.shape
+    summary = _summary(x, nchunks)
+    h = torch.empty_like(x)
+    if state_out is None:
+        state_out = torch.empty((bsz, c), dtype=torch.float32, device=x.device)
+    if h.numel() == 0:
+        return h, state_out
+    err = K.library().rglru_gated_launch(
+        x.data_ptr(), *(w.data_ptr() for w in ws), _ptr(h0), h.data_ptr(),
+        state_out.data_ptr(), _ptr(summary), bsz, t, c, nchunks, chunk_len,
+        int(x.dtype == torch.bfloat16), int(wr.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    K.check(err, "rglru_gated")
+    _count("gated")
+    return h, state_out

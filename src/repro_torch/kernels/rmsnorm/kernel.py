@@ -9,16 +9,56 @@ fall-back when a build or launch fails.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import build as K
 
 EPS = 1e-6
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_ROW_BYTES = 48 * 1024  # the row is staged in static-limit shared memory
+THREADS = 128             # a block: 4 warps, or one row of more lanes
+MAX_LANES = 256           # a row across at most 8 warps
+VECS_PER_LANE = (1, 2, 4, 8, 10, 16)   # the kernel's instantiations
+REG_BUDGET = 192          # 32-bit words a lane for its row and its 1 + scale
 
 # Launches of the CUDA kernel since the last reset (plain integer).
 launches = 0
+
+
+class RmsPlan(NamedTuple):
+    lanes: int            # lanes that hold a row (more than 32: several warps)
+    vecs_per_lane: int    # 16-byte vectors of the row each lane holds
+    rows_per_block: int   # max(THREADS, lanes) / lanes
+
+
+def plan_rmsnorm(n: int, d: int, dtype: torch.dtype, *, sms: int = 132) -> RmsPlan:
+    """Lanes per row, vectors per lane and rows per block of the kernel for
+    ``n`` rows of ``d`` elements of ``dtype``.  A row of at least 32 vectors
+    (16 bytes each) takes a whole warp, a shorter one the fewest lanes (a
+    power of two) that give each lane one vector.  With fewer rows than
+    ``sms`` (decode) a row spreads over up to ``MAX_LANES`` lanes at one
+    vector a lane instead, so each lane's serial share is short; at any
+    ``n`` a row whose share would not fit a lane's registers
+    (``REG_BUDGET``) spreads over more warps until it does.  The rows of a
+    block's groups cover the ``n`` rows with the grid striding over them.
+    Raises for a ``d`` that does not fit ``MAX_LANES`` lanes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"rmsnorm takes fp32/bf16, got {dtype}")
+    if n < 0 or d < 1:
+        raise ValueError(f"rmsnorm: no plan for {n} rows of {d}")
+    per_vec = 16 // (torch.finfo(dtype).bits // 8)
+    nvec = -(-d // per_vec)
+    fits = [v for v in VECS_PER_LANE if v * (4 + per_vec) <= REG_BUDGET]
+    lanes = min(MAX_LANES if n < sms else 32, 1 << (nvec - 1).bit_length())
+    while -(-nvec // lanes) > fits[-1] and lanes < MAX_LANES:
+        lanes *= 2
+    need = -(-nvec // lanes)
+    vpl = next((v for v in fits if v >= need), None)
+    if vpl is None:
+        raise ValueError(f"rmsnorm: a row of {d} x {dtype} does not fit the kernel's "
+                         f"registers ({need} vectors a lane over {lanes} lanes)")
+    return RmsPlan(lanes, vpl, max(THREADS, lanes) // lanes)
 
 
 def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -52,15 +92,16 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = EPS) -> torch.Ten
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rmsnorm: x and scale must be contiguous")
     d = x.shape[-1]
-    if d * x.element_size() > MAX_ROW_BYTES:
-        raise ValueError(f"rmsnorm: row of {d} x {x.dtype} exceeds {MAX_ROW_BYTES} bytes")
-    y = torch.empty_like(x)
     n = x.numel() // d if d else 0
+    y = torch.empty_like(x)
     if n == 0:
         return y
+    sms = K.sm_count(x.get_device())
+    plan = plan_rmsnorm(n, d, x.dtype, sms=sms)
     err = K.library().rmsnorm_launch(
         x.data_ptr(), scale.data_ptr(), y.data_ptr(), n, d, float(eps),
         int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
+        plan.lanes.bit_length() - 1, plan.vecs_per_lane, sms,
         torch.cuda.current_stream(x.device).cuda_stream)
     K.check(err, "rmsnorm")
     launches += 1

@@ -2,14 +2,14 @@
 ``repro/models/recurrent.py``; the xLSTM blocks come with the other
 families).
 
-The RG-LRU recurrence runs through the port's Hopper kernel
-(``kernels/rglru``) at both of the reference's call sites: the
-``lax.associative_scan`` of prefill and ``rglru_step`` at decode (T = 1
-from the cached fp32 state).  Gate projections are diagonal, as the
-reference's documented simplification of Griffin's block-diagonal maps.
-Dtypes follow the reference exactly: the gate math and the recurrence are
-fp32, the conv state is stored as bf16 and ``h`` as fp32 whatever the
-compute dtype.
+The RG-LRU recurrence, with its gate math, runs through the port's Hopper
+kernel (``kernels/rglru``, ``rglru_gated``) at both of the reference's call
+sites: ``_rglru_coeffs`` + ``lax.associative_scan`` at prefill and
+``rglru_step`` at decode (T = 1 from the cached fp32 state, updated in
+place).  Gate projections are diagonal, as the reference's documented
+simplification of Griffin's block-diagonal maps.  Dtypes follow the
+reference exactly: the gate math and the recurrence are fp32, the conv
+state is stored as bf16 and ``h`` as fp32 whatever the compute dtype.
 """
 
 from __future__ import annotations
@@ -21,13 +21,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.flat_param import LayoutBuilder
-from repro_torch.kernels.rglru import rglru
+from repro_torch.kernels.rglru import rglru_coeffs_plain, rglru_gated
 from repro_torch.models import layers as L
 from repro_torch.models.blocks import (apply_norm, mlp_apply, mlp_layout, norm_layout,
                                        strip_prefix)
 from repro_torch.models.dims import shard_dim
 
-LRU_C = 8.0
+GATE_NAMES = ("wr", "br", "wi", "bi", "lam")
 
 
 def griffin_rec_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = ""):
@@ -69,39 +69,25 @@ def _causal_conv1d(x, w, bias, state=None):
     return y, new_state
 
 
-def _softplus(x):
-    # exact log(1 + e^x): F.softplus switches to the identity above its
-    # threshold of 20, jax.nn.softplus does not
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def _rglru_coeffs(t, x, prefix):
-    """Per-channel gates -> (a, b) of the recurrence h = a*h_prev + b, fp32."""
-    xf = x.float()
-    r_gate = torch.sigmoid(xf * t[prefix + "wr"].float() + t[prefix + "br"].float())
-    i_gate = torch.sigmoid(xf * t[prefix + "wi"].float() + t[prefix + "bi"].float())
-    # log a_base = -softplus(-lam)  (= log sigmoid(lam), stable)
-    log_a_base = -_softplus(-t[prefix + "lam"].float())
-    log_a = LRU_C * r_gate * log_a_base
-    a = torch.exp(log_a)
-    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-6, 1.0)) * (i_gate * xf)
-    return a, b
+    """Per-channel gates -> (a, b) of the recurrence h = a*h_prev + b, fp32
+    (the kernel computes the same gates inside ``rglru_gated``)."""
+    return rglru_coeffs_plain(x, *(t[prefix + n] for n in GATE_NAMES))
 
 
 def rglru_scan(t, x, prefix: str = "rec."):
-    """RG-LRU over a sequence from h = 0 (the kernel).  x [b, T, rl] -> (h in
-    x's dtype, the fp32 final state [b, rl], copied out of the sequence)."""
-    a, b = _rglru_coeffs(t, x, prefix)
-    hs = rglru(a, b)
-    return hs.to(x.dtype), hs[:, -1].clone()
+    """RG-LRU over a sequence from h = 0 (the kernel, gates fused in).
+    x [b, T, rl] -> (h in x's dtype, the fp32 final state [b, rl])."""
+    return rglru_gated(x, *(t[prefix + n] for n in GATE_NAMES))
 
 
-def rglru_step(t, x1, h_prev, prefix: str = "rec."):
-    """One decode step (the kernel at T = 1 from ``h_prev``); x1 [b, rl],
-    h_prev [b, rl] fp32 state.  Returns (y in x1's dtype, new fp32 state)."""
-    a, b = _rglru_coeffs(t, x1[:, None, :], prefix)
-    h = rglru(a, b, h_prev)[:, 0]
-    return h.to(x1.dtype), h
+def rglru_step(t, x1, state, prefix: str = "rec."):
+    """One decode step (the kernel at T = 1): x1 [b, rl]; the fp32 state
+    [b, rl] is read and then overwritten IN PLACE with the new one.  Returns
+    (y in x1's dtype, ``state``)."""
+    h, state = rglru_gated(x1[:, None, :], *(t[prefix + n] for n in GATE_NAMES),
+                           state, state_out=state)
+    return h[:, 0], state
 
 
 def griffin_rec_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, cache=None, prefix: str = ""):
@@ -116,10 +102,9 @@ def griffin_rec_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, cache=None, prefix: str
     xb = F.gelu(h @ tt["rec.wy"], approximate="tanh")
     if ctx.mode == "decode":
         xa, conv_state = _causal_conv1d(xa, tt["rec.conv_w"], tt["rec.conv_b"], cache["conv"])
-        y1, h_state = rglru_step(tt, xa[:, 0], cache["h"])
+        y1, _ = rglru_step(tt, xa[:, 0], cache["h"])         # h in place
         rec = y1[:, None, :]
         cache["conv"].copy_(conv_state.to(torch.bfloat16))  # in place
-        cache["h"].copy_(h_state)                           # in place
         new_cache = cache
     else:
         xa, conv_state = _causal_conv1d(xa, tt["rec.conv_w"], tt["rec.conv_b"])

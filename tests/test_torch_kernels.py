@@ -376,3 +376,108 @@ def test_cuda_flash_routes_at_tile_edges(cuda_device, want, shape, kw):
         got = FA.decode_partials(q, k, v, nsplit=nsplit, chunk=chunk, **kw)
         ref = FA.decode_partials_plain(q, k, v, nsplit=nsplit, chunk=chunk, **kw)
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **_tol(dt))
+
+
+def _rglru_inputs(shape, dt, wdt, gen, dev):
+    """x ~ N(0, 1) in ``dt`` and gate weights [C] in ``wdt`` at the model's
+    scale: gates std 0.02 and biases 0.1, Λ with sigmoid(Λ) in (0.9, 0.999)."""
+    c = shape[2]
+    x = torch.randn(shape, generator=gen, device=dev).to(dt)
+    u = 0.9 + 0.099 * torch.rand(c, generator=gen, device=dev)
+    ws = (0.02 * torch.randn(c, generator=gen, device=dev),
+          0.1 * torch.randn(c, generator=gen, device=dev),
+          0.02 * torch.randn(c, generator=gen, device=dev),
+          0.1 * torch.randn(c, generator=gen, device=dev),
+          torch.log(u) - torch.log1p(-u))
+    return x, tuple(w.to(wdt) for w in ws)
+
+
+def _assert_rglru_h(got, want, dt):
+    """fp32: within 1e-4 of max |h| (the gates' exp / sigmoid ulps, card
+    against CPU-style math, amplified by up to 1 / (1 - a)); bf16: RGLRU_TOL."""
+    got, want = _np(got.cpu()), _np(want.cpu())
+    if dt == "fp32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+    else:
+        np.testing.assert_allclose(got, want, **_rglru_tol(dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dt,wdt,state", [
+    ((4, 2560, 2560), "bf16", "bf16", None),       # recurrentgemma prefill
+    ((4, 1, 2560), "bf16", "bf16", "aliased"),     # decode: state updated in place
+    ((2, 1000, 72), "fp32", "fp32", "h0"),         # T not a multiple of chunk_len, C < block
+    ((3, 1001, 2500), "bf16", "fp32", "h0"),       # C not a multiple of the block width
+    ((2, 40, 200), "fp32", "bf16", None),          # T < chunk_len: one chunk
+    ((1, 1, 130), "fp32", "fp32", "aliased"),
+])
+def test_cuda_rglru_gated_matches_plain(cuda_device, shape, dt, wdt, state):
+    """The gated kernel against its plain version at the path's shapes and
+    the plan's edges, bitwise repeatable, counted as the gated form."""
+    from repro_torch.kernels.rglru import kernel as RG
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x, ws = _rglru_inputs(shape, DTYPES[dt][1], DTYPES[wdt][1], gen, cuda_device)
+    h0 = None if state is None else torch.randn(shape[0], shape[2], generator=gen,
+                                                device=cuda_device)
+    want, want_last = RG.rglru_gated_plain(x, *ws, h0)
+    before = dict(RG.launches_by_form)
+    runs = []
+    for _ in range(2):
+        s_in = None if h0 is None else h0.clone()
+        out = s_in if state == "aliased" else None
+        runs.append(RG.rglru_gated(x, *ws, s_in, state_out=out))
+        if state == "aliased":
+            assert runs[-1][1] is s_in
+    assert RG.launches_by_form == {"ab": before["ab"], "gated": before["gated"] + 2}
+    (h, h_last), (h2, h_last2) = runs
+    assert h.dtype == x.dtype and torch.equal(h, h2) and torch.equal(h_last, h_last2)
+    _assert_rglru_h(h, want, dt)
+    _assert_rglru_h(h_last, want_last, "fp32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dt,with_h0", [
+    ((4, 2560, 2560), "fp32", False),              # the TPU kernel's function at the path shape
+    ((4, 1, 2560), "fp32", True),
+    ((3, 1001, 2500), "fp32", True),
+    ((2, 100, 72), "bf16", False),
+])
+def test_cuda_rglru_ab_matches_plain(cuda_device, shape, dt, with_h0):
+    """The (a, b) kernel, chunked, against the sequential plain version,
+    bitwise repeatable."""
+    tdt = DTYPES[dt][1]
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    a = (0.7 + 0.299 * torch.rand(shape, generator=gen, device=cuda_device)).to(tdt)
+    b = (0.1 * torch.randn(shape, generator=gen, device=cuda_device)).to(tdt)
+    h0 = torch.randn(shape[0], shape[2], generator=gen, device=cuda_device) if with_h0 else None
+    h = rglru(a, b, h0)
+    assert torch.equal(h, rglru(a, b, h0))
+    np.testing.assert_allclose(_np(h.cpu()), _np(rglru_plain(a, b, h0).cpu()),
+                               **_rglru_tol(dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,dt,sdt,offset", [
+    (2048, 2048, "bf16", "bf16", 0),               # llama prefill
+    (4, 2560, "bf16", "bf16", 0),                  # recurrentgemma decode
+    (10240, 2560, "bf16", "bf16", 0),              # recurrentgemma prefill
+    (64, 2048, "fp32", "bf16", 0),
+    (37, 1000, "bf16", "fp32", 0),                 # ragged d: the scalar path
+    (8, 2048, "bf16", "bf16", 1),                  # unaligned slices: the scalar path
+    (9, 100, "fp32", "fp32", 0),                   # a row shorter than a warp's vectors
+    (4, 2048, "bf16", "bf16", 0),                  # llama decode: a row across 8 warps
+    (1024, 4096, "fp32", "fp32", 0),               # rows too wide for a warp's registers
+    (1024, 8192, "bf16", "bf16", 0),
+])
+def test_cuda_rmsnorm_matches_plain(cuda_device, n, d, dt, sdt, offset):
+    """RMSNorm's warp-per-row kernel against its plain version, bitwise
+    repeatable."""
+    tdt, sdtype = DTYPES[dt][1], DTYPES[sdt][1]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    xb = torch.randn(n * d + offset, generator=gen, device=cuda_device).to(tdt)
+    sb = (0.2 * torch.randn(d + offset, generator=gen, device=cuda_device)).to(sdtype)
+    x, s = xb[offset:].view(n, d), sb[offset:]
+    y = rmsnorm(x, s)
+    assert torch.equal(y, rmsnorm(x, s))
+    np.testing.assert_allclose(_np(y.cpu()), _np(rms_norm_plain(x, s).cpu()), **_tol(dt))
