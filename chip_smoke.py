@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's serve path on one NVIDIA card, for both model
-families it builds, and hold its CUDA kernels against their plain PyTorch
-versions.
+"""Drive the PyTorch port's serve path for both model families it builds,
+and its training step for llama3.2-1b, on one NVIDIA card; hold every CUDA
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -9,9 +9,10 @@ script exits non-zero; no phase swallows an error):
 
 1. ``build``: nvcc builds every kernel of the paths from
    ``src/repro_torch/kernels/csrc`` (seconds, card name and power limit,
-   and each flash-attention kernel's registers and spills).
-2. For each of two paths, through ``build_serve_steps`` with random weights
-   from ``init_params(seed=0)``, bf16 gather and the prefetch schedule:
+   and each kernel's registers and spills).
+2. For each of two serve paths, through ``build_serve_steps`` with random
+   weights from ``init_params(seed=0)``, bf16 gather and the prefetch
+   schedule:
 
    * llama3.2-1b at full width and depth (16 layers, d_model 2048, vocab
      128,256): batch 4, prompt 512, 32 greedy decode steps;
@@ -24,11 +25,11 @@ script exits non-zero; no phase swallows an error):
    ``serve``: every kernel's launch counter is set to 0 just before the
    path's prefill + decode and read just after; each must equal the path's
    count (llama: RMSNorm 33 x 33, attention 16 x 33; recurrentgemma: RMSNorm
-   53 x 33, attention 8 x 33, RG-LRU 18 x 33), attention's count by
-   route must show the prefill on the tensor-core ``mma`` route and every
-   decode step on the split-K ``split`` route, never the fp32 ``fma`` one
-   (llama: mma 16, split 16 x 32; recurrentgemma: mma 8, split 8 x 32), and
-   RG-LRU's count by entry point every call on the gated form (gate math
+   53 x 33, attention 8 x 33, RG-LRU 18 x 33; no backward kernel), attention's
+   count by route must show the prefill on the tensor-core ``mma`` route and
+   every decode step on the split-K ``split`` route, never the fp32 ``fma``
+   one (llama: mma 16, split 16 x 32; recurrentgemma: mma 8, split 8 x 32),
+   and RG-LRU's count by entry point every call on the gated form (gate math
    fused in), never the ``(a, b)`` one (recurrentgemma: gated 18 x 33).
    ``consistency``: (a) a prefill over the prompt plus the first 8
    generated tokens agrees with decode step 8; (b) the same weights at a cut
@@ -36,23 +37,47 @@ script exits non-zero; no phase swallows an error):
    same prefill logits on the card (kernels) as on the CPU (plain versions).
    ``profile``: device time of one prefill and one decode step by kernel,
    and the number of device kernels each runs.
-3. ``kernels``: each kernel at the paths' shapes against its plain version
+3. The train path, through ``runtime/train_loop.train`` (the launcher's
+   entry point): llama3.2-1b at full width and depth, ``init_state(seed=0)``,
+   the synthetic stream, bf16 gather, prefetch schedule, bucketed boundary,
+   exact clip, ``OptConfig(warmup_steps=0)``; 2 micro-steps of 4 x 2048
+   tokens a step, 4 steps, then the loop's checkpoint (written and removed).
+
+   ``train``: each step's loss and grad_norm (finite); ``step_ms`` (median
+   of steps 2-4, host clock around work that ends in a synchronise),
+   ``tokens_per_s``, ``model_tflops`` and ``mfu`` (6 N a token, N = the
+   layer pools and the head, plus attention's 12 dh a causal pair and head,
+   against 989 TFLOP/s), ``peak_gb``.  The counters are set to 0 just before
+   the run and read just after: 4 steps x 2 micro-steps x (RMSNorm 33
+   forward + 32 recomputed, its backward 33; attention 16 + 16 recomputed,
+   all on ``mma``, its backward 16; RG-LRU 0).
+   ``train_consistency``: the same weights at 2 layers (full width), one
+   micro-step of 1 x 256 tokens: card against CPU (loss, grad_norm, every
+   pool's gradient, the params after one AdamW step); bitwise on the card
+   serial == prefetch (loss, gradients), serial == bucketed boundary
+   (params, m, v, grad_norm) and a step run twice.
+   ``profile``: one train step's device time by kernel.
+4. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
    library call's where there is one, and the card's bound for the same
-   work; ``launches`` sums both paths' serve runs.  Attention also runs at
-   the tile edges of each route (fp32 cases take the ``fma`` route), each
-   check records its route and is called twice for a bitwise-equal
-   output, prefill checks give their achieved TFLOP/s, and the split
-   route's partials kernel is held alone against its plain version.
-   RMSNorm gives its plan per shape.  RG-LRU runs both entry points, each
-   with its chunk plan: gated at the path's shapes, beside the eager
-   sequence it replaced (``eager_ms``), and the TPU kernel's ``(a, b)``
+   work; ``launches`` sums the serve runs and the train run.  Attention also
+   runs at the tile edges of each route (fp32 cases take the ``fma``
+   route), each check records its route and is called twice for a
+   bitwise-equal output, prefill checks give their achieved TFLOP/s, and
+   the split route's partials kernel is held alone against its plain
+   version.  RMSNorm gives its plan per shape.  RG-LRU runs both entry
+   points, each with its chunk plan: gated at the path's shapes, beside the
+   eager sequence it replaced (``eager_ms``), and the TPU kernel's ``(a, b)``
    form; every RMSNorm and RG-LRU check is called twice for a bitwise-equal
-   output.
+   output.  The backward kernels (RMSNorm's, flash attention's with the
+   forward's log-sum-exp) run at the train shapes and a few edges (ragged
+   T, window, g = 1, fp32), bitwise repeatable, with their TFLOP/s and the
+   library's autograd backward (``F.rms_norm``,
+   ``F.scaled_dot_product_attention``) as ``library_ms``.
 
-``python3 chip_smoke.py --profile-only`` runs the ``profile`` phase of both
-paths alone (no checks, no result line): it uses only the serve API, so the
-same file also profiles an earlier checkout for comparison.
+``python3 chip_smoke.py --profile-only`` runs the serve ``profile`` phase of
+both paths alone (no checks, no result line): it uses only the serve API,
+so the same file also profiles an earlier checkout for comparison.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits non-zero and prints no result.
@@ -63,6 +88,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -110,10 +136,66 @@ class Path:
 
 PATHS = (
     Path("llama3.2-1b", 4, 512, 32, 512 + 32, 2,
-         {"rmsnorm": 33, "flash_attention": 16, "rglru": 0}),
+         {"rmsnorm": 33, "rmsnorm_bwd": 0, "flash_attention": 16, "flash_attention_bwd": 0,
+          "rglru": 0}),
     Path("recurrentgemma-2b", 4, 2560, 32, 2560 + 32, 5,
-         {"rmsnorm": 53, "flash_attention": 8, "rglru": 18}),
+         {"rmsnorm": 53, "rmsnorm_bwd": 0, "flash_attention": 8, "flash_attention_bwd": 0,
+          "rglru": 18}),
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPath:
+    arch: str
+    global_batch: int
+    micro_steps: int
+    seq: int
+    steps: int
+    launches: dict           # kernel -> launches a micro-step
+    cut_layers: int          # depth of the train_consistency phase
+    cut_tokens: int          # its one micro-batch: 1 x cut_tokens
+
+
+# Each layer's compute is checkpointed and recomputed once in the backward:
+# RMSNorm 33 forward (2 a layer + the final norm) + 32 recomputed and 33
+# backward; attention 16 + 16 and 16 backward, all forwards on ``mma``.
+TRAIN = TrainPath("llama3.2-1b", 8, 2, 2048, 4,
+                  {"rmsnorm": 65, "rmsnorm_bwd": 33, "flash_attention": 32,
+                   "flash_attention_bwd": 16, "rglru": 0}, 2, 256)
+# Card against CPU in the train_consistency phase, as a fraction of each
+# pool's largest |gradient| (and of |loss|, |grad_norm|): both sides round
+# activations and gradients to bf16, in different orders of sums.
+REL_TOL_GRAD_CARD_VS_CPU = 5e-2
+# Params after one AdamW step from zero moments move by about lr * sign(g);
+# where the two sides' gradients differ in sign (|g| near rounding) a
+# weight lands up to 2 lr apart.
+ADAMW_STEP_TOL_LR = 2.5
+
+
+def counter_attrs():
+    """kernel -> (module, counter attribute): each wrapper adds one where it
+    launches its kernel."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rglru import kernel as RG
+    from repro_torch.kernels.rmsnorm import kernel as RN
+
+    return {"rmsnorm": (RN, "launches"), "rmsnorm_bwd": (RN, "launches_bwd"),
+            "flash_attention": (FA, "launches"), "flash_attention_bwd": (FA, "launches_bwd"),
+            "rglru": (RG, "launches")}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rglru import kernel as RG
+
+    for mod, attr in counter_attrs().values():
+        setattr(mod, attr, 0)
+    for table in (FA.launches_by_route, FA.launches_bwd_by_route, RG.launches_by_form):
+        table.update(dict.fromkeys(table, 0))
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in counter_attrs().items()}
 
 
 def emit(obj) -> None:
@@ -251,6 +333,53 @@ def setup_path(path: Path, dev):
     return cfg, model, mcfg, params, prefill_fn, decode_fn, prompt
 
 
+# Device kernels by kind, for the profile's ``by_kind`` sums: the first
+# pattern a kernel's name contains names its kind.
+KERNEL_KINDS = (("flash_bwd", "flash attention backward"), ("flash_", "flash attention"),
+                ("rmsnorm_bwd", "RMSNorm backward"), ("rmsnorm", "RMSNorm"),
+                ("rglru", "RG-LRU"), ("nvjet", "GEMM"), ("gemm", "GEMM"),
+                ("reduce_kernel", "reduction"), ("copy", "copy / cast"),
+                ("elementwise", "elementwise"), ("embedding", "embedding"))
+
+
+def kernel_kind(name: str) -> str:
+    return next((kind for pat, kind in KERNEL_KINDS if pat in name), "other")
+
+
+def profile_run(arch: str, step: str, run, top: int = 12) -> dict:
+    """Device time of one call of ``run`` by kernel (it has run once before,
+    so nothing is built or first-allocated in the window), the number of
+    device kernels it runs and their time by kind; emitted as a
+    ``profile`` line."""
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side kernel and memcpy events only (the CPU-side aten ops carry
+    # the same time again as their children's)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key != "Activity Buffer Request"]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    line = {"phase": "profile", "arch": arch, "step": step, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms, "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "device_kernels": sum(e.count for e in rows), "by_kind": {},
+            "top": [{"name": e.key[:80], "calls": e.count,
+                     "device_ms": e.self_device_time_total / 1e3} for e in rows[:top]]}
+    for e in rows:
+        kind = kernel_kind(e.key)
+        got = line["by_kind"].setdefault(kind, {"calls": 0, "device_ms": 0.0})
+        got["calls"] += e.count
+        got["device_ms"] += e.self_device_time_total / 1e3
+    emit(line)
+    return line
+
+
 def profile_path(path: Path, cfg, params, prefill_fn, decode_fn, prompt):
     """``profile``: device time of one prefill and one decode step by kernel
     (decode from the prompt's cache with its greedy token), and the number
@@ -258,35 +387,12 @@ def profile_path(path: Path, cfg, params, prefill_fn, decode_fn, prompt):
     logits, pcache = prefill_fn(params, {"tokens": prompt})
     first_ids = torch.argmax(logits[:, -1:].float(), dim=-1)
     del logits
-    for kind in ("prefill", "decode"):
-        if kind == "prefill":
-            run = lambda: prefill_fn(params, {"tokens": prompt})  # noqa: E731
-        else:
-            run = lambda: decode_fn(params, pcache, first_ids, path.prompt)  # noqa: E731
-        run()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side kernel and memcpy events only (the CPU-side aten ops
-        # carry the same time again as their children's)
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.key != "Activity Buffer Request"]
-        rows.sort(key=lambda e: -e.self_device_time_total)
-        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-        emit({"phase": "profile", "arch": cfg.name, "step": kind, "wall_ms": wall_ms,
-              "device_busy_ms": busy_ms, "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-              "device_kernels": sum(e.count for e in rows),
-              "top": [{"name": e.key[:80], "calls": e.count,
-                       "device_ms": e.self_device_time_total / 1e3} for e in rows[:12]]})
+    profile_run(cfg.name, "prefill", lambda: prefill_fn(params, {"tokens": prompt}))
+    profile_run(cfg.name, "decode", lambda: decode_fn(params, pcache, first_ids, path.prompt))
     del pcache
 
 
-def serve_path(path: Path, card: str, counters: dict, dev):
+def serve_path(path: Path, card: str, dev):
     """Serve, consistency and profile phases of one path; returns the
     launches of its serve run, by kernel, attention's by route and
     RG-LRU's by form."""
@@ -300,10 +406,7 @@ def serve_path(path: Path, card: str, counters: dict, dev):
     torch.cuda.reset_peak_memory_stats()
 
     # -- serve ---------------------------------------------------------------------
-    for mod in counters.values():
-        mod.launches = 0
-    FA.launches_by_route.update(dict.fromkeys(FA.launches_by_route, 0))
-    RG.launches_by_form.update(dict.fromkeys(RG.launches_by_form, 0))
+    reset_counts()
     t0 = time.perf_counter()
     logits, caches = prefill_fn(params, {"tokens": prompt})
     torch.cuda.synchronize()
@@ -317,7 +420,7 @@ def serve_path(path: Path, card: str, counters: dict, dev):
         generated.append(tok)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    launches = {name: mod.launches for name, mod in counters.items()}
+    launches = read_counts()
     by_route = dict(FA.launches_by_route)
     by_form = dict(RG.launches_by_form)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -390,6 +493,215 @@ def serve_path(path: Path, card: str, counters: dict, dev):
     del params
     torch.cuda.empty_cache()
     return launches, by_route, by_form
+
+
+def train_flops(model, path: TrainPath) -> float:
+    """Model flops of one step: 6 N a token, N the parameters of the layer
+    pools and the head (the embedding lookup does no product), plus
+    attention's 12 dh a (query, key) pair the causal mask allows and a
+    head.  Recomputation is not counted."""
+    cfg = model.cfg
+    n = sum(seg.size * pool.stack for pool in (*model.pools, model.head)
+            for seg in pool.layout.segments)
+    tokens = path.global_batch * path.seq
+    pairs = path.global_batch * path.seq * (path.seq + 1) // 2
+    attn = 12 * cfg.resolved_head_dim * pairs * cfg.n_heads * cfg.n_layers
+    return 6 * n * tokens + attn, n
+
+
+def train_phase(card: str, dev):
+    """``train``: the port's training entry point, ``runtime/train_loop.train``,
+    on llama3.2-1b at full width and depth for ``TRAIN.steps`` steps from
+    ``init_state(seed=0)`` and the synthetic stream; the launch counters are
+    set to 0 just before and read just after, and must be the steps x
+    micro-steps x the table's counts a micro-step."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.train_loop import LoopConfig, train
+
+    cfg = get_config(TRAIN.arch)
+    model = build_model(cfg, tp=1)
+    mcfg = MiCSConfig(micro_steps=TRAIN.micro_steps)  # bf16 wire, prefetch, bucketed, exact
+    dc = DataConfig(vocab=cfg.vocab, seq=TRAIN.seq, global_batch=TRAIN.global_batch,
+                    micro_steps=TRAIN.micro_steps)
+    oc = OptConfig(warmup_steps=0, total_steps=TRAIN.steps)
+    ckdir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    lc = LoopConfig(total_steps=TRAIN.steps, checkpoint_every=0, checkpoint_dir=str(ckdir),
+                    log_every=0, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = train(model, MiCSTopology(), mcfg, oc, dc, lc, device=dev)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = read_counts()
+    by_route, bwd_by_route = dict(FA.launches_by_route), dict(FA.launches_bwd_by_route)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    micro = TRAIN.steps * TRAIN.micro_steps
+    want = {name: n * micro for name, n in TRAIN.launches.items()}
+    if launches != want:
+        raise AssertionError(f"train: launch counts {launches} != {want}")
+    want_route = {"mma": want["flash_attention"], "split": 0, "fma": 0}
+    if by_route != want_route:
+        raise AssertionError(f"train: attention routes {by_route} != {want_route}")
+    if bwd_by_route != {"mma": want["flash_attention_bwd"], "fma": 0}:
+        raise AssertionError(f"train: attention backward routes {bwd_by_route}")
+    if len(stats.losses) != TRAIN.steps or not all(
+            math.isfinite(x) for x in stats.losses + stats.grad_norms):
+        raise AssertionError(f"train: losses {stats.losses}, grad norms {stats.grad_norms}")
+    ck = Checkpointer(ckdir)
+    if ck.latest_step() != TRAIN.steps:
+        raise AssertionError(f"train: newest checkpoint {ck.latest_step()} != {TRAIN.steps}")
+    ck_gb = sum(f.stat().st_size for f in ckdir.rglob("*") if f.is_file()) / 1e9
+    shutil.rmtree(ckdir)
+
+    step_ms = statistics.median(stats.step_times[1:]) * 1e3
+    flops, n_params = train_flops(model, TRAIN)
+    tokens = TRAIN.global_batch * TRAIN.seq
+    model_tflops = flops / (step_ms / 1e3) / 1e12
+    line = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab, "global_batch": TRAIN.global_batch, "seq": TRAIN.seq,
+            "micro_steps": TRAIN.micro_steps, "tokens_per_step": tokens,
+            "gather_dtype": "bf16", "schedule": "prefetch", "boundary": "bucketed",
+            "clip": "exact", "loss": stats.losses, "grad_norm": stats.grad_norms,
+            "step_ms_all": [t * 1e3 for t in stats.step_times], "step_ms": step_ms,
+            "tokens_per_s": tokens / (step_ms / 1e3), "model_params": n_params,
+            "model_tflops": model_tflops, "mfu": model_tflops / (PEAK_OPS_PER_S[torch.bfloat16] / 1e12),
+            "peak_gb": peak_gb, "loop_s": loop_s, "checkpoint_gb": ck_gb,
+            "launches": launches, "attention_launches_by_route": by_route,
+            "attention_bwd_launches_by_route": bwd_by_route, "gpu": card}
+    emit(line)
+    return launches, line
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """(max |a - b|, max |b|), in fp32 on the CPU."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return (a - b).abs().max().item(), b.abs().max().item()
+
+
+def train_consistency_phase(dev):
+    """``train_consistency``: the same weights at a cut depth (full width),
+    one micro-step of 1 x ``cut_tokens`` tokens.  Card against CPU: loss,
+    grad_norm, every pool's gradient and the params after one AdamW step.
+    Bitwise on the card: serial == prefetch (loss and gradients), serial ==
+    bucketed boundary (params, m, v, grad_norm), and a step run twice."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import CommEngine
+    from repro_torch.core.mics import MiCSConfig, accumulate_grads, build_train_step, init_params
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.models import layers as L
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import OptConfig
+
+    topo = MiCSTopology()
+    model = build_model(get_config(TRAIN.arch), tp=1)
+    model2, params = cut_params(model, init_params(model, seed=0, device=dev), TRAIN.cut_layers)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    shape = (1, 1, TRAIN.cut_tokens)
+    batch = {"tokens": torch.randint(0, model.cfg.vocab, shape, generator=gen, device=dev),
+             "targets": torch.randint(0, model.cfg.vocab, shape, generator=gen, device=dev),
+             "mask": torch.ones(shape, device=dev)}
+    ctx = L.Ctx(mode="train", compute_dtype=torch.bfloat16)
+
+    def grads(prefetch: bool, on):
+        comm = CommEngine.from_config(topo, MiCSConfig(prefetch=prefetch))
+        p = {k: v.to(on) for k, v in params.items()}
+        return accumulate_grads(model2, comm, ctx, p, {k: v.to(on) for k, v in batch.items()})
+
+    g_pre, loss_pre, _ = grads(True, dev)
+    g_ser, loss_ser, _ = grads(False, dev)
+    if not (torch.equal(loss_pre, loss_ser) and all(torch.equal(g_pre[k], g_ser[k]) for k in g_pre)):
+        raise AssertionError("train_consistency: serial != prefetch on the card")
+    g_cpu, loss_cpu, _ = grads(True, "cpu")
+    grad_err = {}
+    for k in g_pre:
+        err, scale = _rel_err(g_pre[k], g_cpu[k])
+        grad_err[k] = {"max_abs_err": err, "max_abs_grad": scale}
+        if not err <= REL_TOL_GRAD_CARD_VS_CPU * scale:
+            raise AssertionError(f"train_consistency: pool {k} gradient card vs CPU {err} > "
+                                 f"{REL_TOL_GRAD_CARD_VS_CPU} x {scale}")
+    loss_err = abs(loss_pre.item() - loss_cpu.item())
+    if not loss_err <= REL_TOL_GRAD_CARD_VS_CPU * abs(loss_cpu.item()):
+        raise AssertionError(f"train_consistency: loss {loss_pre.item()} vs {loss_cpu.item()}")
+    del g_pre, g_ser, g_cpu
+
+    oc = OptConfig(warmup_steps=0)
+
+    def one_step(boundary: str, on):
+        mc = MiCSConfig(micro_steps=1, boundary_schedule=boundary)
+        p = {k: v.to(on, copy=True) for k, v in params.items()}
+        state = {"params": p, "m": {k: torch.zeros_like(v) for k, v in p.items()},
+                 "v": {k: torch.zeros_like(v) for k, v in p.items()}, "step": 0}
+        return build_train_step(model2, topo, mc, oc, device=on)(state, batch)
+
+    def same(a, b):
+        return torch.equal(a[1]["grad_norm"], b[1]["grad_norm"]) and all(
+            torch.equal(a[0][part][k], b[0][part][k]) for part in ("params", "m", "v")
+            for k in a[0][part])
+
+    bucketed = one_step("bucketed", dev)
+    if not same(bucketed, one_step("serial", dev)):
+        raise AssertionError("train_consistency: serial != bucketed boundary on the card")
+    if not same(bucketed, one_step("bucketed", dev)):
+        raise AssertionError("train_consistency: a step run twice differs on the card")
+    cpu = one_step("bucketed", "cpu")
+    gn_card, gn_cpu = bucketed[1]["grad_norm"].item(), cpu[1]["grad_norm"].item()
+    if not abs(gn_card - gn_cpu) <= REL_TOL_GRAD_CARD_VS_CPU * gn_cpu:
+        raise AssertionError(f"train_consistency: grad_norm {gn_card} vs {gn_cpu} on the CPU")
+    param_err = {}
+    for k in params:
+        err, _ = _rel_err(bucketed[0]["params"][k], cpu[0]["params"][k])
+        param_err[k] = err
+        if not err <= ADAMW_STEP_TOL_LR * oc.lr_max:
+            raise AssertionError(f"train_consistency: pool {k} params after one step card vs "
+                                 f"CPU {err} > {ADAMW_STEP_TOL_LR} lr")
+    emit({"phase": "train_consistency", "arch": model.cfg.name, "layers": TRAIN.cut_layers,
+          "tokens": TRAIN.cut_tokens, "pools": model2.global_flat_shapes(),
+          "serial_eq_prefetch": True, "serial_eq_bucketed": True, "repeat_bitwise": True,
+          "card_vs_cpu": {"loss": [loss_pre.item(), loss_cpu.item()],
+                          "grad_norm": [gn_card, gn_cpu], "grads": grad_err,
+                          "rel_tol": REL_TOL_GRAD_CARD_VS_CPU,
+                          "params_after_step_max_abs_err": param_err,
+                          "params_tol": ADAMW_STEP_TOL_LR * oc.lr_max}})
+
+
+def train_profile(dev):
+    """``profile`` of one train step at the ``train`` phase's configuration
+    (after one unprofiled step): device busy, idle share, top kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import OptConfig
+
+    cfg = get_config(TRAIN.arch)
+    model = build_model(cfg, tp=1)
+    state = init_state(model, 0, device=dev)
+    step = build_train_step(model, MiCSTopology(), MiCSConfig(micro_steps=TRAIN.micro_steps),
+                            OptConfig(warmup_steps=0), device=dev)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=TRAIN.seq, global_batch=TRAIN.global_batch,
+                                   micro_steps=TRAIN.micro_steps)).global_step_batch(0)
+    holder = [state]
+
+    def run():
+        holder[0], metrics = step(holder[0], batch)
+        return metrics
+
+    profile_run(cfg.name, "train", run, top=25)
+    del holder, state
+    torch.cuda.empty_cache()
 
 
 def kernel_checks(gen, dev, flush):
@@ -608,6 +920,120 @@ def kernel_checks(gen, dev, flush):
     return rms_checks, attn_checks, rglru_checks
 
 
+# The backward kernels against their plain versions, as a fraction of the
+# largest |gradient| (tests/test_torch_kernels.py's BWD_REL): bf16 rounds
+# dP, P and dS at the same places in both and differs by exp2 against exp
+# and the order of sums; fp32 by the order of sums.
+BWD_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def backward_checks(gen, dev, flush):
+    """The backward kernels at the train path's shapes and a few edges,
+    each against its plain version on the same inputs, called twice for a
+    bitwise-equal output, timed beside its bound and one PyTorch library
+    call's backward (timed alone, the graph retained)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rmsnorm import kernel as RN
+
+    def rel_check(name, outs, refs, rel):
+        worst = 0.0
+        for o, r in zip(outs, refs):
+            err, scale = _rel_err(o, r)
+            if not err <= rel * scale:
+                raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                                     f"(max |err| {err} > {rel} x {scale})")
+            worst = max(worst, err)
+        return worst
+
+    bf, f32 = torch.bfloat16, torch.float32
+    rms = []
+    for case, (n, d), dt, sdt in (
+            ("llama train [8192, 2048]", (TRAIN.global_batch // TRAIN.micro_steps * TRAIN.seq,
+                                          2048), bf, bf),
+            ("fp32 [1024, 4096]", (1024, 4096), f32, f32),
+            ("ragged d [37, 1000], fp32 scale", (37, 1000), bf, f32)):
+        x = torch.randn(n, d, generator=gen, device=dev).to(dt)
+        dy = torch.randn(n, d, generator=gen, device=dev).to(dt)
+        sc = (0.2 * torch.randn(d, generator=gen, device=dev)).to(sdt)
+        out = RN.rmsnorm_bwd(x, sc, dy)
+        if not all(torch.equal(a, b) for a, b in zip(out, RN.rmsnorm_bwd(x, sc, dy))):
+            raise AssertionError(f"rmsnorm_bwd {case}: not bitwise repeatable")
+        rel = BWD_REL_TOL[bf if bf in (dt, sdt) else f32]
+        err = rel_check(f"rmsnorm_bwd {case}", out, RN.rms_norm_bwd_plain(x, sc, dy), rel)
+        # x and dy read, dx written, scale read and dscale written once
+        nbytes = 3 * x.numel() * x.element_size() + 2 * d * sc.element_size()
+        b_ms, b_by = bound(nbytes, 10 * x.numel(), f32)
+        xr = x.detach().requires_grad_()
+        wr = (1.0 + sc.float()).to(dt).requires_grad_()
+        y = F.rms_norm(xr, (d,), weight=wr, eps=RN.EPS)
+        blocks = RN.plan_rmsnorm_bwd(n, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+        rms.append({
+            "case": case, "shape": [n, d], "dtype": str(dt)[6:], "scale_dtype": str(sdt)[6:],
+            "blocks": blocks, "bitwise_repeat": True, "max_abs_err": err, "rel_tol": rel,
+            "ms": time_ms(lambda: RN.rmsnorm_bwd(x, sc, dy), flush),
+            "plain_ms": time_ms(lambda: RN.rms_norm_bwd_plain(x, sc, dy), flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.autograd.grad(y, (xr, wr), dy, retain_graph=True),
+                                  flush)})
+        del x, dy, xr, y
+
+    attn = []
+    cfgs = [
+        # case, b, T, hkv, g, dh, causal, window, dtype
+        ("llama train", TRAIN.global_batch // TRAIN.micro_steps, TRAIN.seq, 8, 4, 64, True, 0,
+         bf),
+        ("ragged T 300", 2, 300, 2, 4, 64, True, 0, bf),
+        ("window 64", 2, 512, 2, 4, 64, True, 64, bf),
+        ("g 1", 2, 256, 4, 1, 64, True, 0, bf),
+        ("fp32", 2, 256, 2, 4, 64, True, 0, f32),
+    ]
+    for case, b, t, hkv, g, dh, causal, window, dt in cfgs:
+        kw = dict(causal=causal, window=window)
+        q = torch.randn(b, t, hkv, g, dh, generator=gen, device=dev).to(dt)
+        k = torch.randn(b, t, hkv, dh, generator=gen, device=dev).to(dt)
+        v = torch.randn(b, t, hkv, dh, generator=gen, device=dev).to(dt)
+        do = torch.randn(b, t, hkv, g, dh, generator=gen, device=dev).to(dt)
+        o, lse = FA.flash_attention_fwd(q, k, v, **kw)
+        _, lse_ref = FA.attention_plain_lse(q, k, v, **kw)
+        lse_err = rel_check(f"flash lse {case}", [lse], [lse_ref], 1e-5)
+        out = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        if not all(torch.equal(a, r) for a, r in zip(out, FA.flash_attention_bwd(q, k, v, o, lse, do, **kw))):
+            raise AssertionError(f"flash_attention_bwd {case}: not bitwise repeatable")
+        err = rel_check(f"flash_attention_bwd {case}", out,
+                        FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw), BWD_REL_TOL[dt])
+        allowed = FA.mask_bias(t, t, causal=causal, window=window, q_offset=0,
+                               kv_valid_len=None, device=dev) == 0
+        pairs = int(allowed.sum().item()) * b * hkv * g
+        ops = 10 * dh * pairs
+        # q, o, dO, k, v and lse read, dq, dk, dv written once
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
+        b_ms, b_by = bound(nbytes, ops, dt)
+        ms = time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do, **kw), flush)
+        qs = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, t, dh).contiguous().requires_grad_()
+        ks = k.permute(0, 2, 1, 3).contiguous().requires_grad_()
+        vs = v.permute(0, 2, 1, 3).contiguous().requires_grad_()
+        dos = do.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, t, dh).contiguous()
+        lib_causal = causal and not window
+        y = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=None if lib_causal else allowed,
+                                           is_causal=lib_causal, enable_gqa=True)
+        attn.append({
+            "case": case, "shape": {"b": b, "T": t, "hkv": hkv, "g": g, "dh": dh},
+            "causal": causal, "window": window, "dtype": str(dt)[6:],
+            "route": "mma" if dt == bf else "fma", "bitwise_repeat": True,
+            "max_abs_err": err, "rel_tol": BWD_REL_TOL[dt], "lse_max_abs_err": lse_err,
+            "ms": ms, "tflops": ops / ms / 1e9, "allowed_pairs": pairs,
+            "plain_ms": time_ms(lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
+                                flush, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.autograd.grad(y, (qs, ks, vs), dos,
+                                                              retain_graph=True), flush)})
+        del q, k, v, do, o, out, qs, ks, vs, y
+        torch.cuda.empty_cache()
+    return rms, attn
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-only", action="store_true",
@@ -623,7 +1049,6 @@ def main() -> int:
     from repro_torch.kernels import build as KB
     from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.rglru import kernel as RG
-    from repro_torch.kernels.rmsnorm import kernel as RN
 
     dev = torch.device("cuda")
     card = smi()
@@ -644,20 +1069,28 @@ def main() -> int:
         return 0
 
     # -- 2. the serve paths ----------------------------------------------------
-    counters = {"rmsnorm": RN, "flash_attention": FA, "rglru": RG}
     by_path, launches_by_route = {}, dict.fromkeys(FA.ROUTES, 0)
     launches_by_form = dict.fromkeys(RG.FORMS, 0)
     for p in PATHS:
-        by_path[p.arch], by_route, by_form = serve_path(p, card, counters, dev)
+        by_path[p.arch], by_route, by_form = serve_path(p, card, dev)
         for r, n in by_route.items():
             launches_by_route[r] += n
         for f, n in by_form.items():
             launches_by_form[f] += n
 
-    # -- 3. kernels against their plain versions, timed ---------------------------
+    # -- 3. the train path ------------------------------------------------------
+    by_path["llama3.2-1b train"], train_line = train_phase(card, dev)
+    launches_by_route["mma"] += train_line["attention_launches_by_route"]["mma"]
+    torch.cuda.empty_cache()
+    train_consistency_phase(dev)
+    torch.cuda.empty_cache()
+    train_profile(dev)
+
+    # -- 4. kernels against their plain versions, timed ---------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
     rms_checks, attn_checks, rglru_checks = kernel_checks(gen, dev, flush)
+    rms_bwd_checks, attn_bwd_checks = backward_checks(gen, dev, flush)
 
     def entry(name, source, replaces, checks, **more):
         main = checks[0]  # the path's main shape
@@ -672,12 +1105,21 @@ def main() -> int:
     emit({"kernels": [
         entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
               "src/repro/kernels/rmsnorm/kernel.py:28", rms_checks),
+        entry("rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+              "src/repro/kernels/rmsnorm/kernel.py:28", rms_bwd_checks,
+              gradient_of="src/repro/models/layers.py:62 rms_norm (the TPU kernel has no "
+                          "backward)"),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
               "src/repro/kernels/flash_attention/kernel.py:86", attn_checks,
               sources={"mma": "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
                        "split": "src/repro_torch/kernels/csrc/flash_attention_split.cu",
                        "fma": "src/repro_torch/kernels/csrc/flash_attention.cu"},
               launches_by_route=launches_by_route),
+        entry("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+              "src/repro/kernels/flash_attention/kernel.py:86", attn_bwd_checks,
+              gradient_of="src/repro/models/layers.py:145 attention (the TPU kernel has no "
+                          "backward)",
+              launches_by_route=train_line["attention_bwd_launches_by_route"]),
         entry("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru/kernel.py:47", rglru_checks,
               launches_by_form=launches_by_form),

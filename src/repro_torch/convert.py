@@ -1,9 +1,11 @@
-"""Weight carry-over from the JAX package's flat pools to the port's.
+"""Weight and training-state carry-over from the JAX package's flat pools
+to the port's.
 
 Both packages lay out a model as the same flat pools (``{"embed",
 "layers", "head"}``, each ``[stack, tp, flat_len]`` fp32, same segment
 offsets), so carrying weights over is a checked copy.  With it, the two
-packages compute the same function on the same weights.
+packages compute the same function on the same weights, and train from
+the same state.
 """
 
 from __future__ import annotations
@@ -34,4 +36,16 @@ def params_from_jax(model: ModelDef, params: Mapping[str, np.ndarray], *,
         if arr.dtype != np.float32:
             raise ValueError(f"pool {name!r}: dtype {arr.dtype} != float32")
         out[name] = torch.from_numpy(np.array(arr, copy=True)).to(dev)
+    return out
+
+
+def state_from_jax(model: ModelDef, state: Mapping, *,
+                   device: str | torch.device = "cuda") -> dict:
+    """A JAX ``init_state`` (or a mid-run state): ``params``, ``m`` and ``v``
+    pool dicts of arrays and ``step``, as the port's training state
+    (``repro_torch.core.mics.init_state``'s layout; ``step`` an int)."""
+    out = {part: params_from_jax(model, {k: np.asarray(v) for k, v in state[part].items()},
+                                 device=device)
+           for part in ("params", "m", "v")}
+    out["step"] = int(np.asarray(state["step"]))
     return out

@@ -73,8 +73,36 @@ class FlatLayout:
     def unflatten(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
         """Rebuild tensors from a gathered flat vector, as views of it (no
         copy).  Model-axis-sharded segments need no reassembly at tp = 1,
-        the only width this slice runs."""
+        the only width this slice runs.  When ``flat`` carries a gradient
+        the views come from :class:`Unflatten`, whose backward writes each
+        segment's cotangent into one buffer."""
+        if torch.is_grad_enabled() and flat.requires_grad:
+            return dict(zip((s.name for s in self.segments), Unflatten.apply(flat, self)))
         return {s.name: flat[s.offset:s.end].view(s.shape) for s in self.segments}
+
+    # -- masks ----------------------------------------------------------------
+    def nodecay_ranges(self) -> list[tuple[int, int]]:
+        rng = [(s.offset, s.end) for s in self.segments if not s.decay]
+        rng.append((self.raw_len, self.flat_len))  # padding never decays
+        return rng
+
+    def decay_mask_for_shard(self, shard_start: int, shard_len: int, *,
+                             device=None) -> torch.Tensor:
+        """fp32 decay mask of the shard ``[shard_start, shard_start +
+        shard_len)``: 0 on segments without weight decay and on the
+        padding, 1 elsewhere."""
+        mask = torch.ones(shard_len, dtype=torch.float32, device=device)
+        for lo, hi in self.nodecay_ranges():
+            lo, hi = max(lo - shard_start, 0), min(hi - shard_start, shard_len)
+            if lo < hi:
+                mask[lo:hi] = 0.0
+        return mask
+
+    def padding_mask_for_shard(self, shard_start: int, shard_len: int, *,
+                               device=None) -> torch.Tensor:
+        """1.0 for real parameters, 0.0 for the padded tail."""
+        gidx = shard_start + torch.arange(shard_len, device=device)
+        return (gidx < self.raw_len).float()
 
     def flatten(self, tensors: Mapping[str, torch.Tensor],
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -112,6 +140,50 @@ class FlatLayout:
             elif s.init != "zeros":
                 raise ValueError(f"unknown init {s.init!r}")
         return out
+
+
+class Unflatten(torch.autograd.Function):
+    """A layout's segments as views of a gathered flat buffer, with the
+    transpose of that slicing as the backward: every segment's cotangent is
+    written into one zero buffer of the flat dtype (the padding stays 0).
+    Autograd through plain views would instead build a full-size zero
+    gradient for each segment and sum them."""
+
+    @staticmethod
+    def forward(ctx, flat, layout):
+        ctx.layout, ctx.dtype, ctx.device = layout, flat.dtype, flat.device
+        ctx.set_materialize_grads(False)
+        return tuple(flat[s.offset:s.end].view(s.shape) for s in layout.segments)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        layout = ctx.layout
+        buf = torch.zeros(layout.flat_len, dtype=ctx.dtype, device=ctx.device)
+        for seg, ct in zip(layout.segments, cts):
+            if ct is not None:
+                buf[seg.offset:seg.end] = ct.reshape(-1)
+        return buf, None
+
+
+# ---------------------------------------------------------------------------
+# fixed-byte bucketization (the boundary scheduler's unit)
+# ---------------------------------------------------------------------------
+
+def bucket_elems(bucket_mb: float, itemsize: int = 4) -> int:
+    """Elements per fixed-byte bucket (>= 1 even for degenerate sizes)."""
+    if bucket_mb <= 0:
+        raise ValueError(f"bucket_mb must be > 0, got {bucket_mb}")
+    return max(1, int(bucket_mb * 1e6) // itemsize)
+
+
+def partition_buckets(n_elems: int, bucket_mb: float,
+                      itemsize: int = 4) -> tuple[tuple[int, int], ...]:
+    """``[0, n_elems)`` as contiguous ``(lo, hi)`` buckets of at most
+    ``bucket_mb`` megabytes each, in order, every element once."""
+    if n_elems <= 0:
+        return ()
+    per = bucket_elems(bucket_mb, itemsize)
+    return tuple((lo, min(lo + per, n_elems)) for lo in range(0, n_elems, per))
 
 
 class LayoutBuilder:

@@ -1,7 +1,17 @@
-"""MiCS configuration and parameter initialisation (the port of the parts of
-``repro/core/mics.py`` the serve path reads).  The training step, with
-optimizer state and the two-hop gradient sync, comes with the training
-slice."""
+"""The MiCS engine (the port of ``repro/core/mics.py``): its configuration,
+the state's initialisation and the training step.
+
+One step is one gradient-accumulation boundary over ``micro_steps``
+micro-steps.  Each micro-step runs the loss forward and backward: every
+layer's flat row is gathered before use (the cast to the wire dtype at
+p = 1), its compute is checkpointed, and the gather's adjoint (hop 1)
+hands each row's gradient back in fp32, where it is added to the fp32
+accumulator in micro-step order (0 + g1 + g2 ...).  At the boundary
+``core/schedule.apply_boundary`` runs hop 2, the exact global-norm clip
+and AdamW on the flat fp32 shards.  All collectives belong to one
+``CommEngine``.  Unlike the reference's jitted step, which returns a new
+state, this step updates the state's tensors in place and returns them.
+"""
 
 from __future__ import annotations
 
@@ -10,28 +20,81 @@ import zlib
 
 import torch
 
+from repro_torch.core.comm import CommEngine
+from repro_torch.core.schedule import BOUNDARY_SCHEDULES, CLIP_MODES, apply_boundary, plan_boundary
+from repro_torch.core.topology import MiCSTopology
 from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import lm
 from repro_torch.models.lm import ModelDef
+from repro_torch.optim.adamw import OptConfig
+
+PREFETCH_CARRIES = ("stored", "remat")
+CARRY_OFFLOADS = ("none", "host")
+HOP2_WIRES = (False, True, "fp32", "bf16", "int8")
+
+# Training knobs the port refuses at anything but this value, with the
+# ROADMAP Queue 1 item each waits for.
+UNPORTED_TRAIN = {
+    "prefetch_carry": ("stored", "the remat carry (ROADMAP Queue 1 item 2)"),
+    "carry_offload": ("none", "the host-offloaded carry (ROADMAP Queue 1 item 2)"),
+    "offload_opt": (False, "host-offloaded AdamW moments (ROADMAP Queue 1 item 2)"),
+    "clip_mode": ("exact", "the approximate clip (ROADMAP Queue 1 item 2)"),
+    "policy": ("manual", "the link-model autotuner (ROADMAP Queue 1 item 11)"),
+    "hbm_budget_gb": (None, "the memory planner (ROADMAP Queue 1 item 11)"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class MiCSConfig:
-    """The knobs the serve path reads (names and defaults as the reference).
-    Those marked "default only" raise ``NotImplementedError`` when set to
-    anything else, in ``CommEngine.from_config`` or ``build_serve_steps``."""
+    """The knobs of the reference's ``MiCSConfig`` that the port reads (names
+    and defaults as the reference).  Values outside a knob's set raise
+    ``ValueError`` here; a known value the port does not run raises
+    ``NotImplementedError`` where it would be used (``CommEngine.from_config``,
+    ``build_serve_steps``, :func:`build_train_step`), naming the ROADMAP
+    item it waits for."""
 
+    micro_steps: int = 1
     hierarchical: bool = True           # staged gather (default only: p > 1)
     gather_order: str = "inner_first"   # (default only: p > 1)
     gather_dtype: torch.dtype = torch.bfloat16
+    sync_mode: str = "2hop"             # (default only)
     hierarchy_inner: int | None = None  # (default only: p > 1)
+    compress_hop2: bool | str = False   # hop-2 wire (default only)
     scores_bf16: bool = False           # bf16 attention scores (default only)
     quant_gather: bool = False          # int8 wire (default only)
+    hop1_wire_dtype: str = "fp32"       # (default only)
     prefetch: bool = True               # lookahead gathers
+    prefetch_carry: str = "stored"      # (default only)
+    policy: str = "manual"              # (default only)
+    boundary_schedule: str = "bucketed"  # 'serial' | 'bucketed'
+    hop2_bucket_mb: float = 32.0
+    clip_mode: str = "exact"            # (default only)
+    carry_offload: str = "none"         # (default only)
+    offload_opt: bool = False           # (default only)
+    hbm_budget_gb: float | None = None  # (default only)
 
     def __post_init__(self):
         if self.gather_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"gather_dtype must be float32 or bfloat16, "
                              f"got {self.gather_dtype}")
+        if self.micro_steps < 1:
+            raise ValueError(f"micro_steps must be >= 1, got {self.micro_steps}")
+        for name, allowed in (("policy", ("manual", "auto")),
+                              ("boundary_schedule", BOUNDARY_SCHEDULES),
+                              ("clip_mode", CLIP_MODES),
+                              ("prefetch_carry", PREFETCH_CARRIES),
+                              ("carry_offload", CARRY_OFFLOADS)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"unknown {name} {getattr(self, name)!r} "
+                                 f"(expected one of {allowed})")
+        if self.compress_hop2 not in HOP2_WIRES:
+            raise ValueError(f"compress_hop2 must be a bool or one of fp32/bf16/int8, "
+                             f"got {self.compress_hop2!r}")
+        if self.hop2_bucket_mb <= 0:
+            raise ValueError(f"hop2_bucket_mb must be > 0, got {self.hop2_bucket_mb}")
+        if self.hbm_budget_gb is not None and self.hbm_budget_gb <= 0:
+            raise ValueError(f"hbm_budget_gb must be > 0, got {self.hbm_budget_gb}")
 
 
 def init_params(model: ModelDef, seed: int = 0, *,
@@ -58,3 +121,110 @@ def init_params(model: ModelDef, seed: int = 0, *,
                 rows[i, j] = pool.layout.init_flat(gen, device=dev)
         params[pool.name] = rows
     return params
+
+
+def init_state(model: ModelDef, seed: int = 0, *, device: str | torch.device = "cuda"):
+    """``{"params", "m", "v", "step"}``: params from :func:`init_params`,
+    zero m and v (fp32 flat pools like the params), step 0."""
+    params = init_params(model, seed, device=device)
+    return {"params": params,
+            "m": {k: torch.zeros_like(p) for k, p in params.items()},
+            "v": {k: torch.zeros_like(p) for k, p in params.items()},
+            "step": 0}
+
+
+def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology) -> None:
+    """Raise ``NotImplementedError`` for a training setting the port does not
+    run (it never runs the default program under another name)."""
+    for name, (default, item) in UNPORTED_TRAIN.items():
+        if getattr(mcfg, name) != default:
+            raise NotImplementedError(
+                f"{name}={getattr(mcfg, name)!r}: {item} is not ported yet; "
+                "the port trains with the default")
+    if mcfg.scores_bf16:
+        raise NotImplementedError("bf16 attention scores: the kernels keep fp32 scores")
+    if topo.data_parallel_size != 1 or topo.model_size != 1:
+        raise NotImplementedError(
+            f"data parallel {topo.data_parallel_size}, tp {topo.model_size}: more than one "
+            "card comes with the multi-chip collectives slice (ROADMAP Queue 1 item 7)")
+
+
+def _check_state(model: ModelDef, state: dict, dev: torch.device) -> None:
+    for part in ("params", "m", "v"):
+        for name, shape in model.global_flat_shapes().items():
+            t = state[part][name]
+            if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device.type != dev.type:
+                raise ValueError(f"state[{part!r}][{name!r}]: want fp32 {shape} on {dev}, "
+                                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
+                     *, device: str | torch.device = "cuda"):
+    """Returns ``step_fn(state, batch) -> (state, metrics)`` on ``device``.
+
+    ``batch``: tokens / targets / mask ``[micro_steps, b, T]`` (numpy or
+    tensors).  ``metrics``: fp32 0-dim tensors ``loss`` and ``aux`` (means
+    over the micro-steps) and ``grad_norm`` (before the clip).  The state's
+    params, m and v are updated in place; the returned state holds them and
+    ``step + 1``."""
+    dev = resolve_device(device)
+    refuse_unported(mcfg, topo)
+    comm = CommEngine.from_config(topo, mcfg)
+    boundary = plan_boundary(model, topo, mode=mcfg.boundary_schedule,
+                             bucket_mb=mcfg.hop2_bucket_mb, clip_mode=mcfg.clip_mode)
+    ctx = L.Ctx(mode="train", tp=topo.model_size, compute_dtype=mcfg.gather_dtype)
+    s = mcfg.micro_steps
+    denom = float(s * topo.data_parallel_size)
+
+    def step_fn(state, batch):
+        _check_state(model, state, dev)
+        batch = {k: torch.as_tensor(batch[k]).to(dev) for k in ("tokens", "targets", "mask")}
+        if batch["tokens"].shape[0] != s:
+            raise ValueError(f"batch has {batch['tokens'].shape[0]} micro-steps, "
+                             f"the step runs {s}")
+        grads, loss_sum, aux_sum = accumulate_grads(model, comm, ctx, state["params"], batch)
+        new_p, new_m, new_v, gnorm = apply_boundary(boundary, comm, model, topo, oc, state,
+                                                     grads, denom)
+        metrics = {"loss": loss_sum / s, "aux": aux_sum / s, "grad_norm": gnorm}
+        return {"params": new_p, "m": new_m, "v": new_v, "step": state["step"] + 1}, metrics
+
+    return step_fn
+
+
+def accumulate_grads(model: ModelDef, comm: CommEngine, ctx: L.Ctx, params: dict,
+                     batch: dict[str, torch.Tensor]):
+    """The micro-step loop of one step: for each micro-batch (dim 0 of
+    ``batch``'s tokens / targets / mask), the loss forward and backward, each
+    pool row's fp32 gradient added to its row of the accumulator in
+    micro-step order.  Returns ``(grads, loss_sum, aux_sum)``: the fp32
+    gradient sums like ``params``, and the fp32 sums of the micro-steps'
+    ``loss`` and ``aux`` metrics."""
+    dev = next(iter(params.values())).device
+    grads = {name: torch.zeros_like(p) for name, p in params.items()}
+    rows = {}
+    for name, p in params.items():
+        rows[name] = []
+        for i in range(p.shape[0]):
+            row = p[i, 0].detach().requires_grad_(True)
+            row.register_post_accumulate_grad_hook(_accumulate_into(grads[name][i, 0]))
+            rows[name].append(row)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    for mb in range(batch["tokens"].shape[0]):
+        micro = {k: v[mb] for k, v in batch.items()}
+        loss, metrics = lm.loss_fn(model, rows, comm, ctx, micro)
+        loss.backward()
+        loss_sum = loss_sum + metrics["loss"].detach()
+        aux_sum = aux_sum + metrics["aux"]
+    return grads, loss_sum, aux_sum
+
+
+def _accumulate_into(dst: torch.Tensor):
+    """A row's hook: add its fp32 gradient (the hop-1 adjoint's output) to
+    the accumulator row and drop it."""
+
+    def hook(row: torch.Tensor) -> None:
+        dst.add_(row.grad)
+        row.grad = None
+
+    return hook

@@ -36,12 +36,25 @@ SIGNATURES = {
     # x, scale, y, n, d, eps, x_bf16, scale_bf16, lanes_log2, vecs_per_lane,
     # sms, stream
     "rmsnorm_launch": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P),
-    # q, k, v, o, b, tq, tk, hkv, g, dh, causal, window, q_offset, kv_len,
-    # scale, stream (fma: fp32; mma: bf16)
-    "flash_fma_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    # x, scale, dy, dx, partial, dscale, n, d, eps, x_bf16, scale_bf16, blocks,
+    # stream
+    "rmsnorm_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
+    # q, k, v, o, lse (or NULL), b, tq, tk, hkv, g, dh, causal, window,
+    # q_offset, kv_len, scale, stream (fma: fp32; mma: bf16)
+    "flash_fma_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P),
-    "flash_mma_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    "flash_mma_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P),
+    # q, o, do, lse, delta, qs (or NULL), rowstat (or NULL), rows, tq, hkv, g,
+    # dh, scale, is_bf16, stream
+    "flash_bwd_delta_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, do, lse, delta, [qs, rowstat: mma only,] dq, dk, dv, b, tq, tk,
+    # hkv, g, dh, causal, window, q_offset, kv_len, scale, stream (mma: bf16;
+    # fma: fp32)
+    "flash_bwd_mma_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _F, _P),
+    "flash_bwd_fma_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _F, _P),
     # q, k, v, part, b, tq, tk, hkv, g, dh, causal, window, q_offset, kv_len,
     # nsplit, chunk, scale, stream
     "flash_split_partials_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

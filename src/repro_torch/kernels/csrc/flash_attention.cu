@@ -37,6 +37,8 @@
 //  * head dims 16 to 256.  At dh = 256 a row is split over TPR = 8 threads
 //    of 32 dims each, 16 row slots a block, K/V tiles of 8 keys
 //    (2 * 8 * 257 * 4 B ~ 16 KB of static shared memory).
+// The training path asks for the rows' log-sum-exp m + log(l) (fp32,
+// [b, hkv, g, tq]) for the backward; the serve path passes NULL.
 // Numerics follow layers.attention: q is pre-scaled by 1/sqrt(dh) and
 // rounded to its own type before the fp32 dot products; the softmax max
 // and normaliser are fp32; the output is cast to q's type.  The wrapper
@@ -74,8 +76,8 @@ struct Cfg {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int tq, int tk,
-                  int hkv, int g, int causal, int window, int q_offset,
+                  const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                  int tq, int tk, int hkv, int g, int causal, int window, int q_offset,
                   int kv_len, int R, int ksplit, float scale) {
   using C = Cfg<DH>;
   constexpr int TPR = C::TPR, DPT = C::DPT, BK = C::BK, LD = C::LD;
@@ -199,6 +201,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int i = 0; i < DPT; ++i) acc[i] += c[2 + i * TPR + part] * w;
       }
       l = ll;
+      m = mm;
     }
   }
 
@@ -206,11 +209,13 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPT; ++i) o[q_base + i * TPR + part] = from_f<T>(acc[i] / denom);
+    if (lse != nullptr && part == 0)
+      lse[((static_cast<int64_t>(b) * hkv + h) * g + head) * tq + pos] = m + logf(denom);
   }
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int tq,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int tq,
            int tk, int hkv, int g, int causal, int window, int q_offset,
            int kv_len, float scale, cudaStream_t stream) {
   using C = Cfg<DH>;
@@ -223,20 +228,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int tq,
   const dim3 grid((rows_total + R - 1) / R, hkv, b);
   flash_attn_kernel<T, DH><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), tq, tk, hkv, g, causal, window, q_offset, kv_len, R,
+      static_cast<T*>(o), lse, tq, tk, hkv, g, causal, window, q_offset, kv_len, R,
       ksplit, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dh(const void* q, const void* k, const void* v, void* o, int b, int tq, int tk,
-              int hkv, int g, int dh, int causal, int window, int q_offset, int kv_len,
-              float scale, cudaStream_t s) {
+int launch_dh(const void* q, const void* k, const void* v, void* o, float* lse, int b, int tq,
+              int tk, int hkv, int g, int dh, int causal, int window, int q_offset,
+              int kv_len, float scale, cudaStream_t s) {
   switch (dh) {
-    case 16: return launch<float, 16>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
-    case 32: return launch<float, 32>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
-    case 64: return launch<float, 64>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
-    case 128: return launch<float, 128>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
-    case 256: return launch<float, 256>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 16: return launch<float, 16>(q, k, v, o, lse, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 32: return launch<float, 32>(q, k, v, o, lse, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 64: return launch<float, 64>(q, k, v, o, lse, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 128: return launch<float, 128>(q, k, v, o, lse, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 256: return launch<float, 256>(q, k, v, o, lse, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -244,12 +249,13 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, int b, int t
 }  // namespace
 
 // q [b, tq, hkv, g, dh], k/v [b, tk, hkv, dh], o like q; all contiguous
-// fp32, 16-byte aligned.  kv_len = min(tk, kv_valid_len).  The caller
-// checks shapes, types and that every query row sees a key.
-extern "C" int flash_fma_launch(const void* q, const void* k, const void* v, void* o, int b,
-                                int tq, int tk, int hkv, int g, int dh, int causal,
-                                int window, int q_offset, int kv_len, float scale,
+// fp32, 16-byte aligned; lse fp32 [b, hkv, g, tq] or NULL.  kv_len =
+// min(tk, kv_valid_len).  The caller checks shapes, types and that every
+// query row sees a key.
+extern "C" int flash_fma_launch(const void* q, const void* k, const void* v, void* o,
+                                void* lse, int b, int tq, int tk, int hkv, int g, int dh,
+                                int causal, int window, int q_offset, int kv_len, float scale,
                                 void* stream) {
-  return launch_dh(q, k, v, o, b, tq, tk, hkv, g, dh, causal, window, q_offset, kv_len, scale,
-                   reinterpret_cast<cudaStream_t>(stream));
+  return launch_dh(q, k, v, o, static_cast<float*>(lse), b, tq, tk, hkv, g, dh, causal, window,
+                   q_offset, kv_len, scale, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -35,6 +35,9 @@
 // 3 stages ran slower on the card at the serve shapes (PERF.md §6);
 // registers and spills are in the build log's -Xptxas -v lines beside the
 // .so.  No wgmma or TMA yet.
+// The training path asks for the rows' log-sum-exp m + log(l) (fp32,
+// [b, hkv, g, tq]) for the backward (flash_attention_bwd.cu); the serve
+// path passes NULL and the kernel writes none.
 #include "flash_mma.cuh"
 
 namespace {
@@ -53,8 +56,9 @@ struct MmaCfg {
 template <int DH>
 __global__ void __launch_bounds__(fa::kThreads)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int tq, int tk, int hkv,
-                 int g, int causal, int window, int q_offset, int kv_len, float scale) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int tq, int tk, int hkv, int g, int causal, int window, int q_offset,
+                 int kv_len, float scale) {
   using C = MmaCfg<DH>;
   constexpr int BM = C::BM, BC = C::BC, STAGES = C::STAGES, LDS = C::LDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -126,10 +130,13 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tig = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const float inv = 1.f / fmaxf(fa::quad_sum(l[half]), 1e-30f);
+    const float lsum = fmaxf(fa::quad_sum(l[half]), 1e-30f);
+    const float inv = 1.f / lsum;
     const int r = wr + (lane >> 2) + 8 * half;
     if (r >= nrows) continue;
     const int gr = row0 + r, pos = gr / g, head = gr % g;
+    if (lse != nullptr && tig == 0)
+      lse[((static_cast<int64_t>(b) * hkv + h) * g + head) * tq + pos] = m[half] + logf(lsum);
     bf16* dst = o + ((static_cast<int64_t>(b) * tq + pos) * hkv + h) * g * DH +
                 static_cast<int64_t>(head) * DH + tig * 2;
 #pragma unroll
@@ -140,9 +147,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int tq, int tk,
-           int hkv, int g, int causal, int window, int q_offset, int kv_len, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int tq,
+           int tk, int hkv, int g, int causal, int window, int q_offset, int kv_len,
+           float scale, cudaStream_t stream) {
   using C = MmaCfg<DH>;
   const int ntiles = (tq * g + C::BM - 1) / C::BM;
   if (ntiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -154,26 +161,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int tq, 
   const dim3 grid(b * hkv, ntiles);
   flash_mma_kernel<DH><<<grid, fa::kThreads, C::SMEM_BYTES, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), tq, tk, hkv, g, causal, window, q_offset, kv_len, scale);
+      static_cast<bf16*>(o), lse, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q [b, tq, hkv, g, dh], k/v [b, tk, hkv, dh], o like q; all contiguous
-// bf16, 16-byte aligned.  kv_len = min(tk, kv_valid_len).  The caller
-// checks shapes, types, tq * g > 16 and that every query row sees a key.
-extern "C" int flash_mma_launch(const void* q, const void* k, const void* v, void* o, int b,
-                                int tq, int tk, int hkv, int g, int dh, int causal,
-                                int window, int q_offset, int kv_len, float scale,
+// bf16, 16-byte aligned; lse fp32 [b, hkv, g, tq] or NULL.  kv_len =
+// min(tk, kv_valid_len).  The caller checks shapes, types and that every
+// query row sees a key.
+extern "C" int flash_mma_launch(const void* q, const void* k, const void* v, void* o,
+                                void* lse_out, int b, int tq, int tk, int hkv, int g, int dh,
+                                int causal, int window, int q_offset, int kv_len, float scale,
                                 void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   switch (dh) {
-    case 16: return launch<16>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
-    case 32: return launch<32>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
-    case 64: return launch<64>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
-    case 128: return launch<128>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
-    case 256: return launch<256>(q, k, v, o, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 16: return launch<16>(q, k, v, o, lse, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 32: return launch<32>(q, k, v, o, lse, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 64: return launch<64>(q, k, v, o, lse, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 128: return launch<128>(q, k, v, o, lse, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
+    case 256: return launch<256>(q, k, v, o, lse, b, tq, tk, hkv, g, causal, window, q_offset, kv_len, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -16,6 +16,13 @@ TPU kernel it replaces, what bounds it and what the design does about it):
 
 A CPU tensor takes :func:`attention_plain`.  Nothing is caught and
 retried: a build or launch error raises.
+
+The training path differentiates through :class:`FlashAttentionFn`: its
+forward, :func:`flash_attention_fwd`, also writes the rows' log-sum-exp
+(the ``mma`` route for bf16 at any row count, ``fma`` for fp32), and its
+backward, :func:`flash_attention_bwd`, is the FlashAttention-2 backward of
+``kernels/csrc/flash_attention_bwd.cu`` (routes ``mma`` for bf16, ``fma``
+for fp32; :func:`flash_attention_bwd_plain` on the CPU).
 """
 
 from __future__ import annotations
@@ -34,18 +41,27 @@ SPLIT_MAX_ROWS = 16      # one mma tile of packed query rows
 SPLIT_MIN_CHUNK = 32     # keys; a chunk is a multiple of 16
 SPLIT_BLOCKS_PER_SM = 2  # the split plan's target
 
+BWD_ROUTES = ("mma", "fma")
+# Head dims of the backward by dtype: the bf16 kernel keeps dK and dV in
+# registers, which dh 256 would overflow.
+BWD_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128), torch.float32: HEAD_DIMS}
+
 # Calls that took the CUDA route since the last reset (plain integers), in
-# all and by route.
+# all and by route; the backward's likewise.
 launches = 0
 launches_by_route = dict.fromkeys(ROUTES, 0)
+launches_bwd = 0
+launches_bwd_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 
-def route(dtype: torch.dtype, rows: int) -> str:
-    """The CUDA route for ``rows = tq * g`` packed query rows of ``dtype``."""
+def route(dtype: torch.dtype, rows: int, *, with_lse: bool = False) -> str:
+    """The CUDA route for ``rows = tq * g`` packed query rows of ``dtype``.
+    Only ``mma`` and ``fma`` write the log-sum-exp, so ``with_lse`` takes
+    ``mma`` for bf16 at any row count."""
     if dtype == torch.float32:
         return "fma"
     if dtype == torch.bfloat16:
-        return "mma" if rows > SPLIT_MAX_ROWS else "split"
+        return "mma" if rows > SPLIT_MAX_ROWS or with_lse else "split"
     raise TypeError(f"flash_attention has no route for {dtype}")
 
 
@@ -85,6 +101,14 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     q pre-scaled by 1/sqrt(dh) and cast back to its type, fp32 scores, fp32
     row max and normaliser, probabilities cast to v's type for the PV
     product.  q [b,tq,hkv,g,dh], k/v [b,tk,hkv,dh] -> [b,tq,hkv,g,dh]."""
+    return attention_plain_lse(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                               kv_valid_len=kv_valid_len)[0]
+
+
+def attention_plain_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, kv_valid_len: int | None = None):
+    """:func:`attention_plain` and the rows' fp32 log-sum-exp of the scaled,
+    masked scores, ``m + log(sum exp(s - m))``, as [b, hkv, g, tq]."""
     dh = q.shape[-1]
     tq, tk = q.shape[1], k.shape[1]
     scale = 1.0 / math.sqrt(dh)
@@ -95,8 +119,9 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = torch.sum(p, dim=-1, keepdim=True)
+    lse = (m + torch.log(torch.clamp_min(denom, 1e-30)))[..., 0]
     p = p / torch.clamp_min(denom, 1e-30)
-    return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v), lse
 
 
 def _kv_len(tk: int, kv_valid_len: int | None) -> int:
@@ -187,9 +212,9 @@ def _check(q, k, v, window, q_offset, kv_valid_len) -> None:
 
 def _cuda_ready(*ts) -> None:
     if not all(t.is_contiguous() for t in ts):
-        raise ValueError("flash_attention: q, k and v must be contiguous")
+        raise ValueError("flash_attention: its tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in ts):
-        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
+        raise ValueError("flash_attention: its tensors must be 16-byte aligned")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -215,6 +240,18 @@ def _launch_merge(part: torch.Tensor, tq: int, g: int, stream: int) -> torch.Ten
         part.data_ptr(), o.data_ptr(), b, tq, hkv, g, dh2 - 2, nsplit, stream)
     K.check(err, "flash_attention (split merge)")
     return o
+
+
+def _launch_dense(r: str, q, k, v, o, lse, causal: bool, window: int, q_offset: int,
+                  kv_len: int, stream: int) -> None:
+    """One launch of the ``mma`` or ``fma`` kernel; ``lse`` (fp32
+    [b, hkv, g, tq]) or None, which the serve path passes."""
+    b, tq, hkv, g, dh = q.shape
+    fn = K.library().flash_mma_launch if r == "mma" else K.library().flash_fma_launch
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             None if lse is None else lse.data_ptr(), b, tq, k.shape[1], hkv, g, dh,
+             int(causal), window, q_offset, kv_len, 1.0 / math.sqrt(dh), stream)
+    K.check(err, f"flash_attention ({r})")
 
 
 def decode_partials(q, k, v, *, nsplit: int, chunk: int, causal: bool = True,
@@ -265,11 +302,147 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                            q_offset, stream), tq, g, stream)
     else:
         o = torch.empty_like(q)
-        fn = K.library().flash_mma_launch if r == "mma" else K.library().flash_fma_launch
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 b, tq, tk, hkv, g, dh, int(causal), window, q_offset, kv_len,
-                 1.0 / math.sqrt(dh), stream)
-        K.check(err, f"flash_attention ({r})")
+        _launch_dense(r, q, k, v, o, None, causal, window, q_offset, kv_len, stream)
     launches += 1
     launches_by_route[r] += 1
     return o
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0, q_offset: int = 0,
+                        kv_valid_len: int | None = None):
+    """The forward of the training path: ``(o, lse)``, o as
+    :func:`flash_attention` and lse the rows' fp32 log-sum-exp
+    [b, hkv, g, tq] that the backward reads.  bf16 takes ``mma`` at any row
+    count (``split`` writes no lse), fp32 ``fma``; counted as forward
+    launches."""
+    global launches
+    _check(q, k, v, window, q_offset, kv_valid_len)
+    if q.device.type == "cpu":
+        return attention_plain_lse(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, kv_valid_len=kv_valid_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _cuda_ready(q, k, v)
+    b, tq, hkv, g, dh = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hkv, g, tq), dtype=torch.float32, device=q.device)
+    if b == 0 or tq == 0 or hkv == 0 or g == 0:
+        return o, lse
+    r = route(q.dtype, tq * g, with_lse=True)
+    _launch_dense(r, q, k, v, o, lse, causal, window, q_offset,
+                  _kv_len(k.shape[1], kv_valid_len), _stream(q))
+    launches += 1
+    launches_by_route[r] += 1
+    return o, lse
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
+                              q_offset: int = 0, kv_valid_len: int | None = None):
+    """The FlashAttention-2 backward of :func:`attention_plain`, in the
+    kernels' arithmetic: ``P = exp(s - lse)`` (0 where masked) from the
+    scaled q rounded to its type, ``delta = rowsum(dO o)``,
+    ``dP = dO v^T`` rounded to the inputs' type (where the reference's
+    autodiff rounds the cotangent of its bf16 probabilities),
+    ``dS = P (dP - delta)``; ``dv = P^T dO`` with P rounded to v's type,
+    ``dk = dS^T qs`` and ``dq = scale (dS k)`` with dS rounded to the
+    inputs' type (the tensor cores' operand), dq rounded before and after
+    the scale as the reference's cast back to q's type does.  fp32 rounds
+    nowhere.  -> (dq, dk, dv) in the inputs' type."""
+    b, tq, hkv, g, dh = q.shape
+    tk = k.shape[1]
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(dh)
+    qs = (q.float() * scale).to(dt).float()
+    kf, vf, dof = k.float(), v.float(), do.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qs, kf)
+    allowed = mask_bias(tq, tk, causal=causal, window=window, q_offset=q_offset,
+                        kv_valid_len=kv_valid_len, device=q.device) == 0
+    p = torch.where(allowed, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    delta = (dof * o.float()).sum(-1).permute(0, 2, 3, 1)            # [b, hkv, g, tq]
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf).to(dt).float()
+    ds = (p * (dp - delta[..., None])).to(dt).float()
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(dt).float(), dof)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
+    dqs = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
+    dq = (dqs.to(dt).float() * scale).to(dt)
+    return dq, dk.to(dt), dv.to(dt)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, kv_valid_len: int | None = None):
+    """``(dq, dk, dv)`` of :func:`flash_attention_fwd` at ``do``, from its
+    output ``o`` and log-sum-exp ``lse``.  CUDA: three launches (delta, with
+    the scaled q and packed row stats for bf16; dK and dV by key tile; dQ by
+    query tile), counted as one backward call;
+    bf16 takes the ``mma`` kernels (head dims ``BWD_HEAD_DIMS``), fp32 the
+    ``fma`` ones.  CPU: :func:`flash_attention_bwd_plain`."""
+    global launches_bwd
+    _check(q, k, v, window, q_offset, kv_valid_len)
+    b, tq, hkv, g, dh = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o {o.dtype} {tuple(o.shape)} and do "
+                         f"{do.dtype} {tuple(do.shape)} must match q {q.dtype} "
+                         f"{tuple(q.shape)}")
+    if lse.shape != (b, hkv, g, tq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse {lse.dtype} {tuple(lse.shape)}, want "
+                         f"fp32 {(b, hkv, g, tq)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,
+                                         q_offset=q_offset, kv_valid_len=kv_valid_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    if dh not in BWD_HEAD_DIMS[q.dtype]:
+        raise ValueError(f"flash_attention_bwd: head dim {dh} not in "
+                         f"{BWD_HEAD_DIMS[q.dtype]} for {q.dtype}")
+    _cuda_ready(q, k, v, o, do, lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b == 0 or tq == 0 or hkv == 0 or g == 0:
+        return dq, dk.zero_(), dv.zero_()
+    stream = _stream(q)
+    scale = 1.0 / math.sqrt(dh)
+    r = "mma" if q.dtype == torch.bfloat16 else "fma"
+    delta = torch.empty_like(lse)
+    # mma: the scaled q and each packed row's (lse, delta), for the dK / dV
+    # kernel's asynchronous tile loads
+    qs = torch.empty_like(q) if r == "mma" else None
+    rowstat = (torch.empty((b, hkv, tq * g, 2), dtype=torch.float32, device=q.device)
+               if r == "mma" else None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = K.library()
+    err = lib.flash_bwd_delta_launch(q.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                     delta.data_ptr(), ptr(qs), ptr(rowstat), b * tq * hkv * g,
+                                     tq, hkv, g, dh, scale, int(q.dtype == torch.bfloat16),
+                                     stream)
+    K.check(err, "flash_attention_bwd (delta)")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    if r == "mma":
+        args += (qs.data_ptr(), rowstat.data_ptr())
+    err = (lib.flash_bwd_mma_launch if r == "mma" else lib.flash_bwd_fma_launch)(
+        *args, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, k.shape[1], hkv, g, dh,
+        int(causal), window, q_offset, _kv_len(k.shape[1], kv_valid_len), scale, stream)
+    K.check(err, f"flash_attention_bwd ({r})")
+    launches_bwd += 1
+    launches_bwd_by_route[r] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with its hand-written gradient: :func:`flash_attention_fwd`
+    (o and the log-sum-exp), then :func:`flash_attention_bwd`.  Saves q, k,
+    v, o and lse; the backward recomputes the probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_valid_len):
+        kw = dict(causal=causal, window=window, q_offset=q_offset, kv_valid_len=kv_valid_len)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None

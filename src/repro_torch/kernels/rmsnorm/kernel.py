@@ -1,10 +1,15 @@
-"""RMSNorm: the Hopper kernel's wrapper and its plain PyTorch version.
+"""RMSNorm: the Hopper kernels' wrappers, their plain PyTorch versions and
+the autograd Function that joins them.
 
-The CUDA kernel is ``kernels/csrc/rmsnorm.cu`` (see the note there: which
-TPU kernel it replaces, what bounds it, what the design does about it).
-:func:`rmsnorm` launches it for a CUDA tensor and uses
-:func:`rms_norm_plain` for a CPU tensor; there is no other route and no
-fall-back when a build or launch fails.
+The CUDA kernels are ``kernels/csrc/rmsnorm.cu`` (forward) and
+``kernels/csrc/rmsnorm_bwd.cu`` (its gradient); the note at the top of each
+says which TPU kernel it replaces or differentiates, what bounds it, and
+what the design does about it.  :func:`rmsnorm` and :func:`rmsnorm_bwd`
+launch them for CUDA tensors and use :func:`rms_norm_plain` and
+:func:`rms_norm_bwd_plain` for CPU tensors; there is no other route and no
+fall-back when a build or launch fails.  :class:`RmsNormFn` is the
+autograd Function of the training path: its forward is :func:`rmsnorm`,
+its backward :func:`rmsnorm_bwd`.
 """
 
 from __future__ import annotations
@@ -22,8 +27,13 @@ MAX_LANES = 256           # a row across at most 8 warps
 VECS_PER_LANE = (1, 2, 4, 8, 10, 16)   # the kernel's instantiations
 REG_BUDGET = 192          # 32-bit words a lane for its row and its 1 + scale
 
-# Launches of the CUDA kernel since the last reset (plain integer).
+# Launches of the CUDA kernels since the last reset (plain integers):
+# the forward, and the backward (one a call: its row pass and its fold).
 launches = 0
+launches_bwd = 0
+BWD_WARPS = 4             # rows a block of the backward, one warp each
+BWD_BLOCKS_PER_SM = 4
+BWD_MAX_SMEM = 227 * 1024  # bytes of shared memory a block may ask for
 
 
 class RmsPlan(NamedTuple):
@@ -106,3 +116,82 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = EPS) -> torch.Ten
     K.check(err, "rmsnorm")
     launches += 1
     return y
+
+
+def rms_norm_bwd_plain(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                       eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
+    """The vjp of :func:`rms_norm_plain` (of ``repro/models/layers.py::rms_norm``)
+    at ``dy``, in fp32: with ``r = rsqrt(mean(x^2) + eps)``, ``s' = 1 + scale``
+    and ``g = dy``, ``dx = r * (s' g - x r^2 mean(s' g x))`` in ``x.dtype`` and
+    ``dscale = sum over rows of g * (x r)`` in ``scale.dtype``."""
+    d = x.shape[-1]
+    xf, g = x.float(), dy.float()
+    sp = 1.0 + scale.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    sg = sp * g
+    c = torch.mean(sg * xf, dim=-1, keepdim=True)
+    dx = r * (sg - xf * (c * (r * r)))
+    dscale = (g * (xf * r)).reshape(-1, d).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def plan_rmsnorm_bwd(n: int, *, sms: int = 132) -> int:
+    """Blocks of the backward's row pass: ``BWD_WARPS`` rows at a time each,
+    striding over the ``n`` rows, at most ``BWD_BLOCKS_PER_SM`` a SM.  Each
+    block writes one fp32 row of dscale partials, folded in block order."""
+    return max(1, min(-(-n // BWD_WARPS), BWD_BLOCKS_PER_SM * sms))
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dscale)`` of :func:`rmsnorm` at ``dy``; dx in ``x.dtype``,
+    dscale in ``scale.dtype``."""
+    global launches_bwd
+    _check(x, scale)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"rmsnorm_bwd: dy {dy.dtype} {tuple(dy.shape)} on {dy.device} "
+                         f"does not match x {x.dtype} {tuple(x.shape)} on {x.device}")
+    if x.device.type == "cpu":
+        return rms_norm_bwd_plain(x, scale, dy, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_bwd: unsupported device {x.device}")
+    if not (x.is_contiguous() and scale.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("rmsnorm_bwd: x, scale and dy must be contiguous")
+    d = x.shape[-1]
+    if BWD_WARPS * 4 * d > BWD_MAX_SMEM:
+        raise ValueError(f"rmsnorm_bwd: rows of {d} exceed the kernel's shared memory "
+                         f"(one fp32 row a warp, {BWD_MAX_SMEM} bytes)")
+    n = x.numel() // d if d else 0
+    dx = torch.empty_like(x)
+    if n == 0:
+        return dx, torch.zeros_like(scale)
+    sms = K.sm_count(x.get_device())
+    blocks = plan_rmsnorm_bwd(n, sms=sms)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    dscale = torch.empty_like(scale)
+    err = K.library().rmsnorm_bwd_launch(
+        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+        dscale.data_ptr(), n, d, float(eps), int(x.dtype == torch.bfloat16),
+        int(scale.dtype == torch.bfloat16), blocks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    K.check(err, "rmsnorm_bwd")
+    launches_bwd += 1
+    return dx, dscale
+
+
+class RmsNormFn(torch.autograd.Function):
+    """RMSNorm with its hand-written gradient: the forward kernel, then the
+    backward kernel (their plain versions on the CPU).  Saves x and scale;
+    the backward recomputes ``rsqrt(mean(x^2) + eps)`` per row."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale, None

@@ -1,0 +1,104 @@
+"""Training launcher of the port.
+
+  python -m repro_torch.launch.train --arch llama3.2-1b \
+      --global-batch 8 --seq 2048 --micro-steps 2 --steps 4     # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
+      --smoke --device cpu --steps 4                           # plain path, CPU
+
+Weights are random, made from ``--seed``; the data is the seeded synthetic
+stream.  The flags are the reference's (``repro/launch/train.py``) plus
+``--device``.  A setting the port does not run yet (``--policy auto``,
+``--quant-gather``, a hop-1 wire other than fp32, ``--no-hierarchical``,
+``--gather-order outer_first``, ``--prefetch-carry remat``,
+``--carry-offload host``, ``--offload-opt``, ``--clip-mode approx``,
+``--hbm-budget-gb``) raises ``NotImplementedError``.  The reference's
+memory-plan and autotune printouts wait for those modules.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.core.mics import MiCSConfig
+from repro_torch.core.schedule import plan_boundary
+from repro_torch.core.topology import MiCSTopology
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.build import build_model
+from repro_torch.optim.adamw import OptConfig
+from repro_torch.runtime.train_loop import LoopConfig, train
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--global-batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--micro-steps", type=int, default=2)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--checkpoint-dir", default="checkpoints")
+    ap.add_argument("--checkpoint-every", type=int, default=25)
+    ap.add_argument("--policy", choices=["manual", "auto"], default="manual")
+    ap.add_argument("--gather-order", default="inner_first",
+                    choices=["inner_first", "outer_first"])
+    ap.add_argument("--no-hierarchical", action="store_true")
+    ap.add_argument("--quant-gather", action="store_true")
+    ap.add_argument("--hop1-wire-dtype", default="fp32", choices=["fp32", "bf16", "int8"])
+    ap.add_argument("--prefetch", type=int, default=1,
+                    help="1 = lookahead gathers (default), 0 = serial")
+    ap.add_argument("--prefetch-carry", default="stored", choices=["stored", "remat"])
+    ap.add_argument("--carry-offload", default="none", choices=["none", "host"])
+    ap.add_argument("--offload-opt", action="store_true")
+    ap.add_argument("--clip-mode", default="exact", choices=["exact", "approx"])
+    ap.add_argument("--hbm-budget-gb", type=float, default=0)
+    ap.add_argument("--boundary-schedule", default="bucketed", choices=["serial", "bucketed"])
+    ap.add_argument("--hop2-bucket-mb", type=float, default=32.0)
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    topo = MiCSTopology()
+    model = build_model(cfg, tp=topo.model_size)
+    mcfg = MiCSConfig(micro_steps=args.micro_steps,
+                      hierarchical=not args.no_hierarchical,
+                      gather_order=args.gather_order,
+                      quant_gather=args.quant_gather,
+                      hop1_wire_dtype=args.hop1_wire_dtype,
+                      prefetch=bool(args.prefetch),
+                      prefetch_carry=args.prefetch_carry,
+                      carry_offload=args.carry_offload,
+                      offload_opt=args.offload_opt,
+                      clip_mode=args.clip_mode,
+                      policy=args.policy,
+                      boundary_schedule=args.boundary_schedule,
+                      hop2_bucket_mb=args.hop2_bucket_mb,
+                      hbm_budget_gb=args.hbm_budget_gb or None)
+    bplan = plan_boundary(model, topo, mode=mcfg.boundary_schedule,
+                          bucket_mb=mcfg.hop2_bucket_mb, clip_mode=mcfg.clip_mode)
+    print(f"boundary: {mcfg.boundary_schedule} x {bplan.n_buckets} buckets "
+          f"({mcfg.hop2_bucket_mb:g} MB, clip={bplan.clip_mode})")
+    oc = OptConfig(lr_max=args.lr, total_steps=args.steps,
+                   warmup_steps=max(args.steps // 20, 1))
+    dc = DataConfig(vocab=cfg.vocab, seq=args.seq, global_batch=args.global_batch,
+                    micro_steps=args.micro_steps)
+    lc = LoopConfig(total_steps=args.steps, checkpoint_every=args.checkpoint_every,
+                    checkpoint_dir=args.checkpoint_dir, seed=args.seed)
+    stats = train(model, topo, mcfg, oc, dc, lc, device=dev)
+    if stats.losses:
+        print(f"final loss {stats.losses[-1]:.4f} over {len(stats.losses)} steps on {dev}")
+    else:
+        print(f"no steps to run: the checkpoint is at step {args.steps} already")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,13 @@
 """Model assembly: pools of stacked layers + embedding / head, with every
-parameter gather routed through the ``CommEngine`` (the port of the serving
-part of ``repro/models/lm.py``).
+parameter gather routed through the ``CommEngine`` (the port of
+``repro/models/lm.py``: the serve entry points and the training loss).
 
 A ``Pool`` is a stack of identical layers whose parameters live in one flat
 buffer per layer (``[stack, tp, flat_len]``).  The forward pass loops over
 the stack; each layer's flat row is gathered (one call per layer, the
-paper's coalesced gather), unflattened into views, and applied.
+paper's coalesced gather), unflattened into views, and applied.  The flat
+rows of a pool are a ``[stack, tp, S]`` tensor, or, on the training path,
+a list of ``[S]`` rows that each carry a gradient.
 
 Two schedules (``CommEngine.prefetch`` selects):
 
@@ -15,14 +17,24 @@ Two schedules (``CommEngine.prefetch`` selects):
   that overlaps it with the compute comes with the multi-chip collectives
   slice.  The same gathers run on the same rows and the same compute in
   the same order, so the two schedules give bitwise-equal results.
+
+In train mode each layer's compute runs under activation checkpointing
+(``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint`` wraps it
+in the reference: the serial schedule checkpoints gather + compute, so the
+backward re-gathers; the prefetch schedule checkpoints unflatten + compute
+from the gathered buffer, which is the saved input (the reference's stored
+carry), so the backward recomputes from it without a re-gather.  The
+``remat`` and host-``offload`` carries are refused in ``core/mics.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.flat_param import FlatLayout
@@ -94,19 +106,48 @@ def _pool_caches(caches, new: list):
     return _stack(new)
 
 
+def _row(flat_rows, i: int) -> torch.Tensor:
+    """Layer i's flat row: of a ``[stack, tp, S]`` pool tensor, or the i-th
+    of a list of rows (the training path's leaves)."""
+    return flat_rows[i] if isinstance(flat_rows, (list, tuple)) else flat_rows[i, 0]
+
+
+def _layer_from_full(pool: Pool, comm, ctx: L.Ctx, x, full):
+    (x, aux), _ = pool.apply(comm.unflatten(pool, full), x, ctx, None)
+    return x, aux
+
+
+def _layer_from_row(pool: Pool, comm, ctx: L.Ctx, x, row):
+    return _layer_from_full(pool, comm, ctx, x, comm.gather_flat(row))
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)`` under non-reentrant activation checkpointing: only the
+    inputs are saved and the backward recomputes ``fn``.  The layers draw
+    no random numbers, so the RNG state is not stashed."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def _apply_pool(pool: Pool, flat_rows, x, ctx: L.Ctx, comm, caches=None):
-    """Run a pool over its stack.  flat_rows: [stack, tp, S_local]."""
+    """Run a pool over its stack.  flat_rows: [stack, tp, S_local], or a
+    list of [S_local] rows."""
     if comm.prefetch and pool.stack > 1:
         return _apply_pool_prefetch(pool, flat_rows, x, ctx, comm, caches)
     return _apply_pool_serial(pool, flat_rows, x, ctx, comm, caches)
 
 
 def _apply_pool_serial(pool, flat_rows, x, ctx, comm, caches):
-    """Reference schedule: gather layer i, then compute layer i."""
+    """Reference schedule: gather layer i, then compute layer i; in train
+    mode both under one checkpoint, so the backward re-gathers."""
     aux_tot, new = 0.0, []
     for i in range(pool.stack):
-        tensors = comm.gather(pool, flat_rows[i, 0])
-        (x, aux), nc = pool.apply(tensors, x, ctx, _layer_cache(caches, i))
+        if ctx.mode == "train":
+            x, aux = _checkpointed(functools.partial(_layer_from_row, pool, comm, ctx), x,
+                                   _row(flat_rows, i))
+            nc = None
+        else:
+            tensors = comm.gather(pool, _row(flat_rows, i))
+            (x, aux), nc = pool.apply(tensors, x, ctx, _layer_cache(caches, i))
         aux_tot += aux
         new.append(nc)
     return x, aux_tot, _pool_caches(caches, new)
@@ -115,13 +156,19 @@ def _apply_pool_serial(pool, flat_rows, x, ctx, comm, caches):
 def _apply_pool_prefetch(pool, flat_rows, x, ctx, comm, caches):
     """Lookahead schedule: layer i+1's gather is issued before layer i's
     compute.  The reference's wrap-around gather of row 0 on the last layer
-    (its result is discarded) is not issued."""
+    (its result is discarded) is not issued.  In train mode layer i's
+    unflatten + compute run under a checkpoint whose saved input is the
+    gathered buffer (the stored carry)."""
     aux_tot, new = 0.0, []
-    cur = comm.gather_flat(flat_rows[0, 0])
+    cur = comm.gather_flat(_row(flat_rows, 0))
     for i in range(pool.stack):
-        nxt = comm.gather_flat(flat_rows[i + 1, 0]) if i + 1 < pool.stack else None
-        tensors = comm.unflatten(pool, cur)
-        (x, aux), nc = pool.apply(tensors, x, ctx, _layer_cache(caches, i))
+        nxt = comm.gather_flat(_row(flat_rows, i + 1)) if i + 1 < pool.stack else None
+        if ctx.mode == "train":
+            x, aux = _checkpointed(functools.partial(_layer_from_full, pool, comm, ctx), x, cur)
+            nc = None
+        else:
+            tensors = comm.unflatten(pool, cur)
+            (x, aux), nc = pool.apply(tensors, x, ctx, _layer_cache(caches, i))
         aux_tot += aux
         new.append(nc)
         cur = nxt
@@ -144,7 +191,7 @@ def forward(model: ModelDef, flat: dict[str, torch.Tensor], comm, ctx: L.Ctx,
 
     Returns (hidden, aux_loss, new_caches, t_head).
     """
-    t_embed = comm.gather(model.embed, flat["embed"][0, 0])
+    t_embed = comm.gather(model.embed, _row(flat["embed"], 0))
     aux_total = 0.0
     new_caches: dict[str, Any] = {}
     x = embed_tokens(model, t_embed, batch["tokens"], ctx)
@@ -154,8 +201,21 @@ def forward(model: ModelDef, flat: dict[str, torch.Tensor], comm, ctx: L.Ctx,
         aux_total += aux
         if nc is not None:
             new_caches[pool.name] = nc
-    t_head = comm.gather(model.head, flat["head"][0, 0])
+    t_head = comm.gather(model.head, _row(flat["head"], 0))
     return x, aux_total, new_caches, t_head
+
+
+def loss_fn(model: ModelDef, flat, comm, ctx: L.Ctx, batch: dict[str, torch.Tensor]):
+    """Token cross-entropy + the router's aux loss (0 for the families the
+    port builds).  batch: tokens / targets / mask [b, T].  Returns
+    ``(loss, {"loss": ce, "aux": aux})``."""
+    hidden, aux, _, t_head = forward(model, flat, comm, ctx, batch)
+    logits = lm_logits(model, t_head, hidden, ctx)
+    ce = L.tp_cross_entropy(logits, batch["targets"], batch["mask"],
+                            vocab_real=model.cfg.vocab, vocab_padded=model.vocab_padded,
+                            ctx=ctx)
+    loss = ce + model.cfg.router_aux_weight * aux
+    return loss, {"loss": ce, "aux": aux}
 
 
 def prefill(model: ModelDef, flat, comm, ctx: L.Ctx, batch):

@@ -481,3 +481,89 @@ def test_cuda_rmsnorm_matches_plain(cuda_device, n, d, dt, sdt, offset):
     y = rmsnorm(x, s)
     assert torch.equal(y, rmsnorm(x, s))
     np.testing.assert_allclose(_np(y.cpu()), _np(rms_norm_plain(x, s).cpu()), **_tol(dt))
+
+
+def _rel_close(got, want, rel, what):
+    """max |got - want| <= rel * max |want|, on the CPU in fp32."""
+    g, w = got.float().cpu(), want.float().cpu()
+    err, scale = (g - w).abs().max().item(), w.abs().max().item()
+    assert err <= rel * scale, f"{what}: max |err| {err} > {rel} x {scale}"
+
+
+# The backward kernels against their plain versions: bf16 rounds dP, P and
+# dS to bf16 at the same places in both, so they differ by exp2 against exp
+# and the order of sums (the forward tests' 2e-2, as a fraction of the
+# largest |gradient|); fp32 by the order of sums alone.
+BWD_REL = {"bf16": 2e-2, "fp32": 1e-4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,dt,sdt,offset", [
+    (8192, 2048, "bf16", "bf16", 0),               # llama train: 4 x 2048 tokens
+    (64, 2048, "fp32", "bf16", 0),
+    (37, 1000, "bf16", "fp32", 0),                 # ragged d: the scalar path
+    (8, 2048, "bf16", "bf16", 1),                  # unaligned rows: the scalar path
+    (1024, 4096, "fp32", "fp32", 0),               # 64 KB of partials: the opt-in
+    (3, 2560, "bf16", "bf16", 0),                  # fewer rows than a block's warps
+])
+def test_cuda_rmsnorm_bwd_matches_plain(cuda_device, n, d, dt, sdt, offset):
+    """RMSNorm's backward kernel against its plain version, bitwise
+    repeatable (no atomics: dscale's partials fold in block order)."""
+    from repro_torch.kernels.rmsnorm import rms_norm_bwd_plain, rmsnorm_bwd
+
+    tdt, sdtype = DTYPES[dt][1], DTYPES[sdt][1]
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    xb = torch.randn(n * d + offset, generator=gen, device=cuda_device).to(tdt)
+    gb = torch.randn(n * d + offset, generator=gen, device=cuda_device).to(tdt)
+    s = (0.2 * torch.randn(d, generator=gen, device=cuda_device)).to(sdtype)
+    x, dy = xb[offset:].view(n, d), gb[offset:].view(n, d)
+    dx, ds = rmsnorm_bwd(x, s, dy)
+    dx2, ds2 = rmsnorm_bwd(x, s, dy)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    assert dx.dtype == tdt and ds.dtype == sdtype
+    rdx, rds = rms_norm_bwd_plain(x, s, dy)
+    _rel_close(dx, rdx, BWD_REL[dt], "dx")
+    _rel_close(ds, rds, BWD_REL["bf16" if "bf16" in (dt, sdt) else "fp32"], "dscale")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kw,dt", [
+    ((4, 512, 512, 8, 4, 64), dict(causal=True), "bf16"),              # llama, T 512
+    ((2, 300, 300, 2, 4, 64), dict(causal=True), "bf16"),              # ragged tiles
+    ((2, 256, 256, 2, 4, 64), dict(causal=True, window=64), "bf16"),
+    ((2, 200, 200, 4, 1, 64), dict(causal=True), "bf16"),              # g = 1
+    ((2, 128, 256, 2, 4, 64), dict(causal=True, q_offset=64, kv_valid_len=150), "bf16"),
+    ((2, 3, 40, 2, 2, 64), dict(causal=True, q_offset=30), "bf16"),    # 6 rows: mma + lse
+    ((2, 160, 160, 2, 4, 16), dict(causal=True), "bf16"),
+    ((2, 160, 160, 2, 4, 32), dict(causal=False), "bf16"),
+    ((2, 160, 160, 2, 4, 128), dict(causal=True, window=50), "bf16"),
+    ((2, 200, 200, 2, 4, 64), dict(causal=True), "fp32"),
+    ((2, 130, 130, 1, 3, 256), dict(causal=True, window=40), "fp32"),
+    ((2, 70, 70, 2, 2, 16), dict(causal=False, kv_valid_len=50), "fp32"),
+])
+def test_cuda_flash_bwd_matches_plain(cuda_device, shape, kw, dt):
+    """The forward's log-sum-exp and the FlashAttention-2 backward kernels
+    against their plain versions, each bitwise repeatable; the forward's
+    output with the log-sum-exp asked for equals the serve route's."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    b, tq, tk, hkv, g, dh = shape
+    tdt = DTYPES[dt][1]
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randn(b, tq, hkv, g, dh, generator=gen, device=cuda_device).to(tdt)
+    k = torch.randn(b, tk, hkv, dh, generator=gen, device=cuda_device).to(tdt)
+    v = torch.randn(b, tk, hkv, dh, generator=gen, device=cuda_device).to(tdt)
+    do = torch.randn(b, tq, hkv, g, dh, generator=gen, device=cuda_device).to(tdt)
+    o, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    ro, rlse = FA.attention_plain_lse(q, k, v, **kw)
+    _rel_close(o, ro, BWD_REL[dt], "o")
+    _rel_close(lse, rlse, 1e-5, "lse")
+    if FA.route(tdt, tq * g) != "split":
+        assert torch.equal(o, FA.flash_attention(q, k, v, **kw))
+    grads = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for got, rep, ref, what in zip(grads, again, want, ("dq", "dk", "dv")):
+        assert torch.equal(got, rep), f"{what}: not bitwise repeatable"
+        assert got.dtype == tdt and got.shape == ref.shape
+        _rel_close(got, ref, BWD_REL[dt], what)

@@ -1,0 +1,115 @@
+"""The port's training loop on the CPU: a run resumed from its step-2
+checkpoint is bitwise the uninterrupted run, the checkpointer finds only
+complete checkpoints, and the launcher trains the smoke model from the
+command line."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
+from repro_torch.configs import get_config, smoke_variant  # noqa: E402
+from repro_torch.core.mics import MiCSConfig, init_state  # noqa: E402
+from repro_torch.core.topology import MiCSTopology  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, PrefetchLoader, SyntheticLM  # noqa: E402
+from repro_torch.models.build import build_model  # noqa: E402
+from repro_torch.optim.adamw import OptConfig  # noqa: E402
+from repro_torch.runtime.train_loop import LoopConfig, train  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _setup():
+    cfg = smoke_variant(get_config("llama3.2-1b"))
+    model = build_model(cfg, tp=1)
+    dc = DataConfig(vocab=cfg.vocab, seq=32, global_batch=4, micro_steps=2)
+    oc = OptConfig(lr_max=1e-3, total_steps=4, warmup_steps=1)
+    return model, dc, oc, MiCSConfig(micro_steps=2)
+
+
+def _run(model, dc, oc, mcfg, ckdir, total):
+    lc = LoopConfig(total_steps=total, checkpoint_every=2, checkpoint_dir=str(ckdir),
+                    log_every=0)
+    return train(model, MiCSTopology(), mcfg, oc, dc, lc, device="cpu")
+
+
+def test_resumed_run_is_bitwise_the_uninterrupted_one(tmp_path):
+    model, dc, oc, mcfg = _setup()
+    whole = _run(model, dc, oc, mcfg, tmp_path / "whole", 4)
+    first = _run(model, dc, oc, mcfg, tmp_path / "cut", 2)
+    rest = _run(model, dc, oc, mcfg, tmp_path / "cut", 4)   # resumes from step 2
+    assert len(whole.losses) == 4 and len(first.losses) == 2 and len(rest.losses) == 2
+    assert first.losses + rest.losses == whole.losses
+    assert first.grad_norms + rest.grad_norms == whole.grad_norms
+    a, meta_a = Checkpointer(tmp_path / "whole").restore(model, device="cpu")
+    b, meta_b = Checkpointer(tmp_path / "cut").restore(model, device="cpu")
+    assert meta_a["step"] == meta_b["step"] == 4 and a["step"] == b["step"] == 4
+    assert meta_a["data_cursor"] == meta_b["data_cursor"] == 4
+    for part in ("params", "m", "v"):
+        for name in a[part]:
+            assert torch.equal(a[part][name], b[part][name]), (part, name)
+
+
+def test_checkpointer_skips_incomplete_and_checks_topology(tmp_path):
+    model, *_ = _setup()
+    state = init_state(model, 0, device="cpu")
+    ck = Checkpointer(tmp_path)
+    ck.save(state, 1, topo=MiCSTopology(), data_cursor=1)
+    state["step"] = 3
+    path = ck.save(state, 3, topo=MiCSTopology(), data_cursor=3)
+    (tmp_path / "step_00000005.tmp").mkdir()            # a writer that died
+    (tmp_path / "step_old").mkdir()                     # a stray name
+    assert ck.latest_step() == 3
+    (path / "params.layers.npy").write_bytes(b"\x93NUMPY")  # truncated tensor
+    assert ck.latest_step() == 1
+    restored, meta = ck.restore(model, device="cpu")
+    assert meta["step"] == 1 and restored["step"] == 0
+    assert torch.equal(restored["params"]["head"], state["params"]["head"])
+    with pytest.raises(NotImplementedError, match="elastic"):
+        ck.restore(model, topo=MiCSTopology(repl=2), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        ck.restore(model, 3, device="cpu")
+
+
+def test_prefetch_loader_yields_the_stream_in_order():
+    cfg = DataConfig(vocab=64, seq=8, global_batch=4, micro_steps=2)
+    src = SyntheticLM(cfg)
+    loader = PrefetchLoader(src, start_step=5)
+    try:
+        for want, (step, batch) in zip((5, 6, 7), loader):
+            assert step == want
+            ref = src.global_step_batch(want)
+            assert all(np.array_equal(batch[k], ref[k]) for k in ref)
+    finally:
+        loader.close()
+    assert not loader._thread.is_alive()
+
+
+def test_launcher_trains_the_smoke_model(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b", "--smoke",
+         "--device", "cpu", "--steps", "3", "--checkpoint-dir", str(tmp_path / "ck")],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    last = out.stdout.strip().splitlines()[-1]
+    assert last.startswith("final loss ") and "over 3 steps on cpu" in last, out.stdout
+    assert np.isfinite(float(last.split()[2]))
+    assert Checkpointer(tmp_path / "ck").latest_step() == 3
+
+
+def test_launcher_refuses_unported_flags(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b", "--smoke",
+         "--device", "cpu", "--steps", "1", "--clip-mode", "approx",
+         "--checkpoint-dir", str(tmp_path / "ck")],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode != 0 and "NotImplementedError" in out.stderr
