@@ -49,13 +49,18 @@ script exits non-zero; no phase swallows an error):
    layer pools and the head, plus attention's 12 dh a causal pair and head,
    against 989 TFLOP/s), ``peak_gb``.  The counters are set to 0 just before
    the run and read just after: 4 steps x 2 micro-steps x (RMSNorm 33
-   forward + 32 recomputed, its backward 33; attention 16 + 16 recomputed,
-   all on ``mma``, its backward 16; RG-LRU 0).
+   forward + 32 recomputed, its backward 33, all on the ``regs`` route;
+   attention 16 + 16 recomputed, all on ``mma``, its backward 16, all on
+   ``wgmma``; RG-LRU 0).
    ``train_consistency``: the same weights at 2 layers (full width), one
    micro-step of 1 x 256 tokens: card against CPU (loss, grad_norm, every
    pool's gradient, the params after one AdamW step); bitwise on the card
    serial == prefetch (loss, gradients), serial == bucketed boundary
    (params, m, v, grad_norm) and a step run twice.
+   ``griffin_train_refused``: a 2-layer recurrentgemma-2b at smoke width
+   must raise NotImplementedError naming ROADMAP Queue 1 item 1 where its
+   train step is built and where its RG-LRU is reached with autograd
+   recording (the kernel has no gradient yet); serving it is unchanged.
    ``profile``: one train step's device time by kernel.
 4. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
@@ -69,15 +74,21 @@ script exits non-zero; no phase swallows an error):
    points, each with its chunk plan: gated at the path's shapes, beside the
    eager sequence it replaced (``eager_ms``), and the TPU kernel's ``(a, b)``
    form; every RMSNorm and RG-LRU check is called twice for a bitwise-equal
-   output.  The backward kernels (RMSNorm's, flash attention's with the
-   forward's log-sum-exp) run at the train shapes and a few edges (ragged
-   T, window, g = 1, fp32), bitwise repeatable, with their TFLOP/s and the
-   library's autograd backward (``F.rms_norm``,
-   ``F.scaled_dot_product_attention``) as ``library_ms``.
+   output.  The backward kernels run at the train shapes and at each
+   route's edges, each check naming its route and showing that the call
+   took it: RMSNorm's ``regs`` route (bf16 rows held in registers) and
+   ``smem`` route (fp32, ragged or wider rows); flash attention's ``wgmma``
+   route (ragged T 300, window 64, g 1, dh 128), a group size it refuses
+   (g 3, to ``mma``), ``mma`` at dh 32 and ``fma`` at fp32, with the
+   forward's log-sum-exp, each launch's device time apart (delta, dK / dV,
+   dQ) and TFLOP/s.  All bitwise repeatable, with the library's autograd
+   backward (``F.rms_norm``, ``F.scaled_dot_product_attention``) as
+   ``library_ms``.
 
-``python3 chip_smoke.py --profile-only`` runs the serve ``profile`` phase of
-both paths alone (no checks, no result line): it uses only the serve API,
-so the same file also profiles an earlier checkout for comparison.
+``python3 chip_smoke.py --profile-only`` runs the ``profile`` phases alone
+(both serve paths, then the train step; no checks, no result line): it
+uses only the serve API and ``build_train_step``, so the same file also
+profiles an earlier checkout (one that already trains) for comparison.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits non-zero and prints no result.
@@ -158,7 +169,8 @@ class TrainPath:
 
 # Each layer's compute is checkpointed and recomputed once in the backward:
 # RMSNorm 33 forward (2 a layer + the final norm) + 32 recomputed and 33
-# backward; attention 16 + 16 and 16 backward, all forwards on ``mma``.
+# backward (all on ``regs``); attention 16 + 16 and 16 backward, all
+# forwards on ``mma`` and all backwards on ``wgmma``.
 TRAIN = TrainPath("llama3.2-1b", 8, 2, 2048, 4,
                   {"rmsnorm": 65, "rmsnorm_bwd": 33, "flash_attention": 32,
                    "flash_attention_bwd": 16, "rglru": 0}, 2, 256)
@@ -187,10 +199,12 @@ def counter_attrs():
 def reset_counts() -> None:
     from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.rglru import kernel as RG
+    from repro_torch.kernels.rmsnorm import kernel as RN
 
     for mod, attr in counter_attrs().values():
         setattr(mod, attr, 0)
-    for table in (FA.launches_by_route, FA.launches_bwd_by_route, RG.launches_by_form):
+    for table in (FA.launches_by_route, FA.launches_bwd_by_route, RG.launches_by_form,
+                  RN.launches_bwd_by_route):
         table.update(dict.fromkeys(table, 0))
 
 
@@ -236,14 +250,24 @@ def ptxas_summary(log: str) -> list[dict]:
             continue
         kernel, args = name.group(1), name.group(2)
         row = {"kernel": kernel}
-        if kernel.startswith("flash"):
-            dh = re.search(r"Li(\d+)E", args)
-            row["dh"] = int(dh.group(1)) if dh else None
+        ints = [int(v) for v in re.findall(r"Li(\d+)E", args.split("EEv", 1)[0])]
+        if kernel.startswith("flash_bwd_delta_bf16"):
+            row["lanes_per_row"] = ints[0] if ints else None
+        elif kernel.startswith("flash"):
+            row["dh"] = ints[0] if ints else None
+            if "wgmma" in kernel:  # <dh, stages[, rows a tile]>
+                row["stages"] = ints[1] if len(ints) > 1 else None
+                row["tile"] = ints[2] if len(ints) > 2 else None
         elif kernel.startswith("rmsnorm"):
-            m = re.match(r"I(\w+?)Li(\d+)ELb(\d)E", args)
-            row["types"] = _types(m.group(1)) if m else None
-            row["vecs_per_lane"] = int(m.group(2)) if m else None
-            row["vector_path"] = bool(int(m.group(3))) if m else None
+            m = re.match(r"I(\w+?)Li(\d+)ELb(\d)E", args)  # the forward: <T, S, VPL, VEC>
+            if m:
+                row["types"] = _types(m.group(1))
+                row["vecs_per_lane"] = int(m.group(2))
+                row["vector_path"] = bool(int(m.group(3)))
+            else:  # the backward: <T, S, E> (smem) or <S, VPL> (regs); the fold <S>
+                m = re.match(r"I(\w+?)(?:Li(\d+)E)?E", args)
+                row["types"] = _types(m.group(1)) if m else None
+                row["per_lane"] = int(m.group(2)) if m and m.group(2) else None
         else:
             m = re.search(r"(Gated|Ab)SourceI(\w+?)EE", args)
             row["form"] = None if m is None else {"Gated": "gated", "Ab": "ab"}[m.group(1)]
@@ -346,11 +370,11 @@ def kernel_kind(name: str) -> str:
     return next((kind for pat, kind in KERNEL_KINDS if pat in name), "other")
 
 
-def profile_run(arch: str, step: str, run, top: int = 12) -> dict:
+def profile_run(arch: str, step: str, run, top: int = 12, **extra) -> dict:
     """Device time of one call of ``run`` by kernel (it has run once before,
     so nothing is built or first-allocated in the window), the number of
     device kernels it runs and their time by kind; emitted as a
-    ``profile`` line."""
+    ``profile`` line with ``extra``'s fields."""
     run()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -366,7 +390,7 @@ def profile_run(arch: str, step: str, run, top: int = 12) -> dict:
             and e.key != "Activity Buffer Request"]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    line = {"phase": "profile", "arch": arch, "step": step, "wall_ms": wall_ms,
+    line = {"phase": "profile", "arch": arch, "step": step, **extra, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "device_kernels": sum(e.count for e in rows), "by_kind": {},
             "top": [{"name": e.key[:80], "calls": e.count,
@@ -523,6 +547,7 @@ def train_phase(card: str, dev):
     from repro_torch.core.topology import MiCSTopology
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rmsnorm import kernel as RN
     from repro_torch.models.build import build_model
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.runtime.train_loop import LoopConfig, train
@@ -545,6 +570,7 @@ def train_phase(card: str, dev):
     loop_s = time.perf_counter() - t0
     launches = read_counts()
     by_route, bwd_by_route = dict(FA.launches_by_route), dict(FA.launches_bwd_by_route)
+    rms_bwd_by_route = dict(RN.launches_bwd_by_route)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     micro = TRAIN.steps * TRAIN.micro_steps
@@ -554,8 +580,12 @@ def train_phase(card: str, dev):
     want_route = {"mma": want["flash_attention"], "split": 0, "fma": 0}
     if by_route != want_route:
         raise AssertionError(f"train: attention routes {by_route} != {want_route}")
-    if bwd_by_route != {"mma": want["flash_attention_bwd"], "fma": 0}:
+    # every backward call on the Hopper routes: wgmma attention, RMSNorm's
+    # row held in registers
+    if bwd_by_route != {"wgmma": want["flash_attention_bwd"], "mma": 0, "fma": 0}:
         raise AssertionError(f"train: attention backward routes {bwd_by_route}")
+    if rms_bwd_by_route != {"regs": want["rmsnorm_bwd"], "smem": 0}:
+        raise AssertionError(f"train: RMSNorm backward routes {rms_bwd_by_route}")
     if len(stats.losses) != TRAIN.steps or not all(
             math.isfinite(x) for x in stats.losses + stats.grad_norms):
         raise AssertionError(f"train: losses {stats.losses}, grad norms {stats.grad_norms}")
@@ -579,7 +609,8 @@ def train_phase(card: str, dev):
             "model_tflops": model_tflops, "mfu": model_tflops / (PEAK_OPS_PER_S[torch.bfloat16] / 1e12),
             "peak_gb": peak_gb, "loop_s": loop_s, "checkpoint_gb": ck_gb,
             "launches": launches, "attention_launches_by_route": by_route,
-            "attention_bwd_launches_by_route": bwd_by_route, "gpu": card}
+            "attention_bwd_launches_by_route": bwd_by_route,
+            "rmsnorm_bwd_launches_by_route": rms_bwd_by_route, "gpu": card}
     emit(line)
     return launches, line
 
@@ -676,9 +707,11 @@ def train_consistency_phase(dev):
                           "params_tol": ADAMW_STEP_TOL_LR * oc.lr_max}})
 
 
-def train_profile(dev):
+def train_profile(dev, timed_steps: int = 3):
     """``profile`` of one train step at the ``train`` phase's configuration
-    (after one unprofiled step): device busy, idle share, top kernels."""
+    (after one unprofiled step): device busy, idle share, top kernels, and
+    the host-clock time of ``timed_steps`` unprofiled steps before it
+    (``step_ms``), since the profiler's own host work can idle the card."""
     from repro_torch.configs import get_config
     from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
     from repro_torch.core.topology import MiCSTopology
@@ -699,7 +732,15 @@ def train_profile(dev):
         holder[0], metrics = step(holder[0], batch)
         return metrics
 
-    profile_run(cfg.name, "train", run, top=25)
+    run()
+    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(timed_steps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    profile_run(cfg.name, "train", run, top=25, step_ms=step_ms)
     del holder, state
     torch.cuda.empty_cache()
 
@@ -927,11 +968,35 @@ def kernel_checks(gen, dev, flush):
 BWD_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
+def device_ms_by_kernel(fn, calls: int = 5) -> dict:
+    """Device time of one call of ``fn`` by kernel name: the profiler's
+    CUDA events over ``calls`` calls (after one outside the window), each
+    kernel's total over its own count of events.  (After ``host_us`` has
+    queued hundreds of launches the profiler can miss a few events, so a
+    kernel's mean is taken over the events it kept.)"""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
+
+
+# The flash backward's launches by the profile's kernel names.
+FLASH_BWD_PARTS = (("delta", "flash_bwd_delta"), ("dkdv", "flash_bwd_dkdv"),
+                   ("dq", "flash_bwd_dq"))
+
+
 def backward_checks(gen, dev, flush):
-    """The backward kernels at the train path's shapes and a few edges,
-    each against its plain version on the same inputs, called twice for a
-    bitwise-equal output, timed beside its bound and one PyTorch library
-    call's backward (timed alone, the graph retained)."""
+    """The backward kernels at the train path's shapes and at each route's
+    edges, each against its plain version on the same inputs, called twice
+    for a bitwise-equal output, timed beside its bound and one PyTorch
+    library call's backward (timed alone, the graph retained).  The flash
+    backward's three launches (delta, dK / dV, dQ) are also timed apart,
+    from the profiler's device time of one call."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as FA
@@ -947,17 +1012,25 @@ def backward_checks(gen, dev, flush):
             worst = max(worst, err)
         return worst
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bf, f32 = torch.bfloat16, torch.float32
     rms = []
     for case, (n, d), dt, sdt in (
             ("llama train [8192, 2048]", (TRAIN.global_batch // TRAIN.micro_steps * TRAIN.seq,
                                           2048), bf, bf),
+            ("fp32 scale [64, 2048]", (64, 2048), bf, f32),
+            ("few rows [3, 256]", (3, 256), bf, bf),
+            ("recurrentgemma width [10240, 2560]", (10240, 2560), bf, bf),
             ("fp32 [1024, 4096]", (1024, 4096), f32, f32),
             ("ragged d [37, 1000], fp32 scale", (37, 1000), bf, f32)):
         x = torch.randn(n, d, generator=gen, device=dev).to(dt)
         dy = torch.randn(n, d, generator=gen, device=dev).to(dt)
         sc = (0.2 * torch.randn(d, generator=gen, device=dev)).to(sdt)
+        route = RN.bwd_route(dt, d, True)
+        before = RN.launches_bwd_by_route[route]
         out = RN.rmsnorm_bwd(x, sc, dy)
+        if RN.launches_bwd_by_route[route] != before + 1:
+            raise AssertionError(f"rmsnorm_bwd {case}: did not take the {route} route")
         if not all(torch.equal(a, b) for a, b in zip(out, RN.rmsnorm_bwd(x, sc, dy))):
             raise AssertionError(f"rmsnorm_bwd {case}: not bitwise repeatable")
         rel = BWD_REL_TOL[bf if bf in (dt, sdt) else f32]
@@ -968,10 +1041,10 @@ def backward_checks(gen, dev, flush):
         xr = x.detach().requires_grad_()
         wr = (1.0 + sc.float()).to(dt).requires_grad_()
         y = F.rms_norm(xr, (d,), weight=wr, eps=RN.EPS)
-        blocks = RN.plan_rmsnorm_bwd(n, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
         rms.append({
             "case": case, "shape": [n, d], "dtype": str(dt)[6:], "scale_dtype": str(sdt)[6:],
-            "blocks": blocks, "bitwise_repeat": True, "max_abs_err": err, "rel_tol": rel,
+            "route": route, "blocks": RN.plan_rmsnorm_bwd(n, sms=sms), "bitwise_repeat": True,
+            "max_abs_err": err, "rel_tol": rel,
             "ms": time_ms(lambda: RN.rmsnorm_bwd(x, sc, dy), flush),
             "plain_ms": time_ms(lambda: RN.rms_norm_bwd_plain(x, sc, dy), flush),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -987,6 +1060,10 @@ def backward_checks(gen, dev, flush):
         ("ragged T 300", 2, 300, 2, 4, 64, True, 0, bf),
         ("window 64", 2, 512, 2, 4, 64, True, 64, bf),
         ("g 1", 2, 256, 4, 1, 64, True, 0, bf),
+        ("dh 128", 2, 512, 2, 4, 128, True, 0, bf),
+        ("g 3: whole positions do not fill 64 rows, wgmma refuses", 2, 256, 2, 3, 64, True, 0,
+         bf),
+        ("dh 32", 2, 256, 2, 4, 32, True, 0, bf),
         ("fp32", 2, 256, 2, 4, 64, True, 0, f32),
     ]
     for case, b, t, hkv, g, dh, causal, window, dt in cfgs:
@@ -998,7 +1075,11 @@ def backward_checks(gen, dev, flush):
         o, lse = FA.flash_attention_fwd(q, k, v, **kw)
         _, lse_ref = FA.attention_plain_lse(q, k, v, **kw)
         lse_err = rel_check(f"flash lse {case}", [lse], [lse_ref], 1e-5)
+        route = FA.bwd_route(dt, dh, g)
+        before = FA.launches_bwd_by_route[route]
         out = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        if FA.launches_bwd_by_route[route] != before + 1:
+            raise AssertionError(f"flash_attention_bwd {case}: did not take the {route} route")
         if not all(torch.equal(a, r) for a, r in zip(out, FA.flash_attention_bwd(q, k, v, o, lse, do, **kw))):
             raise AssertionError(f"flash_attention_bwd {case}: not bitwise repeatable")
         err = rel_check(f"flash_attention_bwd {case}", out,
@@ -1011,6 +1092,9 @@ def backward_checks(gen, dev, flush):
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
         b_ms, b_by = bound(nbytes, ops, dt)
         ms = time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do, **kw), flush)
+        by_kernel = device_ms_by_kernel(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+        parts = {part: sum(t_ for name, t_ in by_kernel.items() if pat in name) or None
+                 for part, pat in FLASH_BWD_PARTS}
         qs = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, t, dh).contiguous().requires_grad_()
         ks = k.permute(0, 2, 1, 3).contiguous().requires_grad_()
         vs = v.permute(0, 2, 1, 3).contiguous().requires_grad_()
@@ -1020,10 +1104,11 @@ def backward_checks(gen, dev, flush):
                                            is_causal=lib_causal, enable_gqa=True)
         attn.append({
             "case": case, "shape": {"b": b, "T": t, "hkv": hkv, "g": g, "dh": dh},
-            "causal": causal, "window": window, "dtype": str(dt)[6:],
-            "route": "mma" if dt == bf else "fma", "bitwise_repeat": True,
-            "max_abs_err": err, "rel_tol": BWD_REL_TOL[dt], "lse_max_abs_err": lse_err,
-            "ms": ms, "tflops": ops / ms / 1e9, "allowed_pairs": pairs,
+            "causal": causal, "window": window, "dtype": str(dt)[6:], "route": route,
+            "bitwise_repeat": True, "max_abs_err": err, "rel_tol": BWD_REL_TOL[dt],
+            "lse_max_abs_err": lse_err, "ms": ms, "tflops": ops / ms / 1e9,
+            "device_ms_by_launch": parts, "allowed_pairs": pairs,
+            "host_us": host_us(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do, **kw), 50),
             "plain_ms": time_ms(lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
                                 flush, reps=5),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -1034,10 +1119,53 @@ def backward_checks(gen, dev, flush):
     return rms, attn
 
 
+def griffin_refusal_phase(dev):
+    """``griffin_train_refused``: griffin's RG-LRU kernel has no gradient yet,
+    so training a griffin model on the card must raise NotImplementedError
+    naming ROADMAP Queue 1 item 1, both where the train step is built and
+    where a layer's rows reach the kernel with autograd recording (2 layers
+    at smoke width: an empty ``g`` pool and a (rec, rec) tail).  Only that
+    error counts as a pass; any other error, or none, fails the phase."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core.comm import CommEngine
+    from repro_torch.core.mics import MiCSConfig, accumulate_grads, build_train_step, init_params
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.models import layers as L
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import OptConfig
+
+    cfg = dataclasses.replace(smoke_variant(get_config("recurrentgemma-2b")), n_layers=2)
+    model = build_model(cfg, tp=1)
+    params = init_params(model, seed=0, device=dev)
+    tokens = torch.zeros((1, 2, 16), dtype=torch.int64, device=dev)
+    batch = {"tokens": tokens, "targets": tokens, "mask": torch.ones((1, 2, 16), device=dev)}
+    comm = CommEngine.from_config(MiCSTopology(), MiCSConfig())
+    calls = {
+        "build_train_step": lambda: build_train_step(model, MiCSTopology(), MiCSConfig(),
+                                                     OptConfig(), device=dev),
+        "accumulate_grads (rglru_gated)": lambda: accumulate_grads(
+            model, comm, L.Ctx(mode="train", compute_dtype=torch.bfloat16), params, batch),
+    }
+    messages = {}
+    for where, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            messages[where] = str(e)
+        else:
+            raise AssertionError(f"griffin training on the card: {where} did not raise")
+        if "Queue 1 item 1" not in messages[where]:
+            raise AssertionError(f"griffin training on the card: {where} raised without naming "
+                                 f"ROADMAP Queue 1 item 1: {messages[where]}")
+    emit({"phase": "griffin_train_refused", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "raised": messages})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-only", action="store_true",
-                    help="run only the profile phase of both paths (no checks, no result)")
+                    help="run only the profile phases: both serve paths and the train step "
+                         "(no checks, no result)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1066,6 +1194,7 @@ def main() -> int:
             profile_path(p, cfg, params, prefill_fn, decode_fn, prompt)
             del params
             torch.cuda.empty_cache()
+        train_profile(dev)
         return 0
 
     # -- 2. the serve paths ----------------------------------------------------
@@ -1084,13 +1213,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_consistency_phase(dev)
     torch.cuda.empty_cache()
+    griffin_refusal_phase(dev)
     train_profile(dev)
 
     # -- 4. kernels against their plain versions, timed ---------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
-    rms_checks, attn_checks, rglru_checks = kernel_checks(gen, dev, flush)
+    # the backward first: its launches are timed apart by the profiler,
+    # before the forward checks' host_us queues thousands of launches
     rms_bwd_checks, attn_bwd_checks = backward_checks(gen, dev, flush)
+    rms_checks, attn_checks, rglru_checks = kernel_checks(gen, dev, flush)
 
     def entry(name, source, replaces, checks, **more):
         main = checks[0]  # the path's main shape
@@ -1108,17 +1240,26 @@ def main() -> int:
         entry("rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
               "src/repro/kernels/rmsnorm/kernel.py:28", rms_bwd_checks,
               gradient_of="src/repro/models/layers.py:62 rms_norm (the TPU kernel has no "
-                          "backward)"),
+                          "backward)",
+              sources={"regs": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                       "smem": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu"},
+              launches_by_route=train_line["rmsnorm_bwd_launches_by_route"]),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
               "src/repro/kernels/flash_attention/kernel.py:86", attn_checks,
               sources={"mma": "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
                        "split": "src/repro_torch/kernels/csrc/flash_attention_split.cu",
                        "fma": "src/repro_torch/kernels/csrc/flash_attention.cu"},
               launches_by_route=launches_by_route),
-        entry("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        entry("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
               "src/repro/kernels/flash_attention/kernel.py:86", attn_bwd_checks,
               gradient_of="src/repro/models/layers.py:145 attention (the TPU kernel has no "
                           "backward)",
+              sources={"wgmma": "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
+                       "mma": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                       "fma": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                       "delta (every route)":
+                           "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"},
+              device_ms_by_launch=attn_bwd_checks[0]["device_ms_by_launch"],
               launches_by_route=train_line["attention_bwd_launches_by_route"]),
         entry("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru/kernel.py:47", rglru_checks,

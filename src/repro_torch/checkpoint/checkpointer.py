@@ -12,7 +12,8 @@ tensors are missing or truncated.  Tensors are copied to the host one at a
 time, so the host never holds the whole state.
 
 The fault-injection hook, asynchronous saves and restores onto another
-topology come with the elastic slice (ROADMAP Queue 1 item 3).
+topology come with the elastic slice (ROADMAP Queue 1 item 5, the elastic and
+fault-tolerant loop).
 """
 
 from __future__ import annotations
@@ -118,7 +119,8 @@ class Checkpointer:
         if meta["topology"] != here:
             raise NotImplementedError(
                 f"checkpoint topology {meta['topology']} != {here}: restores onto "
-                "another topology come with the elastic slice (ROADMAP Queue 1 item 3)")
+                "another topology come with the elastic slice (ROADMAP Queue 1 item 5, the "
+                "elastic and fault-tolerant loop)")
         shapes = model.global_flat_shapes()
         state: dict = {}
         for part in PARTS:

@@ -11,7 +11,8 @@ exactly what ``repro/core/comm.py`` does when ``partition_size == 1``; its
 adjoint is the cotangent cast back to fp32 (:class:`GatherFlat`); hop 2 is
 the identity.  p > 1, data parallel > 1 (NCCL process groups) and the
 int8 / bf16 wires raise ``NotImplementedError``: they come with the
-multi-chip collectives slice and the int8-wire slice (ROADMAP Queue 1).
+multi-chip collectives slice and the int8-wire slice (ROADMAP Queue 1 items
+2 and 4).
 """
 
 from __future__ import annotations
@@ -64,11 +65,13 @@ class SyncPolicy:
         if self.mode != "2hop":
             raise NotImplementedError(
                 "sync_mode='allreduce_slice' (the Fig-14 ablation) comes with the "
-                "multi-chip collectives slice (ROADMAP Queue 1 item 7)")
+                "multi-chip collectives slice (ROADMAP Queue 1 item 2, multi-rank MiCS "
+                "collectives)")
         if self.hop1_wire_dtype != "fp32" or self.hop2_wire_dtype != "fp32":
             raise NotImplementedError(
                 f"hop-1 wire {self.hop1_wire_dtype!r} / hop-2 wire {self.hop2_wire_dtype!r}: "
-                "the compressed gradient wires wait for ROADMAP Queue 1 item 2; "
+                "the compressed gradient wires wait for ROADMAP Queue 1 item 4, int8 and bf16 "
+                "wires; "
                 "the port runs fp32")
 
 

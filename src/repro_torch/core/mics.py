@@ -24,6 +24,7 @@ from repro_torch.core.comm import CommEngine
 from repro_torch.core.schedule import BOUNDARY_SCHEDULES, CLIP_MODES, apply_boundary, plan_boundary
 from repro_torch.core.topology import MiCSTopology
 from repro_torch.device import resolve_device
+from repro_torch.kernels.rglru.kernel import GRIFFIN_TRAIN_ITEM
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.lm import ModelDef
@@ -35,14 +36,20 @@ HOP2_WIRES = (False, True, "fp32", "bf16", "int8")
 
 # Training knobs the port refuses at anything but this value, with the
 # ROADMAP Queue 1 item each waits for.
+_KNOBS_ITEM = "ROADMAP Queue 1 item 3, the training knobs that run on one card"
+_PLANNER_ITEM = "ROADMAP Queue 1 item 8, the link model, memory planner and autotuner"
 UNPORTED_TRAIN = {
-    "prefetch_carry": ("stored", "the remat carry (ROADMAP Queue 1 item 2)"),
-    "carry_offload": ("none", "the host-offloaded carry (ROADMAP Queue 1 item 2)"),
-    "offload_opt": (False, "host-offloaded AdamW moments (ROADMAP Queue 1 item 2)"),
-    "clip_mode": ("exact", "the approximate clip (ROADMAP Queue 1 item 2)"),
-    "policy": ("manual", "the link-model autotuner (ROADMAP Queue 1 item 11)"),
-    "hbm_budget_gb": (None, "the memory planner (ROADMAP Queue 1 item 11)"),
+    "prefetch_carry": ("stored", f"the remat carry ({_KNOBS_ITEM})"),
+    "carry_offload": ("none", f"the host-offloaded carry ({_KNOBS_ITEM})"),
+    "offload_opt": (False, f"host-offloaded AdamW moments ({_KNOBS_ITEM})"),
+    "clip_mode": ("exact", f"the approximate clip ({_KNOBS_ITEM})"),
+    "policy": ("manual", f"the link-model autotuner ({_PLANNER_ITEM})"),
+    "hbm_budget_gb": (None, f"the memory planner ({_PLANNER_ITEM})"),
 }
+# Families the port trains on a CUDA device.  Griffin's RG-LRU kernel has no
+# gradient yet (its launch returns a result autograd cannot see), so griffin
+# trains only on the CPU, through the differentiable plain version.
+CUDA_TRAIN_FAMILIES = ("dense",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,9 +140,17 @@ def init_state(model: ModelDef, seed: int = 0, *, device: str | torch.device = "
             "step": 0}
 
 
-def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology) -> None:
+def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology, family: str = "dense",
+                    device: torch.device = torch.device("cpu")) -> None:
     """Raise ``NotImplementedError`` for a training setting the port does not
-    run (it never runs the default program under another name)."""
+    run (it never runs the default program under another name), and for a
+    model ``family`` the port does not train on ``device`` (a resolved
+    ``torch.device``; only its type is read, so the check needs no card)."""
+    if device.type == "cuda" and family not in CUDA_TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"family {family!r} does not train on a CUDA device yet: the RG-LRU kernel has "
+            f"no gradient ({GRIFFIN_TRAIN_ITEM}); pass device='cpu' to train it through "
+            "the differentiable plain version")
     for name, (default, item) in UNPORTED_TRAIN.items():
         if getattr(mcfg, name) != default:
             raise NotImplementedError(
@@ -146,7 +161,8 @@ def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology) -> None:
     if topo.data_parallel_size != 1 or topo.model_size != 1:
         raise NotImplementedError(
             f"data parallel {topo.data_parallel_size}, tp {topo.model_size}: more than one "
-            "card comes with the multi-chip collectives slice (ROADMAP Queue 1 item 7)")
+            "card comes with the multi-chip collectives slice (ROADMAP Queue 1 item 2, "
+            "multi-rank MiCS collectives)")
 
 
 def _check_state(model: ModelDef, state: dict, dev: torch.device) -> None:
@@ -168,7 +184,7 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
     params, m and v are updated in place; the returned state holds them and
     ``step + 1``."""
     dev = resolve_device(device)
-    refuse_unported(mcfg, topo)
+    refuse_unported(mcfg, topo, model.cfg.family, dev)
     comm = CommEngine.from_config(topo, mcfg)
     boundary = plan_boundary(model, topo, mode=mcfg.boundary_schedule,
                              bucket_mb=mcfg.hop2_bucket_mb, clip_mode=mcfg.clip_mode)

@@ -73,7 +73,8 @@ class BoundaryPlan:
         if self.clip_mode != "exact":
             raise NotImplementedError(
                 "clip_mode='approx' (the one-bucket-stale clip pipeline) waits for "
-                "ROADMAP Queue 1 item 2; the port runs the exact clip")
+                "ROADMAP Queue 1 item 3, the training knobs that run on one card; the "
+                "port runs the exact clip")
 
     @property
     def n_buckets(self) -> int:

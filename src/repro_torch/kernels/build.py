@@ -39,6 +39,8 @@ SIGNATURES = {
     # x, scale, dy, dx, partial, dscale, n, d, eps, x_bf16, scale_bf16, blocks,
     # stream
     "rmsnorm_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
+    # x, scale, dy, dx, partial, dscale, n, d, eps, scale_bf16, blocks, stream
+    "rmsnorm_bwd_regs_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     # q, k, v, o, lse (or NULL), b, tq, tk, hkv, g, dh, causal, window,
     # q_offset, kv_len, scale, stream (fma: fp32; mma: bf16)
     "flash_fma_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -46,8 +48,13 @@ SIGNATURES = {
     "flash_mma_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P),
     # q, o, do, lse, delta, qs (or NULL), rowstat (or NULL), rows, tq, hkv, g,
-    # dh, scale, is_bf16, stream
-    "flash_bwd_delta_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # dh, rs_rows, scale, is_bf16, stream
+    "flash_bwd_delta_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                               _P),
+    # qs, k, v, do, rowstat, dq, dk, dv, b, tq, tk, hkv, g, dh, rs_rows, causal,
+    # window, q_offset, kv_len, scale, stream (bf16)
+    "flash_bwd_wgmma_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _P),
     # q, k, v, do, lse, delta, [qs, rowstat: mma only,] dq, dk, dv, b, tq, tk,
     # hkv, g, dh, causal, window, q_offset, kv_len, scale, stream (mma: bf16;
     # fma: fp32)

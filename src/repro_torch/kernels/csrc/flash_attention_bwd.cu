@@ -12,10 +12,15 @@
 // P = exp(qs k^T - lse) (0 where masked), delta = rowsum(dO o):
 //   dV = P^T dO,  dP = dO V^T,  dS = P (dP - delta),
 //   dK = dS^T qs, dQ = (dS K) / sqrt(dh).
+// Routes (kernel.py `bwd_route`): bf16 at head dim 64 or 128 with a group
+// size dividing 64 -- the train path -- takes flash_attention_bwd_wgmma.cu
+// after this file's delta launch; the other bf16 shapes take the "mma"
+// kernels here, fp32 the "fma" ones.
 // Three launches, no atomics, bitwise repeatable:
-//  1. delta, one warp a row; for bf16 also qs (q scaled and rounded once)
-//     and each packed row's (lse, delta) side by side, so launch 2 stages
-//     a tile with nothing but asynchronous copies;
+//  1. delta, one warp a row (bf16: dh / 8 lanes a row, 16-byte accesses);
+//     for bf16 also qs (q scaled and rounded once) and each packed row's
+//     (lse, delta) side by side, so launch 2 stages a tile with nothing but
+//     asynchronous copies;
 //  2. dK and dV: one block a (batch, KV head, 64-key tile); it loops over
 //     the packed (position, group head) query rows that its keys can see
 //     under the masks, 64 at a time, so the sum over the g heads of the
@@ -44,24 +49,13 @@
 // fp32 ("fma" kernels): the same three launches on CUDA cores in fp32, all
 // head dims of the forward, a key (dK/dV) or a query row (dQ) split over
 // dh / 32 lanes as the forward's fma kernel splits a row.
-// The ring took the dK/dV kernel from 2.03 to 1.10 ms at the llama train
-// shape on the card (PERF.md), where it was waiting on its
-// synchronous per-tile loads.  Left for later: wgmma and TMA, more warps
-// (or keys) a block to share each row tile, and one kernel for dQ and
-// dK/dV (atomics-free needs dQ's second pass, which this design pays for
-// by recomputing S and dP).
+// The ring keeps the dK/dV kernel from waiting on synchronous per-tile
+// loads (PERF.md).
 #include "flash_mma.cuh"
 
 namespace {
 
 using fa::bf16;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
 // 8-byte async copy; `valid` false zero-fills the destination.
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
@@ -71,56 +65,88 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid
                : "memory");
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ bool allowed(int j, int pos, int causal, int window, int kv_len) {
-  return j < kv_len && (!causal || j <= pos) && (!window || pos - j < window);
-}
+using fa::allowed;
+using fa::round_bf16;
+using fa::rows_seeing;
 
 __device__ __forceinline__ int64_t stat_index(int b, int h, int hkv, int g, int tq, int gr) {
   return ((static_cast<int64_t>(b) * hkv + h) * g + gr % g) * tq + gr / g;
 }
 
-// Packed query rows [lo, hi) whose positions see some key of [k0, kend).
-__device__ __forceinline__ void rows_seeing(int k0, int kend, int tq, int g, int causal,
-                                            int window, int q_offset, int& lo, int& hi) {
-  int plo = causal ? k0 - q_offset : 0;
-  int phi = window ? kend - 1 + window - 1 - q_offset : tq - 1;
-  plo = max(plo, 0);
-  phi = min(phi, tq - 1);
-  lo = plo * g;
-  hi = kend > k0 && phi >= plo ? (phi + 1) * g : lo;
-}
-
 // ---------------------------------------------------------------------------
-// 1. delta = rowsum(dO * O), fp32 [b, hkv, g, tq]; one warp a packed row.
-//    With qs / rowstat (the bf16 route): qs = bf16(q * scale) in q's layout
-//    and rowstat[b, hkv, tq * g] = (lse, delta) in packed-row order.
+// 1. delta = rowsum(dO * O), fp32 [b, hkv, g, tq].
+//    fp32 (the "fma" route): one warp a packed row, delta alone.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void flash_bwd_delta_kernel(const T* __restrict__ q, const T* __restrict__ o,
-                                       const T* __restrict__ dO, const float* __restrict__ lse,
-                                       float* __restrict__ delta, T* __restrict__ qs,
-                                       float2* __restrict__ rowstat, int rows, int tq, int hkv,
-                                       int g, int dh, float scale) {
+__global__ void flash_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dO,
+                                       float* __restrict__ delta, int rows, int tq, int hkv,
+                                       int g, int dh) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
   if (row >= rows) return;
   const int64_t base = static_cast<int64_t>(row) * dh;
   float s = 0.f;
-  for (int i = lane; i < dh; i += 32) s += to_f(o[base + i]) * to_f(dO[base + i]);
+  for (int i = lane; i < dh; i += 32) s += o[base + i] * dO[base + i];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   // row = ((b * tq + pos) * hkv + h) * g + head
   const int head = row % g, h = (row / g) % hkv, pos = (row / (g * hkv)) % tq,
             b = row / (g * hkv * tq);
+  if (lane == 0) delta[((static_cast<int64_t>(b) * hkv + h) * g + head) * tq + pos] = s;
+}
+
+//    bf16 (the "mma" and "wgmma" routes): LPR = dh / 8 lanes a row, 16-byte
+//    loads and stores, 32 / LPR rows a warp; also qs = bf16(q * scale) in
+//    q's layout and rowstat[b, hkv, rs_rows] = (lse log2(e), delta) in
+//    packed-row order (rs_rows >= tq * g: the wgmma route pads it to even so
+//    its TMA stride is 16 bytes); lse comes pre-scaled for the kernels'
+//    exp2.
+template <int LPR>
+__global__ void flash_bwd_delta_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ o,
+                                            const bf16* __restrict__ dO,
+                                            const float* __restrict__ lse,
+                                            float* __restrict__ delta, bf16* __restrict__ qs,
+                                            float2* __restrict__ rowstat, int rows, int tq,
+                                            int hkv, int g, int rs_rows, float scale) {
+  const int lane = threadIdx.x & 31, part = lane % LPR;
+  const int row = ((blockIdx.x * blockDim.x + threadIdx.x) >> 5) * (32 / LPR) + lane / LPR;
+  const bool valid = row < rows;  // the same for a row's LPR lanes: the shuffles stay in it
+  const int64_t off = (static_cast<int64_t>(valid ? row : 0) * LPR + part) * 8;
+  float s = 0.f;
+  uint4 qv = make_uint4(0, 0, 0, 0);
+  if (valid) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dO + off);
+    qv = *reinterpret_cast<const uint4*>(q + off);
+    const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+    const bf16* de = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s += __bfloat162float(oe[i]) * __bfloat162float(de[i]);
+  }
+#pragma unroll
+  for (int o2 = LPR / 2; o2 > 0; o2 >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o2);
+  if (!valid) return;
+  bf16* qe = reinterpret_cast<bf16*>(&qv);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) qe[i] = __float2bfloat16(__bfloat162float(qe[i]) * scale);
+  *reinterpret_cast<uint4*>(qs + off) = qv;
+  if (part != 0) return;
+  // row = ((b * tq + pos) * hkv + h) * g + head
+  const int head = row % g, h = (row / g) % hkv, pos = (row / (g * hkv)) % tq,
+            b = row / (g * hkv * tq);
   const int64_t stat = ((static_cast<int64_t>(b) * hkv + h) * g + head) * tq + pos;
-  if (lane == 0) delta[stat] = s;
-  if (qs == nullptr) return;
-  for (int i = lane; i < dh; i += 32) qs[base + i] = from_f<T>(to_f(q[base + i]) * scale);
-  if (lane == 0)
-    rowstat[((static_cast<int64_t>(b) * hkv + h) * tq + pos) * g + head] = make_float2(lse[stat], s);
+  delta[stat] = s;
+  rowstat[(static_cast<int64_t>(b) * hkv + h) * rs_rows + pos * g + head] =
+      make_float2(lse[stat] * fa::kLog2e, s);
+}
+
+template <int LPR>
+int launch_delta_bf16(const void* q, const void* o, const void* dO, const float* lse,
+                      float* delta, void* qs, float2* rowstat, int rows, int tq, int hkv, int g,
+                      int rs_rows, float scale, cudaStream_t s) {
+  constexpr int kRowsPerBlock = 4 * (32 / LPR);  // 4 warps
+  flash_bwd_delta_bf16_kernel<LPR><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, 128, 0, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(o), static_cast<const bf16*>(dO),
+      lse, delta, static_cast<bf16*>(qs), rowstat, rows, tq, hkv, g, rs_rows, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -283,7 +309,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ 
           const int r = nb * 8 + tig * 2 + (e & 1);          // query row in the tile
           const int j = kw + (lane >> 2) + 8 * (e >> 1);      // key
           const float2 lse_delta = stat[r];
-          float pv = fa::exp2_approx(fmaf(p[nb][e], fa::kLog2e, -lse_delta.x * fa::kLog2e));
+          float pv = fa::exp2_approx(fmaf(p[nb][e], fa::kLog2e, -lse_delta.x));
           if (!full && (r >= nrows ||
                         !allowed(j, q_offset + (row0 + r) / g, causal, window, kv_len)))
             pv = 0.f;
@@ -648,27 +674,29 @@ int launch_fma(const void* q, const void* k, const void* v, const void* dO, cons
 }  // namespace
 
 // q, o, dO [b, tq, hkv, g, dh] (rows = b * tq * hkv * g), lse and delta fp32
-// [b, hkv, g, tq]; bf16 or fp32, contiguous.  qs (like q) and rowstat (fp32
-// [b, hkv, tq * g, 2]) are written when not NULL (the bf16 route).
+// [b, hkv, g, tq]; bf16 or fp32, contiguous.  bf16 (dh 16 to 128) also
+// writes qs (like q) and rowstat (fp32 [b, hkv, rs_rows, 2], rs_rows >= tq *
+// g); fp32 reads only o and dO and writes only delta.
 extern "C" int flash_bwd_delta_launch(const void* q, const void* o, const void* dO,
                                       const void* lse, void* delta, void* qs, void* rowstat,
-                                      int rows, int tq, int hkv, int g, int dh, float scale,
-                                      int is_bf16, void* stream) {
+                                      int rows, int tq, int hkv, int g, int dh, int rs_rows,
+                                      float scale, int is_bf16, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int blocks = (rows + 3) / 4;  // 4 warps a block, a warp a row
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
   float2* st = static_cast<float2*>(rowstat);
-  if (is_bf16)
-    flash_bwd_delta_kernel<bf16><<<blocks, 128, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(o), static_cast<const bf16*>(dO),
-        l, d, static_cast<bf16*>(qs), st, rows, tq, hkv, g, dh, scale);
-  else
-    flash_bwd_delta_kernel<float><<<blocks, 128, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(o),
-        static_cast<const float*>(dO), l, d, static_cast<float*>(qs), st, rows, tq, hkv, g, dh,
-        scale);
-  return static_cast<int>(cudaGetLastError());
+  if (!is_bf16) {
+    flash_bwd_delta_kernel<<<(rows + 3) / 4, 128, 0, s>>>(  // 4 warps a block, a warp a row
+        static_cast<const float*>(o), static_cast<const float*>(dO), d, rows, tq, hkv, g, dh);
+    return static_cast<int>(cudaGetLastError());
+  }
+  switch (dh) {
+    case 16: return launch_delta_bf16<2>(q, o, dO, l, d, qs, st, rows, tq, hkv, g, rs_rows, scale, s);
+    case 32: return launch_delta_bf16<4>(q, o, dO, l, d, qs, st, rows, tq, hkv, g, rs_rows, scale, s);
+    case 64: return launch_delta_bf16<8>(q, o, dO, l, d, qs, st, rows, tq, hkv, g, rs_rows, scale, s);
+    case 128: return launch_delta_bf16<16>(q, o, dO, l, d, qs, st, rows, tq, hkv, g, rs_rows, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 #define FLASH_BWD_ARGS                                                                     \

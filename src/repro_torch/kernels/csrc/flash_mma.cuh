@@ -1,5 +1,6 @@
 // Tensor-core building blocks shared by the bf16 flash-attention routes
-// (flash_attention_mma.cu: prefill; flash_attention_split.cu: decode).
+// (flash_attention_mma.cu: prefill; flash_attention_split.cu: decode; the
+// backward's flash_attention_bwd.cu and flash_attention_bwd_wgmma.cu).
 //
 // Products are `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` with
 // operands from `ldmatrix`; K/V tiles reach shared memory by 16-byte
@@ -231,6 +232,29 @@ __device__ __forceinline__ void attend_tile(const bf16* Qw, const bf16* Ks, cons
       mma16816(acc[2 * db + 1], pa, vb[2], vb[3]);
     }
   }
+}
+
+// The backward kernels' (flash_attention_bwd.cu, flash_attention_bwd_wgmma.cu)
+// shared pieces.  x rounded to bf16 and back.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Whether key j is allowed for a query at absolute position pos (written
+// without branches, so an unrolled loop of them stays one basic block).
+__device__ __forceinline__ bool allowed(int j, int pos, int causal, int window, int kv_len) {
+  return (j < kv_len) & (!causal | (j <= pos)) & (!window | (pos - j < window));
+}
+
+// Packed query rows [lo, hi) whose positions see some key of [k0, kend).
+__device__ __forceinline__ void rows_seeing(int k0, int kend, int tq, int g, int causal,
+                                            int window, int q_offset, int& lo, int& hi) {
+  int plo = causal ? k0 - q_offset : 0;
+  int phi = window ? kend - 1 + window - 1 - q_offset : tq - 1;
+  plo = max(plo, 0);
+  phi = min(phi, tq - 1);
+  lo = plo * g;
+  hi = kend > k0 && phi >= plo ? (phi + 1) * g : lo;
 }
 
 // The four lanes of a quad hold one row's partial sums: add them.

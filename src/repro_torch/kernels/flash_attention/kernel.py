@@ -20,9 +20,17 @@ retried: a build or launch error raises.
 The training path differentiates through :class:`FlashAttentionFn`: its
 forward, :func:`flash_attention_fwd`, also writes the rows' log-sum-exp
 (the ``mma`` route for bf16 at any row count, ``fma`` for fp32), and its
-backward, :func:`flash_attention_bwd`, is the FlashAttention-2 backward of
-``kernels/csrc/flash_attention_bwd.cu`` (routes ``mma`` for bf16, ``fma``
-for fp32; :func:`flash_attention_bwd_plain` on the CPU).
+backward, :func:`flash_attention_bwd`, is the FlashAttention-2 backward,
+on one of three routes chosen by :func:`bwd_route`:
+
+* ``"wgmma"`` -- bf16, head dim 64 or 128, g dividing 64 (the train path):
+  ``kernels/csrc/flash_attention_bwd_wgmma.cu``, warpgroup tensor cores fed
+  by TMA;
+* ``"mma"`` -- the other bf16 head dims (16, 32) and group sizes:
+  ``kernels/csrc/flash_attention_bwd.cu`` on ``mma.sync``;
+* ``"fma"`` -- fp32, the same file on CUDA cores;
+
+and :func:`flash_attention_bwd_plain` on the CPU.
 """
 
 from __future__ import annotations
@@ -41,10 +49,15 @@ SPLIT_MAX_ROWS = 16      # one mma tile of packed query rows
 SPLIT_MIN_CHUNK = 32     # keys; a chunk is a multiple of 16
 SPLIT_BLOCKS_PER_SM = 2  # the split plan's target
 
-BWD_ROUTES = ("mma", "fma")
-# Head dims of the backward by dtype: the bf16 kernel keeps dK and dV in
+BWD_ROUTES = ("wgmma", "mma", "fma")
+# Head dims of the backward by dtype: the bf16 kernels keep dK and dV in
 # registers, which dh 256 would overflow.
 BWD_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128), torch.float32: HEAD_DIMS}
+# The wgmma route: head dims whose rows 128-byte TMA boxes tile, and group
+# sizes for which its tiles of packed (position, group head) rows (128 rows
+# at dh 64, 64 at dh 128) hold whole positions: g dividing 64.
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_TILE_ROWS = 64
 
 # Calls that took the CUDA route since the last reset (plain integers), in
 # all and by route; the backward's likewise.
@@ -63,6 +76,26 @@ def route(dtype: torch.dtype, rows: int, *, with_lse: bool = False) -> str:
     if dtype == torch.bfloat16:
         return "mma" if rows > SPLIT_MAX_ROWS or with_lse else "split"
     raise TypeError(f"flash_attention has no route for {dtype}")
+
+
+def bwd_route(dtype: torch.dtype, dh: int, g: int) -> str:
+    """The backward's CUDA route: ``"wgmma"`` for bf16 at a head dim of
+    ``WGMMA_HEAD_DIMS`` with a group size ``g`` that divides
+    ``WGMMA_TILE_ROWS`` (a TMA box holds 64 / g whole positions), ``"mma"``
+    for the other bf16 shapes, ``"fma"`` for fp32."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype == torch.bfloat16:
+        wgmma = dh in WGMMA_HEAD_DIMS and g >= 1 and WGMMA_TILE_ROWS % g == 0
+        return "wgmma" if wgmma else "mma"
+    raise TypeError(f"flash_attention_bwd has no route for {dtype}")
+
+
+def rowstat_rows(tq: int, g: int) -> int:
+    """Rows of the backward's packed (lse, delta) table a (batch, KV head):
+    ``tq * g`` rounded up to even, so each row of 8-byte pairs starts on 16
+    bytes, as the wgmma route's tensor map needs."""
+    return tq * g + (tq * g) % 2
 
 
 def plan_decode_splits(b: int, hkv: int, kv_len: int, *, sms: int = 132) -> tuple[int, int]:
@@ -374,9 +407,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     """``(dq, dk, dv)`` of :func:`flash_attention_fwd` at ``do``, from its
     output ``o`` and log-sum-exp ``lse``.  CUDA: three launches (delta, with
     the scaled q and packed row stats for bf16; dK and dV by key tile; dQ by
-    query tile), counted as one backward call;
-    bf16 takes the ``mma`` kernels (head dims ``BWD_HEAD_DIMS``), fp32 the
-    ``fma`` ones.  CPU: :func:`flash_attention_bwd_plain`."""
+    query tile), counted as one backward call on the route of
+    :func:`bwd_route` (bf16 head dims ``BWD_HEAD_DIMS``).  CPU:
+    :func:`flash_attention_bwd_plain`."""
     global launches_bwd
     _check(q, k, v, window, q_offset, kv_valid_len)
     b, tq, hkv, g, dh = q.shape
@@ -401,27 +434,35 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
         return dq, dk.zero_(), dv.zero_()
     stream = _stream(q)
     scale = 1.0 / math.sqrt(dh)
-    r = "mma" if q.dtype == torch.bfloat16 else "fma"
+    r = bwd_route(q.dtype, dh, g)
     delta = torch.empty_like(lse)
-    # mma: the scaled q and each packed row's (lse, delta), for the dK / dV
-    # kernel's asynchronous tile loads
-    qs = torch.empty_like(q) if r == "mma" else None
-    rowstat = (torch.empty((b, hkv, tq * g, 2), dtype=torch.float32, device=q.device)
-               if r == "mma" else None)
+    # bf16: the scaled q and each packed row's (lse, delta), which the dK / dV
+    # kernels load a tile at a time by asynchronous copies
+    rs_rows = rowstat_rows(tq, g) if r == "wgmma" else tq * g
+    qs = torch.empty_like(q) if r != "fma" else None
+    rowstat = (torch.empty((b, hkv, rs_rows, 2), dtype=torch.float32, device=q.device)
+               if r != "fma" else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = K.library()
     err = lib.flash_bwd_delta_launch(q.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
                                      delta.data_ptr(), ptr(qs), ptr(rowstat), b * tq * hkv * g,
-                                     tq, hkv, g, dh, scale, int(q.dtype == torch.bfloat16),
-                                     stream)
+                                     tq, hkv, g, dh, rs_rows, scale,
+                                     int(q.dtype == torch.bfloat16), stream)
     K.check(err, "flash_attention_bwd (delta)")
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr())
-    if r == "mma":
-        args += (qs.data_ptr(), rowstat.data_ptr())
-    err = (lib.flash_bwd_mma_launch if r == "mma" else lib.flash_bwd_fma_launch)(
-        *args, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, k.shape[1], hkv, g, dh,
-        int(causal), window, q_offset, _kv_len(k.shape[1], kv_valid_len), scale, stream)
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    shape = (b, tq, k.shape[1], hkv, g, dh)
+    rest = (int(causal), window, q_offset, _kv_len(k.shape[1], kv_valid_len), scale, stream)
+    if r == "wgmma":
+        err = lib.flash_bwd_wgmma_launch(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         do.data_ptr(), rowstat.data_ptr(), *outs, *shape,
+                                         rs_rows, *rest)
+    else:
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr())
+        if r == "mma":
+            args += (qs.data_ptr(), rowstat.data_ptr())
+        err = (lib.flash_bwd_mma_launch if r == "mma" else lib.flash_bwd_fma_launch)(
+            *args, *outs, *shape, *rest)
     K.check(err, f"flash_attention_bwd ({r})")
     launches_bwd += 1
     launches_bwd_by_route[r] += 1

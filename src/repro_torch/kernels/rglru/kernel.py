@@ -13,6 +13,13 @@ has two entry points over one chunked scan (:func:`plan_scan_chunks`):
 Each launches the kernel for CUDA tensors and uses its plain version
 (:func:`rglru_plain`, :func:`rglru_gated_plain`) for CPU tensors; there is
 no other route and no fall-back when a build or launch fails.
+
+The kernel has no backward yet.  The plain versions are differentiable, but
+a launch writes its result into a new tensor that autograd cannot see, so
+on a CUDA tensor both entry points raise ``NotImplementedError`` when
+autograd would record the call (:func:`needs_grad`): serving runs without
+grad and is unaffected; training griffin on the card waits for
+``GRIFFIN_TRAIN_ITEM``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,22 @@ WAVES = 2                 # the plan's chunks fill this many waves of blocks
 # in all and by entry point: "ab" for rglru, "gated" for rglru_gated.
 launches = 0
 launches_by_form = dict.fromkeys(FORMS, 0)
+
+GRIFFIN_TRAIN_ITEM = "ROADMAP Queue 1 item 1, griffin training (the RG-LRU backward)"
+
+
+def needs_grad(*ts: torch.Tensor | None) -> bool:
+    """Whether autograd would record a call on ``ts``: grad mode is on and
+    some input requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
+def _refuse_grad(what: str, *ts: torch.Tensor | None) -> None:
+    if needs_grad(*ts):
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel has no gradient yet ({GRIFFIN_TRAIN_ITEM}), and its "
+            "result would drop the inputs' gradient; train griffin with device='cpu' or "
+            "call it under torch.no_grad()")
 
 
 def plan_scan_chunks(B: int, T: int, C: int, *, sms: int = 132) -> tuple[int, int]:
@@ -215,6 +238,7 @@ def rglru(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None) -> t
     if a.device.type == "cpu":
         return rglru_plain(a, b, h0)
     _cuda_ready(a, b, h0)
+    _refuse_grad("rglru", a, b, h0)
     bsz, t, c = a.shape
     nchunks, chunk_len = _plan(a)
     summary = _summary(a, nchunks)
@@ -249,6 +273,7 @@ def rglru_gated(x, wr, br, wi, bi, lam, h0=None, *, state_out=None):
     if x.device.type == "cpu":
         return rglru_gated_plain(x, *ws, h0, state_out=state_out)
     _cuda_ready(x, *ws, h0, state_out)
+    _refuse_grad("rglru_gated", x, *ws, h0)
     bsz, t, c = x.shape
     summary = _summary(x, nchunks)
     h = torch.empty_like(x)

@@ -2,7 +2,8 @@
 the autograd Function that joins them.
 
 The CUDA kernels are ``kernels/csrc/rmsnorm.cu`` (forward) and
-``kernels/csrc/rmsnorm_bwd.cu`` (its gradient); the note at the top of each
+``kernels/csrc/rmsnorm_bwd.cu`` (its gradient, two routes chosen by
+:func:`bwd_route`); the note at the top of each
 says which TPU kernel it replaces or differentiates, what bounds it, and
 what the design does about it.  :func:`rmsnorm` and :func:`rmsnorm_bwd`
 launch them for CUDA tensors and use :func:`rms_norm_plain` and
@@ -27,10 +28,19 @@ MAX_LANES = 256           # a row across at most 8 warps
 VECS_PER_LANE = (1, 2, 4, 8, 10, 16)   # the kernel's instantiations
 REG_BUDGET = 192          # 32-bit words a lane for its row and its 1 + scale
 
+# The backward's routes (kernels/csrc/rmsnorm_bwd.cu), chosen by
+# :func:`bwd_route`: "regs" holds a bf16 row in registers and reads it once,
+# "smem" takes every other shape.
+BWD_ROUTES = ("regs", "smem")
+BWD_REGS_D_STEP = 256     # "regs": d a multiple of 256 (8 bf16 a lane a vector) ...
+BWD_REGS_MAX_D = 2048     # ... up to 8 vectors a lane (registers)
+
 # Launches of the CUDA kernels since the last reset (plain integers):
-# the forward, and the backward (one a call: its row pass and its fold).
+# the forward, and the backward (one a call: its row pass and its fold), in
+# all and by route.
 launches = 0
 launches_bwd = 0
+launches_bwd_by_route = dict.fromkeys(BWD_ROUTES, 0)
 BWD_WARPS = 4             # rows a block of the backward, one warp each
 BWD_BLOCKS_PER_SM = 4
 BWD_MAX_SMEM = 227 * 1024  # bytes of shared memory a block may ask for
@@ -142,6 +152,18 @@ def plan_rmsnorm_bwd(n: int, *, sms: int = 132) -> int:
     return max(1, min(-(-n // BWD_WARPS), BWD_BLOCKS_PER_SM * sms))
 
 
+def bwd_route(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The backward's CUDA route for rows of ``d`` elements of ``dtype`` (x
+    and dy): ``"regs"`` for bf16 with ``d`` a multiple of
+    ``BWD_REGS_D_STEP`` up to ``BWD_REGS_MAX_D`` and rows 16-byte aligned
+    (``aligned``: x, dy and dx start on 16 bytes), else ``"smem"``."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"rmsnorm_bwd takes fp32/bf16, got {dtype}")
+    regs = (dtype == torch.bfloat16 and aligned and 0 < d <= BWD_REGS_MAX_D
+            and d % BWD_REGS_D_STEP == 0)
+    return "regs" if regs else "smem"
+
+
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                 eps: float = EPS) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dx, dscale)`` of :func:`rmsnorm` at ``dy``; dx in ``x.dtype``,
@@ -169,13 +191,20 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     blocks = plan_rmsnorm_bwd(n, sms=sms)
     partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     dscale = torch.empty_like(scale)
-    err = K.library().rmsnorm_bwd_launch(
-        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-        dscale.data_ptr(), n, d, float(eps), int(x.dtype == torch.bfloat16),
-        int(scale.dtype == torch.bfloat16), blocks,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    K.check(err, "rmsnorm_bwd")
+    r = bwd_route(x.dtype, d, all(t.data_ptr() % 16 == 0 for t in (x, dy, dx)))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    common = (x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+              dscale.data_ptr(), n, d, float(eps))
+    if r == "regs":
+        err = K.library().rmsnorm_bwd_regs_launch(
+            *common, int(scale.dtype == torch.bfloat16), blocks, stream)
+    else:
+        err = K.library().rmsnorm_bwd_launch(
+            *common, int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16), blocks,
+            stream)
+    K.check(err, f"rmsnorm_bwd ({r})")
     launches_bwd += 1
+    launches_bwd_by_route[r] += 1
     return dx, dscale
 
 

@@ -98,10 +98,11 @@ def _layer_cache(caches, i: int):
 
 def _pool_caches(caches, new: list):
     """Decode updated ``caches`` in place; prefill returns fresh per-layer
-    caches, stacked here along the pool's stack dim."""
+    caches, stacked here along the pool's stack dim.  An empty pool (a
+    griffin model with fewer layers than its pattern) has none."""
     if caches is not None:
         return caches
-    if new[0] is None:
+    if not new or new[0] is None:
         return None
     return _stack(new)
 

@@ -9,8 +9,8 @@ in a device synchronise, flags stragglers against an EWMA of the step
 time, saves every ``checkpoint_every`` steps and once at the end.
 
 Rollback-and-retry on faults, ``ElasticConfig`` world changes and
-straggler eviction come with the elastic slice (ROADMAP Queue 1 item 3):
-until then a failing step raises.
+straggler eviction come with the elastic slice (ROADMAP Queue 1 item 5, the
+elastic and fault-tolerant loop): until then a failing step raises.
 """
 
 from __future__ import annotations

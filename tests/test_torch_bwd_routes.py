@@ -1,0 +1,197 @@
+"""The routes of the port's two backward kernels and the RG-LRU's refusal
+to be differentiated on the card.
+
+On the CPU: the route rules of ``flash_attention_bwd`` (``bwd_route``:
+``wgmma`` / ``mma`` / ``fma`` by dtype, head dim and group size) and of
+``rmsnorm_bwd`` (``bwd_route``: ``regs`` / ``smem`` by dtype, row width and
+alignment) as pure functions, the padded row count of the flash backward's
+(lse, delta) table, and the RG-LRU's ``needs_grad`` rule.  On the card
+(``gpu`` marker, skipped here): each new route against its plain version
+at the train path's shape and at its edges, bitwise repeatable, and the
+RG-LRU kernel refusing a call that autograd would record.  The plain
+versions themselves are held to ``jax.vjp`` of the JAX package's layer
+functions in ``tests/test_torch_grads.py``."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import kernel as FA  # noqa: E402
+from repro_torch.kernels.rglru import kernel as RG  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as RN  # noqa: E402
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+# ---------------------------------------------------------------------------
+# route rules (CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,dh,g,want", [
+    (BF, 64, 4, "wgmma"),       # llama3.2-1b: GQA 32 / 8 heads of 64
+    (BF, 64, 1, "wgmma"),
+    (BF, 128, 8, "wgmma"),
+    (BF, 64, 64, "wgmma"),      # one position a 64-row tile
+    (BF, 64, 3, "mma"),         # 64 rows are not whole positions
+    (BF, 128, 10, "mma"),       # recurrentgemma's MQA group
+    (BF, 64, 128, "mma"),
+    (BF, 32, 4, "mma"),         # head dims a 128-byte TMA row does not hold
+    (BF, 16, 1, "mma"),
+    (F32, 64, 4, "fma"),
+    (F32, 256, 10, "fma"),
+])
+def test_flash_bwd_route(dtype, dh, g, want):
+    assert FA.bwd_route(dtype, dh, g) == want
+
+
+def test_flash_bwd_route_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        FA.bwd_route(torch.float16, 64, 4)
+
+
+@pytest.mark.parametrize("tq,g,want", [(2048, 4, 8192), (300, 1, 300), (301, 1, 302),
+                                       (3, 3, 10), (1, 1, 2)])
+def test_rowstat_rows_is_even_and_covers_the_rows(tq, g, want):
+    assert FA.rowstat_rows(tq, g) == want
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (BF, 2048, True, "regs"),   # llama3.2-1b's d_model
+    (BF, 256, True, "regs"),
+    (BF, 768, True, "regs"),
+    (BF, 2048, False, "smem"),  # a row that starts off 16 bytes
+    (BF, 2560, True, "smem"),   # wider than a lane's registers hold
+    (BF, 1000, True, "smem"),   # not whole 16-byte vectors a lane
+    (BF, 128, True, "smem"),
+    (F32, 2048, True, "smem"),
+])
+def test_rmsnorm_bwd_route(dtype, d, aligned, want):
+    assert RN.bwd_route(dtype, d, aligned) == want
+
+
+def test_rmsnorm_bwd_route_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        RN.bwd_route(torch.float16, 2048, True)
+
+
+def test_rglru_needs_grad():
+    x = torch.zeros(2, 3, 4)
+    w = torch.zeros(4, requires_grad=True)
+    assert RG.needs_grad(x, w)
+    assert RG.needs_grad(None, w)
+    assert not RG.needs_grad(x, None)
+    with torch.no_grad():
+        assert not RG.needs_grad(x, w)
+
+
+def test_rglru_cpu_calls_stay_differentiable():
+    """On the CPU the plain version runs, so a call autograd records is not
+    refused and its gradient reaches every weight."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 5, 8, generator=gen, requires_grad=True)
+    ws = [(0.1 * torch.randn(8, generator=gen)).requires_grad_() for _ in range(5)]
+    h, h_last = RG.rglru_gated(x, *ws)
+    (h.sum() + h_last.sum()).backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (x, *ws))
+
+
+# ---------------------------------------------------------------------------
+# on the card (skipped without one)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rel_close(got, want, rel, what):
+    """max |got - want| <= rel * max |want|, on the CPU in fp32."""
+    g, w = got.float().cpu(), want.float().cpu()
+    err, scale = (g - w).abs().max().item(), w.abs().max().item()
+    assert err <= rel * scale, f"{what}: max |err| {err} > {rel} x {scale}"
+
+
+# tests/test_torch_kernels.py's BWD_REL and chip_smoke.py's BWD_REL_TOL
+BWD_REL = {BF: 2e-2, F32: 1e-4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kw", [
+    ((4, 2048, 2048, 8, 4, 64), dict(causal=True)),                # llama train, one micro-step
+    ((2, 300, 300, 2, 4, 64), dict(causal=True)),                  # ragged T
+    ((2, 512, 512, 2, 4, 64), dict(causal=True, window=64)),
+    ((2, 256, 256, 4, 1, 64), dict(causal=True)),                  # g 1
+    ((2, 200, 200, 1, 8, 128), dict(causal=True)),                 # dh 128
+    ((2, 300, 300, 2, 4, 128), dict(causal=True, window=50)),
+    ((2, 160, 160, 2, 4, 64), dict(causal=False)),
+    ((2, 128, 256, 2, 4, 64), dict(causal=True, q_offset=64, kv_valid_len=150)),
+    ((2, 3, 40, 2, 2, 64), dict(causal=True, q_offset=30)),        # 6 rows
+    ((1, 64, 64, 1, 64, 64), dict(causal=True)),                   # a position a tile
+    ((2, 301, 301, 2, 1, 64), dict(causal=True, window=100)),      # odd row count: padded stats
+    ((2, 200, 200, 2, 3, 64), dict(causal=True)),                  # g 3: refused, takes mma
+])
+def test_cuda_flash_bwd_wgmma_matches_plain(cuda_device, shape, kw):
+    """The wgmma backward (or mma, where ``bwd_route`` refuses the group)
+    against its plain version, bitwise repeatable, counted on its route."""
+    b, tq, tk, hkv, g, dh = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    q, do = (torch.randn(b, tq, hkv, g, dh, generator=gen, device=cuda_device).to(BF)
+             for _ in range(2))
+    k, v = (torch.randn(b, tk, hkv, dh, generator=gen, device=cuda_device).to(BF)
+            for _ in range(2))
+    o, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    r = FA.bwd_route(BF, dh, g)
+    assert r == ("mma" if 64 % g else "wgmma")
+    before = dict(FA.launches_bwd_by_route)
+    grads = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert FA.launches_bwd_by_route[r] == before[r] + 2
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for got, rep, ref, what in zip(grads, again, want, ("dq", "dk", "dv")):
+        assert torch.equal(got, rep), f"{what}: not bitwise repeatable"
+        assert got.dtype == BF and got.shape == ref.shape
+        _rel_close(got, ref, BWD_REL[BF], what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,sdt,offset,want", [
+    (8192, 2048, BF, 0, "regs"),      # llama train: 4 x 2048 tokens
+    (64, 2048, F32, 0, "regs"),       # fp32 scale
+    (3, 256, BF, 0, "regs"),          # fewer rows than a block's warps
+    (1000, 768, BF, 0, "regs"),
+    (8, 2048, BF, 1, "smem"),         # unaligned rows
+    (37, 1000, BF, 0, "smem"),        # ragged d
+    (16, 2560, BF, 0, "smem"),        # past the registers' d
+])
+def test_cuda_rmsnorm_bwd_routes_match_plain(cuda_device, n, d, sdt, offset, want):
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    xb, gb = (torch.randn(n * d + offset, generator=gen, device=cuda_device).to(BF)
+              for _ in range(2))
+    s = (0.2 * torch.randn(d, generator=gen, device=cuda_device)).to(sdt)
+    x, dy = xb[offset:].view(n, d), gb[offset:].view(n, d)
+    before = dict(RN.launches_bwd_by_route)
+    dx, ds = RN.rmsnorm_bwd(x, s, dy)
+    dx2, ds2 = RN.rmsnorm_bwd(x, s, dy)
+    assert RN.launches_bwd_by_route[want] == before[want] + 2
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    rdx, rds = RN.rms_norm_bwd_plain(x, s, dy)
+    _rel_close(dx, rdx, BWD_REL[BF], "dx")
+    _rel_close(ds, rds, BWD_REL[BF], "dscale")
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_refuses_a_recorded_call(cuda_device):
+    """A launch would drop the gradient, so the kernel refuses a call that
+    autograd records; without grad (serving) it runs."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    x = torch.randn(2, 16, 128, generator=gen, device=cuda_device)
+    ws = [0.1 * torch.randn(128, generator=gen, device=cuda_device) for _ in range(5)]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        RG.rglru_gated(x.requires_grad_(), *ws)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        RG.rglru(x, x.detach())
+    with torch.no_grad():
+        h, _ = RG.rglru_gated(x, *ws)
+    assert torch.isfinite(h).all()

@@ -24,7 +24,13 @@ from repro.optim.adamw import OptConfig as JaxOptConfig  # noqa: E402
 from repro_torch.configs import get_config, smoke_variant  # noqa: E402
 from repro_torch.convert import state_from_jax  # noqa: E402
 from repro_torch.core.comm import CommEngine  # noqa: E402
-from repro_torch.core.mics import MiCSConfig, accumulate_grads, build_train_step  # noqa: E402
+from repro_torch.core.mics import (  # noqa: E402
+    MiCSConfig,
+    accumulate_grads,
+    build_train_step,
+    init_params,
+    refuse_unported,
+)
 from repro_torch.core.topology import MiCSTopology  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.build import build_model  # noqa: E402
@@ -217,6 +223,47 @@ def test_more_than_one_card_raises(setup, topo):
         build_train_step(setup[0], MiCSTopology(**topo), MiCSConfig(), OptConfig(), device="cpu")
 
 
+@pytest.mark.parametrize("family,device,refused", [
+    ("griffin", "cuda", True),    # the RG-LRU kernel has no gradient yet
+    ("griffin", "cpu", False),    # the plain version is differentiable
+    ("dense", "cuda", False),
+    ("dense", "cpu", False),
+])
+def test_griffin_training_refused_on_a_cuda_device(family, device, refused):
+    """The family check reads only the device's type, so it runs without a
+    card; a refusal names the ROADMAP item that lifts it."""
+    call = lambda: refuse_unported(MiCSConfig(), MiCSTopology(), family,  # noqa: E731
+                                   torch.device(device))
+    if refused:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+            call()
+    else:
+        call()
+
+
+def test_griffin_train_step_builds_on_the_cpu():
+    model = build_model(smoke_variant(get_config("recurrentgemma-2b")), tp=1)
+    assert callable(build_train_step(model, MiCSTopology(), MiCSConfig(), OptConfig(),
+                                     device="cpu"))
+
+
+def test_griffin_shorter_than_its_pattern_trains_on_the_cpu():
+    """2 layers of a (rec, rec, attn) pattern: an empty ``g`` pool (as the
+    JAX package builds it) and a (rec, rec) tail; the loss and every
+    gradient are finite and the empty pool's gradient is empty."""
+    cfg = dataclasses.replace(smoke_variant(get_config("recurrentgemma-2b")), n_layers=2)
+    model = build_model(cfg, tp=1)
+    assert {p.name: p.stack for p in model.pools} == {"g": 0, "gtail": 1}
+    params = init_params(model, seed=0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (1, 2, 16)))
+    batch = {"tokens": tokens, "targets": tokens, "mask": torch.ones((1, 2, 16))}
+    comm = CommEngine.from_config(MiCSTopology(), MiCSConfig())
+    grads, loss, _ = accumulate_grads(model, comm, L.Ctx(mode="train", compute_dtype=torch.bfloat16),
+                                      params, batch)
+    assert torch.isfinite(loss) and grads["g"].numel() == 0
+    assert all(torch.isfinite(g).all() and g.abs().amax() > 0 for k, g in grads.items() if k != "g")
+
+
 def test_unknown_values_raise():
     for kw in (dict(boundary_schedule="pipelined"), dict(clip_mode="loose"),
                dict(prefetch_carry="x"), dict(micro_steps=0), dict(hop2_bucket_mb=0)):
@@ -242,3 +289,21 @@ def test_cuda_train_step_matches_cpu(setup):
     for other in (again, serial):
         assert [m[:2] for m in card[0]] == [m[:2] for m in other[0]]
         assert _equal_states(card[1], other[1])
+
+
+@pytest.mark.gpu
+def test_cuda_griffin_train_step_raises():
+    """On the card griffin's train step is refused where it is built, and
+    its RG-LRU kernel refuses a call autograd records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    model = build_model(smoke_variant(get_config("recurrentgemma-2b")), tp=1)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        build_train_step(model, MiCSTopology(), MiCSConfig(), OptConfig(), device="cuda")
+    params = init_params(model, seed=0, device="cuda")
+    tokens = torch.zeros((1, 2, 16), dtype=torch.int64, device="cuda")
+    batch = {"tokens": tokens, "targets": tokens, "mask": torch.ones((1, 2, 16), device="cuda")}
+    comm = CommEngine.from_config(MiCSTopology(), MiCSConfig())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        accumulate_grads(model, comm, L.Ctx(mode="train", compute_dtype=torch.bfloat16),
+                         params, batch)
