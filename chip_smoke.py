@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's serve path for both model families it builds,
-and its training step for llama3.2-1b, on one NVIDIA card; hold every CUDA
-kernel against its plain PyTorch version.
+"""Drive the PyTorch port's serve path and its training step for both model
+families it builds on one NVIDIA card; hold every CUDA kernel against its
+plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -37,30 +37,36 @@ script exits non-zero; no phase swallows an error):
    same prefill logits on the card (kernels) as on the CPU (plain versions).
    ``profile``: device time of one prefill and one decode step by kernel,
    and the number of device kernels each runs.
-3. The train path, through ``runtime/train_loop.train`` (the launcher's
-   entry point): llama3.2-1b at full width and depth, ``init_state(seed=0)``,
+3. For each of two train paths, through ``runtime/train_loop.train`` (the
+   launcher's entry point), at full width and depth, ``init_state(seed=0)``,
    the synthetic stream, bf16 gather, prefetch schedule, bucketed boundary,
-   exact clip, ``OptConfig(warmup_steps=0)``; 2 micro-steps of 4 x 2048
-   tokens a step, 4 steps, then the loop's checkpoint (written and removed).
+   exact clip, ``OptConfig(warmup_steps=0)``, 4 steps, then the loop's
+   checkpoint (written, timed and removed):
+
+   * llama3.2-1b: 2 micro-steps of 4 x 2048 tokens a step;
+   * recurrentgemma-2b: 4 micro-steps of 2 x 2048 tokens a step.
 
    ``train``: each step's loss and grad_norm (finite); ``step_ms`` (median
    of steps 2-4, host clock around work that ends in a synchronise),
    ``tokens_per_s``, ``model_tflops`` and ``mfu`` (6 N a token, N = the
-   layer pools and the head, plus attention's 12 dh a causal pair and head,
-   against 989 TFLOP/s), ``peak_gb``.  The counters are set to 0 just before
-   the run and read just after: 4 steps x 2 micro-steps x (RMSNorm 33
-   forward + 32 recomputed, its backward 33, all on the ``regs`` route;
-   attention 16 + 16 recomputed, all on ``mma``, its backward 16, all on
-   ``wgmma``; RG-LRU 0).
-   ``train_consistency``: the same weights at 2 layers (full width), one
-   micro-step of 1 x 256 tokens: card against CPU (loss, grad_norm, every
-   pool's gradient, the params after one AdamW step); bitwise on the card
-   serial == prefetch (loss, gradients), serial == bucketed boundary
-   (params, m, v, grad_norm) and a step run twice.
-   ``griffin_train_refused``: a 2-layer recurrentgemma-2b at smoke width
-   must raise NotImplementedError naming ROADMAP Queue 1 item 1 where its
-   train step is built and where its RG-LRU is reached with autograd
-   recording (the kernel has no gradient yet); serving it is unchanged.
+   layer pools and the head, plus attention's 12 dh an allowed (query, key)
+   pair and head in each attention sub-layer: causal, and within the window
+   where the model has one; against 989 TFLOP/s), ``peak_gb``.  The counters
+   are set to 0 just before the run and read just after, and must be steps
+   x micro-steps x the path's counts a micro-step (each layer's compute is
+   checkpointed and recomputed once in the backward):
+   llama RMSNorm 33 forward + 32 recomputed, its backward 33, all on
+   ``regs``; attention 16 + 16, all on ``mma``, its backward 16, all on
+   ``wgmma``; RG-LRU 0.  recurrentgemma RMSNorm 53 + 52, its backward 53,
+   all on ``smem`` (d 2560); attention 8 + 8 on ``mma``, its backward 8,
+   all on ``mma`` (dh 256, by column halves); RG-LRU 18 + 18, its backward
+   18, all gated.
+   ``train_consistency``: the same weights at a cut depth (llama 2 layers;
+   recurrentgemma 5: ``g`` x1 + ``gtail``, so attention's backward runs),
+   full width, one micro-step of 1 x 256 tokens: card against CPU (loss,
+   grad_norm, every pool's gradient, the params after one AdamW step);
+   bitwise on the card serial == prefetch (loss, gradients), serial ==
+   bucketed boundary (params, m, v, grad_norm) and a step run twice.
    ``profile``: one train step's device time by kernel.
 4. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
@@ -74,19 +80,28 @@ script exits non-zero; no phase swallows an error):
    points, each with its chunk plan: gated at the path's shapes, beside the
    eager sequence it replaced (``eager_ms``), and the TPU kernel's ``(a, b)``
    form; every RMSNorm and RG-LRU check is called twice for a bitwise-equal
-   output.  The backward kernels run at the train shapes and at each
+   output.  The train paths' forward shapes are checked too: RMSNorm at
+   each path's token rows, the gated RG-LRU at recurrentgemma's train
+   micro-batch, and flash attention's output and log-sum-exp (as the train
+   path's forward writes them) at each backward check's shape.  The
+   backward kernels run at the train shapes and at each
    route's edges, each check naming its route and showing that the call
    took it: RMSNorm's ``regs`` route (bf16 rows held in registers) and
    ``smem`` route (fp32, ragged or wider rows); flash attention's ``wgmma``
    route (ragged T 300, window 64, g 1, dh 128), a group size it refuses
    (g 3, to ``mma``), ``mma`` at dh 32 and ``fma`` at fp32, with the
-   forward's log-sum-exp, each launch's device time apart (delta, dK / dV,
-   dQ) and TFLOP/s.  All bitwise repeatable, with the library's autograd
-   backward (``F.rms_norm``, ``F.scaled_dot_product_attention``) as
-   ``library_ms``.
+   forward's log-sum-exp and TFLOP/s (the device time a call of each of
+   the flash backward's launches, delta, dK / dV and dQ, is read from the
+   train steps' profiles); ``mma`` at dh 256 by column halves
+   (recurrentgemma's train shape, window 64, ragged T).  The RG-LRU backward at the train shape and its
+   edges (T not a multiple of the chunk, T 1, C not a multiple of 128,
+   fp32, the clip binding, the ``(a, b)`` form).  All bitwise repeatable,
+   with the library's autograd backward (``F.rms_norm``,
+   ``F.scaled_dot_product_attention``) as ``library_ms``; the RG-LRU has
+   none (no one PyTorch call computes a linear recurrence).
 
 ``python3 chip_smoke.py --profile-only`` runs the ``profile`` phases alone
-(both serve paths, then the train step; no checks, no result line): it
+(both serve paths, then the train steps; no checks, no result line): it
 uses only the serve API and ``build_train_step``, so the same file also
 profiles an earlier checkout (one that already trains) for comparison.
 
@@ -148,10 +163,10 @@ class Path:
 PATHS = (
     Path("llama3.2-1b", 4, 512, 32, 512 + 32, 2,
          {"rmsnorm": 33, "rmsnorm_bwd": 0, "flash_attention": 16, "flash_attention_bwd": 0,
-          "rglru": 0}),
+          "rglru": 0, "rglru_bwd": 0}),
     Path("recurrentgemma-2b", 4, 2560, 32, 2560 + 32, 5,
          {"rmsnorm": 53, "rmsnorm_bwd": 0, "flash_attention": 8, "flash_attention_bwd": 0,
-          "rglru": 18}),
+          "rglru": 18, "rglru_bwd": 0}),
 )
 
 
@@ -163,17 +178,29 @@ class TrainPath:
     seq: int
     steps: int
     launches: dict           # kernel -> launches a micro-step
+    attn_bwd_route: str      # the route of every attention backward
+    rms_bwd_route: str       # the route of every RMSNorm backward
     cut_layers: int          # depth of the train_consistency phase
     cut_tokens: int          # its one micro-batch: 1 x cut_tokens
 
 
-# Each layer's compute is checkpointed and recomputed once in the backward:
-# RMSNorm 33 forward (2 a layer + the final norm) + 32 recomputed and 33
-# backward (all on ``regs``); attention 16 + 16 and 16 backward, all
-# forwards on ``mma`` and all backwards on ``wgmma``.
-TRAIN = TrainPath("llama3.2-1b", 8, 2, 2048, 4,
-                  {"rmsnorm": 65, "rmsnorm_bwd": 33, "flash_attention": 32,
-                   "flash_attention_bwd": 16, "rglru": 0}, 2, 256)
+# Each layer's compute is checkpointed and recomputed once in the backward
+# (the final norm and the head are not).  llama: RMSNorm 33 forward (2 a
+# layer + the final norm) + 32 recomputed and 33 backward; attention 16 + 16
+# and 16 backward.  recurrentgemma (26 sub-layers: 18 recurrent, 8
+# attention): RMSNorm 53 + 52 and 53 backward; attention 8 + 8 and 8
+# backward; the gated RG-LRU 18 + 18 and 18 backward.  Every attention
+# forward takes ``mma``.
+TRAIN = (
+    TrainPath("llama3.2-1b", 8, 2, 2048, 4,
+              {"rmsnorm": 65, "rmsnorm_bwd": 33, "flash_attention": 32,
+               "flash_attention_bwd": 16, "rglru": 0, "rglru_bwd": 0},
+              "wgmma", "regs", 2, 256),
+    TrainPath("recurrentgemma-2b", 8, 4, 2048, 4,
+              {"rmsnorm": 105, "rmsnorm_bwd": 53, "flash_attention": 16,
+               "flash_attention_bwd": 8, "rglru": 36, "rglru_bwd": 18},
+              "mma", "smem", 5, 256),
+)
 # Card against CPU in the train_consistency phase, as a fraction of each
 # pool's largest |gradient| (and of |loss|, |grad_norm|): both sides round
 # activations and gradients to bf16, in different orders of sums.
@@ -193,7 +220,7 @@ def counter_attrs():
 
     return {"rmsnorm": (RN, "launches"), "rmsnorm_bwd": (RN, "launches_bwd"),
             "flash_attention": (FA, "launches"), "flash_attention_bwd": (FA, "launches_bwd"),
-            "rglru": (RG, "launches")}
+            "rglru": (RG, "launches"), "rglru_bwd": (RG, "launches_bwd")}
 
 
 def reset_counts() -> None:
@@ -204,7 +231,7 @@ def reset_counts() -> None:
     for mod, attr in counter_attrs().values():
         setattr(mod, attr, 0)
     for table in (FA.launches_by_route, FA.launches_bwd_by_route, RG.launches_by_form,
-                  RN.launches_bwd_by_route):
+                  RG.launches_bwd_by_form, RN.launches_bwd_by_route):
         table.update(dict.fromkeys(table, 0))
 
 
@@ -236,8 +263,8 @@ def ptxas_summary(log: str) -> list[dict]:
     from one "Compiling entry function" to the next describe that function.
     Flash attention gives its head dim; RMSNorm its x and scale types,
     vectors a lane and whether it is the vector or the scalar path; RG-LRU
-    its form (``ab`` or ``gated``) and types.  A count the log does not give
-    is None."""
+    (forward and backward) its form (``ab`` or ``gated``) and types.  A
+    count the log does not give is None."""
     def num(pattern: str, text: str) -> int | None:
         m = re.search(pattern, text)
         return int(m.group(1)) if m else None
@@ -269,7 +296,7 @@ def ptxas_summary(log: str) -> list[dict]:
                 row["types"] = _types(m.group(1)) if m else None
                 row["per_lane"] = int(m.group(2)) if m and m.group(2) else None
         else:
-            m = re.search(r"(Gated|Ab)SourceI(\w+?)EE", args)
+            m = re.search(r"(Gated|Ab)(?:Source|Bwd)I(\w+?)EE", args)
             row["form"] = None if m is None else {"Gated": "gated", "Ab": "ab"}[m.group(1)]
             row["types"] = _types(m.group(2)) if m else None
         out.append({**row, "registers": num(r"Used (\d+) registers", block),
@@ -361,9 +388,15 @@ def setup_path(path: Path, dev):
 # pattern a kernel's name contains names its kind.
 KERNEL_KINDS = (("flash_bwd", "flash attention backward"), ("flash_", "flash attention"),
                 ("rmsnorm_bwd", "RMSNorm backward"), ("rmsnorm", "RMSNorm"),
-                ("rglru", "RG-LRU"), ("nvjet", "GEMM"), ("gemm", "GEMM"),
+                ("rglru_bwd", "RG-LRU backward"), ("rglru", "RG-LRU"), ("nvjet", "GEMM"),
+                ("gemm", "GEMM"),
                 ("reduce_kernel", "reduction"), ("copy", "copy / cast"),
                 ("elementwise", "elementwise"), ("embedding", "embedding"))
+
+
+# The flash backward's three launches by the profile's kernel names.
+FLASH_BWD_PARTS = (("delta", "flash_bwd_delta"), ("dkdv", "flash_bwd_dkdv"),
+                   ("dq", "flash_bwd_dq"))
 
 
 def kernel_kind(name: str) -> str:
@@ -373,7 +406,8 @@ def kernel_kind(name: str) -> str:
 def profile_run(arch: str, step: str, run, top: int = 12, **extra) -> dict:
     """Device time of one call of ``run`` by kernel (it has run once before,
     so nothing is built or first-allocated in the window), the number of
-    device kernels it runs and their time by kind; emitted as a
+    device kernels it runs, their time by kind, and the flash backward's
+    device time a call of each of its launches where it ran; emitted as a
     ``profile`` line with ``extra``'s fields."""
     run()
     torch.cuda.synchronize()
@@ -400,6 +434,11 @@ def profile_run(arch: str, step: str, run, top: int = 12, **extra) -> dict:
         got = line["by_kind"].setdefault(kind, {"calls": 0, "device_ms": 0.0})
         got["calls"] += e.count
         got["device_ms"] += e.self_device_time_total / 1e3
+    for part, pat in FLASH_BWD_PARTS:
+        hits = [e for e in rows if pat in e.key]
+        if hits:
+            line.setdefault("flash_bwd_ms_per_launch", {})[part] = (
+                sum(e.self_device_time_total for e in hits) / 1e3 / sum(e.count for e in hits))
     emit(line)
     return line
 
@@ -519,26 +558,44 @@ def serve_path(path: Path, card: str, dev):
     return launches, by_route, by_form
 
 
+def train_rows(path: TrainPath) -> int:
+    """Token rows of one micro-step of ``path``."""
+    return path.global_batch // path.micro_steps * path.seq
+
+
+def attention_layers(cfg) -> int:
+    """The model's attention sub-layers: every layer of the dense family;
+    the ``attn`` entries of griffin's pattern over its super-layers and
+    tail (``models/build.py``)."""
+    if cfg.family != "griffin":
+        return cfg.n_layers
+    pattern = cfg.pattern or ("rec", "rec", "attn")
+    n_super, rem = divmod(cfg.n_layers, len(pattern))
+    return n_super * pattern.count("attn") + pattern[:rem].count("attn")
+
+
 def train_flops(model, path: TrainPath) -> float:
     """Model flops of one step: 6 N a token, N the parameters of the layer
     pools and the head (the embedding lookup does no product), plus
-    attention's 12 dh a (query, key) pair the causal mask allows and a
-    head.  Recomputation is not counted."""
+    attention's 12 dh a (query, key) pair the masks allow (causal, and
+    within the window where the model has one) and a head, in each
+    attention sub-layer.  Recomputation is not counted."""
     cfg = model.cfg
     n = sum(seg.size * pool.stack for pool in (*model.pools, model.head)
             for seg in pool.layout.segments)
     tokens = path.global_batch * path.seq
-    pairs = path.global_batch * path.seq * (path.seq + 1) // 2
-    attn = 12 * cfg.resolved_head_dim * pairs * cfg.n_heads * cfg.n_layers
+    span = cfg.window or path.seq   # keys a query sees at most
+    pairs = path.global_batch * sum(min(pos + 1, span) for pos in range(path.seq))
+    attn = 12 * cfg.resolved_head_dim * pairs * cfg.n_heads * attention_layers(cfg)
     return 6 * n * tokens + attn, n
 
 
-def train_phase(card: str, dev):
+def train_phase(path: TrainPath, card: str, dev):
     """``train``: the port's training entry point, ``runtime/train_loop.train``,
-    on llama3.2-1b at full width and depth for ``TRAIN.steps`` steps from
-    ``init_state(seed=0)`` and the synthetic stream; the launch counters are
-    set to 0 just before and read just after, and must be the steps x
-    micro-steps x the table's counts a micro-step."""
+    on ``path``'s model at full width and depth for ``path.steps`` steps
+    from ``init_state(seed=0)`` and the synthetic stream; the launch
+    counters are set to 0 just before and read just after, and must be the
+    steps x micro-steps x the path's counts a micro-step."""
     import shutil
 
     from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -547,20 +604,21 @@ def train_phase(card: str, dev):
     from repro_torch.core.topology import MiCSTopology
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rglru import kernel as RG
     from repro_torch.kernels.rmsnorm import kernel as RN
     from repro_torch.models.build import build_model
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.runtime.train_loop import LoopConfig, train
 
-    cfg = get_config(TRAIN.arch)
+    cfg = get_config(path.arch)
     model = build_model(cfg, tp=1)
-    mcfg = MiCSConfig(micro_steps=TRAIN.micro_steps)  # bf16 wire, prefetch, bucketed, exact
-    dc = DataConfig(vocab=cfg.vocab, seq=TRAIN.seq, global_batch=TRAIN.global_batch,
-                    micro_steps=TRAIN.micro_steps)
-    oc = OptConfig(warmup_steps=0, total_steps=TRAIN.steps)
+    mcfg = MiCSConfig(micro_steps=path.micro_steps)  # bf16 wire, prefetch, bucketed, exact
+    dc = DataConfig(vocab=cfg.vocab, seq=path.seq, global_batch=path.global_batch,
+                    micro_steps=path.micro_steps)
+    oc = OptConfig(warmup_steps=0, total_steps=path.steps)
     ckdir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(ckdir, ignore_errors=True)
-    lc = LoopConfig(total_steps=TRAIN.steps, checkpoint_every=0, checkpoint_dir=str(ckdir),
+    lc = LoopConfig(total_steps=path.steps, checkpoint_every=0, checkpoint_dir=str(ckdir),
                     log_every=0, seed=0)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -571,46 +629,61 @@ def train_phase(card: str, dev):
     launches = read_counts()
     by_route, bwd_by_route = dict(FA.launches_by_route), dict(FA.launches_bwd_by_route)
     rms_bwd_by_route = dict(RN.launches_bwd_by_route)
+    rglru_by_form = {"forward": dict(RG.launches_by_form),
+                     "backward": dict(RG.launches_bwd_by_form)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    micro = TRAIN.steps * TRAIN.micro_steps
-    want = {name: n * micro for name, n in TRAIN.launches.items()}
+    micro = path.steps * path.micro_steps
+    want = {name: n * micro for name, n in path.launches.items()}
     if launches != want:
-        raise AssertionError(f"train: launch counts {launches} != {want}")
+        raise AssertionError(f"train {path.arch}: launch counts {launches} != {want}")
     want_route = {"mma": want["flash_attention"], "split": 0, "fma": 0}
     if by_route != want_route:
-        raise AssertionError(f"train: attention routes {by_route} != {want_route}")
-    # every backward call on the Hopper routes: wgmma attention, RMSNorm's
-    # row held in registers
-    if bwd_by_route != {"wgmma": want["flash_attention_bwd"], "mma": 0, "fma": 0}:
-        raise AssertionError(f"train: attention backward routes {bwd_by_route}")
-    if rms_bwd_by_route != {"regs": want["rmsnorm_bwd"], "smem": 0}:
-        raise AssertionError(f"train: RMSNorm backward routes {rms_bwd_by_route}")
-    if len(stats.losses) != TRAIN.steps or not all(
+        raise AssertionError(f"train {path.arch}: attention routes {by_route} != {want_route}")
+    # every backward call on the path's route: llama's wgmma attention and
+    # RMSNorm row in registers; recurrentgemma's dh-256 attention on mma (by
+    # column halves) and its 2560-wide RMSNorm rows through shared memory
+    want_bwd = dict.fromkeys(FA.BWD_ROUTES, 0) | {path.attn_bwd_route:
+                                                  want["flash_attention_bwd"]}
+    if bwd_by_route != want_bwd:
+        raise AssertionError(f"train {path.arch}: attention backward routes {bwd_by_route}")
+    want_rms = dict.fromkeys(RN.BWD_ROUTES, 0) | {path.rms_bwd_route: want["rmsnorm_bwd"]}
+    if rms_bwd_by_route != want_rms:
+        raise AssertionError(f"train {path.arch}: RMSNorm backward routes {rms_bwd_by_route}")
+    # the model's RG-LRU is the gated form, forward and backward
+    want_form = {"forward": {"ab": 0, "gated": want["rglru"]},
+                 "backward": {"ab": 0, "gated": want["rglru_bwd"]}}
+    if rglru_by_form != want_form:
+        raise AssertionError(f"train {path.arch}: RG-LRU entry points {rglru_by_form}")
+    if len(stats.losses) != path.steps or not all(
             math.isfinite(x) for x in stats.losses + stats.grad_norms):
-        raise AssertionError(f"train: losses {stats.losses}, grad norms {stats.grad_norms}")
+        raise AssertionError(f"train {path.arch}: losses {stats.losses}, grad norms "
+                             f"{stats.grad_norms}")
     ck = Checkpointer(ckdir)
-    if ck.latest_step() != TRAIN.steps:
-        raise AssertionError(f"train: newest checkpoint {ck.latest_step()} != {TRAIN.steps}")
+    if ck.latest_step() != path.steps:
+        raise AssertionError(f"train {path.arch}: newest checkpoint {ck.latest_step()} != "
+                             f"{path.steps}")
     ck_gb = sum(f.stat().st_size for f in ckdir.rglob("*") if f.is_file()) / 1e9
     shutil.rmtree(ckdir)
 
     step_ms = statistics.median(stats.step_times[1:]) * 1e3
-    flops, n_params = train_flops(model, TRAIN)
-    tokens = TRAIN.global_batch * TRAIN.seq
+    flops, n_params = train_flops(model, path)
+    tokens = path.global_batch * path.seq
     model_tflops = flops / (step_ms / 1e3) / 1e12
     line = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-            "vocab": cfg.vocab, "global_batch": TRAIN.global_batch, "seq": TRAIN.seq,
-            "micro_steps": TRAIN.micro_steps, "tokens_per_step": tokens,
+            "vocab": cfg.vocab, "global_batch": path.global_batch, "seq": path.seq,
+            "micro_steps": path.micro_steps, "tokens_per_step": tokens,
             "gather_dtype": "bf16", "schedule": "prefetch", "boundary": "bucketed",
             "clip": "exact", "loss": stats.losses, "grad_norm": stats.grad_norms,
             "step_ms_all": [t * 1e3 for t in stats.step_times], "step_ms": step_ms,
             "tokens_per_s": tokens / (step_ms / 1e3), "model_params": n_params,
             "model_tflops": model_tflops, "mfu": model_tflops / (PEAK_OPS_PER_S[torch.bfloat16] / 1e12),
             "peak_gb": peak_gb, "loop_s": loop_s, "checkpoint_gb": ck_gb,
-            "launches": launches, "attention_launches_by_route": by_route,
+            "checkpoint_s": stats.save_times[-1], "launches": launches,
+            "attention_launches_by_route": by_route,
             "attention_bwd_launches_by_route": bwd_by_route,
-            "rmsnorm_bwd_launches_by_route": rms_bwd_by_route, "gpu": card}
+            "rmsnorm_bwd_launches_by_route": rms_bwd_by_route,
+            "rglru_launches_by_form": rglru_by_form, "gpu": card}
     emit(line)
     return launches, line
 
@@ -621,9 +694,9 @@ def _rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     return (a - b).abs().max().item(), b.abs().max().item()
 
 
-def train_consistency_phase(dev):
-    """``train_consistency``: the same weights at a cut depth (full width),
-    one micro-step of 1 x ``cut_tokens`` tokens.  Card against CPU: loss,
+def train_consistency_phase(path: TrainPath, dev):
+    """``train_consistency``: ``path``'s weights at its cut depth (full
+    width), one micro-step of 1 x ``cut_tokens`` tokens.  Card against CPU: loss,
     grad_norm, every pool's gradient and the params after one AdamW step.
     Bitwise on the card: serial == prefetch (loss and gradients), serial ==
     bucketed boundary (params, m, v, grad_norm), and a step run twice."""
@@ -636,10 +709,10 @@ def train_consistency_phase(dev):
     from repro_torch.optim.adamw import OptConfig
 
     topo = MiCSTopology()
-    model = build_model(get_config(TRAIN.arch), tp=1)
-    model2, params = cut_params(model, init_params(model, seed=0, device=dev), TRAIN.cut_layers)
+    model = build_model(get_config(path.arch), tp=1)
+    model2, params = cut_params(model, init_params(model, seed=0, device=dev), path.cut_layers)
     gen = torch.Generator(device=dev).manual_seed(2)
-    shape = (1, 1, TRAIN.cut_tokens)
+    shape = (1, 1, path.cut_tokens)
     batch = {"tokens": torch.randint(0, model.cfg.vocab, shape, generator=gen, device=dev),
              "targets": torch.randint(0, model.cfg.vocab, shape, generator=gen, device=dev),
              "mask": torch.ones(shape, device=dev)}
@@ -697,8 +770,8 @@ def train_consistency_phase(dev):
         if not err <= ADAMW_STEP_TOL_LR * oc.lr_max:
             raise AssertionError(f"train_consistency: pool {k} params after one step card vs "
                                  f"CPU {err} > {ADAMW_STEP_TOL_LR} lr")
-    emit({"phase": "train_consistency", "arch": model.cfg.name, "layers": TRAIN.cut_layers,
-          "tokens": TRAIN.cut_tokens, "pools": model2.global_flat_shapes(),
+    emit({"phase": "train_consistency", "arch": model.cfg.name, "layers": path.cut_layers,
+          "tokens": path.cut_tokens, "pools": model2.global_flat_shapes(),
           "serial_eq_prefetch": True, "serial_eq_bucketed": True, "repeat_bitwise": True,
           "card_vs_cpu": {"loss": [loss_pre.item(), loss_cpu.item()],
                           "grad_norm": [gn_card, gn_cpu], "grads": grad_err,
@@ -707,10 +780,10 @@ def train_consistency_phase(dev):
                           "params_tol": ADAMW_STEP_TOL_LR * oc.lr_max}})
 
 
-def train_profile(dev, timed_steps: int = 3):
-    """``profile`` of one train step at the ``train`` phase's configuration
-    (after one unprofiled step): device busy, idle share, top kernels, and
-    the host-clock time of ``timed_steps`` unprofiled steps before it
+def train_profile(path: TrainPath, dev, timed_steps: int = 3):
+    """``profile`` of one train step at ``path``'s configuration (after one
+    unprofiled step): device busy, idle share, top kernels, and the
+    host-clock time of ``timed_steps`` unprofiled steps before it
     (``step_ms``), since the profiler's own host work can idle the card."""
     from repro_torch.configs import get_config
     from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
@@ -719,13 +792,13 @@ def train_profile(dev, timed_steps: int = 3):
     from repro_torch.models.build import build_model
     from repro_torch.optim.adamw import OptConfig
 
-    cfg = get_config(TRAIN.arch)
+    cfg = get_config(path.arch)
     model = build_model(cfg, tp=1)
     state = init_state(model, 0, device=dev)
-    step = build_train_step(model, MiCSTopology(), MiCSConfig(micro_steps=TRAIN.micro_steps),
+    step = build_train_step(model, MiCSTopology(), MiCSConfig(micro_steps=path.micro_steps),
                             OptConfig(warmup_steps=0), device=dev)
-    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=TRAIN.seq, global_batch=TRAIN.global_batch,
-                                   micro_steps=TRAIN.micro_steps)).global_step_batch(0)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=path.seq, global_batch=path.global_batch,
+                                   micro_steps=path.micro_steps)).global_step_batch(0)
     holder = [state]
 
     def run():
@@ -740,9 +813,10 @@ def train_profile(dev, timed_steps: int = 3):
         run()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    profile_run(cfg.name, "train", run, top=25, step_ms=step_ms)
+    line = profile_run(cfg.name, "train", run, top=25, step_ms=step_ms)
     del holder, state
     torch.cuda.empty_cache()
+    return line
 
 
 def kernel_checks(gen, dev, flush):
@@ -764,7 +838,9 @@ def kernel_checks(gen, dev, flush):
     rms_checks = []
     for path, n, d in (("llama prefill", 4 * 512, 2048), ("llama decode", 4, 2048),
                        ("recurrentgemma prefill", 4 * 2560, 2560),
-                       ("recurrentgemma decode", 4, 2560)):
+                       ("recurrentgemma decode", 4, 2560),
+                       ("llama train", train_rows(TRAIN[0]), 2048),
+                       ("recurrentgemma train", train_rows(TRAIN[1]), 2560)):
         x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
         s = (0.2 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
         w = 1.0 + s.float()
@@ -875,6 +951,8 @@ def kernel_checks(gen, dev, flush):
         ("recurrentgemma decode", (4, 1, 2560), bf, "aliased"),
         ("fp32", (4, 2560, 2560), f32, None),
         ("ragged", (3, 1001, 2500), bf, "h0"),
+        ("recurrentgemma train", (TRAIN[1].global_batch // TRAIN[1].micro_steps,
+                                  TRAIN[1].seq, 2560), bf, None),
     ]
     rglru_checks = []
     for kind, shape, dt, state in gated_cases:
@@ -964,39 +1042,22 @@ def kernel_checks(gen, dev, flush):
 # The backward kernels against their plain versions, as a fraction of the
 # largest |gradient| (tests/test_torch_kernels.py's BWD_REL): bf16 rounds
 # dP, P and dS at the same places in both and differs by exp2 against exp
-# and the order of sums; fp32 by the order of sums.
+# and the order of sums; fp32 by the order of sums.  The RG-LRU backward
+# is held to the same: its bf16 outputs round the same fp32 values, and in
+# fp32 the card's expf, division and sqrt differ by ulps that the reverse
+# scan amplifies by up to 1 / (1 - a), as the forward's do.
 BWD_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-
-
-def device_ms_by_kernel(fn, calls: int = 5) -> dict:
-    """Device time of one call of ``fn`` by kernel name: the profiler's
-    CUDA events over ``calls`` calls (after one outside the window), each
-    kernel's total over its own count of events.  (After ``host_us`` has
-    queued hundreds of launches the profiler can miss a few events, so a
-    kernel's mean is taken over the events it kept.)"""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.count}
-
-
-# The flash backward's launches by the profile's kernel names.
-FLASH_BWD_PARTS = (("delta", "flash_bwd_delta"), ("dkdv", "flash_bwd_dkdv"),
-                   ("dq", "flash_bwd_dq"))
+# fp32 operations a element of the gated RG-LRU backward: the forward's
+# gate math (GATED_OPS_PER_ELEMENT), the reverse scan and the chain rule
+# to dx and the five weight sums.
+GATED_BWD_OPS_PER_ELEMENT = 2 * GATED_OPS_PER_ELEMENT
 
 
 def backward_checks(gen, dev, flush):
     """The backward kernels at the train path's shapes and at each route's
     edges, each against its plain version on the same inputs, called twice
     for a bitwise-equal output, timed beside its bound and one PyTorch
-    library call's backward (timed alone, the graph retained).  The flash
-    backward's three launches (delta, dK / dV, dQ) are also timed apart,
-    from the profiler's device time of one call."""
+    library call's backward (timed alone, the graph retained)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as FA
@@ -1016,11 +1077,10 @@ def backward_checks(gen, dev, flush):
     bf, f32 = torch.bfloat16, torch.float32
     rms = []
     for case, (n, d), dt, sdt in (
-            ("llama train [8192, 2048]", (TRAIN.global_batch // TRAIN.micro_steps * TRAIN.seq,
-                                          2048), bf, bf),
+            ("llama train [8192, 2048]", (train_rows(TRAIN[0]), 2048), bf, bf),
             ("fp32 scale [64, 2048]", (64, 2048), bf, f32),
             ("few rows [3, 256]", (3, 256), bf, bf),
-            ("recurrentgemma width [10240, 2560]", (10240, 2560), bf, bf),
+            ("recurrentgemma train [4096, 2560]", (train_rows(TRAIN[1]), 2560), bf, bf),
             ("fp32 [1024, 4096]", (1024, 4096), f32, f32),
             ("ragged d [37, 1000], fp32 scale", (37, 1000), bf, f32)):
         x = torch.randn(n, d, generator=gen, device=dev).to(dt)
@@ -1055,8 +1115,12 @@ def backward_checks(gen, dev, flush):
     attn = []
     cfgs = [
         # case, b, T, hkv, g, dh, causal, window, dtype
-        ("llama train", TRAIN.global_batch // TRAIN.micro_steps, TRAIN.seq, 8, 4, 64, True, 0,
-         bf),
+        ("llama train", TRAIN[0].global_batch // TRAIN[0].micro_steps, TRAIN[0].seq, 8, 4, 64,
+         True, 0, bf),
+        ("recurrentgemma train", TRAIN[1].global_batch // TRAIN[1].micro_steps, TRAIN[1].seq, 1,
+         10, 256, True, 2048, bf),
+        ("dh 256 window 64", 2, 512, 1, 10, 256, True, 64, bf),
+        ("dh 256 ragged T 300", 2, 300, 1, 10, 256, True, 0, bf),
         ("ragged T 300", 2, 300, 2, 4, 64, True, 0, bf),
         ("window 64", 2, 512, 2, 4, 64, True, 64, bf),
         ("g 1", 2, 256, 4, 1, 64, True, 0, bf),
@@ -1072,9 +1136,16 @@ def backward_checks(gen, dev, flush):
         k = torch.randn(b, t, hkv, dh, generator=gen, device=dev).to(dt)
         v = torch.randn(b, t, hkv, dh, generator=gen, device=dev).to(dt)
         do = torch.randn(b, t, hkv, g, dh, generator=gen, device=dev).to(dt)
+        # the forward as the train path runs it: o (held as kernel_checks
+        # holds the forward) and the log-sum-exp the backward reads
         o, lse = FA.flash_attention_fwd(q, k, v, **kw)
-        _, lse_ref = FA.attention_plain_lse(q, k, v, **kw)
+        o_ref, lse_ref = FA.attention_plain_lse(q, k, v, **kw)
+        o_err = (o.float() - o_ref.float()).abs().max().item()
+        if not torch.allclose(o.float(), o_ref.float(), rtol=TOL[dt], atol=TOL[dt]):
+            raise AssertionError(f"flash forward {case}: o disagrees with its plain version "
+                                 f"(max |err| {o_err}, tol {TOL[dt]})")
         lse_err = rel_check(f"flash lse {case}", [lse], [lse_ref], 1e-5)
+        del o_ref
         route = FA.bwd_route(dt, dh, g)
         before = FA.launches_bwd_by_route[route]
         out = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -1092,22 +1163,19 @@ def backward_checks(gen, dev, flush):
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
         b_ms, b_by = bound(nbytes, ops, dt)
         ms = time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do, **kw), flush)
-        by_kernel = device_ms_by_kernel(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do, **kw))
-        parts = {part: sum(t_ for name, t_ in by_kernel.items() if pat in name) or None
-                 for part, pat in FLASH_BWD_PARTS}
         qs = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, t, dh).contiguous().requires_grad_()
         ks = k.permute(0, 2, 1, 3).contiguous().requires_grad_()
         vs = v.permute(0, 2, 1, 3).contiguous().requires_grad_()
         dos = do.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, t, dh).contiguous()
-        lib_causal = causal and not window
+        lib_causal = causal and (not window or window >= t)  # a window past T masks nothing
         y = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=None if lib_causal else allowed,
                                            is_causal=lib_causal, enable_gqa=True)
         attn.append({
             "case": case, "shape": {"b": b, "T": t, "hkv": hkv, "g": g, "dh": dh},
             "causal": causal, "window": window, "dtype": str(dt)[6:], "route": route,
             "bitwise_repeat": True, "max_abs_err": err, "rel_tol": BWD_REL_TOL[dt],
-            "lse_max_abs_err": lse_err, "ms": ms, "tflops": ops / ms / 1e9,
-            "device_ms_by_launch": parts, "allowed_pairs": pairs,
+            "o_max_abs_err": o_err, "o_tol": TOL[dt], "lse_max_abs_err": lse_err, "ms": ms, "tflops": ops / ms / 1e9,
+            "allowed_pairs": pairs,
             "host_us": host_us(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do, **kw), 50),
             "plain_ms": time_ms(lambda: FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
                                 flush, reps=5),
@@ -1116,56 +1184,106 @@ def backward_checks(gen, dev, flush):
                                                               retain_graph=True), flush)})
         del q, k, v, do, o, out, qs, ks, vs, y
         torch.cuda.empty_cache()
-    return rms, attn
+    return rms, attn, rglru_backward_checks(gen, dev, flush, rel_check)
 
 
-def griffin_refusal_phase(dev):
-    """``griffin_train_refused``: griffin's RG-LRU kernel has no gradient yet,
-    so training a griffin model on the card must raise NotImplementedError
-    naming ROADMAP Queue 1 item 1, both where the train step is built and
-    where a layer's rows reach the kernel with autograd recording (2 layers
-    at smoke width: an empty ``g`` pool and a (rec, rec) tail).  Only that
-    error counts as a pass; any other error, or none, fails the phase."""
-    from repro_torch.configs import get_config, smoke_variant
-    from repro_torch.core.comm import CommEngine
-    from repro_torch.core.mics import MiCSConfig, accumulate_grads, build_train_step, init_params
-    from repro_torch.core.topology import MiCSTopology
-    from repro_torch.models import layers as L
-    from repro_torch.models.build import build_model
-    from repro_torch.optim.adamw import OptConfig
+def rglru_backward_checks(gen, dev, flush, rel_check):
+    """The RG-LRU backward (gated, then the ``(a, b)`` form) at the train
+    shape and its edges, each over ``plan_bwd_chunks``' plan, against its
+    plain version on the same inputs, called twice for a bitwise-equal
+    output, timed beside its bound.  Inputs as ``kernel_checks`` draws them
+    (gates std 0.02, biases 0.1, sigmoid(lam) in (0.9, 0.999)); "clip
+    binds" takes lam in (17, 18), where 1 - a^2 < 1e-6."""
+    from repro_torch.kernels.rglru import kernel as RG
 
-    cfg = dataclasses.replace(smoke_variant(get_config("recurrentgemma-2b")), n_layers=2)
-    model = build_model(cfg, tp=1)
-    params = init_params(model, seed=0, device=dev)
-    tokens = torch.zeros((1, 2, 16), dtype=torch.int64, device=dev)
-    batch = {"tokens": tokens, "targets": tokens, "mask": torch.ones((1, 2, 16), device=dev)}
-    comm = CommEngine.from_config(MiCSTopology(), MiCSConfig())
-    calls = {
-        "build_train_step": lambda: build_train_step(model, MiCSTopology(), MiCSConfig(),
-                                                     OptConfig(), device=dev),
-        "accumulate_grads (rglru_gated)": lambda: accumulate_grads(
-            model, comm, L.Ctx(mode="train", compute_dtype=torch.bfloat16), params, batch),
-    }
-    messages = {}
-    for where, call in calls.items():
-        try:
-            call()
-        except NotImplementedError as e:
-            messages[where] = str(e)
-        else:
-            raise AssertionError(f"griffin training on the card: {where} did not raise")
-        if "Queue 1 item 1" not in messages[where]:
-            raise AssertionError(f"griffin training on the card: {where} raised without naming "
-                                 f"ROADMAP Queue 1 item 1: {messages[where]}")
-    emit({"phase": "griffin_train_refused", "arch": cfg.name, "layers": cfg.n_layers,
-          "d_model": cfg.d_model, "raised": messages})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf, f32 = torch.bfloat16, torch.float32
+    rg_train = (TRAIN[1].global_batch // TRAIN[1].micro_steps, TRAIN[1].seq, 2560)
+    out = []
+    for case, shape, dt, wdt, clip in (
+            ("recurrentgemma train", rg_train, bf, bf, False),
+            ("T 1001 (not a multiple of the chunk), C 2500, fp32 weights", (3, 1001, 2500), bf,
+             f32, False),
+            ("T 1", (2, 1, 2560), bf, bf, False),
+            ("C 300 (not a multiple of 128)", (2, 512, 300), bf, bf, False),
+            ("fp32", rg_train, f32, f32, False),
+            ("clip binds", (2, 512, 512), f32, f32, True)):
+        c = shape[2]
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        dh = torch.randn(shape, generator=gen, device=dev).to(dt)
+        u = 0.9 + 0.099 * torch.rand(c, generator=gen, device=dev)
+        lam = (17.0 + torch.rand(c, generator=gen, device=dev)) if clip else (
+            torch.log(u) - torch.log1p(-u))
+        ws = tuple(w.to(wdt) for w in (
+            0.02 * torch.randn(c, generator=gen, device=dev),
+            0.1 * torch.randn(c, generator=gen, device=dev),
+            0.02 * torch.randn(c, generator=gen, device=dev),
+            0.1 * torch.randn(c, generator=gen, device=dev), lam))
+        plan = RG.plan_bwd_chunks(*shape, sms=sms)
+        before = RG.launches_bwd_by_form["gated"]
+        got = RG.rglru_gated_bwd(x, *ws, dh, plan=plan)
+        if RG.launches_bwd_by_form["gated"] != before + 1:
+            raise AssertionError(f"rglru_gated_bwd {case}: not counted as a gated launch")
+        if not all(torch.equal(a, b) for a, b in zip(got, RG.rglru_gated_bwd(x, *ws, dh,
+                                                                             plan=plan))):
+            raise AssertionError(f"rglru_gated_bwd {case}: not bitwise repeatable")
+        rel = BWD_REL_TOL[dt]
+        err = rel_check(f"rglru_gated_bwd {case}", got,
+                        RG.rglru_gated_bwd_plain(x, *ws, dh, nchunks=plan[0], chunk_len=plan[1]),
+                        rel)
+        binds = None
+        if clip:  # the clip binds where 1 - a^2 < 1e-6; there b's path adds nothing to d log_a
+            a, _ = RG.rglru_coeffs_plain(x, *ws)
+            binds = (1.0 - a.double() ** 2 < 1e-6).float().mean().item()
+            if binds < 0.5:
+                raise AssertionError(f"rglru_gated_bwd {case}: the clip binds at {binds} only")
+        # x and dh read, dx written; the weights read and their gradients written
+        nbytes = 3 * x.numel() * x.element_size() + 10 * c * ws[0].element_size()
+        b_ms, b_by = bound(nbytes, GATED_BWD_OPS_PER_ELEMENT * x.numel(), f32)
+        out.append({
+            "case": case, "form": "gated", "shape": list(shape), "dtype": str(dt)[6:],
+            "weight_dtype": str(wdt)[6:], "plan": {"nchunks": plan[0], "chunk_len": plan[1]},
+            "clip_binds_share": binds, "bitwise_repeat": True, "max_abs_err": err,
+            "rel_tol": rel, "ms": time_ms(lambda: RG.rglru_gated_bwd(x, *ws, dh, plan=plan), flush),
+            "plain_ms": time_ms(lambda: RG.rglru_gated_bwd_plain(
+                x, *ws, dh, nchunks=plan[0], chunk_len=plan[1]), flush, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        del x, dh, got
+    for case, shape, dt in (("ab, the train shape", rg_train, f32),
+                            ("ab, T 1001, C 2500", (3, 1001, 2500), bf)):
+        a = (0.7 + 0.299 * torch.rand(shape, generator=gen, device=dev)).to(dt)
+        b = (0.1 * torch.randn(shape, generator=gen, device=dev)).to(dt)
+        dh = torch.randn(shape, generator=gen, device=dev).to(dt)
+        plan = RG.plan_bwd_chunks(*shape, sms=sms)
+        before = RG.launches_bwd_by_form["ab"]
+        got = RG.rglru_bwd(a, b, dh, plan=plan)
+        if RG.launches_bwd_by_form["ab"] != before + 1:
+            raise AssertionError(f"rglru_bwd {case}: not counted as an ab launch")
+        if not all(torch.equal(p, q) for p, q in zip(got, RG.rglru_bwd(a, b, dh, plan=plan))):
+            raise AssertionError(f"rglru_bwd {case}: not bitwise repeatable")
+        rel = BWD_REL_TOL[dt]
+        err = rel_check(f"rglru_bwd {case}", got,
+                        RG.rglru_bwd_plain(a, b, dh, nchunks=plan[0], chunk_len=plan[1]), rel)
+        # a, b, dh read, da, db written; a few operations an element
+        b_ms, b_by = bound(5 * a.numel() * a.element_size(), 6 * a.numel(), f32)
+        out.append({
+            "case": case, "form": "ab", "shape": list(shape), "dtype": str(dt)[6:],
+            "plan": {"nchunks": plan[0], "chunk_len": plan[1]}, "bitwise_repeat": True,
+            "max_abs_err": err, "rel_tol": rel,
+            "ms": time_ms(lambda: RG.rglru_bwd(a, b, dh, plan=plan), flush),
+            "plain_ms": time_ms(lambda: RG.rglru_bwd_plain(
+                a, b, dh, nchunks=plan[0], chunk_len=plan[1]), flush, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        del a, b, dh, got
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile-only", action="store_true",
-                    help="run only the profile phases: both serve paths and the train step "
-                         "(no checks, no result)")
+                    help="run only the profile phases: both serve paths and the train steps "
+                         "the checkout trains on a card (no checks, no result)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1189,12 +1307,18 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib.name,
           "ptxas": ptxas_summary(lib.with_suffix(".log").read_text()), "gpu": card})
     if args.profile_only:
+        from repro_torch.configs import get_config
+        from repro_torch.core.mics import CUDA_TRAIN_FAMILIES
+
         for p in PATHS:
             cfg, _, _, params, prefill_fn, decode_fn, prompt = setup_path(p, dev)
             profile_path(p, cfg, params, prefill_fn, decode_fn, prompt)
             del params
             torch.cuda.empty_cache()
-        train_profile(dev)
+        for tp in TRAIN:  # an older checkout may train fewer families on a card
+            if get_config(tp.arch).family in CUDA_TRAIN_FAMILIES:
+                train_profile(tp, dev)
+                torch.cuda.empty_cache()
         return 0
 
     # -- 2. the serve paths ----------------------------------------------------
@@ -1207,21 +1331,35 @@ def main() -> int:
         for f, n in by_form.items():
             launches_by_form[f] += n
 
-    # -- 3. the train path ------------------------------------------------------
-    by_path["llama3.2-1b train"], train_line = train_phase(card, dev)
-    launches_by_route["mma"] += train_line["attention_launches_by_route"]["mma"]
-    torch.cuda.empty_cache()
-    train_consistency_phase(dev)
-    torch.cuda.empty_cache()
-    griffin_refusal_phase(dev)
-    train_profile(dev)
+    # -- 3. the train paths ------------------------------------------------------
+    train_lines, train_profiles = [], []
+    for tp in TRAIN:
+        by_path[f"{tp.arch} train"], line = train_phase(tp, card, dev)
+        train_lines.append(line)
+        launches_by_route["mma"] += line["attention_launches_by_route"]["mma"]
+        launches_by_form["gated"] += line["rglru_launches_by_form"]["forward"]["gated"]
+        torch.cuda.empty_cache()
+        train_consistency_phase(tp, dev)
+        torch.cuda.empty_cache()
+        train_profiles.append(train_profile(tp, dev))
+        torch.cuda.empty_cache()
+
+    def train_sum(*keys: str) -> dict:
+        """A train line's launches by route (or form) under ``keys``, summed
+        over the paths."""
+        out = {}
+        for line in train_lines:
+            table = line
+            for key in keys:
+                table = table[key]
+            for r, n in table.items():
+                out[r] = out.get(r, 0) + n
+        return out
 
     # -- 4. kernels against their plain versions, timed ---------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
-    # the backward first: its launches are timed apart by the profiler,
-    # before the forward checks' host_us queues thousands of launches
-    rms_bwd_checks, attn_bwd_checks = backward_checks(gen, dev, flush)
+    rms_bwd_checks, attn_bwd_checks, rglru_bwd_checks = backward_checks(gen, dev, flush)
     rms_checks, attn_checks, rglru_checks = kernel_checks(gen, dev, flush)
 
     def entry(name, source, replaces, checks, **more):
@@ -1243,7 +1381,7 @@ def main() -> int:
                           "backward)",
               sources={"regs": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                        "smem": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu"},
-              launches_by_route=train_line["rmsnorm_bwd_launches_by_route"]),
+              launches_by_route=train_sum("rmsnorm_bwd_launches_by_route")),
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
               "src/repro/kernels/flash_attention/kernel.py:86", attn_checks,
               sources={"mma": "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
@@ -1259,11 +1397,17 @@ def main() -> int:
                        "fma": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                        "delta (every route)":
                            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"},
-              device_ms_by_launch=attn_bwd_checks[0]["device_ms_by_launch"],
-              launches_by_route=train_line["attention_bwd_launches_by_route"]),
+              device_ms_by_launch={line["arch"]: line["flash_bwd_ms_per_launch"]
+                                   for line in train_profiles},
+              launches_by_route=train_sum("attention_bwd_launches_by_route")),
         entry("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru/kernel.py:47", rglru_checks,
               launches_by_form=launches_by_form),
+        entry("rglru_bwd", "src/repro_torch/kernels/csrc/rglru_bwd.cu",
+              "src/repro/kernels/rglru/kernel.py:47", rglru_bwd_checks,
+              gradient_of="src/repro/models/recurrent.py:92 rglru_scan after :77 "
+                          "_rglru_coeffs (the TPU kernel has no backward)",
+              launches_by_form=train_sum("rglru_launches_by_form", "backward")),
     ], "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

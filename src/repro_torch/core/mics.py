@@ -24,7 +24,6 @@ from repro_torch.core.comm import CommEngine
 from repro_torch.core.schedule import BOUNDARY_SCHEDULES, CLIP_MODES, apply_boundary, plan_boundary
 from repro_torch.core.topology import MiCSTopology
 from repro_torch.device import resolve_device
-from repro_torch.kernels.rglru.kernel import GRIFFIN_TRAIN_ITEM
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.lm import ModelDef
@@ -46,10 +45,9 @@ UNPORTED_TRAIN = {
     "policy": ("manual", f"the link-model autotuner ({_PLANNER_ITEM})"),
     "hbm_budget_gb": (None, f"the memory planner ({_PLANNER_ITEM})"),
 }
-# Families the port trains on a CUDA device.  Griffin's RG-LRU kernel has no
-# gradient yet (its launch returns a result autograd cannot see), so griffin
-# trains only on the CPU, through the differentiable plain version.
-CUDA_TRAIN_FAMILIES = ("dense",)
+# Families the port trains on a CUDA device: each kernel their layers reach
+# has a hand-written backward (griffin's RG-LRU since slice 7).
+CUDA_TRAIN_FAMILIES = ("dense", "griffin")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,9 +146,8 @@ def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology, family: str = "dense",
     ``torch.device``; only its type is read, so the check needs no card)."""
     if device.type == "cuda" and family not in CUDA_TRAIN_FAMILIES:
         raise NotImplementedError(
-            f"family {family!r} does not train on a CUDA device yet: the RG-LRU kernel has "
-            f"no gradient ({GRIFFIN_TRAIN_ITEM}); pass device='cpu' to train it through "
-            "the differentiable plain version")
+            f"family {family!r} does not train on a CUDA device: the port trains "
+            f"{CUDA_TRAIN_FAMILIES} there (ROADMAP Queue 1 item 7, the other families)")
     for name, (default, item) in UNPORTED_TRAIN.items():
         if getattr(mcfg, name) != default:
             raise NotImplementedError(

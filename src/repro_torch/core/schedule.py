@@ -18,7 +18,7 @@ length, so they are bitwise equal at every bucket size; the denominator
 (``micro_steps * data_parallel``) and the clip factor are folded into one
 ``grad_scale`` of the AdamW update.  The approximate clip and the
 host-offloaded optimizer states are refused (``core/mics.py``).  The
-update writes params, m and v in place, one stack row at a time.
+update writes params, m and v in place, a slice of a stack row at a time.
 """
 
 from __future__ import annotations
@@ -137,13 +137,34 @@ def _reduce_bucketed(plan: BoundaryPlan, comm, flat_grads: dict):
     return sq_parts
 
 
+# Elements of a row that one AdamW update takes at a time.  Its elementwise
+# passes hold about ten fp32 temporaries of the slice (2.7 GB at 2^26)
+# rather than of the whole row (26 GB for recurrentgemma-2b's 655M-element
+# embedding or head row), and, being elementwise, give bitwise the result
+# of a whole-row update.
+UPDATE_SLICE = 1 << 26
+
+
+def _slice_masks(layout, lo: int, n: int, one: torch.Tensor):
+    """``(decay_mask, pad_mask)`` of a row's elements ``[lo, lo + n)``,
+    each the 0-d ``one`` where its mask would hold only ones (the same
+    product, bitwise), so a slice that no no-decay segment and no padding
+    reaches builds no mask."""
+    hi, device = lo + n, one.device
+    decays = all(max(s, lo) >= min(e, hi) for s, e in layout.nodecay_ranges())
+    dm = one if decays else layout.decay_mask_for_shard(lo, n, device=device)
+    pm = one if hi <= layout.raw_len else layout.padding_mask_for_shard(lo, n, device=device)
+    return dm, pm
+
+
 def apply_boundary(plan: BoundaryPlan, comm, model, topo: MiCSTopology, oc: OptConfig,
                    state: dict, grads: dict, denom: float):
     """Run one accumulation boundary under ``plan``: hop 2 on ``grads``
     (per-pool fp32 accumulated sums ``[stack, 1, shard_len]``, reduced in
     place), the exact global-norm clip, then AdamW with ``clip / denom``
     folded into the gradient, written into ``state``'s params, m and v in
-    place.  Returns ``(params, m, v, grad_norm)``."""
+    place, ``UPDATE_SLICE`` elements of a row at a time.  Returns
+    ``(params, m, v, grad_norm)``."""
     flat_grads = {name: grads[name].reshape(-1) for name in plan.shard_elems}
     if plan.mode == "bucketed":
         sq_parts = _reduce_bucketed(plan, comm, flat_grads)
@@ -163,17 +184,20 @@ def apply_boundary(plan: BoundaryPlan, comm, model, topo: MiCSTopology, oc: OptC
     lr = lr_schedule(step, oc, device=device)
     start = comm.partition_coord()
     params, m, v = state["params"], state["m"], state["v"]
+    one = torch.ones((), dtype=torch.float32, device=device)
     for pool in model.all_pools():
         name = pool.name
         g = grads[name]
         shard_len = g.shape[-1]
-        dm = pool.layout.decay_mask_for_shard(start * shard_len, shard_len, device=device)
-        pm = pool.layout.padding_mask_for_shard(start * shard_len, shard_len, device=device)
-        for i in range(g.shape[0]):
-            p_new, m_new, v_new = adamw_shard_update(
-                params[name][i, 0], g[i, 0], m[name][i, 0], v[name][i, 0], step, oc,
-                decay_mask=dm, pad_mask=pm, lr=lr, grad_scale=grad_scale)
-            params[name][i, 0].copy_(p_new)
-            m[name][i, 0].copy_(m_new)
-            v[name][i, 0].copy_(v_new)
+        for lo in range(0, shard_len, UPDATE_SLICE):
+            n = min(UPDATE_SLICE, shard_len - lo)
+            dm, pm = _slice_masks(pool.layout, start * shard_len + lo, n, one)
+            for i in range(g.shape[0]):
+                part = (i, 0, slice(lo, lo + n))
+                p_new, m_new, v_new = adamw_shard_update(
+                    params[name][part], g[part], m[name][part], v[name][part], step, oc,
+                    decay_mask=dm, pad_mask=pm, lr=lr, grad_scale=grad_scale)
+                params[name][part].copy_(p_new)
+                m[name][part].copy_(m_new)
+                v[name][part].copy_(v_new)
     return params, m, v, gnorm

@@ -75,6 +75,13 @@ SIGNATURES = {
     # C, nchunks, chunk_len, x_bf16, w_bf16, stream
     "rglru_gated_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _P),
+    # a, b, dh, da, db, summary (or NULL), B, T, C, nchunks, chunk_len, is_bf16,
+    # stream
+    "rglru_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, wr, br, wi, bi, lam, dh, dx, partials, summary (or NULL), dwr, dbr, dwi,
+    # dbi, dlam, B, T, C, nchunks, chunk_len, x_bf16, w_bf16, stream
+    "rglru_gated_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

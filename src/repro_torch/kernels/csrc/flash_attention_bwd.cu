@@ -13,9 +13,11 @@
 //   dV = P^T dO,  dP = dO V^T,  dS = P (dP - delta),
 //   dK = dS^T qs, dQ = (dS K) / sqrt(dh).
 // Routes (kernel.py `bwd_route`): bf16 at head dim 64 or 128 with a group
-// size dividing 64 -- the train path -- takes flash_attention_bwd_wgmma.cu
-// after this file's delta launch; the other bf16 shapes take the "mma"
-// kernels here, fp32 the "fma" ones.
+// size dividing 64 -- llama's train path -- takes
+// flash_attention_bwd_wgmma.cu after this file's delta launch; bf16 at head
+// dim 256 -- recurrentgemma's train path -- takes the "mma" kernels here
+// with their output columns split over blocks (below); the other bf16
+// shapes take the "mma" kernels whole, fp32 the "fma" ones.
 // Three launches, no atomics, bitwise repeatable:
 //  1. delta, one warp a row (bf16: dh / 8 lanes a row, 16-byte accesses);
 //     for bf16 also qs (q scaled and rounded once) and each packed row's
@@ -33,7 +35,8 @@
 // pair and head (S recomputed, dP, dV, dK, dQ; dQ's kernel recomputes S
 // and dP once more, which the bound does not count) against 989 TFLOP/s
 // bf16: at the llama train shape (b 4, T 2048, 32 heads of 64, causal)
-// 1.72e11 flops, 0.174 ms.
+// 1.72e11 flops, 0.174 ms; at recurrentgemma's (b 2, T 2048, hkv 1, g 10,
+// dh 256, causal, window 2048) 1.07e11 flops, 0.109 ms.
 //
 // bf16 ("mma" kernels): every product on the tensor cores with the
 // forward's pieces (flash_mma.cuh: mma.sync m16n8k16, ldmatrix, cp.async).
@@ -45,7 +48,12 @@
 // O += P V.  Roundings, chosen to follow the reference's autodiff: dP to
 // bf16 (the cotangent of its bf16 probabilities), P and dS to bf16 as the
 // tensor cores' operands, dQ to bf16 before and after the 1/sqrt(dh).
-// Head dims 16 to 128 (dK and dV live in registers; 256 is refused).
+// Head dims 16 to 128 whole: each warp's dK and dV (or dQ) rows live in
+// registers.  Head dim 256: 256 columns of both would not fit,
+// so a block owns DW = 128 of them (grid dim z picks the half); it still
+// stages q, k, v and dO rows whole in shared memory (about 200 KB, one
+// block a SM) and computes S and dP over all 256 dims, so S and dP are
+// computed once for each half: 1.5x the products of one pass.
 // fp32 ("fma" kernels): the same three launches on CUDA cores in fp32, all
 // head dims of the forward, a key (dK/dV) or a query row (dQ) split over
 // dh / 32 lanes as the forward's fma kernel splits a row.
@@ -158,6 +166,9 @@ constexpr int kBC = 64;  // keys a tile
 template <int DH>
 struct BwdCfg {
   static constexpr int LDS = DH + 8;
+  // output columns a block owns (dK and dV, or dQ), and the blocks a tile
+  static constexpr int DW = DH > 128 ? 128 : DH;
+  static constexpr int NCOL = DH / DW;
   // dK/dV kernel: K, V tiles + a 2-stage ring of (qs, dO) tiles and their
   // rows' (lse, delta)
   static constexpr int RING = 2;
@@ -191,11 +202,12 @@ __device__ __forceinline__ void mma_rows_x_rows(const bf16* A, const bf16* Bm,
   }
 }
 
-// acc[16 x DH] += P (the accumulator-layout [16 x 64] tile p, as bf16) times
-// the 64 rows of Bm [64][LDS] (ldmatrix.trans: Bm's rows are the k index).
-template <int DH>
+// acc[16 x DW] += P (the accumulator-layout [16 x 64] tile p, as bf16) times
+// columns [0, DW) of the 64 rows of Bm [64][DH + 8] (ldmatrix.trans: Bm's
+// rows are the k index; Bm may point at a column offset).
+template <int DH, int DW>
 __device__ __forceinline__ void mma_acc_p_rows(const float (&p)[kBM / 8][4], const bf16* Bm,
-                                               float (&acc)[DH / 8][4]) {
+                                               float (&acc)[DW / 8][4]) {
   constexpr int LDS = DH + 8;
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -205,7 +217,7 @@ __device__ __forceinline__ void mma_acc_p_rows(const float (&p)[kBM / 8][4], con
                             fa::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
                             fa::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
-    for (int db = 0; db < DH / 16; ++db) {
+    for (int db = 0; db < DW / 16; ++db) {
       uint32_t vb[4];
       fa::ldsm_x4_t(vb, Bm + (kk * 16 + (lane & 15)) * LDS + db * 16 + (lane >> 4) * 8);
       fa::mma16816(acc[2 * db], pa, vb[0], vb[1]);
@@ -238,7 +250,8 @@ __device__ __forceinline__ void load_row_tile(bf16* Qs, bf16* Ds, float2* St,
               r < nrows);
 }
 
-// 2. dK, dV.  Block (b * hkv, key tile); warp w owns keys k0 + 16w ...
+// 2. dK, dV.  Block (b * hkv, key tile, column block); warp w owns keys
+// k0 + 16w ..., columns [d0, d0 + DW).
 template <int DH>
 __global__ void __launch_bounds__(fa::kThreads)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ k,
@@ -247,7 +260,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ 
                           bf16* __restrict__ dv, int tq, int tk, int hkv, int g, int causal,
                           int window, int q_offset, int kv_len) {
   using C = BwdCfg<DH>;
-  constexpr int LDS = C::LDS, RING = C::RING;
+  constexpr int LDS = C::LDS, RING = C::RING, DW = C::DW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + kBC * LDS;
@@ -257,14 +270,15 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ 
   const int b = blockIdx.x / hkv, h = blockIdx.x % hkv;
   const int k0 = blockIdx.y * kBC;
   const int kend = min(k0 + kBC, kv_len);
+  const int d0 = blockIdx.z * DW;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tig = lane & 3;
 
   fa::load_kv_tile<DH, kBC>(Ks, Vs, k, v, b, h, tk, hkv, k0, kend);
   fa::cp_async_commit();
 
-  float acc_k[DH / 8][4], acc_v[DH / 8][4];
+  float acc_k[DW / 8][4], acc_v[DW / 8][4];
 #pragma unroll
-  for (int i = 0; i < DH / 8; ++i)
+  for (int i = 0; i < DW / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
 
@@ -316,8 +330,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ 
           p[nb][e] = pv;
           ds[nb][e] = pv * (round_bf16(ds[nb][e]) - lse_delta.y);
         }
-      mma_acc_p_rows<DH>(p, Ds, acc_v);   // dV += P^T dO
-      mma_acc_p_rows<DH>(ds, Qs, acc_k);  // dK += dS^T qs
+      mma_acc_p_rows<DH, DW>(p, Ds + d0, acc_v);   // dV += P^T dO
+      mma_acc_p_rows<DH, DW>(ds, Qs + d0, acc_k);  // dK += dS^T qs
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
   }
@@ -329,9 +343,9 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ 
   for (int half = 0; half < 2; ++half) {
     const int j = kw + (lane >> 2) + 8 * half;
     if (j >= tk) continue;
-    const int64_t off = ((static_cast<int64_t>(b) * tk + j) * hkv + h) * DH + tig * 2;
+    const int64_t off = ((static_cast<int64_t>(b) * tk + j) * hkv + h) * DH + d0 + tig * 2;
 #pragma unroll
-    for (int db = 0; db < DH / 8; ++db) {
+    for (int db = 0; db < DW / 8; ++db) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + db * 8) =
           __floats2bfloat162_rn(acc_k[db][2 * half], acc_k[db][2 * half + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + off + db * 8) =
@@ -340,8 +354,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ 
   }
 }
 
-// 3. dQ.  Block (b * hkv, packed row tile, most keys first); warp w owns
-// rows 16w ... of the tile.
+// 3. dQ.  Block (b * hkv, packed row tile, most keys first, column block);
+// warp w owns rows 16w ... of the tile, columns [d0, d0 + DW).
 template <int DH>
 __global__ void __launch_bounds__(fa::kThreads)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -350,7 +364,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         bf16* __restrict__ dq, int tq, int tk, int hkv, int g, int causal,
                         int window, int q_offset, int kv_len, float scale) {
   using C = BwdCfg<DH>;
-  constexpr int LDS = C::LDS, STAGES = C::STAGES;
+  constexpr int LDS = C::LDS, STAGES = C::STAGES, DW = C::DW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ds = Qs + kBM * LDS;
@@ -362,6 +376,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int rows_total = tq * g;
   const int row0 = tile * kBM;
   const int nrows = min(kBM, rows_total - row0);
+  const int d0 = blockIdx.z * DW;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tig = lane & 3;
 
   fa::stage_q<DH>(Qs, q, b, h, tq, hkv, g, row0, nrows, kBM, scale);
@@ -390,9 +405,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     delta_r[half] = ok ? delta[stat_index(b, h, hkv, g, tq, row0 + r)] : 0.f;
   }
 
-  float acc[DH / 8][4];
+  float acc[DW / 8][4];
 #pragma unroll
-  for (int i = 0; i < DH / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < DW / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
@@ -432,7 +447,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
           ds[nb][e] = pv * (round_bf16(ds[nb][e]) - delta_r[half]);
         }
-      mma_acc_p_rows<DH>(ds, Kt, acc);  // dQs += dS K
+      mma_acc_p_rows<DH, DW>(ds, Kt + d0, acc);  // dQs += dS K
     }
     __syncthreads();
   }
@@ -443,9 +458,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (r >= nrows) continue;
     const int gr = row0 + r, pos = gr / g, head = gr % g;
     bf16* dst = dq + ((static_cast<int64_t>(b) * tq + pos) * hkv + h) * g * DH +
-                static_cast<int64_t>(head) * DH + tig * 2;
+                static_cast<int64_t>(head) * DH + d0 + tig * 2;
 #pragma unroll
-    for (int db = 0; db < DH / 8; ++db)
+    for (int db = 0; db < DW / 8; ++db)
       *reinterpret_cast<__nv_bfloat162*>(dst + db * 8) = __floats2bfloat162_rn(
           round_bf16(acc[db][2 * half]) * scale, round_bf16(acc[db][2 * half + 1]) * scale);
   }
@@ -472,13 +487,15 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dO, cons
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
   const bf16* db = static_cast<const bf16*>(dO);
-  flash_bwd_dkdv_mma_kernel<DH><<<dim3(b * hkv, ktiles), fa::kThreads, C::KV_SMEM, stream>>>(
+  flash_bwd_dkdv_mma_kernel<DH><<<dim3(b * hkv, ktiles, C::NCOL), fa::kThreads, C::KV_SMEM,
+                                  stream>>>(
       static_cast<const bf16*>(qs), kb, vb, db, static_cast<const float2*>(rowstat),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), tq, tk, hkv, g, causal, window, q_offset,
       kv_len);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_mma_kernel<DH><<<dim3(b * hkv, qtiles), fa::kThreads, C::Q_SMEM, stream>>>(
+  flash_bwd_dq_mma_kernel<DH><<<dim3(b * hkv, qtiles, C::NCOL), fa::kThreads, C::Q_SMEM,
+                                stream>>>(
       qb, kb, vb, db, lse, delta, static_cast<bf16*>(dq), tq, tk, hkv, g, causal, window,
       q_offset, kv_len, scale);
   return static_cast<int>(cudaGetLastError());
@@ -674,7 +691,7 @@ int launch_fma(const void* q, const void* k, const void* v, const void* dO, cons
 }  // namespace
 
 // q, o, dO [b, tq, hkv, g, dh] (rows = b * tq * hkv * g), lse and delta fp32
-// [b, hkv, g, tq]; bf16 or fp32, contiguous.  bf16 (dh 16 to 128) also
+// [b, hkv, g, tq]; bf16 or fp32, contiguous.  bf16 (dh 16 to 256) also
 // writes qs (like q) and rowstat (fp32 [b, hkv, rs_rows, 2], rs_rows >= tq *
 // g); fp32 reads only o and dO and writes only delta.
 extern "C" int flash_bwd_delta_launch(const void* q, const void* o, const void* dO,
@@ -695,6 +712,7 @@ extern "C" int flash_bwd_delta_launch(const void* q, const void* o, const void* 
     case 32: return launch_delta_bf16<4>(q, o, dO, l, d, qs, st, rows, tq, hkv, g, rs_rows, scale, s);
     case 64: return launch_delta_bf16<8>(q, o, dO, l, d, qs, st, rows, tq, hkv, g, rs_rows, scale, s);
     case 128: return launch_delta_bf16<16>(q, o, dO, l, d, qs, st, rows, tq, hkv, g, rs_rows, scale, s);
+    case 256: return launch_delta_bf16<32>(q, o, dO, l, d, qs, st, rows, tq, hkv, g, rs_rows, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -710,7 +728,7 @@ extern "C" int flash_bwd_delta_launch(const void* q, const void* o, const void* 
 // fp32 [b, hkv, g, tq]; qs and rowstat as flash_bwd_delta_launch wrote
 // them; contiguous, 16-byte aligned.  kv_len = min(tk, kv_valid_len).  The
 // caller checks shapes, types, head dims and that every query row sees a
-// key.  bf16: "mma" kernels, dh 16 to 128.
+// key.  bf16: "mma" kernels, dh 16 to 128 whole and 256 by column halves.
 extern "C" int flash_bwd_mma_launch(const void* q, const void* k, const void* v, const void* dO,
                                     const void* lse, const void* delta, const void* qs,
                                     const void* rowstat, void* dq, void* dk, void* dv, int b,
@@ -723,6 +741,7 @@ extern "C" int flash_bwd_mma_launch(const void* q, const void* k, const void* v,
     case 32: return launch_mma<32>(FLASH_BWD_MMA_ARGS);
     case 64: return launch_mma<64>(FLASH_BWD_MMA_ARGS);
     case 128: return launch_mma<128>(FLASH_BWD_MMA_ARGS);
+    case 256: return launch_mma<256>(FLASH_BWD_MMA_ARGS);  // by column halves
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

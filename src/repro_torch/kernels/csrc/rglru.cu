@@ -61,100 +61,17 @@
 // place): each thread reads its own channel of h0 before it writes that
 // channel of h_last, which is safe with one chunk only; the wrapper refuses
 // the alias when the plan has more.  Neither pointer is __restrict__.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rglru.cuh"
 
 namespace {
 
+using rg::AbSource;
+using rg::from_f;
+using rg::GatedSource;
+using rg::walk;
+
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 12;  // resident blocks a SM; the wrapper's plan fills one wave
-constexpr int kUnroll = 8;
-constexpr float kLruC = 8.f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// 1 / (1 + e^-z), the reciprocal correctly rounded as IEEE division rounds it.
-__device__ __forceinline__ float sigmoid_f(float z) { return __frcp_rn(1.f + expf(-z)); }
-
-// (a, b) read from device memory.
-template <typename T>
-struct AbSource {
-  using Out = T;
-  struct Chan {};
-  struct Raw { T a, b; };
-  const T* __restrict__ a;
-  const T* __restrict__ b;
-  __device__ __forceinline__ Chan channel(int) const { return {}; }
-  __device__ __forceinline__ Raw load(int64_t off) const { return {a[off], b[off]}; }
-  __device__ __forceinline__ void coeffs(const Chan&, const Raw& r, float& av,
-                                         float& bv) const {
-    av = to_f(r.a);
-    bv = to_f(r.b);
-  }
-};
-
-// (a, b) computed from x and the channel's gate weights.
-template <typename X, typename W>
-struct GatedSource {
-  using Out = X;
-  struct Chan { float wr, br, wi, bi, log_a_base; };
-  using Raw = X;
-  const X* __restrict__ x;
-  const W* wr;
-  const W* br;
-  const W* wi;
-  const W* bi;
-  const W* lam;
-  __device__ __forceinline__ Chan channel(int c) const {
-    // log a_base = -softplus(-lam), softplus(y) = max(y, 0) + log1p(exp(-|y|))
-    const float y = -to_f(lam[c]);
-    return {to_f(wr[c]), to_f(br[c]), to_f(wi[c]), to_f(bi[c]),
-            -(fmaxf(y, 0.f) + log1pf(expf(-fabsf(y))))};
-  }
-  __device__ __forceinline__ Raw load(int64_t off) const { return x[off]; }
-  __device__ __forceinline__ void coeffs(const Chan& p, Raw raw, float& av,
-                                         float& bv) const {
-    const float xf = to_f(raw);
-    const float r = sigmoid_f(__fadd_rn(__fmul_rn(xf, p.wr), p.br));
-    const float i = sigmoid_f(__fadd_rn(__fmul_rn(xf, p.wi), p.bi));
-    const float log_a = __fmul_rn(__fmul_rn(kLruC, r), p.log_a_base);
-    av = expf(log_a);
-    const float e2 = __fmul_rn(av, av);  // exp(2 * log_a), see the note above
-    bv = __fmul_rn(sqrtf(fminf(fmaxf(__fsub_rn(1.f, e2), 1e-6f), 1.f)), __fmul_rn(i, xf));
-  }
-};
-
-// Steps [t0, t1) of one channel: step(a_t, b_t, offset of element t).
-template <class Src, class Step>
-__device__ __forceinline__ void walk(const Src& src, const typename Src::Chan& ch,
-                                     int64_t base, int t0, int t1, int C, Step&& step) {
-  int t = t0;
-  for (; t + kUnroll <= t1; t += kUnroll) {
-    typename Src::Raw raw[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) raw[u] = src.load(base + static_cast<int64_t>(t + u) * C);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float a, b;
-      src.coeffs(ch, raw[u], a, b);
-      step(a, b, base + static_cast<int64_t>(t + u) * C);
-    }
-  }
-  for (; t < t1; ++t) {
-    const int64_t off = base + static_cast<int64_t>(t) * C;
-    float a, b;
-    src.coeffs(ch, src.load(off), a, b);
-    step(a, b, off);
-  }
-}
 
 // Pass 1: summary[bi, k, c] = (prod of the chunk's a, h over the chunk from 0).
 template <class Src>

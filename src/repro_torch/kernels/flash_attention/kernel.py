@@ -21,13 +21,15 @@ The training path differentiates through :class:`FlashAttentionFn`: its
 forward, :func:`flash_attention_fwd`, also writes the rows' log-sum-exp
 (the ``mma`` route for bf16 at any row count, ``fma`` for fp32), and its
 backward, :func:`flash_attention_bwd`, is the FlashAttention-2 backward,
-on one of three routes chosen by :func:`bwd_route`:
+on one of four routes chosen by :func:`bwd_route`:
 
-* ``"wgmma"`` -- bf16, head dim 64 or 128, g dividing 64 (the train path):
-  ``kernels/csrc/flash_attention_bwd_wgmma.cu``, warpgroup tensor cores fed
-  by TMA;
-* ``"mma"`` -- the other bf16 head dims (16, 32) and group sizes:
-  ``kernels/csrc/flash_attention_bwd.cu`` on ``mma.sync``;
+* ``"wgmma"`` -- bf16, head dim 64 or 128, g dividing 64 (llama's train
+  path): ``kernels/csrc/flash_attention_bwd_wgmma.cu``, warpgroup tensor
+  cores fed by TMA;
+* ``"mma"`` -- the other bf16 head dims and group sizes:
+  ``kernels/csrc/flash_attention_bwd.cu`` on ``mma.sync``, with whole rows
+  of output at head dims 16 to 128 and, at head dim 256 (recurrentgemma's
+  train path), each block owning 128 of the 256 output columns;
 * ``"fma"`` -- fp32, the same file on CUDA cores;
 
 and :func:`flash_attention_bwd_plain` on the CPU.
@@ -50,9 +52,6 @@ SPLIT_MIN_CHUNK = 32     # keys; a chunk is a multiple of 16
 SPLIT_BLOCKS_PER_SM = 2  # the split plan's target
 
 BWD_ROUTES = ("wgmma", "mma", "fma")
-# Head dims of the backward by dtype: the bf16 kernels keep dK and dV in
-# registers, which dh 256 would overflow.
-BWD_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128), torch.float32: HEAD_DIMS}
 # The wgmma route: head dims whose rows 128-byte TMA boxes tile, and group
 # sizes for which its tiles of packed (position, group head) rows (128 rows
 # at dh 64, 64 at dh 128) hold whole positions: g dividing 64.
@@ -81,8 +80,10 @@ def route(dtype: torch.dtype, rows: int, *, with_lse: bool = False) -> str:
 def bwd_route(dtype: torch.dtype, dh: int, g: int) -> str:
     """The backward's CUDA route: ``"wgmma"`` for bf16 at a head dim of
     ``WGMMA_HEAD_DIMS`` with a group size ``g`` that divides
-    ``WGMMA_TILE_ROWS`` (a TMA box holds 64 / g whole positions), ``"mma"``
-    for the other bf16 shapes, ``"fma"`` for fp32."""
+    ``WGMMA_TILE_ROWS`` (a TMA box holds 64 / g whole positions),
+    ``"mma"`` for the other bf16 shapes (at head dim 256 a warp's dK and dV
+    rows would not fit in registers, so each block owns 128 columns),
+    ``"fma"`` for fp32."""
     if dtype == torch.float32:
         return "fma"
     if dtype == torch.bfloat16:
@@ -408,8 +409,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     output ``o`` and log-sum-exp ``lse``.  CUDA: three launches (delta, with
     the scaled q and packed row stats for bf16; dK and dV by key tile; dQ by
     query tile), counted as one backward call on the route of
-    :func:`bwd_route` (bf16 head dims ``BWD_HEAD_DIMS``).  CPU:
-    :func:`flash_attention_bwd_plain`."""
+    :func:`bwd_route`.  CPU: :func:`flash_attention_bwd_plain`."""
     global launches_bwd
     _check(q, k, v, window, q_offset, kv_valid_len)
     b, tq, hkv, g, dh = q.shape
@@ -425,9 +425,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
                                          q_offset=q_offset, kv_valid_len=kv_valid_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
-    if dh not in BWD_HEAD_DIMS[q.dtype]:
-        raise ValueError(f"flash_attention_bwd: head dim {dh} not in "
-                         f"{BWD_HEAD_DIMS[q.dtype]} for {q.dtype}")
     _cuda_ready(q, k, v, o, do, lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or tq == 0 or hkv == 0 or g == 0:
@@ -459,10 +456,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     else:
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr())
-        if r == "mma":
-            args += (qs.data_ptr(), rowstat.data_ptr())
-        err = (lib.flash_bwd_mma_launch if r == "mma" else lib.flash_bwd_fma_launch)(
-            *args, *outs, *shape, *rest)
+        if r == "fma":
+            err = lib.flash_bwd_fma_launch(*args, *outs, *shape, *rest)
+        else:  # mma: at dh 256 the entry point splits the output columns
+            err = lib.flash_bwd_mma_launch(*args, qs.data_ptr(), rowstat.data_ptr(), *outs,
+                                           *shape, *rest)
     K.check(err, f"flash_attention_bwd ({r})")
     launches_bwd += 1
     launches_bwd_by_route[r] += 1

@@ -1,8 +1,14 @@
-"""RG-LRU scan Hopper kernel (replaces the Pallas ``repro.kernels.rglru``)."""
+"""RG-LRU scan Hopper kernel (replaces the Pallas ``repro.kernels.rglru``),
+its backward and the autograd Functions of the two."""
 
-from repro_torch.kernels.rglru.kernel import (plan_scan_chunks, rglru, rglru_chunked_plain,
-                                              rglru_coeffs_plain, rglru_gated,
-                                              rglru_gated_plain, rglru_plain)
+from repro_torch.kernels.rglru.kernel import (RgLruFn, RgLruGatedFn, plan_bwd_chunks,
+                                              plan_scan_chunks, rglru, rglru_bwd,
+                                              rglru_bwd_plain, rglru_chunked_plain,
+                                              rglru_coeffs_plain, rglru_gated, rglru_gated_bwd,
+                                              rglru_gated_bwd_plain, rglru_gated_plain,
+                                              rglru_plain)
 
-__all__ = ["plan_scan_chunks", "rglru", "rglru_chunked_plain", "rglru_coeffs_plain",
-           "rglru_gated", "rglru_gated_plain", "rglru_plain"]
+__all__ = ["RgLruFn", "RgLruGatedFn", "plan_bwd_chunks", "plan_scan_chunks", "rglru",
+           "rglru_bwd", "rglru_bwd_plain", "rglru_chunked_plain", "rglru_coeffs_plain",
+           "rglru_gated", "rglru_gated_bwd", "rglru_gated_bwd_plain", "rglru_gated_plain",
+           "rglru_plain"]

@@ -14,12 +14,16 @@ Each launches the kernel for CUDA tensors and uses its plain version
 (:func:`rglru_plain`, :func:`rglru_gated_plain`) for CPU tensors; there is
 no other route and no fall-back when a build or launch fails.
 
-The kernel has no backward yet.  The plain versions are differentiable, but
-a launch writes its result into a new tensor that autograd cannot see, so
-on a CUDA tensor both entry points raise ``NotImplementedError`` when
-autograd would record the call (:func:`needs_grad`): serving runs without
-grad and is unaffected; training griffin on the card waits for
-``GRIFFIN_TRAIN_ITEM``.
+Both entry points have a gradient.  A call that autograd records runs as
+an autograd Function (:class:`RgLruFn`, :class:`RgLruGatedFn`) whose
+backward is the kernel of ``kernels/csrc/rglru_bwd.cu``
+(:func:`rglru_bwd`, :func:`rglru_gated_bwd`; their plain versions
+:func:`rglru_bwd_plain`, :func:`rglru_gated_bwd_plain` on the CPU), over
+the chunks of :func:`plan_bwd_chunks`, fixed when the forward runs.  As in
+the reference's ``rglru_scan``, such a call starts from h = 0 (a given
+``h0`` or ``state_out`` raises), and its last state ``h_last`` carries no
+gradient.  Calls autograd does not record (serving) launch the forward
+alone.
 """
 
 from __future__ import annotations
@@ -36,27 +40,21 @@ CHUNK_ALIGN = 8           # the kernel's unroll
 THREADS = 128             # a block: 128 channels of one (batch, chunk)
 BLOCKS_PER_SM = 12        # resident blocks a SM (the kernel's __launch_bounds__)
 WAVES = 2                 # the plan's chunks fill this many waves of blocks
+BWD_CHUNK_MAX = 64        # steps: the backward keeps a chunk's fp32 h in shared memory
 
 # Calls that launched the CUDA kernel since the last reset (plain integers),
-# in all and by entry point: "ab" for rglru, "gated" for rglru_gated.
+# in all and by entry point: "ab" for rglru, "gated" for rglru_gated; the
+# backward's likewise.
 launches = 0
 launches_by_form = dict.fromkeys(FORMS, 0)
+launches_bwd = 0
+launches_bwd_by_form = dict.fromkeys(FORMS, 0)
 
-GRIFFIN_TRAIN_ITEM = "ROADMAP Queue 1 item 1, griffin training (the RG-LRU backward)"
 
-
-def needs_grad(*ts: torch.Tensor | None) -> bool:
-    """Whether autograd would record a call on ``ts``: grad mode is on and
-    some input requires grad."""
+def _recorded(*ts: torch.Tensor | None) -> bool:
+    """Whether autograd records a call on ``ts``: grad mode is on and some
+    input requires grad."""
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
-
-
-def _refuse_grad(what: str, *ts: torch.Tensor | None) -> None:
-    if needs_grad(*ts):
-        raise NotImplementedError(
-            f"{what}: the CUDA kernel has no gradient yet ({GRIFFIN_TRAIN_ITEM}), and its "
-            "result would drop the inputs' gradient; train griffin with device='cpu' or "
-            "call it under torch.no_grad()")
 
 
 def plan_scan_chunks(B: int, T: int, C: int, *, sms: int = 132) -> tuple[int, int]:
@@ -75,6 +73,15 @@ def plan_scan_chunks(B: int, T: int, C: int, *, sms: int = 132) -> tuple[int, in
     if chunk >= T:
         return 1, max(T, 1)
     return -(-T // chunk), chunk
+
+
+def plan_bwd_chunks(B: int, T: int, C: int, *, sms: int = 132) -> tuple[int, int]:
+    """The backward's ``(nchunks, chunk_len)``: :func:`plan_scan_chunks`'
+    chunks cut to at most ``BWD_CHUNK_MAX`` steps, so that a block's 128
+    channels of fp32 h over a chunk fit in 32 KB of shared memory."""
+    _, chunk_len = plan_scan_chunks(B, T, C, sms=sms)
+    chunk = min(chunk_len, BWD_CHUNK_MAX)
+    return -(-max(T, 1) // chunk), chunk
 
 
 def softplus_exact(x: torch.Tensor) -> torch.Tensor:
@@ -160,6 +167,93 @@ def rglru_gated_plain(x, wr, br, wi, bi, lam, h0=None, *, state_out=None):
     return hs.to(x.dtype), state_out
 
 
+def _reverse_scan_plain(a: torch.Tensor, b: torch.Tensor, dh: torch.Tensor, *,
+                        nchunks: int, chunk_len: int):
+    """The backward kernel's scan passes on fp32 a, b, dh [B, T, C] from
+    h = 0, in its order -> fp32 ``(g, h_prev)``: g_t = dh_t + a_{t+1} g_{t+1}
+    (0 past T) and h_{t-1} recomputed.  Pass 1 gives each chunk (prod a,
+    h from 0, Q = sum_t dh_t prod_{s <= t} a_s); the earlier chunks' (prod,
+    h) fold into each chunk's starting h in chunk order, the later chunks'
+    (prod, Q) into the gradient flowing in from behind in reverse order;
+    pass 2 walks each chunk forward for h_prev, then backward for g."""
+    bsz, t, c = a.shape
+    if nchunks < 1 or chunk_len < 1 or not (nchunks - 1) * chunk_len < t <= nchunks * chunk_len:
+        raise ValueError(f"rglru backward: {nchunks} chunks of {chunk_len} steps do not cut "
+                         f"T = {t}")
+    pad = nchunks * chunk_len - t   # a = 1, b = 0, dh = 0 past T change nothing
+    shape = (bsz, nchunks, chunk_len, c)
+    af = torch.nn.functional.pad(a, (0, 0, 0, pad), value=1.0).reshape(shape)
+    bf = torch.nn.functional.pad(b, (0, 0, 0, pad)).reshape(shape)
+    df = torch.nn.functional.pad(dh, (0, 0, 0, pad)).reshape(shape)
+    prod = torch.ones(bsz, nchunks, c, dtype=torch.float32, device=a.device)
+    hl, q_sum = torch.zeros_like(prod), torch.zeros_like(prod)
+    for s in range(chunk_len):            # pass 1, all chunks at once
+        prod = prod * af[:, :, s]
+        hl = af[:, :, s] * hl + bf[:, :, s]
+        q_sum = q_sum + df[:, :, s] * prod
+    h, q = torch.zeros_like(prod[:, 0]), torch.zeros_like(prod[:, 0])
+    h_in, q_in = [], [None] * nchunks
+    for k in range(nchunks):              # the folds
+        h_in.append(h)
+        h = prod[:, k] * h + hl[:, k]
+        j = nchunks - 1 - k
+        q_in[j] = q
+        q = prod[:, j] * q + q_sum[:, j]
+    h, q = torch.stack(h_in, dim=1), torch.stack(q_in, dim=1)
+    h_prev, g = torch.empty_like(af), torch.empty_like(af)
+    for s in range(chunk_len):            # pass 2: forward walk
+        h_prev[:, :, s] = h
+        h = af[:, :, s] * h + bf[:, :, s]
+    for s in reversed(range(chunk_len)):  # backward walk
+        g[:, :, s] = df[:, :, s] + q
+        q = af[:, :, s] * g[:, :, s]
+    cut = lambda u: u.reshape(bsz, nchunks * chunk_len, c)[:, :t]  # noqa: E731
+    return cut(g), cut(h_prev)
+
+
+def rglru_bwd_plain(a: torch.Tensor, b: torch.Tensor, dh: torch.Tensor, *, nchunks: int,
+                    chunk_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`rglru_plain` from h = 0 at ``dh`` (the
+    cotangent of h), in the backward kernel's passes:
+    ``(da, db) = (g h_prev, g)`` in a's dtype."""
+    g, h_prev = _reverse_scan_plain(a.float(), b.float(), dh.float(), nchunks=nchunks,
+                                    chunk_len=chunk_len)
+    return (g * h_prev).to(a.dtype), g.to(a.dtype)
+
+
+def rglru_gated_bwd_plain(x, wr, br, wi, bi, lam, dh, *, nchunks: int, chunk_len: int):
+    """The gradient of :func:`rglru_gated_plain`'s h (from h = 0) at ``dh``,
+    in the backward kernel's passes and arithmetic: the scan's g and the
+    recomputed h_prev, then per element in fp32, with s = 1 - a^2 and
+    m = sqrt(clip(s, 1e-6, 1)),
+    ``d log_a = g h_prev a - [1e-6 < s < 1] a^2 g i x / m`` (the clip's
+    gradient is 0 where it binds), ``d pre_r = d log_a 8 L r (1 - r)``,
+    ``d pre_i = g m x i (1 - i)``,
+    ``dx = d pre_r wr + d pre_i wi + g m i``; the weights' gradients sum
+    over batch and time, ``dlam = sigmoid(-lam) 8 sum(d log_a r)``.
+    Returns ``(dx, dwr, dbr, dwi, dbi, dlam)`` in the inputs' dtypes."""
+    xf = x.float()
+    wrf, brf, wif, bif, lamf = (w.float() for w in (wr, br, wi, bi, lam))
+    r = torch.sigmoid(xf * wrf + brf)
+    i = torch.sigmoid(xf * wif + bif)
+    log_a_base = -softplus_exact(-lamf)
+    a = torch.exp(LRU_C * r * log_a_base)
+    e2 = a * a
+    s = 1.0 - e2
+    m = torch.sqrt(torch.clamp(s, 1e-6, 1.0))
+    u = i * xf
+    g, h_prev = _reverse_scan_plain(a, m * u, dh.float(), nchunks=nchunks, chunk_len=chunk_len)
+    binds = (s > 1e-6) & (s < 1.0)
+    dlog_a = g * h_prev * a - torch.where(binds, e2 * g * u / m, torch.zeros_like(g))
+    dpre_r = dlog_a * LRU_C * log_a_base * (r * (1.0 - r))
+    du = g * m
+    dpre_i = du * xf * (i * (1.0 - i))
+    dx = dpre_r * wrf + dpre_i * wif + du * i
+    sums = [v.sum(dim=(0, 1)) for v in (dpre_r * xf, dpre_r, dpre_i * xf, dpre_i, dlog_a * r)]
+    sums[4] = torch.sigmoid(-lamf) * (LRU_C * sums[4])
+    return (dx.to(x.dtype), *(v.to(wr.dtype) for v in sums))
+
+
 def _check(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None) -> None:
     if a.dim() != 3 or b.shape != a.shape:
         raise ValueError(f"rglru: want a, b [B, T, C] of one shape; got "
@@ -229,16 +323,30 @@ def _count(form: str) -> None:
     launches_by_form[form] += 1
 
 
+def _refuse_state_under_grad(what: str, h0, state_out=None) -> None:
+    if h0 is not None or state_out is not None:
+        raise ValueError(f"{what}: autograd records this call, and its gradient starts "
+                         "from h = 0 as the reference's rglru_scan does; h0 and state_out "
+                         "are for calls it does not record (serving, torch.no_grad)")
+
+
 def rglru(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None) -> torch.Tensor:
     """The RG-LRU recurrence over a sequence, any T and C.  With ``h0=None``
     it is the Pallas kernel's function; with T = 1 and the cached state as
     ``h0`` it is the decode step ``a * h_prev + b``.  The final state is
-    ``h[:, -1]``."""
+    ``h[:, -1]``.  A call autograd records runs as :class:`RgLruFn` (no
+    ``h0``)."""
     _check(a, b, h0)
+    if _recorded(a, b, h0):
+        _refuse_state_under_grad("rglru", h0)
+        return RgLruFn.apply(a, b)
+    return _rglru_fwd(a, b, h0)
+
+
+def _rglru_fwd(a, b, h0):
     if a.device.type == "cpu":
         return rglru_plain(a, b, h0)
     _cuda_ready(a, b, h0)
-    _refuse_grad("rglru", a, b, h0)
     bsz, t, c = a.shape
     nchunks, chunk_len = _plan(a)
     summary = _summary(a, nchunks)
@@ -264,6 +372,13 @@ def rglru_gated(x, wr, br, wi, bi, lam, h0=None, *, state_out=None):
     update) only when the plan runs one chunk, as it does at T = 1."""
     ws = (wr, br, wi, bi, lam)
     _check_gated(x, ws, h0, state_out)
+    if _recorded(x, *ws, h0):
+        _refuse_state_under_grad("rglru_gated", h0, state_out)
+        return RgLruGatedFn.apply(x, *ws)
+    return _rglru_gated_fwd(x, ws, h0, state_out)
+
+
+def _rglru_gated_fwd(x, ws, h0, state_out):
     nchunks, chunk_len = _plan(x)
     if (nchunks > 1 and h0 is not None and state_out is not None
             and h0.untyped_storage().data_ptr() == state_out.untyped_storage().data_ptr()):
@@ -273,7 +388,6 @@ def rglru_gated(x, wr, br, wi, bi, lam, h0=None, *, state_out=None):
     if x.device.type == "cpu":
         return rglru_gated_plain(x, *ws, h0, state_out=state_out)
     _cuda_ready(x, *ws, h0, state_out)
-    _refuse_grad("rglru_gated", x, *ws, h0)
     bsz, t, c = x.shape
     summary = _summary(x, nchunks)
     h = torch.empty_like(x)
@@ -284,8 +398,124 @@ def rglru_gated(x, wr, br, wi, bi, lam, h0=None, *, state_out=None):
     err = K.library().rglru_gated_launch(
         x.data_ptr(), *(w.data_ptr() for w in ws), _ptr(h0), h.data_ptr(),
         state_out.data_ptr(), _ptr(summary), bsz, t, c, nchunks, chunk_len,
-        int(x.dtype == torch.bfloat16), int(wr.dtype == torch.bfloat16),
+        int(x.dtype == torch.bfloat16), int(ws[0].dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     K.check(err, "rglru_gated")
     _count("gated")
     return h, state_out
+
+
+def _bwd_plan(x: torch.Tensor) -> tuple[int, int]:
+    sms = K.sm_count(x.get_device()) if x.device.type == "cuda" else 132
+    return plan_bwd_chunks(*x.shape, sms=sms)
+
+
+def _check_bwd(what: str, x: torch.Tensor, dh: torch.Tensor, plan) -> tuple[int, int]:
+    if dh.shape != x.shape or dh.dtype != x.dtype or dh.device != x.device:
+        raise ValueError(f"{what}: dh {dh.dtype} {tuple(dh.shape)} must match "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    nchunks, chunk_len = plan if plan is not None else _bwd_plan(x)
+    t = x.shape[1]
+    if not (1 <= chunk_len <= BWD_CHUNK_MAX and (nchunks - 1) * chunk_len < t
+            <= nchunks * chunk_len):
+        raise ValueError(f"{what}: {nchunks} chunks of {chunk_len} steps do not cut T = {t} "
+                         f"(at most {BWD_CHUNK_MAX} steps a chunk)")
+    return nchunks, chunk_len
+
+
+def _bwd_summary(x: torch.Tensor, nchunks: int) -> torch.Tensor | None:
+    """Pass 1's fp32 scratch [B, nchunks, C, 4], or None for one chunk."""
+    if nchunks == 1:
+        return None
+    return torch.empty((x.shape[0], nchunks, x.shape[2], 4), dtype=torch.float32,
+                       device=x.device)
+
+
+def _count_bwd(form: str) -> None:
+    global launches_bwd
+    launches_bwd += 1
+    launches_bwd_by_form[form] += 1
+
+
+def rglru_bwd(a: torch.Tensor, b: torch.Tensor, dh: torch.Tensor, *,
+              plan: tuple[int, int] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(da, db)``: the gradient of :func:`rglru` (from h = 0) at ``dh``,
+    over ``plan = (nchunks, chunk_len)`` (default :func:`plan_bwd_chunks`).
+    CUDA: the kernel; CPU: :func:`rglru_bwd_plain`."""
+    _check(a, b, None)
+    nchunks, chunk_len = _check_bwd("rglru_bwd", a, dh, plan)
+    if a.device.type == "cpu":
+        return rglru_bwd_plain(a, b, dh, nchunks=nchunks, chunk_len=chunk_len)
+    _cuda_ready(a, b, dh)
+    da, db = torch.empty_like(a), torch.empty_like(b)
+    summary = _bwd_summary(a, nchunks)
+    err = K.library().rglru_bwd_launch(
+        a.data_ptr(), b.data_ptr(), dh.data_ptr(), da.data_ptr(), db.data_ptr(), _ptr(summary),
+        *a.shape, nchunks, chunk_len, int(a.dtype == torch.bfloat16),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    K.check(err, "rglru_bwd")
+    _count_bwd("ab")
+    return da, db
+
+
+def rglru_gated_bwd(x, wr, br, wi, bi, lam, dh, *, plan: tuple[int, int] | None = None):
+    """``(dx, dwr, dbr, dwi, dbi, dlam)``: the gradient of
+    :func:`rglru_gated`'s h (from h = 0) at ``dh``, over ``plan =
+    (nchunks, chunk_len)`` (default :func:`plan_bwd_chunks`).  CUDA: the
+    kernel's three launches, counted as one call; CPU:
+    :func:`rglru_gated_bwd_plain`."""
+    ws = (wr, br, wi, bi, lam)
+    _check_gated(x, ws, None, None)
+    nchunks, chunk_len = _check_bwd("rglru_gated_bwd", x, dh, plan)
+    if x.device.type == "cpu":
+        return rglru_gated_bwd_plain(x, *ws, dh, nchunks=nchunks, chunk_len=chunk_len)
+    _cuda_ready(x, *ws, dh)
+    bsz, t, c = x.shape
+    dx = torch.empty_like(x)
+    dws = [torch.empty_like(w) for w in ws]
+    partials = torch.empty((5, bsz * nchunks, c), dtype=torch.float32, device=x.device)
+    summary = _bwd_summary(x, nchunks)
+    err = K.library().rglru_gated_bwd_launch(
+        x.data_ptr(), *(w.data_ptr() for w in ws), dh.data_ptr(), dx.data_ptr(),
+        partials.data_ptr(), _ptr(summary), *(w.data_ptr() for w in dws), bsz, t, c, nchunks,
+        chunk_len, int(x.dtype == torch.bfloat16), int(wr.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    K.check(err, "rglru_gated_bwd")
+    _count_bwd("gated")
+    return (dx, *dws)
+
+
+class RgLruFn(torch.autograd.Function):
+    """:func:`rglru` from h = 0 with its hand-written gradient
+    (:func:`rglru_bwd`).  Saves a and b; the backward recomputes h."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        ctx.plan = _bwd_plan(a)
+        return _rglru_fwd(a, b, None)
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, b = ctx.saved_tensors
+        return rglru_bwd(a, b, dh.contiguous(), plan=ctx.plan)
+
+
+class RgLruGatedFn(torch.autograd.Function):
+    """:func:`rglru_gated` from h = 0 with its hand-written gradient
+    (:func:`rglru_gated_bwd`): returns ``(h, h_last)``, ``h_last`` marked
+    non-differentiable.  Saves x and the weights; the backward recomputes
+    the gates and h."""
+
+    @staticmethod
+    def forward(ctx, x, wr, br, wi, bi, lam):
+        ws = (wr, br, wi, bi, lam)
+        ctx.save_for_backward(x, *ws)
+        ctx.plan = _bwd_plan(x)
+        h, h_last = _rglru_gated_fwd(x, ws, None, None)
+        ctx.mark_non_differentiable(h_last)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, _dh_last):
+        return rglru_gated_bwd(*ctx.saved_tensors, dh.contiguous(), plan=ctx.plan)

@@ -6,7 +6,11 @@ The RG-LRU recurrence, with its gate math, runs through the port's Hopper
 kernel (``kernels/rglru``, ``rglru_gated``) at both of the reference's call
 sites: ``_rglru_coeffs`` + ``lax.associative_scan`` at prefill and
 ``rglru_step`` at decode (T = 1 from the cached fp32 state, updated in
-place).  Gate projections are diagonal, as the reference's documented
+place).  In training the scan runs as the kernel's autograd Function
+(``RgLruGatedFn``: its backward is the kernel of ``csrc/rglru_bwd.cu``);
+the causal conv stays eager PyTorch, as the reference computes it outside
+any kernel, so its gradient is autograd's and keeps the reference's bf16
+rounding after each tap.  Gate projections are diagonal, as the reference's documented
 simplification of Griffin's block-diagonal maps.  Dtypes follow the
 reference exactly: the gate math and the recurrence are fp32, the conv
 state is stored as bf16 and ``h`` as fp32 whatever the compute dtype.
@@ -76,8 +80,9 @@ def _rglru_coeffs(t, x, prefix):
 
 
 def rglru_scan(t, x, prefix: str = "rec."):
-    """RG-LRU over a sequence from h = 0 (the kernel, gates fused in).
-    x [b, T, rl] -> (h in x's dtype, the fp32 final state [b, rl])."""
+    """RG-LRU over a sequence from h = 0 (the kernel, gates fused in; as
+    ``RgLruGatedFn`` when autograd records the call).  x [b, T, rl] -> (h in
+    x's dtype, the fp32 final state [b, rl], which carries no gradient)."""
     return rglru_gated(x, *(t[prefix + n] for n in GATE_NAMES))
 
 

@@ -48,6 +48,7 @@ class LoopStats:
     step_times: list
     straggler_steps: list
     grad_norms: list = dataclasses.field(default_factory=list)
+    save_times: list = dataclasses.field(default_factory=list)   # seconds of each save
 
 
 def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
@@ -92,6 +93,12 @@ def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
         if lc.log_every and step % lc.log_every == 0:
             log.info("step %d loss %.4f (%.3fs)", step, loss, dt)
         if lc.checkpoint_every and step % lc.checkpoint_every == 0:
-            ckpt.save(state, step, topo=topo, data_cursor=cursor)
-    ckpt.save(state, step, topo=topo, data_cursor=cursor)
+            _save(ckpt, stats, state, step, topo, cursor)
+    _save(ckpt, stats, state, step, topo, cursor)
     return stats
+
+
+def _save(ckpt: Checkpointer, stats: LoopStats, state, step: int, topo, cursor: int) -> None:
+    t0 = time.perf_counter()
+    ckpt.save(state, step, topo=topo, data_cursor=cursor)
+    stats.save_times.append(time.perf_counter() - t0)

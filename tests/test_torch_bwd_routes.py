@@ -1,16 +1,16 @@
-"""The routes of the port's two backward kernels and the RG-LRU's refusal
-to be differentiated on the card.
+"""The routes of the port's backward kernels.
 
 On the CPU: the route rules of ``flash_attention_bwd`` (``bwd_route``:
-``wgmma`` / ``mma`` / ``fma`` by dtype, head dim and group size) and of
-``rmsnorm_bwd`` (``bwd_route``: ``regs`` / ``smem`` by dtype, row width and
-alignment) as pure functions, the padded row count of the flash backward's
-(lse, delta) table, and the RG-LRU's ``needs_grad`` rule.  On the card
-(``gpu`` marker, skipped here): each new route against its plain version
-at the train path's shape and at its edges, bitwise repeatable, and the
-RG-LRU kernel refusing a call that autograd would record.  The plain
-versions themselves are held to ``jax.vjp`` of the JAX package's layer
-functions in ``tests/test_torch_grads.py``."""
+``wgmma`` / ``mma`` / ``fma`` by dtype, head dim and group
+size) and of ``rmsnorm_bwd`` (``bwd_route``: ``regs`` / ``smem`` by dtype,
+row width and alignment) as pure functions, the padded row count of the
+flash backward's (lse, delta) table, and which RG-LRU calls run as its
+autograd Function.  On the card (``gpu`` marker, skipped here): each route
+against its plain version at the train paths' shapes and at its edges,
+bitwise repeatable, and the RG-LRU backward, through its Function, against
+its plain version.  The plain versions themselves are held to ``jax.vjp``
+of the JAX package's functions in ``tests/test_torch_grads.py`` and
+``tests/test_torch_rglru_grad.py``."""
 
 import pytest
 
@@ -33,12 +33,15 @@ BF, F32 = torch.bfloat16, torch.float32
     (BF, 128, 8, "wgmma"),
     (BF, 64, 64, "wgmma"),      # one position a 64-row tile
     (BF, 64, 3, "mma"),         # 64 rows are not whole positions
-    (BF, 128, 10, "mma"),       # recurrentgemma's MQA group
+    (BF, 128, 10, "mma"),       # recurrentgemma's MQA group at another head dim
     (BF, 64, 128, "mma"),
     (BF, 32, 4, "mma"),         # head dims a 128-byte TMA row does not hold
     (BF, 16, 1, "mma"),
     (F32, 64, 4, "fma"),
     (F32, 256, 10, "fma"),
+    (BF, 256, 10, "mma"),       # recurrentgemma-2b: MQA 10 heads of 256, by column halves
+    (BF, 256, 1, "mma"),
+    (BF, 256, 64, "mma"),
 ])
 def test_flash_bwd_route(dtype, dh, g, want):
     assert FA.bwd_route(dtype, dh, g) == want
@@ -75,18 +78,23 @@ def test_rmsnorm_bwd_route_refuses_other_dtypes():
 
 
 def test_rglru_needs_grad():
+    """A call autograd records (grad mode on, some input requiring grad)
+    runs as the RG-LRU's autograd Function; any other call launches the
+    forward alone."""
     x = torch.zeros(2, 3, 4)
+    ws = [torch.zeros(4) for _ in range(5)]
     w = torch.zeros(4, requires_grad=True)
-    assert RG.needs_grad(x, w)
-    assert RG.needs_grad(None, w)
-    assert not RG.needs_grad(x, None)
+    assert "RgLruGatedFn" in type(RG.rglru_gated(x, w, *ws[1:])[0].grad_fn).__name__
+    assert "RgLruFn" in type(RG.rglru(x, x.clone().requires_grad_()).grad_fn).__name__
+    assert RG.rglru_gated(x, *ws)[0].grad_fn is None
     with torch.no_grad():
-        assert not RG.needs_grad(x, w)
+        assert RG.rglru_gated(x, w, *ws[1:])[0].grad_fn is None
 
 
 def test_rglru_cpu_calls_stay_differentiable():
-    """On the CPU the plain version runs, so a call autograd records is not
-    refused and its gradient reaches every weight."""
+    """On the CPU a call autograd records runs the Function over the plain
+    versions, and its gradient reaches every weight (``h_last`` carries
+    none)."""
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(2, 5, 8, generator=gen, requires_grad=True)
     ws = [(0.1 * torch.randn(8, generator=gen)).requires_grad_() for _ in range(5)]
@@ -182,16 +190,80 @@ def test_cuda_rmsnorm_bwd_routes_match_plain(cuda_device, n, d, sdt, offset, wan
 
 
 @pytest.mark.gpu
-def test_cuda_rglru_refuses_a_recorded_call(cuda_device):
-    """A launch would drop the gradient, so the kernel refuses a call that
-    autograd records; without grad (serving) it runs."""
+@pytest.mark.parametrize("shape,dt,wdt", [
+    ((2, 2048, 2560), BF, BF),      # recurrentgemma train, one micro-step: 32 chunks of 64
+    ((3, 1001, 2500), BF, F32),     # T not a multiple of the chunk, C of 128
+    ((2, 1, 300), BF, BF),          # T 1
+    ((2, 700, 384), F32, F32),
+])
+def test_cuda_rglru_gated_grad_matches_plain(cuda_device, shape, dt, wdt):
+    """A recorded call launches the kernel forward and, in the backward,
+    the backward kernel (counted as a gated launch); the gradients agree
+    with the plain backward and repeat bitwise."""
     gen = torch.Generator(device=cuda_device).manual_seed(10)
-    x = torch.randn(2, 16, 128, generator=gen, device=cuda_device)
-    ws = [0.1 * torch.randn(128, generator=gen, device=cuda_device) for _ in range(5)]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        RG.rglru_gated(x.requires_grad_(), *ws)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        RG.rglru(x, x.detach())
-    with torch.no_grad():
-        h, _ = RG.rglru_gated(x, *ws)
-    assert torch.isfinite(h).all()
+    c = shape[2]
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(dt)
+    u = 0.9 + 0.099 * torch.rand(c, generator=gen, device=cuda_device)
+    ws = [(0.5 * torch.randn(c, generator=gen, device=cuda_device)).to(wdt) for _ in range(4)]
+    ws.append((torch.log(u) - torch.log1p(-u)).to(wdt))
+    dh = torch.randn(shape, generator=gen, device=cuda_device).to(dt)
+    plan = RG.plan_bwd_chunks(*shape, sms=torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    want = RG.rglru_gated_bwd_plain(x, *ws, dh, nchunks=plan[0], chunk_len=plan[1])
+    runs = []
+    for _ in range(2):
+        ins = [t.clone().requires_grad_() for t in (x, *ws)]
+        before = dict(RG.launches_bwd_by_form)
+        h, _ = RG.rglru_gated(*ins)
+        h.backward(dh)
+        assert RG.launches_bwd_by_form == {"ab": before["ab"], "gated": before["gated"] + 1}
+        runs.append([t.grad for t in ins])
+    for got, rep, ref, what in zip(*runs, want, ("x", "wr", "br", "wi", "bi", "lam")):
+        assert torch.equal(got, rep), f"d{what}: not bitwise repeatable"
+        _rel_close(got, ref, BWD_REL[dt], f"d{what}")
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_ab_grad_matches_plain(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    a = 0.7 + 0.299 * torch.rand(3, 1001, 2500, generator=gen, device=cuda_device)
+    b = 0.1 * torch.randn(3, 1001, 2500, generator=gen, device=cuda_device)
+    dh = torch.randn(3, 1001, 2500, generator=gen, device=cuda_device)
+    a1, b1 = a.clone().requires_grad_(), b.clone().requires_grad_()
+    before = dict(RG.launches_bwd_by_form)
+    RG.rglru(a1, b1).backward(dh)
+    assert RG.launches_bwd_by_form == {"ab": before["ab"] + 1, "gated": before["gated"]}
+    plan = RG.plan_bwd_chunks(3, 1001, 2500, sms=torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    for got, ref, what in zip((a1.grad, b1.grad), RG.rglru_bwd_plain(
+            a, b, dh, nchunks=plan[0], chunk_len=plan[1]), ("da", "db")):
+        _rel_close(got, ref, BWD_REL[F32], what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 2048, 2048, 1, 10, 256), dict(causal=True, window=2048)),  # recurrentgemma train
+    ((2, 512, 512, 1, 10, 256), dict(causal=True, window=64)),
+    ((2, 300, 300, 1, 10, 256), dict(causal=True)),                 # ragged T
+    ((1, 77, 77, 2, 4, 256), dict(causal=True)),
+    ((2, 128, 256, 1, 10, 256), dict(causal=True, q_offset=64, kv_valid_len=150)),
+])
+def test_cuda_flash_bwd_dh256_matches_plain(cuda_device, shape, kw):
+    """The dh-256 backward (each block owning 128 of the 256 output
+    columns) against its plain version, bitwise repeatable, counted on
+    ``mma``."""
+    b, tq, tk, hkv, g, dh = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    q, do = (torch.randn(b, tq, hkv, g, dh, generator=gen, device=cuda_device).to(BF)
+             for _ in range(2))
+    k, v = (torch.randn(b, tk, hkv, dh, generator=gen, device=cuda_device).to(BF)
+            for _ in range(2))
+    o, lse = FA.flash_attention_fwd(q, k, v, **kw)
+    before = FA.launches_bwd_by_route["mma"]
+    grads = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert FA.launches_bwd_by_route["mma"] == before + 2
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for got, rep, ref, what in zip(grads, again, want, ("dq", "dk", "dv")):
+        assert torch.equal(got, rep), f"{what}: not bitwise repeatable"
+        _rel_close(got, ref, BWD_REL[BF], what)

@@ -94,6 +94,7 @@ ATTN_CASES = {
     "g1-full": (2, 40, 2, 1, 16, False, 0),
     "T1024-causal": (1, 1024, 2, 2, 16, True, 0),      # the reference's 512-query chunks
     "T1024-window": (1, 1024, 1, 2, 16, True, 100),    # its windowed KV slabs
+    "mqa-g10-dh256-window": (1, 80, 1, 10, 256, True, 24),  # recurrentgemma's heads
 }
 
 

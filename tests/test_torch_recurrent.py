@@ -164,3 +164,49 @@ def test_rec_layers_use_their_own_weights():
     other, _ = TR.griffin_rec_apply(cfg, t, x, ctx, prefix="rec0.")
     assert torch.equal(base, same)
     assert not torch.allclose(base, other)
+
+
+# Gradients of one recurrent layer, port against jax.vjp, as a fraction of
+# each gradient's max |value|, measured on the CPU with the test below.
+# fp32: the same math in other orders; measured <= 6.8e-7.  bf16: both
+# round every matmul's output, the conv's product and sum after each tap
+# and the RG-LRU's output to bf16 at the same places, with sums in other
+# orders; measured <= 1.03e-2 (rec.wx), about one bf16 ulp of the largest
+# gradient.
+GRAD_REL_TOL = {"fp32": 1e-5, "bf16": 2e-2}
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_rec_apply_grads_match_jax_vjp(layer, dt):
+    """The input's and every weight's gradient of one ``griffin_rec_apply``
+    in train mode, against ``jax.vjp`` of the reference's, on the same
+    weights, input and cotangent.  bf16 casts weights and input to bf16 as
+    the bf16 gather does, which covers the conv's bf16 rounding after each
+    tap (eager autograd here, XLA's autodiff there) and the RG-LRU's
+    Function (its plain backward on the CPU)."""
+    cfg_j, cfg_t, tj, tt = layer
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 24, cfg_t.d_model)).astype(np.float32)
+    ct = rng.normal(size=x.shape).astype(np.float32)
+    tj = {k: v.astype(jdt) for k, v in tj.items()}
+
+    @jax.jit
+    def vjp(t, x_, ct_):
+        _, f = jax.vjp(lambda t_, xx: JR.griffin_rec_apply(cfg_j, t_, xx,
+                                                           JL.Ctx(mode="train", tp=1))[0], t, x_)
+        return f(ct_)
+
+    dtj, dxj = vjp(tj, jnp.asarray(x, jdt), jnp.asarray(ct, jdt))
+    tt = {k: torch.from_numpy(np.array(v.astype(jnp.float32))).to(tdt).requires_grad_()
+          for k, v in tj.items()}
+    xt = torch.from_numpy(np.array(jnp.asarray(x, jdt).astype(jnp.float32))).to(tdt)
+    xt.requires_grad_()
+    y, _ = TR.griffin_rec_apply(cfg_t, tt, xt, TL.Ctx(mode="train", tp=1, compute_dtype=tdt))
+    y.backward(torch.from_numpy(np.array(jnp.asarray(ct, jdt).astype(jnp.float32))).to(tdt))
+    tol = GRAD_REL_TOL[dt]
+    for name, got, want in [("x", xt.grad, dxj)] + [(k, tt[k].grad, dtj[k]) for k in sorted(tt)]:
+        assert got is not None and got.dtype == tdt, name
+        w = _np(want)
+        err, scale = float(np.abs(_np(got) - w).max()), float(np.abs(w).max())
+        assert err <= tol * scale, f"d{name}: max |err| {err} > {tol} x {scale}"

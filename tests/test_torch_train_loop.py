@@ -46,6 +46,8 @@ def test_resumed_run_is_bitwise_the_uninterrupted_one(tmp_path):
     first = _run(model, dc, oc, mcfg, tmp_path / "cut", 2)
     rest = _run(model, dc, oc, mcfg, tmp_path / "cut", 4)   # resumes from step 2
     assert len(whole.losses) == 4 and len(first.losses) == 2 and len(rest.losses) == 2
+    # every save is timed: at steps 2 and 4 and once at the end
+    assert len(whole.save_times) == 3 and all(t > 0 for t in whole.save_times)
     assert first.losses + rest.losses == whole.losses
     assert first.grad_norms + rest.grad_norms == whole.grad_norms
     a, meta_a = Checkpointer(tmp_path / "whole").restore(model, device="cpu")
