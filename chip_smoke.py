@@ -59,15 +59,19 @@ script exits non-zero; no phase swallows an error):
    ``regs``; attention 16 + 16, all on ``mma``, its backward 16, all on
    ``wgmma``; RG-LRU 0.  recurrentgemma RMSNorm 53 + 52, its backward 53,
    all on ``smem`` (d 2560); attention 8 + 8 on ``mma``, its backward 8,
-   all on ``mma`` (dh 256, by column halves); RG-LRU 18 + 18, its backward
-   18, all gated.
+   all on ``wgmma256`` (dh 256, one KV head); RG-LRU 18 + 18 (on the
+   backward's chunk plan, handing it the chunk starts), its backward 18,
+   all gated.
    ``train_consistency``: the same weights at a cut depth (llama 2 layers;
    recurrentgemma 5: ``g`` x1 + ``gtail``, so attention's backward runs),
    full width, one micro-step of 1 x 256 tokens: card against CPU (loss,
    grad_norm, every pool's gradient, the params after one AdamW step);
    bitwise on the card serial == prefetch (loss, gradients), serial ==
    bucketed boundary (params, m, v, grad_norm) and a step run twice.
-   ``profile``: one train step's device time by kernel.
+   ``profile``: one train step's device time by kernel.  A profile session
+   whose port kernel events fall short of the wrapper calls the launch
+   counters show for it is taken again once, and marked ``events_short``
+   if it is still short.
 4. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
    library call's where there is one, and the card's bound for the same
@@ -91,11 +95,15 @@ script exits non-zero; no phase swallows an error):
    route (ragged T 300, window 64, g 1, dh 128), a group size it refuses
    (g 3, to ``mma``), ``mma`` at dh 32 and ``fma`` at fp32, with the
    forward's log-sum-exp and TFLOP/s (the device time a call of each of
-   the flash backward's launches, delta, dK / dV and dQ, is read from the
-   train steps' profiles); ``mma`` at dh 256 by column halves
-   (recurrentgemma's train shape, window 64, ragged T).  The RG-LRU backward at the train shape and its
-   edges (T not a multiple of the chunk, T 1, C not a multiple of 128,
-   fp32, the clip binding, the ``(a, b)`` form).  All bitwise repeatable,
+   the flash backward's launches, delta, dK / dV, the fold and dQ, is read
+   from the train steps' profiles); ``wgmma256`` at dh 256 (recurrentgemma's
+   train shape, window 64, ragged T, one KV head with g 3), each beside
+   ``mma`` by column halves on the same inputs (checked and timed in the
+   same run), and two KV heads with g 10, which ``wgmma256`` refuses, on
+   ``mma``.  ``digest``: the line ``--digest-only`` prints.  The RG-LRU backward at the train shape and
+   its edges (T not a multiple of the chunk, T 1, C not a multiple of 128,
+   fp32, the clip binding, the ``(a, b)`` form), each from the chunk
+   starts its forward writes (held to their plain version).  All bitwise repeatable,
    with the library's autograd backward (``F.rms_norm``,
    ``F.scaled_dot_product_attention``) as ``library_ms``; the RG-LRU has
    none (no one PyTorch call computes a linear recurrence).
@@ -104,6 +112,9 @@ script exits non-zero; no phase swallows an error):
 (both serve paths, then the train steps; no checks, no result line): it
 uses only the serve API and ``build_train_step``, so the same file also
 profiles an earlier checkout (one that already trains) for comparison.
+``--digest-only`` prints a sha256 of llama's train-shape flash backward
+on fixed inputs through ``flash_attention_fwd`` / ``flash_attention_bwd``
+alone, so two checkouts' kernels can be compared bit for bit.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits non-zero and prints no result.
@@ -190,7 +201,8 @@ class TrainPath:
 # and 16 backward.  recurrentgemma (26 sub-layers: 18 recurrent, 8
 # attention): RMSNorm 53 + 52 and 53 backward; attention 8 + 8 and 8
 # backward; the gated RG-LRU 18 + 18 and 18 backward.  Every attention
-# forward takes ``mma``.
+# forward takes ``mma``; recurrentgemma's attention backward (dh 256, one KV
+# head) takes ``wgmma256``.
 TRAIN = (
     TrainPath("llama3.2-1b", 8, 2, 2048, 4,
               {"rmsnorm": 65, "rmsnorm_bwd": 33, "flash_attention": 32,
@@ -199,7 +211,7 @@ TRAIN = (
     TrainPath("recurrentgemma-2b", 8, 4, 2048, 4,
               {"rmsnorm": 105, "rmsnorm_bwd": 53, "flash_attention": 16,
                "flash_attention_bwd": 8, "rglru": 36, "rglru_bwd": 18},
-              "mma", "smem", 5, 256),
+              "wgmma256", "smem", 5, 256),
 )
 # Card against CPU in the train_consistency phase, as a fraction of each
 # pool's largest |gradient| (and of |loss|, |grad_norm|): both sides round
@@ -281,7 +293,7 @@ def ptxas_summary(log: str) -> list[dict]:
         if kernel.startswith("flash_bwd_delta_bf16"):
             row["lanes_per_row"] = ints[0] if ints else None
         elif kernel.startswith("flash"):
-            row["dh"] = ints[0] if ints else None
+            row["dh"] = ints[0] if ints else (256 if "wgmma256" in kernel else None)
             if "wgmma" in kernel:  # <dh, stages[, rows a tile]>
                 row["stages"] = ints[1] if len(ints) > 1 else None
                 row["tile"] = ints[2] if len(ints) > 2 else None
@@ -394,13 +406,39 @@ KERNEL_KINDS = (("flash_bwd", "flash attention backward"), ("flash_", "flash att
                 ("elementwise", "elementwise"), ("embedding", "embedding"))
 
 
-# The flash backward's three launches by the profile's kernel names.
+# The flash backward's launches by the profile's kernel names (the fold only
+# on the wgmma256 route).
 FLASH_BWD_PARTS = (("delta", "flash_bwd_delta"), ("dkdv", "flash_bwd_dkdv"),
-                   ("dq", "flash_bwd_dq"))
+                   ("fold", "flash_bwd_fold"), ("dq", "flash_bwd_dq"))
+# The port's own kernels' kinds: each counted wrapper call launches at least
+# one device kernel of these.
+PORT_KINDS = ("flash attention backward", "flash attention", "RMSNorm backward", "RMSNorm",
+              "RG-LRU backward", "RG-LRU")
 
 
 def kernel_kind(name: str) -> str:
     return next((kind for pat, kind in KERNEL_KINDS if pat in name), "other")
+
+
+def profile_session(run):
+    """One profiled call of ``run``: ``(wall_ms, device rows, port kernel
+    events, counted wrapper calls)``, the launch counters set to 0 just
+    before the call and read just after."""
+    reset_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = sum(read_counts().values())
+    # device-side kernel and memcpy events only (the CPU-side aten ops carry
+    # the same time again as their children's)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key != "Activity Buffer Request"]
+    ours = sum(e.count for e in rows if kernel_kind(e.key) in PORT_KINDS)
+    return wall_ms, rows, ours, counted
 
 
 def profile_run(arch: str, step: str, run, top: int = 12, **extra) -> dict:
@@ -408,23 +446,22 @@ def profile_run(arch: str, step: str, run, top: int = 12, **extra) -> dict:
     so nothing is built or first-allocated in the window), the number of
     device kernels it runs, their time by kind, and the flash backward's
     device time a call of each of its launches where it ran; emitted as a
-    ``profile`` line with ``extra``'s fields."""
+    ``profile`` line with ``extra``'s fields.  A session whose port kernel
+    events fall short of the wrapper calls the launch counters show for the
+    same call (the profiler dropped events) is taken again once; if it is
+    still short the line says ``"events_short": true`` and is no full
+    profile."""
     run()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side kernel and memcpy events only (the CPU-side aten ops carry
-    # the same time again as their children's)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.key != "Activity Buffer Request"]
+    for _ in range(2):
+        wall_ms, rows, ours, counted = profile_session(run)
+        if ours >= counted:
+            break
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    line = {"phase": "profile", "arch": arch, "step": step, **extra, "wall_ms": wall_ms,
+    line = {"phase": "profile", "arch": arch, "step": step, **extra,
+            "events_short": ours < counted, "port_kernel_events": ours,
+            "port_calls_counted": counted, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "device_kernels": sum(e.count for e in rows), "by_kind": {},
             "top": [{"name": e.key[:80], "calls": e.count,
@@ -1053,6 +1090,66 @@ BWD_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 GATED_BWD_OPS_PER_ELEMENT = 2 * GATED_OPS_PER_ELEMENT
 
 
+def rel_check(name, outs, refs, rel):
+    """Each output within ``rel`` of its reference's max |value|; the worst
+    max |err|."""
+    worst = 0.0
+    for o, r in zip(outs, refs):
+        err, scale = _rel_err(o, r)
+        if not err <= rel * scale:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                                 f"(max |err| {err} > {rel} x {scale})")
+        worst = max(worst, err)
+    return worst
+
+
+def run_bwd_route(case, route, ins, kw, ref, rel):
+    """The flash backward on ``route`` for ``ins`` = (q, k, v, o, lse, dO):
+    counted on it, bitwise repeatable and within ``rel`` of ``ref``;
+    ``(max |err|, outputs)``."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    before = FA.launches_bwd_by_route[route]
+    out = FA.flash_attention_bwd_on(route, *ins, **kw)
+    if FA.launches_bwd_by_route[route] != before + 1:
+        raise AssertionError(f"flash_attention_bwd {case}: did not take the {route} route")
+    if not all(torch.equal(a, r) for a, r in zip(out, FA.flash_attention_bwd_on(route, *ins,
+                                                                                **kw))):
+        raise AssertionError(f"flash_attention_bwd {case} ({route}): not bitwise repeatable")
+    return rel_check(f"flash_attention_bwd {case} ({route})", out, ref, rel), out
+
+
+def bwd_digest(outs) -> str:
+    """sha256 of the outputs' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def digest_phase(dev):
+    """``digest``: llama's train-shape flash backward (the ``wgmma`` route)
+    on inputs from a fixed seed, through the forward and backward every
+    checkout of the port has, as a sha256 of (dq, dk, dv): two checkouts
+    give the same digest when their kernels give the same bits."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    b, t = TRAIN[0].global_batch // TRAIN[0].micro_steps, TRAIN[0].seq
+    q, do = (torch.randn(b, t, 8, 4, 64, generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(b, t, 8, 64, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+    before = dict(FA.launches_bwd_by_route)
+    out = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    took = [r for r, n in FA.launches_bwd_by_route.items() if n != before.get(r, 0)]
+    emit({"phase": "digest", "case": "llama train flash backward", "route": took,
+          "fwd": bwd_digest((o, lse)), "bwd": bwd_digest(out)})
+
+
 def backward_checks(gen, dev, flush):
     """The backward kernels at the train path's shapes and at each route's
     edges, each against its plain version on the same inputs, called twice
@@ -1062,16 +1159,6 @@ def backward_checks(gen, dev, flush):
 
     from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.rmsnorm import kernel as RN
-
-    def rel_check(name, outs, refs, rel):
-        worst = 0.0
-        for o, r in zip(outs, refs):
-            err, scale = _rel_err(o, r)
-            if not err <= rel * scale:
-                raise AssertionError(f"{name}: kernel disagrees with its plain version "
-                                     f"(max |err| {err} > {rel} x {scale})")
-            worst = max(worst, err)
-        return worst
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bf, f32 = torch.bfloat16, torch.float32
@@ -1121,6 +1208,8 @@ def backward_checks(gen, dev, flush):
          10, 256, True, 2048, bf),
         ("dh 256 window 64", 2, 512, 1, 10, 256, True, 64, bf),
         ("dh 256 ragged T 300", 2, 300, 1, 10, 256, True, 0, bf),
+        ("dh 256 hkv 1 g 3: rows [b, T g, dh] at any g", 2, 512, 1, 3, 256, True, 0, bf),
+        ("dh 256 hkv 2 g 10: wgmma256 refuses, mma", 1, 512, 2, 10, 256, True, 0, bf),
         ("ragged T 300", 2, 300, 2, 4, 64, True, 0, bf),
         ("window 64", 2, 512, 2, 4, 64, True, 64, bf),
         ("g 1", 2, 256, 4, 1, 64, True, 0, bf),
@@ -1146,15 +1235,17 @@ def backward_checks(gen, dev, flush):
                                  f"(max |err| {o_err}, tol {TOL[dt]})")
         lse_err = rel_check(f"flash lse {case}", [lse], [lse_ref], 1e-5)
         del o_ref
-        route = FA.bwd_route(dt, dh, g)
-        before = FA.launches_bwd_by_route[route]
-        out = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-        if FA.launches_bwd_by_route[route] != before + 1:
-            raise AssertionError(f"flash_attention_bwd {case}: did not take the {route} route")
-        if not all(torch.equal(a, r) for a, r in zip(out, FA.flash_attention_bwd(q, k, v, o, lse, do, **kw))):
-            raise AssertionError(f"flash_attention_bwd {case}: not bitwise repeatable")
-        err = rel_check(f"flash_attention_bwd {case}", out,
-                        FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw), BWD_REL_TOL[dt])
+        route = FA.bwd_route(dt, dh, g, hkv)
+        ref = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        err, out = run_bwd_route(case, route, (q, k, v, o, lse, do), kw, ref, BWD_REL_TOL[dt])
+        extra = {}
+        if route == "wgmma256":  # the column-halves route on the same inputs, same run
+            m_err, m_out = run_bwd_route(case, "mma", (q, k, v, o, lse, do), kw, ref,
+                                         BWD_REL_TOL[dt])
+            extra["mma"] = {"max_abs_err": m_err, "ms": time_ms(
+                lambda: FA.flash_attention_bwd_on("mma", q, k, v, o, lse, do, **kw), flush)}
+            del m_out
+        del ref, out
         allowed = FA.mask_bias(t, t, causal=causal, window=window, q_offset=0,
                                kv_valid_len=None, device=dev) == 0
         pairs = int(allowed.sum().item()) * b * hkv * g
@@ -1163,6 +1254,8 @@ def backward_checks(gen, dev, flush):
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
         b_ms, b_by = bound(nbytes, ops, dt)
         ms = time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, lse, do, **kw), flush)
+        if "mma" in extra:
+            extra["mma"]["tflops"] = ops / extra["mma"]["ms"] / 1e9
         qs = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, t, dh).contiguous().requires_grad_()
         ks = k.permute(0, 2, 1, 3).contiguous().requires_grad_()
         vs = v.permute(0, 2, 1, 3).contiguous().requires_grad_()
@@ -1181,17 +1274,20 @@ def backward_checks(gen, dev, flush):
                                 flush, reps=5),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: torch.autograd.grad(y, (qs, ks, vs), dos,
-                                                              retain_graph=True), flush)})
-        del q, k, v, do, o, out, qs, ks, vs, y
+                                                              retain_graph=True), flush),
+            **extra})
+        del q, k, v, do, o, qs, ks, vs, y
         torch.cuda.empty_cache()
-    return rms, attn, rglru_backward_checks(gen, dev, flush, rel_check)
+    return rms, attn, rglru_backward_checks(gen, dev, flush)
 
 
-def rglru_backward_checks(gen, dev, flush, rel_check):
+def rglru_backward_checks(gen, dev, flush):
     """The RG-LRU backward (gated, then the ``(a, b)`` form) at the train
-    shape and its edges, each over ``plan_bwd_chunks``' plan, against its
-    plain version on the same inputs, called twice for a bitwise-equal
-    output, timed beside its bound.  Inputs as ``kernel_checks`` draws them
+    shape and its edges, each over ``plan_bwd_chunks``' plan from the chunk
+    starts the forward kernel writes on that plan (held to their plain
+    version), against its plain version on the same inputs, called twice
+    for a bitwise-equal output, timed (the backward alone) beside its
+    bound.  Inputs as ``kernel_checks`` draws them
     (gates std 0.02, biases 0.1, sigmoid(lam) in (0.9, 0.999)); "clip
     binds" takes lam in (17, 18), where 1 - a^2 < 1e-6."""
     from repro_torch.kernels.rglru import kernel as RG
@@ -1220,12 +1316,16 @@ def rglru_backward_checks(gen, dev, flush, rel_check):
             0.02 * torch.randn(c, generator=gen, device=dev),
             0.1 * torch.randn(c, generator=gen, device=dev), lam))
         plan = RG.plan_bwd_chunks(*shape, sms=sms)
+        _, _, starts = RG.rglru_gated_with_starts(x, *ws, plan=plan)
+        want = RG.rglru_gated_starts_plain(x, *ws, nchunks=plan[0], chunk_len=plan[1])
+        starts_err = rel_check(f"rglru_gated {case} chunk starts", [starts], [want],
+                               RGLRU_GATED_FP32_REL)
         before = RG.launches_bwd_by_form["gated"]
-        got = RG.rglru_gated_bwd(x, *ws, dh, plan=plan)
+        got = RG.rglru_gated_bwd(x, *ws, dh, plan=plan, h_starts=starts)
         if RG.launches_bwd_by_form["gated"] != before + 1:
             raise AssertionError(f"rglru_gated_bwd {case}: not counted as a gated launch")
-        if not all(torch.equal(a, b) for a, b in zip(got, RG.rglru_gated_bwd(x, *ws, dh,
-                                                                             plan=plan))):
+        if not all(torch.equal(a, b) for a, b in zip(got, RG.rglru_gated_bwd(
+                x, *ws, dh, plan=plan, h_starts=starts))):
             raise AssertionError(f"rglru_gated_bwd {case}: not bitwise repeatable")
         rel = BWD_REL_TOL[dt]
         err = rel_check(f"rglru_gated_bwd {case}", got,
@@ -1237,29 +1337,34 @@ def rglru_backward_checks(gen, dev, flush, rel_check):
             binds = (1.0 - a.double() ** 2 < 1e-6).float().mean().item()
             if binds < 0.5:
                 raise AssertionError(f"rglru_gated_bwd {case}: the clip binds at {binds} only")
-        # x and dh read, dx written; the weights read and their gradients written
+        # x and dh read, dx written; the weights read and their gradients
+        # written (the chunk starts the design reads count against the bound)
         nbytes = 3 * x.numel() * x.element_size() + 10 * c * ws[0].element_size()
         b_ms, b_by = bound(nbytes, GATED_BWD_OPS_PER_ELEMENT * x.numel(), f32)
         out.append({
             "case": case, "form": "gated", "shape": list(shape), "dtype": str(dt)[6:],
             "weight_dtype": str(wdt)[6:], "plan": {"nchunks": plan[0], "chunk_len": plan[1]},
             "clip_binds_share": binds, "bitwise_repeat": True, "max_abs_err": err,
-            "rel_tol": rel, "ms": time_ms(lambda: RG.rglru_gated_bwd(x, *ws, dh, plan=plan), flush),
+            "starts_max_abs_err": starts_err, "rel_tol": rel,
+            "ms": time_ms(lambda: RG.rglru_gated_bwd(x, *ws, dh, plan=plan, h_starts=starts),
+                          flush),
             "plain_ms": time_ms(lambda: RG.rglru_gated_bwd_plain(
                 x, *ws, dh, nchunks=plan[0], chunk_len=plan[1]), flush, reps=5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-        del x, dh, got
+        del x, dh, got, starts
     for case, shape, dt in (("ab, the train shape", rg_train, f32),
                             ("ab, T 1001, C 2500", (3, 1001, 2500), bf)):
         a = (0.7 + 0.299 * torch.rand(shape, generator=gen, device=dev)).to(dt)
         b = (0.1 * torch.randn(shape, generator=gen, device=dev)).to(dt)
         dh = torch.randn(shape, generator=gen, device=dev).to(dt)
         plan = RG.plan_bwd_chunks(*shape, sms=sms)
+        _, starts = RG.rglru_with_starts(a, b, plan=plan)
         before = RG.launches_bwd_by_form["ab"]
-        got = RG.rglru_bwd(a, b, dh, plan=plan)
+        got = RG.rglru_bwd(a, b, dh, plan=plan, h_starts=starts)
         if RG.launches_bwd_by_form["ab"] != before + 1:
             raise AssertionError(f"rglru_bwd {case}: not counted as an ab launch")
-        if not all(torch.equal(p, q) for p, q in zip(got, RG.rglru_bwd(a, b, dh, plan=plan))):
+        if not all(torch.equal(p, q) for p, q in zip(got, RG.rglru_bwd(a, b, dh, plan=plan,
+                                                                       h_starts=starts))):
             raise AssertionError(f"rglru_bwd {case}: not bitwise repeatable")
         rel = BWD_REL_TOL[dt]
         err = rel_check(f"rglru_bwd {case}", got,
@@ -1270,11 +1375,11 @@ def rglru_backward_checks(gen, dev, flush, rel_check):
             "case": case, "form": "ab", "shape": list(shape), "dtype": str(dt)[6:],
             "plan": {"nchunks": plan[0], "chunk_len": plan[1]}, "bitwise_repeat": True,
             "max_abs_err": err, "rel_tol": rel,
-            "ms": time_ms(lambda: RG.rglru_bwd(a, b, dh, plan=plan), flush),
+            "ms": time_ms(lambda: RG.rglru_bwd(a, b, dh, plan=plan, h_starts=starts), flush),
             "plain_ms": time_ms(lambda: RG.rglru_bwd_plain(
                 a, b, dh, nchunks=plan[0], chunk_len=plan[1]), flush, reps=5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-        del a, b, dh, got
+        del a, b, dh, got, starts
     torch.cuda.empty_cache()
     return out
 
@@ -1284,6 +1389,9 @@ def main() -> int:
     ap.add_argument("--profile-only", action="store_true",
                     help="run only the profile phases: both serve paths and the train steps "
                          "the checkout trains on a card (no checks, no result)")
+    ap.add_argument("--digest-only", action="store_true",
+                    help="print only the digest of llama's train-shape flash backward (no "
+                         "checks, no result), to compare two checkouts' kernels bit for bit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1306,6 +1414,9 @@ def main() -> int:
     KB.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib.name,
           "ptxas": ptxas_summary(lib.with_suffix(".log").read_text()), "gpu": card})
+    if args.digest_only:
+        digest_phase(dev)
+        return 0
     if args.profile_only:
         from repro_torch.configs import get_config
         from repro_torch.core.mics import CUDA_TRAIN_FAMILIES
@@ -1359,14 +1470,17 @@ def main() -> int:
     # -- 4. kernels against their plain versions, timed ---------------------------
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
+    digest_phase(dev)
     rms_bwd_checks, attn_bwd_checks, rglru_bwd_checks = backward_checks(gen, dev, flush)
     rms_checks, attn_checks, rglru_checks = kernel_checks(gen, dev, flush)
 
-    def entry(name, source, replaces, checks, **more):
+    def entry(name, source, replaces, checks, by_path_n=None, **more):
+        """``by_path_n``: the kernel's launches by path where its counter is
+        not ``name``'s (a route of it)."""
         main = checks[0]  # the path's main shape
+        per_path = by_path_n or {arch: n[name] for arch, n in by_path.items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": sum(n[name] for n in by_path.values()),
-                "launches_by_path": {arch: n[name] for arch, n in by_path.items()},
+                "launches": sum(per_path.values()), "launches_by_path": per_path,
                 "max_abs_err": main["max_abs_err"], "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"], "library_ms": main["library_ms"],
@@ -1393,13 +1507,24 @@ def main() -> int:
               gradient_of="src/repro/models/layers.py:145 attention (the TPU kernel has no "
                           "backward)",
               sources={"wgmma": "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
+                       "wgmma256": "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma256.cu",
                        "mma": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                        "fma": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                        "delta (every route)":
                            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"},
-              device_ms_by_launch={line["arch"]: line["flash_bwd_ms_per_launch"]
+              device_ms_by_launch={line["arch"]: line.get("flash_bwd_ms_per_launch")
                                    for line in train_profiles},
               launches_by_route=train_sum("attention_bwd_launches_by_route")),
+        # the dh-256 route alone: its checks first, its launches the train
+        # paths' on it, mma's time on the same inputs beside it
+        entry("flash_attention_bwd_wgmma256",
+              "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma256.cu",
+              "src/repro/kernels/flash_attention/kernel.py:86",
+              [c for c in attn_bwd_checks if c["route"] == "wgmma256"],
+              by_path_n={f"{line['arch']} train": line["attention_bwd_launches_by_route"]
+                         ["wgmma256"] for line in train_lines},
+              gradient_of="src/repro/models/layers.py:145 attention at head dim 256",
+              mma_ms=next(c["mma"]["ms"] for c in attn_bwd_checks if "mma" in c)),
         entry("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru/kernel.py:47", rglru_checks,
               launches_by_form=launches_by_form),

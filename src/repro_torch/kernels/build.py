@@ -55,6 +55,11 @@ SIGNATURES = {
     # window, q_offset, kv_len, scale, stream (bf16)
     "flash_bwd_wgmma_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _P),
+    # qs, k, v, do, rowstat, pieces, npieces, tiles, partials, dq, dk, dv, b, tq,
+    # tk, hkv, g, rs_rows, causal, window, q_offset, kv_len, scale, stream (bf16,
+    # dh 256)
+    "flash_bwd_wgmma256_launch": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, do, lse, delta, [qs, rowstat: mma only,] dq, dk, dv, b, tq, tk,
     # hkv, g, dh, causal, window, q_offset, kv_len, scale, stream (mma: bf16;
     # fma: fp32)
@@ -68,20 +73,21 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _F, _P),
     # part, o, b, tq, hkv, g, dh, nsplit, stream
     "flash_split_merge_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # a, b, h0 (or NULL), h, h_last (or NULL), summary (or NULL), B, T, C,
-    # nchunks, chunk_len, is_bf16, stream
-    "rglru_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, wr, br, wi, bi, lam, h0 (or NULL), h, h_last, summary (or NULL), B, T,
-    # C, nchunks, chunk_len, x_bf16, w_bf16, stream
-    "rglru_gated_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _P),
-    # a, b, dh, da, db, summary (or NULL), B, T, C, nchunks, chunk_len, is_bf16,
-    # stream
-    "rglru_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, wr, br, wi, bi, lam, dh, dx, partials, summary (or NULL), dwr, dbr, dwi,
-    # dbi, dlam, B, T, C, nchunks, chunk_len, x_bf16, w_bf16, stream
+    # a, b, h0 (or NULL), h, h_last (or NULL), starts (or NULL), summary (or
+    # NULL), B, T, C, nchunks, chunk_len, is_bf16, stream
+    "rglru_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, wr, br, wi, bi, lam, h0 (or NULL), h, h_last, starts (or NULL), summary
+    # (or NULL), B, T, C, nchunks, chunk_len, x_bf16, w_bf16, stream
+    "rglru_gated_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _P),
+    # a, b, dh, da, db, starts (or NULL), summary (or NULL), B, T, C, nchunks,
+    # chunk_len, is_bf16, stream
+    "rglru_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, wr, br, wi, bi, lam, dh, dx, partials, starts (or NULL), summary (or
+    # NULL), dwr, dbr, dwi, dbi, dlam, B, T, C, nchunks, chunk_len, x_bf16,
+    # w_bf16, stream
     "rglru_gated_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _P),
+                               _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -14,10 +14,11 @@
 //   dK = dS^T qs, dQ = (dS K) / sqrt(dh).
 // Routes (kernel.py `bwd_route`): bf16 at head dim 64 or 128 with a group
 // size dividing 64 -- llama's train path -- takes
-// flash_attention_bwd_wgmma.cu after this file's delta launch; bf16 at head
-// dim 256 -- recurrentgemma's train path -- takes the "mma" kernels here
-// with their output columns split over blocks (below); the other bf16
-// shapes take the "mma" kernels whole, fp32 the "fma" ones.
+// flash_attention_bwd_wgmma.cu after this file's delta launch, and bf16 at
+// head dim 256 with one KV head or such a group -- recurrentgemma's train
+// path -- flash_attention_bwd_wgmma256.cu; the other dh-256 shapes take the
+// "mma" kernels here with their output columns split over blocks (below),
+// the other bf16 shapes the "mma" kernels whole, fp32 the "fma" ones.
 // Three launches, no atomics, bitwise repeatable:
 //  1. delta, one warp a row (bf16: dh / 8 lanes a row, 16-byte accesses);
 //     for bf16 also qs (q scaled and rounded once) and each packed row's
@@ -104,7 +105,7 @@ __global__ void flash_bwd_delta_kernel(const float* __restrict__ o, const float*
 //    bf16 (the "mma" and "wgmma" routes): LPR = dh / 8 lanes a row, 16-byte
 //    loads and stores, 32 / LPR rows a warp; also qs = bf16(q * scale) in
 //    q's layout and rowstat[b, hkv, rs_rows] = (lse log2(e), delta) in
-//    packed-row order (rs_rows >= tq * g: the wgmma route pads it to even so
+//    packed-row order (rs_rows >= tq * g: the wgmma routes pad it to even so
 //    its TMA stride is 16 bytes); lse comes pre-scaled for the kernels'
 //    exp2.
 template <int LPR>

@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the bf16 flash-attention routes
 // (flash_attention_mma.cu: prefill; flash_attention_split.cu: decode; the
-// backward's flash_attention_bwd.cu and flash_attention_bwd_wgmma.cu).
+// backward's flash_attention_bwd.cu and, through hopper.cuh,
+// flash_attention_bwd_wgmma.cu and flash_attention_bwd_wgmma256.cu).
 //
 // Products are `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` with
 // operands from `ldmatrix`; K/V tiles reach shared memory by 16-byte

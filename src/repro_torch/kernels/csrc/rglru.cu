@@ -48,7 +48,12 @@
 //  * pass 2 (rglru_scan_kernel), one thread per (batch, chunk, channel):
 //    fold h0 and the earlier chunks' summaries into the chunk's carry, in
 //    chunk order, then rescan the chunk sequentially from it, recomputing
-//    the coefficients, and write h; the last chunk writes h_last.
+//    the coefficients, and write h; the last chunk writes h_last.  When the
+//    caller asks (a call autograd records, on the backward's chunk plan),
+//    it also writes each chunk's carry, the h entering it, into fp32
+//    starts [B, nchunks, C]: the backward (rglru_bwd.cu) starts its chunks
+//    from them instead of folding the summaries again -- the same fold in
+//    the same order, so the same bits.
 // The scan inside a chunk is sequential, so the only reassociation is the
 // carry fold; there are no atomics and the output is bitwise the same from
 // call to call.  nchunks = 1 runs pass 2 alone, without scratch (decode,
@@ -99,8 +104,8 @@ rglru_summary_kernel(Src src, float2* __restrict__ summary, int steps, int C,
 template <class Src>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 rglru_scan_kernel(Src src, const float2* __restrict__ summary, const float* h0,
-                  typename Src::Out* __restrict__ h, float* h_last, int steps, int C,
-                  int chunk_len) {
+                  typename Src::Out* __restrict__ h, float* h_last,
+                  float* __restrict__ starts, int steps, int C, int chunk_len) {
   const int c = (gridDim.x - 1 - blockIdx.x) * kThreads + threadIdx.x;
   if (c >= C) return;
   const int k = gridDim.y - 1 - blockIdx.y;
@@ -115,6 +120,7 @@ rglru_scan_kernel(Src src, const float2* __restrict__ summary, const float* h0,
     const float2 aj = s[static_cast<int64_t>(j) * C];
     carry = fmaf(aj.x, carry, aj.y);
   }
+  if (starts != nullptr) starts[(bi * gridDim.y + k) * C + c] = carry;
   walk(src, ch, bi * steps * C + c, t0, t1, C, [&](float a, float b, int64_t off) {
     carry = fmaf(a, carry, b);
     h[off] = from_f<typename Src::Out>(carry);
@@ -123,8 +129,8 @@ rglru_scan_kernel(Src src, const float2* __restrict__ summary, const float* h0,
 }
 
 template <class Src>
-int run(const Src& src, const void* h0, void* h, void* h_last, void* summary, int B,
-        int steps, int C, int nchunks, int chunk_len, void* stream) {
+int run(const Src& src, const void* h0, void* h, void* h_last, void* starts, void* summary,
+        int B, int steps, int C, int nchunks, int chunk_len, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const dim3 grid((C + kThreads - 1) / kThreads, nchunks, B);
   float2* sum = static_cast<float2*>(summary);
@@ -135,57 +141,54 @@ int run(const Src& src, const void* h0, void* h, void* h_last, void* summary, in
   }
   rglru_scan_kernel<Src><<<grid, kThreads, 0, s>>>(
       src, sum, static_cast<const float*>(h0), static_cast<typename Src::Out*>(h),
-      static_cast<float*>(h_last), steps, C, chunk_len);
+      static_cast<float*>(h_last), static_cast<float*>(starts), steps, C, chunk_len);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename X, typename W>
 int run_gated(const void* x, const void* wr, const void* br, const void* wi,
               const void* bi, const void* lam, const void* h0, void* h, void* h_last,
-              void* summary, int B, int steps, int C, int nchunks, int chunk_len,
-              void* stream) {
+              void* starts, void* summary, int B, int steps, int C, int nchunks,
+              int chunk_len, void* stream) {
   const GatedSource<X, W> src{static_cast<const X*>(x), static_cast<const W*>(wr),
                               static_cast<const W*>(br), static_cast<const W*>(wi),
                               static_cast<const W*>(bi), static_cast<const W*>(lam)};
-  return run(src, h0, h, h_last, summary, B, steps, C, nchunks, chunk_len, stream);
+  return run(src, h0, h, h_last, starts, summary, B, steps, C, nchunks, chunk_len, stream);
 }
 
 }  // namespace
 
 // The caller checks shapes, types, contiguity and B, T, C > 0, and gives
 // summary as fp32 [B, nchunks, C, 2] when nchunks > 1 (else null), with
-// (nchunks - 1) * chunk_len < T <= nchunks * chunk_len.
+// (nchunks - 1) * chunk_len < T <= nchunks * chunk_len; starts fp32
+// [B, nchunks, C] or null.
 
 // a, b, h [B, T, C] one type (fp32 or bf16); h0 [B, C] fp32 or null (0);
 // h_last [B, C] fp32 or null.
 extern "C" int rglru_launch(const void* a, const void* b, const void* h0, void* h,
-                            void* h_last, void* summary, int B, int steps, int C,
-                            int nchunks, int chunk_len, int is_bf16, void* stream) {
+                            void* h_last, void* starts, void* summary, int B, int steps,
+                            int C, int nchunks, int chunk_len, int is_bf16, void* stream) {
   if (is_bf16) {
     using T = __nv_bfloat16;
     const AbSource<T> src{static_cast<const T*>(a), static_cast<const T*>(b)};
-    return run(src, h0, h, h_last, summary, B, steps, C, nchunks, chunk_len, stream);
+    return run(src, h0, h, h_last, starts, summary, B, steps, C, nchunks, chunk_len, stream);
   }
   const AbSource<float> src{static_cast<const float*>(a), static_cast<const float*>(b)};
-  return run(src, h0, h, h_last, summary, B, steps, C, nchunks, chunk_len, stream);
+  return run(src, h0, h, h_last, starts, summary, B, steps, C, nchunks, chunk_len, stream);
 }
 
 // x, h [B, T, C] one type (fp32 or bf16); wr, br, wi, bi, lam [C] one type
 // (fp32 or bf16); h0 [B, C] fp32 or null (0); h_last [B, C] fp32, may be h0.
 extern "C" int rglru_gated_launch(const void* x, const void* wr, const void* br,
                                   const void* wi, const void* bi, const void* lam,
-                                  const void* h0, void* h, void* h_last, void* summary,
-                                  int B, int steps, int C, int nchunks, int chunk_len,
-                                  int x_bf16, int w_bf16, void* stream) {
+                                  const void* h0, void* h, void* h_last, void* starts,
+                                  void* summary, int B, int steps, int C, int nchunks,
+                                  int chunk_len, int x_bf16, int w_bf16, void* stream) {
   using bf = __nv_bfloat16;
-  if (x_bf16) {
-    return w_bf16 ? run_gated<bf, bf>(x, wr, br, wi, bi, lam, h0, h, h_last, summary, B,
-                                      steps, C, nchunks, chunk_len, stream)
-                  : run_gated<bf, float>(x, wr, br, wi, bi, lam, h0, h, h_last, summary, B,
-                                         steps, C, nchunks, chunk_len, stream);
-  }
-  return w_bf16 ? run_gated<float, bf>(x, wr, br, wi, bi, lam, h0, h, h_last, summary, B,
-                                       steps, C, nchunks, chunk_len, stream)
-                : run_gated<float, float>(x, wr, br, wi, bi, lam, h0, h, h_last, summary,
-                                          B, steps, C, nchunks, chunk_len, stream);
+#define RGLRU_GATED_ARGS \
+  x, wr, br, wi, bi, lam, h0, h, h_last, starts, summary, B, steps, C, nchunks, chunk_len, stream
+  if (x_bf16)
+    return w_bf16 ? run_gated<bf, bf>(RGLRU_GATED_ARGS) : run_gated<bf, float>(RGLRU_GATED_ARGS);
+  return w_bf16 ? run_gated<float, bf>(RGLRU_GATED_ARGS) : run_gated<float, float>(RGLRU_GATED_ARGS);
+#undef RGLRU_GATED_ARGS
 }

@@ -1,6 +1,7 @@
 // The RG-LRU's coefficient sources and its forward walk over a chunk of
 // steps, shared by the scan (rglru.cu) and its backward (rglru_bwd.cu), so
-// the backward recomputes exactly the forward's a and b.  rglru.cu's note
+// the backward recomputes exactly the forward's a and b (and a alone,
+// `a_only`, where it needs nothing else).  rglru.cu's note
 // says what the gate math computes and how it rounds.
 #pragma once
 
@@ -40,6 +41,7 @@ struct AbSource {
     av = to_f(r.a);
     bv = to_f(r.b);
   }
+  __device__ __forceinline__ float a_only(const Chan&, const Raw& r) const { return to_f(r.a); }
 };
 
 // The gates of one element from x and its channel's weights.
@@ -75,6 +77,12 @@ struct GatedSource {
     g.e2 = __fmul_rn(g.a, g.a);  // exp(2 * log_a), see rglru.cu's note
     return g;
   }
+  // a alone (the recurrence gate, skipping the input gate, the sqrt and b):
+  // the operations of gates()' a, so the same bits
+  __device__ __forceinline__ float a_only(const Chan& p, Raw raw) const {
+    const float r = sigmoid_f(__fadd_rn(__fmul_rn(to_f(raw), p.wr), p.br));
+    return expf(__fmul_rn(__fmul_rn(kLruC, r), p.log_a_base));
+  }
   __device__ __forceinline__ void coeffs(const Chan& p, Raw raw, float& av,
                                          float& bv) const {
     const Gates g = gates(p, raw);
@@ -84,28 +92,34 @@ struct GatedSource {
   }
 };
 
-// Steps [t0, t1) of one channel: step(a_t, b_t, offset of element t).
-template <class Src, class Step>
-__device__ __forceinline__ void walk(const Src& src, const typename Src::Chan& ch,
-                                     int64_t base, int t0, int t1, int C, Step&& step) {
+// Steps [t0, t1) of one channel in order: f(raw_t, t, offset of element t),
+// each kUnroll steps' loads issued before their calls.
+template <class Src, class F>
+__device__ __forceinline__ void walk_raw(const Src& src, int64_t base, int t0, int t1, int C,
+                                         F&& f) {
   int t = t0;
   for (; t + kUnroll <= t1; t += kUnroll) {
     typename Src::Raw raw[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) raw[u] = src.load(base + static_cast<int64_t>(t + u) * C);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float a, b;
-      src.coeffs(ch, raw[u], a, b);
-      step(a, b, base + static_cast<int64_t>(t + u) * C);
-    }
+    for (int u = 0; u < kUnroll; ++u) f(raw[u], t + u, base + static_cast<int64_t>(t + u) * C);
   }
   for (; t < t1; ++t) {
     const int64_t off = base + static_cast<int64_t>(t) * C;
-    float a, b;
-    src.coeffs(ch, src.load(off), a, b);
-    step(a, b, off);
+    f(src.load(off), t, off);
   }
+}
+
+// Steps [t0, t1) of one channel: step(a_t, b_t, offset of element t).
+template <class Src, class Step>
+__device__ __forceinline__ void walk(const Src& src, const typename Src::Chan& ch,
+                                     int64_t base, int t0, int t1, int C, Step&& step) {
+  walk_raw(src, base, t0, t1, C, [&](const typename Src::Raw& raw, int, int64_t off) {
+    float a, b;
+    src.coeffs(ch, raw, a, b);
+    step(a, b, off);
+  });
 }
 
 }  // namespace rg

@@ -11,6 +11,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     decode_partials_plain,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_on,
     flash_attention_bwd_plain,
     flash_attention_fwd,
     merge_partials_plain,
@@ -21,4 +22,4 @@ from repro_torch.kernels.flash_attention.kernel import (
 __all__ = ["flash_attention", "attention_plain", "route", "plan_decode_splits",
            "decode_partials", "decode_partials_plain", "merge_partials_plain",
            "attention_plain_lse", "flash_attention_fwd", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "FlashAttentionFn"]
+           "flash_attention_bwd_on", "flash_attention_bwd_plain", "FlashAttentionFn"]

@@ -26,17 +26,25 @@ on one of four routes chosen by :func:`bwd_route`:
 * ``"wgmma"`` -- bf16, head dim 64 or 128, g dividing 64 (llama's train
   path): ``kernels/csrc/flash_attention_bwd_wgmma.cu``, warpgroup tensor
   cores fed by TMA;
+* ``"wgmma256"`` -- bf16, head dim 256, one KV head (any g) or g dividing
+  64 (recurrentgemma's train path):
+  ``kernels/csrc/flash_attention_bwd_wgmma256.cu``, dK and dV split by
+  output between two warpgroups, each key tile's rows cut into pieces of
+  about equal work (:func:`plan_dkdv_pieces`) and folded in order;
 * ``"mma"`` -- the other bf16 head dims and group sizes:
   ``kernels/csrc/flash_attention_bwd.cu`` on ``mma.sync``, with whole rows
-  of output at head dims 16 to 128 and, at head dim 256 (recurrentgemma's
-  train path), each block owning 128 of the 256 output columns;
+  of output at head dims 16 to 128 and, at head dim 256, each block owning
+  128 of the 256 output columns;
 * ``"fma"`` -- fp32, the same file on CUDA cores;
 
-and :func:`flash_attention_bwd_plain` on the CPU.
+and :func:`flash_attention_bwd_plain` on the CPU.  :func:`flash_attention_bwd_on`
+launches a named route that the shape allows (every bf16 shape also takes
+``mma``), so a caller can time one route beside another.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -51,12 +59,20 @@ SPLIT_MAX_ROWS = 16      # one mma tile of packed query rows
 SPLIT_MIN_CHUNK = 32     # keys; a chunk is a multiple of 16
 SPLIT_BLOCKS_PER_SM = 2  # the split plan's target
 
-BWD_ROUTES = ("wgmma", "mma", "fma")
+BWD_ROUTES = ("wgmma", "wgmma256", "mma", "fma")
 # The wgmma route: head dims whose rows 128-byte TMA boxes tile, and group
 # sizes for which its tiles of packed (position, group head) rows (128 rows
 # at dh 64, 64 at dh 128) hold whole positions: g dividing 64.
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_TILE_ROWS = 64
+# The wgmma256 route's dK/dV blocks: 64 keys, row tiles of 64 packed rows;
+# its plan cuts each key tile's row tiles into pieces for about
+# PIECE_WAVES waves of blocks (one a SM), none shorter than PIECE_MIN_TILES
+# tiles unless its key tile is.
+WGMMA256_KEYS = 64
+WGMMA256_ROWS = 64
+PIECE_WAVES = 2
+PIECE_MIN_TILES = 4
 
 # Calls that took the CUDA route since the last reset (plain integers), in
 # all and by route; the backward's likewise.
@@ -77,25 +93,85 @@ def route(dtype: torch.dtype, rows: int, *, with_lse: bool = False) -> str:
     raise TypeError(f"flash_attention has no route for {dtype}")
 
 
-def bwd_route(dtype: torch.dtype, dh: int, g: int) -> str:
-    """The backward's CUDA route: ``"wgmma"`` for bf16 at a head dim of
-    ``WGMMA_HEAD_DIMS`` with a group size ``g`` that divides
-    ``WGMMA_TILE_ROWS`` (a TMA box holds 64 / g whole positions),
-    ``"mma"`` for the other bf16 shapes (at head dim 256 a warp's dK and dV
-    rows would not fit in registers, so each block owns 128 columns),
-    ``"fma"`` for fp32."""
+def bwd_route(dtype: torch.dtype, dh: int, g: int, hkv: int) -> str:
+    """The backward's CUDA route for ``hkv`` KV heads of group size ``g``:
+    ``"wgmma"`` for bf16 at a head dim of ``WGMMA_HEAD_DIMS`` with a ``g``
+    that divides ``WGMMA_TILE_ROWS`` (a TMA box holds 64 / g whole
+    positions); ``"wgmma256"`` for bf16 at head dim 256 with one KV head
+    (its packed rows are plain rows [b, T g, dh], which a box takes at any
+    g) or such a ``g``; ``"mma"`` for the other bf16 shapes; ``"fma"`` for
+    fp32."""
     if dtype == torch.float32:
         return "fma"
     if dtype == torch.bfloat16:
-        wgmma = dh in WGMMA_HEAD_DIMS and g >= 1 and WGMMA_TILE_ROWS % g == 0
-        return "wgmma" if wgmma else "mma"
+        whole = g >= 1 and WGMMA_TILE_ROWS % g == 0
+        if dh in WGMMA_HEAD_DIMS and whole:
+            return "wgmma"
+        if dh == 256 and (hkv == 1 or whole):
+            return "wgmma256"
+        return "mma"
     raise TypeError(f"flash_attention_bwd has no route for {dtype}")
+
+
+def bwd_routes(dtype: torch.dtype, dh: int, g: int, hkv: int) -> tuple[str, ...]:
+    """The routes :func:`flash_attention_bwd_on` takes for the shape: the
+    rule's route, and ``"mma"`` for every bf16 shape."""
+    r = bwd_route(dtype, dh, g, hkv)
+    return (r,) if r in ("mma", "fma") else (r, "mma")
+
+
+def rows_seeing(k0: int, kend: int, tq: int, g: int, *, causal: bool, window: int,
+                q_offset: int) -> tuple[int, int]:
+    """Packed query rows ``[lo, hi)`` whose positions see some key of
+    ``[k0, kend)``, as ``flash_mma.cuh``'s ``rows_seeing`` computes them."""
+    plo = max(k0 - q_offset if causal else 0, 0)
+    phi = min(kend - 1 + window - 1 - q_offset if window else tq - 1, tq - 1)
+    lo = plo * g
+    return lo, ((phi + 1) * g if kend > k0 and phi >= plo else lo)
+
+
+@functools.lru_cache(maxsize=64)
+def plan_dkdv_pieces(b: int, hkv: int, tq: int, tk: int, g: int, *, causal: bool, window: int,
+                     q_offset: int, kv_len: int, sms: int = 132):
+    """The ``wgmma256`` route's dK/dV blocks: ``(pieces, tiles)``.  Key
+    tile ``kt`` of (batch, KV head) ``bh`` is key tile id ``bh *
+    ktiles + kt``; its keys see the packed rows of :func:`rows_seeing`, in
+    tiles of ``WGMMA256_ROWS``.  Those tiles are cut into pieces of at most
+    ``size`` tiles -- the work of all key tiles over ``PIECE_WAVES`` waves
+    of ``sms`` blocks, at least ``PIECE_MIN_TILES`` -- a key tile's pieces
+    differing by at most one tile.  ``pieces``: ``(key tile id, first row,
+    end row, slot)`` in launch order, longest first (ties in slot order);
+    slots number the pieces key tile by key tile, rows ascending, which is
+    the order the fold sums them in.  ``tiles[key tile id] = (first slot,
+    pieces)``; a key tile no row sees (past ``kv_len``) has none."""
+    ktiles = -(-tk // WGMMA256_KEYS)
+    ranges = []
+    for kt in range(ktiles):
+        k0 = kt * WGMMA256_KEYS
+        kend = min(k0 + WGMMA256_KEYS, kv_len)
+        lo, hi = rows_seeing(k0, kend, tq, g, causal=causal, window=window, q_offset=q_offset)
+        ranges.append((lo, hi, -(-(hi - lo) // WGMMA256_ROWS)))
+    total = b * hkv * sum(n for _, _, n in ranges)
+    size = max(PIECE_MIN_TILES, -(-total // (PIECE_WAVES * sms)))
+    pieces, tiles = [], []
+    for bh in range(b * hkv):
+        for kt, (lo, hi, n) in enumerate(ranges):
+            m = -(-n // size)
+            tiles.append((len(pieces), m))
+            t = 0
+            for p in range(m):
+                nt = n // m + (p < n % m)
+                pieces.append((bh * ktiles + kt, lo + t * WGMMA256_ROWS,
+                               min(hi, lo + (t + nt) * WGMMA256_ROWS), len(pieces)))
+                t += nt
+    pieces.sort(key=lambda pc: -(pc[2] - pc[1]))   # stable: ties keep slot order
+    return tuple(pieces), tuple(tiles)
 
 
 def rowstat_rows(tq: int, g: int) -> int:
     """Rows of the backward's packed (lse, delta) table a (batch, KV head):
     ``tq * g`` rounded up to even, so each row of 8-byte pairs starts on 16
-    bytes, as the wgmma route's tensor map needs."""
+    bytes, as the wgmma routes' tensor maps need."""
     return tq * g + (tq * g) % 2
 
 
@@ -371,6 +447,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, lse
 
 
+def _bwd_terms_plain(q, k, v, o, lse, do, *, causal, window, q_offset, kv_valid_len):
+    """The backward's per-pair terms in the kernels' arithmetic: fp32
+    ``(qs, P, dS)`` with qs = q scaled and rounded to its type, P [b, hkv,
+    g, tq, tk] (0 where masked) and dS = P (dP - delta) rounded to the
+    inputs' type (dP rounded first)."""
+    tq, tk, dh = q.shape[1], k.shape[1], q.shape[-1]
+    dt = q.dtype
+    qs = (q.float() * (1.0 / math.sqrt(dh))).to(dt).float()
+    dof = do.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qs, k.float())
+    allowed = mask_bias(tq, tk, causal=causal, window=window, q_offset=q_offset,
+                        kv_valid_len=kv_valid_len, device=q.device) == 0
+    p = torch.where(allowed, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    delta = (dof * o.float()).sum(-1).permute(0, 2, 3, 1)            # [b, hkv, g, tq]
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float()).to(dt).float()
+    return qs, p, (p * (dp - delta[..., None])).to(dt).float()
+
+
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
                               q_offset: int = 0, kv_valid_len: int | None = None):
     """The FlashAttention-2 backward of :func:`attention_plain`, in the
@@ -383,33 +477,93 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True, windo
     inputs' type (the tensor cores' operand), dq rounded before and after
     the scale as the reference's cast back to q's type does.  fp32 rounds
     nowhere.  -> (dq, dk, dv) in the inputs' type."""
-    b, tq, hkv, g, dh = q.shape
-    tk = k.shape[1]
     dt = q.dtype
-    scale = 1.0 / math.sqrt(dh)
-    qs = (q.float() * scale).to(dt).float()
-    kf, vf, dof = k.float(), v.float(), do.float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qs, kf)
-    allowed = mask_bias(tq, tk, causal=causal, window=window, q_offset=q_offset,
-                        kv_valid_len=kv_valid_len, device=q.device) == 0
-    p = torch.where(allowed, torch.exp(s - lse[..., None]), torch.zeros_like(s))
-    delta = (dof * o.float()).sum(-1).permute(0, 2, 3, 1)            # [b, hkv, g, tq]
-    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf).to(dt).float()
-    ds = (p * (dp - delta[..., None])).to(dt).float()
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(dt).float(), dof)
+    qs, p, ds = _bwd_terms_plain(q, k, v, o, lse, do, causal=causal, window=window,
+                                 q_offset=q_offset, kv_valid_len=kv_valid_len)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(dt).float(), do.float())
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
-    dqs = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
-    dq = (dqs.to(dt).float() * scale).to(dt)
-    return dq, dk.to(dt), dv.to(dt)
+    return _dq_plain(ds, k, dt), dk.to(dt), dv.to(dt)
+
+
+def _dq_plain(ds, k, dt):
+    dqs = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
+    return (dqs.to(dt).float() * (1.0 / math.sqrt(k.shape[-1]))).to(dt)
+
+
+def flash_attention_bwd_pieces_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                                     window: int = 0, q_offset: int = 0,
+                                     kv_valid_len: int | None = None, sms: int = 132):
+    """The ``wgmma256`` route's dK and dV in its order: each piece of
+    :func:`plan_dkdv_pieces` (for ``sms`` SMs) sums its rows' terms into
+    fp32 partials of its key tile's 64 keys, and the fold adds a key tile's
+    partials in slot order from 0, then rounds once; keys no piece covers
+    get 0.  dq as :func:`flash_attention_bwd_plain`.  Same result as that
+    up to the order of the sums."""
+    b, tq, hkv, g, dh = q.shape
+    tk, dt = k.shape[1], q.dtype
+    qs, p, ds = _bwd_terms_plain(q, k, v, o, lse, do, causal=causal, window=window,
+                                 q_offset=q_offset, kv_valid_len=kv_valid_len)
+    # packed rows r = position g + head: [b, hkv, tq g, tk] and [b, hkv, tq g, dh]
+    rows = lambda t: t.permute(0, 1, 3, 2, 4).reshape(b, hkv, tq * g, tk)  # noqa: E731
+    pr, dsr = rows(p.to(dt).float()), rows(ds)
+    qr = qs.permute(0, 2, 1, 3, 4).reshape(b, hkv, tq * g, dh)
+    dor = do.float().permute(0, 2, 1, 3, 4).reshape(b, hkv, tq * g, dh)
+    pieces, tiles = plan_dkdv_pieces(b, hkv, tq, tk, g, causal=causal, window=window,
+                                     q_offset=q_offset, kv_len=_kv_len(tk, kv_valid_len), sms=sms)
+    ktiles = -(-tk // WGMMA256_KEYS)
+    by_slot = {pc[3]: pc for pc in pieces}
+    dk = torch.zeros(b, tk, hkv, dh, device=q.device)
+    dv = torch.zeros_like(dk)
+    for kid, (first, count) in enumerate(tiles):
+        bh, kt = divmod(kid, ktiles)
+        bi, h = divmod(bh, hkv)
+        k0, k1 = kt * WGMMA256_KEYS, min(kt * WGMMA256_KEYS + WGMMA256_KEYS, tk)
+        sum_k = torch.zeros(k1 - k0, dh, device=q.device)
+        sum_v = torch.zeros_like(sum_k)
+        for slot in range(first, first + count):
+            _, r0, r1, _ = by_slot[slot]
+            sum_k = sum_k + dsr[bi, h, r0:r1, k0:k1].T @ qr[bi, h, r0:r1]
+            sum_v = sum_v + pr[bi, h, r0:r1, k0:k1].T @ dor[bi, h, r0:r1]
+        dk[bi, k0:k1, h] = sum_k
+        dv[bi, k0:k1, h] = sum_v
+    return _dq_plain(ds, k, dt), dk.to(dt), dv.to(dt)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
                         q_offset: int = 0, kv_valid_len: int | None = None):
     """``(dq, dk, dv)`` of :func:`flash_attention_fwd` at ``do``, from its
-    output ``o`` and log-sum-exp ``lse``.  CUDA: three launches (delta, with
-    the scaled q and packed row stats for bf16; dK and dV by key tile; dQ by
-    query tile), counted as one backward call on the route of
-    :func:`bwd_route`.  CPU: :func:`flash_attention_bwd_plain`."""
+    output ``o`` and log-sum-exp ``lse``.  CUDA: the route of
+    :func:`bwd_route` (:func:`flash_attention_bwd_on`); CPU:
+    :func:`flash_attention_bwd_plain`."""
+    _check(q, k, v, window, q_offset, kv_valid_len)
+    r = bwd_route(q.dtype, q.shape[-1], q.shape[3], q.shape[2])
+    return flash_attention_bwd_on(r, q, k, v, o, lse, do, causal=causal, window=window,
+                                  q_offset=q_offset, kv_valid_len=kv_valid_len)
+
+
+_PIECE_TABLES: dict = {}
+
+
+def _piece_table(plan, device) -> tuple[torch.Tensor, int]:
+    """``plan``'s pieces (int4 each) then its tiles (int2 each) as one int32
+    tensor on ``device``, made once a plan and device; and the piece count."""
+    key = (plan, device)
+    if key not in _PIECE_TABLES:
+        pieces, tiles = plan
+        flat = [v for pc in pieces for v in pc] + [v for tl in tiles for v in tl]
+        _PIECE_TABLES[key] = torch.tensor(flat, dtype=torch.int32).to(device)
+    return _PIECE_TABLES[key], len(plan[0])
+
+
+def flash_attention_bwd_on(route: str, q, k, v, o, lse, do, *, causal: bool = True,
+                           window: int = 0, q_offset: int = 0, kv_valid_len: int | None = None):
+    """:func:`flash_attention_bwd` on ``route``, one of :func:`bwd_routes`
+    for the shape (another raises, on any device).  CUDA: the delta launch (with the
+    scaled q and packed row stats for bf16), then the route's: dK and dV by
+    key tile and dQ by query tile (``wgmma``, ``mma``, ``fma``), or dK and
+    dV by the pieces of :func:`plan_dkdv_pieces`, their fold and dQ
+    (``wgmma256``); counted as one backward call on ``route``.  CPU:
+    :func:`flash_attention_bwd_plain`, whatever ``route``."""
     global launches_bwd
     _check(q, k, v, window, q_offset, kv_valid_len)
     b, tq, hkv, g, dh = q.shape
@@ -420,6 +574,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     if lse.shape != (b, hkv, g, tq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse {lse.dtype} {tuple(lse.shape)}, want "
                          f"fp32 {(b, hkv, g, tq)}")
+    r = route
+    if r not in bwd_routes(q.dtype, dh, g, hkv):
+        raise ValueError(f"flash_attention_bwd: route {r!r} does not take {q.dtype} dh {dh} "
+                         f"g {g} hkv {hkv}; it takes {bwd_routes(q.dtype, dh, g, hkv)}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,
                                          q_offset=q_offset, kv_valid_len=kv_valid_len)
@@ -431,11 +589,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
         return dq, dk.zero_(), dv.zero_()
     stream = _stream(q)
     scale = 1.0 / math.sqrt(dh)
-    r = bwd_route(q.dtype, dh, g)
+    tk = k.shape[1]
+    kv_len = _kv_len(tk, kv_valid_len)
     delta = torch.empty_like(lse)
     # bf16: the scaled q and each packed row's (lse, delta), which the dK / dV
     # kernels load a tile at a time by asynchronous copies
-    rs_rows = rowstat_rows(tq, g) if r == "wgmma" else tq * g
+    tma = r in ("wgmma", "wgmma256")
+    rs_rows = rowstat_rows(tq, g) if tma else tq * g
     qs = torch.empty_like(q) if r != "fma" else None
     rowstat = (torch.empty((b, hkv, rs_rows, 2), dtype=torch.float32, device=q.device)
                if r != "fma" else None)
@@ -447,12 +607,24 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
                                      int(q.dtype == torch.bfloat16), stream)
     K.check(err, "flash_attention_bwd (delta)")
     outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    shape = (b, tq, k.shape[1], hkv, g, dh)
-    rest = (int(causal), window, q_offset, _kv_len(k.shape[1], kv_valid_len), scale, stream)
+    shape = (b, tq, tk, hkv, g, dh)
+    rest = (int(causal), window, q_offset, kv_len, scale, stream)
     if r == "wgmma":
         err = lib.flash_bwd_wgmma_launch(qs.data_ptr(), k.data_ptr(), v.data_ptr(),
                                          do.data_ptr(), rowstat.data_ptr(), *outs, *shape,
                                          rs_rows, *rest)
+    elif r == "wgmma256":
+        plan = plan_dkdv_pieces(b, hkv, tq, tk, g, causal=causal, window=window,
+                                q_offset=q_offset, kv_len=kv_len,
+                                sms=K.sm_count(q.get_device()))
+        table, npieces = _piece_table(plan, q.device)
+        # fp32 partial dK and dV of each piece: [npieces, 2, 64 keys x 256]
+        partials = torch.empty((max(npieces, 1), 2, WGMMA256_KEYS * dh), dtype=torch.float32,
+                               device=q.device)
+        err = lib.flash_bwd_wgmma256_launch(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), rowstat.data_ptr(),
+            table.data_ptr(), npieces, table.data_ptr() + 16 * npieces, partials.data_ptr(),
+            *outs, b, tq, tk, hkv, g, rs_rows, *rest)
     else:
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr())

@@ -19,11 +19,13 @@ an autograd Function (:class:`RgLruFn`, :class:`RgLruGatedFn`) whose
 backward is the kernel of ``kernels/csrc/rglru_bwd.cu``
 (:func:`rglru_bwd`, :func:`rglru_gated_bwd`; their plain versions
 :func:`rglru_bwd_plain`, :func:`rglru_gated_bwd_plain` on the CPU), over
-the chunks of :func:`plan_bwd_chunks`, fixed when the forward runs.  As in
-the reference's ``rglru_scan``, such a call starts from h = 0 (a given
-``h0`` or ``state_out`` raises), and its last state ``h_last`` carries no
-gradient.  Calls autograd does not record (serving) launch the forward
-alone.
+the chunks of :func:`plan_bwd_chunks`.  Its forward runs on that plan too
+(:func:`rglru_with_starts`, :func:`rglru_gated_with_starts`) and hands the
+backward each chunk's entering h (fp32 [B, nchunks, C]), which the
+backward would otherwise fold again.  As in the reference's
+``rglru_scan``, such a call starts from h = 0 (a given ``h0`` or
+``state_out`` raises), and its last state ``h_last`` carries no gradient.
+Calls autograd does not record (serving) launch the forward alone.
 """
 
 from __future__ import annotations
@@ -119,33 +121,47 @@ def rglru_plain(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def rglru_chunked_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None,
-                        *, nchunks: int, chunk_len: int) -> torch.Tensor:
-    """The kernel's two passes over ``nchunks`` chunks of ``chunk_len``
-    steps, in its order: pass 1 gives each chunk ``(prod a, h from 0)``;
-    pass 2 folds ``h0`` and the earlier chunks' summaries into each chunk's
-    carry, in chunk order, and rescans the chunk from it.  Same result as
-    :func:`rglru_plain` up to the fold's rounding."""
+def _chunks(a: torch.Tensor, b: torch.Tensor, nchunks: int, chunk_len: int):
+    """fp32 a, b [B, T, C] padded past T (a = 1, b = 0 leave a carry as it
+    is) and cut to [B, nchunks, chunk_len, C]."""
     bsz, t, c = a.shape
     if nchunks < 1 or chunk_len < 1 or not (nchunks - 1) * chunk_len < t <= nchunks * chunk_len:
         raise ValueError(f"rglru: {nchunks} chunks of {chunk_len} steps do not cut T = {t}")
-    pad = nchunks * chunk_len - t   # a = 1, b = 0 past T leave the carry as it is
+    pad = nchunks * chunk_len - t
     af = torch.nn.functional.pad(a.float(), (0, 0, 0, pad), value=1.0)
     bf = torch.nn.functional.pad(b.float(), (0, 0, 0, pad))
-    af = af.reshape(bsz, nchunks, chunk_len, c)
-    bf = bf.reshape(bsz, nchunks, chunk_len, c)
-    prod = torch.ones(bsz, nchunks, c, dtype=torch.float32, device=a.device)
+    return (af.reshape(bsz, nchunks, chunk_len, c), bf.reshape(bsz, nchunks, chunk_len, c))
+
+
+def rglru_chunk_starts_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None,
+                             *, nchunks: int, chunk_len: int) -> torch.Tensor:
+    """The kernel's pass 1 and its fold, in its order: each chunk's
+    ``(prod a, h from 0)``, then ``h0`` (or 0) and the earlier chunks'
+    summaries folded into the h entering each chunk -> fp32
+    [B, nchunks, C], the chunk starts the forward hands the backward."""
+    af, bf = _chunks(a, b, nchunks, chunk_len)
+    prod = torch.ones_like(af[:, :, 0])
     hl = torch.zeros_like(prod)
     for s in range(chunk_len):            # pass 1, all chunks at once
         prod = prod * af[:, :, s]
         hl = af[:, :, s] * hl + bf[:, :, s]
-    carry = (torch.zeros(bsz, c, dtype=torch.float32, device=a.device)
-             if h0 is None else h0.float())
+    carry = torch.zeros_like(prod[:, 0]) if h0 is None else h0.float()
     carries = []
     for k in range(nchunks):              # the fold: chunk k starts from carries[k]
         carries.append(carry)
         carry = prod[:, k] * carry + hl[:, k]
-    h = torch.stack(carries, dim=1)
+    return torch.stack(carries, dim=1)
+
+
+def rglru_chunked_plain(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None,
+                        *, nchunks: int, chunk_len: int) -> torch.Tensor:
+    """The kernel's two passes over ``nchunks`` chunks of ``chunk_len``
+    steps, in its order: :func:`rglru_chunk_starts_plain` gives each
+    chunk's carry, then pass 2 rescans each chunk from it.  Same result as
+    :func:`rglru_plain` up to the fold's rounding."""
+    bsz, t, c = a.shape
+    h = rglru_chunk_starts_plain(a, b, h0, nchunks=nchunks, chunk_len=chunk_len)
+    af, bf = _chunks(a, b, nchunks, chunk_len)
     out = torch.empty_like(af)
     for s in range(chunk_len):            # pass 2
         h = af[:, :, s] * h + bf[:, :, s]
@@ -168,14 +184,16 @@ def rglru_gated_plain(x, wr, br, wi, bi, lam, h0=None, *, state_out=None):
 
 
 def _reverse_scan_plain(a: torch.Tensor, b: torch.Tensor, dh: torch.Tensor, *,
-                        nchunks: int, chunk_len: int):
+                        nchunks: int, chunk_len: int, h_starts: torch.Tensor | None = None):
     """The backward kernel's scan passes on fp32 a, b, dh [B, T, C] from
     h = 0, in its order -> fp32 ``(g, h_prev)``: g_t = dh_t + a_{t+1} g_{t+1}
     (0 past T) and h_{t-1} recomputed.  Pass 1 gives each chunk (prod a,
-    h from 0, Q = sum_t dh_t prod_{s <= t} a_s); the earlier chunks' (prod,
-    h) fold into each chunk's starting h in chunk order, the later chunks'
-    (prod, Q) into the gradient flowing in from behind in reverse order;
-    pass 2 walks each chunk forward for h_prev, then backward for g."""
+    h from 0, Q = sum_t dh_t prod_{s <= t} a_s); the later chunks' (prod, Q)
+    fold into the gradient flowing in from behind in reverse order; each
+    chunk's starting h is ``h_starts`` (the forward's hand-over, fp32
+    [B, nchunks, C]) or, without it, the earlier chunks' (prod, h) folded in
+    chunk order; pass 2 walks each chunk backward for g and forward for
+    h_prev."""
     bsz, t, c = a.shape
     if nchunks < 1 or chunk_len < 1 or not (nchunks - 1) * chunk_len < t <= nchunks * chunk_len:
         raise ValueError(f"rglru backward: {nchunks} chunks of {chunk_len} steps do not cut "
@@ -199,7 +217,8 @@ def _reverse_scan_plain(a: torch.Tensor, b: torch.Tensor, dh: torch.Tensor, *,
         j = nchunks - 1 - k
         q_in[j] = q
         q = prod[:, j] * q + q_sum[:, j]
-    h, q = torch.stack(h_in, dim=1), torch.stack(q_in, dim=1)
+    h = torch.stack(h_in, dim=1) if h_starts is None else h_starts.float()
+    q = torch.stack(q_in, dim=1)
     h_prev, g = torch.empty_like(af), torch.empty_like(af)
     for s in range(chunk_len):            # pass 2: forward walk
         h_prev[:, :, s] = h
@@ -212,18 +231,43 @@ def _reverse_scan_plain(a: torch.Tensor, b: torch.Tensor, dh: torch.Tensor, *,
 
 
 def rglru_bwd_plain(a: torch.Tensor, b: torch.Tensor, dh: torch.Tensor, *, nchunks: int,
-                    chunk_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+                    chunk_len: int, h_starts: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The gradient of :func:`rglru_plain` from h = 0 at ``dh`` (the
-    cotangent of h), in the backward kernel's passes:
+    cotangent of h), in the backward kernel's passes, from the forward's
+    chunk starts ``h_starts`` when given:
     ``(da, db) = (g h_prev, g)`` in a's dtype."""
     g, h_prev = _reverse_scan_plain(a.float(), b.float(), dh.float(), nchunks=nchunks,
-                                    chunk_len=chunk_len)
+                                    chunk_len=chunk_len, h_starts=h_starts)
     return (g * h_prev).to(a.dtype), g.to(a.dtype)
 
 
-def rglru_gated_bwd_plain(x, wr, br, wi, bi, lam, dh, *, nchunks: int, chunk_len: int):
+def _gated_gates_plain(x, wr, br, wi, bi, lam):
+    """The gates in the kernels' arithmetic (``csrc/rglru.cuh``: exp(2 log_a)
+    as a a) -> fp32 ``(xf, r, i, L, a, e2, s, m, u)`` with L = log a_base,
+    s = 1 - a^2, m = sqrt(clip(s, 1e-6, 1)), u = i x; b = m u."""
+    xf = x.float()
+    r = torch.sigmoid(xf * wr.float() + br.float())
+    i = torch.sigmoid(xf * wi.float() + bi.float())
+    log_a_base = -softplus_exact(-lam.float())
+    a = torch.exp(LRU_C * r * log_a_base)
+    e2 = a * a
+    s = 1.0 - e2
+    return xf, r, i, log_a_base, a, e2, s, torch.sqrt(torch.clamp(s, 1e-6, 1.0)), i * xf
+
+
+def rglru_gated_starts_plain(x, wr, br, wi, bi, lam, *, nchunks: int, chunk_len: int):
+    """The chunk starts the gated forward kernel hands its backward (from
+    h = 0), in the kernels' arithmetic -> fp32 [B, nchunks, C]."""
+    *_, a, _, _, m, u = _gated_gates_plain(x, wr, br, wi, bi, lam)
+    return rglru_chunk_starts_plain(a, m * u, nchunks=nchunks, chunk_len=chunk_len)
+
+
+def rglru_gated_bwd_plain(x, wr, br, wi, bi, lam, dh, *, nchunks: int, chunk_len: int,
+                          h_starts: torch.Tensor | None = None):
     """The gradient of :func:`rglru_gated_plain`'s h (from h = 0) at ``dh``,
-    in the backward kernel's passes and arithmetic: the scan's g and the
+    in the backward kernel's passes and arithmetic, from the forward's
+    chunk starts ``h_starts`` when given: the scan's g and the
     recomputed h_prev, then per element in fp32, with s = 1 - a^2 and
     m = sqrt(clip(s, 1e-6, 1)),
     ``d log_a = g h_prev a - [1e-6 < s < 1] a^2 g i x / m`` (the clip's
@@ -232,17 +276,10 @@ def rglru_gated_bwd_plain(x, wr, br, wi, bi, lam, dh, *, nchunks: int, chunk_len
     ``dx = d pre_r wr + d pre_i wi + g m i``; the weights' gradients sum
     over batch and time, ``dlam = sigmoid(-lam) 8 sum(d log_a r)``.
     Returns ``(dx, dwr, dbr, dwi, dbi, dlam)`` in the inputs' dtypes."""
-    xf = x.float()
-    wrf, brf, wif, bif, lamf = (w.float() for w in (wr, br, wi, bi, lam))
-    r = torch.sigmoid(xf * wrf + brf)
-    i = torch.sigmoid(xf * wif + bif)
-    log_a_base = -softplus_exact(-lamf)
-    a = torch.exp(LRU_C * r * log_a_base)
-    e2 = a * a
-    s = 1.0 - e2
-    m = torch.sqrt(torch.clamp(s, 1e-6, 1.0))
-    u = i * xf
-    g, h_prev = _reverse_scan_plain(a, m * u, dh.float(), nchunks=nchunks, chunk_len=chunk_len)
+    xf, r, i, log_a_base, a, e2, s, m, u = _gated_gates_plain(x, wr, br, wi, bi, lam)
+    wrf, wif, lamf = wr.float(), wi.float(), lam.float()
+    g, h_prev = _reverse_scan_plain(a, m * u, dh.float(), nchunks=nchunks, chunk_len=chunk_len,
+                                    h_starts=h_starts)
     binds = (s > 1e-6) & (s < 1.0)
     dlog_a = g * h_prev * a - torch.where(binds, e2 * g * u / m, torch.zeros_like(g))
     dpre_r = dlog_a * LRU_C * log_a_base * (r * (1.0 - r))
@@ -306,7 +343,8 @@ def _cuda_ready(x: torch.Tensor, *ts) -> None:
 
 
 def _summary(x: torch.Tensor, nchunks: int) -> torch.Tensor | None:
-    """Pass 1's fp32 scratch [B, nchunks, C, 2], or None for one chunk."""
+    """Pass 1's fp32 scratch [B, nchunks, C, 2] (the forward's (prod a,
+    h from 0), the backward's (prod a, Q)), or None for one chunk."""
     if nchunks == 1:
         return None
     return torch.empty((x.shape[0], nchunks, x.shape[2], 2), dtype=torch.float32,
@@ -343,23 +381,43 @@ def rglru(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None = None) -> t
     return _rglru_fwd(a, b, h0)
 
 
-def _rglru_fwd(a, b, h0):
+def _starts(x: torch.Tensor, nchunks: int) -> torch.Tensor:
+    """The chunk starts the forward hands the backward: fp32 [B, nchunks, C]."""
+    return torch.empty((x.shape[0], nchunks, x.shape[2]), dtype=torch.float32, device=x.device)
+
+
+def _rglru_fwd(a, b, h0, plan=None, starts=None):
+    """The ``(a, b)`` form over ``plan`` (default :func:`plan_scan_chunks`'),
+    writing the chunk starts into ``starts`` when given."""
     if a.device.type == "cpu":
+        if starts is not None:
+            starts.copy_(rglru_chunk_starts_plain(a, b, h0, nchunks=plan[0], chunk_len=plan[1]))
         return rglru_plain(a, b, h0)
     _cuda_ready(a, b, h0)
     bsz, t, c = a.shape
-    nchunks, chunk_len = _plan(a)
+    nchunks, chunk_len = _plan(a) if plan is None else plan
     summary = _summary(a, nchunks)
     h = torch.empty_like(a)
     if h.numel() == 0:
         return h
     err = K.library().rglru_launch(
-        a.data_ptr(), b.data_ptr(), _ptr(h0), h.data_ptr(), None, _ptr(summary),
+        a.data_ptr(), b.data_ptr(), _ptr(h0), h.data_ptr(), None, _ptr(starts), _ptr(summary),
         bsz, t, c, nchunks, chunk_len, int(a.dtype == torch.bfloat16),
         torch.cuda.current_stream(a.device).cuda_stream)
     K.check(err, "rglru")
     _count("ab")
     return h
+
+
+def rglru_with_starts(a: torch.Tensor, b: torch.Tensor, *, plan: tuple[int, int]):
+    """:func:`rglru` from h = 0 over ``plan = (nchunks, chunk_len)`` (the
+    backward's, :func:`plan_bwd_chunks`), also returning the h entering
+    each chunk, fp32 [B, nchunks, C], for :func:`rglru_bwd`: ``(h,
+    starts)``.  Not recorded by autograd (:class:`RgLruFn` calls it)."""
+    _check(a, b, None)
+    _check_plan("rglru", a, plan, cap=None)
+    starts = _starts(a, plan[0])
+    return _rglru_fwd(a, b, None, plan, starts), starts
 
 
 def rglru_gated(x, wr, br, wi, bi, lam, h0=None, *, state_out=None):
@@ -378,14 +436,18 @@ def rglru_gated(x, wr, br, wi, bi, lam, h0=None, *, state_out=None):
     return _rglru_gated_fwd(x, ws, h0, state_out)
 
 
-def _rglru_gated_fwd(x, ws, h0, state_out):
-    nchunks, chunk_len = _plan(x)
+def _rglru_gated_fwd(x, ws, h0, state_out, plan=None, starts=None):
+    """The gated form over ``plan`` (default :func:`plan_scan_chunks`'),
+    writing the chunk starts into ``starts`` when given (from h = 0)."""
+    nchunks, chunk_len = _plan(x) if plan is None else plan
     if (nchunks > 1 and h0 is not None and state_out is not None
             and h0.untyped_storage().data_ptr() == state_out.untyped_storage().data_ptr()):
         raise ValueError(f"rglru_gated: h0 and state_out share memory, which only a "
                          f"one-chunk plan may update in place; T = {x.shape[1]} takes "
                          f"{nchunks} chunks")
     if x.device.type == "cpu":
+        if starts is not None:
+            starts.copy_(rglru_gated_starts_plain(x, *ws, nchunks=nchunks, chunk_len=chunk_len))
         return rglru_gated_plain(x, *ws, h0, state_out=state_out)
     _cuda_ready(x, *ws, h0, state_out)
     bsz, t, c = x.shape
@@ -397,7 +459,7 @@ def _rglru_gated_fwd(x, ws, h0, state_out):
         return h, state_out
     err = K.library().rglru_gated_launch(
         x.data_ptr(), *(w.data_ptr() for w in ws), _ptr(h0), h.data_ptr(),
-        state_out.data_ptr(), _ptr(summary), bsz, t, c, nchunks, chunk_len,
+        state_out.data_ptr(), _ptr(starts), _ptr(summary), bsz, t, c, nchunks, chunk_len,
         int(x.dtype == torch.bfloat16), int(ws[0].dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     K.check(err, "rglru_gated")
@@ -405,30 +467,52 @@ def _rglru_gated_fwd(x, ws, h0, state_out):
     return h, state_out
 
 
+def rglru_gated_with_starts(x, wr, br, wi, bi, lam, *, plan: tuple[int, int]):
+    """:func:`rglru_gated` from h = 0 over ``plan = (nchunks, chunk_len)``
+    (the backward's, :func:`plan_bwd_chunks`), also returning the h
+    entering each chunk, fp32 [B, nchunks, C], for :func:`rglru_gated_bwd`:
+    ``(h, h_last, starts)``.  The kernel writes the starts from its own
+    fold; the CPU takes :func:`rglru_gated_starts_plain`.  Not recorded by
+    autograd (:class:`RgLruGatedFn` calls it)."""
+    ws = (wr, br, wi, bi, lam)
+    _check_gated(x, ws, None, None)
+    _check_plan("rglru_gated", x, plan, cap=None)
+    starts = _starts(x, plan[0])
+    h, h_last = _rglru_gated_fwd(x, ws, None, None, plan, starts)
+    return h, h_last, starts
+
+
 def _bwd_plan(x: torch.Tensor) -> tuple[int, int]:
     sms = K.sm_count(x.get_device()) if x.device.type == "cuda" else 132
     return plan_bwd_chunks(*x.shape, sms=sms)
 
 
-def _check_bwd(what: str, x: torch.Tensor, dh: torch.Tensor, plan) -> tuple[int, int]:
-    if dh.shape != x.shape or dh.dtype != x.dtype or dh.device != x.device:
-        raise ValueError(f"{what}: dh {dh.dtype} {tuple(dh.shape)} must match "
-                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    nchunks, chunk_len = plan if plan is not None else _bwd_plan(x)
+def _check_plan(what: str, x: torch.Tensor, plan, cap: int | None) -> tuple[int, int]:
+    nchunks, chunk_len = plan
     t = x.shape[1]
-    if not (1 <= chunk_len <= BWD_CHUNK_MAX and (nchunks - 1) * chunk_len < t
+    if not (1 <= chunk_len <= (cap or chunk_len) and (nchunks - 1) * chunk_len < t
             <= nchunks * chunk_len):
-        raise ValueError(f"{what}: {nchunks} chunks of {chunk_len} steps do not cut T = {t} "
-                         f"(at most {BWD_CHUNK_MAX} steps a chunk)")
+        raise ValueError(f"{what}: {nchunks} chunks of {chunk_len} steps do not cut T = {t}"
+                         + (f" (at most {cap} steps a chunk)" if cap else ""))
     return nchunks, chunk_len
 
 
-def _bwd_summary(x: torch.Tensor, nchunks: int) -> torch.Tensor | None:
-    """Pass 1's fp32 scratch [B, nchunks, C, 4], or None for one chunk."""
-    if nchunks == 1:
-        return None
-    return torch.empty((x.shape[0], nchunks, x.shape[2], 4), dtype=torch.float32,
-                       device=x.device)
+def _check_bwd(what: str, x: torch.Tensor, dh: torch.Tensor, plan, h_starts) -> tuple[int, int]:
+    if dh.shape != x.shape or dh.dtype != x.dtype or dh.device != x.device:
+        raise ValueError(f"{what}: dh {dh.dtype} {tuple(dh.shape)} must match "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    nchunks, chunk_len = _check_plan(what, x, plan if plan is not None else _bwd_plan(x),
+                                     cap=BWD_CHUNK_MAX)
+    if h_starts is not None and (h_starts.shape != (x.shape[0], nchunks, x.shape[2])
+                                 or h_starts.dtype != torch.float32
+                                 or h_starts.device != x.device):
+        raise ValueError(f"{what}: h_starts {h_starts.dtype} {tuple(h_starts.shape)} is not "
+                         f"fp32 [B, nchunks, C] = {(x.shape[0], nchunks, x.shape[2])} on "
+                         f"{x.device}")
+    if h_starts is None and nchunks > 1 and x.device.type == "cuda":
+        raise ValueError(f"{what}: {nchunks} chunks need the forward's chunk starts "
+                         "(h_starts, from rglru_with_starts / rglru_gated_with_starts)")
+    return nchunks, chunk_len
 
 
 def _count_bwd(form: str) -> None:
@@ -438,48 +522,55 @@ def _count_bwd(form: str) -> None:
 
 
 def rglru_bwd(a: torch.Tensor, b: torch.Tensor, dh: torch.Tensor, *,
-              plan: tuple[int, int] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+              plan: tuple[int, int] | None = None, h_starts: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(da, db)``: the gradient of :func:`rglru` (from h = 0) at ``dh``,
-    over ``plan = (nchunks, chunk_len)`` (default :func:`plan_bwd_chunks`).
-    CUDA: the kernel; CPU: :func:`rglru_bwd_plain`."""
+    over ``plan = (nchunks, chunk_len)`` (default :func:`plan_bwd_chunks`),
+    from the chunk starts of :func:`rglru_with_starts` on that plan (which
+    CUDA needs for more than one chunk).  CUDA: the kernel; CPU:
+    :func:`rglru_bwd_plain`."""
     _check(a, b, None)
-    nchunks, chunk_len = _check_bwd("rglru_bwd", a, dh, plan)
+    nchunks, chunk_len = _check_bwd("rglru_bwd", a, dh, plan, h_starts)
     if a.device.type == "cpu":
-        return rglru_bwd_plain(a, b, dh, nchunks=nchunks, chunk_len=chunk_len)
-    _cuda_ready(a, b, dh)
+        return rglru_bwd_plain(a, b, dh, nchunks=nchunks, chunk_len=chunk_len,
+                               h_starts=h_starts)
+    _cuda_ready(a, b, dh, h_starts)
     da, db = torch.empty_like(a), torch.empty_like(b)
-    summary = _bwd_summary(a, nchunks)
+    summary = _summary(a, nchunks)
     err = K.library().rglru_bwd_launch(
-        a.data_ptr(), b.data_ptr(), dh.data_ptr(), da.data_ptr(), db.data_ptr(), _ptr(summary),
-        *a.shape, nchunks, chunk_len, int(a.dtype == torch.bfloat16),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        a.data_ptr(), b.data_ptr(), dh.data_ptr(), da.data_ptr(), db.data_ptr(),
+        _ptr(h_starts), _ptr(summary), *a.shape, nchunks, chunk_len,
+        int(a.dtype == torch.bfloat16), torch.cuda.current_stream(a.device).cuda_stream)
     K.check(err, "rglru_bwd")
     _count_bwd("ab")
     return da, db
 
 
-def rglru_gated_bwd(x, wr, br, wi, bi, lam, dh, *, plan: tuple[int, int] | None = None):
+def rglru_gated_bwd(x, wr, br, wi, bi, lam, dh, *, plan: tuple[int, int] | None = None,
+                    h_starts: torch.Tensor | None = None):
     """``(dx, dwr, dbr, dwi, dbi, dlam)``: the gradient of
     :func:`rglru_gated`'s h (from h = 0) at ``dh``, over ``plan =
-    (nchunks, chunk_len)`` (default :func:`plan_bwd_chunks`).  CUDA: the
-    kernel's three launches, counted as one call; CPU:
-    :func:`rglru_gated_bwd_plain`."""
+    (nchunks, chunk_len)`` (default :func:`plan_bwd_chunks`), from the chunk
+    starts of :func:`rglru_gated_with_starts` on that plan (which CUDA needs
+    for more than one chunk).  CUDA: the kernel's three launches, counted as
+    one call; CPU: :func:`rglru_gated_bwd_plain`."""
     ws = (wr, br, wi, bi, lam)
     _check_gated(x, ws, None, None)
-    nchunks, chunk_len = _check_bwd("rglru_gated_bwd", x, dh, plan)
+    nchunks, chunk_len = _check_bwd("rglru_gated_bwd", x, dh, plan, h_starts)
     if x.device.type == "cpu":
-        return rglru_gated_bwd_plain(x, *ws, dh, nchunks=nchunks, chunk_len=chunk_len)
-    _cuda_ready(x, *ws, dh)
+        return rglru_gated_bwd_plain(x, *ws, dh, nchunks=nchunks, chunk_len=chunk_len,
+                                     h_starts=h_starts)
+    _cuda_ready(x, *ws, dh, h_starts)
     bsz, t, c = x.shape
     dx = torch.empty_like(x)
     dws = [torch.empty_like(w) for w in ws]
     partials = torch.empty((5, bsz * nchunks, c), dtype=torch.float32, device=x.device)
-    summary = _bwd_summary(x, nchunks)
+    summary = _summary(x, nchunks)
     err = K.library().rglru_gated_bwd_launch(
         x.data_ptr(), *(w.data_ptr() for w in ws), dh.data_ptr(), dx.data_ptr(),
-        partials.data_ptr(), _ptr(summary), *(w.data_ptr() for w in dws), bsz, t, c, nchunks,
-        chunk_len, int(x.dtype == torch.bfloat16), int(wr.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        partials.data_ptr(), _ptr(h_starts), _ptr(summary), *(w.data_ptr() for w in dws), bsz,
+        t, c, nchunks, chunk_len, int(x.dtype == torch.bfloat16),
+        int(wr.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     K.check(err, "rglru_gated_bwd")
     _count_bwd("gated")
     return (dx, *dws)
@@ -487,35 +578,38 @@ def rglru_gated_bwd(x, wr, br, wi, bi, lam, dh, *, plan: tuple[int, int] | None 
 
 class RgLruFn(torch.autograd.Function):
     """:func:`rglru` from h = 0 with its hand-written gradient
-    (:func:`rglru_bwd`).  Saves a and b; the backward recomputes h."""
+    (:func:`rglru_bwd`).  The forward runs on the backward's plan and saves
+    a, b and the chunk starts; the backward recomputes h from them."""
 
     @staticmethod
     def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
         ctx.plan = _bwd_plan(a)
-        return _rglru_fwd(a, b, None)
+        h, starts = rglru_with_starts(a, b, plan=ctx.plan)
+        ctx.save_for_backward(a, b, starts)
+        return h
 
     @staticmethod
     def backward(ctx, dh):
-        a, b = ctx.saved_tensors
-        return rglru_bwd(a, b, dh.contiguous(), plan=ctx.plan)
+        a, b, starts = ctx.saved_tensors
+        return rglru_bwd(a, b, dh.contiguous(), plan=ctx.plan, h_starts=starts)
 
 
 class RgLruGatedFn(torch.autograd.Function):
     """:func:`rglru_gated` from h = 0 with its hand-written gradient
     (:func:`rglru_gated_bwd`): returns ``(h, h_last)``, ``h_last`` marked
-    non-differentiable.  Saves x and the weights; the backward recomputes
-    the gates and h."""
+    non-differentiable.  The forward runs on the backward's plan and saves
+    x, the weights and the chunk starts; the backward recomputes the gates
+    and h from them."""
 
     @staticmethod
     def forward(ctx, x, wr, br, wi, bi, lam):
-        ws = (wr, br, wi, bi, lam)
-        ctx.save_for_backward(x, *ws)
         ctx.plan = _bwd_plan(x)
-        h, h_last = _rglru_gated_fwd(x, ws, None, None)
+        h, h_last, starts = rglru_gated_with_starts(x, wr, br, wi, bi, lam, plan=ctx.plan)
+        ctx.save_for_backward(x, wr, br, wi, bi, lam, starts)
         ctx.mark_non_differentiable(h_last)
         return h, h_last
 
     @staticmethod
     def backward(ctx, dh, _dh_last):
-        return rglru_gated_bwd(*ctx.saved_tensors, dh.contiguous(), plan=ctx.plan)
+        *saved, starts = ctx.saved_tensors
+        return rglru_gated_bwd(*saved, dh.contiguous(), plan=ctx.plan, h_starts=starts)

@@ -1,8 +1,9 @@
 """The routes of the port's backward kernels.
 
 On the CPU: the route rules of ``flash_attention_bwd`` (``bwd_route``:
-``wgmma`` / ``mma`` / ``fma`` by dtype, head dim and group
-size) and of ``rmsnorm_bwd`` (``bwd_route``: ``regs`` / ``smem`` by dtype,
+``wgmma`` / ``wgmma256`` / ``mma`` / ``fma`` by dtype, head dim, group
+size and KV heads; ``bwd_routes``, the routes ``flash_attention_bwd_on``
+takes) and of ``rmsnorm_bwd`` (``bwd_route``: ``regs`` / ``smem`` by dtype,
 row width and alignment) as pure functions, the padded row count of the
 flash backward's (lse, delta) table, and which RG-LRU calls run as its
 autograd Function.  On the card (``gpu`` marker, skipped here): each route
@@ -27,29 +28,50 @@ BF, F32 = torch.bfloat16, torch.float32
 # route rules (CPU)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype,dh,g,want", [
-    (BF, 64, 4, "wgmma"),       # llama3.2-1b: GQA 32 / 8 heads of 64
-    (BF, 64, 1, "wgmma"),
-    (BF, 128, 8, "wgmma"),
-    (BF, 64, 64, "wgmma"),      # one position a 64-row tile
-    (BF, 64, 3, "mma"),         # 64 rows are not whole positions
-    (BF, 128, 10, "mma"),       # recurrentgemma's MQA group at another head dim
-    (BF, 64, 128, "mma"),
-    (BF, 32, 4, "mma"),         # head dims a 128-byte TMA row does not hold
-    (BF, 16, 1, "mma"),
-    (F32, 64, 4, "fma"),
-    (F32, 256, 10, "fma"),
-    (BF, 256, 10, "mma"),       # recurrentgemma-2b: MQA 10 heads of 256, by column halves
-    (BF, 256, 1, "mma"),
-    (BF, 256, 64, "mma"),
+@pytest.mark.parametrize("dtype,dh,g,hkv,want", [
+    (BF, 64, 4, 8, "wgmma"),       # llama3.2-1b: GQA 32 / 8 heads of 64
+    (BF, 64, 1, 4, "wgmma"),
+    (BF, 128, 8, 2, "wgmma"),
+    (BF, 64, 64, 1, "wgmma"),      # one position a 64-row tile
+    (BF, 64, 3, 2, "mma"),         # 64 rows are not whole positions
+    (BF, 64, 3, 1, "mma"),         # one KV head opens only dh 256's route
+    (BF, 128, 10, 1, "mma"),       # recurrentgemma's MQA group at another head dim
+    (BF, 64, 128, 1, "mma"),
+    (BF, 32, 4, 2, "mma"),         # head dims a 128-byte TMA row does not hold
+    (BF, 16, 1, 2, "mma"),
+    (F32, 64, 4, 8, "fma"),
+    (F32, 256, 10, 1, "fma"),
+    (BF, 256, 10, 1, "wgmma256"),  # recurrentgemma-2b: MQA 10 heads of 256
+    (BF, 256, 3, 1, "wgmma256"),   # one KV head: rows [b, T g, dh], any g
+    (BF, 256, 10, 2, "mma"),       # two KV heads, g not dividing 64: column halves
+    (BF, 256, 1, 4, "wgmma256"),   # g dividing 64: whole positions a box
+    (BF, 256, 64, 2, "wgmma256"),
+    (BF, 256, 3, 2, "mma"),
 ])
-def test_flash_bwd_route(dtype, dh, g, want):
-    assert FA.bwd_route(dtype, dh, g) == want
+def test_flash_bwd_route(dtype, dh, g, hkv, want):
+    assert FA.bwd_route(dtype, dh, g, hkv) == want
+    # flash_attention_bwd_on takes the rule's route and, for bf16, mma
+    assert FA.bwd_routes(dtype, dh, g, hkv) == (
+        (want,) if want in ("mma", "fma") else (want, "mma"))
 
 
 def test_flash_bwd_route_refuses_other_dtypes():
     with pytest.raises(TypeError):
-        FA.bwd_route(torch.float16, 64, 4)
+        FA.bwd_route(torch.float16, 64, 4, 8)
+
+
+def test_flash_bwd_on_refuses_a_route_the_shape_does_not_take():
+    """A route outside ``bwd_routes`` raises before any launch, on the CPU
+    too (where a route it takes runs the plain version)."""
+    q = torch.zeros(1, 4, 1, 10, 256, dtype=BF)
+    k = torch.zeros(1, 4, 1, 256, dtype=BF)
+    lse = torch.zeros(1, 1, 10, 4)
+    with pytest.raises(ValueError, match="route 'wgmma'"):
+        FA.flash_attention_bwd_on("wgmma", q, k, k, q, lse, q)
+    want = FA.flash_attention_bwd_plain(q, k, k, q, lse, q)
+    for r in ("wgmma256", "mma"):
+        got = FA.flash_attention_bwd_on(r, q, k, k, q, lse, q)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("tq,g,want", [(2048, 4, 8192), (300, 1, 300), (301, 1, 302),
@@ -150,7 +172,7 @@ def test_cuda_flash_bwd_wgmma_matches_plain(cuda_device, shape, kw):
     k, v = (torch.randn(b, tk, hkv, dh, generator=gen, device=cuda_device).to(BF)
             for _ in range(2))
     o, lse = FA.flash_attention_fwd(q, k, v, **kw)
-    r = FA.bwd_route(BF, dh, g)
+    r = FA.bwd_route(BF, dh, g, hkv)
     assert r == ("mma" if 64 % g else "wgmma")
     before = dict(FA.launches_bwd_by_route)
     grads = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -224,6 +246,36 @@ def test_cuda_rglru_gated_grad_matches_plain(cuda_device, shape, dt, wdt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 2048, 2560), (3, 1001, 2500), (2, 1, 300)])
+def test_cuda_rglru_gated_starts_match_plain(cuda_device, shape):
+    """The chunk starts the gated forward writes on the backward's plan
+    against their plain version (fp32, within the forward's tolerance of
+    max |start|), and the backward from them against the plain backward
+    that folds its own."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    c = shape[2]
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(BF)
+    u = 0.9 + 0.099 * torch.rand(c, generator=gen, device=cuda_device)
+    ws = [(0.5 * torch.randn(c, generator=gen, device=cuda_device)).to(BF) for _ in range(4)]
+    ws.append((torch.log(u) - torch.log1p(-u)).to(BF))
+    dh = torch.randn(shape, generator=gen, device=cuda_device).to(BF)
+    plan = RG.plan_bwd_chunks(*shape, sms=torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    h, _, starts = RG.rglru_gated_with_starts(x, *ws, plan=plan)
+    assert starts.shape == (shape[0], plan[0], c) and starts.dtype == F32
+    want = RG.rglru_gated_starts_plain(x, *ws, nchunks=plan[0], chunk_len=plan[1])
+    _rel_close(starts, want, 1e-4, "starts")
+    got = RG.rglru_gated_bwd(x, *ws, dh, plan=plan, h_starts=starts)
+    for a, b, what in zip(got, RG.rglru_gated_bwd_plain(x, *ws, dh, nchunks=plan[0],
+                                                        chunk_len=plan[1]),
+                          ("x", "wr", "br", "wi", "bi", "lam")):
+        _rel_close(a, b, BWD_REL[BF], f"d{what}")
+    if plan[0] > 1:
+        with pytest.raises(ValueError, match="chunk starts"):
+            RG.rglru_gated_bwd(x, *ws, dh, plan=plan)
+
+
+@pytest.mark.gpu
 def test_cuda_rglru_ab_grad_matches_plain(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(11)
     a = 0.7 + 0.299 * torch.rand(3, 1001, 2500, generator=gen, device=cuda_device)
@@ -241,28 +293,35 @@ def test_cuda_rglru_ab_grad_matches_plain(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["rule", "mma"])
 @pytest.mark.parametrize("shape,kw", [
     ((2, 2048, 2048, 1, 10, 256), dict(causal=True, window=2048)),  # recurrentgemma train
     ((2, 512, 512, 1, 10, 256), dict(causal=True, window=64)),
     ((2, 300, 300, 1, 10, 256), dict(causal=True)),                 # ragged T
-    ((1, 77, 77, 2, 4, 256), dict(causal=True)),
+    ((1, 77, 77, 2, 4, 256), dict(causal=True)),                    # g 4 divides 64
     ((2, 128, 256, 1, 10, 256), dict(causal=True, q_offset=64, kv_valid_len=150)),
+    ((2, 200, 200, 1, 3, 256), dict(causal=True)),                  # one KV head, g 3
+    ((1, 150, 150, 2, 10, 256), dict(causal=True, window=100)),     # the rule takes mma
+    ((1, 100, 100, 1, 10, 256), dict(causal=False)),
 ])
-def test_cuda_flash_bwd_dh256_matches_plain(cuda_device, shape, kw):
-    """The dh-256 backward (each block owning 128 of the 256 output
-    columns) against its plain version, bitwise repeatable, counted on
-    ``mma``."""
+def test_cuda_flash_bwd_dh256_matches_plain(cuda_device, route, shape, kw):
+    """The dh-256 backward on the rule's route (``wgmma256`` where it
+    takes the shape) and on ``mma`` (each block owning 128 of the 256
+    output columns) against the plain version, bitwise repeatable, counted
+    on its route."""
     b, tq, tk, hkv, g, dh = shape
+    r = FA.bwd_route(BF, dh, g, hkv) if route == "rule" else route
+    assert r == ("wgmma256" if route == "rule" and (hkv == 1 or 64 % g == 0) else "mma")
     gen = torch.Generator(device=cuda_device).manual_seed(12)
     q, do = (torch.randn(b, tq, hkv, g, dh, generator=gen, device=cuda_device).to(BF)
              for _ in range(2))
     k, v = (torch.randn(b, tk, hkv, dh, generator=gen, device=cuda_device).to(BF)
             for _ in range(2))
     o, lse = FA.flash_attention_fwd(q, k, v, **kw)
-    before = FA.launches_bwd_by_route["mma"]
-    grads = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-    again = FA.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-    assert FA.launches_bwd_by_route["mma"] == before + 2
+    before = FA.launches_bwd_by_route[r]
+    grads = FA.flash_attention_bwd_on(r, q, k, v, o, lse, do, **kw)
+    again = FA.flash_attention_bwd_on(r, q, k, v, o, lse, do, **kw)
+    assert FA.launches_bwd_by_route[r] == before + 2
     want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     for got, rep, ref, what in zip(grads, again, want, ("dq", "dk", "dv")):
         assert torch.equal(got, rep), f"{what}: not bitwise repeatable"

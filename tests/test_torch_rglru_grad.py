@@ -3,7 +3,9 @@ kernel (``repro_torch.kernels.rglru``: ``rglru_gated_bwd_plain`` and the
 ``(a, b)`` form's ``rglru_bwd_plain``) against ``jax.vjp`` of the JAX
 package's functions on the same numpy inputs, and the autograd Functions
 (``RgLruGatedFn``, ``RgLruFn``) on the CPU against autograd through the
-plain forwards.  The gated form's oracle is
+plain forwards; and the chunk starts the forward hands the backward
+(``rglru_gated_starts_plain``, ``rglru_chunk_starts_plain``) against the
+backward's own fold, bitwise.  The gated form's oracle is
 ``repro.models.recurrent.rglru_scan`` (its ``_rglru_coeffs`` and the
 ``lax.associative_scan``, which the reference's training path
 differentiates); the ``(a, b)`` form's is that scan alone.  A
@@ -93,8 +95,19 @@ def test_rglru_gated_bwd_plain_matches_jax_vjp(case, dt):
         a, _ = RG.rglru_coeffs_plain(xt, *(ws[n][1] for n in NAMES))
         assert float((1.0 - a.double() ** 2 < 1e-6).float().mean()) > 0.9
     nchunks, chunk_len = plan or (1, shape[1])
-    got = RG.rglru_gated_bwd_plain(xt, *(ws[n][1] for n in NAMES), dt_, nchunks=nchunks,
-                                   chunk_len=chunk_len)
+    wts = [ws[n][1] for n in NAMES]
+    # the chunk starts the gated forward hands over are, bitwise, the h the
+    # backward's own fold starts each chunk from (its h_prev at the chunk's
+    # first step); the backward from them is the backward without them
+    starts = RG.rglru_gated_starts_plain(xt, *wts, nchunks=nchunks, chunk_len=chunk_len)
+    *_, a, _, _, m, u = RG._gated_gates_plain(xt, *wts)
+    _, h_prev = RG._reverse_scan_plain(a, m * u, dt_.float(), nchunks=nchunks,
+                                       chunk_len=chunk_len)
+    assert starts.dtype == torch.float32 and torch.equal(starts, h_prev[:, ::chunk_len])
+    got = RG.rglru_gated_bwd_plain(xt, *wts, dt_, nchunks=nchunks, chunk_len=chunk_len,
+                                   h_starts=starts)
+    own = RG.rglru_gated_bwd_plain(xt, *wts, dt_, nchunks=nchunks, chunk_len=chunk_len)
+    assert all(torch.equal(p, q) for p, q in zip(got, own))
     assert got[0].dtype == xt.dtype and got[0].shape == xt.shape
     _close(got[0], dxj, dt, "dx")
     for n, g in zip(NAMES, got[1:]):
@@ -135,7 +148,12 @@ def test_rglru_bwd_plain_matches_jax_vjp_of_the_scan(plan, dt):
 
     daj, dbj = _scan_vjp(aj, bj, dj)
     nchunks, chunk_len = plan or (1, shape[1])
-    da, db = RG.rglru_bwd_plain(at, bt, dt_, nchunks=nchunks, chunk_len=chunk_len)
+    starts = RG.rglru_chunk_starts_plain(at, bt, nchunks=nchunks, chunk_len=chunk_len)
+    _, h_prev = RG._reverse_scan_plain(at.float(), bt.float(), dt_.float(), nchunks=nchunks,
+                                       chunk_len=chunk_len)
+    assert torch.equal(starts, h_prev[:, ::chunk_len])
+    da, db = RG.rglru_bwd_plain(at, bt, dt_, nchunks=nchunks, chunk_len=chunk_len,
+                                h_starts=starts)
     assert da.dtype == at.dtype and db.dtype == at.dtype
     _close(da, daj, dt, "da")
     _close(db, dbj, dt, "db")
@@ -153,7 +171,12 @@ def test_rglru_gated_fn_matches_autograd_of_plain(dt):
     ws = [(0.5 * torch.randn(16, generator=gen)).to(tdt) for _ in range(4)]
     ws.append(torch.full((16,), 3.0).to(tdt))
     dh = torch.randn(2, 200, 16, generator=gen).to(tdt)
-    assert RG.plan_bwd_chunks(2, 200, 16)[0] > 1
+    plan = RG.plan_bwd_chunks(2, 200, 16)
+    assert plan[0] > 1
+    # the Function's forward hands its backward the chunk starts
+    _, _, starts = RG.rglru_gated_with_starts(x, *ws, plan=plan)
+    assert torch.equal(starts, RG.rglru_gated_starts_plain(x, *ws, nchunks=plan[0],
+                                                           chunk_len=plan[1]))
     ins1 = [t.clone().requires_grad_() for t in (x, *ws)]
     RG.rglru_gated_plain(*ins1)[0].backward(dh)
     ins2 = [t.clone().requires_grad_() for t in (x, *ws)]
