@@ -72,10 +72,34 @@ script exits non-zero; no phase swallows an error):
    whose port kernel events fall short of the wrapper calls the launch
    counters show for it is taken again once, and marked ``events_short``
    if it is still short.
+3b. ``dist_train``: llama3.2-1b over 4 ranks, each a process of this
+   script (``--dist-worker``) started with ``torchrun``'s variables, through
+   ``launch/mesh.init_distributed`` / ``MiCSGroups`` and
+   ``runtime/train_loop.train``, the ``train`` phase's data, seed, global
+   batch (2 micro-steps x 4 ranks x 1 x 2048) and OptConfig, prefetch,
+   bucketed boundary, 3 steps, then each rank's checkpoint shards (written,
+   timed and removed).  With fewer than 4 cards the ranks share card 0 and
+   the collectives run over gloo through pinned host buffers (NCCL refuses
+   two ranks on one card): a correctness rehearsal, not a MiCS speed; with
+   4 or more cards, over NCCL, one card a rank.  Layout A: p 4, the paper's
+   ``outer_first`` gather with inner 2, full depth; its losses and grad
+   norms against the ``train`` phase's steps 1-3 (step 1: loss 2e-3, grad
+   norm 2e-2 relative; steps 2-3: 2%).  Layout B: p 2 x 2 replicas (hop 2
+   and the bucketed boundary across replicas) at 4 layers, against a
+   one-card run of that model.  Every rank's ``CommEngine`` counts must be
+   the layout's (``dist_expected_calls``) and its kernel launches the train
+   path's a micro-step x 2 x 3 (attention on ``mma``, its backward on
+   ``wgmma``, RMSNorm's backward on ``regs``); on layout A one gather of the
+   embedding row under ``flat``, ``inner_first`` and ``outer_first`` must
+   give bitwise the same buffer, the full row.  It prints the device count,
+   the backend, the ranks a card, each rank's ``step_ms``, host seconds in
+   collectives and ``peak_gb``, and its own seconds.  A rank that fails
+   fails the phase.
 4. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
    library call's where there is one, and the card's bound for the same
-   work; ``launches`` sums the serve runs and the train run.  Attention also
+   work; ``launches`` sums the serve runs, the train runs and every rank
+   of ``dist_train``.  Attention also
    runs at the tile edges of each route (fp32 cases take the ``fma``
    route), each check records its route and is called twice for a
    bitwise-equal output, prefill checks give their achieved TFLOP/s, and
@@ -856,6 +880,338 @@ def train_profile(path: TrainPath, dev, timed_steps: int = 3):
     return line
 
 
+# -- the multi-rank MiCS step ------------------------------------------------
+
+DIST_WORLD = 4
+DIST_STEPS = 3
+DIST_TIMEOUT_S = 600          # every process group's; the workers' whole run below
+
+
+@dataclasses.dataclass(frozen=True)
+class DistLayout:
+    name: str
+    repl: int
+    shard: int
+    gather_order: str
+    inner: int | None
+    layers: int | None       # None: full depth; else cut to this many layers
+
+
+# Layout A: one partition group of 4, the paper's three-stage gather
+# (outer_first, inner 2); layout B: 2 partition groups of 2 (the staged
+# gather degenerates to one flat gather at p = 2) x 2 replicas, so hop 2
+# and the bucketed boundary run across replicas.
+DIST_LAYOUTS = (DistLayout("A", 1, 4, "outer_first", 2, None),
+                DistLayout("B", 2, 2, "inner_first", None, 4))
+# Layout A against the single-card ``train`` phase (the same weights, data
+# and global batch): step 1's loss and grad_norm (both sides round to bf16,
+# hop 1 sums in bf16 over the ranks), then steps 2-3 at the reference's
+# ``mics_fidelity`` rtol.  Layout B against a one-card run of its cut model.
+DIST_REL_TOL = {"loss1": 2e-3, "grad_norm1": 2e-2, "later": 2e-2}
+
+
+def dense_train_launches(n_layers: int) -> dict:
+    """Kernel launches a micro-step of a dense model of ``n_layers``: RMSNorm
+    2 a layer + the final norm forward, the layers' recomputed, and one
+    backward each; attention one a layer, recomputed, one backward."""
+    return {"rmsnorm": 4 * n_layers + 1, "rmsnorm_bwd": 2 * n_layers + 1,
+            "flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers,
+            "rglru": 0, "rglru_bwd": 0}
+
+
+def dist_model(layout: DistLayout):
+    from repro_torch.configs import get_config
+    from repro_torch.models.build import build_model
+
+    cfg = get_config(TRAIN[0].arch)
+    if layout.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layout.layers)
+    return build_model(cfg, tp=1)
+
+
+def dist_topology(layout: DistLayout):
+    from repro_torch.core.topology import MiCSTopology
+
+    return MiCSTopology(repl=layout.repl, shard=layout.shard)
+
+
+def dist_expected_calls(layout: DistLayout) -> dict:
+    """The CommEngine's calls a rank over the run: each pool row's gather
+    (prefetch: once a micro-step, no re-gather in the backward) and its
+    adjoint reduce-scatter, once a stage; one hop-2 all-reduce a bucket of
+    the plan a step (none with one replica); the norm's all-reduce over the
+    partition group and the loss means' over the data ranks, once a step."""
+    from repro_torch.core.schedule import plan_boundary
+    from repro_torch.core.topology import hierarchy_factors
+
+    model, topo = dist_model(layout), dist_topology(layout)
+    rows = sum(pool.stack for pool in model.all_pools())
+    micro = DIST_STEPS * TRAIN[0].micro_steps
+    outer, inner = hierarchy_factors(topo, layout.inner)
+    stages = ("outer", "inner") if outer > 1 and inner > 1 else ("partition",)
+    calls = {}
+    for stage in stages:
+        calls[f"all_gather:{stage}"] = rows * micro
+        calls[f"reduce_scatter:{stage}"] = rows * micro
+    if topo.replication_degree > 1:
+        plan = plan_boundary(model, topo, mode="bucketed", bucket_mb=32.0)
+        calls["all_reduce:replication"] = plan.n_buckets * DIST_STEPS
+    calls["all_reduce:partition"] = DIST_STEPS
+    calls["all_reduce:data"] = DIST_STEPS
+    return dict(sorted(calls.items()))
+
+
+def dist_worker(args) -> int:
+    """One rank of ``dist_train`` (``--dist-worker``): each layout through
+    ``runtime/train_loop.train`` over the ranks' process groups, then on
+    layout A one gather of the embedding row under each gather topology.
+    Writes ``rank<r>.json`` into ``--dist-out``."""
+    import datetime
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core.comm import CommEngine, GatherPolicy
+    from repro_torch.core.mics import MiCSConfig, init_params
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rmsnorm import kernel as RN
+    from repro_torch.launch.mesh import MiCSGroups, init_distributed
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.train_loop import LoopConfig, train
+
+    timeout = datetime.timedelta(seconds=DIST_TIMEOUT_S)
+    rank, world = init_distributed(args.dist_backend, timeout=timeout)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out_dir = pathlib.Path(args.dist_out)
+    tp = TRAIN[0]
+    result = {"rank": rank, "world": world, "device": str(dev), "layouts": {}}
+    for layout in DIST_LAYOUTS:
+        model, topo = dist_model(layout), dist_topology(layout)
+        groups = MiCSGroups(topo, rank, backend=args.dist_backend, timeout=timeout,
+                            inner=layout.inner)
+        mcfg = MiCSConfig(micro_steps=tp.micro_steps, gather_order=layout.gather_order,
+                          hierarchy_inner=layout.inner)   # bf16, prefetch, bucketed, exact
+        dc = DataConfig(vocab=model.cfg.vocab, seq=tp.seq, global_batch=tp.global_batch,
+                        micro_steps=tp.micro_steps)
+        ckdir = out_dir / f"ck_{layout.name}"
+        lc = LoopConfig(total_steps=DIST_STEPS, checkpoint_every=0, checkpoint_dir=str(ckdir),
+                        log_every=0, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        stats = train(model, topo, mcfg, OptConfig(warmup_steps=0, total_steps=tp.steps), dc,
+                      lc, device=dev, groups=groups)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        line = {"losses": stats.losses, "grad_norms": stats.grad_norms,
+                "step_ms_all": [t * 1e3 for t in stats.step_times],
+                "step_ms": statistics.median(stats.step_times[1:]) * 1e3, "loop_s": loop_s,
+                "checkpoint_s": stats.save_times[-1], "comm": stats.comm,
+                "launches": read_counts(),
+                "attention_launches_by_route": dict(FA.launches_by_route),
+                "attention_bwd_launches_by_route": dict(FA.launches_bwd_by_route),
+                "rmsnorm_bwd_launches_by_route": dict(RN.launches_bwd_by_route),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        dist.barrier(group=groups.world.handle)
+        if rank == 0:
+            line["checkpoint_step"] = Checkpointer(ckdir).latest_step()
+            line["checkpoint_gb"] = sum(f.stat().st_size for f in ckdir.rglob("*")
+                                        if f.is_file()) / 1e9
+            shutil.rmtree(ckdir)
+        if layout.name == "A":
+            # one gather of the embedding row under each topology, bf16 wire
+            row = init_params(model, 0, device=dev, topo=topo, rank=rank)["embed"][0, 0]
+            bufs = {}
+            for topology in ("flat", "inner_first", "outer_first"):
+                eng = CommEngine(topo, GatherPolicy(topology=topology, inner=layout.inner),
+                                 groups=groups)
+                bufs[topology] = eng.gather_flat(row)
+            full = init_params(model, 0, device=dev)["embed"][0, 0].to(torch.bfloat16)
+            line["gather_check"] = {
+                "elements": full.numel(),
+                "topologies_bitwise_equal": all(torch.equal(b, bufs["flat"])
+                                                for b in bufs.values()),
+                "equal_to_the_full_row": torch.equal(bufs["flat"], full)}
+            del row, bufs, full
+        result["layouts"][layout.name] = line
+        del groups
+        torch.cuda.empty_cache()
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_reference(layout: DistLayout, dev) -> list[tuple[float, float]]:
+    """Layout ``layout``'s model on this one card over the same global
+    batches and steps (``build_train_step`` at p = 1): (loss, grad_norm)."""
+    from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim.adamw import OptConfig
+
+    tp = TRAIN[0]
+    model = dist_model(layout)
+    step = build_train_step(model, MiCSTopology(), MiCSConfig(micro_steps=tp.micro_steps),
+                            OptConfig(warmup_steps=0, total_steps=tp.steps), device=dev)
+    source = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq=tp.seq,
+                                    global_batch=tp.global_batch, micro_steps=tp.micro_steps))
+    state, out = init_state(model, 0, device=dev), []
+    for i in range(DIST_STEPS):
+        state, m = step(state, source.global_step_batch(i))
+        out.append((m["loss"].item(), m["grad_norm"].item()))
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_train_phase(card: str, dev, train_line: dict) -> dict:
+    """``dist_train``: the MiCS step over ``DIST_WORLD`` ranks through
+    ``runtime/train_loop.train``.  With fewer cards than ranks, every rank
+    shares card 0 and the collectives run over gloo through pinned host
+    buffers (NCCL refuses two ranks on one card): a correctness rehearsal,
+    not a MiCS speed.  With enough cards, NCCL, one card a rank.  Any rank's
+    failure fails the phase."""
+    import os
+    import shutil
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= DIST_WORLD else "gloo"
+    t_phase = time.perf_counter()
+    refs = {"A": list(zip(train_line["loss"], train_line["grad_norm"]))[:DIST_STEPS]}
+    for layout in DIST_LAYOUTS:
+        if layout.name not in refs:
+            refs[layout.name] = dist_reference(layout, dev)
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(DIST_WORLD):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DIST_WORLD), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(DIST_WORLD), MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port))
+            log = open(out_dir / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(pathlib.Path(__file__).resolve()), "--dist-worker",
+                 "--dist-backend", backend, "--dist-out", str(out_dir)],
+                env=env, stdout=log, stderr=subprocess.STDOUT), log))
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        failed = []
+        while not failed and any(p.poll() is None for p, _ in procs):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"dist_train: the ranks did not finish in "
+                                     f"{DIST_TIMEOUT_S} s")
+            failed = [r for r, (p, _) in enumerate(procs) if p.poll() not in (None, 0)]
+            time.sleep(0.5)
+        failed = failed or [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    workers_s = time.perf_counter() - t0
+    if failed:
+        tail = (out_dir / f"rank{failed[0]}.log").read_text()[-4000:]
+        raise AssertionError(f"dist_train: rank {failed[0]} failed:\n{tail}")
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(DIST_WORLD)]
+
+    lines = {}
+    for layout in DIST_LAYOUTS:
+        per = [rk["layouts"][layout.name] for rk in ranks]
+        losses, gnorms = per[0]["losses"], per[0]["grad_norms"]
+        for p in per[1:]:   # means over the data ranks: the same on every rank
+            if p["losses"] != losses or p["grad_norms"] != gnorms:
+                raise AssertionError(f"dist_train {layout.name}: ranks disagree on the loss")
+        if not all(math.isfinite(x) for x in losses + gnorms) or len(losses) != DIST_STEPS:
+            raise AssertionError(f"dist_train {layout.name}: losses {losses}, {gnorms}")
+        ref = refs[layout.name]
+        rel = []
+        for i, ((loss, gn), (rl, rg)) in enumerate(zip(zip(losses, gnorms), ref)):
+            el, eg = abs(loss - rl) / abs(rl), abs(gn - rg) / abs(rg)
+            rel.append({"loss": el, "grad_norm": eg})
+            lim_l = DIST_REL_TOL["loss1"] if i == 0 else DIST_REL_TOL["later"]
+            lim_g = DIST_REL_TOL["grad_norm1"] if i == 0 else DIST_REL_TOL["later"]
+            if not (el <= lim_l and eg <= lim_g):
+                raise AssertionError(f"dist_train {layout.name} step {i + 1}: loss {loss} vs "
+                                     f"{rl}, grad_norm {gn} vs {rg}")
+        want_calls = dist_expected_calls(layout)
+        n_layers = dist_model(layout).cfg.n_layers
+        want_launches = {k: n * TRAIN[0].micro_steps * DIST_STEPS
+                         for k, n in dense_train_launches(n_layers).items()}
+        for r, p in enumerate(per):
+            if p["comm"]["calls"] != want_calls:
+                raise AssertionError(f"dist_train {layout.name} rank {r}: collectives "
+                                     f"{p['comm']['calls']} != {want_calls}")
+            if p["launches"] != want_launches:
+                raise AssertionError(f"dist_train {layout.name} rank {r}: launches "
+                                     f"{p['launches']} != {want_launches}")
+            if (p["attention_bwd_launches_by_route"]["wgmma"] != want_launches[
+                    "flash_attention_bwd"] or p["rmsnorm_bwd_launches_by_route"]["regs"]
+                    != want_launches["rmsnorm_bwd"] or p["attention_launches_by_route"][
+                    "mma"] != want_launches["flash_attention"]):
+                raise AssertionError(f"dist_train {layout.name} rank {r}: routes {p}")
+        if per[0].get("checkpoint_step") != DIST_STEPS:
+            raise AssertionError(f"dist_train {layout.name}: checkpoint at "
+                                 f"{per[0].get('checkpoint_step')}")
+        gc = per[0].get("gather_check")
+        if layout.name == "A" and not all(
+                p["gather_check"]["topologies_bitwise_equal"]
+                and p["gather_check"]["equal_to_the_full_row"] for p in per):
+            raise AssertionError(f"dist_train A: gather check {[p['gather_check'] for p in per]}")
+        lines[layout.name] = {
+            "ranks": DIST_WORLD, "repl": layout.repl, "shard": layout.shard,
+            "gather_order": layout.gather_order, "inner": layout.inner, "layers": n_layers,
+            "loss": losses, "grad_norm": gnorms, "reference": ref, "rel_err": rel,
+            "step_ms_label": ("nccl, one card a rank" if backend == "nccl" else
+                              f"gloo over host, {DIST_WORLD} ranks on one card" if cards == 1
+                              else f"gloo over host, {DIST_WORLD} ranks on {cards} cards"),
+            "step_ms": [p["step_ms"] for p in per],
+            "comm_s": [p["comm"]["seconds"] for p in per],
+            "peak_gb": [p["peak_gb"] for p in per], "loop_s": [p["loop_s"] for p in per],
+            "checkpoint_s": [p["checkpoint_s"] for p in per],
+            "checkpoint_gb": per[0]["checkpoint_gb"],
+            "comm_calls": want_calls, "comm_bytes": per[0]["comm"]["bytes"],
+            "launches_per_rank": want_launches, "gather_check": gc}
+    launches = {k: sum(rk["layouts"][lay.name]["launches"][k] for rk in ranks
+                       for lay in DIST_LAYOUTS) for k in want_launches}
+    line = {"phase": "dist_train", "arch": TRAIN[0].arch, "device_count": cards,
+            "backend": backend, "ranks": DIST_WORLD,
+            "ranks_per_card": DIST_WORLD // min(cards, DIST_WORLD),
+            "global_batch": TRAIN[0].global_batch, "micro_steps": TRAIN[0].micro_steps,
+            "seq": TRAIN[0].seq, "steps": DIST_STEPS, "layouts": lines,
+            "workers_s": workers_s, "seconds": time.perf_counter() - t_phase, "gpu": card}
+    emit(line)
+    shutil.rmtree(out_dir)
+    # for the kernel table: the launches summed over ranks and layouts
+    by_route = {key: {} for key in ("attention_launches_by_route",
+                                    "attention_bwd_launches_by_route",
+                                    "rmsnorm_bwd_launches_by_route")}
+    for rk in ranks:
+        for lay in DIST_LAYOUTS:
+            for key, table in by_route.items():
+                for route, n in rk["layouts"][lay.name][key].items():
+                    table[route] = table.get(route, 0) + n
+    return {"arch": f"{TRAIN[0].arch} dist_train", "launches": launches, **by_route,
+            "rglru_launches_by_form": {"forward": {"ab": 0, "gated": 0},
+                                       "backward": {"ab": 0, "gated": 0}}}
+
+
 def kernel_checks(gen, dev, flush):
     """Each kernel at the paths' shapes against its plain version, timed."""
     import torch.nn.functional as F
@@ -1392,6 +1748,10 @@ def main() -> int:
     ap.add_argument("--digest-only", action="store_true",
                     help="print only the digest of llama's train-shape flash backward (no "
                          "checks, no result), to compare two checkouts' kernels bit for bit")
+    ap.add_argument("--dist-worker", action="store_true",
+                    help="run as one rank of the dist_train phase (started by that phase)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"])
+    ap.add_argument("--dist-out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1399,6 +1759,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.dist_worker:
+        return dist_worker(args)
 
     from repro_torch.kernels import build as KB
     from repro_torch.kernels.flash_attention import kernel as FA
@@ -1455,11 +1817,17 @@ def main() -> int:
         train_profiles.append(train_profile(tp, dev))
         torch.cuda.empty_cache()
 
+    # -- 3b. the MiCS step over 4 ranks -------------------------------------------
+    dist_line = dist_train_phase(card, dev, train_lines[0])
+    by_path[dist_line["arch"]] = dist_line["launches"]
+    launches_by_route["mma"] += dist_line["attention_launches_by_route"]["mma"]
+    torch.cuda.empty_cache()
+
     def train_sum(*keys: str) -> dict:
         """A train line's launches by route (or form) under ``keys``, summed
-        over the paths."""
+        over the train paths and the dist_train phase."""
         out = {}
-        for line in train_lines:
+        for line in (*train_lines, dist_line):
             table = line
             for key in keys:
                 table = table[key]

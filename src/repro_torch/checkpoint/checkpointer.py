@@ -2,17 +2,21 @@
 half of ``repro/checkpoint/checkpointer.py``).
 
 A checkpoint is a directory ``step_XXXXXXXX/`` holding one ``.npy`` file a
-tensor (``params``, ``m``, ``v``: one per pool, the global fp32 flat
-arrays) and ``manifest.json`` (step, data cursor, topology, leaf names).
-Writes go to ``step_XXXXXXXX.tmp/``; the manifest is fsync'd and the
-directory renamed into place only then, so a crashed save never corrupts
-the newest complete checkpoint.  :meth:`Checkpointer.latest_step` skips
-``.tmp`` directories, malformed names and directories whose manifest or
-tensors are missing or truncated.  Tensors are copied to the host one at a
+tensor and rank (``params``, ``m``, ``v``: one per pool, each rank's fp32
+flat shards ``[stack, tp, flat_len / p]``; ``<leaf>.npy`` in a one-rank
+run, ``<leaf>.rank<r>.npy`` otherwise) and ``manifest.json`` (step, data
+cursor, topology, world size, leaf names and shard shapes).  Every rank
+writes its own shards into ``step_XXXXXXXX.tmp/``; after a barrier rank 0
+writes and fsyncs the manifest and only then renames the directory into
+place, so a crashed save never corrupts the newest complete checkpoint.
+:meth:`Checkpointer.latest_step` skips ``.tmp`` directories, malformed
+names and directories whose manifest or any rank's tensors are missing or
+truncated.  Tensors are copied to the host one at a
 time, so the host never holds the whole state.
 
-The fault-injection hook, asynchronous saves and restores onto another
-topology come with the elastic slice (ROADMAP Queue 1 item 5, the elastic and
+A restore reads this rank's shards onto the same topology.  The
+fault-injection hook, asynchronous saves and restores onto another topology
+come with the elastic slice (ROADMAP Queue 1 item 5, the elastic and
 fault-tolerant loop).
 """
 
@@ -26,7 +30,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.mics import local_flat_shapes
 from repro_torch.core.topology import MICS_AXES, MiCSTopology
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import ModelDef
@@ -43,34 +49,60 @@ def _fsync(path: pathlib.Path) -> None:
         os.close(fd)
 
 
+def _topology(topo: MiCSTopology) -> dict:
+    return {**{ax: getattr(topo, ax) for ax in MICS_AXES},
+            "partition_axes": list(topo.partition_axes),
+            "replication_axes": list(topo.replication_axes)}
+
+
+def _leaf_file(leaf: str, rank: int, world: int) -> str:
+    return f"{leaf}.npy" if world == 1 else f"{leaf}.rank{rank}.npy"
+
+
+def _barrier(groups) -> None:
+    if groups is not None:
+        dist.barrier(group=groups.world.handle)
+
+
 class Checkpointer:
     def __init__(self, directory: str | pathlib.Path):
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
 
-    def save(self, state: dict, step: int, *, topo: MiCSTopology, data_cursor: int = 0) -> pathlib.Path:
-        """Write ``state`` (params / m / v pool dicts and ``step``) as the
-        checkpoint of ``step``; returns its directory."""
+    def save(self, state: dict, step: int, *, topo: MiCSTopology, data_cursor: int = 0,
+             groups=None) -> pathlib.Path:
+        """Write this rank's ``state`` (params / m / v pool dicts and
+        ``step``) into the checkpoint of ``step``; returns its directory.
+        Over several ranks every rank calls it, with the run's ``groups``."""
+        world = topo.world_size
+        if world > 1 and groups is None:
+            raise ValueError(f"a {world}-rank save needs the run's MiCSGroups")
+        rank = 0 if groups is None else groups.rank
         tmp = self.dir / f"step_{step:08d}.tmp"
         final = self.dir / f"step_{step:08d}"
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
+        if rank == 0:
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir(parents=True)
+        _barrier(groups)
         leaves = []
         for part in PARTS:
             for name, t in state[part].items():
                 leaf = f"{part}.{name}"
-                np.save(tmp / f"{leaf}.npy", t.detach().cpu().numpy())
+                np.save(tmp / _leaf_file(leaf, rank, world), t.detach().cpu().numpy())
                 leaves.append({"name": leaf, "shape": list(t.shape)})
-        meta = {"step": int(step), "state_step": int(state["step"]),
-                "data_cursor": int(data_cursor), "time": time.time(),
-                "topology": {ax: getattr(topo, ax) for ax in MICS_AXES}, "leaves": leaves}
-        mpath = tmp / MANIFEST
-        mpath.write_text(json.dumps(meta, indent=1))
-        _fsync(mpath)
-        if final.exists():
-            shutil.rmtree(final)
-        tmp.rename(final)
+        _barrier(groups)
+        if rank == 0:
+            meta = {"step": int(step), "state_step": int(state["step"]),
+                    "data_cursor": int(data_cursor), "time": time.time(),
+                    "topology": _topology(topo), "world_size": world, "leaves": leaves}
+            mpath = tmp / MANIFEST
+            mpath.write_text(json.dumps(meta, indent=1))
+            _fsync(mpath)
+            if final.exists():
+                shutil.rmtree(final)
+            tmp.rename(final)
+        _barrier(groups)
         return final
 
     def _complete(self, path: pathlib.Path) -> bool:
@@ -81,16 +113,18 @@ class Checkpointer:
             meta = json.loads((path / MANIFEST).read_text())
         except (OSError, ValueError):
             return False   # missing or truncated manifest (crashed writer)
+        world = meta.get("world_size", 1)
         for leaf in meta.get("leaves", []):
-            f = path / f"{leaf['name']}.npy"
-            if not f.exists():
-                return False
-            try:
-                arr = np.load(f, mmap_mode="r")
-            except (OSError, ValueError):
-                return False
-            if list(arr.shape) != leaf["shape"]:
-                return False
+            for rank in range(world):
+                f = path / _leaf_file(leaf["name"], rank, world)
+                if not f.exists():
+                    return False
+                try:
+                    arr = np.load(f, mmap_mode="r")
+                except (OSError, ValueError):
+                    return False
+                if list(arr.shape) != leaf["shape"]:
+                    return False
         return True
 
     def latest_step(self) -> int | None:
@@ -100,11 +134,11 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, model: ModelDef, step: int | None = None, *,
-                topo: MiCSTopology = MiCSTopology(),
+                topo: MiCSTopology = MiCSTopology(), rank: int = 0,
                 device: str | torch.device = "cuda") -> tuple[dict, dict]:
-        """Load a checkpoint onto ``device``; returns ``(state, meta)``.
-        Raises if it is missing, incomplete, of another topology or of
-        other pool shapes."""
+        """Load ``rank``'s shards of a checkpoint onto ``device``; returns
+        ``(state, meta)``.  Raises if it is missing, incomplete, of another
+        topology or of other pool shapes."""
         dev = resolve_device(device)
         if step is None:
             step = self.latest_step()
@@ -115,18 +149,18 @@ class Checkpointer:
             raise FileNotFoundError(f"checkpoint {path} is missing or incomplete "
                                     f"(newest complete step: {self.latest_step()})")
         meta = json.loads((path / MANIFEST).read_text())
-        here = {ax: getattr(topo, ax) for ax in MICS_AXES}
-        if meta["topology"] != here:
+        here = _topology(topo)
+        if meta["topology"] != here or meta.get("world_size", 1) != topo.world_size:
             raise NotImplementedError(
                 f"checkpoint topology {meta['topology']} != {here}: restores onto "
                 "another topology come with the elastic slice (ROADMAP Queue 1 item 5, the "
                 "elastic and fault-tolerant loop)")
-        shapes = model.global_flat_shapes()
+        shapes = local_flat_shapes(model, topo)
         state: dict = {}
         for part in PARTS:
             state[part] = {}
             for name, shape in shapes.items():
-                arr = np.load(path / f"{part}.{name}.npy")
+                arr = np.load(path / _leaf_file(f"{part}.{name}", rank, topo.world_size))
                 if arr.shape != shape or arr.dtype != np.float32:
                     raise ValueError(f"{part}.{name}: {arr.dtype} {arr.shape} in the "
                                      f"checkpoint, the model needs float32 {shape}")

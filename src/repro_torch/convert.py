@@ -5,7 +5,8 @@ Both packages lay out a model as the same flat pools (``{"embed",
 "layers", "head"}``, each ``[stack, tp, flat_len]`` fp32, same segment
 offsets), so carrying weights over is a checked copy.  With it, the two
 packages compute the same function on the same weights, and train from
-the same state.
+the same state; :func:`shard_from_jax` cuts a JAX global state into one
+rank's shards.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.topology import MiCSTopology
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import ModelDef
 
@@ -48,4 +50,23 @@ def state_from_jax(model: ModelDef, state: Mapping, *,
                                  device=device)
            for part in ("params", "m", "v")}
     out["step"] = int(np.asarray(state["step"]))
+    return out
+
+
+def shard_from_jax(model: ModelDef, topo: MiCSTopology, rank: int, state: Mapping, *,
+                   device: str | torch.device = "cuda") -> dict:
+    """``rank``'s port training state from a JAX global state (``params``,
+    ``m``, ``v`` pool dicts of arrays and ``step``): the reference's
+    ``P(None, model, partition_axes)``, the last dim cut over the partition
+    group at ``topo.partition_coord(rank)``."""
+    full = state_from_jax(model, state, device="cpu")
+    p, coord = topo.partition_size, topo.partition_coord(rank)
+    dev = resolve_device(device)
+    out = {}
+    for part in ("params", "m", "v"):
+        out[part] = {}
+        for name, t in full[part].items():
+            n = t.shape[-1] // p
+            out[part][name] = t[..., coord * n:(coord + 1) * n].contiguous().to(dev)
+    out["step"] = full["step"]
     return out

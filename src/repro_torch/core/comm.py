@@ -2,17 +2,19 @@
 and gradient sync (the port of ``repro/core/comm.py``).
 
 MiCS gathers each layer's flat shard across its partition group of size p
-before the layer runs, reduce-scatters the layer's gradient back over the
-same group in the backward (hop 1, the gather's adjoint) and all-reduces
-gradients across replicas once per accumulation boundary (hop 2, paper
-§3.4).  On one card p = 1, tp = 1 and data parallel 1, so nothing moves
-between devices: the gather is the cast of the fp32 row to the wire dtype,
-exactly what ``repro/core/comm.py`` does when ``partition_size == 1``; its
-adjoint is the cotangent cast back to fp32 (:class:`GatherFlat`); hop 2 is
-the identity.  p > 1, data parallel > 1 (NCCL process groups) and the
-int8 / bf16 wires raise ``NotImplementedError``: they come with the
-multi-chip collectives slice and the int8-wire slice (ROADMAP Queue 1 items
-2 and 4).
+before the layer runs, in stages (§3.3: ``GatherPolicy.topology`` is
+``flat``, ``inner_first`` or the paper's ``outer_first``), reduce-scatters
+the layer's gradient back over the same group in the backward (hop 1, the
+gather's exact adjoint: :class:`GatherFlat`) and all-reduces gradients
+across replicas once per accumulation boundary (hop 2, §3.4).  The
+collectives run over the process groups of ``launch/mesh.MiCSGroups``
+(``core/collectives.py``).  At p = 1 the gather is the cast of the fp32 row
+to the wire dtype and its adjoint the cast back; with one replica hop 2 is
+the identity.  Every collective adds to the engine's :class:`CommCounter`.
+
+Still refused, each naming the ROADMAP Queue 1 item it waits for: tensor
+parallelism (item 2's second half), the int8 gather wire and the bf16 /
+int8 gradient wires (item 4).
 """
 
 from __future__ import annotations
@@ -21,26 +23,36 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.topology import MiCSTopology
+from repro_torch.core import collectives as C
+from repro_torch.core.topology import MiCSTopology, hierarchy_factors
 
+GATHER_TOPOLOGIES = ("flat", "inner_first", "outer_first")
 WIRE_DTYPES = ("fp32", "bf16", "int8")
 SYNC_MODES = ("2hop", "allreduce_slice")
 HOP1_WIRE_DTYPES = ("fp32", "bf16", "int8")
 HOP2_WIRE_DTYPES = ("fp32", "bf16", "int8")
 
 _WIRE_TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16}
+_TP_ITEM = "ROADMAP Queue 1 item 2's second half, tensor parallelism (tp > 1)"
+_WIRE_ITEM = "ROADMAP Queue 1 item 4, the int8 and bf16 wires"
 
 
 @dataclasses.dataclass(frozen=True)
 class GatherPolicy:
-    """How a flat-param pool is gathered.  The staged order of the gather
-    (the reference's ``topology`` and ``inner``) only shapes a gather across
-    a partition group of p > 1 and joins this policy with that slice."""
+    """How a flat-param pool is gathered across its partition group:
+    ``topology`` (the staged order, §3.3), ``inner`` (the intra-"node"
+    factor of a single-axis staged gather; default
+    ``topology.default_hierarchy_inner``), the wire dtype and the one-layer
+    lookahead."""
 
+    topology: str = "inner_first"  # 'flat' | 'inner_first' | 'outer_first'
     wire_dtype: str = "bf16"       # 'fp32' | 'bf16' | 'int8' (ZeRO++ qwZ)
-    prefetch: bool = True          # one-layer lookahead gather
+    inner: int | None = None
+    prefetch: bool = True
 
     def __post_init__(self):
+        if self.topology not in GATHER_TOPOLOGIES:
+            raise ValueError(f"unknown gather topology {self.topology!r}")
         if self.wire_dtype not in WIRE_DTYPES:
             raise ValueError(f"unknown wire dtype {self.wire_dtype!r}")
 
@@ -48,9 +60,9 @@ class GatherPolicy:
 @dataclasses.dataclass(frozen=True)
 class SyncPolicy:
     """How gradients synchronize (paper §3.4): ``2hop`` (hop-1
-    reduce-scatter in the backward, hop-2 all-reduce at the boundary) with
-    fp32 wires is what the port runs; the Fig-14 ``allreduce_slice``
-    ablation and the compressed wires raise."""
+    reduce-scatter in the backward, hop-2 all-reduce at the boundary) or
+    the Fig-14 ``allreduce_slice`` ablation, both with fp32 wires; the
+    compressed wires raise."""
 
     mode: str = "2hop"
     hop1_wire_dtype: str = "fp32"
@@ -62,17 +74,10 @@ class SyncPolicy:
                                      ("hop2_wire_dtype", self.hop2_wire_dtype, HOP2_WIRE_DTYPES)):
             if value not in allowed:
                 raise ValueError(f"unknown {name} {value!r} (expected one of {allowed})")
-        if self.mode != "2hop":
-            raise NotImplementedError(
-                "sync_mode='allreduce_slice' (the Fig-14 ablation) comes with the "
-                "multi-chip collectives slice (ROADMAP Queue 1 item 2, multi-rank MiCS "
-                "collectives)")
         if self.hop1_wire_dtype != "fp32" or self.hop2_wire_dtype != "fp32":
             raise NotImplementedError(
                 f"hop-1 wire {self.hop1_wire_dtype!r} / hop-2 wire {self.hop2_wire_dtype!r}: "
-                "the compressed gradient wires wait for ROADMAP Queue 1 item 4, int8 and bf16 "
-                "wires; "
-                "the port runs fp32")
+                f"the compressed gradient wires wait for {_WIRE_ITEM}; the port runs fp32")
 
 
 def _hop2_wire(compress_hop2) -> str:
@@ -84,61 +89,70 @@ def _hop2_wire(compress_hop2) -> str:
 
 
 def policies_from_config(mcfg) -> tuple[GatherPolicy, SyncPolicy]:
-    """Interpret a ``MiCSConfig``'s flags as the two policies.  A
-    staged-gather or sync setting other than what the port runs raises
-    rather than run the default program under another name."""
-    if (not mcfg.hierarchical or mcfg.gather_order != "inner_first"
-            or mcfg.hierarchy_inner is not None):
-        raise NotImplementedError(
-            f"hierarchical={mcfg.hierarchical}, gather_order={mcfg.gather_order!r}, "
-            f"hierarchy_inner={mcfg.hierarchy_inner}: the staged gather order over "
-            "p > 1 comes with the multi-chip collectives slice")
+    """Interpret a ``MiCSConfig``'s flags as the two policies (the one place
+    they are read)."""
     if mcfg.quant_gather:
         wire = "int8"
     else:
         wire = "bf16" if mcfg.gather_dtype == torch.bfloat16 else "fp32"
+    gather = GatherPolicy(topology=mcfg.gather_order if mcfg.hierarchical else "flat",
+                          wire_dtype=wire, inner=mcfg.hierarchy_inner, prefetch=mcfg.prefetch)
     sync = SyncPolicy(mode=mcfg.sync_mode, hop1_wire_dtype=mcfg.hop1_wire_dtype,
                       hop2_wire_dtype=_hop2_wire(mcfg.compress_hop2))
-    return GatherPolicy(wire_dtype=wire, prefetch=mcfg.prefetch), sync
+    return gather, sync
 
 
 class GatherFlat(torch.autograd.Function):
-    """The gather of one flat row with its hop-1 adjoint, at p = 1: the
-    forward casts the fp32 row to the wire dtype; the backward is the
-    reduce-scatter over the partition group in the cotangent's own dtype
-    (the fp32 hop-1 wire; the identity at p = 1) followed by the transpose
-    of the cast, back to fp32, where the reference's autodiff rounds it."""
+    """The gather of one flat row with its hop-1 adjoint: the forward casts
+    the fp32 row to the wire dtype and gathers it with the policy's
+    topology; the backward is :meth:`CommEngine._adjoint` (the staged
+    reduce-scatter in the cotangent's own dtype: bf16 under the bf16 wire,
+    as the reference's) followed by the cast back to fp32."""
 
     @staticmethod
-    def forward(ctx, row, dtype):
-        return row.to(dtype)
+    def forward(ctx, row, engine, dtype):
+        ctx.engine = engine
+        return engine._policy_all_gather(row.to(dtype))
 
     @staticmethod
     def backward(ctx, ct):
-        return ct.to(torch.float32), None
+        return ctx.engine.gather_flat_adjoint(ct), None, None
 
 
 class CommEngine:
-    """Owns every parameter gather and gradient sync of one run."""
+    """Owns every parameter gather and gradient sync of one run.
+
+    At p > 1 or with more than one replica, ``groups`` (a
+    ``launch.mesh.MiCSGroups`` of ``topo``) carries the collectives; without
+    groups of this topology the engine raises ``ValueError``."""
 
     def __init__(self, topo: MiCSTopology, gather_policy: GatherPolicy = GatherPolicy(),
-                 sync_policy: SyncPolicy = SyncPolicy()):
+                 sync_policy: SyncPolicy = SyncPolicy(), *, groups=None):
         if topo.model_size != 1:
-            raise NotImplementedError(
-                "tensor parallelism (tp > 1) comes with the multi-chip collectives slice")
-        if topo.partition_size != 1:
-            raise NotImplementedError(
-                f"partition size {topo.partition_size} > 1: the staged all-gather over "
-                "NCCL process groups comes with the multi-chip collectives slice")
+            raise NotImplementedError(f"tp = {topo.model_size}: {_TP_ITEM} is not ported yet")
         if gather_policy.wire_dtype == "int8":
-            raise NotImplementedError("the int8 gather wire comes with the int8-wire slice")
+            raise NotImplementedError(f"the int8 gather wire waits for {_WIRE_ITEM}")
+        if topo.world_size > 1:
+            if groups is None or groups.topo != topo:
+                raise ValueError(
+                    f"a {topo.world_size}-rank topology (p = {topo.partition_size}, "
+                    f"{topo.replication_degree} replicas) needs the MiCSGroups of that "
+                    f"topology, got {None if groups is None else groups.topo}")
+            if (gather_policy.topology != "flat" and len(topo.partition_axes) == 1
+                    and topo.partition_size > 1):
+                outer, inner = hierarchy_factors(topo, gather_policy.inner)
+                if outer > 1 and inner > 1:
+                    groups.stage_groups(inner)
         self.topo = topo
         self.gather_policy = gather_policy
         self.sync_policy = sync_policy
+        self.groups = groups
+        self.counter = C.CommCounter()
+        self._side: dict = {}
 
     @classmethod
-    def from_config(cls, topo: MiCSTopology, mcfg) -> "CommEngine":
-        return cls(topo, *policies_from_config(mcfg))
+    def from_config(cls, topo: MiCSTopology, mcfg, *, groups=None) -> "CommEngine":
+        return cls(topo, *policies_from_config(mcfg), groups=groups)
 
     @property
     def prefetch(self) -> bool:
@@ -147,13 +161,77 @@ class CommEngine:
     def gather_out_dtype(self) -> torch.dtype:
         return _WIRE_TORCH[self.gather_policy.wire_dtype]
 
+    def describe(self) -> dict:
+        """The static record of the engine's policies and groups."""
+        topo = self.topo
+        outer, inner = (hierarchy_factors(topo, self.gather_policy.inner)
+                        if topo.partition_size > 1 else (1, 1))
+        return {"gather": dataclasses.asdict(self.gather_policy),
+                "sync": dataclasses.asdict(self.sync_policy),
+                "partition_axes": list(topo.partition_axes),
+                "replication_axes": list(topo.replication_axes),
+                "partition_size": topo.partition_size,
+                "replication_degree": topo.replication_degree,
+                "hierarchy": {"outer": outer, "inner": inner},
+                "backend": None if self.groups is None else self.groups.backend}
+
+    # -- the policy's collectives ------------------------------------------
+    def _policy_all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        gp = self.gather_policy
+        return C.partition_all_gather(x, self.topo, self.groups,
+                                      hierarchical=gp.topology != "flat", order=gp.topology,
+                                      inner=gp.inner, counter=self.counter)
+
+    def _policy_reduce_scatter(self, g: torch.Tensor) -> torch.Tensor:
+        gp = self.gather_policy
+        if self.topo.partition_size == 1:
+            return g
+        if gp.topology == "flat":
+            return C.hop1_reduce_scatter(g, self.topo, self.groups, counter=self.counter)
+        return C.hierarchical_reduce_scatter(g, self.topo, self.groups, order=gp.topology,
+                                             inner=gp.inner, counter=self.counter)
+
+    def _adjoint(self, ct: torch.Tensor) -> torch.Tensor:
+        """Hop 1 (§3.4), the staged reduce-scatter in ``ct``'s own dtype, or
+        the Fig-14 ablation's full all-reduce and slice."""
+        if self.sync_policy.mode == "allreduce_slice":
+            return C.alternative_sync(ct, self.topo, self.groups, counter=self.counter)
+        return self._policy_reduce_scatter(ct)
+
+    # -- the gather API ----------------------------------------------------
     def gather_flat(self, row: torch.Tensor) -> torch.Tensor:
         """Gather one layer's flat shard into the full flat buffer, in the
-        wire dtype.  At p = 1 this is the cast (a no-op for the fp32 wire);
-        when ``row`` carries a gradient it runs as :class:`GatherFlat`."""
+        wire dtype; when ``row`` carries a gradient, as :class:`GatherFlat`."""
+        dtype = self.gather_out_dtype()
         if torch.is_grad_enabled() and row.requires_grad:
-            return GatherFlat.apply(row, self.gather_out_dtype())
-        return row.to(self.gather_out_dtype())
+            return GatherFlat.apply(row, self, dtype)
+        return self._policy_all_gather(row.to(dtype))
+
+    def gather_flat_adjoint(self, ct: torch.Tensor) -> torch.Tensor:
+        """The hop-1 adjoint of :meth:`gather_flat`: the full-buffer
+        cotangent in, this rank's fp32 shard cotangent out."""
+        return self._adjoint(ct).to(torch.float32)
+
+    def gather_ahead(self, row: torch.Tensor) -> torch.Tensor:
+        """:meth:`gather_flat` issued ahead of the compute that uses it: at
+        p > 1 on a card, on a side stream (a staged gather's second stage
+        follows its first there), joined to the current stream by an event,
+        the buffer marked as used by the current stream.  Elsewhere the plain
+        gather.  Either way the same bits."""
+        if self.topo.partition_size == 1 or not row.is_cuda:
+            return self.gather_flat(row)
+        cur = torch.cuda.current_stream(row.device)
+        side = self._side.get(row.device)
+        if side is None:
+            side = self._side[row.device] = torch.cuda.Stream(row.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            full = self.gather_flat(row)
+            done = torch.cuda.Event()
+            done.record(side)
+        cur.wait_event(done)
+        full.record_stream(cur)
+        return full
 
     def unflatten(self, pool, full: torch.Tensor) -> dict[str, torch.Tensor]:
         """Rebuild layer tensors as views of the gathered buffer."""
@@ -162,17 +240,29 @@ class CommEngine:
     def gather(self, pool, row: torch.Tensor) -> dict[str, torch.Tensor]:
         return self.unflatten(pool, self.gather_flat(row))
 
-    # -- gradient synchronization ------------------------------------------
-    def hop2_(self, g: torch.Tensor) -> torch.Tensor:
-        """Hop 2 (§3.4): the replication-group all-reduce of ``g`` at the
-        accumulation boundary, in place, as an NCCL all-reduce is.  With
-        one replica it is the identity."""
-        if self.topo.replication_degree != 1:
-            raise NotImplementedError(
-                f"replication degree {self.topo.replication_degree} > 1: hop 2 over "
-                "NCCL process groups comes with the multi-chip collectives slice")
-        return g
+    # -- gradient synchronization --------------------------------------------
+    def hop2_(self, g: torch.Tensor, *, async_op: bool = False):
+        """Hop 2 (§3.4): the replication-group all-reduce of the contiguous
+        ``g`` in place at the accumulation boundary.  Returns ``g``, or with
+        ``async_op`` the work to wait on.  Nothing is issued with one replica
+        or under the Fig-14 ablation (its backward already summed over
+        every data rank)."""
+        if self.sync_policy.mode != "2hop":
+            return C.Work(None) if async_op else g
+        return C.hop2_all_reduce(g, self.topo, self.groups, async_op=async_op,
+                                 counter=self.counter)
+
+    def norm_all_reduce_(self, sq: torch.Tensor) -> torch.Tensor:
+        """The squared gradient norm's sum over the partition group (the
+        reference's psum over the partition and model axes), in place."""
+        if self.topo.partition_size == 1:
+            return sq
+        return C.all_reduce_(sq, self.groups.partition, counter=self.counter)
 
     def partition_coord(self) -> int:
-        """This device's index within its partition group."""
-        return 0
+        """This rank's index within its partition group."""
+        return 0 if self.groups is None else self.groups.partition_coord
+
+    def replica_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over every data rank."""
+        return C.replica_mean(x, self.topo, self.groups, counter=self.counter)

@@ -2,15 +2,17 @@
 the state's initialisation and the training step.
 
 One step is one gradient-accumulation boundary over ``micro_steps``
-micro-steps.  Each micro-step runs the loss forward and backward: every
-layer's flat row is gathered before use (the cast to the wire dtype at
-p = 1), its compute is checkpointed, and the gather's adjoint (hop 1)
-hands each row's gradient back in fp32, where it is added to the fp32
-accumulator in micro-step order (0 + g1 + g2 ...).  At the boundary
+micro-steps.  Each micro-step runs the loss forward and backward on this
+rank's slice of the batch: every layer's flat shard is gathered over the
+partition group before use (the cast to the wire dtype at p = 1), its
+compute is checkpointed, and the gather's adjoint (hop 1) hands each
+shard's gradient back in fp32, where it is added to the fp32 accumulator in
+micro-step order (0 + g1 + g2 ...).  At the boundary
 ``core/schedule.apply_boundary`` runs hop 2, the exact global-norm clip
 and AdamW on the flat fp32 shards.  All collectives belong to one
-``CommEngine``.  Unlike the reference's jitted step, which returns a new
-state, this step updates the state's tensors in place and returns them.
+``CommEngine`` over the process groups of ``launch/mesh.MiCSGroups``.
+Unlike the reference's jitted step, which returns a new state, this step
+updates the state's tensors in place and returns them.
 """
 
 from __future__ import annotations
@@ -60,15 +62,15 @@ class MiCSConfig:
     item it waits for."""
 
     micro_steps: int = 1
-    hierarchical: bool = True           # staged gather (default only: p > 1)
-    gather_order: str = "inner_first"   # (default only: p > 1)
+    hierarchical: bool = True           # staged gather (False: flat)
+    gather_order: str = "inner_first"   # 'inner_first' | 'outer_first'
     gather_dtype: torch.dtype = torch.bfloat16
-    sync_mode: str = "2hop"             # (default only)
-    hierarchy_inner: int | None = None  # (default only: p > 1)
-    compress_hop2: bool | str = False   # hop-2 wire (default only)
+    sync_mode: str = "2hop"             # '2hop' | 'allreduce_slice' (Fig 14)
+    hierarchy_inner: int | None = None  # staged gather's inner factor
+    compress_hop2: bool | str = False   # hop-2 wire (default only: item 4)
     scores_bf16: bool = False           # bf16 attention scores (default only)
-    quant_gather: bool = False          # int8 wire (default only)
-    hop1_wire_dtype: str = "fp32"       # (default only)
+    quant_gather: bool = False          # int8 wire (default only: item 4)
+    hop1_wire_dtype: str = "fp32"       # (default only: Queue 1 item 4)
     prefetch: bool = True               # lookahead gathers
     prefetch_carry: str = "stored"      # (default only)
     policy: str = "manual"              # (default only)
@@ -83,6 +85,8 @@ class MiCSConfig:
         if self.gather_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"gather_dtype must be float32 or bfloat16, "
                              f"got {self.gather_dtype}")
+        if self.gather_order not in ("inner_first", "outer_first"):
+            raise ValueError(f"unknown gather_order {self.gather_order!r}")
         if self.micro_steps < 1:
             raise ValueError(f"micro_steps must be >= 1, got {self.micro_steps}")
         for name, allowed in (("policy", ("manual", "auto")),
@@ -102,36 +106,52 @@ class MiCSConfig:
             raise ValueError(f"hbm_budget_gb must be > 0, got {self.hbm_budget_gb}")
 
 
-def init_params(model: ModelDef, seed: int = 0, *,
-                device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
-    """fp32 flat pools ``{pool: [stack, tp, flat_len]}`` from ``seed``.
+def local_flat_shapes(model: ModelDef, topo: MiCSTopology) -> dict[str, tuple[int, int, int]]:
+    """One rank's pool shapes ``[stack, tp, flat_len / p]`` (the reference's
+    ``P(None, model, partition_axes)``: the last dim cut over the partition
+    group)."""
+    p = topo.partition_size
+    return {name: (stack, tp, flat // p)
+            for name, (stack, tp, flat) in model.global_flat_shapes().items()}
+
+
+def init_params(model: ModelDef, seed: int = 0, *, device: str | torch.device = "cuda",
+                topo: MiCSTopology = MiCSTopology(), rank: int = 0) -> dict[str, torch.Tensor]:
+    """``rank``'s fp32 flat pools ``{pool: [stack, tp, flat_len / p]}`` from
+    ``seed``: chunk ``topo.partition_coord(rank)`` of each full row.
 
     The ``params`` part of the reference's ``init_state`` (no m, v, step):
     each segment is normal(0, std), zeros or ones as its layout says.  Each
-    pool draws from its own ``torch.Generator`` on ``device``, seeded with
-    crc32("<seed>:<pool name>") (32 bits: the CPU generator ignores higher
-    bits), so pools do not depend on each other's sizes.
-    The draws differ from JAX's; ``repro_torch.convert`` carries JAX weights
-    over where equal values are needed.
+    pool draws its full rows, one at a time, from its own
+    ``torch.Generator`` on ``device``, seeded with crc32("<seed>:<pool
+    name>") (32 bits: the CPU generator ignores higher bits), so pools do not
+    depend on each other's sizes and the state is a function of ``(model,
+    seed)``, not of the topology.  The draws differ from JAX's;
+    ``repro_torch.convert`` carries JAX weights over where equal values are
+    needed.
     """
     dev = resolve_device(device)
+    shapes = local_flat_shapes(model, topo)
     params = {}
     for pool in model.all_pools():
         gen = torch.Generator(device=dev)
         gen.manual_seed(zlib.crc32(f"{seed}:{pool.name}".encode()))
-        rows = torch.empty((pool.stack, model.tp, pool.layout.flat_len),
-                           dtype=torch.float32, device=dev)
-        for i in range(pool.stack):
-            for j in range(model.tp):
-                rows[i, j] = pool.layout.init_flat(gen, device=dev)
+        stack, tp, shard = shapes[pool.name]
+        lo = topo.partition_coord(rank) * shard
+        rows = torch.empty((stack, tp, shard), dtype=torch.float32, device=dev)
+        for i in range(stack):
+            for j in range(tp):
+                rows[i, j] = pool.layout.init_flat(gen, device=dev)[lo:lo + shard]
         params[pool.name] = rows
     return params
 
 
-def init_state(model: ModelDef, seed: int = 0, *, device: str | torch.device = "cuda"):
-    """``{"params", "m", "v", "step"}``: params from :func:`init_params`,
-    zero m and v (fp32 flat pools like the params), step 0."""
-    params = init_params(model, seed, device=device)
+def init_state(model: ModelDef, seed: int = 0, *, device: str | torch.device = "cuda",
+               topo: MiCSTopology = MiCSTopology(), rank: int = 0):
+    """``{"params", "m", "v", "step"}``: ``rank``'s params from
+    :func:`init_params`, zero m and v (fp32 flat shards like the params),
+    step 0."""
+    params = init_params(model, seed, device=device, topo=topo, rank=rank)
     return {"params": params,
             "m": {k: torch.zeros_like(p) for k, p in params.items()},
             "v": {k: torch.zeros_like(p) for k, p in params.items()},
@@ -155,16 +175,15 @@ def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology, family: str = "dense",
                 "the port trains with the default")
     if mcfg.scores_bf16:
         raise NotImplementedError("bf16 attention scores: the kernels keep fp32 scores")
-    if topo.data_parallel_size != 1 or topo.model_size != 1:
+    if topo.model_size != 1:
         raise NotImplementedError(
-            f"data parallel {topo.data_parallel_size}, tp {topo.model_size}: more than one "
-            "card comes with the multi-chip collectives slice (ROADMAP Queue 1 item 2, "
-            "multi-rank MiCS collectives)")
+            f"tp {topo.model_size}: tensor parallelism waits for ROADMAP Queue 1 item 2's "
+            "second half (the model_gather segments)")
 
 
-def _check_state(model: ModelDef, state: dict, dev: torch.device) -> None:
+def _check_state(model: ModelDef, topo: MiCSTopology, state: dict, dev: torch.device) -> None:
     for part in ("params", "m", "v"):
-        for name, shape in model.global_flat_shapes().items():
+        for name, shape in local_flat_shapes(model, topo).items():
             t = state[part][name]
             if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device.type != dev.type:
                 raise ValueError(f"state[{part!r}][{name!r}]: want fp32 {shape} on {dev}, "
@@ -172,17 +191,20 @@ def _check_state(model: ModelDef, state: dict, dev: torch.device) -> None:
 
 
 def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
-                     *, device: str | torch.device = "cuda"):
+                     *, device: str | torch.device = "cuda", groups=None):
     """Returns ``step_fn(state, batch) -> (state, metrics)`` on ``device``.
 
-    ``batch``: tokens / targets / mask ``[micro_steps, b, T]`` (numpy or
-    tensors).  ``metrics``: fp32 0-dim tensors ``loss`` and ``aux`` (means
-    over the micro-steps) and ``grad_norm`` (before the clip).  The state's
-    params, m and v are updated in place; the returned state holds them and
-    ``step + 1``."""
+    ``state``: this rank's shards (:func:`init_state`); ``batch``: this
+    rank's slice, tokens / targets / mask ``[micro_steps, b, T]`` (numpy or
+    tensors).  ``groups``: the ``launch.mesh.MiCSGroups`` of ``topo``,
+    needed at p > 1 or with more than one replica (``ValueError`` without).
+    ``metrics``: fp32 0-dim tensors ``loss`` and ``aux`` (means over the
+    micro-steps and the data ranks) and ``grad_norm`` (before the clip).  The
+    state's params, m and v are updated in place; the returned state holds
+    them and ``step + 1``.  ``step_fn.comm`` is the step's ``CommEngine``."""
     dev = resolve_device(device)
     refuse_unported(mcfg, topo, model.cfg.family, dev)
-    comm = CommEngine.from_config(topo, mcfg)
+    comm = CommEngine.from_config(topo, mcfg, groups=groups)
     boundary = plan_boundary(model, topo, mode=mcfg.boundary_schedule,
                              bucket_mb=mcfg.hop2_bucket_mb, clip_mode=mcfg.clip_mode)
     ctx = L.Ctx(mode="train", tp=topo.model_size, compute_dtype=mcfg.gather_dtype)
@@ -190,7 +212,7 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
     denom = float(s * topo.data_parallel_size)
 
     def step_fn(state, batch):
-        _check_state(model, state, dev)
+        _check_state(model, topo, state, dev)
         batch = {k: torch.as_tensor(batch[k]).to(dev) for k in ("tokens", "targets", "mask")}
         if batch["tokens"].shape[0] != s:
             raise ValueError(f"batch has {batch['tokens'].shape[0]} micro-steps, "
@@ -198,9 +220,11 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
         grads, loss_sum, aux_sum = accumulate_grads(model, comm, ctx, state["params"], batch)
         new_p, new_m, new_v, gnorm = apply_boundary(boundary, comm, model, topo, oc, state,
                                                      grads, denom)
-        metrics = {"loss": loss_sum / s, "aux": aux_sum / s, "grad_norm": gnorm}
+        means = comm.replica_mean(torch.stack([loss_sum / s, aux_sum / s]).detach())
+        metrics = {"loss": means[0], "aux": means[1], "grad_norm": gnorm}
         return {"params": new_p, "m": new_m, "v": new_v, "step": state["step"] + 1}, metrics
 
+    step_fn.comm = comm   # its counter is the run's census of collectives
     return step_fn
 
 

@@ -7,14 +7,16 @@ accumulation boundary).  :func:`plan_boundary` cuts each pool's flat
 gradient into fixed-byte buckets in one canonical order (pools in
 ``model.all_pools()`` order, offsets ascending).  The ``serial`` schedule
 runs hop 2 on whole pools, then the norm; the ``bucketed`` one issues
-bucket k's hop 2 before bucket k-1's squared-norm partial, so that on
-several replicas the collective overlaps the compute.  Hop 2 is
-elementwise, so a bucket of the reduced buffer is the reduction of the
-bucket.
+bucket k's hop 2 asynchronously, then waits on bucket k-1's and takes its
+squared-norm partial, so that the collective overlaps the compute.  Every
+rank issues every bucket, in the plan's order.  Hop 2 is elementwise, so a
+bucket of the reduced buffer is the reduction of the bucket (bitwise for
+two replicas, whose sum does not depend on order).
 
 Both schedules fold the squared-norm partials in the plan's order, each
 the sum of a freshly written square of a contiguous tensor of the bucket's
-length, so they are bitwise equal at every bucket size; the denominator
+length, then sum the fold over the partition group in one fp32
+all-reduce, so they are bitwise equal at every bucket size; the denominator
 (``micro_steps * data_parallel``) and the clip factor are folded into one
 ``grad_scale`` of the AdamW update.  The approximate clip and the
 host-offloaded optimizer states are refused (``core/mics.py``).  The
@@ -124,16 +126,19 @@ def _reduce_serial(plan: BoundaryPlan, comm, flat_grads: dict):
 
 
 def _reduce_bucketed(plan: BoundaryPlan, comm, flat_grads: dict):
-    """Software pipeline: issue bucket k's hop 2, then bucket k-1's
-    squared-norm partial; the drain takes the last bucket."""
+    """Software pipeline: issue bucket k's hop 2, then wait on bucket k-1's
+    and take its squared-norm partial; the drain takes the last bucket."""
     sq_parts, pending = [], None
     for ref in plan.buckets:
-        in_flight = comm.hop2_(flat_grads[ref.pool][ref.lo:ref.hi])
+        bucket = flat_grads[ref.pool][ref.lo:ref.hi]
+        work = comm.hop2_(bucket, async_op=True)
         if pending is not None:
-            sq_parts.append(_sq(pending))
-        pending = in_flight
+            pending[0].wait()
+            sq_parts.append(_sq(pending[1]))
+        pending = (work, bucket)
     if pending is not None:
-        sq_parts.append(_sq(pending))
+        pending[0].wait()
+        sq_parts.append(_sq(pending[1]))
     return sq_parts
 
 
@@ -175,7 +180,7 @@ def apply_boundary(plan: BoundaryPlan, comm, model, topo: MiCSTopology, oc: OptC
     sq = torch.zeros((), dtype=torch.float32, device=device)
     for part in sq_parts:               # fixed left fold, canonical order
         sq = sq + part
-    # (the psum over the partition and model axes is the identity at p = tp = 1)
+    sq = comm.norm_all_reduce_(sq)      # the psum over the partition group
     gnorm = torch.sqrt(sq) / denom
     clip = torch.clamp_max(oc.clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
     grad_scale = clip / denom

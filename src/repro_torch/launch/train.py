@@ -4,28 +4,39 @@
       --global-batch 8 --seq 2048 --micro-steps 2 --steps 4     # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
       --smoke --device cpu --steps 4                           # plain path, CPU
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch llama3.2-1b --smoke --device cpu --dist-backend gloo \
+      --partition-size 4 --gather-order outer_first --steps 4  # 4 ranks
 
 Weights are random, made from ``--seed``; the data is the seeded synthetic
 stream.  The flags are the reference's (``repro/launch/train.py``) plus
-``--device``.  A setting the port does not run yet (``--policy auto``,
-``--quant-gather``, a hop-1 wire other than fp32, ``--no-hierarchical``,
-``--gather-order outer_first``, ``--prefetch-carry remat``,
-``--carry-offload host``, ``--offload-opt``, ``--clip-mode approx``,
-``--hbm-budget-gb``) raises ``NotImplementedError``.  The reference's
-memory-plan and autotune printouts wait for those modules.
+``--device``, ``--dist-backend`` (``nccl``: one card a rank; ``gloo``:
+anywhere, CUDA tensors through pinned host buffers; required when
+``WORLD_SIZE`` > 1) and ``--dist-timeout-s``.  Under ``torchrun`` the world
+is laid out as ``(repl, shard = --partition-size)``, or as ZeRO-3 with
+``--zero3``.  A setting the port does not run yet (``--policy auto``,
+``--quant-gather``, a hop-1 wire other than fp32, ``--prefetch-carry
+remat``, ``--carry-offload host``, ``--offload-opt``, ``--clip-mode
+approx``, ``--hbm-budget-gb``) raises ``NotImplementedError``.  The
+reference's memory-plan and autotune printouts wait for those modules.
+Only rank 0 prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import logging
+import os
+
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.mics import MiCSConfig
 from repro_torch.core.schedule import plan_boundary
-from repro_torch.core.topology import MiCSTopology
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import BACKENDS, MiCSGroups, init_distributed, make_mics_topology
 from repro_torch.models.build import build_model
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.runtime.train_loop import LoopConfig, train
@@ -60,18 +71,41 @@ def main(argv=None):
     ap.add_argument("--hbm-budget-gb", type=float, default=0)
     ap.add_argument("--boundary-schedule", default="bucketed", choices=["serial", "bucketed"])
     ap.add_argument("--hop2-bucket-mb", type=float, default=32.0)
+    ap.add_argument("--partition-size", type=int, default=None,
+                    help="p (default: the paper's heuristic, the smallest group that holds "
+                         "one replica of the model states)")
+    ap.add_argument("--zero3", action="store_true",
+                    help="the ZeRO-3 baseline: partition over every data rank")
+    ap.add_argument("--hierarchy-inner", type=int, default=None,
+                    help="inner factor of the staged gather (default: largest power of two "
+                         "<= sqrt(p))")
+    ap.add_argument("--dist-backend", choices=BACKENDS, default=None,
+                    help="collectives backend, required when WORLD_SIZE > 1")
+    ap.add_argument("--dist-timeout-s", type=float, default=600.0)
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    groups, rank = None, 0
+    if world > 1:
+        if args.dist_backend is None:
+            ap.error(f"WORLD_SIZE={world}: --dist-backend nccl or gloo is required")
+        rank, world = init_distributed(
+            args.dist_backend, timeout=datetime.timedelta(seconds=args.dist_timeout_s))
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
-    topo = MiCSTopology()
+    p = args.partition_size if args.partition_size is not None or world > 1 else 1
+    topo = make_mics_topology(world, p, zero3=args.zero3, param_count=cfg.param_count())
+    if world > 1:
+        groups = MiCSGroups(topo, rank, backend=args.dist_backend, inner=args.hierarchy_inner,
+                            timeout=datetime.timedelta(seconds=args.dist_timeout_s))
     model = build_model(cfg, tp=topo.model_size)
     mcfg = MiCSConfig(micro_steps=args.micro_steps,
                       hierarchical=not args.no_hierarchical,
                       gather_order=args.gather_order,
+                      hierarchy_inner=args.hierarchy_inner,
                       quant_gather=args.quant_gather,
                       hop1_wire_dtype=args.hop1_wire_dtype,
                       prefetch=bool(args.prefetch),
@@ -85,19 +119,27 @@ def main(argv=None):
                       hbm_budget_gb=args.hbm_budget_gb or None)
     bplan = plan_boundary(model, topo, mode=mcfg.boundary_schedule,
                           bucket_mb=mcfg.hop2_bucket_mb, clip_mode=mcfg.clip_mode)
-    print(f"boundary: {mcfg.boundary_schedule} x {bplan.n_buckets} buckets "
-          f"({mcfg.hop2_bucket_mb:g} MB, clip={bplan.clip_mode})")
+    say = print if rank == 0 else (lambda *a: None)
+    if world > 1:
+        say(f"ranks: {world} over {args.dist_backend}, p={topo.partition_size} "
+            f"({'ZeRO-3 ' if args.zero3 else ''}partition axes {list(topo.partition_axes)}), "
+            f"{topo.replication_degree} replica(s), gather "
+            f"{'flat' if args.no_hierarchical else args.gather_order}")
+    say(f"boundary: {mcfg.boundary_schedule} x {bplan.n_buckets} buckets "
+        f"({mcfg.hop2_bucket_mb:g} MB, clip={bplan.clip_mode})")
     oc = OptConfig(lr_max=args.lr, total_steps=args.steps,
                    warmup_steps=max(args.steps // 20, 1))
     dc = DataConfig(vocab=cfg.vocab, seq=args.seq, global_batch=args.global_batch,
                     micro_steps=args.micro_steps)
     lc = LoopConfig(total_steps=args.steps, checkpoint_every=args.checkpoint_every,
                     checkpoint_dir=args.checkpoint_dir, seed=args.seed)
-    stats = train(model, topo, mcfg, oc, dc, lc, device=dev)
+    stats = train(model, topo, mcfg, oc, dc, lc, device=dev, groups=groups)
     if stats.losses:
-        print(f"final loss {stats.losses[-1]:.4f} over {len(stats.losses)} steps on {dev}")
+        say(f"final loss {stats.losses[-1]:.4f} over {len(stats.losses)} steps on {dev}")
     else:
-        print(f"no steps to run: the checkpoint is at step {args.steps} already")
+        say(f"no steps to run: the checkpoint is at step {args.steps} already")
+    if world > 1:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -68,7 +68,8 @@ def attn_out(t, attn: torch.Tensor, ad: AttnDims, ctx: L.Ctx, prefix: str, *, bi
         attn = attn * hmask.reshape(1, 1, ad.hkv_local, ad.q_per_kv_local, 1).to(attn.dtype)
     out = attn.reshape(bsz, tq, ad.q_cols_local) @ t[prefix + "wo"]
     if ctx.tp != 1:
-        raise NotImplementedError("tensor parallelism comes with the multi-chip slice")
+        raise NotImplementedError(
+            "tensor parallelism (tp > 1) waits for ROADMAP Queue 1 item 2")
     if bias:
         out = out + t[prefix + "bo"].to(out.dtype)
     return out
@@ -167,7 +168,8 @@ def mlp_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = "mlp.")
 
 def mlp_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, prefix: str = "mlp."):
     if ctx.tp != 1:
-        raise NotImplementedError("tensor parallelism comes with the multi-chip slice")
+        raise NotImplementedError(
+            "tensor parallelism (tp > 1) waits for ROADMAP Queue 1 item 2")
     if cfg.mlp == "swiglu":
         return L.mlp_swiglu(x, t[prefix + "wg"], t[prefix + "wu"], t[prefix + "wd"])
     if cfg.mlp == "geglu":

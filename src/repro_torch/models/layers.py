@@ -89,7 +89,8 @@ def mlp_geglu(x, wg, wu, wd):
 def embed_lookup(table_local: torch.Tensor, ids: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     """table_local: [vocab, d/tp] -> [b, t, d] (tp = 1 only in this slice)."""
     if ctx.tp != 1:
-        raise NotImplementedError("tensor parallelism comes with the multi-chip slice")
+        raise NotImplementedError(
+            "tensor parallelism (tp > 1) waits for ROADMAP Queue 1 item 2")
     return F.embedding(ids, table_local)
 
 
@@ -139,7 +140,8 @@ def tp_cross_entropy(logits_local: torch.Tensor, targets: torch.Tensor, mask: to
     tokens (``repro/models/layers.py::tp_cross_entropy`` at tp = 1).
     logits [b, t, V], targets [b, t] int, mask [b, t] fp32."""
     if ctx.tp != 1:
-        raise NotImplementedError("tensor parallelism comes with the multi-chip slice")
+        raise NotImplementedError(
+            "tensor parallelism (tp > 1) waits for ROADMAP Queue 1 item 2")
     if logits_local.shape[-1] != vocab_padded:
         raise ValueError(f"logits have {logits_local.shape[-1]} columns, want {vocab_padded}")
     return _CrossEntropy.apply(logits_local, targets.long(), mask.float(), vocab_real)
@@ -150,5 +152,6 @@ def local_head_mask(hq: int, hq_pad: int, hq_local: int, ctx: Ctx) -> torch.Tens
     if hq == hq_pad:
         return torch.ones(hq_local, dtype=torch.float32)
     if ctx.tp != 1:
-        raise NotImplementedError("tensor parallelism comes with the multi-chip slice")
+        raise NotImplementedError(
+            "tensor parallelism (tp > 1) waits for ROADMAP Queue 1 item 2")
     return (torch.arange(hq_local) < hq).float()

@@ -12,10 +12,10 @@ a list of ``[S]`` rows that each carry a gradient.
 Two schedules (``CommEngine.prefetch`` selects):
 
 * **serial** — gather layer i, compute layer i;
-* **prefetch** — layer i+1's ``gather_flat`` is issued before layer i's
-  compute, in plain program order on the current stream.  A side stream
-  that overlaps it with the compute comes with the multi-chip collectives
-  slice.  The same gathers run on the same rows and the same compute in
+* **prefetch** — layer i+1's gather is issued before layer i's compute
+  (``CommEngine.gather_ahead``: at p > 1 on a card, on a side stream that
+  the compute stream waits on through an event; elsewhere in program
+  order).  The same gathers run on the same rows and the same compute in
   the same order, so the two schedules give bitwise-equal results.
 
 In train mode each layer's compute runs under activation checkpointing
@@ -161,9 +161,9 @@ def _apply_pool_prefetch(pool, flat_rows, x, ctx, comm, caches):
     unflatten + compute run under a checkpoint whose saved input is the
     gathered buffer (the stored carry)."""
     aux_tot, new = 0.0, []
-    cur = comm.gather_flat(_row(flat_rows, 0))
+    cur = comm.gather_ahead(_row(flat_rows, 0))
     for i in range(pool.stack):
-        nxt = comm.gather_flat(_row(flat_rows, i + 1)) if i + 1 < pool.stack else None
+        nxt = comm.gather_ahead(_row(flat_rows, i + 1)) if i + 1 < pool.stack else None
         if ctx.mode == "train":
             x, aux = _checkpointed(functools.partial(_layer_from_full, pool, comm, ctx), x, cur)
             nc = None
@@ -253,7 +253,8 @@ def init_caches(model: ModelDef, batch: int, cache_len: int, *,
 def greedy_sample(logits_local: torch.Tensor, ctx: L.Ctx, vocab_real: int) -> torch.Tensor:
     """Argmax over the logits' last dim, padded vocab columns masked."""
     if ctx.tp != 1:
-        raise NotImplementedError("tensor parallelism comes with the multi-chip slice")
+        raise NotImplementedError(
+            "tensor parallelism (tp > 1) waits for ROADMAP Queue 1 item 2")
     vl = logits_local.shape[-1]
     lg = logits_local.float()
     col = torch.arange(vl, device=lg.device)

@@ -100,7 +100,8 @@ def griffin_rec_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, cache=None, prefix: str
     IN PLACE into ``cache``'s tensors (JAX returns new arrays) and returns
     the same dict; prefill returns a fresh {conv (bf16), h (fp32)}."""
     if ctx.tp != 1:
-        raise NotImplementedError("tensor parallelism comes with the multi-chip slice")
+        raise NotImplementedError(
+            "tensor parallelism (tp > 1) waits for ROADMAP Queue 1 item 2")
     tt = strip_prefix(t, prefix)
     h = apply_norm(cfg, tt, x, "ln1")
     xa = h @ tt["rec.wx"]

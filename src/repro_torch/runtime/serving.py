@@ -4,7 +4,8 @@ of ``repro/runtime/serving.py``'s ``build_serve_steps`` and
 
 Inference uses the same flat-pool parameter gathering as training: every
 step re-gathers every layer through the ``CommEngine`` (at p = 1 on one
-card, the cast of each fp32 row to the wire dtype).
+card, the cast of each fp32 row to the wire dtype).  Serving over more than
+one rank is refused (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -60,6 +61,11 @@ def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
     continuous-batching slice.
     """
     dev = resolve_device(device)
+    if topo.world_size > 1:
+        raise NotImplementedError(
+            f"serving over {topo.world_size} ranks (p = {topo.partition_size}, "
+            f"{topo.replication_degree} replicas) waits for ROADMAP Queue 1 item 6, the "
+            "serving engine; the port serves on one card")
     if mcfg.scores_bf16:
         raise NotImplementedError("bf16 attention scores: the kernel keeps fp32 scores")
     comm = CommEngine.from_config(topo, mcfg)

@@ -8,6 +8,12 @@ skipped) or starts from ``init_state(seed)``, runs the step function to
 in a device synchronise, flags stragglers against an EWMA of the step
 time, saves every ``checkpoint_every`` steps and once at the end.
 
+Over several ranks (``groups``, a ``launch.mesh.MiCSGroups``) each rank
+holds its shards of the state, takes its slice of each step's global batch
+(``SyntheticLM.host_step_batch(cursor, data_rank, dp)``, so the global
+batch does not depend on the topology) and writes its own shards; only
+rank 0 logs.
+
 Rollback-and-retry on faults, ``ElasticConfig`` world changes and
 straggler eviction come with the elastic slice (ROADMAP Queue 1 item 5, the
 elastic and fault-tolerant loop): until then a failing step raises.
@@ -49,29 +55,34 @@ class LoopStats:
     straggler_steps: list
     grad_norms: list = dataclasses.field(default_factory=list)
     save_times: list = dataclasses.field(default_factory=list)   # seconds of each save
+    comm: dict = dataclasses.field(default_factory=dict)  # the CommEngine's counter
 
 
 def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
-          dc: DataConfig, lc: LoopConfig, *, device: str | torch.device = "cuda") -> LoopStats:
+          dc: DataConfig, lc: LoopConfig, *, device: str | torch.device = "cuda",
+          groups=None) -> LoopStats:
     dev = resolve_device(device)
+    rank = 0 if groups is None else groups.rank
     ckpt = Checkpointer(lc.checkpoint_dir)
     source = SyntheticLM(dc)
     stats = LoopStats([], [], [])
-    step_fn = build_train_step(model, topo, mcfg, oc, device=dev)
+    step_fn = build_train_step(model, topo, mcfg, oc, device=dev, groups=groups)
+    data_rank, dp = topo.data_rank(rank), topo.data_parallel_size
+    info = log.info if rank == 0 else (lambda *a: None)
 
     start = ckpt.latest_step()
     if start is not None:
-        state, meta = ckpt.restore(model, topo=topo, device=dev)
+        state, meta = ckpt.restore(model, topo=topo, rank=rank, device=dev)
         cursor = meta["data_cursor"]
-        log.info("resumed from step %d", start)
+        info("resumed from step %d", start)
     else:
-        state = init_state(model, lc.seed, device=dev)
+        state = init_state(model, lc.seed, device=dev, topo=topo, rank=rank)
         cursor = 0
 
     ewma = None
     step = state["step"]
     while step < lc.total_steps:
-        batch = source.global_step_batch(cursor)
+        batch = source.host_step_batch(cursor, data_rank, dp)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         if dev.type == "cuda":
@@ -84,21 +95,24 @@ def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
             ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
         if ewma is not None and dt > lc.straggler_factor * ewma and len(stats.step_times) > 3:
             stats.straggler_steps.append(step)
-            log.warning("straggler: step %d took %.2fs (ewma %.2fs)", step, dt, ewma)
+            if rank == 0:
+                log.warning("straggler: step %d took %.2fs (ewma %.2fs)", step, dt, ewma)
         stats.losses.append(loss)
         stats.grad_norms.append(float(metrics["grad_norm"]))
         stats.step_times.append(dt)
         cursor += 1
         step += 1
         if lc.log_every and step % lc.log_every == 0:
-            log.info("step %d loss %.4f (%.3fs)", step, loss, dt)
+            info("step %d loss %.4f (%.3fs)", step, loss, dt)
         if lc.checkpoint_every and step % lc.checkpoint_every == 0:
-            _save(ckpt, stats, state, step, topo, cursor)
-    _save(ckpt, stats, state, step, topo, cursor)
+            _save(ckpt, stats, state, step, topo, cursor, groups)
+    _save(ckpt, stats, state, step, topo, cursor, groups)
+    stats.comm = step_fn.comm.counter.snapshot()
     return stats
 
 
-def _save(ckpt: Checkpointer, stats: LoopStats, state, step: int, topo, cursor: int) -> None:
+def _save(ckpt: Checkpointer, stats: LoopStats, state, step: int, topo, cursor: int,
+          groups) -> None:
     t0 = time.perf_counter()
-    ckpt.save(state, step, topo=topo, data_cursor=cursor)
+    ckpt.save(state, step, topo=topo, data_cursor=cursor, groups=groups)
     stats.save_times.append(time.perf_counter() - t0)

@@ -54,7 +54,8 @@ def test_import_all_modules_leaves_no_jax():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["n"] >= 19 and res["bad"] == []
     for m in ("repro_torch.models.recurrent", "repro_torch.kernels.rglru",
-              "repro_torch.kernels.rglru.kernel", "repro_torch.configs.recurrentgemma_2b"):
+              "repro_torch.kernels.rglru.kernel", "repro_torch.configs.recurrentgemma_2b",
+              "repro_torch.core.collectives", "repro_torch.launch.mesh"):
         assert m in mods
 
 
@@ -82,17 +83,27 @@ def test_later_slices_raise():
     from repro_torch.core.mics import MiCSConfig
     from repro_torch.core.topology import MiCSTopology
     from repro_torch.models.build import build_model
+    from repro_torch.runtime.serving import build_serve_steps
 
-    with pytest.raises(NotImplementedError):
+    # p > 1 runs over the process groups of its topology, and refuses to
+    # build without them
+    with pytest.raises(ValueError, match="MiCSGroups"):
         CommEngine(MiCSTopology(shard=4))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         CommEngine(MiCSTopology(), GatherPolicy(wire_dtype="int8"))
-    # The staged gather order only shapes a p > 1 gather: a setting other than
-    # the default raises instead of running the default program.
-    for staged in (dict(hierarchical=False), dict(gather_order="outer_first"),
-                   dict(hierarchy_inner=2)):
-        with pytest.raises(NotImplementedError, match="staged gather"):
-            CommEngine.from_config(MiCSTopology(), MiCSConfig(**staged))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        CommEngine(MiCSTopology(model=2))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        CommEngine.from_config(MiCSTopology(), MiCSConfig(hop1_wire_dtype="bf16"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        build_serve_steps(build_model(get_config("llama3.2-1b"), tp=1),
+                          MiCSTopology(repl=2, shard=2), MiCSConfig(), 24, device="cpu")
+    # The staged settings build engines whose policy is the config's.
+    for staged, (topology, inner) in ((dict(hierarchical=False), ("flat", None)),
+                                      (dict(gather_order="outer_first"), ("outer_first", None)),
+                                      (dict(hierarchy_inner=2), ("inner_first", 2))):
+        gp = CommEngine.from_config(MiCSTopology(), MiCSConfig(**staged)).gather_policy
+        assert (gp.topology, gp.inner) == (topology, inner)
     assert CommEngine.from_config(MiCSTopology(), MiCSConfig()).gather_policy == GatherPolicy()
     xlstm = ArchConfig(name="x", family="xlstm", n_layers=2, d_model=64, n_heads=4,
                        n_kv_heads=4, d_ff=128, vocab=256)

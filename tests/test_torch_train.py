@@ -205,16 +205,28 @@ REFUSED = {
     "hop1_int8": dict(hop1_wire_dtype="int8"),
     "compress_hop2": dict(compress_hop2=True),
     "hop2_int8": dict(compress_hop2="int8"),
-    "sync_mode": dict(sync_mode="allreduce_slice"),
     "quant_gather": dict(quant_gather=True),
-    "no_hierarchical": dict(hierarchical=False),
-    "outer_first": dict(gather_order="outer_first"),
     "scores_bf16": dict(scores_bf16=True),
+}
+# Knobs the multi-rank collectives slice lifted (ROADMAP Queue 1 item 2):
+# they keep their ids below and now build a step whose engine carries them
+# (the gather topology and the sync mode; at p = 1 they move nothing).
+LIFTED = {
+    "sync_mode": (dict(sync_mode="allreduce_slice"), "sync", "mode", "allreduce_slice"),
+    "no_hierarchical": (dict(hierarchical=False), "gather", "topology", "flat"),
+    "outer_first": (dict(gather_order="outer_first"), "gather", "topology", "outer_first"),
 }
 
 
-@pytest.mark.parametrize("knob", list(REFUSED))
+@pytest.mark.parametrize("knob", list(REFUSED) + list(LIFTED))
 def test_refused_knob_raises(setup, knob):
+    if knob in LIFTED:
+        kw, policy, field, value = LIFTED[knob]
+        assert callable(build_train_step(setup[0], MiCSTopology(), MiCSConfig(**kw),
+                                         OptConfig(), device="cpu"))
+        desc = CommEngine.from_config(MiCSTopology(), MiCSConfig(**kw)).describe()
+        assert desc[policy][field] == value
+        return
     with pytest.raises(NotImplementedError):
         build_train_step(setup[0], MiCSTopology(), MiCSConfig(**REFUSED[knob]), OptConfig(),
                          device="cpu")
@@ -222,7 +234,14 @@ def test_refused_knob_raises(setup, knob):
 
 @pytest.mark.parametrize("topo", [dict(repl=2), dict(shard=2), dict(model=2)])
 def test_more_than_one_card_raises(setup, topo):
-    with pytest.raises(NotImplementedError):
+    """tp > 1 is still refused; more than one data rank needs the process
+    groups of its topology (``launch.mesh.MiCSGroups``)."""
+    if topo.get("model", 1) > 1:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+            build_train_step(setup[0], MiCSTopology(**topo), MiCSConfig(), OptConfig(),
+                             device="cpu")
+        return
+    with pytest.raises(ValueError, match="MiCSGroups"):
         build_train_step(setup[0], MiCSTopology(**topo), MiCSConfig(), OptConfig(), device="cpu")
 
 
