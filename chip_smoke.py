@@ -72,13 +72,13 @@ script exits non-zero; no phase swallows an error):
    whose port kernel events fall short of the wrapper calls the launch
    counters show for it is taken again once, and marked ``events_short``
    if it is still short.
-3b. ``dist_train``: llama3.2-1b over 4 ranks, each a process of this
+3b. ``dist_train``: 4 ranks, each a process of this
    script (``--dist-worker``) started with ``torchrun``'s variables, through
    ``launch/mesh.init_distributed`` / ``MiCSGroups`` and
    ``runtime/train_loop.train``, the ``train`` phase's data, seed, global
-   batch (2 micro-steps x 4 ranks x 1 x 2048) and OptConfig, prefetch,
-   bucketed boundary, 3 steps, then each rank's checkpoint shards (written,
-   timed and removed).  With fewer than 4 cards the ranks share card 0 and
+   batch (llama: 2 micro-steps x 4 ranks x 1 x 2048) and OptConfig, prefetch,
+   bucketed boundary, 3 steps (C: 2), then each rank's checkpoint shards
+   (written, timed and removed).  With fewer than 4 cards the ranks share card 0 and
    the collectives run over gloo through pinned host buffers (NCCL refuses
    two ranks on one card): a correctness rehearsal, not a MiCS speed; with
    4 or more cards, over NCCL, one card a rank.  Layout A: p 4, the paper's
@@ -86,10 +86,17 @@ script exits non-zero; no phase swallows an error):
    norms against the ``train`` phase's steps 1-3 (step 1: loss 2e-3, grad
    norm 2e-2 relative; steps 2-3: 2%).  Layout B: p 2 x 2 replicas (hop 2
    and the bucketed boundary across replicas) at 4 layers, against a
-   one-card run of that model.  Every rank's ``CommEngine`` counts must be
+   one-card run of that model.  Tensor parallelism: layout C, llama3.2-1b
+   at full depth over p 2 x tp 2, 2 steps, against the ``train`` phase as
+   A; layout D, recurrentgemma-2b cut to one (rec, rec, attn) super-layer over tp 4
+   (the griffin path's 4 micro-steps x 2 x 2048 on every rank), against a
+   one-card run of that model; both start from their model's weights at tp
+   1 cut by ``convert.tp_params_from_full`` (the loop resumes from a step-0
+   checkpoint of them).  Every rank's ``CommEngine`` counts must be
    the layout's (``dist_expected_calls``) and its kernel launches the train
-   path's a micro-step x 2 x 3 (attention on ``mma``, its backward on
-   ``wgmma``, RMSNorm's backward on ``regs``); on layout A one gather of the
+   path's a micro-step x micro-steps x steps (attention on ``mma``, its
+   backward on the path's route, RMSNorm's backward on the path's, the RG-LRU
+   gated); on layout A one gather of the
    embedding row under ``flat``, ``inner_first`` and ``outer_first`` must
    give bitwise the same buffer, the full row.  It prints the device count,
    the backend, the ranks a card, each rank's ``step_ms``, host seconds in
@@ -111,7 +118,10 @@ script exits non-zero; no phase swallows an error):
    output.  The train paths' forward shapes are checked too: RMSNorm at
    each path's token rows, the gated RG-LRU at recurrentgemma's train
    micro-batch, and flash attention's output and log-sum-exp (as the train
-   path's forward writes them) at each backward check's shape.  The
+   path's forward writes them) at each backward check's shape; and a rank's
+   shapes in ``dist_train``'s layouts C and D (llama at tp 2: 4 KV heads of
+   g 4; recurrentgemma at tp 4: one KV head of g 3 at dh 256, the RG-LRU at
+   640 channels), forward and backward.  The
    backward kernels run at the train shapes and at each
    route's edges, each check naming its route and showing that the call
    took it: RMSNorm's ``regs`` route (bf16 rows held in registers) and
@@ -883,81 +893,135 @@ def train_profile(path: TrainPath, dev, timed_steps: int = 3):
 # -- the multi-rank MiCS step ------------------------------------------------
 
 DIST_WORLD = 4
-DIST_STEPS = 3
 DIST_TIMEOUT_S = 600          # every process group's; the workers' whole run below
 
 
 @dataclasses.dataclass(frozen=True)
 class DistLayout:
     name: str
+    arch: str
     repl: int
     shard: int
+    tp: int
     gather_order: str
     inner: int | None
     layers: int | None       # None: full depth; else cut to this many layers
+    steps: int = 3
 
 
 # Layout A: one partition group of 4, the paper's three-stage gather
 # (outer_first, inner 2); layout B: 2 partition groups of 2 (the staged
 # gather degenerates to one flat gather at p = 2) x 2 replicas, so hop 2
-# and the bucketed boundary run across replicas.
-DIST_LAYOUTS = (DistLayout("A", 1, 4, "outer_first", 2, None),
-                DistLayout("B", 2, 2, "inner_first", None, 4))
-# Layout A against the single-card ``train`` phase (the same weights, data
-# and global batch): step 1's loss and grad_norm (both sides round to bf16,
-# hop 1 sums in bf16 over the ranks), then steps 2-3 at the reference's
-# ``mics_fidelity`` rtol.  Layout B against a one-card run of its cut model.
+# and the bucketed boundary run across replicas.  Layout C: llama at full
+# depth over p 2 x tp 2 (the flat gather at p 2 under tensor parallelism:
+# GQA at kv_gather 1, the vocab-parallel loss over 128,256 columns).
+# Layout D: recurrentgemma-2b cut to one (rec, rec, attn) super-layer over
+# tp 4 (10 Q heads padded to 12, its one KV head gathered over the 4 model
+# ranks, LRU width 640 and d_ff 1920 a rank, the norm scales gathered).
+# C and D start from their model's ``init_params(seed=0)`` at tp 1 cut by
+# ``convert.tp_params_from_full``, written as the loop's step-0 checkpoint.
+# C runs 2 steps, the others 3: on one card the 4 ranks' gloo collectives
+# took the whole script past its time budget with 3 (PERF.md, PR 20).
+DIST_LAYOUTS = (DistLayout("A", "llama3.2-1b", 1, 4, 1, "outer_first", 2, None),
+                DistLayout("B", "llama3.2-1b", 2, 2, 1, "inner_first", None, 4),
+                DistLayout("C", "llama3.2-1b", 1, 2, 2, "inner_first", None, None, steps=2),
+                DistLayout("D", "recurrentgemma-2b", 1, 1, 4, "inner_first", None, 3))
+# Layouts A and C against the single-card ``train`` phase (the same
+# weights, data and global batch): step 1's loss and grad_norm (both sides
+# round to bf16, hop 1 and the model-axis psums sum in bf16 over the ranks),
+# then steps 2-3 at the reference's ``mics_fidelity`` rtol.  Layouts B and D
+# against a one-card run of their cut model on the same weights.
 DIST_REL_TOL = {"loss1": 2e-3, "grad_norm1": 2e-2, "later": 2e-2}
 
 
-def dense_train_launches(n_layers: int) -> dict:
-    """Kernel launches a micro-step of a dense model of ``n_layers``: RMSNorm
-    2 a layer + the final norm forward, the layers' recomputed, and one
-    backward each; attention one a layer, recomputed, one backward."""
-    return {"rmsnorm": 4 * n_layers + 1, "rmsnorm_bwd": 2 * n_layers + 1,
-            "flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers,
-            "rglru": 0, "rglru_bwd": 0}
+def train_launches(cfg) -> dict:
+    """Kernel launches a micro-step of a model of ``cfg.n_layers``
+    sub-layers: RMSNorm 2 a sub-layer + the final norm forward, the
+    sub-layers' recomputed, and one backward each; attention and the
+    RG-LRU one a sub-layer of their kind, recomputed, one backward."""
+    n, n_attn = cfg.n_layers, attention_layers(cfg)
+    return {"rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1,
+            "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+            "rglru": 2 * (n - n_attn), "rglru_bwd": n - n_attn}
 
 
-def dist_model(layout: DistLayout):
+def dist_model(layout: DistLayout, tp: int | None = None):
+    """``layout``'s model, built for its tp (or ``tp``)."""
     from repro_torch.configs import get_config
     from repro_torch.models.build import build_model
 
-    cfg = get_config(TRAIN[0].arch)
+    cfg = get_config(layout.arch)
     if layout.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layout.layers)
-    return build_model(cfg, tp=1)
+    return build_model(cfg, tp=layout.tp if tp is None else tp)
+
+
+def dist_train_path(layout: DistLayout) -> TrainPath:
+    """The one-card train path of ``layout``'s model (its data and routes)."""
+    return next(tp for tp in TRAIN if tp.arch == layout.arch)
 
 
 def dist_topology(layout: DistLayout):
     from repro_torch.core.topology import MiCSTopology
 
-    return MiCSTopology(repl=layout.repl, shard=layout.shard)
+    return MiCSTopology(repl=layout.repl, shard=layout.shard, model=layout.tp)
 
 
 def dist_expected_calls(layout: DistLayout) -> dict:
-    """The CommEngine's calls a rank over the run: each pool row's gather
-    (prefetch: once a micro-step, no re-gather in the backward) and its
-    adjoint reduce-scatter, once a stage; one hop-2 all-reduce a bucket of
-    the plan a step (none with one replica); the norm's all-reduce over the
-    partition group and the loss means' over the data ranks, once a step."""
+    """The CommEngine's calls a rank over the run.  The partition group (p
+    > 1): each pool row's gather (prefetch: once a micro-step, no re-gather
+    in the backward) and its adjoint reduce-scatter, once a stage; one hop-2
+    all-reduce a bucket of the plan a step (none with one replica); the
+    norm's all-reduce over the partition group and the loss means' over the
+    data ranks (more than one), once a step.  The model axis (tp > 1), a
+    micro-step: each model-sharded segment of a layer row gathered twice
+    (the forward and the checkpointed recompute) and reduce-scattered once
+    (``model`` over the whole model group, ``kv`` over a run of KV ranks);
+    each row-parallel psum (after ``wo``, ``rec.wo``, ``wd``) in the
+    forward, the recompute and the backward, except the row's last, which
+    the recompute stops before (non-reentrant checkpointing recomputes up to
+    the last tensor the backward saved); the embedding's and the final norm
+    scale's gather and reduce-scatter; the loss's pmax, its two psums and
+    the backward's one; and a step's norm psum over the model group."""
     from repro_torch.core.schedule import plan_boundary
     from repro_torch.core.topology import hierarchy_factors
 
     model, topo = dist_model(layout), dist_topology(layout)
-    rows = sum(pool.stack for pool in model.all_pools())
-    micro = DIST_STEPS * TRAIN[0].micro_steps
-    outer, inner = hierarchy_factors(topo, layout.inner)
-    stages = ("outer", "inner") if outer > 1 and inner > 1 else ("partition",)
+    steps = layout.steps
+    micro = steps * dist_train_path(layout).micro_steps
     calls = {}
-    for stage in stages:
-        calls[f"all_gather:{stage}"] = rows * micro
-        calls[f"reduce_scatter:{stage}"] = rows * micro
+
+    def add(key, n):
+        calls[key] = calls.get(key, 0) + n
+
+    if topo.partition_size > 1:
+        rows = sum(pool.stack for pool in model.all_pools())
+        outer, inner = hierarchy_factors(topo, layout.inner)
+        stages = ("outer", "inner") if outer > 1 and inner > 1 else ("partition",)
+        for stage in stages:
+            add(f"all_gather:{stage}", rows * micro)
+            add(f"reduce_scatter:{stage}", rows * micro)
+        add("all_reduce:partition", steps)
     if topo.replication_degree > 1:
         plan = plan_boundary(model, topo, mode="bucketed", bucket_mb=32.0)
-        calls["all_reduce:replication"] = plan.n_buckets * DIST_STEPS
-    calls["all_reduce:partition"] = DIST_STEPS
-    calls["all_reduce:data"] = DIST_STEPS
+        add("all_reduce:replication", plan.n_buckets * steps)
+    if topo.data_parallel_size > 1:
+        add("all_reduce:data", steps)
+    tp = topo.model_size
+    if tp > 1:
+        for pool in model.pools:
+            for seg in pool.layout.segments:
+                if seg.model_gather > 1:
+                    label = "model" if seg.model_gather == tp else "kv"
+                    add(f"all_gather:{label}", 2 * pool.stack * micro)
+                    add(f"reduce_scatter:{label}", pool.stack * micro)
+            psums = sum(seg.name.endswith(("attn.wo", "rec.wo", "mlp.wd"))
+                        for seg in pool.layout.segments)
+            add("all_reduce:model", (3 * psums - 1) * pool.stack * micro)
+        add("all_gather:model", 2 * micro)       # the embedding, the final norm scale
+        add("reduce_scatter:model", 2 * micro)
+        add("all_reduce_max:model", micro)
+        add("all_reduce:model", 3 * micro + steps)
     return dict(sorted(calls.items()))
 
 
@@ -976,6 +1040,7 @@ def dist_worker(args) -> int:
     from repro_torch.core.mics import MiCSConfig, init_params
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rglru import kernel as RG
     from repro_torch.kernels.rmsnorm import kernel as RN
     from repro_torch.launch.mesh import MiCSGroups, init_distributed
     from repro_torch.optim.adamw import OptConfig
@@ -985,9 +1050,9 @@ def dist_worker(args) -> int:
     rank, world = init_distributed(args.dist_backend, timeout=timeout)
     dev = torch.device("cuda", torch.cuda.current_device())
     out_dir = pathlib.Path(args.dist_out)
-    tp = TRAIN[0]
     result = {"rank": rank, "world": world, "device": str(dev), "layouts": {}}
     for layout in DIST_LAYOUTS:
+        tp = dist_train_path(layout)
         model, topo = dist_model(layout), dist_topology(layout)
         groups = MiCSGroups(topo, rank, backend=args.dist_backend, timeout=timeout,
                             inner=layout.inner)
@@ -996,8 +1061,13 @@ def dist_worker(args) -> int:
         dc = DataConfig(vocab=model.cfg.vocab, seq=tp.seq, global_batch=tp.global_batch,
                         micro_steps=tp.micro_steps)
         ckdir = out_dir / f"ck_{layout.name}"
-        lc = LoopConfig(total_steps=DIST_STEPS, checkpoint_every=0, checkpoint_dir=str(ckdir),
+        lc = LoopConfig(total_steps=layout.steps, checkpoint_every=0, checkpoint_dir=str(ckdir),
                         log_every=0, seed=0)
+        start = None
+        if layout.tp > 1:
+            t0 = time.perf_counter()
+            dist_tp_start(layout, model, topo, groups, rank, ckdir, dev)
+            start = {"checkpoint_step": 0, "seconds": time.perf_counter() - t0}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -1010,16 +1080,19 @@ def dist_worker(args) -> int:
                 "step_ms_all": [t * 1e3 for t in stats.step_times],
                 "step_ms": statistics.median(stats.step_times[1:]) * 1e3, "loop_s": loop_s,
                 "checkpoint_s": stats.save_times[-1], "comm": stats.comm,
-                "launches": read_counts(),
+                "launches": read_counts(), "start": start,
                 "attention_launches_by_route": dict(FA.launches_by_route),
                 "attention_bwd_launches_by_route": dict(FA.launches_bwd_by_route),
                 "rmsnorm_bwd_launches_by_route": dict(RN.launches_bwd_by_route),
+                "rglru_launches_by_form": {"forward": dict(RG.launches_by_form),
+                                           "backward": dict(RG.launches_bwd_by_form)},
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         dist.barrier(group=groups.world.handle)
         if rank == 0:
             line["checkpoint_step"] = Checkpointer(ckdir).latest_step()
-            line["checkpoint_gb"] = sum(f.stat().st_size for f in ckdir.rglob("*")
-                                        if f.is_file()) / 1e9
+            line["checkpoint_gb"] = sum(
+                f.stat().st_size for f in (ckdir / f"step_{layout.steps:08d}").rglob("*")
+                if f.is_file()) / 1e9
             shutil.rmtree(ckdir)
         if layout.name == "A":
             # one gather of the embedding row under each topology, bf16 wire
@@ -1045,22 +1118,48 @@ def dist_worker(args) -> int:
     return 0
 
 
+def dist_tp_start(layout: DistLayout, model, topo, groups, rank: int, ckdir, dev) -> None:
+    """Write the step-0 checkpoint a tp > 1 layout's loop resumes from:
+    its model's ``init_params(seed=0)`` at tp 1 on this card (the weights
+    of the one-card runs it is held to), cut into tp shards by
+    ``convert.tp_params_from_full`` one pool at a time and into this rank's
+    model coordinate and partition chunk, with zero moments."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.convert import shard_state, tp_params_from_full
+    from repro_torch.core.mics import init_params
+
+    model_1 = dist_model(layout, tp=1)
+    full = init_params(model_1, 0, device=dev)
+    params = {}
+    for name in list(full):
+        cut = tp_params_from_full(model, model_1, {name: full.pop(name)})
+        params[name] = shard_state(model, topo, rank, {"params": cut, "m": {}, "v": {},
+                                                       "step": 0}, device=dev)["params"][name]
+        del cut
+    state = {"params": params, "step": 0,
+             **{part: {k: torch.zeros_like(v) for k, v in params.items()} for part in ("m", "v")}}
+    Checkpointer(ckdir).save(state, 0, topo=topo, groups=groups)
+    del state, params
+    torch.cuda.empty_cache()
+
+
 def dist_reference(layout: DistLayout, dev) -> list[tuple[float, float]]:
-    """Layout ``layout``'s model on this one card over the same global
-    batches and steps (``build_train_step`` at p = 1): (loss, grad_norm)."""
+    """Layout ``layout``'s model at tp 1 on this one card over the same
+    global batches and steps (``build_train_step`` at p = 1, from
+    ``init_state(seed=0)``): (loss, grad_norm)."""
     from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
     from repro_torch.core.topology import MiCSTopology
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim.adamw import OptConfig
 
-    tp = TRAIN[0]
-    model = dist_model(layout)
+    tp = dist_train_path(layout)
+    model = dist_model(layout, tp=1)
     step = build_train_step(model, MiCSTopology(), MiCSConfig(micro_steps=tp.micro_steps),
                             OptConfig(warmup_steps=0, total_steps=tp.steps), device=dev)
     source = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq=tp.seq,
                                     global_batch=tp.global_batch, micro_steps=tp.micro_steps))
     state, out = init_state(model, 0, device=dev), []
-    for i in range(DIST_STEPS):
+    for i in range(layout.steps):
         state, m = step(state, source.global_step_batch(i))
         out.append((m["loss"].item(), m["grad_norm"].item()))
     del state, step
@@ -1089,7 +1188,8 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= DIST_WORLD else "gloo"
     t_phase = time.perf_counter()
-    refs = {"A": list(zip(train_line["loss"], train_line["grad_norm"]))[:DIST_STEPS]}
+    one_card = list(zip(train_line["loss"], train_line["grad_norm"]))
+    refs = {lay.name: one_card[:lay.steps] for lay in DIST_LAYOUTS if lay.name in ("A", "C")}
     for layout in DIST_LAYOUTS:
         if layout.name not in refs:
             refs[layout.name] = dist_reference(layout, dev)
@@ -1138,7 +1238,7 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
         for p in per[1:]:   # means over the data ranks: the same on every rank
             if p["losses"] != losses or p["grad_norms"] != gnorms:
                 raise AssertionError(f"dist_train {layout.name}: ranks disagree on the loss")
-        if not all(math.isfinite(x) for x in losses + gnorms) or len(losses) != DIST_STEPS:
+        if not all(math.isfinite(x) for x in losses + gnorms) or len(losses) != layout.steps:
             raise AssertionError(f"dist_train {layout.name}: losses {losses}, {gnorms}")
         ref = refs[layout.name]
         rel = []
@@ -1151,9 +1251,10 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
                 raise AssertionError(f"dist_train {layout.name} step {i + 1}: loss {loss} vs "
                                      f"{rl}, grad_norm {gn} vs {rg}")
         want_calls = dist_expected_calls(layout)
-        n_layers = dist_model(layout).cfg.n_layers
-        want_launches = {k: n * TRAIN[0].micro_steps * DIST_STEPS
-                         for k, n in dense_train_launches(n_layers).items()}
+        model = dist_model(layout)
+        path = dist_train_path(layout)
+        want_launches = {k: n * path.micro_steps * layout.steps
+                         for k, n in train_launches(model.cfg).items()}
         for r, p in enumerate(per):
             if p["comm"]["calls"] != want_calls:
                 raise AssertionError(f"dist_train {layout.name} rank {r}: collectives "
@@ -1161,12 +1262,18 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
             if p["launches"] != want_launches:
                 raise AssertionError(f"dist_train {layout.name} rank {r}: launches "
                                      f"{p['launches']} != {want_launches}")
-            if (p["attention_bwd_launches_by_route"]["wgmma"] != want_launches[
-                    "flash_attention_bwd"] or p["rmsnorm_bwd_launches_by_route"]["regs"]
-                    != want_launches["rmsnorm_bwd"] or p["attention_launches_by_route"][
-                    "mma"] != want_launches["flash_attention"]):
+            # every call on the path's route: attention forward on mma, its
+            # backward and RMSNorm's on the one-card path's, the RG-LRU gated
+            if (p["attention_bwd_launches_by_route"][path.attn_bwd_route] != want_launches[
+                    "flash_attention_bwd"] or p["rmsnorm_bwd_launches_by_route"][
+                    path.rms_bwd_route] != want_launches["rmsnorm_bwd"]
+                    or p["attention_launches_by_route"]["mma"] != want_launches[
+                        "flash_attention"]
+                    or p["rglru_launches_by_form"]["forward"]["gated"] != want_launches["rglru"]
+                    or p["rglru_launches_by_form"]["backward"]["gated"]
+                    != want_launches["rglru_bwd"]):
                 raise AssertionError(f"dist_train {layout.name} rank {r}: routes {p}")
-        if per[0].get("checkpoint_step") != DIST_STEPS:
+        if per[0].get("checkpoint_step") != layout.steps:
             raise AssertionError(f"dist_train {layout.name}: checkpoint at "
                                  f"{per[0].get('checkpoint_step')}")
         gc = per[0].get("gather_check")
@@ -1175,8 +1282,14 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
                 and p["gather_check"]["equal_to_the_full_row"] for p in per):
             raise AssertionError(f"dist_train A: gather check {[p['gather_check'] for p in per]}")
         lines[layout.name] = {
-            "ranks": DIST_WORLD, "repl": layout.repl, "shard": layout.shard,
-            "gather_order": layout.gather_order, "inner": layout.inner, "layers": n_layers,
+            "arch": layout.arch, "steps": layout.steps, "ranks": DIST_WORLD,
+            "repl": layout.repl, "shard": layout.shard, "tp": layout.tp,
+            "gather_order": layout.gather_order, "inner": layout.inner,
+            "layers": model.cfg.n_layers,
+            "global_batch": path.global_batch, "micro_steps": path.micro_steps,
+            "micro_batch_per_rank": [path.global_batch // path.micro_steps
+                                     // dist_topology(layout).data_parallel_size, path.seq],
+            "start": per[0]["start"],
             "loss": losses, "grad_norm": gnorms, "reference": ref, "rel_err": rel,
             "step_ms_label": ("nccl, one card a rank" if backend == "nccl" else
                               f"gloo over host, {DIST_WORLD} ranks on one card" if cards == 1
@@ -1190,11 +1303,11 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
             "launches_per_rank": want_launches, "gather_check": gc}
     launches = {k: sum(rk["layouts"][lay.name]["launches"][k] for rk in ranks
                        for lay in DIST_LAYOUTS) for k in want_launches}
-    line = {"phase": "dist_train", "arch": TRAIN[0].arch, "device_count": cards,
+    line = {"phase": "dist_train", "arch": sorted({lay.arch for lay in DIST_LAYOUTS}),
+            "device_count": cards,
             "backend": backend, "ranks": DIST_WORLD,
             "ranks_per_card": DIST_WORLD // min(cards, DIST_WORLD),
-            "global_batch": TRAIN[0].global_batch, "micro_steps": TRAIN[0].micro_steps,
-            "seq": TRAIN[0].seq, "steps": DIST_STEPS, "layouts": lines,
+            "layouts": lines,
             "workers_s": workers_s, "seconds": time.perf_counter() - t_phase, "gpu": card}
     emit(line)
     shutil.rmtree(out_dir)
@@ -1202,14 +1315,18 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
     by_route = {key: {} for key in ("attention_launches_by_route",
                                     "attention_bwd_launches_by_route",
                                     "rmsnorm_bwd_launches_by_route")}
+    by_form = {"forward": {}, "backward": {}}
     for rk in ranks:
         for lay in DIST_LAYOUTS:
+            got = rk["layouts"][lay.name]
             for key, table in by_route.items():
-                for route, n in rk["layouts"][lay.name][key].items():
+                for route, n in got[key].items():
                     table[route] = table.get(route, 0) + n
-    return {"arch": f"{TRAIN[0].arch} dist_train", "launches": launches, **by_route,
-            "rglru_launches_by_form": {"forward": {"ab": 0, "gated": 0},
-                                       "backward": {"ab": 0, "gated": 0}}}
+            for way, table in by_form.items():
+                for form, n in got["rglru_launches_by_form"][way].items():
+                    table[form] = table.get(form, 0) + n
+    return {"arch": "dist_train", "launches": launches, **by_route,
+            "rglru_launches_by_form": by_form}
 
 
 def kernel_checks(gen, dev, flush):
@@ -1233,7 +1350,10 @@ def kernel_checks(gen, dev, flush):
                        ("recurrentgemma prefill", 4 * 2560, 2560),
                        ("recurrentgemma decode", 4, 2560),
                        ("llama train", train_rows(TRAIN[0]), 2048),
-                       ("recurrentgemma train", train_rows(TRAIN[1]), 2560)):
+                       ("recurrentgemma train", train_rows(TRAIN[1]), 2560),
+                       # a rank of dist_train's layout C: 2 x 2048 rows a
+                       # micro-step (layout D's rank has the one-card path's)
+                       ("llama tp 2 train", 2 * 2048, 2048)):
         x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
         s = (0.2 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
         w = 1.0 + s.float()
@@ -1260,6 +1380,11 @@ def kernel_checks(gen, dev, flush):
         ("llama decode", 4, 1, 544, 8, 4, 64, False, 0, 519, 520, bf),
         ("recurrentgemma prefill", 4, 2560, 2560, 1, 10, 256, True, 2048, 0, None, bf),
         ("recurrentgemma decode", 4, 1, 2048, 1, 10, 256, False, 0, 0, 2048, bf),
+        # a rank's train micro-step in dist_train: layout C (llama, tp 2: 4
+        # of the 8 KV heads, their 16 Q heads) and D (recurrentgemma, tp 4:
+        # 3 of the 12 padded Q heads on the one gathered KV head)
+        ("llama tp 2 train", 2, 2048, 2048, 4, 4, 64, True, 0, 0, None, bf),
+        ("recurrentgemma tp 4 train", 2, 2048, 2048, 1, 3, 256, True, 2048, 0, None, bf),
         ("ragged", 4, 200, 200, 8, 4, 64, True, 0, 0, None, bf),
         ("ragged", 4, 200, 200, 8, 4, 64, True, 0, 0, None, f32),
         ("window", 4, 512, 512, 8, 4, 64, True, 64, 0, None, bf),
@@ -1346,6 +1471,8 @@ def kernel_checks(gen, dev, flush):
         ("ragged", (3, 1001, 2500), bf, "h0"),
         ("recurrentgemma train", (TRAIN[1].global_batch // TRAIN[1].micro_steps,
                                   TRAIN[1].seq, 2560), bf, None),
+        # dist_train's layout D: the LRU width cut over tp 4
+        ("recurrentgemma tp 4 train", (2, 2048, 640), bf, None),
     ]
     rglru_checks = []
     for kind, shape, dt, state in gated_cases:
@@ -1521,6 +1648,7 @@ def backward_checks(gen, dev, flush):
     rms = []
     for case, (n, d), dt, sdt in (
             ("llama train [8192, 2048]", (train_rows(TRAIN[0]), 2048), bf, bf),
+            ("llama tp 2 train [4096, 2048]", (2 * 2048, 2048), bf, bf),
             ("fp32 scale [64, 2048]", (64, 2048), bf, f32),
             ("few rows [3, 256]", (3, 256), bf, bf),
             ("recurrentgemma train [4096, 2560]", (train_rows(TRAIN[1]), 2560), bf, bf),
@@ -1562,6 +1690,9 @@ def backward_checks(gen, dev, flush):
          True, 0, bf),
         ("recurrentgemma train", TRAIN[1].global_batch // TRAIN[1].micro_steps, TRAIN[1].seq, 1,
          10, 256, True, 2048, bf),
+        # dist_train's layouts C and D, a rank's micro-step (as kernel_checks)
+        ("llama tp 2 train", 2, 2048, 4, 4, 64, True, 0, bf),
+        ("recurrentgemma tp 4 train", 2, 2048, 1, 3, 256, True, 2048, bf),
         ("dh 256 window 64", 2, 512, 1, 10, 256, True, 64, bf),
         ("dh 256 ragged T 300", 2, 300, 1, 10, 256, True, 0, bf),
         ("dh 256 hkv 1 g 3: rows [b, T g, dh] at any g", 2, 512, 1, 3, 256, True, 0, bf),
@@ -1654,6 +1785,7 @@ def rglru_backward_checks(gen, dev, flush):
     out = []
     for case, shape, dt, wdt, clip in (
             ("recurrentgemma train", rg_train, bf, bf, False),
+            ("recurrentgemma tp 4 train (dist_train D)", (2, 2048, 640), bf, bf, False),
             ("T 1001 (not a multiple of the chunk), C 2500, fp32 weights", (3, 1001, 2500), bf,
              f32, False),
             ("T 1", (2, 1, 2560), bf, bf, False),
@@ -1821,6 +1953,7 @@ def main() -> int:
     dist_line = dist_train_phase(card, dev, train_lines[0])
     by_path[dist_line["arch"]] = dist_line["launches"]
     launches_by_route["mma"] += dist_line["attention_launches_by_route"]["mma"]
+    launches_by_form["gated"] += dist_line["rglru_launches_by_form"]["forward"]["gated"]
     torch.cuda.empty_cache()
 
     def train_sum(*keys: str) -> dict:
@@ -1889,8 +2022,9 @@ def main() -> int:
               "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma256.cu",
               "src/repro/kernels/flash_attention/kernel.py:86",
               [c for c in attn_bwd_checks if c["route"] == "wgmma256"],
-              by_path_n={f"{line['arch']} train": line["attention_bwd_launches_by_route"]
-                         ["wgmma256"] for line in train_lines},
+              by_path_n={**{f"{line['arch']} train": line["attention_bwd_launches_by_route"]
+                            ["wgmma256"] for line in train_lines},
+                         "dist_train": dist_line["attention_bwd_launches_by_route"]["wgmma256"]},
               gradient_of="src/repro/models/layers.py:145 attention at head dim 256",
               mma_ms=next(c["mma"]["ms"] for c in attn_bwd_checks if "mma" in c)),
         entry("rglru", "src/repro_torch/kernels/csrc/rglru.cu",

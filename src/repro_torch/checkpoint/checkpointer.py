@@ -3,9 +3,10 @@ half of ``repro/checkpoint/checkpointer.py``).
 
 A checkpoint is a directory ``step_XXXXXXXX/`` holding one ``.npy`` file a
 tensor and rank (``params``, ``m``, ``v``: one per pool, each rank's fp32
-flat shards ``[stack, tp, flat_len / p]``; ``<leaf>.npy`` in a one-rank
-run, ``<leaf>.rank<r>.npy`` otherwise) and ``manifest.json`` (step, data
-cursor, topology, world size, leaf names and shard shapes).  Every rank
+flat shards ``[stack, 1, flat_len / p]`` of its model coordinate;
+``<leaf>.npy`` in a one-rank run, ``<leaf>.rank<r>.npy`` otherwise) and
+``manifest.json`` (step, data cursor, topology, world size, each rank's
+mesh coordinates, leaf names and shard shapes).  Every rank
 writes its own shards into ``step_XXXXXXXX.tmp/``; after a barrier rank 0
 writes and fsyncs the manifest and only then renames the directory into
 place, so a crashed save never corrupts the newest complete checkpoint.
@@ -14,10 +15,10 @@ names and directories whose manifest or any rank's tensors are missing or
 truncated.  Tensors are copied to the host one at a
 time, so the host never holds the whole state.
 
-A restore reads this rank's shards onto the same topology.  The
-fault-injection hook, asynchronous saves and restores onto another topology
-come with the elastic slice (ROADMAP Queue 1 item 5, the elastic and
-fault-tolerant loop).
+A restore reads this rank's shards onto the same topology (the same p,
+replicas and tp).  The fault-injection hook, asynchronous saves and
+restores onto another topology (another tp too) come with the elastic
+slice (ROADMAP Queue 1 item 5, the elastic and fault-tolerant loop).
 """
 
 from __future__ import annotations
@@ -95,7 +96,9 @@ class Checkpointer:
         if rank == 0:
             meta = {"step": int(step), "state_step": int(state["step"]),
                     "data_cursor": int(data_cursor), "time": time.time(),
-                    "topology": _topology(topo), "world_size": world, "leaves": leaves}
+                    "topology": _topology(topo), "world_size": world,
+                    "rank_coords": [topo.rank_coords(r) for r in range(world)],
+                    "leaves": leaves}
             mpath = tmp / MANIFEST
             mpath.write_text(json.dumps(meta, indent=1))
             _fsync(mpath)
@@ -153,8 +156,8 @@ class Checkpointer:
         if meta["topology"] != here or meta.get("world_size", 1) != topo.world_size:
             raise NotImplementedError(
                 f"checkpoint topology {meta['topology']} != {here}: restores onto "
-                "another topology come with the elastic slice (ROADMAP Queue 1 item 5, the "
-                "elastic and fault-tolerant loop)")
+                "another topology (another p, replication or tp) come with the elastic "
+                "slice (ROADMAP Queue 1 item 5, the elastic and fault-tolerant loop)")
         shapes = local_flat_shapes(model, topo)
         state: dict = {}
         for part in PARTS:

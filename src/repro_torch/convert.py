@@ -6,7 +6,8 @@ Both packages lay out a model as the same flat pools (``{"embed",
 offsets), so carrying weights over is a checked copy.  With it, the two
 packages compute the same function on the same weights, and train from
 the same state; :func:`shard_from_jax` cuts a JAX global state into one
-rank's shards.
+rank's shards, and :func:`tp_params_from_full` cuts a tp = 1 model into
+the tp shards of the same function.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.topology import MiCSTopology
+from repro_torch.core.topology import MODEL_AXIS, MiCSTopology
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import ModelDef
 
@@ -53,20 +54,90 @@ def state_from_jax(model: ModelDef, state: Mapping, *,
     return out
 
 
-def shard_from_jax(model: ModelDef, topo: MiCSTopology, rank: int, state: Mapping, *,
-                   device: str | torch.device = "cuda") -> dict:
-    """``rank``'s port training state from a JAX global state (``params``,
-    ``m``, ``v`` pool dicts of arrays and ``step``): the reference's
-    ``P(None, model, partition_axes)``, the last dim cut over the partition
-    group at ``topo.partition_coord(rank)``."""
-    full = state_from_jax(model, state, device="cpu")
+def shard_state(model: ModelDef, topo: MiCSTopology, rank: int, state: Mapping, *,
+                device: str | torch.device = "cuda") -> dict:
+    """``rank``'s training state from a global one (``params``, ``m``, ``v``
+    pool dicts of ``[stack, tp, flat_len]`` tensors and ``step``): the
+    reference's ``P(None, model, partition_axes)``, each pool cut to the
+    rank's model coordinate and to its chunk ``topo.partition_coord(rank)``
+    of the partition group, as fresh tensors (the step updates them in
+    place)."""
     p, coord = topo.partition_size, topo.partition_coord(rank)
+    m = topo.rank_coords(rank)[MODEL_AXIS]
     dev = resolve_device(device)
     out = {}
     for part in ("params", "m", "v"):
         out[part] = {}
-        for name, t in full[part].items():
+        for name, t in state[part].items():
             n = t.shape[-1] // p
-            out[part][name] = t[..., coord * n:(coord + 1) * n].contiguous().to(dev)
-    out["step"] = full["step"]
+            piece = t[:, m:m + 1, coord * n:(coord + 1) * n]
+            out[part][name] = piece.clone(memory_format=torch.contiguous_format).to(dev)
+    out["step"] = int(state["step"])
+    return out
+
+
+def shard_from_jax(model: ModelDef, topo: MiCSTopology, rank: int, state: Mapping, *,
+                   device: str | torch.device = "cuda") -> dict:
+    """``rank``'s port training state from a JAX global state (``params``,
+    ``m``, ``v`` pool dicts of arrays and ``step``): :func:`shard_state` of
+    :func:`state_from_jax`."""
+    return shard_state(model, topo, rank, state_from_jax(model, state, device="cpu"),
+                       device=device)
+
+
+def _sharded_dim(seg_tp, seg_1) -> int | None:
+    """The one dim along which a segment is cut over the model axis (None
+    where the two layouts store it whole)."""
+    diff = [i for i, (a, b) in enumerate(zip(seg_tp.shape, seg_1.shape)) if a != b]
+    if len(seg_tp.shape) != len(seg_1.shape) or len(diff) > 1:
+        raise ValueError(f"segment {seg_tp.name}: shapes {seg_tp.shape} at tp and "
+                         f"{seg_1.shape} at tp 1 differ in more than one dim")
+    return diff[0] if diff else None
+
+
+def tp_params_from_full(model_tp: ModelDef, model_1: ModelDef, params_1: Mapping) -> dict:
+    """A tp = 1 model's pools cut into ``model_tp``'s tp shards: the same
+    function, stored as the tensor-parallel layers store it.
+
+    ``params_1``: some or all of ``model_1``'s pools, ``[stack, 1, flat_len]``
+    fp32 (tensors, or numpy arrays for a numpy result).  Returns the same
+    pools as ``[stack, tp, flat_len_tp]``.  Each segment is cut along the
+    one dim its tp layout shards: the columns of a column-parallel weight
+    (``wq``, ``wk`` / ``wv`` and their biases, ``wg`` / ``wu``, ``rec.wx`` /
+    ``rec.wy``, the head), the rows of a row-parallel one (``wo``, ``wd``,
+    ``rec.wo``), the channels of the RG-LRU's per-channel weights, the
+    ``model_gather_dim`` of the gathered segments (norm scales; the KV
+    projections of ranks that share a head take its consecutive slices)
+    and the embedding table's ``d``.  Rank m takes slice m.  Where tp pads
+    a dim (Q heads to a multiple of tp, KV heads, the vocab), the padding
+    is zeros: a padded Q head's ``wq`` columns and ``wo`` rows are 0, and
+    its output is masked anyway.  A checking aid, with no counterpart in
+    the JAX package: it lets a tp > 1 run be held to a tp = 1 run on the
+    same weights."""
+    tp = model_tp.tp
+    out = {}
+    for name, full in params_1.items():
+        as_numpy = isinstance(full, np.ndarray)
+        full = torch.as_tensor(full)
+        pool_tp, pool_1 = model_tp.pool(name), model_1.pool(name)
+        stack = pool_tp.stack
+        if tuple(full.shape) != (stack, 1, pool_1.layout.flat_len):
+            raise ValueError(f"pool {name!r}: shape {tuple(full.shape)} != "
+                             f"{(stack, 1, pool_1.layout.flat_len)}")
+        rows = torch.zeros((stack, tp, pool_tp.layout.flat_len), dtype=full.dtype,
+                           device=full.device)
+        for seg in pool_tp.layout.segments:
+            s1 = pool_1.layout.seg(seg.name)
+            whole = full[:, 0, s1.offset:s1.end].reshape(stack, *s1.shape)
+            dim = _sharded_dim(seg, s1)
+            for j in range(tp):
+                if dim is None:
+                    piece = whole
+                else:
+                    n = seg.shape[dim]
+                    piece = whole.narrow(dim + 1, min(j * n, s1.shape[dim]),
+                                         max(0, min(n, s1.shape[dim] - j * n)))
+                dst = rows[:, j, seg.offset:seg.end].view(stack, *seg.shape)
+                dst[tuple(slice(0, k) for k in (stack, *piece.shape[1:]))] = piece
+        out[name] = rows.numpy() if as_numpy else rows
     return out

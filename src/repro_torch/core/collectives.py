@@ -25,6 +25,13 @@ group's backend decides this.  Every op adds its call, its bytes (the
 larger of its input and output) and its host seconds to a
 :class:`CommCounter` when given one.
 
+The model axis (Megatron tensor parallelism, the reference's ``psum`` /
+``all_gather`` / ``pmax`` over ``'model'``) has its own ops at the end:
+:class:`ModelAllReduce` and :class:`ModelAllGather` are autograd Functions
+whose backward is the reference's transpose under ``check_vma=False`` (a
+psum's is a psum, a tiled gather's a reduce-scatter over the same group),
+and :func:`model_pmax` / :func:`model_pmin` carry no gradient.
+
 The quantized collectives (``quantized_reduce_scatter``,
 ``quantized_all_reduce``) wait for ROADMAP Queue 1 item 4, the int8 and
 bf16 wires.
@@ -139,6 +146,14 @@ def _ar_op(out, inp, **kw):
     return dist.all_reduce(out, op=dist.ReduceOp.SUM, **kw)
 
 
+def _max_op(out, inp, **kw):
+    return dist.all_reduce(out, op=dist.ReduceOp.MAX, **kw)
+
+
+def _min_op(out, inp, **kw):
+    return dist.all_reduce(out, op=dist.ReduceOp.MIN, **kw)
+
+
 def all_gather(x: torch.Tensor, group: Group, *, axis: int = 0,
                counter: CommCounter | None = None) -> torch.Tensor:
     """Tiled all-gather of ``x`` along ``axis`` over ``group``, in group order."""
@@ -160,13 +175,20 @@ def reduce_scatter(g: torch.Tensor, group: Group, *, axis: int = 0,
     return out.movedim(0, axis)
 
 
+_REDUCE_OPS = {"sum": (_ar_op, "all_reduce"), "max": (_max_op, "all_reduce_max"),
+               "min": (_min_op, "all_reduce_min")}
+
+
 def all_reduce_(x: torch.Tensor, group: Group, *, async_op: bool = False,
-                counter: CommCounter | None = None) -> Work | torch.Tensor:
-    """Sum-all-reduce of the contiguous ``x`` over ``group``, in place.
-    Returns ``x``, or with ``async_op`` the :class:`Work` to wait on."""
+                counter: CommCounter | None = None, op: str = "sum") -> Work | torch.Tensor:
+    """All-reduce of the contiguous ``x`` over ``group`` in place, a sum (or
+    ``op`` ``max`` / ``min``, counted as ``all_reduce_max`` /
+    ``all_reduce_min``).  Returns ``x``, or with ``async_op`` the
+    :class:`Work` to wait on."""
     if not x.is_contiguous():
         raise ValueError("all_reduce_ runs in place on a contiguous tensor")
-    work = _run(_ar_op, x, x, group, "all_reduce", counter)
+    fn, kind = _REDUCE_OPS[op]
+    work = _run(fn, x, x, group, kind, counter)
     if async_op:
         return work
     work.wait()
@@ -370,3 +392,69 @@ def replica_mean(x: torch.Tensor, topo: MiCSTopology, groups,
     if dp == 1:
         return x
     return all_reduce_(x.contiguous().clone(), groups.data, counter=counter) / dp
+
+
+# ---------------------------------------------------------------------------
+# the model axis (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+class ModelAllReduce(torch.autograd.Function):
+    """``psum`` over a model-axis group; its backward is a psum of the
+    cotangent over the same group (the reference's transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group, counter):
+        ctx.group, ctx.counter = group, counter
+        return all_reduce_(x.contiguous().clone(), group, counter=counter)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return all_reduce_(ct.contiguous().clone(), ctx.group, counter=ctx.counter), None, None
+
+
+class ModelAllGather(torch.autograd.Function):
+    """Tiled all-gather along ``axis`` over a model-axis group (the whole
+    group, or a sub-group of ranks sharing one KV head), contiguous; its
+    backward is the tiled sum-reduce-scatter of the cotangent over the same
+    group."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis, counter):
+        ctx.group, ctx.axis, ctx.counter = group, axis, counter
+        return all_gather(x, group, axis=axis, counter=counter).contiguous()
+
+    @staticmethod
+    def backward(ctx, ct):
+        g = reduce_scatter(ct, ctx.group, axis=ctx.axis, counter=ctx.counter)
+        return g.contiguous(), None, None, None
+
+
+def model_all_reduce(x: torch.Tensor, group: Group, *,
+                     counter: CommCounter | None = None) -> torch.Tensor:
+    """The sum of ``x`` over ``group``; as :class:`ModelAllReduce` when
+    autograd records the call."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return ModelAllReduce.apply(x, group, counter)
+    return all_reduce_(x.contiguous().clone(), group, counter=counter)
+
+
+def model_all_gather(x: torch.Tensor, group: Group, *, axis: int,
+                     counter: CommCounter | None = None) -> torch.Tensor:
+    """Tiled all-gather of ``x`` along ``axis`` over ``group``, contiguous
+    (the kernels take contiguous inputs); as :class:`ModelAllGather` when
+    autograd records the call."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return ModelAllGather.apply(x, group, axis, counter)
+    return all_gather(x, group, axis=axis, counter=counter).contiguous()
+
+
+def model_pmax(x: torch.Tensor, group: Group, *,
+               counter: CommCounter | None = None) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group``, without a gradient."""
+    return all_reduce_(x.detach().contiguous().clone(), group, counter=counter, op="max")
+
+
+def model_pmin(x: torch.Tensor, group: Group, *,
+               counter: CommCounter | None = None) -> torch.Tensor:
+    """The elementwise min of ``x`` over ``group``, without a gradient."""
+    return all_reduce_(x.detach().contiguous().clone(), group, counter=counter, op="min")

@@ -12,9 +12,14 @@ collectives run over the process groups of ``launch/mesh.MiCSGroups``
 to the wire dtype and its adjoint the cast back; with one replica hop 2 is
 the identity.  Every collective adds to the engine's :class:`CommCounter`.
 
-Still refused, each naming the ROADMAP Queue 1 item it waits for: tensor
-parallelism (item 2's second half), the int8 gather wire and the bf16 /
-int8 gradient wires (item 4).
+At tp > 1 the engine also owns the model axis (``groups.model``): the
+reassembly of the segments stored sharded over it
+(:meth:`CommEngine.unflatten`, the reference's ``model_gather_fn_for``)
+and the layers' psums, gathers and maxima (``model_*``).  The partition
+gather and its adjoint run unchanged on each model coordinate's rows.
+
+Still refused, naming the ROADMAP Queue 1 item they wait for: the int8
+gather wire and the bf16 / int8 gradient wires (item 4).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import collectives as C
+from repro_torch.core.flat_param import model_gather_fn_for
 from repro_torch.core.topology import MiCSTopology, hierarchy_factors
 
 GATHER_TOPOLOGIES = ("flat", "inner_first", "outer_first")
@@ -33,7 +39,6 @@ HOP1_WIRE_DTYPES = ("fp32", "bf16", "int8")
 HOP2_WIRE_DTYPES = ("fp32", "bf16", "int8")
 
 _WIRE_TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16}
-_TP_ITEM = "ROADMAP Queue 1 item 2's second half, tensor parallelism (tp > 1)"
 _WIRE_ITEM = "ROADMAP Queue 1 item 4, the int8 and bf16 wires"
 
 
@@ -122,22 +127,21 @@ class GatherFlat(torch.autograd.Function):
 class CommEngine:
     """Owns every parameter gather and gradient sync of one run.
 
-    At p > 1 or with more than one replica, ``groups`` (a
+    Over more than one rank (p > 1, replicas or tp > 1), ``groups`` (a
     ``launch.mesh.MiCSGroups`` of ``topo``) carries the collectives; without
     groups of this topology the engine raises ``ValueError``."""
 
     def __init__(self, topo: MiCSTopology, gather_policy: GatherPolicy = GatherPolicy(),
                  sync_policy: SyncPolicy = SyncPolicy(), *, groups=None):
-        if topo.model_size != 1:
-            raise NotImplementedError(f"tp = {topo.model_size}: {_TP_ITEM} is not ported yet")
         if gather_policy.wire_dtype == "int8":
             raise NotImplementedError(f"the int8 gather wire waits for {_WIRE_ITEM}")
         if topo.world_size > 1:
             if groups is None or groups.topo != topo:
                 raise ValueError(
                     f"a {topo.world_size}-rank topology (p = {topo.partition_size}, "
-                    f"{topo.replication_degree} replicas) needs the MiCSGroups of that "
-                    f"topology, got {None if groups is None else groups.topo}")
+                    f"{topo.replication_degree} replicas, tp = {topo.model_size}) needs the "
+                    f"MiCSGroups of that topology, got "
+                    f"{None if groups is None else groups.topo}")
             if (gather_policy.topology != "flat" and len(topo.partition_axes) == 1
                     and topo.partition_size > 1):
                 outer, inner = hierarchy_factors(topo, gather_policy.inner)
@@ -148,6 +152,8 @@ class CommEngine:
         self.sync_policy = sync_policy
         self.groups = groups
         self.counter = C.CommCounter()
+        self._model_gather_fn = (model_gather_fn_for(groups, self.counter)
+                                 if topo.model_size > 1 else None)
         self._side: dict = {}
 
     @classmethod
@@ -234,8 +240,9 @@ class CommEngine:
         return full
 
     def unflatten(self, pool, full: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Rebuild layer tensors as views of the gathered buffer."""
-        return pool.layout.unflatten(full)
+        """Rebuild layer tensors as views of the gathered buffer, the
+        segments stored sharded over the model axis gathered along it."""
+        return pool.layout.unflatten(full, model_gather_fn=self._model_gather_fn)
 
     def gather(self, pool, row: torch.Tensor) -> dict[str, torch.Tensor]:
         return self.unflatten(pool, self.gather_flat(row))
@@ -253,11 +260,15 @@ class CommEngine:
                                  counter=self.counter)
 
     def norm_all_reduce_(self, sq: torch.Tensor) -> torch.Tensor:
-        """The squared gradient norm's sum over the partition group (the
-        reference's psum over the partition and model axes), in place."""
-        if self.topo.partition_size == 1:
-            return sq
-        return C.all_reduce_(sq, self.groups.partition, counter=self.counter)
+        """The squared gradient norm's sum over the partition group, then
+        over the model group (the reference's psum over the partition and
+        model axes), in place.  Every model-sharded segment is stored once,
+        so the sum counts each parameter once."""
+        if self.topo.partition_size > 1:
+            C.all_reduce_(sq, self.groups.partition, counter=self.counter)
+        if self.topo.model_size > 1:
+            C.all_reduce_(sq, self.groups.model, counter=self.counter)
+        return sq
 
     def partition_coord(self) -> int:
         """This rank's index within its partition group."""
@@ -266,3 +277,23 @@ class CommEngine:
     def replica_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of ``x`` over every data rank."""
         return C.replica_mean(x, self.topo, self.groups, counter=self.counter)
+
+    # -- the model axis (tensor parallelism) ---------------------------------
+    def model_coord(self) -> int:
+        """This rank's coordinate on the model axis."""
+        return 0 if self.groups is None else self.groups.model_coord
+
+    def model_psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the model group (its backward a psum too)."""
+        return C.model_all_reduce(x, self.groups.model, counter=self.counter)
+
+    def model_all_gather(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """Tiled gather along ``axis`` over the model group (its backward
+        the reduce-scatter)."""
+        return C.model_all_gather(x, self.groups.model, axis=axis, counter=self.counter)
+
+    def model_pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return C.model_pmax(x, self.groups.model, counter=self.counter)
+
+    def model_pmin(self, x: torch.Tensor) -> torch.Tensor:
+        return C.model_pmin(x, self.groups.model, counter=self.counter)

@@ -13,9 +13,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterable, Mapping
+from typing import Callable, Iterable, Mapping
 
 import torch
+
+from repro_torch.core import collectives as C
 
 # Any partition-group size we ever use (<= 32 data-parallel participants in
 # ZeRO-3 multi-pod mode) times the 128-lane alignment of the reference.
@@ -70,15 +72,24 @@ class FlatLayout:
     def param_count(self) -> int:
         return self.raw_len
 
-    def unflatten(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+    def unflatten(self, flat: torch.Tensor, *,
+                  model_gather_fn: Callable | None = None) -> dict[str, torch.Tensor]:
         """Rebuild tensors from a gathered flat vector, as views of it (no
-        copy).  Model-axis-sharded segments need no reassembly at tp = 1,
-        the only width this slice runs.  When ``flat`` carries a gradient
+        copy).  ``model_gather_fn(segment, tensor)`` reassembles the
+        segments stored sharded over the model axis (``model_gather`` > 1;
+        none at tp = 1: leave it None).  When ``flat`` carries a gradient
         the views come from :class:`Unflatten`, whose backward writes each
         segment's cotangent into one buffer."""
         if torch.is_grad_enabled() and flat.requires_grad:
-            return dict(zip((s.name for s in self.segments), Unflatten.apply(flat, self)))
-        return {s.name: flat[s.offset:s.end].view(s.shape) for s in self.segments}
+            views = Unflatten.apply(flat, self)
+        else:
+            views = tuple(flat[s.offset:s.end].view(s.shape) for s in self.segments)
+        out = {}
+        for s, t in zip(self.segments, views):
+            if s.model_gather > 1 and model_gather_fn is not None:
+                t = model_gather_fn(s, t)
+            out[s.name] = t
+        return out
 
     # -- masks ----------------------------------------------------------------
     def nodecay_ranges(self) -> list[tuple[int, int]]:
@@ -229,3 +240,25 @@ class LayoutBuilder:
 
     def build(self) -> FlatLayout:
         return FlatLayout.build(self._segments)
+
+
+# ---------------------------------------------------------------------------
+# model-axis gathering of sharded small segments
+# ---------------------------------------------------------------------------
+
+def model_gather_fn_for(groups, counter=None) -> Callable:
+    """The ``model_gather_fn`` of :meth:`FlatLayout.unflatten` over the
+    model axis of ``groups`` (a ``launch.mesh.MiCSGroups`` at tp > 1): a
+    segment with ``model_gather`` g is gathered along its
+    ``model_gather_dim`` over the whole model group when g = tp (norm
+    scales), else over the run of g ranks sharing one KV head (the
+    reference's ``axis_index_groups``).  The backward is the reduce-scatter
+    over the same group, so these parameters need no gradient fix-up."""
+    tp = groups.topo.model_size
+
+    def fn(seg: Segment, t: torch.Tensor) -> torch.Tensor:
+        g = seg.model_gather
+        group = groups.model if g == tp else groups.kv(g)
+        return C.model_all_gather(t, group, axis=seg.model_gather_dim, counter=counter)
+
+    return fn

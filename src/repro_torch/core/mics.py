@@ -9,7 +9,10 @@ compute is checkpointed, and the gather's adjoint (hop 1) hands each
 shard's gradient back in fp32, where it is added to the fp32 accumulator in
 micro-step order (0 + g1 + g2 ...).  At the boundary
 ``core/schedule.apply_boundary`` runs hop 2, the exact global-norm clip
-and AdamW on the flat fp32 shards.  All collectives belong to one
+and AdamW on the flat fp32 shards.  At tp > 1 (Megatron tensor
+parallelism under every partition group) a rank holds its model
+coordinate's shards, the layers sum their row-parallel outputs over the
+model group and the loss is vocab-parallel.  All collectives belong to one
 ``CommEngine`` over the process groups of ``launch/mesh.MiCSGroups``.
 Unlike the reference's jitted step, which returns a new state, this step
 updates the state's tensors in place and returns them.
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch.core.comm import CommEngine
 from repro_torch.core.schedule import BOUNDARY_SCHEDULES, CLIP_MODES, apply_boundary, plan_boundary
-from repro_torch.core.topology import MiCSTopology
+from repro_torch.core.topology import MODEL_AXIS, MiCSTopology
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import lm
@@ -107,41 +110,48 @@ class MiCSConfig:
 
 
 def local_flat_shapes(model: ModelDef, topo: MiCSTopology) -> dict[str, tuple[int, int, int]]:
-    """One rank's pool shapes ``[stack, tp, flat_len / p]`` (the reference's
-    ``P(None, model, partition_axes)``: the last dim cut over the partition
+    """One rank's pool shapes ``[stack, 1, flat_len / p]`` (the reference's
+    ``P(None, model, partition_axes)``: the global ``[stack, tp, flat_len]``
+    cut to the rank's model coordinate and its chunk of the partition
     group)."""
     p = topo.partition_size
-    return {name: (stack, tp, flat // p)
-            for name, (stack, tp, flat) in model.global_flat_shapes().items()}
+    return {name: (stack, 1, flat // p)
+            for name, (stack, _tp, flat) in model.global_flat_shapes().items()}
 
 
 def init_params(model: ModelDef, seed: int = 0, *, device: str | torch.device = "cuda",
                 topo: MiCSTopology = MiCSTopology(), rank: int = 0) -> dict[str, torch.Tensor]:
-    """``rank``'s fp32 flat pools ``{pool: [stack, tp, flat_len / p]}`` from
-    ``seed``: chunk ``topo.partition_coord(rank)`` of each full row.
+    """``rank``'s fp32 flat pools ``{pool: [stack, 1, flat_len / p]}`` from
+    ``seed``: chunk ``topo.partition_coord(rank)`` of each full row of the
+    rank's model coordinate.
 
     The ``params`` part of the reference's ``init_state`` (no m, v, step):
     each segment is normal(0, std), zeros or ones as its layout says.  Each
     pool draws its full rows, one at a time, from its own
     ``torch.Generator`` on ``device``, seeded with crc32("<seed>:<pool
-    name>") (32 bits: the CPU generator ignores higher bits), so pools do not
-    depend on each other's sizes and the state is a function of ``(model,
-    seed)``, not of the topology.  The draws differ from JAX's;
-    ``repro_torch.convert`` carries JAX weights over where equal values are
-    needed.
+    name>") (32 bits: the CPU generator ignores higher bits), in the order
+    (layer, model coordinate), so pools do not depend on each other's sizes
+    and the state is a function of ``(model, seed)``, not of the topology.
+    As in the reference, tp > 1 draws another logical model than tp = 1
+    (``repro_torch.convert.tp_params_from_full`` cuts a tp = 1 model into
+    tp shards instead).  The draws differ from JAX's; ``repro_torch.convert``
+    carries JAX weights over where equal values are needed.
     """
     dev = resolve_device(device)
     shapes = local_flat_shapes(model, topo)
+    coord = topo.rank_coords(rank)[MODEL_AXIS]
     params = {}
     for pool in model.all_pools():
         gen = torch.Generator(device=dev)
         gen.manual_seed(zlib.crc32(f"{seed}:{pool.name}".encode()))
-        stack, tp, shard = shapes[pool.name]
+        stack, _, shard = shapes[pool.name]
         lo = topo.partition_coord(rank) * shard
-        rows = torch.empty((stack, tp, shard), dtype=torch.float32, device=dev)
+        rows = torch.empty((stack, 1, shard), dtype=torch.float32, device=dev)
         for i in range(stack):
-            for j in range(tp):
-                rows[i, j] = pool.layout.init_flat(gen, device=dev)[lo:lo + shard]
+            for j in range(model.tp):
+                row = pool.layout.init_flat(gen, device=dev)
+                if j == coord:
+                    rows[i, 0] = row[lo:lo + shard]
         params[pool.name] = rows
     return params
 
@@ -175,10 +185,6 @@ def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology, family: str = "dense",
                 "the port trains with the default")
     if mcfg.scores_bf16:
         raise NotImplementedError("bf16 attention scores: the kernels keep fp32 scores")
-    if topo.model_size != 1:
-        raise NotImplementedError(
-            f"tp {topo.model_size}: tensor parallelism waits for ROADMAP Queue 1 item 2's "
-            "second half (the model_gather segments)")
 
 
 def _check_state(model: ModelDef, topo: MiCSTopology, state: dict, dev: torch.device) -> None:
@@ -204,10 +210,14 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
     them and ``step + 1``.  ``step_fn.comm`` is the step's ``CommEngine``."""
     dev = resolve_device(device)
     refuse_unported(mcfg, topo, model.cfg.family, dev)
+    if model.tp != topo.model_size:
+        raise ValueError(f"the model is built for tp = {model.tp}, the topology has "
+                         f"tp = {topo.model_size}")
     comm = CommEngine.from_config(topo, mcfg, groups=groups)
     boundary = plan_boundary(model, topo, mode=mcfg.boundary_schedule,
                              bucket_mb=mcfg.hop2_bucket_mb, clip_mode=mcfg.clip_mode)
-    ctx = L.Ctx(mode="train", tp=topo.model_size, compute_dtype=mcfg.gather_dtype)
+    ctx = L.Ctx(mode="train", tp=topo.model_size, compute_dtype=mcfg.gather_dtype,
+                comm=comm)
     s = mcfg.micro_steps
     denom = float(s * topo.data_parallel_size)
 
@@ -247,10 +257,18 @@ def accumulate_grads(model: ModelDef, comm: CommEngine, ctx: L.Ctx, params: dict
             rows[name].append(row)
     loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
     aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    # Every model rank holds the same loss and seeds its backward with 1/tp.
+    # Each psum's backward is a psum and each model gather's a
+    # reduce-scatter (the reference's transposes), which add the tp seeds
+    # back to one: the gradients are the loss's own.  The reference seeds
+    # every rank with 1 under shard_map(..., check_vma=False), so its
+    # gradients at tp > 1 are tp times these (ROADMAP Queue 3).  1/tp is
+    # exact for tp a power of two.
+    seed = torch.full((), 1.0 / ctx.tp, dtype=torch.float32, device=dev)
     for mb in range(batch["tokens"].shape[0]):
         micro = {k: v[mb] for k, v in batch.items()}
         loss, metrics = lm.loss_fn(model, rows, comm, ctx, micro)
-        loss.backward()
+        loss.backward(seed)
         loss_sum = loss_sum + metrics["loss"].detach()
         aux_sum = aux_sum + metrics["aux"]
     return grads, loss_sum, aux_sum

@@ -5,9 +5,10 @@
 
 :func:`init_distributed` joins the world that ``torchrun`` describes in
 ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``;
-:func:`make_mics_topology` lays the world out as ``(repl, shard)`` (the
-reference's ``make_mics_topology`` over a one-pod mesh); :class:`MiCSGroups`
-builds every process group of that topology.
+:func:`make_mics_topology` lays the world out as ``(repl, shard, model)``
+(the reference's ``make_mics_topology`` over a one-pod mesh; ``model`` is
+the innermost axis, so a model group is ``tp`` consecutive ranks);
+:class:`MiCSGroups` builds every process group of that topology.
 
 The backend is an argument, never a fall-back: ``nccl`` takes one card a
 rank (it refuses two ranks on one card), ``gloo`` runs anywhere and carries
@@ -25,6 +26,7 @@ import torch.distributed as dist
 from repro_torch.core.collectives import Group
 from repro_torch.core.topology import (
     DATA_AXES,
+    MODEL_AXIS,
     REPL_AXIS,
     REPLICATION_AXES,
     SHARD_AXIS,
@@ -100,7 +102,12 @@ class MiCSGroups:
     > 1), the two stage groups of the staged gather (``outer``: the same
     local rank, strided by ``inner``; ``inner``: runs of ``inner``
     consecutive ranks; the reference's ``_stage_groups``); for a partition
-    group over several axes, one group an axis (``axis[name]``).
+    group over several axes, one group an axis (``axis[name]``).  At tp > 1,
+    the ``model`` group (the ranks that differ only on the model axis, in
+    model-coordinate order) and, for each g with 1 < g < tp dividing tp,
+    the contiguous runs of g ranks of a model group that reassemble one KV
+    head (the reference's ``axis_index_groups`` in
+    ``flat_param.model_gather_fn_for``; :meth:`kv`).
 
     ``new_group`` is collective, so every rank creates every group, in the
     same order, including the groups it is not in."""
@@ -120,6 +127,17 @@ class MiCSGroups:
         self.partition = self._mine("partition", topo.partition_groups())
         self.replication = self._mine("replication", topo.replication_groups())
         self.partition_coord = topo.partition_coord(rank)
+        self.model_coord = topo.rank_coords(rank)[MODEL_AXIS]
+        self.model = None
+        self._kv: dict[int, Group] = {}
+        tp = topo.model_size
+        if tp > 1:
+            models = topo.axis_groups(MODEL_AXIS)
+            self.model = self._mine("model", models)
+            for g in range(2, tp):
+                if tp % g == 0:
+                    self._kv[g] = self._mine("kv", [m[i * g:(i + 1) * g] for m in models
+                                                    for i in range(tp // g)])
         p = topo.partition_size
         self.inner = None
         self.outer_group = self.inner_group = None
@@ -154,6 +172,13 @@ class MiCSGroups:
         if mine is None:
             raise ValueError(f"rank {self.rank} is in no {name} group")
         return mine
+
+    def kv(self, g: int) -> Group:
+        """The run of ``g`` consecutive ranks of this rank's model group
+        (1 < g < tp) that reassembles its KV head."""
+        if g not in self._kv:
+            raise ValueError(f"no KV gather group of {g} ranks at tp = {self.topo.model_size}")
+        return self._kv[g]
 
     def stage_groups(self, inner: int) -> tuple[Group, Group]:
         """``(outer, inner)`` stage groups of the single-axis staged gather

@@ -7,13 +7,17 @@
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch llama3.2-1b --smoke --device cpu --dist-backend gloo \
       --partition-size 4 --gather-order outer_first --steps 4  # 4 ranks
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch llama3.2-1b --smoke --device cpu --dist-backend gloo \
+      --partition-size 2 --tp 2 --steps 4                      # p 2 x tp 2
 
 Weights are random, made from ``--seed``; the data is the seeded synthetic
 stream.  The flags are the reference's (``repro/launch/train.py``) plus
 ``--device``, ``--dist-backend`` (``nccl``: one card a rank; ``gloo``:
 anywhere, CUDA tensors through pinned host buffers; required when
-``WORLD_SIZE`` > 1) and ``--dist-timeout-s``.  Under ``torchrun`` the world
-is laid out as ``(repl, shard = --partition-size)``, or as ZeRO-3 with
+``WORLD_SIZE`` > 1), ``--dist-timeout-s`` and ``--tp``.  Under ``torchrun``
+the world is laid out as ``(repl, shard = --partition-size, model = --tp)``
+(the reference sizes its model axis from the mesh), or as ZeRO-3 with
 ``--zero3``.  A setting the port does not run yet (``--policy auto``,
 ``--quant-gather``, a hop-1 wire other than fp32, ``--prefetch-carry
 remat``, ``--carry-offload host``, ``--offload-opt``, ``--clip-mode
@@ -79,6 +83,8 @@ def main(argv=None):
     ap.add_argument("--hierarchy-inner", type=int, default=None,
                     help="inner factor of the staged gather (default: largest power of two "
                          "<= sqrt(p))")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: the model axis, tp consecutive ranks")
     ap.add_argument("--dist-backend", choices=BACKENDS, default=None,
                     help="collectives backend, required when WORLD_SIZE > 1")
     ap.add_argument("--dist-timeout-s", type=float, default=600.0)
@@ -97,7 +103,8 @@ def main(argv=None):
     if args.smoke:
         cfg = smoke_variant(cfg)
     p = args.partition_size if args.partition_size is not None or world > 1 else 1
-    topo = make_mics_topology(world, p, zero3=args.zero3, param_count=cfg.param_count())
+    topo = make_mics_topology(world, p, zero3=args.zero3, tp=args.tp,
+                              param_count=cfg.param_count())
     if world > 1:
         groups = MiCSGroups(topo, rank, backend=args.dist_backend, inner=args.hierarchy_inner,
                             timeout=datetime.timedelta(seconds=args.dist_timeout_s))
@@ -123,7 +130,7 @@ def main(argv=None):
     if world > 1:
         say(f"ranks: {world} over {args.dist_backend}, p={topo.partition_size} "
             f"({'ZeRO-3 ' if args.zero3 else ''}partition axes {list(topo.partition_axes)}), "
-            f"{topo.replication_degree} replica(s), gather "
+            f"{topo.replication_degree} replica(s), tp={topo.model_size}, gather "
             f"{'flat' if args.no_hierarchical else args.gather_order}")
     say(f"boundary: {mcfg.boundary_schedule} x {bplan.n_buckets} buckets "
         f"({mcfg.hop2_bucket_mb:g} MB, clip={bplan.clip_mode})")

@@ -61,15 +61,12 @@ def attn_qkv(t, x, kv_x, ad: AttnDims, ctx: L.Ctx, prefix: str, *, bias: bool):
 
 
 def attn_out(t, attn: torch.Tensor, ad: AttnDims, ctx: L.Ctx, prefix: str, *, bias: bool):
-    """attn [b,t,hkv_local,g,dh] -> [b,t,d]."""
+    """attn [b,t,hkv_local,g,dh] -> [b,t,d] (full, post-psum)."""
     bsz, tq = attn.shape[:2]
     if ad.hq != ad.hq_pad:  # multiplying by a mask of ones is the identity
         hmask = L.local_head_mask(ad.hq, ad.hq_pad, ad.hq_local, ctx).to(attn.device)
         attn = attn * hmask.reshape(1, 1, ad.hkv_local, ad.q_per_kv_local, 1).to(attn.dtype)
-    out = attn.reshape(bsz, tq, ad.q_cols_local) @ t[prefix + "wo"]
-    if ctx.tp != 1:
-        raise NotImplementedError(
-            "tensor parallelism (tp > 1) waits for ROADMAP Queue 1 item 2")
+    out = L.tp_psum(attn.reshape(bsz, tq, ad.q_cols_local) @ t[prefix + "wo"], ctx)
     if bias:
         out = out + t[prefix + "bo"].to(out.dtype)
     return out
@@ -167,14 +164,15 @@ def mlp_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = "mlp.")
 
 
 def mlp_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, prefix: str = "mlp."):
-    if ctx.tp != 1:
-        raise NotImplementedError(
-            "tensor parallelism (tp > 1) waits for ROADMAP Queue 1 item 2")
+    """Column-parallel gate and up projections, row-parallel down
+    projection, then the psum over the model group."""
     if cfg.mlp == "swiglu":
-        return L.mlp_swiglu(x, t[prefix + "wg"], t[prefix + "wu"], t[prefix + "wd"])
-    if cfg.mlp == "geglu":
-        return L.mlp_geglu(x, t[prefix + "wg"], t[prefix + "wu"], t[prefix + "wd"])
-    raise NotImplementedError(f"mlp {cfg.mlp!r}: the port runs swiglu and geglu so far")
+        out = L.mlp_swiglu(x, t[prefix + "wg"], t[prefix + "wu"], t[prefix + "wd"])
+    elif cfg.mlp == "geglu":
+        out = L.mlp_geglu(x, t[prefix + "wg"], t[prefix + "wu"], t[prefix + "wd"])
+    else:
+        raise NotImplementedError(f"mlp {cfg.mlp!r}: the port runs swiglu and geglu so far")
+    return L.tp_psum(out, ctx)
 
 
 def strip_prefix(t: dict, prefix: str) -> dict:

@@ -3,11 +3,13 @@ parameter gather routed through the ``CommEngine`` (the port of
 ``repro/models/lm.py``: the serve entry points and the training loss).
 
 A ``Pool`` is a stack of identical layers whose parameters live in one flat
-buffer per layer (``[stack, tp, flat_len]``).  The forward pass loops over
-the stack; each layer's flat row is gathered (one call per layer, the
-paper's coalesced gather), unflattened into views, and applied.  The flat
-rows of a pool are a ``[stack, tp, S]`` tensor, or, on the training path,
-a list of ``[S]`` rows that each carry a gradient.
+buffer per layer and model coordinate (``[stack, tp, flat_len]`` in all).
+The forward pass loops over the stack; each layer's flat row is gathered
+(one call per layer, the paper's coalesced gather), unflattened into views
+(the segments stored sharded over the model axis gathered along it at tp >
+1), and applied.  A rank's flat rows of a pool are a ``[stack, 1, S]``
+tensor (its model coordinate's), or, on the training path, a list of
+``[S]`` rows that each carry a gradient.
 
 Two schedules (``CommEngine.prefetch`` selects):
 
@@ -108,7 +110,7 @@ def _pool_caches(caches, new: list):
 
 
 def _row(flat_rows, i: int) -> torch.Tensor:
-    """Layer i's flat row: of a ``[stack, tp, S]`` pool tensor, or the i-th
+    """Layer i's flat row: of a ``[stack, 1, S]`` pool tensor, or the i-th
     of a list of rows (the training path's leaves)."""
     return flat_rows[i] if isinstance(flat_rows, (list, tuple)) else flat_rows[i, 0]
 
@@ -130,7 +132,7 @@ def _checkpointed(fn, *args):
 
 
 def _apply_pool(pool: Pool, flat_rows, x, ctx: L.Ctx, comm, caches=None):
-    """Run a pool over its stack.  flat_rows: [stack, tp, S_local], or a
+    """Run a pool over its stack.  flat_rows: [stack, 1, S_local], or a
     list of [S_local] rows."""
     if comm.prefetch and pool.stack > 1:
         return _apply_pool_prefetch(pool, flat_rows, x, ctx, comm, caches)
@@ -251,12 +253,20 @@ def init_caches(model: ModelDef, batch: int, cache_len: int, *,
 
 
 def greedy_sample(logits_local: torch.Tensor, ctx: L.Ctx, vocab_real: int) -> torch.Tensor:
-    """Argmax over the logits' last dim, padded vocab columns masked."""
-    if ctx.tp != 1:
-        raise NotImplementedError(
-            "tensor parallelism (tp > 1) waits for ROADMAP Queue 1 item 2")
+    """Argmax over the vocab-parallel logits (this rank's columns
+    ``tp_index * V/tp ...``), padded vocab columns masked; at tp > 1 the
+    local argmax, the pmax of the maxima and the pmin of the candidate
+    indices (ties go to the lowest global column)."""
     vl = logits_local.shape[-1]
+    start = ctx.tp_index() * vl
     lg = logits_local.float()
-    col = torch.arange(vl, device=lg.device)
+    col = start + torch.arange(vl, device=lg.device)
     lg = torch.where(col < vocab_real, lg, torch.full_like(lg, L.NEG_INF))
-    return torch.argmax(lg, dim=-1)
+    local_arg = torch.argmax(lg, dim=-1) + start
+    if ctx.tp == 1:
+        return local_arg
+    local_max = torch.amax(lg, dim=-1)
+    gmax = ctx.comm.model_pmax(local_max)
+    cand = torch.where(local_max >= gmax, local_arg,
+                       torch.full_like(local_arg, torch.iinfo(torch.int64).max))
+    return ctx.comm.model_pmin(cand)

@@ -98,10 +98,10 @@ def rglru_step(t, x1, state, prefix: str = "rec."):
 def griffin_rec_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, cache=None, prefix: str = ""):
     """Returns (x, new_cache).  Decode writes the new conv state and ``h``
     IN PLACE into ``cache``'s tensors (JAX returns new arrays) and returns
-    the same dict; prefill returns a fresh {conv (bf16), h (fp32)}."""
-    if ctx.tp != 1:
-        raise NotImplementedError(
-            "tensor parallelism (tp > 1) waits for ROADMAP Queue 1 item 2")
+    the same dict; prefill returns a fresh {conv (bf16), h (fp32)}.  At
+    tp > 1 the LRU width is sharded (``rl = lru_width / tp`` channels a
+    rank: the conv, the gates and the RG-LRU run on them) and ``rec.wo``'s
+    output is summed over the model group."""
     tt = strip_prefix(t, prefix)
     h = apply_norm(cfg, tt, x, "ln1")
     xa = h @ tt["rec.wx"]
@@ -118,8 +118,7 @@ def griffin_rec_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, cache=None, prefix: str
         new_cache = None
         if ctx.mode == "prefill":
             new_cache = {"conv": conv_state.to(torch.bfloat16).contiguous(), "h": h_last}
-    out = (rec * xb) @ tt["rec.wo"]
-    x = x + out
+    x = x + L.tp_psum((rec * xb) @ tt["rec.wo"], ctx)
     h = apply_norm(cfg, tt, x, "ln2")
     x = x + mlp_apply(cfg, tt, h, ctx, "mlp.")
     return x, new_cache

@@ -9,10 +9,11 @@ in a device synchronise, flags stragglers against an EWMA of the step
 time, saves every ``checkpoint_every`` steps and once at the end.
 
 Over several ranks (``groups``, a ``launch.mesh.MiCSGroups``) each rank
-holds its shards of the state, takes its slice of each step's global batch
+holds its shards of the state (its model coordinate's at tp > 1), takes
+its slice of each step's global batch
 (``SyntheticLM.host_step_batch(cursor, data_rank, dp)``, so the global
-batch does not depend on the topology) and writes its own shards; only
-rank 0 logs.
+batch does not depend on the topology; the ranks of one data rank's model
+group take the same slice) and writes its own shards; only rank 0 logs.
 
 Rollback-and-retry on faults, ``ElasticConfig`` world changes and
 straggler eviction come with the elastic slice (ROADMAP Queue 1 item 5, the

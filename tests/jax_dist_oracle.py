@@ -1,7 +1,7 @@
 """The JAX package's answers to the cases of ``torch_dist_cases.py`` on 4
 virtual CPU devices, jitted, written to ``<out>/jax_<mode>.npz``.
 
-    python tests/jax_dist_oracle.py collectives|train|init OUT_DIR
+    python tests/jax_dist_oracle.py collectives|train|init|tp_layers|tp_train OUT_DIR
 
 ``collectives``: ``repro.core.collectives`` under ``shard_map`` on
 ``make_host_mesh`` meshes, each device's input row r of the case's input,
@@ -9,7 +9,8 @@ its output row r of the result.  ``train``: ``repro.core.mics``'s
 ``init_state`` and ``build_train_step`` for the smoke llama3.2-1b, STEPS
 steps a case: each step's loss and grad_norm, the initial and final global
 state.  ``init``: that initial state alone, from one device (the state is
-a function of the model and the seed, not of the layout).
+a function of the model and the seed, not of the layout).  ``tp_layers``
+and ``tp_train``: the tensor-parallel cases (see those functions).
 """
 
 import os
@@ -34,8 +35,12 @@ JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
 
 
 def topology(layout: str) -> MiCSTopology:
-    (pod, repl, shard, dp2), part, rep = K.LAYOUTS[layout]
-    mesh = make_host_mesh(pod, repl, shard, 1, dp2)
+    return topology_of(*K.LAYOUTS[layout])
+
+
+def topology_of(dims, part, rep) -> MiCSTopology:
+    pod, repl, shard, dp2, model = dims
+    mesh = make_host_mesh(pod, repl, shard, model, dp2)
     return MiCSTopology(mesh, partition_axes=part, replication_axes=rep)
 
 
@@ -123,9 +128,174 @@ def init() -> dict:
             for k, v in state[part].items()}
 
 
+def per_rank(topo: MiCSTopology, fn, ins: dict, n_out: int) -> list[np.ndarray]:
+    """``fn(**inputs)`` -> ``n_out`` arrays on each device, each input a
+    ``[WORLD, ...]`` array whose row r is device r's; the outputs stacked
+    the same way (in fp32)."""
+    names = list(ins) or ["_"]
+    arrays = [jnp.asarray(ins[n]) for n in ins] or [jnp.zeros((K.WORLD, 1))]
+    spec = P(MICS_AXES)
+
+    def body(*vs):
+        outs = fn(**{n: v[0] for n, v in zip(names, vs) if n != "_"})
+        return tuple(o[None] for o in outs)
+
+    run = jax.jit(shard_map(body, mesh=topo.mesh, in_specs=(spec,) * len(names),
+                            out_specs=(spec,) * n_out, check_vma=False))
+    return [np.asarray(o.astype(jnp.float32)) for o in run(*arrays)]
+
+
+def tp_layers() -> dict:
+    """Each case of ``K.TP_LAYER_CASES`` at tp 4 (``K.LAYOUTS['T4']``): the
+    reference's layer functions under ``shard_map(..., check_vma=False)``,
+    gradients by ``jax.vjp`` with each rank's cotangent."""
+    from repro.configs import get_config, smoke_variant
+    from repro.configs.base import ArchConfig
+    from repro.core.flat_param import Segment, model_gather_fn_for
+    from repro.core.topology import MODEL_AXIS
+    from repro.models import blocks, lm, recurrent
+    from repro.models import layers as L
+    from repro.models.dims import attn_dims
+
+    topo = topology("T4")
+    out = {f"groups.{lay}.devices": np.vectorize(lambda d: d.id)(topology(lay).mesh.devices)
+           for lay in ("T4", "P2T2")}
+    for name in K.TP_LAYER_CASES:
+        kind, _, tag = name.partition(":")
+        dt = JDT.get(tag, jnp.float32)
+        ctx = L.Ctx(mode="train", tp=K.TP, tp_axis=MODEL_AXIS, compute_dtype=dt)
+        _, ins = K.tp_layer_case(name)
+        if kind == "embed":
+            def fn(table, ids, ct, ctx=ctx):
+                y, vjp = jax.vjp(lambda tb: L.embed_lookup(tb, ids, ctx), table)
+                return y, vjp(ct)[0]
+            keys = ("out", "d_table")
+        elif kind == "xent":
+            def fn(logits, targets, mask, ctx=ctx):
+                return jax.value_and_grad(lambda lg: L.tp_cross_entropy(
+                    lg, targets, mask, vocab_real=K.VR, vocab_padded=K.VP, ctx=ctx))(logits)
+            keys = ("loss", "d_logits")
+        elif kind == "attn_out":
+            ad = attn_dims(K.ATTN["d"], K.ATTN["hq"], K.ATTN["hkv"], K.ATTN["dh"], K.TP)
+
+            def fn(attn, wo, ct, ctx=ctx, ad=ad, dt=dt):
+                y, vjp = jax.vjp(lambda a, w: blocks.attn_out(
+                    {"attn.wo": w}, a, ad, ctx, "attn.", bias=False), attn.astype(dt),
+                    wo.astype(dt))
+                return (y, *vjp(ct.astype(dt)))
+            keys = ("out", "d_attn", "d_wo")
+        elif kind == "mlp":
+            cfg = ArchConfig(name="m", family="dense", n_layers=1, d_model=16, n_heads=4,
+                             n_kv_heads=4, d_ff=32, vocab=256)
+
+            def fn(x, wg, wu, wd, ct, ctx=ctx, cfg=cfg, dt=dt):
+                y, vjp = jax.vjp(lambda *a: blocks.mlp_apply(
+                    cfg, {"mlp.wg": a[1], "mlp.wu": a[2], "mlp.wd": a[3]}, a[0], ctx),
+                    *(v.astype(dt) for v in (x, wg, wu, wd)))
+                return (y, *vjp(ct.astype(dt)))
+            keys = ("out", "d_x", "d_wg", "d_wu", "d_wd")
+        elif kind == "gather":
+            g, dim = K.gather_case(name)
+            seg = Segment("w", ins["local"].shape[1:], 0, True, "normal", 1.0,
+                          model_gather=g, model_gather_dim=dim)
+            gather = model_gather_fn_for(MODEL_AXIS, K.TP)
+
+            def fn(local, ct, seg=seg, gather=gather):
+                y, vjp = jax.vjp(lambda t: gather(seg, t), local)
+                return y, vjp(ct)[0]
+            keys = ("out", "grad")
+        elif kind == "head_mask":
+            def fn(ctx=ctx):
+                return (L.local_head_mask(10, 12, 3, ctx),)
+            keys = ("mask",)
+        elif kind == "griffin_rec":
+            cfg = smoke_variant(get_config("recurrentgemma-2b"))
+            names = list(K.GRIFFIN_REC_CUT)
+
+            def fn(ctx=ctx, cfg=cfg, names=names, **kw):
+                def f(x, *ws):
+                    return recurrent.griffin_rec_apply(cfg, dict(zip(names, ws)), x, ctx)[0]
+                y, vjp = jax.vjp(f, kw["x"], *(kw[n] for n in names))
+                return (y, *vjp(kw["ct"]))
+            keys = ("out", "d_x", *(f"d_{n}" for n in names))
+        elif kind == "greedy":
+            def fn(logits, ctx=ctx):
+                return (lm.greedy_sample(logits[:, None, :], ctx, K.VR)[:, 0],)
+            keys = ("ids",)
+        else:
+            raise KeyError(name)
+        res = per_rank(topo, fn, ins, len(keys))
+        out.update({f"{name}.{k}": v for k, v in zip(keys, res)})
+    return out
+
+
+def loss_and_grads(model, topo: MiCSTopology, params: dict, batch: dict, jdt) -> tuple:
+    """The reference's loss and its gradients at ``topo`` on one micro-batch
+    (``[GLOBAL_B, SEQ]``), jitted under ``shard_map(..., check_vma=False)``
+    as ``build_train_step`` runs them: each device's loss ``[devices]`` and
+    the global gradients of its pools (hop 1 summed over each partition
+    group, no hop 2)."""
+    from repro.core.comm import CommEngine
+    from repro.core.mics import MiCSConfig, batch_pspecs, state_pspecs
+    from repro.core.topology import MODEL_AXIS
+    from repro.models import layers as L
+    from repro.models import lm
+
+    comm = CommEngine.from_config(topo, MiCSConfig(gather_dtype=jdt))
+    ctx = L.Ctx(mode="train", tp=topo.model_size, tp_axis=MODEL_AXIS, compute_dtype=jdt)
+    pspec = state_pspecs(model, topo)["params"]
+
+    def f(p, b):
+        (loss, _), g = jax.value_and_grad(
+            lambda q: lm.loss_fn(model, q, comm, ctx, b), has_aux=True)(p)
+        return loss.reshape(1), g
+
+    run = jax.jit(shard_map(f, mesh=topo.mesh,
+                            in_specs=(pspec, batch_pspecs(model, topo, micro=False)),
+                            out_specs=(P(MICS_AXES), pspec), check_vma=False))
+    loss, grads = run({k: jnp.asarray(v) for k, v in params.items()},
+                      {k: jnp.asarray(v) for k, v in batch.items()})
+    return np.asarray(loss), {k: np.asarray(v) for k, v in grads.items()}
+
+
+def tp_train() -> dict:
+    """For each fp32 case of ``K.TP_TRAINS``: the reference's loss and
+    gradients at the case's layout on the cut weights
+    (``repro_torch.convert.tp_params_from_full`` of ``K.numpy_params``), and
+    at the same layout with tp 1 on the whole weights (``<case>.tp1.*``),
+    on the first micro-batch of ``K.tp_batch()``."""
+    import dataclasses
+
+    from repro.configs import get_config, smoke_variant
+    from repro.models.build import build_model
+    from repro_torch.configs import get_config as port_config
+    from repro_torch.convert import tp_params_from_full
+    from repro_torch.models.build import build_model as port_model
+
+    batch = {k: v[0] for k, v in K.tp_batch().items()}
+    out = {}
+    for name, (arch, lay, wire, over) in K.TP_TRAINS.items():
+        if wire != "fp32":
+            continue
+        topo = topology(lay)
+        tp = topo.model_size
+        cfg = dataclasses.replace(smoke_variant(get_config(arch)), **over)
+        pcfg = dataclasses.replace(smoke_variant(port_config(arch)), **over)
+        params1 = K.numpy_params(build_model(cfg, tp=1), name)
+        params = tp_params_from_full(port_model(pcfg, tp), port_model(pcfg, 1), params1)
+        loss, grads = loss_and_grads(build_model(cfg, tp=tp), topo, params, batch, jnp.float32)
+        loss1, grads1 = loss_and_grads(build_model(cfg, tp=1), topology_of(*K.tp1_layout(lay)),
+                                       params1, batch, jnp.float32)
+        out[f"{name}.loss"], out[f"{name}.tp1.loss"] = loss, loss1
+        out.update({f"{name}.grads.{k}": v for k, v in grads.items()})
+        out.update({f"{name}.tp1.grads.{k}": v for k, v in grads1.items()})
+    return out
+
+
 def main():
     mode, out_dir = sys.argv[1], pathlib.Path(sys.argv[2])
-    res = {"collectives": collectives, "train": train, "init": init}[mode]()
+    res = {"collectives": collectives, "train": train, "init": init,
+           "tp_layers": tp_layers, "tp_train": tp_train}[mode]()
     np.savez(out_dir / f"jax_{mode}.npz", **res)
 
 

@@ -36,9 +36,7 @@ def results(tmp_path_factory):
 
 
 def _topo(layout):
-    (pod, repl, shard, dp2), part, rep = K.LAYOUTS[layout]
-    return T.MiCSTopology(pod=pod, repl=repl, shard=shard, dp2=dp2, partition_axes=part,
-                          replication_axes=rep)
+    return T.MiCSTopology(**K.topo_kwargs(layout))
 
 
 @pytest.mark.parametrize("layout", list(K.LAYOUTS))

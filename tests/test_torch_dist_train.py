@@ -7,9 +7,16 @@ and against the port at p = 1 on the same global batch, both within
 2-hop one; bitwise at p > 1: serial == prefetch, serial == bucketed
 boundary, a repeated step; the train loop resumed from its
 checkpoint at layout B; a griffin step at layout A against p = 1; the
-launcher under ``torchrun``.  ``gpu`` tests run the ranks' collectives on
+launcher under ``torchrun``.  Tensor parallelism (``K.TP_TRAINS``): one
+step of llama at p 2 x tp 2 and griffin at tp 4 and p 2 x tp 2 against the
+JAX package at the same layout (gradients divided by the reference's
+factor tp) and against the port at tp 1 on the same weights, the step's
+collective counts, serial == prefetch bitwise, and the reference's
+factor itself.  ``gpu`` tests run the ranks' collectives on
 CUDA tensors over gloo on one card."""
 
+import dataclasses
+import json
 import os
 import pathlib
 import subprocess
@@ -23,7 +30,7 @@ import numpy as np  # noqa: E402
 
 import torch_dist_cases as K  # noqa: E402
 from repro_torch.configs import get_config, smoke_variant  # noqa: E402
-from repro_torch.convert import state_from_jax  # noqa: E402
+from repro_torch.convert import state_from_jax, tp_params_from_full  # noqa: E402
 from repro_torch.core.mics import MiCSConfig, build_train_step  # noqa: E402
 from repro_torch.core.topology import MiCSTopology  # noqa: E402
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
@@ -35,6 +42,10 @@ from test_torch_train import TOL  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TDT = {"fp32": torch.float32, "bf16": torch.bfloat16}
 PARTS = ("params", "m", "v")
+# The port at a TP layout against the JAX package at that layout, fp32, one
+# micro-batch (gradients divided by the reference's factor tp): measured
+# loss 1e-7 and gradients 2e-6 of each pool's largest value.
+TOL_TP_JAX = {"loss": 1e-6, "grads": 1e-5}
 
 
 def _init(npz) -> dict:
@@ -88,9 +99,7 @@ def runs(tmp_path_factory):
 
 
 def _topo(layout):
-    (pod, repl, shard, dp2), part, rep = K.LAYOUTS[layout]
-    return MiCSTopology(pod=pod, repl=repl, shard=shard, dp2=dp2, partition_axes=part,
-                        replication_axes=rep)
+    return MiCSTopology(**K.topo_kwargs(layout))
 
 
 def _global(got: dict, key: str, topo: MiCSTopology) -> np.ndarray:
@@ -207,6 +216,199 @@ def test_griffin_step_at_layout_A_matches_p1(runs):
     got, _, p1, _ = runs
     assert all(np.array_equal(got["griffin"][r], got["griffin"][0]) for r in range(K.WORLD))
     _check_metrics(got["griffin"][0], p1["griffin"], TOL["bf16"])
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: llama at p 2 x tp 2, griffin at tp 4 and p 2 x tp 2
+# ---------------------------------------------------------------------------
+
+def _tp_config(name):
+    arch, _, _, over = K.TP_TRAINS[name]
+    return dataclasses.replace(smoke_variant(get_config(arch)), **over)
+
+
+def _tp1_step(name):
+    """The port at tp = 1 and p = 1 on the whole weights and the whole
+    global batch: one step's (loss, grad_norm) and state."""
+    model = build_model(_tp_config(name), tp=1)
+    params = {k: torch.from_numpy(v) for k, v in K.numpy_params(model, name).items()}
+    state = {"params": params, "step": 0,
+             **{part: {k: torch.zeros_like(v) for k, v in params.items()} for part in ("m", "v")}}
+    step = build_train_step(model, MiCSTopology(), MiCSConfig(
+        micro_steps=K.MICRO, gather_dtype=TDT[K.TP_TRAINS[name][2]]), OptConfig(**K.OPT),
+        device="cpu")
+    state, m = step(state, K.tp_batch())
+    return (np.asarray([[m["loss"].item(), m["grad_norm"].item()]]),
+            {part: {k: v.numpy() for k, v in state[part].items()} for part in PARTS})
+
+
+@pytest.fixture(scope="module")
+def tp_runs(tmp_path_factory):
+    """The reference's losses and gradients at each TP layout and at tp 1
+    (4 virtual devices) and the port's 4 gloo ranks run as subprocesses;
+    the port's tp = 1 steps run here meanwhile."""
+    out = tmp_path_factory.mktemp("tp_train")
+    jax_proc = K.start("jax_dist_oracle.py", "tp_train", str(out))
+    port = K.start("torch_dist_harness.py", "tp_train", str(out))
+    tp1 = {name: _tp1_step(name) for name in K.TP_TRAINS}
+    K.finish(port, 300)
+    K.finish(jax_proc, 300)
+    return (K.load_ranks(str(out / "port_tp_train.rank{r}.npz")),
+            dict(np.load(out / "jax_tp_train.npz")), tp1)
+
+
+def _tp_global(got: dict, key: str, topo: MiCSTopology) -> np.ndarray:
+    """A pool's global ``[stack, tp, flat_len]`` from the ranks' shards:
+    for each model coordinate, the chunks of its first partition group in
+    partition-coordinate order."""
+    cols = []
+    for group in topo.partition_groups()[:topo.model_size]:
+        cols.append(np.concatenate([got[key][r] for r in group], axis=-1))
+    return np.concatenate(cols, axis=1)
+
+
+def _tp_models(name):
+    cfg = _tp_config(name)
+    topo = _topo(K.TP_TRAINS[name][1])
+    return topo, build_model(cfg, tp=topo.model_size), build_model(cfg, tp=1)
+
+
+def _jax_factor(want: dict, name: str, pool: str) -> tuple[float, float]:
+    """The reference's gradient at the TP layout against its gradient at tp
+    1 cut the same way: the least-squares factor and the largest
+    elementwise misfit of that factor, relative to the largest value."""
+    topo, model, model_1 = _tp_models(name)
+    cut = tp_params_from_full(model, model_1, {pool: want[f"{name}.tp1.grads.{pool}"]})[pool]
+    g = want[f"{name}.grads.{pool}"]
+    f = float((g * cut).sum() / (cut * cut).sum())
+    return f, float(np.abs(g - f * cut).max() / np.abs(g).max())
+
+
+TP_JAX = [n for n, c in K.TP_TRAINS.items() if c[2] == "fp32"]
+
+
+@pytest.mark.parametrize("name", TP_JAX)
+def test_tp_step_matches_jax_at_the_same_layout(tp_runs, name):
+    """The loss of every rank, and the gradients of one micro-batch divided
+    by the reference's factor tp (``test_reference_gradients_at_tp_are_tp_
+    times``), within ``TOL_TP_JAX`` (fp32: the same sums in other orders)
+    of the JAX package at the same layout, griffin on the reference's
+    basis (rec0's gradient on rec1)."""
+    got, want, _ = tp_runs
+    topo, model, _ = _tp_models(name)
+    tp = topo.model_size
+    np.testing.assert_allclose(got[f"{name}.loss"].ravel(), want[f"{name}.loss"],
+                               rtol=TOL_TP_JAX["loss"])
+    grads = {pool: _tp_global(got, f"{name}.grads.{pool}", topo)
+             for pool in model.global_flat_shapes()}
+    grads = K.on_jax_basis(model, grads)
+    for pool, g in grads.items():
+        w = want[f"{name}.grads.{pool}"] / tp
+        err = float(np.abs(g - w).max())
+        assert err <= TOL_TP_JAX["grads"] * float(np.abs(w).max()), (pool, err)
+    gn = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum()) for g in grads.values()))
+    gn_jax = np.sqrt(sum(float((want[f"{name}.grads.{p}"].astype(np.float64) ** 2).sum())
+                         for p in grads)) / tp
+    assert abs(gn - gn_jax) <= TOL_TP_JAX["grads"] * gn_jax
+
+
+@pytest.mark.parametrize("name", list(K.TP_TRAINS))
+def test_tp_step_matches_the_port_at_tp1(tp_runs, name):
+    """One step at the TP layout from the cut weights equals one step at
+    tp = 1 (p = 1, the whole global batch) from the whole weights: the loss
+    and grad norm, and params, m and v cut the same way, within
+    ``test_torch_train.TOL`` of the gather's wire (padded Q heads and
+    vocab columns stay 0)."""
+    got, _, tp1 = tp_runs
+    topo, model, model_1 = _tp_models(name)
+    wire = K.TP_TRAINS[name][2]
+    metrics = got[f"{name}.metrics"]
+    assert all(np.array_equal(metrics[r], metrics[0]) for r in range(K.WORLD))
+    want_metrics, want_state = tp1[name]
+    _check_metrics(metrics[:1], want_metrics, TOL[wire])
+    for part in PARTS:
+        cut = tp_params_from_full(model, model_1, want_state[part])
+        for pool, w in cut.items():
+            g = _tp_global(got, f"{name}.{part}.{pool}", topo)
+            err = float(np.abs(g - w).max())
+            tol = TOL[wire][part]
+            bound = tol if part == "params" else tol * float(np.abs(w).max())
+            assert err <= bound, f"{part}[{pool}]: max |err| {err} > {bound}"
+
+
+def test_tp_serial_equals_prefetch_bitwise_at_p2_tp2(tp_runs):
+    """The bf16 step's metrics, params, m and v (not its collective counts:
+    the serial schedule gathers again in the backward)."""
+    got = {k: v for k, v in tp_runs[0].items() if not k.endswith(".calls")}
+    assert _same(got, "llama@P2T2:bf16.serial", "llama@P2T2:bf16")
+
+
+def _tp_expected_calls(name) -> dict:
+    """The step's collectives a rank under prefetch, from the layout: a
+    micro-step gathers each model-sharded segment of a layer row twice
+    (the forward and the checkpointed recompute) and reduce-scatters it
+    once (``model`` where the whole model group gathers it, ``kv`` for a
+    run of KV ranks), issues each row-parallel psum (after ``wo``,
+    ``rec.wo``, ``wd``) three times (forward, recompute, backward) except
+    the row's last, which the recompute stops before (non-reentrant
+    checkpointing recomputes only up to the last tensor the backward
+    saved); the embedding's gather and the final norm scale's, once each
+    and their reduce-scatters; the loss's pmax, its two psums and the
+    backward's one.  A step adds the norm's psum over the model group,
+    over the partition group at p > 1, and the loss mean over the data
+    ranks when there are several; the partition gathers as at tp 1."""
+    topo, model, _ = _tp_models(name)
+    tp, calls = topo.model_size, {}
+
+    def add(key, n):
+        calls[key] = calls.get(key, 0) + n
+
+    for pool in model.pools:
+        for seg in pool.layout.segments:
+            if seg.model_gather > 1:
+                label = "model" if seg.model_gather == tp else "kv"
+                add(f"all_gather:{label}", 2 * pool.stack * K.MICRO)
+                add(f"reduce_scatter:{label}", pool.stack * K.MICRO)
+        psums = sum(seg.name.endswith(("attn.wo", "rec.wo", "mlp.wd"))
+                    for seg in pool.layout.segments)
+        add("all_reduce:model", (3 * psums - 1) * pool.stack * K.MICRO)
+    add("all_gather:model", 2 * K.MICRO)          # the embedding, the final norm
+    add("reduce_scatter:model", 2 * K.MICRO)
+    add("all_reduce_max:model", K.MICRO)
+    add("all_reduce:model", 3 * K.MICRO + 1)
+    if topo.partition_size > 1:
+        rows = sum(pool.stack for pool in model.all_pools())
+        add("all_gather:partition", rows * K.MICRO)
+        add("reduce_scatter:partition", rows * K.MICRO)
+        add("all_reduce:partition", 1)
+    if topo.data_parallel_size > 1:
+        add("all_reduce:data", 1)
+    return dict(sorted(calls.items()))
+
+
+@pytest.mark.parametrize("name", list(K.TP_TRAINS))
+def test_tp_step_collective_counts(tp_runs, name):
+    got = tp_runs[0]
+    want = _tp_expected_calls(name)
+    for r in range(K.WORLD):
+        assert json.loads(str(got[f"{name}.calls"][r])) == want
+
+
+@pytest.mark.parametrize("name", TP_JAX)
+def test_reference_gradients_at_tp_are_tp_times(tp_runs, name):
+    """Pins a reference caveat (ROADMAP Queue 3): under ``shard_map(...,
+    check_vma=False)`` the JAX package transposes a psum to a psum and seeds
+    every model rank's backward with the whole cotangent, so each of its
+    gradients at tp > 1 is tp times the tp = 1 gradient of the same logical
+    weights, in every pool (its grad norm too).  If the reference changes,
+    this fails and the factor the parity tests divide by must be
+    re-measured."""
+    _, want, _ = tp_runs
+    topo, model, _ = _tp_models(name)
+    for pool in model.global_flat_shapes():
+        f, misfit = _jax_factor(want, name, pool)
+        assert abs(f - topo.model_size) <= 1e-5 * topo.model_size, (pool, f)
+        assert misfit <= 1e-5, (pool, misfit)
 
 
 def _env():

@@ -85,13 +85,13 @@ def test_later_slices_raise():
     from repro_torch.models.build import build_model
     from repro_torch.runtime.serving import build_serve_steps
 
-    # p > 1 runs over the process groups of its topology, and refuses to
-    # build without them
+    # p > 1 and tp > 1 run over the process groups of their topology, and
+    # refuse to build without them
     with pytest.raises(ValueError, match="MiCSGroups"):
         CommEngine(MiCSTopology(shard=4))
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         CommEngine(MiCSTopology(), GatherPolicy(wire_dtype="int8"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(ValueError, match="MiCSGroups"):
         CommEngine(MiCSTopology(model=2))
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         CommEngine.from_config(MiCSTopology(), MiCSConfig(hop1_wire_dtype="bf16"))

@@ -234,15 +234,17 @@ def test_refused_knob_raises(setup, knob):
 
 @pytest.mark.parametrize("topo", [dict(repl=2), dict(shard=2), dict(model=2)])
 def test_more_than_one_card_raises(setup, topo):
-    """tp > 1 is still refused; more than one data rank needs the process
-    groups of its topology (``launch.mesh.MiCSGroups``)."""
+    """More than one rank (data ranks or tp > 1) needs the process groups
+    of its topology (``launch.mesh.MiCSGroups``); a model built for another
+    tp than the topology's is refused."""
+    model = setup[0]
     if topo.get("model", 1) > 1:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            build_train_step(setup[0], MiCSTopology(**topo), MiCSConfig(), OptConfig(),
+        with pytest.raises(ValueError, match="built for tp = 1"):
+            build_train_step(model, MiCSTopology(**topo), MiCSConfig(), OptConfig(),
                              device="cpu")
-        return
+        model = build_model(model.cfg, tp=topo["model"])
     with pytest.raises(ValueError, match="MiCSGroups"):
-        build_train_step(setup[0], MiCSTopology(**topo), MiCSConfig(), OptConfig(), device="cpu")
+        build_train_step(model, MiCSTopology(**topo), MiCSConfig(), OptConfig(), device="cpu")
 
 
 @pytest.mark.parametrize("family,device,refused", [

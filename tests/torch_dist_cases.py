@@ -1,8 +1,9 @@
 """The cases of the port's 4-rank tests and their inputs, shared by the port
 harness (``torch_dist_harness.py``), the JAX oracle (``jax_dist_oracle.py``)
 and the tests that compare them (``test_torch_collectives.py``,
-``test_torch_dist_train.py``).  numpy only: every input is made here from a
-seed with ``default_rng``, so both sides see the same values.
+``test_torch_dist_train.py``, ``test_torch_tp.py``).  numpy only: every
+input is made here from a seed with ``default_rng``, so both sides see the
+same values.
 
 A rank's place is C order over ``(pod, repl, shard, dp2, model)``, which is
 also the device order of the JAX package's ``make_host_mesh``: rank r is
@@ -22,12 +23,21 @@ TESTS = pathlib.Path(__file__).resolve().parent
 
 WORLD = 4
 
-# name -> ((pod, repl, shard, dp2), partition axes, replication axes)
+# name -> ((pod, repl, shard, dp2, model), partition axes, replication axes)
 LAYOUTS = {
-    "A": ((1, 1, 4, 1), ("shard",), ("pod", "repl", "dp2")),   # p 4, one replica
-    "B": ((1, 2, 2, 1), ("shard",), ("pod", "repl", "dp2")),   # p 2 x 2 replicas
-    "Z3": ((2, 1, 2, 1), ("pod", "shard"), ()),                 # ZeRO-3 over pod x shard
+    "A": ((1, 1, 4, 1, 1), ("shard",), ("pod", "repl", "dp2")),   # p 4, one replica
+    "B": ((1, 2, 2, 1, 1), ("shard",), ("pod", "repl", "dp2")),   # p 2 x 2 replicas
+    "Z3": ((2, 1, 2, 1, 1), ("pod", "shard"), ()),                 # ZeRO-3 over pod x shard
+    "T4": ((1, 1, 1, 1, 4), ("shard",), ("pod", "repl", "dp2")),   # tp 4
+    "P2T2": ((1, 1, 2, 1, 2), ("shard",), ("pod", "repl", "dp2")),  # p 2 x tp 2
 }
+
+def topo_kwargs(layout: str) -> dict:
+    """The ``MiCSTopology`` keywords of ``layout`` (the port's)."""
+    (pod, repl, shard, dp2, model), part, rep = LAYOUTS[layout]
+    return dict(pod=pod, repl=repl, shard=shard, dp2=dp2, model=model, partition_axes=part,
+                replication_axes=rep)
+
 
 # gathers: name -> (layout, topology, inner, local shape, gather axis)
 GATHERS = {
@@ -137,3 +147,227 @@ def load_ranks(path_fmt: str) -> dict[str, np.ndarray]:
     """Every rank's npz (``path_fmt`` with ``{r}``) as ``{key: [WORLD, ...]}``."""
     ranks = [np.load(path_fmt.format(r=r)) for r in range(WORLD)]
     return {k: np.stack([z[k] for z in ranks]) for k in ranks[0].files}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the layers at tp 4 (layout T4: rank r is model rank r)
+# ---------------------------------------------------------------------------
+
+TP = 4
+B, T = 2, 6
+VP, VR = 40, 37                  # padded and real vocab of the loss cases
+TP_LAYER_CASES = ("embed", "xent", "attn_out:fp32", "attn_out:bf16", "mlp:fp32", "mlp:bf16",
+                  "gather:4", "gather:2", "gather:4_dim0", "head_mask", "griffin_rec",
+                  "greedy")
+# attn_out: 6 Q heads over 2 KV heads of dim 4, d 16: at tp 4 the Q heads
+# pad to 8, 2 a rank, so the last rank's two heads (6 and 7) are padding
+ATTN = dict(d=16, hq=6, hkv=2, dh=4)
+# griffin_rec: the tensor of each name and the dim tp cuts (None: full on
+# every rank: the norm scales, which the layer gets gathered)
+GRIFFIN_REC_CUT = {"ln1.scale": None, "rec.wx": 1, "rec.wy": 1, "rec.conv_w": 1,
+                   "rec.conv_b": 0, "rec.wi": 0, "rec.bi": 0, "rec.wr": 0, "rec.br": 0,
+                   "rec.lam": 0, "rec.wo": 0, "ln2.scale": None, "mlp.wg": 1, "mlp.wu": 1,
+                   "mlp.wd": 0}
+
+
+def _split(a: np.ndarray, axis: int, tp: int = TP) -> np.ndarray:
+    """``[tp, ...]``: ``a`` cut into tp equal slices along ``axis``."""
+    return np.stack(np.split(a, tp, axis=axis))
+
+
+def _tile(a: np.ndarray, n: int = WORLD) -> np.ndarray:
+    return np.broadcast_to(a, (n, *a.shape)).copy()
+
+
+def _normal(rng, shape, std=1.0) -> np.ndarray:
+    return (rng.standard_normal(shape) * std).astype(np.float32)
+
+
+def griffin_rec_shapes(d: int = 64, rl: int = 64, f: int = 128, cw: int = 4) -> dict:
+    """The full (tp = 1) shapes of one griffin recurrent layer's tensors at
+    the smoke widths."""
+    return {"ln1.scale": (d,), "rec.wx": (d, rl), "rec.wy": (d, rl), "rec.conv_w": (cw, rl),
+            "rec.conv_b": (rl,), "rec.wi": (rl,), "rec.bi": (rl,), "rec.wr": (rl,),
+            "rec.br": (rl,), "rec.lam": (rl,), "rec.wo": (rl, d), "ln2.scale": (d,),
+            "mlp.wg": (d, f), "mlp.wu": (d, f), "mlp.wd": (f, d)}
+
+
+def tp_layer_case(name: str) -> tuple[dict, dict]:
+    """``(full, ranks)``: the case's tp = 1 inputs, and each rank's inputs
+    at tp 4 as ``[WORLD, ...]`` (row r: rank r's)."""
+    rng = np.random.default_rng(_seed("tp:" + name))
+    kind = name.split(":")[0]
+    if kind == "embed":
+        full = {"table": _normal(rng, (24, 16)), "ids": rng.integers(0, 24, (B, T)),
+                "ct": _normal(rng, (B, T, 16))}
+        return full, {"table": _split(full["table"], 1), "ids": _tile(full["ids"]),
+                      "ct": _tile(full["ct"])}
+    if kind == "xent":
+        mask = np.ones((B, T), np.float32)
+        mask[0, 1] = mask[1, 4] = 0.0
+        # a target in every rank's columns, the last two in the last rank's
+        targets = np.asarray([[3, 12, 25, 33, 36, 0], [19, 9, 35, 30, 7, 22]])
+        full = {"logits": _normal(rng, (B, T, VP), 3.0), "targets": targets, "mask": mask}
+        return full, {"logits": _split(full["logits"], 2), "targets": _tile(targets),
+                      "mask": _tile(mask)}
+    if kind == "attn_out":
+        a = ATTN
+        hq_pad = 8
+        attn = _normal(rng, (B, T, hq_pad, a["dh"]))
+        wo = np.zeros((hq_pad * a["dh"], a["d"]), np.float32)
+        wo[:a["hq"] * a["dh"]] = _normal(rng, (a["hq"] * a["dh"], a["d"]), 0.3)
+        full = {"attn": attn[:, :, :a["hq"]].reshape(B, T, a["hkv"], a["hq"] // a["hkv"],
+                                                     a["dh"]),
+                "wo": wo[:a["hq"] * a["dh"]], "ct": _normal(rng, (B, T, a["d"]))}
+        per = hq_pad // TP
+        ranks = {"attn": np.stack([attn[:, :, m * per:(m + 1) * per].reshape(
+                     B, T, 1, per, a["dh"]) for m in range(TP)]),
+                 "wo": _split(wo, 0), "ct": _tile(full["ct"])}
+        return full, ranks
+    if kind == "mlp":
+        d, f = 16, 32
+        full = {"x": _normal(rng, (B, T, d)), "wg": _normal(rng, (d, f), 0.25),
+                "wu": _normal(rng, (d, f), 0.25), "wd": _normal(rng, (f, d), 0.2),
+                "ct": _normal(rng, (B, T, d))}
+        return full, {"x": _tile(full["x"]), "wg": _split(full["wg"], 1),
+                      "wu": _split(full["wu"], 1), "wd": _split(full["wd"], 0),
+                      "ct": _tile(full["ct"])}
+    if kind == "gather":
+        g, dim = gather_case(name)
+        local = (6, 2) if dim == 1 else (4,)
+        out = (6, 2 * g) if dim == 1 else (4 * g,)
+        return {}, {"local": _normal(rng, (WORLD, *local)), "ct": _normal(rng, (WORLD, *out))}
+    if kind == "head_mask":
+        return {}, {}
+    if kind == "griffin_rec":
+        full = {}
+        for n, shape in griffin_rec_shapes().items():
+            if n == "rec.lam":
+                a = rng.uniform(0.9, 0.999, shape)
+                full[n] = (np.log(a) - np.log1p(-a)).astype(np.float32)
+            elif n.endswith("scale") or n in ("rec.conv_b", "rec.bi", "rec.br"):
+                full[n] = _normal(rng, shape, 0.1)
+            elif n in ("rec.wi", "rec.wr", "rec.conv_w"):
+                full[n] = _normal(rng, shape, 0.5)
+            else:
+                full[n] = _normal(rng, shape, 1.0 / np.sqrt(shape[0]))
+        full["x"] = _normal(rng, (B, 8, 64))
+        full["ct"] = _normal(rng, (B, 8, 64))
+        ranks = {n: _tile(v) if GRIFFIN_REC_CUT.get(n) is None else _split(v, GRIFFIN_REC_CUT[n])
+                 for n, v in full.items()}
+        return full, ranks
+    if kind == "greedy":
+        # small integers, so maxima tie within and across ranks' columns
+        logits = rng.integers(0, 4, (3, VP)).astype(np.float32)
+        logits[0, 38] = 9.0            # a padded column's maximum is masked
+        logits[1, [5, 15, 25]] = 7.0    # a tie across ranks: the lowest wins
+        logits[2, 36] = 8.0            # the last real column
+        return {"logits": logits}, {"logits": _split(logits, 1)}
+    raise KeyError(name)
+
+
+def gather_case(name: str) -> tuple[int, int]:
+    """``(model_gather, model_gather_dim)`` of a ``gather:*`` case."""
+    tag = name.split(":")[1]
+    return (4, 0) if tag == "4_dim0" else (int(tag), 1)
+
+
+def gather_oracle(name: str) -> dict:
+    """The numpy answer of a ``gather:*`` case: each rank's gathered tensor
+    (its run of g ranks' slices, in model order, along the dim) and its
+    input's gradient (the sum over the run of each member's cotangent
+    slice at the rank's place)."""
+    g, dim = gather_case(name)
+    _, ranks = tp_layer_case(name)
+    out, grad = [], []
+    for r in range(WORLD):
+        members = range(r // g * g, r // g * g + g)
+        out.append(np.concatenate([ranks["local"][q] for q in members], axis=dim))
+        n = ranks["local"].shape[dim + 1]
+        i = r % g
+        grad.append(sum(np.take(ranks["ct"][q], range(i * n, (i + 1) * n), axis=dim)
+                        for q in members))
+    return {"out": np.stack(out), "grad": np.stack(grad)}
+
+
+def head_mask_oracle(hq: int = 10, hq_pad: int = 12) -> np.ndarray:
+    """Each rank's mask of real Q heads at tp 4: rank m's heads are global
+    heads ``m * hq_local ...``."""
+    per = hq_pad // TP
+    return np.asarray([[float(m * per + i < hq) for i in range(per)] for m in range(TP)],
+                      np.float32)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the training step
+# ---------------------------------------------------------------------------
+
+# name -> (arch, layout, wire, config overrides); each case is compared
+# with the JAX package at its layout and with the port at tp = 1
+TP_TRAINS = {
+    "llama@P2T2:fp32": ("llama3.2-1b", "P2T2", "fp32", {}),
+    "llama@P2T2:bf16": ("llama3.2-1b", "P2T2", "bf16", {}),
+    # recurrentgemma's 10 Q heads: padded to 12 at tp 4, its one KV head
+    # gathered over all 4 model ranks
+    "griffin@T4": ("recurrentgemma-2b", "T4", "fp32", {"n_heads": 10}),
+    # the reference's griffin_partition_equiv layout
+    "griffin@P2T2": ("recurrentgemma-2b", "P2T2", "fp32", {}),
+}
+
+
+def tp1_layout(layout: str) -> tuple:
+    """``layout``'s mesh at tp 1: the same data axes (so the same data
+    ranks and loss), no model axis."""
+    (pod, repl, shard, dp2, _), part, rep = LAYOUTS[layout]
+    return (pod, repl, shard, dp2, 1), part, rep
+
+
+def numpy_params(model, name: str) -> dict[str, np.ndarray]:
+    """Seeded random weights for every pool of ``model`` (a tp = 1 model of
+    either package: the two lay out the same segments): ``{pool: [stack, 1,
+    flat_len]}`` fp32, each segment normal with its layout's std (0.1 for
+    the zero-initialised norm scales and biases, so their gradients and
+    gathers are not of zeros), the RG-LRU's Λ from its ``lru`` range; the
+    padding 0.  Griffin super-layers get ``rec1.*`` copied over ``rec0.*``
+    (the reference's sub-layers both run ``rec1``'s weights)."""
+    rng = np.random.default_rng(_seed("tp_params:" + name))
+    out = {}
+    for pool in model.all_pools():
+        rows = np.zeros((pool.stack, 1, pool.layout.flat_len), np.float32)
+        for i in range(pool.stack):
+            for s in pool.layout.segments:
+                if s.init == "lru":
+                    a = rng.uniform(0.9, 0.999, s.size)
+                    v = np.log(a) - np.log1p(-a)
+                else:
+                    v = rng.standard_normal(s.size) * (s.std if s.init == "normal" else 0.1)
+                rows[i, 0, s.offset:s.end] = v
+        segs = {s.name: s for s in pool.layout.segments}
+        for s in pool.layout.segments:
+            if s.name.startswith("rec0."):
+                s1 = segs["rec1." + s.name[len("rec0."):]]
+                rows[:, 0, s.offset:s.end] = rows[:, 0, s1.offset:s1.end]
+        out[pool.name] = rows
+    return out
+
+
+def tp_batch() -> dict[str, np.ndarray]:
+    """The TP steps' global batch: the first of :func:`train_batches`."""
+    return train_batches()[0]
+
+
+def on_jax_basis(model, grads: dict) -> dict:
+    """Griffin gradients as the reference reads them: each ``rec0.*``
+    segment's gradient added to its ``rec1.*`` segment (both recurrent
+    sub-layers run ``rec1``'s weights there) and ``rec0.*`` zeroed; pools
+    ``[..., flat_len]`` of ``model``'s layout, numpy."""
+    out = {k: np.array(v, copy=True) for k, v in grads.items()}
+    for pool in model.pools:
+        segs = {sg.name: sg for sg in pool.layout.segments}
+        for name, s0 in segs.items():
+            if name.startswith("rec0."):
+                s1 = segs["rec1." + name[len("rec0."):]]
+                g = out[pool.name]
+                g[..., s1.offset:s1.end] += g[..., s0.offset:s0.end]
+                g[..., s0.offset:s0.end] = 0.0
+    return out

@@ -2,7 +2,8 @@
 runs every case of ``torch_dist_cases.py`` and each rank writes its results
 to ``<out>/port_<mode>.rank<r>.npz``.
 
-    python tests/torch_dist_harness.py collectives|train OUT_DIR [cpu|cuda]
+    python tests/torch_dist_harness.py collectives|train|tp_layers|tp_train OUT_DIR \
+        [cpu|cuda]
 
 ``train`` starts from the JAX package's initial state, which it reads from
 ``OUT_DIR/jax_init.npz`` (``jax_dist_oracle.py init OUT_DIR``).  An optional
@@ -34,9 +35,7 @@ TDT = {"fp32": torch.float32, "bf16": torch.bfloat16}
 def _topology(layout: str):
     from repro_torch.core.topology import MiCSTopology
 
-    (pod, repl, shard, dp2), part, rep = K.LAYOUTS[layout]
-    return MiCSTopology(pod=pod, repl=repl, shard=shard, dp2=dp2, partition_axes=part,
-                        replication_axes=rep)
+    return MiCSTopology(**K.topo_kwargs(layout))
 
 
 class World:
@@ -213,6 +212,146 @@ def train(world: World, out_dir: pathlib.Path) -> dict:
     return out
 
 
+def _leaf(a, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).requires_grad_(True)
+
+
+def tp_layers(world: World) -> dict:
+    """Each case of ``K.TP_LAYER_CASES`` at tp 4 on this rank's inputs, its
+    gradients through autograd with the rank's cotangent, and the
+    ``CommEngine``'s count of calls a case (``<case>.calls``, JSON); the
+    bf16 cases twice (``<case>.again.*``); this rank's model and KV groups
+    at tp 4 and p 2 x tp 2 (``groups.<layout>.<name>``)."""
+    import json
+
+    from repro_torch.core.comm import CommEngine
+
+    groups = world.groups("T4")
+    eng = CommEngine(_topology("T4"), groups=groups)
+    out = {"groups.T4.model": np.asarray(groups.model.ranks),
+           "groups.T4.kv2": np.asarray(groups.kv(2).ranks)}
+    p2t2 = world.groups("P2T2")
+    for name in ("model", "partition", "data"):
+        out[f"groups.P2T2.{name}"] = np.asarray(getattr(p2t2, name).ranks)
+    for name in K.TP_LAYER_CASES:
+        eng.counter.reset()
+        res = _tp_layer(name, world.rank, groups, eng)
+        out.update({f"{name}.{k}": _np(v) for k, v in res.items()})
+        out[f"{name}.calls"] = np.asarray(json.dumps(eng.counter.snapshot()["calls"]))
+        if name.endswith(":bf16"):
+            again = _tp_layer(name, world.rank, groups, eng)
+            out.update({f"{name}.again.{k}": _np(v) for k, v in again.items()})
+    return out
+
+
+def _tp_layer(name: str, r: int, groups, eng) -> dict:
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.core.flat_param import Segment, model_gather_fn_for
+    from repro_torch.models import blocks, lm, recurrent
+    from repro_torch.models import layers as L
+    from repro_torch.models.dims import attn_dims
+
+    kind, _, tag = name.partition(":")
+    dt = TDT.get(tag, torch.float32)
+    ctx = L.Ctx(mode="train", tp=K.TP, comm=eng, compute_dtype=dt)
+    ins = {k: v[r] for k, v in K.tp_layer_case(name)[1].items()}
+    if kind == "embed":
+        table = _leaf(ins["table"])
+        y = L.embed_lookup(table, torch.from_numpy(ins["ids"]).long(), ctx)
+        return {"out": y, "d_table": torch.autograd.grad(y, table, _leaf(ins["ct"]))[0]}
+    if kind == "xent":
+        logits = _leaf(ins["logits"])
+        loss = L.tp_cross_entropy(logits, torch.from_numpy(ins["targets"]),
+                                  torch.from_numpy(ins["mask"]), vocab_real=K.VR,
+                                  vocab_padded=K.VP, ctx=ctx)
+        return {"loss": loss, "d_logits": torch.autograd.grad(loss, logits)[0]}
+    if kind == "attn_out":
+        ad = attn_dims(K.ATTN["d"], K.ATTN["hq"], K.ATTN["hkv"], K.ATTN["dh"], K.TP)
+        attn, wo = _leaf(ins["attn"], dt), _leaf(ins["wo"], dt)
+        y = blocks.attn_out({"attn.wo": wo}, attn, ad, ctx, "attn.", bias=False)
+        d_attn, d_wo = torch.autograd.grad(y, (attn, wo), _leaf(ins["ct"], dt))
+        return {"out": y, "d_attn": d_attn, "d_wo": d_wo}
+    if kind == "mlp":
+        cfg = ArchConfig(name="m", family="dense", n_layers=1, d_model=16, n_heads=4,
+                         n_kv_heads=4, d_ff=32, vocab=256)
+        xs = [_leaf(ins[k], dt) for k in ("x", "wg", "wu", "wd")]
+        y = blocks.mlp_apply(cfg, {"mlp.wg": xs[1], "mlp.wu": xs[2], "mlp.wd": xs[3]}, xs[0],
+                             ctx)
+        grads = torch.autograd.grad(y, xs, _leaf(ins["ct"], dt))
+        return {"out": y, **{f"d_{k}": g for k, g in zip(("x", "wg", "wu", "wd"), grads)}}
+    if kind == "gather":
+        g, dim = K.gather_case(name)
+        seg = Segment("w", ins["local"].shape, 0, True, "normal", 1.0, model_gather=g,
+                      model_gather_dim=dim)
+        local = _leaf(ins["local"])
+        y = model_gather_fn_for(groups, eng.counter)(seg, local)
+        return {"out": y, "grad": torch.autograd.grad(y, local, _leaf(ins["ct"]))[0]}
+    if kind == "head_mask":
+        return {"mask": L.local_head_mask(10, 12, 3, ctx)}
+    if kind == "griffin_rec":
+        cfg = smoke_variant(get_config("recurrentgemma-2b"))
+        t = {n: _leaf(ins[n]) for n in K.GRIFFIN_REC_CUT}
+        x = _leaf(ins["x"])
+        y, _ = recurrent.griffin_rec_apply(cfg, t, x, ctx)
+        grads = torch.autograd.grad(y, (x, *t.values()), _leaf(ins["ct"]))
+        return {"out": y, "d_x": grads[0], **{f"d_{n}": g for n, g in zip(t, grads[1:])}}
+    if kind == "greedy":
+        return {"ids": lm.greedy_sample(torch.from_numpy(ins["logits"]), ctx, K.VR)}
+    raise KeyError(name)
+
+
+def tp_train(world: World) -> dict:
+    """Each case of ``K.TP_TRAINS`` on the cut weights
+    (``tp_params_from_full`` of ``K.numpy_params``, zero moments): one
+    micro-batch's gradients through ``accumulate_grads`` (``<case>.loss``,
+    ``<case>.grads.<pool>``), then one step of ``build_train_step``
+    (``<case>.metrics``, ``<case>.<part>.<pool>``, the step's collective
+    counts in ``<case>.calls``); the bf16 case also on the serial schedule
+    (``<case>.serial.*``)."""
+    import dataclasses
+    import json
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.convert import shard_state, tp_params_from_full
+    from repro_torch.core.mics import MiCSConfig, accumulate_grads, build_train_step
+    from repro_torch.models import layers as L
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import OptConfig
+
+    out = {}
+    for name, (arch, lay, wire, over) in K.TP_TRAINS.items():
+        topo, g = _topology(lay), world.groups(lay)
+        cfg = dataclasses.replace(smoke_variant(get_config(arch)), **over)
+        model, model_1 = build_model(cfg, topo.model_size), build_model(cfg, 1)
+        params = tp_params_from_full(model, model_1, K.numpy_params(model_1, name))
+        full = {"params": {k: torch.from_numpy(v) for k, v in params.items()}, "step": 0}
+        for part in ("m", "v"):
+            full[part] = {k: torch.zeros_like(v) for k, v in full["params"].items()}
+        batch = K.data_slice(K.tp_batch(), topo.data_rank(world.rank), topo.data_parallel_size)
+        runs = {"": {}, ".serial": {"prefetch": False}} if wire == "bf16" else {"": {}}
+        for suffix, kw in runs.items():
+            state = shard_state(model, topo, world.rank, full, device="cpu")
+            step = build_train_step(model, topo, MiCSConfig(
+                micro_steps=K.MICRO, gather_dtype=TDT[wire], **kw), OptConfig(**K.OPT),
+                device="cpu", groups=g)
+            if not suffix:
+                ctx = L.Ctx(mode="train", tp=topo.model_size, compute_dtype=TDT[wire],
+                            comm=step.comm)
+                grads, loss, _ = accumulate_grads(model, step.comm, ctx, state["params"], {
+                    k: torch.as_tensor(v[:1]) for k, v in batch.items()})
+                out[f"{name}.loss"] = _np(loss)
+                out.update({f"{name}.grads.{k}": _np(v) for k, v in grads.items()})
+                step.comm.counter.reset()
+            state, m = step(state, batch)
+            key = name + suffix
+            out[f"{key}.metrics"] = np.asarray([m["loss"].item(), m["grad_norm"].item()])
+            out[f"{key}.calls"] = np.asarray(json.dumps(step.comm.counter.snapshot()["calls"]))
+            for part in ("params", "m", "v"):
+                out.update({f"{key}.{part}.{k}": _np(v) for k, v in state[part].items()})
+    return out
+
+
 def _rank_main(rank: int, mode: str, out_dir: pathlib.Path, device: str):
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(K.WORLD), LOCAL_RANK=str(rank))
@@ -220,7 +359,14 @@ def _rank_main(rank: int, mode: str, out_dir: pathlib.Path, device: str):
 
     init_distributed("gloo", timeout=TIMEOUT, init_method=f"file://{out_dir / 'store'}")
     world = World(rank)
-    res = collectives(world, device) if mode == "collectives" else train(world, out_dir)
+    if mode == "collectives":
+        res = collectives(world, device)
+    elif mode == "tp_layers":
+        res = tp_layers(world)
+    elif mode == "tp_train":
+        res = tp_train(world)
+    else:
+        res = train(world, out_dir)
     np.savez(out_dir / f"port_{mode}.rank{rank}.npz", **res)
     import torch.distributed as dist
 
