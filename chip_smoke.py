@@ -4,8 +4,8 @@ plain PyTorch version.
 
     python3 chip_smoke.py
 
-Phases, each printed as one JSON line (any failed check raises and the
-script exits non-zero; no phase swallows an error):
+Phases, each printed as one JSON line with its ``seconds`` (any failed
+check raises and the script exits non-zero; no phase swallows an error):
 
 1. ``build``: nvcc builds every kernel of the paths from
    ``src/repro_torch/kernels/csrc`` (seconds, card name and power limit,
@@ -72,6 +72,22 @@ script exits non-zero; no phase swallows an error):
    whose port kernel events fall short of the wrapper calls the launch
    counters show for it is taken again once, and marked ``events_short``
    if it is still short.
+3a. ``train_knobs``, right after recurrentgemma-2b's ``train`` phase: the
+   four one-card training knobs, one at a time on that path's model at full
+   width and depth, data, seed, ``OptConfig`` and micro-steps, 2 steps each
+   through ``build_train_step`` from ``init_state(seed=0)`` (no checkpoint;
+   the state freed, and every pinned byte released, before the next):
+   ``remat`` (the backward re-gathers each ``g`` row), ``carry_host`` (the
+   stored carry in pinned host slots), ``offload_opt`` (m and v in pinned
+   host memory) and ``approx`` (the approximate clip).  ``remat``,
+   ``carry_host`` and ``offload_opt`` must give the ``train`` phase's steps
+   1-2 bitwise (loss and grad norm); ``approx`` step 1 bitwise and step 2's
+   loss within ``APPROX_CLIP_LOSS_RTOL`` (the clip binds at both).  Each
+   variant's launches must be the path's (as ``train``), no carry slot may
+   stay held after a step, and under ``offload_opt`` m and v must be pinned
+   host tensors with nothing the size of a pool's moment left on the card.
+   Per variant: ``peak_gb``, the pinned GB held, step 2's ``step_ms`` and the
+   GB it copied down and up, its seconds; and the host's MemTotal.
 3b. ``dist_train``: 4 ranks, each a process of this
    script (``--dist-worker``) started with ``torchrun``'s variables, through
    ``launch/mesh.init_distributed`` / ``MiCSGroups`` and
@@ -105,8 +121,8 @@ script exits non-zero; no phase swallows an error):
 4. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
    library call's where there is one, and the card's bound for the same
-   work; ``launches`` sums the serve runs, the train runs and every rank
-   of ``dist_train``.  Attention also
+   work; ``launches`` sums the serve runs, the train runs, the
+   ``train_knobs`` variants and every rank of ``dist_train``.  Attention also
    runs at the tile edges of each route (fp32 cases take the ``fma``
    route), each check records its route and is called twice for a
    bitwise-equal output, prefill checks give their achieved TFLOP/s, and
@@ -150,6 +166,8 @@ profiles an earlier checkout (one that already trains) for comparison.
 on fixed inputs through ``flash_attention_fwd`` / ``flash_attention_bwd``
 alone, so two checkouts' kernels can be compared bit for bit.
 
+Before the card's name and the last line, ``{"phase_seconds": [...],
+"script_s": ...}`` lists every phase line's seconds and the script's.
 The last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits non-zero and prints no result.
 """
@@ -285,7 +303,19 @@ def read_counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in counter_attrs().items()}
 
 
+# The phase clock: each phase line's ``seconds`` is the time since the line
+# before it (or since the script's start), unless the phase timed itself;
+# the ``summary`` line lists them.
+PHASE_CLOCK = {"last": None, "lines": []}
+
+
 def emit(obj) -> None:
+    if "phase" in obj and PHASE_CLOCK["last"] is not None:
+        now = time.perf_counter()
+        obj.setdefault("seconds", now - PHASE_CLOCK["last"])
+        PHASE_CLOCK["last"] = now
+        PHASE_CLOCK["lines"].append({k: obj[k] for k in ("phase", "arch", "step", "seconds")
+                                     if k in obj})
     print(json.dumps(obj), flush=True)
 
 
@@ -454,13 +484,19 @@ def kernel_kind(name: str) -> str:
     return next((kind for pat, kind in KERNEL_KINDS if pat in name), "other")
 
 
-def profile_session(run):
+# What a profile session traces: the host's operators beside the card's
+# kernels (the default), or the card's kernels alone, which costs far less
+# to collect for a train step's ~35,000 kernels.
+HOST_AND_CARD = (torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA)
+CARD_ONLY = (torch.profiler.ProfilerActivity.CUDA,)
+
+
+def profile_session(run, activities=HOST_AND_CARD):
     """One profiled call of ``run``: ``(wall_ms, device rows, port kernel
     events, counted wrapper calls)``, the launch counters set to 0 just
     before the call and read just after."""
     reset_counts()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=list(activities)) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -475,12 +511,13 @@ def profile_session(run):
     return wall_ms, rows, ours, counted
 
 
-def profile_run(arch: str, step: str, run, top: int = 12, **extra) -> dict:
+def profile_line(arch: str, step: str, run, top: int = 12, activities=HOST_AND_CARD,
+                 **extra) -> dict:
     """Device time of one call of ``run`` by kernel (it has run once before,
     so nothing is built or first-allocated in the window), the number of
     device kernels it runs, their time by kind, and the flash backward's
-    device time a call of each of its launches where it ran; emitted as a
-    ``profile`` line with ``extra``'s fields.  A session whose port kernel
+    device time a call of each of its launches where it ran: a ``profile``
+    line with ``extra``'s fields.  A session whose port kernel
     events fall short of the wrapper calls the launch counters show for the
     same call (the profiler dropped events) is taken again once; if it is
     still short the line says ``"events_short": true`` and is no full
@@ -488,7 +525,7 @@ def profile_run(arch: str, step: str, run, top: int = 12, **extra) -> dict:
     run()
     torch.cuda.synchronize()
     for _ in range(2):
-        wall_ms, rows, ours, counted = profile_session(run)
+        wall_ms, rows, ours, counted = profile_session(run, activities)
         if ours >= counted:
             break
     rows.sort(key=lambda e: -e.self_device_time_total)
@@ -510,6 +547,12 @@ def profile_run(arch: str, step: str, run, top: int = 12, **extra) -> dict:
         if hits:
             line.setdefault("flash_bwd_ms_per_launch", {})[part] = (
                 sum(e.self_device_time_total for e in hits) / 1e3 / sum(e.count for e in hits))
+    return line
+
+
+def profile_run(arch: str, step: str, run, top: int = 12, **extra) -> dict:
+    """:func:`profile_line`, emitted."""
+    line = profile_line(arch, step, run, top, **extra)
     emit(line)
     return line
 
@@ -674,9 +717,6 @@ def train_phase(path: TrainPath, card: str, dev):
     from repro_torch.core.mics import MiCSConfig
     from repro_torch.core.topology import MiCSTopology
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.kernels.flash_attention import kernel as FA
-    from repro_torch.kernels.rglru import kernel as RG
-    from repro_torch.kernels.rmsnorm import kernel as RN
     from repro_torch.models.build import build_model
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.runtime.train_loop import LoopConfig, train
@@ -697,35 +737,10 @@ def train_phase(path: TrainPath, card: str, dev):
     stats = train(model, MiCSTopology(), mcfg, oc, dc, lc, device=dev)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    launches = read_counts()
-    by_route, bwd_by_route = dict(FA.launches_by_route), dict(FA.launches_bwd_by_route)
-    rms_bwd_by_route = dict(RN.launches_bwd_by_route)
-    rglru_by_form = {"forward": dict(RG.launches_by_form),
-                     "backward": dict(RG.launches_bwd_by_form)}
+    tables = check_train_launches(f"train {path.arch}", path, path.steps * path.micro_steps)
+    launches, by_route, bwd_by_route, rms_bwd_by_route, rglru_by_form = tables
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    micro = path.steps * path.micro_steps
-    want = {name: n * micro for name, n in path.launches.items()}
-    if launches != want:
-        raise AssertionError(f"train {path.arch}: launch counts {launches} != {want}")
-    want_route = {"mma": want["flash_attention"], "split": 0, "fma": 0}
-    if by_route != want_route:
-        raise AssertionError(f"train {path.arch}: attention routes {by_route} != {want_route}")
-    # every backward call on the path's route: llama's wgmma attention and
-    # RMSNorm row in registers; recurrentgemma's dh-256 attention on mma (by
-    # column halves) and its 2560-wide RMSNorm rows through shared memory
-    want_bwd = dict.fromkeys(FA.BWD_ROUTES, 0) | {path.attn_bwd_route:
-                                                  want["flash_attention_bwd"]}
-    if bwd_by_route != want_bwd:
-        raise AssertionError(f"train {path.arch}: attention backward routes {bwd_by_route}")
-    want_rms = dict.fromkeys(RN.BWD_ROUTES, 0) | {path.rms_bwd_route: want["rmsnorm_bwd"]}
-    if rms_bwd_by_route != want_rms:
-        raise AssertionError(f"train {path.arch}: RMSNorm backward routes {rms_bwd_by_route}")
-    # the model's RG-LRU is the gated form, forward and backward
-    want_form = {"forward": {"ab": 0, "gated": want["rglru"]},
-                 "backward": {"ab": 0, "gated": want["rglru_bwd"]}}
-    if rglru_by_form != want_form:
-        raise AssertionError(f"train {path.arch}: RG-LRU entry points {rglru_by_form}")
     if len(stats.losses) != path.steps or not all(
             math.isfinite(x) for x in stats.losses + stats.grad_norms):
         raise AssertionError(f"train {path.arch}: losses {stats.losses}, grad norms "
@@ -757,6 +772,200 @@ def train_phase(path: TrainPath, card: str, dev):
             "rglru_launches_by_form": rglru_by_form, "gpu": card}
     emit(line)
     return launches, line
+
+
+def check_train_launches(label: str, path: TrainPath, micro: int):
+    """Read the launch counters after ``micro`` micro-steps of ``path`` and
+    hold them to the path's counts a micro-step, attention's forward on
+    ``mma``, each backward on the path's route and the RG-LRU gated;
+    returns ``(launches, attention's by route, its backward's, RMSNorm
+    backward's, RG-LRU's by form)``."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rglru import kernel as RG
+    from repro_torch.kernels.rmsnorm import kernel as RN
+
+    launches = read_counts()
+    by_route, bwd_by_route = dict(FA.launches_by_route), dict(FA.launches_bwd_by_route)
+    rms_bwd_by_route = dict(RN.launches_bwd_by_route)
+    rglru_by_form = {"forward": dict(RG.launches_by_form),
+                     "backward": dict(RG.launches_bwd_by_form)}
+    want = {name: n * micro for name, n in path.launches.items()}
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+    want_route = {"mma": want["flash_attention"], "split": 0, "fma": 0}
+    if by_route != want_route:
+        raise AssertionError(f"{label}: attention routes {by_route} != {want_route}")
+    # every backward call on the path's route: llama's wgmma attention and
+    # RMSNorm row in registers; recurrentgemma's dh-256 attention on
+    # wgmma256 and its 2560-wide RMSNorm rows through shared memory
+    want_bwd = dict.fromkeys(FA.BWD_ROUTES, 0) | {path.attn_bwd_route:
+                                                  want["flash_attention_bwd"]}
+    if bwd_by_route != want_bwd:
+        raise AssertionError(f"{label}: attention backward routes {bwd_by_route}")
+    want_rms = dict.fromkeys(RN.BWD_ROUTES, 0) | {path.rms_bwd_route: want["rmsnorm_bwd"]}
+    if rms_bwd_by_route != want_rms:
+        raise AssertionError(f"{label}: RMSNorm backward routes {rms_bwd_by_route}")
+    # the model's RG-LRU is the gated form, forward and backward
+    want_form = {"forward": {"ab": 0, "gated": want["rglru"]},
+                 "backward": {"ab": 0, "gated": want["rglru_bwd"]}}
+    if rglru_by_form != want_form:
+        raise AssertionError(f"{label}: RG-LRU entry points {rglru_by_form}")
+    return launches, by_route, bwd_by_route, rms_bwd_by_route, rglru_by_form
+
+
+LAUNCH_TABLES = ("launches", "attention_launches_by_route", "attention_bwd_launches_by_route",
+                 "rmsnorm_bwd_launches_by_route", "rglru_launches_by_form")
+
+
+def add_counts(total: dict, table: dict) -> dict:
+    """``table``'s counts (nested dicts of ints) added into ``total``."""
+    for k, n in table.items():
+        if isinstance(n, dict):
+            add_counts(total.setdefault(k, {}), n)
+        else:
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+# -- the one-card training knobs (train_knobs) ----------------------------------
+
+# Each variant is one knob on the griffin train path's configuration, run 2
+# steps from init_state(seed=0) and held to that path's steps 1-2:
+# ``bitwise`` both steps' loss and grad norm; ``approx`` (the clip binds at
+# both steps: grad norms ~30 and ~22 against clip_norm 1.0) step 1 bitwise
+# and step 2's loss within the reference's approximate-clip bound.
+KNOBS_ARCH = "recurrentgemma-2b"
+KNOB_STEPS = 2
+KNOB_VARIANTS = (("remat", {"prefetch_carry": "remat"}, "bitwise"),
+                 ("carry_host", {"carry_offload": "host"}, "bitwise"),
+                 ("offload_opt", {"offload_opt": True}, "bitwise"),
+                 ("approx", {"clip_mode": "approx"}, "approx"))
+# Variants whose next step is also profiled (device busy and idle share, time
+# by kind), to tell the card's time from the host's: the approximate clip
+# updates some 400 buckets of 8.4 M elements where the exact clip updates
+# some 55 slices of up to 2^26.
+KNOB_PROFILED = ("approx",)
+
+
+def host_mem_total_gb() -> float:
+    """The host's MemTotal (/proc/meminfo), GB."""
+    for line in pathlib.Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemTotal:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no MemTotal in /proc/meminfo")
+
+
+def train_knobs_phase(path: TrainPath, card: str, dev, train_line: dict) -> dict:
+    """``train_knobs``: each of the four one-card knobs on ``path``'s model
+    at full width and depth, its data, seed, OptConfig and micro-steps,
+    ``KNOB_STEPS`` steps through ``build_train_step`` from
+    ``init_state(seed=0)`` (no checkpoint), one variant at a time, its state
+    freed before the next; held to the ``train`` phase's steps (``train_line``)
+    and to the path's launch counts.  Per variant: ``peak_gb`` (reset before
+    its ``init_state``), the pinned host GB held, step 2's ``step_ms`` and
+    the GB it copied down and up, its seconds; for ``KNOB_PROFILED``, a
+    profile of two more steps' second."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import hostoffload
+    from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
+    from repro_torch.core.schedule import APPROX_CLIP_LOSS_RTOL
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import OptConfig
+
+    cfg = get_config(path.arch)
+    model = build_model(cfg, tp=1)
+    oc = OptConfig(warmup_steps=0, total_steps=path.steps)        # the train phase's
+    source = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=path.seq, global_batch=path.global_batch,
+                                    micro_steps=path.micro_steps))
+    want = list(zip(train_line["loss"], train_line["grad_norm"]))[:KNOB_STEPS]
+    pool_bytes = {k: s * t * f * 4 for k, (s, t, f) in model.global_flat_shapes().items()}
+    variants, totals = {}, {}
+    for name, kw, held_to in KNOB_VARIANTS:
+        t0 = time.perf_counter()
+        mcfg = MiCSConfig(micro_steps=path.micro_steps, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(model, 0, device=dev, offload_opt=mcfg.offload_opt)
+        step = build_train_step(model, MiCSTopology(), mcfg, oc, device=dev)
+        stash = step.comm.host_stash
+        reset_counts()
+        got, step_ms, moved = [], [], []
+        for cursor in range(KNOB_STEPS):
+            before = stash.snapshot()
+            t1 = time.perf_counter()
+            state, metrics = step(state, source.host_step_batch(cursor, 0, 1))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            got.append((metrics["loss"].item(), metrics["grad_norm"].item()))
+            after = stash.snapshot()
+            moved.append({"down_gb": (after["bytes_down"] - before["bytes_down"]) / 1e9,
+                          "up_gb": (after["bytes_up"] - before["bytes_up"]) / 1e9})
+            if after["live_slots"]:
+                raise AssertionError(f"train_knobs {name}: {after['live_slots']} carry slots "
+                                     f"held after step {cursor + 1}")
+        tables = check_train_launches(f"train_knobs {name}", path,
+                                      KNOB_STEPS * path.micro_steps)
+        add_counts(totals, dict(zip(LAUNCH_TABLES, tables)))
+        line = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "pinned_gb": hostoffload.pinned_bytes() / 1e9,
+                "carry_slot_gb": stash.slot_bytes() / 1e9,
+                "step_ms": step_ms[-1], "step_ms_all": step_ms,
+                "copied_gb_step": moved[-1], "loss": [g[0] for g in got],
+                "grad_norm": [g[1] for g in got], "launches": tables[0]}
+        if held_to == "bitwise":
+            if got != want:
+                raise AssertionError(f"train_knobs {name}: {got} != the train phase's {want}")
+        else:
+            rel = abs(got[1][0] - want[1][0]) / abs(want[1][0])
+            if got[0] != want[0] or not rel <= APPROX_CLIP_LOSS_RTOL:
+                raise AssertionError(f"train_knobs {name}: {got} against the train phase's "
+                                     f"{want} (step 2 loss within {APPROX_CLIP_LOSS_RTOL})")
+            line["step2_loss_rel"] = rel
+        if name in KNOB_PROFILED:
+            holder, batch = [state], source.host_step_batch(KNOB_STEPS, 0, 1)
+
+            def run():
+                holder[0], _ = step(holder[0], batch)
+
+            prof = profile_line(cfg.name, f"train {name}", run, top=10, activities=CARD_ONLY)
+            line["profile"] = {k: prof[k] for k in ("events_short", "wall_ms", "device_busy_ms",
+                                                    "idle_share", "device_kernels", "by_kind")}
+            state = holder[0]
+            del holder, run
+        if mcfg.offload_opt:
+            placed = {f"{part}.{k}": hostoffload.is_host_resident(t, dev)
+                      for part in ("m", "v") for k, t in state[part].items()}
+            if not all(placed.values()):
+                raise AssertionError(f"train_knobs {name}: moments not in pinned host memory: "
+                                     f"{placed}")
+            # the card holds the params and nothing the size of a pool's moment
+            extra = torch.cuda.memory_allocated() - sum(pool_bytes.values())
+            line["device_beyond_params_gb"] = extra / 1e9
+            if extra >= min(b for b in pool_bytes.values() if b):
+                raise AssertionError(f"train_knobs {name}: {extra / 1e9} GB on the card beyond "
+                                     "the params")
+        del state, step, stash, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        if hostoffload.pinned_bytes():
+            raise AssertionError(f"train_knobs {name}: {hostoffload.pinned_bytes()} bytes "
+                                 "still pinned after the variant's state was freed")
+        line["seconds"] = time.perf_counter() - t0
+        variants[name] = line
+    out = {"phase": "train_knobs", "arch": cfg.name, "layers": cfg.n_layers,
+           "global_batch": path.global_batch, "seq": path.seq, "micro_steps": path.micro_steps,
+           "steps": KNOB_STEPS, "train_phase": {"loss": [w[0] for w in want],
+                                                "grad_norm": [w[1] for w in want],
+                                                "peak_gb": train_line["peak_gb"],
+                                                "step_ms": train_line["step_ms"]},
+           "variants": variants, "approx_loss_rtol": APPROX_CLIP_LOSS_RTOL,
+           "host_mem_total_gb": host_mem_total_gb(), **totals, "gpu": card}
+    emit(out)
+    return out
 
 
 def _rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
@@ -1900,7 +2109,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = smi()
-    t_start = time.perf_counter()
+    t_start = PHASE_CLOCK["last"] = time.perf_counter()
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1944,6 +2153,12 @@ def main() -> int:
         launches_by_route["mma"] += line["attention_launches_by_route"]["mma"]
         launches_by_form["gated"] += line["rglru_launches_by_form"]["forward"]["gated"]
         torch.cuda.empty_cache()
+        if tp.arch == KNOBS_ARCH:
+            knobs_line = train_knobs_phase(tp, card, dev, line)
+            train_lines.append(knobs_line)
+            by_path[f"{tp.arch} train_knobs"] = knobs_line["launches"]
+            launches_by_route["mma"] += knobs_line["attention_launches_by_route"]["mma"]
+            launches_by_form["gated"] += knobs_line["rglru_launches_by_form"]["forward"]["gated"]
         train_consistency_phase(tp, dev)
         torch.cuda.empty_cache()
         train_profiles.append(train_profile(tp, dev))
@@ -2022,8 +2237,9 @@ def main() -> int:
               "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma256.cu",
               "src/repro/kernels/flash_attention/kernel.py:86",
               [c for c in attn_bwd_checks if c["route"] == "wgmma256"],
-              by_path_n={**{f"{line['arch']} train": line["attention_bwd_launches_by_route"]
-                            ["wgmma256"] for line in train_lines},
+              by_path_n={**{f"{line['arch']} {line['phase']}":
+                            line["attention_bwd_launches_by_route"]["wgmma256"]
+                            for line in train_lines},
                          "dist_train": dist_line["attention_bwd_launches_by_route"]["wgmma256"]},
               gradient_of="src/repro/models/layers.py:145 attention at head dim 256",
               mma_ms=next(c["mma"]["ms"] for c in attn_bwd_checks if "mma" in c)),
@@ -2035,7 +2251,8 @@ def main() -> int:
               gradient_of="src/repro/models/recurrent.py:92 rglru_scan after :77 "
                           "_rglru_coeffs (the TPU kernel has no backward)",
               launches_by_form=train_sum("rglru_launches_by_form", "backward")),
-    ], "seconds": time.perf_counter() - t_start})
+    ], "phase": "kernels"})
+    emit({"phase_seconds": PHASE_CLOCK["lines"], "script_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

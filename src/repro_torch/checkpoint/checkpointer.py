@@ -13,7 +13,11 @@ place, so a crashed save never corrupts the newest complete checkpoint.
 :meth:`Checkpointer.latest_step` skips ``.tmp`` directories, malformed
 names and directories whose manifest or any rank's tensors are missing or
 truncated.  Tensors are copied to the host one at a
-time, so the host never holds the whole state.
+time, so the host never holds the whole state.  Host-resident moments
+(``offload_opt``) are saved from their host tensors into the same files,
+after the card is idle (their last write-back runs on a copy stream); a
+restore puts m and v on the device or, with ``offload_opt``, into pinned
+host memory, whichever way the checkpoint was written.
 
 A restore reads this rank's shards onto the same topology (the same p,
 replicas and tp).  The fault-injection hook, asynchronous saves and
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.hostoffload import pinned_zeros
 from repro_torch.core.mics import local_flat_shapes
 from repro_torch.core.topology import MICS_AXES, MiCSTopology
 from repro_torch.device import resolve_device
@@ -86,6 +91,8 @@ class Checkpointer:
                 shutil.rmtree(tmp)
             tmp.mkdir(parents=True)
         _barrier(groups)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()   # host moments' write-backs are done
         leaves = []
         for part in PARTS:
             for name, t in state[part].items():
@@ -138,8 +145,10 @@ class Checkpointer:
 
     def restore(self, model: ModelDef, step: int | None = None, *,
                 topo: MiCSTopology = MiCSTopology(), rank: int = 0,
-                device: str | torch.device = "cuda") -> tuple[dict, dict]:
-        """Load ``rank``'s shards of a checkpoint onto ``device``; returns
+                device: str | torch.device = "cuda",
+                offload_opt: bool = False) -> tuple[dict, dict]:
+        """Load ``rank``'s shards of a checkpoint onto ``device`` (m and v
+        into host memory with ``offload_opt``, pinned for a card); returns
         ``(state, meta)``.  Raises if it is missing, incomplete, of another
         topology or of other pool shapes."""
         dev = resolve_device(device)
@@ -167,6 +176,10 @@ class Checkpointer:
                 if arr.shape != shape or arr.dtype != np.float32:
                     raise ValueError(f"{part}.{name}: {arr.dtype} {arr.shape} in the "
                                      f"checkpoint, the model needs float32 {shape}")
-                state[part][name] = torch.from_numpy(arr).to(dev)
+                t = torch.from_numpy(arr)
+                if offload_opt and part != "params":
+                    state[part][name] = pinned_zeros(shape, torch.float32, dev).copy_(t)
+                else:
+                    state[part][name] = t.to(dev)
         state["step"] = int(meta["state_step"])
         return state, meta

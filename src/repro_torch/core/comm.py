@@ -18,6 +18,13 @@ reassembly of the segments stored sharded over it
 and the layers' psums, gathers and maxima (``model_*``).  The partition
 gather and its adjoint run unchanged on each model coordinate's rows.
 
+The gather policy also carries what the prefetch schedule keeps of each
+gathered layer for the backward (``prefetch_carry``: the buffer itself, or
+``remat``, a re-gather) and where (``carry_offload``: ``host`` keeps the
+stored buffer in pinned host memory); :attr:`CommEngine.host_stash` is the
+run's host memory for that carry and for host-resident optimizer moments
+(``core/hostoffload.py``).
+
 Still refused, naming the ROADMAP Queue 1 item they wait for: the int8
 gather wire and the bf16 / int8 gradient wires (item 4).
 """
@@ -30,6 +37,7 @@ import torch
 
 from repro_torch.core import collectives as C
 from repro_torch.core.flat_param import model_gather_fn_for
+from repro_torch.core.hostoffload import HostStash
 from repro_torch.core.topology import MiCSTopology, hierarchy_factors
 
 GATHER_TOPOLOGIES = ("flat", "inner_first", "outer_first")
@@ -37,6 +45,8 @@ WIRE_DTYPES = ("fp32", "bf16", "int8")
 SYNC_MODES = ("2hop", "allreduce_slice")
 HOP1_WIRE_DTYPES = ("fp32", "bf16", "int8")
 HOP2_WIRE_DTYPES = ("fp32", "bf16", "int8")
+PREFETCH_CARRIES = ("stored", "remat")
+CARRY_OFFLOADS = ("none", "host")
 
 _WIRE_TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16}
 _WIRE_ITEM = "ROADMAP Queue 1 item 4, the int8 and bf16 wires"
@@ -47,19 +57,28 @@ class GatherPolicy:
     """How a flat-param pool is gathered across its partition group:
     ``topology`` (the staged order, §3.3), ``inner`` (the intra-"node"
     factor of a single-axis staged gather; default
-    ``topology.default_hierarchy_inner``), the wire dtype and the one-layer
-    lookahead."""
+    ``topology.default_hierarchy_inner``), the wire dtype, the one-layer
+    lookahead, and what the lookahead keeps for the backward: the gathered
+    buffer (``stored``) or nothing, the backward re-gathering it
+    (``remat``); the stored buffer in HBM or in pinned host memory
+    (``carry_offload``)."""
 
     topology: str = "inner_first"  # 'flat' | 'inner_first' | 'outer_first'
     wire_dtype: str = "bf16"       # 'fp32' | 'bf16' | 'int8' (ZeRO++ qwZ)
     inner: int | None = None
     prefetch: bool = True
+    prefetch_carry: str = "stored"  # 'stored' | 'remat'
+    carry_offload: str = "none"     # 'none' | 'host'
 
     def __post_init__(self):
         if self.topology not in GATHER_TOPOLOGIES:
             raise ValueError(f"unknown gather topology {self.topology!r}")
         if self.wire_dtype not in WIRE_DTYPES:
             raise ValueError(f"unknown wire dtype {self.wire_dtype!r}")
+        if self.prefetch_carry not in PREFETCH_CARRIES:
+            raise ValueError(f"unknown prefetch_carry {self.prefetch_carry!r}")
+        if self.carry_offload not in CARRY_OFFLOADS:
+            raise ValueError(f"unknown carry_offload {self.carry_offload!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +120,8 @@ def policies_from_config(mcfg) -> tuple[GatherPolicy, SyncPolicy]:
     else:
         wire = "bf16" if mcfg.gather_dtype == torch.bfloat16 else "fp32"
     gather = GatherPolicy(topology=mcfg.gather_order if mcfg.hierarchical else "flat",
-                          wire_dtype=wire, inner=mcfg.hierarchy_inner, prefetch=mcfg.prefetch)
+                          wire_dtype=wire, inner=mcfg.hierarchy_inner, prefetch=mcfg.prefetch,
+                          prefetch_carry=mcfg.prefetch_carry, carry_offload=mcfg.carry_offload)
     sync = SyncPolicy(mode=mcfg.sync_mode, hop1_wire_dtype=mcfg.hop1_wire_dtype,
                       hop2_wire_dtype=_hop2_wire(mcfg.compress_hop2))
     return gather, sync
@@ -155,6 +175,8 @@ class CommEngine:
         self._model_gather_fn = (model_gather_fn_for(groups, self.counter)
                                  if topo.model_size > 1 else None)
         self._side: dict = {}
+        self._host_stash: HostStash | None = None
+        self._carry_tags: dict[str, int] = {}
 
     @classmethod
     def from_config(cls, topo: MiCSTopology, mcfg, *, groups=None) -> "CommEngine":
@@ -163,6 +185,26 @@ class CommEngine:
     @property
     def prefetch(self) -> bool:
         return self.gather_policy.prefetch
+
+    @property
+    def prefetch_carry(self) -> str:
+        return self.gather_policy.prefetch_carry
+
+    @property
+    def carry_offload(self) -> str:
+        return self.gather_policy.carry_offload
+
+    @property
+    def host_stash(self) -> HostStash:
+        """The run's host memory (made on first use): the offloaded carry's
+        slots and the copies of host-resident optimizer moments."""
+        if self._host_stash is None:
+            self._host_stash = HostStash()
+        return self._host_stash
+
+    def carry_tag(self, pool_name: str) -> int:
+        """A pool's stable number among the carry slots' keys."""
+        return self._carry_tags.setdefault(pool_name, len(self._carry_tags))
 
     def gather_out_dtype(self) -> torch.dtype:
         return _WIRE_TORCH[self.gather_policy.wire_dtype]

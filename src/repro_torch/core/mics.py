@@ -9,10 +9,14 @@ compute is checkpointed, and the gather's adjoint (hop 1) hands each
 shard's gradient back in fp32, where it is added to the fp32 accumulator in
 micro-step order (0 + g1 + g2 ...).  At the boundary
 ``core/schedule.apply_boundary`` runs hop 2, the exact global-norm clip
-and AdamW on the flat fp32 shards.  At tp > 1 (Megatron tensor
-parallelism under every partition group) a rank holds its model
-coordinate's shards, the layers sum their row-parallel outputs over the
-model group and the loss is vocab-parallel.  All collectives belong to one
+and AdamW on the flat fp32 shards (or the approximate clip's pipeline,
+with ``clip_mode="approx"``).  ``prefetch_carry="remat"`` and
+``carry_offload="host"`` change what the forward keeps of each gathered
+layer for the backward (``models/lm.py``); ``offload_opt`` keeps AdamW's m
+and v in pinned host memory (``core/hostoffload.py``).  At tp > 1
+(Megatron tensor parallelism under every partition group) a rank holds its
+model coordinate's shards, the layers sum their row-parallel outputs over
+the model group and the loss is vocab-parallel.  All collectives belong to one
 ``CommEngine`` over the process groups of ``launch/mesh.MiCSGroups``.
 Unlike the reference's jitted step, which returns a new state, this step
 updates the state's tensors in place and returns them.
@@ -25,7 +29,8 @@ import zlib
 
 import torch
 
-from repro_torch.core.comm import CommEngine
+from repro_torch.core import hostoffload
+from repro_torch.core.comm import CARRY_OFFLOADS, PREFETCH_CARRIES, CommEngine
 from repro_torch.core.schedule import BOUNDARY_SCHEDULES, CLIP_MODES, apply_boundary, plan_boundary
 from repro_torch.core.topology import MODEL_AXIS, MiCSTopology
 from repro_torch.device import resolve_device
@@ -34,22 +39,22 @@ from repro_torch.models import lm
 from repro_torch.models.lm import ModelDef
 from repro_torch.optim.adamw import OptConfig
 
-PREFETCH_CARRIES = ("stored", "remat")
-CARRY_OFFLOADS = ("none", "host")
 HOP2_WIRES = (False, True, "fp32", "bf16", "int8")
 
 # Training knobs the port refuses at anything but this value, with the
 # ROADMAP Queue 1 item each waits for.
-_KNOBS_ITEM = "ROADMAP Queue 1 item 3, the training knobs that run on one card"
 _PLANNER_ITEM = "ROADMAP Queue 1 item 8, the link model, memory planner and autotuner"
 UNPORTED_TRAIN = {
-    "prefetch_carry": ("stored", f"the remat carry ({_KNOBS_ITEM})"),
-    "carry_offload": ("none", f"the host-offloaded carry ({_KNOBS_ITEM})"),
-    "offload_opt": (False, f"host-offloaded AdamW moments ({_KNOBS_ITEM})"),
-    "clip_mode": ("exact", f"the approximate clip ({_KNOBS_ITEM})"),
     "policy": ("manual", f"the link-model autotuner ({_PLANNER_ITEM})"),
     "hbm_budget_gb": (None, f"the memory planner ({_PLANNER_ITEM})"),
 }
+# bf16 attention scores halve the HBM traffic of materialised scores in the
+# reference (``repro/models/layers.py:164``); the port's flash kernels never
+# materialise them, so the knob is declared unneeded (PERF.md §6).
+SCORES_BF16_UNNEEDED = (
+    "scores_bf16=True: declared unneeded (PERF.md §6, 'scores_bf16'): the port's flash "
+    "kernels never write the scores to HBM, so bf16 scores would save no traffic; the "
+    "kernels keep fp32 scores")
 # Families the port trains on a CUDA device: each kernel their layers reach
 # has a hand-written backward (griffin's RG-LRU since slice 7).
 CUDA_TRAIN_FAMILIES = ("dense", "griffin")
@@ -75,13 +80,13 @@ class MiCSConfig:
     quant_gather: bool = False          # int8 wire (default only: item 4)
     hop1_wire_dtype: str = "fp32"       # (default only: Queue 1 item 4)
     prefetch: bool = True               # lookahead gathers
-    prefetch_carry: str = "stored"      # (default only)
+    prefetch_carry: str = "stored"      # 'stored' | 'remat' (backward re-gather)
     policy: str = "manual"              # (default only)
     boundary_schedule: str = "bucketed"  # 'serial' | 'bucketed'
     hop2_bucket_mb: float = 32.0
-    clip_mode: str = "exact"            # (default only)
-    carry_offload: str = "none"         # (default only)
-    offload_opt: bool = False           # (default only)
+    clip_mode: str = "exact"            # 'exact' | 'approx' (one bucket stale)
+    carry_offload: str = "none"         # 'none' | 'host' (the stored carry in host memory)
+    offload_opt: bool = False           # AdamW m and v in pinned host memory
     hbm_budget_gb: float | None = None  # (default only)
 
     def __post_init__(self):
@@ -100,6 +105,13 @@ class MiCSConfig:
             if getattr(self, name) not in allowed:
                 raise ValueError(f"unknown {name} {getattr(self, name)!r} "
                                  f"(expected one of {allowed})")
+        if self.clip_mode == "approx" and self.boundary_schedule != "bucketed":
+            raise ValueError("clip_mode='approx' requires boundary_schedule='bucketed' "
+                             "(the approximate clip is a property of the bucket pipeline)")
+        if self.carry_offload == "host" and not (self.prefetch
+                                                 and self.prefetch_carry == "stored"):
+            raise ValueError("carry_offload='host' requires prefetch=True and "
+                             "prefetch_carry='stored' (it offloads the stored carry)")
         if self.compress_hop2 not in HOP2_WIRES:
             raise ValueError(f"compress_hop2 must be a bool or one of fp32/bf16/int8, "
                              f"got {self.compress_hop2!r}")
@@ -157,15 +169,24 @@ def init_params(model: ModelDef, seed: int = 0, *, device: str | torch.device = 
 
 
 def init_state(model: ModelDef, seed: int = 0, *, device: str | torch.device = "cuda",
-               topo: MiCSTopology = MiCSTopology(), rank: int = 0):
+               topo: MiCSTopology = MiCSTopology(), rank: int = 0, offload_opt: bool = False):
     """``{"params", "m", "v", "step"}``: ``rank``'s params from
-    :func:`init_params`, zero m and v (fp32 flat shards like the params),
-    step 0."""
+    :func:`init_params`, zero m and v (fp32 flat shards like the params:
+    on ``device``, or with ``offload_opt`` in host memory, pinned for a
+    card), step 0.  The reference's offloaded state has no m and v; the
+    port keeps them in the state as host tensors."""
     params = init_params(model, seed, device=device, topo=topo, rank=rank)
-    return {"params": params,
-            "m": {k: torch.zeros_like(p) for k, p in params.items()},
-            "v": {k: torch.zeros_like(p) for k, p in params.items()},
-            "step": 0}
+    return {"params": params, "m": _zero_moments(params, offload_opt),
+            "v": _zero_moments(params, offload_opt), "step": 0}
+
+
+def _zero_moments(params: dict, offload_opt: bool = False) -> dict:
+    """Zero fp32 moments like ``params``: beside them, or with
+    ``offload_opt`` in host memory (pinned when ``params`` are on a card)."""
+    if not offload_opt:
+        return {k: torch.zeros_like(p) for k, p in params.items()}
+    return {k: hostoffload.pinned_zeros(p.shape, p.dtype, p.device)
+            for k, p in params.items()}
 
 
 def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology, family: str = "dense",
@@ -184,15 +205,24 @@ def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology, family: str = "dense",
                 f"{name}={getattr(mcfg, name)!r}: {item} is not ported yet; "
                 "the port trains with the default")
     if mcfg.scores_bf16:
-        raise NotImplementedError("bf16 attention scores: the kernels keep fp32 scores")
+        raise NotImplementedError(SCORES_BF16_UNNEEDED)
 
 
-def _check_state(model: ModelDef, topo: MiCSTopology, state: dict, dev: torch.device) -> None:
+def _check_state(model: ModelDef, topo: MiCSTopology, state: dict, dev: torch.device,
+                 offload_opt: bool = False) -> None:
+    """The state's placement: every tensor fp32 of this rank's shape, the
+    params on ``dev``, m and v on ``dev`` or, with ``offload_opt``, in host
+    memory (pinned for a card), and nowhere else."""
     for part in ("params", "m", "v"):
+        host = offload_opt and part != "params"
         for name, shape in local_flat_shapes(model, topo).items():
             t = state[part][name]
-            if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device.type != dev.type:
-                raise ValueError(f"state[{part!r}][{name!r}]: want fp32 {shape} on {dev}, "
+            placed = (hostoffload.is_host_resident(t, dev) if host
+                      else t.device.type == dev.type)
+            if tuple(t.shape) != shape or t.dtype != torch.float32 or not placed:
+                where = ("pinned host memory" if dev.type == "cuda" else "host memory"
+                         ) if host else str(dev)
+                raise ValueError(f"state[{part!r}][{name!r}]: want fp32 {shape} in {where}, "
                                  f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
@@ -200,14 +230,17 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
                      *, device: str | torch.device = "cuda", groups=None):
     """Returns ``step_fn(state, batch) -> (state, metrics)`` on ``device``.
 
-    ``state``: this rank's shards (:func:`init_state`); ``batch``: this
-    rank's slice, tokens / targets / mask ``[micro_steps, b, T]`` (numpy or
-    tensors).  ``groups``: the ``launch.mesh.MiCSGroups`` of ``topo``,
-    needed at p > 1 or with more than one replica (``ValueError`` without).
+    ``state``: this rank's shards (:func:`init_state`; with
+    ``mcfg.offload_opt`` its m and v are host tensors, ``init_state(...,
+    offload_opt=True)``); ``batch``: this rank's slice, tokens / targets /
+    mask ``[micro_steps, b, T]`` (numpy or tensors).  ``groups``: the
+    ``launch.mesh.MiCSGroups`` of ``topo``, needed at p > 1 or with more
+    than one replica (``ValueError`` without).
     ``metrics``: fp32 0-dim tensors ``loss`` and ``aux`` (means over the
     micro-steps and the data ranks) and ``grad_norm`` (before the clip).  The
     state's params, m and v are updated in place; the returned state holds
-    them and ``step + 1``.  ``step_fn.comm`` is the step's ``CommEngine``."""
+    them and ``step + 1``.  ``step_fn.comm`` is the step's ``CommEngine``,
+    ``step_fn.describe()`` the record of its settings."""
     dev = resolve_device(device)
     refuse_unported(mcfg, topo, model.cfg.family, dev)
     if model.tp != topo.model_size:
@@ -222,19 +255,23 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
     denom = float(s * topo.data_parallel_size)
 
     def step_fn(state, batch):
-        _check_state(model, topo, state, dev)
+        _check_state(model, topo, state, dev, mcfg.offload_opt)
         batch = {k: torch.as_tensor(batch[k]).to(dev) for k in ("tokens", "targets", "mask")}
         if batch["tokens"].shape[0] != s:
             raise ValueError(f"batch has {batch['tokens'].shape[0]} micro-steps, "
                              f"the step runs {s}")
         grads, loss_sum, aux_sum = accumulate_grads(model, comm, ctx, state["params"], batch)
         new_p, new_m, new_v, gnorm = apply_boundary(boundary, comm, model, topo, oc, state,
-                                                     grads, denom)
+                                                     grads, denom, offload_opt=mcfg.offload_opt)
         means = comm.replica_mean(torch.stack([loss_sum / s, aux_sum / s]).detach())
         metrics = {"loss": means[0], "aux": means[1], "grad_norm": gnorm}
         return {"params": new_p, "m": new_m, "v": new_v, "step": state["step"] + 1}, metrics
 
     step_fn.comm = comm   # its counter is the run's census of collectives
+    step_fn.describe = lambda: {
+        **comm.describe(), "boundary": boundary.describe(),
+        "optimizer": {"offload_opt": mcfg.offload_opt,
+                      "moments": "host" if mcfg.offload_opt else "device"}}
     return step_fn
 
 

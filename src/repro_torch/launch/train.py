@@ -10,6 +10,11 @@
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch llama3.2-1b --smoke --device cpu --dist-backend gloo \
       --partition-size 2 --tp 2 --steps 4                      # p 2 x tp 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
+      --smoke --device cpu --steps 4 --prefetch-carry remat    # the remat carry
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
+      --smoke --device cpu --steps 4 --carry-offload host \
+      --offload-opt --clip-mode approx                         # host carry and moments
 
 Weights are random, made from ``--seed``; the data is the seeded synthetic
 stream.  The flags are the reference's (``repro/launch/train.py``) plus
@@ -18,10 +23,13 @@ anywhere, CUDA tensors through pinned host buffers; required when
 ``WORLD_SIZE`` > 1), ``--dist-timeout-s`` and ``--tp``.  Under ``torchrun``
 the world is laid out as ``(repl, shard = --partition-size, model = --tp)``
 (the reference sizes its model axis from the mesh), or as ZeRO-3 with
-``--zero3``.  A setting the port does not run yet (``--policy auto``,
-``--quant-gather``, a hop-1 wire other than fp32, ``--prefetch-carry
-remat``, ``--carry-offload host``, ``--offload-opt``, ``--clip-mode
-approx``, ``--hbm-budget-gb``) raises ``NotImplementedError``.  The
+``--zero3``.  The one-card knobs run: ``--prefetch-carry remat``,
+``--carry-offload host`` (the stored carry in pinned host memory),
+``--offload-opt`` (AdamW's m and v in pinned host memory) and ``--clip-mode
+approx``; a line says which carry, where the moments live and which clip.
+A setting the port does not run yet (``--policy auto`` and
+``--hbm-budget-gb``, ROADMAP Queue 1 item 8; ``--quant-gather`` and a hop-1
+wire other than fp32, item 4) raises ``NotImplementedError``.  The
 reference's memory-plan and autotune printouts wait for those modules.
 Only rank 0 prints.
 """
@@ -134,6 +142,12 @@ def main(argv=None):
             f"{'flat' if args.no_hierarchical else args.gather_order}")
     say(f"boundary: {mcfg.boundary_schedule} x {bplan.n_buckets} buckets "
         f"({mcfg.hop2_bucket_mb:g} MB, clip={bplan.clip_mode})")
+    host = "host memory" + (" (pinned)" if dev.type == "cuda" else "")
+    carry = ("none (serial: the backward re-gathers)" if not mcfg.prefetch else
+             f"stored in {host}" if mcfg.carry_offload == "host" else
+             "stored on the device" if mcfg.prefetch_carry == "stored" else "remat")
+    moments = host if mcfg.offload_opt else "the device"
+    say(f"knobs: prefetch carry {carry}; AdamW moments in {moments}; clip {mcfg.clip_mode}")
     oc = OptConfig(lr_max=args.lr, total_steps=args.steps,
                    warmup_steps=max(args.steps // 20, 1))
     dc = DataConfig(vocab=cfg.vocab, seq=args.seq, global_batch=args.global_batch,

@@ -25,8 +25,22 @@ In train mode each layer's compute runs under activation checkpointing
 in the reference: the serial schedule checkpoints gather + compute, so the
 backward re-gathers; the prefetch schedule checkpoints unflatten + compute
 from the gathered buffer, which is the saved input (the reference's stored
-carry), so the backward recomputes from it without a re-gather.  The
-``remat`` and host-``offload`` carries are refused in ``core/mics.py``.
+carry), so the backward recomputes from it without a re-gather.
+
+Two more carries of the prefetch schedule, in train mode for pools of more
+than one layer (``CommEngine.prefetch_carry`` / ``carry_offload``), change
+only what the forward keeps for the backward; the forward is the prefetch
+loop's, the backward's operations are the stored carry's, so losses and
+gradients are bitwise the stored carry's:
+
+* **remat** — the checkpoint's inputs are the layer input and the fp32
+  row; the forward computes from the prefetched buffer and drops it, the
+  backward's recompute re-gathers the row (at p > 1 one more all-gather a
+  pool row and micro-step).
+* **host offload** — the gathered buffer, a checkpoint input, goes to a
+  pinned host slot as the layer starts (``CommEngine.host_stash``, after
+  the next layer's gather is issued) and comes back to the card when the
+  backward's recompute needs it; the layer input stays on the card.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.hostoffload import Carry
 from repro_torch.core.flat_param import FlatLayout
 from repro_torch.models import layers as L
 
@@ -135,6 +150,10 @@ def _apply_pool(pool: Pool, flat_rows, x, ctx: L.Ctx, comm, caches=None):
     """Run a pool over its stack.  flat_rows: [stack, 1, S_local], or a
     list of [S_local] rows."""
     if comm.prefetch and pool.stack > 1:
+        if ctx.mode == "train" and comm.carry_offload == "host":
+            return _apply_pool_prefetch_offload(pool, flat_rows, x, ctx, comm)
+        if ctx.mode == "train" and comm.prefetch_carry == "remat":
+            return _apply_pool_prefetch_remat(pool, flat_rows, x, ctx, comm)
         return _apply_pool_prefetch(pool, flat_rows, x, ctx, comm, caches)
     return _apply_pool_serial(pool, flat_rows, x, ctx, comm, caches)
 
@@ -176,6 +195,72 @@ def _apply_pool_prefetch(pool, flat_rows, x, ctx, comm, caches):
         new.append(nc)
         cur = nxt
     return x, aux_tot, _pool_caches(caches, new)
+
+
+def _layer_from_carry(pool: Pool, comm, ctx: L.Ctx, carry: list, x, row):
+    """The layer from the prefetched buffer in ``carry``, taken out so that
+    nothing keeps it, in the forward; from a re-gather of ``row`` in the
+    backward's recompute (the remat carry)."""
+    full = carry.pop() if carry else comm.gather_flat(row)
+    return _layer_from_full(pool, comm, ctx, x, full)
+
+
+def _apply_pool_prefetch_remat(pool, flat_rows, x, ctx, comm):
+    """The prefetch loop with the remat carry: layer i+1's gather is issued
+    before layer i's compute, which reads the prefetched buffer; its
+    checkpoint keeps the layer input and the row (a leaf the state holds
+    anyway), so the backward re-gathers the row, recomputes the layer from
+    it and runs the same gather adjoint (the reference's
+    ``_apply_pool_prefetch_remat``, with a custom VJP there)."""
+    aux_tot = 0.0
+    cur = comm.gather_ahead(_row(flat_rows, 0))
+    for i in range(pool.stack):
+        nxt = comm.gather_ahead(_row(flat_rows, i + 1)) if i + 1 < pool.stack else None
+        x, aux = _checkpointed(functools.partial(_layer_from_carry, pool, comm, ctx, [cur]),
+                               x, _row(flat_rows, i))
+        aux_tot += aux
+        cur = nxt
+    return x, aux_tot, None
+
+
+class _HostCarry:
+    """Saved-tensor hooks of one checkpointed layer of the host-offloaded
+    carry: the pack hook moves exactly the layer's gathered buffer (matched
+    by identity, never by shape) into its pinned slot; every other saved
+    tensor, the layer input, stays as it is.  The unpack hook brings the
+    buffer back to the card."""
+
+    def __init__(self, stash, key, buf: torch.Tensor):
+        self.stash, self.key, self.buf = stash, key, buf
+
+    def pack(self, t: torch.Tensor):
+        if self.buf is not None and t is self.buf:
+            return self.stash.put(self.key, t)
+        return t
+
+    def unpack(self, packed):
+        return self.stash.get(packed) if isinstance(packed, Carry) else packed
+
+
+def _apply_pool_prefetch_offload(pool, flat_rows, x, ctx, comm):
+    """The prefetch loop with the stored carry in host memory: as
+    :func:`_apply_pool_prefetch`, but each layer's checkpoint saves its
+    gathered buffer into the pinned slot ``(pool, layer)`` of
+    ``comm.host_stash`` (the copy issued after layer i+1's gather), and the
+    backward's recompute fetches it back (the reference's
+    ``_apply_pool_prefetch_offload``)."""
+    stash, tag = comm.host_stash, comm.carry_tag(pool.name)
+    aux_tot = 0.0
+    cur = comm.gather_ahead(_row(flat_rows, 0))
+    for i in range(pool.stack):
+        nxt = comm.gather_ahead(_row(flat_rows, i + 1)) if i + 1 < pool.stack else None
+        hooks = _HostCarry(stash, (tag, i), cur)
+        with torch.autograd.graph.saved_tensors_hooks(hooks.pack, hooks.unpack):
+            x, aux = _checkpointed(functools.partial(_layer_from_full, pool, comm, ctx), x, cur)
+        hooks.buf = None      # the graph keeps the hooks: they must not keep the buffer
+        aux_tot += aux
+        cur = nxt
+    return x, aux_tot, None
 
 
 def embed_tokens(model: ModelDef, t_embed, tokens, ctx: L.Ctx):

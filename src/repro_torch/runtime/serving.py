@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.comm import CommEngine
-from repro_torch.core.mics import MiCSConfig
+from repro_torch.core.mics import SCORES_BF16_UNNEEDED, MiCSConfig
 from repro_torch.core.topology import MiCSTopology
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -67,7 +67,7 @@ def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
             f"{topo.replication_degree} replicas) waits for ROADMAP Queue 1 item 6, the "
             "serving engine; the port serves on one card")
     if mcfg.scores_bf16:
-        raise NotImplementedError("bf16 attention scores: the kernel keeps fp32 scores")
+        raise NotImplementedError(SCORES_BF16_UNNEEDED)
     comm = CommEngine.from_config(topo, mcfg)
     ctx = L.Ctx(mode="decode", tp=topo.model_size, cache_len=cache_len,
                 compute_dtype=mcfg.gather_dtype)

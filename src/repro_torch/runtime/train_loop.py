@@ -73,11 +73,13 @@ def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
 
     start = ckpt.latest_step()
     if start is not None:
-        state, meta = ckpt.restore(model, topo=topo, rank=rank, device=dev)
+        state, meta = ckpt.restore(model, topo=topo, rank=rank, device=dev,
+                                   offload_opt=mcfg.offload_opt)
         cursor = meta["data_cursor"]
         info("resumed from step %d", start)
     else:
-        state = init_state(model, lc.seed, device=dev, topo=topo, rank=rank)
+        state = init_state(model, lc.seed, device=dev, topo=topo, rank=rank,
+                           offload_opt=mcfg.offload_opt)
         cursor = 0
 
     ewma = None

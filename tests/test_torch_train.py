@@ -4,7 +4,7 @@
 the same batches, smoke llama3.2-1b, ``micro_steps=2``, 3 steps; smoke
 recurrentgemma-2b's loss and gradients against ``jax.grad`` of the
 reference's loss; the port's bitwise equalities between its own
-schedules; and every training knob it refuses.  ``gpu`` tests hold the
+schedules; and every training knob it refuses or has lifted.  ``gpu`` tests hold the
 card's steps to the CPU's."""
 
 import dataclasses
@@ -195,10 +195,6 @@ def test_same_step_twice_is_bitwise_equal(setup):
 
 
 REFUSED = {
-    "prefetch_carry": dict(prefetch_carry="remat"),
-    "carry_offload": dict(carry_offload="host"),
-    "offload_opt": dict(offload_opt=True),
-    "clip_mode": dict(clip_mode="approx"),
     "policy": dict(policy="auto"),
     "hbm_budget_gb": dict(hbm_budget_gb=40.0),
     "hop1_bf16": dict(hop1_wire_dtype="bf16"),
@@ -208,24 +204,30 @@ REFUSED = {
     "quant_gather": dict(quant_gather=True),
     "scores_bf16": dict(scores_bf16=True),
 }
-# Knobs the multi-rank collectives slice lifted (ROADMAP Queue 1 item 2):
-# they keep their ids below and now build a step whose engine carries them
-# (the gather topology and the sync mode; at p = 1 they move nothing).
+# Knobs a slice lifted: they keep their ids below and now build a step whose
+# record (``step_fn.describe()``) carries them.  The multi-rank collectives
+# (ROADMAP Queue 1 item 2): the gather topology and the sync mode (at p = 1
+# they move nothing).  The one-card training knobs (item 3): the remat and
+# host carries, host-resident moments and the approximate clip
+# (tests/test_torch_knobs.py holds what they compute).
 LIFTED = {
     "sync_mode": (dict(sync_mode="allreduce_slice"), "sync", "mode", "allreduce_slice"),
     "no_hierarchical": (dict(hierarchical=False), "gather", "topology", "flat"),
     "outer_first": (dict(gather_order="outer_first"), "gather", "topology", "outer_first"),
+    "prefetch_carry": (dict(prefetch_carry="remat"), "gather", "prefetch_carry", "remat"),
+    "carry_offload": (dict(carry_offload="host"), "gather", "carry_offload", "host"),
+    "offload_opt": (dict(offload_opt=True), "optimizer", "offload_opt", True),
+    "clip_mode": (dict(clip_mode="approx"), "boundary", "clip_mode", "approx"),
 }
 
 
 @pytest.mark.parametrize("knob", list(REFUSED) + list(LIFTED))
 def test_refused_knob_raises(setup, knob):
     if knob in LIFTED:
-        kw, policy, field, value = LIFTED[knob]
-        assert callable(build_train_step(setup[0], MiCSTopology(), MiCSConfig(**kw),
-                                         OptConfig(), device="cpu"))
-        desc = CommEngine.from_config(MiCSTopology(), MiCSConfig(**kw)).describe()
-        assert desc[policy][field] == value
+        kw, part, field, value = LIFTED[knob]
+        step = build_train_step(setup[0], MiCSTopology(), MiCSConfig(**kw), OptConfig(),
+                                device="cpu")
+        assert step.describe()[part][field] == value
         return
     with pytest.raises(NotImplementedError):
         build_train_step(setup[0], MiCSTopology(), MiCSConfig(**REFUSED[knob]), OptConfig(),
@@ -450,7 +452,10 @@ def test_griffin_loss_and_grads_match_jax(griffin, topo1, wire):
 
 def test_unknown_values_raise():
     for kw in (dict(boundary_schedule="pipelined"), dict(clip_mode="loose"),
-               dict(prefetch_carry="x"), dict(micro_steps=0), dict(hop2_bucket_mb=0)):
+               dict(prefetch_carry="x"), dict(micro_steps=0), dict(hop2_bucket_mb=0),
+               dict(clip_mode="approx", boundary_schedule="serial"),
+               dict(carry_offload="host", prefetch=False),
+               dict(carry_offload="host", prefetch_carry="remat")):
         with pytest.raises(ValueError):
             MiCSConfig(**kw)
 

@@ -1,7 +1,7 @@
 """The port's training loop on the CPU: a run resumed from its step-2
 checkpoint is bitwise the uninterrupted run, the checkpointer finds only
 complete checkpoints, and the launcher trains the smoke model from the
-command line."""
+command line, with the one-card training knobs too."""
 
 import os
 import pathlib
@@ -111,7 +111,38 @@ def test_launcher_refuses_unported_flags(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b", "--smoke",
-         "--device", "cpu", "--steps", "1", "--clip-mode", "approx",
+         "--device", "cpu", "--steps", "1", "--policy", "auto",
          "--checkpoint-dir", str(tmp_path / "ck")],
         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
     assert out.returncode != 0 and "NotImplementedError" in out.stderr
+    assert "Queue 1 item 8" in out.stderr
+
+
+# The host carry offloads the stored carry, so it cannot run beside remat:
+# the four knobs run in two launches.
+KNOB_FLAGS = {
+    "remat": (["--prefetch-carry", "remat", "--offload-opt", "--clip-mode", "approx"],
+              "knobs: prefetch carry remat; AdamW moments in host memory; clip approx"),
+    "carry_host": (["--carry-offload", "host", "--offload-opt", "--clip-mode", "approx"],
+                   "knobs: prefetch carry stored in host memory; AdamW moments in host "
+                   "memory; clip approx"),
+}
+
+
+@pytest.mark.parametrize("carry", list(KNOB_FLAGS))
+def test_launcher_trains_with_the_knobs(tmp_path, carry):
+    """The one-card knobs from the command line: 2 steps of the smoke model
+    with a carry knob, the moments in host memory and the approximate clip;
+    the launcher's line names them."""
+    flags, line = KNOB_FLAGS[carry]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b", "--smoke",
+         "--device", "cpu", "--steps", "2", "--checkpoint-dir", str(tmp_path / "ck"), *flags],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert line in lines and "clip=approx" in lines[0], out.stdout
+    assert lines[-1].startswith("final loss ") and "over 2 steps on cpu" in lines[-1]
+    assert np.isfinite(float(lines[-1].split()[2]))
+    assert Checkpointer(tmp_path / "ck").latest_step() == 2

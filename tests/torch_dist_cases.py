@@ -100,6 +100,27 @@ TRAINS = {f"{lay}:{wire}": (lay, order, inner, wire)
           for wire in ("fp32", "bf16")}
 
 
+# The one-card training knobs over ranks (``torch_dist_harness.py knobs``),
+# the port against itself on the seeded init: name -> (layout,
+# gather_order, hierarchy_inner, MiCSConfig overrides, OptConfig
+# overrides).  ``KNOB_CLIP_NEVER`` keeps the approximate clip inactive;
+# ``KNOB_BUCKET_MB`` cuts every pool into many hop-2 buckets, some across
+# rows.
+KNOB_CLIP_NEVER = 1e9
+KNOB_BUCKET_MB = 0.01
+KNOB_RUNS = {
+    "A.stored": ("A", "outer_first", 2, {}, {}),
+    "A.remat": ("A", "outer_first", 2, {"prefetch_carry": "remat"}, {}),
+    "B.exact": ("B", "inner_first", None, {"hop2_bucket_mb": KNOB_BUCKET_MB},
+                {"clip_norm": KNOB_CLIP_NEVER}),
+    "B.approx": ("B", "inner_first", None, {"hop2_bucket_mb": KNOB_BUCKET_MB,
+                                            "clip_mode": "approx"},
+                 {"clip_norm": KNOB_CLIP_NEVER}),
+    "B.default": ("B", "inner_first", None, {}, {}),
+    "B.host": ("B", "inner_first", None, {"carry_offload": "host", "offload_opt": True}, {}),
+}
+
+
 def train_batches() -> list[dict[str, np.ndarray]]:
     """The global batches ``[MICRO, GLOBAL_B, SEQ]`` of each step; data rank
     d takes row d of each micro-batch (the reference's batch spec).  Each

@@ -2,7 +2,7 @@
 runs every case of ``torch_dist_cases.py`` and each rank writes its results
 to ``<out>/port_<mode>.rank<r>.npz``.
 
-    python tests/torch_dist_harness.py collectives|train|tp_layers|tp_train OUT_DIR \
+    python tests/torch_dist_harness.py collectives|train|tp_layers|tp_train|knobs OUT_DIR \
         [cpu|cuda]
 
 ``train`` starts from the JAX package's initial state, which it reads from
@@ -352,6 +352,37 @@ def tp_train(world: World) -> dict:
     return out
 
 
+def knobs(world: World) -> dict:
+    """The one-card training knobs over ranks, the port against itself from
+    the seeded ``init_state`` (``K.KNOB_RUNS``): each run's metrics, final
+    state and the step's collective counts (``<run>.calls``)."""
+    import json
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import OptConfig
+
+    model = build_model(smoke_variant(get_config("llama3.2-1b")), tp=1)
+    out = {}
+    for name, (lay, order, inner, kw, opt) in K.KNOB_RUNS.items():
+        topo, g = _topology(lay), world.groups(lay, inner)
+        mc = MiCSConfig(micro_steps=K.MICRO, gather_order=order, hierarchy_inner=inner, **kw)
+        state = init_state(model, 0, device="cpu", topo=topo, rank=world.rank,
+                           offload_opt=mc.offload_opt)
+        step = build_train_step(model, topo, mc, OptConfig(**{**K.OPT, **opt}), device="cpu",
+                                groups=g)
+        dr, metrics = topo.data_rank(world.rank), []
+        for b in K.train_batches():
+            state, m = step(state, K.data_slice(b, dr, topo.data_parallel_size))
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        out[f"{name}.metrics"] = np.asarray(metrics, np.float64)
+        out[f"{name}.calls"] = np.asarray(json.dumps(step.comm.counter.snapshot()["calls"]))
+        for part in ("params", "m", "v"):
+            out.update({f"{name}.{part}.{k}": _np(v) for k, v in state[part].items()})
+    return out
+
+
 def _rank_main(rank: int, mode: str, out_dir: pathlib.Path, device: str):
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(K.WORLD), LOCAL_RANK=str(rank))
@@ -365,6 +396,8 @@ def _rank_main(rank: int, mode: str, out_dir: pathlib.Path, device: str):
         res = tp_layers(world)
     elif mode == "tp_train":
         res = tp_train(world)
+    elif mode == "knobs":
+        res = knobs(world)
     else:
         res = train(world, out_dir)
     np.savez(out_dir / f"port_{mode}.rank{rank}.npz", **res)
