@@ -37,6 +37,17 @@ check raises and the script exits non-zero; no phase swallows an error):
    same prefill logits on the card (kernels) as on the CPU (plain versions).
    ``profile``: device time of one prefill and one decode step by kernel,
    and the number of device kernels each runs.
+   ``serve_int8``: the same serve (model, prompt, batch, 32 greedy steps)
+   from int8 weights stored on the card (``quantize_state`` of the same
+   weights, ``MiCSConfig(quant_gather=True)``): each pool row dequantized
+   at every forward.  Its prefill / decode / tokens / peak numbers beside
+   the bf16 ``serve`` run's, the stored bytes (int8 + scales against fp32),
+   the share of generated tokens equal to the bf16 run's (reported, not
+   gated); launch counts the ``serve`` run's plus one ``dequantize`` a
+   gathered pool row a forward (llama 18 x 33, recurrentgemma 11 x 33,
+   ``quantize`` 0); decode step 8 against a prefill of the prompt and the
+   first 8 tokens; at the cut depth the card's prefill logits against the
+   CPU's on the same stored bytes; a profile of one decode step.
 3. For each of two train paths, through ``runtime/train_loop.train`` (the
    launcher's entry point), at full width and depth, ``init_state(seed=0)``,
    the synthetic stream, bf16 gather, prefetch schedule, bucketed boundary,
@@ -118,6 +129,18 @@ check raises and the script exits non-zero; no phase swallows an error):
    the backend, the ranks a card, each rank's ``step_ms``, host seconds in
    collectives and ``peak_gb``, and its own seconds.  A rank that fails
    fails the phase.
+3c. ``dist_wires``: the int8 and bf16 wires, run by the same 4 worker
+   processes after their layouts, on layout A's and B's process groups:
+   llama3.2-1b at full width cut to 4 layers, dist_train's data, seed and
+   OptConfig, 2 steps, stochastic rounding.  A-q: p 4, ``outer_first``
+   inner 2, the int8 gather (qwZ) and the int8 hop 1 (qgZ); B-q: p 2 x 2
+   replicas, the bf16 hop 1 and the int8 hop 2 over the bucketed boundary.
+   Each step's loss within 0.05 and grad norm within 0.1 (relative) of the
+   one-card fp32-wire run of the same model (layout B's reference); every
+   rank's collective calls, kernel launches and quantize launches by
+   rounding as ``dist_wire_expected``; the int8 legs' counted bytes (values
+   and scales) at most 0.55 of a bf16 wire's for the same payloads.  Each
+   rank's ``step_ms``, host seconds in collectives and ``peak_gb``.
 4. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
    library call's where there is one, and the card's bound for the same
@@ -156,7 +179,14 @@ check raises and the script exits non-zero; no phase swallows an error):
    starts its forward writes (held to their plain version).  All bitwise repeatable,
    with the library's autograd backward (``F.rms_norm``,
    ``F.scaled_dot_product_attention``) as ``library_ms``; the RG-LRU has
-   none (no one PyTorch call computes a linear recurrence).
+   none (no one PyTorch call computes a linear recurrence).  The int8
+   quantizer (``csrc/quant.cu``, no TPU kernel: the reference's jnp,
+   which XLA fuses): ``quantize`` (nearest, stochastic, stochastic keyed
+   by a device fingerprint) and ``dequantize`` (to bf16 and fp32, and an
+   exchange stage's chunk sum) bitwise their plain versions and bitwise
+   repeatable, at a llama layer row, its embedding row, the exchange
+   stage's ``[4, n / 4]``, ragged lengths, bf16 input and all-zero blocks,
+   beside the eager sequence each replaces (``eager_ms``; no library call).
 
 ``python3 chip_smoke.py --profile-only`` runs the ``profile`` phases alone
 (both serve paths, then the train steps; no checks, no result line): it
@@ -226,10 +256,10 @@ class Path:
 PATHS = (
     Path("llama3.2-1b", 4, 512, 32, 512 + 32, 2,
          {"rmsnorm": 33, "rmsnorm_bwd": 0, "flash_attention": 16, "flash_attention_bwd": 0,
-          "rglru": 0, "rglru_bwd": 0}),
+          "rglru": 0, "rglru_bwd": 0, "quantize": 0, "dequantize": 0}),
     Path("recurrentgemma-2b", 4, 2560, 32, 2560 + 32, 5,
          {"rmsnorm": 53, "rmsnorm_bwd": 0, "flash_attention": 8, "flash_attention_bwd": 0,
-          "rglru": 18, "rglru_bwd": 0}),
+          "rglru": 18, "rglru_bwd": 0, "quantize": 0, "dequantize": 0}),
 )
 
 
@@ -258,11 +288,13 @@ class TrainPath:
 TRAIN = (
     TrainPath("llama3.2-1b", 8, 2, 2048, 4,
               {"rmsnorm": 65, "rmsnorm_bwd": 33, "flash_attention": 32,
-               "flash_attention_bwd": 16, "rglru": 0, "rglru_bwd": 0},
+               "flash_attention_bwd": 16, "rglru": 0, "rglru_bwd": 0, "quantize": 0,
+               "dequantize": 0},
               "wgmma", "regs", 2, 256),
     TrainPath("recurrentgemma-2b", 8, 4, 2048, 4,
               {"rmsnorm": 105, "rmsnorm_bwd": 53, "flash_attention": 16,
-               "flash_attention_bwd": 8, "rglru": 36, "rglru_bwd": 18},
+               "flash_attention_bwd": 8, "rglru": 36, "rglru_bwd": 18, "quantize": 0,
+               "dequantize": 0},
               "wgmma256", "smem", 5, 256),
 )
 # Card against CPU in the train_consistency phase, as a fraction of each
@@ -279,23 +311,27 @@ def counter_attrs():
     """kernel -> (module, counter attribute): each wrapper adds one where it
     launches its kernel."""
     from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.quant import kernel as QK
     from repro_torch.kernels.rglru import kernel as RG
     from repro_torch.kernels.rmsnorm import kernel as RN
 
     return {"rmsnorm": (RN, "launches"), "rmsnorm_bwd": (RN, "launches_bwd"),
             "flash_attention": (FA, "launches"), "flash_attention_bwd": (FA, "launches_bwd"),
-            "rglru": (RG, "launches"), "rglru_bwd": (RG, "launches_bwd")}
+            "rglru": (RG, "launches"), "rglru_bwd": (RG, "launches_bwd"),
+            "quantize": (QK, "launches_quantize"), "dequantize": (QK, "launches_dequantize")}
 
 
 def reset_counts() -> None:
     from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.quant import kernel as QK
     from repro_torch.kernels.rglru import kernel as RG
     from repro_torch.kernels.rmsnorm import kernel as RN
 
     for mod, attr in counter_attrs().values():
         setattr(mod, attr, 0)
     for table in (FA.launches_by_route, FA.launches_bwd_by_route, RG.launches_by_form,
-                  RG.launches_bwd_by_form, RN.launches_bwd_by_route):
+                  RG.launches_bwd_by_form, RN.launches_bwd_by_route,
+                  QK.launches_quantize_by_mode):
         table.update(dict.fromkeys(table, 0))
 
 
@@ -425,14 +461,17 @@ def bound(nbytes: int, ops: int, dtype) -> tuple[float, str]:
 
 def cut_params(model, params, n_layers: int):
     """The flat pools of the same weights at ``n_layers`` depth: the first
-    rows of the first pool, the tail pool kept whole."""
+    rows of the first pool, the tail pool kept whole (of each leaf of a
+    stored int8 pool ``{'q', 's'}``)."""
     from repro_torch.models.build import build_model
 
     cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
     small = build_model(cfg, tp=1)
     out = {}
     for name, (stack, _, _) in small.global_flat_shapes().items():
-        out[name] = params[name][:stack].contiguous()
+        pool = params[name]
+        out[name] = ({k: v[:stack].contiguous() for k, v in pool.items()}
+                     if isinstance(pool, dict) else pool[:stack].contiguous())
     return small, out
 
 
@@ -464,7 +503,8 @@ def setup_path(path: Path, dev):
 # pattern a kernel's name contains names its kind.
 KERNEL_KINDS = (("flash_bwd", "flash attention backward"), ("flash_", "flash attention"),
                 ("rmsnorm_bwd", "RMSNorm backward"), ("rmsnorm", "RMSNorm"),
-                ("rglru_bwd", "RG-LRU backward"), ("rglru", "RG-LRU"), ("nvjet", "GEMM"),
+                ("rglru_bwd", "RG-LRU backward"), ("rglru", "RG-LRU"),
+                ("dequantize", "dequantize"), ("quantize", "quantize"), ("nvjet", "GEMM"),
                 ("gemm", "GEMM"),
                 ("reduce_kernel", "reduction"), ("copy", "copy / cast"),
                 ("elementwise", "elementwise"), ("embedding", "embedding"))
@@ -477,7 +517,7 @@ FLASH_BWD_PARTS = (("delta", "flash_bwd_delta"), ("dkdv", "flash_bwd_dkdv"),
 # The port's own kernels' kinds: each counted wrapper call launches at least
 # one device kernel of these.
 PORT_KINDS = ("flash attention backward", "flash attention", "RMSNorm backward", "RMSNorm",
-              "RG-LRU backward", "RG-LRU")
+              "RG-LRU backward", "RG-LRU", "dequantize", "quantize")
 
 
 def kernel_kind(name: str) -> str:
@@ -618,13 +658,13 @@ def serve_path(path: Path, card: str, dev):
             raise AssertionError("decode logits not finite or of the wrong shape")
     if int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab:
         raise AssertionError("sampled ids out of the vocabulary")
+    bf16 = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_s * 1e3 / path.steps,
+            "tokens_per_s": path.batch * path.steps / decode_s, "peak_gb": peak_gb}
     emit({"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
           "pools": {p.name: p.stack for p in model.pools}, "d_model": cfg.d_model,
           "vocab": cfg.vocab, "batch": path.batch, "prompt": path.prompt,
           "decode_steps": path.steps, "cache_len": path.cache_len, "window": cfg.window,
-          "gather_dtype": "bf16", "schedule": "prefetch", "prefill_ms": prefill_ms,
-          "decode_ms_per_step": decode_s * 1e3 / path.steps,
-          "tokens_per_s": path.batch * path.steps / decode_s, "peak_gb": peak_gb,
+          "gather_dtype": "bf16", "schedule": "prefetch", **bf16,
           "launches": launches, "attention_launches_by_route": by_route,
           "rglru_launches_by_form": by_form,
           "ids_row0": ids[0].tolist(), "gpu": card})
@@ -667,8 +707,158 @@ def serve_path(path: Path, card: str, dev):
 
     # -- profile: where one prefill and one decode step spend the card's time --
     profile_path(path, cfg, params, prefill_fn, decode_fn, prompt)
-    del params
+
+    # -- serve_int8: the same serve from int8 weights stored on the card ------------
+    from repro_torch.core.quant import quantize_state
+
+    t0 = time.perf_counter()
+    stored = quantize_state(params)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    int8 = serve_int8_phase(path, cfg, model, params, stored, prompt, ids, bf16,
+                            (prefill_fn, decode_fn), quantize_s, card, dev)
+    del stored, params, prefill_fn, decode_fn
     torch.cuda.empty_cache()
+    return launches, by_route, by_form, int8
+
+
+def int8_serve_launches(path: Path, model) -> dict:
+    """The launches of a ``serve_int8`` run (prefill + ``path.steps``
+    decode steps): the ``serve`` run's, and one dequantize a gathered pool
+    row a forward (every layer row, the embedding and the head)."""
+    rows = sum(pool.stack for pool in model.all_pools())
+    return {name: n * (1 + path.steps) for name, n in path.launches.items()} | {
+        "dequantize": rows * (1 + path.steps)}
+
+
+def serve_int8_phase(path: Path, cfg, model, params: dict, stored: dict, prompt, ids_bf16,
+                     bf16: dict, bf16_steps: tuple, quantize_s: float, card: str,
+                     dev) -> tuple:
+    """``serve_int8``: ``path``'s serve (model, prompt, batch, greedy steps)
+    with ``MiCSConfig(quant_gather=True)`` from ``stored`` (``quantize_state``
+    of the ``serve`` run's weights ``params``, made on the card), every pool
+    row dequantized on the card at every forward.  Its numbers beside the
+    bf16 ``serve`` run's (``bf16``); ``peak_gb`` less the fp32 weights,
+    which stay resident and unchanged through the run; the stored bytes
+    against fp32; the share of generated tokens equal to the bf16 run's
+    (reported, not gated); launch counts (:func:`int8_serve_launches`),
+    attention's routes and RG-LRU's form as ``serve``; decode step 8 against
+    a prefill over the prompt and the first 8 tokens; at the cut depth the
+    card's prefill logits against the CPU's on the same stored bytes; the
+    decode's time a step from bf16 (``bf16_steps``, the ``serve`` run's
+    steps) and int8 weights timed in turns (bf16, int8, int8, bf16), each
+    after its own prefill; a profile of one decode step.  Returns
+    ``(launches, attention's by route, RG-LRU's by form)``."""
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rglru import kernel as RG
+    from repro_torch.runtime.serving import build_serve_steps
+
+    mcfg = MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True, quant_gather=True)
+    topo = MiCSTopology()
+    prefill_fn, decode_fn = build_serve_steps(model, topo, mcfg, path.cache_len, device=dev)
+    logits, caches = prefill_fn(stored, {"tokens": prompt})   # warm-up, as setup_path
+    decode_fn(stored, caches, torch.argmax(logits[:, -1:].float(), dim=-1), path.prompt)
+    del logits, caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, caches = prefill_fn(stored, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = torch.argmax(logits[:, -1:].float(), dim=-1)
+    generated, step_logits = [tok], []
+    t0 = time.perf_counter()
+    for i in range(path.steps):
+        logits, tok, caches = decode_fn(stored, caches, tok, path.prompt + i)
+        step_logits.append(logits)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = read_counts()
+    by_route, by_form = dict(FA.launches_by_route), dict(RG.launches_by_form)
+    fp32_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    peak_gb = (torch.cuda.max_memory_allocated() - fp32_bytes) / 1e9
+    del caches
+    ids = torch.cat(generated, dim=1)
+    want = int8_serve_launches(path, model)
+    if launches != want:
+        raise AssertionError(f"{path.arch} int8: launch counts {launches} != {want}")
+    n_attn = path.launches["flash_attention"]
+    if by_route != {"mma": n_attn, "split": n_attn * path.steps, "fma": 0}:
+        raise AssertionError(f"{path.arch} int8: attention routes {by_route}")
+    if by_form != {"ab": 0, "gated": want["rglru"]}:
+        raise AssertionError(f"{path.arch} int8: RG-LRU entry points {by_form}")
+    for lg in step_logits:
+        if lg.shape != (path.batch, 1, model.vocab_padded) or not torch.isfinite(lg).all():
+            raise AssertionError(f"{path.arch} int8: decode logits not finite or misshapen")
+    if int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab:
+        raise AssertionError(f"{path.arch} int8: sampled ids out of the vocabulary")
+    agree = (ids == ids_bf16).float().mean().item()
+    # decode step 8 against a prefill over the prompt and the first 8 tokens
+    lg_pre, _ = prefill_fn(stored, {"tokens": torch.cat([prompt, ids[:, :8]], dim=1)})
+    ref = step_logits[7].float()
+    err_a, scale_a = (lg_pre.float() - ref).abs().max().item(), ref.abs().max().item()
+    if not err_a <= REL_TOL_DECODE_VS_PREFILL * scale_a:
+        raise AssertionError(f"{path.arch} int8: decode vs prefill recompute: {err_a} > "
+                             f"{REL_TOL_DECODE_VS_PREFILL} x {scale_a}")
+    del lg_pre, step_logits
+    # the cut depth, card against CPU on the same stored int8 bytes
+    model2, stored2 = cut_params(model, stored, path.cut_layers)
+    p_card, _ = build_serve_steps(model2, topo, mcfg, 128, device=dev)
+    p_cpu, _ = build_serve_steps(model2, topo, mcfg, 128, device="cpu")
+    tokens2 = prompt[:1, :128]
+    lg_card, _ = p_card(stored2, {"tokens": tokens2})
+    lg_cpu, _ = p_cpu({k: {p: t.cpu() for p, t in v.items()} for k, v in stored2.items()},
+                      {"tokens": tokens2.cpu()})
+    err_b = (lg_card.float().cpu() - lg_cpu.float()).abs().max().item()
+    scale_b = lg_cpu.float().abs().max().item()
+    if not err_b <= REL_TOL_CARD_VS_CPU * scale_b:
+        raise AssertionError(f"{path.arch} int8: card vs CPU at depth {path.cut_layers}: "
+                             f"{err_b} > {REL_TOL_CARD_VS_CPU} x {scale_b}")
+    del stored2, lg_card, lg_cpu
+
+    def decode_ms(steps, weights) -> float:
+        """One prefill, then ``path.steps`` greedy decode steps timed."""
+        logits, caches = steps[0](weights, {"tokens": prompt})
+        tok = torch.argmax(logits[:, -1:].float(), dim=-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(path.steps):
+            _, tok, caches = steps[1](weights, caches, tok, path.prompt + i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / path.steps
+
+    in_turns = {"bf16": [], "int8": []}
+    for wire in ("bf16", "int8", "int8", "bf16"):
+        in_turns[wire].append(decode_ms(bf16_steps, params) if wire == "bf16" else
+                              decode_ms((prefill_fn, decode_fn), stored))
+    int8_bytes = sum(t.numel() * t.element_size() for v in stored.values() for t in v.values())
+    emit({"phase": "serve_int8", "arch": cfg.name, "layers": cfg.n_layers,
+          "batch": path.batch, "prompt": path.prompt, "decode_steps": path.steps,
+          "gather": "int8 stored weights (quant_gather), bf16 compute", "schedule": "prefetch",
+          "prefill_ms": prefill_ms, "decode_ms_per_step": decode_s * 1e3 / path.steps,
+          "tokens_per_s": path.batch * path.steps / decode_s, "peak_gb": peak_gb,
+          "bf16_serve": bf16, "stored_gb": {"int8_and_scales": int8_bytes / 1e9,
+                                            "fp32": fp32_bytes / 1e9},
+          "decode_ms_per_step_in_turns": in_turns,
+          "quantize_state_s": quantize_s, "tokens_equal_to_bf16": agree,
+          "launches": launches, "attention_launches_by_route": by_route,
+          "rglru_launches_by_form": by_form,
+          "decode_vs_prefill": {"max_abs_err": err_a, "max_abs_logit": scale_a,
+                                "rel_tol": REL_TOL_DECODE_VS_PREFILL},
+          "card_vs_cpu": {"layers": path.cut_layers, "max_abs_err": err_b,
+                          "max_abs_logit": scale_b, "rel_tol": REL_TOL_CARD_VS_CPU},
+          "ids_row0": ids[0].tolist(), "gpu": card})
+    # where one decode step from the stored weights spends the card's time
+    logits, pcache = prefill_fn(stored, {"tokens": prompt})
+    first_ids = torch.argmax(logits[:, -1:].float(), dim=-1)
+    del logits
+    profile_run(cfg.name, "decode int8", lambda: decode_fn(stored, pcache, first_ids,
+                                                           path.prompt))
+    del pcache
     return launches, by_route, by_form
 
 
@@ -1151,7 +1341,7 @@ def train_launches(cfg) -> dict:
     n, n_attn = cfg.n_layers, attention_layers(cfg)
     return {"rmsnorm": 4 * n + 1, "rmsnorm_bwd": 2 * n + 1,
             "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
-            "rglru": 2 * (n - n_attn), "rglru_bwd": n - n_attn}
+            "rglru": 2 * (n - n_attn), "rglru_bwd": n - n_attn, "quantize": 0, "dequantize": 0}
 
 
 def dist_model(layout: DistLayout, tp: int | None = None):
@@ -1234,11 +1424,206 @@ def dist_expected_calls(layout: DistLayout) -> dict:
     return dict(sorted(calls.items()))
 
 
+# -- the int8 and bf16 wires over the same 4 ranks (dist_wires) -----------------
+
+
+@dataclasses.dataclass(frozen=True)
+class WireRun:
+    name: str
+    base: str                # the DIST_LAYOUTS layout whose topology and groups it uses
+    knobs: dict              # MiCSConfig's wire settings
+
+
+# llama3.2-1b at full width cut to 4 layers (as layout B), dist_train's data,
+# seed and OptConfig, 2 steps, stochastic rounding.  A-q: p 4 outer_first
+# inner 2 with the int8 gather (qwZ) and the int8 hop 1 (qgZ); B-q: p 2 x 2
+# replicas with the bf16 hop 1 and the int8 hop 2 over the bucketed boundary.
+WIRE_LAYERS = 4
+WIRE_STEPS = 2
+WIRE_REFERENCE = "B"     # the layout whose dist_reference is the same 4-layer model's
+WIRE_REF_M = "wire_reference_m.pt"   # its first moment after WIRE_STEPS, in the phase's dir
+DIST_WIRES = (WireRun("A-q", "A", {"quant_gather": True, "hop1_wire_dtype": "int8"}),
+              WireRun("B-q", "B", {"hop1_wire_dtype": "bf16", "compress_hop2": "int8"}))
+# Against the one-card fp32-wire run of the same 4-layer model (layout B's
+# dist_reference): the loss at the reference's ``int8_hop1_convergence``
+# bound, the grad norm at twice it; and each at a tight bound, about ten
+# times the errors first read on the card (A-q 2.7e-5 / 5.4e-4, B-q 1.0e-6
+# / 1.7e-4; PERF.md).  The int8 legs' counted bytes, values and scales
+# together, against a bf16 wire's for the same payloads: 1 + 4/128 B
+# against 2 B a value, so at most 0.55.
+WIRE_REL_TOL = {"loss": 0.05, "grad_norm": 0.1}
+WIRE_TIGHT_TOL = {"loss": 1e-3, "grad_norm": 5e-3}
+WIRE_BYTES_MAX = 0.55
+# The norms cannot see a gradient chunk that reaches the wrong owner (the
+# norm over the partition is the same), so each rank's AdamW first moment
+# after the run, a linear function of its gradient chunks, is held to the
+# reference's at the rank's partition coordinate: each pool's relative L2
+# error at most WIRE_MOMENT_REL_TOL.  The int8 weights of the qwZ gather
+# move A-q's gradients by about 5% and stochastic int8 rounding adds at
+# most half a step in rms, absmax / 254 of a block of 128; a chunk of
+# another owner is uncorrelated and errs by >= 1, which the same error
+# against the next coordinate's chunk shows (the control, at least
+# WIRE_MOMENT_CONTROL_MIN).
+WIRE_MOMENT_REL_TOL = 0.1
+WIRE_MOMENT_CONTROL_MIN = 0.5
+
+
+def wire_layout(wr: WireRun) -> DistLayout:
+    base = next(lay for lay in DIST_LAYOUTS if lay.name == wr.base)
+    return dataclasses.replace(base, name=wr.name, layers=WIRE_LAYERS, steps=WIRE_STEPS)
+
+
+def _wire_stages(layout: DistLayout) -> tuple[str, ...]:
+    from repro_torch.core.topology import hierarchy_factors
+
+    outer, inner = hierarchy_factors(dist_topology(layout), layout.inner)
+    return ("outer", "inner") if outer > 1 and inner > 1 else ("partition",)
+
+
+def _wire_payloads(layout: DistLayout) -> list[int]:
+    """Elements of each hop-2 payload a step: the bucketed plan's buckets."""
+    from repro_torch.core.schedule import plan_boundary
+
+    plan = plan_boundary(dist_model(layout), dist_topology(layout), mode="bucketed",
+                         bucket_mb=32.0)
+    return [b.elems for b in plan.buckets]
+
+
+def dist_wire_expected(wr: WireRun) -> tuple[dict, dict, dict, int]:
+    """A rank's ``(collective calls, kernel launches, quantize launches by
+    rounding, bf16 bytes of the same payloads)`` over a wire run.  Each
+    pool row a micro-step: the gather once a stage, twice under the int8
+    gather (values and scales: one quantize, one dequantize); hop 1 once a
+    stage, under the int8 wire two ``all_to_all`` (each stage a stochastic
+    quantize and a chunk-summing dequantize).  Each hop-2 payload (a
+    bucket) a step: one ``all_reduce``, under the int8 wire two
+    ``all_to_all`` and two ``all_gather`` (two stochastic quantizes, two
+    dequantizes).  The norm and the loss means once a step.  The bf16 bytes
+    are what a bf16 wire carries on the int8 legs: the gather's outputs and
+    hop 1's stage inputs, and hop 2's two legs over the padded payload."""
+    layout = wire_layout(wr)
+    model, topo = dist_model(layout), dist_topology(layout)
+    micro = WIRE_STEPS * dist_train_path(layout).micro_steps
+    rows = sum(pool.stack for pool in model.all_pools()) * micro
+    flat = sum(pool.stack * pool.layout.flat_len for pool in model.all_pools()) * micro
+    int8_gather = wr.knobs.get("quant_gather", False)
+    int8_hop1 = wr.knobs.get("hop1_wire_dtype") == "int8"
+    stages = _wire_stages(layout)
+    calls, quant = {}, {"nearest": 0, "stochastic": 0}
+    bf16_bytes = 0
+    for i, st in enumerate(stages):
+        calls[f"all_gather:{st}"] = (2 if int8_gather else 1) * rows
+        if int8_hop1:
+            calls[f"all_to_all:{st}"] = 2 * rows
+        else:
+            calls[f"reduce_scatter:{st}"] = rows
+        # a stage's gathered values (the adjoint's stage input: the same)
+        values = flat * (i + 1) // len(stages) if len(stages) > 1 else flat
+        bf16_bytes += 2 * values * (int(int8_gather) + int(int8_hop1))
+    quant["nearest"] = rows if int8_gather else 0
+    quant["stochastic"] = len(stages) * rows if int8_hop1 else 0
+    deq = (rows if int8_gather else 0) + (len(stages) * rows if int8_hop1 else 0)
+    calls["all_reduce:partition"] = WIRE_STEPS
+    calls["all_reduce:data"] = WIRE_STEPS
+    r = topo.replication_degree
+    if r > 1:
+        payloads = _wire_payloads(layout)
+        if wr.knobs.get("compress_hop2") == "int8":
+            n = len(payloads) * WIRE_STEPS
+            calls["all_to_all:replication"] = calls["all_gather:replication"] = 2 * n
+            quant["stochastic"] += 2 * n
+            deq += 2 * n
+            bf16_bytes += WIRE_STEPS * sum(2 * 2 * r * -(-e // r) for e in payloads)
+        else:
+            calls["all_reduce:replication"] = len(payloads) * WIRE_STEPS
+    launches = {k: n * micro for k, n in train_launches(model.cfg).items()}
+    launches["quantize"] = quant["nearest"] + quant["stochastic"]
+    launches["dequantize"] = deq
+    return dict(sorted(calls.items())), launches, quant, bf16_bytes
+
+
+def moment_errors(m: dict, ref_path: pathlib.Path, topo, rank: int) -> tuple[dict, dict]:
+    """Each pool's relative L2 error of this rank's first-moment chunk
+    against the reference's (``ref_path``: its global ``[stack, 1, flat]``
+    pools, saved on the host) at the rank's partition coordinate, and the
+    control: against the next coordinate's chunk."""
+    ref = torch.load(ref_path, mmap=True)
+    p, c = topo.partition_size, topo.partition_coord(rank)
+
+    def rel(t, full, k):
+        n = full.shape[-1] // p
+        want = full[:, :, k * n:(k + 1) * n].to(t.device)
+        return float((t - want).norm() / want.norm())
+
+    return ({name: rel(t, ref[name], c) for name, t in m.items()},
+            {name: rel(t, ref[name], (c + 1) % p) for name, t in m.items()})
+
+
+def dist_wire_run(wr: WireRun, groups, rank: int, dev, ref_m: pathlib.Path) -> dict:
+    """One rank of one wire run: ``build_train_step`` from ``init_state(seed=0)``
+    on dist_train's synthetic data, ``WIRE_STEPS`` steps, over ``groups``
+    (its base layout's, already built); its first moment against
+    ``ref_m`` (:func:`moment_errors`)."""
+    from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.quant import kernel as QK
+    from repro_torch.optim.adamw import OptConfig
+
+    layout = wire_layout(wr)
+    path = dist_train_path(layout)
+    model, topo = dist_model(layout), dist_topology(layout)
+    mcfg = MiCSConfig(micro_steps=path.micro_steps, gather_order=layout.gather_order,
+                      hierarchy_inner=layout.inner, **wr.knobs)
+    step = build_train_step(model, topo, mcfg, OptConfig(warmup_steps=0, total_steps=path.steps),
+                            device=dev, groups=groups)
+    source = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq=path.seq,
+                                    global_batch=path.global_batch,
+                                    micro_steps=path.micro_steps))
+    state = init_state(model, 0, device=dev, topo=topo, rank=rank)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step.comm.counter.reset()
+    losses, gnorms, times = [], [], []
+    for i in range(WIRE_STEPS):
+        batch = source.host_step_batch(i, topo.data_rank(rank), topo.data_parallel_size)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+        gnorms.append(m["grad_norm"].item())
+    out = {"losses": losses, "grad_norms": gnorms, "step_ms_all": [t * 1e3 for t in times],
+           "step_ms": times[-1] * 1e3, "comm": step.comm.counter.snapshot(),
+           "launches": read_counts(), "quantize_by_mode": dict(QK.launches_quantize_by_mode),
+           **route_tables(), "wires": step.describe()["wires"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["moment_rel"], out["moment_control"] = moment_errors(state["m"], ref_m, topo, rank)
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def route_tables() -> dict:
+    """The launch counters' tables by route and form, copied, under the
+    keys of a dist_train line."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rglru import kernel as RG
+    from repro_torch.kernels.rmsnorm import kernel as RN
+
+    return {"attention_launches_by_route": dict(FA.launches_by_route),
+            "attention_bwd_launches_by_route": dict(FA.launches_bwd_by_route),
+            "rmsnorm_bwd_launches_by_route": dict(RN.launches_bwd_by_route),
+            "rglru_launches_by_form": {"forward": dict(RG.launches_by_form),
+                                       "backward": dict(RG.launches_bwd_by_form)}}
+
+
 def dist_worker(args) -> int:
     """One rank of ``dist_train`` (``--dist-worker``): each layout through
     ``runtime/train_loop.train`` over the ranks' process groups, then on
-    layout A one gather of the embedding row under each gather topology.
-    Writes ``rank<r>.json`` into ``--dist-out``."""
+    layout A one gather of the embedding row under each gather topology;
+    then ``dist_wires``'s runs on layouts A's and B's groups.  Writes
+    ``rank<r>.json`` into ``--dist-out``."""
     import datetime
     import shutil
 
@@ -1248,9 +1633,6 @@ def dist_worker(args) -> int:
     from repro_torch.core.comm import CommEngine, GatherPolicy
     from repro_torch.core.mics import MiCSConfig, init_params
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.kernels.flash_attention import kernel as FA
-    from repro_torch.kernels.rglru import kernel as RG
-    from repro_torch.kernels.rmsnorm import kernel as RN
     from repro_torch.launch.mesh import MiCSGroups, init_distributed
     from repro_torch.optim.adamw import OptConfig
     from repro_torch.runtime.train_loop import LoopConfig, train
@@ -1259,7 +1641,8 @@ def dist_worker(args) -> int:
     rank, world = init_distributed(args.dist_backend, timeout=timeout)
     dev = torch.device("cuda", torch.cuda.current_device())
     out_dir = pathlib.Path(args.dist_out)
-    result = {"rank": rank, "world": world, "device": str(dev), "layouts": {}}
+    result = {"rank": rank, "world": world, "device": str(dev), "layouts": {}, "wires": {}}
+    kept = {}                 # the wire runs' groups: their base layouts'
     for layout in DIST_LAYOUTS:
         tp = dist_train_path(layout)
         model, topo = dist_model(layout), dist_topology(layout)
@@ -1289,12 +1672,7 @@ def dist_worker(args) -> int:
                 "step_ms_all": [t * 1e3 for t in stats.step_times],
                 "step_ms": statistics.median(stats.step_times[1:]) * 1e3, "loop_s": loop_s,
                 "checkpoint_s": stats.save_times[-1], "comm": stats.comm,
-                "launches": read_counts(), "start": start,
-                "attention_launches_by_route": dict(FA.launches_by_route),
-                "attention_bwd_launches_by_route": dict(FA.launches_bwd_by_route),
-                "rmsnorm_bwd_launches_by_route": dict(RN.launches_bwd_by_route),
-                "rglru_launches_by_form": {"forward": dict(RG.launches_by_form),
-                                           "backward": dict(RG.launches_bwd_by_form)},
+                "launches": read_counts(), "start": start, **route_tables(),
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         dist.barrier(group=groups.world.handle)
         if rank == 0:
@@ -1319,8 +1697,15 @@ def dist_worker(args) -> int:
                 "equal_to_the_full_row": torch.equal(bufs["flat"], full)}
             del row, bufs, full
         result["layouts"][layout.name] = line
+        if any(wr.base == layout.name for wr in DIST_WIRES):
+            kept[layout.name] = groups
         del groups
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for wr in DIST_WIRES:
+        result["wires"][wr.name] = dist_wire_run(wr, kept[wr.base], rank, dev,
+                                                 out_dir / WIRE_REF_M)
+    result["wires_s"] = time.perf_counter() - t0
     (out_dir / f"rank{rank}.json").write_text(json.dumps(result))
     dist.barrier()
     dist.destroy_process_group()
@@ -1352,10 +1737,11 @@ def dist_tp_start(layout: DistLayout, model, topo, groups, rank: int, ckdir, dev
     torch.cuda.empty_cache()
 
 
-def dist_reference(layout: DistLayout, dev) -> list[tuple[float, float]]:
+def dist_reference(layout: DistLayout, dev, on_step=None) -> list[tuple[float, float]]:
     """Layout ``layout``'s model at tp 1 on this one card over the same
     global batches and steps (``build_train_step`` at p = 1, from
-    ``init_state(seed=0)``): (loss, grad_norm)."""
+    ``init_state(seed=0)``): (loss, grad_norm).  ``on_step(i, state)``
+    runs after step i (from 1)."""
     from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
     from repro_torch.core.topology import MiCSTopology
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -1371,6 +1757,8 @@ def dist_reference(layout: DistLayout, dev) -> list[tuple[float, float]]:
     for i in range(layout.steps):
         state, m = step(state, source.global_step_batch(i))
         out.append((m["loss"].item(), m["grad_norm"].item()))
+        if on_step is not None:
+            on_step(i + 1, state)
     del state, step
     torch.cuda.empty_cache()
     return out
@@ -1399,13 +1787,19 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
     t_phase = time.perf_counter()
     one_card = list(zip(train_line["loss"], train_line["grad_norm"]))
     refs = {lay.name: one_card[:lay.steps] for lay in DIST_LAYOUTS if lay.name in ("A", "C")}
-    for layout in DIST_LAYOUTS:
-        if layout.name not in refs:
-            refs[layout.name] = dist_reference(layout, dev)
-    torch.cuda.empty_cache()
     out_dir = ROOT / "build" / "chip_smoke_dist"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
+
+    def save_moment(i, state):  # the wire runs' reference first moment
+        if i == WIRE_STEPS:
+            torch.save({k: t.cpu() for k, t in state["m"].items()}, out_dir / WIRE_REF_M)
+
+    for layout in DIST_LAYOUTS:
+        if layout.name not in refs:
+            refs[layout.name] = dist_reference(
+                layout, dev, save_moment if layout.name == WIRE_REFERENCE else None)
+    torch.cuda.empty_cache()
     port = _free_port()
     procs = []
     t0 = time.perf_counter()
@@ -1512,13 +1906,18 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
             "launches_per_rank": want_launches, "gather_check": gc}
     launches = {k: sum(rk["layouts"][lay.name]["launches"][k] for rk in ranks
                        for lay in DIST_LAYOUTS) for k in want_launches}
+    wires_s = max(rk["wires_s"] for rk in ranks)
+    wire_lines, wire_launches = dist_wire_checks(ranks, refs[WIRE_REFERENCE], backend, cards)
     line = {"phase": "dist_train", "arch": sorted({lay.arch for lay in DIST_LAYOUTS}),
             "device_count": cards,
             "backend": backend, "ranks": DIST_WORLD,
             "ranks_per_card": DIST_WORLD // min(cards, DIST_WORLD),
-            "layouts": lines,
-            "workers_s": workers_s, "seconds": time.perf_counter() - t_phase, "gpu": card}
+            "layouts": lines, "workers_s": workers_s - wires_s,
+            "seconds": time.perf_counter() - t_phase - wires_s, "gpu": card}
     emit(line)
+    emit({"phase": "dist_wires", "arch": "llama3.2-1b", "layers": WIRE_LAYERS,
+          "device_count": cards, "backend": backend, "ranks": DIST_WORLD,
+          "runs": wire_lines, "seconds": wires_s, "gpu": card})
     shutil.rmtree(out_dir)
     # for the kernel table: the launches summed over ranks and layouts
     by_route = {key: {} for key in ("attention_launches_by_route",
@@ -1526,16 +1925,91 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
                                     "rmsnorm_bwd_launches_by_route")}
     by_form = {"forward": {}, "backward": {}}
     for rk in ranks:
-        for lay in DIST_LAYOUTS:
-            got = rk["layouts"][lay.name]
+        for got in [rk["layouts"][lay.name] for lay in DIST_LAYOUTS] + [
+                rk["wires"][wr.name] for wr in DIST_WIRES]:
             for key, table in by_route.items():
                 for route, n in got[key].items():
                     table[route] = table.get(route, 0) + n
             for way, table in by_form.items():
                 for form, n in got["rglru_launches_by_form"][way].items():
                     table[form] = table.get(form, 0) + n
+    # the route tables cover the wire runs too; their launches stand apart
     return {"arch": "dist_train", "launches": launches, **by_route,
-            "rglru_launches_by_form": by_form}
+            "rglru_launches_by_form": by_form, "wires_launches": wire_launches}
+
+
+def dist_wire_checks(ranks: list, reference: list, backend: str, cards: int):
+    """``dist_wires``'s checks on every rank's results: finite losses and
+    grad norms, the same on every rank, each step's within
+    ``WIRE_REL_TOL`` and ``WIRE_TIGHT_TOL`` of the one-card fp32-wire run
+    of the 4-layer model (``reference``: layout B's ``dist_reference``);
+    each rank's first moment within ``WIRE_MOMENT_REL_TOL`` of the
+    reference's chunk at its partition coordinate, the next coordinate's
+    at least ``WIRE_MOMENT_CONTROL_MIN`` away; every rank's
+    ``CommEngine`` calls, kernel launches (the quantizer's by rounding
+    too) as :func:`dist_wire_expected`; the int8 legs' counted bytes at
+    most ``WIRE_BYTES_MAX`` of a bf16 wire's.  Returns ``(lines, launches
+    summed over ranks and runs)``."""
+    lines, total = {}, {}
+    for wr in DIST_WIRES:
+        per = [rk["wires"][wr.name] for rk in ranks]
+        losses, gnorms = per[0]["losses"], per[0]["grad_norms"]
+        if any(p["losses"] != losses or p["grad_norms"] != gnorms for p in per[1:]):
+            raise AssertionError(f"dist_wires {wr.name}: ranks disagree on the loss")
+        if len(losses) != WIRE_STEPS or not all(math.isfinite(x) for x in losses + gnorms):
+            raise AssertionError(f"dist_wires {wr.name}: losses {losses}, {gnorms}")
+        rel = []
+        for i, ((loss, gn), (rl, rg)) in enumerate(zip(zip(losses, gnorms), reference)):
+            el, eg = abs(loss - rl) / abs(rl), abs(gn - rg) / abs(rg)
+            rel.append({"loss": el, "grad_norm": eg})
+            if not all(el <= tol["loss"] and eg <= tol["grad_norm"]
+                       for tol in (WIRE_REL_TOL, WIRE_TIGHT_TOL)):
+                raise AssertionError(f"dist_wires {wr.name} step {i + 1}: loss {loss} vs "
+                                     f"{rl}, grad_norm {gn} vs {rg}")
+        for r, pr in enumerate(per):
+            if not (max(pr["moment_rel"].values()) <= WIRE_MOMENT_REL_TOL
+                    and min(pr["moment_control"].values()) >= WIRE_MOMENT_CONTROL_MIN):
+                raise AssertionError(f"dist_wires {wr.name} rank {r}: first moment off its "
+                                     f"reference chunk by {pr['moment_rel']}, the next "
+                                     f"chunk's by {pr['moment_control']}")
+        layout = wire_layout(wr)
+        want_calls, want_launches, want_quant, bf16_bytes = dist_wire_expected(wr)
+        int8_kinds = [k for k in want_calls if k.startswith("all_to_all")
+                      or (k.startswith("all_gather") and (wr.knobs.get("quant_gather")
+                                                          or k.endswith("replication")))]
+        ratios = []
+        for r, p in enumerate(per):
+            if p["comm"]["calls"] != want_calls:
+                raise AssertionError(f"dist_wires {wr.name} rank {r}: collectives "
+                                     f"{p['comm']['calls']} != {want_calls}")
+            if p["launches"] != want_launches or p["quantize_by_mode"] != want_quant:
+                raise AssertionError(f"dist_wires {wr.name} rank {r}: launches "
+                                     f"{p['launches']} {p['quantize_by_mode']} != "
+                                     f"{want_launches} {want_quant}")
+            int8_bytes = sum(p["comm"]["bytes"][k] for k in int8_kinds)
+            ratios.append(int8_bytes / bf16_bytes)
+            if not 0 < ratios[-1] <= WIRE_BYTES_MAX:
+                raise AssertionError(f"dist_wires {wr.name} rank {r}: int8 legs {int8_bytes} B "
+                                     f"against bf16's {bf16_bytes} B")
+        lines[wr.name] = {
+            "base_layout": wr.base, "knobs": wr.knobs, "wires": per[0]["wires"],
+            "repl": layout.repl, "shard": layout.shard, "gather_order": layout.gather_order,
+            "inner": layout.inner, "steps": WIRE_STEPS, "loss": losses, "grad_norm": gnorms,
+            "reference": reference[:WIRE_STEPS], "rel_err": rel,
+            "rel_tol": WIRE_REL_TOL, "tight_tol": WIRE_TIGHT_TOL,
+            "moment_rel_tol": WIRE_MOMENT_REL_TOL,
+            "moment_rel_err": [p["moment_rel"] for p in per],
+            "moment_control_rel_err": [p["moment_control"] for p in per],
+            "step_ms_label": ("nccl, one card a rank" if backend == "nccl" else
+                              f"gloo over host, {DIST_WORLD} ranks on {cards} card(s)"),
+            "step_ms": [p["step_ms"] for p in per],
+            "comm_s": [p["comm"]["seconds"] for p in per],
+            "peak_gb": [p["peak_gb"] for p in per], "comm_calls": want_calls,
+            "comm_bytes": per[0]["comm"]["bytes"], "int8_legs_bytes_vs_bf16": ratios,
+            "launches_per_rank": want_launches, "quantize_by_mode": want_quant}
+        for p in per:
+            add_counts(total, p["launches"])
+    return lines, total
 
 
 def kernel_checks(gen, dev, flush):
@@ -1766,6 +2240,172 @@ def kernel_checks(gen, dev, flush):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
         del a, bb, h
     return rms_checks, attn_checks, rglru_checks
+
+
+# -- the blockwise quantizer -----------------------------------------------------
+
+# fp32 operations a value of quantize (abs, max, divide, round or the
+# hash's ~12 integer operations and the compare, clamp, convert) and of
+# dequantize (convert, multiply, convert), for the operations side of the
+# bound; the bytes side bounds both by far.
+QUANT_OPS_PER_VALUE = 20
+DEQUANT_OPS_PER_VALUE = 3
+
+
+def eager_quantize(x: torch.Tensor, stochastic: bool, gen) -> tuple:
+    """The reference's ``quantize_flat`` op by op in eager PyTorch (cast,
+    pad, abs, amax, divide, round or floor(v + u) with u from the
+    generator, clamp, cast): the sequence the kernel replaces."""
+    from repro_torch.core.quant import BLOCK, n_blocks
+
+    *lead, L = x.shape
+    nb = n_blocks(L)
+    xf = torch.nn.functional.pad(x.reshape(-1, L).float(), (0, nb * BLOCK - L))
+    blocks = xf.reshape(-1, nb, BLOCK)
+    absmax = blocks.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    v = blocks / scale[..., None]
+    q = torch.floor(v + torch.rand(v.shape, generator=gen, device=v.device)) if stochastic \
+        else torch.round(v)
+    q = q.clamp(-127, 127).to(torch.int8).reshape(-1, nb * BLOCK)[:, :L]
+    return q.reshape(*lead, L), scale.reshape(*lead, nb)
+
+
+def eager_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype, chunks: int = 1):
+    """The reference's ``dequantize_flat`` (and an exchange stage's sum over
+    the chunks) op by op in eager PyTorch."""
+    from repro_torch.core.quant import BLOCK
+
+    *lead, L = q.shape
+    nb = scale.shape[-1]
+    x = torch.nn.functional.pad(q.reshape(-1, L).float(), (0, nb * BLOCK - L))
+    x = (x.reshape(-1, nb, BLOCK) * scale.reshape(-1, nb, 1)).reshape(-1, nb * BLOCK)[:, :L]
+    x = x.reshape(*lead, L)
+    return x.sum(dim=0) if chunks > 1 else x.to(dtype)
+
+
+def quant_cases() -> list:
+    """``quant_checks``'s cases: ``(kind, shape, dtype, modes, outs)``.
+    ``modes`` are the quantize calls, ``(label, dither key or None)``;
+    ``outs`` the dequantize calls ``(dtype, chunks)``, on the first mode's
+    values.  Each shape is one that a path gives the quantizer: llama's
+    and recurrentgemma's serving rows (quantize_state, then a bf16
+    dequantize a row a forward), the A-q qgZ stages ``[2, n / 2]`` of a
+    layer row's cotangent and ``[2, n / 4]`` of its half (outer 2 x inner
+    2), a B-q int8 hop-2 bucket ``[2, ceil(elems / 2)]`` (stage 0, the
+    chunk-summing dequantize, the gathered ``[2, m]`` back to fp32) and its
+    requantized sum (stage 1); and the exchange stage ``[4, n / 4]``,
+    ragged lengths, bf16 input and all-zero blocks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import dither_key
+    from repro_torch.models.build import build_model
+
+    bf, f32 = torch.bfloat16, torch.float32
+    llama = build_model(get_config("llama3.2-1b"), tp=1)
+    rg = build_model(get_config("recurrentgemma-2b"), tp=1)
+    layer, embed = llama.pool("layers").layout.flat_len, llama.pool("embed").layout.flat_len
+    both = (("nearest", None), ("stochastic", dither_key(7, 1, 3, 11)))
+    to_both = ((bf, 1), (f32, 1))
+    m = -(-max(_wire_payloads(wire_layout(DIST_WIRES[1]))) // 2)
+    return [
+        ("llama layer row", (layer,), f32,
+         (*both, ("stochastic, fingerprint step", "fingerprint")), to_both),
+        ("llama embedding row", (embed,), f32, both, to_both),
+        ("exchange stage [4, n/4] of the layer row", (4, layer // 4), f32, both,
+         ((f32, 4),)),
+        ("llama layer row, bf16", (layer,), bf, both, to_both),
+        *[(f"ragged L {n}", (8, n), f32, both, to_both) for n in (1, 127, 129, 300 + 128 * 3)],
+        ("all-zero blocks", (16, 1024), f32, both, to_both),
+        *[(f"recurrentgemma {pool.name} row", (pool.layout.flat_len,), f32,
+           (("nearest", None),), ((bf, 1),)) for pool in rg.all_pools()],
+        ("A-q qgZ stage 0 [2, n/2] of the layer row", (2, layer // 2), f32,
+         (("stochastic", dither_key(0, 0, 0, 1)),), ((f32, 2),)),
+        ("A-q qgZ stage 1 [2, n/4] of the layer row", (2, layer // 4), f32,
+         (("stochastic", dither_key(0, 1, 0, 1)),), ((f32, 2),)),
+        ("B-q hop-2 bucket [2, m]", (2, m), f32, (("stochastic", dither_key(0, 0, 0, 1)),),
+         ((f32, 2), (f32, 1))),
+        ("B-q hop-2 bucket's sum [m]", (m,), f32, (("stochastic", dither_key(0, 1, 0, 1)),),
+         ()),
+    ]
+
+
+def quant_checks(gen, dev, flush):
+    """``quantize`` (nearest and stochastic) and ``dequantize`` against
+    their plain versions at :func:`quant_cases`, bitwise, each called twice
+    for equal bits, timed beside the plain version and the eager sequence
+    the kernel replaces (``eager_ms``; no one PyTorch call computes either,
+    so ``library_ms`` is null).  The fingerprint mode reads its step from
+    an int32 on the card."""
+    from repro_torch.core.quant import dither_key, n_blocks
+    from repro_torch.kernels.quant import kernel as QK
+
+    bf, f32 = torch.bfloat16, torch.float32
+    fp = dither_key(7, 1, 3, torch.tensor(-123456, dtype=torch.int32, device=dev))
+    q_checks, d_checks = [], []
+    for kind, shape, dt, modes, outs in quant_cases():
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        if kind == "all-zero blocks":
+            x[::2] = 0               # every other row all zero, the others one zero block
+            x[1::2, 256:384] = 0
+        nb, rows = n_blocks(shape[-1]), x.numel() // shape[-1]
+        q_bytes, s_bytes = x.numel(), 4 * rows * nb
+        first = None
+        for mode, key in modes:
+            key = fp if key == "fingerprint" else key
+            q, sc = QK.quantize(x, key)
+            qp, sp = QK.quantize_plain(x, key)
+            q2, s2 = QK.quantize(x, key)
+            if not (torch.equal(q, qp) and torch.equal(sc, sp)):
+                raise AssertionError(f"quantize {kind} {mode}: kernel disagrees with its plain "
+                                     f"version ({int((q != qp).sum())} values, "
+                                     f"{int((sc != sp).sum())} scales)")
+            if not (torch.equal(q, q2) and torch.equal(sc, s2)):
+                raise AssertionError(f"quantize {kind} {mode}: not bitwise repeatable")
+            b_ms, b_by = bound(x.numel() * x.element_size() + q_bytes + s_bytes,
+                               QUANT_OPS_PER_VALUE * x.numel(), f32)
+            stoch = key is not None
+            q_checks.append({
+                "case": kind, "shape": list(shape), "dtype": "bf16" if dt == bf else "fp32",
+                "mode": mode, "bitwise": True, "bitwise_repeat": True, "max_abs_err": 0.0,
+                "ms": time_ms(lambda: QK.quantize(x, key), flush),
+                "plain_ms": time_ms(lambda: QK.quantize_plain(x, key), flush, reps=5),
+                "eager_ms": time_ms(lambda: eager_quantize(x, stoch, gen), flush, reps=5),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            del qp, sp, q2, s2
+            if first is None:
+                first = q, sc
+            del q, sc
+        q, sc = first
+        del first
+        for od, k in outs:
+            y = QK.dequantize(q, sc, od, chunks=k)
+            if not torch.equal(y, QK.dequantize_plain(q, sc, od, chunks=k)):
+                raise AssertionError(f"dequantize {kind} to {od}: kernel disagrees with its "
+                                     "plain version")
+            if not torch.equal(y, QK.dequantize(q, sc, od, chunks=k)):
+                raise AssertionError(f"dequantize {kind}: not bitwise repeatable")
+            b_ms, b_by = bound(q_bytes + s_bytes + y.numel() * y.element_size(),
+                               DEQUANT_OPS_PER_VALUE * x.numel(), f32)
+            extra = {}
+            if kind == "llama layer row" and od == bf:
+                # host time to enqueue the int8 decode's dequantize of a
+                # row against the bf16 decode's cast of the fp32 row
+                extra = {"host_us": host_us(lambda: QK.dequantize(q, sc, od)),
+                         "cast_host_us": host_us(lambda: x.to(bf)),
+                         "cast_ms": time_ms(lambda: x.to(bf), flush)}
+            d_checks.append({
+                **extra,
+                "case": kind, "shape": list(shape), "out": "bf16" if od == bf else "fp32",
+                "chunks": k, "bitwise": True, "bitwise_repeat": True, "max_abs_err": 0.0,
+                "ms": time_ms(lambda: QK.dequantize(q, sc, od, chunks=k), flush),
+                "plain_ms": time_ms(lambda: QK.dequantize_plain(q, sc, od, chunks=k), flush,
+                                    reps=5),
+                "eager_ms": time_ms(lambda: eager_dequantize(q, sc, od, k), flush, reps=5),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            del y
+        del q, sc, x
+        torch.cuda.empty_cache()
+    return q_checks, d_checks
 
 
 # The backward kernels against their plain versions, as a fraction of the
@@ -2139,10 +2779,11 @@ def main() -> int:
     by_path, launches_by_route = {}, dict.fromkeys(FA.ROUTES, 0)
     launches_by_form = dict.fromkeys(RG.FORMS, 0)
     for p in PATHS:
-        by_path[p.arch], by_route, by_form = serve_path(p, card, dev)
-        for r, n in by_route.items():
+        by_path[p.arch], by_route, by_form, int8 = serve_path(p, card, dev)
+        by_path[f"{p.arch} serve_int8"] = int8[0]
+        for r, n in (*by_route.items(), *int8[1].items()):
             launches_by_route[r] += n
-        for f, n in by_form.items():
+        for f, n in (*by_form.items(), *int8[2].items()):
             launches_by_form[f] += n
 
     # -- 3. the train paths ------------------------------------------------------
@@ -2167,6 +2808,7 @@ def main() -> int:
     # -- 3b. the MiCS step over 4 ranks -------------------------------------------
     dist_line = dist_train_phase(card, dev, train_lines[0])
     by_path[dist_line["arch"]] = dist_line["launches"]
+    by_path["dist_wires"] = dist_line["wires_launches"]
     launches_by_route["mma"] += dist_line["attention_launches_by_route"]["mma"]
     launches_by_form["gated"] += dist_line["rglru_launches_by_form"]["forward"]["gated"]
     torch.cuda.empty_cache()
@@ -2189,6 +2831,7 @@ def main() -> int:
     digest_phase(dev)
     rms_bwd_checks, attn_bwd_checks, rglru_bwd_checks = backward_checks(gen, dev, flush)
     rms_checks, attn_checks, rglru_checks = kernel_checks(gen, dev, flush)
+    quantize_checks, dequantize_checks = quant_checks(gen, dev, flush)
 
     def entry(name, source, replaces, checks, by_path_n=None, **more):
         """``by_path_n``: the kernel's launches by path where its counter is
@@ -2251,6 +2894,13 @@ def main() -> int:
               gradient_of="src/repro/models/recurrent.py:92 rglru_scan after :77 "
                           "_rglru_coeffs (the TPU kernel has no backward)",
               launches_by_form=train_sum("rglru_launches_by_form", "backward")),
+        # no TPU kernel: the reference's jnp quantizer, which XLA fuses
+        entry("quantize", "src/repro_torch/kernels/csrc/quant.cu",
+              "src/repro/core/quant.py:54 quantize_flat (jnp, no Pallas kernel)",
+              quantize_checks, eager_ms=quantize_checks[0]["eager_ms"]),
+        entry("dequantize", "src/repro_torch/kernels/csrc/quant.cu",
+              "src/repro/core/quant.py:85 dequantize_flat (jnp, no Pallas kernel)",
+              dequantize_checks, eager_ms=dequantize_checks[0]["eager_ms"]),
     ], "phase": "kernels"})
     emit({"phase_seconds": PHASE_CLOCK["lines"], "script_s": time.perf_counter() - t_start})
     print(card, flush=True)

@@ -22,10 +22,22 @@ from repro_torch.device import resolve_device
 from repro_torch.models.lm import ModelDef
 
 
-def params_from_jax(model: ModelDef, params: Mapping[str, np.ndarray], *,
-                    device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+def _carry(name: str, arr, shape: tuple, dtype) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.shape != shape:
+        raise ValueError(f"pool {name!r}: shape {arr.shape} != {shape}")
+    if arr.dtype != dtype:
+        raise ValueError(f"pool {name!r}: dtype {arr.dtype} != {np.dtype(dtype).name}")
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def params_from_jax(model: ModelDef, params: Mapping, *,
+                    device: str | torch.device = "cuda") -> dict:
     """``params``: ``np.asarray`` of each pool of the JAX package's
-    ``init_state(...)["params"]``.  Raises on a missing, extra or misshapen
+    ``init_state(...)["params"]`` (fp32 ``[stack, tp, S]``), or of its
+    ``quant.quantize_state`` of them (``{'q': int8 [stack, tp, S], 's':
+    fp32 [stack, tp, ceil(S / 128)]}`` a pool: the same stored bytes for
+    both packages' int8 serving).  Raises on a missing, extra or misshapen
     pool."""
     dev = resolve_device(device)
     want = model.global_flat_shapes()
@@ -33,12 +45,17 @@ def params_from_jax(model: ModelDef, params: Mapping[str, np.ndarray], *,
         raise ValueError(f"pools {sorted(params)} != the model's {sorted(want)}")
     out = {}
     for name, shape in want.items():
-        arr = np.asarray(params[name])
-        if arr.shape != shape:
-            raise ValueError(f"pool {name!r}: shape {arr.shape} != {shape}")
-        if arr.dtype != np.float32:
-            raise ValueError(f"pool {name!r}: dtype {arr.dtype} != float32")
-        out[name] = torch.from_numpy(np.array(arr, copy=True)).to(dev)
+        pool = params[name]
+        if isinstance(pool, Mapping):
+            if set(pool) != {"q", "s"}:
+                raise ValueError(f"pool {name!r}: a stored int8 pool has 'q' and 's', got "
+                                 f"{sorted(pool)}")
+            nb = -(-shape[-1] // 128)
+            out[name] = {"q": _carry(f"{name}.q", pool["q"], shape, np.int8).to(dev),
+                         "s": _carry(f"{name}.s", pool["s"], (*shape[:-1], nb),
+                                     np.float32).to(dev)}
+        else:
+            out[name] = _carry(name, pool, shape, np.float32).to(dev)
     return out
 
 

@@ -32,9 +32,14 @@ whose backward is the reference's transpose under ``check_vma=False`` (a
 psum's is a psum, a tiled gather's a reduce-scatter over the same group),
 and :func:`model_pmax` / :func:`model_pmin` carry no gradient.
 
-The quantized collectives (``quantized_reduce_scatter``,
-``quantized_all_reduce``) wait for ROADMAP Queue 1 item 4, the int8 and
-bf16 wires.
+The quantized collectives (ZeRO++'s qgZ on the MiCS hierarchy):
+:func:`quantized_reduce_scatter` is hop 1 on an int8 wire, each stage of
+the float reduce-scatter of the same topology an exchange of int8 values
+and fp32 block scales (``all_to_all_single``, counted as
+``all_to_all:<stage>``, the values and the scales as two calls) whose
+chunks are dequantized and summed in fp32, so the error enters once a
+stage and never compounds; :func:`quantized_all_reduce` is the int8 hop 2,
+an exchange leg, the fp32 sum, a requantize and an all-gather leg.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import quant as Q
 from repro_torch.core.topology import MiCSTopology, default_hierarchy_inner
 
 
@@ -142,6 +148,10 @@ def _rs_op(out, inp, **kw):
     return dist.reduce_scatter_tensor(out, inp, op=dist.ReduceOp.SUM, **kw)
 
 
+def _a2a_op(out, inp, **kw):
+    return dist.all_to_all_single(out, inp, **kw)
+
+
 def _ar_op(out, inp, **kw):
     return dist.all_reduce(out, op=dist.ReduceOp.SUM, **kw)
 
@@ -173,6 +183,22 @@ def reduce_scatter(g: torch.Tensor, group: Group, *, axis: int = 0,
     out = g.new_empty((g.shape[0] // group.size, *g.shape[1:]))
     _run(_rs_op, out, g, group, "reduce_scatter", counter).wait()
     return out.movedim(0, axis)
+
+
+def all_to_all(x: torch.Tensor, group: Group, *, async_op: bool = False,
+               counter: CommCounter | None = None) -> tuple[torch.Tensor, Work]:
+    """Equal-split all-to-all of ``x``'s dim 0 over ``group`` (the
+    reference's ``lax.all_to_all(x, axis, 0, 0)``): member j receives chunk
+    j of every member's ``x``, stacked in member order.  Returns ``(out,
+    work)``; the work is waited on unless ``async_op``."""
+    x = x.contiguous()
+    if x.shape[0] % group.size:
+        raise ValueError(f"dim of {x.shape[0]} does not divide over {group.size} ranks")
+    out = torch.empty_like(x)
+    work = _run(_a2a_op, out, x, group, "all_to_all", counter)
+    if not async_op:
+        work.wait()
+    return out, work
 
 
 _REDUCE_OPS = {"sum": (_ar_op, "all_reduce"), "max": (_max_op, "all_reduce_max"),
@@ -392,6 +418,152 @@ def replica_mean(x: torch.Tensor, topo: MiCSTopology, groups,
     if dp == 1:
         return x
     return all_reduce_(x.contiguous().clone(), groups.data, counter=counter) / dp
+
+
+# ---------------------------------------------------------------------------
+# the quantized collectives (qgZ: int8 + fp32 block scales on the wire)
+# ---------------------------------------------------------------------------
+
+def step_component(g: torch.Tensor, seed: int | None):
+    """The dither key's step component: the threaded step counter when the
+    caller has one, else the payload's fingerprint, the bits of its fp32
+    sum as an int32 0-dim tensor on its device (the quantize kernel reads
+    it, so the host never waits for it)."""
+    if seed is not None:
+        return seed
+    return torch.sum(g, dtype=torch.float32).view(torch.int32)
+
+
+def _quant_exchange_stage(g: torch.Tensor, group: Group, key, counter) -> torch.Tensor:
+    """One qgZ stage over ``group`` (k members): quantize this rank's fp32
+    ``[n]`` as ``[k, n / k]`` chunks, exchange values and scales (member j
+    receives chunk j of every member), dequantize and sum the k chunks in
+    fp32, in member order.  Returns the group-reduced chunk ``[n / k]``."""
+    k = group.size
+    if k == 1:
+        return g
+    n = g.shape[0]
+    if n % k:
+        raise ValueError(f"buffer length {n} does not divide over {k} ranks")
+    q, s = Q.quantize_flat(g.reshape(k, n // k), key=key)
+    qx, _ = all_to_all(q, group, counter=counter)
+    sx, _ = all_to_all(s, group, counter=counter)
+    return Q.dequantize(qx, sx, torch.float32, chunks=k)
+
+
+def _quant_stage_plan(topo: MiCSTopology, groups, topology: str, inner: int | None):
+    """The stage groups of the quantized hop 1, in order, and the
+    ``outer_first`` pre-reorder's factors (passed to :func:`_reorder_chunks`
+    as given) or None.
+
+    COUPLED to :func:`_hier_rs_single_axis` / :func:`_hier_rs_multi_axis`
+    and ``CommEngine._policy_reduce_scatter`` (``flat``: the partition
+    group): the stage order, the groups and the reorder must stay in
+    lockstep, or chunks reach the wrong owners.  Grid-exact data (the
+    quantizer then loses nothing) holds the two to the same bits
+    (``tests/test_torch_collectives.py``)."""
+    if topology == "flat":
+        return [groups.partition], None
+    if topology not in ("inner_first", "outer_first"):
+        raise ValueError(f"unknown topology {topology!r}")
+    if len(topo.partition_axes) > 1:
+        axes = topo.partition_axes
+        if topology == "inner_first":
+            return [groups.axis[a] for a in axes], None
+        sizes = [topo.axis_size(a) for a in axes]
+        return [groups.axis[a] for a in reversed(axes)], (sizes[0], math.prod(sizes[1:]))
+    outer, inner = _factor(topo.partition_size, inner)
+    if inner == 1 or outer == 1:
+        return [groups.partition], None
+    outer_g, inner_g = groups.stage_groups(inner)
+    if topology == "inner_first":
+        return [outer_g, inner_g], None
+    return [inner_g, outer_g], (outer, inner)
+
+
+def quantized_reduce_scatter(g: torch.Tensor, topo: MiCSTopology, groups, *,
+                             topology: str = "inner_first", inner: int | None = None,
+                             salt: int = 0, stochastic: bool = True, seed: int | None = None,
+                             counter: CommCounter | None = None) -> torch.Tensor:
+    """Hop 1 on the int8 wire: the staged reduce-scatter of ``topology`` /
+    ``inner`` with every stage an int8 exchange and fp32 accumulation in
+    between; fp32 ``[n / p]`` out.  Each stage's error is at most one
+    quantization step of that stage's fp32 partial sums (additive, never
+    compounding); with ``stochastic`` each stage is unbiased in
+    expectation, its dither keyed by ``salt``, the stage, the global rank
+    and ``seed`` (the training step; None: the payload's fingerprint)."""
+    g = g.float()
+    if topo.partition_size == 1:
+        return g
+    if g.dim() != 1:
+        raise ValueError(f"quantized_reduce_scatter takes a flat [N] buffer, got "
+                         f"{tuple(g.shape)}")
+    stages, reorder = _quant_stage_plan(topo, groups, topology, inner)
+    if reorder is not None:
+        g = _reorder_chunks(g, 0, *reorder)
+    step = step_component(g, seed) if stochastic else None
+    for i, group in enumerate(stages):
+        key = Q.dither_key(salt, i, groups.rank, step) if stochastic else None
+        g = _quant_exchange_stage(g, group, key, counter)
+    return g
+
+
+def quantized_all_reduce(g: torch.Tensor, topo: MiCSTopology, groups, *, salt: int = 0,
+                         stochastic: bool = True, seed: int | None = None,
+                         out: torch.Tensor | None = None, async_op: bool = False,
+                         counter: CommCounter | None = None):
+    """Hop 2 on the int8 wire over the replication group (r replicas): the
+    payload zero-padded to r chunks and quantized, an exchange leg, the
+    fp32 sum of the chunks this rank owns, a requantize, an all-gather leg
+    of values and scales, a dequantize to fp32 and the padding dropped.
+    The blocks follow the payload, so the result depends on how a gradient
+    is cut into payloads (serial and bucketed boundaries agree to
+    quantization error, not bitwise).
+
+    Writes the result into ``out`` (fresh when None) and returns it; with
+    ``async_op`` returns the :class:`Work` of the exchange leg, whose
+    ``wait()`` runs the sum, the second leg and the write-back (the leg's
+    buffers stay referenced until then)."""
+    r = topo.replication_degree
+    src = g.float()
+    if out is None:
+        out = torch.empty_like(src)
+    if r == 1:
+        if out is not g:
+            out.copy_(src)
+        return Work(None) if async_op else out
+    if src.dim() != 1:
+        raise ValueError(f"quantized_all_reduce takes a flat [N] buffer, got "
+                         f"{tuple(src.shape)}")
+    group = groups.replication
+    n = src.shape[0]
+    m = -(-n // r)
+    x = torch.nn.functional.pad(src, (0, r * m - n)) if r * m != n else src
+    step = step_component(src, seed) if stochastic else None
+
+    def key(stage):
+        return Q.dither_key(salt, stage, groups.rank, step) if stochastic else None
+
+    q, s = Q.quantize_flat(x.reshape(r, m), key=key(0))
+    qx, q_work = all_to_all(q, group, async_op=True, counter=counter)
+    sx, s_work = all_to_all(s, group, async_op=True, counter=counter)
+    held = [q, s]     # the exchange leg's inputs, referenced until its wait
+
+    def finish():
+        s_work.wait()
+        red = Q.dequantize(qx, sx, torch.float32, chunks=r)
+        q2, s2 = Q.quantize_flat(red, key=key(1))
+        qg = all_gather(q2, group, counter=counter)
+        sg = all_gather(s2, group, counter=counter)
+        full = Q.dequantize(qg.reshape(r, m), sg.reshape(r, -1), torch.float32)
+        out.copy_(full.reshape(-1)[:n])
+        held.clear()
+
+    work = Work(q_work, finish)
+    if async_op:
+        return work
+    work.wait()
+    return out
 
 
 # ---------------------------------------------------------------------------

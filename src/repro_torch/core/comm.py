@@ -25,8 +25,19 @@ stored buffer in pinned host memory); :attr:`CommEngine.host_stash` is the
 run's host memory for that carry and for host-resident optimizer moments
 (``core/hostoffload.py``).
 
-Still refused, naming the ROADMAP Queue 1 item they wait for: the int8
-gather wire and the bf16 / int8 gradient wires (item 4).
+The wires (ZeRO++'s qwZ / qgZ on the MiCS hierarchy, ``core/quant.py``):
+the gather ships the row in the wire dtype, or under ``int8`` quantized
+(nearest rounding) to int8 values and fp32 block scales, dequantized to
+the compute dtype after the gather (:class:`QuantGatherFlat`; at p = 1 the
+plain cast); a stored ``{'q', 's'}`` serving row is gathered as it is and
+dequantized.  Hop 1 (``SyncPolicy.hop1_wire_dtype``) reduce-scatters the
+cotangent in its own dtype (``fp32``), cast to bf16 (``bf16``) or as the
+staged int8 exchange (``int8``); hop 2 (``hop2_wire_dtype``) all-reduces
+fp32, bf16 (also at one replica, where it rounds the gradient, as the
+reference does) or int8.  The int8 gradient wires round stochastically
+(``grad_rounding``) under a dither keyed by the payload's salt, the stage,
+the rank and the step seed that the train step threads through the
+gathers and the boundary.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import collectives as C
+from repro_torch.core import quant as Q
 from repro_torch.core.flat_param import model_gather_fn_for
 from repro_torch.core.hostoffload import HostStash
 from repro_torch.core.topology import MiCSTopology, hierarchy_factors
@@ -47,9 +59,9 @@ HOP1_WIRE_DTYPES = ("fp32", "bf16", "int8")
 HOP2_WIRE_DTYPES = ("fp32", "bf16", "int8")
 PREFETCH_CARRIES = ("stored", "remat")
 CARRY_OFFLOADS = ("none", "host")
+GRAD_ROUNDINGS = ("stochastic", "nearest")
 
 _WIRE_TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16}
-_WIRE_ITEM = "ROADMAP Queue 1 item 4, the int8 and bf16 wires"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,23 +97,29 @@ class GatherPolicy:
 class SyncPolicy:
     """How gradients synchronize (paper §3.4): ``2hop`` (hop-1
     reduce-scatter in the backward, hop-2 all-reduce at the boundary) or
-    the Fig-14 ``allreduce_slice`` ablation, both with fp32 wires; the
-    compressed wires raise."""
+    the Fig-14 ``allreduce_slice`` ablation; each hop's wire (``fp32``,
+    ``bf16`` or ``int8``), and the int8 wires' rounding (``stochastic``,
+    unbiased in expectation, or ``nearest``)."""
 
     mode: str = "2hop"
     hop1_wire_dtype: str = "fp32"
     hop2_wire_dtype: str = "fp32"
+    grad_rounding: str = "stochastic"
 
     def __post_init__(self):
         for name, value, allowed in (("mode", self.mode, SYNC_MODES),
                                      ("hop1_wire_dtype", self.hop1_wire_dtype, HOP1_WIRE_DTYPES),
-                                     ("hop2_wire_dtype", self.hop2_wire_dtype, HOP2_WIRE_DTYPES)):
+                                     ("hop2_wire_dtype", self.hop2_wire_dtype, HOP2_WIRE_DTYPES),
+                                     ("grad_rounding", self.grad_rounding, GRAD_ROUNDINGS)):
             if value not in allowed:
                 raise ValueError(f"unknown {name} {value!r} (expected one of {allowed})")
-        if self.hop1_wire_dtype != "fp32" or self.hop2_wire_dtype != "fp32":
-            raise NotImplementedError(
-                f"hop-1 wire {self.hop1_wire_dtype!r} / hop-2 wire {self.hop2_wire_dtype!r}: "
-                f"the compressed gradient wires wait for {_WIRE_ITEM}; the port runs fp32")
+        if self.hop1_wire_dtype != "fp32" and self.mode != "2hop":
+            raise ValueError("hop-1 wire compression requires the 2hop schedule (the "
+                             "allreduce_slice ablation has no staged hop 1 to compress)")
+
+    @property
+    def stochastic(self) -> bool:
+        return self.grad_rounding == "stochastic"
 
 
 def _hop2_wire(compress_hop2) -> str:
@@ -123,25 +141,47 @@ def policies_from_config(mcfg) -> tuple[GatherPolicy, SyncPolicy]:
                           wire_dtype=wire, inner=mcfg.hierarchy_inner, prefetch=mcfg.prefetch,
                           prefetch_carry=mcfg.prefetch_carry, carry_offload=mcfg.carry_offload)
     sync = SyncPolicy(mode=mcfg.sync_mode, hop1_wire_dtype=mcfg.hop1_wire_dtype,
-                      hop2_wire_dtype=_hop2_wire(mcfg.compress_hop2))
+                      hop2_wire_dtype=_hop2_wire(mcfg.compress_hop2),
+                      grad_rounding=mcfg.grad_rounding)
     return gather, sync
 
 
 class GatherFlat(torch.autograd.Function):
     """The gather of one flat row with its hop-1 adjoint: the forward casts
-    the fp32 row to the wire dtype and gathers it with the policy's
-    topology; the backward is :meth:`CommEngine._adjoint` (the staged
-    reduce-scatter in the cotangent's own dtype: bf16 under the bf16 wire,
-    as the reference's) followed by the cast back to fp32."""
+    the fp32 row to ``dtype`` (the wire dtype; the compute dtype for the
+    int8 wire at p = 1, where nothing is on the wire) and gathers it with
+    the policy's topology; the backward is
+    :meth:`CommEngine.gather_flat_adjoint` (hop 1 on the policy's wire in
+    the cotangent's own dtype, bf16 under the bf16 wire as the reference's,
+    then the cast back to fp32).  ``seed`` (the training step, or None)
+    reaches the backward as a plain argument."""
 
     @staticmethod
-    def forward(ctx, row, engine, dtype):
-        ctx.engine = engine
+    def forward(ctx, row, engine, dtype, seed):
+        ctx.engine, ctx.seed = engine, seed
         return engine._policy_all_gather(row.to(dtype))
 
     @staticmethod
     def backward(ctx, ct):
-        return ctx.engine.gather_flat_adjoint(ct), None, None
+        return ctx.engine.gather_flat_adjoint(ct, seed=ctx.seed), None, None, None
+
+
+class QuantGatherFlat(torch.autograd.Function):
+    """The qwZ gather (the reference's ``_build_gather_vjp(quantized=True)``):
+    the forward quantizes the fp32 row with nearest rounding, gathers its
+    int8 values and fp32 block scales with the policy's topology and
+    dequantizes them to the compute dtype; the backward is
+    straight-through, hop 1 of the fp32 cotangent on the policy's wire
+    (the quantizer is never differentiated)."""
+
+    @staticmethod
+    def forward(ctx, row, engine, seed):
+        ctx.engine, ctx.seed = engine, seed
+        return engine._quant_gather(row)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.engine.gather_flat_adjoint(ct, seed=ctx.seed), None, None
 
 
 class CommEngine:
@@ -152,9 +192,8 @@ class CommEngine:
     groups of this topology the engine raises ``ValueError``."""
 
     def __init__(self, topo: MiCSTopology, gather_policy: GatherPolicy = GatherPolicy(),
-                 sync_policy: SyncPolicy = SyncPolicy(), *, groups=None):
-        if gather_policy.wire_dtype == "int8":
-            raise NotImplementedError(f"the int8 gather wire waits for {_WIRE_ITEM}")
+                 sync_policy: SyncPolicy = SyncPolicy(), *, groups=None,
+                 compute_dtype: torch.dtype = torch.bfloat16):
         if topo.world_size > 1:
             if groups is None or groups.topo != topo:
                 raise ValueError(
@@ -171,6 +210,7 @@ class CommEngine:
         self.gather_policy = gather_policy
         self.sync_policy = sync_policy
         self.groups = groups
+        self.compute_dtype = compute_dtype
         self.counter = C.CommCounter()
         self._model_gather_fn = (model_gather_fn_for(groups, self.counter)
                                  if topo.model_size > 1 else None)
@@ -180,7 +220,8 @@ class CommEngine:
 
     @classmethod
     def from_config(cls, topo: MiCSTopology, mcfg, *, groups=None) -> "CommEngine":
-        return cls(topo, *policies_from_config(mcfg), groups=groups)
+        return cls(topo, *policies_from_config(mcfg), groups=groups,
+                   compute_dtype=mcfg.gather_dtype)
 
     @property
     def prefetch(self) -> bool:
@@ -207,6 +248,10 @@ class CommEngine:
         return self._carry_tags.setdefault(pool_name, len(self._carry_tags))
 
     def gather_out_dtype(self) -> torch.dtype:
+        """The gathered buffer's dtype: the wire dtype, or the compute dtype
+        under the int8 wire."""
+        if self.gather_policy.wire_dtype == "int8":
+            return self.compute_dtype
         return _WIRE_TORCH[self.gather_policy.wire_dtype]
 
     def describe(self) -> dict:
@@ -221,6 +266,11 @@ class CommEngine:
                 "partition_size": topo.partition_size,
                 "replication_degree": topo.replication_degree,
                 "hierarchy": {"outer": outer, "inner": inner},
+                "compute_dtype": str(self.compute_dtype).removeprefix("torch."),
+                "wires": {"gather": self.gather_policy.wire_dtype,
+                          "hop1": self.sync_policy.hop1_wire_dtype,
+                          "hop2": self.sync_policy.hop2_wire_dtype,
+                          "grad_rounding": self.sync_policy.grad_rounding},
                 "backend": None if self.groups is None else self.groups.backend}
 
     # -- the policy's collectives ------------------------------------------
@@ -239,42 +289,80 @@ class CommEngine:
         return C.hierarchical_reduce_scatter(g, self.topo, self.groups, order=gp.topology,
                                              inner=gp.inner, counter=self.counter)
 
-    def _adjoint(self, ct: torch.Tensor) -> torch.Tensor:
-        """Hop 1 (§3.4), the staged reduce-scatter in ``ct``'s own dtype, or
-        the Fig-14 ablation's full all-reduce and slice."""
+    def _adjoint(self, ct: torch.Tensor, seed: int | None = None) -> torch.Tensor:
+        """Hop 1 (§3.4) on the policy's wire, returned in ``ct``'s dtype:
+        the staged reduce-scatter in ``ct``'s own dtype (``fp32``), of
+        ``ct`` cast to bf16 (``bf16``), or at p > 1 the staged int8
+        exchange (``int8``, ``seed`` keying its stochastic dither); or the
+        Fig-14 ablation's full all-reduce and slice."""
         if self.sync_policy.mode == "allreduce_slice":
             return C.alternative_sync(ct, self.topo, self.groups, counter=self.counter)
+        hop1 = self.sync_policy.hop1_wire_dtype
+        if hop1 == "int8" and self.topo.partition_size > 1:
+            gp = self.gather_policy
+            out = C.quantized_reduce_scatter(
+                ct, self.topo, self.groups, topology=gp.topology, inner=gp.inner,
+                stochastic=self.sync_policy.stochastic, seed=seed, counter=self.counter)
+            return out.to(ct.dtype)
+        if hop1 == "bf16":
+            return self._policy_reduce_scatter(ct.to(torch.bfloat16)).to(ct.dtype)
         return self._policy_reduce_scatter(ct)
 
+    def _quant_gather(self, row: torch.Tensor) -> torch.Tensor:
+        """The qwZ forward: quantize (nearest), gather values and scales,
+        dequantize to the compute dtype."""
+        q, s = Q.quantize_flat(row)
+        return Q.dequantize_flat(self._policy_all_gather(q), self._policy_all_gather(s),
+                                 self.compute_dtype)
+
     # -- the gather API ----------------------------------------------------
-    def gather_flat(self, row: torch.Tensor) -> torch.Tensor:
-        """Gather one layer's flat shard into the full flat buffer, in the
-        wire dtype; when ``row`` carries a gradient, as :class:`GatherFlat`."""
+    def gather_flat(self, row, *, seed: int | None = None) -> torch.Tensor:
+        """Gather one layer's flat shard into the full flat buffer, in
+        :meth:`gather_out_dtype`; when ``row`` carries a gradient, as
+        :class:`GatherFlat` or :class:`QuantGatherFlat`, ``seed`` (the
+        training step) keying the int8 hop-1 wire's dither.  ``row`` may be
+        a stored serving row ``{'q': int8, 's': fp32}``
+        (``quant.quantize_state``): its values and scales are gathered as
+        they are and dequantized to the compute dtype."""
+        if isinstance(row, dict):
+            return Q.dequantize_flat(self._policy_all_gather(row["q"]),
+                                     self._policy_all_gather(row["s"]), self.compute_dtype)
+        grad = torch.is_grad_enabled() and row.requires_grad
+        if self.gather_policy.wire_dtype == "int8" and self.topo.partition_size > 1:
+            return QuantGatherFlat.apply(row, self, seed) if grad else self._quant_gather(row)
         dtype = self.gather_out_dtype()
-        if torch.is_grad_enabled() and row.requires_grad:
-            return GatherFlat.apply(row, self, dtype)
+        if grad:
+            return GatherFlat.apply(row, self, dtype, seed)
         return self._policy_all_gather(row.to(dtype))
 
-    def gather_flat_adjoint(self, ct: torch.Tensor) -> torch.Tensor:
+    def gather_flat_adjoint(self, ct: torch.Tensor, *, seed: int | None = None) -> torch.Tensor:
         """The hop-1 adjoint of :meth:`gather_flat`: the full-buffer
-        cotangent in, this rank's fp32 shard cotangent out."""
-        return self._adjoint(ct).to(torch.float32)
+        cotangent in, this rank's fp32 shard cotangent out.  Under the int8
+        gather the cotangent goes to hop 1 in fp32, and at p = 1 (the
+        forward a plain cast) it is only cast back, as the reference's."""
+        if self.gather_policy.wire_dtype == "int8":
+            if self.topo.partition_size == 1:
+                return ct.to(torch.float32)
+            return self._adjoint(ct.to(torch.float32), seed)
+        return self._adjoint(ct, seed).to(torch.float32)
 
-    def gather_ahead(self, row: torch.Tensor) -> torch.Tensor:
+    def gather_ahead(self, row, *, seed: int | None = None) -> torch.Tensor:
         """:meth:`gather_flat` issued ahead of the compute that uses it: at
         p > 1 on a card, on a side stream (a staged gather's second stage
         follows its first there), joined to the current stream by an event,
         the buffer marked as used by the current stream.  Elsewhere the plain
-        gather.  Either way the same bits."""
-        if self.topo.partition_size == 1 or not row.is_cuda:
-            return self.gather_flat(row)
-        cur = torch.cuda.current_stream(row.device)
-        side = self._side.get(row.device)
+        gather.  Either way the same bits.  A stored ``{'q', 's'}`` row at
+        p = 1 dequantizes on the current stream, which uses it."""
+        lead = row["q"] if isinstance(row, dict) else row
+        if self.topo.partition_size == 1 or not lead.is_cuda:
+            return self.gather_flat(row, seed=seed)
+        cur = torch.cuda.current_stream(lead.device)
+        side = self._side.get(lead.device)
         if side is None:
-            side = self._side[row.device] = torch.cuda.Stream(row.device)
+            side = self._side[lead.device] = torch.cuda.Stream(lead.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            full = self.gather_flat(row)
+            full = self.gather_flat(row, seed=seed)
             done = torch.cuda.Event()
             done.record(side)
         cur.wait_event(done)
@@ -286,18 +374,38 @@ class CommEngine:
         segments stored sharded over the model axis gathered along it."""
         return pool.layout.unflatten(full, model_gather_fn=self._model_gather_fn)
 
-    def gather(self, pool, row: torch.Tensor) -> dict[str, torch.Tensor]:
-        return self.unflatten(pool, self.gather_flat(row))
+    def gather(self, pool, row, *, seed: int | None = None) -> dict[str, torch.Tensor]:
+        return self.unflatten(pool, self.gather_flat(row, seed=seed))
 
     # -- gradient synchronization --------------------------------------------
-    def hop2_(self, g: torch.Tensor, *, async_op: bool = False):
+    def hop2_(self, g: torch.Tensor, *, async_op: bool = False, salt: int = 0,
+              seed: int | None = None):
         """Hop 2 (§3.4): the replication-group all-reduce of the contiguous
-        ``g`` in place at the accumulation boundary.  Returns ``g``, or with
-        ``async_op`` the work to wait on.  Nothing is issued with one replica
-        or under the Fig-14 ablation (its backward already summed over
+        fp32 ``g`` in place at the accumulation boundary, on the policy's
+        wire: fp32; bf16 (``g`` cast, all-reduced and cast back; at one
+        replica the round trip alone, as the reference's); int8 with more
+        than one replica (:func:`collectives.quantized_all_reduce`, ``salt``
+        and ``seed`` keying its dither).  Returns ``g``, or with ``async_op``
+        the work to wait on, whose ``wait()`` also finishes the wire (the
+        bf16 cast back; int8's sum, second leg and write-back).  Nothing is
+        issued under the Fig-14 ablation (its backward already summed over
         every data rank)."""
         if self.sync_policy.mode != "2hop":
             return C.Work(None) if async_op else g
+        wire = self.sync_policy.hop2_wire_dtype
+        if wire == "int8" and self.topo.replication_degree > 1:
+            return C.quantized_all_reduce(g, self.topo, self.groups, salt=salt,
+                                          stochastic=self.sync_policy.stochastic, seed=seed,
+                                          out=g, async_op=async_op, counter=self.counter)
+        if wire == "bf16":
+            wire_g = g.to(torch.bfloat16)
+            work = C.hop2_all_reduce(wire_g, self.topo, self.groups, async_op=True,
+                                     counter=self.counter)
+            work = C.Work(work, lambda: g.copy_(wire_g))
+            if async_op:
+                return work
+            work.wait()
+            return g
         return C.hop2_all_reduce(g, self.topo, self.groups, async_op=async_op,
                                  counter=self.counter)
 

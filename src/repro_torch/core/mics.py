@@ -13,7 +13,12 @@ and AdamW on the flat fp32 shards (or the approximate clip's pipeline,
 with ``clip_mode="approx"``).  ``prefetch_carry="remat"`` and
 ``carry_offload="host"`` change what the forward keeps of each gathered
 layer for the backward (``models/lm.py``); ``offload_opt`` keeps AdamW's m
-and v in pinned host memory (``core/hostoffload.py``).  At tp > 1
+and v in pinned host memory (``core/hostoffload.py``).  The wires
+(``quant_gather``: the int8 gather; ``hop1_wire_dtype`` and
+``compress_hop2``: bf16 or int8 gradient wires, the int8 ones rounded as
+``grad_rounding`` says) are the ``CommEngine``'s; the step's counter
+``state["step"]`` (a host int) rides the context into every gather's
+backward and into the boundary as the int8 wires' dither seed.  At tp > 1
 (Megatron tensor parallelism under every partition group) a rank holds its
 model coordinate's shards, the layers sum their row-parallel outputs over
 the model group and the loss is vocab-parallel.  All collectives belong to one
@@ -30,7 +35,8 @@ import zlib
 import torch
 
 from repro_torch.core import hostoffload
-from repro_torch.core.comm import CARRY_OFFLOADS, PREFETCH_CARRIES, CommEngine
+from repro_torch.core.comm import (CARRY_OFFLOADS, GRAD_ROUNDINGS, HOP1_WIRE_DTYPES,
+                                   PREFETCH_CARRIES, CommEngine)
 from repro_torch.core.schedule import BOUNDARY_SCHEDULES, CLIP_MODES, apply_boundary, plan_boundary
 from repro_torch.core.topology import MODEL_AXIS, MiCSTopology
 from repro_torch.device import resolve_device
@@ -75,10 +81,11 @@ class MiCSConfig:
     gather_dtype: torch.dtype = torch.bfloat16
     sync_mode: str = "2hop"             # '2hop' | 'allreduce_slice' (Fig 14)
     hierarchy_inner: int | None = None  # staged gather's inner factor
-    compress_hop2: bool | str = False   # hop-2 wire (default only: item 4)
+    compress_hop2: bool | str = False   # hop-2 wire: False / 'fp32', True / 'bf16', 'int8'
     scores_bf16: bool = False           # bf16 attention scores (default only)
-    quant_gather: bool = False          # int8 wire (default only: item 4)
-    hop1_wire_dtype: str = "fp32"       # (default only: Queue 1 item 4)
+    quant_gather: bool = False          # the int8 gather wire (qwZ; stored int8 serving)
+    hop1_wire_dtype: str = "fp32"       # 'fp32' | 'bf16' | 'int8' (qgZ)
+    grad_rounding: str = "stochastic"   # the int8 gradient wires: 'stochastic' | 'nearest'
     prefetch: bool = True               # lookahead gathers
     prefetch_carry: str = "stored"      # 'stored' | 'remat' (backward re-gather)
     policy: str = "manual"              # (default only)
@@ -101,7 +108,9 @@ class MiCSConfig:
                               ("boundary_schedule", BOUNDARY_SCHEDULES),
                               ("clip_mode", CLIP_MODES),
                               ("prefetch_carry", PREFETCH_CARRIES),
-                              ("carry_offload", CARRY_OFFLOADS)):
+                              ("carry_offload", CARRY_OFFLOADS),
+                              ("hop1_wire_dtype", HOP1_WIRE_DTYPES),
+                              ("grad_rounding", GRAD_ROUNDINGS)):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"unknown {name} {getattr(self, name)!r} "
                                  f"(expected one of {allowed})")
@@ -240,7 +249,8 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
     micro-steps and the data ranks) and ``grad_norm`` (before the clip).  The
     state's params, m and v are updated in place; the returned state holds
     them and ``step + 1``.  ``step_fn.comm`` is the step's ``CommEngine``,
-    ``step_fn.describe()`` the record of its settings."""
+    ``step_fn.describe()`` the record of its settings.  ``state["step"]``
+    is the int8 wires' dither seed: each step draws its own rounding."""
     dev = resolve_device(device)
     refuse_unported(mcfg, topo, model.cfg.family, dev)
     if model.tp != topo.model_size:
@@ -260,9 +270,12 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
         if batch["tokens"].shape[0] != s:
             raise ValueError(f"batch has {batch['tokens'].shape[0]} micro-steps, "
                              f"the step runs {s}")
-        grads, loss_sum, aux_sum = accumulate_grads(model, comm, ctx, state["params"], batch)
+        step_ctx = dataclasses.replace(ctx, step_seed=int(state["step"]))
+        grads, loss_sum, aux_sum = accumulate_grads(model, comm, step_ctx, state["params"],
+                                                    batch)
         new_p, new_m, new_v, gnorm = apply_boundary(boundary, comm, model, topo, oc, state,
-                                                     grads, denom, offload_opt=mcfg.offload_opt)
+                                                     grads, denom, offload_opt=mcfg.offload_opt,
+                                                     seed=step_ctx.step_seed)
         means = comm.replica_mean(torch.stack([loss_sum / s, aux_sum / s]).detach())
         metrics = {"loss": means[0], "aux": means[1], "grad_norm": gnorm}
         return {"params": new_p, "m": new_m, "v": new_v, "step": state["step"] + 1}, metrics

@@ -34,6 +34,16 @@ operations (eager PyTorch fuses nothing), so the whole trajectory is
 bitwise the exact clip's; the reference holds that only to the last ulp of
 the params, since XLA fuses the two programs differently.
 
+**The compressed hop-2 wires.**  Under ``bf16`` a bucket's cast is the
+cast's bucket, so both schedules stay bitwise equal.  Under ``int8`` each
+payload is block-quantized (``collectives.quantized_all_reduce``), its
+blocks following the payload, so the serial and bucketed schedules agree
+to quantization error, not bitwise; each payload's dither is salted by
+its place (the pool index under ``serial``, the plan-order bucket index
+under ``bucketed``: offsets repeat across pools) and seeded by the step.
+The async int8 hop 2's ``wait()`` runs its sum, its second leg and the
+write-back, so the one-bucket-ahead issue stays.
+
 **Host-resident moments** (``offload_opt=True``): m and v are pinned host
 tensors of the state; each slice's pair is fetched to the card one slice
 ahead on the stash's copy stream, updated, and written back there
@@ -137,20 +147,22 @@ def _sq(bucket: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.square(bucket))
 
 
-def _reduce_serial(plan: BoundaryPlan, comm, flat_grads: dict):
-    """Reference: whole-pool hop 2 first, then per-bucket norm partials."""
-    for g in flat_grads.values():
-        comm.hop2_(g)
+def _reduce_serial(plan: BoundaryPlan, comm, flat_grads: dict, seed=None):
+    """Reference: whole-pool hop 2 first (salt: the pool index), then
+    per-bucket norm partials."""
+    for i, g in enumerate(flat_grads.values()):
+        comm.hop2_(g, salt=i, seed=seed)
     return [_sq(flat_grads[b.pool][b.lo:b.hi]) for b in plan.buckets]
 
 
-def _reduce_bucketed(plan: BoundaryPlan, comm, flat_grads: dict):
-    """Software pipeline: issue bucket k's hop 2, then wait on bucket k-1's
-    and take its squared-norm partial; the drain takes the last bucket."""
+def _reduce_bucketed(plan: BoundaryPlan, comm, flat_grads: dict, seed=None):
+    """Software pipeline: issue bucket k's hop 2 (salt: k), then wait on
+    bucket k-1's and take its squared-norm partial; the drain takes the
+    last bucket."""
     sq_parts, pending = [], None
-    for ref in plan.buckets:
+    for i, ref in enumerate(plan.buckets):
         bucket = flat_grads[ref.pool][ref.lo:ref.hi]
-        work = comm.hop2_(bucket, async_op=True)
+        work = comm.hop2_(bucket, async_op=True, salt=i, seed=seed)
         if pending is not None:
             pending[0].wait()
             sq_parts.append(_sq(pending[1]))
@@ -275,7 +287,7 @@ def _clip(sq: torch.Tensor, denom: float, oc: OptConfig):
 
 
 def _boundary_approx(plan: BoundaryPlan, comm, flat_grads: dict, bucket_parts: list,
-                     denom: float, oc: OptConfig, update: _AdamW) -> torch.Tensor:
+                     denom: float, oc: OptConfig, update: _AdamW, seed=None) -> torch.Tensor:
     """The approximate clip's pipeline (module docstring).  Per bucket i:
     issue its hop 2, wait on bucket i-1's, run bucket i-1's AdamW with the
     clip factor of the running squared norm through bucket i-2, then fold
@@ -299,9 +311,9 @@ def _boundary_approx(plan: BoundaryPlan, comm, flat_grads: dict, bucket_parts: l
             update(part, grad_scale)
 
     pending = None
-    for ref, parts in zip(plan.buckets, bucket_parts):
+    for i, (ref, parts) in enumerate(zip(plan.buckets, bucket_parts)):
         bucket = flat_grads[ref.pool][ref.lo:ref.hi]
-        work = comm.hop2_(bucket, async_op=True)
+        work = comm.hop2_(bucket, async_op=True, salt=i, seed=seed)
         if pending is not None:
             pending[0].wait()
             step(pending[1])            # stale: the norm through the bucket before
@@ -315,15 +327,16 @@ def _boundary_approx(plan: BoundaryPlan, comm, flat_grads: dict, bucket_parts: l
 
 
 def apply_boundary(plan: BoundaryPlan, comm, model, topo: MiCSTopology, oc: OptConfig,
-                   state: dict, grads: dict, denom: float, *, offload_opt: bool = False):
+                   state: dict, grads: dict, denom: float, *, offload_opt: bool = False,
+                   seed: int | None = None):
     """Run one accumulation boundary under ``plan``: hop 2 on ``grads``
     (per-pool fp32 accumulated sums ``[stack, 1, shard_len]``, reduced in
     place), the global-norm clip (exact, or the approximate pipeline), then
     AdamW with ``clip / denom`` folded into the gradient, written into
     ``state``'s params, m and v in place, ``UPDATE_SLICE`` elements of a row
     at a time.  With ``offload_opt`` the state's m and v are host tensors,
-    streamed through ``comm.host_stash``.  Returns ``(params, m, v,
-    grad_norm)``."""
+    streamed through ``comm.host_stash``.  ``seed`` (the step) keys the
+    int8 hop-2 wire's dither.  Returns ``(params, m, v, grad_norm)``."""
     flat_grads = {name: grads[name].reshape(-1) for name in plan.shard_elems}
     device = next(iter(grads.values())).device
     stash = comm.host_stash if offload_opt else None
@@ -333,12 +346,13 @@ def apply_boundary(plan: BoundaryPlan, comm, model, topo: MiCSTopology, oc: OptC
                         for ref in plan.buckets]
         parts = [part for bp in bucket_parts for part in bp]
         update = _AdamW(comm, oc, state, grads, parts, stash)
-        gnorm = _boundary_approx(plan, comm, flat_grads, bucket_parts, denom, oc, update)
+        gnorm = _boundary_approx(plan, comm, flat_grads, bucket_parts, denom, oc, update,
+                                 seed)
     else:
         if plan.mode == "bucketed":
-            sq_parts = _reduce_bucketed(plan, comm, flat_grads)
+            sq_parts = _reduce_bucketed(plan, comm, flat_grads, seed)
         else:
-            sq_parts = _reduce_serial(plan, comm, flat_grads)
+            sq_parts = _reduce_serial(plan, comm, flat_grads, seed)
         sq = torch.zeros((), dtype=torch.float32, device=device)
         for part in sq_parts:               # fixed left fold, canonical order
             sq = sq + part

@@ -31,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
+_U = ctypes.c_uint
 # C entry points: name -> argtypes.  Each returns cudaGetLastError() as int.
 SIGNATURES = {
     # x, scale, y, n, d, eps, x_bf16, scale_bf16, lanes_log2, vecs_per_lane,
@@ -88,6 +90,11 @@ SIGNATURES = {
     # w_bf16, stream
     "rglru_gated_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, q, s, rows, L, nb, x_bf16, stochastic, k_lo, k_hi, step (or NULL),
+    # offset, vec, blocks, stream
+    "quantize_launch": (_P, _P, _P, _LL, _I, _I, _I, _I, _U, _U, _P, _U, _I, _I, _P),
+    # q, s, out, rows, L, nb, chunks, out_bf16, vec, blocks, stream
+    "dequantize_launch": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

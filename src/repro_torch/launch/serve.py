@@ -7,9 +7,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
       --smoke --device cpu --decode-tokens 4         # plain path, CPU
 
-Weights are random, made from ``--seed``.  ``--continuous``,
-``--policy auto`` and ``--quant-gather`` belong to later slices and are
-refused.
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --smoke --device cpu --decode-tokens 4 --quant-gather  # stored int8 weights
+
+Weights are random, made from ``--seed``.  ``--quant-gather`` stores them
+as int8 with fp32 block scales (``quant.quantize_state``) and dequantizes
+each layer's row at every step.  ``--continuous`` and ``--policy auto``
+belong to later slices and are refused.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.mics import MiCSConfig, init_params
+from repro_torch.core.quant import quantize_state
 from repro_torch.core.topology import MiCSTopology
 from repro_torch.device import resolve_device
 from repro_torch.models.build import build_model
@@ -30,7 +35,6 @@ from repro_torch.runtime.serving import build_serve_steps
 LATER = {
     "continuous": "continuous batching comes with the paged-KV / continuous-batching slice",
     "policy": "--policy auto (the link-model autotuner) comes with the planner/tuner slice",
-    "quant_gather": "--quant-gather (int8 wire) comes with the int8-wire slice",
 }
 
 
@@ -53,14 +57,13 @@ def main(argv=None):
     ap.add_argument("--continuous", action="store_true", help="not in this slice")
     ap.add_argument("--policy", choices=["manual", "auto"], default="manual",
                     help="'auto' is not in this slice")
-    ap.add_argument("--quant-gather", action="store_true", help="not in this slice")
+    ap.add_argument("--quant-gather", action="store_true",
+                    help="store the weights int8 (+ fp32 block scales), dequantized each step")
     args = ap.parse_args(argv)
     if args.continuous:
         ap.error(LATER["continuous"])
     if args.policy != "manual":
         ap.error(LATER["policy"])
-    if args.quant_gather:
-        ap.error(LATER["quant_gather"])
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -69,7 +72,9 @@ def main(argv=None):
     topo = MiCSTopology()
     model = build_model(cfg, tp=topo.model_size)
     params = init_params(model, args.seed, device=dev)
-    mcfg = MiCSConfig(prefetch=bool(args.prefetch))
+    if args.quant_gather:
+        params = quantize_state(params)
+    mcfg = MiCSConfig(prefetch=bool(args.prefetch), quant_gather=args.quant_gather)
     cache_len = args.prompt_len + args.decode_tokens
     prefill_fn, decode_fn = build_serve_steps(model, topo, mcfg, cache_len, device=dev)
 
@@ -80,7 +85,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     logits, caches = prefill_fn(params, {"tokens": tokens})
     _sync(dev)
-    print(f"prefill {args.batch}x{args.prompt_len}: {time.perf_counter() - t0:.3f}s")
+    wire = "int8 weights" if args.quant_gather else "bf16 gather"
+    print(f"prefill {args.batch}x{args.prompt_len} ({wire}): "
+          f"{time.perf_counter() - t0:.3f}s")
 
     tok = torch.argmax(logits[:, -1:].float(), dim=-1)
     outs = []

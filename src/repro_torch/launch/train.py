@@ -15,6 +15,10 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
       --smoke --device cpu --steps 4 --carry-offload host \
       --offload-opt --clip-mode approx                         # host carry and moments
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch llama3.2-1b --smoke --device cpu --dist-backend gloo \
+      --partition-size 2 --hop1-wire-dtype bf16 --compress-hop2 int8 \
+      --steps 4                                                # the wires
 
 Weights are random, made from ``--seed``; the data is the seeded synthetic
 stream.  The flags are the reference's (``repro/launch/train.py``) plus
@@ -27,9 +31,12 @@ the world is laid out as ``(repl, shard = --partition-size, model = --tp)``
 ``--carry-offload host`` (the stored carry in pinned host memory),
 ``--offload-opt`` (AdamW's m and v in pinned host memory) and ``--clip-mode
 approx``; a line says which carry, where the moments live and which clip.
-A setting the port does not run yet (``--policy auto`` and
-``--hbm-budget-gb``, ROADMAP Queue 1 item 8; ``--quant-gather`` and a hop-1
-wire other than fp32, item 4) raises ``NotImplementedError``.  The
+The wires: ``--quant-gather`` (the int8 gather), ``--hop1-wire-dtype``
+and ``--compress-hop2`` (fp32, bf16 or int8 gradient wires) and
+``--grad-rounding`` (the int8 gradient wires' rounding); a line says
+which.  A setting the port does not run yet (``--policy auto`` and
+``--hbm-budget-gb``, ROADMAP Queue 1 item 8) raises
+``NotImplementedError``.  The
 reference's memory-plan and autotune printouts wait for those modules.
 Only rank 0 prints.
 """
@@ -74,6 +81,8 @@ def main(argv=None):
     ap.add_argument("--no-hierarchical", action="store_true")
     ap.add_argument("--quant-gather", action="store_true")
     ap.add_argument("--hop1-wire-dtype", default="fp32", choices=["fp32", "bf16", "int8"])
+    ap.add_argument("--compress-hop2", default="fp32", choices=["fp32", "bf16", "int8"])
+    ap.add_argument("--grad-rounding", default="stochastic", choices=["stochastic", "nearest"])
     ap.add_argument("--prefetch", type=int, default=1,
                     help="1 = lookahead gathers (default), 0 = serial")
     ap.add_argument("--prefetch-carry", default="stored", choices=["stored", "remat"])
@@ -123,6 +132,8 @@ def main(argv=None):
                       hierarchy_inner=args.hierarchy_inner,
                       quant_gather=args.quant_gather,
                       hop1_wire_dtype=args.hop1_wire_dtype,
+                      compress_hop2=args.compress_hop2,
+                      grad_rounding=args.grad_rounding,
                       prefetch=bool(args.prefetch),
                       prefetch_carry=args.prefetch_carry,
                       carry_offload=args.carry_offload,
@@ -148,6 +159,9 @@ def main(argv=None):
              "stored on the device" if mcfg.prefetch_carry == "stored" else "remat")
     moments = host if mcfg.offload_opt else "the device"
     say(f"knobs: prefetch carry {carry}; AdamW moments in {moments}; clip {mcfg.clip_mode}")
+    say(f"wires: gather {'int8' if mcfg.quant_gather else 'bf16'}, hop 1 "
+        f"{mcfg.hop1_wire_dtype}, hop 2 {mcfg.compress_hop2}, int8 rounding "
+        f"{mcfg.grad_rounding}")
     oc = OptConfig(lr_max=args.lr, total_steps=args.steps,
                    warmup_steps=max(args.steps // 20, 1))
     dc = DataConfig(vocab=cfg.vocab, seq=args.seq, global_batch=args.global_batch,

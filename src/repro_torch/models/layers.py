@@ -39,6 +39,7 @@ class Ctx:
     cache_len: int = 0             # KV-cache capacity
     compute_dtype: torch.dtype = torch.bfloat16
     comm: Any = None               # the CommEngine of the model axis (tp > 1)
+    step_seed: int | None = None   # the training step: the int8 wires' dither seed
 
     def tp_index(self) -> int:
         """This rank's coordinate on the model axis."""

@@ -124,9 +124,12 @@ def _pool_caches(caches, new: list):
     return _stack(new)
 
 
-def _row(flat_rows, i: int) -> torch.Tensor:
-    """Layer i's flat row: of a ``[stack, 1, S]`` pool tensor, or the i-th
-    of a list of rows (the training path's leaves)."""
+def _row(flat_rows, i: int):
+    """Layer i's flat row: of a ``[stack, 1, S]`` pool tensor, the i-th of a
+    list of rows (the training path's leaves), or of each leaf of a stored
+    int8 serving pool ``{'q': [stack, 1, S], 's': [stack, 1, nb]}``."""
+    if isinstance(flat_rows, dict):
+        return {k: v[i, 0] for k, v in flat_rows.items()}
     return flat_rows[i] if isinstance(flat_rows, (list, tuple)) else flat_rows[i, 0]
 
 
@@ -136,7 +139,7 @@ def _layer_from_full(pool: Pool, comm, ctx: L.Ctx, x, full):
 
 
 def _layer_from_row(pool: Pool, comm, ctx: L.Ctx, x, row):
-    return _layer_from_full(pool, comm, ctx, x, comm.gather_flat(row))
+    return _layer_from_full(pool, comm, ctx, x, comm.gather_flat(row, seed=ctx.step_seed))
 
 
 def _checkpointed(fn, *args):
@@ -168,7 +171,7 @@ def _apply_pool_serial(pool, flat_rows, x, ctx, comm, caches):
                                    _row(flat_rows, i))
             nc = None
         else:
-            tensors = comm.gather(pool, _row(flat_rows, i))
+            tensors = comm.gather(pool, _row(flat_rows, i), seed=ctx.step_seed)
             (x, aux), nc = pool.apply(tensors, x, ctx, _layer_cache(caches, i))
         aux_tot += aux
         new.append(nc)
@@ -182,9 +185,10 @@ def _apply_pool_prefetch(pool, flat_rows, x, ctx, comm, caches):
     unflatten + compute run under a checkpoint whose saved input is the
     gathered buffer (the stored carry)."""
     aux_tot, new = 0.0, []
-    cur = comm.gather_ahead(_row(flat_rows, 0))
+    cur = comm.gather_ahead(_row(flat_rows, 0), seed=ctx.step_seed)
     for i in range(pool.stack):
-        nxt = comm.gather_ahead(_row(flat_rows, i + 1)) if i + 1 < pool.stack else None
+        nxt = (comm.gather_ahead(_row(flat_rows, i + 1), seed=ctx.step_seed)
+               if i + 1 < pool.stack else None)
         if ctx.mode == "train":
             x, aux = _checkpointed(functools.partial(_layer_from_full, pool, comm, ctx), x, cur)
             nc = None
@@ -201,7 +205,7 @@ def _layer_from_carry(pool: Pool, comm, ctx: L.Ctx, carry: list, x, row):
     """The layer from the prefetched buffer in ``carry``, taken out so that
     nothing keeps it, in the forward; from a re-gather of ``row`` in the
     backward's recompute (the remat carry)."""
-    full = carry.pop() if carry else comm.gather_flat(row)
+    full = carry.pop() if carry else comm.gather_flat(row, seed=ctx.step_seed)
     return _layer_from_full(pool, comm, ctx, x, full)
 
 
@@ -213,9 +217,10 @@ def _apply_pool_prefetch_remat(pool, flat_rows, x, ctx, comm):
     it and runs the same gather adjoint (the reference's
     ``_apply_pool_prefetch_remat``, with a custom VJP there)."""
     aux_tot = 0.0
-    cur = comm.gather_ahead(_row(flat_rows, 0))
+    cur = comm.gather_ahead(_row(flat_rows, 0), seed=ctx.step_seed)
     for i in range(pool.stack):
-        nxt = comm.gather_ahead(_row(flat_rows, i + 1)) if i + 1 < pool.stack else None
+        nxt = (comm.gather_ahead(_row(flat_rows, i + 1), seed=ctx.step_seed)
+               if i + 1 < pool.stack else None)
         x, aux = _checkpointed(functools.partial(_layer_from_carry, pool, comm, ctx, [cur]),
                                x, _row(flat_rows, i))
         aux_tot += aux
@@ -251,9 +256,10 @@ def _apply_pool_prefetch_offload(pool, flat_rows, x, ctx, comm):
     ``_apply_pool_prefetch_offload``)."""
     stash, tag = comm.host_stash, comm.carry_tag(pool.name)
     aux_tot = 0.0
-    cur = comm.gather_ahead(_row(flat_rows, 0))
+    cur = comm.gather_ahead(_row(flat_rows, 0), seed=ctx.step_seed)
     for i in range(pool.stack):
-        nxt = comm.gather_ahead(_row(flat_rows, i + 1)) if i + 1 < pool.stack else None
+        nxt = (comm.gather_ahead(_row(flat_rows, i + 1), seed=ctx.step_seed)
+               if i + 1 < pool.stack else None)
         hooks = _HostCarry(stash, (tag, i), cur)
         with torch.autograd.graph.saved_tensors_hooks(hooks.pack, hooks.unpack):
             x, aux = _checkpointed(functools.partial(_layer_from_full, pool, comm, ctx), x, cur)
@@ -279,7 +285,7 @@ def forward(model: ModelDef, flat: dict[str, torch.Tensor], comm, ctx: L.Ctx,
 
     Returns (hidden, aux_loss, new_caches, t_head).
     """
-    t_embed = comm.gather(model.embed, _row(flat["embed"], 0))
+    t_embed = comm.gather(model.embed, _row(flat["embed"], 0), seed=ctx.step_seed)
     aux_total = 0.0
     new_caches: dict[str, Any] = {}
     x = embed_tokens(model, t_embed, batch["tokens"], ctx)
@@ -289,7 +295,7 @@ def forward(model: ModelDef, flat: dict[str, torch.Tensor], comm, ctx: L.Ctx,
         aux_total += aux
         if nc is not None:
             new_caches[pool.name] = nc
-    t_head = comm.gather(model.head, _row(flat["head"], 0))
+    t_head = comm.gather(model.head, _row(flat["head"], 0), seed=ctx.step_seed)
     return x, aux_total, new_caches, t_head
 
 

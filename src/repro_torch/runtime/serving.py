@@ -4,8 +4,12 @@ of ``repro/runtime/serving.py``'s ``build_serve_steps`` and
 
 Inference uses the same flat-pool parameter gathering as training: every
 step re-gathers every layer through the ``CommEngine`` (at p = 1 on one
-card, the cast of each fp32 row to the wire dtype).  Serving over more than
-one rank is refused (ROADMAP Queue 1 item 6).
+card, the cast of each fp32 row to the wire dtype).  With
+``quant_gather`` the weights are stored int8 (``quant.quantize_state``:
+``{'q': int8, 's': fp32 block scales}`` a pool) and each layer's row is
+dequantized on the card every step, where the bf16 path reads fp32 rows
+and casts them.  Serving over more than one rank is refused (ROADMAP
+Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 
 from repro_torch.core.comm import CommEngine
 from repro_torch.core.mics import SCORES_BF16_UNNEEDED, MiCSConfig
+from repro_torch.core.quant import n_blocks
 from repro_torch.core.topology import MiCSTopology
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -38,21 +43,39 @@ def pad_ragged_batch(topo: MiCSTopology, batch: dict):
     return batch, mask
 
 
-def _check_params(model: ModelDef, params: dict, device: torch.device) -> None:
-    for name, shape in model.global_flat_shapes().items():
-        t = params[name]
-        if tuple(t.shape) != shape or t.dtype != torch.float32:
-            raise ValueError(f"pool {name!r}: want fp32 {shape}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-        if t.device.type != device.type:
-            raise ValueError(f"pool {name!r} is on {t.device}, the serve steps on {device}")
+def _check_params(model: ModelDef, params: dict, device: torch.device,
+                  quantized: bool = False) -> None:
+    """Each pool fp32 ``[stack, 1, S]``, or with ``quantized`` a stored
+    ``{'q': int8 [stack, 1, S], 's': fp32 [stack, 1, ceil(S / 128)]}``, on
+    ``device``'s type."""
+    for name, (stack, tp, flat) in model.global_flat_shapes().items():
+        pool = params[name]
+        if quantized:
+            if not isinstance(pool, dict) or set(pool) != {"q", "s"}:
+                raise ValueError(f"pool {name!r}: quant_gather serves stored int8 pools "
+                                 "{'q', 's'} (quant.quantize_state)")
+            want = {"q": (torch.int8, (stack, tp, flat)),
+                    "s": (torch.float32, (stack, tp, n_blocks(flat)))}
+        else:
+            if isinstance(pool, dict):
+                raise ValueError(f"pool {name!r} is stored int8: serve it with quant_gather")
+            pool, want = {"": pool}, {"": (torch.float32, (stack, tp, flat))}
+        for k, (dtype, shape) in want.items():
+            t = pool[k]
+            if tuple(t.shape) != shape or t.dtype != dtype:
+                raise ValueError(f"pool {name!r}{'.' + k if k else ''}: want {dtype} {shape}, "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+            if t.device.type != device.type:
+                raise ValueError(f"pool {name!r} is on {t.device}, the serve steps on {device}")
 
 
 def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
                       cache_len: int, *, device: str | torch.device = "cuda"):
     """Returns ``(prefill_fn, decode_fn)`` running on ``device``.
 
-    ``prefill_fn(params, batch) -> (logits [b, 1, V], caches)``.
+    ``prefill_fn(params, batch) -> (logits [b, 1, V], caches)``; with
+    ``mcfg.quant_gather`` the params are stored int8 pools
+    (``quant.quantize_state``).
     ``decode_fn(params, caches, tokens, pos, seeds=None, temps=None,
     row_mask=None) -> (logits [b, 1, V], next_tokens [b, 1], caches)`` is
     greedy: the argmax over the real vocab; rows where ``row_mask`` is False
@@ -74,14 +97,14 @@ def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
 
     @torch.inference_mode()
     def prefill_fn(params, batch):
-        _check_params(model, params, dev)
+        _check_params(model, params, dev, mcfg.quant_gather)
         tokens = batch["tokens"].to(dev)
         return lm.prefill(model, params, comm, ctx, {"tokens": tokens})
 
     @torch.inference_mode()
     def decode_fn(params, caches, tokens, pos, seeds=None, temps=None, row_mask=None):
         del seeds  # only the seeded sampler reads them
-        _check_params(model, params, dev)
+        _check_params(model, params, dev, mcfg.quant_gather)
         if temps is not None and bool((torch.as_tensor(temps) > 0).any()):
             raise NotImplementedError(
                 "temperature > 0: the seeded sampler comes with the "

@@ -81,6 +81,30 @@ def collectives() -> dict:
         sync = C.hop2_all_reduce if kind == "hop2" else C.alternative_sync
         fn = lambda g, topo=topo, sync=sync: sync(g, topo)  # noqa: E731
         out[name] = per_device(topo, fn, K.full_input(name))
+    out.update(wire_collectives())
+    return out
+
+
+def wire_collectives() -> dict:
+    """The reference's int8 gather, quantized hop 1 (nearest), quantized
+    hop 2 (nearest) and bf16 hop 2 on the cases of ``K.QWIRES`` / layout B."""
+    from repro.core.comm import CommEngine, GatherPolicy, SyncPolicy
+
+    out = {}
+    for name, (lay, topo_name, inner) in K.QWIRES.items():
+        topo = topology(lay)
+        eng = CommEngine(topo, GatherPolicy(topology=topo_name, wire_dtype="int8", inner=inner),
+                         compute_dtype=jnp.bfloat16)
+        out[f"qgather:{name}"] = per_device(topo, eng.gather_flat,
+                                            K.full_input("qgather:" + lay, K.QLEN))
+        fn = lambda g, topo=topo, t=topo_name, i=inner: C.quantized_reduce_scatter(  # noqa: E731
+            g, topo, topology=t, inner=i, stochastic=False)
+        out[f"qrs:{name}"] = per_device(topo, fn, K.full_input("qrs:" + lay, K.QRS_LEN))
+    topo = topology("B")
+    x = K.full_input("qar", K.QAR_LEN)
+    out["qar"] = per_device(topo, lambda g: C.quantized_all_reduce(g, topo, stochastic=False), x)
+    eng = CommEngine(topo, sync_policy=SyncPolicy(hop2_wire_dtype="bf16"))
+    out["hop2_bf16"] = per_device(topo, eng.hop2, x)
     return out
 
 
@@ -104,6 +128,21 @@ def train() -> dict:
         step = build_train_step(model, topo, MiCSConfig(
             micro_steps=K.MICRO, gather_dtype=JDT[wire], gather_order=order,
             hierarchy_inner=inner), OptConfig(**K.OPT))
+        metrics = []
+        for b in batches:
+            state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        out[f"{name}.metrics"] = np.asarray(metrics, np.float64)
+        for part in ("params", "m", "v"):
+            for k, v in state[part].items():
+                out[f"{name}.{part}.{k}"] = np.asarray(v)
+    # the wires at bf16 gather, nearest rounding
+    for name, (lay, order, inner, kw) in K.WIRE_JAX.items():
+        topo = topology(lay)
+        state = init_state(model, topo, seed=0)
+        step = build_train_step(model, topo, MiCSConfig(
+            micro_steps=K.MICRO, gather_dtype=jnp.bfloat16, gather_order=order,
+            hierarchy_inner=inner, **kw), OptConfig(**K.OPT))
         metrics = []
         for b in batches:
             state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})

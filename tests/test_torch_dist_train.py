@@ -159,7 +159,10 @@ def test_initial_state_does_not_depend_on_the_layout(runs):
 
 
 def _same(got, a: str, b: str) -> bool:
-    keys = [k[len(a) + 1:] for k in got if k.startswith(a + ".")]
+    """Runs ``a`` and ``b`` bitwise equal: metrics and final state (their
+    collective counts may differ by schedule)."""
+    keys = [k[len(a) + 1:] for k in got if k.startswith(a + ".")
+            and k[len(a) + 1:] not in ("calls", "bytes")]
     return bool(keys) and all(np.array_equal(got[f"{a}.{k}"], got[f"{b}.{k}"]) for k in keys)
 
 
@@ -210,6 +213,142 @@ def test_loop_at_layout_B_matches_the_port_at_p1(runs):
     losses and grad norms are the one-rank loop's, within the bf16 TOL."""
     got, _, p1, _ = runs
     _check_metrics(got["loop.whole"][0], p1["loop"], TOL["bf16"])
+
+
+# ---------------------------------------------------------------------------
+# the int8 and bf16 wires
+# ---------------------------------------------------------------------------
+# The wires against the JAX package at the same layout, 2 steps: the bf16
+# hop 2 at the bf16 TOL (the same rounding points); the int8 wires with
+# nearest rounding at 2e-3 relative on the loss (the quantization moves the
+# gradients by up to a step of each block; the two sides' bf16 sums and
+# the reference's jitted scale, absmax x fl(1/127), differ) and 2e-2 on
+# the grad norm.
+WIRE_TOL = {"B:hop2_bf16": TOL["bf16"], "B:hop2_int8": dict(loss=2e-3, grad_norm=2e-2),
+            "A:qwz_qgz": dict(loss=2e-3, grad_norm=2e-2)}
+# The stochastic wires over 4 steps against the fp32 wires' run: the
+# reference's ``int8_hop1_convergence`` bound on the final loss.
+STOCHASTIC_LOSS_RTOL = 0.05
+
+
+@pytest.mark.parametrize("name", list(K.WIRE_JAX))
+def test_wire_steps_match_jax_at_the_same_layout(runs, name):
+    got, want, _, _ = runs
+    metrics = got[f"{name}.metrics"]
+    assert all(np.array_equal(metrics[r], metrics[0]) for r in range(K.WORLD))
+    _check_metrics(metrics[0], want[f"{name}.metrics"], WIRE_TOL[name])
+    if name == "B:hop2_bf16":
+        state = {part: {k.split(".", 2)[2]: want[k] for k in want
+                        if k.startswith(f"{name}.{part}.")} for part in PARTS}
+        _check_state(got, name, _topo("B"), state, TOL["bf16"])
+
+
+def test_hop1_bf16_under_the_bf16_gather_is_the_default_bitwise(runs):
+    """The bf16 gather's cotangent is bf16 already, so the bf16 hop-1 wire
+    is bitwise the default (the reference's ``hop1_bf16_bitwise``)."""
+    assert _same(runs[0], "A:hop1_bf16", "A:bf16")
+
+
+def test_serial_equals_bucketed_under_the_bf16_hop2_bitwise(runs):
+    """A bucket's cast is the cast's bucket: the two boundaries agree
+    bitwise under the bf16 hop 2 (0.01 MB buckets, some across rows), and
+    the bf16 wire rounds the gradient (it is not the fp32 hop 2)."""
+    got = runs[0]
+    assert _same(got, "B:hop2_bf16.serial", "B:hop2_bf16.bucketed")
+    assert not np.array_equal(got["B:hop2_bf16.serial.metrics"], got["B:bf16.serial.metrics"])
+
+
+def test_int8_hop2_bucketed_is_serial_within_quantization_error(runs):
+    """The int8 blocks follow the payload (a pool, or a 0.01 MB bucket), so
+    the two boundaries differ, by less than 0.05 of the loss."""
+    got = runs[0]
+    a, b = got["B:hop2_int8.metrics"][0], got["B:hop2_int8.bucketed.metrics"][0]
+    assert not np.array_equal(a, b)
+    assert np.all(np.abs(a[:, 0] - b[:, 0]) <= 0.05 * np.abs(b[:, 0]))
+
+
+@pytest.mark.parametrize("layout", ["A", "B"])
+def test_stochastic_wires_converge(runs, layout):
+    """Stochastic rounding over 4 steps (A: the int8 gather and hop 1; B:
+    the bf16 hop 1 and int8 hop 2, bucketed): every rank the same finite
+    metrics, the loss falls, and it ends within 0.05 of the fp32 wires'."""
+    got = runs[0]
+    m = got[f"{layout}:stochastic.metrics"]
+    ref = got[f"{layout}:fp32_wires.metrics"][0]
+    assert m.shape == (K.WORLD, K.WIRE_STEPS, 2) and np.isfinite(m).all()
+    assert all(np.array_equal(m[r], m[0]) for r in range(K.WORLD))
+    assert m[0, -1, 0] < m[0, 0, 0]
+    assert abs(m[0, -1, 0] - ref[-1, 0]) <= STOCHASTIC_LOSS_RTOL * abs(ref[-1, 0])
+
+
+def _wire_calls(name: str, case: tuple, steps: int) -> dict:
+    """A rank's collective calls over a wire run (PERF.md §4): each pool
+    row a micro-step, the gather once a stage (twice under the int8 gather:
+    values and scales) and hop 1 once a stage (under the int8 wire two
+    ``all_to_all``); each hop-2 payload (a pool under the serial boundary,
+    a bucket under the bucketed one) a step, one ``all_reduce`` or under
+    the int8 wire two ``all_to_all`` and two ``all_gather``; the norm and
+    the loss means once a step."""
+    from repro_torch.core.schedule import plan_boundary
+
+    lay, _, inner, kw = case
+    model = build_model(smoke_variant(get_config("llama3.2-1b")), tp=1)
+    topo = _topo(lay)
+    rows = sum(p.stack for p in model.all_pools()) * steps * K.MICRO
+    stages = ("outer", "inner") if topo.partition_size == 4 else ("partition",)
+    gathers = 2 if kw.get("quant_gather") else 1
+    calls = {}
+    for st in stages:
+        calls[f"all_gather:{st}"] = gathers * rows
+        if kw.get("hop1_wire_dtype") == "int8":
+            calls[f"all_to_all:{st}"] = 2 * rows
+        else:
+            calls[f"reduce_scatter:{st}"] = rows
+    calls["all_reduce:partition"] = calls["all_reduce:data"] = steps
+    if topo.replication_degree > 1:
+        plan = plan_boundary(model, topo, mode=kw.get("boundary_schedule", "bucketed"),
+                             bucket_mb=kw.get("hop2_bucket_mb", 32.0))
+        payloads = (len(plan.shard_elems) if plan.mode == "serial" else plan.n_buckets) * steps
+        if kw.get("compress_hop2") == "int8":
+            calls["all_to_all:replication"] = calls["all_gather:replication"] = 2 * payloads
+        else:
+            calls["all_reduce:replication"] = payloads
+    return dict(sorted(calls.items()))
+
+
+WIRE_COUNTED = {**{n: (c, K.STEPS) for n, c in {**K.WIRE_JAX, **K.WIRE_PORT}.items()},
+                **{n: (c, K.WIRE_STEPS) for n, c in K.WIRE_LONG.items()}}
+
+
+@pytest.mark.parametrize("name", list(WIRE_COUNTED))
+def test_wire_collective_counts(runs, name):
+    got = runs[0]
+    case, steps = WIRE_COUNTED[name]
+    want = _wire_calls(name, case, steps)
+    for r in range(K.WORLD):
+        assert json.loads(str(got[f"{name}.calls"][r])) == want, r
+
+
+@pytest.mark.parametrize("name,bf16_run,kinds", [
+    ("A:qwz_qgz", "A:bf16", ("all_gather:outer", "all_gather:inner", "all_to_all:outer",
+                             "all_to_all:inner", "reduce_scatter:outer",
+                             "reduce_scatter:inner")),
+    ("B:hop2_int8", "B:bf16.serial", ("all_to_all:replication", "all_gather:replication",
+                                      "all_reduce:replication")),
+])
+def test_int8_wire_bytes(runs, name, bf16_run, kinds):
+    """The int8 legs (values and scales together) count at most 0.55 of
+    the bytes a bf16 wire carries for the same payloads (1 + 4/128 B
+    against 2 B a value): at A against the bf16 gather and hop 1 of the
+    same steps; at B against the fp32 hop 2 of the same payloads, whose one
+    all-reduce is counted at 4 B a value, the bf16 wire's two legs' 2 B
+    each."""
+    got = runs[0]
+    for r in range(K.WORLD):
+        mine = json.loads(str(got[f"{name}.bytes"][r]))
+        ref = json.loads(str(got[f"{bf16_run}.bytes"][r]))
+        ours, theirs = (sum(b.get(k, 0) for k in kinds) for b in (mine, ref))
+        assert 0 < ours <= 0.55 * theirs, (r, ours, theirs)
 
 
 def test_griffin_step_at_layout_A_matches_p1(runs):

@@ -55,7 +55,9 @@ def test_import_all_modules_leaves_no_jax():
     assert res["n"] >= 19 and res["bad"] == []
     for m in ("repro_torch.models.recurrent", "repro_torch.kernels.rglru",
               "repro_torch.kernels.rglru.kernel", "repro_torch.configs.recurrentgemma_2b",
-              "repro_torch.core.collectives", "repro_torch.launch.mesh"):
+              "repro_torch.core.collectives", "repro_torch.launch.mesh",
+              "repro_torch.core.quant", "repro_torch.kernels.quant",
+              "repro_torch.kernels.quant.kernel"):
         assert m in mods
 
 
@@ -89,12 +91,18 @@ def test_later_slices_raise():
     # refuse to build without them
     with pytest.raises(ValueError, match="MiCSGroups"):
         CommEngine(MiCSTopology(shard=4))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        CommEngine(MiCSTopology(), GatherPolicy(wire_dtype="int8"))
     with pytest.raises(ValueError, match="MiCSGroups"):
         CommEngine(MiCSTopology(model=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        CommEngine.from_config(MiCSTopology(), MiCSConfig(hop1_wire_dtype="bf16"))
+    # the int8 and bf16 wires (Queue 1 item 4) build; unknown wires do not
+    assert CommEngine(MiCSTopology(), GatherPolicy(wire_dtype="int8")).gather_out_dtype() \
+        == torch.bfloat16
+    for kw in (dict(hop1_wire_dtype="bf16"), dict(hop1_wire_dtype="int8"),
+               dict(compress_hop2="int8"), dict(quant_gather=True)):
+        CommEngine.from_config(MiCSTopology(), MiCSConfig(**kw))
+    for kw in (dict(hop1_wire_dtype="fp16"), dict(compress_hop2="int4"),
+               dict(grad_rounding="down")):
+        with pytest.raises(ValueError):
+            MiCSConfig(**kw)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         build_serve_steps(build_model(get_config("llama3.2-1b"), tp=1),
                           MiCSTopology(repl=2, shard=2), MiCSConfig(), 24, device="cpu")

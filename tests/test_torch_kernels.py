@@ -567,3 +567,31 @@ def test_cuda_flash_bwd_matches_plain(cuda_device, shape, kw, dt):
         assert torch.equal(got, rep), f"{what}: not bitwise repeatable"
         assert got.dtype == tdt and got.shape == ref.shape
         _rel_close(got, ref, BWD_REL[dt], what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(1,), (3, 127), (5, 129), (2, 684), (4, 4096), (3, 4, 301)])
+def test_cuda_quantizer_matches_plain_bitwise(cuda_device, shape, dt):
+    """The int8 quantizer's kernels (``csrc/quant.cu``) against their plain
+    versions, bitwise: ragged and aligned rows, nearest and stochastic
+    rounding (a host step and a device fingerprint), dequantize to fp32
+    and bf16 and an exchange stage's chunk sum."""
+    from repro_torch.core.quant import dither_key
+    from repro_torch.kernels.quant import kernel as QK
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = (3 * torch.randn(shape, generator=gen, device=cuda_device)).to(DTYPES[dt][1])
+    if shape[-1] >= 256:
+        x[..., :128] = 0
+    fp = torch.tensor(-5, dtype=torch.int32, device=cuda_device)
+    for key in (None, dither_key(1, 2, 3, 4), dither_key(1, 2, 3, fp)):
+        q, s = QK.quantize(x, key)
+        qp, sp = QK.quantize_plain(x, key)
+        assert torch.equal(q, qp) and torch.equal(s, sp)
+        for od in (torch.float32, torch.bfloat16):
+            assert torch.equal(QK.dequantize(q, s, od), QK.dequantize_plain(q, s, od))
+        if len(shape) == 2 and shape[0] > 1:
+            k = shape[0]
+            assert torch.equal(QK.dequantize(q, s, torch.float32, chunks=k),
+                               QK.dequantize_plain(q, s, torch.float32, chunks=k))

@@ -301,11 +301,18 @@ def test_serve_cli_cpu(arch):
 
 
 @pytest.mark.parametrize("flag", [["--continuous"], ["--policy", "auto"], ["--quant-gather"]])
-def test_serve_cli_refuses_later_slices(flag):
+def test_serve_cli_refuses_later_slices(flag, capsys):
+    """The later slices' flags are refused; ``--quant-gather`` (the int8
+    wire slice) now serves from stored int8 weights."""
     from repro_torch.launch.serve import main
 
+    argv = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", *flag]
+    if flag == ["--quant-gather"]:
+        main([*argv, "--decode-tokens", "2"])
+        assert "int8 weights" in capsys.readouterr().out
+        return
     with pytest.raises(SystemExit) as ei:
-        main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", *flag])
+        main(argv)
     assert ei.value.code == 2
 
 

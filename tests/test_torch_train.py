@@ -197,11 +197,6 @@ def test_same_step_twice_is_bitwise_equal(setup):
 REFUSED = {
     "policy": dict(policy="auto"),
     "hbm_budget_gb": dict(hbm_budget_gb=40.0),
-    "hop1_bf16": dict(hop1_wire_dtype="bf16"),
-    "hop1_int8": dict(hop1_wire_dtype="int8"),
-    "compress_hop2": dict(compress_hop2=True),
-    "hop2_int8": dict(compress_hop2="int8"),
-    "quant_gather": dict(quant_gather=True),
     "scores_bf16": dict(scores_bf16=True),
 }
 # Knobs a slice lifted: they keep their ids below and now build a step whose
@@ -209,8 +204,15 @@ REFUSED = {
 # (ROADMAP Queue 1 item 2): the gather topology and the sync mode (at p = 1
 # they move nothing).  The one-card training knobs (item 3): the remat and
 # host carries, host-resident moments and the approximate clip
-# (tests/test_torch_knobs.py holds what they compute).
+# (tests/test_torch_knobs.py holds what they compute).  The int8 and bf16
+# wires (item 4; tests/test_torch_quant.py, test_torch_collectives.py and
+# test_torch_dist_train.py hold what they compute).
 LIFTED = {
+    "hop1_bf16": (dict(hop1_wire_dtype="bf16"), "wires", "hop1", "bf16"),
+    "hop1_int8": (dict(hop1_wire_dtype="int8"), "wires", "hop1", "int8"),
+    "compress_hop2": (dict(compress_hop2=True), "wires", "hop2", "bf16"),
+    "hop2_int8": (dict(compress_hop2="int8"), "wires", "hop2", "int8"),
+    "quant_gather": (dict(quant_gather=True), "wires", "gather", "int8"),
     "sync_mode": (dict(sync_mode="allreduce_slice"), "sync", "mode", "allreduce_slice"),
     "no_hierarchical": (dict(hierarchical=False), "gather", "topology", "flat"),
     "outer_first": (dict(gather_order="outer_first"), "gather", "topology", "outer_first"),

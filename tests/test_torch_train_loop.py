@@ -146,3 +146,29 @@ def test_launcher_trains_with_the_knobs(tmp_path, carry):
     assert lines[-1].startswith("final loss ") and "over 2 steps on cpu" in lines[-1]
     assert np.isfinite(float(lines[-1].split()[2]))
     assert Checkpointer(tmp_path / "ck").latest_step() == 2
+
+
+WIRE_FLAGS = {
+    "int8": (["--quant-gather", "--hop1-wire-dtype", "int8", "--compress-hop2", "int8",
+              "--grad-rounding", "nearest"],
+             "wires: gather int8, hop 1 int8, hop 2 int8, int8 rounding nearest"),
+    "bf16": (["--hop1-wire-dtype", "bf16", "--compress-hop2", "bf16"],
+             "wires: gather bf16, hop 1 bf16, hop 2 bf16, int8 rounding stochastic"),
+}
+
+
+@pytest.mark.parametrize("wire", list(WIRE_FLAGS))
+def test_launcher_trains_with_the_wires(tmp_path, wire):
+    """The int8 and bf16 wires from the command line (at p = 1: the int8
+    gather is the cast to bf16, the bf16 hop 2 rounds the gradient): 2
+    steps of the smoke model; the launcher's line names the wires."""
+    flags, line = WIRE_FLAGS[wire]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b", "--smoke",
+         "--device", "cpu", "--steps", "2", "--checkpoint-dir", str(tmp_path / "ck"), *flags],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert line in lines, out.stdout
+    assert lines[-1].startswith("final loss ") and np.isfinite(float(lines[-1].split()[2]))

@@ -65,6 +65,40 @@ SYNCS = {"hop2@B": ("hop2", "B"), "alternative_sync@A": ("alternative_sync", "A"
          "alternative_sync@B": ("alternative_sync", "B")}
 
 
+# ---------------------------------------------------------------------------
+# the int8 and bf16 wires
+# ---------------------------------------------------------------------------
+
+QBLOCK = 128
+# qwZ gathers (nearest rounding) and the quantized hop 1, by layout and
+# topology: name -> (layout, topology, inner).  A gather's shard is
+# [QLEN] (3 quantization blocks); a reduce-scatter's full cotangent is
+# [QRS_LEN], so its chunks end in ragged blocks at every stage.
+QLEN = 3 * QBLOCK
+QRS_LEN = 1000
+QWIRES = {f"{topo}@{lay}": (lay, topo, inner)
+          for lay, topo, inner in (("A", "flat", None), ("A", "inner_first", 2),
+                                   ("A", "outer_first", 2), ("B", "inner_first", None),
+                                   ("Z3", "inner_first", None), ("Z3", "outer_first", None))}
+# Every stage of these sums 2 chunks (bitwise the reference's in any
+# order); flat@A sums 4 in one stage.
+QRS_BITWISE = tuple(n for n in QWIRES if n != "flat@A")
+# grid-exact data: rank 0 holds integers with each block's absmax 127
+# (scale 1, so the quantizer loses nothing), the other ranks zeros
+GRID_LEN = 4 * 4096
+# hop 2 on the int8 and bf16 wires at layout B: a payload that does not
+# divide over the 2 replicas
+QAR_LEN = 1001
+
+
+def grid_input() -> np.ndarray:
+    rng = np.random.default_rng(3)
+    out = np.zeros((WORLD, GRID_LEN), np.float32)
+    out[0] = rng.integers(-127, 128, size=GRID_LEN)
+    out[0, ::QBLOCK] = 127.0
+    return out
+
+
 def gather_input(name: str) -> np.ndarray:
     """``[WORLD, *local shape]`` fp32: rank r's shard at row r (the same for
     every gather of one layout and shape)."""
@@ -98,6 +132,50 @@ TRAINS = {f"{lay}:{wire}": (lay, order, inner, wire)
           for lay, order, inner in (("A", "outer_first", 2), ("B", "inner_first", None),
                                     ("Z3", "inner_first", None))
           for wire in ("fp32", "bf16")}
+
+
+# The wires in training, bf16 gather: name -> (layout, gather_order,
+# hierarchy_inner, MiCSConfig overrides).  ``WIRE_JAX`` runs are held to
+# the JAX package at the same layout (nearest rounding: the stochastic
+# dither cannot match the reference's threefry bits), the rest are the
+# port against itself: ``A:hop1_bf16`` against ``A:bf16`` (bitwise), the
+# bucketed boundary against the serial one, and the stochastic wires over
+# ``WIRE_STEPS`` steps against the fp32 wires' run of as many steps.
+WIRE_BUCKET_MB = 0.01
+WIRE_JAX = {
+    "B:hop2_bf16": ("B", "inner_first", None, {"compress_hop2": "bf16"}),
+    "B:hop2_int8": ("B", "inner_first", None, {"compress_hop2": "int8",
+                                               "grad_rounding": "nearest",
+                                               "boundary_schedule": "serial"}),
+    "A:qwz_qgz": ("A", "outer_first", 2, {"quant_gather": True, "hop1_wire_dtype": "int8",
+                                          "grad_rounding": "nearest"}),
+}
+WIRE_STEPS = 4
+WIRE_PORT = {
+    "A:hop1_bf16": ("A", "outer_first", 2, {"hop1_wire_dtype": "bf16"}),
+    "B:hop2_bf16.serial": ("B", "inner_first", None, {
+        "compress_hop2": "bf16", "boundary_schedule": "serial",
+        "hop2_bucket_mb": WIRE_BUCKET_MB}),
+    "B:hop2_bf16.bucketed": ("B", "inner_first", None, {
+        "compress_hop2": "bf16", "hop2_bucket_mb": WIRE_BUCKET_MB}),
+    "B:hop2_int8.bucketed": ("B", "inner_first", None, {
+        "compress_hop2": "int8", "grad_rounding": "nearest",
+        "hop2_bucket_mb": WIRE_BUCKET_MB}),
+}
+# stochastic rounding, WIRE_STEPS steps each
+WIRE_LONG = {
+    "A:stochastic": ("A", "outer_first", 2, {"quant_gather": True, "hop1_wire_dtype": "int8"}),
+    "A:fp32_wires": ("A", "outer_first", 2, {}),
+    "B:stochastic": ("B", "inner_first", None, {"hop1_wire_dtype": "bf16",
+                                                "compress_hop2": "int8"}),
+    "B:fp32_wires": ("B", "inner_first", None, {}),
+}
+
+
+def wire_batches(steps: int) -> list[dict[str, np.ndarray]]:
+    """``steps`` global batches: :func:`train_batches`, repeated."""
+    base = train_batches()
+    return [base[i % len(base)] for i in range(steps)]
 
 
 # The one-card training knobs over ranks (``torch_dist_harness.py knobs``),

@@ -109,12 +109,68 @@ def collectives(world: World, device: str) -> dict:
         out[f"engine.{topo_name}.calls"] = np.asarray(
             [snap["calls"].get(f"{k}:{s}", 0) for k in ("all_gather", "reduce_scatter")
              for s in ("partition", "outer", "inner")])
+    out.update(_wire_collectives(world, device))
     return out
 
 
-def _train_run(world: World, name: str, init: dict, *, device: str = "cpu", **mcfg_kw):
-    """STEPS steps of case ``name`` from the JAX initial state (this rank's
-    shards), each rank on its data slice; ``mcfg_kw`` overrides."""
+def _wire_collectives(world: World, device: str) -> dict:
+    """The int8 and bf16 wires' collectives (``K.QWIRES``, grid data, hop 2
+    at B) and one int8 gather with its int8 adjoint through the engine."""
+    import json
+
+    from repro_torch.core import collectives as C
+    from repro_torch.core.comm import CommEngine, GatherPolicy, SyncPolicy
+
+    r, out = world.rank, {}
+    for name, (lay, topo_name, inner) in K.QWIRES.items():
+        topo, g = _topology(lay), world.groups(lay, inner)
+        eng = CommEngine(topo, GatherPolicy(topology=topo_name, wire_dtype="int8", inner=inner),
+                         groups=g)
+        row = torch.from_numpy(K.full_input("qgather:" + lay, K.QLEN)[r]).to(device)
+        full = eng.gather_flat(row)
+        assert full.dtype == torch.bfloat16
+        out[f"qgather:{name}"] = _np(full)
+        ct = torch.from_numpy(K.full_input("qrs:" + lay, K.QRS_LEN)[r]).to(device)
+        kw = dict(topology=topo_name, inner=inner)
+        out[f"qrs:{name}"] = _np(C.quantized_reduce_scatter(ct, topo, g, stochastic=False, **kw))
+        grid = torch.from_numpy(K.grid_input()[r]).to(device)
+        out[f"qgrid:{name}"] = _np(C.quantized_reduce_scatter(grid, topo, g, **kw))
+        out[f"qgrid_seeded:{name}"] = _np(C.quantized_reduce_scatter(grid, topo, g, seed=3,
+                                                                     **kw))
+    topo, g = _topology("B"), world.groups("B")
+    v = torch.from_numpy(K.full_input("qar", K.QAR_LEN)[r]).to(device)
+    out["qar"] = _np(C.quantized_all_reduce(v, topo, g, stochastic=False))
+    w = v.clone()
+    C.quantized_all_reduce(w, topo, g, stochastic=False, out=w, async_op=True).wait()
+    out["qar.async"] = _np(w)
+    eng = CommEngine(topo, sync_policy=SyncPolicy(hop2_wire_dtype="bf16"), groups=g)
+    out["hop2_bf16"] = _np(eng.hop2_(v.clone()))
+    w = v.clone()
+    eng.hop2_(w, async_op=True).wait()
+    out["hop2_bf16.async"] = _np(w)
+    # one qwZ gather and its qgZ adjoint (nearest) at A outer_first, counted
+    topo, g = _topology("A"), world.groups("A", 2)
+    eng = CommEngine(topo, GatherPolicy(topology="outer_first", wire_dtype="int8", inner=2),
+                     SyncPolicy(hop1_wire_dtype="int8", grad_rounding="nearest"), groups=g)
+    row = torch.from_numpy(K.full_input("qgather:A", K.QLEN)[r]).to(device).requires_grad_(True)
+    full = eng.gather_flat(row)
+    ct = torch.from_numpy(K.full_input("qengine_ct", 4 * K.QLEN)[r]).to(device, torch.bfloat16)
+    (grad,) = torch.autograd.grad(full, row, ct)
+    out["qengine.grad"] = _np(grad)
+    snap = eng.counter.snapshot()
+    out["qengine.calls"] = np.asarray(json.dumps(snap["calls"]))
+    out["qengine.bytes"] = np.asarray(json.dumps(snap["bytes"]))
+    return out
+
+
+def _train_run(world: World, name: str, init: dict, *, device: str = "cpu",
+               batches=None, **mcfg_kw):
+    """The steps of case ``name`` (``K.TRAINS``) on ``batches`` (default
+    ``K.train_batches()``) from the JAX initial state (this rank's shards),
+    each rank on its data slice; ``mcfg_kw`` overrides.  ``calls``: the
+    step's collective counts over the run (JSON)."""
+    import json
+
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.convert import shard_from_jax
     from repro_torch.core.mics import MiCSConfig, build_train_step
@@ -129,10 +185,13 @@ def _train_run(world: World, name: str, init: dict, *, device: str = "cpu", **mc
                     hierarchy_inner=inner, **mcfg_kw)
     step = build_train_step(model, topo, mc, OptConfig(**K.OPT), device=device, groups=g)
     dr, metrics = topo.data_rank(world.rank), []
-    for b in K.train_batches():
+    for b in K.train_batches() if batches is None else batches:
         state, m = step(state, K.data_slice(b, dr, topo.data_parallel_size))
         metrics.append((m["loss"].item(), m["grad_norm"].item()))
-    out = {"metrics": np.asarray(metrics, np.float64)}
+    snap = step.comm.counter.snapshot()
+    out = {"metrics": np.asarray(metrics, np.float64),
+           "calls": np.asarray(json.dumps(snap["calls"])),
+           "bytes": np.asarray(json.dumps(snap["bytes"]))}
     for part in ("params", "m", "v"):
         for k, v in state[part].items():
             out[f"{part}.{k}"] = _np(v)
@@ -185,6 +244,13 @@ def train(world: World, out_dir: pathlib.Path) -> dict:
     for sched in ("serial", "bucketed"):
         out.update(_prefixed(f"B:bf16.{sched}", _train_run(
             world, "B:bf16", init, boundary_schedule=sched, hop2_bucket_mb=0.01)))
+    # the wires: against the JAX package (nearest rounding), the port
+    # against itself, and the stochastic wires over more steps
+    for cases, batches in ((K.WIRE_JAX, None), (K.WIRE_PORT, None),
+                           (K.WIRE_LONG, K.wire_batches(K.WIRE_STEPS))):
+        for name, (lay, _, _, kw) in cases.items():
+            out.update(_prefixed(name, _train_run(world, f"{lay}:bf16", init, batches=batches,
+                                                  **kw)))
     # the Fig-14 ablation: the full gradient all-reduced over every data
     # rank each micro-step, hop 2 skipped
     out.update(_prefixed("B:fp32.allreduce_slice", _train_run(
