@@ -141,11 +141,31 @@ check raises and the script exits non-zero; no phase swallows an error):
    rounding as ``dist_wire_expected``; the int8 legs' counted bytes (values
    and scales) at most 0.55 of a bf16 wire's for the same payloads.  Each
    rank's ``step_ms``, host seconds in collectives and ``peak_gb``.
+3d. ``dist_elastic``: the elastic, fault-tolerant loop, run by the same 4
+   worker processes after the wires: llama3.2-1b at full width cut to 2
+   layers, dist_train's seed and OptConfig, one micro-step of 4 x 2048
+   tokens a step, bf16 gather, through
+   ``runtime/train_loop.train`` with a ``FaultPlan`` and ``ElasticConfig()``
+   from layout B (p 2 x 2 replicas), an async checkpoint every 2 steps, 5
+   steps.  Steps 0-2 run on 4 ranks; at 3 ranks 2-3 are lost abruptly and
+   the run rolls back to the step-2 checkpoint; steps 2-3 run on ranks 0-1
+   (the keep rule: p 2, one replica; ranks 2-3 parked); at 4 they come back
+   with notice (an emergency save at 4) and step 4 runs on 4 ranks.  Every
+   rank's ledger must be ``ELASTIC_LEDGER``, the batches it fetched
+   ``ELASTIC_CURSORS`` (ranks 0-1: 6 losses, one emergency save), and each
+   world's losses and the state it checkpointed at its end bitwise a cold
+   ``elastic_restart`` of the checkpoint it resumed from, on the same
+   topology; each rank's launches the train path's a micro-step x
+   micro-steps x the steps it ran.  It prints the ledger with each
+   rebuild's seconds (groups, step function, restore), each save's seconds
+   blocked against its writer's, the checkpoint's GB, each rank's step
+   times, ``peak_gb`` and launches.
 4. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
    library call's where there is one, and the card's bound for the same
    work; ``launches`` sums the serve runs, the train runs, the
-   ``train_knobs`` variants and every rank of ``dist_train``.  Attention also
+   ``train_knobs`` variants and every rank of ``dist_train``, ``dist_wires``
+   and ``dist_elastic``.  Attention also
    runs at the tile edges of each route (fp32 cases take the ``fma``
    route), each check records its route and is called twice for a
    bitwise-equal output, prefill checks give their achieved TFLOP/s, and
@@ -341,8 +361,8 @@ def read_counts() -> dict:
 
 # The phase clock: each phase line's ``seconds`` is the time since the line
 # before it (or since the script's start), unless the phase timed itself;
-# the ``summary`` line lists them.
-PHASE_CLOCK = {"last": None, "lines": []}
+# the ``summary`` line lists them.  ``start`` is the script's start.
+PHASE_CLOCK = {"start": None, "last": None, "lines": []}
 
 
 def emit(obj) -> None:
@@ -1292,7 +1312,13 @@ def train_profile(path: TrainPath, dev, timed_steps: int = 3):
 # -- the multi-rank MiCS step ------------------------------------------------
 
 DIST_WORLD = 4
-DIST_TIMEOUT_S = 600          # every process group's; the workers' whole run below
+DIST_TIMEOUT_S = 600          # every process group's: a collective waiting this long fails
+# The workers' whole run (dist_train, dist_wires, dist_elastic) may take
+# what the script's limit leaves once the phases after it (digest, kernels:
+# ≈ 45 s) have their share: its gloo steps follow the host's speed, and a
+# deadline of its own would fail a slow host that still ends in time.
+SCRIPT_LIMIT_S = 1200
+AFTER_DIST_S = 120
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1604,6 +1630,157 @@ def dist_wire_run(wr: WireRun, groups, rank: int, dev, ref_m: pathlib.Path) -> d
     return out
 
 
+# -- the elastic loop over the same 4 ranks (dist_elastic) -----------------------
+
+# llama3.2-1b at full width cut to 2 layers, dist_train's seed and
+# OptConfig, one micro-step of 4 x 2048 tokens a step (half of dist_train's
+# 2: with 2 the phase took 114-125 s of its 120 s budget on the H100),
+# bf16 gather, starting at layout B (p 2 x 2 replicas), an async checkpoint
+# every 2 steps, 5 steps.  The plan: steps 0-2 on 4 ranks; at 3 ranks 2-3
+# are lost abruptly (the run rolls back to the step-2 checkpoint); steps
+# 2-3 on ranks 0-1 (the keep rule: p 2, one replica); at 4 they come back
+# with notice (an emergency save at 4); step 4 on 4 ranks.
+ELASTIC_LAYERS = 2
+ELASTIC_STEPS = 5
+ELASTIC_EVERY = 2
+ELASTIC_MICRO_STEPS = 1
+ELASTIC_GLOBAL_BATCH = 4
+ELASTIC_PLAN = (("preempt", 3, {"devices": 2, "notice": False}), ("grow", 4, {"devices": 2}))
+ELASTIC_LEDGER = [
+    {"at_step": 3, "kind": "preempt", "lost": 2, "gained": 0, "notice": False, "world": 2,
+     "resumed_step": 2, "rule": "keep", "carry": "stored", "partition_size": 2,
+     "data_extent": 2, "tp": 1, "n_devices": 2},
+    {"at_step": 4, "kind": "grow", "lost": 0, "gained": 2, "notice": True, "world": 4,
+     "resumed_step": 4, "rule": "keep", "carry": "stored", "partition_size": 2,
+     "data_extent": 4, "tp": 1, "n_devices": 4}]
+# the batches each rank fetched (the one fetched when a fault fires is
+# fetched again, none is skipped) and the steps it ran
+ELASTIC_CURSORS = [[0, 1, 2, 3, 2, 3, 4, 4]] * 2 + [[0, 1, 2, 3, 4]] * 2
+ELASTIC_STEPS_RUN = [6, 6, 4, 4]
+
+
+def elastic_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models.build import build_model
+
+    return build_model(dataclasses.replace(get_config("llama3.2-1b"),
+                                           n_layers=ELASTIC_LAYERS), tp=1)
+
+
+def world_losses(losses: list, ledger: list, rank: int) -> list[list]:
+    """``rank``'s losses of each world after a change (the steps from its
+    ``resumed_step`` to the next change or the end), [] where the rank was
+    parked: they are the last of its losses, in order."""
+    ends = [e["at_step"] for e in ledger[1:]] + [ELASTIC_STEPS]
+    out, i = [], len(losses)
+    for e, end in reversed(list(zip(ledger, ends))):
+        n = end - e["resumed_step"] if rank < e["world"] else 0
+        out.append(losses[i - n:i])
+        i -= n
+    return out[::-1]
+
+
+def dist_elastic_run(rank: int, dev, out_dir: pathlib.Path, backend: str, timeout) -> dict:
+    """One rank of ``dist_elastic``: ``runtime/train_loop.train`` with the
+    ``ELASTIC_PLAN`` fault plan and ``ElasticConfig()`` over the launch
+    world's 4 ranks; the launch counters set to 0 just before and read
+    just after.  Then each world after a change again, cold: the same
+    ``resize_for_world``, ``elastic_restart`` of the checkpoint it resumed
+    from and its steps, against the loop's losses and the state it
+    checkpointed at the world's end, bitwise."""
+    import json
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpointer import MANIFEST, Checkpointer
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import MiCSGroups
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime import train_loop as TL
+
+    layout = next(lay for lay in DIST_LAYOUTS if lay.name == "B")
+    path, model, topo = dist_train_path(layout), elastic_model(), dist_topology(layout)
+    mcfg = MiCSConfig(micro_steps=ELASTIC_MICRO_STEPS)   # bf16, prefetch, bucketed, exact
+    oc = OptConfig(warmup_steps=0, total_steps=path.steps)
+    dc = DataConfig(vocab=model.cfg.vocab, seq=path.seq, global_batch=ELASTIC_GLOBAL_BATCH,
+                    micro_steps=ELASTIC_MICRO_STEPS)
+    ckdir = out_dir / "ck_elastic"
+    lc = TL.LoopConfig(total_steps=ELASTIC_STEPS, checkpoint_every=ELASTIC_EVERY,
+                       checkpoint_dir=str(ckdir), log_every=0, seed=0)
+    plan = FaultPlan()
+    for kind, at, kw in ELASTIC_PLAN:
+        getattr(plan, kind)(at, **kw)
+    fetched = []
+
+    class RecordingLM(SyntheticLM):
+        def host_step_batch(self, step, host_index, host_count):
+            fetched.append(int(step))
+            return super().host_step_batch(step, host_index, host_count)
+
+    groups = MiCSGroups(topo, rank, backend=backend, timeout=timeout)
+    TL.SyntheticLM = RecordingLM
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        stats = TL.train(model, topo, mcfg, oc, dc, lc, device=dev, groups=groups,
+                         fault_injector=plan, elastic=TL.ElasticConfig())
+    finally:
+        TL.SyntheticLM = SyntheticLM
+    torch.cuda.synchronize()
+    out = {"loop_s": time.perf_counter() - t0, "launches": read_counts(), **route_tables(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": stats.losses,
+           "grad_norms": stats.grad_norms, "cursors": fetched,
+           "step_ms_all": [t * 1e3 for t in stats.step_times], "restarts": stats.restarts,
+           "emergency_saves": stats.emergency_saves, "save_failures": stats.save_failures,
+           "ledger": stats.world_changes, "saves": stats.saves, "cold": []}
+    if rank == 0:
+        out["checkpoint_gb"] = sum(f.stat().st_size for f in (
+            ckdir / f"step_{ELASTIC_STEPS:08d}").iterdir()) / 1e9
+    in_loop = world_losses(stats.losses, stats.world_changes, rank)
+    p_prev = topo.partition_size
+    torch.cuda.reset_peak_memory_stats()
+    for entry, losses in zip(stats.world_changes, in_loop):
+        t0 = time.perf_counter()
+        topo_n, _ = TL.resize_for_world(mcfg, entry["world"], tp=1, partition_size=p_prev,
+                                        available=DIST_WORLD)
+        p_prev = topo_n.partition_size
+        g = MiCSGroups(topo_n, rank, backend=backend, timeout=timeout)
+        cold = {"world": entry["world"], "from_step": entry["resumed_step"], "losses": []}
+        if not g.parked:
+            _, state, step_fn, meta = TL.elastic_restart(
+                str(ckdir), model.cfg, topo_n, mcfg, oc, entry["resumed_step"], device=dev,
+                groups=g)
+            src = SyntheticLM(dc)
+            for c in range(meta["data_cursor"], meta["data_cursor"] + len(losses)):
+                state, m = step_fn(state, src.host_step_batch(c, topo_n.data_rank(rank),
+                                                              topo_n.data_parallel_size))
+                cold["losses"].append(m["loss"].item())
+            end = entry["resumed_step"] + len(losses)
+            saved = json.loads((ckdir / f"step_{end:08d}" / MANIFEST).read_text())
+            kept, _ = Checkpointer(ckdir).restore(model, end, topo=topo_n, rank=rank, device=dev)
+            cold.update(end_step=end, end_saved_by_world=saved["world_size"],
+                        losses_bitwise=cold["losses"] == losses,
+                        state_bitwise=saved["world_size"] == entry["world"] and all(
+                            torch.equal(kept[part][k], state[part][k])
+                            for part in ("params", "m", "v") for k in state[part]))
+            del state, step_fn, kept
+        dist.barrier()
+        g.release()
+        torch.cuda.empty_cache()
+        cold["seconds"] = time.perf_counter() - t0
+        out["cold"].append(cold)
+    out["cold_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ckdir)
+    return out
+
+
 def route_tables() -> dict:
     """The launch counters' tables by route and form, copied, under the
     keys of a dist_train line."""
@@ -1622,7 +1799,8 @@ def dist_worker(args) -> int:
     """One rank of ``dist_train`` (``--dist-worker``): each layout through
     ``runtime/train_loop.train`` over the ranks' process groups, then on
     layout A one gather of the embedding row under each gather topology;
-    then ``dist_wires``'s runs on layouts A's and B's groups.  Writes
+    then ``dist_wires``'s runs on layouts A's and B's groups; then
+    ``dist_elastic``'s run (:func:`dist_elastic_run`).  Writes
     ``rank<r>.json`` into ``--dist-out``."""
     import datetime
     import shutil
@@ -1706,6 +1884,9 @@ def dist_worker(args) -> int:
         result["wires"][wr.name] = dist_wire_run(wr, kept[wr.base], rank, dev,
                                                  out_dir / WIRE_REF_M)
     result["wires_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result["elastic"] = dist_elastic_run(rank, dev, out_dir, args.dist_backend, timeout)
+    result["elastic_s"] = time.perf_counter() - t0
     (out_dir / f"rank{rank}.json").write_text(json.dumps(result))
     dist.barrier()
     dist.destroy_process_group()
@@ -1813,12 +1994,14 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
                 [sys.executable, str(pathlib.Path(__file__).resolve()), "--dist-worker",
                  "--dist-backend", backend, "--dist-out", str(out_dir)],
                 env=env, stdout=log, stderr=subprocess.STDOUT), log))
-        deadline = time.monotonic() + DIST_TIMEOUT_S
+        deadline = PHASE_CLOCK["start"] + SCRIPT_LIMIT_S - AFTER_DIST_S
         failed = []
         while not failed and any(p.poll() is None for p, _ in procs):
-            if time.monotonic() > deadline:
-                raise AssertionError(f"dist_train: the ranks did not finish in "
-                                     f"{DIST_TIMEOUT_S} s")
+            if time.perf_counter() > deadline:
+                raise AssertionError(
+                    f"dist_train: the ranks had not finished {SCRIPT_LIMIT_S - AFTER_DIST_S} s "
+                    f"into the script (its limit {SCRIPT_LIMIT_S} s less {AFTER_DIST_S} s for "
+                    f"the phases after them)")
             failed = [r for r, (p, _) in enumerate(procs) if p.poll() not in (None, 0)]
             time.sleep(0.5)
         failed = failed or [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
@@ -1907,17 +2090,23 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
     launches = {k: sum(rk["layouts"][lay.name]["launches"][k] for rk in ranks
                        for lay in DIST_LAYOUTS) for k in want_launches}
     wires_s = max(rk["wires_s"] for rk in ranks)
+    elastic_s = max(rk["elastic_s"] for rk in ranks)
     wire_lines, wire_launches = dist_wire_checks(ranks, refs[WIRE_REFERENCE], backend, cards)
+    elastic_line, elastic_launches = dist_elastic_checks(ranks)
     line = {"phase": "dist_train", "arch": sorted({lay.arch for lay in DIST_LAYOUTS}),
             "device_count": cards,
             "backend": backend, "ranks": DIST_WORLD,
             "ranks_per_card": DIST_WORLD // min(cards, DIST_WORLD),
-            "layouts": lines, "workers_s": workers_s - wires_s,
-            "seconds": time.perf_counter() - t_phase - wires_s, "gpu": card}
+            "layouts": lines, "workers_s": workers_s - wires_s - elastic_s,
+            "seconds": time.perf_counter() - t_phase - wires_s - elastic_s, "gpu": card}
     emit(line)
     emit({"phase": "dist_wires", "arch": "llama3.2-1b", "layers": WIRE_LAYERS,
           "device_count": cards, "backend": backend, "ranks": DIST_WORLD,
           "runs": wire_lines, "seconds": wires_s, "gpu": card})
+    emit({"phase": "dist_elastic", **elastic_line, "device_count": cards, "backend": backend,
+          "step_ms_label": ("nccl, one card a rank" if backend == "nccl" else
+                            f"gloo over host, {DIST_WORLD} ranks on {cards} card(s)"),
+          "seconds": elastic_s, "gpu": card})
     shutil.rmtree(out_dir)
     # for the kernel table: the launches summed over ranks and layouts
     by_route = {key: {} for key in ("attention_launches_by_route",
@@ -1926,16 +2115,79 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
     by_form = {"forward": {}, "backward": {}}
     for rk in ranks:
         for got in [rk["layouts"][lay.name] for lay in DIST_LAYOUTS] + [
-                rk["wires"][wr.name] for wr in DIST_WIRES]:
+                rk["wires"][wr.name] for wr in DIST_WIRES] + [rk["elastic"]]:
             for key, table in by_route.items():
                 for route, n in got[key].items():
                     table[route] = table.get(route, 0) + n
             for way, table in by_form.items():
                 for form, n in got["rglru_launches_by_form"][way].items():
                     table[form] = table.get(form, 0) + n
-    # the route tables cover the wire runs too; their launches stand apart
+    # the route tables cover the wire and elastic runs too; their launches
+    # stand apart
     return {"arch": "dist_train", "launches": launches, **by_route,
-            "rglru_launches_by_form": by_form, "wires_launches": wire_launches}
+            "rglru_launches_by_form": by_form, "wires_launches": wire_launches,
+            "elastic_launches": elastic_launches}
+
+
+def dist_elastic_checks(ranks: list) -> tuple[dict, dict]:
+    """``dist_elastic``'s checks on every rank's results: every rank's
+    ledger (the reference's keys) ``ELASTIC_LEDGER``; the batches fetched
+    ``ELASTIC_CURSORS``; ranks 0-1 6 losses from the cursors 0, 1, 2, 2, 3,
+    4 and one emergency save; the same finite loss of a step on every rank
+    that ran it; each world's losses and checkpointed state bitwise its
+    cold restart's; each rank's launches the train path's a micro-step x
+    micro-steps x the steps it ran, on the path's routes.  Returns ``(line,
+    launches summed over ranks)``."""
+    per = [rk["elastic"] for rk in ranks]
+    keys = list(ELASTIC_LEDGER[0])
+    path = dist_train_path(next(lay for lay in DIST_LAYOUTS if lay.name == "B"))
+    cfg = elastic_model().cfg
+    total = {}
+    for r, p in enumerate(per):
+        ledger = [{k: e[k] for k in keys} for e in p["ledger"]]
+        if ledger != ELASTIC_LEDGER:
+            raise AssertionError(f"dist_elastic rank {r}: ledger {ledger}")
+        if p["cursors"] != ELASTIC_CURSORS[r] or len(p["losses"]) != ELASTIC_STEPS_RUN[r]:
+            raise AssertionError(f"dist_elastic rank {r}: fetched {p['cursors']}, "
+                                 f"{len(p['losses'])} losses")
+        if not all(math.isfinite(x) for x in p["losses"] + p["grad_norms"]):
+            raise AssertionError(f"dist_elastic rank {r}: losses {p['losses']}")
+        if not set(p["losses"]) <= set(per[0]["losses"]) or p["save_failures"]:
+            raise AssertionError(f"dist_elastic rank {r}: losses {p['losses']} against "
+                                 f"rank 0's {per[0]['losses']}, {p['save_failures']} failed saves")
+        for cold in p["cold"]:
+            if r < cold["world"] and not (cold["losses_bitwise"] and cold["state_bitwise"]):
+                raise AssertionError(f"dist_elastic rank {r}: cold restart {cold}")
+        want = {k: n * ELASTIC_MICRO_STEPS * ELASTIC_STEPS_RUN[r]
+                for k, n in train_launches(cfg).items()}
+        if (p["launches"] != want or p["attention_launches_by_route"]["mma"]
+                != want["flash_attention"] or p["attention_bwd_launches_by_route"][
+                path.attn_bwd_route] != want["flash_attention_bwd"]
+                or p["rmsnorm_bwd_launches_by_route"][path.rms_bwd_route]
+                != want["rmsnorm_bwd"]):
+            raise AssertionError(f"dist_elastic rank {r}: launches {p['launches']} != {want}")
+        add_counts(total, p["launches"])
+    if per[0]["emergency_saves"] != 1 or per[1]["emergency_saves"] != 1:
+        raise AssertionError(f"dist_elastic: emergency saves "
+                             f"{[p['emergency_saves'] for p in per]}")
+    line = {"arch": "llama3.2-1b", "layers": cfg.n_layers, "start_layout": "B",
+            "steps": ELASTIC_STEPS, "checkpoint_every": ELASTIC_EVERY,
+            "plan": [[kind, at, kw] for kind, at, kw in ELASTIC_PLAN],
+            "global_batch": ELASTIC_GLOBAL_BATCH, "micro_steps": ELASTIC_MICRO_STEPS,
+            "seq": path.seq, "ledger": per[0]["ledger"], "losses": per[0]["losses"],
+            "grad_norms": per[0]["grad_norms"], "cursors": [p["cursors"] for p in per],
+            "restarts": [p["restarts"] for p in per],
+            "emergency_saves": [p["emergency_saves"] for p in per],
+            "rebuild_s": [[e["rebuild_s"] for e in p["ledger"]] for p in per],
+            "saves": [p["saves"] for p in per], "checkpoint_gb": per[0]["checkpoint_gb"],
+            "cold": [p["cold"] for p in per],
+            "bitwise": all(c["losses_bitwise"] and c["state_bitwise"]
+                           for r, p in enumerate(per) for c in p["cold"] if r < c["world"]),
+            "step_ms": [p["step_ms_all"] for p in per], "loop_s": [p["loop_s"] for p in per],
+            "peak_gb": [p["peak_gb"] for p in per],
+            "cold_peak_gb": [p["cold_peak_gb"] for p in per],
+            "launches": [p["launches"] for p in per]}
+    return line, total
 
 
 def dist_wire_checks(ranks: list, reference: list, backend: str, cards: int):
@@ -2749,7 +3001,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = smi()
-    t_start = PHASE_CLOCK["last"] = time.perf_counter()
+    t_start = PHASE_CLOCK["start"] = PHASE_CLOCK["last"] = time.perf_counter()
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2809,6 +3061,7 @@ def main() -> int:
     dist_line = dist_train_phase(card, dev, train_lines[0])
     by_path[dist_line["arch"]] = dist_line["launches"]
     by_path["dist_wires"] = dist_line["wires_launches"]
+    by_path["dist_elastic"] = dist_line["elastic_launches"]
     launches_by_route["mma"] += dist_line["attention_launches_by_route"]["mma"]
     launches_by_form["gated"] += dist_line["rglru_launches_by_form"]["forward"]["gated"]
     torch.cuda.empty_cache()

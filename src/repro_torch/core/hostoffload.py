@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 _PINNED_LOCK = threading.Lock()
-_PINNED = {"bytes": 0}   # page-locked by pinned_zeros and still held
+_PINNED = {"bytes": 0, "peak": 0}   # page-locked by pinned_zeros: held now, the most held
 
 
 def _unregister(ptr: int, nbytes: int) -> None:
@@ -78,6 +78,7 @@ def pinned_zeros(shape, dtype: torch.dtype, device: str | torch.device) -> torch
                                "host memory cannot be pinned for the offload")
         with _PINNED_LOCK:
             _PINNED["bytes"] += nbytes
+            _PINNED["peak"] = max(_PINNED["peak"], _PINNED["bytes"])
         # numpy clears an array's weak references before it lets go of the
         # mapping, so the memory is unlocked while it is still mapped.
         weakref.finalize(buf, _unregister, ptr, nbytes)
@@ -88,6 +89,19 @@ def pinned_bytes() -> int:
     """Bytes that :func:`pinned_zeros` holds page-locked in this process."""
     with _PINNED_LOCK:
         return _PINNED["bytes"]
+
+
+def pinned_peak() -> int:
+    """The most bytes :func:`pinned_zeros` has held page-locked at once in
+    this process since :func:`reset_pinned_peak` (or the start)."""
+    with _PINNED_LOCK:
+        return _PINNED["peak"]
+
+
+def reset_pinned_peak() -> None:
+    """Start :func:`pinned_peak`'s window at the bytes held now."""
+    with _PINNED_LOCK:
+        _PINNED["peak"] = _PINNED["bytes"]
 
 
 def is_host_resident(t: torch.Tensor, device: torch.device) -> bool:

@@ -175,6 +175,32 @@ class MiCSTopology:
         return self._groups((axis,))
 
 
+def elastic_host_topology(n_devices: int, partition_size: int, tp: int = 1, *,
+                          available: int) -> MiCSTopology:
+    """MiCSTopology over the first ``n_devices`` ranks of a launch world of
+    ``available`` ranks (the reference's "first ``n_devices`` surviving
+    devices").
+
+    The elastic train loop's layout half (the policy half is
+    ``core/autotune.resolve_world``): after a world change the survivors are
+    re-factored as ``(pod=1, repl=n/(p·tp), shard=p, dp2=1, model=tp)`` —
+    partition groups stay runs of consecutive ranks (the paper's rule), the
+    TP degree is pinned (flat layouts are TP-local, the checkpointer's one
+    resharding invariant), and everything else reshards freely on restore.
+    """
+    if n_devices <= 0:
+        raise ValueError(f"need at least one device, got {n_devices}")
+    if n_devices % (partition_size * tp):
+        raise ValueError(
+            f"world of {n_devices} devices does not factor as "
+            f"partition_size={partition_size} x tp={tp}")
+    if n_devices > available:
+        raise ValueError(
+            f"world of {n_devices} devices exceeds the {available} available")
+    return MiCSTopology(repl=n_devices // (partition_size * tp), shard=partition_size,
+                        model=tp)
+
+
 def choose_partition_size(param_count: int, *, data_axis: int, model_axis: int = 1,
                           hbm_bytes: int = HBM_BYTES_PER_CARD,
                           state_bytes_per_param: int = MODEL_STATE_BYTES_PER_PARAM,

@@ -109,25 +109,32 @@ class MiCSGroups:
     head (the reference's ``axis_index_groups`` in
     ``flat_param.model_gather_fn_for``; :meth:`kv`).
 
-    ``new_group`` is collective, so every rank creates every group, in the
-    same order, including the groups it is not in."""
+    The topology lies over the first ``topo.world_size`` ranks of the launch
+    world (the elastic loop's world after a preemption; all of it otherwise):
+    ``world`` is a group of those ranks.  A rank of the launch world outside
+    them is *parked* (:attr:`parked`): it holds no group and runs no step.
+    ``new_group`` is collective over the launch world, so every live process
+    creates every group, in the same order, including the groups it is not
+    in, parked ones too.  :meth:`release` destroys this rank's groups when
+    the world changes."""
 
     def __init__(self, topo: MiCSTopology, rank: int, *, backend: str,
                  timeout: datetime.timedelta, inner: int | None = None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r} (expected one of {BACKENDS})")
-        if dist.get_world_size() != topo.world_size:
+        if dist.get_world_size() < topo.world_size:
             raise ValueError(f"the process group has {dist.get_world_size()} ranks, the "
                              f"topology {topo.world_size}")
         self.topo, self.rank, self.backend = topo, rank, backend
-        self.world = Group("world", tuple(range(topo.world_size)), dist.group.WORLD,
-                           dist.get_backend())
-        self._timeout = timeout
+        self.parked = rank >= topo.world_size
+        self.timeout = timeout
+        self._handles = []
+        self.world = self._mine("world", [list(range(topo.world_size))])
         self.data = self._mine("data", topo._groups(DATA_AXES))
         self.partition = self._mine("partition", topo.partition_groups())
         self.replication = self._mine("replication", topo.replication_groups())
-        self.partition_coord = topo.partition_coord(rank)
-        self.model_coord = topo.rank_coords(rank)[MODEL_AXIS]
+        self.partition_coord = None if self.parked else topo.partition_coord(rank)
+        self.model_coord = None if self.parked else topo.rank_coords(rank)[MODEL_AXIS]
         self.model = None
         self._kv: dict[int, Group] = {}
         tp = topo.model_size
@@ -158,20 +165,29 @@ class MiCSGroups:
                     "inner", [g[o * inner:(o + 1) * inner] for g in parts
                               for o in range(p // inner)])
 
-    def _mine(self, name: str, groups: list[list[int]]) -> Group:
-        """Create one process group each of ``groups`` (on every rank) and
-        return the one holding this rank."""
+    def _mine(self, name: str, groups: list[list[int]]) -> Group | None:
+        """Create one process group each of ``groups`` (on every rank of the
+        launch world) and return the one holding this rank (None for a
+        parked rank)."""
         mine = None
         for ranks in groups:
             if list(ranks) != sorted(ranks):
                 raise ValueError(f"group {ranks} is not ascending")
-            handle = dist.new_group(ranks=list(ranks), timeout=self._timeout,
+            handle = dist.new_group(ranks=list(ranks), timeout=self.timeout,
                                     backend=self.backend)
             if self.rank in ranks:
                 mine = Group(name, tuple(ranks), handle, self.backend)
-        if mine is None:
+                self._handles.append(handle)
+        if mine is None and not self.parked:
             raise ValueError(f"rank {self.rank} is in no {name} group")
         return mine
+
+    def release(self) -> None:
+        """Destroy the process groups this rank belongs to (a local call: the
+        world changed, and the next world's groups replace them)."""
+        for handle in self._handles:
+            dist.destroy_process_group(handle)
+        self._handles = []
 
     def kv(self, g: int) -> Group:
         """The run of ``g`` consecutive ranks of this rank's model group

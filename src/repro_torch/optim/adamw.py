@@ -34,9 +34,10 @@ def _f32(x: float, device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
-def lr_schedule(step: int, oc: OptConfig, *, device="cpu") -> torch.Tensor:
+def lr_schedule(step: int, oc: OptConfig, *, device) -> torch.Tensor:
     """Linear warmup to ``lr_max`` over ``warmup_steps`` (step 0 has lr 0),
-    then a cosine to ``lr_min_ratio * lr_max`` at ``total_steps``; fp32."""
+    then a cosine to ``lr_min_ratio * lr_max`` at ``total_steps``; fp32 on
+    ``device`` (the shard's: no default, so no caller gets a CPU scalar)."""
     s = _f32(step, device)
     warm = s / max(oc.warmup_steps, 1)
     frac = torch.clamp((s - oc.warmup_steps) / max(oc.total_steps - oc.warmup_steps, 1),

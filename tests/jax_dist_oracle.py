@@ -1,7 +1,7 @@
 """The JAX package's answers to the cases of ``torch_dist_cases.py`` on 4
 virtual CPU devices, jitted, written to ``<out>/jax_<mode>.npz``.
 
-    python tests/jax_dist_oracle.py collectives|train|init|tp_layers|tp_train OUT_DIR
+    python tests/jax_dist_oracle.py collectives|train|init|tp_layers|tp_train|elastic OUT_DIR
 
 ``collectives``: ``repro.core.collectives`` under ``shard_map`` on
 ``make_host_mesh`` meshes, each device's input row r of the case's input,
@@ -11,6 +11,8 @@ steps a case: each step's loss and grad_norm, the initial and final global
 state.  ``init``: that initial state alone, from one device (the state is
 a function of the model and the seed, not of the layout).  ``tp_layers``
 and ``tp_train``: the tensor-parallel cases (see those functions).
+``elastic``: the reference's elastic loop on the runs of
+``K.ELASTIC_RUNS`` and ``elastic_host_topology`` on ``K.ELASTIC_GRID``.
 """
 
 import os
@@ -331,10 +333,68 @@ def tp_train() -> dict:
     return out
 
 
+def elastic() -> dict:
+    """The reference's ``runtime/train_loop.train`` on each run of
+    ``K.ELASTIC_RUNS`` (smoke llama, fp32 gather, ``init_state(seed=0)``,
+    ``K.fault_plan`` with ``ElasticConfig()``; one-rank runs on one device):
+    as JSON, the losses, the ledger, the counters, the cursors of the
+    batches the loop fetched and the newest checkpoint; and
+    ``elastic_host_topology`` on ``K.ELASTIC_GRID`` (each topology's axis
+    sizes, or the error's type and message)."""
+    import dataclasses
+    import json
+    import tempfile
+
+    import repro.runtime.train_loop as TL
+    from repro.checkpoint.checkpointer import Checkpointer
+    from repro.configs import get_config, smoke_variant
+    from repro.core.faults import FaultPlan
+    from repro.core.mics import MiCSConfig
+    from repro.core.topology import elastic_host_topology
+    from repro.data.pipeline import DataConfig
+    from repro.models.build import build_model
+    from repro.optim.adamw import OptConfig
+
+    served = []
+
+    class RecordingLM(TL.SyntheticLM):
+        def global_step_batch(self, step):
+            served.append(int(step))
+            return super().global_step_batch(step)
+
+    TL.SyntheticLM = RecordingLM
+    cfg = smoke_variant(get_config("llama3.2-1b"))
+    dc = DataConfig(vocab=cfg.vocab, seq=K.SEQ, global_batch=K.ELASTIC_BATCH,
+                    micro_steps=K.MICRO)
+    out = {}
+    for name, (lay, total, every) in K.ELASTIC_RUNS.items():
+        topo = (MiCSTopology(make_host_mesh()) if lay == "1" else topology(lay))
+        model = build_model(cfg, tp=topo.model_size)
+        lc = TL.LoopConfig(total_steps=total, checkpoint_every=every, log_every=0,
+                           checkpoint_dir=tempfile.mkdtemp(prefix=f"elastic_{name}_"))
+        served.clear()
+        stats = TL.train(model, topo, MiCSConfig(micro_steps=K.MICRO, gather_dtype=jnp.float32),
+                         OptConfig(**K.ELASTIC_OPT), dc, lc,
+                         fault_injector=K.fault_plan(FaultPlan, name),
+                         elastic=TL.ElasticConfig())
+        res = {k: v for k, v in dataclasses.asdict(stats).items() if k != "step_times"}
+        res.update(cursors=list(served), latest=Checkpointer(lc.checkpoint_dir).latest_step())
+        out[f"{name}.json"] = np.asarray(json.dumps(res, default=float))
+    grid = {}
+    for n, tp, p in K.ELASTIC_GRID:
+        try:
+            t = elastic_host_topology(n, p, tp)
+            grid[f"{n},{tp},{p}"] = {ax: int(t.axis_size(ax)) for ax in MICS_AXES}
+        except ValueError as e:
+            grid[f"{n},{tp},{p}"] = {"error": type(e).__name__, "message": str(e)}
+    out["grid.json"] = np.asarray(json.dumps(grid))
+    return out
+
+
 def main():
     mode, out_dir = sys.argv[1], pathlib.Path(sys.argv[2])
     res = {"collectives": collectives, "train": train, "init": init,
-           "tp_layers": tp_layers, "tp_train": tp_train}[mode]()
+           "tp_layers": tp_layers, "tp_train": tp_train, "elastic": elastic}[mode]()
     np.savez(out_dir / f"jax_{mode}.npz", **res)
 
 

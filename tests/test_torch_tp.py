@@ -282,7 +282,8 @@ def test_init_params_at_tp_does_not_depend_on_p():
 
 def test_restore_onto_another_tp_raises(tmp_path):
     """The manifest records each rank's mesh coordinates; a restore onto
-    another tp is a restore onto another topology (ROADMAP Queue 1 item 5)."""
+    another tp raises with the reference's reason: flat layouts are
+    TP-local."""
     from repro_torch.checkpoint.checkpointer import MANIFEST, Checkpointer
     from repro_torch.core.mics import init_state
     from repro_torch.models.build import build_model
@@ -292,7 +293,7 @@ def test_restore_onto_another_tp_raises(tmp_path):
                                 topo=T.MiCSTopology())
     meta = json.loads((tmp_path / "step_00000001" / MANIFEST).read_text())
     assert meta["rank_coords"] == [dict.fromkeys(T.MICS_AXES, 0)]
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="TP degree is fixed"):
         Checkpointer(tmp_path).restore(build_model(cfg, tp=2), topo=T.MiCSTopology(model=2),
                                        device="cpu")
 

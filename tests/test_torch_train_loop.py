@@ -60,6 +60,8 @@ def test_resumed_run_is_bitwise_the_uninterrupted_one(tmp_path):
 
 
 def test_checkpointer_skips_incomplete_and_checks_topology(tmp_path):
+    """Only complete checkpoints count, and a restore onto another topology
+    reshards (replica 0's chunks)."""
     model, *_ = _setup()
     state = init_state(model, 0, device="cpu")
     ck = Checkpointer(tmp_path)
@@ -74,8 +76,13 @@ def test_checkpointer_skips_incomplete_and_checks_topology(tmp_path):
     restored, meta = ck.restore(model, device="cpu")
     assert meta["step"] == 1 and restored["step"] == 0
     assert torch.equal(restored["params"]["head"], state["params"]["head"])
-    with pytest.raises(NotImplementedError, match="elastic"):
-        ck.restore(model, topo=MiCSTopology(repl=2), device="cpu")
+    # a restore onto another topology reshards: rank 0 of 2 replicas holds
+    # the whole rows (p 1), replica 0's
+    again, meta2 = ck.restore(model, topo=MiCSTopology(repl=2), device="cpu")
+    assert meta2["topology"]["repl"] == 1 and again["step"] == 0
+    for part in ("params", "m", "v"):
+        for name, t in restored[part].items():
+            assert torch.equal(again[part][name], t), (part, name)
     with pytest.raises(FileNotFoundError):
         ck.restore(model, 3, device="cpu")
 

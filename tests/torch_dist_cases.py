@@ -470,3 +470,77 @@ def on_jax_basis(model, grads: dict) -> dict:
                 g[..., s1.offset:s1.end] += g[..., s0.offset:s0.end]
                 g[..., s0.offset:s0.end] = 0.0
     return out
+
+
+# ---------------------------------------------------------------------------
+# the elastic loop (``torch_dist_harness.py elastic``, ``jax_dist_oracle.py
+# elastic``, ``test_torch_elastic.py``)
+# ---------------------------------------------------------------------------
+
+# The loop's data and optimizer: the smoke llama, fp32 gather (the tight
+# tolerances), the train steps' batch shape
+ELASTIC_OPT = dict(warmup_steps=0, total_steps=40, lr_max=1e-3)
+ELASTIC_BATCH = MICRO * GLOBAL_B
+# fault plans: name -> [(FaultPlan method, step, keywords)], made by either
+# package's FaultPlan with ``fault_plan``
+ELASTIC_PLANS = {
+    # the abrupt loss of 2 ranks rolls back to step 2; the grow with notice
+    # takes an emergency save at 4 (chip_smoke.py's dist_elastic)
+    "B_abrupt_grow": [("preempt", 3, {"devices": 2, "notice": False}),
+                      ("grow", 4, {"devices": 2})],
+    # p 4 loses 2 ranks with notice: the keep rule shrinks p to 2
+    "A_notice": [("preempt", 2, {"devices": 2, "notice": True})],
+    # p 2 x tp 2 loses 2 ranks abruptly: p 1 x tp 2
+    "P2T2_abrupt": [("preempt", 2, {"devices": 2, "notice": False})],
+    # the async step-4 save dies mid-write; the eviction at 5 rolls back to
+    # 2, the newest complete checkpoint
+    "B_crash_mid_save": [("crash_during_save", 4, {}),
+                         ("slow", 5, {"factor": 2.0, "evict": True})],
+    "1_crash_mid_save": [("crash_during_save", 4, {}),
+                         ("slow", 5, {"factor": 2.0, "evict": True})],
+    # an eviction at 5 rolls back to the step-4 checkpoint
+    "1_evict": [("slow", 5, {"factor": 2.0, "evict": True})],
+}
+# name -> (layout, or "1" for one rank; total_steps; checkpoint_every)
+ELASTIC_RUNS = {
+    "B_abrupt_grow": ("B", 5, 2),
+    "A_notice": ("A", 4, 10),
+    "P2T2_abrupt": ("P2T2", 4, 1),
+    "B_crash_mid_save": ("B", 8, 2),
+    "1_crash_mid_save": ("1", 8, 2),
+    "1_evict": ("1", 8, 2),
+}
+# the runs with world changes, each held to cold restarts of its checkpoints
+ELASTIC_CHANGES = ("B_abrupt_grow", "A_notice", "P2T2_abrupt")
+# the runs again with the AdamW moments in host memory (``offload_opt``):
+# p 4 -> p 2 doubles a rank's moments; B -> 2 ranks -> B parks two ranks
+ELASTIC_OFFLOAD = ("A_notice", "B_abrupt_grow")
+
+
+def fault_plan(cls, name: str):
+    """Case ``name``'s plan from ``cls`` (either package's ``FaultPlan``)."""
+    plan = cls(slow_base_s=0.0)
+    for kind, at, kw in ELASTIC_PLANS[name]:
+        getattr(plan, kind)(at, **kw)
+    return plan
+
+
+def elastic_topo_kwargs(name: str) -> dict:
+    """The starting ``MiCSTopology`` keywords of run ``name`` (one rank: the
+    default topology)."""
+    lay = ELASTIC_RUNS[name][0]
+    return {} if lay == "1" else topo_kwargs(lay)
+
+
+def segments(ledger: list[dict], total: int) -> list[tuple[dict, int]]:
+    """Each world change of a run and the steps its world ran: ``(entry,
+    steps)``, from its ``resumed_step`` to the next change's ``at_step``
+    (or ``total``)."""
+    ends = [e["at_step"] for e in ledger[1:]] + [total]
+    return [(e, end - e["resumed_step"]) for e, end in zip(ledger, ends)]
+
+
+# (n, tp, p) for elastic_host_topology against the reference on 4 devices
+# (n 5: more than are available)
+ELASTIC_GRID = [(n, tp, p) for n in (0, 1, 2, 3, 4, 5) for tp in (1, 2, 4)
+                for p in (1, 2, 3, 4)]

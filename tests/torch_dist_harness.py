@@ -2,13 +2,15 @@
 runs every case of ``torch_dist_cases.py`` and each rank writes its results
 to ``<out>/port_<mode>.rank<r>.npz``.
 
-    python tests/torch_dist_harness.py collectives|train|tp_layers|tp_train|knobs OUT_DIR \
-        [cpu|cuda]
+    python tests/torch_dist_harness.py \
+        collectives|train|tp_layers|tp_train|knobs|elastic|elastic_offload OUT_DIR [cpu|cuda]
 
-``train`` starts from the JAX package's initial state, which it reads from
-``OUT_DIR/jax_init.npz`` (``jax_dist_oracle.py init OUT_DIR``).  An optional
-third argument puts the ``collectives`` tensors on ``cuda`` (the ranks then
-share the card; gloo carries them through pinned host buffers).
+``train`` and ``elastic`` start from the JAX package's initial state, which
+they read from ``OUT_DIR/jax_init.npz`` (``jax_dist_oracle.py init
+OUT_DIR``).  An optional
+third argument puts the ``collectives`` tensors, or the ``elastic_offload``
+runs, on ``cuda`` (the ranks then share the card; gloo carries the tensors
+through pinned host buffers).
 
 The ranks meet through a ``FileStore`` in ``OUT_DIR`` (no port to pick, so
 parallel test workers do not collide), run one thread each, and give every
@@ -449,6 +451,303 @@ def knobs(world: World) -> dict:
     return out
 
 
+def _jax_init(out_dir: pathlib.Path) -> dict:
+    init_npz = np.load(out_dir / "jax_init.npz")
+    init = {part: {k.split(".", 2)[2]: init_npz[k] for k in init_npz.files
+                   if k.startswith(f"init.{part}.")} for part in ("params", "m", "v")}
+    init["step"] = 0
+    return init
+
+
+def elastic(world: World, out_dir: pathlib.Path) -> dict:
+    """The elastic loop over the 4 ranks: each run of ``K.ELASTIC_RUNS``
+    over 4 ranks through ``train(..., fault_injector=K.fault_plan(...),
+    elastic=ElasticConfig())`` (tp 1 runs from the JAX initial state,
+    written as a step-0 checkpoint; P2T2 from the port's seeded init), and
+    after each run with world changes, each world's steps again as a cold
+    ``elastic_restart`` of the checkpoint it resumed from; then the
+    checkpointer's reshards (``_reshards``).  JSON a run and rank
+    (``<run>.json``): the loop's stats, the cursors it fetched, the cold
+    runs' losses and whether their final states equal the loop's
+    checkpoints bitwise."""
+    import dataclasses
+    import json
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.convert import shard_from_jax
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import MiCSGroups
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime import train_loop as TL
+
+    served = []
+
+    class RecordingLM(SyntheticLM):
+        def host_step_batch(self, step, host_index, host_count):
+            served.append(int(step))
+            return super().host_step_batch(step, host_index, host_count)
+
+    TL.SyntheticLM = RecordingLM
+    r, init = world.rank, _jax_init(out_dir)
+    cfg = smoke_variant(get_config("llama3.2-1b"))
+    dc = DataConfig(vocab=cfg.vocab, seq=K.SEQ, global_batch=K.ELASTIC_BATCH,
+                    micro_steps=K.MICRO)
+    oc, mcfg = OptConfig(**K.ELASTIC_OPT), MiCSConfig(micro_steps=K.MICRO,
+                                                      gather_dtype=torch.float32)
+    out = {}
+    for name, (lay, total, every) in K.ELASTIC_RUNS.items():
+        if lay == "1":
+            continue
+        topo = MiCSTopology(**K.elastic_topo_kwargs(name))
+        model = build_model(cfg, tp=topo.model_size)
+        ckdir = out_dir / f"elastic_{name}"
+        groups = MiCSGroups(topo, r, backend="gloo", timeout=TIMEOUT)
+        if topo.model_size == 1:
+            Checkpointer(ckdir).save(shard_from_jax(model, topo, r, init, device="cpu"), 0,
+                                     topo=topo, groups=groups)
+        lc = TL.LoopConfig(total_steps=total, checkpoint_every=every, checkpoint_dir=str(ckdir),
+                           log_every=0)
+        served.clear()
+        plan = K.fault_plan(FaultPlan, name)
+        stats = TL.train(model, topo, mcfg, oc, dc, lc, device="cpu", groups=groups,
+                         fault_injector=plan, elastic=TL.ElasticConfig())
+        res = {k: v for k, v in dataclasses.asdict(stats).items()
+               if k not in ("step_times", "save_times", "comm", "saves")}
+        res.update(cursors=list(served), fired=plan.log,
+                   latest=Checkpointer(ckdir).latest_step(), cold=[])
+        p_prev = topo.partition_size
+        for entry, steps in K.segments(stats.world_changes, total) if name in K.ELASTIC_CHANGES \
+                else ():
+            # the same world again, cold: its checkpoint, the same resize
+            topo_n, rule = TL.resize_for_world(
+                mcfg, entry["world"], tp=topo.model_size, partition_size=p_prev,
+                available=K.WORLD)
+            p_prev = topo_n.partition_size
+            g = MiCSGroups(topo_n, r, backend="gloo", timeout=TIMEOUT)
+            cold = {"rule": rule, "losses": [], "state_bitwise": None}
+            if not g.parked:
+                _, state, step_fn, meta = TL.elastic_restart(
+                    str(ckdir), cfg, topo_n, mcfg, oc, entry["resumed_step"], device="cpu",
+                    groups=g)
+                src = SyntheticLM(dc)
+                for c in range(meta["data_cursor"], meta["data_cursor"] + steps):
+                    state, m = step_fn(state, src.host_step_batch(
+                        c, topo_n.data_rank(r), topo_n.data_parallel_size))
+                    cold["losses"].append(m["loss"].item())
+                end = entry["resumed_step"] + steps
+                ck = Checkpointer(ckdir)
+                saved_world = json.loads((ckdir / f"step_{end:08d}" / "manifest.json")
+                                         .read_text())["world_size"]
+                if saved_world == entry["world"]:
+                    kept, _ = ck.restore(model, end, topo=topo_n, rank=r, device="cpu")
+                    cold["state_bitwise"] = all(
+                        torch.equal(kept[part][k], state[part][k])
+                        for part in ("params", "m", "v") for k in state[part])
+                del state, step_fn
+            g.release()
+            res["cold"].append(cold)
+        out[f"{name}.json"] = np.asarray(json.dumps(res, default=float))
+    TL.SyntheticLM = SyntheticLM
+    out.update(_reshards(world, out_dir))
+    return out
+
+
+def _reshards(world: World, out_dir: pathlib.Path) -> dict:
+    """The checkpointer across topologies, on a seeded random state
+    (``K.numpy_params`` for params, m and v, so every tensor is non-zero):
+    the round trips p 2 (2 ranks) -> p 4 -> p 2 and B -> A -> B, a one-rank
+    checkpoint onto B, an ``offload_opt`` restore onto A against the
+    card-resident one (and one step of each), and a restore onto another
+    tp.  Each restore is held bitwise to ``shard_state`` of the global
+    state at its topology (``<case>.bitwise``)."""
+    import json
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.convert import shard_state
+    from repro_torch.core.hostoffload import is_host_resident, pinned_bytes
+    from repro_torch.core.mics import MiCSConfig, build_train_step
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.launch.mesh import MiCSGroups
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import OptConfig
+
+    r = world.rank
+    cfg = smoke_variant(get_config("llama3.2-1b"))
+    model = build_model(cfg, tp=1)
+    full = {part: {k: torch.from_numpy(v) for k, v in K.numpy_params(
+        model, f"reshard:{part}").items()} for part in ("params", "m", "v")}
+    full["v"] = {k: v.abs() for k, v in full["v"].items()}   # a second moment
+    full["step"] = 3
+    topos = {"P2": MiCSTopology(shard=2), "A": _topology("A"), "B": _topology("B"),
+             "1": MiCSTopology()}
+    groups = {k: MiCSGroups(t, r, backend="gloo", timeout=TIMEOUT) for k, t in topos.items()
+              if k != "1"}
+    out = {}
+
+    def equal(a: dict, b: dict) -> bool:
+        return a["step"] == b["step"] and all(torch.equal(a[part][k], b[part][k])
+                                              for part in ("params", "m", "v") for k in a[part])
+
+    def trip(name: str, path: list[str]) -> None:
+        ck = Checkpointer(out_dir / f"reshard_{name}")
+        ok = []
+        for i, lay in enumerate(path):
+            topo, g = topos[lay], groups[lay]
+            if not g.parked:
+                state = (shard_state(model, topo, r, full, device="cpu") if i == 0 else
+                         ck.restore(model, i - 1, topo=topo, rank=r, device="cpu")[0])
+                ok.append(equal(state, shard_state(model, topo, r, full, device="cpu")))
+                ck.save(state, i, topo=topo, groups=g)
+            dist.barrier()
+        out[f"{name}.bitwise"] = np.asarray(all(ok))
+        out[f"{name}.restores"] = np.asarray(len(ok))
+
+    trip("p2_p4_p2", ["P2", "A", "P2"])
+    trip("B_A_B", ["B", "A", "B"])
+    # a one-rank checkpoint (rank 0 writes it) onto the 4 ranks of B
+    ck = Checkpointer(out_dir / "reshard_one")
+    if r == 0:
+        ck.save(shard_state(model, topos["1"], 0, full, device="cpu"), 1, topo=topos["1"])
+    dist.barrier()
+    state, meta = ck.restore(model, topo=topos["B"], rank=r, device="cpu")
+    out["one_to_B.bitwise"] = np.asarray(
+        meta["world_size"] == 1 and equal(state, shard_state(model, topos["B"], r, full,
+                                                              device="cpu")))
+    # offload_opt: saved from host memory at B, restored onto A with the
+    # moments in host memory and on the device: the same bits, and one step
+    # of each the same
+    ck = Checkpointer(out_dir / "reshard_offload")
+    g = groups["B"]
+    ck.save(shard_state(model, topos["B"], r, full, device="cpu"), 3, topo=topos["B"], groups=g)
+    runs = {}
+    for offload in (True, False):
+        state, _ = ck.restore(model, topo=topos["A"], rank=r, device="cpu", offload_opt=offload)
+        host = all(is_host_resident(t, torch.device("cpu")) for part in ("m", "v")
+                   for t in state[part].values())
+        restored = equal(state, shard_state(model, topos["A"], r, full, device="cpu"))
+        step = build_train_step(model, topos["A"], MiCSConfig(
+            micro_steps=K.MICRO, gather_dtype=torch.float32, offload_opt=offload),
+            OptConfig(**K.ELASTIC_OPT), device="cpu", groups=groups["A"])
+        batch = K.data_slice(K.train_batches()[0], topos["A"].data_rank(r),
+                             topos["A"].data_parallel_size)
+        state, m = step(state, batch)
+        runs[offload] = (state, m["loss"].item(), m["grad_norm"].item(), host, restored)
+    out["offload.restored_bitwise"] = np.asarray(runs[True][4] and runs[False][4])
+    out["offload.moments_in_host_memory"] = np.asarray(runs[True][3])
+    out["offload.step_bitwise"] = np.asarray(runs[True][1:3] == runs[False][1:3]
+                                             and equal(runs[True][0], runs[False][0]))
+    out["offload.pinned_bytes"] = np.asarray(pinned_bytes())
+    # another tp: the reference's reason
+    try:
+        ck.restore(build_model(cfg, tp=2), topo=_topology("P2T2"), rank=r, device="cpu")
+        out["other_tp.error"] = np.asarray(json.dumps(None))
+    except ValueError as e:
+        out["other_tp.error"] = np.asarray(json.dumps(str(e)))
+    for g in groups.values():
+        g.release()
+    return out
+
+
+def elastic_offload(world: World, out_dir: pathlib.Path, device: str) -> dict:
+    """An in-loop world change with the AdamW moments in host memory: each
+    run of ``K.ELASTIC_OFFLOAD`` through ``train(..., elastic=)`` from the
+    port's seeded init on ``device``, with ``offload_opt`` and without.
+    JSON a run and rank (``<run>.offload.json``): both runs' losses and
+    ledgers, the pinned bytes at every step the fault plan saw, the m and v
+    bytes each world's shards of this rank hold (0 for a parked rank, and
+    on the CPU, where nothing is pinned), the peak of the pinned bytes over
+    the run and what stays pinned after it; and whether every file of the
+    two runs' last checkpoints is the same bytes."""
+    import gc
+    import json
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.hostoffload import pinned_bytes, pinned_peak, reset_pinned_peak
+    from repro_torch.core.mics import MiCSConfig, init_state
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import MiCSGroups
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime import train_loop as TL
+
+    r = world.rank
+    cfg = smoke_variant(get_config("llama3.2-1b"))
+    model = build_model(cfg, tp=1)
+    dc = DataConfig(vocab=cfg.vocab, seq=K.SEQ, global_batch=K.ELASTIC_BATCH,
+                    micro_steps=K.MICRO)
+    oc = OptConfig(**K.ELASTIC_OPT)
+    pinned = []
+
+    class Watching(FaultPlan):
+        def __call__(self, step):
+            pinned.append(pinned_bytes())
+            return super().__call__(step)
+
+    def moment_bytes(topo) -> int:
+        if device != "cuda" or r >= topo.world_size:
+            return 0
+        state = init_state(model, 0, device="cpu", topo=topo, rank=r)
+        return sum(t.numel() * t.element_size() for part in ("m", "v")
+                   for t in state[part].values())
+
+    out = {}
+    for name in K.ELASTIC_OFFLOAD:
+        _, total, every = K.ELASTIC_RUNS[name]
+        topo = MiCSTopology(**K.elastic_topo_kwargs(name))
+        res, last = {}, {}
+        for offload in (True, False):
+            mcfg = MiCSConfig(micro_steps=K.MICRO, gather_dtype=torch.float32,
+                              offload_opt=offload)
+            ckdir = out_dir / f"offload_{name}_{offload}"
+            lc = TL.LoopConfig(total_steps=total, checkpoint_every=every,
+                               checkpoint_dir=str(ckdir), log_every=0)
+            groups = MiCSGroups(topo, r, backend="gloo", timeout=TIMEOUT)
+            pinned.clear()
+            reset_pinned_peak()
+            stats = TL.train(model, topo, mcfg, oc, dc, lc, device=device, groups=groups,
+                             fault_injector=K.fault_plan(Watching, name),
+                             elastic=TL.ElasticConfig())
+            gc.collect()
+            # the bytes each world this rank stepped in pins: the plan sees
+            # every step a world runs, the change's own included
+            topos, expected = [topo], []
+            for e in stats.world_changes:
+                topos.append(TL.resize_for_world(mcfg, e["world"],
+                                                 partition_size=topos[-1].partition_size,
+                                                 available=K.WORLD)[0])
+            segs = K.segments([{"resumed_step": 0}] + stats.world_changes, total)
+            for i, ((_, steps), t) in enumerate(zip(segs, topos)):
+                if r < t.world_size:   # and the step a change fired at
+                    expected += [moment_bytes(t)] * (steps + (i < len(segs) - 1))
+            res[offload] = {"losses": stats.losses, "grad_norms": stats.grad_norms,
+                            "ledger": [{k: v for k, v in e.items()
+                                        if k not in ("comm", "rebuild_s")}
+                                       for e in stats.world_changes],
+                            "pinned": list(pinned), "expected": expected,
+                            "world_bytes": [moment_bytes(t) for t in topos],
+                            "peak": pinned_peak(), "after": pinned_bytes()}
+            last[offload] = ckdir / f"step_{total:08d}"
+        dist.barrier()
+        res["checkpoints_equal"] = all(
+            (last[True] / f.name).read_bytes() == f.read_bytes()
+            for f in sorted(last[False].iterdir()) if f.suffix == ".npy")
+        out[f"{name}.offload.json"] = np.asarray(json.dumps(
+            {str(k): v for k, v in res.items()}, default=float))
+    return out
+
+
 def _rank_main(rank: int, mode: str, out_dir: pathlib.Path, device: str):
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(K.WORLD), LOCAL_RANK=str(rank))
@@ -464,6 +763,10 @@ def _rank_main(rank: int, mode: str, out_dir: pathlib.Path, device: str):
         res = tp_train(world)
     elif mode == "knobs":
         res = knobs(world)
+    elif mode == "elastic":
+        res = elastic(world, out_dir)
+    elif mode == "elastic_offload":
+        res = elastic_offload(world, out_dir, device)
     else:
         res = train(world, out_dir)
     np.savez(out_dir / f"port_{mode}.rank{rank}.npz", **res)
