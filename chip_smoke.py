@@ -48,6 +48,31 @@ check raises and the script exits non-zero; no phase swallows an error):
    ``quantize`` 0); decode step 8 against a prefill of the prompt and the
    first 8 tokens; at the cut depth the card's prefill logits against the
    CPU's on the same stored bytes; a profile of one decode step.
+   ``serve_paged`` (llama3.2-1b, after its ``serve_int8``): the
+   continuous-batching engine through ``runtime/resilient.ResilientServeLoop``
+   (the launcher's ``--continuous`` path) on the ``serve`` run's weights,
+   bf16 gather and pools: 8 slots, prefill chunks of 64 tokens (every tick
+   runs at that width), blocks of 16, tables of 36 blocks (576 positions),
+   a pool of 8 x 36 + 1 blocks; 24 requests from seed 0 with prompts of
+   64-512 tokens and 32 new tokens each, the odd ones sampled at
+   temperature 0.7 with top-k 8, one arriving every 2 ticks.  Checks, each
+   failing the run: the ledger (all 24 completed, accounted); paged ==
+   contiguous, bit for bit (8 of the prompts prefilled, copied into a pool
+   by ``pages_from_contiguous``, 16 decode steps through
+   ``build_paged_step`` and ``build_contiguous_step``: tokens and logits);
+   the same 16 steps on int8 pools within ``PAGED_INT8_REL_TOL`` of the
+   largest |logit|; chunk placement (the prompts streamed from position 0
+   and from staggered first chunks: last tokens, logits and pool bitwise);
+   the ``paged`` route against its plain version at a decode tick and a
+   64-token chunk over bf16 and int8 pages; a run with an engine crash at
+   tick 20 whose completions are the fault-free run's bit for bit; a run
+   on int8 pools (its ledger, its share of tokens equal to bf16's); each
+   run's launches, set to 0 just before it and read just after: per engine
+   step RMSNorm 33 and attention 16, every call on ``paged`` (``split`` and
+   ``mma`` 0), ``quantize`` 32 with int8 pools.  It prints ticks, wall
+   seconds and tokens/s, time to first token in ticks and ms (p50, p99),
+   decode ms a tick, a profiled decode tick's busy time and idle share,
+   ``peak_gb`` and the pool's GB.
 3. For each of two train paths, through ``runtime/train_loop.train`` (the
    launcher's entry point), at full width and depth, ``init_state(seed=0)``,
    the synthetic stream, bf16 gather, prefetch schedule, bucketed boundary,
@@ -207,6 +232,10 @@ check raises and the script exits non-zero; no phase swallows an error):
    repeatable, at a llama layer row, its embedding row, the exchange
    stage's ``[4, n / 4]``, ragged lengths, bf16 input and all-zero blocks,
    beside the eager sequence each replaces (``eager_ms``; no library call).
+   The ``paged`` route (``flash_attention_paged``) at ``serve_paged``'s
+   shapes (a decode tick of 8 requests at lengths 250-350, a 64-token
+   chunk; bf16 and int8 pages) with SDPA over the contiguous view
+   gathered beforehand as ``library_ms``.
 
 ``python3 chip_smoke.py --profile-only`` runs the ``profile`` phases alone
 (both serve paths, then the train steps; no checks, no result line): it
@@ -414,6 +443,8 @@ def ptxas_summary(log: str) -> list[dict]:
             row["lanes_per_row"] = ints[0] if ints else None
         elif kernel.startswith("flash"):
             row["dh"] = ints[0] if ints else (256 if "wgmma256" in kernel else None)
+            if kernel.startswith("flash_paged"):  # <dh, int8 pages>
+                row["int8_pages"] = "Lb1E" in args
             if "wgmma" in kernel:  # <dh, stages[, rows a tile]>
                 row["stages"] = ints[1] if len(ints) > 1 else None
                 row["tile"] = ints[2] if len(ints) > 2 else None
@@ -667,7 +698,7 @@ def serve_path(path: Path, card: str, dev):
     if launches != want:
         raise AssertionError(f"{path.arch}: launch counts {launches} != {want}")
     n_attn = path.launches["flash_attention"]
-    want_route = {"mma": n_attn, "split": n_attn * path.steps, "fma": 0}
+    want_route = {"mma": n_attn, "split": n_attn * path.steps, "fma": 0, "paged": 0}
     if by_route != want_route:
         raise AssertionError(f"{path.arch}: attention routes {by_route} != {want_route}")
     want_form = {"ab": 0, "gated": want["rglru"]}
@@ -737,9 +768,16 @@ def serve_path(path: Path, card: str, dev):
     quantize_s = time.perf_counter() - t0
     int8 = serve_int8_phase(path, cfg, model, params, stored, prompt, ids, bf16,
                             (prefill_fn, decode_fn), quantize_s, card, dev)
-    del stored, params, prefill_fn, decode_fn
+    del stored, prefill_fn, decode_fn
     torch.cuda.empty_cache()
-    return launches, by_route, by_form, int8
+    # -- serve_paged: the continuous-batching engine (the dense family) ----------
+    paged = None
+    if cfg.family == "dense":
+        paged = serve_paged_phase(cfg, model, params, card, dev)
+        emit(paged)
+    del params
+    torch.cuda.empty_cache()
+    return launches, by_route, by_form, int8, paged
 
 
 def int8_serve_launches(path: Path, model) -> dict:
@@ -807,7 +845,7 @@ def serve_int8_phase(path: Path, cfg, model, params: dict, stored: dict, prompt,
     if launches != want:
         raise AssertionError(f"{path.arch} int8: launch counts {launches} != {want}")
     n_attn = path.launches["flash_attention"]
-    if by_route != {"mma": n_attn, "split": n_attn * path.steps, "fma": 0}:
+    if by_route != {"mma": n_attn, "split": n_attn * path.steps, "fma": 0, "paged": 0}:
         raise AssertionError(f"{path.arch} int8: attention routes {by_route}")
     if by_form != {"ab": 0, "gated": want["rglru"]}:
         raise AssertionError(f"{path.arch} int8: RG-LRU entry points {by_form}")
@@ -880,6 +918,428 @@ def serve_int8_phase(path: Path, cfg, model, params: dict, stored: dict, prompt,
                                                            path.prompt))
     del pcache
     return launches, by_route, by_form
+
+
+# -- the continuous-batching engine: serve_paged --------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedServe:
+    """The ``serve_paged`` phase's engine and trace (llama3.2-1b, bf16 pools)."""
+
+    slots: int = 8
+    chunk: int = 64            # prefill tokens a slot a tick (every tick runs at this width)
+    block: int = 16
+    max_blocks: int = 36       # 576 positions: the longest prompt and its new tokens
+    requests: int = 24
+    prompt_lo: int = 64
+    prompt_hi: int = 512
+    new_tokens: int = 32
+    arrival_every: int = 2     # ticks between arrivals
+    temperature: float = 0.7   # odd requests; the even ones greedy
+    top_k: int = 8
+    crash_at: int = 20
+    check_rows: int = 8        # requests of the paged == contiguous and chunk checks
+    check_steps: int = 16      # their decode steps
+
+
+PAGED = PagedServe()
+# int8 pools against bf16 pools, the decode logits of the same fed tokens,
+# as a fraction of the largest |logit|: the reference's bound for its int8
+# engine against its fp32 one (tests/serve_harness.py int8_kv_error).
+PAGED_INT8_REL_TOL = 0.1
+
+
+def paged_requests(R, vocab: int, pg: PagedServe = PAGED) -> list:
+    """The phase's trace: prompts of ``prompt_lo`` to ``prompt_hi`` tokens
+    and ``new_tokens`` each, from seed 0; even requests greedy, odd ones at
+    ``temperature`` (top-k ``top_k`` in the engine)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(pg.prompt_lo, pg.prompt_hi + 1, pg.requests)
+    return [R.Request(rid=i, prompt=rng.integers(1, vocab, int(n)).tolist(),
+                      max_new_tokens=pg.new_tokens,
+                      temperature=pg.temperature if i % 2 else 0.0, seed=1000 + i)
+            for i, n in enumerate(lens)]
+
+
+class TickClock:
+    """Host times of a serve loop's ticks (each commit ends one) and of its
+    engine steps (each ends in the sampled tokens' copy to the host, so the
+    card is done), and the first decode-only plan."""
+
+    def __init__(self, loop):
+        self.ends, self.steps, self.decode_plan = [], [], None
+        self.start = time.perf_counter()
+        commit, step = loop.batcher.commit, loop._engine_step
+
+        def timed_commit(plan, sampled):
+            out = commit(plan, sampled)
+            self.ends.append(time.perf_counter())
+            return out
+
+        def timed_step(plan):
+            decode_only = int(plan.n_new.max()) <= 1
+            if decode_only and self.decode_plan is None:
+                self.decode_plan = plan
+            t0 = time.perf_counter()
+            tok = step(plan)
+            self.steps.append((len(self.ends), decode_only, (time.perf_counter() - t0) * 1e3))
+            return tok
+
+        loop.batcher.commit, loop._engine_step = timed_commit, timed_step
+
+    def tick_start(self, tick: int) -> float:
+        return self.ends[tick - 1] if tick else self.start
+
+
+def _pct(xs, q):
+    return statistics.quantiles(xs, n=100, method="inclusive")[q - 1] if len(xs) > 1 else (
+        xs[0] if xs else None)
+
+
+def paged_kernel_cases(gen, dev, pg: PagedServe = PAGED) -> list:
+    """The ``paged`` route's inputs at the phase's shapes: llama's 8 KV heads
+    of g 4 at dh 64, a pool of ``slots * max_blocks + 1`` blocks of
+    ``block`` tokens, 8 requests on shuffled blocks; a decode tick (valid
+    lengths 250-350) and a 64-token chunk (positions at chunk starts), over
+    bf16 and int8 pages."""
+    from repro_torch.core import quant as Q
+
+    b, hkv, g, dh = pg.slots, 8, 4, 64
+    nb = pg.slots * pg.max_blocks + 1
+    cap = pg.max_blocks * pg.block
+    order = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(2)) + 1
+    tables = order[:b * pg.max_blocks].reshape(b, pg.max_blocks).to(torch.int32).to(dev)
+    k = torch.randn(nb, pg.block, hkv, dh, generator=gen, device=dev)
+    v = torch.randn(nb, pg.block, hkv, dh, generator=gen, device=dev)
+    pages = {"bf16": ((k.to(torch.bfloat16), v.to(torch.bfloat16)), {})}
+    (qk, sk), (qv, sv) = Q.quantize_flat(k), Q.quantize_flat(v)
+    pages["int8"] = ((qk, qv), {"k_scale": sk, "v_scale": sv})
+    cases = []
+    for kind, tq in (("decode tick", 1), (f"{pg.chunk}-token chunk", pg.chunk)):
+        if tq == 1:
+            pos = torch.randint(249, 350, (b,), generator=gen, device=dev)
+        else:
+            pos = pg.chunk * torch.randint(0, cap // pg.chunk - 1, (b,), generator=gen,
+                                           device=dev)
+        kvl = pos[:, None] + torch.arange(1, tq + 1, device=dev)[None, :]
+        q = torch.randn(b, tq, hkv, g, dh, generator=gen, device=dev).to(torch.bfloat16)
+        for dt, ((kp, vp), sc) in pages.items():
+            cases.append((f"{kind}, {dt} pages", q, kp, vp, tables, kvl, sc))
+    return cases
+
+
+def paged_kernel_checks(gen, dev, flush, timed: bool = True,
+                        pg: PagedServe = PAGED) -> list:
+    """The ``paged`` route against ``paged_attention_plain`` on the same
+    card tensors (the split route's bf16 tolerance), bitwise repeatable;
+    with ``timed`` its time, the plain version's, the bound (the live keys'
+    and values' bytes, and scales, q and o, against 3.35 TB/s; 4 dh
+    operations an allowed (row, key) pair) and, as ``library_ms``, SDPA over
+    the contiguous view gathered (and dequantized) beforehand with the same
+    boolean mask: the gather is not in its time."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    out = []
+    for kind, q, kp, vp, tables, kvl, sc in paged_kernel_cases(gen, dev, pg):
+        o = FA.paged_attention(q, kp, vp, tables, kvl, **sc)
+        ref = FA.paged_attention_plain(q, kp, vp, tables, kvl, **sc)
+        tol = TOL[torch.bfloat16]
+        err = (o.float() - ref.float()).abs().max().item()
+        if not torch.allclose(o.float(), ref.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"paged attention {kind}: kernel disagrees with its plain "
+                                 f"version (max |err| {err}, tol {tol})")
+        if not torch.equal(o, FA.paged_attention(q, kp, vp, tables, kvl, **sc)):
+            raise AssertionError(f"paged attention {kind}: not bitwise repeatable")
+        b, tq, hkv, g, dh = q.shape
+        bs, cap = kp.shape[1], tables.shape[1] * kp.shape[1]
+        row = {"case": kind, "shape": {"b": b, "tq": tq, "hkv": hkv, "g": g, "dh": dh,
+                                       "block_size": bs, "max_blocks": tables.shape[1],
+                                       "n_blocks": kp.shape[0]},
+               "route": "paged", "pages": "int8" if sc else "bf16", "bitwise_repeat": True,
+               "max_abs_err": err, "tol": tol,
+               "valid_len": [int(kvl.min()), int(kvl.max())]}
+        if timed:
+            live = torch.clamp(kvl.max(dim=1).values, max=cap).sum().item()  # keys read a head
+            per_key = hkv * dh * kp.element_size() + (hkv * 4 * -(-dh // 128) if sc else 0)
+            nbytes = 2 * live * per_key + 2 * q.numel() * q.element_size()
+            ops = 4 * dh * hkv * g * torch.clamp(kvl, max=cap).sum().item()
+            b_ms, b_by = bound(nbytes, ops, torch.bfloat16)
+
+            def view(p):
+                return p[tables.long()].reshape(b, cap, *p.shape[2:])
+
+            kv = [view(kp), view(vp)]
+            if sc:
+                kv = [Q.dequantize_flat(kv[0], view(sc["k_scale"]), torch.bfloat16),
+                      Q.dequantize_flat(kv[1], view(sc["v_scale"]), torch.bfloat16)]
+            ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in kv)
+            qs = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, tq, dh).contiguous()
+            mask = (torch.arange(cap, device=dev)[None, None, :] < kvl[:, :, None])[:, None]
+            row.update({
+                "ms": time_ms(lambda: FA.paged_attention(q, kp, vp, tables, kvl, **sc), flush),
+                "host_us": host_us(lambda: FA.paged_attention(q, kp, vp, tables, kvl, **sc)),
+                "plain_ms": time_ms(lambda: FA.paged_attention_plain(q, kp, vp, tables, kvl,
+                                                                     **sc), flush),
+                "bound_ms": b_ms, "bound_by": b_by, "live_keys": live,
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, enable_gqa=True), flush),
+                "library_excludes": "the gather (and dequantize) of the contiguous view"})
+            del ks, vs, qs, kv, mask
+        out.append(row)
+    return out
+
+
+def paged_consistency(cfg, model, params, dev, pg: PagedServe = PAGED) -> dict:
+    """Within the port on the card, on ``check_rows`` of the trace's
+    prompts, each prefilled at its own length: (a) paged == contiguous, bit
+    for bit: the pool filled by ``pages_from_contiguous``, ``check_steps``
+    decode steps through ``build_paged_step`` and through
+    ``build_contiguous_step`` (greedy and sampled rows), tokens and logits;
+    (b) int8 pools, fed the same tokens: the decode logits against the bf16
+    pools' within ``PAGED_INT8_REL_TOL`` of the largest |logit|, and the
+    share of equal tokens; (c) chunk placement: the prompts streamed through
+    the chunk-width step from position 0 and from staggered first chunks
+    give the same last tokens, logits and pool, bit for bit."""
+    import numpy as np
+
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.models import lm
+    from repro_torch.runtime import batching as RB
+    from repro_torch.runtime import paged as PG
+    from repro_torch.runtime.serving import build_serve_steps
+
+    topo, n = MiCSTopology(), pg.check_rows
+    cap = pg.max_blocks * pg.block
+    prompts = [r.prompt for r in paged_requests(RB, cfg.vocab, pg)[:n]]
+    plens = np.array([len(p) for p in prompts])
+    mcfg = MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True, kv_block_size=pg.block)
+    mcfg8 = dataclasses.replace(mcfg, kv_dtype="int8")
+    prefill_fn, _ = build_serve_steps(model, topo, mcfg, cap, device=dev)
+    contig = lm.init_caches(model, n, cap, dtype=torch.bfloat16, device=dev)
+    tok0 = torch.zeros(n, dtype=torch.long, device=dev)
+    for b, p in enumerate(prompts):
+        lg, c = prefill_fn(params, {"tokens": torch.tensor([p], device=dev)})
+        for name in ("k", "v"):
+            contig["layers"][name][:, b] = c["layers"][name][:, 0]
+        tok0[b] = torch.argmax(lg[0, -1, :cfg.vocab].float())
+        del lg, c
+    alloc = PG.PagedKVAllocator(pg.slots * pg.max_blocks + 1, pg.block)
+    tables = np.zeros((n, pg.max_blocks), np.int32)
+    for b, length in enumerate(plens):
+        blocks = alloc.alloc(PG.blocks_for(int(length) + pg.check_steps, pg.block))
+        tables[b, :len(blocks)] = blocks
+    pools = {}
+    for kv in ("bf16", "int8"):
+        pools[kv] = PG.init_paged_caches(model, topo, alloc.n_blocks, pg.block, kv, device=dev)
+        PG.pages_from_contiguous(model, topo, contig, pools[kv], tables, plens,
+                                 block_size=pg.block, kv_dtype=kv)
+    steps = {kv: PG.build_paged_step(model, topo, m, max_blocks=pg.max_blocks,
+                                     block_size=pg.block, top_k=pg.top_k, device=dev)
+             for kv, m in (("bf16", mcfg), ("int8", mcfg8))}
+    contig_step = PG.build_contiguous_step(model, topo, mcfg, cap, top_k=pg.top_k, device=dev)
+    seeds = torch.arange(n, device=dev) + 1000
+    temps = torch.tensor([0.0, pg.temperature] * (n // 2), device=dev)
+    ones = torch.ones(n, dtype=torch.long, device=dev)
+    pos = torch.as_tensor(plens, device=dev)
+    tp, tc = tok0, tok0
+    bitwise, err8, scale, same8 = True, 0.0, 0.0, 0
+    for s in range(pg.check_steps):
+        t1, l1, pools["bf16"] = steps["bf16"](params, pools["bf16"], tp[:, None], pos + s, ones,
+                                              tables, seeds, temps)
+        t2, l2, contig = contig_step(params, contig, tc[:, None], pos + s, seeds, temps)
+        t8, l8, pools["int8"] = steps["int8"](params, pools["int8"], tp[:, None], pos + s,
+                                              ones, tables, seeds, temps)
+        bitwise &= torch.equal(t1, t2) and torch.equal(l1, l2)
+        err8 = max(err8, (l8.float() - l1.float()).abs().max().item())
+        scale = max(scale, l1.float().abs().max().item())
+        same8 += int((t8 == t1).sum())
+        tp, tc = t1, t2
+    if not bitwise:
+        raise AssertionError("serve_paged: paged decode differs from the contiguous step")
+    if not err8 <= PAGED_INT8_REL_TOL * scale:
+        raise AssertionError(f"serve_paged: int8 pools' logits {err8} > {PAGED_INT8_REL_TOL} "
+                             f"x {scale} from the bf16 pools'")
+    del pools, contig
+
+    chunk_step = PG.build_paged_step(model, topo, mcfg, max_blocks=pg.max_blocks,
+                                     block_size=pg.block, chunk=pg.chunk, device=dev)
+
+    def stream(first):
+        pool = PG.init_paged_caches(model, topo, alloc.n_blocks, pg.block, "bf16", device=dev)
+        done, nxt = np.zeros(n, np.int64), np.minimum(plens, first)
+        last_t, last_l, ticks = [None] * n, [None] * n, 0
+        while (done < plens).any():
+            toks = np.zeros((n, pg.chunk), np.int64)
+            for b in range(n):
+                toks[b, :nxt[b]] = prompts[b][done[b]:done[b] + nxt[b]]
+            t, lg, pool = chunk_step(params, pool, toks, done, nxt, tables, seeds.cpu().numpy(),
+                                     temps.cpu().numpy())
+            for b in range(n):
+                if nxt[b] and done[b] + nxt[b] == plens[b]:
+                    last_t[b], last_l[b] = t[b].clone(), lg[b].clone()
+            done, nxt, ticks = done + nxt, np.minimum(plens - done - nxt, pg.chunk), ticks + 1
+        return torch.stack(last_t), torch.stack(last_l), pool, ticks
+
+    ta, la, pa, na = stream(np.full(n, pg.chunk))
+    tb, lb, pb, nb_ = stream(1 + (7 * np.arange(n)) % pg.chunk)
+    placement = (torch.equal(ta, tb) and torch.equal(la, lb)
+                 and all(torch.equal(pa["layers"][k], pb["layers"][k]) for k in pa["layers"]))
+    if not placement:
+        raise AssertionError("serve_paged: chunk placement changed the prompts' last logits "
+                             "or pool")
+    return {"paged_vs_contiguous": {"rows": n, "decode_steps": pg.check_steps,
+                                    "prompt_lens": plens.tolist(), "tokens_and_logits_bitwise":
+                                    True},
+            "int8_kv": {"max_abs_err": err8, "max_abs_logit": scale,
+                        "rel_tol": PAGED_INT8_REL_TOL, "tokens_equal_share":
+                        same8 / (n * pg.check_steps)},
+            "chunk_placement": {"first_chunks": [pg.chunk, f"1 + 7 b mod {pg.chunk}"],
+                                "engine_steps": [na, nb_], "bitwise": True}}
+
+
+def serve_paged_phase(cfg, model, params, card, dev, pg: PagedServe = PAGED) -> dict:
+    """``serve_paged``: the continuous-batching engine on the card through
+    ``runtime/resilient.ResilientServeLoop`` (the launcher's
+    ``--continuous`` path), ``pg``'s trace on ``params`` (the ``serve``
+    run's), bf16 gather and pools; the checks of :func:`paged_consistency`
+    and :func:`paged_kernel_checks`; then the same trace with an engine
+    crash at ``crash_at`` (bitwise the fault-free completions) and on int8
+    pools.  Every run's launches are held to the engine's: per engine step
+    RMSNorm 33, attention 16, all on ``paged`` (``split`` and ``mma`` 0), and
+    with int8 pools ``quantize`` 32 (each layer's k and v rows)."""
+    import numpy as np
+
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.runtime import batching as RB
+    from repro_torch.runtime.resilient import ResilientServeLoop, ServeLoopConfig
+
+    per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
+    sc = ServeLoopConfig(slots_local=pg.slots, nb_local=pg.slots * pg.max_blocks + 1,
+                         block_size=pg.block, max_blocks=pg.max_blocks, chunk=pg.chunk,
+                         top_k=pg.top_k, reserve="full", seed=0)
+    arrivals = [pg.arrival_every * i for i in range(pg.requests)]
+
+    def make_loop(kv: str, fault=None):
+        mcfg = MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True, kv_dtype=kv,
+                          kv_block_size=pg.block)
+        return ResilientServeLoop(model, MiCSTopology(), mcfg, sc,
+                                  params_for=lambda m, t: params, fault_injector=fault,
+                                  device=dev)
+
+    def run(loop, label: str, kv: str):
+        """One counted run of the trace; its launches held to the engine's."""
+        clock = TickClock(loop)
+        reqs = paged_requests(RB, cfg.vocab, pg)
+        torch.cuda.synchronize()
+        reset_counts()
+        clock.start = time.perf_counter()
+        rep = loop.run(reqs, arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - clock.start
+        launches, by_route = read_counts(), dict(FA.launches_by_route)
+        led, steps = rep["ledger"], len(clock.steps)
+        if not (led["accounted"] and led["completed"] == pg.requests and led["shed"] == 0):
+            raise AssertionError(f"serve_paged {label}: ledger {led}")
+        want = dict.fromkeys(launches, 0) | {
+            "rmsnorm": per_step["rmsnorm"] * steps,
+            "flash_attention": per_step["flash_attention"] * steps,
+            "quantize": 2 * per_step["flash_attention"] * steps if kv == "int8" else 0}
+        want_route = {"mma": 0, "split": 0, "fma": 0,
+                      "paged": per_step["flash_attention"] * steps}
+        if launches != want or by_route != want_route:
+            raise AssertionError(f"serve_paged {label}: launches {launches} / {by_route} != "
+                                 f"{want} / {want_route} ({steps} engine steps)")
+        for toks in rep["completions"].values():
+            if len(toks) != pg.new_tokens or min(toks) < 0 or max(toks) >= cfg.vocab:
+                raise AssertionError(f"serve_paged {label}: a completion {toks}")
+        return rep, reqs, clock, wall, launches, by_route
+
+    # the kernel on the phase's shapes, before the engine runs
+    kernel = paged_kernel_checks(torch.Generator(device=dev).manual_seed(3), dev, None,
+                                 timed=False, pg=pg)
+    consistency = paged_consistency(cfg, model, params, dev, pg)
+    torch.cuda.empty_cache()
+
+    loop = make_loop("bf16")
+    z, B = np.zeros, loop.batcher.batch
+    for _ in range(2):  # warm: first use of the engine's shapes (cuBLAS, allocator)
+        loop.step(loop.params, loop.caches, z((B, pg.chunk), np.int64), z(B, np.int64),
+                  z(B, np.int64), z((B, pg.max_blocks), np.int32), z(B, np.int64),
+                  z(B, np.float32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rep, reqs, clock, wall, launches, by_route = run(loop, "bf16", "bf16")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pool_gb = sum(t.numel() * t.element_size() for p in loop.caches.values()
+                  for t in p.values()) / 1e9
+    tokens = sum(len(t) for t in rep["completions"].values())
+    decode_ticks = [t for t, d, _ in clock.steps if d]
+    tick_ms = [(clock.ends[t] - clock.tick_start(t)) * 1e3 for t in decode_ticks]
+    step_ms = {"decode_only": [ms for _, d, ms in clock.steps if d],
+               "with_prefill": [ms for _, d, ms in clock.steps if not d]}
+    ttft_ms = [(clock.ends[r.first_token_tick] - clock.tick_start(r.arrival)) * 1e3
+               for r in reqs]
+    plan = clock.decode_plan
+    prof = profile_line(cfg.name, "paged decode tick", lambda: loop.step(
+        loop.params, loop.caches, plan.tokens, plan.pos, plan.n_new, plan.tables, plan.seeds,
+        plan.temps)[0].cpu())
+    del loop
+    torch.cuda.empty_cache()
+
+    crash, _, _, cwall, claunches, _ = run(
+        make_loop("bf16", FaultPlan.parse(f"crash@{pg.crash_at}")), "crash", "bf16")
+    if crash["completions"] != rep["completions"]:
+        raise AssertionError("serve_paged: the crash run's completions differ from the "
+                             "fault-free run's")
+    changes = crash["world_changes"]
+    if [c["kind"] for c in changes] != ["crash"] or not changes[0]["replayed"]:
+        raise AssertionError(f"serve_paged: crash ledger {changes}")
+    torch.cuda.empty_cache()
+    int8, _, _, iwall, ilaunches, _ = run(make_loop("int8"), "int8", "int8")
+    same = [a == b for rid, toks in rep["completions"].items()
+            for a, b in zip(toks, int8["completions"][rid])]
+    torch.cuda.empty_cache()
+
+    led = rep["ledger"]
+    return {"phase": "serve_paged", "arch": cfg.name, "layers": cfg.n_layers,
+            "engine": dataclasses.asdict(pg), "gather_dtype": "bf16", "kv_dtype": "bf16",
+            "requests": pg.requests, "ticks": rep["ticks"], "engine_steps": len(clock.steps),
+            "decode_only_steps": len(decode_ticks), "wall_s": wall,
+            "tokens": tokens, "tokens_per_s": tokens / wall,
+            "ttft_ticks": {"p50": led["ttft_ticks_p50"], "p99": led["ttft_ticks_p99"]},
+            "ttft_ms": {"p50": _pct(ttft_ms, 50), "p99": _pct(ttft_ms, 99)},
+            "latency_ticks": {"p50": led["latency_ticks_p50"], "p99": led["latency_ticks_p99"]},
+            "decode_ms_per_tick": {"p50": _pct(tick_ms, 50), "p99": _pct(tick_ms, 99)},
+            "engine_step_ms_p50": {k: _pct(v, 50) for k, v in step_ms.items()},
+            "profile_decode_tick": {k: prof[k] for k in (
+                "wall_ms", "device_busy_ms", "idle_share", "device_kernels", "events_short",
+                "by_kind")},
+            "peak_gb": peak_gb, "pool_gb": pool_gb, "ledger": led,
+            "launches": launches, "attention_launches_by_route": by_route,
+            "checks": {"ledger": f"{pg.requests} of {pg.requests} completed, accounted",
+                       **consistency,
+                       "crash_replay": {"at_tick": pg.crash_at, "replayed":
+                                        changes[0]["replayed"], "ticks": crash["ticks"],
+                                        "wall_s": cwall, "completions_bitwise": True,
+                                        "launches": claunches},
+                       "int8_engine": {"ledger_accounted": True, "ticks": int8["ticks"],
+                                       "wall_s": iwall, "tokens_equal_to_bf16_share":
+                                       sum(same) / len(same), "launches": ilaunches},
+                       "paged_vs_plain": kernel,
+                       "launch_counts": f"an engine step: RMSNorm {per_step['rmsnorm']}, "
+                                        f"attention {per_step['flash_attention']}, all on "
+                                        "paged; int8 pools: quantize twice that"},
+            "gpu": card}
 
 
 def train_rows(path: TrainPath) -> int:
@@ -1002,7 +1462,7 @@ def check_train_launches(label: str, path: TrainPath, micro: int):
     want = {name: n * micro for name, n in path.launches.items()}
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches} != {want}")
-    want_route = {"mma": want["flash_attention"], "split": 0, "fma": 0}
+    want_route = {"mma": want["flash_attention"], "split": 0, "fma": 0, "paged": 0}
     if by_route != want_route:
         raise AssertionError(f"{label}: attention routes {by_route} != {want_route}")
     # every backward call on the path's route: llama's wgmma attention and
@@ -3030,11 +3490,21 @@ def main() -> int:
     # -- 2. the serve paths ----------------------------------------------------
     by_path, launches_by_route = {}, dict.fromkeys(FA.ROUTES, 0)
     launches_by_form = dict.fromkeys(RG.FORMS, 0)
+    paged_launches = {}
     for p in PATHS:
-        by_path[p.arch], by_route, by_form, int8 = serve_path(p, card, dev)
+        by_path[p.arch], by_route, by_form, int8, paged = serve_path(p, card, dev)
         by_path[f"{p.arch} serve_int8"] = int8[0]
         for r, n in (*by_route.items(), *int8[1].items()):
             launches_by_route[r] += n
+        if paged is not None:  # the engine's three runs: fault-free, crash, int8 pools
+            checks = paged["checks"]
+            runs = {"serve_paged": paged["launches"],
+                    "serve_paged crash": checks["crash_replay"]["launches"],
+                    "serve_paged int8": checks["int8_engine"]["launches"]}
+            for run, n in runs.items():
+                by_path[f"{p.arch} {run}"] = n
+                paged_launches[f"{p.arch} {run}"] = n["flash_attention"]
+                launches_by_route["paged"] += n["flash_attention"]
         for f, n in (*by_form.items(), *int8[2].items()):
             launches_by_form[f] += n
 
@@ -3084,6 +3554,7 @@ def main() -> int:
     digest_phase(dev)
     rms_bwd_checks, attn_bwd_checks, rglru_bwd_checks = backward_checks(gen, dev, flush)
     rms_checks, attn_checks, rglru_checks = kernel_checks(gen, dev, flush)
+    paged_checks = paged_kernel_checks(gen, dev, flush)
     quantize_checks, dequantize_checks = quant_checks(gen, dev, flush)
 
     def entry(name, source, replaces, checks, by_path_n=None, **more):
@@ -3112,8 +3583,16 @@ def main() -> int:
               "src/repro/kernels/flash_attention/kernel.py:86", attn_checks,
               sources={"mma": "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
                        "split": "src/repro_torch/kernels/csrc/flash_attention_split.cu",
-                       "fma": "src/repro_torch/kernels/csrc/flash_attention.cu"},
+                       "fma": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                       "paged": "src/repro_torch/kernels/csrc/flash_attention_paged.cu"},
               launches_by_route=launches_by_route),
+        # the paged route alone (the continuous-batching engine): its checks,
+        # a decode tick first; its launches the serve_paged runs'
+        entry("flash_attention_paged", "src/repro_torch/kernels/csrc/flash_attention_paged.cu",
+              "src/repro/kernels/flash_attention/kernel.py:86", paged_checks,
+              by_path_n=paged_launches,
+              merge="src/repro_torch/kernels/csrc/flash_attention_split.cu flash_merge_kernel",
+              call_site="src/repro/models/blocks.py:183-186 (L.attention over the paged view)"),
         entry("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
               "src/repro/kernels/flash_attention/kernel.py:86", attn_bwd_checks,
               gradient_of="src/repro/models/layers.py:145 attention (the TPU kernel has no "

@@ -93,9 +93,9 @@ class CrashDuringSaveError(FaultError):
 
 class EngineCrashError(FaultError):
     """The serving engine died without the world changing (a process or
-    runtime crash).  The reference's resilient serve loop retries it in
-    place; the port's serving side of faults waits for ROADMAP Queue 1
-    item 6, and the train loop treats it as a rollback-and-retry failure."""
+    runtime crash).  The resilient serve loop (``runtime/resilient.py``)
+    retries it in place; the train loop treats it as a rollback-and-retry
+    failure."""
 
 
 @dataclasses.dataclass

@@ -46,6 +46,7 @@ from repro_torch.models.lm import ModelDef
 from repro_torch.optim.adamw import OptConfig
 
 HOP2_WIRES = (False, True, "fp32", "bf16", "int8")
+KV_DTYPES = ("fp32", "bf16", "int8")
 
 # Training knobs the port refuses at anything but this value, with the
 # ROADMAP Queue 1 item each waits for.
@@ -95,6 +96,9 @@ class MiCSConfig:
     carry_offload: str = "none"         # 'none' | 'host' (the stored carry in host memory)
     offload_opt: bool = False           # AdamW m and v in pinned host memory
     hbm_budget_gb: float | None = None  # (default only)
+    kv_dtype: str = "bf16"              # paged-KV block dtype: 'fp32' | 'bf16' | 'int8'
+    kv_block_size: int = 16             # tokens per paged-KV block
+    max_resident_requests: int = 0      # serving residency cap a rank (carried, not derived)
 
     def __post_init__(self):
         if self.gather_dtype not in (torch.float32, torch.bfloat16):
@@ -128,6 +132,13 @@ class MiCSConfig:
             raise ValueError(f"hop2_bucket_mb must be > 0, got {self.hop2_bucket_mb}")
         if self.hbm_budget_gb is not None and self.hbm_budget_gb <= 0:
             raise ValueError(f"hbm_budget_gb must be > 0, got {self.hbm_budget_gb}")
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"unknown kv_dtype {self.kv_dtype!r} (expected one of {KV_DTYPES})")
+        if self.kv_block_size < 1:
+            raise ValueError(f"kv_block_size must be >= 1, got {self.kv_block_size}")
+        if self.max_resident_requests < 0:
+            raise ValueError("max_resident_requests must be >= 0 (0 = no cap), "
+                             f"got {self.max_resident_requests}")
 
 
 def local_flat_shapes(model: ModelDef, topo: MiCSTopology) -> dict[str, tuple[int, int, int]]:

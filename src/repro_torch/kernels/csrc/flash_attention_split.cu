@@ -23,7 +23,8 @@
 //  * each block writes an fp32 partial (m, l, acc[dh]) per row; a chunk
 //    with no allowed key writes m = -1e30, l = 0, acc = 0 without loading;
 //  * the merge kernel combines a row's partials in the fixed order
-//    0 .. nsplit-1 (no atomics), so the output is bitwise repeatable.
+//    0 .. nsplit-1 (no atomics), so the output is bitwise repeatable; the
+//    paged route (flash_attention_paged.cu) merges its partials with it.
 // Partials: fp32 [b, hkv, nsplit, rows, dh + 2], (m, l, acc) per row.
 #include "flash_mma.cuh"
 
@@ -207,11 +208,12 @@ extern "C" int flash_split_partials_launch(const void* q, const void* k, const v
   }
 }
 
-// o [b, tq, hkv, g, dh] bf16 from the partials above.
+// o [b, tq, hkv, g, dh] bf16 from the partials above, or from the paged
+// route's (flash_attention_paged.cu: the same layout at any tq * g).
 extern "C" int flash_split_merge_launch(const void* part, void* o, int b, int tq, int hkv,
                                         int g, int dh, int nsplit, void* stream) {
   const size_t smem = 3 * static_cast<size_t>(nsplit) * sizeof(float);
-  if (smem > 48 * 1024 || tq * g > kRows || hkv > 65535 || b > 65535)
+  if (smem > 48 * 1024 || hkv > 65535 || b > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const dim3 grid(tq * g, hkv, b);
   flash_merge_kernel<<<grid, dh, smem, reinterpret_cast<cudaStream_t>(stream)>>>(

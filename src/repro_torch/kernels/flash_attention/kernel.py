@@ -12,10 +12,22 @@ TPU kernel it replaces, what bounds it and what the design does about it):
   (``kernels/csrc/flash_attention_split.cu``) over the chunks of
   :func:`plan_decode_splits`, then a merge kernel;
 * ``"fma"`` -- fp32: ``kernels/csrc/flash_attention.cu`` on CUDA cores
-  (fp32's tolerance rules out TF32 tensor cores).
+  (fp32's tolerance rules out TF32 tensor cores);
 
-A CPU tensor takes :func:`attention_plain`.  Nothing is caught and
-retried: a build or launch error raises.
+and, for per-row valid lengths (a ``[b]`` or ``[b, tq]`` tensor
+``kv_valid_len``: the continuous-batching engine's ragged rows), the
+``"paged"`` route of :func:`paged_attention`: split-K partials over a
+paged KV pool read through a block table
+(``kernels/csrc/flash_attention_paged.cu``, bf16 queries over bf16 or int8
+pages, the pages dequantized in the load), then the split route's merge
+kernel.  A contiguous ``[b, tk, hkv, dh]`` cache is the pool of ``b``
+blocks of ``tk`` keys with the table ``[[0], [1], ...]``, so the
+contiguous and the paged engine steps run the same kernel on the same
+plan.  fp32 pools take no CUDA route yet (:func:`paged_route` raises).
+
+A CPU tensor takes :func:`attention_plain` (:func:`paged_attention_plain`
+for the paged route).  Nothing is caught and retried: a build or launch
+error raises.
 
 The training path differentiates through :class:`FlashAttentionFn`: its
 forward, :func:`flash_attention_fwd`, also writes the rows' log-sum-exp
@@ -50,11 +62,12 @@ import math
 import torch
 
 from repro_torch.kernels import build as K
+from repro_torch.kernels.quant.kernel import dequantize_plain
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
-ROUTES = ("mma", "split", "fma")
+ROUTES = ("mma", "split", "fma", "paged")
 SPLIT_MAX_ROWS = 16      # one mma tile of packed query rows
 SPLIT_MIN_CHUNK = 32     # keys; a chunk is a multiple of 16
 SPLIT_BLOCKS_PER_SM = 2  # the split plan's target
@@ -80,6 +93,21 @@ launches = 0
 launches_by_route = dict.fromkeys(ROUTES, 0)
 launches_bwd = 0
 launches_bwd_by_route = dict.fromkeys(BWD_ROUTES, 0)
+
+
+FP32_POOLS_TODO = (
+    "fp32 KV pools (and fp32 queries) take no CUDA route of flash attention's paged kernel "
+    "yet: ROADMAP Queue 1 item 6, 'fp32 KV pools on the card'; serve from bf16 or int8 pools")
+
+
+def paged_route(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
+    """The CUDA route for per-row valid lengths: ``"paged"`` for bf16
+    queries over bf16 or int8 pages; fp32 raises ``NotImplementedError``."""
+    if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8):
+        return "paged"
+    if torch.float32 in (q_dtype, kv_dtype):
+        raise NotImplementedError(FP32_POOLS_TODO)
+    raise TypeError(f"paged attention has no route for q {q_dtype} over {kv_dtype} pages")
 
 
 def route(dtype: torch.dtype, rows: int, *, with_lse: bool = False) -> str:
@@ -188,9 +216,11 @@ def plan_decode_splits(b: int, hkv: int, kv_len: int, *, sms: int = 132) -> tupl
 
 
 def mask_bias(tq: int, tk: int, *, causal: bool, window: int, q_offset: int,
-              kv_valid_len: int | None, device) -> torch.Tensor:
+              kv_valid_len, device) -> torch.Tensor:
     """[tq, tk] additive fp32 mask (0 allowed, NEG_INF blocked), as
-    ``repro/models/layers.py::_mask_bias``."""
+    ``repro/models/layers.py::_mask_bias``; [b, tq, tk] for per-row valid
+    lengths (``kv_valid_len`` a [b] or [b, tq] tensor: row i of request b
+    sees keys ``j < kv_valid_len[b, i]``)."""
     q_pos = q_offset + torch.arange(tq, device=device)
     k_pos = torch.arange(tk, device=device)
     diff = q_pos[:, None] - k_pos[None, :]
@@ -199,14 +229,17 @@ def mask_bias(tq: int, tk: int, *, causal: bool, window: int, q_offset: int,
         blocked |= diff < 0
     if window:
         blocked |= diff >= window
-    if kv_valid_len is not None:
+    if isinstance(kv_valid_len, torch.Tensor):
+        kvl = kv_valid_len if kv_valid_len.dim() == 2 else kv_valid_len[:, None]
+        blocked = blocked[None] | (k_pos[None, None, :] >= kvl.to(device)[:, :, None])
+    elif kv_valid_len is not None:
         blocked |= (k_pos >= kv_valid_len)[None, :]
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return torch.where(blocked, torch.full_like(zero, NEG_INF), zero)
 
 
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int = 0, kv_valid_len: int | None = None):
+                    q_offset: int = 0, kv_valid_len=None):
     """The direct masked-softmax form of ``repro/models/layers.py::attention``:
     q pre-scaled by 1/sqrt(dh) and cast back to its type, fp32 scores, fp32
     row max and normaliser, probabilities cast to v's type for the PV
@@ -216,16 +249,19 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def attention_plain_lse(q, k, v, *, causal: bool = True, window: int = 0,
-                        q_offset: int = 0, kv_valid_len: int | None = None):
+                        q_offset: int = 0, kv_valid_len=None):
     """:func:`attention_plain` and the rows' fp32 log-sum-exp of the scaled,
-    masked scores, ``m + log(sum exp(s - m))``, as [b, hkv, g, tq]."""
+    masked scores, ``m + log(sum exp(s - m))``, as [b, hkv, g, tq].
+    ``kv_valid_len``: an int, or a [b] / [b, tq] tensor of per-row valid
+    lengths."""
     dh = q.shape[-1]
     tq, tk = q.shape[1], k.shape[1]
     scale = 1.0 / math.sqrt(dh)
     qs = (q.float() * scale).to(q.dtype)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qs.float(), k.float())
-    s = s + mask_bias(tq, tk, causal=causal, window=window, q_offset=q_offset,
-                      kv_valid_len=kv_valid_len, device=q.device)
+    bias = mask_bias(tq, tk, causal=causal, window=window, q_offset=q_offset,
+                     kv_valid_len=kv_valid_len, device=q.device)
+    s = s + (bias[:, None, None] if bias.dim() == 3 else bias)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = torch.sum(p, dim=-1, keepdim=True)
@@ -386,12 +422,119 @@ def decode_partials(q, k, v, *, nsplit: int, chunk: int, causal: bool = True,
                             _stream(q))
 
 
+def _row_lengths(kv_valid_len: torch.Tensor, b: int, tq: int) -> torch.Tensor:
+    """Per-row valid lengths as [b, tq] (a [b] tensor holds for every row)."""
+    kvl = kv_valid_len if kv_valid_len.dim() == 2 else kv_valid_len[:, None]
+    if kvl.dim() != 2 or kvl.shape[0] != b or kvl.shape[1] not in (1, tq):
+        raise ValueError(f"kv_valid_len {tuple(kv_valid_len.shape)}: want [{b}] or [{b}, {tq}]")
+    return kvl.expand(b, tq)
+
+
+def paged_attention_plain(q, k_pages, v_pages, tables, kv_valid_len, *, k_scale=None,
+                          v_scale=None):
+    """The paged route's function, plainly: the pool gathered through the
+    block table into a contiguous view ``[b, max_blocks * block_size, hkv,
+    dh]`` (int8 pages dequantized to q's type, ``dequantize_plain``), then
+    :func:`attention_plain` with the per-row mask (row i of request b sees
+    keys ``j < kv_valid_len[b, i]``)."""
+    b, mb = tables.shape
+
+    def view(pages):
+        pv = pages[tables.long()]                       # [b, mb, bs, hkv, ...]
+        return pv.reshape(b, mb * pv.shape[2], *pv.shape[3:])
+
+    k, v = view(k_pages), view(v_pages)
+    if k_scale is not None:
+        k = dequantize_plain(k, view(k_scale), q.dtype)
+        v = dequantize_plain(v, view(v_scale), q.dtype)
+    return attention_plain(q, k, v, causal=False,
+                           kv_valid_len=_row_lengths(kv_valid_len, b, q.shape[1]))
+
+
+def _check_paged(q, k_pages, v_pages, tables, k_scale, v_scale) -> None:
+    if q.dim() != 5 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"paged_attention: want q [b,tq,hkv,g,dh], pages [nb,bs,hkv,dh]; got "
+                         f"{tuple(q.shape)}, {tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    b, _, hkv, _, dh = q.shape
+    if tuple(k_pages.shape[2:]) != (hkv, dh):
+        raise ValueError(f"paged_attention: q {tuple(q.shape)} and pages "
+                         f"{tuple(k_pages.shape)} disagree on kv heads or head dim")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"paged_attention: head dim {dh} not in {HEAD_DIMS}")
+    if tables.dim() != 2 or tables.shape[0] != b:
+        raise ValueError(f"paged_attention: tables {tuple(tables.shape)}, want [{b}, max_blocks]")
+    int8 = k_pages.dtype == torch.int8
+    if int8 != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_attention: int8 pages take fp32 scale pages, others none")
+    if int8 and (k_scale.dtype != torch.float32 or v_scale.shape != k_scale.shape
+                 or tuple(k_scale.shape) != (*k_pages.shape[:3], -(-dh // 128))):
+        raise ValueError(f"paged_attention: scale pages {tuple(k_scale.shape)}, want fp32 "
+                         f"{(*k_pages.shape[:3], -(-dh // 128))}")
+    ts = [q, k_pages, v_pages, tables] + ([k_scale, v_scale] if int8 else [])
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("paged_attention: its tensors lie on different devices")
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                    tables: torch.Tensor, kv_valid_len: torch.Tensor, *,
+                    k_scale: torch.Tensor | None = None,
+                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """GQA attention of q [b, tq, hkv, g, dh] over a paged KV pool: pages
+    [n_blocks, block_size, hkv, dh] (int8 with fp32 scale pages [...,
+    ceil(dh / 128)], or q's type), key j of request b at row
+    ``j % block_size`` of block ``tables[b, j // block_size]``; row i of
+    request b sees keys ``j < kv_valid_len[b, i]`` (a [b] or [b, tq]
+    tensor; each row must see at least one key).  CUDA: the ``paged``
+    route (:func:`paged_route`) on the split plan of the capacity
+    ``max_blocks * block_size``, then the merge; CPU:
+    :func:`paged_attention_plain`.  -> [b, tq, hkv, g, dh] in q's type."""
+    global launches
+    _check_paged(q, k_pages, v_pages, tables, k_scale, v_scale)
+    b, tq, hkv, g, dh = q.shape
+    kvl = _row_lengths(kv_valid_len, b, tq)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, tables, kvl, k_scale=k_scale,
+                                     v_scale=v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    r = paged_route(q.dtype, k_pages.dtype)
+    tables = tables.to(torch.int32).contiguous()
+    kvl = kvl.to(torch.int32).contiguous()
+    scales = (k_scale, v_scale) if k_scale is not None else ()
+    _cuda_ready(q, k_pages, v_pages, tables, kvl, *scales)
+    if b == 0 or tq == 0 or hkv == 0 or g == 0:
+        return torch.empty_like(q)
+    mb, bs = tables.shape[1], k_pages.shape[1]
+    nsplit, chunk = plan_decode_splits(b, hkv, mb * bs, sms=K.sm_count(q.get_device()))
+    part = torch.empty((b, hkv, nsplit, tq * g, dh + 2), dtype=torch.float32, device=q.device)
+    stream = _stream(q)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = K.library().flash_paged_partials_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale), ptr(v_scale),
+        tables.data_ptr(), kvl.data_ptr(), part.data_ptr(), b, tq, hkv, g, dh, bs, mb,
+        int(k_pages.dtype == torch.int8), nsplit, chunk, 1.0 / math.sqrt(dh), stream)
+    K.check(err, "flash_attention (paged partials)")
+    o = _launch_merge(part, tq, g, stream)
+    launches += 1
+    launches_by_route[r] += 1
+    return o
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
-                    kv_valid_len: int | None = None) -> torch.Tensor:
+                    kv_valid_len=None) -> torch.Tensor:
     """GQA attention; output in ``q.dtype``.  ``q_offset`` is the absolute
-    position of q[:, 0]; keys at or beyond ``kv_valid_len`` are masked."""
+    position of q[:, 0]; keys at or beyond ``kv_valid_len`` are masked.
+    A [b] or [b, tq] tensor ``kv_valid_len`` (per-row lengths, no causal
+    or window mask) is :func:`paged_attention` over k / v as a pool of one
+    block a request."""
     global launches
+    if isinstance(kv_valid_len, torch.Tensor):
+        if causal or window or q_offset:
+            raise ValueError("flash_attention: per-row valid lengths take no causal, window "
+                             "or q_offset mask")
+        tables = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)[:, None]
+        return paged_attention(q, k, v, tables, kv_valid_len)
     _check(q, k, v, window, q_offset, kv_valid_len)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,

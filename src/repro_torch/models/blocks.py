@@ -3,9 +3,10 @@
 
 Each sub-block provides ``*_layout(cfg, tp, b)`` (appends its segments to a
 LayoutBuilder) and ``*_apply`` (a plain function over unflattened tensors).
-This slice runs self-attention in prefill mode and in contiguous decode
-with a scalar position; the paged / vector-position decode waits for the
-continuous-batching slice.
+Self-attention runs in prefill mode, in contiguous decode at a scalar
+position, and at per-request positions (a ``[b]`` tensor ``ctx.pos``: the
+continuous-batching engine), over a contiguous cache or a paged KV pool
+(``ctx.pages``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import quant as Q
 from repro_torch.core.flat_param import LayoutBuilder
 from repro_torch.models import layers as L
 from repro_torch.models.dims import AttnDims, attn_dims, shard_dim
@@ -79,25 +81,93 @@ def _rope5(q: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tens
     return out.reshape(b, tq, hkv, g, dh)
 
 
+def _paged_kv_write(cache: dict, pages, k: torch.Tensor, v: torch.Tensor,
+                    absp: torch.Tensor, valid_tok: torch.Tensor) -> None:
+    """Scatter this tick's k/v token rows into the paged block pool IN
+    PLACE (the reference returns an updated copy).
+
+    cache: {"k", "v"[, "ks", "vs"]}, k/v [n_blocks, block_size, h, dh]
+    (int8 pools add fp32 scale pages [n_blocks, block_size, h, n_scale]);
+    k/v [b, tq, h, dh]; absp [b, tq] absolute positions; valid_tok [b, tq].
+    A padding row (``valid_tok`` False) writes zeros into the garbage block
+    0, which therefore stays all zeros: the reference drops such writes
+    (``mode="drop"``), and every row writing there writes the same zeros,
+    so the scatter is deterministic.  Int8 pools quantize each (token,
+    head) row against its own absmax (``quant.quantize_flat``, nearest);
+    blocks are only written incrementally, never re-quantized.
+    """
+    bs = cache["k"].shape[1]
+    tables = pages.block_tables
+    slot = torch.clamp(absp // bs, max=tables.shape[1] - 1)
+    blk = torch.where(valid_tok, torch.gather(tables.long(), 1, slot), 0)
+    off = absp % bs
+    if "ks" in cache:
+        qk, sk = Q.quantize_flat(k.float())
+        qv, sv = Q.quantize_flat(v.float())
+        rows = {"k": qk, "v": qv, "ks": sk, "vs": sv}
+    else:
+        rows = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+    keep = valid_tok[..., None, None]
+    for name, val in rows.items():
+        cache[name][blk, off] = torch.where(keep, val, torch.zeros_like(val))
+
+
+def _paged_kv_read(cache: dict, pages, q: torch.Tensor, kv_valid_len: torch.Tensor):
+    """Attention of q over the pool through the block tables (the
+    reference gathers a contiguous ``[b, max_blocks * block_size, h, dh]``
+    view and dequantizes it; the port's ``paged`` route reads the pages
+    where they lie, dequantizing int8 pages in its load: no view is made
+    on the card)."""
+    return L.paged_attention(q, cache["k"], cache["v"], pages.block_tables, kv_valid_len,
+                             k_scale=cache.get("ks"), v_scale=cache.get("vs"))
+
+
 def self_attention(t, x, ctx: L.Ctx, ad: AttnDims, cfg: ArchConfig, *,
                    prefix: str = "attn.", causal: bool = True, window: int = 0,
                    use_rope: bool = True, bias: bool = False, cache=None):
     """Self attention in prefill, contiguous decode or cache-less mode.
 
-    cache: None, or dict(k, v) of [b, cap, hkv, dh] for decode.  Returns
-    (out, new_cache).  Decode writes the new token's k/v into ``cache``
-    IN PLACE (JAX returns an updated copy via ``dynamic_update_slice``) and
-    returns the same dict.
+    cache: None, or dict(k, v) of [b, cap, hkv, dh] for decode, or one
+    layer's paged pool (``ctx.pages`` set).  Returns (out, new_cache).
+    Decode writes the new tokens' k/v into ``cache`` IN PLACE (JAX returns
+    an updated copy) and returns the same dict.
     """
     bsz, tq, _ = x.shape
     q, k, v = attn_qkv(t, x, x, ad, ctx, prefix, bias=bias)
 
+    if ctx.mode == "decode" and (ctx.pages is not None or isinstance(ctx.pos, torch.Tensor)):
+        # Continuous batching: per-request positions [b] (a ragged batch),
+        # optionally over a paged block pool.  tq > 1 is a chunk of tokens a
+        # slot (chunked prefill interleaved with decode); rows at or past a
+        # slot's n_new are padding whose writes are dropped and whose
+        # outputs the scheduler ignores.
+        if window:
+            raise NotImplementedError("paged / vector-position decode needs window == 0")
+        pages = ctx.pages
+        absp = ctx.pos.to(x.device).long()[:, None] + torch.arange(tq, device=x.device)[None, :]
+        if use_rope:
+            q = _rope5(q, absp, cfg.rope_theta)
+            k = L.rotary(k, absp, cfg.rope_theta)
+        if pages is not None:
+            n_new = pages.n_new
+            valid_tok = (torch.arange(tq, device=x.device)[None, :] < n_new.to(x.device)[:, None]
+                         if n_new is not None
+                         else torch.ones((bsz, tq), dtype=torch.bool, device=x.device))
+            _paged_kv_write(cache, pages, k, v, absp, valid_tok)
+            out = _paged_kv_read(cache, pages, q, absp + 1)
+        else:  # the contiguous vector-position reference: every row is a token
+            bidx = torch.arange(bsz, device=x.device)[:, None]
+            cache["k"][bidx, absp] = k.to(cache["k"].dtype)  # in place
+            cache["v"][bidx, absp] = v.to(cache["v"].dtype)  # in place
+            out = L.attention(q, cache["k"], cache["v"], causal=False, window=0,
+                              kv_valid_len=absp + 1)
+        # a cache dtype wider than the compute dtype (fp32 KV under bf16
+        # compute) must not leak into the residual stream
+        out = out.to(x.dtype)
+        return attn_out(t, out, ad, ctx, prefix, bias=bias), cache
+
     if ctx.mode == "decode":
         pos = ctx.pos
-        if not isinstance(pos, int):
-            raise NotImplementedError(
-                "per-request (vector) decode positions come with the "
-                "continuous-batching slice")
         positions = torch.full((bsz, tq), pos, dtype=torch.int64, device=x.device)
         if use_rope:
             q = _rope5(q, positions, cfg.rope_theta)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention
+from repro_torch.kernels.flash_attention import paged_attention  # noqa: F401 (a call site)
 from repro_torch.kernels.rmsnorm import RmsNormFn, rmsnorm
 
 NEG_INF = -1e30
@@ -35,7 +36,8 @@ class Ctx:
 
     mode: str = "train"            # train | prefill | decode
     tp: int = 1
-    pos: Any = None                # decode: current absolute position (int)
+    pos: Any = None                # decode: absolute position (int), or [b] per request
+    pages: Any = None              # decode over a paged KV pool: runtime/paged.PageState
     cache_len: int = 0             # KV-cache capacity
     compute_dtype: torch.dtype = torch.bfloat16
     comm: Any = None               # the CommEngine of the model axis (tp > 1)
@@ -78,9 +80,11 @@ def attention(
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,               # absolute position of q[:, 0]
-    kv_valid_len: int | None = None,  # decode: number of valid cache entries
+    kv_valid_len: Any = None,        # decode: valid cache entries, an int or a [b] / [b, tq] tensor
 ) -> torch.Tensor:
-    """Scaled-dot-product GQA attention -> [b, tq, hkv, g, dh]."""
+    """Scaled-dot-product GQA attention -> [b, tq, hkv, g, dh].  Per-row
+    valid lengths (a tensor ``kv_valid_len``: the ragged rows of continuous
+    batching) take the flash kernel's ``paged`` route."""
     if _records_grad(q, k, v):
         return FlashAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(), causal,
                                       window, q_offset, kv_valid_len)

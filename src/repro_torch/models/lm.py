@@ -55,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.hostoffload import Carry
 from repro_torch.core.flat_param import FlatLayout
+from repro_torch.kernels.quant.kernel import mix32
 from repro_torch.models import layers as L
 
 
@@ -321,11 +322,20 @@ def prefill(model: ModelDef, flat, comm, ctx: L.Ctx, batch):
 
 
 def decode_step(model: ModelDef, flat, comm, ctx: L.Ctx, tokens: torch.Tensor,
-                pos: int, caches: dict):
-    """One token per row at absolute position ``pos``; caches update in place."""
-    ctx = dataclasses.replace(ctx, mode="decode", pos=pos)
+                pos, caches: dict, *, pages=None, rows: torch.Tensor | None = None):
+    """Tokens [b, tq] at absolute position ``pos`` (an int), or at
+    per-request positions (a [b] tensor: row i of request b is at
+    ``pos[b] + i``), over contiguous caches or, with ``pages``
+    (``runtime/paged.PageState``), over paged KV pools; the caches update
+    in place.  Logits [b, tq, V]; with ``rows`` [b] only those of token
+    ``rows[b]`` of each request, [b, 1, V] (the final norm and the head run
+    on those rows alone)."""
+    ctx = dataclasses.replace(ctx, mode="decode", pos=pos, pages=pages)
     hidden, _, new_caches, t_head = forward(
         model, flat, comm, ctx, {"tokens": tokens}, caches)
+    if rows is not None:
+        hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device),
+                        rows.to(hidden.device)][:, None]
     logits = lm_logits(model, t_head, hidden, ctx)
     return logits, new_caches
 
@@ -361,3 +371,62 @@ def greedy_sample(logits_local: torch.Tensor, ctx: L.Ctx, vocab_real: int) -> to
     cand = torch.where(local_max >= gmax, local_arg,
                        torch.full_like(local_arg, torch.iinfo(torch.int64).max))
     return ctx.comm.model_pmin(cand)
+
+
+# Salt of the sampler's counter hash (distinct from the quantizer's keys).
+SAMPLER_SALT = 0x5EED0A17
+
+
+def gumbel_noise(seed: torch.Tensor, pos: torch.Tensor, cols: int, start: int = 0) -> torch.Tensor:
+    """Gumbel(0, 1) noise [b, cols] for the vocab columns ``start ...
+    start + cols`` of request b: ``-log(-log(u))`` with ``u`` a counter
+    hash of (request seed, token position, global column), the quantizer's
+    ``mix32`` rounds: ``k1 = mix32(seed ^ SAMPLER_SALT)``, ``k2 = mix32(k1 ^
+    pos)``, ``h = mix32(mix32(col ^ k2) ^ k1)``, ``u = ((h >> 9) + 0.5) /
+    2^23`` in (0, 1).  A draw is a function of (seed, position, column)
+    alone: the same in any slot, batch, chunking or vocab shard, and the
+    same integer bits on the CPU and the card (the logs may round an ulp
+    apart there)."""
+    m32 = 0xFFFFFFFF
+    k1 = mix32((seed.to(torch.int64) & m32) ^ SAMPLER_SALT)
+    k2 = mix32(k1 ^ (pos.to(device=k1.device, dtype=torch.int64) & m32))
+    col = torch.arange(start, start + cols, dtype=torch.int64, device=k1.device)
+    h = mix32(mix32(col[None, :] ^ k2[:, None]) ^ k1[:, None])
+    u = ((h >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
+    return -torch.log(-torch.log(u))
+
+
+def sample_tokens(logits_local: torch.Tensor, ctx: L.Ctx, vocab_real: int, *,
+                  seed: torch.Tensor, pos: torch.Tensor, temperature: torch.Tensor,
+                  top_k: int = 0) -> torch.Tensor:
+    """Seeded categorical sampler over the logits [b, V] -> [b] ids (the
+    port of ``repro/models/lm.py::sample_tokens``).
+
+    Exact Gumbel-max: ``argmax(logits / T + G)`` with G drawn by
+    :func:`gumbel_noise` from (request seed [b], position of the sampled
+    token [b], vocab column), so decoding is reproducible per (seed,
+    position) and distinct across both.  Rows with ``temperature == 0``
+    take the noiseless argmax, bitwise :func:`greedy_sample`.  ``top_k``
+    keeps the columns at or above the k-th largest logit (exact: ties at
+    the threshold stay).  What is held: the draw's determinism, greedy
+    parity, the law softmax(logits / T) over the kept columns.  What is
+    not: JAX's bits (its noise is threefry, ``jax.random.gumbel``), so a
+    sampled row does not match the reference's token for token.  Serving
+    at tp > 1 (vocab-parallel logits) waits for ROADMAP Queue 1 item 6b.
+    """
+    if ctx.tp > 1:
+        raise NotImplementedError(
+            "sampling vocab-parallel logits (tp > 1) comes with serving over ranks, "
+            "ROADMAP Queue 1 item 6b")
+    b, vl = logits_local.shape
+    lg = logits_local.float()
+    col = torch.arange(vl, device=lg.device)
+    lg = torch.where(col < vocab_real, lg, torch.full_like(lg, L.NEG_INF))
+    if top_k:
+        thr = torch.topk(lg, min(top_k, vl), dim=-1).values[:, -1:]
+        lg = torch.where(lg < thr, torch.full_like(lg, L.NEG_INF), lg)
+    temp = temperature.to(device=lg.device, dtype=torch.float32)[:, None]
+    g = gumbel_noise(seed.to(lg.device), pos, vl)
+    # masked lanes stay masked: NEG_INF / T + G is still below any real score
+    scores = torch.where(temp > 0, lg / torch.clamp_min(temp, 1e-6) + g, lg)
+    return torch.argmax(scores, dim=-1)

@@ -1,6 +1,7 @@
-"""Serving runtime: fixed-batch prefill + greedy KV-cache decode (the port
-of ``repro/runtime/serving.py``'s ``build_serve_steps`` and
-``pad_ragged_batch``).
+"""Serving runtime: fixed-batch prefill + KV-cache decode with the seeded
+sampler (the port of ``repro/runtime/serving.py``'s ``build_serve_steps``
+and ``pad_ragged_batch``); the continuous-batching engine is
+``runtime/paged.py``, ``runtime/batching.py`` and ``runtime/resilient.py``.
 
 Inference uses the same flat-pool parameter gathering as training: every
 step re-gathers every layer through the ``CommEngine`` (at p = 1 on one
@@ -9,7 +10,7 @@ card, the cast of each fp32 row to the wire dtype).  With
 ``{'q': int8, 's': fp32 block scales}`` a pool) and each layer's row is
 dequantized on the card every step, where the bf16 path reads fp32 rows
 and casts them.  Serving over more than one rank is refused (ROADMAP
-Queue 1 item 6).
+Queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -69,26 +70,33 @@ def _check_params(model: ModelDef, params: dict, device: torch.device,
                 raise ValueError(f"pool {name!r} is on {t.device}, the serve steps on {device}")
 
 
+def refuse_world(topo: MiCSTopology) -> None:
+    """Serving runs on one rank; more waits for ROADMAP Queue 1 item 6b."""
+    if topo.world_size > 1:
+        raise NotImplementedError(
+            f"serving over {topo.world_size} ranks (p = {topo.partition_size}, "
+            f"{topo.replication_degree} replicas, tp = {topo.model_size}) waits for ROADMAP "
+            "Queue 1 item 6b, serving over ranks; the port serves on one card")
+
+
 def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
-                      cache_len: int, *, device: str | torch.device = "cuda"):
+                      cache_len: int, *, top_k: int = 0,
+                      device: str | torch.device = "cuda"):
     """Returns ``(prefill_fn, decode_fn)`` running on ``device``.
 
     ``prefill_fn(params, batch) -> (logits [b, 1, V], caches)``; with
     ``mcfg.quant_gather`` the params are stored int8 pools
     (``quant.quantize_state``).
     ``decode_fn(params, caches, tokens, pos, seeds=None, temps=None,
-    row_mask=None) -> (logits [b, 1, V], next_tokens [b, 1], caches)`` is
-    greedy: the argmax over the real vocab; rows where ``row_mask`` is False
-    emit -1.  The caches are updated in place.  A temperature above 0 raises:
-    the seeded sampler cannot match JAX's threefry noise and comes with the
-    continuous-batching slice.
+    row_mask=None) -> (logits [b, 1, V], next_tokens [b, 1], caches)``
+    samples the token at ``pos + 1`` with ``lm.sample_tokens`` (per-request
+    ``seeds`` and ``temps``, ``top_k``); without ``temps`` (every row at
+    temperature 0) it takes ``lm.greedy_sample``, the same argmax without
+    drawing noise.  Rows where ``row_mask`` is False emit -1.  The caches
+    are updated in place.
     """
     dev = resolve_device(device)
-    if topo.world_size > 1:
-        raise NotImplementedError(
-            f"serving over {topo.world_size} ranks (p = {topo.partition_size}, "
-            f"{topo.replication_degree} replicas) waits for ROADMAP Queue 1 item 6, the "
-            "serving engine; the port serves on one card")
+    refuse_world(topo)
     if mcfg.scores_bf16:
         raise NotImplementedError(SCORES_BF16_UNNEEDED)
     comm = CommEngine.from_config(topo, mcfg)
@@ -103,16 +111,19 @@ def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
 
     @torch.inference_mode()
     def decode_fn(params, caches, tokens, pos, seeds=None, temps=None, row_mask=None):
-        del seeds  # only the seeded sampler reads them
         _check_params(model, params, dev, mcfg.quant_gather)
-        if temps is not None and bool((torch.as_tensor(temps) > 0).any()):
-            raise NotImplementedError(
-                "temperature > 0: the seeded sampler comes with the "
-                "continuous-batching slice")
         tokens = tokens.to(dev)
         logits, new_caches = lm.decode_step(model, params, comm, ctx, tokens,
                                             int(pos), caches)
-        nxt = lm.greedy_sample(logits[:, -1], ctx, model.cfg.vocab)
+        if temps is None:
+            nxt = lm.greedy_sample(logits[:, -1], ctx, model.cfg.vocab)
+        else:
+            b = tokens.shape[0]
+            seeds = torch.zeros(b, dtype=torch.int64) if seeds is None else seeds
+            nxt = lm.sample_tokens(
+                logits[:, -1], ctx, model.cfg.vocab, seed=torch.as_tensor(seeds).to(dev),
+                pos=torch.full((b,), int(pos) + 1, dtype=torch.int64, device=dev),
+                temperature=torch.as_tensor(temps).to(dev), top_k=top_k)
         if row_mask is not None:
             nxt = torch.where(row_mask.to(dev), nxt, torch.full_like(nxt, -1))
         return logits, nxt[:, None], new_caches

@@ -103,9 +103,40 @@ def test_later_slices_raise():
                dict(grad_rounding="down")):
         with pytest.raises(ValueError):
             MiCSConfig(**kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        build_serve_steps(build_model(get_config("llama3.2-1b"), tp=1),
-                          MiCSTopology(repl=2, shard=2), MiCSConfig(), 24, device="cpu")
+    # serving over ranks (ROADMAP Queue 1 item 6b): the fixed-batch steps,
+    # the paged engine's steps and pools, and the resilient loop
+    from repro_torch.kernels.flash_attention import paged_route
+    from repro_torch.runtime import paged as PG
+    from repro_torch.runtime.resilient import ResilientServeLoop, ServeLoopConfig
+
+    llama = build_model(get_config("llama3.2-1b"), tp=1)
+    for topo in (MiCSTopology(repl=2, shard=2), MiCSTopology(model=2)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
+            build_serve_steps(llama, topo, MiCSConfig(), 24, device="cpu")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
+            PG.build_paged_step(llama, topo, MiCSConfig(), max_blocks=2, device="cpu")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
+            PG.init_paged_caches(llama, topo, 4, 16, device="cpu")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
+            ResilientServeLoop(llama, topo, MiCSConfig(),
+                               ServeLoopConfig(slots_local=1, nb_local=3, block_size=16,
+                                               max_blocks=2), device="cpu")
+    # fp32 KV pools (and fp32 queries) take no CUDA route of the paged kernel
+    with pytest.raises(NotImplementedError, match="fp32 KV pools on the card"):
+        paged_route(torch.bfloat16, torch.float32)
+    with pytest.raises(NotImplementedError, match="fp32 KV pools on the card"):
+        paged_route(torch.float32, torch.float32)
+    # the paged engine serves the dense family only (griffin's caches are
+    # windowed and recurrent), and the kv settings are validated
+    with pytest.raises(NotImplementedError, match="window"):
+        PG.init_paged_caches(build_model(get_config("recurrentgemma-2b"), tp=1),
+                             MiCSTopology(), 4, 16, device="cpu")
+    for kw in (dict(kv_dtype="fp8"), dict(kv_block_size=0), dict(max_resident_requests=-1)):
+        with pytest.raises(ValueError):
+            MiCSConfig(**kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        PG.build_paged_step(llama, MiCSTopology(), MiCSConfig(policy="auto"), max_blocks=2,
+                            device="cpu")
     # The staged settings build engines whose policy is the config's.
     for staged, (topology, inner) in ((dict(hierarchical=False), ("flat", None)),
                                       (dict(gather_order="outer_first"), ("outer_first", None)),

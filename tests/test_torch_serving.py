@@ -279,13 +279,26 @@ def test_pad_ragged_batch():
 
 
 def test_decode_temperature_refused(setup):
+    """Temperature > 0 is no longer refused: the decode step samples the
+    token at ``pos + 1`` with the seeded sampler (``lm.sample_tokens``),
+    and rows at temperature 0 take the greedy argmax, as without ``temps``."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import Ctx
+
     prefill_fn, decode_fn = build_serve_steps(
-        setup["model_t"], MiCSTopology(), MiCSConfig(), setup["CACHE"], device="cpu")
-    _, caches = prefill_fn(setup["params_t"],
-                           {"tokens": torch.from_numpy(setup["tokens"]).long()})
-    with pytest.raises(NotImplementedError, match="sampler"):
-        decode_fn(setup["params_t"], caches, torch.zeros(setup["B"], 1, dtype=torch.long),
-                  setup["T0"], temps=torch.full((setup["B"],), 0.7))
+        setup["model_t"], MiCSTopology(), MiCSConfig(), setup["CACHE"], device="cpu", top_k=5)
+    b, tok = setup["B"], torch.zeros(setup["B"], 1, dtype=torch.long)
+    seeds, temps = torch.arange(b) + 3, torch.tensor([0.7] + [0.0] * (b - 1))
+    outs = []
+    for kw in (dict(seeds=seeds, temps=temps), {}):
+        _, caches = prefill_fn(setup["params_t"],
+                               {"tokens": torch.from_numpy(setup["tokens"]).long()})
+        outs.append(decode_fn(setup["params_t"], caches, tok, setup["T0"], **kw))
+    (logits, sampled, _), (_, greedy, _) = outs
+    want = lm.sample_tokens(logits[:, -1], Ctx(), setup["model_t"].cfg.vocab, seed=seeds,
+                            pos=torch.full((b,), setup["T0"] + 1), temperature=temps, top_k=5)
+    assert torch.equal(sampled[:, 0], want)
+    assert torch.equal(sampled[1:], greedy[1:])
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-2b"])
@@ -303,13 +316,18 @@ def test_serve_cli_cpu(arch):
 @pytest.mark.parametrize("flag", [["--continuous"], ["--policy", "auto"], ["--quant-gather"]])
 def test_serve_cli_refuses_later_slices(flag, capsys):
     """The later slices' flags are refused; ``--quant-gather`` (the int8
-    wire slice) now serves from stored int8 weights."""
+    wire slice) serves from stored int8 weights and ``--continuous`` (the
+    continuous-batching slice) through the resilient engine."""
     from repro_torch.launch.serve import main
 
     argv = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", *flag]
     if flag == ["--quant-gather"]:
         main([*argv, "--decode-tokens", "2"])
         assert "int8 weights" in capsys.readouterr().out
+        return
+    if flag == ["--continuous"]:
+        main([*argv, "--requests", "2", "--decode-tokens", "2"])
+        assert "served 2/2 requests" in capsys.readouterr().out
         return
     with pytest.raises(SystemExit) as ei:
         main(argv)
