@@ -63,13 +63,13 @@ check raises and the script exits non-zero; no phase swallows an error):
    the same 16 steps on int8 pools within ``PAGED_INT8_REL_TOL`` of the
    largest |logit|; chunk placement (the prompts streamed from position 0
    and from staggered first chunks: last tokens, logits and pool bitwise);
-   the ``paged`` route against its plain version at a decode tick and a
-   64-token chunk over bf16 and int8 pages; a run with an engine crash at
+   the ``paged`` route against its plain version at the engine's shapes
+   over bf16 and int8 pages (dead rows exactly zero); a run with an engine crash at
    tick 20 whose completions are the fault-free run's bit for bit; a run
    on int8 pools (its ledger, its share of tokens equal to bf16's); each
    run's launches, set to 0 just before it and read just after: per engine
    step RMSNorm 33 and attention 16, every call on ``paged`` (``split`` and
-   ``mma`` 0), ``quantize`` 32 with int8 pools.  It prints ticks, wall
+   ``mma`` 0) and its ``wgmma`` body, ``quantize`` 32 with int8 pools.  It prints ticks, wall
    seconds and tokens/s, time to first token in ticks and ms (p50, p99),
    decode ms a tick, a profiled decode tick's busy time and idle share,
    ``peak_gb`` and the pool's GB.
@@ -233,9 +233,12 @@ check raises and the script exits non-zero; no phase swallows an error):
    stage's ``[4, n / 4]``, ragged lengths, bf16 input and all-zero blocks,
    beside the eager sequence each replaces (``eager_ms``; no library call).
    The ``paged`` route (``flash_attention_paged``) at ``serve_paged``'s
-   shapes (a decode tick of 8 requests at lengths 250-350, a 64-token
-   chunk; bf16 and int8 pages) with SDPA over the contiguous view
-   gathered beforehand as ``library_ms``.
+   shapes (8 requests at lengths 250-350: the engine's decode-only tick,
+   64 rows a slot of which one is live; a mixed tick, 2 slots prefilling a
+   chunk, 5 decoding, 1 idle; a 64-token chunk; a one-row decode tick;
+   bf16 and int8 pages), its bound from the live rows' keys, with SDPA
+   over the live rows and the contiguous view gathered beforehand as
+   ``library_ms``.
 
 ``python3 chip_smoke.py --profile-only`` runs the ``profile`` phases alone
 (both serve paths, then the train steps; no checks, no result line): it
@@ -378,8 +381,8 @@ def reset_counts() -> None:
 
     for mod, attr in counter_attrs().values():
         setattr(mod, attr, 0)
-    for table in (FA.launches_by_route, FA.launches_bwd_by_route, RG.launches_by_form,
-                  RG.launches_bwd_by_form, RN.launches_bwd_by_route,
+    for table in (FA.launches_by_route, FA.launches_bwd_by_route, FA.launches_paged_by_form,
+                  RG.launches_by_form, RG.launches_bwd_by_form, RN.launches_bwd_by_route,
                   QK.launches_quantize_by_mode):
         table.update(dict.fromkeys(table, 0))
 
@@ -445,7 +448,7 @@ def ptxas_summary(log: str) -> list[dict]:
             row["dh"] = ints[0] if ints else (256 if "wgmma256" in kernel else None)
             if kernel.startswith("flash_paged"):  # <dh, int8 pages>
                 row["int8_pages"] = "Lb1E" in args
-            if "wgmma" in kernel:  # <dh, stages[, rows a tile]>
+            elif "wgmma" in kernel:  # <dh, stages[, rows a tile]>
                 row["stages"] = ints[1] if len(ints) > 1 else None
                 row["tile"] = ints[2] if len(ints) > 2 else None
         elif kernel.startswith("rmsnorm"):
@@ -1002,12 +1005,15 @@ def _pct(xs, q):
 def paged_kernel_cases(gen, dev, pg: PagedServe = PAGED) -> list:
     """The ``paged`` route's inputs at the phase's shapes: llama's 8 KV heads
     of g 4 at dh 64, a pool of ``slots * max_blocks + 1`` blocks of
-    ``block`` tokens, 8 requests on shuffled blocks; a decode tick (valid
-    lengths 250-350) and a 64-token chunk (positions at chunk starts), over
-    bf16 and int8 pages."""
+    ``block`` tokens, 8 requests on shuffled blocks, over bf16 and int8
+    pages.  First the shape the engine launches most: a decode-only tick
+    at the chunk width, each slot's row 0 live (valid lengths 250-350) and
+    its 63 others dead (length 0); then a mixed tick (slots 0-1 a whole
+    chunk at chunk starts, 2-6 decoding a row, 7 idle), a 64-token chunk
+    (every row live, positions at chunk starts) and a one-row decode tick."""
     from repro_torch.core import quant as Q
 
-    b, hkv, g, dh = pg.slots, 8, 4, 64
+    b, hkv, g, dh, w = pg.slots, 8, 4, 64, pg.chunk
     nb = pg.slots * pg.max_blocks + 1
     cap = pg.max_blocks * pg.block
     order = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(2)) + 1
@@ -1017,15 +1023,20 @@ def paged_kernel_cases(gen, dev, pg: PagedServe = PAGED) -> list:
     pages = {"bf16": ((k.to(torch.bfloat16), v.to(torch.bfloat16)), {})}
     (qk, sk), (qv, sv) = Q.quantize_flat(k), Q.quantize_flat(v)
     pages["int8"] = ((qk, qv), {"k_scale": sk, "v_scale": sv})
+    rows = torch.arange(1, w + 1, device=dev)[None, :]
+    decode_pos = torch.randint(249, 350, (b,), generator=gen, device=dev)
+    chunk_pos = w * torch.randint(0, cap // w - 1, (b,), generator=gen, device=dev)
+    n_new = torch.tensor([w, w, 1, 1, 1, 1, 1, 0], device=dev)
+    mixed_pos = torch.where(n_new == w, chunk_pos, decode_pos)
+    lengths = {
+        "engine decode-only tick": torch.where(rows == 1, decode_pos[:, None] + rows, 0),
+        "mixed tick": torch.where(rows <= n_new[:, None], mixed_pos[:, None] + rows, 0),
+        f"{w}-token chunk": chunk_pos[:, None] + rows,
+        "decode tick, one row": decode_pos[:, None] + 1,
+    }
     cases = []
-    for kind, tq in (("decode tick", 1), (f"{pg.chunk}-token chunk", pg.chunk)):
-        if tq == 1:
-            pos = torch.randint(249, 350, (b,), generator=gen, device=dev)
-        else:
-            pos = pg.chunk * torch.randint(0, cap // pg.chunk - 1, (b,), generator=gen,
-                                           device=dev)
-        kvl = pos[:, None] + torch.arange(1, tq + 1, device=dev)[None, :]
-        q = torch.randn(b, tq, hkv, g, dh, generator=gen, device=dev).to(torch.bfloat16)
+    for kind, kvl in lengths.items():
+        q = torch.randn(b, kvl.shape[1], hkv, g, dh, generator=gen, device=dev).to(torch.bfloat16)
         for dt, ((kp, vp), sc) in pages.items():
             cases.append((f"{kind}, {dt} pages", q, kp, vp, tables, kvl, sc))
     return cases
@@ -1034,12 +1045,15 @@ def paged_kernel_cases(gen, dev, pg: PagedServe = PAGED) -> list:
 def paged_kernel_checks(gen, dev, flush, timed: bool = True,
                         pg: PagedServe = PAGED) -> list:
     """The ``paged`` route against ``paged_attention_plain`` on the same
-    card tensors (the split route's bf16 tolerance), bitwise repeatable;
-    with ``timed`` its time, the plain version's, the bound (the live keys'
-    and values' bytes, and scales, q and o, against 3.35 TB/s; 4 dh
-    operations an allowed (row, key) pair) and, as ``library_ms``, SDPA over
-    the contiguous view gathered (and dequantized) beforehand with the same
-    boolean mask: the gather is not in its time."""
+    card tensors (the split route's bf16 tolerance), dead rows exactly
+    zero, bitwise repeatable; with ``timed`` its time, the plain
+    version's, the bound (the keys and values the live rows see, their
+    scales, the live rows of q and o, against 3.35 TB/s; 4 dh operations
+    an allowed (row, key) pair) and, as ``library_ms``, SDPA over the live
+    rows alone (one call a live-row count: the decode-only tick's q is
+    [b, 1, ...]; the mixed tick's two calls, its prefilling and its
+    decoding slots) against the contiguous view gathered (and dequantized)
+    beforehand with the same boolean mask: the gather is not in its time."""
     import torch.nn.functional as F
 
     from repro_torch.core import quant as Q
@@ -1056,18 +1070,23 @@ def paged_kernel_checks(gen, dev, flush, timed: bool = True,
                                  f"version (max |err| {err}, tol {tol})")
         if not torch.equal(o, FA.paged_attention(q, kp, vp, tables, kvl, **sc)):
             raise AssertionError(f"paged attention {kind}: not bitwise repeatable")
+        dead = kvl == 0
+        if o[dead].any():
+            raise AssertionError(f"paged attention {kind}: a dead row is not zero")
         b, tq, hkv, g, dh = q.shape
         bs, cap = kp.shape[1], tables.shape[1] * kp.shape[1]
+        n_live = (~dead).sum(dim=1)
         row = {"case": kind, "shape": {"b": b, "tq": tq, "hkv": hkv, "g": g, "dh": dh,
                                        "block_size": bs, "max_blocks": tables.shape[1],
                                        "n_blocks": kp.shape[0]},
-               "route": "paged", "pages": "int8" if sc else "bf16", "bitwise_repeat": True,
-               "max_abs_err": err, "tol": tol,
-               "valid_len": [int(kvl.min()), int(kvl.max())]}
+               "route": "paged", "body": FA.paged_body(dh), "pages": "int8" if sc else "bf16",
+               "bitwise_repeat": True, "dead_rows_zero": True, "max_abs_err": err, "tol": tol,
+               "live_rows": int(n_live.sum()), "dead_rows": int(dead.sum()),
+               "valid_len": [int(kvl[~dead].min()), int(kvl.max())]}
         if timed:
             live = torch.clamp(kvl.max(dim=1).values, max=cap).sum().item()  # keys read a head
             per_key = hkv * dh * kp.element_size() + (hkv * 4 * -(-dh // 128) if sc else 0)
-            nbytes = 2 * live * per_key + 2 * q.numel() * q.element_size()
+            nbytes = 2 * live * per_key + 2 * int(n_live.sum()) * hkv * g * dh * q.element_size()
             ops = 4 * dh * hkv * g * torch.clamp(kvl, max=cap).sum().item()
             b_ms, b_by = bound(nbytes, ops, torch.bfloat16)
 
@@ -1079,18 +1098,25 @@ def paged_kernel_checks(gen, dev, flush, timed: bool = True,
                 kv = [Q.dequantize_flat(kv[0], view(sc["k_scale"]), torch.bfloat16),
                       Q.dequantize_flat(kv[1], view(sc["v_scale"]), torch.bfloat16)]
             ks, vs = (t.permute(0, 2, 1, 3).contiguous() for t in kv)
-            qs = q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, tq, dh).contiguous()
-            mask = (torch.arange(cap, device=dev)[None, None, :] < kvl[:, :, None])[:, None]
+            calls = []  # SDPA over the live rows: a call a live-row count (a prefix a slot)
+            for n in sorted(set(n_live.tolist()) - {0}):
+                idx = torch.nonzero(n_live == n).flatten()
+                if not bool((kvl[idx, :n] > 0).all()):
+                    raise AssertionError(f"paged attention {kind}: live rows not a prefix")
+                qs = q[idx, :n].permute(0, 2, 3, 1, 4).reshape(len(idx), hkv * g, n, dh)
+                mask = (torch.arange(cap, device=dev)[None, None, :] < kvl[idx, :n, None])
+                calls.append((qs.contiguous(), ks[idx], vs[idx], mask[:, None]))
             row.update({
                 "ms": time_ms(lambda: FA.paged_attention(q, kp, vp, tables, kvl, **sc), flush),
                 "host_us": host_us(lambda: FA.paged_attention(q, kp, vp, tables, kvl, **sc)),
                 "plain_ms": time_ms(lambda: FA.paged_attention_plain(q, kp, vp, tables, kvl,
                                                                      **sc), flush),
                 "bound_ms": b_ms, "bound_by": b_by, "live_keys": live,
-                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=mask, enable_gqa=True), flush),
+                "library_ms": time_ms(lambda: [F.scaled_dot_product_attention(
+                    *c[:3], attn_mask=c[3], enable_gqa=True) for c in calls], flush),
+                "library_calls": len(calls),
                 "library_excludes": "the gather (and dequantize) of the contiguous view"})
-            del ks, vs, qs, kv, mask
+            del ks, vs, kv, calls
         out.append(row)
     return out
 
@@ -1247,6 +1273,7 @@ def serve_paged_phase(cfg, model, params, card, dev, pg: PagedServe = PAGED) -> 
         torch.cuda.synchronize()
         wall = time.perf_counter() - clock.start
         launches, by_route = read_counts(), dict(FA.launches_by_route)
+        forms = dict(FA.launches_paged_by_form)
         led, steps = rep["ledger"], len(clock.steps)
         if not (led["accounted"] and led["completed"] == pg.requests and led["shed"] == 0):
             raise AssertionError(f"serve_paged {label}: ledger {led}")
@@ -1256,13 +1283,15 @@ def serve_paged_phase(cfg, model, params, card, dev, pg: PagedServe = PAGED) -> 
             "quantize": 2 * per_step["flash_attention"] * steps if kv == "int8" else 0}
         want_route = {"mma": 0, "split": 0, "fma": 0,
                       "paged": per_step["flash_attention"] * steps}
-        if launches != want or by_route != want_route:
-            raise AssertionError(f"serve_paged {label}: launches {launches} / {by_route} != "
-                                 f"{want} / {want_route} ({steps} engine steps)")
+        want_forms = {"paged:wgmma": per_step["flash_attention"] * steps, "paged:mma": 0}
+        if launches != want or by_route != want_route or forms != want_forms:
+            raise AssertionError(f"serve_paged {label}: launches {launches} / {by_route} / "
+                                 f"{forms} != {want} / {want_route} / {want_forms} ({steps} "
+                                 "engine steps)")
         for toks in rep["completions"].values():
             if len(toks) != pg.new_tokens or min(toks) < 0 or max(toks) >= cfg.vocab:
                 raise AssertionError(f"serve_paged {label}: a completion {toks}")
-        return rep, reqs, clock, wall, launches, by_route
+        return rep, reqs, clock, wall, launches, (by_route, forms)
 
     # the kernel on the phase's shapes, before the engine runs
     kernel = paged_kernel_checks(torch.Generator(device=dev).manual_seed(3), dev, None,
@@ -1278,7 +1307,7 @@ def serve_paged_phase(cfg, model, params, card, dev, pg: PagedServe = PAGED) -> 
                   z(B, np.float32))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rep, reqs, clock, wall, launches, by_route = run(loop, "bf16", "bf16")
+    rep, reqs, clock, wall, launches, (by_route, forms) = run(loop, "bf16", "bf16")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     pool_gb = sum(t.numel() * t.element_size() for p in loop.caches.values()
                   for t in p.values()) / 1e9
@@ -1296,7 +1325,7 @@ def serve_paged_phase(cfg, model, params, card, dev, pg: PagedServe = PAGED) -> 
     del loop
     torch.cuda.empty_cache()
 
-    crash, _, _, cwall, claunches, _ = run(
+    crash, _, _, cwall, claunches, (_, cforms) = run(
         make_loop("bf16", FaultPlan.parse(f"crash@{pg.crash_at}")), "crash", "bf16")
     if crash["completions"] != rep["completions"]:
         raise AssertionError("serve_paged: the crash run's completions differ from the "
@@ -1305,7 +1334,7 @@ def serve_paged_phase(cfg, model, params, card, dev, pg: PagedServe = PAGED) -> 
     if [c["kind"] for c in changes] != ["crash"] or not changes[0]["replayed"]:
         raise AssertionError(f"serve_paged: crash ledger {changes}")
     torch.cuda.empty_cache()
-    int8, _, _, iwall, ilaunches, _ = run(make_loop("int8"), "int8", "int8")
+    int8, _, _, iwall, ilaunches, (_, iforms) = run(make_loop("int8"), "int8", "int8")
     same = [a == b for rid, toks in rep["completions"].items()
             for a, b in zip(toks, int8["completions"][rid])]
     torch.cuda.empty_cache()
@@ -1326,19 +1355,22 @@ def serve_paged_phase(cfg, model, params, card, dev, pg: PagedServe = PAGED) -> 
                 "by_kind")},
             "peak_gb": peak_gb, "pool_gb": pool_gb, "ledger": led,
             "launches": launches, "attention_launches_by_route": by_route,
+            "attention_launches_by_form": forms,
             "checks": {"ledger": f"{pg.requests} of {pg.requests} completed, accounted",
                        **consistency,
                        "crash_replay": {"at_tick": pg.crash_at, "replayed":
                                         changes[0]["replayed"], "ticks": crash["ticks"],
                                         "wall_s": cwall, "completions_bitwise": True,
-                                        "launches": claunches},
+                                        "launches": claunches,
+                                        "attention_launches_by_form": cforms},
                        "int8_engine": {"ledger_accounted": True, "ticks": int8["ticks"],
                                        "wall_s": iwall, "tokens_equal_to_bf16_share":
-                                       sum(same) / len(same), "launches": ilaunches},
+                                       sum(same) / len(same), "launches": ilaunches,
+                                       "attention_launches_by_form": iforms},
                        "paged_vs_plain": kernel,
                        "launch_counts": f"an engine step: RMSNorm {per_step['rmsnorm']}, "
                                         f"attention {per_step['flash_attention']}, all on "
-                                        "paged; int8 pools: quantize twice that"},
+                                        "paged:wgmma; int8 pools: quantize twice that"},
             "gpu": card}
 
 
@@ -3490,7 +3522,7 @@ def main() -> int:
     # -- 2. the serve paths ----------------------------------------------------
     by_path, launches_by_route = {}, dict.fromkeys(FA.ROUTES, 0)
     launches_by_form = dict.fromkeys(RG.FORMS, 0)
-    paged_launches = {}
+    paged_launches, paged_forms = {}, dict.fromkeys(FA.launches_paged_by_form, 0)
     for p in PATHS:
         by_path[p.arch], by_route, by_form, int8, paged = serve_path(p, card, dev)
         by_path[f"{p.arch} serve_int8"] = int8[0]
@@ -3505,6 +3537,9 @@ def main() -> int:
                 by_path[f"{p.arch} {run}"] = n
                 paged_launches[f"{p.arch} {run}"] = n["flash_attention"]
                 launches_by_route["paged"] += n["flash_attention"]
+            for line in (paged, checks["crash_replay"], checks["int8_engine"]):
+                for f, n in line["attention_launches_by_form"].items():
+                    paged_forms[f] += n
         for f, n in (*by_form.items(), *int8[2].items()):
             launches_by_form[f] += n
 
@@ -3587,11 +3622,12 @@ def main() -> int:
                        "paged": "src/repro_torch/kernels/csrc/flash_attention_paged.cu"},
               launches_by_route=launches_by_route),
         # the paged route alone (the continuous-batching engine): its checks,
-        # a decode tick first; its launches the serve_paged runs'
+        # the engine's decode-only tick first; its launches the serve_paged runs'
         entry("flash_attention_paged", "src/repro_torch/kernels/csrc/flash_attention_paged.cu",
               "src/repro/kernels/flash_attention/kernel.py:86", paged_checks,
-              by_path_n=paged_launches,
-              merge="src/repro_torch/kernels/csrc/flash_attention_split.cu flash_merge_kernel",
+              by_path_n=paged_launches, launches_by_form=paged_forms,
+              merge="src/repro_torch/kernels/csrc/flash_attention_paged.cu "
+                    "flash_paged_merge_kernel",
               call_site="src/repro/models/blocks.py:183-186 (L.attention over the paged view)"),
         entry("flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
               "src/repro/kernels/flash_attention/kernel.py:86", attn_bwd_checks,

@@ -18,8 +18,10 @@ from repro_torch.kernels.flash_attention.kernel import (
     merge_partials_plain,
     paged_attention,
     paged_attention_plain,
+    paged_body,
     paged_route,
     plan_decode_splits,
+    plan_paged_splits,
     route,
 )
 
@@ -27,4 +29,5 @@ __all__ = ["flash_attention", "attention_plain", "route", "plan_decode_splits",
            "decode_partials", "decode_partials_plain", "merge_partials_plain",
            "attention_plain_lse", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_on", "flash_attention_bwd_plain", "FlashAttentionFn",
-           "paged_attention", "paged_attention_plain", "paged_route"]
+           "paged_attention", "paged_attention_plain", "paged_route", "paged_body",
+           "plan_paged_splits"]

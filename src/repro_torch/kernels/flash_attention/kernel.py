@@ -15,12 +15,16 @@ TPU kernel it replaces, what bounds it and what the design does about it):
   (fp32's tolerance rules out TF32 tensor cores);
 
 and, for per-row valid lengths (a ``[b]`` or ``[b, tq]`` tensor
-``kv_valid_len``: the continuous-batching engine's ragged rows), the
-``"paged"`` route of :func:`paged_attention`: split-K partials over a
-paged KV pool read through a block table
-(``kernels/csrc/flash_attention_paged.cu``, bf16 queries over bf16 or int8
-pages, the pages dequantized in the load), then the split route's merge
-kernel.  A contiguous ``[b, tk, hkv, dh]`` cache is the pool of ``b``
+``kv_valid_len``: the continuous-batching engine's ragged rows; a row of
+length 0 is dead and its output exactly zero), the ``"paged"`` route of
+:func:`paged_attention`: split-K partials over a paged KV pool read
+through a block table, one block a (split, 64 packed rows, batch row, KV
+head), then a merge that reads each live row's splits and zeroes the dead
+ones (``kernels/csrc/flash_attention_paged.cu``, bf16 queries over bf16 or
+int8 pages, on the plan of :func:`plan_paged_splits`).  Its body follows
+the head dim (:func:`paged_body`): ``wgmma`` (warpgroup tensor cores, keys
+by TMA through the table) at 64 and 128, ``mma`` (``mma.sync``) at the
+others.  A contiguous ``[b, tk, hkv, dh]`` cache is the pool of ``b``
 blocks of ``tk`` keys with the table ``[[0], [1], ...]``, so the
 contiguous and the paged engine steps run the same kernel on the same
 plan.  fp32 pools take no CUDA route yet (:func:`paged_route` raises).
@@ -71,6 +75,9 @@ ROUTES = ("mma", "split", "fma", "paged")
 SPLIT_MAX_ROWS = 16      # one mma tile of packed query rows
 SPLIT_MIN_CHUNK = 32     # keys; a chunk is a multiple of 16
 SPLIT_BLOCKS_PER_SM = 2  # the split plan's target
+PAGED_KEYS = 64          # keys a paged key tile; a paged chunk is a multiple of it
+PAGED_BODIES = ("wgmma", "mma")
+PAGED_WGMMA_HEAD_DIMS = (64, 128)
 
 BWD_ROUTES = ("wgmma", "wgmma256", "mma", "fma")
 # The wgmma route: head dims whose rows 128-byte TMA boxes tile, and group
@@ -93,6 +100,7 @@ launches = 0
 launches_by_route = dict.fromkeys(ROUTES, 0)
 launches_bwd = 0
 launches_bwd_by_route = dict.fromkeys(BWD_ROUTES, 0)
+launches_paged_by_form = {f"paged:{body}": 0 for body in PAGED_BODIES}
 
 
 FP32_POOLS_TODO = (
@@ -108,6 +116,13 @@ def paged_route(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
     if torch.float32 in (q_dtype, kv_dtype):
         raise NotImplementedError(FP32_POOLS_TODO)
     raise TypeError(f"paged attention has no route for q {q_dtype} over {kv_dtype} pages")
+
+
+def paged_body(dh: int) -> str:
+    """The ``paged`` route's kernel body for head dim ``dh``: ``"wgmma"``
+    at ``PAGED_WGMMA_HEAD_DIMS`` (a tile row is one or two 128-byte TMA
+    halves), ``"mma"`` at the other head dims."""
+    return "wgmma" if dh in PAGED_WGMMA_HEAD_DIMS else "mma"
 
 
 def route(dtype: torch.dtype, rows: int, *, with_lse: bool = False) -> str:
@@ -203,16 +218,30 @@ def rowstat_rows(tq: int, g: int) -> int:
     return tq * g + (tq * g) % 2
 
 
-def plan_decode_splits(b: int, hkv: int, kv_len: int, *, sms: int = 132) -> tuple[int, int]:
+def plan_decode_splits(b: int, hkv: int, kv_len: int, *, sms: int = 132,
+                       multiple: int = 16) -> tuple[int, int]:
     """``(nsplit, chunk)``: keys ``[0, kv_len)`` cut into ``nsplit`` chunks
     of ``chunk`` keys (the last one cut short), so that ``b * hkv * nsplit``
     blocks reach about ``SPLIT_BLOCKS_PER_SM`` on each of ``sms`` SMs.
-    ``chunk`` is a multiple of 16 and no smaller than ``SPLIT_MIN_CHUNK``,
-    which stops the split first on short caches."""
+    ``chunk`` is a multiple of ``multiple`` and no smaller than
+    ``SPLIT_MIN_CHUNK``, which stops the split first on short caches."""
     want = max(1, -(-sms * SPLIT_BLOCKS_PER_SM // (b * hkv)))
     chunk = -(-max(kv_len, 1) // want)
-    chunk = max(SPLIT_MIN_CHUNK, -(-chunk // 16) * 16)
+    chunk = max(SPLIT_MIN_CHUNK, -(-chunk // multiple) * multiple)
     return -(-max(kv_len, 1) // chunk), chunk
+
+
+def plan_paged_splits(b: int, hkv: int, capacity: int, *, sms: int = 132) -> tuple[int, int]:
+    """The ``paged`` route's ``(nsplit, chunk)`` over the capacity
+    ``max_blocks * block_size``: :func:`plan_decode_splits` with chunks of
+    whole ``PAGED_KEYS`` tiles.  A function of the shapes alone -- never of
+    the tables, the lengths or which rows are live -- so a live row's bits
+    do not depend on what the other slots do, and the paged and contiguous
+    forms share it.  It is sized for one live row block a (batch row, KV
+    head), a decode-only tick at any chunk width (the engine's 8 slots x 8
+    KV heads over 576 positions: 5 chunks of 128 keys); the rows of a
+    prefill chunk multiply the blocks."""
+    return plan_decode_splits(b, hkv, capacity, sms=sms, multiple=PAGED_KEYS)
 
 
 def mask_bias(tq: int, tk: int, *, causal: bool, window: int, q_offset: int,
@@ -436,8 +465,10 @@ def paged_attention_plain(q, k_pages, v_pages, tables, kv_valid_len, *, k_scale=
     block table into a contiguous view ``[b, max_blocks * block_size, hkv,
     dh]`` (int8 pages dequantized to q's type, ``dequantize_plain``), then
     :func:`attention_plain` with the per-row mask (row i of request b sees
-    keys ``j < kv_valid_len[b, i]``)."""
+    keys ``j < kv_valid_len[b, i]``); a dead row (valid length 0) gives
+    exact zeros."""
     b, mb = tables.shape
+    kvl = _row_lengths(kv_valid_len, b, q.shape[1])
 
     def view(pages):
         pv = pages[tables.long()]                       # [b, mb, bs, hkv, ...]
@@ -447,8 +478,8 @@ def paged_attention_plain(q, k_pages, v_pages, tables, kv_valid_len, *, k_scale=
     if k_scale is not None:
         k = dequantize_plain(k, view(k_scale), q.dtype)
         v = dequantize_plain(v, view(v_scale), q.dtype)
-    return attention_plain(q, k, v, causal=False,
-                           kv_valid_len=_row_lengths(kv_valid_len, b, q.shape[1]))
+    o = attention_plain(q, k, v, causal=False, kv_valid_len=kvl)
+    return o.masked_fill((kvl.to(o.device) == 0)[:, :, None, None, None], 0)
 
 
 def _check_paged(q, k_pages, v_pages, tables, k_scale, v_scale) -> None:
@@ -484,9 +515,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     ceil(dh / 128)], or q's type), key j of request b at row
     ``j % block_size`` of block ``tables[b, j // block_size]``; row i of
     request b sees keys ``j < kv_valid_len[b, i]`` (a [b] or [b, tq]
-    tensor; each row must see at least one key).  CUDA: the ``paged``
-    route (:func:`paged_route`) on the split plan of the capacity
-    ``max_blocks * block_size``, then the merge; CPU:
+    tensor); a row of valid length 0 is dead and its output is exactly
+    zero.  CUDA: the ``paged`` route (:func:`paged_route`), body
+    :func:`paged_body`, on the plan of :func:`plan_paged_splits` over the
+    capacity ``max_blocks * block_size``, then its merge; CPU:
     :func:`paged_attention_plain`.  -> [b, tq, hkv, g, dh] in q's type."""
     global launches
     _check_paged(q, k_pages, v_pages, tables, k_scale, v_scale)
@@ -498,25 +530,32 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     r = paged_route(q.dtype, k_pages.dtype)
+    body = paged_body(dh)
+    mb, bs = tables.shape[1], k_pages.shape[1]
+    int8 = k_pages.dtype == torch.int8
+    if body == "wgmma" and int8 and mb > 1 and math.gcd(bs, PAGED_KEYS) * dh % 128:
+        raise ValueError(f"paged_attention: int8 pages at head dim {dh} take an even block "
+                         f"size (a TMA box of whole 128-byte rows); got {bs}")
     tables = tables.to(torch.int32).contiguous()
-    kvl = kvl.to(torch.int32).contiguous()
+    kvl = kvl.to(torch.int64).contiguous()  # the engine's lengths go in as they are
     scales = (k_scale, v_scale) if k_scale is not None else ()
     _cuda_ready(q, k_pages, v_pages, tables, kvl, *scales)
+    o = torch.empty_like(q)
     if b == 0 or tq == 0 or hkv == 0 or g == 0:
-        return torch.empty_like(q)
-    mb, bs = tables.shape[1], k_pages.shape[1]
-    nsplit, chunk = plan_decode_splits(b, hkv, mb * bs, sms=K.sm_count(q.get_device()))
+        return o
+    nsplit, chunk = plan_paged_splits(b, hkv, mb * bs, sms=K.sm_count(q.get_device()))
+    # written only for (live row, split) pairs with keys, read only there
     part = torch.empty((b, hkv, nsplit, tq * g, dh + 2), dtype=torch.float32, device=q.device)
-    stream = _stream(q)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = K.library().flash_paged_partials_launch(
+    err = K.library().flash_paged_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale), ptr(v_scale),
-        tables.data_ptr(), kvl.data_ptr(), part.data_ptr(), b, tq, hkv, g, dh, bs, mb,
-        int(k_pages.dtype == torch.int8), nsplit, chunk, 1.0 / math.sqrt(dh), stream)
-    K.check(err, "flash_attention (paged partials)")
-    o = _launch_merge(part, tq, g, stream)
+        tables.data_ptr(), kvl.data_ptr(), part.data_ptr(), o.data_ptr(), b, tq, hkv, g, dh,
+        bs, mb, k_pages.shape[0], int(int8), int(body == "wgmma"), nsplit, chunk,
+        1.0 / math.sqrt(dh), _stream(q))
+    K.check(err, f"flash_attention (paged, {body})")
     launches += 1
     launches_by_route[r] += 1
+    launches_paged_by_form[f"paged:{body}"] += 1
     return o
 
 

@@ -116,8 +116,8 @@ def _paged_kv_read(cache: dict, pages, q: torch.Tensor, kv_valid_len: torch.Tens
     """Attention of q over the pool through the block tables (the
     reference gathers a contiguous ``[b, max_blocks * block_size, h, dh]``
     view and dequantizes it; the port's ``paged`` route reads the pages
-    where they lie, dequantizing int8 pages in its load: no view is made
-    on the card)."""
+    where they lie, dequantizing int8 pages in shared memory: no view is
+    made on the card).  A row of valid length 0 is dead: zero output."""
     return L.paged_attention(q, cache["k"], cache["v"], pages.block_tables, kv_valid_len,
                              k_scale=cache.get("ks"), v_scale=cache.get("vs"))
 
@@ -140,7 +140,8 @@ def self_attention(t, x, ctx: L.Ctx, ad: AttnDims, cfg: ArchConfig, *,
         # optionally over a paged block pool.  tq > 1 is a chunk of tokens a
         # slot (chunked prefill interleaved with decode); rows at or past a
         # slot's n_new are padding whose writes are dropped and whose
-        # outputs the scheduler ignores.
+        # outputs the scheduler ignores: their valid length is 0, so the
+        # paged route skips them (a dead row's attention is zero).
         if window:
             raise NotImplementedError("paged / vector-position decode needs window == 0")
         pages = ctx.pages
@@ -154,7 +155,7 @@ def self_attention(t, x, ctx: L.Ctx, ad: AttnDims, cfg: ArchConfig, *,
                          if n_new is not None
                          else torch.ones((bsz, tq), dtype=torch.bool, device=x.device))
             _paged_kv_write(cache, pages, k, v, absp, valid_tok)
-            out = _paged_kv_read(cache, pages, q, absp + 1)
+            out = _paged_kv_read(cache, pages, q, torch.where(valid_tok, absp + 1, 0))
         else:  # the contiguous vector-position reference: every row is a token
             bidx = torch.arange(bsz, device=x.device)[:, None]
             cache["k"][bidx, absp] = k.to(cache["k"].dtype)  # in place

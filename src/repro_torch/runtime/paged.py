@@ -36,7 +36,11 @@ quantizer (nearest rounding): each token row is quantized once, when it is
 written, per (token, head, 128 values of head_dim), with fp32 scale pages
 beside the values; blocks are never re-quantized.  Per element the error is
 at most 1/254 of the row block's absmax.  The kernel dequantizes pages in
-its load.
+shared memory.
+
+Rows past a slot's ``n_new`` (the padding of a chunk-width tick, and every
+row of an idle slot) reach attention with valid length 0: the ``paged``
+route skips them and gives them zero output, which nothing reads.
 """
 
 from __future__ import annotations

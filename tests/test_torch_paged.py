@@ -15,7 +15,9 @@
 * the sampler's properties (``lm.sample_tokens``): temperature 0 is
   ``greedy_sample``; a draw is a function of (seed, position); other seeds
   decorrelate; the law softmax(logits / T) (chi-square); top-k support;
-* on the card (``gpu``): the ``paged`` route against its plain version.
+* on the card (``gpu``): the ``paged`` route against its plain version on
+  both bodies, with dead rows, at block sizes 4, 8 and 16 and in the
+  contiguous form.
 """
 
 import pytest
@@ -488,14 +490,25 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pages", ["bf16", "int8"])
-def test_cuda_paged_route_matches_plain(cuda_device, pages):
-    """The ``paged`` route at a decode tick and a 9-token chunk (ragged
-    lengths, a shared and an unset block) against its plain version on the
-    same card tensors (the split route's bf16 tolerance), bitwise
-    repeatable, and the contiguous form (a one-block-a-request pool) bitwise
-    the paged one."""
+@pytest.mark.parametrize("dh,bs", [(64, 16), (64, 4), (128, 16), (128, 4), (32, 16), (256, 8)])
+def test_cuda_paged_route_matches_plain(cuda_device, pages, dh, bs):
+    """The ``paged`` route at a decode tick, a 9-token chunk and a 64-row
+    tick with dead rows (n_new 64 / 1 / 0 / 5 across slots), over pages of
+    4, 8 or 16 tokens (a shared and unset blocks), on its ``wgmma`` body
+    (head dims 64 and 128) and its ``mma`` body (32, 256), against its
+    plain version on the same card tensors (the split route's bf16
+    tolerance); dead rows exactly zero; bitwise repeatable; the contiguous
+    form (a one-block-a-request pool of the gathered view) bitwise the
+    paged one; each call counted on its body."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
-    b, hkv, g, dh, bs, mb, nb = 4, 2, 4, 64, 16, 6, 30
+    b, hkv, g, cap = 4, 2, 4, 96
+    mb = cap // bs
+    nb = b * mb + 2
+    order = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(1)) + 1
+    tables = order[:b * mb].reshape(b, mb).to(torch.int32)
+    tables[1, mb // 2:] = 0                  # unset entries: the garbage block
+    tables[2, 1] = tables[0, 1]              # a block two tables share
+    tables = tables.to(cuda_device)
     k_pages = torch.randn(nb, bs, hkv, dh, generator=gen, device=cuda_device)
     v_pages = torch.randn(nb, bs, hkv, dh, generator=gen, device=cuda_device)
     scales = {}
@@ -504,13 +517,33 @@ def test_cuda_paged_route_matches_plain(cuda_device, pages):
         scales = dict(k_scale=ks, v_scale=vs)
     else:
         k_pages, v_pages = k_pages.to(torch.bfloat16), v_pages.to(torch.bfloat16)
-    tables = torch.tensor([[1, 2, 3, 4, 5, 6], [7, 8, 0, 0, 0, 0], [9, 2, 10, 11, 0, 0],
-                           [12, 13, 14, 15, 16, 17]], dtype=torch.int32, device=cuda_device)
-    for tq, pos in ((1, [90, 20, 50, 95]), (9, [40, 0, 33, 87])):
-        q = torch.randn(b, tq, hkv, g, dh, generator=gen, device=cuda_device).to(torch.bfloat16)
-        kvl = torch.tensor(pos, device=cuda_device)[:, None] + torch.arange(
-            1, tq + 1, device=cuda_device)[None, :]
+
+    def contiguous(p):
+        return p[tables.long()].reshape(b, cap, *p.shape[2:]).contiguous()
+
+    one = torch.arange(b, dtype=torch.int32, device=cuda_device)[:, None]
+    contig = [contiguous(k_pages), contiguous(v_pages)]
+    contig_scales = {n: contiguous(t) for n, t in scales.items()}
+    dev = cuda_device
+    n_new = torch.tensor([64, 1, 0, 5], device=dev)
+    lengths = {
+        1: torch.tensor([90, 20, 50, 95], device=dev)[:, None] + 1,
+        9: torch.tensor([40, 0, 33, 87], device=dev)[:, None] + torch.arange(1, 10, device=dev),
+        64: torch.where(torch.arange(64, device=dev) < n_new[:, None],
+                        torch.tensor([32, 47, 0, 60], device=dev)[:, None]
+                        + torch.arange(1, 65, device=dev), 0),
+    }
+    form = f"paged:{FA.paged_body(dh)}"
+    for tq, kvl in lengths.items():
+        q = torch.randn(b, tq, hkv, g, dh, generator=gen, device=dev).to(torch.bfloat16)
+        before = FA.kernel.launches_paged_by_form[form]
         got = FA.paged_attention(q, k_pages, v_pages, tables, kvl, **scales)
+        assert FA.kernel.launches_paged_by_form[form] == before + 1
         want = FA.paged_attention_plain(q, k_pages, v_pages, tables, kvl, **scales)
         np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()), rtol=2e-2, atol=2e-2)
+        assert not got[kvl == 0].any()
         assert torch.equal(got, FA.paged_attention(q, k_pages, v_pages, tables, kvl, **scales))
+        assert torch.equal(got, FA.paged_attention(q, *contig, one, kvl, **contig_scales))
+        if pages == "bf16":
+            assert torch.equal(got, FA.flash_attention(q, *contig, causal=False,
+                                                       kv_valid_len=kvl))

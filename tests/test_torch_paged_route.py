@@ -1,0 +1,195 @@
+"""The ``paged`` route's rules on the CPU: the dead-row convention of
+``paged_attention`` / ``paged_attention_plain`` (a row of valid length 0
+gives exact zeros and leaves every other row's bits as they were), the
+split plan (a function of the shapes alone), the body a head dim takes,
+and the engine's call site (rows past a slot's ``n_new`` are dead).  The
+live rows are held to the reference's ``layers.attention`` over the
+gathered view."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.core import quant as Q  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
+
+# b, tq, hkv, g, dh, block size, blocks a table, blocks in the pool
+SHAPE = (4, 6, 2, 2, 16, 4, 5, 12)
+
+
+def _inputs(pages: str, seed: int = 0):
+    """A pool, its tables (shared and garbage blocks), q and the live
+    lengths of a 6-token chunk a slot, all from a numpy seed."""
+    b, tq, hkv, g, dh, bs, mb, nb = SHAPE
+    rng = np.random.default_rng(seed)
+    kp = torch.as_tensor(rng.standard_normal((nb, bs, hkv, dh)), dtype=torch.float32)
+    vp = torch.as_tensor(rng.standard_normal((nb, bs, hkv, dh)), dtype=torch.float32)
+    scales = {}
+    if pages == "int8":
+        (kp, ks), (vp, vs) = Q.quantize_flat(kp), Q.quantize_flat(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        dt = torch.float32 if pages == "fp32" else torch.bfloat16
+        kp, vp = kp.to(dt), vp.to(dt)
+    dt = torch.float32 if pages == "fp32" else torch.bfloat16
+    q = torch.as_tensor(rng.standard_normal((b, tq, hkv, g, dh)), dtype=torch.float32).to(dt)
+    tables = torch.tensor([[3, 1, 0, 0, 0], [2, 5, 6, 7, 8], [4, 1, 9, 0, 0], [10, 11, 0, 0, 0]],
+                          dtype=torch.int32)
+    pos = torch.tensor([5, 13, 2, 0])
+    kvl = pos[:, None] + torch.arange(1, tq + 1)[None, :]
+    return q, kp, vp, tables, kvl, scales
+
+
+# n_new a slot: a full chunk, a decode row, an idle slot, three rows
+N_NEW = torch.tensor([6, 1, 0, 3])
+
+
+def _dead(kvl):
+    """The engine's lengths: rows at or past a slot's n_new get 0."""
+    tq = kvl.shape[1]
+    return torch.where(torch.arange(tq)[None, :] < N_NEW[:, None], kvl, 0)
+
+
+@pytest.mark.parametrize("pages", ["bf16", "fp32", "int8"])
+def test_dead_rows_are_zero_and_leave_live_rows_bitwise(pages):
+    q, kp, vp, tables, kvl, sc = _inputs(pages)
+    dead_kvl = _dead(kvl)
+    got = FA.paged_attention_plain(q, kp, vp, tables, dead_kvl, **sc)
+    dead = dead_kvl == 0
+    assert dead.any() and (~dead).any()
+    assert (got[dead] == 0).all() and not got[dead].signbit().any()
+    # the live rows: the bits of the call where the dead rows see 1 key, or
+    # their full lengths
+    for other in (torch.where(dead, 1, kvl), kvl):
+        want = FA.paged_attention_plain(q, kp, vp, tables, other, **sc)
+        assert torch.equal(got[~dead], want[~dead])
+    # the wrapper takes the plain version on the CPU
+    assert torch.equal(FA.paged_attention(q, kp, vp, tables, dead_kvl, **sc), got)
+
+
+@pytest.mark.parametrize("pages", ["bf16", "fp32", "int8"])
+def test_live_rows_match_reference_attention(pages):
+    """Live rows against the reference's ``layers.attention`` over the view
+    gathered (and dequantized) by hand with the same per-row lengths
+    (the reference has no dead rows: it gives a dead row the mean of v)."""
+    q, kp, vp, tables, kvl, sc = _inputs(pages, seed=1)
+    dead_kvl = _dead(kvl)
+    got = FA.paged_attention(q, kp, vp, tables, dead_kvl, **sc)
+    b, bs = tables.shape[0], kp.shape[1]
+    idx = tables.long()
+    k, v = kp[idx].reshape(b, -1, *kp.shape[2:]), vp[idx].reshape(b, -1, *vp.shape[2:])
+    if sc:
+        ks = sc["k_scale"][idx].reshape(b, -1, *sc["k_scale"].shape[2:])
+        vs = sc["v_scale"][idx].reshape(b, -1, *sc["v_scale"].shape[2:])
+        k, v = Q.dequantize_flat(k, ks, q.dtype), Q.dequantize_flat(v, vs, q.dtype)
+    jk, jv = jnp.asarray(k.float().numpy()), jnp.asarray(v.float().numpy())
+    want = np.asarray(JL.attention(jnp.asarray(q.float().numpy()), jk, jv, causal=False,
+                                   kv_valid_len=jnp.asarray(dead_kvl.numpy())), np.float32)
+    live = (dead_kvl != 0).numpy()
+    atol = 2e-2 if q.dtype == torch.bfloat16 else 1e-6
+    np.testing.assert_allclose(got.float().numpy()[live], want[live], rtol=0, atol=atol)
+    assert not got.float().numpy()[~live].any()
+
+
+@pytest.mark.parametrize("b,hkv,capacity", [
+    (8, 8, 576),      # the engine: 8 slots x llama's 8 KV heads, 36 blocks of 16
+    (4, 2, 96),
+    (4, 8, 16),
+    (1, 1, 100_000),
+    (64, 8, 4096),
+    (3, 5, 1000),
+])
+def test_paged_plan_is_a_function_of_shapes(b, hkv, capacity):
+    nsplit, chunk = FA.plan_paged_splits(b, hkv, capacity)
+    assert chunk % FK.PAGED_KEYS == 0 and chunk >= FK.PAGED_KEYS
+    # every split inside the capacity, which they cover
+    assert (nsplit - 1) * chunk < capacity <= nsplit * chunk
+    # one live row block a (batch row, KV head), a decode-only tick at any
+    # width, fills the card: about two blocks a SM, unless the smallest
+    # chunk already stops the split
+    assert b * hkv * nsplit >= 0.95 * 2 * 132 or chunk == FK.PAGED_KEYS
+    assert FA.plan_paged_splits(b, hkv, capacity, sms=132) == (nsplit, chunk)
+    if (b, hkv, capacity) == (8, 8, 576):
+        assert (nsplit, chunk) == (5, 128)
+
+
+def test_paged_plan_is_the_split_plan_in_whole_tiles():
+    for b, hkv, cap in ((8, 8, 576), (2, 1, 300), (16, 4, 2048)):
+        nsplit, chunk = FA.plan_paged_splits(b, hkv, cap)
+        assert (nsplit, chunk) == FA.plan_decode_splits(b, hkv, cap, multiple=FK.PAGED_KEYS)
+
+
+@pytest.mark.parametrize("dh,body", [(16, "mma"), (32, "mma"), (64, "wgmma"), (128, "wgmma"),
+                                     (256, "mma")])
+def test_paged_body_by_head_dim(dh, body):
+    assert FA.paged_body(dh) == body
+    assert f"paged:{body}" in FK.launches_paged_by_form
+
+
+def test_cpu_call_counts_no_launch():
+    q, kp, vp, tables, kvl, sc = _inputs("bf16")
+    before = (FK.launches, dict(FK.launches_by_route), dict(FK.launches_paged_by_form))
+    FA.paged_attention(q, kp, vp, tables, kvl)
+    assert (FK.launches, FK.launches_by_route, FK.launches_paged_by_form) == before
+
+
+def test_paged_bench_imports_no_jax():
+    """``tools/paged_bench.py`` times the port on the card: it imports
+    neither JAX nor the JAX package."""
+    import ast
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "paged_bench.py"
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert not names & {"jax", "jaxlib", "repro"}, names
+    assert "repro_torch" in names and "chip_smoke" in names
+
+
+def test_engine_step_passes_dead_rows(monkeypatch):
+    """The paged step's call site (``models/blocks.py``): row i of slot b
+    reaches attention with valid length ``pos + i + 1`` below the slot's
+    ``n_new`` and 0 at or past it (an idle slot's every row), in every
+    layer; the last consumed row of each slot is live."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core.mics import MiCSConfig, init_params
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.models import layers as L
+    from repro_torch.models.build import build_model
+    from repro_torch.runtime import paged as PG
+
+    torch.manual_seed(0)
+    model = build_model(smoke_variant(get_config("llama3.2-1b")), tp=1)
+    params = init_params(model, seed=3, device="cpu")
+    bs, mb, width = 4, 4, 4
+    topo = MiCSTopology()
+    step = PG.build_paged_step(model, topo, MiCSConfig(gather_dtype=torch.float32), max_blocks=mb,
+                               block_size=bs, chunk=width, device="cpu")
+    pool = PG.init_paged_caches(model, topo, 4 * mb + 1, bs, "bf16", device="cpu")
+    tables = np.arange(1, 4 * mb + 1, dtype=np.int32).reshape(4, mb)
+    pos, n_new = np.array([0, 5, 7, 2]), np.array([4, 1, 0, 2])
+    seen = []
+    real = L.paged_attention
+
+    def spy(q, k, v, tables, kv_valid_len, **kw):
+        seen.append(kv_valid_len.clone())
+        return real(q, k, v, tables, kv_valid_len, **kw)
+
+    monkeypatch.setattr(L, "paged_attention", spy)
+    toks = np.arange(16).reshape(4, width) % model.cfg.vocab + 1
+    step(params, pool, toks, pos, n_new, tables, np.zeros(4), np.zeros(4, np.float32))
+    rows = torch.arange(width)[None, :]
+    want = torch.where(rows < torch.as_tensor(n_new)[:, None],
+                       torch.as_tensor(pos)[:, None] + rows + 1, 0)
+    assert len(seen) == model.cfg.n_layers
+    for got in seen:
+        assert torch.equal(got, want)
