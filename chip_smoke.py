@@ -185,12 +185,40 @@ check raises and the script exits non-zero; no phase swallows an error):
    rebuild's seconds (groups, step function, restore), each save's seconds
    blocked against its writer's, the checkpoint's GB, each rank's step
    times, ``peak_gb`` and launches.
+3e. ``dist_serve``: serving over ranks, run by the same 4 worker processes
+   after the elastic loop.  (a) The continuous-batching engine through
+   ``runtime/resilient.ResilientServeLoop`` on llama3.2-1b at full width
+   cut to 4 layers from layout C's topology (p 2 x tp 2, dp 2;
+   ``elastic_host_topology(4, 2, tp 2)``), its tp 1 ``init_params(seed=0)``
+   cut by ``tp_params_from_full`` and each rank's shard by
+   ``shard_params``, bf16 gather and pools, 4 slots a data rank, chunks of
+   64, blocks of 16, 8 requests from seed 0 (prompts 64-256, 16 new
+   tokens, the odd ones at temperature 0.7 with top-k 8), one every 2
+   ticks: fault-free on 4 ranks, fault-free on 2 (ranks 2-3 parked, p 1 x
+   tp 2) and with ``preempt@6x2`` (ranks 2-3 lost abruptly at tick 6).
+   Every run's ledger accounted and its completions bitwise the 4-rank
+   run's, on every rank; the preemption's ledger; each rank's launches an
+   engine step it ran RMSNorm 9 and attention 4, every call on
+   ``paged:wgmma``; the 4-rank run's collectives a step (the partition
+   gather of 6 rows, 11 model gathers, 8 model psums, the sampler's pmax
+   and pmin, the token gather over the data group); the first tick's logit
+   rows of rank 0, gathered over the model group, against data rank 0's
+   rows through a one-card tp 1 paged step on the same cut weights and
+   inputs, within ``DIST_SERVE_REL_TOL`` of the largest |logit|, greedy
+   tokens equal where the one-card top-1 margin exceeds twice that.  (b)
+   The fixed batch through ``build_serve_steps`` on layout D's groups
+   (recurrentgemma-2b, 3 layers, tp 4): batch 4, prompt 512, 8 greedy
+   decode steps, every step's logits held to a one-card run of the same
+   cut model fed the same tokens under the same rule; launches 9 forwards
+   x (RMSNorm 7, attention 1: ``mma`` at the prefill, ``split`` at each
+   decode step; RG-LRU 2, gated).  It prints each run's ticks, engine
+   steps, wall seconds and step times, the comparisons and the counts.
 4. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
    library call's where there is one, and the card's bound for the same
    work; ``launches`` sums the serve runs, the train runs, the
-   ``train_knobs`` variants and every rank of ``dist_train``, ``dist_wires``
-   and ``dist_elastic``.  Attention also
+   ``train_knobs`` variants and every rank of ``dist_train``, ``dist_wires``,
+   ``dist_elastic`` and ``dist_serve``.  Attention also
    runs at the tile edges of each route (fp32 cases take the ``fma``
    route), each check records its route and is called twice for a
    bitwise-equal output, prefill checks give their achieved TFLOP/s, and
@@ -238,7 +266,11 @@ check raises and the script exits non-zero; no phase swallows an error):
    chunk, 5 decoding, 1 idle; a 64-token chunk; a one-row decode tick;
    bf16 and int8 pages), its bound from the live rows' keys, with SDPA
    over the live rows and the contiguous view gathered beforehand as
-   ``library_ms``.
+   ``library_ms``; and at a rank's shapes of ``dist_serve``'s engine (4
+   slots, 17 blocks of 16 a table) with llama's KV heads over tp 2 and 4
+   (4 and 2 heads a rank), bf16 pages.  The ``split`` decode at a rank's
+   shapes: llama at tp 2 and 4, recurrentgemma at tp 4 (one KV head of g 3
+   at dh 256, ``dist_serve``'s fixed batch; its prefill on ``mma`` too).
 
 ``python3 chip_smoke.py --profile-only`` runs the ``profile`` phases alone
 (both serve paths, then the train steps; no checks, no result line): it
@@ -944,6 +976,7 @@ class PagedServe:
     crash_at: int = 20
     check_rows: int = 8        # requests of the paged == contiguous and chunk checks
     check_steps: int = 16      # their decode steps
+    decode_lens: tuple = (249, 350)   # the kernel cases' decode lengths (lo, hi)
 
 
 PAGED = PagedServe()
@@ -1002,18 +1035,22 @@ def _pct(xs, q):
         xs[0] if xs else None)
 
 
-def paged_kernel_cases(gen, dev, pg: PagedServe = PAGED) -> list:
+def paged_kernel_cases(gen, dev, pg: PagedServe = PAGED, hkv: int = 8,
+                       label: str = "", dtypes=("bf16", "int8")) -> list:
     """The ``paged`` route's inputs at the phase's shapes: llama's 8 KV heads
     of g 4 at dh 64, a pool of ``slots * max_blocks + 1`` blocks of
     ``block`` tokens, 8 requests on shuffled blocks, over bf16 and int8
-    pages.  First the shape the engine launches most: a decode-only tick
-    at the chunk width, each slot's row 0 live (valid lengths 250-350) and
-    its 63 others dead (length 0); then a mixed tick (slots 0-1 a whole
-    chunk at chunk starts, 2-6 decoding a row, 7 idle), a 64-token chunk
-    (every row live, positions at chunk starts) and a one-row decode tick."""
+    pages (``hkv`` KV heads: a rank's of them over ranks, ``label`` naming
+    it).  First the shape the engine launches most: a decode-only tick at
+    the chunk width, each slot's row 0 live (valid lengths ``decode_lens``:
+    250-350) and its 63 others dead (length 0); then a mixed tick (the
+    first quarter of the slots a whole chunk at chunk starts, the last one
+    idle, the others decoding a row: 2, 1 and 5 of 8), a 64-token chunk
+    (every row live, positions at chunk starts) and a one-row decode
+    tick."""
     from repro_torch.core import quant as Q
 
-    b, hkv, g, dh, w = pg.slots, 8, 4, 64, pg.chunk
+    b, g, dh, w = pg.slots, 4, 64, pg.chunk
     nb = pg.slots * pg.max_blocks + 1
     cap = pg.max_blocks * pg.block
     order = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(2)) + 1
@@ -1024,9 +1061,9 @@ def paged_kernel_cases(gen, dev, pg: PagedServe = PAGED) -> list:
     (qk, sk), (qv, sv) = Q.quantize_flat(k), Q.quantize_flat(v)
     pages["int8"] = ((qk, qv), {"k_scale": sk, "v_scale": sv})
     rows = torch.arange(1, w + 1, device=dev)[None, :]
-    decode_pos = torch.randint(249, 350, (b,), generator=gen, device=dev)
+    decode_pos = torch.randint(*pg.decode_lens, (b,), generator=gen, device=dev)
     chunk_pos = w * torch.randint(0, cap // w - 1, (b,), generator=gen, device=dev)
-    n_new = torch.tensor([w, w, 1, 1, 1, 1, 1, 0], device=dev)
+    n_new = torch.tensor([w] * (b // 4) + [1] * (b - b // 4 - 1) + [0], device=dev)
     mixed_pos = torch.where(n_new == w, chunk_pos, decode_pos)
     lengths = {
         "engine decode-only tick": torch.where(rows == 1, decode_pos[:, None] + rows, 0),
@@ -1037,13 +1074,15 @@ def paged_kernel_cases(gen, dev, pg: PagedServe = PAGED) -> list:
     cases = []
     for kind, kvl in lengths.items():
         q = torch.randn(b, kvl.shape[1], hkv, g, dh, generator=gen, device=dev).to(torch.bfloat16)
-        for dt, ((kp, vp), sc) in pages.items():
-            cases.append((f"{kind}, {dt} pages", q, kp, vp, tables, kvl, sc))
+        for dt in dtypes:
+            (kp, vp), sc = pages[dt]
+            cases.append((f"{label}{kind}, {dt} pages", q, kp, vp, tables, kvl, sc))
     return cases
 
 
 def paged_kernel_checks(gen, dev, flush, timed: bool = True,
-                        pg: PagedServe = PAGED) -> list:
+                        pg: PagedServe = PAGED, hkv: int = 8, label: str = "",
+                        dtypes=("bf16", "int8")) -> list:
     """The ``paged`` route against ``paged_attention_plain`` on the same
     card tensors (the split route's bf16 tolerance), dead rows exactly
     zero, bitwise repeatable; with ``timed`` its time, the plain
@@ -1060,7 +1099,8 @@ def paged_kernel_checks(gen, dev, flush, timed: bool = True,
     from repro_torch.kernels.flash_attention import kernel as FA
 
     out = []
-    for kind, q, kp, vp, tables, kvl, sc in paged_kernel_cases(gen, dev, pg):
+    for kind, q, kp, vp, tables, kvl, sc in paged_kernel_cases(gen, dev, pg, hkv, label,
+                                                               dtypes):
         o = FA.paged_attention(q, kp, vp, tables, kvl, **sc)
         ref = FA.paged_attention_plain(q, kp, vp, tables, kvl, **sc)
         tol = TOL[torch.bfloat16]
@@ -2273,6 +2313,332 @@ def dist_elastic_run(rank: int, dev, out_dir: pathlib.Path, backend: str, timeou
     return out
 
 
+# -- serving over the same 4 ranks (dist_serve) ----------------------------------
+
+# (a) the engine: llama3.2-1b at full width cut to DIST_SERVE_LAYERS layers,
+# layout C's topology (p 2 x tp 2, dp 2), bf16 gather and pools, 4 slots a
+# data rank, every tick at the chunk width 64, blocks of 16 (17 a table:
+# the longest prompt and its new tokens), 8 requests from seed 0 (prompts
+# 64-256, 16 new tokens, odd ones at temperature 0.7 with top-k 8), one
+# every 2 ticks.  (b) the fixed batch: recurrentgemma-2b cut to layout D's 3
+# layers over tp 4: batch 4, prompt 512, 8 greedy decode steps.
+DIST_SERVE_LAYERS = 4
+DIST_SERVE = PagedServe(slots=4, chunk=64, block=16, max_blocks=17, requests=8,
+                        prompt_lo=64, prompt_hi=256, new_tokens=16, arrival_every=2,
+                        temperature=0.7, top_k=8, decode_lens=(150, 256))
+DIST_SERVE_PREEMPT = "preempt@6x2"       # ranks 2-3 lost abruptly at tick 6
+DIST_SERVE_FIXED = {"batch": 4, "prompt": 512, "steps": 8}
+# The rank-0 logits of (a)'s first tick and of every (b) step, gathered over
+# the model group, against a one-card tp 1 run of the same cut model on the
+# same inputs, as a fraction of the one-card run's largest |logit|: bf16
+# activations summed over the model ranks in another order (each rank's
+# row-parallel output rounded to bf16 before the sum).  Measured on the
+# card (NVIDIA H100 80GB HBM3, 700.00 W): 0.0133 at (a)'s first tick,
+# 0.0127-0.0164 over (b)'s 9 steps; the bound keeps 1.8x of that.
+DIST_SERVE_REL_TOL = 0.03
+
+
+def dist_serve_model(arch: str, layers: int, tp: int):
+    from repro_torch.configs import get_config
+    from repro_torch.models.build import build_model
+
+    return build_model(dataclasses.replace(get_config(arch), n_layers=layers), tp=tp)
+
+
+def dist_serve_weights(model, model_1, dev):
+    """``model_1``'s ``init_params(seed=0)`` on the card and its cut into
+    ``model``'s tp shards (``convert.tp_params_from_full``) in host memory,
+    one pool at a time."""
+    from repro_torch.convert import tp_params_from_full
+    from repro_torch.core.mics import init_params
+
+    full = init_params(model_1, 0, device=dev)
+    cut = {name: tp_params_from_full(model, model_1, {name: t.cpu()})[name]
+           for name, t in full.items()}
+    return full, cut
+
+
+def _model_gather(x, groups):
+    from repro_torch.core import collectives as C
+
+    return C.all_gather(x.contiguous(), groups.model, axis=-1)
+
+
+def _against_one_card(got, want, vocab: int) -> dict:
+    """Rank 0's gathered logits ``got`` [rows, V] against the one-card run's
+    ``want``: the largest error relative to the largest |logit| (real vocab
+    columns), and greedy agreement on every row whose one-card top-1 margin
+    exceeds twice the bound."""
+    got, want = got[:, :vocab].float(), want[:, :vocab].float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    top2 = torch.topk(want, 2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1])
+    sure = margin > 2 * DIST_SERVE_REL_TOL * scale
+    agree = torch.argmax(got, -1) == torch.argmax(want, -1)
+    return {"max_abs_err": err, "max_abs_logit": scale, "rel_err": err / scale,
+            "rows": got.shape[0], "rows_past_margin": int(sure.sum()),
+            "greedy_agree_past_margin": bool(agree[sure].all()),
+            "greedy_agree_all": int(agree.sum())}
+
+
+def dist_serve_run(rank: int, dev, backend: str, timeout) -> dict:
+    """One rank of ``dist_serve``.  (a) The engine through
+    ``runtime/resilient.ResilientServeLoop`` from ``elastic_host_topology(n,
+    n / 2, tp 2)``: fault-free on 4 ranks, fault-free on 2 (ranks 2-3
+    parked), and with ``DIST_SERVE_PREEMPT``; each run's launches set to 0
+    just before it and read just after, its engine steps counted on this
+    rank; the first tick's logit rows of this rank gathered over the model
+    group; then rank 0 runs the first tick's rows of data rank 0 on one card
+    at tp 1.  (b) The fixed batch through ``build_serve_steps`` on layout
+    D's groups: prefill, then greedy decode steps, each step's logits of
+    rank 0's rows gathered over the model group; then rank 0 runs the same
+    cut model at tp 1 on one card, fed the same tokens."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.convert import shard_params
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.core.topology import MiCSTopology, elastic_host_topology
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.launch.mesh import MiCSGroups
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.runtime import batching as RB
+    from repro_torch.runtime import paged as PG
+    from repro_torch.runtime.resilient import ResilientServeLoop, ServeLoopConfig
+    from repro_torch.runtime.serving import build_serve_steps
+
+    pg, out = DIST_SERVE, {"engine": {}, "fixed": {}}
+    model = dist_serve_model("llama3.2-1b", DIST_SERVE_LAYERS, 2)
+    model_1 = dist_serve_model("llama3.2-1b", DIST_SERVE_LAYERS, 1)
+    full, cut = dist_serve_weights(model, model_1, dev)
+    if rank:
+        full = None
+    torch.cuda.empty_cache()
+    mcfg = MiCSConfig(kv_block_size=pg.block)     # bf16 gather and pools, prefetch
+    sc = ServeLoopConfig(slots_local=pg.slots, nb_local=pg.slots * pg.max_blocks + 1,
+                         block_size=pg.block, max_blocks=pg.max_blocks, chunk=pg.chunk,
+                         top_k=pg.top_k, reserve="full", seed=0)
+    arrivals = [pg.arrival_every * i for i in range(pg.requests)]
+    first = {}
+
+    def run(name: str, world: int, spec: str):
+        topo = elastic_host_topology(world, world // 2, 2, available=DIST_WORLD)
+        groups = MiCSGroups(topo, rank, backend=backend, timeout=timeout)
+        loop = ResilientServeLoop(
+            model, topo, mcfg, sc, params_for=lambda m, t: shard_params(m, t, rank, cut,
+                                                                       device=dev),
+            fault_injector=FaultPlan.parse(spec) if spec else None, device=dev, groups=groups)
+        step_ms = []
+
+        def engine_step(plan):
+            t0 = time.perf_counter()
+            tok, lg, loop.caches = loop.step(loop.params, loop.caches, plan.tokens, plan.pos,
+                                             plan.n_new, plan.tables, plan.seeds, plan.temps)
+            tok = tok.cpu().numpy()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if name == "free4" and not first:
+                first.update(plan=plan, logits=lg.clone())
+            return tok
+
+        loop._engine_step = engine_step
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = loop.run(paged_requests(RB, model.cfg.vocab, pg), arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        line = {"world": world, "plan": spec, "wall_s": wall, "ticks": rep["ticks"],
+                "engine_steps": len(step_ms), "step_ms": step_ms, "launches": read_counts(),
+                **route_tables(), "attention_launches_by_form": dict(FA.launches_paged_by_form),
+                "completions": rep["completions"], "ledger": rep["ledger"],
+                "world_changes": rep["world_changes"], "final_world": rep["world"],
+                "comm": None if loop.step is None else loop.step.comm.counter.snapshot()}
+        if name == "free4":   # the first tick's rows, their columns over the model group
+            first["gathered"] = _model_gather(first["logits"], loop.groups)
+        dist.barrier()
+        loop.groups.release()
+        del loop
+        torch.cuda.empty_cache()
+        return line
+
+    t0 = time.perf_counter()
+    for name, world, spec in (("free4", 4, ""), ("free2", 2, ""),
+                              ("preempt", 4, DIST_SERVE_PREEMPT)):
+        out["engine"][name] = run(name, world, spec)
+    out["engine_s"] = time.perf_counter() - t0
+    if rank == 0:   # data rank 0's rows of the first tick on one card at tp 1
+        plan, b = first["plan"], pg.slots
+        step = PG.build_paged_step(model_1, MiCSTopology(), mcfg, max_blocks=pg.max_blocks,
+                                   block_size=pg.block, chunk=pg.chunk, top_k=pg.top_k,
+                                   device=dev)
+        pool = PG.init_paged_caches(model_1, MiCSTopology(), sc.nb_local, pg.block, "bf16",
+                                    device=dev)
+        _, want, _ = step(full, pool, plan.tokens[:b], plan.pos[:b], plan.n_new[:b],
+                          plan.tables[:b], plan.seeds[:b], plan.temps[:b])
+        out["engine"]["first_tick"] = {"n_new": plan.n_new[:b].tolist(),
+                                       **_against_one_card(first["gathered"], want,
+                                                           model.cfg.vocab)}
+        del step, pool, want
+    del full, cut, first
+    torch.cuda.empty_cache()
+
+    # (b) the fixed batch over tp 4
+    t0 = time.perf_counter()
+    fb = DIST_SERVE_FIXED
+    lay = next(lay for lay in DIST_LAYOUTS if lay.name == "D")
+    model, model_1 = dist_model(lay), dist_model(lay, tp=1)
+    full, cut = dist_serve_weights(model, model_1, dev)
+    if rank:
+        full = None
+    topo = dist_topology(lay)
+    groups = MiCSGroups(topo, rank, backend=backend, timeout=timeout)
+    params = shard_params(model, topo, rank, cut, device=dev)
+    del cut
+    torch.cuda.empty_cache()
+    cache_len = fb["prompt"] + fb["steps"]
+    prefill_fn, decode_fn = build_serve_steps(model, topo, MiCSConfig(), cache_len, device=dev,
+                                              groups=groups)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab, (fb["batch"], fb["prompt"])))
+    ctx = L.Ctx(tp=topo.model_size, comm=decode_fn.comm)
+    torch.cuda.synchronize()
+    reset_counts()
+    logits, caches = prefill_fn(params, {"tokens": prompt})
+    tok = lm.greedy_sample(logits[:, -1], ctx, model.cfg.vocab)[:, None]
+    seen, fed = [_model_gather(logits[:, -1], groups)], [tok.cpu()]
+    step_ms = []
+    for i in range(fb["steps"]):
+        t1 = time.perf_counter()
+        logits, tok, caches = decode_fn(params, caches, tok, fb["prompt"] + i)
+        seen.append(_model_gather(logits[:, -1], groups))
+        fed.append(tok.cpu())
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    out["fixed"] = {"launches": read_counts(), **route_tables(), "decode_step_ms": step_ms,
+                    "comm": decode_fn.comm.counter.snapshot(),
+                    "tokens": torch.cat(fed, 1).tolist()}
+    del params, caches, logits
+    dist.barrier()
+    groups.release()
+    torch.cuda.empty_cache()
+    if rank == 0:   # the same cut model at tp 1 on one card, fed the same tokens
+        prefill_1, decode_1 = build_serve_steps(model_1, MiCSTopology(), MiCSConfig(),
+                                                cache_len, device=dev)
+        lg, caches = prefill_1(full, {"tokens": prompt})
+        checks = [_against_one_card(seen[0], lg[:, -1], model.cfg.vocab)]
+        for i in range(fb["steps"]):
+            lg, _, caches = decode_1(full, caches, fed[i].to(dev), fb["prompt"] + i)
+            checks.append(_against_one_card(seen[i + 1], lg[:, -1], model.cfg.vocab))
+        out["fixed"]["against_one_card"] = checks
+        del caches, lg
+    del full
+    torch.cuda.empty_cache()
+    out["fixed_s"] = time.perf_counter() - t0
+    return out
+
+
+def dist_serve_checks(ranks: list) -> tuple[dict, dict]:
+    """``dist_serve``'s checks on every rank's results: (a) each run's
+    ledger (every request completed, accounted), its completions the same
+    on every rank and bitwise the fault-free 4-rank run's (the 2-rank run
+    and the preemption's), the preemption's ledger (4 -> 2 at tick 6, every
+    in-flight request replayed), each rank's launches an engine step it ran
+    RMSNorm 2 x layers + 1 and attention one a layer, every call on
+    ``paged:wgmma``, and its collective counts a step; the first tick's
+    logits within ``DIST_SERVE_REL_TOL`` of the one-card run's, greedy
+    agreeing past twice that margin.  (b) every step's logits likewise,
+    launches 9 forwards x (RMSNorm 7, attention 1: ``mma`` at the prefill,
+    ``split`` at each decode step; RG-LRU 2, gated).  Returns ``(line,
+    launches summed over ranks)``."""
+    pg, total = DIST_SERVE, {}
+    cfg_layers = DIST_SERVE_LAYERS
+    runs = {}
+    base = ranks[0]["serve"]["engine"]["free4"]["completions"]
+    for name in ("free4", "free2", "preempt"):
+        per = [rk["serve"]["engine"][name] for rk in ranks]
+        for r, p in enumerate(per):
+            led = p["ledger"]
+            if not (led["accounted"] and led["completed"] == pg.requests and led["shed"] == 0):
+                raise AssertionError(f"dist_serve {name} rank {r}: ledger {led}")
+            if p["completions"] != base:
+                raise AssertionError(f"dist_serve {name} rank {r}: completions differ from "
+                                     "the fault-free 4-rank run's")
+            steps = p["engine_steps"]
+            want = dict.fromkeys(p["launches"], 0) | {"rmsnorm": (2 * cfg_layers + 1) * steps,
+                                                      "flash_attention": cfg_layers * steps}
+            if (p["launches"] != want or p["attention_launches_by_route"]["paged"]
+                    != cfg_layers * steps
+                    or p["attention_launches_by_form"]["paged:wgmma"] != cfg_layers * steps):
+                raise AssertionError(f"dist_serve {name} rank {r}: launches {p['launches']} "
+                                     f"{p['attention_launches_by_form']} != {want} "
+                                     f"({steps} engine steps)")
+            if r < p["world"] and not steps:
+                raise AssertionError(f"dist_serve {name} rank {r}: no engine step")
+            add_counts(total, p["launches"])
+        changes = [(c["kind"], c["at_tick"], c["world"], c["partition_size"])
+                   for c in per[0]["world_changes"]]
+        if name == "preempt" and (changes != [("preempt", 6, 2, 1)]
+                                  or not per[0]["world_changes"][0]["replayed"]):
+            raise AssertionError(f"dist_serve preempt: world changes {changes}")
+        if name != "preempt" and changes:
+            raise AssertionError(f"dist_serve {name}: world changes {changes}")
+        if name == "free4":
+            calls = per[0]["comm"]["calls"]
+            n = per[0]["engine_steps"]
+            want = {"all_gather:partition": 6 * n, "all_gather:model": (2 * cfg_layers + 3) * n,
+                    "all_reduce:model": 2 * cfg_layers * n, "all_reduce_max:model": n,
+                    "all_reduce_min:model": n, "all_gather:data": n}
+            if calls != dict(sorted(want.items())):
+                raise AssertionError(f"dist_serve free4: collectives {calls} != {want}")
+        runs[name] = {
+            "world": per[0]["world"], "plan": per[0]["plan"], "ticks": per[0]["ticks"],
+            "engine_steps": [p["engine_steps"] for p in per],
+            "wall_s": [p["wall_s"] for p in per],
+            "tokens": sum(len(t) for t in base.values()),
+            "tokens_per_s": sum(len(t) for t in base.values()) / per[0]["wall_s"],
+            "engine_step_ms_p50": [_pct(p["step_ms"], 50) for p in per],
+            "ledger": per[0]["ledger"], "world_changes": per[0]["world_changes"],
+            "comm": per[0]["comm"], "completions_bitwise_free4": True,
+            "launches": [p["launches"] for p in per]}
+    first = ranks[0]["serve"]["engine"]["first_tick"]
+    fixed = ranks[0]["serve"]["fixed"]["against_one_card"]
+    for what, c in [("engine first tick", first)] + [(f"fixed step {i}", c)
+                                                      for i, c in enumerate(fixed)]:
+        if not (c["rel_err"] <= DIST_SERVE_REL_TOL and c["greedy_agree_past_margin"]):
+            raise AssertionError(f"dist_serve {what}: against one card {c}")
+    steps = DIST_SERVE_FIXED["steps"]
+    fwd, rg_layers = 1 + steps, dist_model(next(
+        lay for lay in DIST_LAYOUTS if lay.name == "D")).cfg.n_layers
+    for r, rk in enumerate(ranks):
+        p = rk["serve"]["fixed"]
+        want = dict.fromkeys(p["launches"], 0) | {
+            "rmsnorm": (2 * rg_layers + 1) * fwd, "flash_attention": fwd, "rglru": 2 * fwd}
+        if (p["launches"] != want or p["attention_launches_by_route"]["mma"] != 1
+                or p["attention_launches_by_route"]["split"] != steps
+                or p["rglru_launches_by_form"]["forward"]["gated"] != 2 * fwd):
+            raise AssertionError(f"dist_serve fixed rank {r}: launches {p['launches']} != "
+                                 f"{want}")
+        if p["tokens"] != ranks[0]["serve"]["fixed"]["tokens"]:
+            raise AssertionError(f"dist_serve fixed rank {r}: tokens differ from rank 0's")
+        add_counts(total, p["launches"])
+    line = {"engine": {"arch": "llama3.2-1b", "layers": cfg_layers, "layout": "C",
+                       "engine": dataclasses.asdict(pg), "gather_dtype": "bf16",
+                       "kv_dtype": "bf16", "runs": runs, "first_tick": first,
+                       "rel_tol": DIST_SERVE_REL_TOL},
+            "fixed": {"arch": "recurrentgemma-2b", "layers": rg_layers, "layout": "D",
+                      **DIST_SERVE_FIXED, "against_one_card": fixed,
+                      "rel_tol": DIST_SERVE_REL_TOL,
+                      "decode_step_ms": [rk["serve"]["fixed"]["decode_step_ms"] for rk in ranks],
+                      "comm": ranks[0]["serve"]["fixed"]["comm"],
+                      "launches": ranks[0]["serve"]["fixed"]["launches"]},
+            "engine_s": max(rk["serve"]["engine_s"] for rk in ranks),
+            "fixed_s": max(rk["serve"]["fixed_s"] for rk in ranks)}
+    return line, total
+
+
 def route_tables() -> dict:
     """The launch counters' tables by route and form, copied, under the
     keys of a dist_train line."""
@@ -2292,8 +2658,9 @@ def dist_worker(args) -> int:
     ``runtime/train_loop.train`` over the ranks' process groups, then on
     layout A one gather of the embedding row under each gather topology;
     then ``dist_wires``'s runs on layouts A's and B's groups; then
-    ``dist_elastic``'s run (:func:`dist_elastic_run`).  Writes
-    ``rank<r>.json`` into ``--dist-out``."""
+    ``dist_elastic``'s run (:func:`dist_elastic_run`); then ``dist_serve``'s
+    (:func:`dist_serve_run`).  Writes ``rank<r>.json`` into
+    ``--dist-out``."""
     import datetime
     import shutil
 
@@ -2379,6 +2746,9 @@ def dist_worker(args) -> int:
     t0 = time.perf_counter()
     result["elastic"] = dist_elastic_run(rank, dev, out_dir, args.dist_backend, timeout)
     result["elastic_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result["serve"] = dist_serve_run(rank, dev, args.dist_backend, timeout)
+    result["serve_s"] = time.perf_counter() - t0
     (out_dir / f"rank{rank}.json").write_text(json.dumps(result))
     dist.barrier()
     dist.destroy_process_group()
@@ -2583,14 +2953,17 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
                        for lay in DIST_LAYOUTS) for k in want_launches}
     wires_s = max(rk["wires_s"] for rk in ranks)
     elastic_s = max(rk["elastic_s"] for rk in ranks)
+    serve_s = max(rk["serve_s"] for rk in ranks)
     wire_lines, wire_launches = dist_wire_checks(ranks, refs[WIRE_REFERENCE], backend, cards)
     elastic_line, elastic_launches = dist_elastic_checks(ranks)
+    serve_line, serve_launches = dist_serve_checks(ranks)
     line = {"phase": "dist_train", "arch": sorted({lay.arch for lay in DIST_LAYOUTS}),
             "device_count": cards,
             "backend": backend, "ranks": DIST_WORLD,
             "ranks_per_card": DIST_WORLD // min(cards, DIST_WORLD),
-            "layouts": lines, "workers_s": workers_s - wires_s - elastic_s,
-            "seconds": time.perf_counter() - t_phase - wires_s - elastic_s, "gpu": card}
+            "layouts": lines, "workers_s": workers_s - wires_s - elastic_s - serve_s,
+            "seconds": time.perf_counter() - t_phase - wires_s - elastic_s - serve_s,
+            "gpu": card}
     emit(line)
     emit({"phase": "dist_wires", "arch": "llama3.2-1b", "layers": WIRE_LAYERS,
           "device_count": cards, "backend": backend, "ranks": DIST_WORLD,
@@ -2599,6 +2972,12 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
           "step_ms_label": ("nccl, one card a rank" if backend == "nccl" else
                             f"gloo over host, {DIST_WORLD} ranks on {cards} card(s)"),
           "seconds": elastic_s, "gpu": card})
+    emit({"phase": "dist_serve", **serve_line, "device_count": cards, "backend": backend,
+          "ranks": DIST_WORLD,
+          "step_ms_label": ("nccl, one card a rank" if backend == "nccl" else
+                            f"gloo over host, {DIST_WORLD} ranks on {cards} card(s): a "
+                            "rehearsal of serving over ranks, not a MiCS serving speed"),
+          "seconds": serve_s, "gpu": card})
     shutil.rmtree(out_dir)
     # for the kernel table: the launches summed over ranks and layouts
     by_route = {key: {} for key in ("attention_launches_by_route",
@@ -2607,18 +2986,26 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
     by_form = {"forward": {}, "backward": {}}
     for rk in ranks:
         for got in [rk["layouts"][lay.name] for lay in DIST_LAYOUTS] + [
-                rk["wires"][wr.name] for wr in DIST_WIRES] + [rk["elastic"]]:
+                rk["wires"][wr.name] for wr in DIST_WIRES] + [rk["elastic"]] + [
+                rk["serve"]["engine"][run] for run in ("free4", "free2", "preempt")] + [
+                rk["serve"]["fixed"]]:
             for key, table in by_route.items():
                 for route, n in got[key].items():
                     table[route] = table.get(route, 0) + n
             for way, table in by_form.items():
                 for form, n in got["rglru_launches_by_form"][way].items():
                     table[form] = table.get(form, 0) + n
-    # the route tables cover the wire and elastic runs too; their launches
-    # stand apart
+    paged_forms = {}
+    for rk in ranks:
+        for run in ("free4", "free2", "preempt"):
+            for form, n in rk["serve"]["engine"][run]["attention_launches_by_form"].items():
+                paged_forms[form] = paged_forms.get(form, 0) + n
+    # the route tables cover the wire, elastic and serve runs too; their
+    # launches stand apart
     return {"arch": "dist_train", "launches": launches, **by_route,
             "rglru_launches_by_form": by_form, "wires_launches": wire_launches,
-            "elastic_launches": elastic_launches}
+            "elastic_launches": elastic_launches, "serve_launches": serve_launches,
+            "serve_paged_forms": paged_forms}
 
 
 def dist_elastic_checks(ranks: list) -> tuple[dict, dict]:
@@ -2812,6 +3199,14 @@ def kernel_checks(gen, dev, flush):
         # 3 of the 12 padded Q heads on the one gathered KV head)
         ("llama tp 2 train", 2, 2048, 2048, 4, 4, 64, True, 0, 0, None, bf),
         ("recurrentgemma tp 4 train", 2, 2048, 2048, 1, 3, 256, True, 2048, 0, None, bf),
+        # a rank's decode steps serving over ranks: llama's KV heads over tp
+        # 2 and 4 (a fixed-batch step at the llama serve path's cache), and
+        # dist_serve's fixed batch, recurrentgemma over tp 4 (its prefill,
+        # then a decode step at its cache of 520)
+        ("llama tp 2 decode", 4, 1, 544, 4, 4, 64, False, 0, 519, 520, bf),
+        ("llama tp 4 decode", 4, 1, 544, 2, 4, 64, False, 0, 519, 520, bf),
+        ("recurrentgemma tp 4 prefill", 4, 512, 512, 1, 3, 256, True, 2048, 0, None, bf),
+        ("recurrentgemma tp 4 decode", 4, 1, 520, 1, 3, 256, False, 0, 519, 520, bf),
         ("ragged", 4, 200, 200, 8, 4, 64, True, 0, 0, None, bf),
         ("ragged", 4, 200, 200, 8, 4, 64, True, 0, 0, None, f32),
         ("window", 4, 512, 512, 8, 4, 64, True, 64, 0, None, bf),
@@ -3567,8 +3962,13 @@ def main() -> int:
     by_path[dist_line["arch"]] = dist_line["launches"]
     by_path["dist_wires"] = dist_line["wires_launches"]
     by_path["dist_elastic"] = dist_line["elastic_launches"]
-    launches_by_route["mma"] += dist_line["attention_launches_by_route"]["mma"]
+    by_path["dist_serve"] = dist_line["serve_launches"]
+    for r in ("mma", "split", "paged"):   # dist_serve's split and paged launches
+        launches_by_route[r] += dist_line["attention_launches_by_route"][r]
     launches_by_form["gated"] += dist_line["rglru_launches_by_form"]["forward"]["gated"]
+    paged_launches["dist_serve"] = dist_line["attention_launches_by_route"]["paged"]
+    for f, n in dist_line["serve_paged_forms"].items():
+        paged_forms[f] += n
     torch.cuda.empty_cache()
 
     def train_sum(*keys: str) -> dict:
@@ -3590,6 +3990,10 @@ def main() -> int:
     rms_bwd_checks, attn_bwd_checks, rglru_bwd_checks = backward_checks(gen, dev, flush)
     rms_checks, attn_checks, rglru_checks = kernel_checks(gen, dev, flush)
     paged_checks = paged_kernel_checks(gen, dev, flush)
+    for hkv, tp in ((4, 2), (2, 4)):   # a rank's pools in dist_serve's engine (tp 2) and at tp 4
+        paged_checks += paged_kernel_checks(gen, dev, flush, pg=DIST_SERVE, hkv=hkv,
+                                            label=f"llama tp {tp} rank, dist_serve engine: ",
+                                            dtypes=("bf16",))
     quantize_checks, dequantize_checks = quant_checks(gen, dev, flush)
 
     def entry(name, source, replaces, checks, by_path_n=None, **more):

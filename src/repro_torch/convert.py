@@ -6,7 +6,8 @@ Both packages lay out a model as the same flat pools (``{"embed",
 offsets), so carrying weights over is a checked copy.  With it, the two
 packages compute the same function on the same weights, and train from
 the same state; :func:`shard_from_jax` cuts a JAX global state into one
-rank's shards, and :func:`tp_params_from_full` cuts a tp = 1 model into
+rank's shards (:func:`shard_params` a rank's serving weights, fp32 or
+stored int8), and :func:`tp_params_from_full` cuts a tp = 1 model into
 the tp shards of the same function.
 """
 
@@ -71,6 +72,36 @@ def state_from_jax(model: ModelDef, state: Mapping, *,
     return out
 
 
+def _shard(t: torch.Tensor, topo: MiCSTopology, rank: int, dev) -> torch.Tensor:
+    """``rank``'s piece of a global ``[stack, tp, n]`` pool leaf: its model
+    coordinate's row, chunk ``topo.partition_coord(rank)`` of its ``n / p``
+    (a fresh tensor)."""
+    p, coord = topo.partition_size, topo.partition_coord(rank)
+    m = topo.rank_coords(rank)[MODEL_AXIS]
+    n = t.shape[-1] // p
+    piece = t[:, m:m + 1, coord * n:(coord + 1) * n]
+    return piece.clone(memory_format=torch.contiguous_format).to(dev)
+
+
+def shard_params(model: ModelDef, topo: MiCSTopology, rank: int, params: Mapping, *,
+                 device: str | torch.device = "cuda") -> dict:
+    """``rank``'s serving shards of global pools: fp32 ``[stack, tp,
+    flat_len]`` tensors, or stored int8 ones (``{'q': int8 [stack, tp,
+    flat_len], 's': fp32 [stack, tp, flat_len / 128]}``, the quantizer's
+    blocks of 128 values), each leaf cut as :func:`shard_state` cuts a pool.
+    Every flat length is a multiple of 128 p (``PAD_MULTIPLE``), so a
+    rank's scales are those of its own values' blocks: the shard of a
+    stored pool is ``quant.quantize_state`` of the rank's fp32 shard."""
+    dev = resolve_device(device)
+    out = {}
+    for name, pool in params.items():
+        if isinstance(pool, Mapping):
+            out[name] = {k: _shard(torch.as_tensor(v), topo, rank, dev) for k, v in pool.items()}
+        else:
+            out[name] = _shard(torch.as_tensor(pool), topo, rank, dev)
+    return out
+
+
 def shard_state(model: ModelDef, topo: MiCSTopology, rank: int, state: Mapping, *,
                 device: str | torch.device = "cuda") -> dict:
     """``rank``'s training state from a global one (``params``, ``m``, ``v``
@@ -79,16 +110,8 @@ def shard_state(model: ModelDef, topo: MiCSTopology, rank: int, state: Mapping, 
     rank's model coordinate and to its chunk ``topo.partition_coord(rank)``
     of the partition group, as fresh tensors (the step updates them in
     place)."""
-    p, coord = topo.partition_size, topo.partition_coord(rank)
-    m = topo.rank_coords(rank)[MODEL_AXIS]
-    dev = resolve_device(device)
-    out = {}
-    for part in ("params", "m", "v"):
-        out[part] = {}
-        for name, t in state[part].items():
-            n = t.shape[-1] // p
-            piece = t[:, m:m + 1, coord * n:(coord + 1) * n]
-            out[part][name] = piece.clone(memory_format=torch.contiguous_format).to(dev)
+    out = {part: shard_params(model, topo, rank, state[part], device=device)
+           for part in ("params", "m", "v")}
     out["step"] = int(state["step"])
     return out
 

@@ -424,6 +424,17 @@ class CommEngine:
         """This rank's index within its partition group."""
         return 0 if self.groups is None else self.groups.partition_coord
 
+    def data_rank(self) -> int:
+        """This rank's index among the data ranks (its rows of a batch)."""
+        return 0 if self.groups is None else self.topo.data_rank(self.groups.rank)
+
+    def data_all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The data ranks' ``x`` (dim 0: each rank's rows) stacked in data-rank
+        order over the data group (``all_gather:data``); ``x`` itself at dp 1."""
+        if self.topo.data_parallel_size == 1:
+            return x
+        return C.all_gather(x, self.groups.data, counter=self.counter)
+
     def replica_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of ``x`` over every data rank."""
         return C.replica_mean(x, self.topo, self.groups, counter=self.counter)

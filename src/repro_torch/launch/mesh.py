@@ -93,6 +93,20 @@ def make_mics_topology(world: int, partition_size: int | None = None, *, zero3: 
                         replication_axes=REPLICATION_AXES)
 
 
+def launch_world() -> int:
+    """The ranks of the launch world (1 outside ``torch.distributed``)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def meet(payload):
+    """One call of every live process of the launch world on the default
+    group: rank 0's ``payload`` for everyone (the elastic loops' world-change
+    meeting, where a parked process waits)."""
+    box = [payload]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 class MiCSGroups:
     """Every process group of ``topo``, seen from ``rank``.
 

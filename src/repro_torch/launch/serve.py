@@ -15,48 +15,61 @@ resilient continuous-batching engine.
       --smoke --device cpu --continuous --requests 8 --max-queue 6 \\
       --deadline-ms 2000 --shed-policy degrade --fault-plan crash@6
 
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --arch llama3.2-1b --smoke --device cpu --dist-backend gloo \\
+      --continuous --fault-plan preempt@4x1,grow@8x1   # 2 ranks, world changes
+
 Weights are random, made from ``--seed``.  ``--quant-gather`` stores them
 as int8 with fp32 block scales (``quant.quantize_state``) and dequantizes
-each layer's row at every step.
+each layer's row at every step.  The fixed-batch path serves on one rank,
+as the reference's does.
 
 ``--continuous`` serves a seeded request trace through the resilient
 continuous-batching engine (``runtime/resilient.py``: the paged KV pool at
 ``--kv-dtype`` / ``--kv-block-size``, chunked prefill interleaved with
 decode, the seeded sampler at temperature 0.7 with top-k 8) with
 deadline-aware admission (``--deadline-ms``, mapped to scheduler ticks by
-the measured warm step), a bounded queue (``--max-queue``), graceful
+rank 0's measured warm step), a bounded queue (``--max-queue``), graceful
 degradation (``--shed-policy degrade``) and a scripted fault timeline
-(``--fault-plan``, ``core/faults.FaultPlan.parse``; on one rank only
-``crash`` runs: the other kinds change the world, ROADMAP Queue 1 item
-6b).  It prints the warm tick, the served counts and tokens/s, the
-request-lifecycle ledger, crashes and ladder transitions.  The dense
-family only: griffin's windowed and recurrent caches are not paged.
-``--policy auto`` belongs to a later slice and is refused.
+(``--fault-plan``, ``core/faults.FaultPlan.parse``: ``preempt``,
+``notice``, ``grow``, ``slow``, ``evict``, ``crash``).  Under ``torchrun``
+it spans the launch world, as the reference's ``serve_continuous`` spans
+its devices: dp = world, p 1, tp 1 (``--dist-backend`` is required when
+``WORLD_SIZE`` > 1, ``--dist-timeout-s`` bounds every collective), so the
+plan's world changes have ranks to lose and to win back; a plan whose world
+would leave the launch world (fewer than one rank, more than it has) is
+refused before anything runs.  Rank 0 prints the warm tick, the served
+counts and tokens/s, the request-lifecycle ledger, the world changes and
+crashes and the ladder transitions.  The dense family only: griffin's
+windowed and recurrent caches are not paged.  ``--policy auto`` needs the
+link-model autotuner (ROADMAP Queue 1 item 8) and is refused.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.mics import MiCSConfig, init_params
 from repro_torch.core.quant import quantize_state
-from repro_torch.core.topology import MiCSTopology
+from repro_torch.core.topology import MiCSTopology, elastic_host_topology
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import BACKENDS, MiCSGroups, init_distributed, meet
 from repro_torch.models.build import build_model
 from repro_torch.runtime.serving import build_serve_steps
 
 LATER = {
-    "policy": "--policy auto (the link-model autotuner) comes with the planner/tuner slice",
-    "fault_kinds": "--fault-plan on one rank runs only 'crash': the other kinds change the "
-                   "world, which serving over ranks brings (ROADMAP Queue 1 item 6b)",
+    "policy": "--policy auto needs the link-model autotuner (ROADMAP Queue 1 item 8)",
 }
 
 
@@ -65,12 +78,32 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve_continuous(cfg, mcfg: MiCSConfig, args, dev: torch.device) -> None:
-    """The resilient continuous-batching path (``runtime/resilient.py``)."""
+def plan_worlds(plan: FaultPlan, world: int) -> list[int]:
+    """The world after each of ``plan``'s world-changing events, in tick
+    order, from ``world`` ranks (tp 1: an eviction loses one rank)."""
+    out = []
+    for ev in sorted(plan.events, key=lambda e: e.at_step):
+        if ev.kind == "preempt":
+            world -= ev.devices
+        elif ev.kind == "grow":
+            world += ev.devices
+        elif ev.kind == "slow" and ev.evict:
+            world -= 1
+        else:
+            continue
+        out.append(world)
+    return out
+
+
+def serve_continuous(cfg, mcfg: MiCSConfig, args, dev: torch.device, groups=None) -> None:
+    """The resilient continuous-batching path (``runtime/resilient.py``) on
+    ``groups``' world (one rank without)."""
     from repro_torch.runtime.batching import DegradationLadder, Request
     from repro_torch.runtime.resilient import ResilientServeLoop, ServeLoopConfig
 
-    topo = MiCSTopology()
+    topo = MiCSTopology() if groups is None else groups.topo
+    rank = 0 if groups is None else groups.rank
+    say = print if rank == 0 else (lambda *a, **k: None)
     model = build_model(cfg, tp=1)
     block_size = mcfg.kv_block_size
     positions = args.prompt_len + args.decode_tokens
@@ -87,10 +120,10 @@ def serve_continuous(cfg, mcfg: MiCSConfig, args, dev: torch.device) -> None:
             high_water=0.75, low_water=0.25, dwell=4)
     fault = FaultPlan.parse(args.fault_plan) if args.fault_plan else None
     loop = ResilientServeLoop(model, topo, mcfg, sc, fault_injector=fault, ladder=ladder,
-                              device=dev)
+                              device=dev, groups=groups)
 
     # warm the step and measure it: the tick -> wall-time price that turns
-    # --deadline-ms into a scheduler-tick deadline
+    # --deadline-ms into a scheduler-tick deadline (rank 0's, for every rank)
     B = loop.batcher.batch
     zeros = lambda *s: np.zeros(s, np.int32)  # noqa: E731
     for _ in range(3):
@@ -102,8 +135,10 @@ def serve_continuous(cfg, mcfg: MiCSConfig, args, dev: torch.device) -> None:
         tick_s = time.perf_counter() - t0
     deadline_ticks = (max(1, int(args.deadline_ms / 1e3 / tick_s))
                       if args.deadline_ms > 0 else None)
-    print(f"warm engine step: {tick_s * 1e3:.1f} ms/tick"
-          + (f" -> deadline {deadline_ticks} ticks" if deadline_ticks else ""))
+    if groups is not None:
+        deadline_ticks = meet(deadline_ticks)
+    say(f"warm engine step: {tick_s * 1e3:.1f} ms/tick"
+        + (f" -> deadline {deadline_ticks} ticks" if deadline_ticks else ""))
 
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, args.prompt_len).astype(int)
@@ -119,18 +154,19 @@ def serve_continuous(cfg, mcfg: MiCSConfig, args, dev: torch.device) -> None:
     _sync(dev)
     dt = time.perf_counter() - t0
     tokens = sum(len(t) for t in rep["completions"].values())
-    print(f"served {rep['ledger']['completed']}/{len(reqs)} requests, "
-          f"{tokens} tokens in {dt:.2f}s ({tokens / dt:.1f} tok/s), "
-          f"{rep['ticks']} ticks on a {rep['world']}-device world ({dev}, "
-          f"{rep['kv_dtype']} KV)")
-    print("lifecycle ledger:", json.dumps(rep["ledger"], indent=1))
+    say(f"served {rep['ledger']['completed']}/{len(reqs)} requests, "
+        f"{tokens} tokens in {dt:.2f}s ({tokens / dt:.1f} tok/s), "
+        f"{rep['ticks']} ticks on a {rep['world']}-device world ({dev}, "
+        f"{rep['kv_dtype']} KV)")
+    say("lifecycle ledger:", json.dumps(rep["ledger"], indent=1))
     if rep["world_changes"]:
-        print("crashes and world changes:", json.dumps(rep["world_changes"], indent=1,
-                                                       default=str))
+        say("crashes and world changes:", json.dumps(
+            [{k: v for k, v in e.items() if k not in ("comm", "rebuild_s")}
+             for e in rep["world_changes"]], indent=1, default=str))
     if rep["ladder_transitions"]:
-        print("ladder transitions:", json.dumps(rep["ladder_transitions"], indent=1))
+        say("ladder transitions:", json.dumps(rep["ladder_transitions"], indent=1))
     if rep["shed"]:
-        print("shed:", rep["shed"])
+        say("shed:", rep["shed"])
     if not rep["ledger"]["accounted"]:
         raise RuntimeError("lifecycle ledger lost a request")
 
@@ -147,7 +183,7 @@ def main(argv=None):
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--policy", choices=["manual", "auto"], default="manual",
-                    help="'auto' is not in this slice")
+                    help="'auto' needs the autotuner (ROADMAP Queue 1 item 8)")
     ap.add_argument("--quant-gather", action="store_true",
                     help="store the weights int8 (+ fp32 block scales), dequantized each step")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
@@ -172,14 +208,27 @@ def main(argv=None):
                          "walks the degradation ladder (residency tightening) under queue "
                          "pressure")
     ap.add_argument("--fault-plan", default="",
-                    help="[--continuous] scripted fault timeline, e.g. 'crash@6' "
-                         "(kind@tick[xN]; one rank runs only crash)")
+                    help="[--continuous] scripted fault timeline, e.g. "
+                         "'preempt@20x1,grow@40x1,crash@60' (kind@tick[xN]; kinds: preempt "
+                         "notice grow slow evict crash; the world changes need ranks "
+                         "to lose, under torchrun)")
+    ap.add_argument("--dist-backend", choices=BACKENDS, default=None,
+                    help="[--continuous] collectives backend, required when WORLD_SIZE > 1")
+    ap.add_argument("--dist-timeout-s", type=float, default=600.0)
     args = ap.parse_args(argv)
     if args.policy != "manual":
         ap.error(LATER["policy"])
-    if args.fault_plan and any(ev.kind != "crash"
-                               for ev in FaultPlan.parse(args.fault_plan).events):
-        ap.error(LATER["fault_kinds"])
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not args.continuous:
+        ap.error(f"WORLD_SIZE={world}: the fixed-batch path serves on one rank; "
+                 "--continuous spans the launch world")
+    if world > 1 and args.dist_backend is None:
+        ap.error(f"WORLD_SIZE={world}: --dist-backend nccl or gloo is required")
+    if args.fault_plan:
+        for n in plan_worlds(FaultPlan.parse(args.fault_plan), world):
+            if not 1 <= n <= world:
+                ap.error(f"--fault-plan {args.fault_plan!r} takes the world to {n} rank(s); "
+                         f"the launch world has {world}")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -193,7 +242,15 @@ def main(argv=None):
             # rebuild; the int8 wire stays a fixed-batch feature, as in the
             # reference
             mcfg = dataclasses.replace(mcfg, quant_gather=False)
-        serve_continuous(cfg, mcfg, args, dev)
+        groups = None
+        if world > 1:
+            timeout = datetime.timedelta(seconds=args.dist_timeout_s)
+            rank, world = init_distributed(args.dist_backend, timeout=timeout)
+            groups = MiCSGroups(elastic_host_topology(world, 1, available=world), rank,
+                                backend=args.dist_backend, timeout=timeout)
+        serve_continuous(cfg, mcfg, args, dev, groups)
+        if groups is not None:
+            dist.destroy_process_group()
         return
     topo = MiCSTopology()
     model = build_model(cfg, tp=topo.model_size)

@@ -363,10 +363,17 @@ def greedy_sample(logits_local: torch.Tensor, ctx: L.Ctx, vocab_real: int) -> to
     lg = logits_local.float()
     col = start + torch.arange(vl, device=lg.device)
     lg = torch.where(col < vocab_real, lg, torch.full_like(lg, L.NEG_INF))
-    local_arg = torch.argmax(lg, dim=-1) + start
+    return _global_argmax(lg, start, ctx)
+
+
+def _global_argmax(scores: torch.Tensor, start: int, ctx: L.Ctx) -> torch.Tensor:
+    """The global column of each row's largest score over the model group:
+    the local argmax, then at tp > 1 the pmax of the maxima and the pmin of
+    the candidates' columns (ties go to the lowest global column)."""
+    local_arg = torch.argmax(scores, dim=-1) + start
     if ctx.tp == 1:
         return local_arg
-    local_max = torch.amax(lg, dim=-1)
+    local_max = torch.amax(scores, dim=-1)
     gmax = ctx.comm.model_pmax(local_max)
     cand = torch.where(local_max >= gmax, local_arg,
                        torch.full_like(local_arg, torch.iinfo(torch.int64).max))
@@ -399,34 +406,41 @@ def gumbel_noise(seed: torch.Tensor, pos: torch.Tensor, cols: int, start: int = 
 def sample_tokens(logits_local: torch.Tensor, ctx: L.Ctx, vocab_real: int, *,
                   seed: torch.Tensor, pos: torch.Tensor, temperature: torch.Tensor,
                   top_k: int = 0) -> torch.Tensor:
-    """Seeded categorical sampler over the logits [b, V] -> [b] ids (the
+    """Seeded categorical sampler over the vocab-parallel logits [b, V/tp]
+    (this rank's columns ``tp_index * V/tp ...``) -> [b] global ids (the
     port of ``repro/models/lm.py::sample_tokens``).
 
     Exact Gumbel-max: ``argmax(logits / T + G)`` with G drawn by
     :func:`gumbel_noise` from (request seed [b], position of the sampled
-    token [b], vocab column), so decoding is reproducible per (seed,
+    token [b], global vocab column), so decoding is reproducible per (seed,
     position) and distinct across both.  Rows with ``temperature == 0``
     take the noiseless argmax, bitwise :func:`greedy_sample`.  ``top_k``
     keeps the columns at or above the k-th largest logit (exact: ties at
-    the threshold stay).  What is held: the draw's determinism, greedy
-    parity, the law softmax(logits / T) over the kept columns.  What is
-    not: JAX's bits (its noise is threefry, ``jax.random.gumbel``), so a
-    sampled row does not match the reference's token for token.  Serving
-    at tp > 1 (vocab-parallel logits) waits for ROADMAP Queue 1 item 6b.
+    the threshold stay).  At tp > 1 each shard draws its own columns' noise
+    (the same draws as at tp 1), the shards' top-k values are gathered over
+    the model group and the global k-th taken as the threshold (the true
+    top-k, where the reference keeps the union of per-shard top-k: ROADMAP
+    Queue 3), and the argmax is :func:`greedy_sample`'s pmax / pmin (ties
+    to the lowest global column).  So a draw is bitwise the same at any tp.
+    What is held: the draw's determinism, greedy parity, the law
+    softmax(logits / T) over the kept columns.  What is not: JAX's bits
+    (its noise is threefry, ``jax.random.gumbel``), so a sampled row does
+    not match the reference's token for token.
     """
-    if ctx.tp > 1:
-        raise NotImplementedError(
-            "sampling vocab-parallel logits (tp > 1) comes with serving over ranks, "
-            "ROADMAP Queue 1 item 6b")
     b, vl = logits_local.shape
+    start = ctx.tp_index() * vl
     lg = logits_local.float()
-    col = torch.arange(vl, device=lg.device)
+    col = start + torch.arange(vl, device=lg.device)
     lg = torch.where(col < vocab_real, lg, torch.full_like(lg, L.NEG_INF))
     if top_k:
-        thr = torch.topk(lg, min(top_k, vl), dim=-1).values[:, -1:]
+        k = min(top_k, vl * ctx.tp)
+        top = torch.topk(lg, min(top_k, vl), dim=-1).values
+        if ctx.tp > 1:
+            top = ctx.comm.model_all_gather(top, axis=-1)
+        thr = torch.topk(top, k, dim=-1).values[:, -1:] if ctx.tp > 1 else top[:, k - 1:k]
         lg = torch.where(lg < thr, torch.full_like(lg, L.NEG_INF), lg)
     temp = temperature.to(device=lg.device, dtype=torch.float32)[:, None]
-    g = gumbel_noise(seed.to(lg.device), pos, vl)
+    g = gumbel_noise(seed.to(lg.device), pos, vl, start)
     # masked lanes stay masked: NEG_INF / T + G is still below any real score
     scores = torch.where(temp > 0, lg / torch.clamp_min(temp, 1e-6) + g, lg)
-    return torch.argmax(scores, dim=-1)
+    return _global_argmax(scores, start, ctx)

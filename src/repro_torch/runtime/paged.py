@@ -13,14 +13,18 @@ blocks:
 Each request owns a list of blocks; table entry ``i`` maps token positions
 ``[i * block_size, (i + 1) * block_size)`` to a block.  Blocks return to
 the free list the moment a request completes, so the resident batch is
-bounded by live tokens, not by the worst-case length.  The port serves on
-one rank: one allocator, one pool (serving over ranks, where each data
-rank owns its allocator and pool, is ROADMAP Queue 1 item 6b).
+bounded by live tokens, not by the worst-case length.  Over ranks the
+placement is the contiguous caches': each data rank owns its allocator and
+its pool of ``n_blocks_local`` blocks (table entries are rank-local ids)
+and runs its rows of the global batch; heads go over the model group
+(``hkv_local`` a rank, int8 scale pages placed alike), with the head-slot
+replication of DESIGN.md §3 where ``n_kv_heads < tp``.
 
-Block 0 is reserved as the *garbage block*: it is never allocated, unset
-table entries point at it, and the step writes padding rows there as
-zeros, so it stays all zeros and reads through an unset entry are zeros
-that the per-request valid lengths mask out of the softmax.
+Block 0 of every rank's pool is reserved as the *garbage block*: it is
+never allocated, unset table entries point at it, and the step writes
+padding rows there as zeros, so it stays all zeros and reads through an
+unset entry are zeros that the per-request valid lengths mask out of the
+softmax.
 
 Bitwise discipline: attention runs on the flash kernel's ``paged`` route
 (``kernels/flash_attention``), whose split plan depends only on the batch,
@@ -52,14 +56,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant as Q
-from repro_torch.core.comm import CommEngine
-from repro_torch.core.mics import KV_DTYPES, SCORES_BF16_UNNEEDED, UNPORTED_TRAIN, MiCSConfig
+from repro_torch.core.mics import KV_DTYPES, MiCSConfig
 from repro_torch.core.topology import MiCSTopology
 from repro_torch.device import resolve_device
-from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.lm import ModelDef
-from repro_torch.runtime.serving import refuse_world
+from repro_torch.runtime.serving import local_rows, serve_engine
 
 _KV_TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
@@ -185,33 +187,44 @@ def paged_cache_local(model: ModelDef, n_blocks_local: int, block_size: int,
 def init_paged_caches(model: ModelDef, topo: MiCSTopology, n_blocks_local: int,
                       block_size: int, kv_dtype: str = "bf16", *,
                       device: str | torch.device = "cuda"):
-    """The zero paged pools of a one-rank world (:func:`paged_cache_local`)."""
-    refuse_world(topo)
+    """This rank's zero paged pools (:func:`paged_cache_local`):
+    ``n_blocks_local`` blocks of its data rank, ``hkv_local`` heads of its
+    model coordinate."""
+    if model.tp != topo.model_size:
+        raise ValueError(f"the model is built for tp = {model.tp}, the topology has "
+                         f"tp = {topo.model_size}")
     return paged_cache_local(model, n_blocks_local, block_size, kv_dtype, device=device)
 
 
 def pages_from_contiguous(model: ModelDef, topo: MiCSTopology, contig: dict, paged: dict,
-                          tables, lengths, *, block_size: int, kv_dtype: str = "bf16"):
+                          tables, lengths, *, block_size: int, kv_dtype: str = "bf16",
+                          data_rank: int = 0):
     """Copy a contiguous prefill cache into an allocated paged pool, in place.
 
-    contig: ``lm.prefill``'s caches (k / v [stack, B, cap, H, dh], the slot of
-    position a is a for window-free models); paged: pools from
-    :func:`init_paged_caches`; tables [B, max_blocks] block ids; lengths [B]
-    prompt lengths.  Int8 pools quantize each (token, head) row of the
-    fp32 values, as the engine's writes do.  Returns ``paged``.
+    contig: this rank's ``lm.prefill`` caches (k / v [stack, b, cap, H, dh]
+    for its ``b = B / dp`` rows; the slot of position a is a for
+    window-free models); paged: its pools from :func:`init_paged_caches`;
+    tables [B, max_blocks] rank-local block ids and lengths [B] prompt
+    lengths of the global batch, of which data rank ``data_rank`` takes its
+    rows.  Int8 pools quantize each (token, head) row of the fp32 values,
+    as the engine's writes do.  Returns ``paged``.
     """
-    refuse_world(topo)
     tables = np.asarray(tables)
     lengths = np.asarray(lengths)
+    dp = topo.data_parallel_size
+    if tables.shape[0] % dp:
+        raise ValueError(f"tables of {tables.shape[0]} rows do not divide over {dp} data ranks")
+    per = tables.shape[0] // dp
     for pool in model.pools:
         dst = paged[pool.name]
         dev = dst["k"].device
-        for b in range(tables.shape[0]):
-            n = int(lengths[b])
+        for b in range(per):
+            row = data_rank * per + b
+            n = int(lengths[row])
             if n == 0:
                 continue
             posn = np.arange(n)
-            blk = torch.as_tensor(tables[b, posn // block_size], dtype=torch.long, device=dev)
+            blk = torch.as_tensor(tables[row, posn // block_size], dtype=torch.long, device=dev)
             off = torch.as_tensor(posn % block_size, dtype=torch.long, device=dev)
             src_k = contig[pool.name]["k"][:, b, :n].to(device=dev, dtype=torch.float32)
             src_v = contig[pool.name]["v"][:, b, :n].to(device=dev, dtype=torch.float32)
@@ -229,22 +242,11 @@ def pages_from_contiguous(model: ModelDef, topo: MiCSTopology, contig: dict, pag
 # the paged decode / chunk step
 # ---------------------------------------------------------------------------
 
-def _serve_ctx(topo: MiCSTopology, mcfg: MiCSConfig, cache_len: int):
-    refuse_world(topo)
-    if mcfg.policy != "manual":
-        raise NotImplementedError(f"policy {mcfg.policy!r} needs {UNPORTED_TRAIN['policy'][1]}")
-    if mcfg.scores_bf16:
-        raise NotImplementedError(SCORES_BF16_UNNEEDED)
-    comm = CommEngine.from_config(topo, mcfg)
-    ctx = L.Ctx(mode="decode", tp=topo.model_size, cache_len=cache_len,
-                compute_dtype=mcfg.gather_dtype)
-    return comm, ctx
-
-
-def _rows(x, dtype, dev) -> torch.Tensor:
-    """A step input (numpy or tensor) as a ``dtype`` tensor on ``dev``."""
+def _rows(x, dtype, dev, rows: slice) -> torch.Tensor:
+    """This data rank's ``rows`` of a step input (numpy or tensor) as a
+    ``dtype`` tensor on ``dev``."""
     return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
-                           dtype=dtype).to(dev)
+                           dtype=dtype)[rows].to(dev)
 
 
 def _check_pools(caches: dict, kv_dtype: str, block_size: int) -> None:
@@ -260,12 +262,19 @@ def _check_pools(caches: dict, kv_dtype: str, block_size: int) -> None:
 def build_paged_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, *,
                      max_blocks: int, block_size: int | None = None, chunk: int = 1,
                      kv_dtype: str | None = None, top_k: int = 0,
-                     device: str | torch.device = "cuda"):
-    """The continuous-batching step over a paged KV pool, on ``device``.
+                     device: str | torch.device = "cuda", groups=None):
+    """The continuous-batching step over a paged KV pool: this rank's part,
+    on ``device`` (``groups``: its ``MiCSGroups`` of ``topo``, needed at
+    more than one rank).
 
     step(params, caches, tokens [B, chunk], pos [B], n_new [B],
          tables [B, max_blocks], seeds [B], temps [B])
-      -> (next_tok [B], logits_row [B, vocab_padded], caches)
+      -> (next_tok [B], logits_row [b, vocab_padded / tp], caches)
+
+    The inputs are the global batch's ``B = dp * b`` slots (tables of
+    rank-local block ids); this data rank runs its ``b`` rows over its pools
+    and returns their logit rows (its vocab columns), and the sampled
+    tokens of every rank, gathered over the data group.
 
     One call advances every slot by up to ``chunk`` tokens: decode slots
     consume 1 (``n_new=1``), prefill slots up to ``chunk`` (chunked prefill
@@ -287,57 +296,61 @@ def build_paged_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, *,
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {KV_DTYPES}")
     dev = resolve_device(device)
-    comm, ctx = _serve_ctx(topo, mcfg, max_blocks * block_size)
+    comm, ctx = serve_engine(model, topo, mcfg, groups, max_blocks * block_size)
 
     @torch.inference_mode()
     def step(params, caches, tokens, pos, n_new, tables, seeds, temps):
         _check_pools(caches, kv_dtype, block_size)
-        tokens = _rows(tokens, torch.long, dev)
+        mine = local_rows(comm, len(tokens))
+        tokens = _rows(tokens, torch.long, dev, mine)
         if tokens.shape[1] != chunk:
             raise ValueError(f"tokens {tuple(tokens.shape)}: this step takes {chunk} a slot")
-        pos, n_new = _rows(pos, torch.long, dev), _rows(n_new, torch.long, dev)
-        tables = _rows(tables, torch.int32, dev)
+        pos, n_new = _rows(pos, torch.long, dev, mine), _rows(n_new, torch.long, dev, mine)
+        tables = _rows(tables, torch.int32, dev, mine)
         if tables.shape[1] != max_blocks:
             raise ValueError(f"tables {tuple(tables.shape)}: want [B, {max_blocks}]")
         pages = PageState(block_tables=tables, block_size=block_size, n_new=n_new)
         logits, caches = lm.decode_step(model, params, comm, ctx, tokens, pos, caches,
                                         pages=pages, rows=torch.clamp_min(n_new - 1, 0))
         lgt = logits[:, 0]
-        nxt = lm.sample_tokens(lgt, ctx, model.cfg.vocab, seed=_rows(seeds, torch.long, dev),
-                               pos=pos + n_new, temperature=_rows(temps, torch.float32, dev),
-                               top_k=top_k)
-        return nxt, lgt, caches
+        nxt = lm.sample_tokens(lgt, ctx, model.cfg.vocab,
+                               seed=_rows(seeds, torch.long, dev, mine), pos=pos + n_new,
+                               temperature=_rows(temps, torch.float32, dev, mine), top_k=top_k)
+        return comm.data_all_gather(nxt), lgt, caches
 
+    step.comm = comm   # its counter: the run's collectives
     return step
 
 
 def build_contiguous_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
                           cache_len: int, *, top_k: int = 0,
-                          device: str | torch.device = "cuda"):
+                          device: str | torch.device = "cuda", groups=None):
     """Vector-position contiguous-cache decode step: the bitwise reference
-    for the paged engine (the same per-request positions and sampler,
-    ``lm.init_caches`` caches [stack, b, cache_len, h, dh], one token a
-    slot a call).
+    for the paged engine (the same per-request positions, placement and
+    sampler, ``lm.init_caches`` caches [stack, b, cache_len, h, dh] of this
+    rank's rows, one token a slot a call).
 
     step(params, caches, tokens [B, 1], pos [B], seeds [B], temps [B])
-      -> (next_tok [B], logits_row [B, vocab_padded], caches)
+      -> (next_tok [B], logits_row [b, vocab_padded / tp], caches)
     """
     dev = resolve_device(device)
-    comm, ctx = _serve_ctx(topo, mcfg, cache_len)
+    comm, ctx = serve_engine(model, topo, mcfg, groups, cache_len)
     if model.cfg.window:
         raise NotImplementedError("vector-position decode needs window == 0")
 
     @torch.inference_mode()
     def step(params, caches, tokens, pos, seeds, temps):
-        tokens = _rows(tokens, torch.long, dev)
+        mine = local_rows(comm, len(tokens))
+        tokens = _rows(tokens, torch.long, dev, mine)
         if tokens.shape[1] != 1:
             raise ValueError(f"tokens {tuple(tokens.shape)}: the contiguous step takes one a slot")
-        pos = _rows(pos, torch.long, dev)
+        pos = _rows(pos, torch.long, dev, mine)
         logits, caches = lm.decode_step(model, params, comm, ctx, tokens, pos, caches)
         lgt = logits[:, 0]
-        nxt = lm.sample_tokens(lgt, ctx, model.cfg.vocab, seed=_rows(seeds, torch.long, dev),
-                               pos=pos + 1, temperature=_rows(temps, torch.float32, dev),
-                               top_k=top_k)
-        return nxt, lgt, caches
+        nxt = lm.sample_tokens(lgt, ctx, model.cfg.vocab,
+                               seed=_rows(seeds, torch.long, dev, mine), pos=pos + 1,
+                               temperature=_rows(temps, torch.float32, dev, mine), top_k=top_k)
+        return comm.data_all_gather(nxt), lgt, caches
 
+    step.comm = comm
     return step

@@ -1,26 +1,37 @@
 """Serving runtime: fixed-batch prefill + KV-cache decode with the seeded
-sampler (the port of ``repro/runtime/serving.py``'s ``build_serve_steps``
-and ``pad_ragged_batch``); the continuous-batching engine is
-``runtime/paged.py``, ``runtime/batching.py`` and ``runtime/resilient.py``.
+sampler (the port of ``repro/runtime/serving.py``'s ``build_serve_steps``,
+``pad_ragged_batch`` and ``resize_for_serve_world``); the
+continuous-batching engine is ``runtime/paged.py``, ``runtime/batching.py``
+and ``runtime/resilient.py``.
 
-Inference uses the same flat-pool parameter gathering as training: every
-step re-gathers every layer through the ``CommEngine`` (at p = 1 on one
-card, the cast of each fp32 row to the wire dtype).  With
-``quant_gather`` the weights are stored int8 (``quant.quantize_state``:
-``{'q': int8, 's': fp32 block scales}`` a pool) and each layer's row is
-dequantized on the card every step, where the bf16 path reads fp32 rows
-and casts them.  Serving over more than one rank is refused (ROADMAP
-Queue 1 item 6b).
+Inference uses the same flat-pool parameter gathering as training, so the
+weights' memory scales as 1/p: every step re-gathers every layer through
+the ``CommEngine`` (the staged gather over the partition group at p > 1,
+the lookahead on a side stream; at p = 1 the cast of each fp32 row to the
+wire dtype).  With ``quant_gather`` the weights are stored int8
+(``quant.quantize_state``: ``{'q': int8, 's': fp32 block scales}`` a pool)
+and each layer's row is gathered as it is and dequantized every step.
+
+Over ranks (the reference's ``shard_map`` specs, each rank running its own
+part): the batch goes over the data ranks, each running its ``B / dp``
+rows; heads and vocab columns go over the model group, so a rank's KV
+caches hold ``attn_dims(...).hkv_local`` heads (where ``n_kv_heads < tp``
+the one head its query group reads: DESIGN.md §3's head-slot replication)
+and its logits its ``V / tp`` columns of its rows.  The sampled tokens are
+gathered over the data group, so every rank's host loop holds the global
+``[B, 1]`` tokens.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.autotune import resolve_world
 from repro_torch.core.comm import CommEngine
-from repro_torch.core.mics import SCORES_BF16_UNNEEDED, MiCSConfig
+from repro_torch.core.mics import (SCORES_BF16_UNNEEDED, UNPORTED_TRAIN, MiCSConfig,
+                                   local_flat_shapes)
 from repro_torch.core.quant import n_blocks
-from repro_torch.core.topology import MiCSTopology
+from repro_torch.core.topology import MiCSTopology, elastic_host_topology
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import lm
@@ -44,23 +55,23 @@ def pad_ragged_batch(topo: MiCSTopology, batch: dict):
     return batch, mask
 
 
-def _check_params(model: ModelDef, params: dict, device: torch.device,
+def _check_params(model: ModelDef, topo: MiCSTopology, params: dict, device: torch.device,
                   quantized: bool = False) -> None:
-    """Each pool fp32 ``[stack, 1, S]``, or with ``quantized`` a stored
-    ``{'q': int8 [stack, 1, S], 's': fp32 [stack, 1, ceil(S / 128)]}``, on
-    ``device``'s type."""
-    for name, (stack, tp, flat) in model.global_flat_shapes().items():
+    """Each pool this rank's fp32 ``[stack, 1, S / p]``, or with
+    ``quantized`` a stored ``{'q': int8 [stack, 1, S / p], 's': fp32
+    [stack, 1, ceil(S / p / 128)]}``, on ``device``'s type."""
+    for name, (stack, one, flat) in local_flat_shapes(model, topo).items():
         pool = params[name]
         if quantized:
             if not isinstance(pool, dict) or set(pool) != {"q", "s"}:
                 raise ValueError(f"pool {name!r}: quant_gather serves stored int8 pools "
                                  "{'q', 's'} (quant.quantize_state)")
-            want = {"q": (torch.int8, (stack, tp, flat)),
-                    "s": (torch.float32, (stack, tp, n_blocks(flat)))}
+            want = {"q": (torch.int8, (stack, one, flat)),
+                    "s": (torch.float32, (stack, one, n_blocks(flat)))}
         else:
             if isinstance(pool, dict):
                 raise ValueError(f"pool {name!r} is stored int8: serve it with quant_gather")
-            pool, want = {"": pool}, {"": (torch.float32, (stack, tp, flat))}
+            pool, want = {"": pool}, {"": (torch.float32, (stack, one, flat))}
         for k, (dtype, shape) in want.items():
             t = pool[k]
             if tuple(t.shape) != shape or t.dtype != dtype:
@@ -70,62 +81,116 @@ def _check_params(model: ModelDef, params: dict, device: torch.device,
                 raise ValueError(f"pool {name!r} is on {t.device}, the serve steps on {device}")
 
 
-def refuse_world(topo: MiCSTopology) -> None:
-    """Serving runs on one rank; more waits for ROADMAP Queue 1 item 6b."""
-    if topo.world_size > 1:
-        raise NotImplementedError(
-            f"serving over {topo.world_size} ranks (p = {topo.partition_size}, "
-            f"{topo.replication_degree} replicas, tp = {topo.model_size}) waits for ROADMAP "
-            "Queue 1 item 6b, serving over ranks; the port serves on one card")
+def serve_engine(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, groups,
+                 cache_len: int) -> tuple[CommEngine, L.Ctx]:
+    """The ``CommEngine`` over ``groups`` (this rank's ``MiCSGroups`` of
+    ``topo``; ``ValueError`` without them at more than one rank, or for a
+    parked rank) and the decode context of every serve step."""
+    if mcfg.policy != "manual":
+        raise NotImplementedError(f"policy {mcfg.policy!r} needs {UNPORTED_TRAIN['policy'][1]}")
+    if mcfg.scores_bf16:
+        raise NotImplementedError(SCORES_BF16_UNNEEDED)
+    if model.tp != topo.model_size:
+        raise ValueError(f"the model is built for tp = {model.tp}, the topology has "
+                         f"tp = {topo.model_size}")
+    if groups is not None and groups.parked:
+        raise ValueError(f"rank {groups.rank} is parked outside the {topo.world_size}-rank "
+                         "world: it serves nothing")
+    comm = CommEngine.from_config(topo, mcfg, groups=groups)
+    ctx = L.Ctx(mode="decode", tp=topo.model_size, cache_len=cache_len,
+                compute_dtype=mcfg.gather_dtype, comm=comm)
+    return comm, ctx
+
+
+def local_rows(comm: CommEngine, n_rows: int) -> slice:
+    """This data rank's rows of a global batch of ``n_rows`` (a multiple of
+    dp): ``[d * n_rows / dp, (d + 1) * n_rows / dp)``."""
+    dp = comm.topo.data_parallel_size
+    if n_rows % dp:
+        raise ValueError(f"a batch of {n_rows} rows does not divide over {dp} data ranks "
+                         "(pad_ragged_batch pads it)")
+    per = n_rows // dp
+    d = comm.data_rank()
+    return slice(d * per, (d + 1) * per)
 
 
 def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
                       cache_len: int, *, top_k: int = 0,
-                      device: str | torch.device = "cuda"):
-    """Returns ``(prefill_fn, decode_fn)`` running on ``device``.
+                      device: str | torch.device = "cuda", groups=None):
+    """Returns ``(prefill_fn, decode_fn)`` running this rank's part on
+    ``device``.  ``groups``: the rank's ``launch.mesh.MiCSGroups`` of
+    ``topo``, needed at more than one rank (``ValueError`` without).
 
-    ``prefill_fn(params, batch) -> (logits [b, 1, V], caches)``; with
-    ``mcfg.quant_gather`` the params are stored int8 pools
-    (``quant.quantize_state``).
+    ``prefill_fn(params, batch) -> (logits [b, 1, V / tp], caches)``: the
+    global batch's tokens [B, T], of which this data rank runs its ``b = B
+    / dp`` rows; ``params`` are the rank's shards (``init_params(...,
+    topo=, rank=)``; with ``mcfg.quant_gather`` stored int8 pools,
+    ``quant.quantize_state`` of them); the caches are the rank's.
     ``decode_fn(params, caches, tokens, pos, seeds=None, temps=None,
-    row_mask=None) -> (logits [b, 1, V], next_tokens [b, 1], caches)``
-    samples the token at ``pos + 1`` with ``lm.sample_tokens`` (per-request
-    ``seeds`` and ``temps``, ``top_k``); without ``temps`` (every row at
-    temperature 0) it takes ``lm.greedy_sample``, the same argmax without
-    drawing noise.  Rows where ``row_mask`` is False emit -1.  The caches
-    are updated in place.
+    row_mask=None) -> (logits [b, 1, V / tp], next_tokens [B, 1], caches)``
+    takes the global tokens [B, 1] (and [B] seeds, temperatures and row
+    mask) and samples the token at ``pos + 1`` with ``lm.sample_tokens``
+    (``top_k``); without ``temps`` (every row at temperature 0) it takes
+    ``lm.greedy_sample``, the same argmax without drawing noise.  The
+    sampled rows are gathered over the data group (``all_gather:data``),
+    so every rank returns the global tokens; rows where ``row_mask`` is
+    False emit -1.  The caches are updated in place.
     """
     dev = resolve_device(device)
-    refuse_world(topo)
-    if mcfg.scores_bf16:
-        raise NotImplementedError(SCORES_BF16_UNNEEDED)
-    comm = CommEngine.from_config(topo, mcfg)
-    ctx = L.Ctx(mode="decode", tp=topo.model_size, cache_len=cache_len,
-                compute_dtype=mcfg.gather_dtype)
+    comm, ctx = serve_engine(model, topo, mcfg, groups, cache_len)
 
     @torch.inference_mode()
     def prefill_fn(params, batch):
-        _check_params(model, params, dev, mcfg.quant_gather)
-        tokens = batch["tokens"].to(dev)
+        _check_params(model, topo, params, dev, mcfg.quant_gather)
+        tokens = batch["tokens"]
+        tokens = tokens[local_rows(comm, tokens.shape[0])].to(dev)
         return lm.prefill(model, params, comm, ctx, {"tokens": tokens})
 
     @torch.inference_mode()
     def decode_fn(params, caches, tokens, pos, seeds=None, temps=None, row_mask=None):
-        _check_params(model, params, dev, mcfg.quant_gather)
-        tokens = tokens.to(dev)
+        _check_params(model, topo, params, dev, mcfg.quant_gather)
+        n = tokens.shape[0]
+        mine = local_rows(comm, n)
+        tokens = tokens[mine].to(dev)
         logits, new_caches = lm.decode_step(model, params, comm, ctx, tokens,
                                             int(pos), caches)
         if temps is None:
             nxt = lm.greedy_sample(logits[:, -1], ctx, model.cfg.vocab)
         else:
             b = tokens.shape[0]
-            seeds = torch.zeros(b, dtype=torch.int64) if seeds is None else seeds
+            seeds = torch.zeros(n, dtype=torch.int64) if seeds is None else seeds
             nxt = lm.sample_tokens(
-                logits[:, -1], ctx, model.cfg.vocab, seed=torch.as_tensor(seeds).to(dev),
+                logits[:, -1], ctx, model.cfg.vocab,
+                seed=torch.as_tensor(seeds)[mine].to(dev),
                 pos=torch.full((b,), int(pos) + 1, dtype=torch.int64, device=dev),
-                temperature=torch.as_tensor(temps).to(dev), top_k=top_k)
+                temperature=torch.as_tensor(temps)[mine].to(dev), top_k=top_k)
+        nxt = comm.data_all_gather(nxt)
         if row_mask is not None:
             nxt = torch.where(row_mask.to(dev), nxt, torch.full_like(nxt, -1))
         return logits, nxt[:, None], new_caches
 
+    prefill_fn.comm = decode_fn.comm = comm   # its counter: the run's collectives
     return prefill_fn, decode_fn
+
+
+def resize_for_serve_world(mcfg: MiCSConfig, n_devices: int, *, tp: int = 1,
+                           partition_size: int | None = None, available: int
+                           ) -> tuple[MiCSTopology, dict]:
+    """(topology, ledger info) for serving on the first ``n_devices`` of
+    ``available`` ranks: the rebuild path of the resilient serve loop
+    (``runtime/resilient.py``) at every world change, as
+    ``train_loop.resize_for_world`` is the train loop's.
+
+    ``autotune.resolve_world``'s keep rule re-picks the partition size (the
+    previous one where it divides the new data extent, else the largest
+    divisor below it), then ``topology.elastic_host_topology`` lays the
+    survivors out contiguously with tp pinned (flat layouts are TP-local).
+    ``info`` is the rule's record plus ``world``.  The reference also
+    re-ranks the serve policy for the new link geometry and returns the
+    re-ranked config (``autotune.rerank_serve_world``, its ``serve_rerank``
+    key); that needs the link model, ROADMAP Queue 1 item 8, so the port
+    serves on with the config it was given and its info has no
+    ``serve_rerank``."""
+    p, info = resolve_world(mcfg, n_devices=n_devices, tp=tp, partition_size=partition_size)
+    topo = elastic_host_topology(n_devices, p, tp, available=available)
+    return topo, dict(info, world=n_devices)

@@ -39,7 +39,7 @@ batch does not depend on the topology) and writes its own shards; only
 rank 0 logs.  The world is the first n ranks of the launch world; a rank
 outside it is parked: it runs no step and waits in the next meeting.  At
 each world change every live process of the launch world meets in one
-call on the default group (:func:`_meet`), where rank 0 sends the new
+call on the default group (``launch/mesh.meet``), where rank 0 sends the new
 world, the step to restore (its newest complete checkpoint after every
 rank's save has landed) and the plan's fired events; every process then
 rebuilds the groups, and the ranks of the new world restore.  At the end
@@ -63,7 +63,6 @@ import time
 from typing import Callable
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ArchConfig
@@ -73,7 +72,7 @@ from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
 from repro_torch.core.topology import MiCSTopology, elastic_host_topology
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import MiCSGroups
+from repro_torch.launch.mesh import MiCSGroups, launch_world, meet
 from repro_torch.models.build import build_model
 from repro_torch.models.lm import ModelDef
 from repro_torch.optim.adamw import OptConfig
@@ -133,18 +132,6 @@ class _World:
     @property
     def parked(self) -> bool:
         return self.groups is not None and self.groups.parked
-
-
-def _launch_world() -> int:
-    return dist.get_world_size() if dist.is_initialized() else 1
-
-
-def _meet(payload):
-    """One call of every live process of the launch world on the default
-    group: rank 0's ``payload`` for everyone."""
-    box = [payload]
-    dist.broadcast_object_list(box, src=0)
-    return box[0]
 
 
 def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
@@ -214,7 +201,7 @@ def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
     ewma, measured, retries = None, 0, 0
     while True:
         if cur.parked:
-            msg = _meet(None)
+            msg = meet(None)
             if msg.get("release"):
                 break
         elif step >= lc.total_steps:
@@ -260,7 +247,7 @@ def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
                                "fired": [ev.fired for ev in getattr(fault_injector, "events",
                                                                     [])],
                                "log": list(getattr(fault_injector, "log", []))}
-                msg = payload if cur.groups is None else _meet(payload)
+                msg = payload if cur.groups is None else meet(payload)
             except Exception as e:  # noqa: BLE001 - failure domain boundary
                 stats.restarts += 1
                 retries += 1
@@ -317,7 +304,7 @@ def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
             torch.cuda.empty_cache()
         new_topo, rule = resize_for_world(
             mcfg, event["world"], tp=topo.model_size,
-            partition_size=cur.topo.partition_size, available=_launch_world())
+            partition_size=cur.topo.partition_size, available=launch_world())
         t0 = time.perf_counter()
         new_groups = None if cur.groups is None else MiCSGroups(
             new_topo, cur.groups.rank, backend=cur.groups.backend,
@@ -345,8 +332,8 @@ def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
             warn("final wait surfaced a crashed save (%s)", e)
         try_save(state, step, cursor, blocking=True)
         stats.comm = cur.step_fn.comm.counter.snapshot()
-        if _launch_world() > cur.topo.world_size:
-            _meet({"release": True} if rank == 0 else None)   # the parked processes
+        if launch_world() > cur.topo.world_size:
+            meet({"release": True} if rank == 0 else None)   # the parked processes
     return stats
 
 

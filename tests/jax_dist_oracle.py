@@ -1,7 +1,8 @@
 """The JAX package's answers to the cases of ``torch_dist_cases.py`` on 4
 virtual CPU devices, jitted, written to ``<out>/jax_<mode>.npz``.
 
-    python tests/jax_dist_oracle.py collectives|train|init|tp_layers|tp_train|elastic OUT_DIR
+    python tests/jax_dist_oracle.py \
+        collectives|train|init|tp_layers|tp_train|elastic|serve OUT_DIR
 
 ``collectives``: ``repro.core.collectives`` under ``shard_map`` on
 ``make_host_mesh`` meshes, each device's input row r of the case's input,
@@ -13,6 +14,8 @@ a function of the model and the seed, not of the layout).  ``tp_layers``
 and ``tp_train``: the tensor-parallel cases (see those functions).
 ``elastic``: the reference's elastic loop on the runs of
 ``K.ELASTIC_RUNS`` and ``elastic_host_topology`` on ``K.ELASTIC_GRID``.
+``serve``: the reference's serving at the layouts of the serve cases (see
+that function).
 """
 
 import os
@@ -391,10 +394,149 @@ def elastic() -> dict:
     return out
 
 
+def _serve_setup(name: str):
+    """The reference's model, topology and global weights of a
+    ``K.SERVE_FIXED`` case (the port's cut of ``K.numpy_params``)."""
+    import dataclasses
+
+    from repro.configs import get_config, smoke_variant
+    from repro.models.build import build_model
+    from repro_torch.configs import get_config as port_config
+    from repro_torch.convert import tp_params_from_full
+    from repro_torch.models.build import build_model as port_model
+
+    arch, lay, _, _, over, _ = K.SERVE_FIXED[name]
+    topo = topology(lay)
+    tp = topo.model_size
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), **over)
+    pcfg = dataclasses.replace(smoke_variant(port_config(arch)), **over)
+    params = tp_params_from_full(port_model(pcfg, tp), port_model(pcfg, 1), K.numpy_params(
+        build_model(cfg, tp=1), K.serve_weights_key(name)))
+    return build_model(cfg, tp=tp), topo, params
+
+
+def serve() -> dict:
+    """The reference's serving over 4 virtual devices: ``build_serve_steps``
+    on each case of ``K.SERVE_FIXED`` (prefill and decode logits, global,
+    and the tokens), ``build_paged_step`` at ``K.SERVE_PAGED`` (fp32 pools:
+    each step's logit rows and tokens), ``sample_tokens`` at
+    ``K.SAMPLER_LAYOUTS`` (every rank's ids) and the fault-free
+    ``ResilientServeLoop`` at P2T2 on ``K.chaos_requests`` (JSON)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    # each part compiled on its own thread: XLA compiles them side by side
+    parts = [lambda n=n: _serve_fixed_case(n) for n in K.SERVE_FIXED]
+    parts += [_serve_paged, _serve_sampler, _serve_loop]
+    out = {}
+    with ThreadPoolExecutor(len(parts)) as ex:
+        for res in ex.map(lambda f: f(), parts):
+            out.update(res)
+    return out
+
+
+def _serve_fixed_case(name: str) -> dict:
+    from repro.core import quant as Q
+    from repro.core.mics import MiCSConfig
+    from repro.runtime.serving import build_serve_steps
+
+    _, lay, order, inner, _, int8 = K.SERVE_FIXED[name]
+    model, topo, params = _serve_setup(name)
+    params = {k: jnp.asarray(v) for k, v in params.items()}
+    if int8:   # eager, outside jit: the port's bytes
+        params = Q.quantize_state(params)
+    mcfg = MiCSConfig(gather_dtype=jnp.float32, gather_order=order,
+                      hierarchy_inner=inner, quant_gather=int8)
+    prefill_fn, decode_fn = build_serve_steps(model, topo, mcfg, K.SERVE_CACHE)
+    prompts, tok = K.serve_inputs(name)
+    logits, caches = prefill_fn(params, {"tokens": jnp.asarray(prompts, jnp.int32)})
+    out = {f"{name}.prefill": np.asarray(logits)}
+    tok = jnp.asarray(tok, jnp.int32)
+    toks = []
+    for i in range(K.SERVE_STEPS):
+        logits, tok, caches = decode_fn(params, caches, tok, jnp.int32(K.SERVE_T + i))
+        out[f"{name}.decode{i}"] = np.asarray(logits)
+        toks.append(np.asarray(tok)[:, 0])
+    out[f"{name}.tokens"] = np.stack(toks, axis=1)
+    return out
+
+
+def _serve_paged() -> dict:
+    from repro.core.mics import MiCSConfig
+    from repro.runtime import paged as PG
+
+    out = {}
+    for lay in K.SERVE_PAGED:
+        model, topo, params = _serve_setup(f"llama@{lay}")
+        params = {k: jnp.asarray(v) for k, v in params.items()}
+        tables, nb = K.paged_tables(K.PAGED_PLENS, topo.data_parallel_size)
+        width = max(K.PAGED_PLENS)
+        mcfg = MiCSConfig(gather_dtype=jnp.float32, kv_dtype="fp32", kv_block_size=K.PAGED_BS)
+        step = PG.build_paged_step(model, topo, mcfg, max_blocks=tables.shape[1],
+                                   block_size=K.PAGED_BS, chunk=width, kv_dtype="fp32")
+        pool, _ = PG.init_paged_caches(model, topo, nb, K.PAGED_BS, "fp32")
+        toks = K.paged_prompts().astype(np.int32)
+        pos = np.zeros(len(K.PAGED_PLENS), np.int32)
+        n_new = np.asarray(K.PAGED_PLENS, np.int32)
+        for i in range(1 + K.PAGED_STEPS):
+            t, lg, pool = step(params, pool, jnp.asarray(toks), jnp.asarray(pos),
+                               jnp.asarray(n_new), jnp.asarray(tables),
+                               jnp.asarray(K.PAGED_SEEDS, jnp.int32),
+                               jnp.zeros(len(n_new), jnp.float32))
+            out[f"paged.{lay}.logits{i}"] = np.asarray(lg)
+            out[f"paged.{lay}.tokens{i}"] = np.asarray(t)
+            pos = pos + n_new
+            n_new = np.ones_like(n_new)
+            toks = np.zeros_like(toks)
+            toks[:, 0] = np.asarray(t)
+    return out
+
+
+def _serve_sampler() -> dict:
+    from repro.core.topology import MODEL_AXIS
+    from repro.models import layers as L
+    from repro.models import lm
+
+    out = {}
+    for lay in K.SAMPLER_LAYOUTS:
+        topo = topology(lay)
+        ctx = L.Ctx(mode="decode", tp=topo.model_size, tp_axis=MODEL_AXIS)
+
+        def body(lg):
+            ids = lm.sample_tokens(lg, ctx, K.VR, seed=jnp.asarray(K.SAMPLER_SEEDS, jnp.int32),
+                                   pos=jnp.asarray(K.SAMPLER_POS, jnp.int32),
+                                   temperature=jnp.asarray(K.SAMPLER_TEMPS))
+            return ids[None]
+
+        run = jax.jit(shard_map(body, mesh=topo.mesh, in_specs=P(None, MODEL_AXIS),
+                                out_specs=P(MICS_AXES), check_vma=False))
+        out[f"sampler.{lay}"] = np.asarray(run(jnp.asarray(K.sampler_logits())))
+    return out
+
+
+def _serve_loop() -> dict:
+    import json
+
+    from repro.core.mics import MiCSConfig
+    from repro.runtime.batching import Request
+    from repro.runtime.resilient import ResilientServeLoop, ServeLoopConfig
+
+    model, topo, params = _serve_setup("llama@P2T2")
+    params = {k: jnp.asarray(v) for k, v in params.items()}
+    mcfg = MiCSConfig(gather_dtype=jnp.float32, kv_dtype="fp32",
+                      kv_block_size=K.CHAOS_GEOMETRY["block_size"])
+    loop = ResilientServeLoop(model, topo, mcfg, ServeLoopConfig(**K.CHAOS_GEOMETRY, seed=0),
+                              params_for=lambda model, topo: params)
+    rep = loop.run(K.chaos_requests(Request), K.CHAOS_ARRIVALS)
+    return {"chaos.free4.json": np.asarray(json.dumps(
+        {"completions": rep["completions"], "ledger": rep["ledger"], "ticks": rep["ticks"]},
+        default=str))}
+
+
 def main():
     mode, out_dir = sys.argv[1], pathlib.Path(sys.argv[2])
     res = {"collectives": collectives, "train": train, "init": init,
-           "tp_layers": tp_layers, "tp_train": tp_train, "elastic": elastic}[mode]()
+           "tp_layers": tp_layers, "tp_train": tp_train, "elastic": elastic,
+           "serve": serve}[mode]()
     np.savez(out_dir / f"jax_{mode}.npz", **res)
 
 

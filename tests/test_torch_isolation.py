@@ -103,24 +103,39 @@ def test_later_slices_raise():
                dict(grad_rounding="down")):
         with pytest.raises(ValueError):
             MiCSConfig(**kw)
-    # serving over ranks (ROADMAP Queue 1 item 6b): the fixed-batch steps,
-    # the paged engine's steps and pools, and the resilient loop
+    # serving over ranks: the fixed-batch steps, the paged engine's steps
+    # and the resilient loop run over the process groups of their topology
+    # and refuse to build without them; a rank's pools hold its heads
     from repro_torch.kernels.flash_attention import paged_route
     from repro_torch.runtime import paged as PG
     from repro_torch.runtime.resilient import ResilientServeLoop, ServeLoopConfig
+    from repro_torch.runtime.serving import resize_for_serve_world
 
     llama = build_model(get_config("llama3.2-1b"), tp=1)
     for topo in (MiCSTopology(repl=2, shard=2), MiCSTopology(model=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-            build_serve_steps(llama, topo, MiCSConfig(), 24, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-            PG.build_paged_step(llama, topo, MiCSConfig(), max_blocks=2, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-            PG.init_paged_caches(llama, topo, 4, 16, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-            ResilientServeLoop(llama, topo, MiCSConfig(),
+        model = llama if topo.model_size == 1 else build_model(get_config("llama3.2-1b"), tp=2)
+        with pytest.raises(ValueError, match="MiCSGroups"):
+            build_serve_steps(model, topo, MiCSConfig(), 24, device="cpu")
+        with pytest.raises(ValueError, match="MiCSGroups"):
+            PG.build_paged_step(model, topo, MiCSConfig(), max_blocks=2, device="cpu")
+        with pytest.raises(ValueError, match="MiCSGroups"):
+            ResilientServeLoop(model, topo, MiCSConfig(),
                                ServeLoopConfig(slots_local=1, nb_local=3, block_size=16,
                                                max_blocks=2), device="cpu")
+        pools = PG.init_paged_caches(model, topo, 4, 16, device="cpu")
+        assert pools["layers"]["k"].shape == (16, 4, 16, 8 // topo.model_size, 64)
+    with pytest.raises(ValueError, match="built for tp = 1"):
+        build_serve_steps(llama, MiCSTopology(model=2), MiCSConfig(), 24, device="cpu")
+    # the world re-rank of the serve policy (autotune.rerank_serve_world)
+    # and a re-pick under a memory budget need ROADMAP Queue 1 item 8
+    topo, info = resize_for_serve_world(MiCSConfig(), 2, tp=2, partition_size=2,
+                                        available=4)
+    assert (topo.partition_size, topo.model_size, info["world"]) == (1, 2, 2)
+    assert "serve_rerank" not in info
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        resize_for_serve_world(MiCSConfig(hbm_budget_gb=40.0), 2, available=4)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        build_serve_steps(llama, MiCSTopology(), MiCSConfig(policy="auto"), 24, device="cpu")
     # fp32 KV pools (and fp32 queries) take no CUDA route of the paged kernel
     with pytest.raises(NotImplementedError, match="fp32 KV pools on the card"):
         paged_route(torch.bfloat16, torch.float32)

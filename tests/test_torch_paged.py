@@ -467,14 +467,73 @@ def test_sampler_law_is_softmax_over_top_k():
     assert chi2 < 13.8, (chi2, counts)       # 2 dof, p = 0.001
 
 
-def test_sampler_refuses_vocab_parallel_logits():
-    class Comm:
-        def model_coord(self):
-            return 0
+class _ThreadShard:
+    """Model rank ``m`` of an in-process model group of threads: the
+    sampler's collectives (the tiled gather, pmax, pmin) exchanged through
+    a barrier, with the reduction's exact semantics."""
 
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        lm.sample_tokens(torch.zeros(1, 4), Ctx(tp=2, comm=Comm()), 8, seed=torch.zeros(1),
-                         pos=torch.zeros(1), temperature=torch.ones(1))
+    def __init__(self, m: int, slots: list, barrier):
+        self.m, self.slots, self.barrier = m, slots, barrier
+
+    def model_coord(self):
+        return self.m
+
+    def _all(self, x):
+        self.barrier.wait()
+        self.slots[self.m] = x
+        self.barrier.wait()
+        return list(self.slots)
+
+    def model_all_gather(self, x, axis):
+        return torch.cat(self._all(x), dim=axis)
+
+    def model_pmax(self, x):
+        return torch.stack(self._all(x)).amax(0)
+
+    def model_pmin(self, x):
+        return torch.stack(self._all(x)).amin(0)
+
+
+def _sample_over_threads(logits, tp, **kw):
+    """``lm.sample_tokens`` at tp over ``logits``' columns cut into tp
+    shards, one thread a model rank: each rank's ids."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    slots, barrier = [None] * tp, threading.Barrier(tp)
+    shards = torch.chunk(logits, tp, dim=-1)
+
+    def run(m):
+        ctx = Ctx(tp=tp, comm=_ThreadShard(m, slots, barrier))
+        return lm.sample_tokens(shards[m].contiguous(), ctx, **kw)
+
+    with ThreadPoolExecutor(tp) as ex:
+        return list(ex.map(run, range(tp)))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_sampler_refuses_vocab_parallel_logits(tp):
+    """Vocab-parallel logits (tp > 1) are sampled, no longer refused: every
+    model rank returns bitwise the tp 1 sampler's ids on the whole logits
+    (each shard draws its global columns' noise; top-k is exact, the k-th
+    value over the shards' gathered top-k; ties at the threshold and
+    across shards go as at tp 1), greedy rows and the padded columns
+    included."""
+    n, vp, vreal = 12, 40, 37
+    gen = torch.Generator().manual_seed(5)
+    logits = torch.randint(0, 6, (n, vp), generator=gen).float()   # many ties
+    logits[0, 38] = 50.0                     # a padded column's maximum is masked
+    logits[1, [5, 15, 25, 35]] = 9.0         # a tie across every shard
+    logits[2] = torch.randn(vp, generator=gen)
+    temps = torch.tensor([0.0, 0.0] + [0.0, 0.7, 1.3, 2.0] * 2 + [0.5, 0.0])
+    for top_k in (0, 1, 3, 9, 30, 64):
+        kw = dict(vocab_real=vreal, seed=torch.arange(n) * 7 + 1, pos=torch.arange(n) + 3,
+                  temperature=temps, top_k=top_k)
+        want = lm.sample_tokens(logits, CTX, **kw)
+        for got in _sample_over_threads(logits, tp, **kw):
+            assert torch.equal(got, want), (top_k, got, want)
+    greedy = lm.greedy_sample(logits, CTX, vreal)
+    assert greedy[1] == 5 and torch.equal(want[temps == 0], greedy[temps == 0])
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,10 @@ gives exact zeros and leaves every other row's bits as they were), the
 split plan (a function of the shapes alone), the body a head dim takes,
 and the engine's call site (rows past a slot's ``n_new`` are dead).  The
 live rows are held to the reference's ``layers.attention`` over the
-gathered view."""
+gathered view.  On the card (``gpu``): the ``paged`` and ``split`` routes
+at a rank's shapes when serving over ranks (llama's KV heads over tp 2, 4
+and 8; recurrentgemma's one KV head of g 3 at dh 256 over tp 4) against
+their plain versions."""
 
 import pytest
 
@@ -193,3 +196,88 @@ def test_engine_step_passes_dead_rows(monkeypatch):
     assert len(seen) == model.cfg.n_layers
     for got in seen:
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# on the card: a rank's shapes when serving over ranks
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# llama3.2-1b's 8 KV heads of g 4 at dh 64 over tp 2 / 4 / 8 model ranks
+RANK_KV_HEADS = (4, 2, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("hkv", RANK_KV_HEADS)
+def test_cuda_paged_route_at_rank_shapes(cuda_device, pages, hkv):
+    """The ``paged`` route at a rank's shapes of the engine over ranks
+    (``chip_smoke.py``'s ``dist_serve``: 4 slots, a 64-token chunk width,
+    blocks of 16, 17 a table): a decode-only tick (one live row a slot), a
+    mixed tick and a full chunk, against its plain version on the same card
+    tensors (the split route's bf16 tolerance); dead rows exactly zero;
+    bitwise repeatable; its ``wgmma`` body."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, g, dh, bs, mb, w = 4, 4, 64, 16, 17, 64
+    nb = b * mb + 1
+    order = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(3)) + 1
+    tables = order[:b * mb].reshape(b, mb).to(torch.int32).to(dev)
+    k_pages = torch.randn(nb, bs, hkv, dh, generator=gen, device=dev)
+    v_pages = torch.randn(nb, bs, hkv, dh, generator=gen, device=dev)
+    scales = {}
+    if pages == "int8":
+        (k_pages, ks), (v_pages, vs) = Q.quantize_flat(k_pages), Q.quantize_flat(v_pages)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k_pages, v_pages = k_pages.to(torch.bfloat16), v_pages.to(torch.bfloat16)
+    rows = torch.arange(1, w + 1, device=dev)[None, :]
+    pos = torch.tensor([150, 201, 90, 255], device=dev)[:, None]
+    n_new = torch.tensor([w, 1, 1, 0], device=dev)[:, None]
+    for kvl in (torch.where(rows == 1, pos + rows, 0),
+                torch.where(rows <= n_new, torch.tensor([0, 201, 90, 0], device=dev)[:, None]
+                            + rows, 0),
+                torch.tensor([0, 64, 128, 192], device=dev)[:, None] + rows):
+        q = torch.randn(b, w, hkv, g, dh, generator=gen, device=dev).to(torch.bfloat16)
+        before = FK.launches_paged_by_form["paged:wgmma"]
+        got = FA.paged_attention(q, k_pages, v_pages, tables, kvl, **scales)
+        assert FK.launches_paged_by_form["paged:wgmma"] == before + 1
+        want = FA.paged_attention_plain(q, k_pages, v_pages, tables, kvl, **scales)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   rtol=2e-2, atol=2e-2)
+        assert not got[kvl == 0].any()
+        assert torch.equal(got, FA.paged_attention(q, k_pages, v_pages, tables, kvl, **scales))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hkv,g,dh,window,tk,kv_len", [
+    (4, 4, 64, 0, 544, 520),        # llama at tp 2, a fixed-batch decode step
+    (2, 4, 64, 0, 544, 520),        # llama at tp 4
+    (1, 4, 64, 0, 544, 520),        # llama at tp 8: one KV head a rank
+    (1, 3, 256, 0, 520, 520),       # recurrentgemma at tp 4 (10 Q heads padded to 12)
+    (1, 3, 256, 0, 2048, 2048),     # the same past its 2048 window: a full rolled cache
+])
+def test_cuda_split_decode_at_rank_shapes(cuda_device, hkv, g, dh, window, tk, kv_len):
+    """The ``split`` route (bf16 decode, one query row a KV head's g heads)
+    at a rank's shapes, batch 4, against its plain version; bitwise
+    repeatable; counted on ``split``."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(4, 1, hkv, g, dh, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(4, tk, hkv, dh, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(4, tk, hkv, dh, generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(causal=False, window=window, q_offset=0, kv_valid_len=kv_len)
+    assert FK.route(torch.bfloat16, g) == "split"
+    before = FK.launches_by_route["split"]
+    got = FA.flash_attention(q, k, v, **kw)
+    assert FK.launches_by_route["split"] == before + 1
+    want = FK.attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=2e-2, atol=2e-2)
+    assert torch.equal(got, FA.flash_attention(q, k, v, **kw))

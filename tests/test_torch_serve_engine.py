@@ -9,8 +9,8 @@ on the CPU.
   engine crash;
 * within the port: ``crash@k`` replays bitwise the fault-free run (sampled
   rows included); a degradation-ladder downshift to int8 pools rebuilds
-  and replays; a world change past one rank raises, naming ROADMAP Queue 1
-  item 6b;
+  and replays; a world change on one process, with no rank to lose or win,
+  raises;
 * the launcher's ``--continuous`` run.
 """
 
@@ -168,13 +168,18 @@ def test_ladder_downshift_rebuilds_and_replays(setup):
 
 
 def test_world_change_past_one_rank_raises(setup):
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    """On one process a world change has no rank to lose or to win: a loss
+    raises the reference's ``WorldChangeError``, a grow past the launch
+    world ``elastic_host_topology``'s ``ValueError``; a topology of more
+    than one rank needs its process groups.  World changes over ranks run
+    in ``tests/test_torch_dist_serve.py``."""
+    with pytest.raises(ValueError, match="exceeds the 1 available"):
         _port_loop(setup, fault=FaultPlan.parse("grow@1x1")).run(_requests(TB), ARRIVALS)
     for spec in ("preempt@1", "notice@2", "evict@1"):
         with pytest.raises(WorldChangeError, match="world of 0 devices"):
             _port_loop(setup, fault=FaultPlan.parse(spec)).run(_requests(TB), ARRIVALS)
     mcfg = MiCSConfig(gather_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(ValueError, match="MiCSGroups"):
         TR.ResilientServeLoop(setup["model_t"], MiCSTopology(repl=2), mcfg,
                               TR.ServeLoopConfig(**GEOMETRY), device="cpu")
     # griffin's windowed and recurrent caches are not paged (as the reference)
@@ -187,8 +192,8 @@ def test_world_change_past_one_rank_raises(setup):
 def test_serve_cli_continuous(capsys):
     """``python -m repro_torch.launch.serve --arch llama3.2-1b --smoke
     --device cpu --continuous`` serves every request with its ledger
-    accounted; a fault kind that changes the world is refused; without a
-    card the default device raises."""
+    accounted; a plan whose world leaves the launch world (one process: a
+    grow) is refused; without a card the default device raises."""
     root = pathlib.Path(__file__).resolve().parents[1]
     env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
     argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "llama3.2-1b",

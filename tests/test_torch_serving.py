@@ -314,10 +314,14 @@ def test_serve_cli_cpu(arch):
 
 
 @pytest.mark.parametrize("flag", [["--continuous"], ["--policy", "auto"], ["--quant-gather"]])
-def test_serve_cli_refuses_later_slices(flag, capsys):
-    """The later slices' flags are refused; ``--quant-gather`` (the int8
-    wire slice) serves from stored int8 weights and ``--continuous`` (the
-    continuous-batching slice) through the resilient engine."""
+def test_serve_cli_refuses_later_slices(flag, capsys, monkeypatch):
+    """``--policy auto`` (the autotuner, ROADMAP Queue 1 item 8) is refused;
+    ``--quant-gather`` serves from stored int8 weights and ``--continuous``
+    through the resilient engine, whose every fault kind runs (``grow``
+    needs ranks to win back: on one process the plan is refused before
+    anything runs, as one that empties the world); under ``torchrun``
+    (``WORLD_SIZE`` > 1) the fixed-batch path, which serves on one rank,
+    and a missing ``--dist-backend`` are refused."""
     from repro_torch.launch.serve import main
 
     argv = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu", *flag]
@@ -326,12 +330,29 @@ def test_serve_cli_refuses_later_slices(flag, capsys):
         assert "int8 weights" in capsys.readouterr().out
         return
     if flag == ["--continuous"]:
-        main([*argv, "--requests", "2", "--decode-tokens", "2"])
-        assert "served 2/2 requests" in capsys.readouterr().out
+        main([*argv, "--requests", "2", "--decode-tokens", "2",
+              "--fault-plan", "slow@1x2,crash@2"])
+        out = capsys.readouterr().out
+        assert "served 2/2 requests" in out and '"kind": "crash"' in out
+        for plan in ("grow@3x1", "preempt@1", "evict@2"):
+            with pytest.raises(SystemExit) as ei:
+                main([*argv, "--fault-plan", plan])
+            assert ei.value.code == 2
+        assert "the launch world has 1" in capsys.readouterr().err
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        fixed_batch = [*argv[:-1], "--dist-backend", "gloo"]   # no --continuous
+        for args in (argv, fixed_batch):
+            with pytest.raises(SystemExit) as ei:
+                main(args)
+            assert ei.value.code == 2
+        err = capsys.readouterr().err
+        assert "--dist-backend nccl or gloo is required" in err
+        assert "the fixed-batch path serves on one rank" in err
         return
     with pytest.raises(SystemExit) as ei:
         main(argv)
     assert ei.value.code == 2
+    assert "ROADMAP Queue 1 item 8" in capsys.readouterr().err
 
 
 def test_prefill_caches_match_init_caches_layout(setup):

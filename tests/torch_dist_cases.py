@@ -544,3 +544,137 @@ def segments(ledger: list[dict], total: int) -> list[tuple[dict, int]]:
 # (n 5: more than are available)
 ELASTIC_GRID = [(n, tp, p) for n in (0, 1, 2, 3, 4, 5) for tp in (1, 2, 4)
                 for p in (1, 2, 3, 4)]
+
+
+# ---------------------------------------------------------------------------
+# serving over ranks (``torch_dist_harness.py serve``, ``jax_dist_oracle.py
+# serve``, ``test_torch_dist_serve.py``)
+# ---------------------------------------------------------------------------
+
+# The fixed-batch steps: the global batch's prompts [SERVE_B, SERVE_T],
+# prefill, then SERVE_STEPS greedy decode steps, the first fed
+# ``serve_inputs``'s tokens, the next each its own; fp32 gather.
+SERVE_B, SERVE_T, SERVE_STEPS = 4, 12, 3
+SERVE_CACHE = SERVE_T + SERVE_STEPS + 1
+# name -> (arch, layout, gather_order, hierarchy_inner, config overrides,
+# stored int8 weights); each side serves the same global weights
+# (``numpy_params`` of the tp 1 model, cut by ``tp_params_from_full``)
+SERVE_FIXED = {
+    "llama@A": ("llama3.2-1b", "A", "outer_first", 2, {}, False),
+    "llama@B": ("llama3.2-1b", "B", "inner_first", None, {}, False),
+    "llama@P2T2": ("llama3.2-1b", "P2T2", "inner_first", None, {}, False),
+    # 2 KV heads over 4 model ranks: each rank caches the one head its Q
+    # group reads (head-slot replication)
+    "llama@T4": ("llama3.2-1b", "T4", "inner_first", None, {}, False),
+    "griffin@P2T2": ("recurrentgemma-2b", "P2T2", "inner_first", None, {}, False),
+    # 10 Q heads padded to 12, one KV head over the 4 model ranks
+    "griffin@T4": ("recurrentgemma-2b", "T4", "inner_first", None, {"n_heads": 10}, False),
+    # the stored int8 weights, each side quantizing with its eager
+    # nearest-rounding quantizer (bitwise the same bytes)
+    "llama@B:int8": ("llama3.2-1b", "B", "inner_first", None, {}, True),
+}
+
+
+def serve_inputs(name: str) -> tuple[np.ndarray, np.ndarray]:
+    """``(prompts [SERVE_B, SERVE_T], first decode tokens [SERVE_B, 1])``."""
+    rng = np.random.default_rng(_seed("serve:" + name.split(":")[0]))
+    return (rng.integers(1, VOCAB, (SERVE_B, SERVE_T)).astype(np.int64),
+            rng.integers(1, VOCAB, (SERVE_B, 1)).astype(np.int64))
+
+
+def serve_weights_key(name: str) -> str:
+    """The ``numpy_params`` seed name of a case: the same weights for a
+    model and layout whatever the wire."""
+    return "serve:" + name.split(":")[0]
+
+
+# The paged step (fp32 pools) at P2T2 and T4: PAGED_PLENS prompts streamed
+# in one chunk of max(PAGED_PLENS), then PAGED_STEPS decode steps at that
+# width, each fed the tokens it sampled; blocks of PAGED_BS from one
+# allocator a data rank (tables hold rank-local ids).  Then paged ==
+# contiguous bitwise: prompts of PAGED_EQ_T tokens prefilled by the
+# fixed-batch step, copied into pools by ``pages_from_contiguous``, and
+# PAGED_STEPS decode steps of the paged and the contiguous step side by
+# side, at PAGED_TEMPS with top-k PAGED_TOP_K.
+SERVE_PAGED = ("P2T2", "T4")
+PAGED_PLENS = [3, 7, 5, 9]
+PAGED_STEPS = 3
+PAGED_BS = 4
+PAGED_EQ_T = 6
+PAGED_CAP = 16
+PAGED_TEMPS = np.array([0.0, 0.7, 0.0, 1.3], np.float32)
+PAGED_SEEDS = np.arange(4, dtype=np.int64) * 101 + 5
+PAGED_TOP_K = 5
+
+
+def paged_tables(plens, dp: int, extra: int = PAGED_STEPS, bs: int = PAGED_BS,
+                 max_blocks: int | None = None) -> tuple[np.ndarray, int]:
+    """Each data rank's rows' blocks from its own allocator, lowest first
+    (as the batcher hands them out; block 0 the garbage block); ``(tables
+    [B, max_blocks] of rank-local ids, blocks a rank)``."""
+    b = len(plens)
+    per = b // dp
+    need = [-(-(n + extra) // bs) for n in plens]
+    nb = max(sum(need[d * per:(d + 1) * per]) for d in range(dp)) + 1
+    mb = max_blocks or max(need)
+    tables = np.zeros((b, mb), np.int32)
+    for d in range(dp):
+        nxt = 1
+        for row in range(d * per, (d + 1) * per):
+            tables[row, :need[row]] = np.arange(nxt, nxt + need[row])
+            nxt += need[row]
+    return tables, nb
+
+
+def paged_prompts() -> np.ndarray:
+    return np.random.default_rng(_seed("serve:paged")).integers(
+        1, VOCAB, (len(PAGED_PLENS), max(PAGED_PLENS))).astype(np.int64)
+
+
+# The sampler over vocab-parallel logits at tp 2 (P2T2) and 4 (T4): every
+# rank samples its model coordinate's columns of the same logits
+# [SAMPLER_N, VP] (``sampler_logits``: many ties, a padded column's
+# maximum, a tie across every shard) at each top-k.
+SAMPLER_N = 12
+SAMPLER_LAYOUTS = ("P2T2", "T4")
+SAMPLER_TOP_K = (0, 1, 3, 9, 30, 64)
+SAMPLER_TEMPS = np.array([0.0, 0.0] + [0.0, 0.7, 1.3, 2.0] * 2 + [0.5, 0.0], np.float32)
+SAMPLER_SEEDS = np.arange(SAMPLER_N, dtype=np.int64) * 7 + 1
+SAMPLER_POS = np.arange(SAMPLER_N, dtype=np.int64) + 3
+
+
+def sampler_logits() -> np.ndarray:
+    rng = np.random.default_rng(_seed("serve:sampler"))
+    lg = rng.integers(0, 6, (SAMPLER_N, VP)).astype(np.float32)
+    lg[0, 38] = 50.0
+    lg[1, [5, 15, 25, 35]] = 9.0
+    lg[2] = rng.standard_normal(VP).astype(np.float32)
+    return lg
+
+
+# The resilient loop over ranks (llama, fp32 gather and pools) from
+# ``elastic_host_topology(4, 2, tp=2)`` (= P2T2): each run name -> (the
+# starting world, the fault plan spec); every run is held bitwise to
+# "free4", and "free4"'s greedy completions to the reference's loop at
+# P2T2.
+CHAOS_GEOMETRY = dict(slots_local=2, nb_local=10, block_size=4, max_blocks=4, chunk=4,
+                      top_k=5)
+CHAOS_RUNS = {
+    "free4": (4, ""),
+    "free2": (2, ""),
+    "preempt": (4, "preempt@3x2"),
+    "grow": (2, "grow@3x2"),
+    "straggler": (4, "evict@3"),
+    "crash": (4, "crash@3"),
+}
+CHAOS_ARRIVALS = [0, 0, 1, 2, 2, 3, 5, 6]
+CHAOS_TP = 2
+
+
+def chaos_requests(cls) -> list:
+    """8 requests of ``cls`` (either package's ``Request``): prompts of 3-9
+    tokens, 3-6 new tokens, greedy and sampled alternately."""
+    rng = np.random.default_rng(_seed("serve:chaos"))
+    return [cls(rid=i, prompt=rng.integers(1, VOCAB, int(rng.integers(3, 10))).tolist(),
+                max_new_tokens=int(rng.integers(3, 7)), temperature=(0.0, 0.7)[i % 2],
+                seed=1000 + i) for i in range(len(CHAOS_ARRIVALS))]

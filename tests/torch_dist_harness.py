@@ -3,7 +3,7 @@ runs every case of ``torch_dist_cases.py`` and each rank writes its results
 to ``<out>/port_<mode>.rank<r>.npz``.
 
     python tests/torch_dist_harness.py \
-        collectives|train|tp_layers|tp_train|knobs|elastic|elastic_offload OUT_DIR [cpu|cuda]
+        collectives|train|tp_layers|tp_train|knobs|elastic|elastic_offload|serve OUT_DIR [cpu|cuda]
 
 ``train`` and ``elastic`` start from the JAX package's initial state, which
 they read from ``OUT_DIR/jax_init.npz`` (``jax_dist_oracle.py init
@@ -748,6 +748,196 @@ def elastic_offload(world: World, out_dir: pathlib.Path, device: str) -> dict:
     return out
 
 
+def _serve_model(name: str):
+    """``(model, model at tp 1, topology, global weights)`` of a
+    ``K.SERVE_FIXED`` case (the weights cut for its tp, numpy)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.convert import tp_params_from_full
+    from repro_torch.models.build import build_model
+
+    arch, lay, _, _, over, _ = K.SERVE_FIXED[name]
+    topo = _topology(lay)
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), **over)
+    model, model_1 = build_model(cfg, topo.model_size), build_model(cfg, 1)
+    full = tp_params_from_full(model, model_1, K.numpy_params(model_1, K.serve_weights_key(name)))
+    return model, model_1, topo, full
+
+
+def serve(world: World) -> dict:
+    """Serving over the 4 ranks: the fixed-batch steps of ``K.SERVE_FIXED``
+    (each rank's prefill and decode logits, the global tokens, the
+    collective counts), the paged step at ``K.SERVE_PAGED`` (its logit rows
+    and tokens; paged == contiguous over pools filled by
+    ``pages_from_contiguous``), the sampler at ``K.SAMPLER_LAYOUTS`` and
+    the resilient loop's ``K.CHAOS_RUNS`` (JSON a run)."""
+    import json
+
+    from repro_torch.convert import shard_params
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.core.quant import quantize_state
+    from repro_torch.runtime.serving import build_serve_steps
+
+    r, out = world.rank, {}
+    for name, (_, lay, order, inner, _, int8) in K.SERVE_FIXED.items():
+        model, _, topo, full = _serve_model(name)
+        params = shard_params(model, topo, r, full, device="cpu")
+        if int8:
+            params = quantize_state(params)
+        mcfg = MiCSConfig(gather_dtype=torch.float32, gather_order=order,
+                          hierarchy_inner=inner, quant_gather=int8)
+        prefill_fn, decode_fn = build_serve_steps(model, topo, mcfg, K.SERVE_CACHE,
+                                                  device="cpu", groups=world.groups(lay, inner))
+        prompts, tok = K.serve_inputs(name)
+        logits, caches = prefill_fn(params, {"tokens": torch.from_numpy(prompts)})
+        out[f"{name}.prefill"] = _np(logits)
+        tok = torch.from_numpy(tok)
+        toks = []
+        for i in range(K.SERVE_STEPS):
+            logits, tok, caches = decode_fn(params, caches, tok, K.SERVE_T + i)
+            out[f"{name}.decode{i}"] = _np(logits)
+            toks.append(tok[:, 0].numpy())
+        out[f"{name}.tokens"] = np.stack(toks, axis=1)
+        out[f"{name}.calls"] = np.asarray(json.dumps(decode_fn.comm.counter.snapshot()["calls"]))
+    out.update(_serve_paged(world))
+    out.update(_serve_sampler(world))
+    out.update(_serve_chaos(world))
+    return out
+
+
+def _serve_paged(world: World) -> dict:
+    """``build_paged_step`` at each layout of ``K.SERVE_PAGED`` (fp32 gather
+    and pools): the prompts in one chunk, then decode steps at its width,
+    each fed the tokens it sampled (``paged.<layout>.logits<i>``: this
+    rank's rows and columns; ``.tokens<i>``: the global tokens); then
+    ``pages_from_contiguous`` and the paged step against the contiguous
+    one, step by step (``.bitwise``)."""
+    from repro_torch.convert import shard_params
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.runtime import paged as PG
+    from repro_torch.runtime.serving import build_serve_steps
+
+    r, out = world.rank, {}
+    for lay in K.SERVE_PAGED:
+        model, _, topo, full = _serve_model(f"llama@{lay}")
+        g = world.groups(lay)
+        params = shard_params(model, topo, r, full, device="cpu")
+        mcfg = MiCSConfig(gather_dtype=torch.float32, kv_dtype="fp32", kv_block_size=K.PAGED_BS)
+        dp, d = topo.data_parallel_size, topo.data_rank(r)
+        tables, nb = K.paged_tables(K.PAGED_PLENS, dp)
+        width = max(K.PAGED_PLENS)
+        step = PG.build_paged_step(model, topo, mcfg, max_blocks=tables.shape[1],
+                                   block_size=K.PAGED_BS, chunk=width, device="cpu", groups=g)
+        pool = PG.init_paged_caches(model, topo, nb, K.PAGED_BS, "fp32", device="cpu")
+        toks, pos = K.paged_prompts(), np.zeros(len(K.PAGED_PLENS), np.int64)
+        n_new = np.asarray(K.PAGED_PLENS)
+        for i in range(1 + K.PAGED_STEPS):
+            t, lg, pool = step(params, pool, toks, pos, n_new, tables, K.PAGED_SEEDS,
+                               np.zeros(len(n_new), np.float32))
+            out[f"paged.{lay}.logits{i}"] = _np(lg)
+            out[f"paged.{lay}.tokens{i}"] = t.numpy()
+            pos = pos + n_new
+            n_new = np.ones_like(n_new)
+            toks = np.zeros_like(toks)
+            toks[:, 0] = t.numpy()
+        out[f"paged.{lay}.garbage_zero"] = np.asarray(not pool["layers"]["k"][:, 0].any())
+        # paged == contiguous: prompts of one length prefilled by the
+        # fixed-batch step, copied into this rank's pool
+        b = len(K.PAGED_PLENS)
+        lens = [K.PAGED_EQ_T] * b
+        prompts = K.paged_prompts()[:, :K.PAGED_EQ_T]
+        prefill_fn, _ = build_serve_steps(model, topo, MiCSConfig(gather_dtype=torch.float32),
+                                          K.PAGED_CAP, device="cpu", groups=g)
+        logits, caches = prefill_fn(params, {"tokens": torch.from_numpy(prompts)})
+        mb = K.PAGED_CAP // K.PAGED_BS
+        tables, nb = K.paged_tables(lens, dp, max_blocks=mb)
+        pool = PG.init_paged_caches(model, topo, nb, K.PAGED_BS, "fp32", device="cpu")
+        PG.pages_from_contiguous(model, topo, caches, pool, tables, lens,
+                                 block_size=K.PAGED_BS, kv_dtype="fp32", data_rank=d)
+        kw = dict(top_k=K.PAGED_TOP_K, device="cpu", groups=g)
+        paged = PG.build_paged_step(model, topo, mcfg, max_blocks=mb, block_size=K.PAGED_BS,
+                                    **kw)
+        contig = PG.build_contiguous_step(model, topo, mcfg, K.PAGED_CAP, **kw)
+        ctx = L.Ctx(tp=topo.model_size, comm=paged.comm)
+        tp_ = tc = paged.comm.data_all_gather(
+            lm.greedy_sample(logits[:, -1], ctx, model.cfg.vocab)).numpy()
+        pos = np.asarray(lens)
+        same = []
+        for i in range(K.PAGED_STEPS):
+            t1, l1, pool = paged(params, pool, tp_[:, None], pos + i, np.ones(b), tables,
+                                 K.PAGED_SEEDS, K.PAGED_TEMPS)
+            t2, l2, caches = contig(params, caches, tc[:, None], pos + i, K.PAGED_SEEDS,
+                                    K.PAGED_TEMPS)
+            same.append(bool(torch.equal(t1, t2) and torch.equal(l1, l2)))
+            tp_, tc = t1.numpy(), t2.numpy()
+        out[f"paged.{lay}.bitwise"] = np.asarray(same)
+    return out
+
+
+def _serve_sampler(world: World) -> dict:
+    """``lm.sample_tokens`` at each layout of ``K.SAMPLER_LAYOUTS`` on this
+    rank's model coordinate's columns of ``K.sampler_logits()``, at each
+    top-k of ``K.SAMPLER_TOP_K`` (``sampler.<layout>.<k>``)."""
+    from repro_torch.core.comm import CommEngine
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    out = {}
+    logits = torch.from_numpy(K.sampler_logits())
+    for lay in K.SAMPLER_LAYOUTS:
+        topo = _topology(lay)
+        eng = CommEngine(topo, groups=world.groups(lay))
+        ctx = L.Ctx(tp=topo.model_size, comm=eng)
+        shard = torch.chunk(logits, topo.model_size, dim=-1)[eng.model_coord()].contiguous()
+        for k in K.SAMPLER_TOP_K:
+            out[f"sampler.{lay}.{k}"] = lm.sample_tokens(
+                shard, ctx, K.VR, seed=torch.from_numpy(K.SAMPLER_SEEDS),
+                pos=torch.from_numpy(K.SAMPLER_POS),
+                temperature=torch.from_numpy(K.SAMPLER_TEMPS), top_k=k).numpy()
+    return out
+
+
+def _serve_chaos(world: World) -> dict:
+    """``ResilientServeLoop`` on each run of ``K.CHAOS_RUNS`` from
+    ``elastic_host_topology(world, p, tp 2)`` over the launch world's 4
+    ranks, every process running the loop (a parked one waits in the
+    meetings): each rank's report as JSON (``chaos.<run>.json``; the
+    ledger's seconds and counters left out)."""
+    import json
+
+    from repro_torch.convert import shard_params
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.core.topology import elastic_host_topology
+    from repro_torch.launch.mesh import MiCSGroups
+    from repro_torch.runtime.batching import Request
+    from repro_torch.runtime.resilient import ResilientServeLoop, ServeLoopConfig
+
+    r, out = world.rank, {}
+    model, _, _, full = _serve_model("llama@P2T2")
+    mcfg = MiCSConfig(gather_dtype=torch.float32, kv_dtype="fp32",
+                      kv_block_size=K.CHAOS_GEOMETRY["block_size"])
+    for run, (n, spec) in K.CHAOS_RUNS.items():
+        topo = elastic_host_topology(n, n // K.CHAOS_TP, K.CHAOS_TP,
+                                     available=K.WORLD)
+        groups = MiCSGroups(topo, r, backend="gloo", timeout=TIMEOUT)
+        loop = ResilientServeLoop(
+            model, topo, mcfg, ServeLoopConfig(**K.CHAOS_GEOMETRY, seed=0),
+            params_for=lambda model, topo: shard_params(model, topo, r, full, device="cpu"),
+            fault_injector=FaultPlan.parse(spec) if spec else None, device="cpu",
+            groups=groups)
+        rep = loop.run(K.chaos_requests(Request), K.CHAOS_ARRIVALS)
+        rep["world_changes"] = [{k: v for k, v in e.items() if k not in ("comm", "rebuild_s")}
+                                for e in rep["world_changes"]]
+        rep["parked_at_end"] = loop.parked
+        loop.groups.release()
+        out[f"chaos.{run}.json"] = np.asarray(json.dumps(rep, default=str))
+    return out
+
+
 def _rank_main(rank: int, mode: str, out_dir: pathlib.Path, device: str):
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(K.WORLD), LOCAL_RANK=str(rank))
@@ -767,6 +957,8 @@ def _rank_main(rank: int, mode: str, out_dir: pathlib.Path, device: str):
         res = elastic(world, out_dir)
     elif mode == "elastic_offload":
         res = elastic_offload(world, out_dir, device)
+    elif mode == "serve":
+        res = serve(world)
     else:
         res = train(world, out_dir)
     np.savez(out_dir / f"port_{mode}.rank{rank}.npz", **res)
