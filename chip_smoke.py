@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's serve path and its training step for both model
-families it builds on one NVIDIA card; hold every CUDA kernel against its
-plain PyTorch version.
+"""Drive the PyTorch port's serve path and its training step for the model
+families it builds (dense, griffin, MoE) on one NVIDIA card; hold every
+CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -124,6 +124,34 @@ check raises and the script exits non-zero; no phase swallows an error):
    host tensors with nothing the size of a pool's moment left on the card.
    Per variant: ``peak_gb``, the pinned GB held, step 2's ``step_ms`` and the
    GB it copied down and up, its seconds; and the host's MemTotal.
+3a'. ``serve_moe``: deepseek-moe-16b (64 experts, top 6, 2 shared) at full
+   width cut to 4 layers, ``init_params(seed=0)``, bf16 gather: the fixed
+   batch through ``build_serve_steps`` (batch 4, prompt 512, 16 greedy
+   steps: prefill on ``mma``, decode on ``split``; RMSNorm 9 and attention
+   4 a forward), the share of routed assignments the capacity dropped at
+   prefill and at decode; the engine (``MOE_PAGED``: 8 slots, chunks of 64,
+   8 requests of 64-256 prompt tokens and 16 new, bf16 pools; every call
+   on ``paged:wgmma``), its ticks, tokens/s, step ms (timed with no spy;
+   the drops from an untimed rerun that must give the same tokens), a
+   profiled decode tick's idle share; a crash at tick 6 run twice (the two
+   replays bitwise equal; each request's tokens equal to the fault-free
+   run's up to its first row with a dropped assignment in either run: a
+   replayed prefill meets other rows, and capacity drops make a row depend
+   on them; the shares held and equal reported); paged == contiguous bit
+   for bit on the same rows (chunk placement is not checked, for the same
+   reason); one MoE layer at full width on 64 tokens against fp32 on the
+   CPU (the picks first, then the outputs of the tokens routed alike).
+   ``train_moe``: the same model cut to 2 layers through
+   ``build_train_step``, 3 steps of 2 micro-steps of 2 x 2048 tokens,
+   step 1 against its gradients with fp32 compute (``MOE_FP32_REL_TOL``:
+   loss, grad norm, and the worst segment's gradient norm; two faults, the
+   routed experts' gradients left out and every routed assignment dropped,
+   read in the same run and caught by the limits), the counts a micro-step (RMSNorm 9 + backward 5 on ``regs``, attention
+   4 on ``mma`` + backward 2 on ``wgmma``), MFU on the active parameters.
+   ``serve_paged`` runs a fourth engine, on fp32 pools (``FP32_PAGED``'s
+   shorter trace; every call on ``paged:fma``): paged == contiguous over
+   fp32 caches bit for bit, the bf16 pools' logits within
+   ``FP32_POOL_REL_TOL`` of the fp32 pools', a crash replay bitwise.
 3b. ``dist_train``: 4 ranks, each a process of this
    script (``--dist-worker``) started with ``torchrun``'s variables, through
    ``launch/mesh.init_distributed`` / ``MiCSGroups`` and
@@ -142,8 +170,13 @@ check raises and the script exits non-zero; no phase swallows an error):
    at full depth over p 2 x tp 2, 2 steps, against the ``train`` phase as
    A; layout D, recurrentgemma-2b cut to one (rec, rec, attn) super-layer over tp 4
    (the griffin path's 4 micro-steps x 2 x 2048 on every rank), against a
-   one-card run of that model; both start from their model's weights at tp
-   1 cut by ``convert.tp_params_from_full`` (the loop resumes from a step-0
+   one-card run of that model.  Layout E: deepseek-moe-16b at full width
+   cut to one layer over tp 4 (16 experts a rank, each rank routing 1024
+   of a micro-step's 4096 tokens, the expert exchange over the model
+   group), 2 steps of ``train_moe``'s batches, against a one-card run of
+   that model within the reference's ``moe_tp_equiv`` tolerance (rtol
+   0.03, atol 0.05).  C, D and E start from their model's weights at tp 1
+   cut by ``convert.tp_params_from_full`` (the loop resumes from a step-0
    checkpoint of them).  Every rank's ``CommEngine`` counts must be
    the layout's (``dist_expected_calls``) and its kernel launches the train
    path's a micro-step x micro-steps x steps (attention on ``mma``, its
@@ -271,6 +304,14 @@ check raises and the script exits non-zero; no phase swallows an error):
    (4 and 2 heads a rank), bf16 pages.  The ``split`` decode at a rank's
    shapes: llama at tp 2 and 4, recurrentgemma at tp 4 (one KV head of g 3
    at dh 256, ``dist_serve``'s fixed batch; its prefill on ``mma`` too).
+   The ``paged`` route's ``fma`` body (fp32 pages) at ``serve_paged``'s
+   shapes under bf16 and fp32 queries, SDPA over the gathered fp32 view as
+   ``library_ms``; the heads of the models this slice adds at dh 128
+   (``NEW_ATTN_SHAPES``): deepseek's (16 KV heads, g 1) timed through
+   ``mma`` prefill, ``split`` decode, the ``paged`` engine shapes and the
+   ``wgmma`` backward, and dbrx's (g 6: its backward on ``mma``),
+   granite's (g 4), yi's and qwen's (g 8) the same routes as correctness
+   checks, with RMSNorm at dbrx's d 6144.
 
 ``python3 chip_smoke.py --profile-only`` runs the ``profile`` phases alone
 (both serve paths, then the train steps; no checks, no result line): it
@@ -385,6 +426,30 @@ TRAIN = (
 # pool's largest |gradient| (and of |loss|, |grad_norm|): both sides round
 # activations and gradients to bf16, in different orders of sums.
 REL_TOL_GRAD_CARD_VS_CPU = 5e-2
+# train_moe and dist_train's layout E: deepseek-moe-16b at full width, 2
+# micro-steps of 2 x 2048 tokens a step (4096 a micro-step: two dispatch
+# chunks of 2048, 240 slots an expert).  Its launches a micro-step at the
+# train_moe phase's 2 layers (``train_launches``): RMSNorm 5 forward + 4
+# recomputed and 5 backward, all on ``regs`` (d 2048); attention 2 + 2 on
+# ``mma`` and 2 backward on ``wgmma`` (dh 128, g 1 divides 64).
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN = TrainPath("deepseek-moe-16b", 4, 2, 2048, 3,
+                      {"rmsnorm": 9, "rmsnorm_bwd": 5, "flash_attention": 4,
+                       "flash_attention_bwd": 2, "rglru": 0, "rglru_bwd": 0, "quantize": 0,
+                       "dequantize": 0},
+                      "wgmma", "regs", MOE_TRAIN_LAYERS, 256)
+# train_moe's step 1 (bf16 compute) against the same step with fp32 compute
+# on the card (the fma routes), relative: bf16 rounds every activation and
+# weight, and a token whose router margin is under bf16's rounding may take
+# another expert or another token's slot.  ``leaf_norm``: the worst
+# segment's gradient norm over its pool's rows (``moe_grad_probe``).  On an
+# H100 the sound gaps read 3.0e-5 (loss), 1.2e-4 (grad norm) and 2.2e-3
+# (a norm scale's segment); the probe's two faults 3.0e-5 / 4.6e-5, 1.5e-2
+# / 2.5e-2 and 1.0: the grad norm's and the segments' limits sit about ten
+# times over the sound gap and ten and fifty times under the faults, each
+# fault must exceed one of them.  The loss at init is near ln V whatever
+# the experts do, so its limit only bounds the precision.
+MOE_FP32_REL_TOL = {"loss": 3e-4, "grad_norm": 1.5e-3, "leaf_norm": 2e-2}
 # Params after one AdamW step from zero moments move by about lr * sign(g);
 # where the two sides' gradients differ in sign (|g| near rounding) a
 # weight lands up to 2 lr apart.
@@ -1036,21 +1101,24 @@ def _pct(xs, q):
 
 
 def paged_kernel_cases(gen, dev, pg: PagedServe = PAGED, hkv: int = 8,
-                       label: str = "", dtypes=("bf16", "int8")) -> list:
+                       label: str = "", dtypes=("bf16", "int8"), g: int = 4,
+                       dh: int = 64) -> list:
     """The ``paged`` route's inputs at the phase's shapes: llama's 8 KV heads
     of g 4 at dh 64, a pool of ``slots * max_blocks + 1`` blocks of
     ``block`` tokens, 8 requests on shuffled blocks, over bf16 and int8
     pages (``hkv`` KV heads: a rank's of them over ranks, ``label`` naming
-    it).  First the shape the engine launches most: a decode-only tick at
-    the chunk width, each slot's row 0 live (valid lengths ``decode_lens``:
-    250-350) and its 63 others dead (length 0); then a mixed tick (the
+    it; ``g`` and ``dh`` another model's heads; ``dtypes`` may add fp32
+    pages, each case of them under bf16 and fp32 queries).  First the shape
+    the engine launches most: a decode-only tick at the chunk width, each
+    slot's row 0 live (valid lengths ``decode_lens``: 250-350 at the
+    phase's) and its 63 others dead (length 0); then a mixed tick (the
     first quarter of the slots a whole chunk at chunk starts, the last one
     idle, the others decoding a row: 2, 1 and 5 of 8), a 64-token chunk
     (every row live, positions at chunk starts) and a one-row decode
     tick."""
     from repro_torch.core import quant as Q
 
-    b, g, dh, w = pg.slots, 4, 64, pg.chunk
+    b, w = pg.slots, pg.chunk
     nb = pg.slots * pg.max_blocks + 1
     cap = pg.max_blocks * pg.block
     order = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(2)) + 1
@@ -1060,6 +1128,7 @@ def paged_kernel_cases(gen, dev, pg: PagedServe = PAGED, hkv: int = 8,
     pages = {"bf16": ((k.to(torch.bfloat16), v.to(torch.bfloat16)), {})}
     (qk, sk), (qv, sv) = Q.quantize_flat(k), Q.quantize_flat(v)
     pages["int8"] = ((qk, qv), {"k_scale": sk, "v_scale": sv})
+    pages["fp32"] = ((k, v), {})
     rows = torch.arange(1, w + 1, device=dev)[None, :]
     decode_pos = torch.randint(*pg.decode_lens, (b,), generator=gen, device=dev)
     chunk_pos = w * torch.randint(0, cap // w - 1, (b,), generator=gen, device=dev)
@@ -1073,16 +1142,19 @@ def paged_kernel_cases(gen, dev, pg: PagedServe = PAGED, hkv: int = 8,
     }
     cases = []
     for kind, kvl in lengths.items():
-        q = torch.randn(b, kvl.shape[1], hkv, g, dh, generator=gen, device=dev).to(torch.bfloat16)
+        q = torch.randn(b, kvl.shape[1], hkv, g, dh, generator=gen, device=dev)
         for dt in dtypes:
             (kp, vp), sc = pages[dt]
-            cases.append((f"{label}{kind}, {dt} pages", q, kp, vp, tables, kvl, sc))
+            for qdt in (("bf16", "fp32") if dt == "fp32" else ("bf16",)):
+                cases.append((f"{label}{kind}, {dt} pages" + (f", {qdt} q" if dt == "fp32"
+                                                               else ""),
+                              q.to(_pool_dtype(qdt)), kp, vp, tables, kvl, sc))
     return cases
 
 
 def paged_kernel_checks(gen, dev, flush, timed: bool = True,
                         pg: PagedServe = PAGED, hkv: int = 8, label: str = "",
-                        dtypes=("bf16", "int8")) -> list:
+                        dtypes=("bf16", "int8"), g: int = 4, dh: int = 64) -> list:
     """The ``paged`` route against ``paged_attention_plain`` on the same
     card tensors (the split route's bf16 tolerance), dead rows exactly
     zero, bitwise repeatable; with ``timed`` its time, the plain
@@ -1100,10 +1172,11 @@ def paged_kernel_checks(gen, dev, flush, timed: bool = True,
 
     out = []
     for kind, q, kp, vp, tables, kvl, sc in paged_kernel_cases(gen, dev, pg, hkv, label,
-                                                               dtypes):
+                                                               dtypes, g, dh):
         o = FA.paged_attention(q, kp, vp, tables, kvl, **sc)
         ref = FA.paged_attention_plain(q, kp, vp, tables, kvl, **sc)
-        tol = TOL[torch.bfloat16]
+        fp32 = kp.dtype == torch.float32     # the fma body: fp32 scores and out
+        tol = TOL[torch.float32 if fp32 else torch.bfloat16]
         err = (o.float() - ref.float()).abs().max().item()
         if not torch.allclose(o.float(), ref.float(), rtol=tol, atol=tol):
             raise AssertionError(f"paged attention {kind}: kernel disagrees with its plain "
@@ -1119,16 +1192,19 @@ def paged_kernel_checks(gen, dev, flush, timed: bool = True,
         row = {"case": kind, "shape": {"b": b, "tq": tq, "hkv": hkv, "g": g, "dh": dh,
                                        "block_size": bs, "max_blocks": tables.shape[1],
                                        "n_blocks": kp.shape[0]},
-               "route": "paged", "body": FA.paged_body(dh), "pages": "int8" if sc else "bf16",
+               "route": "paged", "body": FA.paged_body(dh, kp.dtype),
+               "pages": str(kp.dtype)[6:].replace("float32", "fp32").replace("bfloat16", "bf16"),
+               "q_dtype": str(q.dtype)[6:],
                "bitwise_repeat": True, "dead_rows_zero": True, "max_abs_err": err, "tol": tol,
                "live_rows": int(n_live.sum()), "dead_rows": int(dead.sum()),
                "valid_len": [int(kvl[~dead].min()), int(kvl.max())]}
         if timed:
             live = torch.clamp(kvl.max(dim=1).values, max=cap).sum().item()  # keys read a head
             per_key = hkv * dh * kp.element_size() + (hkv * 4 * -(-dh // 128) if sc else 0)
-            nbytes = 2 * live * per_key + 2 * int(n_live.sum()) * hkv * g * dh * q.element_size()
+            nbytes = 2 * live * per_key + int(n_live.sum()) * hkv * g * dh * (
+                q.element_size() + o.element_size())
             ops = 4 * dh * hkv * g * torch.clamp(kvl, max=cap).sum().item()
-            b_ms, b_by = bound(nbytes, ops, torch.bfloat16)
+            b_ms, b_by = bound(nbytes, ops, torch.float32 if fp32 else torch.bfloat16)
 
             def view(p):
                 return p[tables.long()].reshape(b, cap, *p.shape[2:])
@@ -1143,7 +1219,8 @@ def paged_kernel_checks(gen, dev, flush, timed: bool = True,
                 idx = torch.nonzero(n_live == n).flatten()
                 if not bool((kvl[idx, :n] > 0).all()):
                     raise AssertionError(f"paged attention {kind}: live rows not a prefix")
-                qs = q[idx, :n].permute(0, 2, 3, 1, 4).reshape(len(idx), hkv * g, n, dh)
+                qs = q[idx, :n].permute(0, 2, 3, 1, 4).reshape(len(idx), hkv * g, n, dh).to(
+                    ks.dtype)
                 mask = (torch.arange(cap, device=dev)[None, None, :] < kvl[idx, :n, None])
                 calls.append((qs.contiguous(), ks[idx], vs[idx], mask[:, None]))
             row.update({
@@ -1161,17 +1238,22 @@ def paged_kernel_checks(gen, dev, flush, timed: bool = True,
     return out
 
 
-def paged_consistency(cfg, model, params, dev, pg: PagedServe = PAGED) -> dict:
+def paged_consistency(cfg, model, params, dev, pg: PagedServe = PAGED, kv: str = "bf16",
+                      other: str | None = "int8", rel_tol: float = PAGED_INT8_REL_TOL,
+                      placement: bool = True) -> dict:
     """Within the port on the card, on ``check_rows`` of the trace's
     prompts, each prefilled at its own length: (a) paged == contiguous, bit
-    for bit: the pool filled by ``pages_from_contiguous``, ``check_steps``
-    decode steps through ``build_paged_step`` and through
-    ``build_contiguous_step`` (greedy and sampled rows), tokens and logits;
-    (b) int8 pools, fed the same tokens: the decode logits against the bf16
-    pools' within ``PAGED_INT8_REL_TOL`` of the largest |logit|, and the
-    share of equal tokens; (c) chunk placement: the prompts streamed through
-    the chunk-width step from position 0 and from staggered first chunks
-    give the same last tokens, logits and pool, bit for bit."""
+    for bit: the pool of ``kv`` pages filled by ``pages_from_contiguous``,
+    ``check_steps`` decode steps (one token a slot, every row live) through
+    ``build_paged_step`` and through ``build_contiguous_step`` over a
+    contiguous cache of the same dtype (greedy and sampled rows), tokens and
+    logits; (b) ``other`` pools (int8 against bf16, or bf16 against fp32),
+    fed the same tokens: the decode logits within ``rel_tol`` of the
+    largest |logit|, and the share of equal tokens; (c) with ``placement``,
+    chunk placement: the prompts streamed through the chunk-width step from
+    position 0 and from staggered first chunks give the same last tokens,
+    logits and pool, bit for bit (not for MoE: a chunk's capacity drops
+    make a row depend on the rows beside it, ROADMAP Queue 3)."""
     import numpy as np
 
     from repro_torch.core.mics import MiCSConfig
@@ -1185,10 +1267,11 @@ def paged_consistency(cfg, model, params, dev, pg: PagedServe = PAGED) -> dict:
     cap = pg.max_blocks * pg.block
     prompts = [r.prompt for r in paged_requests(RB, cfg.vocab, pg)[:n]]
     plens = np.array([len(p) for p in prompts])
-    mcfg = MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True, kv_block_size=pg.block)
-    mcfg8 = dataclasses.replace(mcfg, kv_dtype="int8")
+    mcfg = MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True, kv_block_size=pg.block,
+                      kv_dtype=kv)
     prefill_fn, _ = build_serve_steps(model, topo, mcfg, cap, device=dev)
-    contig = lm.init_caches(model, n, cap, dtype=torch.bfloat16, device=dev)
+    contig = lm.init_caches(model, n, cap, device=dev,
+                            dtype=torch.float32 if kv == "fp32" else torch.bfloat16)
     tok0 = torch.zeros(n, dtype=torch.long, device=dev)
     for b, p in enumerate(prompts):
         lg, c = prefill_fn(params, {"tokens": torch.tensor([p], device=dev)})
@@ -1201,14 +1284,14 @@ def paged_consistency(cfg, model, params, dev, pg: PagedServe = PAGED) -> dict:
     for b, length in enumerate(plens):
         blocks = alloc.alloc(PG.blocks_for(int(length) + pg.check_steps, pg.block))
         tables[b, :len(blocks)] = blocks
-    pools = {}
-    for kv in ("bf16", "int8"):
-        pools[kv] = PG.init_paged_caches(model, topo, alloc.n_blocks, pg.block, kv, device=dev)
-        PG.pages_from_contiguous(model, topo, contig, pools[kv], tables, plens,
-                                 block_size=pg.block, kv_dtype=kv)
-    steps = {kv: PG.build_paged_step(model, topo, m, max_blocks=pg.max_blocks,
-                                     block_size=pg.block, top_k=pg.top_k, device=dev)
-             for kv, m in (("bf16", mcfg), ("int8", mcfg8))}
+    pools, steps = {}, {}
+    for d in (kv, other) if other else (kv,):
+        pools[d] = PG.init_paged_caches(model, topo, alloc.n_blocks, pg.block, d, device=dev)
+        PG.pages_from_contiguous(model, topo, contig, pools[d], tables, plens,
+                                 block_size=pg.block, kv_dtype=d)
+        steps[d] = PG.build_paged_step(model, topo, dataclasses.replace(mcfg, kv_dtype=d),
+                                       max_blocks=pg.max_blocks, block_size=pg.block,
+                                       top_k=pg.top_k, device=dev)
     contig_step = PG.build_contiguous_step(model, topo, mcfg, cap, top_k=pg.top_k, device=dev)
     seeds = torch.arange(n, device=dev) + 1000
     temps = torch.tensor([0.0, pg.temperature] * (n // 2), device=dev)
@@ -1217,22 +1300,33 @@ def paged_consistency(cfg, model, params, dev, pg: PagedServe = PAGED) -> dict:
     tp, tc = tok0, tok0
     bitwise, err8, scale, same8 = True, 0.0, 0.0, 0
     for s in range(pg.check_steps):
-        t1, l1, pools["bf16"] = steps["bf16"](params, pools["bf16"], tp[:, None], pos + s, ones,
-                                              tables, seeds, temps)
+        t1, l1, pools[kv] = steps[kv](params, pools[kv], tp[:, None], pos + s, ones, tables,
+                                      seeds, temps)
         t2, l2, contig = contig_step(params, contig, tc[:, None], pos + s, seeds, temps)
-        t8, l8, pools["int8"] = steps["int8"](params, pools["int8"], tp[:, None], pos + s,
-                                              ones, tables, seeds, temps)
         bitwise &= torch.equal(t1, t2) and torch.equal(l1, l2)
-        err8 = max(err8, (l8.float() - l1.float()).abs().max().item())
         scale = max(scale, l1.float().abs().max().item())
-        same8 += int((t8 == t1).sum())
+        if other:
+            t8, l8, pools[other] = steps[other](params, pools[other], tp[:, None], pos + s,
+                                                ones, tables, seeds, temps)
+            err8 = max(err8, (l8.float() - l1.float()).abs().max().item())
+            same8 += int((t8 == t1).sum())
         tp, tc = t1, t2
     if not bitwise:
-        raise AssertionError("serve_paged: paged decode differs from the contiguous step")
-    if not err8 <= PAGED_INT8_REL_TOL * scale:
-        raise AssertionError(f"serve_paged: int8 pools' logits {err8} > {PAGED_INT8_REL_TOL} "
-                             f"x {scale} from the bf16 pools'")
+        raise AssertionError(f"serve_paged {cfg.name} {kv}: paged decode differs from the "
+                             "contiguous step")
+    if not err8 <= rel_tol * scale:
+        raise AssertionError(f"serve_paged {cfg.name}: {other} pools' logits {err8} > "
+                             f"{rel_tol} x {scale} from the {kv} pools'")
     del pools, contig
+    out = {"paged_vs_contiguous": {"rows": n, "decode_steps": pg.check_steps, "kv_dtype": kv,
+                                   "prompt_lens": plens.tolist(),
+                                   "tokens_and_logits_bitwise": True}}
+    if other:
+        out[f"{other}_kv"] = {"against": kv, "max_abs_err": err8, "max_abs_logit": scale,
+                              "rel_tol": rel_tol, "tokens_equal_share":
+                              same8 / (n * pg.check_steps)}
+    if not placement:
+        return out
 
     chunk_step = PG.build_paged_step(model, topo, mcfg, max_blocks=pg.max_blocks,
                                      block_size=pg.block, chunk=pg.chunk, device=dev)
@@ -1260,14 +1354,8 @@ def paged_consistency(cfg, model, params, dev, pg: PagedServe = PAGED) -> dict:
     if not placement:
         raise AssertionError("serve_paged: chunk placement changed the prompts' last logits "
                              "or pool")
-    return {"paged_vs_contiguous": {"rows": n, "decode_steps": pg.check_steps,
-                                    "prompt_lens": plens.tolist(), "tokens_and_logits_bitwise":
-                                    True},
-            "int8_kv": {"max_abs_err": err8, "max_abs_logit": scale,
-                        "rel_tol": PAGED_INT8_REL_TOL, "tokens_equal_share":
-                        same8 / (n * pg.check_steps)},
-            "chunk_placement": {"first_chunks": [pg.chunk, f"1 + 7 b mod {pg.chunk}"],
-                                "engine_steps": [na, nb_], "bitwise": True}}
+    return {**out, "chunk_placement": {"first_chunks": [pg.chunk, f"1 + 7 b mod {pg.chunk}"],
+                                       "engine_steps": [na, nb_], "bitwise": True}}
 
 
 def serve_paged_phase(cfg, model, params, card, dev, pg: PagedServe = PAGED) -> dict:
@@ -1280,6 +1368,171 @@ def serve_paged_phase(cfg, model, params, card, dev, pg: PagedServe = PAGED) -> 
     pools.  Every run's launches are held to the engine's: per engine step
     RMSNorm 33, attention 16, all on ``paged`` (``split`` and ``mma`` 0), and
     with int8 pools ``quantize`` 32 (each layer's k and v rows)."""
+    # the kernel on the phase's shapes, before the engine runs
+    kernel = paged_kernel_checks(torch.Generator(device=dev).manual_seed(3), dev, None,
+                                 timed=False, pg=pg)
+    consistency = paged_consistency(cfg, model, params, dev, pg)
+    torch.cuda.empty_cache()
+
+    rep, reqs, clock, wall, launches, (by_route, forms), loop = engine_run(
+        cfg, model, params, dev, pg, "bf16", "serve_paged", warm=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pool_gb = sum(t.numel() * t.element_size() for p in loop.caches.values()
+                  for t in p.values()) / 1e9
+    plan = clock.decode_plan
+    prof = profile_line(cfg.name, "paged decode tick", lambda: loop.step(
+        loop.params, loop.caches, plan.tokens, plan.pos, plan.n_new, plan.tables, plan.seeds,
+        plan.temps)[0].cpu())
+    del loop
+    torch.cuda.empty_cache()
+
+    crash = engine_crash_replay(cfg, model, params, dev, pg, "bf16", "serve_paged", rep)
+    del crash["completions"]
+    torch.cuda.empty_cache()
+    int8, _, _, iwall, ilaunches, (_, iforms), loop = engine_run(
+        cfg, model, params, dev, pg, "int8", "serve_paged int8")
+    del loop
+    same = [a == b for rid, toks in rep["completions"].items()
+            for a, b in zip(toks, int8["completions"][rid])]
+    torch.cuda.empty_cache()
+    fp32 = serve_paged_fp32(cfg, model, params, dev)
+
+    led = rep["ledger"]
+    return {"phase": "serve_paged", "arch": cfg.name, "layers": cfg.n_layers,
+            "engine": dataclasses.asdict(pg), "gather_dtype": "bf16", "kv_dtype": "bf16",
+            "requests": pg.requests, **engine_summary(rep, reqs, clock, wall),
+            "ttft_ticks": {"p50": led["ttft_ticks_p50"], "p99": led["ttft_ticks_p99"]},
+            "latency_ticks": {"p50": led["latency_ticks_p50"], "p99": led["latency_ticks_p99"]},
+            "profile_decode_tick": {k: prof[k] for k in (
+                "wall_ms", "device_busy_ms", "idle_share", "device_kernels", "events_short",
+                "by_kind")},
+            "peak_gb": peak_gb, "pool_gb": pool_gb, "ledger": led,
+            "launches": launches, "attention_launches_by_route": by_route,
+            "attention_launches_by_form": forms,
+            "checks": {"ledger": f"{pg.requests} of {pg.requests} completed, accounted",
+                       **consistency, "crash_replay": crash,
+                       "int8_engine": {"ledger_accounted": True, "ticks": int8["ticks"],
+                                       "wall_s": iwall, "tokens_equal_to_bf16_share":
+                                       sum(same) / len(same), "launches": ilaunches,
+                                       "attention_launches_by_form": iforms},
+                       "fp32_engine": fp32,
+                       "paged_vs_plain": kernel,
+                       "launch_counts": "an engine step: RMSNorm 2 L + 1, attention L, all "
+                                        "on paged:wgmma; int8 pools: quantize 2 L"},
+            "gpu": card}
+
+
+# -- fp32 pools and the MoE family (serve_paged's fp32 run, serve_moe) -----------
+
+# The fp32-pool engine run (a fourth serve_paged run): a shorter trace, so
+# that its consistency checks and its two engine runs fit ≈ 10 s.
+FP32_PAGED = dataclasses.replace(PAGED, requests=8, prompt_hi=256, new_tokens=16,
+                                 max_blocks=17, crash_at=6, check_steps=8,
+                                 decode_lens=(150, 250))
+# fp32 pools against bf16 pools, the decode logits of the same fed tokens,
+# as a fraction of the largest |logit|: only the pages' rounding differs
+# (bf16 keeps 8 bits of each k and v value), the rest of the model runs in
+# bf16 on both sides.
+FP32_POOL_REL_TOL = 0.05
+
+MOE_ARCH = "deepseek-moe-16b"
+# serve_moe: deepseek-moe-16b at full width, cut to 4 layers (≈ 2.77 B
+# parameters, 11 GB stored fp32): the fixed batch, then the engine.
+MOE_SERVE_LAYERS = 4
+MOE_FIXED = {"batch": 4, "prompt": 512, "steps": 16}
+MOE_PAGED = PagedServe(slots=8, chunk=64, block=16, max_blocks=17, requests=8, prompt_lo=64,
+                       prompt_hi=256, new_tokens=16, arrival_every=1, crash_at=6,
+                       check_rows=8, check_steps=8, decode_lens=(150, 250))
+# The attention heads of the models this slice adds, (name, KV heads, g) at
+# head dim 128, for the kernel phase: deepseek's are timed (its serve and
+# train paths run them), the others are correctness checks (their paths do
+# not run on one card here).  dbrx's g 6 does not divide the paged route's
+# 64 packed rows, and its backward takes ``mma``.
+NEW_ATTN_SHAPES = (("deepseek-moe-16b", 16, 1), ("dbrx-132b", 8, 6), ("granite-8b", 8, 4),
+                   ("yi-9b", 4, 8), ("qwen1.5-110b", 8, 8))
+# One MoE layer at full width on the card (bf16) against the same layer in
+# fp32 on the CPU, 1 x 64 tokens: the outputs of the tokens routed alike
+# (the same k experts, in order, each kept or dropped alike) as a fraction
+# of the largest |output|: bf16 rounds the router's input, the experts'
+# products and the shared MLP's.
+MOE_LAYER_TOKENS = 64
+MOE_LAYER_REL_TOL = 5e-2
+
+
+def _pool_dtype(kv: str):
+    return {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[kv]
+
+
+class DropSpy:
+    """Within its ``with``, records each MoE dispatch's kept assignments and
+    live rows on the card, without a host sync: wraps
+    ``models/blocks.moe_route``, which every dispatch calls by name.  After
+    ``attach(loop)`` (an engine run's serve loop) it also keeps each engine
+    step's plan, so that :meth:`first_drops` can map a dropped assignment
+    to its request and position.  The runs it watches are not timed."""
+
+    def __enter__(self):
+        from repro_torch.models import blocks as B
+
+        self.blocks, self.real, self.calls, self.steps = B, B.moe_route, [], []
+
+        def spy(x2d, router_w, cfg, live=None):
+            out = self.real(x2d, router_w, cfg, live)
+            keep = out[4].reshape(-1, cfg.top_k)
+            self.calls.append((keep, torch.ones(keep.shape[0], dtype=torch.bool,
+                                                device=keep.device) if live is None else live))
+            return out
+
+        B.moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.moe_route = self.real
+
+    def attach(self, loop) -> None:
+        step = loop._engine_step
+
+        def spied(plan):
+            first = len(self.calls)
+            tok = step(plan)
+            self.steps.append((plan, first, len(self.calls)))
+            return tok
+
+        loop._engine_step = spied
+
+    def dropped_share(self) -> float | None:
+        """Of the live rows' assignments, the share the capacity dropped."""
+        kept = sum(int(keep.sum()) for keep, _ in self.calls)
+        routed = sum(int(live.sum()) * keep.shape[1] for keep, live in self.calls)
+        return None if not routed else 1.0 - kept / routed
+
+    def first_drops(self) -> dict[int, int]:
+        """For each request with a live row whose assignment was dropped in
+        some layer of some engine step: the least such row's position."""
+        out = {}
+        for plan, lo, hi in self.steps:
+            b, c = plan.tokens.shape
+            dropped = torch.cat([(~keep).any(dim=1) & live for keep, live in
+                                 self.calls[lo:hi]]).reshape(-1, b, c).any(dim=0).cpu()
+            for slot, req in plan.requests.items():
+                rows = torch.nonzero(dropped[slot, :int(plan.n_new[slot])]).flatten()
+                if len(rows):
+                    p = int(plan.pos[slot]) + int(rows[0])
+                    out[req.rid] = min(out.get(req.rid, p), p)
+        return out
+
+
+def engine_run(cfg, model, params, dev, pg: PagedServe, kv: str, label: str,
+               fault: str | None = None, warm: bool = False, spy: DropSpy | None = None):
+    """One counted run of ``pg``'s trace through ``ResilientServeLoop`` (the
+    launcher's ``--continuous`` path) on ``kv`` pools and ``params``, bf16
+    gather; the ledger must account every request, each completion must be
+    ``new_tokens`` ids of the vocab, and the launches must be the engine's:
+    per engine step RMSNorm 2 L + 1 and attention L, every call on the
+    ``paged`` route in the body of ``paged_body(dh, kv)`` (and ``quantize``
+    2 L on int8 pools).  Returns ``(report, requests, TickClock, wall s,
+    launches, the routes and forms, loop)``.  ``spy``: a :class:`DropSpy`
+    to attach to the loop."""
     import numpy as np
 
     from repro_torch.core.faults import FaultPlan
@@ -1289,129 +1542,326 @@ def serve_paged_phase(cfg, model, params, card, dev, pg: PagedServe = PAGED) -> 
     from repro_torch.runtime import batching as RB
     from repro_torch.runtime.resilient import ResilientServeLoop, ServeLoopConfig
 
-    per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
     sc = ServeLoopConfig(slots_local=pg.slots, nb_local=pg.slots * pg.max_blocks + 1,
                          block_size=pg.block, max_blocks=pg.max_blocks, chunk=pg.chunk,
                          top_k=pg.top_k, reserve="full", seed=0)
-    arrivals = [pg.arrival_every * i for i in range(pg.requests)]
-
-    def make_loop(kv: str, fault=None):
-        mcfg = MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True, kv_dtype=kv,
-                          kv_block_size=pg.block)
-        return ResilientServeLoop(model, MiCSTopology(), mcfg, sc,
-                                  params_for=lambda m, t: params, fault_injector=fault,
-                                  device=dev)
-
-    def run(loop, label: str, kv: str):
-        """One counted run of the trace; its launches held to the engine's."""
-        clock = TickClock(loop)
-        reqs = paged_requests(RB, cfg.vocab, pg)
-        torch.cuda.synchronize()
-        reset_counts()
-        clock.start = time.perf_counter()
-        rep = loop.run(reqs, arrivals)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - clock.start
-        launches, by_route = read_counts(), dict(FA.launches_by_route)
-        forms = dict(FA.launches_paged_by_form)
-        led, steps = rep["ledger"], len(clock.steps)
-        if not (led["accounted"] and led["completed"] == pg.requests and led["shed"] == 0):
-            raise AssertionError(f"serve_paged {label}: ledger {led}")
-        want = dict.fromkeys(launches, 0) | {
-            "rmsnorm": per_step["rmsnorm"] * steps,
-            "flash_attention": per_step["flash_attention"] * steps,
-            "quantize": 2 * per_step["flash_attention"] * steps if kv == "int8" else 0}
-        want_route = {"mma": 0, "split": 0, "fma": 0,
-                      "paged": per_step["flash_attention"] * steps}
-        want_forms = {"paged:wgmma": per_step["flash_attention"] * steps, "paged:mma": 0}
-        if launches != want or by_route != want_route or forms != want_forms:
-            raise AssertionError(f"serve_paged {label}: launches {launches} / {by_route} / "
-                                 f"{forms} != {want} / {want_route} / {want_forms} ({steps} "
-                                 "engine steps)")
-        for toks in rep["completions"].values():
-            if len(toks) != pg.new_tokens or min(toks) < 0 or max(toks) >= cfg.vocab:
-                raise AssertionError(f"serve_paged {label}: a completion {toks}")
-        return rep, reqs, clock, wall, launches, (by_route, forms)
-
-    # the kernel on the phase's shapes, before the engine runs
-    kernel = paged_kernel_checks(torch.Generator(device=dev).manual_seed(3), dev, None,
-                                 timed=False, pg=pg)
-    consistency = paged_consistency(cfg, model, params, dev, pg)
-    torch.cuda.empty_cache()
-
-    loop = make_loop("bf16")
-    z, B = np.zeros, loop.batcher.batch
-    for _ in range(2):  # warm: first use of the engine's shapes (cuBLAS, allocator)
-        loop.step(loop.params, loop.caches, z((B, pg.chunk), np.int64), z(B, np.int64),
-                  z(B, np.int64), z((B, pg.max_blocks), np.int32), z(B, np.int64),
-                  z(B, np.float32))
+    mcfg = MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True, kv_dtype=kv,
+                      kv_block_size=pg.block)
+    loop = ResilientServeLoop(model, MiCSTopology(), mcfg, sc, params_for=lambda m, t: params,
+                              fault_injector=None if fault is None else FaultPlan.parse(fault),
+                              device=dev)
+    if warm:   # first use of the engine's shapes (cuBLAS, allocator)
+        z, B = np.zeros, loop.batcher.batch
+        for _ in range(2):
+            loop.step(loop.params, loop.caches, z((B, pg.chunk), np.int64), z(B, np.int64),
+                      z(B, np.int64), z((B, pg.max_blocks), np.int32), z(B, np.int64),
+                      z(B, np.float32))
+    clock = TickClock(loop)
+    if spy is not None:
+        spy.attach(loop)
+    reqs = paged_requests(RB, cfg.vocab, pg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rep, reqs, clock, wall, launches, (by_route, forms) = run(loop, "bf16", "bf16")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    pool_gb = sum(t.numel() * t.element_size() for p in loop.caches.values()
-                  for t in p.values()) / 1e9
-    tokens = sum(len(t) for t in rep["completions"].values())
+    reset_counts()
+    clock.start = time.perf_counter()
+    rep = loop.run(reqs, [pg.arrival_every * i for i in range(pg.requests)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - clock.start
+    launches, by_route = read_counts(), dict(FA.launches_by_route)
+    forms = dict(FA.launches_paged_by_form)
+    led, steps, n_attn = rep["ledger"], len(clock.steps), cfg.n_layers
+    if not (led["accounted"] and led["completed"] == pg.requests and led["shed"] == 0):
+        raise AssertionError(f"{label}: ledger {led}")
+    want = dict.fromkeys(launches, 0) | {
+        "rmsnorm": (2 * n_attn + 1) * steps, "flash_attention": n_attn * steps,
+        "quantize": 2 * n_attn * steps if kv == "int8" else 0}
+    want_route = {"mma": 0, "split": 0, "fma": 0, "paged": n_attn * steps}
+    form = f"paged:{FA.paged_body(cfg.resolved_head_dim, _pool_dtype(kv))}"
+    want_forms = dict.fromkeys(forms, 0) | {form: n_attn * steps}
+    if launches != want or by_route != want_route or forms != want_forms:
+        raise AssertionError(f"{label}: launches {launches} / {by_route} / {forms} != {want} / "
+                             f"{want_route} / {want_forms} ({steps} engine steps)")
+    for toks in rep["completions"].values():
+        if len(toks) != pg.new_tokens or min(toks) < 0 or max(toks) >= cfg.vocab:
+            raise AssertionError(f"{label}: a completion {toks}")
+    return rep, reqs, clock, wall, launches, (by_route, forms), loop
+
+
+def engine_summary(rep, reqs, clock, wall) -> dict:
+    """A run's throughput and latency: tokens/s, ticks, engine step ms (p50,
+    decode-only and with prefill rows), decode ms a tick and TTFT ms."""
     decode_ticks = [t for t, d, _ in clock.steps if d]
     tick_ms = [(clock.ends[t] - clock.tick_start(t)) * 1e3 for t in decode_ticks]
-    step_ms = {"decode_only": [ms for _, d, ms in clock.steps if d],
-               "with_prefill": [ms for _, d, ms in clock.steps if not d]}
+    tokens = sum(len(t) for t in rep["completions"].values())
     ttft_ms = [(clock.ends[r.first_token_tick] - clock.tick_start(r.arrival)) * 1e3
                for r in reqs]
+    return {"ticks": rep["ticks"], "engine_steps": len(clock.steps),
+            "decode_only_steps": len(decode_ticks), "wall_s": wall, "tokens": tokens,
+            "tokens_per_s": tokens / wall,
+            "engine_step_ms_p50": {
+                "decode_only": _pct([ms for _, d, ms in clock.steps if d], 50),
+                "with_prefill": _pct([ms for _, d, ms in clock.steps if not d], 50)},
+            "decode_ms_per_tick": {"p50": _pct(tick_ms, 50), "p99": _pct(tick_ms, 99)},
+            "ttft_ms": {"p50": _pct(ttft_ms, 50), "p99": _pct(ttft_ms, 99)}}
+
+
+def engine_crash_replay(cfg, model, params, dev, pg, kv, label, fault_free,
+                        spy: DropSpy | None = None) -> dict:
+    """The trace again with an engine crash at ``pg.crash_at``: its
+    completions must be the fault-free run's bit for bit, after one replay
+    (MoE: :func:`moe_crash_replay` holds them)."""
+    crash, _, _, wall, launches, (_, forms), loop = engine_run(
+        cfg, model, params, dev, pg, kv, f"{label} crash", fault=f"crash@{pg.crash_at}",
+        spy=spy)
+    del loop
+    changes = crash["world_changes"]
+    if [c["kind"] for c in changes] != ["crash"] or not changes[0]["replayed"]:
+        raise AssertionError(f"{label}: crash ledger {changes}")
+    equal = [a == b for rid, toks in fault_free["completions"].items()
+             for a, b in zip(toks, crash["completions"][rid])]
+    line = {"at_tick": pg.crash_at, "replayed": changes[0]["replayed"], "ticks": crash["ticks"],
+            "wall_s": wall, "tokens_equal_share": sum(equal) / len(equal),
+            "launches": launches, "attention_launches_by_form": forms,
+            "completions": crash["completions"]}
+    if cfg.family != "moe" and not all(equal):
+        raise AssertionError(f"{label}: the crash run's completions differ from the fault-free "
+                             "run's")
+    line["completions_bitwise"] = all(equal)
+    return line
+
+
+def moe_crash_replay(cfg, model, params, dev, pg, label, fault_free,
+                     free_drops: dict[int, int]) -> dict:
+    """The MoE engine's crash replay.  A replayed request restarts from its
+    prompt beside other rows than before, and whether a live row's
+    assignment is kept depends on the rows before it in its chunk; a row
+    whose assignments are all kept is computed as if alone.  So the crash
+    run twice must be bitwise equal, and each request's tokens must equal
+    the fault-free run's bit for bit up to its first row with a dropped
+    assignment in either run: the token sampled from position p is held
+    when no row of its request at a position <= p dropped one
+    (``free_drops``: the fault-free run's :meth:`DropSpy.first_drops`).
+    The shares of tokens held and of tokens equal are reported."""
+    from repro_torch.runtime import batching as RB
+
+    runs = []
+    for _ in range(2):
+        with DropSpy() as spy:
+            runs.append(engine_crash_replay(cfg, model, params, dev, pg, "bf16", label,
+                                            fault_free, spy=spy))
+        runs[-1]["dropped_share"] = spy.dropped_share()
+        runs[-1]["first_drops"] = spy.first_drops()
+        torch.cuda.empty_cache()
+    first, second = runs
+    crash = first.pop("completions")
+    if crash != second.pop("completions") or first["first_drops"] != second["first_drops"]:
+        raise AssertionError(f"{label}: two crash runs' completions or drops differ")
+    plens = {r.rid: len(r.prompt) for r in paged_requests(RB, cfg.vocab, pg)}
+    held, differ = 0, []
+    for rid, toks in fault_free["completions"].items():
+        cut = min(free_drops.get(rid, math.inf), first["first_drops"].get(rid, math.inf))
+        for i, (a, b) in enumerate(zip(toks, crash[rid])):
+            if plens[rid] - 1 + i < cut:
+                held += 1
+                if a != b:
+                    differ.append((rid, i))
+    tokens = sum(len(t) for t in fault_free["completions"].values())
+    if differ or not held:
+        raise AssertionError(f"{label}: {len(differ)} of the {held} tokens before a request's "
+                             f"first dropped row differ from the fault-free run's: {differ}")
+    return {**first, "replay_bitwise_repeat": True, "second_run_wall_s": second["wall_s"],
+            "fault_free_first_drops": free_drops,
+            "tokens_before_first_drop_bitwise": {"held": held, "of": tokens,
+                                                 "share": held / tokens}}
+
+
+def serve_paged_fp32(cfg, model, params, dev) -> dict:
+    """``serve_paged``'s fourth engine run, on fp32 pools (the ``paged``
+    route's ``fma`` body), on ``FP32_PAGED``'s shorter trace: paged ==
+    contiguous bit for bit over fp32 caches, bf16 pools' logits within
+    ``FP32_POOL_REL_TOL`` of the fp32 pools', the engine's launches all on
+    ``paged:fma``, and a crash replay bitwise the fault-free run."""
+    pg = FP32_PAGED
+    consistency = paged_consistency(cfg, model, params, dev, pg, kv="fp32", other="bf16",
+                                    rel_tol=FP32_POOL_REL_TOL, placement=False)
+    torch.cuda.empty_cache()
+    rep, reqs, clock, wall, launches, (_, forms), loop = engine_run(
+        cfg, model, params, dev, pg, "fp32", "serve_paged fp32", warm=True)
+    pool_gb = sum(t.numel() * t.element_size() for p in loop.caches.values()
+                  for t in p.values()) / 1e9
+    del loop
+    torch.cuda.empty_cache()
+    crash = engine_crash_replay(cfg, model, params, dev, pg, "fp32", "serve_paged fp32", rep)
+    del crash["completions"]
+    torch.cuda.empty_cache()
+    return {"engine": dataclasses.asdict(pg), "kv_dtype": "fp32", "pool_gb": pool_gb,
+            **engine_summary(rep, reqs, clock, wall), "ledger_accounted": True,
+            "launches": launches, "attention_launches_by_form": forms, **consistency,
+            "crash_replay": crash}
+
+
+def moe_layer_check(model, params, dev) -> dict:
+    """Layer 0's MoE FFN (``blocks.moe_ffn``: router, dispatch, experts,
+    shared experts) at full width on the card in bf16 against the same
+    weights in fp32 on the CPU, on ``MOE_LAYER_TOKENS`` tokens: first the
+    routing (a token whose top-k margin is under bf16's rounding may pick
+    another expert, and a pick moves the others' slots), then the outputs
+    of the tokens routed alike, within ``MOE_LAYER_REL_TOL``."""
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+
+    cfg = model.cfg
+    layout = model.pool("layers").layout
+    names = [s.name for s in layout.segments if s.name.startswith(("router.", "moe.",
+                                                                   "shared."))]
+    full = layout.unflatten(params["layers"][0, 0])
+    t_card = {k: full[k].to(torch.bfloat16) for k in names}
+    t_cpu = {k: full[k].cpu() for k in names}
+    gen = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn(1, MOE_LAYER_TOKENS, cfg.d_model, generator=gen, device=dev)
+    with torch.inference_mode():
+        y_card, aux_card = B.moe_ffn(t_card, x.to(torch.bfloat16), cfg,
+                                     L.Ctx(mode="prefill", compute_dtype=torch.bfloat16))
+        r_card = B.moe_route(x[0].to(torch.bfloat16), t_card["router.w"], cfg)
+        y_cpu, aux_cpu = B.moe_ffn(t_cpu, x.cpu(), cfg,
+                                   L.Ctx(mode="prefill", compute_dtype=torch.float32))
+        r_cpu = B.moe_route(x[0].cpu(), t_cpu["router.w"], cfg)
+    k = cfg.top_k
+    same_idx = (r_card[2].cpu() == r_cpu[2]).all(dim=1)
+    same_keep = (r_card[4].cpu().reshape(-1, k) == r_cpu[4].reshape(-1, k)).all(dim=1)
+    alike = same_idx & same_keep
+    if not bool(torch.isfinite(y_card).all()):
+        raise AssertionError("serve_moe: the MoE layer's card output is not finite")
+    if int(alike.sum()) < MOE_LAYER_TOKENS // 2:
+        raise AssertionError(f"serve_moe: only {int(alike.sum())} of {MOE_LAYER_TOKENS} tokens "
+                             "routed alike on the card and the CPU")
+    got, want = y_card[0].float().cpu()[alike], y_cpu[0][alike]
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    if not err <= MOE_LAYER_REL_TOL * scale:
+        raise AssertionError(f"serve_moe: the MoE layer on the card is {err} > "
+                             f"{MOE_LAYER_REL_TOL} x {scale} from fp32 on the CPU")
+    return {"tokens": MOE_LAYER_TOKENS, "experts": cfg.n_experts, "top_k": k,
+            "capacity": r_cpu[5], "same_picks": int(same_idx.sum()),
+            "routed_alike": int(alike.sum()), "not_routed_alike": int((~alike).sum()),
+            "dropped_assignments": {"card": int((~r_card[4]).sum()),
+                                    "cpu": int((~r_cpu[4]).sum())},
+            "max_abs_err": err, "max_abs_out": scale, "rel_tol": MOE_LAYER_REL_TOL,
+            "aux": {"card": aux_card.item(), "cpu": aux_cpu.item()}}
+
+
+def serve_moe_phase(card: str, dev) -> dict:
+    """``serve_moe``: deepseek-moe-16b at full width, cut to
+    ``MOE_SERVE_LAYERS`` layers, random weights from ``init_params(seed=0)``,
+    bf16 gather: the fixed batch through ``build_serve_steps`` (``MOE_FIXED``:
+    prefill, greedy decode steps), then the engine (``MOE_PAGED``, bf16
+    pools) fault-free and with a crash replay; paged == contiguous bit for
+    bit on the same rows (chunk placement is not checked: a chunk's capacity
+    drops make a row depend on its neighbours); one MoE layer against fp32
+    on the CPU.  Launches a forward: RMSNorm 2 L + 1, attention L (prefill
+    on ``mma``, decode on ``split``, the engine on ``paged:wgmma``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mics import MiCSConfig, init_params
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models.build import build_model
+    from repro_torch.runtime.serving import build_serve_steps
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_SERVE_LAYERS)
+    model = build_model(cfg, tp=1)
+    params = init_params(model, seed=0, device=dev)
+    fx, L_ = MOE_FIXED, cfg.n_layers
+    prefill_fn, decode_fn = build_serve_steps(
+        model, MiCSTopology(), MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True),
+        fx["prompt"] + fx["steps"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab, (fx["batch"], fx["prompt"]), generator=gen, device=dev)
+    logits, caches = prefill_fn(params, {"tokens": prompt})   # warm (not counted)
+    decode_fn(params, caches, torch.argmax(logits[:, -1:].float(), dim=-1), fx["prompt"])
+    del logits, caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, caches = prefill_fn(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = torch.argmax(logits[:, -1:].float(), dim=-1)
+    decode_ms, out = [], [tok]
+    for i in range(fx["steps"]):
+        t0 = time.perf_counter()
+        lg, tok, caches = decode_fn(params, caches, tok, fx["prompt"] + i)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(tok)
+    launches, by_route = read_counts(), dict(FA.launches_by_route)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd = 1 + fx["steps"]
+    want = dict.fromkeys(launches, 0) | {"rmsnorm": (2 * L_ + 1) * fwd,
+                                         "flash_attention": L_ * fwd}
+    want_route = {"mma": L_, "split": L_ * fx["steps"], "fma": 0, "paged": 0}
+    if launches != want or by_route != want_route:
+        raise AssertionError(f"serve_moe: launches {launches} / {by_route} != {want} / "
+                             f"{want_route}")
+    ids = torch.cat(out, dim=1)
+    if not (bool(torch.isfinite(logits.float()).all()) and bool(torch.isfinite(lg.float()).all())
+            and int(ids.min()) >= 0 and int(ids.max()) < cfg.vocab):
+        raise AssertionError("serve_moe: non-finite logits or an id outside the vocab")
+    with DropSpy() as spy_p:
+        prefill_fn(params, {"tokens": prompt})
+    with DropSpy() as spy_d:
+        decode_fn(params, caches, tok, fx["prompt"] + fx["steps"] - 1)
+    fixed = {"batch": fx["batch"], "prompt": fx["prompt"], "decode_steps": fx["steps"],
+             "prefill_ms": prefill_ms, "decode_ms_per_step": statistics.median(decode_ms),
+             "decode_tokens_per_s": fx["batch"] / (statistics.median(decode_ms) / 1e3),
+             "prefill_tokens_per_s": fx["batch"] * fx["prompt"] / (prefill_ms / 1e3),
+             "dropped_share": {"prefill": spy_p.dropped_share(),
+                               "decode": spy_d.dropped_share()},
+             "peak_gb": peak_gb, "launches": launches, "attention_launches_by_route": by_route}
+    del logits, caches, lg
+    torch.cuda.empty_cache()
+
+    pg = MOE_PAGED
+    rep, reqs, clock, wall, e_launches, (_, e_forms), loop = engine_run(
+        cfg, model, params, dev, pg, "bf16", "serve_moe engine", warm=True)
+    e_peak = torch.cuda.max_memory_allocated() / 1e9
     plan = clock.decode_plan
-    prof = profile_line(cfg.name, "paged decode tick", lambda: loop.step(
+    prof = profile_line(cfg.name, "MoE engine decode tick", lambda: loop.step(
         loop.params, loop.caches, plan.tokens, plan.pos, plan.n_new, plan.tables, plan.seeds,
         plan.temps)[0].cpu())
     del loop
     torch.cuda.empty_cache()
-
-    crash, _, _, cwall, claunches, (_, cforms) = run(
-        make_loop("bf16", FaultPlan.parse(f"crash@{pg.crash_at}")), "crash", "bf16")
-    if crash["completions"] != rep["completions"]:
-        raise AssertionError("serve_paged: the crash run's completions differ from the "
-                             "fault-free run's")
-    changes = crash["world_changes"]
-    if [c["kind"] for c in changes] != ["crash"] or not changes[0]["replayed"]:
-        raise AssertionError(f"serve_paged: crash ledger {changes}")
+    # the fault-free run again, untimed, under the spy: its drops by request
+    with DropSpy() as spy_e:
+        again, *_, loop = engine_run(cfg, model, params, dev, pg, "bf16",
+                                     "serve_moe engine again", spy=spy_e)
+    del loop
+    if again["completions"] != rep["completions"]:
+        raise AssertionError("serve_moe engine: the fault-free run twice differs")
     torch.cuda.empty_cache()
-    int8, _, _, iwall, ilaunches, (_, iforms) = run(make_loop("int8"), "int8", "int8")
-    same = [a == b for rid, toks in rep["completions"].items()
-            for a, b in zip(toks, int8["completions"][rid])]
+    crash = moe_crash_replay(cfg, model, params, dev, pg, "serve_moe engine", rep,
+                             spy_e.first_drops())
+    consistency = paged_consistency(cfg, model, params, dev, pg, other=None, placement=False)
     torch.cuda.empty_cache()
-
-    led = rep["ledger"]
-    return {"phase": "serve_paged", "arch": cfg.name, "layers": cfg.n_layers,
-            "engine": dataclasses.asdict(pg), "gather_dtype": "bf16", "kv_dtype": "bf16",
-            "requests": pg.requests, "ticks": rep["ticks"], "engine_steps": len(clock.steps),
-            "decode_only_steps": len(decode_ticks), "wall_s": wall,
-            "tokens": tokens, "tokens_per_s": tokens / wall,
-            "ttft_ticks": {"p50": led["ttft_ticks_p50"], "p99": led["ttft_ticks_p99"]},
-            "ttft_ms": {"p50": _pct(ttft_ms, 50), "p99": _pct(ttft_ms, 99)},
-            "latency_ticks": {"p50": led["latency_ticks_p50"], "p99": led["latency_ticks_p99"]},
-            "decode_ms_per_tick": {"p50": _pct(tick_ms, 50), "p99": _pct(tick_ms, 99)},
-            "engine_step_ms_p50": {k: _pct(v, 50) for k, v in step_ms.items()},
-            "profile_decode_tick": {k: prof[k] for k in (
-                "wall_ms", "device_busy_ms", "idle_share", "device_kernels", "events_short",
-                "by_kind")},
-            "peak_gb": peak_gb, "pool_gb": pool_gb, "ledger": led,
-            "launches": launches, "attention_launches_by_route": by_route,
-            "attention_launches_by_form": forms,
-            "checks": {"ledger": f"{pg.requests} of {pg.requests} completed, accounted",
-                       **consistency,
-                       "crash_replay": {"at_tick": pg.crash_at, "replayed":
-                                        changes[0]["replayed"], "ticks": crash["ticks"],
-                                        "wall_s": cwall, "completions_bitwise": True,
-                                        "launches": claunches,
-                                        "attention_launches_by_form": cforms},
-                       "int8_engine": {"ledger_accounted": True, "ticks": int8["ticks"],
-                                       "wall_s": iwall, "tokens_equal_to_bf16_share":
-                                       sum(same) / len(same), "launches": ilaunches,
-                                       "attention_launches_by_form": iforms},
-                       "paged_vs_plain": kernel,
-                       "launch_counts": f"an engine step: RMSNorm {per_step['rmsnorm']}, "
-                                        f"attention {per_step['flash_attention']}, all on "
-                                        "paged:wgmma; int8 pools: quantize twice that"},
-            "gpu": card}
+    layer = moe_layer_check(model, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    return {"phase": "serve_moe", "arch": cfg.name, "layers": L_, "d_model": cfg.d_model,
+            "experts": cfg.n_experts, "shared_experts": cfg.n_shared_experts,
+            "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor,
+            "model_params": sum(seg.size * pool.stack for pool in model.all_pools()
+                                for seg in pool.layout.segments),
+            "gather_dtype": "bf16", "fixed_batch": fixed,
+            "engine": {"config": dataclasses.asdict(pg), "kv_dtype": "bf16",
+                       **engine_summary(rep, reqs, clock, wall), "peak_gb": e_peak,
+                       "dropped_share": spy_e.dropped_share(),
+                       "profile_decode_tick": {k: prof[k] for k in (
+                           "wall_ms", "device_busy_ms", "idle_share", "device_kernels",
+                           "events_short", "by_kind")},
+                       "launches": e_launches, "attention_launches_by_form": e_forms,
+                       "crash_replay": crash, **consistency,
+                       "chunk_placement": "not checked: capacity drops make a row depend on "
+                                          "the rows of its chunk (ROADMAP Queue 3)"},
+            "moe_layer_vs_cpu_fp32": layer, "gpu": card}
 
 
 def train_rows(path: TrainPath) -> int:
@@ -1431,14 +1881,16 @@ def attention_layers(cfg) -> int:
 
 
 def train_flops(model, path: TrainPath) -> float:
-    """Model flops of one step: 6 N a token, N the parameters of the layer
-    pools and the head (the embedding lookup does no product), plus
-    attention's 12 dh a (query, key) pair the masks allow (causal, and
+    """Model flops of one step: 6 N a token, N the active parameters of the
+    layer pools and the head (``models/build.active_param_count``: an MoE
+    token runs k of the E experts; the embedding lookup does no product),
+    plus attention's 12 dh a (query, key) pair the masks allow (causal, and
     within the window where the model has one) and a head, in each
     attention sub-layer.  Recomputation is not counted."""
+    from repro_torch.models.build import active_param_count
+
     cfg = model.cfg
-    n = sum(seg.size * pool.stack for pool in (*model.pools, model.head)
-            for seg in pool.layout.segments)
+    n = active_param_count(cfg) - sum(seg.size for seg in model.embed.layout.segments)
     tokens = path.global_batch * path.seq
     span = cfg.window or path.seq   # keys a query sees at most
     pairs = path.global_batch * sum(min(pos + 1, span) for pos in range(path.seq))
@@ -1514,6 +1966,164 @@ def train_phase(path: TrainPath, card: str, dev):
             "rglru_launches_by_form": rglru_by_form, "gpu": card}
     emit(line)
     return launches, line
+
+
+def train_moe_phase(card: str, dev) -> dict:
+    """``train_moe``: ``build_train_step`` on deepseek-moe-16b at full width,
+    cut to ``MOE_TRAIN_LAYERS`` layers, from ``init_state(seed=0)`` and the
+    synthetic stream (``MOE_TRAIN``: bf16 gather, prefetch, bucketed
+    boundary, exact clip), ``MOE_TRAIN.steps`` steps; first step 1's
+    gradients by :func:`moe_grad_probe` (fp32 compute, the fma routes,
+    against bf16), and step 1's loss and grad norm held to its fp32 ones
+    within ``MOE_FP32_REL_TOL``.  The counters are set to 0 just before the
+    bf16 run and read just after (``check_train_launches``); then a step is
+    profiled (busy and idle share, time by kind).  MFU counts the active
+    parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import OptConfig
+
+    path = MOE_TRAIN
+    cfg = dataclasses.replace(get_config(path.arch), n_layers=MOE_TRAIN_LAYERS)
+    model = build_model(cfg, tp=1)
+    oc = OptConfig(warmup_steps=0, total_steps=path.steps)
+    source = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=path.seq,
+                                    global_batch=path.global_batch,
+                                    micro_steps=path.micro_steps))
+    probe = moe_grad_probe(model, path, source.global_step_batch(0), dev)
+    fp32_step = probe["fp32"]
+
+    step = build_train_step(model, MiCSTopology(), MiCSConfig(micro_steps=path.micro_steps),
+                            oc, device=dev)
+    state = init_state(model, 0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, auxes, gnorms, step_ms = [], [], [], []
+    for i in range(path.steps):
+        t0 = time.perf_counter()
+        state, m = step(state, source.global_step_batch(i))
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        auxes.append(m["aux"].item())
+        gnorms.append(m["grad_norm"].item())
+    tables = check_train_launches("train_moe", path, path.steps * path.micro_steps)
+    launches, by_route, bwd_by_route, rms_bwd_by_route, _ = tables
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = source.global_step_batch(path.steps)   # two more steps: a warm one, the profiled
+    prof = profile_line(cfg.name, "train_moe step", lambda: step(state, batch)[1]["loss"].item())
+    del state, step
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses + auxes + gnorms):
+        raise AssertionError(f"train_moe: losses {losses}, aux {auxes}, grad norms {gnorms}")
+    rel = {"loss": abs(losses[0] - fp32_step["loss"]) / abs(fp32_step["loss"]),
+           "grad_norm": abs(gnorms[0] - fp32_step["grad_norm"]) / abs(fp32_step["grad_norm"])}
+    if not all(rel[k] <= MOE_FP32_REL_TOL[k] for k in rel):
+        raise AssertionError(f"train_moe: step 1 {losses[0]} / {gnorms[0]} against fp32 "
+                             f"compute {fp32_step}: {rel} > {MOE_FP32_REL_TOL}")
+    ms = statistics.median(step_ms[1:])
+    flops, n_active = train_flops(model, path)
+    tokens = path.global_batch * path.seq
+    model_tflops = flops / (ms / 1e3) / 1e12
+    line = {"phase": "train_moe", "arch": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "experts": cfg.n_experts, "top_k": cfg.top_k,
+            "global_batch": path.global_batch, "seq": path.seq, "micro_steps": path.micro_steps,
+            "tokens_per_step": tokens, "gather_dtype": "bf16", "schedule": "prefetch",
+            "boundary": "bucketed", "clip": "exact", "loss": losses, "aux": auxes,
+            "grad_norm": gnorms, "step_ms_all": step_ms, "step_ms": ms,
+            "tokens_per_s": tokens / (ms / 1e3),
+            "model_params": sum(seg.size * pool.stack for pool in model.all_pools()
+                                for seg in pool.layout.segments),
+            "active_params_counted": n_active, "model_tflops": model_tflops,
+            "mfu": model_tflops / (PEAK_OPS_PER_S[torch.bfloat16] / 1e12), "peak_gb": peak_gb,
+            "rel_err_step1_vs_fp32": rel, "grad_probe": probe,
+            "profile_step": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                                  "device_kernels", "events_short", "by_kind")},
+            "rel_tol_vs_fp32": MOE_FP32_REL_TOL, "launches": launches,
+            "attention_launches_by_route": by_route,
+            "attention_bwd_launches_by_route": bwd_by_route,
+            "rmsnorm_bwd_launches_by_route": rms_bwd_by_route,
+            "rglru_launches_by_form": tables[4], "gpu": card}
+    emit(line)
+    return line
+
+
+def moe_grad_probe(model, path: TrainPath, batch: dict, dev) -> dict:
+    """Step 1's gradients (``accumulate_grads`` on ``init_params(seed=0)``
+    and ``batch``) with bf16 compute against fp32 compute on the card, read
+    as the loss, the global gradient norm and each segment's gradient norm
+    over its pool's rows, relative to fp32's; the worst segment must be
+    within ``MOE_FP32_REL_TOL["leaf_norm"]``.  ``fp32``: the loss and the
+    grad norm a step reports (the gradient's over the micro-steps' mean).  Two faults are read the same
+    way, and each must exceed one of the limits: the routed experts'
+    gradients left out (their segments zeroed in the sound bf16 gradients)
+    and every routed assignment dropped (``moe_route`` keeping none, so each
+    MoE layer is its shared experts)."""
+    from repro_torch.core.comm import CommEngine
+    from repro_torch.core.mics import MiCSConfig, accumulate_grads, init_params
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+
+    params = init_params(model, 0, device=dev)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+    def read(dtype):
+        """(each segment's squared gradient norm, the mean loss)."""
+        comm = CommEngine.from_config(MiCSTopology(), MiCSConfig(micro_steps=path.micro_steps,
+                                                                 gather_dtype=dtype))
+        grads, loss, _ = accumulate_grads(model, comm, L.Ctx(mode="train", compute_dtype=dtype,
+                                                             comm=comm), params, batch)
+        sq = {f"{name}/{seg.name}": g[:, 0, seg.offset:seg.end].double().pow(2).sum().item()
+              for name, g in grads.items() for seg in model.pool(name).layout.segments}
+        del grads
+        torch.cuda.empty_cache()
+        return sq, loss.item() / path.micro_steps
+
+    sq32, loss32 = read(torch.float32)
+    sq16, loss16 = read(torch.bfloat16)
+    route = B.moe_route
+
+    def keep_none(*args, **kw):
+        out = route(*args, **kw)
+        return (*out[:4], torch.zeros_like(out[4]), out[5])
+
+    B.moe_route = keep_none
+    try:
+        sq_drop, loss_drop = read(torch.bfloat16)
+    finally:
+        B.moe_route = route
+    del params
+    torch.cuda.empty_cache()
+    experts = {k for k in sq16 if k.split("/", 1)[1].startswith("moe.")}
+    norm32 = math.sqrt(sum(sq32.values()))
+
+    def gaps(sq, loss):
+        leaf = {k: abs(math.sqrt(sq[k]) - math.sqrt(v)) / math.sqrt(v)
+                for k, v in sq32.items() if v > 0}
+        worst = max(leaf, key=leaf.get)
+        return {"loss": abs(loss - loss32) / abs(loss32),
+                "grad_norm": abs(math.sqrt(sum(sq.values())) - norm32) / norm32,
+                "leaf_norm": leaf[worst], "worst_leaf": worst}
+
+    sound = gaps(sq16, loss16)
+    faults = {"expert_grads_left_out": gaps({k: 0.0 if k in experts else v
+                                             for k, v in sq16.items()}, loss16),
+              "routed_experts_dropped": gaps(sq_drop, loss_drop)}
+    if not sound["leaf_norm"] <= MOE_FP32_REL_TOL["leaf_norm"]:
+        raise AssertionError(f"train_moe: step 1's gradient by segment against fp32 compute "
+                             f"{sound} > {MOE_FP32_REL_TOL}")
+    for name, f in faults.items():
+        if all(f[k] <= MOE_FP32_REL_TOL[k] for k in MOE_FP32_REL_TOL):
+            raise AssertionError(f"train_moe: the fault {name} ({f}) is within every limit "
+                                 f"{MOE_FP32_REL_TOL}")
+    return {"fp32": {"loss": loss32, "grad_norm": norm32 / path.micro_steps}, "sound": sound,
+            "faults": faults, "segments": len(sq32),
+            "expert_share_of_sq_norm": sum(sq16[k] for k in experts) / sum(sq16.values())}
 
 
 def check_train_launches(label: str, path: TrainPath, micro: int):
@@ -1875,14 +2485,25 @@ class DistLayout:
 # Layout D: recurrentgemma-2b cut to one (rec, rec, attn) super-layer over
 # tp 4 (10 Q heads padded to 12, its one KV head gathered over the 4 model
 # ranks, LRU width 640 and d_ff 1920 a rank, the norm scales gathered).
-# C and D start from their model's ``init_params(seed=0)`` at tp 1 cut by
+# C, D and E start from their model's ``init_params(seed=0)`` at tp 1 cut by
 # ``convert.tp_params_from_full``, written as the loop's step-0 checkpoint.
 # C runs 2 steps, the others 3: on one card the 4 ranks' gloo collectives
 # took the whole script past its time budget with 3 (PERF.md, PR 20).
 DIST_LAYOUTS = (DistLayout("A", "llama3.2-1b", 1, 4, 1, "outer_first", 2, None),
                 DistLayout("B", "llama3.2-1b", 2, 2, 1, "inner_first", None, 4),
                 DistLayout("C", "llama3.2-1b", 1, 2, 2, "inner_first", None, None, steps=2),
-                DistLayout("D", "recurrentgemma-2b", 1, 1, 4, "inner_first", None, 3))
+                DistLayout("D", "recurrentgemma-2b", 1, 1, 4, "inner_first", None, 3),
+                DistLayout("E", MOE_ARCH, 1, 1, 4, "inner_first", None, 1, steps=2))
+# Layout E: deepseek-moe-16b at full width cut to 1 layer over tp 4, p 1: 16
+# experts a rank, each rank routing 1/4 of a micro-step's 4096 tokens (the
+# token-sharded dispatch, 1024 tokens: one chunk, 120 slots an expert) and
+# the expert exchange over the model group; it starts, as C and D, from the
+# tp 1 model's weights cut by ``tp_params_from_full`` into the loop's step-0
+# checkpoint.
+# Layout E against a one-card run of its cut model, as the reference's own
+# ``moe_tp_equiv`` (tests/dist_harness.py): token sharding changes each
+# rank's n and with it the capacity, so other tokens are dropped.
+DIST_MOE_TOL = {"rtol": 0.03, "atol": 0.05}
 # Layouts A and C against the single-card ``train`` phase (the same
 # weights, data and global batch): step 1's loss and grad_norm (both sides
 # round to bf16, hop 1 and the model-axis psums sum in bf16 over the ranks),
@@ -1915,7 +2536,7 @@ def dist_model(layout: DistLayout, tp: int | None = None):
 
 def dist_train_path(layout: DistLayout) -> TrainPath:
     """The one-card train path of ``layout``'s model (its data and routes)."""
-    return next(tp for tp in TRAIN if tp.arch == layout.arch)
+    return next(tp for tp in (*TRAIN, MOE_TRAIN) if tp.arch == layout.arch)
 
 
 def dist_topology(layout: DistLayout):
@@ -1939,7 +2560,12 @@ def dist_expected_calls(layout: DistLayout) -> dict:
     the recompute stops before (non-reentrant checkpointing recomputes up to
     the last tensor the backward saved); the embedding's and the final norm
     scale's gather and reduce-scatter; the loss's pmax, its two psums and
-    the backward's one; and a step's norm psum over the model group."""
+    the backward's one; and a step's norm psum over the model group.  An
+    MoE layer (with shared experts, whose psum is the row's last) adds, a
+    micro-step, the expert exchange 6 times a dispatch chunk (2 in the
+    forward, 2 in the recompute, 2 in the backward) and, on the
+    token-sharded path, the gather of y twice and its reduce-scatter once
+    and aux's mean over the model group 3 times (a psum)."""
     from repro_torch.core.schedule import plan_boundary
     from repro_torch.core.topology import hierarchy_factors
 
@@ -1972,9 +2598,25 @@ def dist_expected_calls(layout: DistLayout) -> dict:
                     label = "model" if seg.model_gather == tp else "kv"
                     add(f"all_gather:{label}", 2 * pool.stack * micro)
                     add(f"reduce_scatter:{label}", pool.stack * micro)
-            psums = sum(seg.name.endswith(("attn.wo", "rec.wo", "mlp.wd"))
+            psums = sum(seg.name.endswith(("attn.wo", "rec.wo", "mlp.wd", "shared.wd"))
                         for seg in pool.layout.segments)
             add("all_reduce:model", (3 * psums - 1) * pool.stack * micro)
+        if model.cfg.family == "moe":
+            from repro_torch.models.blocks import moe_chunk
+
+            if not model.cfg.n_shared_experts:
+                raise NotImplementedError("the MoE count rules assume shared experts (the "
+                                          "row's last psum)")
+            path = dist_train_path(layout)
+            n = path.global_batch // path.micro_steps // topo.data_parallel_size * path.seq
+            sharded = n % tp == 0 and n >= tp
+            n = n // tp if sharded else n
+            layers = model.cfg.n_layers * micro
+            add("all_to_all:model", 6 * (n // moe_chunk(n)) * layers)
+            if sharded:
+                add("all_gather:model", 2 * layers)
+                add("reduce_scatter:model", layers)
+                add("all_reduce:model", 3 * layers)
         add("all_gather:model", 2 * micro)       # the embedding, the final norm scale
         add("reduce_scatter:model", 2 * micro)
         add("all_reduce_max:model", micro)
@@ -2757,11 +3399,21 @@ def dist_worker(args) -> int:
 
 def dist_tp_start(layout: DistLayout, model, topo, groups, rank: int, ckdir, dev) -> None:
     """Write the step-0 checkpoint a tp > 1 layout's loop resumes from:
-    its model's ``init_params(seed=0)`` at tp 1 on this card (the weights
-    of the one-card runs it is held to), cut into tp shards by
+    :func:`dist_tp_state`."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+
+    state = dist_tp_state(layout, model, topo, rank, dev)
+    Checkpointer(ckdir).save(state, 0, topo=topo, groups=groups)
+    del state
+    torch.cuda.empty_cache()
+
+
+def dist_tp_state(layout: DistLayout, model, topo, rank: int, dev) -> dict:
+    """A tp > 1 layout's step-0 state on this rank: its model's
+    ``init_params(seed=0)`` at tp 1 on this card (the weights of the
+    one-card runs it is held to), cut into tp shards by
     ``convert.tp_params_from_full`` one pool at a time and into this rank's
     model coordinate and partition chunk, with zero moments."""
-    from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.convert import shard_state, tp_params_from_full
     from repro_torch.core.mics import init_params
 
@@ -2773,11 +3425,9 @@ def dist_tp_start(layout: DistLayout, model, topo, groups, rank: int, ckdir, dev
         params[name] = shard_state(model, topo, rank, {"params": cut, "m": {}, "v": {},
                                                        "step": 0}, device=dev)["params"][name]
         del cut
-    state = {"params": params, "step": 0,
-             **{part: {k: torch.zeros_like(v) for k, v in params.items()} for part in ("m", "v")}}
-    Checkpointer(ckdir).save(state, 0, topo=topo, groups=groups)
-    del state, params
     torch.cuda.empty_cache()
+    return {"params": params, "step": 0,
+            **{part: {k: torch.zeros_like(v) for k, v in params.items()} for part in ("m", "v")}}
 
 
 def dist_reference(layout: DistLayout, dev, on_step=None) -> list[tuple[float, float]]:
@@ -2895,7 +3545,12 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
             rel.append({"loss": el, "grad_norm": eg})
             lim_l = DIST_REL_TOL["loss1"] if i == 0 else DIST_REL_TOL["later"]
             lim_g = DIST_REL_TOL["grad_norm1"] if i == 0 else DIST_REL_TOL["later"]
-            if not (el <= lim_l and eg <= lim_g):
+            if layout.arch == MOE_ARCH:
+                ok = all(abs(a - b) <= DIST_MOE_TOL["atol"] + DIST_MOE_TOL["rtol"] * abs(b)
+                         for a, b in ((loss, rl), (gn, rg)))
+            else:
+                ok = el <= lim_l and eg <= lim_g
+            if not ok:
                 raise AssertionError(f"dist_train {layout.name} step {i + 1}: loss {loss} vs "
                                      f"{rl}, grad_norm {gn} vs {rg}")
         want_calls = dist_expected_calls(layout)
@@ -2946,7 +3601,8 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
             "comm_s": [p["comm"]["seconds"] for p in per],
             "peak_gb": [p["peak_gb"] for p in per], "loop_s": [p["loop_s"] for p in per],
             "checkpoint_s": [p["checkpoint_s"] for p in per],
-            "checkpoint_gb": per[0]["checkpoint_gb"],
+            "checkpoint_gb": per[0].get("checkpoint_gb"),
+            "tolerance": DIST_MOE_TOL if model.cfg.family == "moe" else DIST_REL_TOL,
             "comm_calls": want_calls, "comm_bytes": per[0]["comm"]["bytes"],
             "launches_per_rank": want_launches, "gather_check": gc}
     launches = {k: sum(rk["layouts"][lay.name]["launches"][k] for rk in ranks
@@ -3220,6 +3876,14 @@ def kernel_checks(gen, dev, flush):
          True, 0, 64, 150, bf),
         ("dh 16", 2, 200, 200, 2, 4, 16, True, 0, 0, None, bf),
         ("dh 128", 2, 200, 200, 2, 4, 128, True, 0, 0, None, bf),
+        # deepseek-moe-16b (MHA: 16 KV heads, g 1, dh 128): serve_moe's
+        # prefill and decode steps, train_moe's micro-step
+        ("deepseek-moe prefill", 4, 512, 512, 16, 1, 128, True, 0, 0, None, bf),
+        ("deepseek-moe decode", 4, 1, 528, 16, 1, 128, False, 0, 519, 520, bf),
+        ("deepseek-moe train", 2, 2048, 2048, 16, 1, 128, True, 0, 0, None, bf),
+        # a rank's micro-step in dist_train's layout E (deepseek-moe, tp 4:
+        # 4 of the 16 KV heads)
+        ("deepseek-moe tp 4 train", 2, 2048, 2048, 4, 1, 128, True, 0, 0, None, bf),
         # split route edges
         ("kv_len 1", 4, 1, 544, 8, 4, 64, False, 0, 0, 1, bf),
         ("g 1", 4, 1, 544, 8, 1, 64, False, 0, 299, 300, bf),
@@ -3275,6 +3939,27 @@ def kernel_checks(gen, dev, flush):
                 qs, ks, vs, attn_mask=mask, is_causal=lib_causal, enable_gqa=True), flush),
             **extra})
         del q, k, v, qs, ks, vs
+    # the other new models' heads at dh 128 (NEW_ATTN_SHAPES), correctness
+    # only: a prefill on mma, a decode step on split
+    for name, hkv, g in NEW_ATTN_SHAPES[1:]:
+        for kind, b, tq, tk, causal, q_offset, kvl in (("prefill", 2, 256, 256, True, 0, None),
+                                                       ("decode", 4, 1, 544, False, 519, 520)):
+            q = torch.randn(b, tq, hkv, g, 128, generator=gen, device=dev).to(bf)
+            k = torch.randn(b, tk, hkv, 128, generator=gen, device=dev).to(bf)
+            v = torch.randn(b, tk, hkv, 128, generator=gen, device=dev).to(bf)
+            kw = dict(causal=causal, window=0, q_offset=q_offset, kv_valid_len=kvl)
+            out = FA.flash_attention(q, k, v, **kw)
+            err = check(f"flash_attention {name} {kind}", out, FA.attention_plain(q, k, v, **kw),
+                        TOL[bf])
+            if not torch.equal(out, FA.flash_attention(q, k, v, **kw)):
+                raise AssertionError(f"flash_attention {name} {kind}: not bitwise repeatable")
+            attn_checks.append({
+                "case": f"{name} {kind}", "timed": False,
+                "shape": {"b": b, "tq": tq, "tk": tk, "hkv": hkv, "g": g, "dh": 128},
+                "causal": causal, "q_offset": q_offset, "kv_valid_len": kvl, "dtype": "bf16",
+                "route": FA.route(bf, tq * g), "bitwise_repeat": True, "max_abs_err": err,
+                "tol": TOL[bf]})
+            del q, k, v, out
 
     # RG-LRU.  No single PyTorch call computes a linear recurrence (a
     # cumprod / cumsum form divides by vanishing products), so library_ms is
@@ -3681,6 +4366,10 @@ def backward_checks(gen, dev, flush):
         # dist_train's layouts C and D, a rank's micro-step (as kernel_checks)
         ("llama tp 2 train", 2, 2048, 4, 4, 64, True, 0, bf),
         ("recurrentgemma tp 4 train", 2, 2048, 1, 3, 256, True, 2048, bf),
+        # train_moe's micro-step (deepseek-moe-16b: 16 KV heads, g 1, dh 128)
+        # and a rank's in dist_train's layout E (tp 4: 4 KV heads)
+        ("deepseek-moe train", 2, 2048, 16, 1, 128, True, 0, bf),
+        ("deepseek-moe tp 4 train", 2, 2048, 4, 1, 128, True, 0, bf),
         ("dh 256 window 64", 2, 512, 1, 10, 256, True, 64, bf),
         ("dh 256 ragged T 300", 2, 300, 1, 10, 256, True, 0, bf),
         ("dh 256 hkv 1 g 3: rows [b, T g, dh] at any g", 2, 512, 1, 3, 256, True, 0, bf),
@@ -3753,6 +4442,38 @@ def backward_checks(gen, dev, flush):
             **extra})
         del q, k, v, do, o, qs, ks, vs, y
         torch.cuda.empty_cache()
+    # the other new models' heads (NEW_ATTN_SHAPES), correctness only: dbrx's
+    # g 6 on mma (whole positions do not fill wgmma's 64-row tiles), the
+    # others on wgmma
+    for name, hkv, g in NEW_ATTN_SHAPES[1:]:
+        kw = dict(causal=True, window=0)
+        q, do = (torch.randn(2, 256, hkv, g, 128, generator=gen, device=dev).to(bf)
+                 for _ in range(2))
+        k, v = (torch.randn(2, 256, hkv, 128, generator=gen, device=dev).to(bf)
+                for _ in range(2))
+        o, lse = FA.flash_attention_fwd(q, k, v, **kw)
+        route = FA.bwd_route(bf, 128, g, hkv)
+        ref = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        err, _ = run_bwd_route(f"{name} train", route, (q, k, v, o, lse, do), kw, ref,
+                               BWD_REL_TOL[bf])
+        attn.append({"case": f"{name} train", "timed": False,
+                     "shape": {"b": 2, "T": 256, "hkv": hkv, "g": g, "dh": 128},
+                     "causal": True, "dtype": "bfloat16", "route": route,
+                     "bitwise_repeat": True, "max_abs_err": err, "rel_tol": BWD_REL_TOL[bf]})
+        del q, k, v, do, o, lse, ref
+    # dbrx's RMSNorm width (d 6144), correctness only
+    x = torch.randn(64, 6144, generator=gen, device=dev).to(bf)
+    dy = torch.randn(64, 6144, generator=gen, device=dev).to(bf)
+    sc = (0.2 * torch.randn(6144, generator=gen, device=dev)).to(bf)
+    route = RN.bwd_route(bf, 6144, True)
+    out = RN.rmsnorm_bwd(x, sc, dy)
+    rms.append({"case": "dbrx-132b d 6144 [64, 6144]", "timed": False, "shape": [64, 6144],
+                "dtype": "bfloat16", "scale_dtype": "bfloat16", "route": route,
+                "max_abs_err": rel_check("rmsnorm_bwd dbrx d 6144", out,
+                                         RN.rms_norm_bwd_plain(x, sc, dy), BWD_REL_TOL[bf]),
+                "rel_tol": BWD_REL_TOL[bf],
+                "forward_max_abs_err": rel_check("rmsnorm dbrx d 6144", [RN.rmsnorm(x, sc)],
+                                                 [RN.rms_norm_plain(x, sc)], TOL[bf])})
     return rms, attn, rglru_backward_checks(gen, dev, flush)
 
 
@@ -3923,18 +4644,19 @@ def main() -> int:
         by_path[f"{p.arch} serve_int8"] = int8[0]
         for r, n in (*by_route.items(), *int8[1].items()):
             launches_by_route[r] += n
-        if paged is not None:  # the engine's three runs: fault-free, crash, int8 pools
+        if paged is not None:  # the engine's runs: fault-free, crash, int8 pools, fp32 pools
             checks = paged["checks"]
-            runs = {"serve_paged": paged["launches"],
-                    "serve_paged crash": checks["crash_replay"]["launches"],
-                    "serve_paged int8": checks["int8_engine"]["launches"]}
-            for run, n in runs.items():
+            fp32 = checks["fp32_engine"]
+            runs = {"serve_paged": paged, "serve_paged crash": checks["crash_replay"],
+                    "serve_paged int8": checks["int8_engine"], "serve_paged fp32": fp32,
+                    "serve_paged fp32 crash": fp32["crash_replay"]}
+            for run, line in runs.items():
+                n = line["launches"]
                 by_path[f"{p.arch} {run}"] = n
                 paged_launches[f"{p.arch} {run}"] = n["flash_attention"]
                 launches_by_route["paged"] += n["flash_attention"]
-            for line in (paged, checks["crash_replay"], checks["int8_engine"]):
-                for f, n in line["attention_launches_by_form"].items():
-                    paged_forms[f] += n
+                for f, k in line["attention_launches_by_form"].items():
+                    paged_forms[f] += k
         for f, n in (*by_form.items(), *int8[2].items()):
             launches_by_form[f] += n
 
@@ -3956,6 +4678,27 @@ def main() -> int:
         torch.cuda.empty_cache()
         train_profiles.append(train_profile(tp, dev))
         torch.cuda.empty_cache()
+
+    # -- 3a. the MoE family on one card ---------------------------------------------
+    moe = serve_moe_phase(card, dev)
+    emit(moe)
+    engine = moe["engine"]
+    by_path[f"{MOE_ARCH} serve_moe"] = moe["fixed_batch"]["launches"]
+    for r, n in moe["fixed_batch"]["attention_launches_by_route"].items():
+        launches_by_route[r] += n
+    for run, line in (("serve_moe engine", engine), ("serve_moe engine crash",
+                                                    engine["crash_replay"])):
+        by_path[f"{MOE_ARCH} {run}"] = line["launches"]
+        paged_launches[f"{MOE_ARCH} {run}"] = line["launches"]["flash_attention"]
+        launches_by_route["paged"] += line["launches"]["flash_attention"]
+        for f, n in line["attention_launches_by_form"].items():
+            paged_forms[f] += n
+    torch.cuda.empty_cache()
+    moe_train = train_moe_phase(card, dev)
+    train_lines.append(moe_train)
+    by_path[f"{MOE_ARCH} train_moe"] = moe_train["launches"]
+    launches_by_route["mma"] += moe_train["attention_launches_by_route"]["mma"]
+    torch.cuda.empty_cache()
 
     # -- 3b. the MiCS step over 4 ranks -------------------------------------------
     dist_line = dist_train_phase(card, dev, train_lines[0])
@@ -3994,6 +4737,17 @@ def main() -> int:
         paged_checks += paged_kernel_checks(gen, dev, flush, pg=DIST_SERVE, hkv=hkv,
                                             label=f"llama tp {tp} rank, dist_serve engine: ",
                                             dtypes=("bf16",))
+    # fp32 pools (the fma body) at serve_paged's pool; the MoE engine's heads
+    # (timed), then the other new models' heads (correctness only)
+    paged_checks += paged_kernel_checks(gen, dev, flush, dtypes=("fp32",), label="fp32 pools: ")
+    # and at the fp32 engine run's own pool (FP32_PAGED: 17 blocks a slot,
+    # another split plan), correctness only
+    paged_checks += paged_kernel_checks(gen, dev, flush, timed=False, pg=FP32_PAGED,
+                                        dtypes=("fp32",), label="fp32 engine pool: ")
+    for i, (name, hkv, g) in enumerate(NEW_ATTN_SHAPES):
+        paged_checks += paged_kernel_checks(gen, dev, flush, timed=i == 0, pg=MOE_PAGED,
+                                            hkv=hkv, g=g, dh=128, dtypes=("bf16",),
+                                            label=f"{name} (g {g}, dh 128): ")
     quantize_checks, dequantize_checks = quant_checks(gen, dev, flush)
 
     def entry(name, source, replaces, checks, by_path_n=None, **more):

@@ -1,0 +1,23 @@
+"""yi-9b — llama-architecture GQA dense decoder.
+
+[arXiv:2403.04652; hf:01-ai/Yi-9B]
+48L d_model=4096 32H (GQA kv=4) d_ff=11008 vocab=64000.
+"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="yi-9b",
+    family="dense",
+    n_layers=48,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=11008,
+    vocab=64000,
+    head_dim=128,
+    mlp="swiglu",
+    rope_theta=5_000_000.0,
+    max_seq=32768,
+    notes="full attention -> long_500k skipped",
+)

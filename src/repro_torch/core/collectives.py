@@ -630,3 +630,49 @@ def model_pmin(x: torch.Tensor, group: Group, *,
                counter: CommCounter | None = None) -> torch.Tensor:
     """The elementwise min of ``x`` over ``group``, without a gradient."""
     return all_reduce_(x.detach().contiguous().clone(), group, counter=counter, op="min")
+
+
+def _tiled_exchange(x: torch.Tensor, group: Group, to_owners: bool,
+                    counter: CommCounter | None) -> torch.Tensor:
+    """The reference's two tiled ``lax.all_to_all`` of expert parallelism
+    over a group of k members, built from the dim-0 :func:`all_to_all`:
+    ``to_owners`` (``split_axis=0, concat_axis=1``) takes ``[E, c, d]`` to
+    ``[E / k, k c, d]``, member j receiving experts ``j E / k ...`` of every
+    member, stacked in member order along dim 1; the other
+    (``split_axis=1, concat_axis=0``) is its inverse, ``[E / k, k c, d]``
+    back to ``[E, c, d]``."""
+    k = group.size
+    if to_owners:
+        e, c = x.shape[:2]
+        out, _ = all_to_all(x, group, counter=counter)          # [k, E / k, c, d] by member
+        return out.reshape(k, e // k, c, *x.shape[2:]).transpose(0, 1).reshape(
+            e // k, k * c, *x.shape[2:])
+    el, kc = x.shape[:2]
+    parts = x.reshape(el, k, kc // k, *x.shape[2:]).transpose(0, 1)  # [k, E / k, c, d]
+    out, _ = all_to_all(parts, group, counter=counter)
+    return out.reshape(k * el, kc // k, *x.shape[2:])
+
+
+class ModelAllToAll(torch.autograd.Function):
+    """The expert exchange over a model-axis group (:func:`_tiled_exchange`);
+    its backward is the reverse exchange of the cotangent (a permutation's
+    transpose is its inverse)."""
+
+    @staticmethod
+    def forward(ctx, x, group, to_owners, counter):
+        ctx.group, ctx.to_owners, ctx.counter = group, to_owners, counter
+        return _tiled_exchange(x, group, to_owners, counter)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (_tiled_exchange(ct.contiguous(), ctx.group, not ctx.to_owners, ctx.counter),
+                None, None, None)
+
+
+def model_all_to_all(x: torch.Tensor, group: Group, *, to_owners: bool,
+                     counter: CommCounter | None = None) -> torch.Tensor:
+    """:func:`_tiled_exchange` of ``x`` over ``group``; as
+    :class:`ModelAllToAll` when autograd records the call."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return ModelAllToAll.apply(x, group, to_owners, counter)
+    return _tiled_exchange(x, group, to_owners, counter)

@@ -453,6 +453,11 @@ class CommEngine:
         the reduce-scatter)."""
         return C.model_all_gather(x, self.groups.model, axis=axis, counter=self.counter)
 
+    def model_all_to_all(self, x: torch.Tensor, *, to_owners: bool) -> torch.Tensor:
+        """The expert exchange over the model group (``C.model_all_to_all``)."""
+        return C.model_all_to_all(x, self.groups.model, to_owners=to_owners,
+                                  counter=self.counter)
+
     def model_pmax(self, x: torch.Tensor) -> torch.Tensor:
         return C.model_pmax(x, self.groups.model, counter=self.counter)
 

@@ -63,8 +63,9 @@ SCORES_BF16_UNNEEDED = (
     "kernels never write the scores to HBM, so bf16 scores would save no traffic; the "
     "kernels keep fp32 scores")
 # Families the port trains on a CUDA device: each kernel their layers reach
-# has a hand-written backward (griffin's RG-LRU since slice 7).
-CUDA_TRAIN_FAMILIES = ("dense", "griffin")
+# has a hand-written backward (griffin's RG-LRU since slice 7; MoE layers
+# reach RMSNorm and flash attention, their experts are plain products).
+CUDA_TRAIN_FAMILIES = ("dense", "griffin", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,7 +219,8 @@ def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology, family: str = "dense",
     if device.type == "cuda" and family not in CUDA_TRAIN_FAMILIES:
         raise NotImplementedError(
             f"family {family!r} does not train on a CUDA device: the port trains "
-            f"{CUDA_TRAIN_FAMILIES} there (ROADMAP Queue 1 item 7, the other families)")
+            f"{CUDA_TRAIN_FAMILIES} there (vlm, encdec and xlstm wait for ROADMAP Queue 1 "
+            "item 7, the other families)")
     for name, (default, item) in UNPORTED_TRAIN.items():
         if getattr(mcfg, name) != default:
             raise NotImplementedError(

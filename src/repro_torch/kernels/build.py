@@ -76,10 +76,10 @@ SIGNATURES = {
     # part, o, b, tq, hkv, g, dh, nsplit, stream
     "flash_split_merge_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, ks (or NULL), vs (or NULL), tables, kvl (int64), part, o, b, tq,
-    # hkv, g, dh, bs, max_blocks, n_blocks, kv_int8, wgmma, nsplit, chunk, scale,
-    # stream
+    # hkv, g, dh, bs, max_blocks, n_blocks, kv_int8, body, q_fp32, nsplit, chunk,
+    # scale, stream
     "flash_paged_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _I, _F, _P),
+                           _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # a, b, h0 (or NULL), h, h_last (or NULL), starts (or NULL), summary (or
     # NULL), B, T, C, nchunks, chunk_len, is_bf16, stream
     "rglru_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -1,5 +1,7 @@
-// Flash attention over a paged KV pool, bf16 queries: the "paged" route, a
-// split-K kernel and the merge of its partials.
+// Flash attention over a paged KV pool: the "paged" route, a split-K kernel
+// and the merge of its partials; bf16 queries over bf16 or int8 pages
+// (the wgmma and mma bodies), bf16 or fp32 queries over fp32 pages (the fma
+// body, fp32 out).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py:86
 // (`flash_attention`) at the continuous-batching engine's call site
@@ -53,6 +55,10 @@
 //    the contiguous form (one block a request) is bitwise the paged one;
 //  * the merge sums a row's partials in the fixed order 0, 1, ..., so the
 //    output is bitwise repeatable.
+//  * "fma" body, fp32 pages (the exact, slow pool: Hopper has no fp32
+//    wgmma, and TF32 would miss fp32's tolerance): flash_attention.cu's
+//    arithmetic on CUDA cores through the table, the same blocks, skips,
+//    partials and merge; its bound is the same bytes at 4 bytes a value.
 // Partials: fp32 [b, hkv, nsplit, tq * g, dh + 2], (m, l, acc) per row,
 // written only for (live row, split) pairs with keys.
 #include <limits.h>
@@ -542,18 +548,146 @@ flash_paged_mma_kernel(const bf16* __restrict__ q, const void* __restrict__ kp,
 }
 
 // ---------------------------------------------------------------------------
+// the fma body: fp32 pages, bf16 or fp32 queries, any head dim
+// ---------------------------------------------------------------------------
+// The "fma" route's arithmetic (flash_attention.cu) through the block table:
+// a row is owned by TPR threads of DPT dims each (dh / TPR <= 32), q
+// pre-scaled and rounded to its own type, fp32 dot products, the online
+// softmax in expf; K and V tiles of BK keys staged in shared memory as fp32
+// rows padded by one float (no bank conflicts across a row's threads).  The
+// blocks, skips and partials are the other bodies': a block a (split, FR
+// packed rows, batch row, KV head), idle rows write nothing.
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
+
+template <int DH>
+struct FmaCfg {
+  static constexpr int TPR = DH >= 64 ? DH / 32 : 1;  // threads a query row
+  static constexpr int DPT = DH / TPR;                // dims a thread
+  static constexpr int FR = fa::kThreads / TPR;       // packed rows a block
+  static constexpr int BK = 2048 / DH;                // keys a shared-memory tile
+  static constexpr int LD = DH + 1;
+};
+
+template <int DH, typename TQ>
+__global__ void __launch_bounds__(fa::kThreads)
+flash_paged_fma_kernel(const TQ* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const int* __restrict__ tables,
+                       const long long* __restrict__ kvl, float* __restrict__ part, int tq,
+                       int hkv, int g, int bs, int max_blocks, int chunk, float scale) {
+  using C = FmaCfg<DH>;
+  constexpr int TPR = C::TPR, DPT = C::DPT, BK = C::BK, LD = C::LD;
+  __shared__ float Ks[BK * LD], Vs[BK * LD];
+  __shared__ int red[fa::kThreads / 32];
+
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int bh = blockIdx.z, b = bh / hkv, h = bh % hkv;
+  const int rows = tq * g;
+  const int c0 = split * chunk, c1 = min(c0 + chunk, max_blocks * bs);
+  const int t = threadIdx.x, part_i = t % TPR;
+  const int gr = blockIdx.y * C::FR + t / TPR;
+  const bool in = gr < rows;
+  const int pos = in ? gr / g : 0, head = in ? gr % g : 0;
+  const int hi = in ? max(c0, min(c1, length_at(kvl, static_cast<int64_t>(b) * tq + pos))) : c0;
+  const int wmax = __reduce_max_sync(0xffffffffu, hi);
+  if ((t & 31) == 0) red[t >> 5] = wmax;
+  __syncthreads();
+  int kend = red[0];
+#pragma unroll
+  for (int w = 1; w < fa::kThreads / 32; ++w) kend = max(kend, red[w]);
+  if (kend <= c0) return;  // every row dead or past this chunk: no load, no write
+
+  const int* table = tables + static_cast<int64_t>(b) * max_blocks;
+  const int64_t q_base =
+      ((static_cast<int64_t>(b) * tq + pos) * hkv + h) * g * DH + static_cast<int64_t>(head) * DH;
+  float qr[DPT], acc[DPT];
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) {
+    const float qv = in ? to_f(q[q_base + i * TPR + part_i]) : 0.f;
+    qr[i] = to_f(from_f<TQ>(qv * scale));  // pre-scale, round to q's type
+    acc[i] = 0.f;
+  }
+  float m = fa::kNegInf, l = 0.f;
+
+  constexpr int VPR = DH / 4;  // float4 loads a key row
+  for (int k0 = c0; k0 < kend; k0 += BK) {
+    __syncthreads();  // the previous tile has been consumed
+    for (int idx = t; idx < BK * VPR; idx += fa::kThreads) {
+      const int jj = idx / VPR, c = (idx % VPR) * 4;
+      const int j = k0 + jj;
+      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
+      if (j < kend) {
+        const int64_t row = static_cast<int64_t>(table[j / bs]) * bs + j % bs;
+        const int64_t off = (row * hkv + h) * DH + c;
+        kv4 = *reinterpret_cast<const float4*>(k + off);
+        vv4 = *reinterpret_cast<const float4*>(v + off);
+      }
+      float* kd = Ks + jj * LD + c;
+      float* vd = Vs + jj * LD + c;
+      kd[0] = kv4.x, kd[1] = kv4.y, kd[2] = kv4.z, kd[3] = kv4.w;
+      vd[0] = vv4.x, vd[1] = vv4.y, vd[2] = vv4.z, vd[3] = vv4.w;
+    }
+    __syncthreads();
+    for (int jj = 0; jj < BK; ++jj) {
+      const float* kr = Ks + jj * LD;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < DPT; ++i) s += qr[i] * kr[i * TPR + part_i];
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (k0 + jj < hi) {  // the row's keys in this chunk: [c0, hi)
+        if (s > m) {
+          const float a = expf(m - s);
+          l *= a;
+#pragma unroll
+          for (int i = 0; i < DPT; ++i) acc[i] *= a;
+          m = s;
+        }
+        const float p = expf(s - m);
+        l += p;
+        const float* vr = Vs + jj * LD;
+#pragma unroll
+        for (int i = 0; i < DPT; ++i) acc[i] += p * vr[i * TPR + part_i];
+      }
+    }
+  }
+  if (hi <= c0) return;  // an idle row: its partial is never read
+  float* dst = part + ((static_cast<int64_t>(bh) * nsplit + split) * rows + gr) * (DH + 2);
+  if (part_i == 0) {
+    dst[0] = m;
+    dst[1] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < DPT; ++i) dst[2 + i * TPR + part_i] = acc[i];
+}
+
+// ---------------------------------------------------------------------------
 // the merge
 // ---------------------------------------------------------------------------
 constexpr int kMergeRows = 8;  // a warp a packed row
+
+__device__ __forceinline__ void store2(bf16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
 
 // Row r of request b combines the partials of the splits its keys reach
 // (s chunk < its valid length, cut to the capacity) in the fixed order 0,
 // 1, ...: o = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30), w_s = exp(m_s -
 // max m).  A dead row writes zeros and reads no partial.  A lane owns
 // columns 2 lane + 64 i (+ 1).
+template <typename TO>
 __global__ void __launch_bounds__(32 * kMergeRows)
 flash_paged_merge_kernel(const float* __restrict__ part, const long long* __restrict__ kvl,
-                         bf16* __restrict__ o, int tq, int hkv, int g, int dh, int nsplit,
+                         TO* __restrict__ o, int tq, int hkv, int g, int dh, int nsplit,
                          int chunk, int capacity) {
   const int lane = threadIdx.x & 31;
   const int rows = tq * g, r = blockIdx.x * kMergeRows + (threadIdx.x >> 5);
@@ -565,8 +699,8 @@ flash_paged_merge_kernel(const float* __restrict__ part, const long long* __rest
   const int64_t stride = static_cast<int64_t>(rows) * (dh + 2);  // split to split
   const float* base = part + (static_cast<int64_t>(b) * hkv + h) * nsplit * stride +
                       static_cast<int64_t>(r) * (dh + 2);
-  bf16* dst = o + ((static_cast<int64_t>(b) * tq + pos) * hkv + h) * g * dh +
-              static_cast<int64_t>(head) * dh;
+  TO* dst = o + ((static_cast<int64_t>(b) * tq + pos) * hkv + h) * g * dh +
+            static_cast<int64_t>(head) * dh;
   float mx = fa::kNegInf;
   for (int s = 0; s < ns; ++s) mx = fmaxf(mx, base[s * stride]);
   for (int c = 2 * lane; c < dh; c += 64) {
@@ -581,8 +715,7 @@ flash_paged_merge_kernel(const float* __restrict__ part, const long long* __rest
       a1 += w * av.y;
     }
     const float den = fmaxf(lsum, 1e-30f);
-    *reinterpret_cast<__nv_bfloat162*>(dst + c) =
-        ns ? __floats2bfloat162_rn(a0 / den, a1 / den) : __floats2bfloat162_rn(0.f, 0.f);
+    store2(dst + c, ns ? a0 / den : 0.f, ns ? a1 / den : 0.f);
   }
 }
 
@@ -644,6 +777,28 @@ int launch_mma(const Launch& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH, typename TQ>
+int launch_fma(const Launch& a) {
+  const dim3 grid(a.nsplit, (a.tq * a.g + FmaCfg<DH>::FR - 1) / FmaCfg<DH>::FR, a.b * a.hkv);
+  flash_paged_fma_kernel<DH, TQ><<<grid, fa::kThreads, 0, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.tables, a.kvl, a.part, a.tq, a.hkv, a.g, a.bs,
+      a.max_blocks, a.chunk, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TQ>
+int launch_fma_dh(int dh, const Launch& a) {
+  switch (dh) {
+    case 16: return launch_fma<16, TQ>(a);
+    case 32: return launch_fma<32, TQ>(a);
+    case 64: return launch_fma<64, TQ>(a);
+    case 128: return launch_fma<128, TQ>(a);
+    case 256: return launch_fma<256, TQ>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <bool INT8>
 int launch_body(int dh, int wgmma, const Launch& a) {
   if (wgmma) {
@@ -663,33 +818,44 @@ int launch_body(int dh, int wgmma, const Launch& a) {
 
 }  // namespace
 
-// o [b, tq, hkv, g, dh] bf16: q [b, tq, hkv, g, dh] bf16 against the pages
-// k / v [n_blocks, bs, hkv, dh] (bf16, or int8 with fp32 scale pages ks / vs
-// [n_blocks, bs, hkv, ceil(dh / 128)]; NULL for bf16) through tables
-// [b, max_blocks] int32; row i of request b sees keys j < kvl[b, i] (int64
-// [b, tq]; 0: a dead row, whose o is zero).  part:
-// fp32 scratch [b, hkv, nsplit, tq * g, dh + 2].  nsplit * chunk covers
-// max_blocks * bs, chunk a multiple of 64.  `wgmma`: the wgmma body (dh 64,
-// 128) or the mma body (dh 16, 32, 256); then the merge.  All contiguous
-// and 16-byte aligned.
+// o [b, tq, hkv, g, dh]: q [b, tq, hkv, g, dh] against the pages k / v
+// [n_blocks, bs, hkv, dh] through tables [b, max_blocks] int32; row i of
+// request b sees keys j < kvl[b, i] (int64 [b, tq]; 0: a dead row, whose o
+// is zero).  `body`: 0 the mma body (dh 16, 32, 256) and 1 the wgmma body
+// (dh 64, 128), both over bf16 pages, or int8 ones with fp32 scale pages ks /
+// vs [n_blocks, bs, hkv, ceil(dh / 128)] (`kv_int8`; NULL otherwise), bf16 q
+// and o; 2 the fma body over fp32 pages, q bf16 or fp32 (`q_fp32`), o fp32.
+// part: fp32 scratch [b, hkv, nsplit, tq * g, dh + 2].  nsplit * chunk
+// covers max_blocks * bs, chunk a multiple of 64.  Then the merge.  All
+// contiguous and 16-byte aligned.
 extern "C" int flash_paged_launch(const void* q, const void* k, const void* v, const void* ks,
                                   const void* vs, const void* tables, const void* kvl,
                                   void* part, void* o, int b, int tq, int hkv, int g, int dh,
-                                  int bs, int max_blocks, int n_blocks, int kv_int8, int wgmma,
-                                  int nsplit, int chunk, float scale, void* stream) {
-  const int row_blocks = (tq * g + kRows - 1) / kRows;
+                                  int bs, int max_blocks, int n_blocks, int kv_int8, int body,
+                                  int q_fp32, int nsplit, int chunk, float scale, void* stream) {
+  // packed rows a block: kRows, or the fma body's FmaCfg<dh>::FR
+  const int fr = body != 2 ? kRows : dh >= 64 ? fa::kThreads * 32 / dh : fa::kThreads;
+  const int row_blocks = (tq * g + fr - 1) / fr;
   if (b > 65535 || hkv > 65535 || static_cast<int64_t>(b) * hkv > 65535 ||
-      row_blocks > 65535 || nsplit < 1 || chunk % kKeys)
+      row_blocks > 65535 || nsplit < 1 || chunk % kKeys || (body == 2 && kv_int8))
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const Launch a{q, k, v, static_cast<const float*>(ks), static_cast<const float*>(vs),
                  static_cast<const int*>(tables), static_cast<const long long*>(kvl),
                  static_cast<float*>(part), b, tq, hkv, g,
                  bs, max_blocks, n_blocks, nsplit, chunk, scale,
                  reinterpret_cast<cudaStream_t>(stream)};
-  const int err = kv_int8 ? launch_body<true>(dh, wgmma, a) : launch_body<false>(dh, wgmma, a);
+  int err;
+  if (body == 2)
+    err = q_fp32 ? launch_fma_dh<float>(dh, a) : launch_fma_dh<bf16>(dh, a);
+  else
+    err = kv_int8 ? launch_body<true>(dh, body, a) : launch_body<false>(dh, body, a);
   if (err) return err;
   const dim3 grid((tq * g + kMergeRows - 1) / kMergeRows, hkv, b);
-  flash_paged_merge_kernel<<<grid, 32 * kMergeRows, 0, a.stream>>>(
-      a.part, a.kvl, static_cast<bf16*>(o), tq, hkv, g, dh, nsplit, chunk, max_blocks * bs);
+  if (body == 2)
+    flash_paged_merge_kernel<float><<<grid, 32 * kMergeRows, 0, a.stream>>>(
+        a.part, a.kvl, static_cast<float*>(o), tq, hkv, g, dh, nsplit, chunk, max_blocks * bs);
+  else
+    flash_paged_merge_kernel<bf16><<<grid, 32 * kMergeRows, 0, a.stream>>>(
+        a.part, a.kvl, static_cast<bf16*>(o), tq, hkv, g, dh, nsplit, chunk, max_blocks * bs);
   return static_cast<int>(cudaGetLastError());
 }

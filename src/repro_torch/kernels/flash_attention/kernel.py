@@ -20,14 +20,15 @@ length 0 is dead and its output exactly zero), the ``"paged"`` route of
 :func:`paged_attention`: split-K partials over a paged KV pool read
 through a block table, one block a (split, 64 packed rows, batch row, KV
 head), then a merge that reads each live row's splits and zeroes the dead
-ones (``kernels/csrc/flash_attention_paged.cu``, bf16 queries over bf16 or
-int8 pages, on the plan of :func:`plan_paged_splits`).  Its body follows
-the head dim (:func:`paged_body`): ``wgmma`` (warpgroup tensor cores, keys
-by TMA through the table) at 64 and 128, ``mma`` (``mma.sync``) at the
-others.  A contiguous ``[b, tk, hkv, dh]`` cache is the pool of ``b``
-blocks of ``tk`` keys with the table ``[[0], [1], ...]``, so the
-contiguous and the paged engine steps run the same kernel on the same
-plan.  fp32 pools take no CUDA route yet (:func:`paged_route` raises).
+ones (``kernels/csrc/flash_attention_paged.cu``, on the plan of
+:func:`plan_paged_splits`).  Its body (:func:`paged_body`) follows the
+pages and the head dim: over bf16 or int8 pages (bf16 queries) ``wgmma``
+(warpgroup tensor cores, keys by TMA through the table) at 64 and 128,
+``mma`` (``mma.sync``) at the others; over fp32 pages (bf16 or fp32
+queries, fp32 out) ``fma`` on CUDA cores.  A contiguous ``[b, tk, hkv,
+dh]`` cache is the pool of ``b`` blocks of ``tk`` keys with the table
+``[[0], [1], ...]``, so the contiguous and the paged engine steps run the
+same kernel on the same plan.
 
 A CPU tensor takes :func:`attention_plain` (:func:`paged_attention_plain`
 for the paged route).  Nothing is caught and retried: a build or launch
@@ -76,7 +77,8 @@ SPLIT_MAX_ROWS = 16      # one mma tile of packed query rows
 SPLIT_MIN_CHUNK = 32     # keys; a chunk is a multiple of 16
 SPLIT_BLOCKS_PER_SM = 2  # the split plan's target
 PAGED_KEYS = 64          # keys a paged key tile; a paged chunk is a multiple of it
-PAGED_BODIES = ("wgmma", "mma")
+PAGED_BODIES = ("wgmma", "mma", "fma")
+_PAGED_BODY_ARG = {"mma": 0, "wgmma": 1, "fma": 2}   # flash_paged_launch's `body`
 PAGED_WGMMA_HEAD_DIMS = (64, 128)
 
 BWD_ROUTES = ("wgmma", "wgmma256", "mma", "fma")
@@ -103,25 +105,24 @@ launches_bwd_by_route = dict.fromkeys(BWD_ROUTES, 0)
 launches_paged_by_form = {f"paged:{body}": 0 for body in PAGED_BODIES}
 
 
-FP32_POOLS_TODO = (
-    "fp32 KV pools (and fp32 queries) take no CUDA route of flash attention's paged kernel "
-    "yet: ROADMAP Queue 1 item 6, 'fp32 KV pools on the card'; serve from bf16 or int8 pools")
-
-
 def paged_route(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
-    """The CUDA route for per-row valid lengths: ``"paged"`` for bf16
-    queries over bf16 or int8 pages; fp32 raises ``NotImplementedError``."""
-    if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8):
+    """The CUDA route for per-row valid lengths, ``"paged"``: bf16 queries
+    over bf16 or int8 pages, and bf16 or fp32 queries over fp32 pages (the
+    reference keeps fp32 pages fp32 and promotes the query).  fp32 queries
+    over bf16 or int8 pages have no route (``TypeError``)."""
+    if (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)) or (
+            q_dtype in _DTYPES and kv_dtype == torch.float32):
         return "paged"
-    if torch.float32 in (q_dtype, kv_dtype):
-        raise NotImplementedError(FP32_POOLS_TODO)
     raise TypeError(f"paged attention has no route for q {q_dtype} over {kv_dtype} pages")
 
 
-def paged_body(dh: int) -> str:
-    """The ``paged`` route's kernel body for head dim ``dh``: ``"wgmma"``
-    at ``PAGED_WGMMA_HEAD_DIMS`` (a tile row is one or two 128-byte TMA
-    halves), ``"mma"`` at the other head dims."""
+def paged_body(dh: int, kv_dtype: torch.dtype = torch.bfloat16) -> str:
+    """The ``paged`` route's kernel body for head dim ``dh`` over pages of
+    ``kv_dtype``: ``"fma"`` (CUDA cores, fp32 out) for fp32 pages; else
+    ``"wgmma"`` at ``PAGED_WGMMA_HEAD_DIMS`` (a tile row is one or two
+    128-byte TMA halves) and ``"mma"`` at the other head dims."""
+    if kv_dtype == torch.float32:
+        return "fma"
     return "wgmma" if dh in PAGED_WGMMA_HEAD_DIMS else "mma"
 
 
@@ -519,7 +520,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     zero.  CUDA: the ``paged`` route (:func:`paged_route`), body
     :func:`paged_body`, on the plan of :func:`plan_paged_splits` over the
     capacity ``max_blocks * block_size``, then its merge; CPU:
-    :func:`paged_attention_plain`.  -> [b, tq, hkv, g, dh] in q's type."""
+    :func:`paged_attention_plain`.  -> [b, tq, hkv, g, dh] in q's type,
+    fp32 over fp32 pages (the promoted type)."""
     global launches
     _check_paged(q, k_pages, v_pages, tables, k_scale, v_scale)
     b, tq, hkv, g, dh = q.shape
@@ -530,7 +532,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     r = paged_route(q.dtype, k_pages.dtype)
-    body = paged_body(dh)
+    body = paged_body(dh, k_pages.dtype)
     mb, bs = tables.shape[1], k_pages.shape[1]
     int8 = k_pages.dtype == torch.int8
     if body == "wgmma" and int8 and mb > 1 and math.gcd(bs, PAGED_KEYS) * dh % 128:
@@ -540,7 +542,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     kvl = kvl.to(torch.int64).contiguous()  # the engine's lengths go in as they are
     scales = (k_scale, v_scale) if k_scale is not None else ()
     _cuda_ready(q, k_pages, v_pages, tables, kvl, *scales)
-    o = torch.empty_like(q)
+    o = torch.empty_like(q, dtype=torch.promote_types(q.dtype, k_pages.dtype)
+                         if body == "fma" else q.dtype)
     if b == 0 or tq == 0 or hkv == 0 or g == 0:
         return o
     nsplit, chunk = plan_paged_splits(b, hkv, mb * bs, sms=K.sm_count(q.get_device()))
@@ -550,8 +553,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     err = K.library().flash_paged_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale), ptr(v_scale),
         tables.data_ptr(), kvl.data_ptr(), part.data_ptr(), o.data_ptr(), b, tq, hkv, g, dh,
-        bs, mb, k_pages.shape[0], int(int8), int(body == "wgmma"), nsplit, chunk,
-        1.0 / math.sqrt(dh), _stream(q))
+        bs, mb, k_pages.shape[0], int(int8), _PAGED_BODY_ARG[body],
+        int(q.dtype == torch.float32), nsplit, chunk, 1.0 / math.sqrt(dh), _stream(q))
     K.check(err, f"flash_attention (paged, {body})")
     launches += 1
     launches_by_route[r] += 1

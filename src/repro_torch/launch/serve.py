@@ -11,6 +11,9 @@ resilient continuous-batching engine.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --smoke --device cpu --decode-tokens 4 --quant-gather  # stored int8 weights
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
+      --smoke --device cpu --decode-tokens 4         # MoE: 8 experts, top-2
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --smoke --device cpu --continuous --requests 8 --max-queue 6 \\
       --deadline-ms 2000 --shed-policy degrade --fault-plan crash@6
@@ -40,8 +43,9 @@ plan's world changes have ranks to lose and to win back; a plan whose world
 would leave the launch world (fewer than one rank, more than it has) is
 refused before anything runs.  Rank 0 prints the warm tick, the served
 counts and tokens/s, the request-lifecycle ledger, the world changes and
-crashes and the ladder transitions.  The dense family only: griffin's
-windowed and recurrent caches are not paged.  ``--policy auto`` needs the
+crashes and the ladder transitions.  The engine serves the dense and MoE
+families (griffin's windowed and recurrent caches are not paged); an MoE
+model's dead rows take no expert slot.  ``--policy auto`` needs the
 link-model autotuner (ROADMAP Queue 1 item 8) and is refused.
 """
 
@@ -189,7 +193,7 @@ def main(argv=None):
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="[--continuous] requests a tick offered (0 = all at tick 0)")
     ap.add_argument("--kv-dtype", choices=["fp32", "bf16", "int8"], default="bf16",
-                    help="[--continuous] paged-KV storage dtype (fp32 pools: CPU only)")
+                    help="[--continuous] paged-KV storage dtype")
     ap.add_argument("--kv-block-size", type=int, default=16,
                     help="[--continuous] paged-KV block size in token positions")
     ap.add_argument("--continuous", action="store_true",

@@ -1,4 +1,4 @@
-"""Dense transformer layer (the port of the dense part of
+"""Dense and MoE transformer layers (the port of the dense and MoE parts of
 ``repro/models/blocks.py``).
 
 Each sub-block provides ``*_layout(cfg, tp, b)`` (appends its segments to a
@@ -225,13 +225,14 @@ def apply_norm(cfg: ArchConfig, t, x, name: str):
     return L.rms_norm(x, t[name + ".scale"])
 
 
-def mlp_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = "mlp."):
+def mlp_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = "mlp.",
+               d_ff: int | None = None):
     d = cfg.d_model
-    f_local = shard_dim(cfg.d_ff, tp, "d_ff")
+    f = d_ff or cfg.d_ff
+    f_local = shard_dim(f, tp, "d_ff")
     b.add(prefix + "wg", (d, f_local), std=1.0 / math.sqrt(d))
     b.add(prefix + "wu", (d, f_local), std=1.0 / math.sqrt(d))
-    b.add(prefix + "wd", (f_local, d),
-          std=1.0 / math.sqrt(cfg.d_ff) / math.sqrt(2 * cfg.n_layers))
+    b.add(prefix + "wd", (f_local, d), std=1.0 / math.sqrt(f) / math.sqrt(2 * cfg.n_layers))
 
 
 def mlp_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, prefix: str = "mlp."):
@@ -278,3 +279,165 @@ def dense_layer_apply(cfg: ArchConfig, ad: AttnDims, t, x, ctx: L.Ctx,
     h = apply_norm(cfg, tt, x, "ln2")
     x = x + mlp_apply(cfg, tt, h, ctx, "mlp.")
     return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MoE layer (deepseek-moe / dbrx)
+# ---------------------------------------------------------------------------
+
+def moe_layer_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = ""):
+    pb = LayoutBuilder(prefix)
+    norm_layout(cfg, tp, pb, "ln1")
+    attn_layout(cfg, tp, pb, "attn.", bias=cfg.qkv_bias)
+    norm_layout(cfg, tp, pb, "ln2")
+    d, f = cfg.d_model, cfg.d_ff
+    e_local = shard_dim(cfg.n_experts, tp, "n_experts")
+    std = 1.0 / math.sqrt(d)
+    dstd = 1.0 / math.sqrt(f) / math.sqrt(2 * cfg.n_layers)
+    pb.add("router.w", (d, e_local), std=std, model_gather=tp, model_gather_dim=1)
+    pb.add("moe.wg", (e_local, d, f), std=std)
+    pb.add("moe.wu", (e_local, d, f), std=std)
+    pb.add("moe.wd", (e_local, f, d), std=dstd)
+    if cfg.n_shared_experts:
+        mlp_layout(cfg, tp, pb, "shared.", d_ff=cfg.n_shared_experts * f)
+    b.extend(pb)
+
+
+def moe_capacity(n: int, cfg: ArchConfig) -> int:
+    """Slots an expert for ``n`` tokens: ``ceil(n k / E * capacity_factor)``
+    rounded up to a multiple of 4, at least 4 (the reference's
+    expression, float for float)."""
+    cap = int(math.ceil(n * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return max(4, ((cap + 3) // 4) * 4)
+
+
+def moe_route(x2d: torch.Tensor, router_w: torch.Tensor, cfg: ArchConfig,
+              live: torch.Tensor | None = None):
+    """The router of ``n`` tokens: fp32 softmax over the experts, the top-k
+    picks with their gates renormalised over the k, and each assignment's
+    slot in its expert (``pos_in_e``: the assignments before it, token-major,
+    to the same expert).  ``live`` [n] bool: rows outside it (the engine's
+    dead rows) take no slot and are never kept.  Returns ``(probs [n, E],
+    gate_vals [n, k], gate_idx [n, k], pos_in_e [n k], keep [n k] bool,
+    cap)``."""
+    n = x2d.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    cap = moe_capacity(n, cfg)
+    probs = torch.softmax((x2d @ router_w).float(), dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    flat_e = gate_idx.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat_e, e)
+    live_k = None if live is None else live.repeat_interleave(k)
+    if live_k is not None:
+        onehot = onehot * live_k[:, None]
+    pos_in_e = (torch.cumsum(onehot, 0) - onehot).gather(1, flat_e[:, None])[:, 0]
+    keep = pos_in_e < cap if live_k is None else (pos_in_e < cap) & live_k
+    return probs, gate_vals, gate_idx, pos_in_e, keep, cap
+
+
+def _moe_dispatch_tokens(x2d: torch.Tensor, t, cfg: ArchConfig, ctx: L.Ctx,
+                         live: torch.Tensor | None = None):
+    """GShard-style capacity dispatch with expert parallelism over the
+    model group (``repro/models/blocks.py::_moe_dispatch_tokens``).
+    x2d [n, d] -> (out [n, d], aux fp32 scalar).
+
+    The kept assignments go to their unique (expert, slot) rows of a
+    ``[E, cap + 1, d]`` buffer whose extra row per expert takes the dropped
+    (and dead) ones and is cut off, so the scatter's and the combine's
+    meaningful rows each see one assignment: no sum whose order could vary,
+    and the recompute routes and sums as the forward did."""
+    n, d = x2d.shape
+    e, k = cfg.n_experts, cfg.top_k
+    probs, gate_vals, gate_idx, pos_in_e, keep, cap = moe_route(x2d, t["router.w"], cfg, live)
+    flat_e = gate_idx.reshape(-1)
+    slot = flat_e * (cap + 1) + torch.where(keep, pos_in_e, cap)
+    tok = x2d.repeat_interleave(k, dim=0)
+    buf = x2d.new_zeros((e * (cap + 1), d)).index_copy(0, slot, tok)
+    buf = buf.view(e, cap + 1, d)[:, :cap]
+    if ctx.tp > 1:      # ship expert slabs to their owner ranks
+        buf = ctx.comm.model_all_to_all(buf.contiguous(), to_owners=True)
+    h = torch.nn.functional.silu(torch.bmm(buf, t["moe.wg"])) * torch.bmm(buf, t["moe.wu"])
+    out = torch.bmm(h, t["moe.wd"])                      # [E_local, tp cap, d]
+    if ctx.tp > 1:
+        out = ctx.comm.model_all_to_all(out, to_owners=False)
+    picked = torch.nn.functional.pad(out, (0, 0, 0, 1)).reshape(e * (cap + 1), d)
+    picked = picked.index_select(0, slot)                # [n k, d]; dropped: zeros
+    w = (gate_vals.reshape(-1) * keep).to(picked.dtype)
+    y = torch.sum((picked * w[:, None]).reshape(n, k, d), dim=1)
+    # switch-style load-balance loss (top-1)
+    me = torch.mean(probs, dim=0)
+    ce = torch.mean(torch.nn.functional.one_hot(gate_idx[:, 0], e).float(), dim=0)
+    return y, e * torch.sum(me * ce)
+
+
+def moe_chunk(n: int) -> int:
+    """Tokens a dispatch: 4096, 2048 or 1024 where ``n`` is larger and a
+    multiple of it, else ``n``."""
+    for cand in (4096, 2048, 1024):
+        if n > cand and n % cand == 0:
+            return cand
+    return n
+
+
+def _live_rows(x: torch.Tensor, ctx: L.Ctx) -> torch.Tensor | None:
+    """The engine's live rows of ``x`` [b, s, d] as [b s] bool (rows past
+    a slot's ``n_new`` are dead), None where every row is a token."""
+    pages = ctx.pages
+    if ctx.mode != "decode" or pages is None or pages.n_new is None:
+        return None
+    s = x.shape[1]
+    live = torch.arange(s, device=x.device)[None, :] < pages.n_new.to(x.device)[:, None]
+    return live.reshape(-1)
+
+
+def moe_ffn(t, x: torch.Tensor, cfg: ArchConfig, ctx: L.Ctx):
+    """Token-parallel MoE (``repro/models/blocks.py::moe_ffn``): at tp > 1
+    each model rank routes its 1/tp of the tokens, the outputs are gathered
+    over the model group (the adjoint a reduce-scatter) and aux is the
+    model group's mean; fewer tokens than ranks, or a count tp does not
+    divide (decode), take the replicated path, the exchange kept.  Chunks
+    of :func:`moe_chunk` tokens dispatch one at a time.  aux is scaled by
+    ``chunk / n`` twice, as the reference does (ROADMAP Queue 3).  The
+    engine's dead rows (:func:`_live_rows`) take no expert slot; the
+    capacity is still that of all ``n`` rows."""
+    b, s, d = x.shape
+    n = b * s
+    tp = ctx.tp
+    x2d = x.reshape(n, d)
+    live = _live_rows(x, ctx)
+    shard_tokens = tp > 1 and n % tp == 0 and n >= tp
+    if shard_tokens:
+        n = n // tp
+        lo = ctx.tp_index() * n
+        x2d = x2d[lo:lo + n]
+        live = None if live is None else live[lo:lo + n]
+    chunk = moe_chunk(n)
+    ys, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, n, chunk):
+        yc, a = _moe_dispatch_tokens(x2d[c0:c0 + chunk], t, cfg, ctx,
+                                     None if live is None else live[c0:c0 + chunk])
+        ys.append(yc)
+        aux = aux + a
+    aux = aux * (chunk / n)
+    y = torch.cat(ys) if len(ys) > 1 else ys[0]
+    if shard_tokens:
+        y = ctx.comm.model_all_gather(y, axis=0)
+        aux = ctx.comm.model_psum(aux) / tp
+    out = y.reshape(b, s, d)
+    if cfg.n_shared_experts:
+        out = out + mlp_apply(cfg, t, x, ctx, "shared.")
+    return out, aux * (chunk / n)
+
+
+def moe_layer_apply(cfg: ArchConfig, ad: AttnDims, t, x, ctx: L.Ctx, cache=None,
+                    prefix: str = ""):
+    tt = strip_prefix(t, prefix)
+    h = apply_norm(cfg, tt, x, "ln1")
+    a, new_cache = self_attention(
+        tt, h, ctx, ad, cfg, prefix="attn.", causal=True,
+        use_rope=cfg.use_rope, bias=cfg.qkv_bias, cache=cache)
+    x = x + a
+    h = apply_norm(cfg, tt, x, "ln2")
+    y, aux = moe_ffn(tt, h, cfg, ctx)
+    return (x + y, aux), new_cache

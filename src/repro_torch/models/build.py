@@ -1,6 +1,6 @@
-"""Model registry: ArchConfig -> ModelDef (the port of the dense and griffin
-parts of ``repro/models/build.py``).  Other families raise
-``NotImplementedError``."""
+"""Model registry: ArchConfig -> ModelDef (the port of the dense, griffin
+and MoE parts of ``repro/models/build.py``) and the parameter counts.
+Other families raise ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -43,14 +43,14 @@ def _wrap(apply):
 
 
 def build_model(cfg: ArchConfig, tp: int) -> ModelDef:
-    if cfg.family not in ("dense", "griffin"):
+    if cfg.family not in ("dense", "griffin", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port builds the dense and griffin "
-            "families so far")
+            f"family {cfg.family!r}: the port builds the dense, griffin and MoE families "
+            "so far (vlm, encdec and xlstm: ROADMAP Queue 1 item 7)")
     if cfg.norm != "rms" or cfg.mlp not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"norm {cfg.norm!r} / mlp {cfg.mlp!r}: the port builds RMSNorm + "
-            "SwiGLU / GeGLU layers so far")
+            "SwiGLU / GeGLU layers so far (LayerNorm and GeLU: ROADMAP Queue 1 item 7)")
     ad = attn_dims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, tp)
     vocab_padded = pad_to_tp(cfg.vocab, tp)
     if cfg.family == "dense":
@@ -62,6 +62,14 @@ def build_model(cfg: ArchConfig, tp: int) -> ModelDef:
             "layers", b.build(), cfg.n_layers, apply,
             make_cache=lambda bsz, clen, dtype, device: B.make_kv_cache(
                 cfg, tp, bsz, clen, window=cfg.window, dtype=dtype, device=device)),)
+    elif cfg.family == "moe":
+        b = LayoutBuilder()
+        B.moe_layer_layout(cfg, tp, b)
+        pools = (Pool(
+            "layers", b.build(), cfg.n_layers,
+            lambda t, x, ctx, cache: B.moe_layer_apply(cfg, ad, t, x, ctx, cache),
+            make_cache=lambda bsz, clen, dtype, device: B.make_kv_cache(
+                cfg, tp, bsz, clen, dtype=dtype, device=device)),)
     else:
         pattern = cfg.pattern or ("rec", "rec", "attn")
         n_super, rem = divmod(cfg.n_layers, len(pattern))
@@ -116,7 +124,24 @@ def _griffin_pool(cfg: ArchConfig, tp: int, ad: AttnDims, pattern, stack: int,
 
 
 @functools.lru_cache(maxsize=None)
+def _counts(cfg: ArchConfig) -> tuple[int, int]:
+    """(total, active) parameters: an expert segment (``moe.*``) counts
+    ``top_k / n_experts`` of its size as active (rounded down per pool, as
+    the reference)."""
+    total = active = 0
+    for pool in build_model(cfg, tp=1).all_pools():
+        for seg in pool.layout.segments:
+            n = seg.size * pool.stack
+            total += n
+            active += (int(n * cfg.top_k / max(cfg.n_experts, 1))
+                       if seg.name.startswith("moe.") else n)
+    return total, active
+
+
 def exact_param_count(cfg: ArchConfig) -> int:
-    model = build_model(cfg, tp=1)
-    return sum(seg.size * pool.stack
-               for pool in model.all_pools() for seg in pool.layout.segments)
+    return _counts(cfg)[0]
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """The parameters a token runs through (MoE: k of the E experts)."""
+    return _counts(cfg)[1]

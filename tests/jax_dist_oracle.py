@@ -266,6 +266,28 @@ def tp_layers() -> dict:
             def fn(logits, ctx=ctx):
                 return (lm.greedy_sample(logits[:, None, :], ctx, K.VR)[:, 0],)
             keys = ("ids",)
+        elif kind.startswith("moe"):
+            layout, tp = K.moe_case_tp(name)
+            ctx = L.Ctx(mode="train", tp=tp, tp_axis=MODEL_AXIS, compute_dtype=jnp.float32)
+            if name.startswith("moe_a2a"):
+                def fn(x, ct):
+                    y, vjp = jax.vjp(lambda v: jax.lax.all_to_all(
+                        v, MODEL_AXIS, split_axis=0, concat_axis=1, tiled=True), x)
+                    return y, vjp(ct)[0]
+                keys = ("out", "grad")
+            else:
+                cfg = smoke_variant(get_config("deepseek-moe-16b"))
+                names = list(K.MOE_CUT)
+
+                def fn(ctx=ctx, cfg=cfg, names=names, **kw):
+                    def f(x, *ws):
+                        return blocks.moe_ffn(dict(zip(names, ws)), x, cfg, ctx)
+                    (y, aux), vjp = jax.vjp(f, kw["x"], *(kw[n] for n in names))
+                    return (y, aux, *vjp((kw["ct"], jnp.float32(1.0))))
+                keys = ("out", "aux", "d_x", *(f"d_{n}" for n in names))
+            res = per_rank(topology(layout), fn, ins, len(keys))
+            out.update({f"{name}.{k}": v for k, v in zip(keys, res)})
+            continue
         else:
             raise KeyError(name)
         res = per_rank(topo, fn, ins, len(keys))

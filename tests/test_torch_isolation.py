@@ -136,11 +136,10 @@ def test_later_slices_raise():
         resize_for_serve_world(MiCSConfig(hbm_budget_gb=40.0), 2, available=4)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         build_serve_steps(llama, MiCSTopology(), MiCSConfig(policy="auto"), 24, device="cpu")
-    # fp32 KV pools (and fp32 queries) take no CUDA route of the paged kernel
-    with pytest.raises(NotImplementedError, match="fp32 KV pools on the card"):
-        paged_route(torch.bfloat16, torch.float32)
-    with pytest.raises(NotImplementedError, match="fp32 KV pools on the card"):
-        paged_route(torch.float32, torch.float32)
+    # fp32 KV pools take the paged route (its fma body) under bf16 and fp32
+    # queries: the refusal of them is gone
+    assert paged_route(torch.bfloat16, torch.float32) == "paged"
+    assert paged_route(torch.float32, torch.float32) == "paged"
     # the paged engine serves the dense family only (griffin's caches are
     # windowed and recurrent), and the kv settings are validated
     with pytest.raises(NotImplementedError, match="window"):

@@ -17,7 +17,8 @@ from repro_torch.core.mics import init_params  # noqa: E402
 from repro_torch.models.build import build_model  # noqa: E402
 from repro_torch.models.dims import attn_dims  # noqa: E402
 
-ARCHS = ("llama3.2-1b", "recurrentgemma-2b")
+ARCHS = ("llama3.2-1b", "recurrentgemma-2b", "granite-8b", "yi-9b", "qwen1.5-110b",
+         "deepseek-moe-16b", "dbrx-132b")
 ARCH = ARCHS[0]
 
 
@@ -146,3 +147,33 @@ def test_flatten_unflatten_round_trip(arch):
         assert tuple(t.shape) == seg.shape
         assert t.data_ptr() == flat.data_ptr() + 4 * seg.offset  # a view, no copy
     assert torch.equal(layout.flatten(tensors), flat)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "dbrx-132b"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_moe_layout_shards_experts_and_gathers_the_router(arch, tp):
+    """At tp > 1 a rank stores E / tp experts (``shard_dim(n_experts, tp)``,
+    dim 0 of ``moe.*``) and 1 / tp of the router's columns, which the
+    layer gets gathered along dim 1 (``model_gather = tp``);
+    ``convert.tp_params_from_full`` cuts each along that dim (its
+    ``_sharded_dim``), so the shards put back together are the tp = 1
+    tensors."""
+    from repro_torch.convert import _sharded_dim, tp_params_from_full
+
+    cfg = smoke_variant(get_config(arch))
+    m1, mt = build_model(cfg, 1), build_model(cfg, tp)
+    l1, lt = m1.pool("layers").layout, mt.pool("layers").layout
+    router = lt.seg("router.w")
+    assert router.shape == (cfg.d_model, cfg.n_experts // tp)
+    assert (router.model_gather, router.model_gather_dim) == (tp, 1)
+    assert _sharded_dim(router, l1.seg("router.w")) == 1
+    for name in ("moe.wg", "moe.wu", "moe.wd"):
+        assert lt.seg(name).shape[0] == cfg.n_experts // tp and lt.seg(name).model_gather == 1
+        assert _sharded_dim(lt.seg(name), l1.seg(name)) == 0
+    full = init_params(m1, seed=1, device="cpu")
+    cut = tp_params_from_full(mt, m1, {"layers": full["layers"]})["layers"]
+    for name, dim in (("router.w", 1), ("moe.wg", 0), ("moe.wd", 0)):
+        s1, st = l1.seg(name), lt.seg(name)
+        whole = full["layers"][0, 0, s1.offset:s1.end].reshape(s1.shape)
+        parts = [cut[0, j, st.offset:st.end].reshape(st.shape) for j in range(tp)]
+        assert torch.equal(torch.cat(parts, dim=dim), whole)

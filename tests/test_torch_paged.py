@@ -384,10 +384,13 @@ def test_paged_attention_plain_matches_gathered_view(pages):
 def test_paged_route_rules():
     assert FA.paged_route(torch.bfloat16, torch.bfloat16) == "paged"
     assert FA.paged_route(torch.bfloat16, torch.int8) == "paged"
-    for qd, kd in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
-                   (torch.float32, torch.bfloat16)):
-        with pytest.raises(NotImplementedError, match="fp32 KV pools on the card"):
-            FA.paged_route(qd, kd)
+    # fp32 pools: bf16 or fp32 queries (the fma body); fp32 queries over
+    # narrower pages have no route
+    for qd, kd in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32)):
+        assert FA.paged_route(qd, kd) == "paged"
+    for kd in (torch.bfloat16, torch.int8):
+        with pytest.raises(TypeError, match="no route"):
+            FA.paged_route(torch.float32, kd)
     q = torch.zeros(1, 1, 1, 1, 16)
     with pytest.raises(ValueError, match="causal"):
         FA.flash_attention(q, q[:, :, :, 0], q[:, :, :, 0], kv_valid_len=torch.ones(1))

@@ -27,7 +27,11 @@ SHAPE = (4, 6, 2, 2, 16, 4, 5, 12)
 
 def _inputs(pages: str, seed: int = 0):
     """A pool, its tables (shared and garbage blocks), q and the live
-    lengths of a 6-token chunk a slot, all from a numpy seed."""
+    lengths of a 6-token chunk a slot, all from a numpy seed.  ``pages``:
+    bf16, int8 (bf16 q), fp32 (fp32 q) or fp32:bq (fp32 pages, bf16 q: the
+    engine's fp32 pools under bf16 compute)."""
+    q_bf16 = pages != "fp32"
+    pages = pages.split(":")[0]
     b, tq, hkv, g, dh, bs, mb, nb = SHAPE
     rng = np.random.default_rng(seed)
     kp = torch.as_tensor(rng.standard_normal((nb, bs, hkv, dh)), dtype=torch.float32)
@@ -39,7 +43,7 @@ def _inputs(pages: str, seed: int = 0):
     else:
         dt = torch.float32 if pages == "fp32" else torch.bfloat16
         kp, vp = kp.to(dt), vp.to(dt)
-    dt = torch.float32 if pages == "fp32" else torch.bfloat16
+    dt = torch.bfloat16 if q_bf16 else torch.float32
     q = torch.as_tensor(rng.standard_normal((b, tq, hkv, g, dh)), dtype=torch.float32).to(dt)
     tables = torch.tensor([[3, 1, 0, 0, 0], [2, 5, 6, 7, 8], [4, 1, 9, 0, 0], [10, 11, 0, 0, 0]],
                           dtype=torch.int32)
@@ -58,7 +62,7 @@ def _dead(kvl):
     return torch.where(torch.arange(tq)[None, :] < N_NEW[:, None], kvl, 0)
 
 
-@pytest.mark.parametrize("pages", ["bf16", "fp32", "int8"])
+@pytest.mark.parametrize("pages", ["bf16", "fp32", "fp32:bq", "int8"])
 def test_dead_rows_are_zero_and_leave_live_rows_bitwise(pages):
     q, kp, vp, tables, kvl, sc = _inputs(pages)
     dead_kvl = _dead(kvl)
@@ -75,11 +79,13 @@ def test_dead_rows_are_zero_and_leave_live_rows_bitwise(pages):
     assert torch.equal(FA.paged_attention(q, kp, vp, tables, dead_kvl, **sc), got)
 
 
-@pytest.mark.parametrize("pages", ["bf16", "fp32", "int8"])
+@pytest.mark.parametrize("pages", ["bf16", "fp32", "fp32:bq", "int8"])
 def test_live_rows_match_reference_attention(pages):
     """Live rows against the reference's ``layers.attention`` over the view
     gathered (and dequantized) by hand with the same per-row lengths
-    (the reference has no dead rows: it gives a dead row the mean of v)."""
+    (the reference has no dead rows: it gives a dead row the mean of v).
+    fp32 pages keep fp32 (the reference's ``_paged_kv_read``) and give fp32
+    rows whatever q's type, as the reference's promotion does."""
     q, kp, vp, tables, kvl, sc = _inputs(pages, seed=1)
     dead_kvl = _dead(kvl)
     got = FA.paged_attention(q, kp, vp, tables, dead_kvl, **sc)
@@ -96,6 +102,7 @@ def test_live_rows_match_reference_attention(pages):
     live = (dead_kvl != 0).numpy()
     atol = 2e-2 if q.dtype == torch.bfloat16 else 1e-6
     np.testing.assert_allclose(got.float().numpy()[live], want[live], rtol=0, atol=atol)
+    assert got.dtype == torch.promote_types(q.dtype, kp.dtype if not sc else q.dtype)
     assert not got.float().numpy()[~live].any()
 
 
@@ -131,7 +138,10 @@ def test_paged_plan_is_the_split_plan_in_whole_tiles():
                                      (256, "mma")])
 def test_paged_body_by_head_dim(dh, body):
     assert FA.paged_body(dh) == body
+    assert FA.paged_body(dh, torch.int8) == body
+    assert FA.paged_body(dh, torch.float32) == "fma"   # fp32 pages: CUDA cores, any dh
     assert f"paged:{body}" in FK.launches_paged_by_form
+    assert "paged:fma" in FK.launches_paged_by_form
 
 
 def test_cpu_call_counts_no_launch():
@@ -253,6 +263,42 @@ def test_cuda_paged_route_at_rank_shapes(cuda_device, pages, hkv):
                                    rtol=2e-2, atol=2e-2)
         assert not got[kvl == 0].any()
         assert torch.equal(got, FA.paged_attention(q, k_pages, v_pages, tables, kvl, **scales))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("hkv,g,dh", [(8, 4, 64), (16, 1, 128), (8, 6, 128), (1, 3, 256),
+                                      (2, 2, 16)])
+def test_cuda_paged_fma_body(cuda_device, q_dtype, hkv, g, dh):
+    """The ``paged`` route's ``fma`` body (fp32 pages) against its plain
+    version: a decode-only tick, a mixed tick and a full chunk at 4 slots,
+    blocks of 16, llama's, deepseek's, dbrx's, recurrentgemma's and a
+    small head shape; fp32 out within fp32's tolerance; dead rows zero;
+    bitwise repeatable; counted on ``paged:fma``."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, bs, mb, w = 4, 16, 17, 16
+    nb = b * mb + 1
+    order = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(4)) + 1
+    tables = order[:b * mb].reshape(b, mb).to(torch.int32).to(dev)
+    k_pages = torch.randn(nb, bs, hkv, dh, generator=gen, device=dev)
+    v_pages = torch.randn(nb, bs, hkv, dh, generator=gen, device=dev)
+    qdt = torch.bfloat16 if q_dtype == "bf16" else torch.float32
+    rows = torch.arange(1, w + 1, device=dev)[None, :]
+    pos = torch.tensor([150, 201, 90, 255], device=dev)[:, None]
+    n_new = torch.tensor([w, 1, 1, 0], device=dev)[:, None]
+    for kvl in (torch.where(rows == 1, pos + rows, 0),
+                torch.where(rows <= n_new, pos + rows, 0),
+                torch.tensor([0, 64, 128, 192], device=dev)[:, None] + rows):
+        q = torch.randn(b, w, hkv, g, dh, generator=gen, device=dev).to(qdt)
+        before = FK.launches_paged_by_form["paged:fma"]
+        got = FA.paged_attention(q, k_pages, v_pages, tables, kvl)
+        assert FK.launches_paged_by_form["paged:fma"] == before + 1
+        assert got.dtype == torch.float32
+        want = FA.paged_attention_plain(q, k_pages, v_pages, tables, kvl)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-5, atol=2e-5)
+        assert not got[kvl == 0].any()
+        assert torch.equal(got, FA.paged_attention(q, k_pages, v_pages, tables, kvl))
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
-"""The port's tensor-parallel layers (tp 4) in one 4-rank gloo world on the
-CPU, against the JAX package's layer functions on 4 virtual devices under
+"""The port's tensor-parallel layers (tp 4; the MoE cases also at p 2 x tp 2)
+in one 4-rank gloo world on the CPU, against the JAX package's layer
+functions on 4 virtual devices under
 ``shard_map(..., check_vma=False)`` with the same inputs and cotangents
 (``torch_dist_cases.py``), and against the port's own layers at tp = 1 on
 the full tensors.
@@ -96,6 +97,54 @@ def test_model_gather_and_its_adjoint_match_numpy(results, case):
     label = "kv" if case == "gather:2" else "model"
     assert json.loads(str(got[f"{case}.calls"][0])) == {f"all_gather:{label}": 1,
                                                         f"reduce_scatter:{label}": 1}
+
+
+# The MoE cases' collectives a call: the expert exchange 2 a dispatch in
+# the forward and 2 in the backward (each the other's adjoint); the
+# token-sharded path's gather of y and its reduce-scatter, and aux's mean
+# over the model group (a psum forward and backward); the shared experts'
+# psum forward and backward.  The replicated (decode) path gathers nothing.
+MOE_CALLS = {
+    "moe_a2a": {"all_to_all:model": 2},
+    "moe_ffn": {"all_to_all:model": 4, "all_gather:model": 1, "reduce_scatter:model": 1,
+                "all_reduce:model": 4},
+    "moe_dec": {"all_to_all:model": 4, "all_reduce:model": 2},
+}
+
+
+@pytest.mark.parametrize("case", [c for c in K.TP_LAYER_CASES if c.startswith("moe")])
+def test_moe_collective_counts(results, case):
+    """The expert exchange (``collectives.ModelAllToAll``), the token-sharded
+    path and the replicated decode path at tp 4 and tp 2 issue the
+    collectives of ``MOE_CALLS``, over the model group alone; their values
+    are held to JAX by ``test_tp_layer_matches_jax``."""
+    got, _ = results
+    assert json.loads(str(got[f"{case}.calls"][0])) == MOE_CALLS[case.split("@")[0]]
+
+
+@pytest.mark.parametrize("case", K.MOE_LIVE_CASES)
+def test_moe_dead_rows_over_ranks_against_tp1(results, case):
+    """The engine's decode step at tp 2 and 4 (4 slots of 8 rows, n_new 8,
+    1, 0, 3; token-sharded, 16 and 8 rows a rank): the live rows' outputs
+    are the port's at tp 1 on the full weights, on every rank, and the dead
+    rows take no expert slot there either (their values reach no live
+    row: a second tp 1 run with other dead rows gives the same live bits)."""
+    from repro_torch.runtime.paged import PageState
+
+    got, _ = results
+    full, _ = K.tp_layer_case(case)
+    cfg = smoke_variant(get_config("deepseek-moe-16b"))
+    n_new = torch.tensor(K.MOE_LIVE_N_NEW)
+    ctx = L.Ctx(mode="decode", compute_dtype=torch.float32, pages=PageState(None, 0, n_new))
+    t = {n: torch.from_numpy(full[n]) for n in K.MOE_CUT}
+    x = torch.from_numpy(full["x"])
+    live = (torch.arange(x.shape[1])[None, :] < n_new[:, None]).numpy()
+    want, _ = blocks.moe_ffn(t, x, cfg, ctx)
+    other = torch.where(torch.from_numpy(live)[..., None], x, 3.0 * x.flip(1))
+    again, _ = blocks.moe_ffn(t, other, cfg, ctx)
+    assert torch.equal(want[torch.from_numpy(live)], again[torch.from_numpy(live)])
+    for r in range(K.WORLD):
+        _close(got[f"{case}.out"][r][live], want.numpy()[live], FP32_REL * 4, f"rank {r}")
 
 
 def test_local_head_mask_with_padding(results):

@@ -256,12 +256,13 @@ def test_more_than_one_card_raises(setup, topo):
     ("griffin", "cpu", False),
     ("dense", "cuda", False),
     ("dense", "cpu", False),
-    ("moe", "cuda", True),        # a family the port does not build yet
+    ("moe", "cuda", False),       # its layers reach RMSNorm and flash attention
+    ("xlstm", "cuda", True),      # a family the port does not build yet
 ])
 def test_griffin_training_refused_on_a_cuda_device(family, device, refused):
     """The family check reads only the device's type, so it runs without a
-    card; a refusal names the ROADMAP item that lifts it.  Both families the
-    port builds train on a CUDA device."""
+    card; a refusal names the ROADMAP item that lifts it.  Every family the
+    port builds (dense, griffin, MoE) trains on a CUDA device."""
     call = lambda: refuse_unported(MiCSConfig(), MiCSTopology(), family,  # noqa: E731
                                    torch.device(device))
     if refused:

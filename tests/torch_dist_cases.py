@@ -257,7 +257,35 @@ B, T = 2, 6
 VP, VR = 40, 37                  # padded and real vocab of the loss cases
 TP_LAYER_CASES = ("embed", "xent", "attn_out:fp32", "attn_out:bf16", "mlp:fp32", "mlp:bf16",
                   "gather:4", "gather:2", "gather:4_dim0", "head_mask", "griffin_rec",
-                  "greedy")
+                  "greedy", "moe_a2a@4", "moe_a2a@2", "moe_ffn@4", "moe_ffn@2", "moe_dec@4",
+                  "moe_dec@2")
+# The MoE cases (smoke deepseek-moe-16b: 8 experts, top-2, 2 shared experts
+# of d_ff 32, d 64) at tp 4 (layout T4) and tp 2 (P2T2: two model groups
+# of 2 ranks, each rank's inputs the same): the expert exchange and its
+# adjoint on [8, 4, 3] slabs; moe_ffn on 2 x 8 tokens (token-sharded: 4 or
+# 8 a rank) and on 3 x 1 (decode: tp does not divide 3, the replicated
+# path), with each rank's expert and shared-MLP shards, the router whole
+# (the layer gets it gathered).
+# The engine's dead rows at tp 2 and tp 4, the port alone (the reference
+# routes its padding rows): moe_ffn in decode mode over 4 slots of 8 rows,
+# each slot's rows past its n_new dead, token-sharded, against the port at
+# tp 1 on the full weights (``test_torch_tp.py``).
+MOE_LIVE_CASES = ("moe_live@2", "moe_live@4")
+MOE_LIVE_N_NEW = (8, 1, 0, 3)
+MOE_CUT = {"router.w": None, "moe.wg": 0, "moe.wu": 0, "moe.wd": 0, "shared.wg": 1,
+           "shared.wu": 1, "shared.wd": 0}
+
+
+def moe_case_tp(name: str) -> tuple[str, int]:
+    """``(layout, tp)`` of a ``moe_*@tp`` case."""
+    tp = int(name.split("@")[1])
+    return ("T4" if tp == 4 else "P2T2"), tp
+
+
+def moe_shapes(d: int = 64, e: int = 8, f: int = 32, shared: int = 2) -> dict:
+    return {"router.w": (d, e), "moe.wg": (e, d, f), "moe.wu": (e, d, f), "moe.wd": (e, f, d),
+            "shared.wg": (d, shared * f), "shared.wu": (d, shared * f),
+            "shared.wd": (shared * f, d)}
 # attn_out: 6 Q heads over 2 KV heads of dim 4, d 16: at tp 4 the Q heads
 # pad to 8, 2 a rank, so the last rank's two heads (6 and 7) are padding
 ATTN = dict(d=16, hq=6, hkv=2, dh=4)
@@ -353,6 +381,21 @@ def tp_layer_case(name: str) -> tuple[dict, dict]:
         full["x"] = _normal(rng, (B, 8, 64))
         full["ct"] = _normal(rng, (B, 8, 64))
         ranks = {n: _tile(v) if GRIFFIN_REC_CUT.get(n) is None else _split(v, GRIFFIN_REC_CUT[n])
+                 for n, v in full.items()}
+        return full, ranks
+    if kind.startswith("moe"):
+        kind, tp = name.split("@")[0], moe_case_tp(name)[1]
+        if kind == "moe_a2a":
+            return {}, {"x": _normal(rng, (WORLD, 8, 4, 3)),
+                        "ct": _normal(rng, (WORLD, 8 // tp, tp * 4, 3))}
+        full = {n: _normal(rng, shape, 1.0 / np.sqrt(shape[-2]))
+                for n, shape in moe_shapes().items()}
+        b, t = {"moe_ffn": (2, 8), "moe_dec": (3, 1), "moe_live": (4, 8)}[kind]
+        full["x"] = _normal(rng, (b, t, 64))
+        full["ct"] = _normal(rng, (b, t, 64))
+        reps = WORLD // tp
+        ranks = {n: _tile(v) if MOE_CUT.get(n) is None
+                 else np.concatenate([_split(v, MOE_CUT[n], tp)] * reps)
                  for n, v in full.items()}
         return full, ranks
     if kind == "greedy":

@@ -301,15 +301,27 @@ def tp_layers(world: World) -> dict:
     p2t2 = world.groups("P2T2")
     for name in ("model", "partition", "data"):
         out[f"groups.P2T2.{name}"] = np.asarray(getattr(p2t2, name).ranks)
+    p2t2_eng = CommEngine(_topology("P2T2"), groups=p2t2)
     for name in K.TP_LAYER_CASES:
         eng.counter.reset()
+        p2t2_eng.counter.reset()
+        if name.startswith("moe"):
+            on = eng if K.moe_case_tp(name)[0] == "T4" else p2t2_eng
+            res = _moe_case(name, world.rank, on)
+            out[f"{name}.calls"] = np.asarray(json.dumps(on.counter.snapshot()["calls"]))
+            out.update({f"{name}.{k}": _np(v) for k, v in res.items()})
+            continue
         res = _tp_layer(name, world.rank, groups, eng)
         out.update({f"{name}.{k}": _np(v) for k, v in res.items()})
         out[f"{name}.calls"] = np.asarray(json.dumps(eng.counter.snapshot()["calls"]))
         if name.endswith(":bf16"):
             again = _tp_layer(name, world.rank, groups, eng)
             out.update({f"{name}.again.{k}": _np(v) for k, v in again.items()})
+    for name in K.MOE_LIVE_CASES:
+        on = eng if K.moe_case_tp(name)[0] == "T4" else p2t2_eng
+        out[f"{name}.out"] = _np(_moe_case(name, world.rank, on)["out"])
     return out
+
 
 
 def _tp_layer(name: str, r: int, groups, eng) -> dict:
@@ -367,6 +379,41 @@ def _tp_layer(name: str, r: int, groups, eng) -> dict:
     if kind == "greedy":
         return {"ids": lm.greedy_sample(torch.from_numpy(ins["logits"]), ctx, K.VR)}
     raise KeyError(name)
+
+
+def _moe_case(name: str, r: int, eng) -> dict:
+    """A ``moe_*`` case on this rank's inputs over ``eng``'s model group:
+    the expert exchange (``moe_a2a``) or ``moe_ffn`` with its gradients
+    through autograd (cotangent ``ct`` on the output, 1 on aux)."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core import collectives as C
+    from repro_torch.models import blocks
+    from repro_torch.models import layers as L
+
+    _, tp = K.moe_case_tp(name)
+    ins = {k: v[r] for k, v in K.tp_layer_case(name)[1].items()}
+    if name.startswith("moe_a2a"):
+        x = _leaf(ins["x"])
+        y = C.model_all_to_all(x, eng.groups.model, to_owners=True, counter=eng.counter)
+        return {"out": y, "grad": torch.autograd.grad(y, x, _leaf(ins["ct"]))[0]}
+    cfg = smoke_variant(get_config("deepseek-moe-16b"))
+    if name.startswith("moe_live"):   # the engine's decode step: dead rows past n_new
+        from repro_torch.runtime.paged import PageState
+
+        pages = PageState(None, 0, torch.tensor(K.MOE_LIVE_N_NEW))
+        ctx = L.Ctx(mode="decode", tp=tp, comm=eng, compute_dtype=torch.float32, pages=pages)
+        with torch.no_grad():
+            y, aux = blocks.moe_ffn({n: _leaf(ins[n]) for n in K.MOE_CUT}, _leaf(ins["x"]),
+                                    cfg, ctx)
+        return {"out": y, "aux": aux}
+    ctx = L.Ctx(mode="train", tp=tp, comm=eng, compute_dtype=torch.float32)
+    t = {n: _leaf(ins[n]) for n in K.MOE_CUT}
+    x = _leaf(ins["x"])
+    y, aux = blocks.moe_ffn(t, x, cfg, ctx)
+    grads = torch.autograd.grad((y, aux), (x, *t.values()),
+                                (_leaf(ins["ct"]), torch.ones(())))
+    return {"out": y, "aux": aux, "d_x": grads[0],
+            **{f"d_{n}": g for n, g in zip(t, grads[1:])}}
 
 
 def tp_train(world: World) -> dict:
