@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serve path and its training step for the model
-families it builds (dense, griffin, MoE) on one NVIDIA card; hold every
-CUDA kernel against its plain PyTorch version.
+families it builds (dense, griffin, MoE, xLSTM, the VLM backbone) on one
+NVIDIA card; hold every CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -246,6 +246,34 @@ check raises and the script exits non-zero; no phase swallows an error):
    x (RMSNorm 7, attention 1: ``mma`` at the prefill, ``split`` at each
    decode step; RG-LRU 2, gated).  It prints each run's ticks, engine
    steps, wall seconds and step times, the comparisons and the counts.
+3f. xlstm-125m and the VLM backbone on one card, after the dist phases.
+   ``serve_xlstm``: xlstm-125m at full width and depth (12 blocks: pool
+   ``x`` x3 of three mLSTM blocks and one sLSTM block; 0.2 B parameters),
+   ``init_params(seed=0)``, bf16 gather, ``mlstm_chunk`` 0 (the reference's
+   serving default: the prompt through the timestep scan): batch 4, prompt
+   512, 32 greedy decode steps; RMSNorm 28 a forward and no other kernel;
+   the prefill of T - 1 tokens then one decode step against the prefill of
+   T (the state hand-off), the prefill at ``mlstm_chunk`` 64 against the
+   scan's, one mLSTM and one sLSTM block at full width against fp32 on the
+   CPU; a profiled prefill and decode step.  ``train_xlstm``:
+   ``build_train_step`` on the same model, 2 steps of 2 micro-steps of 2 x
+   2048 tokens, ``mlstm_chunk`` 64 (RMSNorm 28 + 27 recomputed, its
+   backward 28 on ``regs``, a micro-step), MFU on 6 N (the recurrences' own
+   operations left out), a micro-step profiled at 2 x 256 and 2 x 512 (its
+   device kernels, a line through them to 2 x 2048); ``train_xlstm_probe``:
+   step 1's gradients by segment against fp32 compute
+   (``XLSTM_FP32_REL_TOL``) and two faults the limits must catch (the
+   sLSTM's recurrent matrices given zero gradient; the mLSTM's chunk carry
+   dropped).  ``serve_vlm``: llama-3.2-vision-90b at full width cut to one
+   super-layer (4 self-attention layers, 1 gated cross layer; ≈ 6.4 B
+   parameters), both gates set to 1.0 (zero at init: the layer is then the
+   identity), the launcher's stub batch (``launch/serve.stub_batch``:
+   batch 4, prompt 512, vision rows [4, 1024, 8192] bf16), 16 greedy decode
+   steps; a forward RMSNorm 11 and attention 5 (the cross layer's on
+   ``mma`` at the prefill, over the cached vision K/V on ``split`` at each
+   decode step); the hand-off across the cached cross K/V; the cross layer
+   at full width (64 tokens over the 1,024 vision rows) against fp32
+   compute on the card (``fma``); a profiled decode step.
 4. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
    library call's where there is one, and the card's bound for the same
@@ -311,7 +339,13 @@ check raises and the script exits non-zero; no phase swallows an error):
    ``mma`` prefill, ``split`` decode, the ``paged`` engine shapes and the
    ``wgmma`` backward, and dbrx's (g 6: its backward on ``mma``),
    granite's (g 4), yi's and qwen's (g 8) the same routes as correctness
-   checks, with RMSNorm at dbrx's d 6144.
+   checks, with RMSNorm at dbrx's d 6144.  The VLM's cross attention,
+   non-causal over a key length of its own (1,024 vision keys, hkv 8, g 8,
+   dh 128): the prefill on ``mma``, the decode step on ``split``, a train
+   micro-step's forward on ``mma`` and its backward on ``wgmma`` (tq 2048,
+   tk 1024), and a ragged non-causal edge (tq 300, tk 1000) forward and
+   backward on ``wgmma`` (g 4) and ``mma`` (g 3); RMSNorm forward and
+   backward at xLSTM's d 768 and 1536 and the VLM's 8192.
 
 ``python3 chip_smoke.py --profile-only`` runs the ``profile`` phases alone
 (both serve paths, then the train steps; no checks, no result line): it
@@ -1848,8 +1882,7 @@ def serve_moe_phase(card: str, dev) -> dict:
     return {"phase": "serve_moe", "arch": cfg.name, "layers": L_, "d_model": cfg.d_model,
             "experts": cfg.n_experts, "shared_experts": cfg.n_shared_experts,
             "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor,
-            "model_params": sum(seg.size * pool.stack for pool in model.all_pools()
-                                for seg in pool.layout.segments),
+            "model_params": model_params(model),
             "gather_dtype": "bf16", "fixed_batch": fixed,
             "engine": {"config": dataclasses.asdict(pg), "kv_dtype": "bf16",
                        **engine_summary(rep, reqs, clock, wall), "peak_gb": e_peak,
@@ -1870,9 +1903,11 @@ def train_rows(path: TrainPath) -> int:
 
 
 def attention_layers(cfg) -> int:
-    """The model's attention sub-layers: every layer of the dense family;
-    the ``attn`` entries of griffin's pattern over its super-layers and
-    tail (``models/build.py``)."""
+    """The model's causal self-attention sub-layers: every layer of the
+    dense and MoE families; the ``attn`` entries of griffin's pattern over
+    its super-layers and tail (``models/build.py``); none in xLSTM."""
+    if cfg.family == "xlstm":
+        return 0
     if cfg.family != "griffin":
         return cfg.n_layers
     pattern = cfg.pattern or ("rec", "rec", "attn")
@@ -2036,8 +2071,7 @@ def train_moe_phase(card: str, dev) -> dict:
             "boundary": "bucketed", "clip": "exact", "loss": losses, "aux": auxes,
             "grad_norm": gnorms, "step_ms_all": step_ms, "step_ms": ms,
             "tokens_per_s": tokens / (ms / 1e3),
-            "model_params": sum(seg.size * pool.stack for pool in model.all_pools()
-                                for seg in pool.layout.segments),
+            "model_params": model_params(model),
             "active_params_counted": n_active, "model_tflops": model_tflops,
             "mfu": model_tflops / (PEAK_OPS_PER_S[torch.bfloat16] / 1e12), "peak_gb": peak_gb,
             "rel_err_step1_vs_fp32": rel, "grad_probe": probe,
@@ -2124,6 +2158,487 @@ def moe_grad_probe(model, path: TrainPath, batch: dict, dev) -> dict:
     return {"fp32": {"loss": loss32, "grad_norm": norm32 / path.micro_steps}, "sound": sound,
             "faults": faults, "segments": len(sq32),
             "expert_share_of_sq_norm": sum(sq16[k] for k in experts) / sum(sq16.values())}
+
+
+# -- xlstm-125m and the VLM backbone on one card ----------------------------------
+
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_SERVE = {"batch": 4, "prompt": 512, "steps": 32}
+# RMSNorm a forward: ln1 and m.hnorm in each of the 9 mLSTM blocks; ln1,
+# s.hnorm and ln2 in each of the 3 sLSTM blocks; the final norm.
+XLSTM_RMS_A_FORWARD = 2 * 9 + 3 * 3 + 1
+XLSTM_CHUNK = 64             # the chunkwise mLSTM: serve_xlstm's check, train_xlstm's form
+# The chunkwise prefill against the scan's in fp32 compute, as a fraction of
+# the largest |logit|: the two forms are one function in exact arithmetic
+# (1.2e-5 apart at fp32 on the CPU, 1.7e-5 on an H100 over 512 tokens;
+# in bf16 compute 4.1e-2 and 4.8e-2, each rounding moved in one block
+# moving every later block's input through the 12 recurrent blocks).
+XLSTM_CHUNK_FP32_REL_TOL = 1e-3
+XLSTM_CHUNK_CHECK_TOKENS = 256
+XLSTM_BLOCK_TOKENS = 64
+# A block at full width in bf16 on the card against fp32 on the CPU, as a
+# fraction of the largest |increment| the block adds to its input: bf16
+# rounds every weight and activation (the recurrences run in fp32).
+XLSTM_BLOCK_REL_TOL = 5e-2
+# train_xlstm: 2 micro-steps of 2 x 2048 tokens, mlstm_chunk 64, one step
+# (the sLSTM's eager time loop costs about 0.3 M launches a micro-step: the
+# phase's budget is cut in steps, not in sequence length).  A micro-step:
+# RMSNorm 28 forward + 27 recomputed (each super-layer is checkpointed; the
+# final norm is not) and 28 backward, all on ``regs`` (d 768 and 1536); no
+# attention, no RG-LRU.
+XLSTM_TRAIN = TrainPath(XLSTM_ARCH, 4, 2, 2048, 1,
+                        {"rmsnorm": 55, "rmsnorm_bwd": 28, "flash_attention": 0,
+                         "flash_attention_bwd": 0, "rglru": 0, "rglru_bwd": 0, "quantize": 0,
+                         "dequantize": 0},
+                        "wgmma", "regs", 0, 0)
+# train_xlstm's profile: one micro-step of 2 x 128 tokens (chunkwise, as
+# the step's), the card's activity only (the host's op events cost the
+# profiler seconds to sort): its launches grow with T, a sLSTM step and
+# a mLSTM chunk each running a fixed sequence, so a micro-step at 2048 runs
+# about 16 x its kernels (the embedding's, the head's and the loss's do
+# not grow).
+XLSTM_PROFILE_SEQ = 128
+# train_xlstm's step 1 in bf16 against fp32 compute on the card, relative
+# (``xlstm_grad_probe``; ``leaf_norm``: the worst segment's gradient norm).
+# On an H100 (seed 0, step 1's first micro-step) the sound gaps read 2.4e-4
+# (loss), 3.7e-3 (grad norm) and 0.19 (the worst segment: an mLSTM's
+# ``m.bif``, 0.2% of the norm, whose forget-gate half sums a signed term
+# over every token), the same in every run; the fault (the sLSTM's
+# recurrent matrices given zero gradient) 1.0 on those segments.  A read
+# with the mLSTM's chunk carry dropped gave 0.51 on ``m.bif`` (at init the
+# forget gates, sigma(0) = 0.5, decay a chunk's carry by 2^-64, so that
+# fault moves only the chunks' first positions); at ≈ 10 s a read it is
+# not repeated here.  The segment limit sits 1.8 x over the sound gap.
+XLSTM_FP32_REL_TOL = {"loss": 1e-3, "grad_norm": 1e-2, "leaf_norm": 0.35}
+XLSTM_PROBE_SHOWN = 4        # the worst segments a probe line lists, with their share of the norm
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_SERVE_LAYERS = 5         # one super-layer: 4 self-attention layers, 1 gated cross layer
+VLM_FIXED = {"batch": 4, "prompt": 512, "steps": 16}
+VLM_GATE = 1.0               # both gates: zero at init, where the cross layer is the identity
+VLM_LAYER_TOKENS = 64
+VLM_LAYER_REL_TOL = 5e-2     # the cross layer in bf16 against fp32 compute, as XLSTM's blocks
+
+
+def _timed_serve(prefill_fn, decode_fn, params, batch: dict, steps: int):
+    """The counted run of a fixed batch: the launch counters set to 0 and
+    the peak reset just before the prefill, then ``steps`` greedy decode
+    steps, each timed to its synchronise.  Returns (prefill logits, last
+    decode logits, caches, prefill ms, decode ms a step, the ids, peak GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, caches = prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prompt = batch["tokens"].shape[1]
+    tok = torch.argmax(logits[:, -1:].float(), dim=-1)
+    decode_ms, out, lg = [], [tok], logits
+    for i in range(steps):
+        t0 = time.perf_counter()
+        lg, tok, caches = decode_fn(params, caches, tok, prompt + i)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(tok)
+    return (logits, lg, caches, prefill_ms, decode_ms, torch.cat(out, dim=1),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _handoff(prefill_fn, decode_fn, params, batch: dict, want: torch.Tensor) -> dict:
+    """Prefill of the prompt's first T - 1 tokens, then one decode step of
+    token T - 1 from its caches, against ``want`` (the prefill of all T
+    tokens at the last position), as a fraction of the largest |logit|."""
+    t = batch["tokens"].shape[1]
+    short = dict(batch, tokens=batch["tokens"][:, :-1])
+    _, caches = prefill_fn(params, short)
+    got, _, _ = decode_fn(params, caches, batch["tokens"][:, -1:], t - 1)
+    err, scale = _rel_err(got[:, -1], want[:, -1])
+    if not err <= REL_TOL_DECODE_VS_PREFILL * scale:
+        raise AssertionError(f"decode after a prefill of T - 1 tokens is {err} > "
+                             f"{REL_TOL_DECODE_VS_PREFILL} x {scale} from the prefill of T")
+    return {"max_abs_err": err, "max_abs_logit": scale, "rel_tol": REL_TOL_DECODE_VS_PREFILL}
+
+
+def _fixed_line(fx: dict, prefill_ms: float, decode_ms: list, peak_gb: float) -> dict:
+    med = statistics.median(decode_ms)
+    return {"batch": fx["batch"], "prompt": fx["prompt"], "decode_steps": fx["steps"],
+            "prefill_ms": prefill_ms, "decode_ms_per_step": med,
+            "decode_ms_all": decode_ms, "prefill_tokens_per_s":
+                fx["batch"] * fx["prompt"] / (prefill_ms / 1e3),
+            "tokens_per_s": fx["batch"] / (med / 1e3), "peak_gb": peak_gb}
+
+
+def _profile_fields(prof: dict) -> dict:
+    return {k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share", "device_kernels",
+                                 "events_short", "by_kind")}
+
+
+def xlstm_block_check(model, params, dev) -> dict:
+    """Super-layer 0's first mLSTM block (``m0.``) and its sLSTM block
+    (``s0.``) at full width in prefill over 1 x ``XLSTM_BLOCK_TOKENS``
+    tokens, bf16 on the card against the same weights in fp32 on the CPU:
+    the increment each adds to its input, within ``XLSTM_BLOCK_REL_TOL``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import recurrent as R
+
+    cfg, bf = model.cfg, torch.bfloat16
+    full = model.pool("x").layout.unflatten(params["x"][0, 0])
+    gen = torch.Generator(device=dev).manual_seed(28)
+    x = torch.randn(1, XLSTM_BLOCK_TOKENS, cfg.d_model, generator=gen, device=dev).to(bf)
+    out = {}
+    for kind, prefix, block in (("mLSTM", "m0.", R.mlstm_apply), ("sLSTM", "s0.", R.slstm_apply)):
+        names = [k for k in full if k.startswith(prefix)]
+        with torch.inference_mode():
+            y_card, _ = block(cfg, {k: full[k].to(bf) for k in names}, x,
+                              L.Ctx(mode="prefill", compute_dtype=bf), prefix=prefix)
+            y_cpu, _ = block(cfg, {k: full[k].cpu() for k in names}, x.float().cpu(),
+                             L.Ctx(mode="prefill", compute_dtype=torch.float32), prefix=prefix)
+        if not bool(torch.isfinite(y_card).all()):
+            raise AssertionError(f"serve_xlstm: the {kind} block's card output is not finite")
+        err, scale = _rel_err(y_card.float().cpu() - x.float().cpu(), y_cpu - x.float().cpu())
+        if not err <= XLSTM_BLOCK_REL_TOL * scale:
+            raise AssertionError(f"serve_xlstm: the {kind} block on the card is {err} > "
+                                 f"{XLSTM_BLOCK_REL_TOL} x {scale} from fp32 on the CPU")
+        out[kind] = {"prefix": prefix, "max_abs_err": err, "max_abs_increment": scale,
+                     "rel_tol": XLSTM_BLOCK_REL_TOL}
+    return out
+
+
+def serve_xlstm_phase(card: str, dev) -> dict:
+    """``serve_xlstm``: xlstm-125m at full width and depth (12 blocks: pool
+    ``x`` x3 of (mLSTM, mLSTM, mLSTM, sLSTM)), ``init_params(seed=0)``, bf16
+    gather, the reference's serving default ``mlstm_chunk`` 0 (the prompt
+    through the timestep scan): the fixed batch (``XLSTM_SERVE``) through
+    ``build_serve_steps``.  Launches a forward: RMSNorm 28, nothing else.
+    Checks: the prefill of T - 1 tokens then one decode step against the
+    prefill of T (the hand-off of C, n, m, the conv window and the sLSTM's
+    c, n, h, m); the prefill at ``mlstm_chunk`` 64 (chunkwise) against the
+    scan's; one mLSTM and one sLSTM block against fp32 on the CPU.  A
+    profiled prefill and decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mics import MiCSConfig, init_params
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models.build import build_model
+    from repro_torch.runtime.serving import build_serve_steps
+
+    cfg = get_config(XLSTM_ARCH)
+    model = build_model(cfg, tp=1)
+    params = init_params(model, seed=0, device=dev)
+    fx = XLSTM_SERVE
+
+    def steps_at(chunk: int, dtype=torch.bfloat16):
+        return build_serve_steps(model, MiCSTopology(), MiCSConfig(
+            gather_dtype=dtype, prefetch=True, mlstm_chunk=chunk),
+            fx["prompt"] + fx["steps"], device=dev)
+
+    prefill_fn, decode_fn = steps_at(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (fx["batch"], fx["prompt"]), generator=gen,
+                                     device=dev)}
+    warm = {"tokens": batch["tokens"][:, :XLSTM_CHUNK]}  # the scan's launches a step alike
+    logits, caches = prefill_fn(params, warm)           # warm (not counted)
+    decode_fn(params, caches, torch.argmax(logits[:, -1:].float(), dim=-1), XLSTM_CHUNK)
+    del logits, caches
+    logits, lg, caches, prefill_ms, decode_ms, ids, peak_gb = _timed_serve(
+        prefill_fn, decode_fn, params, batch, fx["steps"])
+    launches, by_route = read_counts(), dict(FA.launches_by_route)
+    fwd = 1 + fx["steps"]
+    want = dict.fromkeys(launches, 0) | {"rmsnorm": XLSTM_RMS_A_FORWARD * fwd}
+    if launches != want or any(by_route.values()):
+        raise AssertionError(f"serve_xlstm: launches {launches} / {by_route} != {want}")
+    if not (bool(torch.isfinite(logits.float()).all()) and bool(torch.isfinite(lg.float()).all())
+            and int(ids.min()) >= 0 and int(ids.max()) < cfg.vocab):
+        raise AssertionError("serve_xlstm: non-finite logits or an id outside the vocab")
+    handoff = _handoff(prefill_fn, decode_fn, params, batch, logits)
+    short = {"tokens": batch["tokens"][:, :XLSTM_CHUNK_CHECK_TOKENS]}
+    scan, chunked = (steps_at(c, torch.float32)[0](params, short)[0][:, -1]
+                     for c in (0, XLSTM_CHUNK))
+    err, scale = _rel_err(chunked, scan)
+    if not err <= XLSTM_CHUNK_FP32_REL_TOL * scale:
+        raise AssertionError(f"serve_xlstm: the chunkwise prefill in fp32 is {err} > "
+                             f"{XLSTM_CHUNK_FP32_REL_TOL} x {scale} from the scan's")
+    chunk = {"mlstm_chunk": XLSTM_CHUNK, "tokens": XLSTM_CHUNK_CHECK_TOKENS,
+             "compute": "fp32", "max_abs_err": err, "max_abs_logit": scale,
+             "rel_tol": XLSTM_CHUNK_FP32_REL_TOL}
+    tok = ids[:, -1:]
+    pos = fx["prompt"] + fx["steps"]
+    prof_d = profile_line(cfg.name, "decode", lambda: decode_fn(params, caches, tok, pos),
+                          activities=CARD_ONLY)
+    blocks = xlstm_block_check(model, params, dev)
+    del params, caches
+    return {"phase": "serve_xlstm", "arch": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "model_params": model_params(model), "gather_dtype": "bf16",
+            "mlstm_chunk": 0, **_fixed_line(fx, prefill_ms, decode_ms, peak_gb),
+            "launches": launches, "attention_launches_by_route": by_route,
+            "rmsnorm_a_forward": XLSTM_RMS_A_FORWARD,
+            "decode_vs_prefill": handoff, "chunkwise_vs_scan": chunk,
+            "blocks_vs_cpu_fp32": blocks, "profile_decode": _profile_fields(prof_d),
+            "gpu": card}
+
+
+def model_params(model) -> int:
+    """Every parameter the layout stores (a segment whose name repeats
+    counts each time it is stored)."""
+    return sum(seg.size * pool.stack for pool in model.all_pools()
+               for seg in pool.layout.segments)
+
+
+def train_xlstm_phase(card: str, dev) -> dict:
+    """``train_xlstm``: ``build_train_step`` on xlstm-125m at full width and
+    depth from ``init_state(seed=0)`` and the synthetic stream
+    (``XLSTM_TRAIN``: bf16 gather, prefetch, bucketed boundary, exact clip,
+    ``mlstm_chunk`` 64), the counters set to 0 just before the steps and
+    read just after (one micro-step at ``XLSTM_PROFILE_SEQ`` profiled
+    before them); its line emitted, step 1's first
+    micro-step's gradients by :func:`xlstm_grad_probe` (a line of its
+    own).  MFU counts 6 N a token over the layer pools
+    and the head; the recurrences' own operations are left out."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import CommEngine
+    from repro_torch.core.mics import MiCSConfig, accumulate_grads, build_train_step, init_state
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import layers as L
+    from repro_torch.models.build import build_model
+    from repro_torch.optim.adamw import OptConfig
+
+    path = XLSTM_TRAIN
+    cfg = get_config(path.arch)
+    model = build_model(cfg, tp=1)
+    mcfg = MiCSConfig(micro_steps=path.micro_steps, mlstm_chunk=XLSTM_CHUNK)
+    source = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=path.seq,
+                                    global_batch=path.global_batch,
+                                    micro_steps=path.micro_steps))
+    step = build_train_step(model, MiCSTopology(), mcfg,
+                            OptConfig(warmup_steps=0, total_steps=path.steps), device=dev)
+    state = init_state(model, 0, device=dev)
+    # the profile first: its runs warm the step's kernels and allocations up
+    comm = CommEngine.from_config(MiCSTopology(), mcfg)
+    ctx = L.Ctx(mode="train", compute_dtype=torch.bfloat16, comm=comm, mlstm_chunk=XLSTM_CHUNK)
+    rows, seq = path.global_batch // path.micro_steps, XLSTM_PROFILE_SEQ
+    mb = {k: torch.as_tensor(v[:1, :, :seq]).to(dev)
+          for k, v in source.global_step_batch(path.steps).items()}
+    prof = profile_line(cfg.name, f"train_xlstm micro-step {rows} x {seq}",
+                        lambda: accumulate_grads(model, comm, ctx, state["params"], mb),
+                        activities=CARD_ONLY)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, gnorms, step_ms = [], [], []
+    for i in range(path.steps):
+        t0 = time.perf_counter()
+        state, m = step(state, source.global_step_batch(i))
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(m["grad_norm"].item())
+    tables = check_train_launches("train_xlstm", path, path.steps * path.micro_steps)
+    launches, by_route, bwd_by_route, rms_bwd_by_route, rglru_by_form = tables
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"train_xlstm: losses {losses}, grad norms {gnorms}")
+    del state, step
+    torch.cuda.empty_cache()
+    ms = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+    flops, n_params = train_flops(model, path)
+    tokens = path.global_batch * path.seq
+    model_tflops = flops / (ms / 1e3) / 1e12
+    line = {"phase": "train_xlstm", "arch": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "global_batch": path.global_batch, "seq": path.seq,
+            "micro_steps": path.micro_steps, "tokens_per_step": tokens, "gather_dtype": "bf16",
+            "schedule": "prefetch", "boundary": "bucketed", "clip": "exact",
+            "mlstm_chunk": XLSTM_CHUNK, "loss": losses, "grad_norm": gnorms,
+            "step_ms_all": step_ms, "step_ms": ms, "tokens_per_s": tokens / (ms / 1e3),
+            "model_params": model_params(model), "flops_params_counted": n_params,
+            "flops_note": "6 N a token; the mLSTM and sLSTM recurrences' own operations are "
+                          "left out",
+            "model_tflops": model_tflops,
+            "mfu": model_tflops / (PEAK_OPS_PER_S[torch.bfloat16] / 1e12), "peak_gb": peak_gb,
+            "profile_micro_step": {"rows": rows, "seq": seq, **_profile_fields(prof)},
+            "device_kernels_step_est": prof["device_kernels"] * path.seq // seq
+                                       * path.micro_steps,
+            "launches": launches, "attention_launches_by_route": by_route,
+            "attention_bwd_launches_by_route": bwd_by_route,
+            "rmsnorm_bwd_launches_by_route": rms_bwd_by_route,
+            "rglru_launches_by_form": rglru_by_form, "gpu": card}
+    emit(line)
+    xlstm_grad_probe(model, source.global_step_batch(0), dev)
+    return line
+
+
+def xlstm_grad_probe(model, batch: dict, dev) -> dict:
+    """Step 1's first micro-step's gradients (``accumulate_grads`` on
+    ``init_params(seed=0)`` and ``batch[:1]``, ``mlstm_chunk`` 64; the
+    micro-step's time loops make each read cost seconds) with bf16 compute
+    against fp32 compute on the card, read as ``moe_grad_probe`` reads
+    them: the loss, the global gradient norm and each segment's gradient
+    norm relative to fp32's; each must be within ``XLSTM_FP32_REL_TOL``.
+    A fault is read the same way and must exceed one limit: the sLSTM's
+    recurrent matrices given zero gradient (their segments zeroed in the
+    sound bf16 gradients).  The sLSTM's input-gate biases ``s.bi`` are left out of
+    the segments: their gradient is zero but for rounding (a constant added
+    to every input-gate logit scales c and n alike).  Its line is emitted
+    before the limits are checked."""
+    from repro_torch.core.comm import CommEngine
+    from repro_torch.core.mics import MiCSConfig, accumulate_grads, init_params
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.models import layers as L
+
+    params = init_params(model, 0, device=dev)
+    batch = {k: torch.as_tensor(v[:1]).to(dev) for k, v in batch.items()}
+
+    def read(dtype):
+        comm = CommEngine.from_config(MiCSTopology(), MiCSConfig(gather_dtype=dtype))
+        grads, loss, _ = accumulate_grads(model, comm, L.Ctx(
+            mode="train", compute_dtype=dtype, comm=comm, mlstm_chunk=XLSTM_CHUNK), params, batch)
+        sq = {f"{name}/{seg.name}@{seg.offset}":
+              g[:, 0, seg.offset:seg.end].double().pow(2).sum().item()
+              for name, g in grads.items() for seg in model.pool(name).layout.segments}
+        del grads
+        torch.cuda.empty_cache()
+        return sq, loss.item()
+
+    sq32, loss32 = read(torch.float32)
+    sq16, loss16 = read(torch.bfloat16)
+    del params
+    torch.cuda.empty_cache()
+    norm32 = math.sqrt(sum(sq32.values()))
+
+    def gaps(sq, loss):
+        leaf = {k: abs(math.sqrt(sq[k]) - math.sqrt(v)) / math.sqrt(v)
+                for k, v in sq32.items() if v > 0 and ".s.bi@" not in k}
+        worst = sorted(leaf, key=leaf.get, reverse=True)[:XLSTM_PROBE_SHOWN]
+        return {"loss": abs(loss - loss32) / abs(loss32),
+                "grad_norm": abs(math.sqrt(sum(sq.values())) - norm32) / norm32,
+                "leaf_norm": leaf[worst[0]], "worst_leaves": {
+                    k: [leaf[k], math.sqrt(sq32[k]) / norm32] for k in worst}}
+
+    recurrent = {k for k in sq16 if re.search(r"\.s\.r[zifo]@", k)}
+    sound = gaps(sq16, loss16)
+    faults = {"slstm_recurrent_grads_zero": gaps({k: 0.0 if k in recurrent else v
+                                                  for k, v in sq16.items()}, loss16)}
+    out = {"phase": "train_xlstm_probe", "arch": model.cfg.name,
+           "micro_steps_read": 1, "fp32": {"loss": loss32, "grad_norm": norm32},
+           "sound": sound,
+           "faults": faults, "segments": len(sq32), "limits": XLSTM_FP32_REL_TOL,
+           "recurrent_share_of_sq_norm": sum(sq16[k] for k in recurrent) / sum(sq16.values())}
+    emit(out)
+    if not all(sound[k] <= XLSTM_FP32_REL_TOL[k] for k in XLSTM_FP32_REL_TOL):
+        raise AssertionError(f"train_xlstm: step 1's gradient against fp32 compute {out}")
+    for name, f in faults.items():
+        if all(f[k] <= XLSTM_FP32_REL_TOL[k] for k in XLSTM_FP32_REL_TOL):
+            raise AssertionError(f"train_xlstm: the fault {name} is within every limit {out}")
+    return out
+
+
+def vlm_layer_check(model, params, vision: torch.Tensor, dev) -> dict:
+    """The gated cross layer (``x.``, gates at ``VLM_GATE``) at full width
+    in prefill over 1 x ``VLM_LAYER_TOKENS`` tokens attending to the 1,024
+    vision rows of the fixed batch's first request: bf16 on the card
+    (cross attention on ``mma``) against fp32 compute on the card (the
+    ``fma`` route), the increment it adds to its input within
+    ``VLM_LAYER_REL_TOL``."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.models.dims import attn_dims
+
+    cfg, bf, f32 = model.cfg, torch.bfloat16, torch.float32
+    ad = attn_dims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, 1)
+    full = model.pool("layers").layout.unflatten(params["layers"][0, 0])
+    t32 = {k: v for k, v in full.items() if k.startswith("x.")}
+    gen = torch.Generator(device=dev).manual_seed(30)
+    x = torch.randn(1, VLM_LAYER_TOKENS, cfg.d_model, generator=gen, device=dev).to(bf)
+    ys, routes = {}, {}
+    for dt, t in ((bf, {k: v.to(bf) for k, v in t32.items()}), (f32, t32)):
+        before = dict(FA.launches_by_route)
+        with torch.inference_mode():
+            y, _ = B.cross_layer_apply(cfg, ad, t, x.to(dt), L.Ctx(
+                mode="prefill", compute_dtype=dt, vision=vision[:1].to(dt)), prefix="x.")
+        ys[dt] = y.float()
+        routes[str(dt)[6:]] = [r for r, n in FA.launches_by_route.items() if n != before[r]]
+        del t
+    if routes != {"bfloat16": ["mma"], "float32": ["fma"]}:
+        raise AssertionError(f"serve_vlm: the cross layer's attention routes {routes}")
+    if not bool(torch.isfinite(ys[bf]).all()):
+        raise AssertionError("serve_vlm: the cross layer's card output is not finite")
+    err, scale = _rel_err(ys[bf] - x.float(), ys[f32] - x.float())
+    if not err <= VLM_LAYER_REL_TOL * scale:
+        raise AssertionError(f"serve_vlm: the cross layer in bf16 is {err} > "
+                             f"{VLM_LAYER_REL_TOL} x {scale} from fp32 compute")
+    return {"tokens": VLM_LAYER_TOKENS, "vision_rows": vision.shape[1], "routes": routes,
+            "max_abs_err": err, "max_abs_increment": scale, "rel_tol": VLM_LAYER_REL_TOL}
+
+
+def serve_vlm_phase(card: str, dev) -> dict:
+    """``serve_vlm``: llama-3.2-vision-90b at full width cut to one
+    super-layer (4 self-attention layers and 1 gated cross layer; the
+    embedding and head whole), ``init_params(seed=0)`` with both gates set
+    to ``VLM_GATE``, bf16 gather: the fixed batch (``VLM_FIXED``) and the
+    serve launcher's stub (``launch/serve.stub_batch``: the tokens, then
+    normal vision rows [4, 1024, 8192] in bf16, from ``default_rng(0)``)
+    through ``build_serve_steps``.  Launches a forward: RMSNorm 11,
+    attention 5 (the prefill's 4 self + 1 cross on ``mma``; each decode
+    step's 4 self + 1 cross, over the cached vision K/V, on ``split``).
+    Checks: the prefill / decode hand-off across the cached cross K/V, and
+    the cross layer against fp32 compute (:func:`vlm_layer_check`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mics import MiCSConfig, init_params
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.launch.serve import stub_batch
+    from repro_torch.models.build import build_model
+    from repro_torch.runtime.serving import build_serve_steps
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_SERVE_LAYERS)
+    model = build_model(cfg, tp=1)
+    n_params = model_params(model)
+    params = init_params(model, seed=0, device=dev)
+    layout = model.pool("layers").layout
+    for gate in ("x.gate_attn", "x.gate_mlp"):
+        seg = layout.seg(gate)
+        params["layers"][:, 0, seg.offset:seg.end] = VLM_GATE
+    fx, n_self = VLM_FIXED, cfg.cross_interval
+    prefill_fn, decode_fn = build_serve_steps(
+        model, MiCSTopology(), MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True),
+        fx["prompt"] + fx["steps"], device=dev)
+    batch = stub_batch(cfg, fx["batch"], fx["prompt"], 0, dev)
+    logits, caches = prefill_fn(params, batch)          # warm (not counted)
+    decode_fn(params, caches, torch.argmax(logits[:, -1:].float(), dim=-1), fx["prompt"])
+    del logits, caches
+    logits, lg, caches, prefill_ms, decode_ms, ids, peak_gb = _timed_serve(
+        prefill_fn, decode_fn, params, batch, fx["steps"])
+    launches, by_route = read_counts(), dict(FA.launches_by_route)
+    fwd = 1 + fx["steps"]
+    want = dict.fromkeys(launches, 0) | {"rmsnorm": (2 * (n_self + 1) + 1) * fwd,
+                                         "flash_attention": (n_self + 1) * fwd}
+    want_route = {"mma": n_self + 1, "split": (n_self + 1) * fx["steps"], "fma": 0, "paged": 0}
+    if launches != want or by_route != want_route:
+        raise AssertionError(f"serve_vlm: launches {launches} / {by_route} != {want} / "
+                             f"{want_route}")
+    if not (bool(torch.isfinite(logits.float()).all()) and bool(torch.isfinite(lg.float()).all())
+            and int(ids.min()) >= 0 and int(ids.max()) < cfg.vocab):
+        raise AssertionError("serve_vlm: non-finite logits or an id outside the vocab")
+    cross = caches["layers"]["x"]
+    if tuple(cross["k"].shape) != (1, fx["batch"], cfg.n_vision_tokens, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim):
+        raise AssertionError(f"serve_vlm: the cross cache {tuple(cross['k'].shape)}")
+    handoff = _handoff(prefill_fn, decode_fn, params, batch, logits)
+    tok, pos = ids[:, -1:], fx["prompt"] + fx["steps"] - 1
+    prof = profile_line(cfg.name, "decode", lambda: decode_fn(params, caches, tok, pos))
+    del caches, logits, lg
+    torch.cuda.empty_cache()
+    layer = vlm_layer_check(model, params, batch["vision"], dev)
+    del params
+    torch.cuda.empty_cache()
+    return {"phase": "serve_vlm", "arch": cfg.name, "layers": cfg.n_layers,
+            "layers_full": get_config(VLM_ARCH).n_layers, "d_model": cfg.d_model,
+            "vision_rows": cfg.n_vision_tokens, "model_params": n_params,
+            "model_gb_fp32": 4 * n_params / 1e9, "gates": VLM_GATE, "gather_dtype": "bf16",
+            **_fixed_line(fx, prefill_ms, decode_ms, peak_gb), "launches": launches,
+            "attention_launches_by_route": by_route, "decode_vs_prefill": handoff,
+            "cross_layer_vs_fp32": layer, "profile_decode": _profile_fields(prof), "gpu": card}
 
 
 def check_train_launches(label: str, path: TrainPath, micro: int):
@@ -3823,7 +4338,19 @@ def kernel_checks(gen, dev, flush):
                        ("recurrentgemma train", train_rows(TRAIN[1]), 2560),
                        # a rank of dist_train's layout C: 2 x 2048 rows a
                        # micro-step (layout D's rank has the one-card path's)
-                       ("llama tp 2 train", 2 * 2048, 2048)):
+                       ("llama tp 2 train", 2 * 2048, 2048),
+                       # xlstm-125m: d 768 (ln1, ln2, s.hnorm, the final
+                       # norm) and 1536 (m.hnorm) at train_xlstm's and
+                       # serve_xlstm's rows; the VLM's d 8192 at serve_vlm's
+                       # rows and at a train micro-step's
+                       ("xlstm train d 768", train_rows(XLSTM_TRAIN), 768),
+                       ("xlstm train d 1536", train_rows(XLSTM_TRAIN), 1536),
+                       ("xlstm prefill d 1536", 4 * 512, 1536),
+                       ("xlstm decode d 768", 4, 768),
+                       ("xlstm decode d 1536", 4, 1536),
+                       ("vlm prefill d 8192", 4 * 512, 8192),
+                       ("vlm decode d 8192", 4, 8192),
+                       ("vlm train d 8192", 2 * 2048, 8192)):
         x = torch.randn(n, d, generator=gen, device=dev).to(torch.bfloat16)
         s = (0.2 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
         w = 1.0 + s.float()
@@ -3884,6 +4411,15 @@ def kernel_checks(gen, dev, flush):
         # a rank's micro-step in dist_train's layout E (deepseek-moe, tp 4:
         # 4 of the 16 KV heads)
         ("deepseek-moe tp 4 train", 2, 2048, 2048, 4, 1, 128, True, 0, 0, None, bf),
+        # llama-3.2-vision-90b's gated cross layer: non-causal over the
+        # 1,024 vision keys of its own length (hkv 8, g 8, dh 128):
+        # serve_vlm's prefill (mma) and decode step over the cached vision
+        # K/V (split), a train micro-step's forward (mma; its log-sum-exp in
+        # backward_checks), and a ragged non-causal edge
+        ("vlm cross prefill", 4, 512, 1024, 8, 8, 128, False, 0, 0, None, bf),
+        ("vlm cross decode", 4, 1, 1024, 8, 8, 128, False, 0, 0, None, bf),
+        ("vlm cross train", 2, 2048, 1024, 8, 8, 128, False, 0, 0, None, bf),
+        ("ragged non-causal, tq 300, tk 1000", 2, 300, 1000, 2, 4, 64, False, 0, 0, None, bf),
         # split route edges
         ("kv_len 1", 4, 1, 544, 8, 4, 64, False, 0, 0, 1, bf),
         ("g 1", 4, 1, 544, 8, 1, 64, False, 0, 299, 300, bf),
@@ -4326,7 +4862,11 @@ def backward_checks(gen, dev, flush):
             ("few rows [3, 256]", (3, 256), bf, bf),
             ("recurrentgemma train [4096, 2560]", (train_rows(TRAIN[1]), 2560), bf, bf),
             ("fp32 [1024, 4096]", (1024, 4096), f32, f32),
-            ("ragged d [37, 1000], fp32 scale", (37, 1000), bf, f32)):
+            ("ragged d [37, 1000], fp32 scale", (37, 1000), bf, f32),
+            # train_xlstm's micro-step (d 768 and 1536) and the VLM's at d 8192
+            ("xlstm train [4096, 768]", (train_rows(XLSTM_TRAIN), 768), bf, bf),
+            ("xlstm train [4096, 1536]", (train_rows(XLSTM_TRAIN), 1536), bf, bf),
+            ("vlm train [4096, 8192]", (2 * 2048, 8192), bf, bf)):
         x = torch.randn(n, d, generator=gen, device=dev).to(dt)
         dy = torch.randn(n, d, generator=gen, device=dev).to(dt)
         sc = (0.2 * torch.randn(d, generator=gen, device=dev)).to(sdt)
@@ -4358,7 +4898,7 @@ def backward_checks(gen, dev, flush):
 
     attn = []
     cfgs = [
-        # case, b, T, hkv, g, dh, causal, window, dtype
+        # case, b, T, hkv, g, dh, causal, window, dtype[, key length when not T]
         ("llama train", TRAIN[0].global_batch // TRAIN[0].micro_steps, TRAIN[0].seq, 8, 4, 64,
          True, 0, bf),
         ("recurrentgemma train", TRAIN[1].global_batch // TRAIN[1].micro_steps, TRAIN[1].seq, 1,
@@ -4370,6 +4910,12 @@ def backward_checks(gen, dev, flush):
         # and a rank's in dist_train's layout E (tp 4: 4 KV heads)
         ("deepseek-moe train", 2, 2048, 16, 1, 128, True, 0, bf),
         ("deepseek-moe tp 4 train", 2, 2048, 4, 1, 128, True, 0, bf),
+        # the VLM's cross layer in a train micro-step: 2048 queries over the
+        # 1,024 vision keys, non-causal (g 8 divides 64: wgmma); the ragged
+        # non-causal edge on wgmma (g 4) and on mma (g 3)
+        ("vlm cross train", 2, 2048, 8, 8, 128, False, 0, bf, 1024),
+        ("ragged non-causal, tq 300, tk 1000", 2, 300, 2, 4, 64, False, 0, bf, 1000),
+        ("ragged non-causal, tq 300, tk 1000, g 3: mma", 2, 300, 2, 3, 64, False, 0, bf, 1000),
         ("dh 256 window 64", 2, 512, 1, 10, 256, True, 64, bf),
         ("dh 256 ragged T 300", 2, 300, 1, 10, 256, True, 0, bf),
         ("dh 256 hkv 1 g 3: rows [b, T g, dh] at any g", 2, 512, 1, 3, 256, True, 0, bf),
@@ -4383,11 +4929,12 @@ def backward_checks(gen, dev, flush):
         ("dh 32", 2, 256, 2, 4, 32, True, 0, bf),
         ("fp32", 2, 256, 2, 4, 64, True, 0, f32),
     ]
-    for case, b, t, hkv, g, dh, causal, window, dt in cfgs:
+    for case, b, t, hkv, g, dh, causal, window, dt, *tk_ in cfgs:
+        tk = tk_[0] if tk_ else t
         kw = dict(causal=causal, window=window)
         q = torch.randn(b, t, hkv, g, dh, generator=gen, device=dev).to(dt)
-        k = torch.randn(b, t, hkv, dh, generator=gen, device=dev).to(dt)
-        v = torch.randn(b, t, hkv, dh, generator=gen, device=dev).to(dt)
+        k = torch.randn(b, tk, hkv, dh, generator=gen, device=dev).to(dt)
+        v = torch.randn(b, tk, hkv, dh, generator=gen, device=dev).to(dt)
         do = torch.randn(b, t, hkv, g, dh, generator=gen, device=dev).to(dt)
         # the forward as the train path runs it: o (held as kernel_checks
         # holds the forward) and the log-sum-exp the backward reads
@@ -4410,7 +4957,7 @@ def backward_checks(gen, dev, flush):
                 lambda: FA.flash_attention_bwd_on("mma", q, k, v, o, lse, do, **kw), flush)}
             del m_out
         del ref, out
-        allowed = FA.mask_bias(t, t, causal=causal, window=window, q_offset=0,
+        allowed = FA.mask_bias(t, tk, causal=causal, window=window, q_offset=0,
                                kv_valid_len=None, device=dev) == 0
         pairs = int(allowed.sum().item()) * b * hkv * g
         ops = 10 * dh * pairs
@@ -4425,10 +4972,11 @@ def backward_checks(gen, dev, flush):
         vs = v.permute(0, 2, 1, 3).contiguous().requires_grad_()
         dos = do.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, t, dh).contiguous()
         lib_causal = causal and (not window or window >= t)  # a window past T masks nothing
-        y = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=None if lib_causal else allowed,
-                                           is_causal=lib_causal, enable_gqa=True)
+        mask = None if lib_causal or not (causal or window) else allowed
+        y = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, is_causal=lib_causal,
+                                           enable_gqa=True)
         attn.append({
-            "case": case, "shape": {"b": b, "T": t, "hkv": hkv, "g": g, "dh": dh},
+            "case": case, "shape": {"b": b, "T": t, "tk": tk, "hkv": hkv, "g": g, "dh": dh},
             "causal": causal, "window": window, "dtype": str(dt)[6:], "route": route,
             "bitwise_repeat": True, "max_abs_err": err, "rel_tol": BWD_REL_TOL[dt],
             "o_max_abs_err": o_err, "o_tol": TOL[dt], "lse_max_abs_err": lse_err, "ms": ms, "tflops": ops / ms / 1e9,
@@ -4712,6 +5260,22 @@ def main() -> int:
     paged_launches["dist_serve"] = dist_line["attention_launches_by_route"]["paged"]
     for f, n in dist_line["serve_paged_forms"].items():
         paged_forms[f] += n
+    torch.cuda.empty_cache()
+
+    # -- 3f. xlstm-125m and the VLM backbone on one card ------------------------------
+    xlstm = serve_xlstm_phase(card, dev)
+    emit(xlstm)
+    by_path[f"{XLSTM_ARCH} serve_xlstm"] = xlstm["launches"]
+    torch.cuda.empty_cache()
+    xlstm_train = train_xlstm_phase(card, dev)
+    train_lines.append(xlstm_train)
+    by_path[f"{XLSTM_ARCH} train_xlstm"] = xlstm_train["launches"]
+    torch.cuda.empty_cache()
+    vlm = serve_vlm_phase(card, dev)
+    emit(vlm)
+    by_path[f"{VLM_ARCH} serve_vlm"] = vlm["launches"]
+    for r, n in vlm["attention_launches_by_route"].items():
+        launches_by_route[r] += n
     torch.cuda.empty_cache()
 
     def train_sum(*keys: str) -> dict:

@@ -151,7 +151,8 @@ def tp_params_from_full(model_tp: ModelDef, model_1: ModelDef, params_1: Mapping
     and the embedding table's ``d``.  Rank m takes slice m.  Where tp pads
     a dim (Q heads to a multiple of tp, KV heads, the vocab), the padding
     is zeros: a padded Q head's ``wq`` columns and ``wo`` rows are 0, and
-    its output is masked anyway.  A checking aid, with no counterpart in
+    its output is masked anyway.  Segments pair by position in the two
+    layouts (a name may repeat).  A checking aid, with no counterpart in
     the JAX package: it lets a tp > 1 run be held to a tp = 1 run on the
     same weights."""
     tp = model_tp.tp
@@ -166,8 +167,10 @@ def tp_params_from_full(model_tp: ModelDef, model_1: ModelDef, params_1: Mapping
                              f"{(stack, 1, pool_1.layout.flat_len)}")
         rows = torch.zeros((stack, tp, pool_tp.layout.flat_len), dtype=full.dtype,
                            device=full.device)
-        for seg in pool_tp.layout.segments:
-            s1 = pool_1.layout.seg(seg.name)
+        # by position: a name may repeat (the sLSTM's ``s.wo``, ROADMAP Queue 3)
+        for seg, s1 in zip(pool_tp.layout.segments, pool_1.layout.segments, strict=True):
+            if seg.name != s1.name:
+                raise ValueError(f"pool {name!r}: segment {seg.name!r} at tp, {s1.name!r} at tp 1")
             whole = full[:, 0, s1.offset:s1.end].reshape(stack, *s1.shape)
             dim = _sharded_dim(seg, s1)
             for j in range(tp):

@@ -63,9 +63,10 @@ SCORES_BF16_UNNEEDED = (
     "kernels never write the scores to HBM, so bf16 scores would save no traffic; the "
     "kernels keep fp32 scores")
 # Families the port trains on a CUDA device: each kernel their layers reach
-# has a hand-written backward (griffin's RG-LRU since slice 7; MoE layers
-# reach RMSNorm and flash attention, their experts are plain products).
-CUDA_TRAIN_FAMILIES = ("dense", "griffin", "moe")
+# has a hand-written backward (griffin's RG-LRU; MoE, VLM and
+# xLSTM layers reach RMSNorm and flash attention, their experts, cross
+# layers' gates and xLSTM recurrences are plain PyTorch).
+CUDA_TRAIN_FAMILIES = ("dense", "griffin", "moe", "vlm", "xlstm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +101,7 @@ class MiCSConfig:
     kv_dtype: str = "bf16"              # paged-KV block dtype: 'fp32' | 'bf16' | 'int8'
     kv_block_size: int = 16             # tokens per paged-KV block
     max_resident_requests: int = 0      # serving residency cap a rank (carried, not derived)
+    mlstm_chunk: int = 0                # chunkwise-parallel mLSTM (0: the timestep scan)
 
     def __post_init__(self):
         if self.gather_dtype not in (torch.float32, torch.bfloat16):
@@ -219,8 +221,7 @@ def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology, family: str = "dense",
     if device.type == "cuda" and family not in CUDA_TRAIN_FAMILIES:
         raise NotImplementedError(
             f"family {family!r} does not train on a CUDA device: the port trains "
-            f"{CUDA_TRAIN_FAMILIES} there (vlm, encdec and xlstm wait for ROADMAP Queue 1 "
-            "item 7, the other families)")
+            f"{CUDA_TRAIN_FAMILIES} there (encdec waits for ROADMAP Queue 1 item 7)")
     for name, (default, item) in UNPORTED_TRAIN.items():
         if getattr(mcfg, name) != default:
             raise NotImplementedError(
@@ -255,7 +256,8 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
     ``state``: this rank's shards (:func:`init_state`; with
     ``mcfg.offload_opt`` its m and v are host tensors, ``init_state(...,
     offload_opt=True)``); ``batch``: this rank's slice, tokens / targets /
-    mask ``[micro_steps, b, T]`` (numpy or tensors).  ``groups``: the
+    mask ``[micro_steps, b, T]`` (numpy or tensors), and for the VLM its
+    ``vision`` rows ``[micro_steps, b, n_vision_tokens, d_model]``.  ``groups``: the
     ``launch.mesh.MiCSGroups`` of ``topo``, needed at p > 1 or with more
     than one replica (``ValueError`` without).
     ``metrics``: fp32 0-dim tensors ``loss`` and ``aux`` (means over the
@@ -273,13 +275,15 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
     boundary = plan_boundary(model, topo, mode=mcfg.boundary_schedule,
                              bucket_mb=mcfg.hop2_bucket_mb, clip_mode=mcfg.clip_mode)
     ctx = L.Ctx(mode="train", tp=topo.model_size, compute_dtype=mcfg.gather_dtype,
-                comm=comm)
+                comm=comm, mlstm_chunk=mcfg.mlstm_chunk)
     s = mcfg.micro_steps
     denom = float(s * topo.data_parallel_size)
+    batch_keys = ("tokens", "targets", "mask") + (("vision",) if model.cfg.family == "vlm"
+                                                   else ())
 
     def step_fn(state, batch):
         _check_state(model, topo, state, dev, mcfg.offload_opt)
-        batch = {k: torch.as_tensor(batch[k]).to(dev) for k in ("tokens", "targets", "mask")}
+        batch = {k: torch.as_tensor(batch[k]).to(dev) for k in batch_keys}
         if batch["tokens"].shape[0] != s:
             raise ValueError(f"batch has {batch['tokens'].shape[0]} micro-steps, "
                              f"the step runs {s}")
@@ -306,7 +310,7 @@ def accumulate_grads(model: ModelDef, comm: CommEngine, ctx: L.Ctx, params: dict
     """The micro-step loop of one step: for each micro-batch (dim 0 of
     ``batch``'s tokens / targets / mask), the loss forward and backward, each
     pool row's fp32 gradient added to its row of the accumulator in
-    micro-step order.  Returns ``(grads, loss_sum, aux_sum)``: the fp32
+    micro-step order (the VLM's ``vision`` is sliced by micro-step too).  Returns ``(grads, loss_sum, aux_sum)``: the fp32
     gradient sums like ``params``, and the fp32 sums of the micro-steps'
     ``loss`` and ``aux`` metrics."""
     dev = next(iter(params.values())).device

@@ -25,7 +25,9 @@ resilient continuous-batching engine.
 Weights are random, made from ``--seed``.  ``--quant-gather`` stores them
 as int8 with fp32 block scales (``quant.quantize_state``) and dequantizes
 each layer's row at every step.  The fixed-batch path serves on one rank,
-as the reference's does.
+as the reference's does; for the VLM (``--arch llama-3.2-vision-90b``) its
+batch carries the stub vision frontend's patch embeddings, drawn after the
+prompts from the same generator (:func:`stub_batch`).
 
 ``--continuous`` serves a seeded request trace through the resilient
 continuous-batching engine (``runtime/resilient.py``: the paged KV pool at
@@ -44,7 +46,8 @@ would leave the launch world (fewer than one rank, more than it has) is
 refused before anything runs.  Rank 0 prints the warm tick, the served
 counts and tokens/s, the request-lifecycle ledger, the world changes and
 crashes and the ladder transitions.  The engine serves the dense and MoE
-families (griffin's windowed and recurrent caches are not paged); an MoE
+families (griffin's windowed and recurrent caches, xLSTM's states and the
+VLM's cross caches are not paged, as in the reference); an MoE
 model's dead rows take no expert slot.  ``--policy auto`` needs the
 link-model autotuner (ROADMAP Queue 1 item 8) and is refused.
 """
@@ -175,6 +178,19 @@ def serve_continuous(cfg, mcfg: MiCSConfig, args, dev: torch.device, groups=None
         raise RuntimeError("lifecycle ledger lost a request")
 
 
+def stub_batch(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
+    """The fixed batch's inputs, from one ``np.random.default_rng(seed)``:
+    the prompts ``[batch, prompt_len]``, then for the VLM the stub vision
+    frontend's patch embeddings ``[batch, n_vision_tokens, d_model]``,
+    normal, bf16 (the reference launcher's draws, in its order)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len))).to(device)}
+    if cfg.family == "vlm":
+        out["vision"] = torch.from_numpy(rng.normal(
+            size=(batch, cfg.n_vision_tokens, cfg.d_model))).to(torch.bfloat16).to(device)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -264,12 +280,10 @@ def main(argv=None):
     cache_len = args.prompt_len + args.decode_tokens
     prefill_fn, decode_fn = build_serve_steps(model, topo, mcfg, cache_len, device=dev)
 
-    rng = np.random.default_rng(args.seed)
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))).to(dev)
+    batch = stub_batch(cfg, args.batch, args.prompt_len, args.seed, dev)
 
     t0 = time.perf_counter()
-    logits, caches = prefill_fn(params, {"tokens": tokens})
+    logits, caches = prefill_fn(params, batch)
     _sync(dev)
     wire = "int8 weights" if args.quant_gather else "bf16 gather"
     print(f"prefill {args.batch}x{args.prompt_len} ({wire}): "

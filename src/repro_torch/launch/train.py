@@ -36,7 +36,9 @@ and ``--compress-hop2`` (fp32, bf16 or int8 gradient wires) and
 ``--grad-rounding`` (the int8 gradient wires' rounding); a line says
 which.  A setting the port does not run yet (``--policy auto`` and
 ``--hbm-budget-gb``, ROADMAP Queue 1 item 8) raises
-``NotImplementedError``.  The
+``NotImplementedError``, and so does ``--arch llama-3.2-vision-90b``: the
+VLM's steps take ``vision`` rows (``core/mics.build_train_step``), which
+neither the reference's launcher nor its data pipeline makes.  The
 reference's memory-plan and autotune printouts wait for those modules.
 Only rank 0 prints.
 """
@@ -119,6 +121,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: the VLM trains on batches with vision rows, and the data pipeline "
+            "makes none (nor do the reference's launcher and pipeline; ROADMAP Queue 3): "
+            "train it through core.mics.build_train_step with a batch's 'vision'")
     p = args.partition_size if args.partition_size is not None or world > 1 else 1
     topo = make_mics_topology(world, p, zero3=args.zero3, tp=args.tp,
                               param_count=cfg.param_count())

@@ -1,5 +1,5 @@
-"""Dense and MoE transformer layers (the port of the dense and MoE parts of
-``repro/models/blocks.py``).
+"""Dense, MoE and gated cross-attention layers (the port of the dense, MoE
+and VLM parts of ``repro/models/blocks.py``).
 
 Each sub-block provides ``*_layout(cfg, tp, b)`` (appends its segments to a
 LayoutBuilder) and ``*_apply`` (a plain function over unflattened tensors).
@@ -206,12 +206,43 @@ def self_attention(t, x, ctx: L.Ctx, ad: AttnDims, cfg: ArchConfig, *,
     return attn_out(t, out, ad, ctx, prefix, bias=bias), new_cache
 
 
+def cross_attention(t, x, kv_src, ctx: L.Ctx, ad: AttnDims, cfg: ArchConfig, *,
+                    prefix: str = "xattn.", cache=None):
+    """Cross attention against a source sequence (the VLM's vision rows),
+    non-causal over all of its keys, no rotary on either side, no biases
+    (the reference's ``bias`` serves enc-dec).  Prefill returns the
+    projected source K/V as the cache ({k, v} [b, src, hkv, dh] in the
+    compute dtype); decode reads them from ``cache`` and projects only the
+    queries.  Returns (out, cache)."""
+    bsz, tq, _ = x.shape
+    if ctx.mode == "decode" and cache is not None:
+        q = (x @ t[prefix + "wq"]).reshape(bsz, tq, ad.hkv_local, ad.q_per_kv_local,
+                                           ad.head_dim)
+        out = L.attention(q, cache["k"], cache["v"], causal=False)
+        return attn_out(t, out, ad, ctx, prefix, bias=False), cache
+    q, k, v = attn_qkv(t, x, kv_src, ad, ctx, prefix, bias=False)
+    out = L.attention(q, k, v, causal=False)
+    new_cache = None
+    if ctx.mode == "prefill":
+        new_cache = {"k": k.to(ctx.compute_dtype).contiguous(),
+                     "v": v.to(ctx.compute_dtype).contiguous()}
+    return attn_out(t, out, ad, ctx, prefix, bias=False), new_cache
+
+
 def make_kv_cache(cfg: ArchConfig, tp: int, batch: int, cache_len: int, *,
                   window: int = 0, dtype: torch.dtype = torch.bfloat16,
                   device: torch.device | str):
     ad = attn_dims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, tp)
     cap = min(window, cache_len) if window else cache_len
     shape = (batch, cap, ad.hkv_local, ad.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def make_cross_cache(cfg: ArchConfig, tp: int, batch: int, src_len: int, *,
+                     dtype: torch.dtype = torch.bfloat16, device: torch.device | str):
+    ad = attn_dims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, tp)
+    shape = (batch, src_len, ad.hkv_local, ad.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -278,6 +309,43 @@ def dense_layer_apply(cfg: ArchConfig, ad: AttnDims, t, x, ctx: L.Ctx,
     x = x + a
     h = apply_norm(cfg, tt, x, "ln2")
     x = x + mlp_apply(cfg, tt, h, ctx, "mlp.")
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# gated cross-attention layer (llama-3.2-vision)
+# ---------------------------------------------------------------------------
+
+def cross_layer_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = ""):
+    pb = LayoutBuilder(prefix)
+    norm_layout(cfg, tp, pb, "ln1")
+    attn_layout(cfg, tp, pb, "xattn.")
+    pb.add("gate_attn", (1,), init="zeros", decay=False)
+    norm_layout(cfg, tp, pb, "ln2")
+    mlp_layout(cfg, tp, pb, "mlp.")
+    pb.add("gate_mlp", (1,), init="zeros", decay=False)
+    b.extend(pb)
+
+
+def _gate(g: torch.Tensor, x: torch.Tensor, ctx: L.Ctx) -> torch.Tensor:
+    """``tanh(g)`` in fp32, cast to x's dtype.  The gate is stored whole on
+    every model rank; in training at tp > 1 its gradient is summed over
+    the model group (:func:`layers.tp_replicated`)."""
+    return torch.tanh(L.tp_replicated(g, ctx).float()).to(x.dtype)
+
+
+def cross_layer_apply(cfg: ArchConfig, ad: AttnDims, t, x, ctx: L.Ctx, cache=None,
+                      prefix: str = ""):
+    """The gated cross-attention layer: ``x + tanh(gate_attn) xattn(ln1
+    x, vision)``, then ``+ tanh(gate_mlp) mlp(ln2 x)``.  The gates are zero
+    at init (the layer is then the identity)."""
+    tt = strip_prefix(t, prefix)
+    h = apply_norm(cfg, tt, x, "ln1")
+    a, new_cache = cross_attention(tt, h, ctx.vision, ctx, ad, cfg, prefix="xattn.",
+                                   cache=cache)
+    x = x + _gate(tt["gate_attn"], x, ctx) * a
+    h = apply_norm(cfg, tt, x, "ln2")
+    x = x + _gate(tt["gate_mlp"], x, ctx) * mlp_apply(cfg, tt, h, ctx, "mlp.")
     return x, new_cache
 
 

@@ -1,6 +1,6 @@
-"""Model registry: ArchConfig -> ModelDef (the port of the dense, griffin
-and MoE parts of ``repro/models/build.py``) and the parameter counts.
-Other families raise ``NotImplementedError``."""
+"""Model registry: ArchConfig -> ModelDef (the port of the dense, griffin,
+MoE, VLM and xLSTM parts of ``repro/models/build.py``) and the parameter
+counts.  The encoder-decoder family raises ``NotImplementedError``."""
 
 from __future__ import annotations
 
@@ -43,10 +43,10 @@ def _wrap(apply):
 
 
 def build_model(cfg: ArchConfig, tp: int) -> ModelDef:
-    if cfg.family not in ("dense", "griffin", "moe"):
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port builds the dense, griffin and MoE families "
-            "so far (vlm, encdec and xlstm: ROADMAP Queue 1 item 7)")
+            f"family {cfg.family!r}: the port builds the dense, griffin, MoE, VLM and xLSTM "
+            "families so far (encdec: ROADMAP Queue 1 item 7)")
     if cfg.norm != "rms" or cfg.mlp not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"norm {cfg.norm!r} / mlp {cfg.mlp!r}: the port builds RMSNorm + "
@@ -70,6 +70,15 @@ def build_model(cfg: ArchConfig, tp: int) -> ModelDef:
             lambda t, x, ctx, cache: B.moe_layer_apply(cfg, ad, t, x, ctx, cache),
             make_cache=lambda bsz, clen, dtype, device: B.make_kv_cache(
                 cfg, tp, bsz, clen, dtype=dtype, device=device)),)
+    elif cfg.family == "vlm":
+        pools = (_vlm_pool(cfg, tp, ad),)
+    elif cfg.family == "xlstm":
+        every = cfg.slstm_every or 4
+        pattern = ("m",) * (every - 1) + ("s",)
+        n_super, rem = divmod(cfg.n_layers, len(pattern))
+        pools = (_xlstm_pool(cfg, tp, pattern, n_super, "x"),)
+        if rem:
+            pools += (_xlstm_pool(cfg, tp, ("m",) * rem, 1, "xtail"),)
     else:
         pattern = cfg.pattern or ("rec", "rec", "attn")
         n_super, rem = divmod(cfg.n_layers, len(pattern))
@@ -119,6 +128,71 @@ def _griffin_pool(cfg: ArchConfig, tp: int, ad: AttnDims, pattern, stack: int,
                          else B.make_kv_cache(cfg, tp, bsz, clen, window=cfg.window,
                                               dtype=dtype, device=device))
                 for kind, prefix in kinds}
+
+    return Pool(name, b.build(), stack, apply, make_cache)
+
+
+def _vlm_pool(cfg: ArchConfig, tp: int, ad: AttnDims) -> Pool:
+    """One pool of super-layers, each ``cross_interval`` dense layers
+    (prefixes ``s0.``, ``s1.``, ...) and one gated cross-attention layer
+    (``x.``); its cache is ``{"s0": KV cache, ..., "x": cross cache}``."""
+    n_self = cfg.cross_interval
+    n_super, rem = divmod(cfg.n_layers, n_self + 1)
+    if rem:
+        raise ValueError("vlm layer count must divide by (interval+1)")
+    b = LayoutBuilder()
+    for i in range(n_self):
+        B.dense_layer_layout(cfg, tp, b, prefix=f"s{i}.")
+    B.cross_layer_layout(cfg, tp, b, prefix="x.")
+
+    def apply(t, x, ctx, cache):
+        nc = {}
+        for i in range(n_self):
+            sub = cache.get(f"s{i}") if cache else None
+            x, nc[f"s{i}"] = B.dense_layer_apply(cfg, ad, t, x, ctx, sub, prefix=f"s{i}.")
+        x, nc["x"] = B.cross_layer_apply(cfg, ad, t, x, ctx, cache.get("x") if cache else None,
+                                         prefix="x.")
+        if all(v is None for v in nc.values()):
+            nc = None
+        return (x, 0.0), nc
+
+    def make_cache(bsz, clen, dtype, device):
+        c = {f"s{i}": B.make_kv_cache(cfg, tp, bsz, clen, dtype=dtype, device=device)
+             for i in range(n_self)}
+        c["x"] = B.make_cross_cache(cfg, tp, bsz, cfg.n_vision_tokens, dtype=dtype,
+                                    device=device)
+        return c
+
+    return Pool("layers", b.build(), n_super, apply, make_cache)
+
+
+def _xlstm_pool(cfg: ArchConfig, tp: int, pattern, stack: int, name: str) -> Pool:
+    """One pool of ``stack`` super-layers, each the mLSTM (``m``) and sLSTM
+    (``s``) blocks of ``pattern`` under the prefixes ``m0.``, ``m1.``, ...,
+    ``s0.``; its cache is ``{prefix: mLSTM | sLSTM state}``, fp32 states
+    (and a bf16 conv window) whatever the cache dtype."""
+    b = LayoutBuilder()
+    kinds = []
+    counts = {"m": 0, "s": 0}
+    for kind in pattern:
+        prefix = f"{kind}{counts[kind]}."
+        counts[kind] += 1
+        kinds.append((kind, prefix))
+        (R.mlstm_layout if kind == "m" else R.slstm_layout)(cfg, tp, b, prefix=prefix)
+
+    def apply(t, x, ctx, cache):
+        nc = {}
+        for kind, prefix in kinds:
+            sub = cache.get(prefix) if cache else None
+            block = R.mlstm_apply if kind == "m" else R.slstm_apply
+            x, nc[prefix] = block(cfg, t, x, ctx, sub, prefix=prefix)
+        if all(v is None for v in nc.values()):
+            nc = None
+        return (x, 0.0), nc
+
+    def make_cache(bsz, clen, dtype, device):
+        return {prefix: (R.make_mlstm_cache if kind == "m" else R.make_slstm_cache)(
+            cfg, bsz, device=device) for kind, prefix in kinds}
 
     return Pool(name, b.build(), stack, apply, make_cache)
 

@@ -39,8 +39,10 @@ class Ctx:
     pos: Any = None                # decode: absolute position (int), or [b] per request
     pages: Any = None              # decode over a paged KV pool: runtime/paged.PageState
     cache_len: int = 0             # KV-cache capacity
+    vision: Any = None             # [b, n_img, d] stub patch embeddings (the VLM)
     compute_dtype: torch.dtype = torch.bfloat16
     comm: Any = None               # the CommEngine of the model axis (tp > 1)
+    mlstm_chunk: int = 0           # chunkwise-parallel mLSTM (0: the timestep scan)
     step_seed: int | None = None   # the training step: the int8 wires' dither seed
 
     def tp_index(self) -> int:
@@ -113,6 +115,29 @@ def embed_lookup(table_local: torch.Tensor, ids: torch.Tensor, ctx: Ctx) -> torc
 def tp_psum(x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     """The sum of a row-parallel output over the model group."""
     return x if ctx.tp == 1 else ctx.comm.model_psum(x)
+
+
+class _ReplicatedGrad(torch.autograd.Function):
+    """The identity, whose backward sums the cotangent over the model group."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.comm.model_psum(ct), None
+
+
+def tp_replicated(w: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    """A weight stored whole on every model rank (no model gather), as it
+    is used.  Each model rank's loss is seeded with 1/tp
+    (``core/mics.accumulate_grads``), so in training at tp > 1 its
+    gradient is summed over the model group to be the loss's own."""
+    if ctx.tp == 1 or not _records_grad(w):
+        return w
+    return _ReplicatedGrad.apply(w, ctx.comm)
 
 
 class _CrossEntropy(torch.autograd.Function):

@@ -95,7 +95,8 @@ class ModelDef:
 
 def _tree_map(fn, tree):
     """Apply ``fn`` to every tensor of a nested dict of tensors (a pool's
-    cache: ``{k, v}`` for the dense family, ``{prefix: {...}}`` for griffin)."""
+    cache: ``{k, v}`` for the dense family, ``{prefix: {...}}`` for griffin
+    and xLSTM, ``{"s0": {k, v}, ..., "x": {k, v}}`` for the VLM)."""
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
@@ -282,13 +283,17 @@ def lm_logits(model: ModelDef, t_head, x, ctx: L.Ctx):
 
 def forward(model: ModelDef, flat: dict[str, torch.Tensor], comm, ctx: L.Ctx,
             batch: dict[str, torch.Tensor], caches: dict | None = None):
-    """Embedding -> pools -> final hidden states.
+    """Embedding -> pools -> final hidden states.  The VLM's batch carries
+    ``vision`` [b, n_vision_tokens, d] outside decode.
 
     Returns (hidden, aux_loss, new_caches, t_head).
     """
     t_embed = comm.gather(model.embed, _row(flat["embed"], 0), seed=ctx.step_seed)
     aux_total = 0.0
     new_caches: dict[str, Any] = {}
+    if model.cfg.family == "vlm" and ctx.mode != "decode":
+        # decode reads the vision rows' K/V from the cross layers' caches
+        ctx = dataclasses.replace(ctx, vision=batch["vision"].to(ctx.compute_dtype))
     x = embed_tokens(model, t_embed, batch["tokens"], ctx)
     for pool in model.pools:
         pool_cache = caches.get(pool.name) if caches is not None else None
@@ -342,14 +347,16 @@ def decode_step(model: ModelDef, flat, comm, ctx: L.Ctx, tokens: torch.Tensor,
 
 def init_caches(model: ModelDef, batch: int, cache_len: int, *,
                 dtype: torch.dtype = torch.bfloat16, device: torch.device | str):
-    """Zero caches for every pool, stacked along the pool's stack dim."""
+    """Initial caches for every pool (one layer's ``make_cache`` repeated
+    along the pool's stack dim: zeros, and xLSTM's stabiliser states at
+    their start value)."""
     caches = {}
     for pool in model.pools:
         if pool.make_cache is None:
             continue
         one = pool.make_cache(batch, cache_len, dtype, device)
-        caches[pool.name] = _tree_map(lambda a: torch.zeros(
-            (pool.stack, *a.shape), dtype=a.dtype, device=a.device), one)
+        caches[pool.name] = _tree_map(
+            lambda a: a.unsqueeze(0).repeat(pool.stack, *(1,) * a.dim()), one)
     return caches
 
 

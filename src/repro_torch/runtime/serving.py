@@ -17,7 +17,9 @@ part): the batch goes over the data ranks, each running its ``B / dp``
 rows; heads and vocab columns go over the model group, so a rank's KV
 caches hold ``attn_dims(...).hkv_local`` heads (where ``n_kv_heads < tp``
 the one head its query group reads: DESIGN.md §3's head-slot replication)
-and its logits its ``V / tp`` columns of its rows.  The sampled tokens are
+and its logits its ``V / tp`` columns of its rows.  xLSTM's states are
+not cut over the model group: every model rank holds and computes its
+rows' whole state (the reference's replicated cell).  The sampled tokens are
 gathered over the data group, so every rank's host loop holds the global
 ``[B, 1]`` tokens.
 """
@@ -98,7 +100,7 @@ def serve_engine(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, groups,
                          "world: it serves nothing")
     comm = CommEngine.from_config(topo, mcfg, groups=groups)
     ctx = L.Ctx(mode="decode", tp=topo.model_size, cache_len=cache_len,
-                compute_dtype=mcfg.gather_dtype, comm=comm)
+                compute_dtype=mcfg.gather_dtype, comm=comm, mlstm_chunk=mcfg.mlstm_chunk)
     return comm, ctx
 
 
@@ -122,8 +124,9 @@ def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
     ``topo``, needed at more than one rank (``ValueError`` without).
 
     ``prefill_fn(params, batch) -> (logits [b, 1, V / tp], caches)``: the
-    global batch's tokens [B, T], of which this data rank runs its ``b = B
-    / dp`` rows; ``params`` are the rank's shards (``init_params(...,
+    global batch's tokens [B, T] (and the VLM's ``vision`` [B,
+    n_vision_tokens, d]), of which this data rank runs its ``b = B / dp``
+    rows; ``params`` are the rank's shards (``init_params(...,
     topo=, rank=)``; with ``mcfg.quant_gather`` stored int8 pools,
     ``quant.quantize_state`` of them); the caches are the rank's.
     ``decode_fn(params, caches, tokens, pos, seeds=None, temps=None,
@@ -142,9 +145,9 @@ def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
     @torch.inference_mode()
     def prefill_fn(params, batch):
         _check_params(model, topo, params, dev, mcfg.quant_gather)
-        tokens = batch["tokens"]
-        tokens = tokens[local_rows(comm, tokens.shape[0])].to(dev)
-        return lm.prefill(model, params, comm, ctx, {"tokens": tokens})
+        mine = local_rows(comm, batch["tokens"].shape[0])
+        keys = ("tokens", "vision") if model.cfg.family == "vlm" else ("tokens",)
+        return lm.prefill(model, params, comm, ctx, {k: batch[k][mine].to(dev) for k in keys})
 
     @torch.inference_mode()
     def decode_fn(params, caches, tokens, pos, seeds=None, temps=None, row_mask=None):

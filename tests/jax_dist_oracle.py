@@ -470,7 +470,10 @@ def _serve_fixed_case(name: str) -> dict:
                       hierarchy_inner=inner, quant_gather=int8)
     prefill_fn, decode_fn = build_serve_steps(model, topo, mcfg, K.SERVE_CACHE)
     prompts, tok = K.serve_inputs(name)
-    logits, caches = prefill_fn(params, {"tokens": jnp.asarray(prompts, jnp.int32)})
+    batch = {"tokens": jnp.asarray(prompts, jnp.int32)}
+    if K.serve_vision(name) is not None:
+        batch["vision"] = jnp.asarray(K.serve_vision(name))
+    logits, caches = prefill_fn(params, batch)
     out = {f"{name}.prefill": np.asarray(logits)}
     tok = jnp.asarray(tok, jnp.int32)
     toks = []

@@ -60,7 +60,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # a value ~1e-6 apart between the packages may round one bf16 ulp apart
 # (test_torch_tp.py's note) and that ulp reaches the next step's logits:
 # TOL["fp32"]'s moment tolerance (measured 2.6e-5).
-LOGIT_RTOL = {"llama3.2-1b": TOL["fp32"]["loss"], "recurrentgemma-2b": TOL["fp32"]["m"]}
+LOGIT_RTOL = {"llama3.2-1b": TOL["fp32"]["loss"], "recurrentgemma-2b": TOL["fp32"]["m"],
+              "llama-3.2-vision-90b": TOL["fp32"]["loss"]}
 LAUNCH_PLAN = "preempt@4x1,grow@8x1"
 
 
@@ -189,6 +190,33 @@ def test_fixed_batch_collective_counts(runs, name):
     want = _serve_expected_calls(name)
     for r in range(K.WORLD):
         assert json.loads(str(runs[0][f"{name}.calls"][r])) == want, r
+
+
+def test_vlm_over_ranks_serves_the_tp1_tokens(runs):
+    """The VLM at p 2 x tp 2 (its cross layers' heads over the model group,
+    the vision rows over the data ranks) greedy-decodes the tokens of the
+    port at tp 1 on the whole weights, and its logits are those of tp 1."""
+    from repro_torch.runtime.serving import build_serve_steps
+
+    name = "vlm@P2T2"
+    got = runs[0]
+    arch, lay = K.SERVE_FIXED[name][:2]
+    model = build_model(smoke_variant(get_config(arch)), 1)
+    params = {k: torch.from_numpy(v) for k, v in K.numpy_params(
+        model, K.serve_weights_key(name)).items()}
+    prefill_fn, decode_fn = build_serve_steps(model, MiCSTopology(), MiCSConfig(
+        gather_dtype=torch.float32), K.SERVE_CACHE, device="cpu")
+    prompts, tok = K.serve_inputs(name)
+    logits, caches = prefill_fn(params, {"tokens": torch.from_numpy(prompts),
+                                         "vision": torch.from_numpy(K.serve_vision(name))})
+    _close(_assemble(got, f"{name}.prefill", _topo(lay)), logits.numpy(), LOGIT_RTOL[arch],
+           "prefill against tp 1")
+    tok, toks = torch.from_numpy(tok), []
+    for i in range(K.SERVE_STEPS):
+        logits, tok, caches = decode_fn(params, caches, tok, K.SERVE_T + i)
+        toks.append(tok[:, 0].numpy())
+    for r in range(K.WORLD):
+        np.testing.assert_array_equal(got[f"{name}.tokens"][r], np.stack(toks, axis=1))
 
 
 @pytest.mark.parametrize("layout", ["A", "B", "P2T2", "T4"])

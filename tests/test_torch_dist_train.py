@@ -495,7 +495,11 @@ def _tp_expected_calls(name) -> dict:
     and their reduce-scatters; the loss's pmax, its two psums and the
     backward's one.  A step adds the norm's psum over the model group,
     over the partition group at p > 1, and the loss mean over the data
-    ranks when there are several; the partition gathers as at tp 1."""
+    ranks when there are several; the partition gathers as at tp 1 (a
+    layer pool of one row runs the serial schedule, whose checkpoint holds
+    the gather: its recompute gathers the row again).  A segment whose
+    name repeats later in its layout (the sLSTM's ``s.wo``, ROADMAP
+    Queue 3) is gathered but never read, so it has no reduce-scatter."""
     topo, model, _ = _tp_models(name)
     tp, calls = topo.model_size, {}
 
@@ -503,11 +507,13 @@ def _tp_expected_calls(name) -> dict:
         calls[key] = calls.get(key, 0) + n
 
     for pool in model.pools:
-        for seg in pool.layout.segments:
+        names = [seg.name for seg in pool.layout.segments]
+        for i, seg in enumerate(pool.layout.segments):
             if seg.model_gather > 1:
                 label = "model" if seg.model_gather == tp else "kv"
                 add(f"all_gather:{label}", 2 * pool.stack * K.MICRO)
-                add(f"reduce_scatter:{label}", pool.stack * K.MICRO)
+                if seg.name not in names[i + 1:]:
+                    add(f"reduce_scatter:{label}", pool.stack * K.MICRO)
         psums = sum(seg.name.endswith(("attn.wo", "rec.wo", "mlp.wd"))
                     for seg in pool.layout.segments)
         add("all_reduce:model", (3 * psums - 1) * pool.stack * K.MICRO)
@@ -517,7 +523,8 @@ def _tp_expected_calls(name) -> dict:
     add("all_reduce:model", 3 * K.MICRO + 1)
     if topo.partition_size > 1:
         rows = sum(pool.stack for pool in model.all_pools())
-        add("all_gather:partition", rows * K.MICRO)
+        serial = sum(pool.stack == 1 for pool in model.pools)
+        add("all_gather:partition", (rows + serial) * K.MICRO)
         add("reduce_scatter:partition", rows * K.MICRO)
         add("all_reduce:partition", 1)
     if topo.data_parallel_size > 1:

@@ -158,10 +158,10 @@ def test_later_slices_raise():
         gp = CommEngine.from_config(MiCSTopology(), MiCSConfig(**staged)).gather_policy
         assert (gp.topology, gp.inner) == (topology, inner)
     assert CommEngine.from_config(MiCSTopology(), MiCSConfig()).gather_policy == GatherPolicy()
-    xlstm = ArchConfig(name="x", family="xlstm", n_layers=2, d_model=64, n_heads=4,
-                       n_kv_heads=4, d_ff=128, vocab=256)
+    encdec = ArchConfig(name="e", family="encdec", n_layers=2, d_model=64, n_heads=4,
+                        n_kv_heads=4, d_ff=128, vocab=256, n_encoder_layers=2)
     with pytest.raises(NotImplementedError):
-        build_model(xlstm, tp=1)
+        build_model(encdec, tp=1)
     gelu = ArchConfig(name="w", family="dense", n_layers=2, d_model=64, n_heads=4,
                       n_kv_heads=4, d_ff=128, vocab=256, mlp="gelu")
     with pytest.raises(NotImplementedError):
@@ -172,4 +172,4 @@ def test_later_slices_raise():
     with pytest.raises(NotImplementedError, match="gelu"):  # never a quiet SwiGLU
         blocks.mlp_apply(gelu, {}, torch.zeros(1, 1, 64), Ctx())
     with pytest.raises(KeyError):
-        get_config("xlstm-125m")
+        get_config("whisper-large-v3")

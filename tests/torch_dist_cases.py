@@ -454,6 +454,9 @@ TP_TRAINS = {
     "griffin@T4": ("recurrentgemma-2b", "T4", "fp32", {"n_heads": 10}),
     # the reference's griffin_partition_equiv layout
     "griffin@P2T2": ("recurrentgemma-2b", "P2T2", "fp32", {}),
+    # xLSTM: every block's weights gathered whole over the model group, the
+    # cells computed on every model rank; the sLSTM's MLP tensor-parallel
+    "xlstm@P2T2": ("xlstm-125m", "P2T2", "fp32", {}),
 }
 
 
@@ -469,9 +472,10 @@ def numpy_params(model, name: str) -> dict[str, np.ndarray]:
     either package: the two lay out the same segments): ``{pool: [stack, 1,
     flat_len]}`` fp32, each segment normal with its layout's std (0.1 for
     the zero-initialised norm scales and biases, so their gradients and
-    gathers are not of zeros), the RG-LRU's Λ from its ``lru`` range; the
-    padding 0.  Griffin super-layers get ``rec1.*`` copied over ``rec0.*``
-    (the reference's sub-layers both run ``rec1``'s weights)."""
+    gathers are not of zeros), the RG-LRU's Λ from its ``lru`` range, the
+    VLM's gates at ``VLM_GATE``; the padding 0.  The weights the reference
+    runs in place of a sub-layer's own are copied over them
+    (:func:`tie_shadowed`: griffin's ``rec1.*`` over ``rec0.*``, ...)."""
     rng = np.random.default_rng(_seed("tp_params:" + name))
     out = {}
     for pool in model.all_pools():
@@ -483,12 +487,61 @@ def numpy_params(model, name: str) -> dict[str, np.ndarray]:
                     v = np.log(a) - np.log1p(-a)
                 else:
                     v = rng.standard_normal(s.size) * (s.std if s.init == "normal" else 0.1)
+                if s.name.endswith(("gate_attn", "gate_mlp")):
+                    v = np.full(s.size, VLM_GATE)
                 rows[i, 0, s.offset:s.end] = v
-        segs = {s.name: s for s in pool.layout.segments}
-        for s in pool.layout.segments:
-            if s.name.startswith("rec0."):
-                s1 = segs["rec1." + s.name[len("rec0."):]]
-                rows[:, 0, s.offset:s.end] = rows[:, 0, s1.offset:s1.end]
+        out[pool.name] = rows
+    return tie_shadowed(model, out)
+
+
+# The VLM's cross-layer gates in every case's weights: zero at init, where
+# the gated layer is the identity and a wrong cross-attention would pass.
+VLM_GATE = 1.0
+
+
+def sublayer_prefixes(model, pool) -> list[str]:
+    """The prefixes of the sub-layers a pool's super-layer holds (griffin
+    ``rec0.``, ``attn0.``; xLSTM ``m0.``, ``s0.``; the VLM ``s0.``, ``x.``);
+    none for the other families' pools and for the embedding and head."""
+    if model.cfg.family not in ("griffin", "xlstm", "vlm") or pool.name in ("embed", "head"):
+        return []
+    return sorted({s.name.split(".")[0] + "." for s in pool.layout.segments})
+
+
+def reference_reads(layout, prefixes) -> dict[str, str]:
+    """{a sub-layer's own segment: the segment the reference runs in its
+    place} (ROADMAP Queue 3): the reference's sub-layers strip
+    ``len(prefix)`` characters from every name of the pool, so the last
+    segment in layout order whose name strips to the same key wins."""
+    names = [s.name for s in layout.segments]
+    out = {}
+    for prefix in prefixes:
+        n = len(prefix)
+        for own in names:
+            if own.startswith(prefix):
+                out[own] = [s for s in names if s[n:] == own[n:]][-1]
+    return out
+
+
+def _shadowed(model):
+    """(pool, {segment name: segment}, [(own, what the reference runs)])
+    for each pool with shadowed segments."""
+    for pool in model.pools:
+        pairs = [(own, won) for own, won in reference_reads(
+            pool.layout, sublayer_prefixes(model, pool)).items() if own != won]
+        if pairs:
+            yield pool, {s.name: s for s in pool.layout.segments}, pairs
+
+
+def tie_shadowed(model, params: dict) -> dict:
+    """``params`` (numpy ``[..., flat_len]`` pools) with the segments the
+    reference runs copied over each sub-layer's own: both packages then
+    compute the same function."""
+    out = dict(params)
+    for pool, segs, pairs in _shadowed(model):
+        rows = np.array(out[pool.name], copy=True)
+        for own, won in pairs:
+            rows[..., segs[own].offset:segs[own].end] = rows[..., segs[won].offset:segs[won].end]
         out[pool.name] = rows
     return out
 
@@ -499,19 +552,17 @@ def tp_batch() -> dict[str, np.ndarray]:
 
 
 def on_jax_basis(model, grads: dict) -> dict:
-    """Griffin gradients as the reference reads them: each ``rec0.*``
-    segment's gradient added to its ``rec1.*`` segment (both recurrent
-    sub-layers run ``rec1``'s weights there) and ``rec0.*`` zeroed; pools
-    ``[..., flat_len]`` of ``model``'s layout, numpy."""
+    """The port's gradients as the reference reads them: each shadowed
+    segment's gradient (griffin's ``rec0.*``, xLSTM's ``m0.m.*``, ...)
+    added to the segment the reference runs in its place and set to 0;
+    pools ``[..., flat_len]`` of ``model``'s layout (numpy or tensors),
+    numpy."""
     out = {k: np.array(v, copy=True) for k, v in grads.items()}
-    for pool in model.pools:
-        segs = {sg.name: sg for sg in pool.layout.segments}
-        for name, s0 in segs.items():
-            if name.startswith("rec0."):
-                s1 = segs["rec1." + name[len("rec0."):]]
-                g = out[pool.name]
-                g[..., s1.offset:s1.end] += g[..., s0.offset:s0.end]
-                g[..., s0.offset:s0.end] = 0.0
+    for pool, segs, pairs in _shadowed(model):
+        g = out[pool.name]
+        for own, won in pairs:
+            g[..., segs[won].offset:segs[won].end] += g[..., segs[own].offset:segs[own].end]
+            g[..., segs[own].offset:segs[own].end] = 0.0
     return out
 
 
@@ -615,6 +666,9 @@ SERVE_FIXED = {
     # the stored int8 weights, each side quantizing with its eager
     # nearest-rounding quantizer (bitwise the same bytes)
     "llama@B:int8": ("llama3.2-1b", "B", "inner_first", None, {}, True),
+    # the VLM's super-layer (4 dense + 1 gated cross layer, gates at
+    # VLM_GATE) with its vision rows split over the data ranks
+    "vlm@P2T2": ("llama-3.2-vision-90b", "P2T2", "inner_first", None, {}, False),
 }
 
 
@@ -623,6 +677,18 @@ def serve_inputs(name: str) -> tuple[np.ndarray, np.ndarray]:
     rng = np.random.default_rng(_seed("serve:" + name.split(":")[0]))
     return (rng.integers(1, VOCAB, (SERVE_B, SERVE_T)).astype(np.int64),
             rng.integers(1, VOCAB, (SERVE_B, 1)).astype(np.int64))
+
+
+def serve_vision(name: str) -> np.ndarray | None:
+    """The VLM case's stub vision rows ``[SERVE_B, n_vision_tokens,
+    d_model]`` of its smoke config, fp32; None for the other models."""
+    from repro_torch.configs import get_config, smoke_variant
+
+    cfg = smoke_variant(get_config(SERVE_FIXED[name][0]))
+    if cfg.family != "vlm":
+        return None
+    rng = np.random.default_rng(_seed("vision:" + name))
+    return rng.standard_normal((SERVE_B, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
 
 
 def serve_weights_key(name: str) -> str:

@@ -837,7 +837,10 @@ def serve(world: World) -> dict:
         prefill_fn, decode_fn = build_serve_steps(model, topo, mcfg, K.SERVE_CACHE,
                                                   device="cpu", groups=world.groups(lay, inner))
         prompts, tok = K.serve_inputs(name)
-        logits, caches = prefill_fn(params, {"tokens": torch.from_numpy(prompts)})
+        batch = {"tokens": torch.from_numpy(prompts)}
+        if K.serve_vision(name) is not None:
+            batch["vision"] = torch.from_numpy(K.serve_vision(name))
+        logits, caches = prefill_fn(params, batch)
         out[f"{name}.prefill"] = _np(logits)
         tok = torch.from_numpy(tok)
         toks = []
