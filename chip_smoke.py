@@ -1,5 +1,6 @@
 """Drive the PyTorch port's serve path and its training step for the model
-families it builds (dense, griffin, MoE, xLSTM, the VLM backbone) on one
+families it builds (dense, griffin, MoE, xLSTM, the VLM backbone,
+enc-dec, the paper's LayerNorm + GeLU models) on one
 NVIDIA card; hold every CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
@@ -274,6 +275,29 @@ check raises and the script exits non-zero; no phase swallows an error):
    decode step); the hand-off across the cached cross K/V; the cross layer
    at full width (64 tokens over the 1,024 vision rows) against fp32
    compute on the card (``fma``); a profiled decode step.
+3g. whisper-large-v3 and the paper's models, after the VLM.
+   ``serve_whisper``: whisper at full width and depth (32 encoder and 32
+   decoder layers, 1.646 B parameters), the launcher's stub batch (batch
+   4, prompt 64, audio frames [4, 1500, 1280] bf16), 32 greedy decode
+   steps: attention 96 on ``mma`` at the prefill (the encoder's
+   non-causal self-attention, the decoder's self and cross), 64 on
+   ``split`` a decode step (self, and cross over the cached encoder K/V),
+   no RMSNorm; the hand-off; the cross caches' shape; encoder layer 0 and
+   decoder layer 0 against fp32 compute on the card; a profiled decode
+   step and prefill.  ``serve_bert``: the paper's bert-10b at full depth
+   (127 layers, 40.6 GB of fp32 rows; batch 4, prompt 512, 16 steps),
+   then bert-50b cut to 2 layers at the same shapes, every attention call
+   through the padded route (dh 204 to 256; ``layers.launches_padded``
+   counts them), and the paged engine at that head dim (its pools stored
+   at 256): 4 steps at ragged lengths, paged == contiguous bit for bit,
+   int8 pools against bf16 ones.  ``train_whisper``: ``build_train_step`` at full width and
+   depth, 3 steps of 2 micro-steps of 2 x (1,500 frames + 448 tokens)
+   (attention 192 on ``mma`` and 96 backward on ``wgmma`` a micro-step),
+   MFU from ``encdec_train_flops``; ``train_whisper_probe``: step 1's
+   gradients by segment, the encoder's included, against fp32 compute
+   (``WHISPER_FP32_REL_TOL``) and a fault the limits must catch (the
+   encoder's gradient zeroed).  ``train_bert``: bert-10b cut to 16
+   layers, 3 steps of 2 micro-steps of 4 x 512.
 4. ``kernels``: each kernel at the paths' shapes against its plain version
    on the same inputs, with its time, the plain version's, one PyTorch
    library call's where there is one, and the card's bound for the same
@@ -345,7 +369,22 @@ check raises and the script exits non-zero; no phase swallows an error):
    micro-step's forward on ``mma`` and its backward on ``wgmma`` (tq 2048,
    tk 1024), and a ragged non-causal edge (tq 300, tk 1000) forward and
    backward on ``wgmma`` (g 4) and ``mma`` (g 3); RMSNorm forward and
-   backward at xLSTM's d 768 and 1536 and the VLM's 8192.
+   backward at xLSTM's d 768 and 1536 and the VLM's 8192.  whisper's
+   attention at g 1 (20 KV heads, dh 64): the encoder's non-causal 1,500 x
+   1,500 (a ragged last tile on both axes) forward at serve_whisper's
+   batch and backward at train_whisper's, the cross prefill (64 over
+   1,500 keys), the decode step over them on ``split``, the train cross
+   (448 over 1,500) forward and backward, the decoder's causal
+   self-attention prefill (64) and decode step (over 96); the paper's
+   causal T 512 at 40 heads of g 1: bert-10b (dh 64) and bert-20b (dh 128)
+   forward and backward, serve_bert's decode steps over 528 keys (bert-10b's
+   first and last, b hkv = 160 KV streams), bert-50b's dh 204 through the
+   model's call site ``layers.attention``, which pads (the prefill on
+   ``mma`` and the decode step on ``split`` at 256; the forward and the
+   ``wgmma256`` backward through ``FlashAttentionFn`` and autograd, with
+   the pad and the cut timed), and the ``paged`` route at bert-50b's
+   engine pools (40 KV heads of g 1 at 256, bf16 and int8 pages) as
+   correctness checks.
 
 ``python3 chip_smoke.py --profile-only`` runs the ``profile`` phases alone
 (both serve paths, then the train steps; no checks, no result line): it
@@ -509,9 +548,11 @@ def reset_counts() -> None:
     from repro_torch.kernels.quant import kernel as QK
     from repro_torch.kernels.rglru import kernel as RG
     from repro_torch.kernels.rmsnorm import kernel as RN
+    from repro_torch.models import layers as L
 
     for mod, attr in counter_attrs().values():
         setattr(mod, attr, 0)
+    L.launches_padded = 0
     for table in (FA.launches_by_route, FA.launches_bwd_by_route, FA.launches_paged_by_form,
                   RG.launches_by_form, RG.launches_bwd_by_form, RN.launches_bwd_by_route,
                   QK.launches_quantize_by_mode):
@@ -690,7 +731,9 @@ KERNEL_KINDS = (("flash_bwd", "flash attention backward"), ("flash_", "flash att
                 ("rmsnorm_bwd", "RMSNorm backward"), ("rmsnorm", "RMSNorm"),
                 ("rglru_bwd", "RG-LRU backward"), ("rglru", "RG-LRU"),
                 ("dequantize", "dequantize"), ("quantize", "quantize"), ("nvjet", "GEMM"),
-                ("gemm", "GEMM"),
+                ("gemm", "GEMM"), ("layer_norm_grad", "LayerNorm backward"),
+                ("GammaBeta", "LayerNorm backward"), ("layer_norm", "LayerNorm"),
+                ("Gelu", "GeLU"),
                 ("reduce_kernel", "reduction"), ("copy", "copy / cast"),
                 ("elementwise", "elementwise"), ("embedding", "embedding"))
 
@@ -2641,6 +2684,516 @@ def serve_vlm_phase(card: str, dev) -> dict:
             "cross_layer_vs_fp32": layer, "profile_decode": _profile_fields(prof), "gpu": card}
 
 
+# -- whisper-large-v3 and the paper's LayerNorm + GeLU models on one card ------------
+
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_FIXED = {"batch": 4, "prompt": 64, "steps": 32}
+WHISPER_LAYER_TOKENS = 64    # the decoder layer's check: 64 tokens over the 1,500 frames
+LN_LAYER_REL_TOL = 5e-2      # a layer in bf16 against fp32 compute, as the VLM's cross layer
+# train_whisper: 2 micro-steps of 2 x (1,500 frames + 448 tokens), 3 steps.
+# Launches a micro-step: attention 96 forward (32 encoder, 32 self, 32
+# cross) + 96 recomputed, on mma, and 96 backward on wgmma (dh 64, g 1
+# divides 64); LayerNorm and GeLU are PyTorch calls (no TPU kernel
+# computes them), no RMSNorm.
+WHISPER_TRAIN = TrainPath(WHISPER_ARCH, 4, 2, 448, 3,
+                          {"rmsnorm": 0, "rmsnorm_bwd": 0, "flash_attention": 192,
+                           "flash_attention_bwd": 96, "rglru": 0, "rglru_bwd": 0,
+                           "quantize": 0, "dequantize": 0},
+                          "wgmma", "regs", 0, 0)
+# train_whisper's step 1 (bf16 compute) against fp32 compute on the card,
+# relative, read as moe_grad_probe reads it (the loss, the grad norm, the
+# worst segment's gradient norm).  Set before the first card run from
+# train_moe's sound gaps (3.0e-5 / 1.2e-4 / 2.2e-3) and xLSTM's (its worst
+# segment 0.19, a segment whose gradient is rounding), ten times over the
+# gaps expected; the fault (the encoder's gradient zeroed) reads 1.0 on
+# every encoder segment.  The key biases ``attn.bk`` / ``xattn.bk`` are
+# left out of the segments: a bias added to every key adds the same
+# q . bk to each of a row's scores, so their gradient is zero but for
+# rounding.
+WHISPER_FP32_REL_TOL = {"loss": 1e-3, "grad_norm": 1e-2, "leaf_norm": 5e-2}
+BERT_ARCH = "bert-10b"
+BERT_FIXED = {"batch": 4, "prompt": 512, "steps": 16}
+BERT50_ARCH = "bert-50b"     # dh 8192 // 40 = 204: the padded route (256)
+BERT50_LAYERS = 2
+# train_bert: bert-10b cut to 16 of its 127 layers, 2 micro-steps of 4 x
+# 512, 3 steps; attention 16 + 16 on mma and 16 backward on wgmma a
+# micro-step (dh 64, g 1).
+BERT_TRAIN_LAYERS = 16
+BERT_TRAIN = TrainPath(BERT_ARCH, 8, 2, 512, 3,
+                       {"rmsnorm": 0, "rmsnorm_bwd": 0, "flash_attention": 32,
+                        "flash_attention_bwd": 16, "rglru": 0, "rglru_bwd": 0, "quantize": 0,
+                        "dequantize": 0},
+                       "wgmma", "regs", 0, 0)
+
+
+def _serve_run(label: str, model, params, batch: dict, fx: dict, dev, want_attention: dict):
+    """A fixed batch through ``build_serve_steps`` (bf16 gather, prefetch):
+    warmed once, then the counted run (:func:`_timed_serve`), its launches
+    held to ``want_attention`` (attention's by route; every other kernel
+    0), finite logits and ids in the vocab, the T - 1 hand-off
+    (:func:`_handoff`), a profiled decode step and prefill.  Returns (line,
+    the run's caches)."""
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.serving import build_serve_steps
+
+    cfg = model.cfg
+    prefill_fn, decode_fn = build_serve_steps(
+        model, MiCSTopology(), MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True),
+        fx["prompt"] + fx["steps"], device=dev)
+    logits, caches = prefill_fn(params, batch)          # warm (not counted)
+    decode_fn(params, caches, torch.argmax(logits[:, -1:].float(), dim=-1), fx["prompt"])
+    del logits, caches   # their blocks stay cached: the timed run allocates as a steady one
+    logits, lg, caches, prefill_ms, decode_ms, ids, peak_gb = _timed_serve(
+        prefill_fn, decode_fn, params, batch, fx["steps"])
+    launches, by_route, padded = read_counts(), dict(FA.launches_by_route), L.launches_padded
+    want = dict.fromkeys(launches, 0) | {"flash_attention": sum(want_attention.values())}
+    want_route = dict.fromkeys(FA.ROUTES, 0) | want_attention
+    if launches != want or by_route != want_route:
+        raise AssertionError(f"{label}: launches {launches} / {by_route} != {want} / "
+                             f"{want_route}")
+    if not (bool(torch.isfinite(logits.float()).all()) and bool(torch.isfinite(lg.float()).all())
+            and int(ids.min()) >= 0 and int(ids.max()) < cfg.vocab):
+        raise AssertionError(f"{label}: non-finite logits or an id outside the vocab")
+    handoff = _handoff(prefill_fn, decode_fn, params, batch, logits)
+    tok, pos = ids[:, -1:], fx["prompt"] + fx["steps"] - 1
+    prof = profile_line(cfg.name, "decode", lambda: decode_fn(params, caches, tok, pos),
+                        activities=CARD_ONLY)
+    prof_p = profile_line(cfg.name, "prefill", lambda: prefill_fn(params, batch),
+                          activities=CARD_ONLY)
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "head_dim": cfg.resolved_head_dim, "model_params": model_params(model),
+            "model_gb_fp32": 4 * model_params(model) / 1e9, "gather_dtype": "bf16",
+            **_fixed_line(fx, prefill_ms, decode_ms, peak_gb), "launches": launches,
+            "attention_launches_by_route": by_route, "attention_launches_padded": padded,
+            "decode_vs_prefill": handoff, "profile_decode": _profile_fields(prof),
+            "profile_prefill": _profile_fields(prof_p)}
+    return line, caches
+
+
+def ln_layer_check(label: str, apply, tensors: dict, x: torch.Tensor,
+                   enc_out: torch.Tensor | None = None) -> dict:
+    """``apply(tensors, x, ctx)`` (one layer at full width) bf16 on the card
+    (attention on ``mma``) against fp32 compute on the card (``fma``): the
+    increment it adds to its input within ``LN_LAYER_REL_TOL``.  Without
+    ``enc_out`` the layer runs as the encoder runs its layers (train mode,
+    no cache), with it as a decoder layer's prefill over ``x`` (its cache
+    at ``x``'s length) attending to ``enc_out``.  Both sides take the same
+    inputs, rounded to bf16 once.  The caller draws ``x`` at std 0.1: the
+    layer normalises its input first, so its increment does not depend on
+    the input's scale, while a residual stream at std 1 carries bf16's own
+    rounding (half an ulp of |y| ≈ 4 is 0.016, twice a layer) at 4–7% of
+    the increment, which would hide the layer's compute error."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models import layers as L
+
+    bf, f32 = torch.bfloat16, torch.float32
+    x = x.to(bf).float()
+    enc_out = None if enc_out is None else enc_out.to(bf).float()
+    ys, routes = {}, {}
+    for dt in (bf, f32):
+        before = dict(FA.launches_by_route)
+        t = {k: v.to(dt) for k, v in tensors.items()}
+        ctx = (L.Ctx(mode="train", compute_dtype=dt) if enc_out is None else
+               L.Ctx(mode="prefill", compute_dtype=dt, cache_len=x.shape[1],
+                     enc_out=enc_out.to(dt)))
+        with torch.inference_mode():
+            y = apply(t, x.to(dt), ctx)
+        ys[dt] = y.float()
+        routes[str(dt)[6:]] = sorted(r for r, n in FA.launches_by_route.items()
+                                     if n != before[r])
+        del t
+    if routes != {"bfloat16": ["mma"], "float32": ["fma"]}:
+        raise AssertionError(f"{label}: attention routes {routes}")
+    if not bool(torch.isfinite(ys[bf]).all()):
+        raise AssertionError(f"{label}: the card output is not finite")
+    err, scale = _rel_err(ys[bf] - x.float(), ys[f32] - x.float())
+    if not err <= LN_LAYER_REL_TOL * scale:
+        raise AssertionError(f"{label}: bf16 is {err} > {LN_LAYER_REL_TOL} x {scale} from fp32 "
+                             "compute")
+    return {"tokens": x.shape[1], "routes": routes, "max_abs_err": err,
+            "max_abs_increment": scale, "rel_tol": LN_LAYER_REL_TOL}
+
+
+def serve_whisper_phase(card: str, dev) -> dict:
+    """``serve_whisper``: whisper-large-v3 at full width and depth (32
+    encoder and 32 decoder layers, d 1280, 20 heads, dh 64),
+    ``init_params(seed=0)`` (norm scales and biases 0), bf16 gather: the
+    fixed batch (``WHISPER_FIXED``) and the serve launcher's stub
+    (``launch/serve.stub_batch``: the tokens, then normal audio frames [4,
+    1500, 1280] in bf16 from ``default_rng(0)``) through
+    ``build_serve_steps``.  Launches: the prefill's attention 96 on ``mma``
+    (the encoder's non-causal self-attention over the 1,500 frames, the
+    decoder's causal self-attention and its cross-attention over the
+    encoder output, 32 each), each decode step's 64 on ``split`` (self over
+    the cache, cross over the cached 1,500 encoder K/V); no RMSNorm
+    (LayerNorm is a PyTorch call).  Checks: the prefill / decode hand-off; the cross
+    caches' shape; encoder layer 0 and decoder layer 0 against fp32 compute
+    (:func:`ln_layer_check`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mics import init_params
+    from repro_torch.launch.serve import stub_batch
+    from repro_torch.models import blocks as B
+    from repro_torch.models.build import build_model
+    from repro_torch.models.dims import attn_dims
+
+    cfg = get_config(WHISPER_ARCH)
+    model = build_model(cfg, tp=1)
+    params = init_params(model, seed=0, device=dev)
+    fx = WHISPER_FIXED
+    batch = stub_batch(cfg, fx["batch"], fx["prompt"], 0, dev)
+    n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+    line, caches = _serve_run("serve_whisper", model, params, batch, fx, dev,
+                              {"mma": n_enc + 2 * n_dec, "split": 2 * n_dec * fx["steps"]})
+    cross = caches["dec"]["cross"]["k"]
+    if tuple(cross.shape) != (n_dec, fx["batch"], cfg.n_audio_frames, cfg.n_kv_heads,
+                              cfg.resolved_head_dim):
+        raise AssertionError(f"serve_whisper: the cross cache {tuple(cross.shape)}")
+    del caches
+    torch.cuda.empty_cache()
+    ad = attn_dims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, 1)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    enc_t = model.pool("enc").layout.unflatten(params["enc"][0, 0])
+    dec_t = model.pool("dec").layout.unflatten(params["dec"][0, 0])
+    frames = torch.randn(1, cfg.n_audio_frames, cfg.d_model, generator=gen, device=dev)
+    x = 0.1 * torch.randn(1, WHISPER_LAYER_TOKENS, cfg.d_model, generator=gen, device=dev)
+    layers = {
+        "encoder_layer": ln_layer_check(
+            "serve_whisper encoder layer 0",
+            lambda t, h, ctx: B.dense_layer_apply(cfg, ad, t, h, ctx, causal=False)[0],
+            enc_t, 0.1 * frames),
+        "decoder_layer": ln_layer_check(
+            "serve_whisper decoder layer 0",
+            lambda t, h, ctx: B.encdec_dec_apply(cfg, ad, t, h, ctx)[0],
+            dec_t, x, enc_out=frames)}
+    del params, enc_t, dec_t
+    torch.cuda.empty_cache()
+    return {"phase": "serve_whisper", **line, "encoder_layers": n_enc,
+            "audio_frames": cfg.n_audio_frames, "layers_vs_fp32": layers, "gpu": card}
+
+
+def serve_bert_phase(card: str, dev) -> dict:
+    """``serve_bert``: the paper's bert-10b at full depth (127 layers, d
+    2560, 40 heads, dh 64; 40.6 GB of fp32 rows), ``init_params(seed=0)``,
+    bf16 gather, the fixed batch (``BERT_FIXED``: prompts from
+    ``default_rng(0)``) through ``build_serve_steps``: attention 127 on
+    ``mma`` at the prefill and 127 on ``split`` a decode step; then bert-50b
+    cut to ``BERT50_LAYERS`` layers (d 8192, 40 heads of dh 204) at the same
+    shapes, every attention call through the padded route (dh 204 padded
+    to 256: ``attention_launches_padded`` equals its launches), and the
+    paged engine at its head dim (:func:`_padded_engine_check`).  Each: the
+    hand-off, profiles of a decode step and a prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mics import init_params
+    from repro_torch.launch.serve import stub_batch
+    from repro_torch.models.build import build_model
+
+    fx = BERT_FIXED
+    out = {}
+    for arch, layers in ((BERT_ARCH, None), (BERT50_ARCH, BERT50_LAYERS)):
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+        model = build_model(cfg, tp=1)
+        params = init_params(model, seed=0, device=dev)
+        batch = stub_batch(cfg, fx["batch"], fx["prompt"], 0, dev)
+        line, caches = _serve_run(f"serve_bert {arch}", model, params, batch, fx, dev,
+                                  {"mma": cfg.n_layers, "split": cfg.n_layers * fx["steps"]})
+        padded = cfg.resolved_head_dim not in (16, 32, 64, 128, 256)
+        want_padded = cfg.n_layers * (1 + fx["steps"]) if padded else 0
+        if line["attention_launches_padded"] != want_padded:
+            raise AssertionError(f"serve_bert {arch}: {line['attention_launches_padded']} "
+                                 f"padded calls, want {want_padded}")
+        out[arch] = {**line, "layers_full": full.n_layers}
+        if padded:
+            out[arch]["engine"] = _padded_engine_check(model, params, caches, batch, fx, dev)
+        del params, caches
+        torch.cuda.empty_cache()
+    return {"phase": "serve_bert", "runs": out, "gpu": card}
+
+
+BERT50_ENGINE = {"lengths": (512, 300, 100, 200), "block": 16, "steps": 4}
+
+
+def _padded_engine_check(model, params, caches, batch: dict, fx: dict, dev) -> dict:
+    """The paged engine at bert-50b's head dim: its pools stored at the
+    padded width (204 at 256), the serve run's contiguous caches copied in
+    (``pages_from_contiguous``) at ragged prompt lengths
+    (``BERT50_ENGINE``), then ``steps`` greedy steps of the paged step over
+    bf16 pools against the contiguous step (the same padded ``paged``
+    route over a pool of one block a request), logits and tokens bit for
+    bit; int8 pools fed the same tokens, their logits within
+    ``PAGED_INT8_REL_TOL`` of the bf16 pools'.  Each paged step's
+    attention is counted on the ``paged`` route's ``mma`` body (dh 256)
+    and as padded calls.  Consumes ``caches``."""
+    import numpy as np
+
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models import layers as L
+    from repro_torch.runtime import paged as PG
+
+    ex, topo = BERT50_ENGINE, MiCSTopology()
+    lengths, bs, steps = list(ex["lengths"]), ex["block"], ex["steps"]
+    b, cap = len(lengths), fx["prompt"] + fx["steps"]
+    mb = -(-cap // bs)
+    tables = np.arange(1, b * mb + 1, dtype=np.int32).reshape(b, mb)
+    seeds, temps = np.arange(b, dtype=np.int64), np.zeros(b, np.float32)
+    first = batch["tokens"].cpu()[torch.arange(b), torch.as_tensor(lengths) - 1].numpy()
+    mcfg = MiCSConfig(gather_dtype=torch.bfloat16, kv_block_size=bs)
+    logits, fed, runs = {}, [first], {}
+    for kv in ("bf16", "int8"):
+        pool = PG.init_paged_caches(model, topo, b * mb + 1, bs, kv, device=dev)
+        width = pool["layers"]["k"].shape[-1]
+        PG.pages_from_contiguous(model, topo, caches, pool, tables, lengths, block_size=bs,
+                                 kv_dtype=kv)
+        step = PG.build_paged_step(model, topo, dataclasses.replace(mcfg, kv_dtype=kv),
+                                   max_blocks=mb, block_size=bs, device=dev)
+        padded0, mma0 = L.launches_padded, FA.launches_paged_by_form["paged:mma"]
+        logits[kv] = []
+        for s in range(steps):
+            tok, lg, pool = step(params, pool, fed[s][:, None], np.asarray(lengths) + s,
+                                 np.ones(b), tables, seeds, temps)
+            logits[kv].append(lg)
+            if kv == "bf16":
+                fed.append(tok.cpu().numpy())
+        runs[kv] = {"pool_width": width, "padded_calls": L.launches_padded - padded0,
+                    "paged_mma_launches": FA.launches_paged_by_form["paged:mma"] - mma0}
+        want = model.cfg.n_layers * steps
+        if width != FA.padded_head_dim(model.cfg.resolved_head_dim) \
+                or runs[kv]["padded_calls"] != want \
+                or runs[kv]["paged_mma_launches"] != want:
+            raise AssertionError(f"serve_bert engine {kv}: {runs[kv]}, want {want} of each")
+        del pool
+    contig = PG.build_contiguous_step(model, topo, mcfg, cap, device=dev)
+    for s in range(steps):
+        tok, lg, caches = contig(params, caches, fed[s][:, None], np.asarray(lengths) + s, seeds,
+                                 temps)
+        if not (torch.equal(lg, logits["bf16"][s]) and np.array_equal(tok.cpu().numpy(),
+                                                                      fed[s + 1])):
+            raise AssertionError(f"serve_bert engine: paged != contiguous at step {s}")
+    rel = max(float((a.float() - c.float()).abs().max() / c.float().abs().max())
+              for a, c in zip(logits["int8"], logits["bf16"]))
+    if not rel <= PAGED_INT8_REL_TOL:
+        raise AssertionError(f"serve_bert engine: int8 pools {rel} from bf16's > "
+                             f"{PAGED_INT8_REL_TOL}")
+    return {**ex, "runs": runs, "paged_equals_contiguous": True, "int8_vs_bf16_rel": rel,
+            "int8_rel_tol": PAGED_INT8_REL_TOL}
+
+
+def encdec_train_flops(model, path: TrainPath) -> tuple[float, int, int]:
+    """Model flops of one whisper step: 6 N_enc a frame and 6 N_dec a
+    token (N the encoder's layers; the decoder's layers and the head; the
+    embeddings do no product), plus 12 dh a (query, key) pair and head in
+    each attention sub-layer: the encoder's every frame pair, the decoder's
+    causal pairs and its (token, frame) pairs.  Recomputation is not
+    counted.  Returns (flops, N_enc, N_dec)."""
+    cfg = model.cfg
+    size = lambda pool: sum(s.size for s in pool.layout.segments) * pool.stack  # noqa: E731
+    n_enc = size(model.pool("enc"))
+    n_dec = size(model.pool("dec")) + size(model.head)
+    seqs = path.global_batch
+    frames, tokens = seqs * cfg.n_audio_frames, seqs * path.seq
+    per_pair = 12 * cfg.resolved_head_dim * cfg.n_heads
+    pairs = seqs * (cfg.n_encoder_layers * cfg.n_audio_frames ** 2
+                    + cfg.n_layers * (path.seq * (path.seq + 1) // 2
+                                      + path.seq * cfg.n_audio_frames))
+    return 6 * n_enc * frames + 6 * n_dec * tokens + per_pair * pairs, n_enc, n_dec
+
+
+def _train_run(label: str, model, path: TrainPath, batch_of, dev) -> dict:
+    """``build_train_step`` (bf16 gather, prefetch, bucketed boundary, exact
+    clip) from ``init_state(seed=0)`` for ``path.steps`` steps of
+    ``batch_of(step)``, the counters set to 0 just before and read just
+    after (``check_train_launches``), then a step profiled."""
+    from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.optim.adamw import OptConfig
+
+    step = build_train_step(model, MiCSTopology(), MiCSConfig(micro_steps=path.micro_steps),
+                            OptConfig(warmup_steps=0, total_steps=path.steps), device=dev)
+    state = init_state(model, 0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, gnorms, step_ms = [], [], []
+    for i in range(path.steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch_of(i))
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(m["grad_norm"].item())
+    tables = check_train_launches(label, path, path.steps * path.micro_steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = batch_of(path.steps)    # two more steps: a warm one, the profiled
+    prof = profile_line(model.cfg.name, f"{label} step",
+                        lambda: step(state, batch)[1]["loss"].item(), activities=CARD_ONLY)
+    del state, step
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"{label}: losses {losses}, grad norms {gnorms}")
+    ms = statistics.median(step_ms[1:])
+    return {"phase": label, "arch": model.cfg.name, "layers": model.cfg.n_layers,
+            "d_model": model.cfg.d_model, "global_batch": path.global_batch, "seq": path.seq,
+            "micro_steps": path.micro_steps, "gather_dtype": "bf16", "schedule": "prefetch",
+            "boundary": "bucketed", "clip": "exact", "loss": losses, "grad_norm": gnorms,
+            "step_ms_all": step_ms, "step_ms": ms, "peak_gb": peak_gb,
+            "model_params": model_params(model), "profile_step": _profile_fields(prof),
+            "launches": tables[0], "attention_launches_by_route": tables[1],
+            "attention_bwd_launches_by_route": tables[2],
+            "rmsnorm_bwd_launches_by_route": tables[3], "rglru_launches_by_form": tables[4]}
+
+
+def _mfu(flops: float, ms: float) -> dict:
+    tflops = flops / (ms / 1e3) / 1e12
+    return {"model_tflops": tflops, "mfu": tflops / (PEAK_OPS_PER_S[torch.bfloat16] / 1e12)}
+
+
+def whisper_batches(cfg, path: TrainPath, dev):
+    """``batch_of(step)``: the synthetic stream's tokens, targets and mask
+    [2, 2, 448] and normal audio frames [2, 2, 1500, 1280] in bf16, drawn
+    on the card from a generator seeded with the step."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    source = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=path.seq,
+                                    global_batch=path.global_batch, micro_steps=path.micro_steps))
+    rows = path.global_batch // path.micro_steps
+
+    def batch_of(step: int) -> dict:
+        gen = torch.Generator(device=dev).manual_seed(1000 + step)
+        audio = torch.randn(path.micro_steps, rows, cfg.n_audio_frames, cfg.d_model,
+                            generator=gen, device=dev).to(torch.bfloat16)
+        return {**source.global_step_batch(step), "audio": audio}
+
+    return batch_of
+
+
+def train_whisper_phase(card: str, dev) -> dict:
+    """``train_whisper``: whisper-large-v3 at full width and depth through
+    ``build_train_step`` (``WHISPER_TRAIN``: 2 micro-steps of 2 x (1,500
+    frames + 448 tokens), 3 steps; :func:`_train_run`), its line with MFU
+    from :func:`encdec_train_flops`; first step 1's gradients by
+    :func:`whisper_grad_probe` (its own line)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.build import build_model
+
+    path = WHISPER_TRAIN
+    cfg = get_config(path.arch)
+    model = build_model(cfg, tp=1)
+    batch_of = whisper_batches(cfg, path, dev)
+    probe = whisper_grad_probe(model, batch_of(0), dev)
+    line = _train_run("train_whisper", model, path, batch_of, dev)
+    flops, n_enc, n_dec = encdec_train_flops(model, path)
+    frames, tokens = path.global_batch * cfg.n_audio_frames, path.global_batch * path.seq
+    line.update({"encoder_layers": cfg.n_encoder_layers, "audio_frames": cfg.n_audio_frames,
+                 "frames_per_step": frames, "tokens_per_step": tokens,
+                 "tokens_per_s": tokens / (line["step_ms"] / 1e3),
+                 "frames_and_tokens_per_s": (frames + tokens) / (line["step_ms"] / 1e3),
+                 "flops_per_step": flops, "flops_params": {"encoder": n_enc, "decoder": n_dec},
+                 "flops_note": "6 N_enc a frame + 6 N_dec a token (N_dec with the head) + 12 dh "
+                               "a (query, key) pair and head: encoder frame pairs, decoder "
+                               "causal pairs, (token, frame) pairs",
+                 **_mfu(flops, line["step_ms"]),
+                 "rel_err_step1_vs_fp32": {k: probe["sound"][k] for k in ("loss", "grad_norm")},
+                 "gpu": card})
+    emit(line)
+    return line
+
+
+def whisper_grad_probe(model, batch: dict, dev) -> dict:
+    """Step 1's gradients (``accumulate_grads`` on ``init_params(seed=0)``
+    and ``batch``, both micro-steps) with bf16 compute against fp32 compute
+    on the card (the ``fma`` routes), read as ``moe_grad_probe`` reads
+    them: the loss, the global gradient norm and each segment's gradient
+    norm over its pool's rows, the encoder's included, relative to fp32's;
+    each within ``WHISPER_FP32_REL_TOL``.  A fault is read the same way and
+    must exceed one limit: the encoder's gradients zeroed (its segments
+    zeroed in the sound bf16 gradients: what a dropped encoder output
+    gradient gives).  The key biases are left out of the segments (their
+    gradient is rounding).  Its line is emitted before the limits are
+    checked."""
+    from repro_torch.core.comm import CommEngine
+    from repro_torch.core.mics import MiCSConfig, accumulate_grads, init_params
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.models import layers as L
+
+    micro = batch["tokens"].shape[0]
+    params = init_params(model, 0, device=dev)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+    def read(dtype):
+        comm = CommEngine.from_config(MiCSTopology(), MiCSConfig(micro_steps=micro,
+                                                                 gather_dtype=dtype))
+        grads, loss, _ = accumulate_grads(model, comm, L.Ctx(mode="train", compute_dtype=dtype,
+                                                             comm=comm), params, batch)
+        sq = {f"{name}/{seg.name}": g[:, 0, seg.offset:seg.end].double().pow(2).sum().item()
+              for name, g in grads.items() for seg in model.pool(name).layout.segments
+              if not seg.name.endswith("attn.bk")}
+        del grads
+        torch.cuda.empty_cache()
+        return sq, loss.item() / micro
+
+    sq32, loss32 = read(torch.float32)
+    sq16, loss16 = read(torch.bfloat16)
+    del params
+    torch.cuda.empty_cache()
+    norm32 = math.sqrt(sum(sq32.values()))
+
+    def gaps(sq, loss):
+        leaf = {k: abs(math.sqrt(sq[k]) - math.sqrt(v)) / math.sqrt(v)
+                for k, v in sq32.items() if v > 0}
+        worst = sorted(leaf, key=leaf.get, reverse=True)[:XLSTM_PROBE_SHOWN]
+        return {"loss": abs(loss - loss32) / abs(loss32),
+                "grad_norm": abs(math.sqrt(sum(sq.values())) - norm32) / norm32,
+                "leaf_norm": leaf[worst[0]], "worst_leaves": {
+                    k: [leaf[k], math.sqrt(sq32[k]) / norm32] for k in worst}}
+
+    encoder = {k for k in sq16 if k.startswith("enc/")}
+    sound = gaps(sq16, loss16)
+    faults = {"encoder_grads_zero": gaps({k: 0.0 if k in encoder else v
+                                          for k, v in sq16.items()}, loss16)}
+    out = {"phase": "train_whisper_probe", "arch": model.cfg.name, "micro_steps_read": micro,
+           "fp32": {"loss": loss32, "grad_norm": norm32 / micro}, "sound": sound,
+           "faults": faults, "segments": len(sq32), "limits": WHISPER_FP32_REL_TOL,
+           "encoder_share_of_sq_norm": sum(sq16[k] for k in encoder) / sum(sq16.values())}
+    emit(out)
+    if not all(sound[k] <= WHISPER_FP32_REL_TOL[k] for k in WHISPER_FP32_REL_TOL):
+        raise AssertionError(f"train_whisper: step 1's gradient against fp32 compute {out}")
+    for name, f in faults.items():
+        if all(f[k] <= WHISPER_FP32_REL_TOL[k] for k in WHISPER_FP32_REL_TOL):
+            raise AssertionError(f"train_whisper: the fault {name} is within every limit {out}")
+    return out
+
+
+def train_bert_phase(card: str, dev) -> dict:
+    """``train_bert``: the paper's bert-10b at full width cut to
+    ``BERT_TRAIN_LAYERS`` layers (its whole training state at 127 layers is
+    ≈ 162 GB) through ``build_train_step`` (``BERT_TRAIN``: 2 micro-steps
+    of 4 x 512 from the synthetic stream, 3 steps; :func:`_train_run`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.build import build_model
+
+    path = BERT_TRAIN
+    full = get_config(path.arch)
+    cfg = dataclasses.replace(full, n_layers=BERT_TRAIN_LAYERS)
+    model = build_model(cfg, tp=1)
+    source = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=path.seq,
+                                    global_batch=path.global_batch, micro_steps=path.micro_steps))
+    line = _train_run("train_bert", model, path, source.global_step_batch, dev)
+    flops, n_params = train_flops(model, path)
+    tokens = path.global_batch * path.seq
+    line.update({"layers_full": full.n_layers, "tokens_per_step": tokens,
+                 "tokens_per_s": tokens / (line["step_ms"] / 1e3),
+                 "flops_params_counted": n_params, **_mfu(flops, line["step_ms"]),
+                 "gpu": card})
+    emit(line)
+    return line
+
+
 def check_train_launches(label: str, path: TrainPath, micro: int):
     """Read the launch counters after ``micro`` micro-steps of ``path`` and
     hold them to the path's counts a micro-step, attention's forward on
@@ -2971,11 +3524,12 @@ def train_profile(path: TrainPath, dev, timed_steps: int = 3):
 DIST_WORLD = 4
 DIST_TIMEOUT_S = 600          # every process group's: a collective waiting this long fails
 # The workers' whole run (dist_train, dist_wires, dist_elastic) may take
-# what the script's limit leaves once the phases after it (digest, kernels:
-# ≈ 45 s) have their share: its gloo steps follow the host's speed, and a
-# deadline of its own would fail a slow host that still ends in time.
+# what the script's limit leaves once the phases after it (the xLSTM, VLM,
+# whisper and bert phases ≈ 100 s, digest and kernels ≈ 60 s) have their
+# share: its gloo steps follow the host's speed, and a deadline of its own
+# would fail a slow host that still ends in time.
 SCRIPT_LIMIT_S = 1200
-AFTER_DIST_S = 120
+AFTER_DIST_S = 180
 
 
 @dataclasses.dataclass(frozen=True)
@@ -4321,6 +4875,7 @@ def kernel_checks(gen, dev, flush):
     from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.rglru import kernel as RG
     from repro_torch.kernels.rmsnorm import kernel as RN
+    from repro_torch.models import layers as L
 
     def check(name, out, ref, tol, rtol=None):
         err = (out.float() - ref.float()).abs().max().item()
@@ -4420,6 +4975,33 @@ def kernel_checks(gen, dev, flush):
         ("vlm cross decode", 4, 1, 1024, 8, 8, 128, False, 0, 0, None, bf),
         ("vlm cross train", 2, 2048, 1024, 8, 8, 128, False, 0, 0, None, bf),
         ("ragged non-causal, tq 300, tk 1000", 2, 300, 1000, 2, 4, 64, False, 0, 0, None, bf),
+        # whisper-large-v3 (MHA: 20 KV heads, g 1, dh 64): the encoder's
+        # non-causal self-attention over the 1,500 frames (serve_whisper's
+        # prefill: a ragged last tile on both axes), the decoder's cross
+        # prefill (64 tokens over the 1,500 encoder keys) and a decode step
+        # over them (split: one packed row), train_whisper's cross forward;
+        # the decoder's causal self-attention at the prompt of 64 and its
+        # last decode step over the cache of 96
+        ("whisper encoder prefill", 4, 1500, 1500, 20, 1, 64, False, 0, 0, None, bf),
+        ("whisper cross prefill", 4, 64, 1500, 20, 1, 64, False, 0, 0, None, bf),
+        ("whisper cross decode", 4, 1, 1500, 20, 1, 64, False, 0, 0, None, bf),
+        ("whisper cross train", 2, 448, 1500, 20, 1, 64, False, 0, 0, None, bf),
+        ("whisper self prefill", 4, 64, 64, 20, 1, 64, True, 0, 0, None, bf),
+        ("whisper self decode", 4, 1, 96, 20, 1, 64, False, 0, 0, 96, bf),
+        # the paper's models (40 MHA heads): bert-10b (dh 64) and bert-20b
+        # (dh 128) causal at serve_bert's prompt; bert-50b's dh 204 through
+        # the pad (layers.attention: mma at 256, the scale of 204).
+        # serve_bert's decode steps over its cache of 528 (b hkv = 160 KV
+        # streams, more than the card's SMs): bert-10b's first and last,
+        # bert-50b's last through the pad (split at 256)
+        ("bert-10b prefill", 4, 512, 512, 40, 1, 64, True, 0, 0, None, bf),
+        ("bert-20b prefill", 4, 512, 512, 40, 1, 128, True, 0, 0, None, bf),
+        ("bert-50b prefill, dh 204 padded to 256", 4, 512, 512, 40, 1, 204, True, 0, 0, None,
+         bf),
+        ("bert-10b decode, first step", 4, 1, 528, 40, 1, 64, False, 0, 0, 513, bf),
+        ("bert-10b decode, last step", 4, 1, 528, 40, 1, 64, False, 0, 0, 528, bf),
+        ("bert-50b decode, dh 204 padded to 256", 4, 1, 528, 40, 1, 204, False, 0, 0, 528,
+         bf),
         # split route edges
         ("kv_len 1", 4, 1, 544, 8, 4, 64, False, 0, 0, 1, bf),
         ("g 1", 4, 1, 544, 8, 1, 64, False, 0, 299, 300, bf),
@@ -4434,13 +5016,20 @@ def kernel_checks(gen, dev, flush):
         kw = dict(causal=causal, window=window, q_offset=q_offset, kv_valid_len=kvl)
         tol = TOL[dt]
         route = FA.route(dt, tq * g)
-        out = FA.flash_attention(q, k, v, **kw)
+        # a head dim outside the kernels' through the model's call site, which pads
+        attend = FA.flash_attention if dh in FA.HEAD_DIMS else L.attention
+        padded = L.launches_padded
+        out = attend(q, k, v, **kw)
         err = check(f"flash_attention {kind}", out, FA.attention_plain(q, k, v, **kw), tol)
-        if not torch.equal(out, FA.flash_attention(q, k, v, **kw)):
+        if not torch.equal(out, attend(q, k, v, **kw)):
             raise AssertionError(f"flash_attention {kind}: route {route} is not bitwise "
                                  "repeatable")
         kv_len = tk if kvl is None else min(tk, kvl)
         extra = {}
+        if attend is not FA.flash_attention:
+            if L.launches_padded != padded + 2:
+                raise AssertionError(f"flash_attention {kind}: not through the padded route")
+            extra["padded_to"] = FA.padded_head_dim(dh)
         if kind == "recurrentgemma decode":  # the partials kernel alone
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             nsplit, chunk = FA.plan_decode_splits(b, hkv, kv_len, sms=sms)
@@ -4460,7 +5049,7 @@ def kernel_checks(gen, dev, flush):
         vs = v[:, :kv_len].permute(0, 2, 1, 3).contiguous()
         lib_causal = causal and not window and q_offset == 0 and tq == kv_len
         mask = None if lib_causal or not (causal or window) else allowed
-        ms = time_ms(lambda: FA.flash_attention(q, k, v, **kw), flush)
+        ms = time_ms(lambda: attend(q, k, v, **kw), flush)
         if route != "split":
             extra["tflops"] = ops / ms / 1e9
         attn_checks.append({
@@ -4468,7 +5057,7 @@ def kernel_checks(gen, dev, flush):
             "causal": causal, "window": window, "q_offset": q_offset, "kv_valid_len": kvl,
             "dtype": "bf16" if dt == bf else "fp32", "route": route, "bitwise_repeat": True,
             "max_abs_err": err, "tol": tol, "ms": ms,
-            "host_us": host_us(lambda: FA.flash_attention(q, k, v, **kw)),
+            "host_us": host_us(lambda: attend(q, k, v, **kw)),
             "plain_ms": time_ms(lambda: FA.attention_plain(q, k, v, **kw), flush),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -4916,6 +5505,14 @@ def backward_checks(gen, dev, flush):
         ("vlm cross train", 2, 2048, 8, 8, 128, False, 0, bf, 1024),
         ("ragged non-causal, tq 300, tk 1000", 2, 300, 2, 4, 64, False, 0, bf, 1000),
         ("ragged non-causal, tq 300, tk 1000, g 3: mma", 2, 300, 2, 3, 64, False, 0, bf, 1000),
+        # train_whisper's micro-step (20 KV heads, g 1, dh 64): the encoder's
+        # non-causal 1,500 x 1,500 and the cross layers' 448 x 1,500, on
+        # wgmma; train_bert's (bert-10b, dh 64) and bert-20b's (dh 128)
+        # causal 512, on wgmma
+        ("whisper encoder train", 2, 1500, 20, 1, 64, False, 0, bf),
+        ("whisper cross train", 2, 448, 20, 1, 64, False, 0, bf, 1500),
+        ("bert-10b train", 4, 512, 40, 1, 64, True, 0, bf),
+        ("bert-20b train", 4, 512, 40, 1, 128, True, 0, bf),
         ("dh 256 window 64", 2, 512, 1, 10, 256, True, 64, bf),
         ("dh 256 ragged T 300", 2, 300, 1, 10, 256, True, 0, bf),
         ("dh 256 hkv 1 g 3: rows [b, T g, dh] at any g", 2, 512, 1, 3, 256, True, 0, bf),
@@ -4990,6 +5587,7 @@ def backward_checks(gen, dev, flush):
             **extra})
         del q, k, v, do, o, qs, ks, vs, y
         torch.cuda.empty_cache()
+    attn.append(padded_bwd_check(gen, dev, flush))
     # the other new models' heads (NEW_ATTN_SHAPES), correctness only: dbrx's
     # g 6 on mma (whole positions do not fill wgmma's 64-row tiles), the
     # others on wgmma
@@ -5023,6 +5621,77 @@ def backward_checks(gen, dev, flush):
                 "forward_max_abs_err": rel_check("rmsnorm dbrx d 6144", [RN.rmsnorm(x, sc)],
                                                  [RN.rms_norm_plain(x, sc)], TOL[bf])})
     return rms, attn, rglru_backward_checks(gen, dev, flush)
+
+
+def padded_bwd_check(gen, dev, flush, b: int = 4, t: int = 512, hkv: int = 40,
+                     dh: int = 204) -> dict:
+    """bert-50b's attention at dh 204 with its gradient, as a train step
+    runs it: ``layers.attention`` on q, k and v that require a gradient
+    (zero-padded to 256, ``FlashAttentionFn``: the ``mma`` forward with its
+    log-sum-exp and the ``wgmma256`` backward at the scale of 204, the
+    output cut back), then ``torch.autograd.grad`` at dO (autograd's cut
+    and pad give dq, dk and dv at 204).  Held against the plain forward and
+    backward at 204 on the same inputs, its counts read (one padded call,
+    one ``mma`` forward, one ``wgmma256`` backward), bitwise repeatable,
+    the backward timed through autograd beside the bound at 204, the plain
+    version and SDPA's backward at 204."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models import layers as L
+
+    bf = torch.bfloat16
+    kw = dict(causal=True, window=0)
+    q, do = (torch.randn(b, t, hkv, 1, dh, generator=gen, device=dev).to(bf) for _ in range(2))
+    k, v = (torch.randn(b, t, hkv, dh, generator=gen, device=dev).to(bf) for _ in range(2))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    to = FA.padded_head_dim(dh)
+    route = FA.bwd_route(bf, to, 1, hkv)
+    before = (L.launches_padded, FA.launches_by_route["mma"], FA.launches_bwd_by_route[route])
+    o = L.attention(qg, kg, vg, **kw)
+    out = torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)
+    after = (L.launches_padded, FA.launches_by_route["mma"], FA.launches_bwd_by_route[route])
+    if route != "wgmma256" or [a - c for a, c in zip(after, before)] != [1, 1, 1]:
+        raise AssertionError(f"attention bert-50b dh 204: route {route}, padded / mma / "
+                             f"backward launches {before} -> {after}")
+    if o.shape[-1] != dh or any(g.shape != x.shape for g, x in zip(out, (q, k, v))):
+        raise AssertionError("attention bert-50b dh 204: not cut back to 204")
+    o_ref, lse_ref = FA.attention_plain_lse(q, k, v, **kw)
+    o_err = rel_check("flash forward bert-50b dh 204", [o.detach()], [o_ref], TOL[bf])
+
+    def bwd():
+        return torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)
+
+    if not all(torch.equal(a, r) for a, r in zip(out, bwd())):
+        raise AssertionError("flash_attention_bwd bert-50b dh 204: not bitwise repeatable")
+    err = rel_check("flash_attention_bwd bert-50b dh 204", out,
+                    FA.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do, **kw),
+                    BWD_REL_TOL[bf])
+    pairs = b * hkv * t * (t + 1) // 2
+    ops = 10 * dh * pairs
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse_ref.numel() * 4
+    b_ms, b_by = bound(nbytes, ops, bf)
+    ms = time_ms(bwd, flush)
+    qs = q.permute(0, 2, 3, 1, 4).reshape(b, hkv, t, dh).contiguous().requires_grad_()
+    ks = k.permute(0, 2, 1, 3).contiguous().requires_grad_()
+    vs = v.permute(0, 2, 1, 3).contiguous().requires_grad_()
+    dos = do.permute(0, 2, 3, 1, 4).reshape(b, hkv, t, dh).contiguous()
+    y = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    line = {"case": "bert-50b train, dh 204 padded to 256", "padded_to": to,
+            "shape": {"b": b, "T": t, "tk": t, "hkv": hkv, "g": 1, "dh": dh}, "causal": True,
+            "window": 0, "dtype": "bfloat16", "route": route, "bitwise_repeat": True,
+            "through": "layers.attention (FlashAttentionFn) + torch.autograd.grad",
+            "max_abs_err": err, "rel_tol": BWD_REL_TOL[bf], "o_max_abs_err": o_err,
+            "o_tol": TOL[bf], "ms": ms, "tflops": ops / ms / 1e9,
+            "allowed_pairs": pairs,
+            "plain_ms": time_ms(lambda: FA.flash_attention_bwd_plain(q, k, v, o_ref, lse_ref, do,
+                                                                     **kw), flush, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.autograd.grad(y, (qs, ks, vs), dos,
+                                                              retain_graph=True), flush)}
+    del q, k, v, do, qg, kg, vg, o, out, qs, ks, vs, y
+    torch.cuda.empty_cache()
+    return line
 
 
 def rglru_backward_checks(gen, dev, flush):
@@ -5278,6 +5947,23 @@ def main() -> int:
         launches_by_route[r] += n
     torch.cuda.empty_cache()
 
+    # -- 3g. whisper-large-v3 and the paper's LayerNorm + GeLU models on one card -----
+    launches_padded = 0
+    whisper = serve_whisper_phase(card, dev)
+    emit(whisper)
+    bert = serve_bert_phase(card, dev)
+    emit(bert)
+    for label, line in ((f"{WHISPER_ARCH} serve_whisper", whisper),
+                        *((f"{a} serve_bert", ln) for a, ln in bert["runs"].items())):
+        by_path[label] = line["launches"]
+        launches_padded += line["attention_launches_padded"]
+        for r, n in line["attention_launches_by_route"].items():
+            launches_by_route[r] += n
+    for train_ln in (train_whisper_phase(card, dev), train_bert_phase(card, dev)):
+        train_lines.append(train_ln)
+        by_path[f"{train_ln['arch']} {train_ln['phase']}"] = train_ln["launches"]
+        launches_by_route["mma"] += train_ln["attention_launches_by_route"]["mma"]
+
     def train_sum(*keys: str) -> dict:
         """A train line's launches by route (or form) under ``keys``, summed
         over the train paths and the dist_train phase."""
@@ -5312,6 +5998,9 @@ def main() -> int:
         paged_checks += paged_kernel_checks(gen, dev, flush, timed=i == 0, pg=MOE_PAGED,
                                             hkv=hkv, g=g, dh=128, dtypes=("bf16",),
                                             label=f"{name} (g {g}, dh 128): ")
+    # bert-50b's pools in the engine: dh 204 stored at 256 (the mma body), correctness only
+    paged_checks += paged_kernel_checks(gen, dev, flush, timed=False, pg=MOE_PAGED, hkv=40,
+                                        g=1, dh=256, label="bert-50b pool (dh 204 at 256): ")
     quantize_checks, dequantize_checks = quant_checks(gen, dev, flush)
 
     def entry(name, source, replaces, checks, by_path_n=None, **more):
@@ -5342,7 +6031,10 @@ def main() -> int:
                        "split": "src/repro_torch/kernels/csrc/flash_attention_split.cu",
                        "fma": "src/repro_torch/kernels/csrc/flash_attention.cu",
                        "paged": "src/repro_torch/kernels/csrc/flash_attention_paged.cu"},
-              launches_by_route=launches_by_route),
+              launches_by_route=launches_by_route,
+              # calls at a head dim outside HEAD_DIMS (bert-50b's 204), run
+              # zero-padded to 256 on the routes above
+              launches_padded=launches_padded),
         # the paged route alone (the continuous-batching engine): its checks,
         # the engine's decode-only tick first; its launches the serve_paged runs'
         entry("flash_attention_paged", "src/repro_torch/kernels/csrc/flash_attention_paged.cu",

@@ -1,10 +1,10 @@
-"""Config registry of the port: only the configs whose family the port
-builds (the dense family: ``llama3.2-1b``, ``granite-8b``, ``yi-9b``,
-``qwen1.5-110b``; griffin: ``recurrentgemma-2b``; MoE:
-``deepseek-moe-16b``, ``dbrx-132b``; xLSTM: ``xlstm-125m``; the VLM
-backbone: ``llama-3.2-vision-90b``)."""
+"""Config registry of the port: the reference's ten assigned architectures
+and the paper's own workloads (``bert_paper.PAPER_CONFIGS``: bert-10b ...
+gpt2-20b, LayerNorm + GeLU dense decoders), as ``repro/configs/__init__.py``
+registers them."""
 
 from repro_torch.configs.base import ArchConfig, smoke_variant
+from repro_torch.configs.bert_paper import PAPER_CONFIGS
 from repro_torch.configs.dbrx_132b import CONFIG as DBRX_132B
 from repro_torch.configs.deepseek_moe_16b import CONFIG as DEEPSEEK_MOE_16B
 from repro_torch.configs.granite_8b import CONFIG as GRANITE_8B
@@ -12,13 +12,15 @@ from repro_torch.configs.llama3_2_1b import CONFIG as LLAMA3_2_1B
 from repro_torch.configs.llama_3_2_vision_90b import CONFIG as LLAMA_3_2_VISION_90B
 from repro_torch.configs.qwen1_5_110b import CONFIG as QWEN1_5_110B
 from repro_torch.configs.recurrentgemma_2b import CONFIG as RECURRENTGEMMA_2B
+from repro_torch.configs.whisper_large_v3 import CONFIG as WHISPER_LARGE_V3
 from repro_torch.configs.xlstm_125m import CONFIG as XLSTM_125M
 from repro_torch.configs.yi_9b import CONFIG as YI_9B
 
 ASSIGNED = (RECURRENTGEMMA_2B, LLAMA_3_2_VISION_90B, QWEN1_5_110B, GRANITE_8B, LLAMA3_2_1B,
-            YI_9B, XLSTM_125M, DEEPSEEK_MOE_16B, DBRX_132B)
+            YI_9B, WHISPER_LARGE_V3, XLSTM_125M, DEEPSEEK_MOE_16B, DBRX_132B)
 
 REGISTRY: dict[str, ArchConfig] = {c.name: c for c in ASSIGNED}
+REGISTRY.update(PAPER_CONFIGS)
 
 
 def get_config(name: str) -> ArchConfig:
@@ -27,7 +29,7 @@ def get_config(name: str) -> ArchConfig:
         return REGISTRY[key]
     if name in REGISTRY:
         return REGISTRY[name]
-    raise KeyError(f"unknown arch {name!r}; the port builds: {sorted(REGISTRY)}")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
 
 
 __all__ = ["ArchConfig", "smoke_variant", "get_config", "REGISTRY", "ASSIGNED"]

@@ -146,9 +146,10 @@ def tp_params_from_full(model_tp: ModelDef, model_1: ModelDef, params_1: Mapping
     (``wq``, ``wk`` / ``wv`` and their biases, ``wg`` / ``wu``, ``rec.wx`` /
     ``rec.wy``, the head), the rows of a row-parallel one (``wo``, ``wd``,
     ``rec.wo``), the channels of the RG-LRU's per-channel weights, the
-    ``model_gather_dim`` of the gathered segments (norm scales; the KV
-    projections of ranks that share a head take its consecutive slices)
-    and the embedding table's ``d``.  Rank m takes slice m.  Where tp pads
+    ``model_gather_dim`` of the gathered segments (norm scales and
+    LayerNorm biases, ``bo``, ``b2``; the KV projections of ranks that
+    share a head take its consecutive slices) and the ``d`` of the
+    embedding tables (enc-dec's learned positions too).  Rank m takes slice m.  Where tp pads
     a dim (Q heads to a multiple of tp, KV heads, the vocab), the padding
     is zeros: a padded Q head's ``wq`` columns and ``wo`` rows are 0, and
     its output is masked anyway.  Segments pair by position in the two

@@ -63,10 +63,11 @@ SCORES_BF16_UNNEEDED = (
     "kernels never write the scores to HBM, so bf16 scores would save no traffic; the "
     "kernels keep fp32 scores")
 # Families the port trains on a CUDA device: each kernel their layers reach
-# has a hand-written backward (griffin's RG-LRU; MoE, VLM and
-# xLSTM layers reach RMSNorm and flash attention, their experts, cross
-# layers' gates and xLSTM recurrences are plain PyTorch).
-CUDA_TRAIN_FAMILIES = ("dense", "griffin", "moe", "vlm", "xlstm")
+# has a hand-written backward (griffin's RG-LRU; MoE, VLM, enc-dec and
+# xLSTM layers reach RMSNorm and flash attention; their experts, cross
+# layers' gates, xLSTM recurrences, LayerNorm and GeLU are plain PyTorch).
+# Every family the port builds trains there.
+CUDA_TRAIN_FAMILIES = ("dense", "griffin", "moe", "vlm", "xlstm", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,7 +222,7 @@ def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology, family: str = "dense",
     if device.type == "cuda" and family not in CUDA_TRAIN_FAMILIES:
         raise NotImplementedError(
             f"family {family!r} does not train on a CUDA device: the port trains "
-            f"{CUDA_TRAIN_FAMILIES} there (encdec waits for ROADMAP Queue 1 item 7)")
+            f"{CUDA_TRAIN_FAMILIES} there")
     for name, (default, item) in UNPORTED_TRAIN.items():
         if getattr(mcfg, name) != default:
             raise NotImplementedError(
@@ -257,7 +258,9 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
     ``mcfg.offload_opt`` its m and v are host tensors, ``init_state(...,
     offload_opt=True)``); ``batch``: this rank's slice, tokens / targets /
     mask ``[micro_steps, b, T]`` (numpy or tensors), and for the VLM its
-    ``vision`` rows ``[micro_steps, b, n_vision_tokens, d_model]``.  ``groups``: the
+    ``vision`` rows ``[micro_steps, b, n_vision_tokens, d_model]``, for
+    enc-dec its ``audio`` frames ``[micro_steps, b, n_audio_frames,
+    d_model]``.  ``groups``: the
     ``launch.mesh.MiCSGroups`` of ``topo``, needed at p > 1 or with more
     than one replica (``ValueError`` without).
     ``metrics``: fp32 0-dim tensors ``loss`` and ``aux`` (means over the
@@ -278,8 +281,8 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
                 comm=comm, mlstm_chunk=mcfg.mlstm_chunk)
     s = mcfg.micro_steps
     denom = float(s * topo.data_parallel_size)
-    batch_keys = ("tokens", "targets", "mask") + (("vision",) if model.cfg.family == "vlm"
-                                                   else ())
+    batch_keys = ("tokens", "targets", "mask") + {"vlm": ("vision",),
+                                                  "encdec": ("audio",)}.get(model.cfg.family, ())
 
     def step_fn(state, batch):
         _check_state(model, topo, state, dev, mcfg.offload_opt)
@@ -310,7 +313,8 @@ def accumulate_grads(model: ModelDef, comm: CommEngine, ctx: L.Ctx, params: dict
     """The micro-step loop of one step: for each micro-batch (dim 0 of
     ``batch``'s tokens / targets / mask), the loss forward and backward, each
     pool row's fp32 gradient added to its row of the accumulator in
-    micro-step order (the VLM's ``vision`` is sliced by micro-step too).  Returns ``(grads, loss_sum, aux_sum)``: the fp32
+    micro-step order (the VLM's ``vision`` and enc-dec's ``audio`` are
+    sliced by micro-step too).  Returns ``(grads, loss_sum, aux_sum)``: the fp32
     gradient sums like ``params``, and the fp32 sums of the micro-steps'
     ``loss`` and ``aux`` metrics."""
     dev = next(iter(params.values())).device

@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     paged_attention_plain,
     paged_body,
     paged_route,
+    padded_head_dim,
     plan_decode_splits,
     plan_paged_splits,
     route,
@@ -30,4 +31,4 @@ __all__ = ["flash_attention", "attention_plain", "route", "plan_decode_splits",
            "attention_plain_lse", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_bwd_on", "flash_attention_bwd_plain", "FlashAttentionFn",
            "paged_attention", "paged_attention_plain", "paged_route", "paged_body",
-           "plan_paged_splits"]
+           "plan_paged_splits", "padded_head_dim"]

@@ -57,6 +57,11 @@ on one of four routes chosen by :func:`bwd_route`:
 and :func:`flash_attention_bwd_plain` on the CPU.  :func:`flash_attention_bwd_on`
 launches a named route that the shape allows (every bf16 shape also takes
 ``mma``), so a caller can time one route beside another.
+
+Every launch and plain version takes the softmax ``scale`` (1/sqrt(dh) by
+default): ``models/layers.attention`` runs a head dim outside ``HEAD_DIMS``
+(bert-50b's 204) zero-padded to :func:`padded_head_dim` at the true head
+dim's scale.
 """
 
 from __future__ import annotations
@@ -103,6 +108,20 @@ launches_by_route = dict.fromkeys(ROUTES, 0)
 launches_bwd = 0
 launches_bwd_by_route = dict.fromkeys(BWD_ROUTES, 0)
 launches_paged_by_form = {f"paged:{body}": 0 for body in PAGED_BODIES}
+
+
+def padded_head_dim(dh: int) -> int:
+    """The head dim the kernels run ``dh`` at: ``dh`` where it is one of
+    ``HEAD_DIMS``, else the next larger one (zero-padded); ``ValueError``
+    past the largest."""
+    for d in HEAD_DIMS:
+        if d >= dh:
+            return d
+    raise ValueError(f"flash_attention: head dim {dh} pads to none of {HEAD_DIMS}")
+
+
+def _scale(dh: int, scale: float | None) -> float:
+    return 1.0 / math.sqrt(dh) if scale is None else scale
 
 
 def paged_route(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> str:
@@ -269,24 +288,25 @@ def mask_bias(tq: int, tk: int, *, causal: bool, window: int, q_offset: int,
 
 
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                    q_offset: int = 0, kv_valid_len=None):
+                    q_offset: int = 0, kv_valid_len=None, scale: float | None = None):
     """The direct masked-softmax form of ``repro/models/layers.py::attention``:
-    q pre-scaled by 1/sqrt(dh) and cast back to its type, fp32 scores, fp32
-    row max and normaliser, probabilities cast to v's type for the PV
-    product.  q [b,tq,hkv,g,dh], k/v [b,tk,hkv,dh] -> [b,tq,hkv,g,dh]."""
+    q pre-scaled by ``scale`` (1/sqrt(dh) by default) and cast back to its
+    type, fp32 scores, fp32 row max and normaliser, probabilities cast to
+    v's type for the PV product.  q [b,tq,hkv,g,dh], k/v [b,tk,hkv,dh] ->
+    [b,tq,hkv,g,dh]."""
     return attention_plain_lse(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                               kv_valid_len=kv_valid_len)[0]
+                               kv_valid_len=kv_valid_len, scale=scale)[0]
 
 
 def attention_plain_lse(q, k, v, *, causal: bool = True, window: int = 0,
-                        q_offset: int = 0, kv_valid_len=None):
+                        q_offset: int = 0, kv_valid_len=None, scale: float | None = None):
     """:func:`attention_plain` and the rows' fp32 log-sum-exp of the scaled,
     masked scores, ``m + log(sum exp(s - m))``, as [b, hkv, g, tq].
     ``kv_valid_len``: an int, or a [b] / [b, tq] tensor of per-row valid
     lengths."""
     dh = q.shape[-1]
     tq, tk = q.shape[1], k.shape[1]
-    scale = 1.0 / math.sqrt(dh)
+    scale = _scale(dh, scale)
     qs = (q.float() * scale).to(q.dtype)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qs.float(), k.float())
     bias = mask_bias(tq, tk, causal=causal, window=window, q_offset=q_offset,
@@ -398,13 +418,12 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _launch_partials(q, k, v, kv_len: int, nsplit: int, chunk: int, causal: bool,
-                     window: int, q_offset: int, stream: int) -> torch.Tensor:
+                     window: int, q_offset: int, stream: int, scale: float) -> torch.Tensor:
     b, tq, hkv, g, dh = q.shape
     part = torch.empty((b, hkv, nsplit, tq * g, dh + 2), dtype=torch.float32, device=q.device)
     err = K.library().flash_split_partials_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), part.data_ptr(), b, tq, k.shape[1], hkv,
-        g, dh, int(causal), window, q_offset, kv_len, nsplit, chunk, 1.0 / math.sqrt(dh),
-        stream)
+        g, dh, int(causal), window, q_offset, kv_len, nsplit, chunk, scale, stream)
     K.check(err, "flash_attention (split partials)")
     return part
 
@@ -419,14 +438,14 @@ def _launch_merge(part: torch.Tensor, tq: int, g: int, stream: int) -> torch.Ten
 
 
 def _launch_dense(r: str, q, k, v, o, lse, causal: bool, window: int, q_offset: int,
-                  kv_len: int, stream: int) -> None:
+                  kv_len: int, stream: int, scale: float) -> None:
     """One launch of the ``mma`` or ``fma`` kernel; ``lse`` (fp32
     [b, hkv, g, tq]) or None, which the serve path passes."""
     b, tq, hkv, g, dh = q.shape
     fn = K.library().flash_mma_launch if r == "mma" else K.library().flash_fma_launch
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              None if lse is None else lse.data_ptr(), b, tq, k.shape[1], hkv, g, dh,
-             int(causal), window, q_offset, kv_len, 1.0 / math.sqrt(dh), stream)
+             int(causal), window, q_offset, kv_len, scale, stream)
     K.check(err, f"flash_attention ({r})")
 
 
@@ -449,7 +468,7 @@ def decode_partials(q, k, v, *, nsplit: int, chunk: int, causal: bool = True,
                          f"{q.dtype}, {q.shape[1] * q.shape[3]} rows")
     _cuda_ready(q, k, v)
     return _launch_partials(q, k, v, kv_len, nsplit, chunk, causal, window, q_offset,
-                            _stream(q))
+                            _stream(q), _scale(q.shape[-1], None))
 
 
 def _row_lengths(kv_valid_len: torch.Tensor, b: int, tq: int) -> torch.Tensor:
@@ -461,7 +480,7 @@ def _row_lengths(kv_valid_len: torch.Tensor, b: int, tq: int) -> torch.Tensor:
 
 
 def paged_attention_plain(q, k_pages, v_pages, tables, kv_valid_len, *, k_scale=None,
-                          v_scale=None):
+                          v_scale=None, scale: float | None = None):
     """The paged route's function, plainly: the pool gathered through the
     block table into a contiguous view ``[b, max_blocks * block_size, hkv,
     dh]`` (int8 pages dequantized to q's type, ``dequantize_plain``), then
@@ -479,7 +498,7 @@ def paged_attention_plain(q, k_pages, v_pages, tables, kv_valid_len, *, k_scale=
     if k_scale is not None:
         k = dequantize_plain(k, view(k_scale), q.dtype)
         v = dequantize_plain(v, view(v_scale), q.dtype)
-    o = attention_plain(q, k, v, causal=False, kv_valid_len=kvl)
+    o = attention_plain(q, k, v, causal=False, kv_valid_len=kvl, scale=scale)
     return o.masked_fill((kvl.to(o.device) == 0)[:, :, None, None, None], 0)
 
 
@@ -510,7 +529,8 @@ def _check_paged(q, k_pages, v_pages, tables, k_scale, v_scale) -> None:
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                     tables: torch.Tensor, kv_valid_len: torch.Tensor, *,
                     k_scale: torch.Tensor | None = None,
-                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                    v_scale: torch.Tensor | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """GQA attention of q [b, tq, hkv, g, dh] over a paged KV pool: pages
     [n_blocks, block_size, hkv, dh] (int8 with fp32 scale pages [...,
     ceil(dh / 128)], or q's type), key j of request b at row
@@ -520,15 +540,16 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     zero.  CUDA: the ``paged`` route (:func:`paged_route`), body
     :func:`paged_body`, on the plan of :func:`plan_paged_splits` over the
     capacity ``max_blocks * block_size``, then its merge; CPU:
-    :func:`paged_attention_plain`.  -> [b, tq, hkv, g, dh] in q's type,
-    fp32 over fp32 pages (the promoted type)."""
+    :func:`paged_attention_plain`.  ``scale``: the softmax scale, 1/sqrt(dh)
+    by default.  -> [b, tq, hkv, g, dh] in q's type, fp32 over fp32 pages
+    (the promoted type)."""
     global launches
     _check_paged(q, k_pages, v_pages, tables, k_scale, v_scale)
     b, tq, hkv, g, dh = q.shape
     kvl = _row_lengths(kv_valid_len, b, tq)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, tables, kvl, k_scale=k_scale,
-                                     v_scale=v_scale)
+                                     v_scale=v_scale, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     r = paged_route(q.dtype, k_pages.dtype)
@@ -554,7 +575,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scale), ptr(v_scale),
         tables.data_ptr(), kvl.data_ptr(), part.data_ptr(), o.data_ptr(), b, tq, hkv, g, dh,
         bs, mb, k_pages.shape[0], int(int8), _PAGED_BODY_ARG[body],
-        int(q.dtype == torch.float32), nsplit, chunk, 1.0 / math.sqrt(dh), _stream(q))
+        int(q.dtype == torch.float32), nsplit, chunk, _scale(dh, scale), _stream(q))
     K.check(err, f"flash_attention (paged, {body})")
     launches += 1
     launches_by_route[r] += 1
@@ -564,27 +585,28 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
-                    kv_valid_len=None) -> torch.Tensor:
+                    kv_valid_len=None, scale: float | None = None) -> torch.Tensor:
     """GQA attention; output in ``q.dtype``.  ``q_offset`` is the absolute
     position of q[:, 0]; keys at or beyond ``kv_valid_len`` are masked.
     A [b] or [b, tq] tensor ``kv_valid_len`` (per-row lengths, no causal
     or window mask) is :func:`paged_attention` over k / v as a pool of one
-    block a request."""
+    block a request.  ``scale``: the softmax scale, 1/sqrt(dh) by default."""
     global launches
     if isinstance(kv_valid_len, torch.Tensor):
         if causal or window or q_offset:
             raise ValueError("flash_attention: per-row valid lengths take no causal, window "
                              "or q_offset mask")
         tables = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)[:, None]
-        return paged_attention(q, k, v, tables, kv_valid_len)
+        return paged_attention(q, k, v, tables, kv_valid_len, scale=scale)
     _check(q, k, v, window, q_offset, kv_valid_len)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset, kv_valid_len=kv_valid_len)
+                               q_offset=q_offset, kv_valid_len=kv_valid_len, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _cuda_ready(q, k, v)
     b, tq, hkv, g, dh = q.shape
+    scale = _scale(dh, scale)
     tk = k.shape[1]
     kv_len = _kv_len(tk, kv_valid_len)
     if b == 0 or tq == 0 or hkv == 0 or g == 0:
@@ -594,10 +616,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if r == "split":
         nsplit, chunk = plan_decode_splits(b, hkv, kv_len, sms=K.sm_count(q.get_device()))
         o = _launch_merge(_launch_partials(q, k, v, kv_len, nsplit, chunk, causal, window,
-                                           q_offset, stream), tq, g, stream)
+                                           q_offset, stream, scale), tq, g, stream)
     else:
         o = torch.empty_like(q)
-        _launch_dense(r, q, k, v, o, None, causal, window, q_offset, kv_len, stream)
+        _launch_dense(r, q, k, v, o, None, causal, window, q_offset, kv_len, stream, scale)
     launches += 1
     launches_by_route[r] += 1
     return o
@@ -605,7 +627,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0, q_offset: int = 0,
-                        kv_valid_len: int | None = None):
+                        kv_valid_len: int | None = None, scale: float | None = None):
     """The forward of the training path: ``(o, lse)``, o as
     :func:`flash_attention` and lse the rows' fp32 log-sum-exp
     [b, hkv, g, tq] that the backward reads.  bf16 takes ``mma`` at any row
@@ -615,7 +637,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, window, q_offset, kv_valid_len)
     if q.device.type == "cpu":
         return attention_plain_lse(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset, kv_valid_len=kv_valid_len)
+                                   q_offset=q_offset, kv_valid_len=kv_valid_len, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _cuda_ready(q, k, v)
@@ -626,20 +648,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o, lse
     r = route(q.dtype, tq * g, with_lse=True)
     _launch_dense(r, q, k, v, o, lse, causal, window, q_offset,
-                  _kv_len(k.shape[1], kv_valid_len), _stream(q))
+                  _kv_len(k.shape[1], kv_valid_len), _stream(q), _scale(dh, scale))
     launches += 1
     launches_by_route[r] += 1
     return o, lse
 
 
-def _bwd_terms_plain(q, k, v, o, lse, do, *, causal, window, q_offset, kv_valid_len):
+def _bwd_terms_plain(q, k, v, o, lse, do, *, causal, window, q_offset, kv_valid_len, scale):
     """The backward's per-pair terms in the kernels' arithmetic: fp32
     ``(qs, P, dS)`` with qs = q scaled and rounded to its type, P [b, hkv,
     g, tq, tk] (0 where masked) and dS = P (dP - delta) rounded to the
     inputs' type (dP rounded first)."""
     tq, tk, dh = q.shape[1], k.shape[1], q.shape[-1]
     dt = q.dtype
-    qs = (q.float() * (1.0 / math.sqrt(dh))).to(dt).float()
+    qs = (q.float() * _scale(dh, scale)).to(dt).float()
     dof = do.float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qs, k.float())
     allowed = mask_bias(tq, tk, causal=causal, window=window, q_offset=q_offset,
@@ -651,7 +673,8 @@ def _bwd_terms_plain(q, k, v, o, lse, do, *, causal, window, q_offset, kv_valid_
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
-                              q_offset: int = 0, kv_valid_len: int | None = None):
+                              q_offset: int = 0, kv_valid_len: int | None = None,
+                              scale: float | None = None):
     """The FlashAttention-2 backward of :func:`attention_plain`, in the
     kernels' arithmetic: ``P = exp(s - lse)`` (0 where masked) from the
     scaled q rounded to its type, ``delta = rowsum(dO o)``,
@@ -661,18 +684,19 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True, windo
     ``dk = dS^T qs`` and ``dq = scale (dS k)`` with dS rounded to the
     inputs' type (the tensor cores' operand), dq rounded before and after
     the scale as the reference's cast back to q's type does.  fp32 rounds
-    nowhere.  -> (dq, dk, dv) in the inputs' type."""
+    nowhere.  ``scale``: the forward's, 1/sqrt(dh) by default.  -> (dq, dk,
+    dv) in the inputs' type."""
     dt = q.dtype
     qs, p, ds = _bwd_terms_plain(q, k, v, o, lse, do, causal=causal, window=window,
-                                 q_offset=q_offset, kv_valid_len=kv_valid_len)
+                                 q_offset=q_offset, kv_valid_len=kv_valid_len, scale=scale)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(dt).float(), do.float())
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qs)
-    return _dq_plain(ds, k, dt), dk.to(dt), dv.to(dt)
+    return _dq_plain(ds, k, dt, scale), dk.to(dt), dv.to(dt)
 
 
-def _dq_plain(ds, k, dt):
+def _dq_plain(ds, k, dt, scale=None):
     dqs = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
-    return (dqs.to(dt).float() * (1.0 / math.sqrt(k.shape[-1]))).to(dt)
+    return (dqs.to(dt).float() * _scale(k.shape[-1], scale)).to(dt)
 
 
 def flash_attention_bwd_pieces_plain(q, k, v, o, lse, do, *, causal: bool = True,
@@ -687,7 +711,7 @@ def flash_attention_bwd_pieces_plain(q, k, v, o, lse, do, *, causal: bool = True
     b, tq, hkv, g, dh = q.shape
     tk, dt = k.shape[1], q.dtype
     qs, p, ds = _bwd_terms_plain(q, k, v, o, lse, do, causal=causal, window=window,
-                                 q_offset=q_offset, kv_valid_len=kv_valid_len)
+                                 q_offset=q_offset, kv_valid_len=kv_valid_len, scale=None)
     # packed rows r = position g + head: [b, hkv, tq g, tk] and [b, hkv, tq g, dh]
     rows = lambda t: t.permute(0, 1, 3, 2, 4).reshape(b, hkv, tq * g, tk)  # noqa: E731
     pr, dsr = rows(p.to(dt).float()), rows(ds)
@@ -715,15 +739,16 @@ def flash_attention_bwd_pieces_plain(q, k, v, o, lse, do, *, causal: bool = True
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
-                        q_offset: int = 0, kv_valid_len: int | None = None):
+                        q_offset: int = 0, kv_valid_len: int | None = None,
+                        scale: float | None = None):
     """``(dq, dk, dv)`` of :func:`flash_attention_fwd` at ``do``, from its
-    output ``o`` and log-sum-exp ``lse``.  CUDA: the route of
-    :func:`bwd_route` (:func:`flash_attention_bwd_on`); CPU:
+    output ``o`` and log-sum-exp ``lse`` (``scale``: the forward's).  CUDA:
+    the route of :func:`bwd_route` (:func:`flash_attention_bwd_on`); CPU:
     :func:`flash_attention_bwd_plain`."""
     _check(q, k, v, window, q_offset, kv_valid_len)
     r = bwd_route(q.dtype, q.shape[-1], q.shape[3], q.shape[2])
     return flash_attention_bwd_on(r, q, k, v, o, lse, do, causal=causal, window=window,
-                                  q_offset=q_offset, kv_valid_len=kv_valid_len)
+                                  q_offset=q_offset, kv_valid_len=kv_valid_len, scale=scale)
 
 
 _PIECE_TABLES: dict = {}
@@ -741,7 +766,8 @@ def _piece_table(plan, device) -> tuple[torch.Tensor, int]:
 
 
 def flash_attention_bwd_on(route: str, q, k, v, o, lse, do, *, causal: bool = True,
-                           window: int = 0, q_offset: int = 0, kv_valid_len: int | None = None):
+                           window: int = 0, q_offset: int = 0, kv_valid_len: int | None = None,
+                           scale: float | None = None):
     """:func:`flash_attention_bwd` on ``route``, one of :func:`bwd_routes`
     for the shape (another raises, on any device).  CUDA: the delta launch (with the
     scaled q and packed row stats for bf16), then the route's: dK and dV by
@@ -765,7 +791,8 @@ def flash_attention_bwd_on(route: str, q, k, v, o, lse, do, *, causal: bool = Tr
                          f"g {g} hkv {hkv}; it takes {bwd_routes(q.dtype, dh, g, hkv)}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,
-                                         q_offset=q_offset, kv_valid_len=kv_valid_len)
+                                         q_offset=q_offset, kv_valid_len=kv_valid_len,
+                                         scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     _cuda_ready(q, k, v, o, do, lse)
@@ -773,7 +800,7 @@ def flash_attention_bwd_on(route: str, q, k, v, o, lse, do, *, causal: bool = Tr
     if b == 0 or tq == 0 or hkv == 0 or g == 0:
         return dq, dk.zero_(), dv.zero_()
     stream = _stream(q)
-    scale = 1.0 / math.sqrt(dh)
+    scale = _scale(dh, scale)
     tk = k.shape[1]
     kv_len = _kv_len(tk, kv_valid_len)
     delta = torch.empty_like(lse)
@@ -826,12 +853,14 @@ def flash_attention_bwd_on(route: str, q, k, v, o, lse, do, *, causal: bool = Tr
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with its hand-written gradient: :func:`flash_attention_fwd`
-    (o and the log-sum-exp), then :func:`flash_attention_bwd`.  Saves q, k,
-    v, o and lse; the backward recomputes the probabilities from them."""
+    (o and the log-sum-exp), then :func:`flash_attention_bwd`, both at
+    ``scale``.  Saves q, k, v, o and lse; the backward recomputes the
+    probabilities from them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset, kv_valid_len):
-        kw = dict(causal=causal, window=window, q_offset=q_offset, kv_valid_len=kv_valid_len)
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_valid_len, scale=None):
+        kw = dict(causal=causal, window=window, q_offset=q_offset, kv_valid_len=kv_valid_len,
+                  scale=scale)
         o, lse = flash_attention_fwd(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = kw
@@ -841,4 +870,4 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None

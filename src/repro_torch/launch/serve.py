@@ -26,8 +26,9 @@ Weights are random, made from ``--seed``.  ``--quant-gather`` stores them
 as int8 with fp32 block scales (``quant.quantize_state``) and dequantizes
 each layer's row at every step.  The fixed-batch path serves on one rank,
 as the reference's does; for the VLM (``--arch llama-3.2-vision-90b``) its
-batch carries the stub vision frontend's patch embeddings, drawn after the
-prompts from the same generator (:func:`stub_batch`).
+batch carries the stub vision frontend's patch embeddings, for whisper
+(``--arch whisper-large-v3``) the stub audio frontend's frame embeddings,
+drawn after the prompts from the same generator (:func:`stub_batch`).
 
 ``--continuous`` serves a seeded request trace through the resilient
 continuous-batching engine (``runtime/resilient.py``: the paged KV pool at
@@ -46,8 +47,9 @@ would leave the launch world (fewer than one rank, more than it has) is
 refused before anything runs.  Rank 0 prints the warm tick, the served
 counts and tokens/s, the request-lifecycle ledger, the world changes and
 crashes and the ladder transitions.  The engine serves the dense and MoE
-families (griffin's windowed and recurrent caches, xLSTM's states and the
-VLM's cross caches are not paged, as in the reference); an MoE
+families (griffin's windowed and recurrent caches, xLSTM's states, the
+VLM's cross caches and enc-dec's encoder are not paged, as in the
+reference); an MoE
 model's dead rows take no expert slot.  ``--policy auto`` needs the
 link-model autotuner (ROADMAP Queue 1 item 8) and is refused.
 """
@@ -181,13 +183,18 @@ def serve_continuous(cfg, mcfg: MiCSConfig, args, dev: torch.device, groups=None
 def stub_batch(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
     """The fixed batch's inputs, from one ``np.random.default_rng(seed)``:
     the prompts ``[batch, prompt_len]``, then for the VLM the stub vision
-    frontend's patch embeddings ``[batch, n_vision_tokens, d_model]``,
-    normal, bf16 (the reference launcher's draws, in its order)."""
+    frontend's patch embeddings ``[batch, n_vision_tokens, d_model]`` and
+    for enc-dec the stub audio frontend's frame embeddings ``[batch,
+    n_audio_frames, d_model]``, normal, bf16 (the reference launcher's
+    draws, in its order)."""
     rng = np.random.default_rng(seed)
     out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len))).to(device)}
     if cfg.family == "vlm":
         out["vision"] = torch.from_numpy(rng.normal(
             size=(batch, cfg.n_vision_tokens, cfg.d_model))).to(torch.bfloat16).to(device)
+    if cfg.family == "encdec":
+        out["audio"] = torch.from_numpy(rng.normal(
+            size=(batch, cfg.n_audio_frames, cfg.d_model))).to(torch.bfloat16).to(device)
     return out
 
 

@@ -36,9 +36,12 @@ and ``--compress-hop2`` (fp32, bf16 or int8 gradient wires) and
 ``--grad-rounding`` (the int8 gradient wires' rounding); a line says
 which.  A setting the port does not run yet (``--policy auto`` and
 ``--hbm-budget-gb``, ROADMAP Queue 1 item 8) raises
-``NotImplementedError``, and so does ``--arch llama-3.2-vision-90b``: the
-VLM's steps take ``vision`` rows (``core/mics.build_train_step``), which
-neither the reference's launcher nor its data pipeline makes.  The
+``NotImplementedError``, and so do ``--arch llama-3.2-vision-90b`` and
+``--arch whisper-large-v3``: the VLM's steps take ``vision`` rows and
+enc-dec's ``audio`` frames (``core/mics.build_train_step``), which neither
+the reference's launcher nor its data pipeline makes.  The paper's
+LayerNorm + GeLU configs (``bert-10b`` ... ``gpt2-20b``, dense) train
+here.  The
 reference's memory-plan and autotune printouts wait for those modules.
 Only rank 0 prints.
 """
@@ -121,11 +124,13 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
-    if cfg.family == "vlm":
+    if cfg.family in ("vlm", "encdec"):
+        rows = {"vlm": ("vision rows", "vision"), "encdec": ("audio frames", "audio")}
+        what, key = rows[cfg.family]
         raise NotImplementedError(
-            f"{cfg.name}: the VLM trains on batches with vision rows, and the data pipeline "
-            "makes none (nor do the reference's launcher and pipeline; ROADMAP Queue 3): "
-            "train it through core.mics.build_train_step with a batch's 'vision'")
+            f"{cfg.name}: the {cfg.family} family trains on batches with {what}, and the data "
+            "pipeline makes none (nor do the reference's launcher and pipeline; ROADMAP "
+            f"Queue 3): train it through core.mics.build_train_step with a batch's {key!r}")
     p = args.partition_size if args.partition_size is not None or world > 1 else 1
     topo = make_mics_topology(world, p, zero3=args.zero3, tp=args.tp,
                               param_count=cfg.param_count())

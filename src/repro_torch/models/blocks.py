@@ -1,12 +1,14 @@
-"""Dense, MoE and gated cross-attention layers (the port of the dense, MoE
-and VLM parts of ``repro/models/blocks.py``).
+"""Dense, MoE, gated cross-attention and whisper decoder layers (the port
+of ``repro/models/blocks.py``).
 
 Each sub-block provides ``*_layout(cfg, tp, b)`` (appends its segments to a
 LayoutBuilder) and ``*_apply`` (a plain function over unflattened tensors).
 Self-attention runs in prefill mode, in contiguous decode at a scalar
 position, and at per-request positions (a ``[b]`` tensor ``ctx.pos``: the
 continuous-batching engine), over a contiguous cache or a paged KV pool
-(``ctx.pages``).
+(``ctx.pages``).  Norms are RMSNorm or, with ``cfg.norm == "ln"``,
+LayerNorm with a bias; MLPs SwiGLU, GeGLU or the biased GeLU MLP
+(``cfg.mlp == "gelu"``: whisper and the paper's BERT-style models).
 """
 
 from __future__ import annotations
@@ -96,7 +98,9 @@ def _paged_kv_write(cache: dict, pages, k: torch.Tensor, v: torch.Tensor,
     head) row against its own absmax (``quant.quantize_flat``, nearest);
     blocks are only written incrementally, never re-quantized.
     """
-    bs = cache["k"].shape[1]
+    bs, width = cache["k"].shape[1], cache["k"].shape[-1]
+    if k.shape[-1] != width:  # a pool at a padded head dim (L.paged_attention)
+        k, v = (torch.nn.functional.pad(t, (0, width - t.shape[-1])) for t in (k, v))
     tables = pages.block_tables
     slot = torch.clamp(absp // bs, max=tables.shape[1] - 1)
     blk = torch.where(valid_tok, torch.gather(tables.long(), 1, slot), 0)
@@ -207,26 +211,28 @@ def self_attention(t, x, ctx: L.Ctx, ad: AttnDims, cfg: ArchConfig, *,
 
 
 def cross_attention(t, x, kv_src, ctx: L.Ctx, ad: AttnDims, cfg: ArchConfig, *,
-                    prefix: str = "xattn.", cache=None):
-    """Cross attention against a source sequence (the VLM's vision rows),
-    non-causal over all of its keys, no rotary on either side, no biases
-    (the reference's ``bias`` serves enc-dec).  Prefill returns the
-    projected source K/V as the cache ({k, v} [b, src, hkv, dh] in the
-    compute dtype); decode reads them from ``cache`` and projects only the
-    queries.  Returns (out, cache)."""
+                    prefix: str = "xattn.", bias: bool = False, cache=None):
+    """Cross attention against a source sequence (the VLM's vision rows,
+    whisper's encoder output), non-causal over all of its keys, no rotary
+    on either side; ``bias`` adds ``bq``, ``bk``, ``bv`` and ``bo`` (the
+    decoder's).  Prefill returns the projected source K/V as the cache
+    ({k, v} [b, src, hkv, dh] in the compute dtype); decode reads them from
+    ``cache`` and projects only the queries.  Returns (out, cache)."""
     bsz, tq, _ = x.shape
     if ctx.mode == "decode" and cache is not None:
-        q = (x @ t[prefix + "wq"]).reshape(bsz, tq, ad.hkv_local, ad.q_per_kv_local,
-                                           ad.head_dim)
+        q = x @ t[prefix + "wq"]
+        if bias:
+            q = q + t[prefix + "bq"].to(q.dtype)
+        q = q.reshape(bsz, tq, ad.hkv_local, ad.q_per_kv_local, ad.head_dim)
         out = L.attention(q, cache["k"], cache["v"], causal=False)
-        return attn_out(t, out, ad, ctx, prefix, bias=False), cache
-    q, k, v = attn_qkv(t, x, kv_src, ad, ctx, prefix, bias=False)
+        return attn_out(t, out, ad, ctx, prefix, bias=bias), cache
+    q, k, v = attn_qkv(t, x, kv_src, ad, ctx, prefix, bias=bias)
     out = L.attention(q, k, v, causal=False)
     new_cache = None
     if ctx.mode == "prefill":
         new_cache = {"k": k.to(ctx.compute_dtype).contiguous(),
                      "v": v.to(ctx.compute_dtype).contiguous()}
-    return attn_out(t, out, ad, ctx, prefix, bias=False), new_cache
+    return attn_out(t, out, ad, ctx, prefix, bias=bias), new_cache
 
 
 def make_kv_cache(cfg: ArchConfig, tp: int, batch: int, cache_len: int, *,
@@ -248,11 +254,17 @@ def make_cross_cache(cfg: ArchConfig, tp: int, batch: int, src_len: int, *,
 
 
 def norm_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, name: str):
-    b.add(name + ".scale", (shard_dim(cfg.d_model, tp),), init="zeros", decay=False,
+    d_local = shard_dim(cfg.d_model, tp)
+    b.add(name + ".scale", (d_local,), init="zeros", decay=False,
           model_gather=tp, model_gather_dim=0)
+    if cfg.norm == "ln":
+        b.add(name + ".bias", (d_local,), init="zeros", decay=False,
+              model_gather=tp, model_gather_dim=0)
 
 
 def apply_norm(cfg: ArchConfig, t, x, name: str):
+    if cfg.norm == "ln":
+        return L.layer_norm(x, t[name + ".scale"], t[name + ".bias"])
     return L.rms_norm(x, t[name + ".scale"])
 
 
@@ -261,21 +273,33 @@ def mlp_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = "mlp.",
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     f_local = shard_dim(f, tp, "d_ff")
-    b.add(prefix + "wg", (d, f_local), std=1.0 / math.sqrt(d))
-    b.add(prefix + "wu", (d, f_local), std=1.0 / math.sqrt(d))
-    b.add(prefix + "wd", (f_local, d), std=1.0 / math.sqrt(f) / math.sqrt(2 * cfg.n_layers))
+    std, dstd = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f) / math.sqrt(2 * cfg.n_layers)
+    if cfg.mlp in ("swiglu", "geglu"):
+        b.add(prefix + "wg", (d, f_local), std=std)
+        b.add(prefix + "wu", (d, f_local), std=std)
+        b.add(prefix + "wd", (f_local, d), std=dstd)
+    else:  # gelu: biased, b2 stored sharded and gathered over the model group
+        b.add(prefix + "w1", (d, f_local), std=std)
+        b.add(prefix + "b1", (f_local,), init="zeros", decay=False)
+        b.add(prefix + "wd", (f_local, d), std=dstd)
+        b.add(prefix + "b2", (shard_dim(d, tp),), init="zeros", decay=False,
+              model_gather=tp, model_gather_dim=0)
 
 
 def mlp_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, prefix: str = "mlp."):
-    """Column-parallel gate and up projections, row-parallel down
-    projection, then the psum over the model group."""
+    """Column-parallel gate and up projections (GeLU: ``w1`` and ``b1``),
+    row-parallel down projection, then the psum over the model group (GeLU:
+    then ``+ b2``)."""
     if cfg.mlp == "swiglu":
         out = L.mlp_swiglu(x, t[prefix + "wg"], t[prefix + "wu"], t[prefix + "wd"])
     elif cfg.mlp == "geglu":
         out = L.mlp_geglu(x, t[prefix + "wg"], t[prefix + "wu"], t[prefix + "wd"])
     else:
-        raise NotImplementedError(f"mlp {cfg.mlp!r}: the port runs swiglu and geglu so far")
-    return L.tp_psum(out, ctx)
+        out = L.mlp_gelu(x, t[prefix + "w1"], t[prefix + "b1"], t[prefix + "wd"])
+    out = L.tp_psum(out, ctx)
+    if cfg.mlp == "gelu":
+        out = out + t[prefix + "b2"].to(out.dtype)
+    return out
 
 
 def strip_prefix(t: dict, prefix: str) -> dict:
@@ -346,6 +370,45 @@ def cross_layer_apply(cfg: ArchConfig, ad: AttnDims, t, x, ctx: L.Ctx, cache=Non
     x = x + _gate(tt["gate_attn"], x, ctx) * a
     h = apply_norm(cfg, tt, x, "ln2")
     x = x + _gate(tt["gate_mlp"], x, ctx) * mlp_apply(cfg, tt, h, ctx, "mlp.")
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# whisper decoder layer (its encoder layers are dense layers, non-causal)
+# ---------------------------------------------------------------------------
+
+def encdec_dec_layout(cfg: ArchConfig, tp: int, b: LayoutBuilder, prefix: str = ""):
+    pb = LayoutBuilder(prefix)
+    norm_layout(cfg, tp, pb, "ln1")
+    attn_layout(cfg, tp, pb, "attn.", bias=True)
+    norm_layout(cfg, tp, pb, "lnx")
+    attn_layout(cfg, tp, pb, "xattn.", bias=True)
+    norm_layout(cfg, tp, pb, "ln2")
+    mlp_layout(cfg, tp, pb, "mlp.")
+    b.extend(pb)
+
+
+def encdec_dec_apply(cfg: ArchConfig, ad: AttnDims, t, x, ctx: L.Ctx, cache=None,
+                     prefix: str = ""):
+    """The decoder layer: causal biased self-attention (no rotary), biased
+    cross-attention over ``ctx.enc_out`` (decode: over the K/V its prefill
+    cached), the MLP; each after its LayerNorm (``ln1``, ``lnx``, ``ln2``).
+    The cache is ``{"self": KV cache, "cross": cross cache}``."""
+    tt = strip_prefix(t, prefix)
+    h = apply_norm(cfg, tt, x, "ln1")
+    a, nc_self = self_attention(tt, h, ctx, ad, cfg, prefix="attn.", causal=True,
+                                use_rope=False, bias=True,
+                                cache=cache.get("self") if cache else None)
+    x = x + a
+    h = apply_norm(cfg, tt, x, "lnx")
+    a, nc_cross = cross_attention(tt, h, ctx.enc_out, ctx, ad, cfg, prefix="xattn.", bias=True,
+                                  cache=cache.get("cross") if cache else None)
+    x = x + a
+    h = apply_norm(cfg, tt, x, "ln2")
+    x = x + mlp_apply(cfg, tt, h, ctx, "mlp.")
+    new_cache = None
+    if nc_self is not None or nc_cross is not None:
+        new_cache = {"self": nc_self, "cross": nc_cross}
     return x, new_cache
 
 

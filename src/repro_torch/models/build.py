@@ -1,6 +1,7 @@
-"""Model registry: ArchConfig -> ModelDef (the port of the dense, griffin,
-MoE, VLM and xLSTM parts of ``repro/models/build.py``) and the parameter
-counts.  The encoder-decoder family raises ``NotImplementedError``."""
+"""Model registry: ArchConfig -> ModelDef (the port of
+``repro/models/build.py``: the dense, MoE, VLM, encoder-decoder, griffin and
+xLSTM families, RMSNorm or LayerNorm, SwiGLU, GeGLU or GeLU MLPs) and the
+parameter counts."""
 
 from __future__ import annotations
 
@@ -18,6 +19,9 @@ from repro_torch.models.lm import ModelDef, Pool
 def _embed_pool(cfg: ArchConfig, tp: int) -> Pool:
     b = LayoutBuilder()
     b.add("emb.table", (cfg.vocab, shard_dim(cfg.d_model, tp)), std=0.02)
+    if cfg.family == "encdec":   # learned positions: the tokens', the audio frames'
+        b.add("emb.pos", (cfg.max_seq, shard_dim(cfg.d_model, tp)), std=0.02)
+        b.add("emb.audio_pos", (cfg.n_audio_frames, shard_dim(cfg.d_model, tp)), std=0.02)
     return Pool("embed", b.build(), 1, apply=None)
 
 
@@ -26,6 +30,9 @@ def _head_pool(cfg: ArchConfig, tp: int, vocab_padded: int) -> Pool:
     d_local = shard_dim(cfg.d_model, tp)
     b.add("final.scale", (d_local,), init="zeros", decay=False,
           model_gather=tp, model_gather_dim=0)
+    if cfg.norm == "ln":
+        b.add("final.bias", (d_local,), init="zeros", decay=False,
+              model_gather=tp, model_gather_dim=0)
     b.add("head.w", (cfg.d_model, vocab_padded // tp), std=1.0 / math.sqrt(cfg.d_model))
     return Pool("head", b.build(), 1, apply=None)
 
@@ -43,14 +50,6 @@ def _wrap(apply):
 
 
 def build_model(cfg: ArchConfig, tp: int) -> ModelDef:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port builds the dense, griffin, MoE, VLM and xLSTM "
-            "families so far (encdec: ROADMAP Queue 1 item 7)")
-    if cfg.norm != "rms" or cfg.mlp not in ("swiglu", "geglu"):
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} / mlp {cfg.mlp!r}: the port builds RMSNorm + "
-            "SwiGLU / GeGLU layers so far (LayerNorm and GeLU: ROADMAP Queue 1 item 7)")
     ad = attn_dims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, tp)
     vocab_padded = pad_to_tp(cfg.vocab, tp)
     if cfg.family == "dense":
@@ -72,6 +71,8 @@ def build_model(cfg: ArchConfig, tp: int) -> ModelDef:
                 cfg, tp, bsz, clen, dtype=dtype, device=device)),)
     elif cfg.family == "vlm":
         pools = (_vlm_pool(cfg, tp, ad),)
+    elif cfg.family == "encdec":
+        pools = _encdec_pools(cfg, tp, ad)
     elif cfg.family == "xlstm":
         every = cfg.slstm_every or 4
         pattern = ("m",) * (every - 1) + ("s",)
@@ -79,12 +80,14 @@ def build_model(cfg: ArchConfig, tp: int) -> ModelDef:
         pools = (_xlstm_pool(cfg, tp, pattern, n_super, "x"),)
         if rem:
             pools += (_xlstm_pool(cfg, tp, ("m",) * rem, 1, "xtail"),)
-    else:
+    elif cfg.family == "griffin":
         pattern = cfg.pattern or ("rec", "rec", "attn")
         n_super, rem = divmod(cfg.n_layers, len(pattern))
         pools = (_griffin_pool(cfg, tp, ad, pattern, n_super, "g"),)
         if rem:
             pools += (_griffin_pool(cfg, tp, ad, pattern[:rem], 1, "gtail"),)
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
     return ModelDef(cfg=cfg, tp=tp, pools=pools,
                     embed=_embed_pool(cfg, tp),
                     head=_head_pool(cfg, tp, vocab_padded),
@@ -164,6 +167,29 @@ def _vlm_pool(cfg: ArchConfig, tp: int, ad: AttnDims) -> Pool:
         return c
 
     return Pool("layers", b.build(), n_super, apply, make_cache)
+
+
+def _encdec_pools(cfg: ArchConfig, tp: int, ad: AttnDims) -> tuple[Pool, Pool]:
+    """whisper: the ``enc`` pool, ``n_encoder_layers`` dense layers with
+    non-causal self-attention and no cache (``lm.forward`` runs it over the
+    audio frames first), and the ``dec`` pool, ``n_layers`` decoder layers
+    whose cache is ``{"self": KV cache, "cross": cross cache over the
+    n_audio_frames}``."""
+    be = LayoutBuilder()
+    B.dense_layer_layout(cfg, tp, be)
+    enc = Pool("enc", be.build(), cfg.n_encoder_layers, _wrap(
+        lambda t, x, ctx, cache: B.dense_layer_apply(cfg, ad, t, x, ctx, cache, causal=False)))
+    bd = LayoutBuilder()
+    B.encdec_dec_layout(cfg, tp, bd)
+
+    def make_cache(bsz, clen, dtype, device):
+        return {"self": B.make_kv_cache(cfg, tp, bsz, clen, dtype=dtype, device=device),
+                "cross": B.make_cross_cache(cfg, tp, bsz, cfg.n_audio_frames, dtype=dtype,
+                                            device=device)}
+
+    dec = Pool("dec", bd.build(), cfg.n_layers, _wrap(
+        lambda t, x, ctx, cache: B.encdec_dec_apply(cfg, ad, t, x, ctx, cache)), make_cache)
+    return enc, dec
 
 
 def _xlstm_pool(cfg: ArchConfig, tp: int, pattern, stack: int, name: str) -> Pool:

@@ -12,6 +12,10 @@ on every model rank: the embedding table is stored ``[vocab, d/tp]`` and
 gathered, row-parallel outputs are summed (:func:`tp_psum`) and the loss
 is vocab-parallel (:func:`tp_cross_entropy`), each collective through the
 ``CommEngine`` that ``Ctx.comm`` carries.
+
+:func:`layer_norm` and :func:`mlp_gelu` (the LayerNorm + GeLU layers of
+whisper and the paper's BERT-style models) are plain PyTorch, as the
+reference computes them with ``jnp``: no TPU kernel computes them.
 """
 
 from __future__ import annotations
@@ -23,11 +27,12 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention
-from repro_torch.kernels.flash_attention import paged_attention  # noqa: F401 (a call site)
 from repro_torch.kernels.rmsnorm import RmsNormFn, rmsnorm
 
 NEG_INF = -1e30
+launches_padded = 0    # attention calls on the card at a padded head dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +45,7 @@ class Ctx:
     pages: Any = None              # decode over a paged KV pool: runtime/paged.PageState
     cache_len: int = 0             # KV-cache capacity
     vision: Any = None             # [b, n_img, d] stub patch embeddings (the VLM)
+    enc_out: Any = None            # [b, n_frames, d] encoder output (enc-dec)
     compute_dtype: torch.dtype = torch.bfloat16
     comm: Any = None               # the CommEngine of the model axis (tp > 1)
     mlstm_chunk: int = 0           # chunkwise-parallel mLSTM (0: the timestep scan)
@@ -58,6 +64,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     if _records_grad(x, scale):
         return RmsNormFn.apply(x, scale, eps)
     return rmsnorm(x, scale, eps)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim in fp32 (the mean, then the mean of the
+    squared deviations), ``y (1 + scale) + bias``, cast back to x's type
+    (``repro/models/layers.py::layer_norm``), as one fused PyTorch call
+    (its eager form ran ≈ 12 launches forward and 20 backward)."""
+    d = x.shape[-1]
+    y = F.layer_norm(x.float(), (d,), weight=1.0 + scale.float(), bias=bias.float(), eps=eps)
+    return y.to(x.dtype)
 
 
 def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -86,12 +103,43 @@ def attention(
 ) -> torch.Tensor:
     """Scaled-dot-product GQA attention -> [b, tq, hkv, g, dh].  Per-row
     valid lengths (a tensor ``kv_valid_len``: the ragged rows of continuous
-    batching) take the flash kernel's ``paged`` route."""
+    batching) take the flash kernel's ``paged`` route.  A head dim outside
+    the kernels' (bert-50b's 204) runs zero-padded to the next one
+    (``padded_head_dim``) at the true head dim's scale and is cut back: a
+    zero column adds nothing to a score and its output column is zero, and
+    autograd's pad and cut give the gradients."""
+    global launches_padded
+    dh = q.shape[-1]
+    to = FA.padded_head_dim(dh)
+    scale = None
+    if to != dh:
+        q, k, v = (F.pad(t, (0, to - dh)) for t in (q, k, v))
+        scale = 1.0 / math.sqrt(dh)
+        launches_padded += q.device.type == "cuda"
     if _records_grad(q, k, v):
-        return FlashAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(), causal,
-                                      window, q_offset, kv_valid_len)
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           q_offset=q_offset, kv_valid_len=kv_valid_len)
+        o = FlashAttentionFn.apply(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                                   window, q_offset, kv_valid_len, scale)
+    else:
+        o = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                            kv_valid_len=kv_valid_len, scale=scale)
+    return o if to == dh else o[..., :dh]
+
+
+def paged_attention(q, k_pages, v_pages, tables, kv_valid_len, *, k_scale=None,
+                    v_scale=None):
+    """The flash kernel's ``paged_attention`` of q over a pool.  A pool
+    wider than q (an odd head dim's, allocated at ``padded_head_dim`` by
+    ``runtime/paged.py``) takes q zero-padded to its width at the true head
+    dim's scale, and the output is cut back."""
+    global launches_padded
+    dh, to = q.shape[-1], k_pages.shape[-1]
+    scale = None
+    if to != dh:
+        q, scale = F.pad(q, (0, to - dh)), 1.0 / math.sqrt(dh)
+        launches_padded += q.device.type == "cuda"
+    o = FA.paged_attention(q, k_pages, v_pages, tables, kv_valid_len, k_scale=k_scale,
+                           v_scale=v_scale, scale=scale)
+    return o if to == dh else o[..., :dh]
 
 
 def mlp_swiglu(x, wg, wu, wd):
@@ -102,6 +150,13 @@ def mlp_swiglu(x, wg, wu, wd):
 def mlp_geglu(x, wg, wu, wd):
     h = F.gelu(x @ wg, approximate="tanh") * (x @ wu)
     return h @ wd
+
+
+def mlp_gelu(x, w1, b1, w2):
+    """``gelu(x @ w1 + b1, tanh) @ w2``: the biased GeLU MLP up to its
+    down projection (the caller adds ``b2`` after the psum)."""
+    h = F.gelu(x @ w1 + b1.to(x.dtype), approximate="tanh")
+    return h @ w2
 
 
 def embed_lookup(table_local: torch.Tensor, ids: torch.Tensor, ctx: Ctx) -> torch.Tensor:

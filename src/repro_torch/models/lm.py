@@ -41,6 +41,11 @@ gradients are bitwise the stored carry's:
   pinned host slot as the layer starts (``CommEngine.host_stash``, after
   the next layer's gather is issued) and comes back to the card when the
   backward's recompute needs it; the layer input stays on the card.
+
+A pool that reads an encoder output (``ctx.enc_out``: whisper's decoder)
+keeps the stored carry under both, as the reference does (its custom VJP
+would drop the encoder output's gradient); the encoder pools, which run
+first over the audio frames, take every carry.
 """
 
 from __future__ import annotations
@@ -151,13 +156,23 @@ def _checkpointed(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
+def _training(ctx: L.Ctx) -> bool:
+    """Train mode with autograd recording: the layers run checkpointed.
+    (The encoder pools run in train mode at a prefill too, without
+    gradients: no cache, non-causal attention over every frame.)"""
+    return ctx.mode == "train" and torch.is_grad_enabled()
+
+
 def _apply_pool(pool: Pool, flat_rows, x, ctx: L.Ctx, comm, caches=None):
     """Run a pool over its stack.  flat_rows: [stack, 1, S_local], or a
     list of [S_local] rows."""
     if comm.prefetch and pool.stack > 1:
-        if ctx.mode == "train" and comm.carry_offload == "host":
+        # the encoder output carries gradient into the layers that read it:
+        # those keep the stored carry (the reference's routing)
+        carries = _training(ctx) and ctx.enc_out is None
+        if carries and comm.carry_offload == "host":
             return _apply_pool_prefetch_offload(pool, flat_rows, x, ctx, comm)
-        if ctx.mode == "train" and comm.prefetch_carry == "remat":
+        if carries and comm.prefetch_carry == "remat":
             return _apply_pool_prefetch_remat(pool, flat_rows, x, ctx, comm)
         return _apply_pool_prefetch(pool, flat_rows, x, ctx, comm, caches)
     return _apply_pool_serial(pool, flat_rows, x, ctx, comm, caches)
@@ -168,7 +183,7 @@ def _apply_pool_serial(pool, flat_rows, x, ctx, comm, caches):
     mode both under one checkpoint, so the backward re-gathers."""
     aux_tot, new = 0.0, []
     for i in range(pool.stack):
-        if ctx.mode == "train":
+        if _training(ctx):
             x, aux = _checkpointed(functools.partial(_layer_from_row, pool, comm, ctx), x,
                                    _row(flat_rows, i))
             nc = None
@@ -191,7 +206,7 @@ def _apply_pool_prefetch(pool, flat_rows, x, ctx, comm, caches):
     for i in range(pool.stack):
         nxt = (comm.gather_ahead(_row(flat_rows, i + 1), seed=ctx.step_seed)
                if i + 1 < pool.stack else None)
-        if ctx.mode == "train":
+        if _training(ctx):
             x, aux = _checkpointed(functools.partial(_layer_from_full, pool, comm, ctx), x, cur)
             nc = None
         else:
@@ -271,31 +286,71 @@ def _apply_pool_prefetch_offload(pool, flat_rows, x, ctx, comm):
     return x, aux_tot, None
 
 
-def embed_tokens(model: ModelDef, t_embed, tokens, ctx: L.Ctx):
+def embed_tokens(model: ModelDef, t_embed, tokens, ctx: L.Ctx, *, pos=None):
+    """The token rows, plus the learned positions where the model has them
+    (``emb.pos``, enc-dec): positions ``0 ... t - 1`` for ``pos`` None,
+    ``pos[b] + i`` for a [b] tensor, else ``pos`` for every token (a decode
+    step at a scalar position)."""
     x = L.embed_lookup(t_embed["emb.table"], tokens, ctx)
+    if "emb.pos" in t_embed:
+        b, t = tokens.shape
+        ar = torch.arange(t, device=tokens.device)
+        if pos is None:
+            positions = ar.expand(b, t)
+        elif isinstance(pos, torch.Tensor) and pos.dim() == 1:
+            positions = pos.to(tokens.device).long()[:, None] + ar[None, :]
+        else:
+            positions = torch.full((b, t), int(pos), dtype=torch.int64, device=tokens.device)
+        x = x + L.embed_lookup(t_embed["emb.pos"], positions, ctx)
     return x.to(ctx.compute_dtype)
 
 
+def encode_audio(model: ModelDef, t_embed, audio, ctx: L.Ctx):
+    """whisper's stub frontend: the precomputed frame embeddings ``audio``
+    [b, n_frames, d] plus the learned frame positions."""
+    b, frames = audio.shape[:2]
+    positions = torch.arange(frames, device=audio.device).expand(b, frames)
+    pe = L.embed_lookup(t_embed["emb.audio_pos"], positions, ctx)
+    return (audio + pe).to(ctx.compute_dtype)
+
+
 def lm_logits(model: ModelDef, t_head, x, ctx: L.Ctx):
-    x = L.rms_norm(x, t_head["final.scale"])
+    if model.cfg.norm == "ln":
+        x = L.layer_norm(x, t_head["final.scale"], t_head["final.bias"])
+    else:
+        x = L.rms_norm(x, t_head["final.scale"])
     return x @ t_head["head.w"]
 
 
 def forward(model: ModelDef, flat: dict[str, torch.Tensor], comm, ctx: L.Ctx,
             batch: dict[str, torch.Tensor], caches: dict | None = None):
     """Embedding -> pools -> final hidden states.  The VLM's batch carries
-    ``vision`` [b, n_vision_tokens, d] outside decode.
+    ``vision`` [b, n_vision_tokens, d] outside decode; enc-dec's carries
+    ``audio`` [b, n_audio_frames, d] there, which the ``enc`` pools encode
+    first (train mode, no cache) into ``ctx.enc_out`` for the decoder.
 
     Returns (hidden, aux_loss, new_caches, t_head).
     """
     t_embed = comm.gather(model.embed, _row(flat["embed"], 0), seed=ctx.step_seed)
     aux_total = 0.0
     new_caches: dict[str, Any] = {}
+    encdec = model.cfg.family == "encdec"
+    if encdec and ctx.mode != "decode":
+        # decode reads the encoder output's K/V from the cross caches
+        enc_x = encode_audio(model, t_embed, batch["audio"], ctx)
+        enc_ctx = dataclasses.replace(ctx, mode="train", pos=None)
+        for pool in model.pools:
+            if pool.name.startswith("enc"):
+                enc_x, aux, _ = _apply_pool(pool, flat[pool.name], enc_x, enc_ctx, comm)
+                aux_total += aux
+        ctx = dataclasses.replace(ctx, enc_out=enc_x)
     if model.cfg.family == "vlm" and ctx.mode != "decode":
         # decode reads the vision rows' K/V from the cross layers' caches
         ctx = dataclasses.replace(ctx, vision=batch["vision"].to(ctx.compute_dtype))
-    x = embed_tokens(model, t_embed, batch["tokens"], ctx)
+    x = embed_tokens(model, t_embed, batch["tokens"], ctx, pos=ctx.pos)
     for pool in model.pools:
+        if encdec and pool.name.startswith("enc"):
+            continue
         pool_cache = caches.get(pool.name) if caches is not None else None
         x, aux, nc = _apply_pool(pool, flat[pool.name], x, ctx, comm, pool_cache)
         aux_total += aux

@@ -54,11 +54,13 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import quant as Q
 from repro_torch.core.mics import KV_DTYPES, MiCSConfig
 from repro_torch.core.topology import MiCSTopology
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import padded_head_dim
 from repro_torch.models import lm
 from repro_torch.models.lm import ModelDef
 from repro_torch.runtime.serving import local_rows, serve_engine
@@ -160,7 +162,9 @@ def paged_cache_local(model: ModelDef, n_blocks_local: int, block_size: int,
 
     Leaves a pool: k / v [stack, n_blocks, block_size, h_local, dh] (+ fp32
     scale pages ks / vs [stack, n_blocks, block_size, h_local, n_scale] when
-    ``kv_dtype='int8'``).
+    ``kv_dtype='int8'``).  A head dim outside the flash kernels' is stored
+    zero-padded to ``padded_head_dim`` (bert-50b's 204 at 256), the width
+    the ``paged`` route reads; the step's writes pad to it.
     """
     _check_paged_support(model)
     if kv_dtype not in KV_DTYPES:
@@ -169,7 +173,8 @@ def paged_cache_local(model: ModelDef, n_blocks_local: int, block_size: int,
     caches = {}
     for pool in model.pools:
         one = pool.make_cache(1, block_size, torch.float32, "cpu")
-        shape = (pool.stack, n_blocks_local, *one["k"].shape[1:])  # [stack, nb, bs, h, dh]
+        *rest, dh = one["k"].shape[1:]                   # [stack, nb, bs, h, dh]
+        shape = (pool.stack, n_blocks_local, *rest, padded_head_dim(dh))
         if kv_dtype == "int8":
             sc = (*shape[:-1], Q.n_blocks(shape[-1]))
             caches[pool.name] = {
@@ -228,6 +233,8 @@ def pages_from_contiguous(model: ModelDef, topo: MiCSTopology, contig: dict, pag
             off = torch.as_tensor(posn % block_size, dtype=torch.long, device=dev)
             src_k = contig[pool.name]["k"][:, b, :n].to(device=dev, dtype=torch.float32)
             src_v = contig[pool.name]["v"][:, b, :n].to(device=dev, dtype=torch.float32)
+            pad = (0, dst["k"].shape[-1] - src_k.shape[-1])  # a pool at a padded head dim
+            src_k, src_v = F.pad(src_k, pad), F.pad(src_v, pad)
             if kv_dtype == "int8":
                 (qk, sk), (qv, sv) = Q.quantize_flat(src_k), Q.quantize_flat(src_v)
                 rows = {"k": qk, "v": qv, "ks": sk, "vs": sv}

@@ -125,7 +125,7 @@ def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
 
     ``prefill_fn(params, batch) -> (logits [b, 1, V / tp], caches)``: the
     global batch's tokens [B, T] (and the VLM's ``vision`` [B,
-    n_vision_tokens, d]), of which this data rank runs its ``b = B / dp``
+    n_vision_tokens, d], enc-dec's ``audio`` [B, n_audio_frames, d]), of which this data rank runs its ``b = B / dp``
     rows; ``params`` are the rank's shards (``init_params(...,
     topo=, rank=)``; with ``mcfg.quant_gather`` stored int8 pools,
     ``quant.quantize_state`` of them); the caches are the rank's.
@@ -146,7 +146,8 @@ def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
     def prefill_fn(params, batch):
         _check_params(model, topo, params, dev, mcfg.quant_gather)
         mine = local_rows(comm, batch["tokens"].shape[0])
-        keys = ("tokens", "vision") if model.cfg.family == "vlm" else ("tokens",)
+        keys = ("tokens",) + {"vlm": ("vision",), "encdec": ("audio",)}.get(
+            model.cfg.family, ())
         return lm.prefill(model, params, comm, ctx, {k: batch[k][mine].to(dev) for k in keys})
 
     @torch.inference_mode()

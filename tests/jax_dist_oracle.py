@@ -329,7 +329,7 @@ def tp_train() -> dict:
     gradients at the case's layout on the cut weights
     (``repro_torch.convert.tp_params_from_full`` of ``K.numpy_params``), and
     at the same layout with tp 1 on the whole weights (``<case>.tp1.*``),
-    on the first micro-batch of ``K.tp_batch()``."""
+    on the first micro-batch of ``K.tp_batch(case)``."""
     import dataclasses
 
     from repro.configs import get_config, smoke_variant
@@ -338,11 +338,11 @@ def tp_train() -> dict:
     from repro_torch.convert import tp_params_from_full
     from repro_torch.models.build import build_model as port_model
 
-    batch = {k: v[0] for k, v in K.tp_batch().items()}
     out = {}
     for name, (arch, lay, wire, over) in K.TP_TRAINS.items():
         if wire != "fp32":
             continue
+        batch = {k: v[0] for k, v in K.tp_batch(name).items()}
         topo = topology(lay)
         tp = topo.model_size
         cfg = dataclasses.replace(smoke_variant(get_config(arch)), **over)

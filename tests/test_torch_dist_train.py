@@ -376,7 +376,7 @@ def _tp1_step(name):
     step = build_train_step(model, MiCSTopology(), MiCSConfig(
         micro_steps=K.MICRO, gather_dtype=TDT[K.TP_TRAINS[name][2]]), OptConfig(**K.OPT),
         device="cpu")
-    state, m = step(state, K.tp_batch())
+    state, m = step(state, K.tp_batch(name))
     return (np.asarray([[m["loss"].item(), m["grad_norm"].item()]]),
             {part: {k: v.numpy() for k, v in state[part].items()} for part in PARTS})
 
@@ -491,8 +491,10 @@ def _tp_expected_calls(name) -> dict:
     ``rec.wo``, ``wd``) three times (forward, recompute, backward) except
     the row's last, which the recompute stops before (non-reentrant
     checkpointing recomputes only up to the last tensor the backward
-    saved); the embedding's gather and the final norm scale's, once each
-    and their reduce-scatters; the loss's pmax, its two psums and the
+    saved); each embedding lookup's gather (the tokens; enc-dec adds its
+    token and frame positions) and the final norm's segments' (its scale;
+    LayerNorm adds the bias), once each and their reduce-scatters; the
+    loss's pmax, its two psums and the
     backward's one.  A step adds the norm's psum over the model group,
     over the partition group at p > 1, and the loss mean over the data
     ranks when there are several; the partition gathers as at tp 1 (a
@@ -517,8 +519,10 @@ def _tp_expected_calls(name) -> dict:
         psums = sum(seg.name.endswith(("attn.wo", "rec.wo", "mlp.wd"))
                     for seg in pool.layout.segments)
         add("all_reduce:model", (3 * psums - 1) * pool.stack * K.MICRO)
-    add("all_gather:model", 2 * K.MICRO)          # the embedding, the final norm
-    add("reduce_scatter:model", 2 * K.MICRO)
+    lookups = 3 if model.cfg.family == "encdec" else 1
+    head = sum(seg.model_gather > 1 for seg in model.head.layout.segments)
+    add("all_gather:model", (lookups + head) * K.MICRO)    # the embedding, the final norm
+    add("reduce_scatter:model", (lookups + head) * K.MICRO)
     add("all_reduce_max:model", K.MICRO)
     add("all_reduce:model", 3 * K.MICRO + 1)
     if topo.partition_size > 1:

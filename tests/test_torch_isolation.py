@@ -158,18 +158,22 @@ def test_later_slices_raise():
         gp = CommEngine.from_config(MiCSTopology(), MiCSConfig(**staged)).gather_policy
         assert (gp.topology, gp.inner) == (topology, inner)
     assert CommEngine.from_config(MiCSTopology(), MiCSConfig()).gather_policy == GatherPolicy()
+    # the encoder-decoder family and the LayerNorm + GeLU layers are built:
+    # enc and dec pools, the biased GeLU MLP (never a quiet SwiGLU), and
+    # get_config knows whisper and the paper's configs
     encdec = ArchConfig(name="e", family="encdec", n_layers=2, d_model=64, n_heads=4,
-                        n_kv_heads=4, d_ff=128, vocab=256, n_encoder_layers=2)
-    with pytest.raises(NotImplementedError):
-        build_model(encdec, tp=1)
+                        n_kv_heads=4, d_ff=128, vocab=256, n_encoder_layers=2, mlp="gelu",
+                        norm="ln")
+    assert [(p.name, p.stack) for p in build_model(encdec, tp=1).pools] == [("enc", 2),
+                                                                            ("dec", 2)]
     gelu = ArchConfig(name="w", family="dense", n_layers=2, d_model=64, n_heads=4,
                       n_kv_heads=4, d_ff=128, vocab=256, mlp="gelu")
-    with pytest.raises(NotImplementedError):
-        build_model(gelu, tp=1)
+    segs = [s.name for s in build_model(gelu, tp=1).pool("layers").layout.segments]
+    assert {"mlp.w1", "mlp.b1", "mlp.b2"} <= set(segs) and "mlp.wg" not in segs
     from repro_torch.models import blocks
     from repro_torch.models.layers import Ctx
 
-    with pytest.raises(NotImplementedError, match="gelu"):  # never a quiet SwiGLU
+    with pytest.raises(KeyError, match="w1"):  # never a quiet SwiGLU
         blocks.mlp_apply(gelu, {}, torch.zeros(1, 1, 64), Ctx())
-    with pytest.raises(KeyError):
-        get_config("whisper-large-v3")
+    assert get_config("whisper-large-v3").family == "encdec"
+    assert get_config("bert-50b").mlp == "gelu"

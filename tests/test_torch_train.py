@@ -259,13 +259,13 @@ def test_more_than_one_card_raises(setup, topo):
     ("moe", "cuda", False),       # its layers reach RMSNorm and flash attention
     ("xlstm", "cuda", False),     # RMSNorm; its recurrences are plain PyTorch
     ("vlm", "cuda", False),       # RMSNorm and flash attention, non-causal in its cross layers
-    ("encdec", "cuda", True),     # a family the port does not build yet
+    ("encdec", "cuda", False),    # flash attention: the encoder's non-causal, the cross layers'
 ])
 def test_griffin_training_refused_on_a_cuda_device(family, device, refused):
     """The family check reads only the device's type, so it runs without a
     card; a refusal names the ROADMAP item that lifts it.  Every family the
-    port builds (dense, griffin, MoE, xLSTM, the VLM) trains on a CUDA
-    device."""
+    port builds (dense, griffin, MoE, xLSTM, the VLM, enc-dec) trains on a
+    CUDA device."""
     call = lambda: refuse_unported(MiCSConfig(), MiCSTopology(), family,  # noqa: E731
                                    torch.device(device))
     if refused:

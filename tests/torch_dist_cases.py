@@ -457,7 +457,13 @@ TP_TRAINS = {
     # xLSTM: every block's weights gathered whole over the model group, the
     # cells computed on every model rank; the sLSTM's MLP tensor-parallel
     "xlstm@P2T2": ("xlstm-125m", "P2T2", "fp32", {}),
+    # whisper: the encoder's gradient reaches it through each rank's cross
+    # K/V projections (its heads' share), summed by the encoder's psums and
+    # the frame positions' gather adjoint
+    "whisper@P2T2": ("whisper-large-v3", "P2T2", "fp32", {}),
 }
+# The enc-dec cases' stub audio frames: smoke whisper's 16 frames of d 64.
+TP_AUDIO = {"whisper-large-v3": (16, 64)}
 
 
 def tp1_layout(layout: str) -> tuple:
@@ -546,9 +552,17 @@ def tie_shadowed(model, params: dict) -> dict:
     return out
 
 
-def tp_batch() -> dict[str, np.ndarray]:
-    """The TP steps' global batch: the first of :func:`train_batches`."""
-    return train_batches()[0]
+def tp_batch(name: str | None = None) -> dict[str, np.ndarray]:
+    """The TP steps' global batch: the first of :func:`train_batches`; for
+    an enc-dec case of ``TP_TRAINS`` also its ``audio`` frames ``[MICRO,
+    GLOBAL_B, frames, d]``, normal from a seed of the case's name."""
+    batch = train_batches()[0]
+    arch = TP_TRAINS[name][0] if name else None
+    if arch in TP_AUDIO:
+        rng = np.random.default_rng(_seed("tp_audio:" + name))
+        batch["audio"] = rng.standard_normal((MICRO, GLOBAL_B, *TP_AUDIO[arch])).astype(
+            np.float32)
+    return batch
 
 
 def on_jax_basis(model, grads: dict) -> dict:

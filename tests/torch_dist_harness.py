@@ -443,7 +443,8 @@ def tp_train(world: World) -> dict:
         full = {"params": {k: torch.from_numpy(v) for k, v in params.items()}, "step": 0}
         for part in ("m", "v"):
             full[part] = {k: torch.zeros_like(v) for k, v in full["params"].items()}
-        batch = K.data_slice(K.tp_batch(), topo.data_rank(world.rank), topo.data_parallel_size)
+        batch = K.data_slice(K.tp_batch(name), topo.data_rank(world.rank),
+                             topo.data_parallel_size)
         runs = {"": {}, ".serial": {"prefetch": False}} if wire == "bf16" else {"": {}}
         for suffix, kw in runs.items():
             state = shard_state(model, topo, world.rank, full, device="cpu")
