@@ -156,22 +156,20 @@ check raises and the script exits non-zero; no phase swallows an error):
 3b. ``dist_train``: 4 ranks, each a process of this
    script (``--dist-worker``) started with ``torchrun``'s variables, through
    ``launch/mesh.init_distributed`` / ``MiCSGroups`` and
-   ``runtime/train_loop.train``, the ``train`` phase's data, seed, global
-   batch (llama: 2 micro-steps x 4 ranks x 1 x 2048) and OptConfig, prefetch,
-   bucketed boundary, 3 steps (C: 2), then each rank's checkpoint shards
+   ``runtime/train_loop.train``, the ``train`` phase's data, seed, rows a
+   micro-step (llama: 4 ranks x 1 x 2048, one micro-step) and OptConfig,
+   prefetch, bucketed boundary, 2 steps, then each rank's checkpoint shards
    (written, timed and removed).  With fewer than 4 cards the ranks share card 0 and
    the collectives run over gloo through pinned host buffers (NCCL refuses
    two ranks on one card): a correctness rehearsal, not a MiCS speed; with
-   4 or more cards, over NCCL, one card a rank.  Layout A: p 4, the paper's
-   ``outer_first`` gather with inner 2, full depth; its losses and grad
-   norms against the ``train`` phase's steps 1-3 (step 1: loss 2e-3, grad
-   norm 2e-2 relative; steps 2-3: 2%).  Layout B: p 2 x 2 replicas (hop 2
-   and the bucketed boundary across replicas) at 4 layers, against a
-   one-card run of that model.  Tensor parallelism: layout C, llama3.2-1b
-   at full depth over p 2 x tp 2, 2 steps, against the ``train`` phase as
-   A; layout D, recurrentgemma-2b cut to one (rec, rec, attn) super-layer over tp 4
-   (the griffin path's 4 micro-steps x 2 x 2048 on every rank), against a
-   one-card run of that model.  Layout E: deepseek-moe-16b at full width
+   4 or more cards, over NCCL, one card a rank.  Each layout is held to a
+   one-card run of its cut model on the same weights and batches (step 1:
+   loss 2e-3, grad norm 2e-2 relative; step 2: 2%).  Layout A: p 4, the
+   paper's ``outer_first`` gather with inner 2, llama at 4 layers.  Layout
+   B: p 2 x 2 replicas (hop 2 and the bucketed boundary across replicas) at
+   4 layers.  Tensor parallelism: layout C, llama3.2-1b at 4 layers over p 2
+   x tp 2; layout D, recurrentgemma-2b cut to one (rec, rec, attn) super-layer over tp 4
+   (2 of the griffin path's micro-steps of 2 x 2048 on every rank).  Layout E: deepseek-moe-16b at full width
    cut to one layer over tp 4 (16 experts a rank, each rank routing 1024
    of a micro-step's 4096 tokens, the expert exchange over the model
    group), 2 steps of ``train_moe``'s batches, against a one-card run of
@@ -226,7 +224,7 @@ check raises and the script exits non-zero; no phase swallows an error):
    ``elastic_host_topology(4, 2, tp 2)``), its tp 1 ``init_params(seed=0)``
    cut by ``tp_params_from_full`` and each rank's shard by
    ``shard_params``, bf16 gather and pools, 4 slots a data rank, chunks of
-   64, blocks of 16, 8 requests from seed 0 (prompts 64-256, 16 new
+   64, blocks of 16, 8 requests from seed 0 (prompts 64-256, 8 new
    tokens, the odd ones at temperature 0.7 with top-k 8), one every 2
    ticks: fault-free on 4 ranks, fault-free on 2 (ranks 2-3 parked, p 1 x
    tp 2) and with ``preempt@6x2`` (ranks 2-3 lost abruptly at tick 6).
@@ -257,11 +255,11 @@ check raises and the script exits non-zero; no phase swallows an error):
    T (the state hand-off), the prefill at ``mlstm_chunk`` 64 against the
    scan's, one mLSTM and one sLSTM block at full width against fp32 on the
    CPU; a profiled prefill and decode step.  ``train_xlstm``:
-   ``build_train_step`` on the same model, 2 steps of 2 micro-steps of 2 x
-   2048 tokens, ``mlstm_chunk`` 64 (RMSNorm 28 + 27 recomputed, its
+   ``build_train_step`` on the same model, 1 step of 2 micro-steps of 2 x
+   1024 tokens, ``mlstm_chunk`` 64 (RMSNorm 28 + 27 recomputed, its
    backward 28 on ``regs``, a micro-step), MFU on 6 N (the recurrences' own
    operations left out), a micro-step profiled at 2 x 256 and 2 x 512 (its
-   device kernels, a line through them to 2 x 2048); ``train_xlstm_probe``:
+   device kernels, a line through them to 2 x 1024); ``train_xlstm_probe``:
    step 1's gradients by segment against fp32 compute
    (``XLSTM_FP32_REL_TOL``) and two faults the limits must catch (the
    sLSTM's recurrent matrices given zero gradient; the mLSTM's chunk carry
@@ -385,6 +383,29 @@ check raises and the script exits non-zero; no phase swallows an error):
    the pad and the cut timed), and the ``paged`` route at bert-50b's
    engine pools (40 KV heads of g 1 at 256, bf16 and int8 pages) as
    correctness checks.
+
+The memory planner and the autotuner (``core/memplan.py``,
+``core/autotune.py``) on the card: every one-card train run (``train``,
+each ``train_knobs`` variant, ``train_moe``, ``train_xlstm``,
+``train_whisper``, ``train_bert``) carries a ``memplan`` record, the
+planner's footprint at the run's shapes by component beside its peak and
+reserve, and checks that the plan's state bytes are exactly the tensors
+``init_state`` made (``memory_allocated`` after it less before it printed
+beside) and, but for MoE and xLSTM (whose unpriced buffers it names),
+that the plan is within ``MEM_RTOL`` and the card's ``CARD_PLAN_RTOL`` of
+the peak and its reserve (``RESERVE_FACTOR``) holds the allocator's.
+``train_knobs`` gains the variant ``auto`` (``policy="auto"`` under the
+card's whole memory in GiB, gated at the run's batch: the chosen config
+printed, bitwise the ``train`` phase, its peak and reserve under the
+budget; a budget below the smallest candidate and one between the
+states-only plan and the remat run's reserve refused with
+``MemoryBudgetError`` before anything is allocated);
+``serve_paged`` an ``auto`` engine run on its first 8 requests (the KV
+dtype and residency the planner picks, bitwise the manual engine at that
+KV dtype, the serve plan beside the peak); ``dist_train`` prints the
+autotuner's census by stage for layouts A-E beside the ranks'
+``CommCounter`` (calls equal); ``host_link`` fits pinned copies each way
+at 64 MiB and 1 GiB beside the card profile's host tier.
 
 ``python3 chip_smoke.py --profile-only`` runs the ``profile`` phases alone
 (both serve paths, then the train steps; no checks, no result line): it
@@ -523,6 +544,13 @@ MOE_TRAIN = TrainPath("deepseek-moe-16b", 4, 2, 2048, 3,
 # fault must exceed one of them.  The loss at init is near ln V whatever
 # the experts do, so its limit only bounds the precision.
 MOE_FP32_REL_TOL = {"loss": 3e-4, "grad_norm": 1.5e-3, "leaf_norm": 2e-2}
+# The train step's buffers that no term of the memory planner prices: the
+# expert dispatch's [E, cap + 1, d] slots, expert outputs and routing
+# tables (models/blocks._moe_dispatch_tokens).  They live inside a layer,
+# gone by the loss's backward where this run peaks, but a run that peaks
+# inside a layer would miss them: the plan against the peak is reported,
+# not held to MEM_RTOL.
+MOE_UNPRICED = "expert dispatch (models/blocks._moe_dispatch_tokens): slots, outputs, routing"
 # Params after one AdamW step from zero moments move by about lr * sign(g);
 # where the two sides' gradients differ in sign (|g| near rounding) a
 # weight lands up to 2 lr apart.
@@ -644,7 +672,7 @@ def ptxas_summary(log: str) -> list[dict]:
     return out
 
 
-def time_ms(fn, flush: torch.Tensor, reps: int = 20) -> float:
+def time_ms(fn, flush: torch.Tensor, reps: int = 10) -> float:
     """Median CUDA-event time of one call, with L2 flushed before each.
     A spin of about half a millisecond on the card after the flush lets the
     host enqueue the whole call before the card reaches the start event, so
@@ -1473,6 +1501,9 @@ def serve_paged_phase(cfg, model, params, card, dev, pg: PagedServe = PAGED) -> 
             for a, b in zip(toks, int8["completions"][rid])]
     torch.cuda.empty_cache()
     fp32 = serve_paged_fp32(cfg, model, params, dev)
+    torch.cuda.empty_cache()
+    auto = serve_paged_auto(cfg, model, params, dev, {"bf16": rep["completions"],
+                                                      "fp32": fp32.pop("completions")})
 
     led = rep["ledger"]
     return {"phase": "serve_paged", "arch": cfg.name, "layers": cfg.n_layers,
@@ -1492,7 +1523,7 @@ def serve_paged_phase(cfg, model, params, card, dev, pg: PagedServe = PAGED) -> 
                                        "wall_s": iwall, "tokens_equal_to_bf16_share":
                                        sum(same) / len(same), "launches": ilaunches,
                                        "attention_launches_by_form": iforms},
-                       "fp32_engine": fp32,
+                       "fp32_engine": fp32, "auto_engine": auto,
                        "paged_vs_plain": kernel,
                        "launch_counts": "an engine step: RMSNorm 2 L + 1, attention L, all "
                                         "on paged:wgmma; int8 pools: quantize 2 L"},
@@ -1600,7 +1631,8 @@ class DropSpy:
 
 
 def engine_run(cfg, model, params, dev, pg: PagedServe, kv: str, label: str,
-               fault: str | None = None, warm: bool = False, spy: DropSpy | None = None):
+               fault: str | None = None, warm: bool = False, spy: DropSpy | None = None,
+               mcfg=None):
     """One counted run of ``pg``'s trace through ``ResilientServeLoop`` (the
     launcher's ``--continuous`` path) on ``kv`` pools and ``params``, bf16
     gather; the ledger must account every request, each completion must be
@@ -1609,7 +1641,9 @@ def engine_run(cfg, model, params, dev, pg: PagedServe, kv: str, label: str,
     ``paged`` route in the body of ``paged_body(dh, kv)`` (and ``quantize``
     2 L on int8 pools).  Returns ``(report, requests, TickClock, wall s,
     launches, the routes and forms, loop)``.  ``spy``: a :class:`DropSpy`
-    to attach to the loop."""
+    to attach to the loop.  ``mcfg``: a resolved config to serve with (its
+    ``kv_dtype`` is ``kv``; the loop caps the batcher's residency at its
+    ``max_resident_requests``)."""
     import numpy as np
 
     from repro_torch.core.faults import FaultPlan
@@ -1619,11 +1653,12 @@ def engine_run(cfg, model, params, dev, pg: PagedServe, kv: str, label: str,
     from repro_torch.runtime import batching as RB
     from repro_torch.runtime.resilient import ResilientServeLoop, ServeLoopConfig
 
+    if mcfg is None:
+        mcfg = MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True, kv_dtype=kv,
+                          kv_block_size=pg.block)
     sc = ServeLoopConfig(slots_local=pg.slots, nb_local=pg.slots * pg.max_blocks + 1,
                          block_size=pg.block, max_blocks=pg.max_blocks, chunk=pg.chunk,
                          top_k=pg.top_k, reserve="full", seed=0)
-    mcfg = MiCSConfig(gather_dtype=torch.bfloat16, prefetch=True, kv_dtype=kv,
-                      kv_block_size=pg.block)
     loop = ResilientServeLoop(model, MiCSTopology(), mcfg, sc, params_for=lambda m, t: params,
                               fault_injector=None if fault is None else FaultPlan.parse(fault),
                               device=dev)
@@ -1774,7 +1809,65 @@ def serve_paged_fp32(cfg, model, params, dev) -> dict:
     return {"engine": dataclasses.asdict(pg), "kv_dtype": "fp32", "pool_gb": pool_gb,
             **engine_summary(rep, reqs, clock, wall), "ledger_accounted": True,
             "launches": launches, "attention_launches_by_form": forms, **consistency,
-            "crash_replay": crash}
+            "crash_replay": crash, "completions": rep["completions"]}
+
+
+# serve_paged's fifth engine run: the autotuner's serve policy (policy
+# "auto", the KV ceiling bf16, the residency from the memory planner) on the
+# trace of the manual run at the KV dtype it picks, held to that run bit for
+# bit: the phase's first 8 requests on bf16 pools, its fp32 run's 8 on fp32.
+AUTO_PAGED = {"bf16": dataclasses.replace(PAGED, requests=8), "fp32": FP32_PAGED}
+
+
+def serve_paged_auto(cfg, model, params, dev, manual: dict) -> dict:
+    """The engine under ``MiCSConfig(policy="auto", kv_dtype="bf16")``
+    resolved as the launcher resolves it (``core/autotune.resolve_config``
+    in serve mode at the phase engine's positions: the KV dtype at most
+    bf16's lossiness, prefetch, the planner's residency, which caps the
+    batcher's), on ``AUTO_PAGED``'s trace for the chosen KV dtype; its
+    completions bit for bit ``manual[kv]``'s (the manual run's at that KV
+    dtype on the same requests), and the serve plan
+    (``core/memplan.predict_footprint`` with the engine's pool and plan
+    rows) beside the run's peak."""
+    from repro_torch.core import memplan as MP
+    from repro_torch.core.autotune import resolve_config
+    from repro_torch.core.comm import policies_from_config
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.core.topology import MiCSTopology
+
+    t0 = time.perf_counter()
+    mcfg, plan = resolve_config(MiCSConfig(policy="auto", kv_dtype="bf16", kv_block_size=PAGED.block),
+                                model, MiCSTopology(), mode="serve",
+                                seq=PAGED.max_blocks * PAGED.block)
+    kv = mcfg.kv_dtype
+    pg = AUTO_PAGED[kv]
+    rep, reqs, clock, wall, launches, (_, forms), loop = engine_run(
+        cfg, model, params, dev, pg, kv, "serve_paged auto", warm=True, mcfg=mcfg)
+    peak = torch.cuda.max_memory_allocated()
+    del loop
+    torch.cuda.empty_cache()
+    want = {rid: manual[kv][rid] for rid in rep["completions"]}
+    if rep["completions"] != want:
+        raise AssertionError(f"serve_paged auto ({kv} pools): completions differ from the "
+                             f"manual engine's at {kv}")
+    gp, sp = policies_from_config(mcfg)
+    nb = pg.slots * pg.max_blocks + 1
+    mem = MP.predict_footprint(model, MiCSTopology(), gp, sp, mode="serve",
+                               kv_pages_tokens=nb * pg.block, kv_dtype=kv,
+                               decode_batch=pg.slots, decode_ctx=pg.max_blocks * pg.block,
+                               decode_chunk=pg.chunk, kv_max_blocks=pg.max_blocks)
+    return {"engine": dataclasses.asdict(pg), "kv_ceiling": "bf16", "kv_dtype": kv,
+            "max_resident_requests": mcfg.max_resident_requests,
+            "prefetch": mcfg.prefetch, "gather": "flat" if not mcfg.hierarchical
+            else mcfg.gather_order, "gather_dtype": str(mcfg.gather_dtype).removeprefix("torch."),
+            "ranking": plan.table(top=6), **engine_summary(rep, reqs, clock, wall),
+            "completions_equal_to_manual": True, "launches": launches,
+            "attention_launches_by_form": forms,
+            "memplan": {"plan_gb": mem.total_bytes / 1e9, "peak_gb": peak / 1e9,
+                        "plan_over_peak": mem.total_bytes / peak, "args_gb": mem.args_bytes / 1e9,
+                        "components_gb": {k: v / 1e9 for k, v in mem.components.items()},
+                        "reserved_gb": torch.cuda.max_memory_reserved() / 1e9},
+            "seconds": time.perf_counter() - t0}
 
 
 def moe_layer_check(model, params, dev) -> dict:
@@ -1976,6 +2069,119 @@ def train_flops(model, path: TrainPath) -> float:
     return 6 * n * tokens + attn, n
 
 
+# The caching allocator hands a tensor a block rounded up to 512 bytes, and
+# a whole fresh segment (rounded up to 2 MiB) when less than 1 MiB of it
+# would be left: what ``memory_allocated`` counts beyond a tensor's bytes.
+ALLOC_SLACK_BYTES = 2 * 2**20
+# The card's own limit on plan / peak, beside the reference's documented
+# MEM_RTOL (0.35): the one-card train runs the planner is held on read
+# 0.9961 (bert-10b) to 1.0056 (recurrentgemma-2b, remat) on an H100, so a
+# lost term of a few percent of the step (the loss's workspace is 13% of
+# recurrentgemma-2b's) fails here where MEM_RTOL would pass it.
+CARD_PLAN_RTOL = 0.03
+
+
+def measure_init(init, *args, **kw):
+    """``init(*args, **kw)`` (``init_state``) and what it put on the card:
+    ``memory_allocated`` after it less before it, beside the bytes of the
+    state's device tensors and their count."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    state = init(*args, **kw)
+    torch.cuda.synchronize()
+    tensors = [t for part in ("params", "m", "v") for t in state[part].values() if t.is_cuda]
+    return state, {"allocated_bytes": torch.cuda.memory_allocated() - before,
+                   "tensor_bytes": sum(t.numel() * t.element_size() for t in tensors),
+                   "tensors": len(tensors), "live_before_bytes": before}
+
+
+class InitMeasured:
+    """Measures (:func:`measure_init`) every ``init_state`` that ``module``
+    (the train loop) calls while the context is open; ``.seen`` keeps the
+    last."""
+
+    def __init__(self, module):
+        self.module, self.seen = module, None
+
+    def __enter__(self):
+        self.orig = self.module.init_state
+
+        def init_state(*args, **kw):
+            state, self.seen = measure_init(self.orig, *args, **kw)
+            return state
+
+        self.module.init_state = init_state
+        return self
+
+    def __exit__(self, *exc):
+        self.module.init_state = self.orig
+
+
+def memplan_record(model, mcfg, path: TrainPath, peak_bytes: int, init: dict):
+    """``(record, plan)``: the memory planner (``core/memplan.predict_footprint``)
+    at ``path``'s shapes under ``mcfg`` (a resolved config) beside the run's
+    peak ``peak_bytes``, the allocator's reserve and what ``init_state``
+    made (``init``: :func:`measure_init`).  Sizes are 1e9 bytes (``*_gb``)
+    or 2^30 (``*_gib``)."""
+    from repro_torch.core import memplan as MP
+    from repro_torch.core.comm import policies_from_config
+    from repro_torch.core.topology import MiCSTopology
+
+    gp, sp = policies_from_config(mcfg)
+    plan = MP.predict_footprint(model, MiCSTopology(), gp, sp, micro_steps=mcfg.micro_steps,
+                                local_batch=path.global_batch // path.micro_steps, seq=path.seq,
+                                boundary=mcfg.boundary_schedule,
+                                hop2_bucket_mb=mcfg.hop2_bucket_mb, offload_opt=mcfg.offload_opt)
+    reserved = torch.cuda.max_memory_reserved()
+    out = {"plan_gb": plan.total_bytes / 1e9, "plan_gib": plan.total_gb,
+           "peak_gb": peak_bytes / 1e9, "plan_over_peak": plan.total_bytes / peak_bytes,
+           "reserved_gb": reserved / 1e9, "plan_reserved_gb": plan.reserved_bytes / 1e9,
+           "reserved_over_plan": reserved / plan.total_bytes,
+           "args_gb": plan.args_bytes / 1e9,
+           "components_gb": {k: v / 1e9 for k, v in plan.components.items()},
+           "state_bytes_plan": plan.state_bytes, "state_bytes_init": init["tensor_bytes"],
+           "init_allocated_bytes": init["allocated_bytes"],
+           "live_before_init_gb": init["live_before_bytes"] / 1e9, "rtol": MP.MEM_RTOL,
+           "card_rtol": CARD_PLAN_RTOL, "reserve_factor": MP.RESERVE_FACTOR}
+    return out, plan
+
+
+def plan_against_peak(label: str, model, mcfg, path: TrainPath, peak_bytes: int, init: dict,
+                      *, missing: str | None = None) -> dict:
+    """:func:`memplan_record` of the run, checked.
+
+    Checks that the plan's state bytes are exactly the bytes of the tensors
+    ``init_state`` made on the card (``init``: :func:`measure_init`), that
+    ``memory_allocated`` grew by those bytes plus at most the allocator's
+    rounding (``ALLOC_SLACK_BYTES`` a tensor), and, unless ``missing`` names
+    a term the planner does not price (the run is then reported only), that
+    the plan's total is within ``MEM_RTOL`` and ``CARD_PLAN_RTOL`` of
+    ``peak_bytes`` and that the allocator's reserve
+    (``max_memory_reserved``) is within the plan's ``reserved_bytes``, what
+    a budget is held to."""
+    from repro_torch.core import memplan as MP
+
+    out, plan = memplan_record(model, mcfg, path, peak_bytes, init)
+    ratio, reserved = out["plan_over_peak"], torch.cuda.max_memory_reserved()
+    out["held_to_rtol"] = missing is None
+    slack = init["allocated_bytes"] - init["tensor_bytes"]
+    if plan.state_bytes != init["tensor_bytes"] or not (
+            0 <= slack <= init["tensors"] * ALLOC_SLACK_BYTES):
+        raise AssertionError(f"{label}: the plan's state bytes {plan.state_bytes} != the "
+                             f"{init['tensor_bytes']} bytes init_state made "
+                             f"({init['allocated_bytes']} allocated)")
+    if missing is not None:
+        out["missing_term"] = missing
+    elif not abs(ratio - 1) <= min(MP.MEM_RTOL, CARD_PLAN_RTOL):
+        raise AssertionError(f"{label}: the plan {plan.total_bytes / 1e9:.3f} GB is not within "
+                             f"{min(MP.MEM_RTOL, CARD_PLAN_RTOL)} of the peak "
+                             f"{peak_bytes / 1e9:.3f} GB")
+    elif not reserved <= plan.reserved_bytes:
+        raise AssertionError(f"{label}: the allocator reserved {reserved / 1e9:.3f} GB, over "
+                             f"the plan's {plan.reserved_bytes / 1e9:.3f} GB with its reserve")
+    return out
+
+
 def train_phase(path: TrainPath, card: str, dev):
     """``train``: the port's training entry point, ``runtime/train_loop.train``,
     on ``path``'s model at full width and depth for ``path.steps`` steps
@@ -1991,6 +2197,7 @@ def train_phase(path: TrainPath, card: str, dev):
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models.build import build_model
     from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime import train_loop as TL
     from repro_torch.runtime.train_loop import LoopConfig, train
 
     cfg = get_config(path.arch)
@@ -2006,12 +2213,15 @@ def train_phase(path: TrainPath, card: str, dev):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    stats = train(model, MiCSTopology(), mcfg, oc, dc, lc, device=dev)
+    with InitMeasured(TL) as init:
+        stats = train(model, MiCSTopology(), mcfg, oc, dc, lc, device=dev)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     tables = check_train_launches(f"train {path.arch}", path, path.steps * path.micro_steps)
     launches, by_route, bwd_by_route, rms_bwd_by_route, rglru_by_form = tables
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    memplan = plan_against_peak(f"train {path.arch}", model, mcfg, path,
+                                torch.cuda.max_memory_allocated(), init.seen)
 
     if len(stats.losses) != path.steps or not all(
             math.isfinite(x) for x in stats.losses + stats.grad_norms):
@@ -2041,7 +2251,7 @@ def train_phase(path: TrainPath, card: str, dev):
             "attention_launches_by_route": by_route,
             "attention_bwd_launches_by_route": bwd_by_route,
             "rmsnorm_bwd_launches_by_route": rms_bwd_by_route,
-            "rglru_launches_by_form": rglru_by_form, "gpu": card}
+            "rglru_launches_by_form": rglru_by_form, "memplan": memplan, "gpu": card}
     emit(line)
     return launches, line
 
@@ -2057,6 +2267,8 @@ def train_moe_phase(card: str, dev) -> dict:
     bf16 run and read just after (``check_train_launches``); then a step is
     profiled (busy and idle share, time by kind).  MFU counts the active
     parameters."""
+    import gc
+
     from repro_torch.configs import get_config
     from repro_torch.core.mics import MiCSConfig, build_train_step, init_state
     from repro_torch.core.topology import MiCSTopology
@@ -2064,6 +2276,11 @@ def train_moe_phase(card: str, dev) -> dict:
     from repro_torch.models.build import build_model
     from repro_torch.optim.adamw import OptConfig
 
+    # serve_moe's engine runs leave reference cycles (a loop and its spy)
+    # holding its 11 GB of weights until a collection: free them first, so
+    # the phase's peak is its own
+    gc.collect()
+    torch.cuda.empty_cache()
     path = MOE_TRAIN
     cfg = dataclasses.replace(get_config(path.arch), n_layers=MOE_TRAIN_LAYERS)
     model = build_model(cfg, tp=1)
@@ -2076,7 +2293,7 @@ def train_moe_phase(card: str, dev) -> dict:
 
     step = build_train_step(model, MiCSTopology(), MiCSConfig(micro_steps=path.micro_steps),
                             oc, device=dev)
-    state = init_state(model, 0, device=dev)
+    state, init = measure_init(init_state, model, 0, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2092,6 +2309,8 @@ def train_moe_phase(card: str, dev) -> dict:
     tables = check_train_launches("train_moe", path, path.steps * path.micro_steps)
     launches, by_route, bwd_by_route, rms_bwd_by_route, _ = tables
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    memplan = plan_against_peak("train_moe", model, step.mcfg, path,
+                                torch.cuda.max_memory_allocated(), init, missing=MOE_UNPRICED)
     batch = source.global_step_batch(path.steps)   # two more steps: a warm one, the profiled
     prof = profile_line(cfg.name, "train_moe step", lambda: step(state, batch)[1]["loss"].item())
     del state, step
@@ -2124,7 +2343,7 @@ def train_moe_phase(card: str, dev) -> dict:
             "attention_launches_by_route": by_route,
             "attention_bwd_launches_by_route": bwd_by_route,
             "rmsnorm_bwd_launches_by_route": rms_bwd_by_route,
-            "rglru_launches_by_form": tables[4], "gpu": card}
+            "rglru_launches_by_form": tables[4], "memplan": memplan, "gpu": card}
     emit(line)
     return line
 
@@ -2223,13 +2442,14 @@ XLSTM_BLOCK_TOKENS = 64
 # fraction of the largest |increment| the block adds to its input: bf16
 # rounds every weight and activation (the recurrences run in fp32).
 XLSTM_BLOCK_REL_TOL = 5e-2
-# train_xlstm: 2 micro-steps of 2 x 2048 tokens, mlstm_chunk 64, one step
-# (the sLSTM's eager time loop costs about 0.3 M launches a micro-step: the
-# phase's budget is cut in steps, not in sequence length).  A micro-step:
+# train_xlstm: 2 micro-steps of 2 x 1024 tokens, mlstm_chunk 64, one step
+# (the sLSTM's eager time loop costs about 0.15 M launches a micro-step,
+# each at the host's launch cost: the phase is cut in steps and in
+# sequence length).  A micro-step:
 # RMSNorm 28 forward + 27 recomputed (each super-layer is checkpointed; the
 # final norm is not) and 28 backward, all on ``regs`` (d 768 and 1536); no
 # attention, no RG-LRU.
-XLSTM_TRAIN = TrainPath(XLSTM_ARCH, 4, 2, 2048, 1,
+XLSTM_TRAIN = TrainPath(XLSTM_ARCH, 4, 2, 1024, 1,
                         {"rmsnorm": 55, "rmsnorm_bwd": 28, "flash_attention": 0,
                          "flash_attention_bwd": 0, "rglru": 0, "rglru_bwd": 0, "quantize": 0,
                          "dequantize": 0},
@@ -2237,21 +2457,29 @@ XLSTM_TRAIN = TrainPath(XLSTM_ARCH, 4, 2, 2048, 1,
 # train_xlstm's profile: one micro-step of 2 x 128 tokens (chunkwise, as
 # the step's), the card's activity only (the host's op events cost the
 # profiler seconds to sort): its launches grow with T, a sLSTM step and
-# a mLSTM chunk each running a fixed sequence, so a micro-step at 2048 runs
-# about 16 x its kernels (the embedding's, the head's and the loss's do
+# a mLSTM chunk each running a fixed sequence, so a micro-step at 1024 runs
+# about 8 x its kernels (the embedding's, the head's and the loss's do
 # not grow).
 XLSTM_PROFILE_SEQ = 128
+# The train step's buffers that no term of the memory planner prices: what
+# the eager recurrences save for their backward (the chunkwise mLSTM's
+# chunk states and gates, the sLSTM scan's states; models/recurrent.py);
+# the plan against the peak is reported, not held to MEM_RTOL.
+XLSTM_UNPRICED = ("the recurrences' saved states (models/recurrent.mlstm_chunkwise, "
+                  "SlstmScanFn)")
 # train_xlstm's step 1 in bf16 against fp32 compute on the card, relative
 # (``xlstm_grad_probe``; ``leaf_norm``: the worst segment's gradient norm).
-# On an H100 (seed 0, step 1's first micro-step) the sound gaps read 2.4e-4
-# (loss), 3.7e-3 (grad norm) and 0.19 (the worst segment: an mLSTM's
-# ``m.bif``, 0.2% of the norm, whose forget-gate half sums a signed term
-# over every token), the same in every run; the fault (the sLSTM's
+# On an H100 (seed 0, step 1's first micro-step of 2 x 2048) the sound gaps
+# read 2.4e-4 (loss), 3.7e-3 (grad norm) and 0.19 (the worst segment: an
+# mLSTM's ``m.bif``, 0.2% of the norm, whose forget-gate half sums a signed
+# term over every token), the same in every run; the fault (the sLSTM's
 # recurrent matrices given zero gradient) 1.0 on those segments.  A read
 # with the mLSTM's chunk carry dropped gave 0.51 on ``m.bif`` (at init the
 # forget gates, sigma(0) = 0.5, decay a chunk's carry by 2^-64, so that
 # fault moves only the chunks' first positions); at ≈ 10 s a read it is
-# not repeated here.  The segment limit sits 1.8 x over the sound gap.
+# not repeated here.  At 2 x 1024 the sound gaps read 1.2e-5,
+# 6.8e-3 and 0.315 (``m1.m.bif``, 0.14% of the norm: half the tokens sum
+# its signed term), 0.9 x the segment limit, which stays as set at 2048.
 XLSTM_FP32_REL_TOL = {"loss": 1e-3, "grad_norm": 1e-2, "leaf_norm": 0.35}
 XLSTM_PROBE_SHOWN = 4        # the worst segments a probe line lists, with their share of the norm
 VLM_ARCH = "llama-3.2-vision-90b"
@@ -2455,7 +2683,7 @@ def train_xlstm_phase(card: str, dev) -> dict:
                                     micro_steps=path.micro_steps))
     step = build_train_step(model, MiCSTopology(), mcfg,
                             OptConfig(warmup_steps=0, total_steps=path.steps), device=dev)
-    state = init_state(model, 0, device=dev)
+    state, init = measure_init(init_state, model, 0, device=dev)
     # the profile first: its runs warm the step's kernels and allocations up
     comm = CommEngine.from_config(MiCSTopology(), mcfg)
     ctx = L.Ctx(mode="train", compute_dtype=torch.bfloat16, comm=comm, mlstm_chunk=XLSTM_CHUNK)
@@ -2479,6 +2707,8 @@ def train_xlstm_phase(card: str, dev) -> dict:
     tables = check_train_launches("train_xlstm", path, path.steps * path.micro_steps)
     launches, by_route, bwd_by_route, rms_bwd_by_route, rglru_by_form = tables
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    memplan = plan_against_peak("train_xlstm", model, step.mcfg, path,
+                                torch.cuda.max_memory_allocated(), init, missing=XLSTM_UNPRICED)
     if not all(math.isfinite(x) for x in losses + gnorms):
         raise AssertionError(f"train_xlstm: losses {losses}, grad norms {gnorms}")
     del state, step
@@ -2504,7 +2734,7 @@ def train_xlstm_phase(card: str, dev) -> dict:
             "launches": launches, "attention_launches_by_route": by_route,
             "attention_bwd_launches_by_route": bwd_by_route,
             "rmsnorm_bwd_launches_by_route": rms_bwd_by_route,
-            "rglru_launches_by_form": rglru_by_form, "gpu": card}
+            "rglru_launches_by_form": rglru_by_form, "memplan": memplan, "gpu": card}
     emit(line)
     xlstm_grad_probe(model, source.global_step_batch(0), dev)
     return line
@@ -3014,7 +3244,7 @@ def _train_run(label: str, model, path: TrainPath, batch_of, dev) -> dict:
 
     step = build_train_step(model, MiCSTopology(), MiCSConfig(micro_steps=path.micro_steps),
                             OptConfig(warmup_steps=0, total_steps=path.steps), device=dev)
-    state = init_state(model, 0, device=dev)
+    state, init = measure_init(init_state, model, 0, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -3028,6 +3258,8 @@ def _train_run(label: str, model, path: TrainPath, batch_of, dev) -> dict:
         gnorms.append(m["grad_norm"].item())
     tables = check_train_launches(label, path, path.steps * path.micro_steps)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    memplan = plan_against_peak(label, model, step.mcfg, path, torch.cuda.max_memory_allocated(),
+                                init)
     batch = batch_of(path.steps)    # two more steps: a warm one, the profiled
     prof = profile_line(model.cfg.name, f"{label} step",
                         lambda: step(state, batch)[1]["loss"].item(), activities=CARD_ONLY)
@@ -3044,7 +3276,8 @@ def _train_run(label: str, model, path: TrainPath, batch_of, dev) -> dict:
             "model_params": model_params(model), "profile_step": _profile_fields(prof),
             "launches": tables[0], "attention_launches_by_route": tables[1],
             "attention_bwd_launches_by_route": tables[2],
-            "rmsnorm_bwd_launches_by_route": tables[3], "rglru_launches_by_form": tables[4]}
+            "rmsnorm_bwd_launches_by_route": tables[3], "rglru_launches_by_form": tables[4],
+            "memplan": memplan}
 
 
 def _mfu(flops: float, ms: float) -> dict:
@@ -3194,6 +3427,54 @@ def train_bert_phase(card: str, dev) -> dict:
     return line
 
 
+# The host link's fit: pinned copies of these sizes each way, each the
+# median of HOST_LINK_REPS CUDA-event times.
+HOST_LINK_BYTES = (64 * 2**20, 2**30)
+HOST_LINK_REPS = 5
+
+
+def host_link_phase(card: str, dev) -> dict:
+    """``host_link``: the device <-> host link the autotuner prices the host
+    carry and host moments on (``core/linkmodel``'s ``host`` tier).  Pinned
+    host memory to the card and back at ``HOST_LINK_BYTES``, each the median
+    of ``HOST_LINK_REPS`` CUDA-event times after a warm copy; the two sizes
+    fit ``t = alpha + n / bandwidth`` each way, printed beside the card
+    profile's tier (PCIe Gen5 x16, 64 GB/s, 5 µs)."""
+    from repro_torch.core.linkmodel import H100_P5
+
+    fits = {}
+    for way in ("d2h", "h2d"):
+        ms = []
+        for n in HOST_LINK_BYTES:
+            card_buf = torch.empty(n, dtype=torch.uint8, device=dev)
+            host_buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+            src, dst = (card_buf, host_buf) if way == "d2h" else (host_buf, card_buf)
+            dst.copy_(src, non_blocking=True)
+            torch.cuda.synchronize()
+            reps = []
+            for _ in range(HOST_LINK_REPS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                dst.copy_(src, non_blocking=True)
+                end.record()
+                end.synchronize()
+                reps.append(start.elapsed_time(end))
+            ms.append(statistics.median(reps))
+            del card_buf, host_buf, src, dst
+        (n1, n2), (t1, t2) = HOST_LINK_BYTES, (m / 1e3 for m in ms)
+        bw = (n2 - n1) / (t2 - t1)
+        fits[way] = {"ms": dict(zip((f"{n // 2**20} MiB" for n in HOST_LINK_BYTES), ms)),
+                     "bandwidth_gb_s": bw / 1e9, "alpha_us": (t1 - n1 / bw) * 1e6}
+        if not (math.isfinite(bw) and bw > 0):
+            raise AssertionError(f"host_link {way}: the fit {fits[way]}")
+    torch.cuda.empty_cache()
+    host = H100_P5.host
+    return {"phase": "host_link", "fit": fits,
+            "profile": {"name": H100_P5.name, "bandwidth_gb_s": host.bandwidth / 1e9,
+                        "alpha_us": host.alpha * 1e6}, "gpu": card}
+
+
 def check_train_launches(label: str, path: TrainPath, micro: int):
     """Read the launch counters after ``micro`` micro-steps of ``path`` and
     hold them to the path's counts a micro-step, attention's forward on
@@ -3260,6 +3541,10 @@ KNOB_VARIANTS = (("remat", {"prefetch_carry": "remat"}, "bitwise"),
                  ("carry_host", {"carry_offload": "host"}, "bitwise"),
                  ("offload_opt", {"offload_opt": True}, "bitwise"),
                  ("approx", {"clip_mode": "approx"}, "approx"))
+# The autotuner's variant (``policy="auto"``) runs under a budget of the
+# card's whole memory in GiB (``torch.cuda.get_device_properties``): at p 1
+# every candidate moves nothing and the tie goes to the smallest footprint.
+KNOB_AUTO = "auto"
 # Variants whose next step is also profiled (device busy and idle share, time
 # by kind), to tell the card's time from the host's: the approximate clip
 # updates some 400 buckets of 8.4 M elements where the exact clip updates
@@ -3283,8 +3568,14 @@ def train_knobs_phase(path: TrainPath, card: str, dev, train_line: dict) -> dict
     freed before the next; held to the ``train`` phase's steps (``train_line``)
     and to the path's launch counts.  Per variant: ``peak_gb`` (reset before
     its ``init_state``), the pinned host GB held, step 2's ``step_ms`` and
-    the GB it copied down and up, its seconds; for ``KNOB_PROFILED``, a
-    profile of two more steps' second."""
+    the GB it copied down and up, its seconds, the memory plan beside the
+    peak (:func:`plan_against_peak`); for ``KNOB_PROFILED``, a profile of
+    two more steps' second.  ``KNOB_AUTO``: ``policy="auto"`` under the
+    card's whole memory in GiB, gated at the path's batch, its chosen
+    config printed, bitwise the train phase, its peak and reserve under
+    the budget; first two budgets must raise ``MemoryBudgetError`` from
+    ``build_train_step`` with nothing allocated on the card
+    (:func:`knobs_auto_refusal`)."""
     import gc
 
     from repro_torch.configs import get_config
@@ -3303,14 +3594,20 @@ def train_knobs_phase(path: TrainPath, card: str, dev, train_line: dict) -> dict
                                     micro_steps=path.micro_steps))
     want = list(zip(train_line["loss"], train_line["grad_norm"]))[:KNOB_STEPS]
     pool_bytes = {k: s * t * f * 4 for k, (s, t, f) in model.global_flat_shapes().items()}
+    budget_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    auto_kw = {"policy": "auto", "hbm_budget_gb": budget_gib}
     variants, totals = {}, {}
-    for name, kw, held_to in KNOB_VARIANTS:
+    for name, kw, held_to in (*KNOB_VARIANTS, (KNOB_AUTO, auto_kw, "bitwise")):
         t0 = time.perf_counter()
         mcfg = MiCSConfig(micro_steps=path.micro_steps, **kw)
+        auto, shapes = {}, {"local_batch": path.global_batch // path.micro_steps, "seq": path.seq}
+        if name == KNOB_AUTO:
+            auto = knobs_auto_refusal(model, mcfg, oc, dev, shapes,
+                                      variants["remat"]["memplan"]["reserved_gb"] * 1e9)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        state = init_state(model, 0, device=dev, offload_opt=mcfg.offload_opt)
-        step = build_train_step(model, MiCSTopology(), mcfg, oc, device=dev)
+        step = build_train_step(model, MiCSTopology(), mcfg, oc, device=dev, **shapes)
+        state, init = measure_init(init_state, model, 0, device=dev, offload_opt=mcfg.offload_opt)
         stash = step.comm.host_stash
         reset_counts()
         got, step_ms, moved = [], [], []
@@ -3330,12 +3627,29 @@ def train_knobs_phase(path: TrainPath, card: str, dev, train_line: dict) -> dict
         tables = check_train_launches(f"train_knobs {name}", path,
                                       KNOB_STEPS * path.micro_steps)
         add_counts(totals, dict(zip(LAUNCH_TABLES, tables)))
-        line = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        peak = torch.cuda.max_memory_allocated()
+        line = {"peak_gb": peak / 1e9,
+                "memplan": plan_against_peak(f"train_knobs {name}", model, step.mcfg, path,
+                                             peak, init),
                 "pinned_gb": hostoffload.pinned_bytes() / 1e9,
                 "carry_slot_gb": stash.slot_bytes() / 1e9,
                 "step_ms": step_ms[-1], "step_ms_all": step_ms,
                 "copied_gb_step": moved[-1], "loss": [g[0] for g in got],
                 "grad_norm": [g[1] for g in got], "launches": tables[0]}
+        if name == KNOB_AUTO:
+            reserved = torch.cuda.max_memory_reserved()
+            if not (peak <= budget_gib * 2**30 and reserved <= budget_gib * 2**30):
+                raise AssertionError(f"train_knobs auto: peak {peak} / reserved {reserved} "
+                                     f"bytes over the {budget_gib} GiB budget")
+            chosen = step.mcfg
+            line.update(auto, budget_gib=budget_gib, chosen={
+                "hierarchical": chosen.hierarchical, "gather_order": chosen.gather_order,
+                "gather_dtype": str(chosen.gather_dtype).removeprefix("torch."),
+                "quant_gather": chosen.quant_gather, "hop1_wire_dtype": chosen.hop1_wire_dtype,
+                "compress_hop2": chosen.compress_hop2, "prefetch_carry": chosen.prefetch_carry,
+                "carry_offload": chosen.carry_offload,
+                "boundary_schedule": chosen.boundary_schedule,
+                "hop2_bucket_mb": chosen.hop2_bucket_mb, "clip_mode": chosen.clip_mode})
         if held_to == "bitwise":
             if got != want:
                 raise AssertionError(f"train_knobs {name}: {got} != the train phase's {want}")
@@ -3388,6 +3702,54 @@ def train_knobs_phase(path: TrainPath, card: str, dev, train_line: dict) -> dict
     return out
 
 
+def knobs_auto_refusal(model, mcfg, oc, dev, shapes: dict, remat_reserved: float) -> dict:
+    """Under ``mcfg`` (``policy="auto"`` and a budget) the autotuner's plan
+    at the path's batch ``shapes`` (the gate ``build_train_step`` applies)
+    and with the model states alone; then two budgets that
+    ``build_train_step`` must refuse with ``MemoryBudgetError`` before
+    anything is allocated on the card (``init_state`` never runs): 0.99 of
+    the smallest numerics-eligible candidate's reserve, and the midpoint
+    between the states-only plan and ``remat_reserved``, the bytes the
+    remat variant's run reserved (a budget a gate without the batch and
+    the reserve admits, and that run overran).  Returns the chosen
+    candidate's footprint, the smallest, and the refusals."""
+    from repro_torch.core import memplan as MP
+    from repro_torch.core.autotune import resolve_config
+    from repro_torch.core.mics import build_train_step
+    from repro_torch.core.topology import MiCSTopology
+
+    _, plan = resolve_config(mcfg, model, MiCSTopology(), mode="train", **shapes)
+    _, bare = resolve_config(mcfg, model, MiCSTopology(), mode="train")
+    eligible = [c for c in plan.candidates if not (c.lossy_wire or c.lossy_hop2 or c.lossy_hop1)
+                and c.clip_mode == "exact"]
+    smallest = min(c.mem_bytes for c in eligible) * MP.RESERVE_FACTOR
+    between = (bare.chosen.mem_bytes + remat_reserved) / 2 / 2**30
+    if not bare.chosen.mem_bytes / 2**30 < between < remat_reserved / 2**30:
+        raise AssertionError(f"train_knobs auto: no budget between the states-only plan "
+                             f"{bare.chosen.mem_bytes} and the remat run's reserve "
+                             f"{remat_reserved} bytes")
+    refusals = {}
+    for key, budget in (("below_smallest", 0.99 * smallest / 2**30),
+                        ("states_only_to_reserve", between)):
+        low = dataclasses.replace(mcfg, hbm_budget_gb=budget)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        try:
+            build_train_step(model, MiCSTopology(), low, oc, device=dev, **shapes)
+        except MP.MemoryBudgetError as e:
+            refusals[key] = {"budget_gib": budget, "error": str(e)}
+        else:
+            raise AssertionError(f"train_knobs auto: a budget of {budget} GiB was not refused")
+        if torch.cuda.memory_allocated() != before:
+            raise AssertionError("train_knobs auto: the refused budget allocated on the card")
+    return {"plan_gib": plan.chosen.mem_bytes / 2**30,
+            "plan_reserved_gib": plan.chosen.mem_bytes * MP.RESERVE_FACTOR / 2**30,
+            "states_only_gib": bare.chosen.mem_bytes / 2**30,
+            "remat_reserved_gib": remat_reserved / 2**30,
+            "smallest_candidate_reserved_gib": smallest / 2**30, "refusals": refusals,
+            "ranking": plan.table(top=6)}
+
+
 def _rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     """(max |a - b|, max |b|), in fp32 on the CPU."""
     a, b = a.float().cpu(), b.float().cpu()
@@ -3396,11 +3758,14 @@ def _rel_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
 
 def train_consistency_phase(path: TrainPath, dev):
     """``train_consistency``: ``path``'s weights at its cut depth (full
-    width), one micro-step of 1 x ``cut_tokens`` tokens.  Card against CPU: loss,
-    grad_norm, every pool's gradient and the params after one AdamW step.
-    Bitwise on the card: serial == prefetch (loss and gradients), serial ==
-    bucketed boundary (params, m, v, grad_norm), and a step run twice."""
+    width), one micro-step of 1 x ``cut_tokens`` tokens.  Bitwise on the
+    card: serial == prefetch (loss and gradients), serial == bucketed
+    boundary (params, m, v, grad_norm), and a step run twice.  Card
+    against CPU, one step of ``build_train_step`` on each: loss, grad_norm,
+    every pool's gradient (each step's ``accumulate_grads`` read as it
+    returns, before the boundary) and the params after the AdamW step."""
     from repro_torch.configs import get_config
+    from repro_torch.core import mics as M
     from repro_torch.core.comm import CommEngine
     from repro_torch.core.mics import MiCSConfig, accumulate_grads, build_train_step, init_params
     from repro_torch.core.topology import MiCSTopology
@@ -3418,48 +3783,65 @@ def train_consistency_phase(path: TrainPath, dev):
              "mask": torch.ones(shape, device=dev)}
     ctx = L.Ctx(mode="train", compute_dtype=torch.bfloat16)
 
-    def grads(prefetch: bool, on):
+    def grads(prefetch: bool):
         comm = CommEngine.from_config(topo, MiCSConfig(prefetch=prefetch))
-        p = {k: v.to(on) for k, v in params.items()}
-        return accumulate_grads(model2, comm, ctx, p, {k: v.to(on) for k, v in batch.items()})
+        return accumulate_grads(model2, comm, ctx, dict(params), batch)
 
-    g_pre, loss_pre, _ = grads(True, dev)
-    g_ser, loss_ser, _ = grads(False, dev)
+    g_pre, loss_pre, _ = grads(True)
+    g_ser, loss_ser, _ = grads(False)
     if not (torch.equal(loss_pre, loss_ser) and all(torch.equal(g_pre[k], g_ser[k]) for k in g_pre)):
         raise AssertionError("train_consistency: serial != prefetch on the card")
-    g_cpu, loss_cpu, _ = grads(True, "cpu")
-    grad_err = {}
-    for k in g_pre:
-        err, scale = _rel_err(g_pre[k], g_cpu[k])
-        grad_err[k] = {"max_abs_err": err, "max_abs_grad": scale}
-        if not err <= REL_TOL_GRAD_CARD_VS_CPU * scale:
-            raise AssertionError(f"train_consistency: pool {k} gradient card vs CPU {err} > "
-                                 f"{REL_TOL_GRAD_CARD_VS_CPU} x {scale}")
-    loss_err = abs(loss_pre.item() - loss_cpu.item())
-    if not loss_err <= REL_TOL_GRAD_CARD_VS_CPU * abs(loss_cpu.item()):
-        raise AssertionError(f"train_consistency: loss {loss_pre.item()} vs {loss_cpu.item()}")
-    del g_pre, g_ser, g_cpu
+    del g_pre, g_ser
 
     oc = OptConfig(warmup_steps=0)
+    card_grads, grad_err = {}, {}
 
-    def one_step(boundary: str, on):
+    def read_grads(*args, **kw):
+        """``accumulate_grads`` inside a step: the card's gradients to the
+        host, the CPU's held against them (before the boundary's update)."""
+        g, loss_sum, aux_sum = accumulate_grads(*args, **kw)
+        for k, v in g.items():
+            if v.is_cuda:
+                card_grads[k] = v.cpu()
+                continue
+            err, scale = _rel_err(card_grads[k], v)
+            grad_err[k] = {"max_abs_err": err, "max_abs_grad": scale}
+            if not err <= REL_TOL_GRAD_CARD_VS_CPU * scale:
+                raise AssertionError(f"train_consistency: pool {k} gradient card vs CPU {err} > "
+                                     f"{REL_TOL_GRAD_CARD_VS_CPU} x {scale}")
+        return g, loss_sum, aux_sum
+
+    def one_step(boundary: str, on, read: bool = False):
         mc = MiCSConfig(micro_steps=1, boundary_schedule=boundary)
         p = {k: v.to(on, copy=True) for k, v in params.items()}
         state = {"params": p, "m": {k: torch.zeros_like(v) for k, v in p.items()},
                  "v": {k: torch.zeros_like(v) for k, v in p.items()}, "step": 0}
-        return build_train_step(model2, topo, mc, oc, device=on)(state, batch)
+        step = build_train_step(model2, topo, mc, oc, device=on)
+        if read:
+            M.accumulate_grads = read_grads
+        try:
+            return step(state, batch)
+        finally:
+            M.accumulate_grads = accumulate_grads
 
     def same(a, b):
         return torch.equal(a[1]["grad_norm"], b[1]["grad_norm"]) and all(
             torch.equal(a[0][part][k], b[0][part][k]) for part in ("params", "m", "v")
             for k in a[0][part])
 
-    bucketed = one_step("bucketed", dev)
+    bucketed = one_step("bucketed", dev, read=True)
     if not same(bucketed, one_step("serial", dev)):
         raise AssertionError("train_consistency: serial != bucketed boundary on the card")
     if not same(bucketed, one_step("bucketed", dev)):
         raise AssertionError("train_consistency: a step run twice differs on the card")
-    cpu = one_step("bucketed", "cpu")
+    t_cpu = time.perf_counter()
+    cpu = one_step("bucketed", "cpu", read=True)
+    cpu_s = time.perf_counter() - t_cpu
+    if sorted(grad_err) != sorted(params):
+        raise AssertionError(f"train_consistency: gradients read for {sorted(grad_err)}")
+    loss_card, loss_cpu = bucketed[1]["loss"].item(), cpu[1]["loss"].item()
+    if not abs(loss_card - loss_cpu) <= REL_TOL_GRAD_CARD_VS_CPU * abs(loss_cpu):
+        raise AssertionError(f"train_consistency: loss {loss_card} vs {loss_cpu}")
     gn_card, gn_cpu = bucketed[1]["grad_norm"].item(), cpu[1]["grad_norm"].item()
     if not abs(gn_card - gn_cpu) <= REL_TOL_GRAD_CARD_VS_CPU * gn_cpu:
         raise AssertionError(f"train_consistency: grad_norm {gn_card} vs {gn_cpu} on the CPU")
@@ -3473,11 +3855,12 @@ def train_consistency_phase(path: TrainPath, dev):
     emit({"phase": "train_consistency", "arch": model.cfg.name, "layers": path.cut_layers,
           "tokens": path.cut_tokens, "pools": model2.global_flat_shapes(),
           "serial_eq_prefetch": True, "serial_eq_bucketed": True, "repeat_bitwise": True,
-          "card_vs_cpu": {"loss": [loss_pre.item(), loss_cpu.item()],
+          "card_vs_cpu": {"loss": [loss_card, loss_cpu],
                           "grad_norm": [gn_card, gn_cpu], "grads": grad_err,
                           "rel_tol": REL_TOL_GRAD_CARD_VS_CPU,
                           "params_after_step_max_abs_err": param_err,
-                          "params_tol": ADAMW_STEP_TOL_LR * oc.lr_max}})
+                          "params_tol": ADAMW_STEP_TOL_LR * oc.lr_max,
+                          "cpu_step_s": cpu_s}})
 
 
 def train_profile(path: TrainPath, dev, timed_steps: int = 3):
@@ -3542,27 +3925,35 @@ class DistLayout:
     gather_order: str
     inner: int | None
     layers: int | None       # None: full depth; else cut to this many layers
-    steps: int = 3
+    steps: int = 2
+    micro_steps: int | None = None   # None: the train path's; else its rows a micro-step
 
 
 # Layout A: one partition group of 4, the paper's three-stage gather
 # (outer_first, inner 2); layout B: 2 partition groups of 2 (the staged
 # gather degenerates to one flat gather at p = 2) x 2 replicas, so hop 2
-# and the bucketed boundary run across replicas.  Layout C: llama at full
-# depth over p 2 x tp 2 (the flat gather at p 2 under tensor parallelism:
-# GQA at kv_gather 1, the vocab-parallel loss over 128,256 columns).
-# Layout D: recurrentgemma-2b cut to one (rec, rec, attn) super-layer over
-# tp 4 (10 Q heads padded to 12, its one KV head gathered over the 4 model
-# ranks, LRU width 640 and d_ff 1920 a rank, the norm scales gathered).
-# C, D and E start from their model's ``init_params(seed=0)`` at tp 1 cut by
-# ``convert.tp_params_from_full``, written as the loop's step-0 checkpoint.
-# C runs 2 steps, the others 3: on one card the 4 ranks' gloo collectives
-# took the whole script past its time budget with 3 (PERF.md, PR 20).
-DIST_LAYOUTS = (DistLayout("A", "llama3.2-1b", 1, 4, 1, "outer_first", 2, None),
-                DistLayout("B", "llama3.2-1b", 2, 2, 1, "inner_first", None, 4),
-                DistLayout("C", "llama3.2-1b", 1, 2, 2, "inner_first", None, None, steps=2),
-                DistLayout("D", "recurrentgemma-2b", 1, 1, 4, "inner_first", None, 3),
-                DistLayout("E", MOE_ARCH, 1, 1, 4, "inner_first", None, 1, steps=2))
+# and the bucketed boundary run across replicas.  Layout C: llama over p 2
+# x tp 2 (the flat gather at p 2 under tensor parallelism: GQA at kv_gather
+# 1, the vocab-parallel loss over 128,256 columns).  A, B and C cut llama to
+# 4 layers at full width.  Layout D: recurrentgemma-2b cut to one (rec,
+# rec, attn) super-layer over tp 4 (10 Q heads padded to 12, its one KV
+# head gathered over the 4 model ranks, LRU width 640 and d_ff 1920 a rank,
+# the norm scales gathered).  C, D and E start from their model's
+# ``init_params(seed=0)`` at tp 1 cut by ``convert.tp_params_from_full``,
+# written as the loop's step-0 checkpoint.  Every layout runs 2 steps, and
+# A, B and C one micro-step of llama's rows (1 x 2048 a data rank): the 4
+# ranks' gloo collectives go through the host's memory, every micro-step
+# gathers llama's two 262.7 M-element vocabulary rows again, and on a host
+# shared with other machines llama's full depth, a third step and a second
+# micro-step took the workers past the script's time limit (PERF.md).  D
+# runs 2 of the griffin path's micro-steps (2 x 2048 rows
+# each), E the MoE path's 2.
+DIST_LAYOUTS = (DistLayout("A", "llama3.2-1b", 1, 4, 1, "outer_first", 2, 4, micro_steps=1),
+                DistLayout("B", "llama3.2-1b", 2, 2, 1, "inner_first", None, 4, micro_steps=1),
+                DistLayout("C", "llama3.2-1b", 1, 2, 2, "inner_first", None, 4, micro_steps=1),
+                DistLayout("D", "recurrentgemma-2b", 1, 1, 4, "inner_first", None, 3,
+                           micro_steps=2),
+                DistLayout("E", MOE_ARCH, 1, 1, 4, "inner_first", None, 1))
 # Layout E: deepseek-moe-16b at full width cut to 1 layer over tp 4, p 1: 16
 # experts a rank, each rank routing 1/4 of a micro-step's 4096 tokens (the
 # token-sharded dispatch, 1024 tokens: one chunk, 120 slots an expert) and
@@ -3573,11 +3964,11 @@ DIST_LAYOUTS = (DistLayout("A", "llama3.2-1b", 1, 4, 1, "outer_first", 2, None),
 # ``moe_tp_equiv`` (tests/dist_harness.py): token sharding changes each
 # rank's n and with it the capacity, so other tokens are dropped.
 DIST_MOE_TOL = {"rtol": 0.03, "atol": 0.05}
-# Layouts A and C against the single-card ``train`` phase (the same
-# weights, data and global batch): step 1's loss and grad_norm (both sides
-# round to bf16, hop 1 and the model-axis psums sum in bf16 over the ranks),
-# then steps 2-3 at the reference's ``mics_fidelity`` rtol.  Layouts B and D
-# against a one-card run of their cut model on the same weights.
+# Layouts A-D against a one-card run of their cut model on the same
+# weights, data and global batch (``dist_reference``): step 1's loss and
+# grad_norm (both sides round to bf16, hop 1 and the model-axis psums sum
+# in bf16 over the ranks), then step 2 at the reference's
+# ``mics_fidelity`` rtol.
 DIST_REL_TOL = {"loss1": 2e-3, "grad_norm1": 2e-2, "later": 2e-2}
 
 
@@ -3604,8 +3995,15 @@ def dist_model(layout: DistLayout, tp: int | None = None):
 
 
 def dist_train_path(layout: DistLayout) -> TrainPath:
-    """The one-card train path of ``layout``'s model (its data and routes)."""
-    return next(tp for tp in (*TRAIN, MOE_TRAIN) if tp.arch == layout.arch)
+    """The one-card train path of ``layout``'s model (its data and routes),
+    at the layout's micro-steps where it sets them (the same rows a
+    micro-step, so a global batch of that many micro-steps)."""
+    path = next(tp for tp in (*TRAIN, MOE_TRAIN) if tp.arch == layout.arch)
+    if layout.micro_steps is None:
+        return path
+    rows = path.global_batch // path.micro_steps
+    return dataclasses.replace(path, micro_steps=layout.micro_steps,
+                               global_batch=rows * layout.micro_steps)
 
 
 def dist_topology(layout: DistLayout):
@@ -3691,6 +4089,35 @@ def dist_expected_calls(layout: DistLayout) -> dict:
         add("all_reduce_max:model", micro)
         add("all_reduce:model", 3 * micro + steps)
     return dict(sorted(calls.items()))
+
+
+def dist_census(layout: DistLayout, model, path: TrainPath, per: list) -> dict:
+    """The autotuner's analytical census (``core/autotune.predict_traffic``,
+    the bucketed boundary) of ``layout``'s step beside each rank's
+    ``CommCounter`` in the same units (``census_from_counter``), stage by
+    stage (``compare_census``): the calls of every stage the ``CommEngine``
+    owns must be equal; the wire bytes are printed with their ratio."""
+    from repro_torch.core.autotune import census_from_counter, compare_census, predict_traffic
+    from repro_torch.core.comm import policies_from_config
+    from repro_torch.core.mics import MiCSConfig
+
+    topo = dist_topology(layout)
+    gp, sp = policies_from_config(MiCSConfig(micro_steps=path.micro_steps,
+                                             gather_order=layout.gather_order,
+                                             hierarchy_inner=layout.inner))
+    pred = predict_traffic(model, topo, gp, sp, micro_steps=path.micro_steps,
+                           boundary="bucketed", hop2_bucket_mb=32.0)["by_stage"]
+    out = {}
+    for r, p in enumerate(per):
+        cmp = compare_census(pred, census_from_counter(p["comm"], topo, gp, steps=layout.steps))
+        bad = {k: v for k, v in cmp.items() if v["predicted_count"] != v["measured_count"]}
+        if bad:
+            raise AssertionError(f"dist_train {layout.name} rank {r}: census counts {bad}")
+        out = out or {k: {"calls_step": v["measured_count"],
+                          "predicted_wire_bytes_step": v["predicted_wire_bytes"],
+                          "measured_wire_bytes_step": v["measured_wire_bytes"],
+                          "ratio": v["ratio"]} for k, v in cmp.items()}
+    return out
 
 
 # -- the int8 and bf16 wires over the same 4 ranks (dist_wires) -----------------
@@ -3989,8 +4416,8 @@ def dist_elastic_run(rank: int, dev, out_dir: pathlib.Path, backend: str, timeou
     torch.cuda.reset_peak_memory_stats()
     for entry, losses in zip(stats.world_changes, in_loop):
         t0 = time.perf_counter()
-        topo_n, _ = TL.resize_for_world(mcfg, entry["world"], tp=1, partition_size=p_prev,
-                                        available=DIST_WORLD)
+        topo_n, _, _ = TL.resize_for_world(model, mcfg, entry["world"], tp=1,
+                                           partition_size=p_prev, available=DIST_WORLD)
         p_prev = topo_n.partition_size
         g = MiCSGroups(topo_n, rank, backend=backend, timeout=timeout)
         cold = {"world": entry["world"], "from_step": entry["resumed_step"], "losses": []}
@@ -4030,12 +4457,12 @@ def dist_elastic_run(rank: int, dev, out_dir: pathlib.Path, backend: str, timeou
 # layout C's topology (p 2 x tp 2, dp 2), bf16 gather and pools, 4 slots a
 # data rank, every tick at the chunk width 64, blocks of 16 (17 a table:
 # the longest prompt and its new tokens), 8 requests from seed 0 (prompts
-# 64-256, 16 new tokens, odd ones at temperature 0.7 with top-k 8), one
+# 64-256, 8 new tokens, odd ones at temperature 0.7 with top-k 8), one
 # every 2 ticks.  (b) the fixed batch: recurrentgemma-2b cut to layout D's 3
 # layers over tp 4: batch 4, prompt 512, 8 greedy decode steps.
 DIST_SERVE_LAYERS = 4
 DIST_SERVE = PagedServe(slots=4, chunk=64, block=16, max_blocks=17, requests=8,
-                        prompt_lo=64, prompt_hi=256, new_tokens=16, arrival_every=2,
+                        prompt_lo=64, prompt_hi=256, new_tokens=8, arrival_every=2,
                         temperature=0.7, top_k=8, decode_lens=(150, 256))
 DIST_SERVE_PREEMPT = "preempt@6x2"       # ranks 2-3 lost abruptly at tick 6
 DIST_SERVE_FIXED = {"batch": 4, "prompt": 512, "steps": 8}
@@ -4534,7 +4961,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def dist_train_phase(card: str, dev, train_line: dict) -> dict:
+def dist_train_phase(card: str, dev) -> dict:
     """``dist_train``: the MiCS step over ``DIST_WORLD`` ranks through
     ``runtime/train_loop.train``.  With fewer cards than ranks, every rank
     shares card 0 and the collectives run over gloo through pinned host
@@ -4547,8 +4974,6 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= DIST_WORLD else "gloo"
     t_phase = time.perf_counter()
-    one_card = list(zip(train_line["loss"], train_line["grad_norm"]))
-    refs = {lay.name: one_card[:lay.steps] for lay in DIST_LAYOUTS if lay.name in ("A", "C")}
     out_dir = ROOT / "build" / "chip_smoke_dist"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -4557,10 +4982,9 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
         if i == WIRE_STEPS:
             torch.save({k: t.cpu() for k, t in state["m"].items()}, out_dir / WIRE_REF_M)
 
-    for layout in DIST_LAYOUTS:
-        if layout.name not in refs:
-            refs[layout.name] = dist_reference(
-                layout, dev, save_moment if layout.name == WIRE_REFERENCE else None)
+    refs = {layout.name: dist_reference(
+        layout, dev, save_moment if layout.name == WIRE_REFERENCE else None)
+        for layout in DIST_LAYOUTS}
     torch.cuda.empty_cache()
     port = _free_port()
     procs = []
@@ -4645,6 +5069,7 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
                     or p["rglru_launches_by_form"]["backward"]["gated"]
                     != want_launches["rglru_bwd"]):
                 raise AssertionError(f"dist_train {layout.name} rank {r}: routes {p}")
+        census = dist_census(layout, model, path, per)
         if per[0].get("checkpoint_step") != layout.steps:
             raise AssertionError(f"dist_train {layout.name}: checkpoint at "
                                  f"{per[0].get('checkpoint_step')}")
@@ -4673,7 +5098,7 @@ def dist_train_phase(card: str, dev, train_line: dict) -> dict:
             "checkpoint_gb": per[0].get("checkpoint_gb"),
             "tolerance": DIST_MOE_TOL if model.cfg.family == "moe" else DIST_REL_TOL,
             "comm_calls": want_calls, "comm_bytes": per[0]["comm"]["bytes"],
-            "launches_per_rank": want_launches, "gather_check": gc}
+            "census": census, "launches_per_rank": want_launches, "gather_check": gc}
     launches = {k: sum(rk["layouts"][lay.name]["launches"][k] for rk in ranks
                        for lay in DIST_LAYOUTS) for k in want_launches}
     wires_s = max(rk["wires_s"] for rk in ranks)
@@ -5866,7 +6291,8 @@ def main() -> int:
             fp32 = checks["fp32_engine"]
             runs = {"serve_paged": paged, "serve_paged crash": checks["crash_replay"],
                     "serve_paged int8": checks["int8_engine"], "serve_paged fp32": fp32,
-                    "serve_paged fp32 crash": fp32["crash_replay"]}
+                    "serve_paged fp32 crash": fp32["crash_replay"],
+                    "serve_paged auto": checks["auto_engine"]}
             for run, line in runs.items():
                 n = line["launches"]
                 by_path[f"{p.arch} {run}"] = n
@@ -5918,7 +6344,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3b. the MiCS step over 4 ranks -------------------------------------------
-    dist_line = dist_train_phase(card, dev, train_lines[0])
+    dist_line = dist_train_phase(card, dev)
     by_path[dist_line["arch"]] = dist_line["launches"]
     by_path["dist_wires"] = dist_line["wires_launches"]
     by_path["dist_elastic"] = dist_line["elastic_launches"]
@@ -5963,6 +6389,8 @@ def main() -> int:
         train_lines.append(train_ln)
         by_path[f"{train_ln['arch']} {train_ln['phase']}"] = train_ln["launches"]
         launches_by_route["mma"] += train_ln["attention_launches_by_route"]["mma"]
+
+    emit(host_link_phase(card, dev))
 
     def train_sum(*keys: str) -> dict:
         """A train line's launches by route (or form) under ``keys``, summed

@@ -10,7 +10,10 @@ shard's gradient back in fp32, where it is added to the fp32 accumulator in
 micro-step order (0 + g1 + g2 ...).  At the boundary
 ``core/schedule.apply_boundary`` runs hop 2, the exact global-norm clip
 and AdamW on the flat fp32 shards (or the approximate clip's pipeline,
-with ``clip_mode="approx"``).  ``prefetch_carry="remat"`` and
+with ``clip_mode="approx"``).  ``policy="auto"`` and ``hbm_budget_gb``
+resolve the communication knobs and the carry through the autotuner and the
+memory planner first (``core/autotune.py``, ``core/memplan.py``).
+``prefetch_carry="remat"`` and
 ``carry_offload="host"`` change what the forward keeps of each gathered
 layer for the backward (``models/lm.py``); ``offload_opt`` keeps AdamW's m
 and v in pinned host memory (``core/hostoffload.py``).  The wires
@@ -31,12 +34,15 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
+from typing import Any
 
 import torch
 
 from repro_torch.core import hostoffload
+from repro_torch.core.autotune import resolve_config
 from repro_torch.core.comm import (CARRY_OFFLOADS, GRAD_ROUNDINGS, HOP1_WIRE_DTYPES,
                                    PREFETCH_CARRIES, CommEngine)
+from repro_torch.core.linkmodel import DEFAULT_PROFILE
 from repro_torch.core.schedule import BOUNDARY_SCHEDULES, CLIP_MODES, apply_boundary, plan_boundary
 from repro_torch.core.topology import MODEL_AXIS, MiCSTopology
 from repro_torch.device import resolve_device
@@ -48,13 +54,6 @@ from repro_torch.optim.adamw import OptConfig
 HOP2_WIRES = (False, True, "fp32", "bf16", "int8")
 KV_DTYPES = ("fp32", "bf16", "int8")
 
-# Training knobs the port refuses at anything but this value, with the
-# ROADMAP Queue 1 item each waits for.
-_PLANNER_ITEM = "ROADMAP Queue 1 item 8, the link model, memory planner and autotuner"
-UNPORTED_TRAIN = {
-    "policy": ("manual", f"the link-model autotuner ({_PLANNER_ITEM})"),
-    "hbm_budget_gb": (None, f"the memory planner ({_PLANNER_ITEM})"),
-}
 # bf16 attention scores halve the HBM traffic of materialised scores in the
 # reference (``repro/models/layers.py:164``); the port's flash kernels never
 # materialise them, so the knob is declared unneeded (PERF.md §6).
@@ -73,11 +72,20 @@ CUDA_TRAIN_FAMILIES = ("dense", "griffin", "moe", "vlm", "xlstm", "encdec")
 @dataclasses.dataclass(frozen=True)
 class MiCSConfig:
     """The knobs of the reference's ``MiCSConfig`` that the port reads (names
-    and defaults as the reference).  Values outside a knob's set raise
-    ``ValueError`` here; a known value the port does not run raises
-    ``NotImplementedError`` where it would be used (``CommEngine.from_config``,
-    ``build_serve_steps``, :func:`build_train_step`), naming the ROADMAP
-    item it waits for."""
+    and defaults as the reference's, but ``link_profile``: the card's
+    profile).  Values outside a knob's set raise ``ValueError`` here;
+    ``scores_bf16=True`` raises ``NotImplementedError`` where it would be
+    used (declared unneeded).
+
+    ``policy="auto"`` hands the communication knobs (``hierarchical``,
+    ``gather_order``, ``hierarchy_inner``, the wire dtype, hop-2
+    compression, the boundary schedule, and under ``hbm_budget_gb`` the
+    carry) to the autotuner (``core/autotune.resolve_config``), which ranks
+    every candidate over ``link_profile`` (``core/linkmodel.py``) and
+    rewrites this config with the winner before the ``CommEngine`` is
+    built.  Auto never changes numerics the config did not opt into:
+    ``quant_gather``, ``compress_hop2``, ``hop1_wire_dtype="int8"`` and
+    ``clip_mode="approx"`` turn from orders into permissions."""
 
     micro_steps: int = 1
     hierarchical: bool = True           # staged gather (False: flat)
@@ -92,16 +100,17 @@ class MiCSConfig:
     grad_rounding: str = "stochastic"   # the int8 gradient wires: 'stochastic' | 'nearest'
     prefetch: bool = True               # lookahead gathers
     prefetch_carry: str = "stored"      # 'stored' | 'remat' (backward re-gather)
-    policy: str = "manual"              # (default only)
+    policy: str = "manual"              # 'manual' | 'auto' (the link-model autotuner)
+    link_profile: Any = DEFAULT_PROFILE  # profile name or LinkProfile instance
     boundary_schedule: str = "bucketed"  # 'serial' | 'bucketed'
     hop2_bucket_mb: float = 32.0
     clip_mode: str = "exact"            # 'exact' | 'approx' (one bucket stale)
     carry_offload: str = "none"         # 'none' | 'host' (the stored carry in host memory)
     offload_opt: bool = False           # AdamW m and v in pinned host memory
-    hbm_budget_gb: float | None = None  # (default only)
+    hbm_budget_gb: float | None = None  # per-device budget (GiB) the memory planner gates on
     kv_dtype: str = "bf16"              # paged-KV block dtype: 'fp32' | 'bf16' | 'int8'
     kv_block_size: int = 16             # tokens per paged-KV block
-    max_resident_requests: int = 0      # serving residency cap a rank (carried, not derived)
+    max_resident_requests: int = 0      # serving residency cap a rank; 0 = from the planner
     mlstm_chunk: int = 0                # chunkwise-parallel mLSTM (0: the timestep scan)
 
     def __post_init__(self):
@@ -141,7 +150,7 @@ class MiCSConfig:
         if self.kv_block_size < 1:
             raise ValueError(f"kv_block_size must be >= 1, got {self.kv_block_size}")
         if self.max_resident_requests < 0:
-            raise ValueError("max_resident_requests must be >= 0 (0 = no cap), "
+            raise ValueError("max_resident_requests must be >= 0 (0 = planner-derived), "
                              f"got {self.max_resident_requests}")
 
 
@@ -215,19 +224,14 @@ def _zero_moments(params: dict, offload_opt: bool = False) -> dict:
 
 def refuse_unported(mcfg: MiCSConfig, topo: MiCSTopology, family: str = "dense",
                     device: torch.device = torch.device("cpu")) -> None:
-    """Raise ``NotImplementedError`` for a training setting the port does not
-    run (it never runs the default program under another name), and for a
-    model ``family`` the port does not train on ``device`` (a resolved
-    ``torch.device``; only its type is read, so the check needs no card)."""
+    """Raise ``NotImplementedError`` for ``scores_bf16`` (declared unneeded)
+    and for a model ``family`` the port does not train on ``device`` (a
+    resolved ``torch.device``; only its type is read, so the check needs no
+    card)."""
     if device.type == "cuda" and family not in CUDA_TRAIN_FAMILIES:
         raise NotImplementedError(
             f"family {family!r} does not train on a CUDA device: the port trains "
             f"{CUDA_TRAIN_FAMILIES} there")
-    for name, (default, item) in UNPORTED_TRAIN.items():
-        if getattr(mcfg, name) != default:
-            raise NotImplementedError(
-                f"{name}={getattr(mcfg, name)!r}: {item} is not ported yet; "
-                "the port trains with the default")
     if mcfg.scores_bf16:
         raise NotImplementedError(SCORES_BF16_UNNEEDED)
 
@@ -251,7 +255,8 @@ def _check_state(model: ModelDef, topo: MiCSTopology, state: dict, dev: torch.de
 
 
 def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
-                     *, device: str | torch.device = "cuda", groups=None):
+                     *, device: str | torch.device = "cuda", groups=None,
+                     local_batch: int = 0, seq: int = 0):
     """Returns ``step_fn(state, batch) -> (state, metrics)`` on ``device``.
 
     ``state``: this rank's shards (:func:`init_state`; with
@@ -268,8 +273,15 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
     state's params, m and v are updated in place; the returned state holds
     them and ``step + 1``.  ``step_fn.comm`` is the step's ``CommEngine``,
     ``step_fn.describe()`` the record of its settings.  ``state["step"]``
-    is the int8 wires' dither seed: each step draws its own rounding."""
+    is the int8 wires' dither seed: each step draws its own rounding.
+    A ``policy="auto"`` config is first resolved by the autotuner
+    (``core/autotune.resolve_config``; under ``hbm_budget_gb`` it raises
+    ``MemoryBudgetError`` when no candidate fits, pricing the batch, the
+    activations and the logits when ``local_batch`` (a micro-step's rows on
+    this rank) and ``seq`` are given); ``step_fn.mcfg`` is the config the
+    step runs."""
     dev = resolve_device(device)
+    mcfg, _ = resolve_config(mcfg, model, topo, mode="train", local_batch=local_batch, seq=seq)
     refuse_unported(mcfg, topo, model.cfg.family, dev)
     if model.tp != topo.model_size:
         raise ValueError(f"the model is built for tp = {model.tp}, the topology has "
@@ -301,6 +313,7 @@ def build_train_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: 
         return {"params": new_p, "m": new_m, "v": new_v, "step": state["step"] + 1}, metrics
 
     step_fn.comm = comm   # its counter is the run's census of collectives
+    step_fn.mcfg = mcfg
     step_fn.describe = lambda: {
         **comm.describe(), "boundary": boundary.describe(),
         "optimizer": {"offload_opt": mcfg.offload_opt,

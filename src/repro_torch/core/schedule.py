@@ -111,14 +111,21 @@ class BoundaryPlan:
     def n_buckets(self) -> int:
         return len(self.buckets)
 
+    def hop2_payload_elems(self) -> list:
+        """Element counts of the hop-2 collectives this plan issues, in
+        order: one whole-pool payload a pool under ``serial``, one a bucket
+        under ``bucketed`` (what ``autotune.cost_hop2_schedule`` costs)."""
+        if self.mode == "serial":
+            return list(self.shard_elems.values())   # all_pools() order
+        return [b.elems for b in self.buckets]
+
     def describe(self) -> dict:
         per_pool: dict[str, int] = {}
         for b in self.buckets:
             per_pool[b.pool] = per_pool.get(b.pool, 0) + 1
         return {"mode": self.mode, "clip_mode": self.clip_mode,
                 "bucket_mb": self.bucket_mb, "n_buckets": self.n_buckets,
-                "n_hop2_collectives": (len(self.shard_elems) if self.mode == "serial"
-                                       else self.n_buckets),
+                "n_hop2_collectives": len(self.hop2_payload_elems()),
                 "buckets_per_pool": per_pool,
                 "max_bucket_bytes": max((b.elems * GRAD_ITEMSIZE for b in self.buckets),
                                         default=0)}

@@ -50,8 +50,12 @@ crashes and the ladder transitions.  The engine serves the dense and MoE
 families (griffin's windowed and recurrent caches, xLSTM's states, the
 VLM's cross caches and enc-dec's encoder are not paged, as in the
 reference); an MoE
-model's dead rows take no expert slot.  ``--policy auto`` needs the
-link-model autotuner (ROADMAP Queue 1 item 8) and is refused.
+model's dead rows take no expert slot.  ``--policy auto`` hands the gather
+policy, the prefetch toggle, the KV dtype (``--kv-dtype`` is then the
+numerics ceiling) and the residency (from the memory planner) to the
+autotuner over ``--link-profile``
+(``core/autotune.resolve_config(mode="serve")``), which prints its ranked
+table and the chosen serve policy first.
 """
 
 from __future__ import annotations
@@ -68,7 +72,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config, smoke_variant
+from repro_torch.core.autotune import resolve_config
 from repro_torch.core.faults import FaultPlan
+from repro_torch.core.linkmodel import DEFAULT_PROFILE, PROFILES
 from repro_torch.core.mics import MiCSConfig, init_params
 from repro_torch.core.quant import quantize_state
 from repro_torch.core.topology import MiCSTopology, elastic_host_topology
@@ -76,10 +82,6 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import BACKENDS, MiCSGroups, init_distributed, meet
 from repro_torch.models.build import build_model
 from repro_torch.runtime.serving import build_serve_steps
-
-LATER = {
-    "policy": "--policy auto needs the link-model autotuner (ROADMAP Queue 1 item 8)",
-}
 
 
 def _sync(dev: torch.device) -> None:
@@ -120,7 +122,8 @@ def serve_continuous(cfg, mcfg: MiCSConfig, args, dev: torch.device, groups=None
     sc = ServeLoopConfig(
         slots_local=4, nb_local=4 * max_blocks + 1, block_size=block_size,
         max_blocks=max_blocks, chunk=min(8, args.prompt_len), top_k=8,
-        reserve="full", max_queue=args.max_queue, backoff_base=2, seed=args.seed)
+        reserve="full", max_queue=args.max_queue, backoff_base=2, seed=args.seed,
+        arrival_rate=args.arrival_rate)
     ladder = None
     if args.shed_policy == "degrade":
         ladder = DegradationLadder(
@@ -210,7 +213,9 @@ def main(argv=None):
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--policy", choices=["manual", "auto"], default="manual",
-                    help="'auto' needs the autotuner (ROADMAP Queue 1 item 8)")
+                    help="'auto' picks the gather policy, the KV dtype and the residency "
+                         "from --link-profile")
+    ap.add_argument("--link-profile", default=DEFAULT_PROFILE, choices=sorted(PROFILES))
     ap.add_argument("--quant-gather", action="store_true",
                     help="store the weights int8 (+ fp32 block scales), dequantized each step")
     ap.add_argument("--arrival-rate", type=float, default=0.0,
@@ -243,8 +248,6 @@ def main(argv=None):
                     help="[--continuous] collectives backend, required when WORLD_SIZE > 1")
     ap.add_argument("--dist-timeout-s", type=float, default=600.0)
     args = ap.parse_args(argv)
-    if args.policy != "manual":
-        ap.error(LATER["policy"])
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1 and not args.continuous:
         ap.error(f"WORLD_SIZE={world}: the fixed-batch path serves on one rank; "
@@ -262,7 +265,18 @@ def main(argv=None):
     if args.smoke:
         cfg = smoke_variant(cfg)
     mcfg = MiCSConfig(prefetch=bool(args.prefetch), quant_gather=args.quant_gather,
-                      kv_dtype=args.kv_dtype, kv_block_size=args.kv_block_size)
+                      kv_dtype=args.kv_dtype, kv_block_size=args.kv_block_size,
+                      policy=args.policy, link_profile=args.link_profile)
+    cache_len = args.prompt_len + args.decode_tokens
+    rank0 = int(os.environ.get("RANK", "0")) == 0
+    topo = elastic_host_topology(world, 1, available=world) if args.continuous else MiCSTopology()
+    model = build_model(cfg, tp=topo.model_size)
+    mcfg, plan = resolve_config(mcfg, model, topo, mode="serve", seq=cache_len,
+                                arrival_rate=args.arrival_rate)
+    if plan is not None and rank0:
+        print(plan.table())
+        print(f"serve policy: kv_dtype={mcfg.kv_dtype} kv_block_size={mcfg.kv_block_size} "
+              f"max_resident_requests={mcfg.max_resident_requests}")
     if args.continuous:
         if mcfg.quant_gather:
             # the loop's params provider reloads fp32 weights on every
@@ -279,12 +293,9 @@ def main(argv=None):
         if groups is not None:
             dist.destroy_process_group()
         return
-    topo = MiCSTopology()
-    model = build_model(cfg, tp=topo.model_size)
     params = init_params(model, args.seed, device=dev)
-    if args.quant_gather:
+    if mcfg.quant_gather:
         params = quantize_state(params)
-    cache_len = args.prompt_len + args.decode_tokens
     prefill_fn, decode_fn = build_serve_steps(model, topo, mcfg, cache_len, device=dev)
 
     batch = stub_batch(cfg, args.batch, args.prompt_len, args.seed, dev)
@@ -292,7 +303,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     logits, caches = prefill_fn(params, batch)
     _sync(dev)
-    wire = "int8 weights" if args.quant_gather else "bf16 gather"
+    wire = ("int8 weights" if mcfg.quant_gather else
+            "bf16 gather" if mcfg.gather_dtype == torch.bfloat16 else "fp32 gather")
     print(f"prefill {args.batch}x{args.prompt_len} ({wire}): "
           f"{time.perf_counter() - t0:.3f}s")
 

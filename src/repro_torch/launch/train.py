@@ -19,6 +19,9 @@
       --arch llama3.2-1b --smoke --device cpu --dist-backend gloo \
       --partition-size 2 --hop1-wire-dtype bf16 --compress-hop2 int8 \
       --steps 4                                                # the wires
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
+      --smoke --device cpu --steps 2 --policy auto --link-profile efa-100g \
+      --hbm-budget-gb 1                                        # the autotuner
 
 Weights are random, made from ``--seed``; the data is the seeded synthetic
 stream.  The flags are the reference's (``repro/launch/train.py``) plus
@@ -34,16 +37,20 @@ approx``; a line says which carry, where the moments live and which clip.
 The wires: ``--quant-gather`` (the int8 gather), ``--hop1-wire-dtype``
 and ``--compress-hop2`` (fp32, bf16 or int8 gradient wires) and
 ``--grad-rounding`` (the int8 gradient wires' rounding); a line says
-which.  A setting the port does not run yet (``--policy auto`` and
-``--hbm-budget-gb``, ROADMAP Queue 1 item 8) raises
-``NotImplementedError``, and so do ``--arch llama-3.2-vision-90b`` and
-``--arch whisper-large-v3``: the VLM's steps take ``vision`` rows and
-enc-dec's ``audio`` frames (``core/mics.build_train_step``), which neither
-the reference's launcher nor its data pipeline makes.  The paper's
-LayerNorm + GeLU configs (``bert-10b`` ... ``gpt2-20b``, dense) train
-here.  The
-reference's memory-plan and autotune printouts wait for those modules.
-Only rank 0 prints.
+which.  ``--policy auto`` hands the gather topology, the wires, the
+boundary schedule and (under ``--hbm-budget-gb``, GiB) the carry to the
+autotuner over ``--link-profile`` (``core/autotune.py``; the flags of the
+lossy wires and the approximate clip become permissions), resolved before
+the process groups are built; it prints the ranked candidates, and every
+run prints the boundary's modeled hop-2 time on the profile and the memory
+plan (``core/memplan.py``, GiB).  Under a budget no candidate fits raises
+``MemoryBudgetError`` before any state is made.  ``--arch
+llama-3.2-vision-90b`` and ``--arch whisper-large-v3`` raise
+``NotImplementedError``: the VLM's steps take ``vision`` rows and enc-dec's
+``audio`` frames (``core/mics.build_train_step``), which neither the
+reference's launcher nor its data pipeline makes.  The paper's LayerNorm +
+GeLU configs (``bert-10b`` ... ``gpt2-20b``, dense) train here.  Only rank
+0 prints.
 """
 
 from __future__ import annotations
@@ -56,6 +63,10 @@ import os
 import torch.distributed as dist
 
 from repro_torch.configs import get_config, smoke_variant
+from repro_torch.core import memplan
+from repro_torch.core.autotune import cost_hop2_schedule, resolve_config
+from repro_torch.core.comm import policies_from_config
+from repro_torch.core.linkmodel import DEFAULT_PROFILE, PROFILES, get_profile
 from repro_torch.core.mics import MiCSConfig
 from repro_torch.core.schedule import plan_boundary
 from repro_torch.data.pipeline import DataConfig
@@ -80,7 +91,10 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--checkpoint-dir", default="checkpoints")
     ap.add_argument("--checkpoint-every", type=int, default=25)
-    ap.add_argument("--policy", choices=["manual", "auto"], default="manual")
+    ap.add_argument("--policy", choices=["manual", "auto"], default="manual",
+                    help="'auto' picks the gather policy, the wires and the boundary from "
+                         "--link-profile (core/autotune.py)")
+    ap.add_argument("--link-profile", default=DEFAULT_PROFILE, choices=sorted(PROFILES))
     ap.add_argument("--gather-order", default="inner_first",
                     choices=["inner_first", "outer_first"])
     ap.add_argument("--no-hierarchical", action="store_true")
@@ -94,7 +108,10 @@ def main(argv=None):
     ap.add_argument("--carry-offload", default="none", choices=["none", "host"])
     ap.add_argument("--offload-opt", action="store_true")
     ap.add_argument("--clip-mode", default="exact", choices=["exact", "approx"])
-    ap.add_argument("--hbm-budget-gb", type=float, default=0)
+    ap.add_argument("--hbm-budget-gb", type=float, default=0,
+                    help="per-device HBM budget in GiB: the memory planner gates --policy "
+                         "auto candidates on it (the remat and host carries join them); "
+                         "0 = no budget")
     ap.add_argument("--boundary-schedule", default="bucketed", choices=["serial", "bucketed"])
     ap.add_argument("--hop2-bucket-mb", type=float, default=32.0)
     ap.add_argument("--partition-size", type=int, default=None,
@@ -134,9 +151,6 @@ def main(argv=None):
     p = args.partition_size if args.partition_size is not None or world > 1 else 1
     topo = make_mics_topology(world, p, zero3=args.zero3, tp=args.tp,
                               param_count=cfg.param_count())
-    if world > 1:
-        groups = MiCSGroups(topo, rank, backend=args.dist_backend, inner=args.hierarchy_inner,
-                            timeout=datetime.timedelta(seconds=args.dist_timeout_s))
     model = build_model(cfg, tp=topo.model_size)
     mcfg = MiCSConfig(micro_steps=args.micro_steps,
                       hierarchical=not args.no_hierarchical,
@@ -152,19 +166,42 @@ def main(argv=None):
                       offload_opt=args.offload_opt,
                       clip_mode=args.clip_mode,
                       policy=args.policy,
+                      link_profile=args.link_profile,
                       boundary_schedule=args.boundary_schedule,
                       hop2_bucket_mb=args.hop2_bucket_mb,
                       hbm_budget_gb=args.hbm_budget_gb or None)
+    say = print if rank == 0 else (lambda *a: None)
+    local_batch = args.global_batch // args.micro_steps // topo.data_parallel_size
+    mcfg, plan = resolve_config(mcfg, model, topo, mode="train", local_batch=local_batch,
+                                seq=args.seq)
+    if plan is not None:
+        say(plan.table())
+    if world > 1:
+        groups = MiCSGroups(topo, rank, backend=args.dist_backend, inner=mcfg.hierarchy_inner,
+                            timeout=datetime.timedelta(seconds=args.dist_timeout_s))
     bplan = plan_boundary(model, topo, mode=mcfg.boundary_schedule,
                           bucket_mb=mcfg.hop2_bucket_mb, clip_mode=mcfg.clip_mode)
-    say = print if rank == 0 else (lambda *a: None)
+    profile = get_profile(mcfg.link_profile)
+    gp, sp = policies_from_config(mcfg)
+    hop2 = cost_hop2_schedule(model, topo, profile, sp, boundary=mcfg.boundary_schedule,
+                              bucket_mb=mcfg.hop2_bucket_mb, clip_mode=mcfg.clip_mode)
+    mem = memplan.predict_footprint(
+        model, topo, gp, sp, micro_steps=args.micro_steps, local_batch=local_batch,
+        seq=args.seq, boundary=mcfg.boundary_schedule, hop2_bucket_mb=mcfg.hop2_bucket_mb,
+        offload_opt=mcfg.offload_opt)
     if world > 1:
         say(f"ranks: {world} over {args.dist_backend}, p={topo.partition_size} "
             f"({'ZeRO-3 ' if args.zero3 else ''}partition axes {list(topo.partition_axes)}), "
             f"{topo.replication_degree} replica(s), tp={topo.model_size}, gather "
-            f"{'flat' if args.no_hierarchical else args.gather_order}")
+            f"{'flat' if not mcfg.hierarchical else mcfg.gather_order}")
     say(f"boundary: {mcfg.boundary_schedule} x {bplan.n_buckets} buckets "
-        f"({mcfg.hop2_bucket_mb:g} MB, clip={bplan.clip_mode})")
+        f"({mcfg.hop2_bucket_mb:g} MB, clip={bplan.clip_mode}) - modeled hop-2 "
+        f"{hop2['t_exposed_s'] * 1e6:.0f}us exposed / {hop2['t_total_s'] * 1e6:.0f}us total "
+        f"on {profile.name}")
+    say(f"memplan: {mem.total_gb:.3f} GiB predicted a device, {mem.reserved_bytes / 2**30:.3f} "
+        f"GiB with the allocator's reserve (prefetch_carry="
+        f"{mcfg.prefetch_carry}, carry_offload={mcfg.carry_offload}, "
+        f"offload_opt={mcfg.offload_opt})")
     host = "host memory" + (" (pinned)" if dev.type == "cuda" else "")
     carry = ("none (serial: the backward re-gathers)" if not mcfg.prefetch else
              f"stored in {host}" if mcfg.carry_offload == "host" else

@@ -195,9 +195,8 @@ class DegradationLadder:
 
     ``levels`` is an ordered list of ``{"kv_dtype", "resident_cap",
     "label"}`` dicts, level 0 being the configured operating point and each
-    later level a cheaper one (the reference prices them with its memory
-    planner, ``repro/core/memplan.py::degradation_levels``, which the port
-    has not yet: ROADMAP Queue 1 item 8).  :meth:`update` walks the
+    later level a cheaper one, as the memory planner prices them
+    (``repro_torch.core.memplan.degradation_levels``).  :meth:`update` walks the
     ladder with hysteresis: pressure above ``high_water`` for ``dwell``
     consecutive ticks downshifts one level; pressure below ``low_water``
     for ``dwell`` ticks restores one level.  Transitions are recorded in

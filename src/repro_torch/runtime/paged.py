@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant as Q
+from repro_torch.core.autotune import resolve_config
 from repro_torch.core.mics import KV_DTYPES, MiCSConfig
 from repro_torch.core.topology import MiCSTopology
 from repro_torch.device import resolve_device
@@ -295,8 +296,13 @@ def build_paged_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, *,
     on the other rows, so a request's hidden states and sampled tokens are
     bitwise independent of where its chunk boundaries fall at a fixed
     ``chunk`` (the matmuls and norms of another width may round
-    differently).
+    differently).  A ``policy="auto"`` config is first resolved by the
+    autotuner in serve mode: the chosen KV dtype (at most as lossy as
+    ``mcfg.kv_dtype``), prefetch and planner residency land on
+    ``step.mcfg``, the config the step runs; ``kv_dtype`` / ``block_size``
+    given here override the config's.
     """
+    mcfg, _ = resolve_config(mcfg, model, topo, mode="serve")
     block_size = block_size if block_size is not None else mcfg.kv_block_size
     kv_dtype = kv_dtype if kv_dtype is not None else mcfg.kv_dtype
     _check_paged_support(model)
@@ -326,6 +332,7 @@ def build_paged_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, *,
         return comm.data_all_gather(nxt), lgt, caches
 
     step.comm = comm   # its counter: the run's collectives
+    step.mcfg = mcfg
     return step
 
 
@@ -339,8 +346,11 @@ def build_contiguous_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
 
     step(params, caches, tokens [B, 1], pos [B], seeds [B], temps [B])
       -> (next_tok [B], logits_row [b, vocab_padded / tp], caches)
+
+    A ``policy="auto"`` config is resolved as :func:`build_paged_step`'s.
     """
     dev = resolve_device(device)
+    mcfg, _ = resolve_config(mcfg, model, topo, mode="serve")
     comm, ctx = serve_engine(model, topo, mcfg, groups, cache_len)
     if model.cfg.window:
         raise NotImplementedError("vector-position decode needs window == 0")
@@ -360,4 +370,5 @@ def build_contiguous_step(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
         return comm.data_all_gather(nxt), lgt, caches
 
     step.comm = comm
+    step.mcfg = mcfg
     return step

@@ -11,7 +11,9 @@ therefore **re-mesh, rebuild, replay**:
    fault at a scheduler tick;
 2. on :class:`~repro_torch.core.faults.WorldChangeError` (a preemption, a
    grow-back) the survivors are re-laid out
-   (``runtime/serving.resize_for_serve_world``: the keep rule, tp pinned),
+   (``runtime/serving.resize_for_serve_world``: the keep rule, or the
+   §3.1 re-pick under ``hbm_budget_gb``, tp pinned, and the serve policy
+   re-ranked on the new world with its numerics pinned),
    the process groups, the paged step and the pools are rebuilt, the
    params reloaded on the new topology (``params_for``), and every
    in-flight request is requeued from its prompt ahead of the waiting
@@ -55,8 +57,8 @@ typed shedding, seeded backoff) and on an optional
 queue pressure feeds the ladder, and a level change sets the residency cap
 or changes the KV dtype, which rebuilds the pools at the new dtype and
 replays (the one recovery path whose numerics may change: that is the
-degradation).  The reference's ``arrival_rate`` prices its re-rank of the
-serve policy, which waits for the link model (ROADMAP Queue 1 item 8).
+degradation).  ``ServeLoopConfig.arrival_rate`` is the offered load the
+re-rank of the serve policy prices at a world change.
 """
 
 from __future__ import annotations
@@ -94,8 +96,10 @@ class ServeLoopConfig:
     ``max_world_changes`` bounds the world rebuilds (a flapping cluster
     re-raises rather than thrashing), and ``reserve`` / ``max_queue`` /
     ``evict_cap`` / ``backoff_*`` / ``resident_cap`` pass through to the
-    batcher.  The reference's ``arrival_rate`` prices its re-rank of the
-    serve policy (ROADMAP Queue 1 item 8) and is not carried."""
+    batcher (``resident_cap`` 0: the config's ``max_resident_requests``,
+    the planner's residency of a resolved or re-ranked config, 0 = no cap).  ``arrival_rate`` is the offered load the re-rank of the serve
+    policy prices at a world change (``autotune.rank_policies`` prefers the
+    fastest candidate whose modeled tokens a second meet it)."""
 
     slots_local: int
     nb_local: int
@@ -113,6 +117,7 @@ class ServeLoopConfig:
     max_crash_retries: int = 2
     max_ticks: int = 100_000
     seed: int = 7              # default params provider: init_params(seed, topo=, rank=)
+    arrival_rate: float = 0.0  # offered load the world re-rank prices
 
 
 class ResilientServeLoop:
@@ -135,6 +140,7 @@ class ResilientServeLoop:
                  device: str | torch.device = "cuda", groups=None):
         self.model = model
         self.topo = topo
+        self.mcfg0 = mcfg          # the numerics of every re-rank
         self.mcfg = mcfg
         self.sc = sc
         self.device = resolve_device(device)
@@ -158,9 +164,14 @@ class ResilientServeLoop:
             block_size=sc.block_size, max_blocks=sc.max_blocks, chunk=sc.chunk,
             reserve=sc.reserve, max_queue=sc.max_queue, evict_cap=sc.evict_cap,
             backoff_base=sc.backoff_base, backoff_seed=sc.backoff_seed,
-            resident_cap=(ladder.current()["resident_cap"] if ladder else sc.resident_cap))
+            resident_cap=(ladder.current()["resident_cap"] if ladder else self._resident_cap()))
         if not self.parked:
             self._build_engine()
+
+    def _resident_cap(self) -> int:
+        """The batcher's residency cap without a ladder: the loop's own, else
+        the planner's on the current config."""
+        return self.sc.resident_cap or self.mcfg.max_resident_requests
 
     @property
     def parked(self) -> bool:
@@ -215,9 +226,13 @@ class ResilientServeLoop:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         available = 1 if self.groups is None else launch_world()
-        self.topo, info = resize_for_serve_world(
-            self.mcfg, event["world"], tp=self.tp, partition_size=self.topo.partition_size,
-            available=available)
+        self.topo, self.mcfg, info = resize_for_serve_world(
+            self.model, self.mcfg0, event["world"], tp=self.tp,
+            partition_size=self.topo.partition_size, available=available,
+            seq=self.sc.max_blocks * self.sc.block_size, arrival_rate=self.sc.arrival_rate)
+        if self.ladder is None:       # the ladder's levels own these otherwise
+            self.kv_dtype = self.mcfg.kv_dtype
+            self.batcher.resident_cap = self._resident_cap()
         if self.groups is not None:
             self.groups = MiCSGroups(self.topo, self.rank, backend=self.groups.backend,
                                      timeout=self.groups.timeout,

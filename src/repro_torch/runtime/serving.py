@@ -28,10 +28,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.autotune import resolve_world
+from repro_torch.core.autotune import rerank_serve_world, resolve_config, resolve_world
 from repro_torch.core.comm import CommEngine
-from repro_torch.core.mics import (SCORES_BF16_UNNEEDED, UNPORTED_TRAIN, MiCSConfig,
-                                   local_flat_shapes)
+from repro_torch.core.mics import SCORES_BF16_UNNEEDED, MiCSConfig, local_flat_shapes
 from repro_torch.core.quant import n_blocks
 from repro_torch.core.topology import MiCSTopology, elastic_host_topology
 from repro_torch.device import resolve_device
@@ -87,9 +86,8 @@ def serve_engine(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, groups,
                  cache_len: int) -> tuple[CommEngine, L.Ctx]:
     """The ``CommEngine`` over ``groups`` (this rank's ``MiCSGroups`` of
     ``topo``; ``ValueError`` without them at more than one rank, or for a
-    parked rank) and the decode context of every serve step."""
-    if mcfg.policy != "manual":
-        raise NotImplementedError(f"policy {mcfg.policy!r} needs {UNPORTED_TRAIN['policy'][1]}")
+    parked rank) and the decode context of every serve step.  ``mcfg`` is
+    a resolved config (``core/autotune.resolve_config(mode="serve")``)."""
     if mcfg.scores_bf16:
         raise NotImplementedError(SCORES_BF16_UNNEEDED)
     if model.tp != topo.model_size:
@@ -137,9 +135,13 @@ def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
     ``lm.greedy_sample``, the same argmax without drawing noise.  The
     sampled rows are gathered over the data group (``all_gather:data``),
     so every rank returns the global tokens; rows where ``row_mask`` is
-    False emit -1.  The caches are updated in place.
+    False emit -1.  The caches are updated in place.  A ``policy="auto"``
+    config is first resolved by the autotuner in serve mode (forward
+    gathers only, no gradient sync); ``prefill_fn.mcfg`` is the config the
+    steps run.
     """
     dev = resolve_device(device)
+    mcfg, _ = resolve_config(mcfg, model, topo, mode="serve")
     comm, ctx = serve_engine(model, topo, mcfg, groups, cache_len)
 
     @torch.inference_mode()
@@ -174,27 +176,44 @@ def build_serve_steps(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig,
         return logits, nxt[:, None], new_caches
 
     prefill_fn.comm = decode_fn.comm = comm   # its counter: the run's collectives
+    prefill_fn.mcfg = decode_fn.mcfg = mcfg
     return prefill_fn, decode_fn
 
 
-def resize_for_serve_world(mcfg: MiCSConfig, n_devices: int, *, tp: int = 1,
-                           partition_size: int | None = None, available: int
-                           ) -> tuple[MiCSTopology, dict]:
-    """(topology, ledger info) for serving on the first ``n_devices`` of
-    ``available`` ranks: the rebuild path of the resilient serve loop
+def resize_for_serve_world(model: ModelDef, mcfg: MiCSConfig, n_devices: int, *, tp: int = 1,
+                           partition_size: int | None = None, available: int, seq: int = 0,
+                           arrival_rate: float = 0.0
+                           ) -> tuple[MiCSTopology, MiCSConfig, dict]:
+    """(topology, config, ledger info) for serving on the first ``n_devices``
+    of ``available`` ranks: the rebuild path of the resilient serve loop
     (``runtime/resilient.py``) at every world change, as
     ``train_loop.resize_for_world`` is the train loop's.
 
-    ``autotune.resolve_world``'s keep rule re-picks the partition size (the
-    previous one where it divides the new data extent, else the largest
-    divisor below it), then ``topology.elastic_host_topology`` lays the
-    survivors out contiguously with tp pinned (flat layouts are TP-local).
-    ``info`` is the rule's record plus ``world``.  The reference also
-    re-ranks the serve policy for the new link geometry and returns the
-    re-ranked config (``autotune.rerank_serve_world``, its ``serve_rerank``
-    key); that needs the link model, ROADMAP Queue 1 item 8, so the port
-    serves on with the config it was given and its info has no
-    ``serve_rerank``."""
-    p, info = resolve_world(mcfg, n_devices=n_devices, tp=tp, partition_size=partition_size)
+    1. ``autotune.resolve_world(mode="serve")`` re-picks the partition
+       group for the survivors (the paper's §3.1 rule under
+       ``mcfg.hbm_budget_gb``; the keep rule without a budget);
+    2. ``topology.elastic_host_topology`` lays them out contiguously (tp
+       pinned: flat layouts are TP-local);
+    3. ``autotune.rerank_serve_world`` re-ranks the serve policy on the new
+       link geometry with its numerics pinned (the wire and compute dtype,
+       the KV dtype and block size stay ``mcfg``'s), so the re-ranked
+       policy cannot break the bitwise replay.
+
+    ``info`` is the rule's record plus ``world`` and ``serve_rerank``, the
+    re-ranked policy's summary (``seq``: the positions a request holds;
+    ``arrival_rate``: the offered load the re-rank prices)."""
+    p, mcfg2, info = resolve_world(model, mcfg, n_devices=n_devices, tp=tp,
+                                   partition_size=partition_size, mode="serve", seq=seq)
     topo = elastic_host_topology(n_devices, p, tp, available=available)
-    return topo, dict(info, world=n_devices)
+    mcfg3, plan = rerank_serve_world(model, topo, mcfg2, seq=seq, arrival_rate=arrival_rate)
+    chosen = plan.chosen
+    info = dict(info, world=n_devices, serve_rerank={
+        "gather": chosen.gather.topology,
+        "wire": chosen.gather.wire_dtype,
+        "prefetch": chosen.gather.prefetch,
+        "kv_dtype": mcfg3.kv_dtype,            # pinned, not chosen.kv_dtype
+        "max_resident_requests": mcfg3.max_resident_requests,
+        "t_decode_s": chosen.t_decode_s,
+        "tokens_per_s": chosen.tokens_per_s,
+    })
+    return topo, mcfg3, info

@@ -18,8 +18,10 @@
   of the still-intact state is taken (zero steps lost), without notice the
   in-flight save is awaited and the run rolls back; the new world is
   re-laid out (:func:`resize_for_world`: ``core/autotune.resolve_world``'s
-  keep rule, then ``core/topology.elastic_host_topology`` over the first
-  n ranks), the groups and the step function are rebuilt and the agreed
+  keep rule, or under ``hbm_budget_gb`` the paper's §3.1 re-pick of the
+  partition size and the carry, then ``core/topology.elastic_host_topology``
+  over the first n ranks), the groups and the step function are rebuilt
+  with the re-picked config and the agreed
   checkpoint is restored onto the new topology.  Every change lands in
   ``LoopStats.world_changes``; the budget and backoff are
   ``ElasticConfig.max_world_changes`` / ``backoff_s``.  Without an
@@ -149,10 +151,16 @@ def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
     warn = log.warning if rank == 0 else (lambda *a: None)
     cur = _World(topo, groups)
 
+    def local_batch(t: MiCSTopology) -> int:
+        """A micro-step's rows on a data rank of ``t``: what the memory
+        planner prices the batch, activations and logits at."""
+        return dc.global_batch // dc.micro_steps // t.data_parallel_size
+
     def build() -> None:
         if not cur.parked:
             cur.step_fn = build_train_step(model, cur.topo, mcfg, oc, device=dev,
-                                           groups=cur.groups)
+                                           groups=cur.groups, local_batch=local_batch(cur.topo),
+                                           seq=dc.seq)
 
     def load(step: int | None):
         """``(state, cursor)``: checkpoint ``step`` restored onto the current
@@ -302,9 +310,11 @@ def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        new_topo, rule = resize_for_world(
-            mcfg, event["world"], tp=topo.model_size,
-            partition_size=cur.topo.partition_size, available=launch_world())
+        new_topo, mcfg, rule = resize_for_world(
+            model, mcfg, event["world"], tp=topo.model_size,
+            partition_size=cur.topo.partition_size, available=launch_world(),
+            local_batch=dc.global_batch // dc.micro_steps // (event["world"] // topo.model_size),
+            seq=dc.seq)
         t0 = time.perf_counter()
         new_groups = None if cur.groups is None else MiCSGroups(
             new_topo, cur.groups.rank, backend=cur.groups.backend,
@@ -337,25 +347,31 @@ def train(model: ModelDef, topo: MiCSTopology, mcfg: MiCSConfig, oc: OptConfig,
     return stats
 
 
-def resize_for_world(mcfg: MiCSConfig, n_devices: int, *, tp: int = 1,
-                     partition_size: int | None = None, available: int
-                     ) -> tuple[MiCSTopology, dict]:
-    """(topology, ledger info) for a world of the first ``n_devices`` of
-    ``available`` ranks.
+def resize_for_world(model: ModelDef, mcfg: MiCSConfig, n_devices: int, *, tp: int = 1,
+                     partition_size: int | None = None, available: int,
+                     local_batch: int = 0, seq: int = 0
+                     ) -> tuple[MiCSTopology, MiCSConfig, dict]:
+    """(topology, config, ledger info) for a world of the first ``n_devices``
+    of ``available`` ranks.
 
     The one rebuild path both the in-loop world-change handler and a cold
     :func:`elastic_restart` share, so the two are bitwise-interchangeable:
-    ``autotune.resolve_world`` re-picks the partition size (the keep rule),
-    then the survivors are re-laid out contiguously
-    (``core/topology.elastic_host_topology``).  The config stays the
-    caller's: the keep rule changes none of its fields."""
-    p, info = resolve_world(mcfg, n_devices=n_devices, tp=tp, partition_size=partition_size)
-    return elastic_host_topology(n_devices, p, tp, available=available), info
+    ``autotune.resolve_world`` re-picks the partition size and the carry
+    (the paper's §3.1 rule re-run on the survivors under
+    ``mcfg.hbm_budget_gb``, the returned config carrying the carry that
+    rescued the group; without a budget the keep rule, the config
+    unchanged), then the survivors are re-laid out contiguously
+    (``core/topology.elastic_host_topology``)."""
+    p, mcfg2, info = resolve_world(model, mcfg, n_devices=n_devices, tp=tp,
+                                   partition_size=partition_size, local_batch=local_batch,
+                                   seq=seq)
+    return elastic_host_topology(n_devices, p, tp, available=available), mcfg2, info
 
 
 def elastic_restart(checkpoint_dir: str, cfg: ArchConfig, new_topo: MiCSTopology,
                     mcfg: MiCSConfig, oc: OptConfig, step: int | None = None, *,
-                    device: str | torch.device = "cuda", groups=None):
+                    device: str | torch.device = "cuda", groups=None,
+                    local_batch: int = 0, seq: int = 0):
     """Resume a run on another topology (a lost or regrown world).
 
     Returns ``(model, state, step_fn, meta)``: this rank's shards of the
@@ -364,10 +380,13 @@ def elastic_restart(checkpoint_dir: str, cfg: ArchConfig, new_topo: MiCSTopology
     newest complete checkpoint; pass the step an in-loop world change
     resumed from to cold-restore exactly it (the bitwise reference of the
     elastic tests).  Pair with :func:`resize_for_world` to pick the
-    ``new_topo`` the in-loop path would have chosen."""
+    ``new_topo`` and the config the in-loop path would have chosen; a
+    ``policy="auto"`` config resolves at ``local_batch`` / ``seq`` (the
+    loop's rows a data rank and micro-step) as the loop's step did."""
     model = build_model(cfg, tp=new_topo.model_size)
     rank = 0 if groups is None else groups.rank
     state, meta = Checkpointer(checkpoint_dir).restore(
         model, step, topo=new_topo, rank=rank, device=device, offload_opt=mcfg.offload_opt)
-    step_fn = build_train_step(model, new_topo, mcfg, oc, device=device, groups=groups)
+    step_fn = build_train_step(model, new_topo, mcfg, oc, device=device, groups=groups,
+                               local_batch=local_batch, seq=seq)
     return model, state, step_fn, meta

@@ -243,22 +243,44 @@ def test_serving_shards_of_stored_int8_weights(layout):
 
 def test_resize_for_serve_world_is_the_keep_rule():
     """The serve loop's rebuild path: the reference's ``resolve_world``
-    record (its keep rule, serve mode) plus ``world``, tp pinned, and no
-    ``serve_rerank`` (the link model's re-rank, ROADMAP Queue 1 item 8)."""
+    record (its keep rule, serve mode) plus ``world``, tp pinned, and
+    ``serve_rerank``: the reference's re-rank of the serve policy on the
+    new topology (``rerank_serve_world`` on the same profile): the same
+    choice and residency, the numerics pinned to the config's (bf16 wire,
+    the KV dtype and block).  The modeled decode time and throughput are
+    within 1/16: the port's lookahead issues no wrap-around gather (16
+    gathers of llama's 16 layers a step, the reference's 17), which is all
+    of a decode step's modeled wire time at p > 1 on this profile."""
     from repro.configs import get_config as jax_get_config
+    from repro.core.autotune import rerank_serve_world as jax_rerank
     from repro.core.autotune import resolve_world as jax_resolve_world
     from repro.core.mics import MiCSConfig as JaxMiCSConfig
     from repro.models.build import build_model as jax_build_model
 
-    jmodel = jax_build_model(jax_get_config("llama3.2-1b"), tp=1)
+    from repro_torch.core.linkmodel import EFA_400G
+
     for n, tp, p in ((4, 2, 2), (2, 2, 2), (3, 1, 4), (4, 1, 1), (2, 1, 2)):
-        topo, info = resize_for_serve_world(MiCSConfig(), n, tp=tp, partition_size=p,
-                                            available=4)
+        jmodel = jax_build_model(jax_get_config("llama3.2-1b"), tp=tp)
+        model = build_model(get_config("llama3.2-1b"), tp=tp)
+        mcfg = MiCSConfig(link_profile=EFA_400G, kv_block_size=16)
+        topo, mcfg2, info = resize_for_serve_world(model, mcfg, n, tp=tp, partition_size=p,
+                                                   available=4, seq=272)
         _, _, want = jax_resolve_world(jmodel, JaxMiCSConfig(), n_devices=n, tp=tp,
                                        partition_size=p, mode="serve")
+        rerank = info.pop("serve_rerank")
         assert info == {**want, "world": n}
         assert (topo.world_size, topo.model_size, topo.partition_size) == (
             n, tp, want["partition_size"])
+        _, plan = jax_rerank(jmodel, topo, JaxMiCSConfig(link_profile="efa-400g"), seq=272)
+        c = plan.chosen
+        assert rerank == {"gather": c.gather.topology, "wire": c.gather.wire_dtype,
+                          "prefetch": c.gather.prefetch, "kv_dtype": "bf16",
+                          "max_resident_requests": c.resident_requests,
+                          "t_decode_s": pytest.approx(c.t_decode_s, rel=1 / 16),
+                          "tokens_per_s": pytest.approx(c.tokens_per_s, rel=1 / 16)}
+        assert (mcfg2.gather_dtype, mcfg2.kv_dtype, mcfg2.policy) == (
+            torch.bfloat16, "bf16", "manual")
+        assert mcfg2.prefetch == c.gather.prefetch
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ and against the port at p = 1 on the same global batch, both within
 2-hop one; bitwise at p > 1: serial == prefetch, serial == bucketed
 boundary, a repeated step; the train loop resumed from its
 checkpoint at layout B; a griffin step at layout A against p = 1; the
-launcher under ``torchrun``.  Tensor parallelism (``K.TP_TRAINS``): one
+launcher under ``torchrun``; the autotuner's census of each A and B run
+(``core/autotune.predict_traffic``) against every rank's ``CommCounter``.  Tensor parallelism (``K.TP_TRAINS``): one
 step of llama at p 2 x tp 2 and griffin at tp 4 and p 2 x tp 2 against the
 JAX package at the same layout (gradients divided by the reference's
 factor tp) and against the port at tp 1 on the same weights, the step's
@@ -327,6 +328,39 @@ def test_wire_collective_counts(runs, name):
     want = _wire_calls(name, case, steps)
     for r in range(K.WORLD):
         assert json.loads(str(got[f"{name}.calls"][r])) == want, r
+
+
+@pytest.mark.parametrize("name", list(K.CENSUS))
+def test_census_matches_the_counter(runs, name):
+    """The autotuner's analytical census of a step (``predict_traffic``,
+    the run's boundary and bucket size) against every rank's
+    ``CommCounter`` over the run in the census's units
+    (``census_from_counter``), stage by stage (``compare_census``): the
+    calls of each stage the ``CommEngine`` owns equal; the wire bytes equal
+    for the float wires, within ``K.CENSUS_INT8_RTOL`` for the int8 ones."""
+    from repro_torch.core.autotune import census_from_counter, compare_census, predict_traffic
+    from repro_torch.core.comm import policies_from_config
+
+    lay, order, inner, wire, kw, steps = K.CENSUS[name]
+    model = build_model(smoke_variant(get_config("llama3.2-1b")), tp=1)
+    topo = _topo(lay)
+    mcfg = MiCSConfig(micro_steps=K.MICRO, gather_dtype=TDT[wire], gather_order=order,
+                      hierarchy_inner=inner, **kw)
+    gp, sp = policies_from_config(mcfg)
+    pred = predict_traffic(model, topo, gp, sp, micro_steps=K.MICRO,
+                           boundary=mcfg.boundary_schedule,
+                           hop2_bucket_mb=mcfg.hop2_bucket_mb)["by_stage"]
+    int8 = gp.wire_dtype == "int8" or "int8" in (sp.hop1_wire_dtype, sp.hop2_wire_dtype)
+    got = runs[0]
+    for r in range(K.WORLD):
+        snap = {"calls": json.loads(str(got[f"{name}.calls"][r])),
+                "bytes": json.loads(str(got[f"{name}.bytes"][r]))}
+        cmp = compare_census(pred, census_from_counter(snap, topo, gp, steps=steps))
+        assert set(cmp) == set(pred), (r, sorted(cmp))
+        for stage, c in cmp.items():
+            assert c["measured_count"] == c["predicted_count"], (r, stage, c)
+            assert c["ratio"] == pytest.approx(1.0, rel=K.CENSUS_INT8_RTOL if int8 else 1e-12), (
+                r, stage, c)
 
 
 @pytest.mark.parametrize("name,bf16_run,kinds", [

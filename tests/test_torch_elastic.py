@@ -146,23 +146,42 @@ def test_resolve_world_is_the_reference(tp):
     from repro.core.autotune import resolve_world as ref_resolve
     from repro.core.mics import MiCSConfig as RefConfig
 
+    mcfg = MiCSConfig()
     for n in range(0, 13):
         for prev in (None, 1, 2, 3, 4, 8):
-            got = _outcome(resolve_world, MiCSConfig(), n_devices=n, tp=tp,
+            got = _outcome(resolve_world, None, mcfg, n_devices=n, tp=tp,
                            partition_size=prev)
             want = _outcome(ref_resolve, None, RefConfig(), n_devices=n, tp=tp,
                             partition_size=prev)
             if got[0] == "ValueError":
                 assert got == want, (n, prev)
             else:
-                assert got == (want[0], want[2]), (n, prev)
+                assert (got[0], got[2]) == (want[0], want[2]), (n, prev)
+                assert got[1] is mcfg      # the keep rule changes no field
 
 
 def test_resolve_world_refuses_a_budget():
-    """The re-pick under ``hbm_budget_gb`` needs the memory planner, ROADMAP
-    Queue 1 item 8, which the port does not have yet."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        resolve_world(MiCSConfig(hbm_budget_gb=40.0), n_devices=4, partition_size=2)
+    """Under ``hbm_budget_gb`` the re-pick is the paper's §3.1 rule
+    (``resolve_scale``): the smallest partition group whose plan fits,
+    trying the stored, remat and host carries in turn at each size, the
+    carry landing on the returned config, each plan held to the budget with
+    the allocator's reserve.  llama3.2-1b's model states reserve 29.7 GiB
+    a card at p 1 with the stored carry, 27.7 with remat; at p 2 the stored
+    carry reserves 16.8, at p 4 10.3.  A budget below every candidate
+    raises ``MemoryBudgetError``."""
+    from repro_torch.core.memplan import MemoryBudgetError
+
+    model = build_model(get_config("llama3.2-1b"), tp=1)
+    for budget, n, want in ((30.0, 4, (1, "stored")), (28.0, 4, (1, "remat")),
+                            (20.0, 4, (2, "stored")), (20.0, 2, (2, "stored")),
+                            (11.0, 8, (4, "stored"))):
+        p, mcfg2, info = resolve_world(model, MiCSConfig(hbm_budget_gb=budget), n_devices=n,
+                                       partition_size=1)
+        assert (p, mcfg2.prefetch_carry, mcfg2.carry_offload) == (*want, "none"), budget
+        assert info["rule"] == "resolve_scale" and info["carry"] == want[1]
+        assert info["mem_gib"] < info["reserved_gib"] <= budget and info["partition_size"] == p
+    with pytest.raises(MemoryBudgetError, match="smallest candidate"):
+        resolve_world(model, MiCSConfig(hbm_budget_gb=1.0), n_devices=2)
 
 
 @pytest.fixture(scope="module")

@@ -126,16 +126,20 @@ def test_later_slices_raise():
         assert pools["layers"]["k"].shape == (16, 4, 16, 8 // topo.model_size, 64)
     with pytest.raises(ValueError, match="built for tp = 1"):
         build_serve_steps(llama, MiCSTopology(model=2), MiCSConfig(), 24, device="cpu")
-    # the world re-rank of the serve policy (autotune.rerank_serve_world)
-    # and a re-pick under a memory budget need ROADMAP Queue 1 item 8
-    topo, info = resize_for_serve_world(MiCSConfig(), 2, tp=2, partition_size=2,
-                                        available=4)
+    # the world re-rank of the serve policy (autotune.rerank_serve_world,
+    # numerics pinned) and a re-pick under a memory budget run
+    llama2 = build_model(get_config("llama3.2-1b"), tp=2)
+    topo, mcfg2, info = resize_for_serve_world(llama2, MiCSConfig(), 2, tp=2, partition_size=2,
+                                               available=4)
     assert (topo.partition_size, topo.model_size, info["world"]) == (1, 2, 2)
-    assert "serve_rerank" not in info
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        resize_for_serve_world(MiCSConfig(hbm_budget_gb=40.0), 2, available=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        build_serve_steps(llama, MiCSTopology(), MiCSConfig(policy="auto"), 24, device="cpu")
+    assert info["serve_rerank"]["kv_dtype"] == mcfg2.kv_dtype == "bf16"
+    assert mcfg2.policy == "manual" and mcfg2.gather_dtype == torch.bfloat16
+    topo, _, info = resize_for_serve_world(llama, MiCSConfig(hbm_budget_gb=40.0), 2,
+                                           available=4)
+    assert info["rule"] == "resolve_scale" and topo.partition_size == info["partition_size"]
+    prefill_fn, _ = build_serve_steps(llama, MiCSTopology(), MiCSConfig(policy="auto"), 24,
+                                      device="cpu")
+    assert prefill_fn.mcfg.policy == "manual"
     # fp32 KV pools take the paged route (its fma body) under bf16 and fp32
     # queries: the refusal of them is gone
     assert paged_route(torch.bfloat16, torch.float32) == "paged"
@@ -148,9 +152,9 @@ def test_later_slices_raise():
     for kw in (dict(kv_dtype="fp8"), dict(kv_block_size=0), dict(max_resident_requests=-1)):
         with pytest.raises(ValueError):
             MiCSConfig(**kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        PG.build_paged_step(llama, MiCSTopology(), MiCSConfig(policy="auto"), max_blocks=2,
-                            device="cpu")
+    step = PG.build_paged_step(llama, MiCSTopology(), MiCSConfig(policy="auto"), max_blocks=2,
+                               device="cpu")
+    assert step.mcfg.kv_dtype in ("fp32", "bf16") and step.mcfg.max_resident_requests > 0
     # The staged settings build engines whose policy is the config's.
     for staged, (topology, inner) in ((dict(hierarchical=False), ("flat", None)),
                                       (dict(gather_order="outer_first"), ("outer_first", None)),

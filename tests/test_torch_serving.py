@@ -315,8 +315,8 @@ def test_serve_cli_cpu(arch):
 
 @pytest.mark.parametrize("flag", [["--continuous"], ["--policy", "auto"], ["--quant-gather"]])
 def test_serve_cli_refuses_later_slices(flag, capsys, monkeypatch):
-    """``--policy auto`` (the autotuner, ROADMAP Queue 1 item 8) is refused;
-    ``--quant-gather`` serves from stored int8 weights and ``--continuous``
+    """``--policy auto`` serves on the autotuner's choice (its ranked table
+    and the chosen serve policy printed first); ``--quant-gather`` serves from stored int8 weights and ``--continuous``
     through the resilient engine, whose every fault kind runs (``grow``
     needs ranks to win back: on one process the plan is refused before
     anything runs, as one that empties the world); under ``torchrun``
@@ -328,6 +328,12 @@ def test_serve_cli_refuses_later_slices(flag, capsys, monkeypatch):
     if flag == ["--quant-gather"]:
         main([*argv, "--decode-tokens", "2"])
         assert "int8 weights" in capsys.readouterr().out
+        return
+    if flag == ["--policy", "auto"]:
+        main([*argv, "--decode-tokens", "2", "--link-profile", "efa-400g"])
+        out = capsys.readouterr().out
+        assert "autotune[efa-400g] mode=serve" in out and "serve policy: kv_dtype=" in out
+        assert "decoded 2 tokens x2" in out and "sampled ids:" in out
         return
     if flag == ["--continuous"]:
         main([*argv, "--requests", "2", "--decode-tokens", "2",
@@ -349,10 +355,6 @@ def test_serve_cli_refuses_later_slices(flag, capsys, monkeypatch):
         assert "--dist-backend nccl or gloo is required" in err
         assert "the fixed-batch path serves on one rank" in err
         return
-    with pytest.raises(SystemExit) as ei:
-        main(argv)
-    assert ei.value.code == 2
-    assert "ROADMAP Queue 1 item 8" in capsys.readouterr().err
 
 
 def test_prefill_caches_match_init_caches_layout(setup):

@@ -195,8 +195,6 @@ def test_same_step_twice_is_bitwise_equal(setup):
 
 
 REFUSED = {
-    "policy": dict(policy="auto"),
-    "hbm_budget_gb": dict(hbm_budget_gb=40.0),
     "scores_bf16": dict(scores_bf16=True),
 }
 # Knobs a slice lifted: they keep their ids below and now build a step whose
@@ -206,8 +204,15 @@ REFUSED = {
 # host carries, host-resident moments and the approximate clip
 # (tests/test_torch_knobs.py holds what they compute).  The int8 and bf16
 # wires (item 4; tests/test_torch_quant.py, test_torch_collectives.py and
-# test_torch_dist_train.py hold what they compute).
+# test_torch_dist_train.py hold what they compute).  The autotuner and the
+# memory planner (item 8): at p = 1 every candidate moves nothing, so auto
+# takes the reference's tie-break, the flat gather, and under a budget the
+# smallest footprint, the remat carry (tests/test_torch_planner.py holds
+# the ranking and the plan).
 LIFTED = {
+    "policy": (dict(policy="auto"), "gather", "topology", "flat"),
+    "hbm_budget_gb": (dict(policy="auto", hbm_budget_gb=40.0), "gather", "prefetch_carry",
+                      "remat"),
     "hop1_bf16": (dict(hop1_wire_dtype="bf16"), "wires", "hop1", "bf16"),
     "hop1_int8": (dict(hop1_wire_dtype="int8"), "wires", "hop1", "int8"),
     "compress_hop2": (dict(compress_hop2=True), "wires", "hop2", "bf16"),

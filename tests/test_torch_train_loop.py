@@ -115,14 +115,27 @@ def test_launcher_trains_the_smoke_model(tmp_path):
 
 
 def test_launcher_refuses_unported_flags(tmp_path):
+    """``--policy auto`` and ``--hbm-budget-gb`` run: the ranked table, the
+    modeled hop-2 on the profile and the memory plan print, the step runs on
+    the chosen config (the remat carry at p 1 under a budget); a budget
+    below every candidate raises ``MemoryBudgetError`` before any step."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b", "--smoke",
-         "--device", "cpu", "--steps", "1", "--policy", "auto",
-         "--checkpoint-dir", str(tmp_path / "ck")],
-        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
-    assert out.returncode != 0 and "NotImplementedError" in out.stderr
-    assert "Queue 1 item 8" in out.stderr
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b",
+            "--smoke", "--device", "cpu", "--steps", "1", "--policy", "auto",
+            "--link-profile", "efa-100g"]
+    out = subprocess.run([*base, "--hbm-budget-gb", "1", "--checkpoint-dir",
+                          str(tmp_path / "ck")],
+                         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "autotune[efa-100g] mode=train hbm_budget=1GiB" in out.stdout
+    assert "on efa-100g" in out.stdout and "memplan: " in out.stdout
+    assert "prefetch carry remat" in out.stdout
+    assert out.stdout.strip().splitlines()[-1].startswith("final loss ")
+    out = subprocess.run([*base, "--hbm-budget-gb", "1e-4", "--checkpoint-dir",
+                          str(tmp_path / "ck2")],
+                         capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode != 0 and "MemoryBudgetError" in out.stderr
+    assert not (tmp_path / "ck2").exists()
 
 
 # The host carry offloads the stored carry, so it cannot run beside remat:

@@ -172,6 +172,24 @@ WIRE_LONG = {
 }
 
 
+# The census: the autotuner's ``predict_traffic`` of a step against each
+# rank's ``CommCounter`` over the run (``census_from_counter``), the train
+# runs at layouts A and B above: name -> (layout, gather_order,
+# hierarchy_inner, gather wire, MiCSConfig overrides, steps).  The calls
+# must be equal stage by stage; the float wires' bytes too, the int8
+# wires' within CENSUS_INT8_RTOL (a row's scales are ceil(n / 128), hop 2
+# pads a payload to the replicas' chunks).
+CENSUS = {
+    **{name: (*TRAINS[name], {}, STEPS) for name in TRAINS if name[0] in "AB"},
+    **{f"B:bf16.{sched}": ("B", "inner_first", None, "bf16",
+                           {"boundary_schedule": sched, "hop2_bucket_mb": 0.01}, STEPS)
+       for sched in ("serial", "bucketed")},
+    **{name: (lay, order, inner, "bf16", kw, STEPS)
+       for name, (lay, order, inner, kw) in {**WIRE_JAX, **WIRE_PORT}.items()},
+}
+CENSUS_INT8_RTOL = 0.05
+
+
 def wire_batches(steps: int) -> list[dict[str, np.ndarray]]:
     """``steps`` global batches: :func:`train_batches`, repeated."""
     base = train_batches()

@@ -572,8 +572,8 @@ def elastic(world: World, out_dir: pathlib.Path) -> dict:
         for entry, steps in K.segments(stats.world_changes, total) if name in K.ELASTIC_CHANGES \
                 else ():
             # the same world again, cold: its checkpoint, the same resize
-            topo_n, rule = TL.resize_for_world(
-                mcfg, entry["world"], tp=topo.model_size, partition_size=p_prev,
+            topo_n, _, rule = TL.resize_for_world(
+                model, mcfg, entry["world"], tp=topo.model_size, partition_size=p_prev,
                 available=K.WORLD)
             p_prev = topo_n.partition_size
             g = MiCSGroups(topo_n, r, backend="gloo", timeout=TIMEOUT)
@@ -772,7 +772,7 @@ def elastic_offload(world: World, out_dir: pathlib.Path, device: str) -> dict:
             # every step a world runs, the change's own included
             topos, expected = [topo], []
             for e in stats.world_changes:
-                topos.append(TL.resize_for_world(mcfg, e["world"],
+                topos.append(TL.resize_for_world(model, mcfg, e["world"],
                                                  partition_size=topos[-1].partition_size,
                                                  available=K.WORLD)[0])
             segs = K.segments([{"resumed_step": 0}] + stats.world_changes, total)
