@@ -153,7 +153,18 @@ check raises and the script exits non-zero; no phase swallows an error):
    shorter trace; every call on ``paged:fma``): paged == contiguous over
    fp32 caches bit for bit, the bf16 pools' logits within
    ``FP32_POOL_REL_TOL`` of the fp32 pools', a crash replay bitwise.
-3b. ``dist_train``: 4 ranks, each a process of this
+3b. ``dryrun``: ``launch/dryrun.run_cell`` on the card, llama3.2-1b as rank
+   0 of the reference's 16 x 16 world at tp 16 (p 1, 16 replicas) over a
+   fake process group that moves no data: ``train_4k`` (4 micro-steps of 4 x
+   4,096) and ``decode_32k`` (8 rows at position 32,767), full width, each
+   counted op by op (``roofline/op_stats.py``); the rank's peak within
+   ``CARD_PLAN_RTOL`` of the plan and its reserve within the plan's, the
+   census's calls ``predict_traffic``'s, the hop-2 collectives the bucket
+   plan's, the counted products within ``DRYRUN_FLOPS_RTOL`` of the
+   config's (``roofline/analysis.dense_rank_dot_flops``: the rank's
+   matrices with the KV heads it shares, the layers' recompute, attention
+   over the visible pairs) and the kernels' reported products within it of
+   that attention.  Then ``dist_train``: 4 ranks, each a process of this
    script (``--dist-worker``) started with ``torchrun``'s variables, through
    ``launch/mesh.init_distributed`` / ``MiCSGroups`` and
    ``runtime/train_loop.train``, the ``train`` phase's data, seed, rows a
@@ -391,9 +402,11 @@ each ``train_knobs`` variant, ``train_moe``, ``train_xlstm``,
 planner's footprint at the run's shapes by component beside its peak and
 reserve, and checks that the plan's state bytes are exactly the tensors
 ``init_state`` made (``memory_allocated`` after it less before it printed
-beside) and, but for MoE and xLSTM (whose unpriced buffers it names),
-that the plan is within ``MEM_RTOL`` and the card's ``CARD_PLAN_RTOL`` of
-the peak and its reserve (``RESERVE_FACTOR``) holds the allocator's.
+beside) and that the plan (the largest of its moments: the loss's
+backward, the largest row's backward, the boundary) is within ``MEM_RTOL``
+and the card's ``CARD_PLAN_RTOL`` of the peak and its reserved bytes
+(``RESERVE_FACTOR`` x the plan, and xLSTM's excess at its moment,
+``MemPlan.reserve_excess``) hold the allocator's.
 ``train_knobs`` gains the variant ``auto`` (``policy="auto"`` under the
 card's whole memory in GiB, gated at the run's batch: the chosen config
 printed, bitwise the ``train`` phase, its peak and reserve under the
@@ -544,13 +557,6 @@ MOE_TRAIN = TrainPath("deepseek-moe-16b", 4, 2, 2048, 3,
 # fault must exceed one of them.  The loss at init is near ln V whatever
 # the experts do, so its limit only bounds the precision.
 MOE_FP32_REL_TOL = {"loss": 3e-4, "grad_norm": 1.5e-3, "leaf_norm": 2e-2}
-# The train step's buffers that no term of the memory planner prices: the
-# expert dispatch's [E, cap + 1, d] slots, expert outputs and routing
-# tables (models/blocks._moe_dispatch_tokens).  They live inside a layer,
-# gone by the loss's backward where this run peaks, but a run that peaks
-# inside a layer would miss them: the plan against the peak is reported,
-# not held to MEM_RTOL.
-MOE_UNPRICED = "expert dispatch (models/blocks._moe_dispatch_tokens): slots, outputs, routing"
 # Params after one AdamW step from zero moments move by about lr * sign(g);
 # where the two sides' gradients differ in sign (|g| near rounding) a
 # weight lands up to 2 lr apart.
@@ -2131,7 +2137,8 @@ def memplan_record(model, mcfg, path: TrainPath, peak_bytes: int, init: dict):
     plan = MP.predict_footprint(model, MiCSTopology(), gp, sp, micro_steps=mcfg.micro_steps,
                                 local_batch=path.global_batch // path.micro_steps, seq=path.seq,
                                 boundary=mcfg.boundary_schedule,
-                                hop2_bucket_mb=mcfg.hop2_bucket_mb, offload_opt=mcfg.offload_opt)
+                                hop2_bucket_mb=mcfg.hop2_bucket_mb, offload_opt=mcfg.offload_opt,
+                                mlstm_chunk=mcfg.mlstm_chunk)
     reserved = torch.cuda.max_memory_reserved()
     out = {"plan_gb": plan.total_bytes / 1e9, "plan_gib": plan.total_gb,
            "peak_gb": peak_bytes / 1e9, "plan_over_peak": plan.total_bytes / peak_bytes,
@@ -2139,6 +2146,8 @@ def memplan_record(model, mcfg, path: TrainPath, peak_bytes: int, init: dict):
            "reserved_over_plan": reserved / plan.total_bytes,
            "args_gb": plan.args_bytes / 1e9,
            "components_gb": {k: v / 1e9 for k, v in plan.components.items()},
+           "moment": plan.moment,
+           "moments_gb": {k: v / 1e9 for k, v in plan.describe()["moments"].items()},
            "state_bytes_plan": plan.state_bytes, "state_bytes_init": init["tensor_bytes"],
            "init_allocated_bytes": init["allocated_bytes"],
            "live_before_init_gb": init["live_before_bytes"] / 1e9, "rtol": MP.MEM_RTOL,
@@ -2146,16 +2155,16 @@ def memplan_record(model, mcfg, path: TrainPath, peak_bytes: int, init: dict):
     return out, plan
 
 
-def plan_against_peak(label: str, model, mcfg, path: TrainPath, peak_bytes: int, init: dict,
-                      *, missing: str | None = None) -> dict:
+def plan_against_peak(label: str, model, mcfg, path: TrainPath, peak_bytes: int,
+                      init: dict) -> dict:
     """:func:`memplan_record` of the run, checked.
 
     Checks that the plan's state bytes are exactly the bytes of the tensors
     ``init_state`` made on the card (``init``: :func:`measure_init`), that
     ``memory_allocated`` grew by those bytes plus at most the allocator's
-    rounding (``ALLOC_SLACK_BYTES`` a tensor), and, unless ``missing`` names
-    a term the planner does not price (the run is then reported only), that
-    the plan's total is within ``MEM_RTOL`` and ``CARD_PLAN_RTOL`` of
+    rounding (``ALLOC_SLACK_BYTES`` a tensor), that the plan's total (the
+    largest of its moments, ``MemPlan.moment``) is within ``MEM_RTOL`` and
+    ``CARD_PLAN_RTOL`` of
     ``peak_bytes`` and that the allocator's reserve
     (``max_memory_reserved``) is within the plan's ``reserved_bytes``, what
     a budget is held to."""
@@ -2163,16 +2172,13 @@ def plan_against_peak(label: str, model, mcfg, path: TrainPath, peak_bytes: int,
 
     out, plan = memplan_record(model, mcfg, path, peak_bytes, init)
     ratio, reserved = out["plan_over_peak"], torch.cuda.max_memory_reserved()
-    out["held_to_rtol"] = missing is None
     slack = init["allocated_bytes"] - init["tensor_bytes"]
     if plan.state_bytes != init["tensor_bytes"] or not (
             0 <= slack <= init["tensors"] * ALLOC_SLACK_BYTES):
         raise AssertionError(f"{label}: the plan's state bytes {plan.state_bytes} != the "
                              f"{init['tensor_bytes']} bytes init_state made "
                              f"({init['allocated_bytes']} allocated)")
-    if missing is not None:
-        out["missing_term"] = missing
-    elif not abs(ratio - 1) <= min(MP.MEM_RTOL, CARD_PLAN_RTOL):
+    if not abs(ratio - 1) <= min(MP.MEM_RTOL, CARD_PLAN_RTOL):
         raise AssertionError(f"{label}: the plan {plan.total_bytes / 1e9:.3f} GB is not within "
                              f"{min(MP.MEM_RTOL, CARD_PLAN_RTOL)} of the peak "
                              f"{peak_bytes / 1e9:.3f} GB")
@@ -2310,7 +2316,7 @@ def train_moe_phase(card: str, dev) -> dict:
     launches, by_route, bwd_by_route, rms_bwd_by_route, _ = tables
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     memplan = plan_against_peak("train_moe", model, step.mcfg, path,
-                                torch.cuda.max_memory_allocated(), init, missing=MOE_UNPRICED)
+                                torch.cuda.max_memory_allocated(), init)
     batch = source.global_step_batch(path.steps)   # two more steps: a warm one, the profiled
     prof = profile_line(cfg.name, "train_moe step", lambda: step(state, batch)[1]["loss"].item())
     del state, step
@@ -2461,12 +2467,6 @@ XLSTM_TRAIN = TrainPath(XLSTM_ARCH, 4, 2, 1024, 1,
 # about 8 x its kernels (the embedding's, the head's and the loss's do
 # not grow).
 XLSTM_PROFILE_SEQ = 128
-# The train step's buffers that no term of the memory planner prices: what
-# the eager recurrences save for their backward (the chunkwise mLSTM's
-# chunk states and gates, the sLSTM scan's states; models/recurrent.py);
-# the plan against the peak is reported, not held to MEM_RTOL.
-XLSTM_UNPRICED = ("the recurrences' saved states (models/recurrent.mlstm_chunkwise, "
-                  "SlstmScanFn)")
 # train_xlstm's step 1 in bf16 against fp32 compute on the card, relative
 # (``xlstm_grad_probe``; ``leaf_norm``: the worst segment's gradient norm).
 # On an H100 (seed 0, step 1's first micro-step of 2 x 2048) the sound gaps
@@ -2694,6 +2694,9 @@ def train_xlstm_phase(card: str, dev) -> dict:
                         lambda: accumulate_grads(model, comm, ctx, state["params"], mb),
                         activities=CARD_ONLY)
     torch.cuda.synchronize()
+    # the profile's blocks, cut for its shorter sequence, are not the step's:
+    # its reserve is read from the state alone
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     losses, gnorms, step_ms = [], [], []
@@ -2708,7 +2711,7 @@ def train_xlstm_phase(card: str, dev) -> dict:
     launches, by_route, bwd_by_route, rms_bwd_by_route, rglru_by_form = tables
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     memplan = plan_against_peak("train_xlstm", model, step.mcfg, path,
-                                torch.cuda.max_memory_allocated(), init, missing=XLSTM_UNPRICED)
+                                torch.cuda.max_memory_allocated(), init)
     if not all(math.isfinite(x) for x in losses + gnorms):
         raise AssertionError(f"train_xlstm: losses {losses}, grad norms {gnorms}")
     del state, step
@@ -3431,6 +3434,8 @@ def train_bert_phase(card: str, dev) -> dict:
 # median of HOST_LINK_REPS CUDA-event times.
 HOST_LINK_BYTES = (64 * 2**20, 2**30)
 HOST_LINK_REPS = 5
+# The card profile's host tier against the fit, relative (core/linkmodel.H100_P5).
+HOST_LINK_RTOL = 0.10
 
 
 def host_link_phase(card: str, dev) -> dict:
@@ -3439,7 +3444,9 @@ def host_link_phase(card: str, dev) -> dict:
     host memory to the card and back at ``HOST_LINK_BYTES``, each the median
     of ``HOST_LINK_REPS`` CUDA-event times after a warm copy; the two sizes
     fit ``t = alpha + n / bandwidth`` each way, printed beside the card
-    profile's tier (PCIe Gen5 x16, 64 GB/s, 5 µs)."""
+    profile's tier (the middle of this card's fits on four hosts, 51.7
+    GB/s, 5 µs), whose bandwidth must be within ``HOST_LINK_RTOL`` of each
+    way's fit."""
     from repro_torch.core.linkmodel import H100_P5
 
     fits = {}
@@ -3470,9 +3477,126 @@ def host_link_phase(card: str, dev) -> dict:
             raise AssertionError(f"host_link {way}: the fit {fits[way]}")
     torch.cuda.empty_cache()
     host = H100_P5.host
-    return {"phase": "host_link", "fit": fits,
+    off = {way: host.bandwidth / 1e9 / f["bandwidth_gb_s"] - 1 for way, f in fits.items()}
+    if not all(abs(x) <= HOST_LINK_RTOL for x in off.values()):
+        raise AssertionError(f"host_link: the profile's {host.bandwidth / 1e9} GB/s is off the "
+                             f"card's fit by {off} (limit {HOST_LINK_RTOL})")
+    return {"phase": "host_link", "fit": fits, "profile_off_fit": off,
             "profile": {"name": H100_P5.name, "bandwidth_gb_s": host.bandwidth / 1e9,
                         "alpha_us": host.alpha * 1e6}, "gpu": card}
+
+
+# The dryrun phase (launch/dryrun.py): rank 0 of the production world, 16 x
+# 16 at tp 16, under the fake process group, at full width: llama3.2-1b's
+# train_4k (4 micro-steps of 4 rows x 4,096 tokens) and decode_32k (8 rows,
+# one step at the last of 32,768 positions).  The fake group moves no data,
+# so no loss or logits are held.
+DRYRUN_ARCH = "llama3.2-1b"
+DRYRUN_CELLS = ("train_4k", "decode_32k")
+# A step's counted matrix products against the config's
+# (roofline/analysis.dense_rank_dot_flops: the rank's matrices, a KV head
+# that two ranks of the model group share at tp 16 over 8 KV heads computed
+# on each, the layers' recompute, attention at 18 dh a visible (query, key)
+# pair and local head, decode 2 a weight and 4 dh a pair), and the flash
+# kernels' reported products against that attention.  Both are exact
+# counts: dropping the layers' recompute or every flash report moves them by
+# 10% or more.
+DRYRUN_FLOPS_RTOL = 0.01
+
+
+def dryrun_expected_flops(rec: dict, cfg) -> dict:
+    """The rank's expected products a step of the cell ``rec``
+    (:data:`DRYRUN_FLOPS_RTOL`): ``{"matmul", "attention", "total"}``."""
+    from repro_torch.roofline.analysis import dense_rank_dot_flops
+
+    return dense_rank_dot_flops(cfg, tp=rec["tp"], kind=rec["kind"],
+                                rows=max(rec["memplan"]["local_batch"], 1), seq=rec["seq"],
+                                micro_steps=rec["micro_steps"])
+
+
+def dryrun_phase(card: str, dev) -> dict:
+    """``dryrun``: ``launch/dryrun.run_cell`` on the card for each of
+    :data:`DRYRUN_CELLS` (the counters set to 0 just before, read just
+    after), each held: the rank's peak over what was live before it against
+    the plan within ``CARD_PLAN_RTOL`` and its reserve within the plan's
+    ``reserved_bytes``; the census's calls equal ``predict_traffic``'s at
+    every stage; the boundary's hop-2 collectives the bucket plan's; the
+    counted dot flops within :data:`DRYRUN_FLOPS_RTOL` of
+    :func:`dryrun_expected_flops`' total, the kernels' reported products
+    within it of its attention."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import memplan as MP
+    from repro_torch.core.mics import MiCSConfig
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rglru import kernel as RG
+    from repro_torch.kernels.rmsnorm import kernel as RN
+    from repro_torch.launch import dryrun as DR
+
+    out = ROOT / "build" / "dryrun"
+    cells = {}
+    reset_counts()
+    for shape in DRYRUN_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = DR.run_cell(DRYRUN_ARCH, shape, False,
+                          MiCSConfig(micro_steps=DR.TRAIN_MICRO_STEPS), out_dir=out, device=dev)
+        label = f"dryrun {shape}"
+        mem, meas = rec["memplan"], rec["measured"]
+        peak = meas["max_memory_allocated"] - meas["allocated_before"]
+        reserved = meas["max_memory_reserved"] - meas["reserved_before"]
+        ratio = mem["total_bytes"] / peak
+        if not abs(ratio - 1) <= min(MP.MEM_RTOL, CARD_PLAN_RTOL):
+            raise AssertionError(f"{label}: the plan {mem['total_bytes'] / 1e9:.3f} GB is not "
+                                 f"within {CARD_PLAN_RTOL} of the rank's peak {peak / 1e9:.3f} GB")
+        if not reserved <= mem["reserved_gib"] * 2**30:
+            raise AssertionError(f"{label}: the allocator reserved {reserved / 1e9:.3f} GB, over "
+                                 f"the plan's {mem['reserved_gib'] * 2**30 / 1e9:.3f} GB with "
+                                 "its reserve")
+        bad = {k: v for k, v in rec["autotune_cross_check"].items()
+               if v["predicted_count"] != v["measured_count"]}
+        if bad:
+            raise AssertionError(f"{label}: census calls differ from predict_traffic's: {bad}")
+        if "boundary" in rec and not rec["boundary"]["bucket_count_match"]:
+            raise AssertionError(f"{label}: {rec['boundary']['measured']} hop-2 collectives, the "
+                                 f"plan's {rec['boundary']['n_hop2_collectives']}")
+        want = dryrun_expected_flops(rec, get_config(DRYRUN_ARCH))
+        flops_ratio = rec["stats"]["dot_flops"] / want["total"]
+        kernel_ratio = rec["stats"]["kernel_dot_flops"] / want["attention"]
+        if not abs(flops_ratio - 1) <= DRYRUN_FLOPS_RTOL:
+            raise AssertionError(f"{label}: counted dot flops {rec['stats']['dot_flops']:.4e} "
+                                 f"over the config's {want['total']:.4e} = {flops_ratio:.6f}")
+        if not abs(kernel_ratio - 1) <= DRYRUN_FLOPS_RTOL:
+            raise AssertionError(f"{label}: the kernels' reported products "
+                                 f"{rec['stats']['kernel_dot_flops']:.4e} over the config's "
+                                 f"attention {want['attention']:.4e} = {kernel_ratio:.6f}")
+        stats = {k: rec["stats"][k] for k in ("dot_flops", "hbm_bytes", "ici_wire_bytes",
+                                               "dci_wire_bytes", "n_collectives",
+                                               "kernel_launches", "kernel_dot_flops")}
+        cells[shape] = {
+            "mesh": rec["mesh"], "tp": rec["tp"], "partition_size": rec["partition_size"],
+            "replication_degree": rec["replication_degree"], "ran": rec["ran"],
+            "local_batch": rec["memplan"].get("local_batch"), "run_s": rec["run_s"],
+            "plan_gb": mem["total_bytes"] / 1e9, "moment": mem["moment"],
+            "peak_gb": peak / 1e9, "plan_over_peak": ratio, "reserved_gb": reserved / 1e9,
+            "reserved_over_plan": reserved / mem["total_bytes"],
+            "census": {k: {"calls": v["measured_count"], "ratio": v["ratio"]}
+                       for k, v in rec["autotune_cross_check"].items()},
+            "boundary": {k: rec["boundary"][k] for k in ("n_hop2_collectives",
+                                                           "bucket_count_match")}
+            if "boundary" in rec else None,
+            "stats": stats, "expected_flops": want, "dot_flops_over_expected": flops_ratio,
+            "kernel_flops_over_attention": kernel_ratio}
+    launches = read_counts()
+    by_route = dict(FA.launches_by_route)
+    return {"phase": "dryrun", "arch": DRYRUN_ARCH, "cells": cells, "launches": launches,
+            "attention_launches_by_route": by_route,
+            "attention_bwd_launches_by_route": dict(FA.launches_bwd_by_route),
+            "rmsnorm_bwd_launches_by_route": dict(RN.launches_bwd_by_route),
+            "rglru_launches_by_form": {"forward": dict(RG.launches_by_form),
+                                       "backward": dict(RG.launches_bwd_by_form)},
+            "flops_rtol": DRYRUN_FLOPS_RTOL, "card_rtol": CARD_PLAN_RTOL, "gpu": card}
 
 
 def check_train_launches(label: str, path: TrainPath, micro: int):
@@ -3722,7 +3846,7 @@ def knobs_auto_refusal(model, mcfg, oc, dev, shapes: dict, remat_reserved: float
     _, bare = resolve_config(mcfg, model, MiCSTopology(), mode="train")
     eligible = [c for c in plan.candidates if not (c.lossy_wire or c.lossy_hop2 or c.lossy_hop1)
                 and c.clip_mode == "exact"]
-    smallest = min(c.mem_bytes for c in eligible) * MP.RESERVE_FACTOR
+    smallest = min(c.mem_bytes * MP.RESERVE_FACTOR + c.reserve_excess for c in eligible)
     between = (bare.chosen.mem_bytes + remat_reserved) / 2 / 2**30
     if not bare.chosen.mem_bytes / 2**30 < between < remat_reserved / 2**30:
         raise AssertionError(f"train_knobs auto: no budget between the states-only plan "
@@ -3743,7 +3867,8 @@ def knobs_auto_refusal(model, mcfg, oc, dev, shapes: dict, remat_reserved: float
         if torch.cuda.memory_allocated() != before:
             raise AssertionError("train_knobs auto: the refused budget allocated on the card")
     return {"plan_gib": plan.chosen.mem_bytes / 2**30,
-            "plan_reserved_gib": plan.chosen.mem_bytes * MP.RESERVE_FACTOR / 2**30,
+            "plan_reserved_gib": (plan.chosen.mem_bytes * MP.RESERVE_FACTOR
+                                  + plan.chosen.reserve_excess) / 2**30,
             "states_only_gib": bare.chosen.mem_bytes / 2**30,
             "remat_reserved_gib": remat_reserved / 2**30,
             "smallest_candidate_reserved_gib": smallest / 2**30, "refusals": refusals,
@@ -6343,7 +6468,15 @@ def main() -> int:
     launches_by_route["mma"] += moe_train["attention_launches_by_route"]["mma"]
     torch.cuda.empty_cache()
 
-    # -- 3b. the MiCS step over 4 ranks -------------------------------------------
+    # -- 3b. one rank of the production world (the dry run) ------------------------
+    dry = dryrun_phase(card, dev)
+    emit(dry)
+    by_path[f"{DRYRUN_ARCH} dryrun"] = dry["launches"]
+    for r, n in dry["attention_launches_by_route"].items():
+        launches_by_route[r] += n
+    torch.cuda.empty_cache()
+
+    # -- 3c. the MiCS step over 4 ranks -------------------------------------------
     dist_line = dist_train_phase(card, dev)
     by_path[dist_line["arch"]] = dist_line["launches"]
     by_path["dist_wires"] = dist_line["wires_launches"]
@@ -6394,9 +6527,9 @@ def main() -> int:
 
     def train_sum(*keys: str) -> dict:
         """A train line's launches by route (or form) under ``keys``, summed
-        over the train paths and the dist_train phase."""
+        over the train paths, the dryrun and the dist_train phase."""
         out = {}
-        for line in (*train_lines, dist_line):
+        for line in (*train_lines, dry, dist_line):
             table = line
             for key in keys:
                 table = table[key]

@@ -1,7 +1,8 @@
 """Config registry of the port: the reference's ten assigned architectures
 and the paper's own workloads (``bert_paper.PAPER_CONFIGS``: bert-10b ...
 gpt2-20b, LayerNorm + GeLU dense decoders), as ``repro/configs/__init__.py``
-registers them."""
+registers them, and the dry run's cells (``SHAPES`` x ``ASSIGNED``,
+``cells``), copied from ``repro/configs/__init__.py:43-59``."""
 
 from repro_torch.configs.base import ArchConfig, smoke_variant
 from repro_torch.configs.bert_paper import PAPER_CONFIGS
@@ -32,4 +33,25 @@ def get_config(name: str) -> ArchConfig:
     raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
 
 
-__all__ = ["ArchConfig", "smoke_variant", "get_config", "REGISTRY", "ASSIGNED"]
+# -- shapes (assignment): seq_len x global_batch -----------------------------
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq=524288, global_batch=1),
+}
+
+
+def cells(include_skips: bool = False):
+    """All (arch, shape) assignment cells; long_500k only for sub-quadratic
+    archs unless include_skips (the skip itself is recorded in EXPERIMENTS)."""
+    for cfg in ASSIGNED:
+        for shape_name, spec in SHAPES.items():
+            skip = shape_name == "long_500k" and not cfg.sub_quadratic
+            if skip and not include_skips:
+                continue
+            yield cfg, shape_name, spec, skip
+
+
+__all__ = ["ArchConfig", "smoke_variant", "get_config", "REGISTRY", "ASSIGNED", "SHAPES",
+           "cells"]

@@ -546,6 +546,7 @@ class Candidate:
     t_hop2_total_s: float = 0.0          # full hop-2 ring time
     t_hop2_exposed_s: float = 0.0        # what actually serializes the step
     mem_bytes: float = 0.0               # memplan per-device footprint
+    reserve_excess: float = 0.0          # memplan's reserve beyond RESERVE_FACTOR
     # -- serve-mode decode pricing (mode="serve" only) --------------------
     kv_dtype: str = "bf16"               # paged KV block dtype
     resident_requests: int = 0           # predicted residents per device
@@ -874,6 +875,7 @@ def rank_policies(
     local_batch: int = 0,
     seq: int = 0,
     offload_opt: bool = False,
+    mlstm_chunk: int = 0,
     kv_ceiling: str = "bf16",
     kv_block_size: int = 16,
     serve_ctx: int = 0,
@@ -898,7 +900,8 @@ def rank_policies(
     :class:`repro_torch.core.memplan.MemoryBudgetError` is raised — never a
     silently empty plan — when nothing numerics-eligible fits.
     ``local_batch``/``seq`` size the activation terms (0 = model states +
-    comm buffers only).
+    comm buffers only); ``mlstm_chunk`` is the step's chunkwise mLSTM,
+    which the planner's ``layer`` moment traces.
 
     The approx clip joins the grid on every bucketed-boundary candidate
     (``clip_mode`` column) but is selected only under
@@ -981,9 +984,10 @@ def rank_policies(
                         model, topo, g2, s, micro_steps=micro_steps,
                         mode=mode, local_batch=local_batch, seq=seq,
                         boundary=boundary, hop2_bucket_mb=bucket_mb,
-                        offload_opt=offload_opt and mode == "train")
+                        offload_opt=offload_opt and mode == "train",
+                        mlstm_chunk=mlstm_chunk)
                     cands.append(dataclasses.replace(
-                        c, mem_bytes=mem.total_bytes))
+                        c, mem_bytes=mem.total_bytes, reserve_excess=mem.reserve_excess))
     # modeled time first; among time-ties the smaller footprint wins (which
     # is what makes remat the tie-break choice at p=1, where the extra
     # backward re-gather moves zero wire bytes).  Exact clip and the
@@ -1013,7 +1017,7 @@ def rank_policies(
         return True
 
     def fits(c: Candidate) -> bool:
-        return hbm_budget_gb is None or M.fits(c.mem_bytes, hbm_budget_gb)
+        return hbm_budget_gb is None or M.fits(c.mem_bytes, hbm_budget_gb, c.reserve_excess)
     kv_cap = _KV_LOSS.get(kv_ceiling, _KV_LOSS["bf16"])
     eligible = [c for c in cands
                 if (allow_int8 or not c.lossy_wire)
@@ -1029,8 +1033,8 @@ def rank_policies(
             f"p={topo.partition_size}: the smallest candidate "
             f"({smallest.gather.topology}/{smallest.gather.wire_dtype}, "
             f"prefetch_carry={smallest.gather.prefetch_carry!r}) reserves "
-            f"{smallest.mem_bytes * M.RESERVE_FACTOR / GIB:.3f} GiB per device "
-            f"(plan x {M.RESERVE_FACTOR} for the allocator); grow the "
+            f"{(smallest.mem_bytes * M.RESERVE_FACTOR + smallest.reserve_excess) / GIB:.3f} "
+            f"GiB per device (plan x {M.RESERVE_FACTOR} for the allocator); grow the "
             f"partition group (memplan.min_partition_size) or the budget")
     pool = feasible or eligible or cands
     # a target arrival rate prefers the lowest-latency candidate that still
@@ -1083,6 +1087,7 @@ def resolve_config(mcfg, model, topo: MiCSTopology, *,
         hbm_budget_gb=getattr(mcfg, "hbm_budget_gb", None),
         local_batch=local_batch, seq=seq,
         offload_opt=getattr(mcfg, "offload_opt", False),
+        mlstm_chunk=getattr(mcfg, "mlstm_chunk", 0),
         # serve axes: the configured kv_dtype is the numerics ceiling, the
         # configured residency (0 = planner-derived) caps the pool sizing
         kv_ceiling=getattr(mcfg, "kv_dtype", "bf16"),
@@ -1162,7 +1167,7 @@ def resolve_scale(model, mcfg, *, data_extent: int, mode: str = "train",
         boundary=mcfg.boundary_schedule,
         hop2_bucket_mb=mcfg.hop2_bucket_mb, carries=carries,
         offload_opt=getattr(mcfg, "offload_opt", False) and mode == "train",
-        extra_replication=extra_replication)
+        extra_replication=extra_replication, mlstm_chunk=getattr(mcfg, "mlstm_chunk", 0))
 
 
 def resolve_world(model, mcfg, *, n_devices: int, tp: int = 1,

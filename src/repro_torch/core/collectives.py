@@ -21,9 +21,11 @@ dim ``axis`` (``all_gather_into_tensor``), every reduce-scatter a sum
 A gloo group cannot take a CUDA tensor, so for a gloo group and a CUDA
 tensor each op runs through pinned host buffers: copy to the host, run the
 gloo op, copy back (:func:`_run`, the one code path of every op).  The
-group's backend decides this.  Every op adds its call, its bytes (the
-larger of its input and output) and its host seconds to a
-:class:`CommCounter` when given one.
+group's backend decides this.  A ``fake`` group (the dry run's world,
+``launch/dryrun.py``) moves no data: each op completes at once and leaves
+its output as it was.  Every op adds its call, its bytes (the larger of its
+input and output) and its host seconds to a :class:`CommCounter` when given
+one.
 
 The model axis (Megatron tensor parallelism, the reference's ``psum`` /
 ``all_gather`` / ``pmax`` over ``'model'``) has its own ops at the end:
@@ -66,7 +68,7 @@ class Group:
     name: str
     ranks: tuple[int, ...]
     handle: Any
-    backend: str
+    backend: str      # 'nccl', 'gloo', or 'fake' (no data moves)
 
     @property
     def size(self) -> int:
@@ -123,16 +125,17 @@ def _pinned(t: torch.Tensor) -> torch.Tensor:
 def _run(op, out: torch.Tensor, inp: torch.Tensor, group: Group, kind: str,
          counter: CommCounter | None) -> Work:
     """Issue ``op(out, inp)`` over ``group`` (``out is inp`` for an op in
-    place); a gloo group and a CUDA tensor go through pinned host buffers."""
+    place); a gloo group and a CUDA tensor go through pinned host buffers,
+    and a fake group issues nothing."""
     t0 = time.perf_counter()
-    finish = None
+    finish = work = None
     if group.backend == "gloo" and inp.is_cuda:
         h_in = _pinned(inp)
         h_out = h_in if out is inp else torch.empty(out.shape, dtype=out.dtype,
                                                     pin_memory=True)
         work = op(h_out, h_in, group=group.handle, async_op=True)
         finish = lambda: out.copy_(h_out)  # noqa: E731
-    else:
+    elif group.backend != "fake":
         work = op(out, inp, group=group.handle, async_op=True)
     if counter is not None:
         counter.add(kind, group.name, max(out.numel(), inp.numel()) * out.element_size(),

@@ -66,7 +66,8 @@ The terms the port prices differently, and why:
 * ``logits_ce``: the saved logits in the compute dtype, the backward's
   fp32 probabilities and their cast back (``models/layers._CrossEntropy``):
   ``2 * cb + 4`` bytes a logit (8 at bf16, the reference's figure; 12 at
-  fp32).
+  fp32); ``final_activations`` the [b, T, d] activations beside them
+  (:data:`FINAL_ACTIVATIONS`), which the reference leaves out.
 * ``hop2_staging`` (replicas): none on the fp32 wire (the bucket is reduced
   in place), two buckets' bf16 casts on the bf16 wire; the int8 wire keeps
   the reference's rule.
@@ -81,11 +82,42 @@ The terms the port prices differently, and why:
   plan rows are int64 but the block table (int32); a head dim outside the
   flash kernels' is stored at its padded width (``kv_token_bytes``).
 
+A train step peaks at one of three moments, and the plan is the largest
+(:attr:`MemPlan.moment`; the allocator's trace shows each,
+``tools/memplan_probe.py``):
+
+* ``loss`` — the loss's backward: the terms above (:attr:`MemPlan.components`,
+  the reference's decomposition);
+* ``layer`` — the backward of the pool row whose recompute saves most: the
+  state, the accumulator, the carry and the checkpoints, plus what the row's
+  recompute keeps for its backward (``layer_saved``: the whole row traced
+  once on fake tensors under ``saved_tensors_hooks``, counted by storage —
+  the xLSTM recurrences' per-chunk states and gates of
+  ``models/recurrent.mlstm_chunkwise`` at ``mlstm_chunk`` and
+  ``SlstmScanFn``'s states, MoE's ``[E, cap + 1, d]`` dispatch buffers, slots
+  and routing, the layers' products and norms) and its cotangents
+  (``layer_cotangent``: the gathered row's, ``flat_len * cb``, and the
+  activations' into and out of the row, ``2 * b * T * d * cb``,
+  :func:`layer_cotangent_bytes`), and the backward's transients
+  (``layer_backward``: the family's :data:`LAYER_BACKWARD_SHARE` of the
+  saved bytes, read off the card).  Priced for the families whose rows run
+  without a frontend (:data:`LAYER_FAMILIES`);
+* ``boundary`` — AdamW after the backward (``core/schedule._AdamW``): the
+  state and the accumulator, plus :data:`BOUNDARY_TEMPS` fp32 temporaries of
+  the largest update slice (``min(UPDATE_SLICE, row shard)``: the update's
+  passes and the slice's two masks), two more with host moments.  It is
+  the peak of a step whose activations are small beside its state.
+
 A budget bounds what the caching allocator *reserves*
 (``torch.cuda.max_memory_reserved``), which runs above the allocated peak:
 the gates (:func:`fits`, used by :func:`min_partition_size` and
 ``core/autotune.rank_policies``) hold :attr:`MemPlan.reserved_bytes`, the
-plan times :data:`RESERVE_FACTOR`, to it.  A gate prices the batch, the
+plan times :data:`RESERVE_FACTOR`, to it.  Where an xLSTM step peaks (in a
+row's backward, or at its boundary) the allocator reserves more than that,
+and the plan carries the excess as a term of its own
+(:attr:`MemPlan.reserve_excess`: :data:`LAYER_RESERVE_SHARE` of the row's
+saved bytes, :data:`BOUNDARY_RESERVE_SHARE` of the update's temporaries):
+the allocated plan stays a prediction of ``max_memory_allocated``.  A gate prices the batch, the
 checkpointed activations and the logits only when it is given
 ``local_batch`` and ``seq``; the train launcher, the train loop and
 ``core/mics.build_train_step`` pass them.
@@ -103,11 +135,14 @@ no replication, no hop-2 staging), and budgets smaller than any candidate
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import weakref
 
 from repro_torch.core.comm import GatherPolicy, SyncPolicy
 from repro_torch.core.linkmodel import GIB
 from repro_torch.core.quant import BLOCK
+from repro_torch.core.schedule import UPDATE_SLICE
 
 # Documented tolerance of the transient-footprint model against the card's
 # measured peak (the reference's figure; argument bytes carry none).
@@ -134,6 +169,46 @@ QGZ_SCRATCH_BYTES_PER_ELEM = 2 * _INT8_BYTES + 2.0
 BATCH_BYTES_PER_TOKEN = 12.0
 # Per-element bytes of the enc-dec audio frames and the VLM's vision rows.
 _FRAME_BYTES = 2.0
+
+
+# The backward's own transients at the ``layer`` moment beyond the row's
+# cotangents (:func:`layer_cotangent_bytes`), as a share of what the row
+# saves, for each family whose rows the moment traces (their rows take no
+# frontend input, as the VLM's vision rows and enc-dec's encoder output do,
+# so one row runs from its input activations and gathered buffer alone):
+# read off an H100 with ``tools/memplan_probe.py --rows``, one row of each
+# of chip_smoke.py's train runs (dense: the larger of llama3.2-1b's and
+# bert-10b's; PERF.md §6).
+# Griffin's row frees its saved tensors as its backward walks back and peaks
+# under saved + cotangents (-0.23): no term.
+LAYER_BACKWARD_SHARE = {"dense": 0.281, "moe": 0.316, "xlstm": 0.042, "griffin": 0.0}
+LAYER_FAMILIES = tuple(LAYER_BACKWARD_SHARE)
+# What the caching allocator reserves beyond RESERVE_FACTOR x the plan when
+# an xLSTM step peaks (MemPlan.reserve_excess), read off an H100
+# (tools/memplan_probe.py on xlstm-125m's train run; PERF.md §6).  In a
+# row's backward, where its chunkwise recurrences free and allocate blocks
+# of many sizes: a share of what the row saves (0.104 read with AdamW slices
+# of 2^24, which move the step's peak there).  At the boundary: the update
+# slice's temporaries whole, in segments of their own, since the small
+# blocks the xLSTM backward frees hold none of them (0.68 and 0.95 of them
+# read in two runs; the other families' losses free blocks that hold them).
+LAYER_RESERVE_SHARE = {"xlstm": 0.105}
+BOUNDARY_RESERVE_SHARE = {"xlstm": 1.0}
+# [b, T, d] activations of the compute dtype live at the loss's backward
+# beyond the checkpoints (the last row's output, which the final norm saves,
+# and the norm's output, which the head's product saves, among them), read
+# off an H100: llama3.2-1b's train_4k as rank 0 of 16 x 16 at tp 16, where
+# the vocabulary's shard no longer dwarfs them, peaked 203 MB = 3.03 of
+# them over the plan without this term (launch/dryrun.py, chip_smoke.py).
+FINAL_ACTIVATIONS = 3
+# fp32 temporaries of one AdamW update slice at the boundary's peak
+# (optim/adamw.adamw_shard_update's passes and core/schedule._slice_masks'
+# decay and padding masks), read off the allocator's trace on an H100
+# (xlstm-125m: 8 + 2 row-size temporaries at its boundary peak,
+# tools/memplan_probe.py).
+BOUNDARY_TEMPS = 10
+# With host moments (offload_opt) the slice's m and v come to the card.
+BOUNDARY_HOST_TEMPS = 2
 
 
 class MemoryBudgetError(ValueError):
@@ -268,14 +343,32 @@ class MemPlan:
     the part of ``args_bytes`` that ``init_state`` (train) or
     ``init_params`` (serve) allocates."""
 
-    components: dict           # transient component -> bytes
+    components: dict           # the loss's backward: transient component -> bytes
     args_bytes: float          # state + batch (+ KV pool, plan rows)
     mode: str
     state_bytes: float = 0.0
+    moments: dict = dataclasses.field(default_factory=dict)  # other moment -> components
+    reserves: dict = dataclasses.field(default_factory=dict)  # moment -> the allocator's excess
+
+    @property
+    def moment(self) -> str:
+        """The moment the step peaks at: ``loss``, or the larger of
+        ``moments`` (``layer``, ``boundary``) where it exceeds it."""
+        best, most = "loss", sum(self.components.values())
+        for name, comp in self.moments.items():
+            if sum(comp.values()) > most:
+                best, most = name, sum(comp.values())
+        return best
+
+    @property
+    def peak_components(self) -> dict:
+        """The transients of :attr:`moment`."""
+        m = self.moment
+        return dict(self.components) if m == "loss" else dict(self.moments[m])
 
     @property
     def temp_bytes(self) -> float:
-        return float(sum(self.components.values()))
+        return float(sum(self.peak_components.values()))
 
     @property
     def total_bytes(self) -> float:
@@ -286,10 +379,17 @@ class MemPlan:
         return self.total_bytes / GIB
 
     @property
+    def reserve_excess(self) -> float:
+        """What the allocator reserves beyond :data:`RESERVE_FACTOR` x the
+        plan when the step peaks at :attr:`moment` (``reserves``: xLSTM's
+        ``layer`` and ``boundary``), else 0."""
+        return float(self.reserves.get(self.moment, 0.0))
+
+    @property
     def reserved_bytes(self) -> float:
         """What the caching allocator is priced to reserve for the step:
         the measure a budget holds (:func:`fits`)."""
-        return self.total_bytes * RESERVE_FACTOR
+        return self.total_bytes * RESERVE_FACTOR + self.reserve_excess
 
     def describe(self) -> dict:
         return {
@@ -299,15 +399,21 @@ class MemPlan:
             "total_bytes": self.total_bytes,
             "total_gib": self.total_gb,
             "reserved_gib": self.reserved_bytes / GIB,
+            "reserve_excess": self.reserve_excess,
             "components": dict(self.components),
+            "moment": self.moment,
+            "moments": {"loss": float(sum(self.components.values())),
+                        **{k: float(sum(v.values())) for k, v in self.moments.items()}},
+            "moment_components": {k: dict(v) for k, v in self.moments.items()},
             "mode": self.mode,
         }
 
 
-def fits(total_bytes: float, hbm_budget_gb: float) -> bool:
+def fits(total_bytes: float, hbm_budget_gb: float, reserve_excess: float = 0.0) -> bool:
     """Whether a plan of ``total_bytes`` allocated fits a budget of
-    ``hbm_budget_gb`` GiB once the allocator's reserve is counted."""
-    return total_bytes * RESERVE_FACTOR <= float(hbm_budget_gb) * GIB
+    ``hbm_budget_gb`` GiB once the allocator's reserve is counted
+    (``reserve_excess``: :attr:`MemPlan.reserve_excess`)."""
+    return total_bytes * RESERVE_FACTOR + reserve_excess <= float(hbm_budget_gb) * GIB
 
 
 def _pool_shapes(model) -> dict:
@@ -333,6 +439,7 @@ def predict_footprint(
     decode_ctx: int = 0,
     decode_chunk: int = 0,
     kv_max_blocks: int = 0,
+    mlstm_chunk: int = 0,
 ) -> MemPlan:
     """Per-device HBM footprint of one training / serving step.
 
@@ -348,6 +455,11 @@ def predict_footprint(
     and with ``offload_opt=True`` the fp32 ``m`` / ``v`` shards leave the
     arguments (2 x state shard bytes).  Their *time* is priced by the
     autotuner on the link model's ``host`` tier.
+
+    In train mode the plan is the largest of the step's moments (module
+    docstring): ``mlstm_chunk`` is the chunkwise mLSTM's chunk the step runs
+    (``MiCSConfig.mlstm_chunk``; 0: the timestep scan), which the ``layer``
+    moment traces.
     """
     p = max(int(topo.partition_size), 1)
     repl = max(int(getattr(topo, "replication_degree", 1)), 1)
@@ -443,6 +555,7 @@ def predict_footprint(
         tp = max(int(getattr(model, "tp", 1)), 1)
         vocab = int(getattr(model, "vocab_padded", cfg.vocab))
         add("logits_ce", local_batch * seq * (vocab // tp) * (2 * cb + 4))
+        add("final_activations", FINAL_ACTIVATIONS * local_batch * seq * cfg.d_model * cb)
 
     # -- backward: the largest buffer's cotangent and its fp32 cast, live only
     # after the loss's backward has freed the logits and the head's buffer --
@@ -464,7 +577,127 @@ def predict_footprint(
     if sync.hop1_wire_dtype == "int8" and p > 1:
         add("qgz_scratch", max_flat * QGZ_SCRATCH_BYTES_PER_ELEM)
 
-    return MemPlan(components=comp, args_bytes=args, mode=mode, state_bytes=state)
+    moments, reserves = {}, {}
+    # -- the largest row's backward -------------------------------------------
+    if local_batch and seq and cfg is not None and family in LAYER_FAMILIES:
+        tp = max(int(getattr(model, "tp", 1)), 1)
+        saved = layer_saved_bytes(cfg, tp, local_batch, seq, mlstm_chunk=mlstm_chunk,
+                                  compute_bytes=cb)
+        name = max(saved, key=saved.get)
+        flat_len = shapes[name][2]
+        moments["layer"] = {k: v for k, v in (
+            ("grad_accum", comp["grad_accum"]),
+            ("prefetch_carry", comp.get("prefetch_carry", 0.0)),
+            ("activation_ckpt", comp.get("activation_ckpt", 0.0)),
+            ("layer_saved", saved[name]),
+            ("layer_cotangent", layer_cotangent_bytes(flat_len, local_batch, seq, cfg.d_model, cb)),
+            ("layer_backward", LAYER_BACKWARD_SHARE[family] * saved[name]),
+        ) if v > 0}
+        reserves["layer"] = LAYER_RESERVE_SHARE.get(family, 0.0) * saved[name]
+    # -- the boundary's AdamW -------------------------------------------------
+    row_shard = max(math.ceil(flat_len / p) for _s, _t, flat_len in shapes.values())
+    temps = BOUNDARY_TEMPS + (BOUNDARY_HOST_TEMPS if offload_opt else 0)
+    update = temps * 4.0 * min(UPDATE_SLICE, row_shard)
+    moments["boundary"] = {"grad_accum": comp["grad_accum"], "boundary_update": update}
+    reserves["boundary"] = BOUNDARY_RESERVE_SHARE.get(family, 0.0) * update
+    return MemPlan(components=comp, args_bytes=args, mode=mode, state_bytes=state,
+                   moments=moments, reserves={k: v for k, v in reserves.items() if v})
+
+
+def layer_cotangent_bytes(flat_len: int, local_batch: int, seq: int, d_model: int,
+                          compute_bytes: int) -> float:
+    """The ``layer`` moment's ``layer_cotangent``: the gathered row's
+    cotangent (``flat_len`` elements) and the activations' into and out of
+    the row, in the compute dtype of ``compute_bytes``."""
+    return float(flat_len * compute_bytes + 2 * local_batch * seq * d_model * compute_bytes)
+
+
+def layer_saved_bytes(cfg, tp: int, local_batch: int, seq: int, *, mlstm_chunk: int = 0,
+                      compute_bytes: int = 2) -> dict:
+    """``{pool: bytes}``: what one row of each layer pool of ``cfg`` at
+    ``tp`` saves for its backward when its checkpoint recomputes it, over
+    ``local_batch`` x ``seq`` tokens in the compute dtype of
+    ``compute_bytes`` — every tensor its autograd graph keeps
+    (:func:`saved_bytes`), less the row's inputs (the gathered buffer and
+    the activations, priced as the carry and the checkpoints).  The row runs
+    on fake tensors (``FakeTensorMode``: shapes only, nothing allocated; the
+    kernels' plain versions, whose autograd Functions save what the card's
+    do), its model axis over a fake group that moves no data
+    (``launch/mesh.MiCSGroups``).  xLSTM's recurrences save a fixed set a
+    timestep or a chunk, so its rows are traced at two and three of them
+    and the bytes extended in a line to ``seq`` (exact: every term is a
+    count of steps or chunks times their size, or a constant)."""
+    if cfg.family == "xlstm":
+        unit = mlstm_chunk if mlstm_chunk and seq % mlstm_chunk == 0 and seq > mlstm_chunk \
+            else 1
+        t0, t1 = 2 * unit, 3 * unit      # the same form as seq's: chunkwise, or the scan
+        if seq > t1:
+            a = dict(_traced_saved(cfg, tp, local_batch, t0, mlstm_chunk, compute_bytes))
+            b = dict(_traced_saved(cfg, tp, local_batch, t1, mlstm_chunk, compute_bytes))
+            return {k: a[k] + (b[k] - a[k]) * (seq - t0) / (t1 - t0) for k in a}
+    return dict(_traced_saved(cfg, tp, local_batch, seq, mlstm_chunk, compute_bytes))
+
+
+@functools.lru_cache(maxsize=64)
+def _traced_saved(cfg, tp: int, local_batch: int, seq: int, mlstm_chunk: int,
+                  compute_bytes: int) -> tuple:
+    """:func:`layer_saved_bytes` of one traced row a layer pool, at ``seq``:
+    ``((pool, bytes), ...)`` (a tuple: the cache hands it to every caller)."""
+    import datetime
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core.comm import CommEngine
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.launch.mesh import FAKE_BACKEND, MiCSGroups
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.build import build_model
+
+    dtype = torch.float32 if compute_bytes == 4 else torch.bfloat16
+    model = build_model(cfg, tp=tp)
+    topo = MiCSTopology(model=tp)
+    groups = (MiCSGroups(topo, 0, backend=FAKE_BACKEND, timeout=datetime.timedelta(0))
+              if tp > 1 else None)
+    comm = CommEngine(topo, groups=groups, compute_dtype=dtype)
+    ctx = L.Ctx(mode="train", tp=tp, compute_dtype=dtype, comm=comm, mlstm_chunk=mlstm_chunk,
+                shapes_only=True)
+    out = {}
+    with FakeTensorMode(), torch.enable_grad():
+        for pool in model.pools:
+            full = torch.empty(pool.layout.flat_len, dtype=dtype).requires_grad_()
+            x = torch.empty(local_batch, seq, cfg.d_model, dtype=dtype).requires_grad_()
+            out[pool.name] = float(saved_bytes(
+                lambda: lm._layer_from_full(pool, comm, ctx, x, full), exclude=(x, full)))
+    return tuple(out.items())
+
+
+def saved_bytes(fn, exclude=()) -> int:
+    """The bytes of the storages that ``fn()``'s autograd graph keeps for
+    its backward once ``fn`` has returned (a node the output does not reach
+    is freed with what it saved), each storage once, less those of
+    ``exclude`` (its inputs)."""
+    import torch
+
+    def key(t):
+        return t.untyped_storage()._cdata
+
+    skip = {key(t) for t in exclude}
+    packed = []
+
+    def pack(t):
+        packed.append((weakref.ref(t), t.untyped_storage().nbytes()))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()  # noqa: F841  (holds the graph while the saved tensors are read)
+    alive = {}
+    for ref, nbytes in packed:
+        t = ref()
+        if t is not None and key(t) not in skip:
+            alive[key(t)] = nbytes
+    return sum(alive.values())
 
 
 def _frontend_rows(cfg) -> int:
@@ -506,6 +739,7 @@ def min_partition_size(
     carries: tuple = ("stored",),
     offload_opt: bool = False,
     extra_replication: int = 1,
+    mlstm_chunk: int = 0,
 ) -> tuple[int, str, MemPlan]:
     """The paper's scale-aware partitioning rule, analytically.
 
@@ -539,10 +773,11 @@ def min_partition_size(
             plan = predict_footprint(
                 model, grid, g2, sync, micro_steps=micro_steps, mode=mode,
                 local_batch=local_batch, seq=seq, boundary=boundary,
-                hop2_bucket_mb=hop2_bucket_mb, offload_opt=offload_opt)
+                hop2_bucket_mb=hop2_bucket_mb, offload_opt=offload_opt,
+                mlstm_chunk=mlstm_chunk)
             if best is None or plan.total_bytes < best[2].total_bytes:
                 best = (p, carry, plan)
-            if fits(plan.total_bytes, hbm_budget_gb):
+            if fits(plan.total_bytes, hbm_budget_gb, plan.reserve_excess):
                 return p, carry, plan
     assert best is not None
     raise MemoryBudgetError(
@@ -550,5 +785,6 @@ def min_partition_size(
         f"smallest candidate (p={best[0]}, prefetch_carry={best[1]!r}) "
         f"reserves {best[2].reserved_bytes / GIB:.3f} GiB per device "
         f"(args {best[2].args_bytes / GIB:.3f} + "
-        f"temp {best[2].temp_bytes / GIB:.3f}, x {RESERVE_FACTOR} for the "
+        f"temp {best[2].temp_bytes / GIB:.3f}, x {RESERVE_FACTOR} + "
+        f"{best[2].reserve_excess / GIB:.3f} for the "
         f"allocator); raise the budget, shrink the model, or grow the world")

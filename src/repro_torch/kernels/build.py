@@ -189,6 +189,25 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+# Listeners of each launch's work (``roofline/op_stats.py`` counts a step's
+# with them): a wrapper calls :func:`report` as it launches its kernel.
+LISTENERS: list = []
+
+
+def tensor_bytes(*ts) -> int:
+    """The bytes of ``ts`` (None skipped): each read or written once."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def report(kernel: str, nbytes: float, dot_flops: float = 0.0) -> None:
+    """One launch of ``kernel``: the bytes it must move (each input read
+    once, each output written once) and the operations of its matrix
+    products, the counts of its ``bound_ms`` (``PERF.md``'s kernel table),
+    handed to every listener."""
+    for fn in LISTENERS:
+        fn(kernel, float(dot_flops), float(nbytes))
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launch reported a CUDA error."""
     if err != 0:

@@ -69,6 +69,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build as K
@@ -285,6 +286,33 @@ def mask_bias(tq: int, tk: int, *, causal: bool, window: int, q_offset: int,
         blocked |= (k_pos >= kv_valid_len)[None, :]
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return torch.where(blocked, torch.full_like(zero, NEG_INF), zero)
+
+
+def visible_pairs(tq: int, kv_len: int, *, causal: bool, window: int, q_offset: int) -> int:
+    """The (query, key) pairs of one (batch row, head) that the masks allow:
+    query i at position ``q_offset + i`` sees the keys below ``kv_len``, up
+    to itself if ``causal``, and within ``window`` of it if set."""
+    pos = q_offset + np.arange(tq)
+    hi = np.minimum(kv_len, pos + 1) if causal else np.full(tq, kv_len)
+    lo = np.maximum(pos - window + 1, 0) if window else 0
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def attention_work(q, k, *, kv_len: int, causal: bool, window: int, q_offset: int,
+                   backward: bool = False) -> tuple[float, float]:
+    """``(dot_flops, nbytes)`` of one flash launch on q [b, tq, hkv, g, dh]
+    and k [b, tk, hkv, dh], the counts of its ``bound_ms``: forward, 4 dh a
+    visible pair and head (q k^T and p v) over q read, o written and the
+    first ``kv_len`` keys and values read; backward, 10 dh (s, dp, dv, dq
+    and dk) over q, o, dO, k, v and lse read and dq, dk, dv written."""
+    b, tq, hkv, g, dh = q.shape
+    pairs = visible_pairs(tq, kv_len, causal=causal, window=window, q_offset=q_offset)
+    pairs *= b * hkv * g
+    if backward:
+        return 10.0 * dh * pairs, float((4 * q.numel() + 4 * k.numel()) * q.element_size()
+                                        + b * hkv * g * tq * 4)
+    return 4.0 * dh * pairs, float((2 * q.numel() + 2 * b * kv_len * hkv * dh)
+                                   * q.element_size())
 
 
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -580,6 +608,14 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     launches += 1
     launches_by_route[r] += 1
     launches_paged_by_form[f"paged:{body}"] += 1
+    if K.LISTENERS:  # the live keys a head reads (a read of the lengths)
+        cap = tables.shape[1] * bs
+        lens = torch.clamp(kvl if kvl.dim() == 2 else kvl[:, None].expand(b, tq), max=cap)
+        live = torch.clamp(lens.max(dim=1).values, max=cap).sum().item()
+        per_key = hkv * dh * k_pages.element_size() + (hkv * 4 * -(-dh // 128) if int8 else 0)
+        n_live = int((lens > 0).sum().item())
+        K.report("flash_attention", 2 * live * per_key + n_live * hkv * g * dh * (
+            q.element_size() + o.element_size()), 4.0 * dh * hkv * g * lens.sum().item())
     return o
 
 
@@ -622,6 +658,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _launch_dense(r, q, k, v, o, None, causal, window, q_offset, kv_len, stream, scale)
     launches += 1
     launches_by_route[r] += 1
+    if K.LISTENERS:
+        flops, nbytes = attention_work(q, k, kv_len=kv_len, causal=causal, window=window,
+                                       q_offset=q_offset)
+        K.report("flash_attention", nbytes, flops)
     return o
 
 
@@ -647,10 +687,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if b == 0 or tq == 0 or hkv == 0 or g == 0:
         return o, lse
     r = route(q.dtype, tq * g, with_lse=True)
-    _launch_dense(r, q, k, v, o, lse, causal, window, q_offset,
-                  _kv_len(k.shape[1], kv_valid_len), _stream(q), _scale(dh, scale))
+    kv_len = _kv_len(k.shape[1], kv_valid_len)
+    _launch_dense(r, q, k, v, o, lse, causal, window, q_offset, kv_len, _stream(q),
+                  _scale(dh, scale))
     launches += 1
     launches_by_route[r] += 1
+    if K.LISTENERS:
+        flops, nbytes = attention_work(q, k, kv_len=kv_len, causal=causal, window=window,
+                                       q_offset=q_offset)
+        K.report("flash_attention", nbytes, flops)
     return o, lse
 
 
@@ -848,6 +893,11 @@ def flash_attention_bwd_on(route: str, q, k, v, o, lse, do, *, causal: bool = Tr
     K.check(err, f"flash_attention_bwd ({r})")
     launches_bwd += 1
     launches_bwd_by_route[r] += 1
+    if K.LISTENERS:
+        flops, nbytes = attention_work(q, k, kv_len=_kv_len(k.shape[1], kv_valid_len),
+                                       causal=causal, window=window, q_offset=q_offset,
+                                       backward=True)
+        K.report("flash_attention_bwd", nbytes, flops)
     return dq, dk, dv
 
 

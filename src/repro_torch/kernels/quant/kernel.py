@@ -184,6 +184,8 @@ def quantize(x: torch.Tensor, dither: Dither | None = None, *,
     K.check(err, "quantize")
     launches_quantize += 1
     launches_quantize_by_mode["nearest" if dither is None else "stochastic"] += 1
+    if K.LISTENERS:
+        K.report("quantize", K.tensor_bytes(x, q, s))
     return q, s
 
 
@@ -220,4 +222,6 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype = torch.
         torch.cuda.current_stream(q.device).cuda_stream)
     K.check(err, "dequantize")
     launches_dequantize += 1
+    if K.LISTENERS:
+        K.report("dequantize", K.tensor_bytes(q, scale, out))
     return out

@@ -406,6 +406,8 @@ def _rglru_fwd(a, b, h0, plan=None, starts=None):
         torch.cuda.current_stream(a.device).cuda_stream)
     K.check(err, "rglru")
     _count("ab")
+    if K.LISTENERS:
+        K.report("rglru", K.tensor_bytes(a, b, h0, h, starts))
     return h
 
 
@@ -420,23 +422,25 @@ def rglru_with_starts(a: torch.Tensor, b: torch.Tensor, *, plan: tuple[int, int]
     return _rglru_fwd(a, b, None, plan, starts), starts
 
 
-def rglru_gated(x, wr, br, wi, bi, lam, h0=None, *, state_out=None):
+def rglru_gated(x, wr, br, wi, bi, lam, h0=None, *, state_out=None, shapes_only=False):
     """The griffin block's RG-LRU from ``x`` [B, T, C] (T >= 1) and the
     per-channel weights ``wr, br, wi, bi, lam`` [C]: the gates of
     :func:`rglru_coeffs_plain`, then the recurrence from ``h0`` (fp32
     [B, C], or 0).  Returns ``(h, h_last)``: h [B, T, C] in ``x.dtype``, and
     the fp32 last state written into ``state_out`` when given, else into a
     new tensor.  ``state_out`` may be ``h0`` (the decode step's in-place
-    update) only when the plan runs one chunk, as it does at T = 1."""
+    update) only when the plan runs one chunk, as it does at T = 1.
+    ``shapes_only`` (a trace of shapes on fake tensors) writes nothing: h,
+    the last state and the chunk starts are left as allocated."""
     ws = (wr, br, wi, bi, lam)
     _check_gated(x, ws, h0, state_out)
     if _recorded(x, *ws, h0):
         _refuse_state_under_grad("rglru_gated", h0, state_out)
-        return RgLruGatedFn.apply(x, *ws)
-    return _rglru_gated_fwd(x, ws, h0, state_out)
+        return RgLruGatedFn.apply(x, *ws, shapes_only)
+    return _rglru_gated_fwd(x, ws, h0, state_out, shapes_only=shapes_only)
 
 
-def _rglru_gated_fwd(x, ws, h0, state_out, plan=None, starts=None):
+def _rglru_gated_fwd(x, ws, h0, state_out, plan=None, starts=None, shapes_only=False):
     """The gated form over ``plan`` (default :func:`plan_scan_chunks`'),
     writing the chunk starts into ``starts`` when given (from h = 0)."""
     nchunks, chunk_len = _plan(x) if plan is None else plan
@@ -445,6 +449,10 @@ def _rglru_gated_fwd(x, ws, h0, state_out, plan=None, starts=None):
         raise ValueError(f"rglru_gated: h0 and state_out share memory, which only a "
                          f"one-chunk plan may update in place; T = {x.shape[1]} takes "
                          f"{nchunks} chunks")
+    if shapes_only:
+        return torch.empty_like(x), (torch.empty((x.shape[0], x.shape[2]), dtype=torch.float32,
+                                                 device=x.device)
+                                     if state_out is None else state_out)
     if x.device.type == "cpu":
         if starts is not None:
             starts.copy_(rglru_gated_starts_plain(x, *ws, nchunks=nchunks, chunk_len=chunk_len))
@@ -464,10 +472,13 @@ def _rglru_gated_fwd(x, ws, h0, state_out, plan=None, starts=None):
         torch.cuda.current_stream(x.device).cuda_stream)
     K.check(err, "rglru_gated")
     _count("gated")
+    if K.LISTENERS:
+        K.report("rglru", K.tensor_bytes(x, *ws, h0, h, state_out, starts))
     return h, state_out
 
 
-def rglru_gated_with_starts(x, wr, br, wi, bi, lam, *, plan: tuple[int, int]):
+def rglru_gated_with_starts(x, wr, br, wi, bi, lam, *, plan: tuple[int, int],
+                            shapes_only: bool = False):
     """:func:`rglru_gated` from h = 0 over ``plan = (nchunks, chunk_len)``
     (the backward's, :func:`plan_bwd_chunks`), also returning the h
     entering each chunk, fp32 [B, nchunks, C], for :func:`rglru_gated_bwd`:
@@ -478,7 +489,7 @@ def rglru_gated_with_starts(x, wr, br, wi, bi, lam, *, plan: tuple[int, int]):
     _check_gated(x, ws, None, None)
     _check_plan("rglru_gated", x, plan, cap=None)
     starts = _starts(x, plan[0])
-    h, h_last = _rglru_gated_fwd(x, ws, None, None, plan, starts)
+    h, h_last = _rglru_gated_fwd(x, ws, None, None, plan, starts, shapes_only=shapes_only)
     return h, h_last, starts
 
 
@@ -543,6 +554,8 @@ def rglru_bwd(a: torch.Tensor, b: torch.Tensor, dh: torch.Tensor, *,
         int(a.dtype == torch.bfloat16), torch.cuda.current_stream(a.device).cuda_stream)
     K.check(err, "rglru_bwd")
     _count_bwd("ab")
+    if K.LISTENERS:
+        K.report("rglru_bwd", K.tensor_bytes(a, b, dh, da, db, h_starts))
     return da, db
 
 
@@ -573,6 +586,8 @@ def rglru_gated_bwd(x, wr, br, wi, bi, lam, dh, *, plan: tuple[int, int] | None 
         int(wr.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
     K.check(err, "rglru_gated_bwd")
     _count_bwd("gated")
+    if K.LISTENERS:
+        K.report("rglru_bwd", K.tensor_bytes(x, *ws, dh, dx, *dws, h_starts))
     return (dx, *dws)
 
 
@@ -602,9 +617,10 @@ class RgLruGatedFn(torch.autograd.Function):
     and h from them."""
 
     @staticmethod
-    def forward(ctx, x, wr, br, wi, bi, lam):
+    def forward(ctx, x, wr, br, wi, bi, lam, shapes_only=False):
         ctx.plan = _bwd_plan(x)
-        h, h_last, starts = rglru_gated_with_starts(x, wr, br, wi, bi, lam, plan=ctx.plan)
+        h, h_last, starts = rglru_gated_with_starts(x, wr, br, wi, bi, lam, plan=ctx.plan,
+                                                    shapes_only=shapes_only)
         ctx.save_for_backward(x, wr, br, wi, bi, lam, starts)
         ctx.mark_non_differentiable(h_last)
         return h, h_last
@@ -612,4 +628,5 @@ class RgLruGatedFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh, _dh_last):
         *saved, starts = ctx.saved_tensors
-        return rglru_gated_bwd(*saved, dh.contiguous(), plan=ctx.plan, h_starts=starts)
+        return (*rglru_gated_bwd(*saved, dh.contiguous(), plan=ctx.plan, h_starts=starts),
+                None)

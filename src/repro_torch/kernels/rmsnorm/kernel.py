@@ -125,6 +125,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = EPS) -> torch.Ten
         torch.cuda.current_stream(x.device).cuda_stream)
     K.check(err, "rmsnorm")
     launches += 1
+    if K.LISTENERS:
+        K.report("rmsnorm", K.tensor_bytes(x, scale, y))
     return y
 
 
@@ -205,6 +207,8 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     K.check(err, f"rmsnorm_bwd ({r})")
     launches_bwd += 1
     launches_bwd_by_route[r] += 1
+    if K.LISTENERS:
+        K.report("rmsnorm_bwd", K.tensor_bytes(x, scale, dy, dx, dscale))
     return dx, dscale
 
 

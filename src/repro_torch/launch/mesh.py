@@ -36,6 +36,10 @@ from repro_torch.core.topology import (
 )
 
 BACKENDS = ("nccl", "gloo")
+# The dry run's one rank of a production world (``launch/dryrun.py``): its
+# groups hold no process group, and its collectives move no data
+# (``core/collectives._run``).  The launchers refuse it.
+FAKE_BACKEND = "fake"
 
 
 def init_distributed(backend: str, *, timeout: datetime.timedelta,
@@ -130,13 +134,17 @@ class MiCSGroups:
     ``new_group`` is collective over the launch world, so every live process
     creates every group, in the same order, including the groups it is not
     in, parked ones too.  :meth:`release` destroys this rank's groups when
-    the world changes."""
+    the world changes.
+
+    ``backend="fake"`` lays out the same groups for one rank of a world that
+    is not there (the dry run): no ``torch.distributed`` call is made, and
+    every collective over them completes at once without moving data."""
 
     def __init__(self, topo: MiCSTopology, rank: int, *, backend: str,
                  timeout: datetime.timedelta, inner: int | None = None):
-        if backend not in BACKENDS:
+        if backend not in (*BACKENDS, FAKE_BACKEND):
             raise ValueError(f"unknown backend {backend!r} (expected one of {BACKENDS})")
-        if dist.get_world_size() < topo.world_size:
+        if backend != FAKE_BACKEND and dist.get_world_size() < topo.world_size:
             raise ValueError(f"the process group has {dist.get_world_size()} ranks, the "
                              f"topology {topo.world_size}")
         self.topo, self.rank, self.backend = topo, rank, backend
@@ -187,8 +195,13 @@ class MiCSGroups:
         for ranks in groups:
             if list(ranks) != sorted(ranks):
                 raise ValueError(f"group {ranks} is not ascending")
-            handle = dist.new_group(ranks=list(ranks), timeout=self.timeout,
-                                    backend=self.backend)
+            if self.backend == FAKE_BACKEND:
+                if self.rank not in ranks:
+                    continue
+                handle = None
+            else:
+                handle = dist.new_group(ranks=list(ranks), timeout=self.timeout,
+                                        backend=self.backend)
             if self.rank in ranks:
                 mine = Group(name, tuple(ranks), handle, self.backend)
                 self._handles.append(handle)
@@ -200,7 +213,8 @@ class MiCSGroups:
         """Destroy the process groups this rank belongs to (a local call: the
         world changed, and the next world's groups replace them)."""
         for handle in self._handles:
-            dist.destroy_process_group(handle)
+            if handle is not None:
+                dist.destroy_process_group(handle)
         self._handles = []
 
     def kv(self, g: int) -> Group:

@@ -188,7 +188,7 @@ def main(argv=None):
     mem = memplan.predict_footprint(
         model, topo, gp, sp, micro_steps=args.micro_steps, local_batch=local_batch,
         seq=args.seq, boundary=mcfg.boundary_schedule, hop2_bucket_mb=mcfg.hop2_bucket_mb,
-        offload_opt=mcfg.offload_opt)
+        offload_opt=mcfg.offload_opt, mlstm_chunk=mcfg.mlstm_chunk)
     if world > 1:
         say(f"ranks: {world} over {args.dist_backend}, p={topo.partition_size} "
             f"({'ZeRO-3 ' if args.zero3 else ''}partition axes {list(topo.partition_axes)}), "

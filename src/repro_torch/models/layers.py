@@ -50,6 +50,8 @@ class Ctx:
     comm: Any = None               # the CommEngine of the model axis (tp > 1)
     mlstm_chunk: int = 0           # chunkwise-parallel mLSTM (0: the timestep scan)
     step_seed: int | None = None   # the training step: the int8 wires' dither seed
+    shapes_only: bool = False      # a trace of shapes on fake tensors (the memory planner's):
+                                   # the loops over time (the sLSTM, the RG-LRU) write nothing
 
     def tp_index(self) -> int:
         """This rank's coordinate on the model axis."""

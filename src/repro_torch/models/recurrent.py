@@ -90,11 +90,11 @@ def _rglru_coeffs(t, x, prefix):
     return rglru_coeffs_plain(x, *(t[prefix + n] for n in GATE_NAMES))
 
 
-def rglru_scan(t, x, prefix: str = "rec."):
+def rglru_scan(t, x, prefix: str = "rec.", shapes_only: bool = False):
     """RG-LRU over a sequence from h = 0 (the kernel, gates fused in; as
     ``RgLruGatedFn`` when autograd records the call).  x [b, T, rl] -> (h in
     x's dtype, the fp32 final state [b, rl], which carries no gradient)."""
-    return rglru_gated(x, *(t[prefix + n] for n in GATE_NAMES))
+    return rglru_gated(x, *(t[prefix + n] for n in GATE_NAMES), shapes_only=shapes_only)
 
 
 def rglru_step(t, x1, state, prefix: str = "rec."):
@@ -125,7 +125,7 @@ def griffin_rec_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, cache=None, prefix: str
         new_cache = cache
     else:
         xa, conv_state = _causal_conv1d(xa, tt["rec.conv_w"], tt["rec.conv_b"])
-        rec, h_last = rglru_scan(tt, xa, "rec.")
+        rec, h_last = rglru_scan(tt, xa, "rec.", ctx.shapes_only)
         new_cache = None
         if ctx.mode == "prefill":
             new_cache = {"conv": conv_state.to(torch.bfloat16).contiguous(), "h": h_last}
@@ -333,7 +333,7 @@ SLSTM_GATES = ("z", "i", "f", "o")
 SLSTM_N_FLOOR = 1e-6
 
 
-def _slstm_steps(px, r, c, n, h, m, saved=None):
+def _slstm_steps(px, r, c, n, h, m, saved=None, shapes_only: bool = False):
     """The sLSTM recurrence over ``px`` [T, nh, b, 4, dh] (each step's
     input products and biases, gates z, i, f, o), heads leading: the
     state c, n, h, m [nh, b, dh] fp32, ``r`` [nh, dh, 4 dh] the four
@@ -342,9 +342,12 @@ def _slstm_steps(px, r, c, n, h, m, saved=None):
     gate math of the reference's ``_slstm_step``, 15 launches.  Returns
     (hs [T, nh, b, dh], (c, n, h, m)).  ``saved``: (pre [T, nh, b, 4, dh],
     c, n, m [T + 1, nh, b, dh]) that each step writes its pre-activations
-    and states into, for :class:`SlstmScanFn`'s backward."""
+    and states into, for :class:`SlstmScanFn`'s backward.  ``shapes_only``
+    (``L.Ctx.shapes_only``): the steps are skipped, ``hs`` left unwritten."""
     steps = px.shape[0]
     hs = px.new_empty((steps, *h.shape))
+    if shapes_only:
+        return hs, (c, n, h, m)
     for i in range(steps):
         if saved is None:
             pre = torch.baddbmm(px[i].flatten(2), h, r).view(px.shape[1:])
@@ -382,7 +385,7 @@ class SlstmScanFn(torch.autograd.Function):
     dh, 4 dh] (fp32) -> hs [T, nh, b, dh] fp32."""
 
     @staticmethod
-    def forward(ctx, px, r):
+    def forward(ctx, px, r, shapes_only=False):
         steps, nh, b, _, dh = px.shape
         c, n, h, m = _zero_slstm_state((nh, b, dh), px.device, px.dtype)
         pre = torch.empty_like(px)
@@ -390,7 +393,7 @@ class SlstmScanFn(torch.autograd.Function):
                   for _ in range(3)]
         for buf, val in zip(states, (c, n, m)):
             buf[0].copy_(val)
-        hs, _ = _slstm_steps(px, r, c, n, h, m, saved=(pre, *states))
+        hs, _ = _slstm_steps(px, r, c, n, h, m, saved=(pre, *states), shapes_only=shapes_only)
         ctx.save_for_backward(pre, *states, hs, r)
         return hs
 
@@ -442,7 +445,7 @@ class SlstmScanFn(torch.autograd.Function):
         h_prev = torch.cat([zero[None], hs[:-1]])  # [T, nh, b, dh]
         dr = torch.bmm(h_prev.permute(1, 3, 0, 2).reshape(nh, dh, steps * b),
                        dpre.permute(1, 0, 2, 3, 4).reshape(nh, steps * b, 4 * dh))
-        return dpre, dr
+        return dpre, dr, None
 
 
 def _heads_first(s: torch.Tensor, nh: int) -> torch.Tensor:
@@ -480,7 +483,7 @@ def slstm_apply(cfg: ArchConfig, t, x, ctx: L.Ctx, cache=None, prefix: str = "")
             cache[k].copy_(_heads_last(v))                       # in place
         new_cache = cache
     elif L._records_grad(px, r):
-        hs, new_cache = SlstmScanFn.apply(px, r), None
+        hs, new_cache = SlstmScanFn.apply(px, r, ctx.shapes_only), None
     else:
         hs, new = _slstm_steps(px, r, *_zero_slstm_state((nh, bsz, dh), x.device))
         new_cache = None

@@ -310,6 +310,98 @@ def test_argument_bytes_are_init_states(name, offload_opt):
         assert plan.state_bytes == plan.args_bytes == nbytes, topo
 
 
+def _hooked_saved_bytes(model, b: int, seq: int, chunk: int) -> int:
+    """What one row of the model's first layer pool keeps for its backward,
+    run for real on the CPU: every tensor ``saved_tensors_hooks`` packs and
+    the graph still holds once the row has returned, each storage once,
+    less the row's inputs."""
+    import weakref
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    comm = CommEngine(MiCSTopology())
+    ctx = L.Ctx(mode="train", compute_dtype=torch.bfloat16, comm=comm, mlstm_chunk=chunk)
+    pool = model.pools[0]
+    gen = torch.Generator().manual_seed(0)
+    full = (0.05 * torch.randn(pool.layout.flat_len, generator=gen)).bfloat16().requires_grad_()
+    x = torch.randn(b, seq, model.cfg.d_model, generator=gen).bfloat16().requires_grad_()
+    packed = []
+
+    def pack(t):
+        packed.append(weakref.ref(t))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = lm._layer_from_full(pool, comm, ctx, x, full)
+    inputs = {full.untyped_storage().data_ptr(), x.untyped_storage().data_ptr()}
+    live = {}
+    for ref in packed:
+        t = ref()
+        if t is not None and t.untyped_storage().data_ptr() not in inputs:
+            live[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    del out
+    return sum(live.values())
+
+
+@pytest.mark.parametrize("name,chunk", [("xlstm-125m", 8), ("xlstm-125m", 16),
+                                        ("xlstm-125m", 0), ("deepseek-moe-16b", 0),
+                                        ("recurrentgemma-2b", 0)])
+def test_layer_saved_bytes_are_what_a_row_saves(name, chunk, one_thread):
+    """The ``layer`` moment's ``layer_saved`` term (``memplan.layer_saved_bytes``,
+    traced on fake tensors; xLSTM's extended in a line from two and three
+    chunks or steps) equals what ``saved_tensors_hooks`` sees one row save on
+    the CPU, counted by storage: xLSTM's super-layer (three mLSTM blocks,
+    chunkwise at two chunk sizes and as the timestep scan, and the sLSTM's
+    scan states), an MoE layer (attention, the router and the [E, cap + 1,
+    d] dispatch) and a griffin row (the RG-LRU's saved chunk starts)."""
+    cfg = smoke_variant(get_config(name))
+    model = build_model(cfg, tp=1)
+    b, seq = 2, 64
+    pool = model.pools[0]
+    want = _hooked_saved_bytes(model, b, seq, chunk)
+    got = M.layer_saved_bytes(cfg, 1, b, seq, mlstm_chunk=chunk)
+    assert got[pool.name] == float(want)
+    plan = M.predict_footprint(model, M.DeviceGrid(1), GatherPolicy(), SyncPolicy(),
+                               micro_steps=2, local_batch=b, seq=seq, mlstm_chunk=chunk)
+    assert plan.moments["layer"]["layer_saved"] == max(got.values())
+    if name.startswith("xlstm"):  # the recurrences' saved states grow with the chunk count
+        assert M.layer_saved_bytes(cfg, 1, b, 2 * seq, mlstm_chunk=chunk)["x"] > want
+
+
+@pytest.mark.parametrize("name,b,seq,chunk,want", [
+    ("llama3.2-1b", 2, 1024, 0, "loss"),
+    ("xlstm-125m", 4, 1024, 64, "layer"),
+    ("xlstm-125m", 2, 1024, 64, "boundary"),
+    ("xlstm-125m", 0, 0, 0, "boundary")])
+def test_describe_names_the_larger_moment(name, b, seq, chunk, want):
+    """The plan is the largest of the step's moments and ``describe()``
+    names it: llama's loss backward (its logits), xLSTM's largest row's
+    backward at 4 x 1,024 tokens (its recurrences' saved states), and its
+    AdamW boundary at 2 x 1,024 tokens and with no batch priced; the
+    allocator's excess at xLSTM's moments is a term of its own."""
+    model = build_model(get_config(name), tp=1)
+    plan = M.predict_footprint(model, M.DeviceGrid(1), GatherPolicy(), SyncPolicy(),
+                               micro_steps=2, local_batch=b, seq=seq, mlstm_chunk=chunk)
+    d = plan.describe()
+    assert d["moment"] == plan.moment == want
+    assert d["moments"][want] == max(d["moments"].values())
+    assert plan.total_bytes == plan.args_bytes + d["moments"][want]
+    assert plan.temp_bytes == sum(plan.peak_components.values())
+    # the allocator's excess at the moment is a term of its own
+    excess = 0.0
+    if want != "loss":
+        share, term = {"layer": (M.LAYER_RESERVE_SHARE, "layer_saved"),
+                       "boundary": (M.BOUNDARY_RESERVE_SHARE, "boundary_update")}[want]
+        excess = share.get(model.cfg.family, 0.0) * d["moment_components"][want][term]
+    assert (excess > 0) == name.startswith("xlstm")
+    assert plan.reserve_excess == excess == d["reserve_excess"]
+    assert plan.reserved_bytes == plan.total_bytes * M.RESERVE_FACTOR + excess
+    # the loss's components stay the reference's decomposition
+    assert d["components"] == plan.components and "logits_ce" not in plan.moments.get(
+        "layer", {})
+
+
 # ---------------------------------------------------------------------------
 # the decision rules
 # ---------------------------------------------------------------------------

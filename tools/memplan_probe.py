@@ -1,6 +1,6 @@
 """Where a train step's device memory goes, against the memory planner.
 
-    python tools/memplan_probe.py [--runs NAME,...] [--steps N] [--out FILE]
+    python tools/memplan_probe.py [--runs NAME,...] [--steps N] [--rows] [--out FILE]
 
 On the card, for each of ``chip_smoke.py``'s one-card train runs (its
 ``TRAIN`` paths, the ``train_knobs`` variants, ``train_moe``,
@@ -18,6 +18,12 @@ history recorded, and prints a JSON line:
 * ``at_peak``: the live bytes at the step's peak by the innermost frame
   of the port that allocated them (the allocator's trace replayed to its
   largest point), the largest first.
+
+With ``--rows`` each line is instead one row of the run's first layer pool
+run as its checkpoint recomputes it (:func:`row_probe`): what its graph
+saves beside the planner's ``layer_saved``, its forward and backward's
+peak, and the share of the saved bytes that peak holds beyond them and the
+row's cotangents (``core/memplan.LAYER_BACKWARD_SHARE``'s reading).
 
 Byte counts are bytes; ``*_gb`` fields are 1e9 bytes, ``*_gib`` 2^30.  The
 lines also go to ``--out`` (default ``build/memplan_probe.jsonl``).
@@ -87,6 +93,66 @@ def live_at_peak(trace: list, start_bytes: int) -> tuple[int, dict]:
         tags[t] = tags.get(t, 0) + ev["size"]
     tags["before"] = before
     return peak, dict(sorted(tags.items(), key=lambda kv: -kv[1]))
+
+
+def row_probe(cs, name: str, dev) -> dict:
+    """One row of the run's first layer pool on the card, as its checkpoint
+    recomputes it in the backward: the bytes its autograd graph keeps
+    (``core/memplan.saved_bytes``, beside the planner's ``layer_saved``),
+    the bytes allocated when its forward returns, the peak of its forward
+    and backward (a bf16 cotangent of ones into its output) above its
+    inputs, and ``backward_share``: that peak less the planned saved bytes
+    and ``layer_cotangent``, over the planned saved bytes."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import memplan as MP
+    from repro_torch.core.comm import CommEngine
+    from repro_torch.core.topology import MiCSTopology
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models.build import build_model
+
+    path, layers, knobs = runs(cs)[name]
+    cfg = get_config(path.arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = build_model(cfg, tp=1)
+    chunk = knobs.get("mlstm_chunk", 0)
+    comm = CommEngine(MiCSTopology())
+    ctx = L.Ctx(mode="train", compute_dtype=torch.bfloat16, comm=comm, mlstm_chunk=chunk)
+    pool, b = model.pools[0], path.global_batch // path.micro_steps
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full = (0.05 * torch.randn(pool.layout.flat_len, generator=gen, device=dev)).bfloat16()
+    x = torch.randn(b, path.seq, cfg.d_model, generator=gen, device=dev).bfloat16()
+    full.requires_grad_()
+    x.requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    out = []
+    saved = MP.saved_bytes(lambda: out.append(lm._layer_from_full(pool, comm, ctx, x, full)),
+                           exclude=(x, full))
+    torch.cuda.synchronize()
+    fwd = torch.cuda.memory_allocated() - start
+    y, aux = out.pop()
+    outs, cts = [y], [torch.ones_like(y)]
+    if isinstance(aux, torch.Tensor) and aux.requires_grad:
+        outs.append(aux)
+        cts.append(torch.ones_like(aux))
+    torch.autograd.backward(outs, cts)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    plan = MP.layer_saved_bytes(cfg, 1, b, path.seq, mlstm_chunk=chunk)[pool.name]
+    cot = MP.layer_cotangent_bytes(pool.layout.flat_len, b, path.seq, cfg.d_model, 2)
+    del y, aux, outs, cts, full, x
+    torch.cuda.empty_cache()
+    return {"row": name, "family": cfg.family, "pool": pool.name, "local_batch": b,
+            "seq": path.seq, "mlstm_chunk": chunk, "saved_bytes": saved,
+            "plan_layer_saved": plan, "fwd_allocated_bytes": fwd, "peak_over_inputs_bytes": peak,
+            "layer_cotangent": cot, "flat_len": pool.layout.flat_len,
+            "backward_share": (peak - plan - cot) / plan,
+            "plan_backward_share": MP.LAYER_BACKWARD_SHARE.get(cfg.family)}
 
 
 def train_probe(cs, name: str, dev, steps: int = 1) -> dict:
@@ -178,6 +244,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", default=",".join(names), help=f"of {names}")
     ap.add_argument("--steps", type=int, default=1, help="train steps a run")
+    ap.add_argument("--rows", action="store_true",
+                    help="probe one row of each run's first layer pool instead of a step")
     ap.add_argument("--out", default=str(ROOT / "build" / "memplan_probe.jsonl"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -190,7 +258,8 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     with out.open("w") as f:
         for name in args.runs.split(","):
-            line = train_probe(cs, name, dev, args.steps)
+            line = (row_probe(cs, name, dev) if args.rows
+                    else train_probe(cs, name, dev, args.steps))
             line["gpu"] = card
             text = json.dumps(line)
             print(text, flush=True)
